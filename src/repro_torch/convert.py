@@ -1,0 +1,49 @@
+"""The one bridge between the two packages: a ``repro`` parameter tree,
+already turned into numpy arrays, becomes a ``repro_torch`` tree.
+
+The reference stacks every per-layer leaf on axis 0 (``params["layers"]``,
+consumed by ``lax.scan``); the port keeps one dict per layer, so this
+unstacks them. Everything else maps key for key. bf16 arrays (numpy's
+``ml_dtypes.bfloat16``) are carried bit for bit.
+
+Nothing here imports JAX: callers convert with ``jax.tree.map(np.asarray,
+params)`` first. Parity tests use this to run both packages on the same
+weights, since a JAX and a torch init of one seed draw different numbers.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy()
+                             ).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device)
+
+
+def _map(node, fn):
+    if isinstance(node, dict):
+        return {k: _map(v, fn) for k, v in node.items()}
+    return fn(node)
+
+
+def params_from_jax(tree: dict, device=None) -> dict:
+    """numpy tree of ``repro.models.init_lm`` -> ``repro_torch`` params on
+    ``device`` (default ``"cuda"``; pass ``"cpu"`` explicitly off the card)."""
+    device = resolve_device(device)
+    out = {k: _map(v, lambda a: _tensor(a, device))
+           for k, v in tree.items() if k != "layers"}
+    leaves = []
+    _map(tree["layers"], leaves.append)
+    n_layers = np.asarray(leaves[0]).shape[0]
+    out["layers"] = [_map(tree["layers"],
+                          lambda a, i=i: _tensor(np.asarray(a)[i], device))
+                     for i in range(n_layers)]
+    return out

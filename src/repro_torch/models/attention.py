@@ -1,0 +1,174 @@
+"""GQA/MQA/MHA attention — the port of ``repro/models/attention.py``'s GQA
+half (MLA is a later slice).
+
+``chunked_attention`` is the prefill path: an online softmax over KV
+chunks inside a loop over Q chunks, in the reference's update order. The
+decode helpers (``gqa_decode_qkv``, ``gqa_attend``) serve the engine's
+gather path. Score einsums take f32 operands, as the reference's
+``preferred_element_type=f32`` does: products of bf16 values are exact in
+f32, so the two agree up to summation order.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from ..configs.base import ModelConfig
+from .common import SiteDef, apply_site, init_site, make_site, rope
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Core chunked attention
+# ---------------------------------------------------------------------------
+
+def _attn_one_qchunk(q, k, v, qpos, kpos, *, causal: bool, scale: float,
+                     kv_chunk: int) -> torch.Tensor:
+    """Online softmax over KV chunks for one Q chunk.
+
+    q: (B, Sq, Hq, D)   k/v: (B, T, Hkv, D)   qpos: (Sq,)  kpos: (T,)
+    returns (B, Sq, Hq, D). KV heads are expanded to Hq per chunk."""
+    b, sq, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = q.float()
+    m = torch.full((b, hq, sq), NEG_INF, device=q.device)
+    l = torch.zeros((b, hq, sq), device=q.device)
+    acc = torch.zeros((b, hq, sq, d), device=q.device)
+    for c0 in range(0, t, kv_chunk):
+        kc, vc = k[:, c0:c0 + kv_chunk], v[:, c0:c0 + kv_chunk]
+        kp = kpos[c0:c0 + kv_chunk]
+        if g > 1:
+            kc = torch.repeat_interleave(kc, g, dim=2)      # (B, ck, Hq, D)
+            vc = torch.repeat_interleave(vc, g, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kc.float()) * scale
+        if causal:
+            s = torch.where((qpos[:, None] >= kp[None, :])[None, None], s,
+                            NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(vc.dtype).float(), vc.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, q_offset: int = 0, q_chunk: int = 512,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """General attention. q: (B,S,Hq,D); k,v: (B,T,Hkv,D)."""
+    b, s, hq, d = q.shape
+    t = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    q_chunk = min(q_chunk, s)
+    kv_chunk = min(kv_chunk, t)
+    t_pad = (-t) % kv_chunk
+    if t_pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, t_pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, t_pad))
+    kpos = torch.arange(t + t_pad, device=q.device)
+    kpos = torch.where(kpos < t, kpos, torch.iinfo(torch.int32).max)
+    if s % q_chunk:
+        raise ValueError(f"sequence {s} is not a multiple of q_chunk "
+                         f"{q_chunk}")
+    outs = []
+    for q0 in range(0, s, q_chunk):
+        qpos = q_offset + q0 + torch.arange(q_chunk, device=q.device)
+        outs.append(_attn_one_qchunk(q[:, q0:q0 + q_chunk], k, v, qpos, kpos,
+                                     causal=causal, scale=scale,
+                                     kv_chunk=kv_chunk))
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# GQA block
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class GQADef:
+    q: SiteDef
+    kv: SiteDef
+    o: SiteDef
+    num_heads: int          # padded head count used in the attention kernel
+    num_kv_heads: int
+    head_dim: int
+    real_heads: int         # the arch's true head count
+
+
+def make_gqa(cfg: ModelConfig) -> GQADef:
+    hd = cfg.resolved_head_dim
+    hq = cfg.num_heads
+    pad_to = getattr(cfg, "pad_heads_to", 0)
+    hp = max(hq, pad_to) if pad_to else hq
+    return GQADef(
+        q=make_site(cfg, "attn_qkv", hp * hd, cfg.d_model),
+        kv=make_site(cfg, "attn_qkv", 2 * cfg.num_kv_heads * hd, cfg.d_model),
+        o=make_site(cfg, "attn_o", cfg.d_model, hq * hd),
+        num_heads=hp, num_kv_heads=cfg.num_kv_heads, head_dim=hd,
+        real_heads=hq)
+
+
+def init_gqa(gen: torch.Generator, d: GQADef, cfg: ModelConfig,
+             device: torch.device) -> dict:
+    return {"q": init_site(gen, d.q, cfg, device),
+            "kv": init_site(gen, d.kv, cfg, device),
+            "o": init_site(gen, d.o, cfg, device)}
+
+
+def gqa_qkv(params: dict, x: torch.Tensor, d: GQADef, cfg: ModelConfig,
+            positions: torch.Tensor):
+    """q (B,S,Hq,Dh) and k/v (B,S,Hkv,Dh); K and V come out of one ``kv``
+    projection viewed (B, S, 2, Hkv, Dh), as in the reference."""
+    b, s, _ = x.shape
+    q = apply_site(params["q"], x, d.q, cfg).reshape(b, s, d.num_heads,
+                                                     d.head_dim)
+    kv = apply_site(params["kv"], x, d.kv, cfg).reshape(
+        b, s, 2, d.num_kv_heads, d.head_dim)
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+# decode / chunk projections are the same computation over (B, S) positions
+gqa_decode_qkv = gqa_qkv
+
+
+def len_positions(cur_len, b: int) -> torch.Tensor:
+    """(B,1) query positions from a scalar or per-slot (B,) ``cur_len``."""
+    cl = torch.as_tensor(cur_len, dtype=torch.int32)
+    if cl.dim() == 0:
+        return cl.expand(b, 1)
+    return cl.reshape(b, 1)
+
+
+def causal_len_mask(qpos: torch.Tensor, t: int) -> torch.Tensor:
+    """(B, S, T) mask: key position visible iff kpos <= qpos."""
+    kpos = torch.arange(t, device=qpos.device)
+    return kpos[None, None, :] <= qpos[:, :, None]
+
+
+def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d: GQADef,
+               qpos: torch.Tensor) -> torch.Tensor:
+    """Decode-style attention over a full cache with per-row lengths.
+
+    q: (B,S,Hq,Dh); k,v: (B,T,Hkv,Dh); qpos: (B,S) absolute query positions
+    (key position kpos attends iff kpos <= qpos). Returns (B,S,real*Dh)."""
+    b, s = q.shape[:2]
+    t = k.shape[1]
+    scale = 1.0 / math.sqrt(d.head_dim)
+    g = d.num_heads // d.num_kv_heads
+    qg = q.reshape(b, s, d.num_kv_heads, g, d.head_dim)
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    mask = causal_len_mask(qpos, t)                       # (B, S, T)
+    sc = torch.where(mask[:, None, None], sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+    out = out.reshape(b, s, d.num_heads, d.head_dim)[:, :, :d.real_heads]
+    return out.reshape(b, s, d.real_heads * d.head_dim)

@@ -1,0 +1,263 @@
+"""Continuous-batching inference engine — the port of
+``repro/serve/engine.py`` for dense GQA models.
+
+Requests occupy *slots* of a ``num_slots``-lane decode batch, each at its
+own length; a retired slot (max-new-tokens or EOS) frees its pages and is
+refilled on the next iteration, so the batch never drains to admit work.
+Prefill is the model's own whole-prompt ``lm_forward``, whose K/V cache is
+scattered into the slot-paged (optionally int8 pow-2) pool; decode appends
+each new token's K/V and attends either through the fused paged-attention
+kernel (``fused_attention=True``) or by gathering and dequantizing every
+slot's view and running ``gqa_attend`` (the default, and the in-engine
+reference for the fused path).
+
+Numerics: float32 matmuls stay float32 on the card — the engine sets
+``torch.backends.cuda.matmul.allow_tf32 = False`` (and cuDNN's) where it
+is built, so the fp32 fused-vs-gather identity holds as in the reference.
+The pool is updated in place (see ``kv_cache``); PyTorch runs eagerly, so
+there is no compiled-step cache.
+
+Out of this slice (they raise ``NotImplementedError`` naming the slice
+they wait for): prefix cache, speculative decoding, chunked prefill,
+recurrent/MoE/MLA sublayers (at ``build_lm``), a mesh, quant-health
+policies and trace recorders.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models import attention as A
+from ..models.common import apply_site, rms_norm
+from ..models.lm import LMDef, embed_tokens, lm_forward, sub_ffn_decode
+from . import kv_cache as KC
+from .kv_cache import PoolConfig
+from .metrics import ServeMetrics
+from .sampling import SamplingParams, sample_tokens
+from .scheduler import Request, Scheduler
+
+
+class Completion(NamedTuple):
+    rid: int
+    prompt: list[int]
+    tokens: list[int]           # generated tokens (first token included)
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    pool: PoolConfig
+    prefill_chunk: int = 0      # > 0: chunked prefill (later slice)
+    prefill_bucket: int = 0     # pad prompts to a multiple of this (0: exact)
+    seed: int = 0               # seeds the sampling generator
+    fused_attention: bool = False
+                                # decode attends via the fused paged-
+                                # attention kernel instead of gather + attend
+    prefix_cache: bool = False  # radix prefix sharing (later slice)
+    spec_k: int = 0             # speculative decoding (later slice)
+    policy: object = None       # NumericsPolicy / quant health (later slice)
+
+
+def _bucket_len(n: int, bucket: int) -> int:
+    """Smallest multiple of ``bucket`` >= n (n itself when bucket <= 0)."""
+    return n if bucket <= 0 else n + (-n) % bucket
+
+
+class Engine:
+    """Continuous-batching serving engine over a paged, quantized KV pool.
+
+    ``device`` defaults to ``"cuda"`` and raises without a card unless
+    ``device="cpu"`` is passed; ``params`` must already live there."""
+
+    def __init__(self, lm: LMDef, params: dict, ecfg: EngineConfig,
+                 device=None, clock=time.monotonic, plan=None, trace=None,
+                 draft=None):
+        later = [(ecfg.prefix_cache, "the radix prefix cache (ROADMAP "
+                  "queue 1: serve/prefix.py)"),
+                 (ecfg.spec_k != 0 or draft is not None,
+                  "speculative decoding (ROADMAP queue 1)"),
+                 (ecfg.prefill_chunk > 0, "chunked prefill (ROADMAP queue "
+                  "1: kv_cache.write_chunk and the engine's chunk step)"),
+                 (ecfg.policy is not None, "numerics policies and quant "
+                  "health (the training slice, numerics/policy.py)"),
+                 (plan is not None, "multi-device serving (ROADMAP queue 1: "
+                  "sharding)"),
+                 (trace is not None, "trace recorders (ROADMAP queue 1: "
+                  "obs/)")]
+        for asked, what in later:
+            if asked:
+                raise NotImplementedError(f"{what} is a later slice of the "
+                                          "port")
+        cfg = lm.cfg
+        if cfg.is_encoder:
+            raise NotImplementedError("encoder-only archs have no decode path")
+        self.device = resolve_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        wdev = params["embed"]["w"].device
+        if wdev.type != self.device.type:
+            raise ValueError(f"params live on {wdev}, engine on {self.device}")
+        self.lm = lm
+        self.params = params
+        self.ecfg = ecfg
+        self.pcfg = ecfg.pool
+        self.pool = KC.init_pool(lm, self.pcfg, self.device)
+        self.sched = Scheduler(self.pcfg)
+        self.metrics = ServeMetrics(clock=clock)
+        self.metrics.num_slots = self.pcfg.num_slots
+        self.metrics.cache_bytes = KC.pool_bytes(self.pool)
+        self.metrics.cache_bytes_fp32 = KC.pool_bytes_fp32(self.pool)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(ecfg.seed)
+        self._completions: dict[int, Completion] = {}
+        self._orig_prompt: dict[int, list[int]] = {}
+
+    # ---- device steps --------------------------------------------------
+    def _tensor(self, a, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def _sub_decode(self, pp: dict, x: torch.Tensor, layer: int, key: str,
+                    sub, table, lens, active) -> torch.Tensor:
+        cfg = self.lm.cfg
+        d = sub.mixer
+        b = x.shape[0]
+        positions = A.len_positions(lens, b)
+        h = rms_norm(x, pp["norm1"]["scale"], cfg.norm_eps)
+        q, k_new, v_new = A.gqa_decode_qkv(pp["mixer"], h, d, cfg, positions)
+        data = {n: t[layer] for n, t in self.pool["data"][key].items()}
+        scale = {n: t[layer] for n, t in self.pool["scale_log2"][key].items()}
+        for name, new in (("k", k_new), ("v", v_new)):
+            KC.append_token(data[name], scale[name], new, table, lens, active,
+                            self.pcfg)
+        if self.ecfg.fused_attention:
+            attn = KC.fused_attend(data["k"], data["v"], scale["k"],
+                                   scale["v"], q[:, 0], table, lens,
+                                   self.pcfg)
+            attn = attn[:, :d.real_heads].reshape(b, 1,
+                                                  d.real_heads * d.head_dim)
+        else:
+            kv = {n: KC.gather_slots(data[n], scale[n], table, self.pcfg,
+                                     h.dtype) for n in ("k", "v")}
+            attn = A.gqa_attend(q, kv["k"], kv["v"], d, positions)
+        x = x + apply_site(pp["mixer"]["o"], attn, d.o, cfg)
+        return sub_ffn_decode(pp, x, sub, cfg)
+
+    @torch.no_grad()
+    def _decode(self, table, lens, active, tokens) -> torch.Tensor:
+        """One batched decode step. tokens: (B,1); lens/active: (B,).
+        Returns logits (B, V); the pool is updated in place."""
+        lm = self.lm
+        x = embed_tokens(self.params, tokens, lm)
+        for layer, pp in enumerate(self.params["layers"]):
+            for i, sub in enumerate(lm.period):
+                x = self._sub_decode(pp[f"sub_{i}"], x, layer, f"sub_{i}",
+                                     sub, table, lens, active)
+        x = rms_norm(x, self.params["final_norm"]["scale"], lm.cfg.norm_eps)
+        return apply_site(self.params["head"], x, lm.head, lm.cfg)[:, 0]
+
+    @torch.no_grad()
+    def _prefill(self, slot: int, st) -> torch.Tensor:
+        """Whole-prompt prefill: the model's own forward, then one scatter
+        of its cache into the pool. Returns the last real position's logits
+        (1, V)."""
+        toks = st.req.prompt
+        padded = toks + [0] * (_bucket_len(len(toks), self.ecfg.prefill_bucket)
+                               - len(toks))
+        logits, _, cache = lm_forward(
+            self.params, self.lm, tokens=self._tensor([padded], torch.long),
+            return_cache=True)
+        table_row = self._tensor(self.sched.page_table[slot])
+        KC.write_prefill(self.pool, cache, table_row, slot, len(toks),
+                         self.pcfg)
+        return logits[0, len(toks) - 1][None]
+
+    def _sample(self, logits: torch.Tensor, slots: list[int]) -> np.ndarray:
+        sp = [self.sched.slots[s].req.sampling if self.sched.slots[s]
+              else SamplingParams() for s in slots]
+        toks = sample_tokens(
+            logits, self._gen,
+            self._tensor([p.temperature for p in sp], torch.float32),
+            self._tensor([p.top_k for p in sp], torch.int32),
+            self._tensor([p.top_p for p in sp], torch.float32))
+        return toks.cpu().numpy()
+
+    # ---- request lifecycle --------------------------------------------
+    def submit(self, prompt: list[int], max_new_tokens: int = 32,
+               sampling: SamplingParams | None = None,
+               eos_id: int = -1) -> int:
+        req = Request(prompt=list(prompt), max_new_tokens=max_new_tokens,
+                      sampling=sampling or SamplingParams(), eos_id=eos_id)
+        rid = self.sched.submit(req)
+        self._orig_prompt[rid] = list(prompt)
+        self.metrics.request_submitted(rid)
+        return rid
+
+    def _finish(self, slot: int) -> None:
+        st = self.sched.retire(slot)
+        rid = st.req.rid
+        orig = self._orig_prompt[rid]
+        tokens = (st.req.prompt + st.generated)[len(orig):]
+        self._completions[rid] = Completion(rid, orig, tokens)
+        self.metrics.request_finished(rid, len(tokens))
+
+    def step(self) -> None:
+        """One engine iteration: admit + prefill, then one batched decode."""
+        sched = self.sched
+        while (adm := sched.try_admit()) is not None:
+            slot, st = adm
+            self.metrics.request_admitted(st.req.rid, st.prompt_len)
+            last = self._prefill(slot, st)
+            self.metrics.prefill(st.prompt_len)
+            tok = int(self._sample(last, [slot])[0])
+            st.generated.append(tok)
+            st.last_token = tok
+            self.metrics.request_first_token(st.req.rid)
+            if st.done():
+                self._finish(slot)
+
+        active_slots = [i for i, s in enumerate(sched.slots) if s is not None]
+        # map the page each active slot is about to write; preempt the
+        # youngest slot while the pool is exhausted
+        for slot in active_slots:
+            if sched.slots[slot] is None:
+                continue
+            while not sched.ensure_page(slot):
+                evicted = sched.preempt_youngest()
+                if evicted is None:
+                    raise RuntimeError(
+                        "KV pool exhausted and nothing to preempt — "
+                        "increase num_pages/pages_per_slot")
+                self.metrics.preempted()
+                if evicted == slot:
+                    break
+        active_slots = [i for i, s in enumerate(sched.slots) if s is not None]
+        if not active_slots:
+            return
+        logits = self._decode(self._tensor(sched.page_table),
+                              self._tensor(sched.lens_vector()),
+                              self._tensor(sched.active_mask()),
+                              self._tensor(sched.tokens_vector()))
+        toks = self._sample(logits, list(range(self.pcfg.num_slots)))
+        free_pages = sched.alloc.free_pages
+        for slot in active_slots:
+            st = sched.slots[slot]
+            st.generated.append(int(toks[slot]))
+            st.last_token = int(toks[slot])
+            if st.done():
+                self._finish(slot)
+        self.metrics.decode_step(len(active_slots), free_pages)
+
+    def run(self) -> dict[int, Completion]:
+        """Drive until every submitted request has completed."""
+        while self.sched.has_work():
+            self.step()
+        return dict(self._completions)
+
+    def summary(self) -> dict:
+        out = self.metrics.summary()
+        out["device"] = str(self.device)
+        return out

@@ -1,0 +1,163 @@
+"""repro_torch.numerics against repro.numerics (the JAX reference).
+
+The row-scale pow-2 codec is the KV pool's write and read path. Its codes
+must be BIT-identical to ``repro``'s ``Pow2Reference`` and to the Pallas
+row-scale kernels (interpret mode on the CPU), for every pool-shaped
+scale layout, f32 and bf16 inputs, exact .5 ties (half-to-even) and
+clipping at both ends of [-128, 127]. On CPU tensors the port's ``cuda``
+codec runs its kernels' plain versions, so these tests hold the plain
+versions — the oracle the CUDA kernels meet on the card — to the
+reference.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro import numerics as JN  # noqa: E402
+from repro_torch import numerics as TN  # noqa: E402
+from repro_torch.numerics import cuda_backend as CB  # noqa: E402
+
+SPEC_J = JN.QuantSpec("pow2", 8, 0, "int8", "per_tensor_max")
+SPEC_T = TN.QuantSpec("pow2", 8, 0, "int8", "per_tensor_max")
+
+
+def _to_torch(a) -> "torch.Tensor":
+    """Same bits on both sides (bf16 via its uint16 pattern)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _bits(a) -> np.ndarray:
+    """Raw bit patterns of a numpy array or tensor (16-bit floats as
+    int16), so equality is bit equality."""
+    if isinstance(a, torch.Tensor):
+        return (a.view(torch.int16) if a.element_size() == 2 else a).numpy()
+    a = np.asarray(a)
+    return a.view(np.int16) if a.dtype.itemsize == 2 else a
+
+
+def _data(shape, scale_shape, seed):
+    """Values on and around the pow-2 grid: random, exact .5 ties, and far
+    outside the int8 range at both ends."""
+    rng = np.random.RandomState(seed)
+    s = rng.randint(-8, 3, scale_shape).astype(np.float32)
+    step = np.exp2(s).reshape(scale_shape + (1,) * (len(shape)
+                                                   - len(scale_shape)))
+    n = int(np.prod(shape))
+    kind = rng.randint(0, 4, n).reshape(shape)
+    codes = rng.randint(-140, 140, shape)
+    x = np.where(kind == 0, rng.randn(*shape) * 40,           # random
+        np.where(kind == 1, codes + 0.5,                       # .5 ties
+        np.where(kind == 2, codes, rng.randn(*shape) * 400)))  # grid, clip
+    return (x * step).astype(np.float32), s
+
+
+# (data shape, scale shape): prefill write (L, S, Hkv, Dh) with (L, 1),
+# decode append (B, Hkv, Dh) with (B, 1, 1), gather read (B, T, Hkv, Dh)
+# with (B, 1, 1, 1), a non-multiple-of-4 row (the kernel's scalar path),
+# and a one-layer prefill / one-slot append (a one-element scale)
+POOL_LAYOUTS = [((3, 9, 2, 8), (3, 1)), ((4, 2, 8), (4, 1, 1)),
+                ((2, 12, 2, 8), (2, 1, 1, 1)), ((5, 7, 3), (5,)),
+                ((1, 9, 2, 8), (1, 1)), ((1, 2, 8), (1, 1, 1))]
+
+
+@pytest.mark.parametrize("shape,sshape", POOL_LAYOUTS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_row_scale_encode_codes_bit_identical(shape, sshape, dtype):
+    x, s = _data(shape, sshape, seed=len(shape) + len(sshape))
+    xj = jnp.asarray(x, dtype)
+    ref = np.asarray(JN.encode(xj, SPEC_J, jnp.asarray(s)).codes)
+    pal = np.asarray(JN.encode(xj, SPEC_J, jnp.asarray(s),
+                               backend="pallas").codes)
+    xt = _to_torch(np.asarray(xj))
+    port_ref = TN.encode(xt, SPEC_T, torch.from_numpy(s)).codes
+    port = TN.encode(xt, SPEC_T, torch.from_numpy(s), backend="cuda").codes
+    assert port.dtype == torch.int8 and tuple(port.shape) == shape
+    np.testing.assert_array_equal(ref, pal)
+    np.testing.assert_array_equal(port.numpy(), ref)
+    np.testing.assert_array_equal(port_ref.numpy(), ref)
+    # the data really exercised ties and both clip ends
+    assert ref.min() == -128 and ref.max() == 127
+
+
+@pytest.mark.parametrize("shape,sshape", POOL_LAYOUTS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_row_scale_decode_bit_identical(shape, sshape, dtype):
+    rng = np.random.RandomState(11)
+    q = rng.randint(-128, 128, shape).astype(np.int8)
+    s = rng.randint(-8, 3, sshape).astype(np.float32)
+    qt_j = JN.QTensor(jnp.asarray(q), jnp.asarray(s), SPEC_J)
+    ref = np.asarray(JN.decode(qt_j, jnp.dtype(dtype)))
+    pal = np.asarray(JN.decode(qt_j, jnp.dtype(dtype), backend="pallas"))
+    tdt = getattr(torch, dtype)
+    qt_t = TN.QTensor(torch.from_numpy(q), torch.from_numpy(s), SPEC_T)
+    port = TN.decode(qt_t, tdt, backend="cuda")
+    np.testing.assert_array_equal(_bits(ref), _bits(pal))
+    np.testing.assert_array_equal(_bits(port), _bits(ref))
+    np.testing.assert_array_equal(_bits(TN.decode(qt_t, tdt)), _bits(ref))
+
+
+def test_half_to_even_ties_and_clip_ends_exact():
+    """Hand-picked values: rint(±0.5, ±1.5, ±2.5) = (0, ±2, ±2) and the
+    asymmetric two's-complement range qrange(8) = (-128, 127)."""
+    assert TN.qrange(8) == JN.qrange(8) == (-128.0, 127.0)
+    x = np.array([[0.5, -0.5, 1.5, -1.5, 2.5, -2.5, 127.5, -128.5, 1e9, -1e9]],
+                 np.float32) * np.array([[4.0], [0.125]], np.float32)
+    s = np.array([2.0, -3.0], np.float32)
+    ref = np.asarray(JN.encode(jnp.asarray(x), SPEC_J, jnp.asarray(s)).codes)
+    port = TN.encode(torch.from_numpy(x), SPEC_T, torch.from_numpy(s),
+                     backend="cuda").codes.numpy()
+    np.testing.assert_array_equal(port, ref)
+    for row in port:
+        np.testing.assert_array_equal(row, [0, 0, 2, -2, 2, -2, 127, -128,
+                                            127, -128])
+
+
+def test_per_tensor_max_scale_matches_reference():
+    rng = np.random.RandomState(3)
+    x = (rng.randn(4, 10, 2, 8) * np.array([0.01, 1, 30, 900])[:, None,
+                                                               None, None]
+         ).astype(np.float32)
+    valid = np.arange(10) < 7
+    mask = valid.reshape(1, -1, 1, 1)
+    ref = JN.per_tensor_max_scale_log2(jnp.asarray(x), SPEC_J,
+                                       valid=jnp.asarray(mask),
+                                       reduce_axes=(1, 2, 3))
+    port = TN.per_tensor_max_scale_log2(torch.from_numpy(x), SPEC_T,
+                                        valid=torch.from_numpy(mask),
+                                        reduce_axes=(1, 2, 3))
+    np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
+
+
+def test_rowwise_view_and_rejections():
+    x = torch.zeros(3, 4, 5)
+    x2d, srow = CB._rowwise(x, torch.tensor([1.0, 2.0, 3.0]).reshape(3, 1))
+    assert tuple(x2d.shape) == (3, 20) and srow.tolist() == [1.0, 2.0, 3.0]
+    x2d, srow = CB._rowwise(x, torch.ones(1, 4))    # broadcast leading dim
+    assert tuple(x2d.shape) == (12, 5) and tuple(srow.shape) == (12,)
+    assert CB._rowwise(x, torch.ones(3, 2)) is None
+    # a one-element scale (scalar, one layer, one slot) is one row
+    x2d, srow = CB._rowwise(x, torch.ones(1, 1))
+    assert tuple(x2d.shape) == (1, 60) and tuple(srow.shape) == (1,)
+    # the cuda codec takes leading-index scales only — no silent fallback
+    with pytest.raises(NotImplementedError):
+        TN.encode(x, SPEC_T, torch.ones(2, 4), backend="cuda")
+    with pytest.raises(NotImplementedError):
+        TN.encode(x, TN.QuantSpec("pow2", 4, 0, "int4x2"), torch.ones(3),
+                  backend="cuda")
+
+
+def test_quant_spec_matches_reference_json():
+    for kw in ({}, dict(kind="blockwise", block=64, scale_policy="managed"),
+               dict(bits=4, storage_dtype="int4x2")):
+        j, t = JN.QuantSpec(**kw), TN.QuantSpec(**kw)
+        assert j.to_json_dict() == t.to_json_dict()
+        assert TN.QuantSpec.from_json_dict(j.to_json_dict()) == t
+        assert (t.qmin, t.qmax) == (j.qmin, j.qmax)
+    assert TN.packed_trailing(7) == 4
+    with pytest.raises(ValueError):
+        TN.QuantSpec(kind="nope")
