@@ -6,18 +6,25 @@ NVIDIA GPU. Run from the repository root with no arguments:
 
 Phases (any failure raises and the script exits non-zero):
 
-1. build   — compile every kernel of the serving path from
-             ``src/repro_torch/kernels/csrc`` (one nvcc per source, all in
-             parallel) and print each kernel's register/spill report.
-2. kernels — each kernel against its plain PyTorch version at the serving
-             path's shapes: the row-scale pow-2 encode (prefill rows 24 x
+1. build   — compile every kernel of the serving and training paths
+             from ``src/repro_torch/kernels/csrc`` (one nvcc per source, all
+             in parallel) and print each kernel's register/spill report.
+2. kernels — each serving kernel against its plain PyTorch version at the
+             serving path's shapes: the row-scale pow-2 encode (prefill rows 24 x
              S*1024, decode rows 8 x 1024) and decode (gather rows 8 x
              1024*1024) bit-exact; paged attention over an int8 pool
              (513, 16, 8, 128) with B=8, S in {1, 4}, ragged contexts up to
              1024, within 1e-5 in fp32 and 2 bf16 ulp (+1e-5) with bf16 q. Times
              each kernel (CUDA events, L2 flushed between launches), its
-             plain version and, for attention, a library yardstick
-             (gather + dequant + scaled_dot_product_attention).
+             plain version and a library yardstick (per-channel
+             quantize / dequantize for the codec where its codes match;
+             gather + dequant + scaled_dot_product_attention).
+   train kernels — the training kernels at the step's shapes: the scalar
+             fake-quant bit-exact at 4/8/16 bits in f32 and bf16, every
+             PE1/PE2/PE3 call of a step within 1e-4 (f32) / 2e-2 (bf16),
+             PE1's requant epilogue bit-identical to its own output through
+             encode -> decode; timed beside the plain version and a library
+             yardstick (fake_quantize_per_tensor_affine, torch.matmul).
 3. engine  — the main path: internlm2-1.8b at full width and depth, bf16,
              random weights from a seeded generator on the card, an int8
              paged pool (8 slots x 64 pages of 16) and fused paged
@@ -32,6 +39,18 @@ Phases (any failure raises and the script exits non-zero):
              time, device time per kernel, busy share.
 4. identity — the same requests in float32 at full width with 4 layers:
              fused and gather engines must emit identical greedy tokens.
+5. train   — the second main path: the paper's FMNIST TT MLP at its
+             published widths, random params from a seeded generator on
+             the card, 300 steps of ``launch/train_fmnist.py``'s step on
+             ``fashion_like(8192, seed=1)`` in the example's batch order,
+             launch counts zeroed just before and read just after (each
+             must equal 300 x ``launches_per_step``); the loss must fall
+             and test accuracy on ``fashion_like(2048, seed=2)`` beat
+             chance. Then a profiled window of steps: step time, device
+             time per kernel, busy share.
+6. train identity — one step from the same initial params on the card and
+             on the CPU (plain versions): loss, gradients and the stepped
+             params within the CPU parity tests' tolerances.
 
 Output: human-readable lines, then one JSON line describing every kernel,
 then the card's name and power limit (nvidia-smi), then the last line
@@ -43,6 +62,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import subprocess
 import sys
@@ -52,8 +72,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_OPS_PER_S = 989e12            # dense bf16 tensor-core peak
+FP32_OPS_PER_S = 67e12             # fp32 peak outside the tensor cores
 ARCH = "internlm2-1.8b"
-SOURCES = ["pow2_rows", "paged_attention"]
+SOURCES = ["pow2_rows", "paged_attention", "pow2_fq", "ttm_pe"]
+TRAIN_STEPS = 300
 
 
 def check(cond: bool, msg: str) -> None:
@@ -103,9 +125,13 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
-def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float = 0.0,
+             ops_per_s: float = BF16_OPS_PER_S) -> tuple[float, str]:
+    """The least time for the work: bytes at the HBM rate or operations at
+    ``ops_per_s`` (the bf16 tensor-core peak, or ``FP32_OPS_PER_S`` for
+    kernels that run on the CUDA cores), whichever is larger."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / BF16_OPS_PER_S * 1e3
+    to = ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -174,12 +200,17 @@ def phase_kernels(torch, timer: Timer) -> dict:
               "encode data did not reach both clip ends")
         ms = timer(lambda: CB.encode_rows(x, s, 8))
         pms = timer(lambda: CB.encode_rows_plain(x, s, 8), iters=10)
+        lms, lnote = _library_yardstick(
+            timer, lambda: _library_encode(torch, x, s),
+            lambda r: torch.equal(r.int_repr(), q))
         bms, by = bound_ms(rows * cols * 3 + rows * 4)
         enc_shapes.append(dict(shape=[rows, cols], what=what, ms=ms,
-                               plain_ms=pms, bound_ms=bms, bound_by=by,
-                               max_abs_err=err))
+                               plain_ms=pms, library_ms=lms,
+                               library_note=lnote, bound_ms=bms,
+                               bound_by=by, max_abs_err=err))
         log(f"p2_enc_rows {what} ({rows}x{cols}): {ms*1e3:.1f} us "
-            f"(plain {pms*1e3:.1f} us, bound {bms*1e3:.2f} us), codes exact")
+            f"(plain {pms*1e3:.1f} us, library {lnote}, bound "
+            f"{bms*1e3:.2f} us), codes exact")
     out["p2_enc_rows"] = enc_shapes
 
     # --- row-scale decode: the gather path's view (8 x 1024*1024) -> bf16
@@ -197,12 +228,16 @@ def phase_kernels(torch, timer: Timer) -> dict:
         check(torch.equal(y, ref), f"p2_dec_rows values differ ({what})")
         ms = timer(lambda: CB.decode_rows(q, s, dt))
         pms = timer(lambda: CB.decode_rows_plain(q, s, dt), iters=10)
+        lms, lnote = _library_yardstick(
+            timer, lambda: _library_decode(torch, q, s, dt),
+            lambda r: torch.equal(r, y))
         bms, by = bound_ms(rows * cols * (1 + y.element_size()) + rows * 4)
         dec_shapes.append(dict(shape=[rows, cols], what=what, ms=ms,
-                               plain_ms=pms, bound_ms=bms, bound_by=by,
-                               max_abs_err=0.0))
+                               plain_ms=pms, library_ms=lms,
+                               library_note=lnote, bound_ms=bms,
+                               bound_by=by, max_abs_err=0.0))
         log(f"p2_dec_rows {what}: {ms*1e3:.1f} us (plain {pms*1e3:.1f} us, "
-            f"bound {bms*1e3:.2f} us), values exact")
+            f"library {lnote}, bound {bms*1e3:.2f} us), values exact")
     out["p2_dec_rows"] = dec_shapes
 
     # --- paged attention: B=8, Hq=16, Hkv=8, Dh=128, page 16, 64 pages/slot
@@ -281,6 +316,38 @@ def phase_kernels(torch, timer: Timer) -> dict:
     torch.cuda.synchronize()
     B.reset_launches()
     return out
+
+
+def _library_yardstick(timer, fn, same) -> tuple[float | None, str]:
+    """Time a library call that should compute what a kernel does, if it
+    runs here and its output passes ``same`` bit for bit: ``(ms, note)``,
+    or ``(None, why not)``."""
+    try:
+        out = fn()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"not run ({type(e).__name__}: {str(e)[:80]})"
+    if not same(out):
+        return None, "not bit-identical"
+    ms = timer(fn)
+    return ms, f"{ms*1e3:.1f} us"
+
+
+def _library_encode(torch, x, s):
+    """Yardstick only: per-row int8 codes of x at scale 2^s, zero point 0
+    (the f32 cast, then torch.quantize_per_channel)."""
+    return torch.quantize_per_channel(
+        x.float(), torch.exp2(s).double(),
+        torch.zeros(s.shape, dtype=torch.long, device=s.device), 0,
+        torch.qint8)
+
+
+def _library_decode(torch, q, s, dt):
+    """Yardstick only: codes x 2^s per row (a per-channel quantized tensor
+    over the codes, dequantize, cast)."""
+    qt = torch._make_per_channel_quantized_tensor(
+        q, torch.exp2(s).double(),
+        torch.zeros(s.shape, dtype=torch.long, device=s.device), 0)
+    return qt.dequantize().to(dt)
 
 
 def _library_attention(torch, q, kd, vd, ks, vs, table, lens, page):
@@ -413,19 +480,7 @@ def _profile_decode(torch, lm, params, prompts, steps: int = 20) -> dict:
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
-
-    def dev(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    # device-side events only (kernels, memcpy/memset): the CPU-side op
-    # events carry the same device time again
-    cuda = torch.autograd.DeviceType.CUDA
-    evs = [e for e in prof.key_averages()
-           if getattr(e, "device_type", None) == cuda and dev(e) > 0]
-    total = sum(dev(e) for e in evs) / steps / 1e3            # ms per step
-    top = sorted(evs, key=dev, reverse=True)[:12]
-    rows = [{"name": e.key[:80], "calls_per_step": e.count / steps,
-             "ms_per_step": dev(e) / steps / 1e3} for e in top]
+    total, rows = _device_summary(torch, prof, steps)
     log(f"decode profile: {wall*1e3:.2f} ms per step (host wall), device "
         f"{total:.2f} ms busy, busy share {total / (wall*1e3):.3f}")
     for r in rows:
@@ -468,6 +523,379 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
+# phases 5-7: the training slice (the paper's FMNIST TT MLP)
+# ---------------------------------------------------------------------------
+
+def _bits_equal(torch, a, b) -> bool:
+    """Bit equality of two float tensors (NaN patterns included)."""
+    iv = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(iv), b.view(iv))
+
+
+def _step_pe_calls():
+    """(kind, Z shape, G shape) of every PE1/PE2 call of one training step
+    (each layer's forward chain and its transposed dx chain; the scale
+    manager's forward repeats the forward shapes), and the PE3 calls."""
+    from repro_torch.core.ttm import pe_shapes
+    from repro_torch.models import mlp_tt as MLP
+    d = MLP.make_mlp()
+    chains = [c for s in (d.spec1, d.spec2) for sp in (s, s.transposed())
+              for c in pe_shapes(sp, 64)]
+    pe3 = [("pe3", (64, s.out_dim), (64, s.in_dim))
+           for s in (d.spec1, d.spec2)]
+    return chains + pe3
+
+
+def _pe_fns(kind):
+    from repro_torch.kernels import ttm_pe1, ttm_pe2, ttm_pe3
+    mod = {"pe1": ttm_pe1, "pe2": ttm_pe2, "pe3": ttm_pe3}[kind]
+    return getattr(mod, f"{kind}_cuda"), getattr(mod, f"{kind}_torch")
+
+
+def _pe_library(torch, kind, z, g):
+    """Yardstick only: one torch.matmul computing the same contraction on
+    the same tensors (cuBLAS, full fp32: TF32 is off)."""
+    if kind == "pe1":                     # (a, 1, c) x (1, d, c): b = 1
+        check(z.shape[1] == 1, "pe1 yardstick takes b = 1 (the step's)")
+        return torch.matmul(z[:, 0, :], g[0].t())
+    if kind == "pe2":                     # (b, d)^T @ (a, b, c)
+        return torch.matmul(g.t(), z)
+    return torch.matmul(z.t(), g)         # PE3: Ybar^T X
+
+
+def _pe_work(kind, zs, gs, elsize) -> tuple[int, int]:
+    """(bytes each input read once and the output written once, flops)."""
+    import math
+    if kind == "pe1":
+        a, b, c = zs
+        m, n, k = a, gs[1], b * c
+    elif kind == "pe2":
+        a, b, c = zs
+        m, n, k = a * gs[1], c, b
+    else:
+        m, n, k = zs[1], gs[1], zs[0]
+    return (math.prod(zs) + math.prod(gs) + m * n) * elsize, 2 * m * n * k
+
+
+PE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def phase_train_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
+    """The training slice's kernels against their plain versions at the
+    step's shapes: fake-quant bit-exact at bits 4/8/16 in f32 and bf16
+    (the steps the step uses: cores ~2^-4, activations 2^-7, gradients
+    2^-15), every PE call of the step within 1e-4 (f32) / 2e-2 (bf16)
+    relative and absolute, and PE1's fused epilogue bit-identical to its
+    unfused output through the codec's encode -> decode."""
+    from repro_torch import numerics as TN
+    from repro_torch.kernels import build as B
+    from repro_torch.numerics import cuda_backend as CB
+    gen = torch.Generator(device=device).manual_seed(2)
+    out = {}
+
+    # --- fake-quant: the edges' and cores' shapes
+    fq = []
+    for shape, bits, step, what in (((64, 896), 8, -7.0, "edge q_in"),
+                                    ((64, 512), 16, -15.0, "edge q_h bwd"),
+                                    ((16, 4, 4, 16), 4, -4.0, "l1 core_1"),
+                                    ((64, 16), 8, -7.0, "edge q_out")):
+        hi = 2 ** (bits - 1)
+        for dt in (torch.float32, torch.bfloat16):
+            x = (torch.randn(shape, generator=gen, device=device) * 0.6 * hi
+                 * 2.0 ** step).to(dt)
+            x.view(-1)[:4] = torch.tensor([0.5, 2.5, -1.5, 4 * hi],
+                                          device=device) * 2.0 ** step
+            s = torch.tensor(step, device=device)
+            y = CB.fake_quant_scalar(x, s, bits)
+            ref = CB.fake_quant_plain(x, s, bits)
+            check(_bits_equal(torch, y, ref),
+                  f"p2_fake_quant {what} bits {bits} {dt}: not bit-exact")
+            row = dict(shape=list(shape), bits=bits, dtype=str(dt)[6:],
+                       what=what, max_abs_err=0.0)
+            if dt == torch.float32:
+                n = x.numel()
+                row["ms"] = timer(lambda: CB.fake_quant_scalar(x, s, bits))
+                row["plain_ms"] = timer(
+                    lambda: CB.fake_quant_plain(x, s, bits), iters=10)
+                row["library_ms"], row["library_note"] = _library_yardstick(
+                    timer, lambda: torch.fake_quantize_per_tensor_affine(
+                        x, 2.0 ** step, 0, -hi, hi - 1),
+                    lambda r: torch.equal(r, y))   # -0.0 == 0.0
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    2 * n * 4 + 4, 4 * n, FP32_OPS_PER_S)
+                log(f"p2_fake_quant {what} {tuple(shape)} {bits}-bit: "
+                    f"{row['ms']*1e3:.1f} us (plain "
+                    f"{row['plain_ms']*1e3:.1f} us, library "
+                    f"{row['library_note']}, bound "
+                    f"{row['bound_ms']*1e3:.3f} us); f32 and bf16 exact")
+            fq.append(row)
+    out["p2_fake_quant"] = [r for r in fq if "ms" in r]
+
+    # --- PE1/PE2/PE3: every call of the step, f32 (the step's) and bf16
+    rows = {"pe1": [], "pe2": [], "pe3": []}
+    for kind, zs, gs in _step_pe_calls():
+        kern, plain = _pe_fns(kind)
+        row = dict(z=list(zs), g=list(gs))
+        for dt, name in ((torch.float32, "float32"),
+                         (torch.bfloat16, "bfloat16")):
+            z = torch.randn(zs, generator=gen, device=device).to(dt)
+            g = (torch.randn(gs, generator=gen, device=device) * 0.2).to(dt)
+            o, r = kern(z, g), plain(z, g)
+            check(o.shape == r.shape and o.dtype == dt,
+                  f"{kind} {zs}x{gs}: shape/dtype")
+            err = (o.float() - r.float()).abs()
+            tol = PE_TOL[name]
+            check(bool((err <= tol + tol * r.float().abs()).all()),
+                  f"{kind} {zs}x{gs} {name}: max err {err.max().item()}")
+            row[f"max_abs_err_{name}"] = err.max().item()
+            if dt == torch.float32:
+                lib = _pe_library(torch, kind, z, g)
+                check((lib - r).abs().max().item() <= 1e-4 * (
+                    1 + r.abs().max().item()), f"{kind} yardstick differs")
+                row["ms"] = timer(lambda: kern(z, g))
+                row["plain_ms"] = timer(lambda: plain(z, g), iters=10)
+                row["library_ms"] = timer(
+                    lambda: _pe_library(torch, kind, z, g))
+                nbytes, flops = _pe_work(kind, zs, gs, 4)
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    nbytes, flops, FP32_OPS_PER_S)
+        row["max_abs_err"] = row["max_abs_err_float32"]
+        rows[kind].append(row)
+        log(f"{kind} {zs} x {gs}: {row['ms']*1e3:.1f} us (plain "
+            f"{row['plain_ms']*1e3:.1f} us, library "
+            f"{row['library_ms']*1e3:.1f} us, bound "
+            f"{row['bound_ms']*1e3:.3f} us {row['bound_by']}); err f32 "
+            f"{row['max_abs_err_float32']:.1e}, bf16 "
+            f"{row['max_abs_err_bfloat16']:.1e}")
+
+    # --- PE1's requant epilogue == its own output through the codec
+    from repro_torch.kernels import ttm_pe1
+    z = torch.randn((3584, 1, 16), generator=gen, device=device)
+    g = torch.randn((1, 256, 16), generator=gen, device=device)
+    acc = ttm_pe1.pe1_cuda(z, g)
+    for bits in (4, 8):
+        hi = 2 ** (bits - 1) - 1
+        tail = min(acc.max().item(), -acc.min().item())
+        step = torch.tensor(float(math.floor(math.log2(0.5 * tail / hi))),
+                            device=device)
+        fused = ttm_pe1.pe1_cuda(z, g, step, bits)
+        spec = TN.QuantSpec("pow2", bits)
+        unfused = TN.decode(TN.encode(acc, spec, step, backend="cuda"),
+                            torch.float32, backend="cuda")
+        check(torch.equal(fused, unfused),
+              f"pe1 epilogue {bits}-bit differs from encode -> decode")
+        q = fused / 2.0 ** step.item()
+        check(q.max().item() == hi and q.min().item() == -hi - 1,
+              "pe1 epilogue data did not clip at both ends")
+    log("pe1 epilogue: 4- and 8-bit fused output == encode -> decode of the "
+        "unfused output, bit for bit")
+    out.update(rows)
+    _sync(torch, device)
+    B.reset_launches()
+    return out
+
+
+def _sync(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _tensor_tree(torch, tree, device):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def phase_train(torch, device: str = "cuda", steps: int = TRAIN_STEPS
+                ) -> dict:
+    """The main training path: the FMNIST TT MLP at its published widths,
+    random seeded params on the card, ``steps`` steps of the example's
+    batches (fashion_like(8192, seed=1), 64 a step), launch counts zeroed
+    just before and read just after; then test accuracy on
+    fashion_like(2048, seed=2), the Table-1 accounting, and a profiled
+    window of steps."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import fashion_like
+    from repro_torch.kernels import build as B
+    from repro_torch.launch import train_fmnist as TF
+    from repro_torch.models import mlp_tt as MLP
+    from repro_torch.optim import adam as A
+
+    d = MLP.make_mlp()
+    tcfg = TrainConfig(learning_rate=3e-3, weight_decay=0.0)
+    params = MLP.init_mlp(torch.Generator(device=device).manual_seed(0), d,
+                          device=device)
+    opt = A.init_adam(params, tcfg)
+    xs, ys = (torch.from_numpy(a).to(device)
+              for a in fashion_like(8192, seed=1))
+    xt, yt = (torch.from_numpy(a).to(device)
+              for a in fashion_like(2048, seed=2))
+    step = TF.make_step(d, tcfg)
+    full = MLP.param_counts(d)
+    check(full["tt_params"] == 14794 and full["fixed_bits"] == 61264
+          and round(full["dense_bits"] / full["fixed_bits"]) == 243,
+          f"Table-1 accounting at full rank: {full}")
+    acc0 = TF.accuracy(params, xt, yt, d)
+    _sync(torch, device)
+
+    B.reset_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(steps):
+        params, opt, loss = step(params, opt, TF.batch_at(xs, ys, i))
+        losses.append(loss)
+    _sync(torch, device)
+    wall = (time.perf_counter() - t0) / steps
+    launches = dict(B.LAUNCHES)
+    want = {k: v * steps for k, v in TF.launches_per_step(d).items()}
+    check(launches == want, f"train launches {launches}, want {want} "
+          f"({TF.launches_per_step(d)} a step)")
+
+    loss = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(loss).all()), "non-finite loss")
+    first, last = loss[:20].mean().item(), loss[-20:].mean().item()
+    check(last < 0.5 * first, f"loss did not fall: first 20 steps "
+          f"{first:.4f}, last 20 {last:.4f}")
+    acc = TF.accuracy(params, xt, yt, d)
+    check(acc > 0.5, f"test accuracy {acc:.3f} not above chance (0.1)")
+    # the BinaryConnect export: 4-bit cores, 8-bit biases, through the
+    # row-scale codec kernels, bit for bit with their plain versions
+    from repro_torch.optim.binaryconnect import quantize_for_deploy
+    from repro_torch.tree import flatten_with_path
+    deploy = quantize_for_deploy(params, d.qc)
+    plain = quantize_for_deploy(_tensor_tree(torch, params, "cpu"), d.qc)
+    for (path, a), (_, b) in zip(flatten_with_path(deploy),
+                                 flatten_with_path(plain)):
+        check(torch.equal(a.cpu(), b), f"deploy export: {path} differs")
+    check(deploy["l1"]["core_0"].unique().numel() <= 16,
+          "deploy export: more than 16 levels in a 4-bit core")
+    eff1, eff2 = MLP.effective_ranks(params, d)
+    c = MLP.param_counts(d, eff1, eff2)
+    for name, st in (("q_in", params["q_in"]), ("q_h", params["q_h"]),
+                     ("q_out", params["q_out"])):
+        log(f"  scale {name}: act 2^{int(st.act.log2)}, grad "
+            f"2^{int(st.grad.log2)}")
+    log(f"train: {steps} steps, loss {loss[0].item():.4f} -> "
+        f"{loss[-1].item():.4f} (mean of first/last 20: {first:.4f} / "
+        f"{last:.4f}), test acc {acc0:.3f} -> {acc:.3f}, {wall*1e3:.2f} ms "
+        f"per step (host wall), launches per step "
+        f"{TF.launches_per_step(d)}")
+    log(f"train: effective ranks L1 {eff1} L2 {eff2}, params "
+        f"{c['tt_params']:,}, memory {c['fixed_bits']:,} bits, reduction "
+        f"{c['dense_bits'] / c['fixed_bits']:.0f}x vs dense (full rank: "
+        f"{full['tt_params']:,} params, "
+        f"{full['dense_bits'] / full['fixed_bits']:.0f}x)")
+    prof = _profile_train(torch, step, params, opt, xs, ys) \
+        if device == "cuda" else None
+    return {"steps": steps, "step_ms": wall * 1e3,
+            "loss_first": loss[0].item(), "loss_last": loss[-1].item(),
+            "loss_first20": first, "loss_last20": last,
+            "test_acc_init": acc0, "test_acc": acc,
+            "effective_ranks": [eff1, eff2], "param_counts": c,
+            "launches": launches, "profile": prof}
+
+
+def _device_summary(torch, prof, steps: int) -> tuple[float, list]:
+    """(device ms per step, top kernels) from a profiler window: device-side
+    events only (kernels, memcpy/memset); the CPU-side op events carry the
+    same device time again."""
+    def dev(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [e for e in prof.key_averages()
+           if getattr(e, "device_type", None) == cuda and dev(e) > 0]
+    total = sum(dev(e) for e in evs) / steps / 1e3
+    top = sorted(evs, key=dev, reverse=True)[:12]
+    return total, [{"name": e.key[:80], "calls_per_step": e.count / steps,
+                    "ms_per_step": dev(e) / steps / 1e3} for e in top]
+
+
+def _profile_train(torch, step, params, opt, xs, ys, steps: int = 20):
+    """Host wall of ``steps`` unprofiled training steps, then one profiled
+    window of as many for the device time per kernel. busy_share = device
+    time / wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train_fmnist as TF
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        params, opt, _ = step(params, opt, TF.batch_at(xs, ys, i))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            params, opt, _ = step(params, opt, TF.batch_at(xs, ys, i))
+        torch.cuda.synchronize()
+    total, rows = _device_summary(torch, prof, steps)
+    log(f"train profile: {wall*1e3:.2f} ms per step (host wall), device "
+        f"{total:.3f} ms busy, busy share {total / (wall*1e3):.3f}")
+    for r in rows:
+        log(f"  {r['ms_per_step']*1e3:8.1f} us  {r['calls_per_step']:6.1f}x  "
+            f"{r['name']}")
+    return {"step_ms": wall * 1e3, "device_ms": total,
+            "busy_share": total / (wall * 1e3), "top": rows}
+
+
+def phase_train_identity(torch) -> dict:
+    """One training step from the same initial params on the card (the
+    kernels) and on the CPU (their plain versions), under the CPU parity
+    tests' tolerances: loss within 1e-5 relative, every gradient leaf
+    within 1e-3 of its largest |g|; after the full step the same scale
+    exponents and effective ranks, and every element within 2 lr (Adam's
+    first step moves an element by at most lr)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import fashion_like
+    from repro_torch.launch import train_fmnist as TF
+    from repro_torch.models import mlp_tt as MLP
+    from repro_torch.optim import adam as A
+    from repro_torch.tree import flatten_with_path
+
+    d = MLP.make_mlp()
+    tcfg = TrainConfig(learning_rate=3e-3, weight_decay=0.0)
+    p_cpu = MLP.init_mlp(torch.Generator().manual_seed(0), d, device="cpu")
+    p_gpu = _tensor_tree(torch, p_cpu, "cuda")
+    xs, ys = fashion_like(8192, seed=1)
+    b_cpu = {"x": torch.from_numpy(xs[:64]), "y": torch.from_numpy(ys[:64])}
+    b_gpu = {k: v.cuda() for k, v in b_cpu.items()}
+    l_gpu, g_gpu = TF.loss_and_grads(p_gpu, b_gpu, d)
+    l_cpu, g_cpu = TF.loss_and_grads(p_cpu, b_cpu, d)
+    rel = abs(l_gpu.item() - l_cpu.item()) / abs(l_cpu.item())
+    check(rel <= 1e-5, f"train identity: loss rel diff {rel:.2e} > 1e-5")
+    worst = 0.0
+    for (path, a), (_, b) in zip(flatten_with_path(g_gpu),
+                                 flatten_with_path(g_cpu)):
+        if b is None:
+            check(a is None, f"{path}: gradient on one side only")
+            continue
+        m = b.abs().max().item()
+        e = (a.cpu() - b).abs().max().item()
+        check(e <= 1e-3 * m, f"train identity: {path} grad err {e:.3e} > "
+              f"1e-3 x {m:.3e}")
+        worst = max(worst, e / m if m else 0.0)
+    step = TF.make_step(d, tcfg)
+    p_gpu, _, _ = step(p_gpu, A.init_adam(p_gpu, tcfg), b_gpu)
+    p_cpu, _, _ = step(p_cpu, A.init_adam(p_cpu, tcfg), b_cpu)
+    move = 0.0
+    for (path, a), (_, b) in zip(flatten_with_path(p_gpu),
+                                 flatten_with_path(p_cpu)):
+        if not a.is_floating_point():
+            check(torch.equal(a.cpu(), b), f"train identity: {path} differs")
+            continue
+        e = (a.cpu() - b).abs().max().item()
+        check(e <= 2 * tcfg.learning_rate + 1e-6,
+              f"train identity: {path} after the step differs by {e:.3e}")
+        move = max(move, e)
+    check(MLP.effective_ranks(p_gpu, d) == MLP.effective_ranks(p_cpu, d),
+          "train identity: effective ranks differ")
+    log(f"train identity: card vs CPU loss rel diff {rel:.2e}, worst "
+        f"gradient leaf {worst:.2e} of its max, params after one step within "
+        f"{move:.2e}; scale exponents and effective ranks equal")
+    return {"loss_rel_diff": rel, "grad_worst_rel": worst,
+            "param_max_diff": move}
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "p2_enc_rows": ("src/repro_torch/kernels/csrc/pow2_rows.cu",
@@ -477,22 +905,40 @@ KERNELS = {
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:134"),
 }
+TRAIN_KERNELS = {
+    "p2_fake_quant": ("src/repro_torch/kernels/csrc/pow2_fq.cu",
+                      "src/repro/numerics/pallas_backend.py:112"),
+    "pe1": ("src/repro_torch/kernels/csrc/ttm_pe.cu",
+            "src/repro/kernels/ttm_pe1.py:34"),
+    "pe2": ("src/repro_torch/kernels/csrc/ttm_pe.cu",
+            "src/repro/kernels/ttm_pe2.py:25"),
+    "pe3": ("src/repro_torch/kernels/csrc/ttm_pe.cu",
+            "src/repro/kernels/ttm_pe3.py:23"),
+}
 
 
-def kernels_line(kern: dict, eng: dict) -> dict:
+def _kernel_row(name, src, replaces, shapes, launches, path) -> dict:
+    head = shapes[0]            # the main path's first (largest) shape
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches, "path": path,
+            "max_abs_err": max(s["max_abs_err"] for s in shapes),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head.get("library_ms"), "shapes": shapes}
+
+
+def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict) -> dict:
     rows = []
     for name, (src, replaces) in KERNELS.items():
-        head = kern[name][0]            # the decode-step shape
         on_main = eng["launches_main"].get(name, 0)
         path = "main (fused)" if on_main else "gather (engine default)"
         launches = on_main or eng["launches_gather"].get(name, 0)
-        rows.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches, "path": path,
-            "max_abs_err": max(s["max_abs_err"] for s in kern[name]),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head.get("library_ms"), "shapes": kern[name]})
+        rows.append(_kernel_row(name, src, replaces, kern[name], launches,
+                                path))
+    for name, (src, replaces) in TRAIN_KERNELS.items():
+        rows.append(_kernel_row(name, src, replaces, tkern[name],
+                                train["launches"].get(name, 0),
+                                f"train ({train['steps']} steps)"))
     return {"kernels": rows}
 
 
@@ -522,11 +968,15 @@ def main(argv=None) -> int:
     report["build"] = phase_build()
     timer = Timer(torch)
     report["kernels"] = phase_kernels(torch, timer)
+    report["train_kernels"] = phase_train_kernels(torch, timer)
     del timer
     report["engine"] = phase_engine(torch)
     report["identity"] = phase_identity(torch)
+    report["train"] = phase_train(torch)
+    report["train_identity"] = phase_train_identity(torch)
     report["seconds"] = time.perf_counter() - t0
-    line = kernels_line(report["kernels"], report["engine"])
+    line = kernels_line(report["kernels"], report["engine"],
+                        report["train_kernels"], report["train"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -1,10 +1,13 @@
 """The one bridge between the two packages: a ``repro`` parameter tree,
 already turned into numpy arrays, becomes a ``repro_torch`` tree.
 
-The reference stacks every per-layer leaf on axis 0 (``params["layers"]``,
-consumed by ``lax.scan``); the port keeps one dict per layer, so this
-unstacks them. Everything else maps key for key. bf16 arrays (numpy's
-``ml_dtypes.bfloat16``) are carried bit for bit.
+``params_from_jax`` takes a zoo LM: the reference stacks every per-layer
+leaf on axis 0 (``params["layers"]``, consumed by ``lax.scan``); the port
+keeps one dict per layer, so this unstacks them. ``mlp_params_from_jax``
+takes the paper's TT MLP, whose ``ActQuant``/``ScaleState`` nodes arrive as
+``repro``'s NamedTuples and are matched by their ``_fields``. Everything
+else maps key for key. bf16 arrays (numpy's ``ml_dtypes.bfloat16``) are
+carried bit for bit.
 
 Nothing here imports JAX: callers convert with ``jax.tree.map(np.asarray,
 params)`` first. Parity tests use this to run both packages on the same
@@ -15,7 +18,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.quant import ActQuant
 from .device import resolve_device
+from .numerics.policy import ScaleState
+
+# repro's NamedTuple node types, by their fields -> the port's
+_NAMEDTUPLES = {ActQuant._fields: ActQuant, ScaleState._fields: ScaleState}
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -47,3 +55,22 @@ def params_from_jax(tree: dict, device=None) -> dict:
                           lambda a, i=i: _tensor(np.asarray(a)[i], device))
                      for i in range(n_layers)]
     return out
+
+
+def mlp_params_from_jax(tree: dict, device=None) -> dict:
+    """numpy tree of ``repro.models.mlp_tt.init_mlp`` (or of a trained
+    step's params) -> ``repro_torch`` params on ``device`` (default
+    ``"cuda"``; pass ``"cpu"`` explicitly off the card)."""
+    device = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        fields = getattr(node, "_fields", None)
+        if fields is not None:
+            if fields not in _NAMEDTUPLES:
+                raise TypeError(f"no port type for a NamedTuple with fields "
+                                f"{fields}")
+            return _NAMEDTUPLES[fields](*(walk(v) for v in node))
+        return _tensor(node, device)
+    return walk(tree)

@@ -1,5 +1,7 @@
 """Public kernel entry points — the port of ``repro/kernels/ops.py`` as far
-as the serving slice goes.
+as the serving and training slices go: paged attention, the PE1/PE2/PE3
+contractions, the fused pow-2 fake-quant, and the TTM chain through the
+PE kernels.
 
 ``impl`` names what runs, and the tensors' device decides nothing behind
 the caller's back:
@@ -16,6 +18,21 @@ from __future__ import annotations
 import torch
 
 from . import paged_attention as PA
+from . import ttm_pe1, ttm_pe2, ttm_pe3
+
+
+def _route(name: str, impl: str, tensors, cuda_fn, torch_fn):
+    """``impl="cuda"``: the kernel on CUDA tensors, its plain version on CPU
+    tensors; ``impl="torch"``: the plain version, CPU tensors only."""
+    on_card = any(t.is_cuda for t in tensors)
+    if impl == "torch":
+        if on_card:
+            raise ValueError(f"{name} impl='torch' takes CPU tensors only; "
+                             "CUDA tensors go to impl='cuda'")
+        return torch_fn
+    if impl == "cuda":
+        return cuda_fn if on_card else torch_fn
+    raise ValueError(f"unknown {name} impl {impl!r}")
 
 
 def paged_attention(q: torch.Tensor, kdata: torch.Tensor,
@@ -39,3 +56,47 @@ def paged_attention(q: torch.Tensor, kdata: torch.Tensor,
             return PA.paged_attention_cuda(*args, **kw)
         return PA.paged_attention_torch(*args, **kw)
     raise ValueError(f"unknown paged_attention impl {impl!r}")
+
+
+def pe1(z: torch.Tensor, g: torch.Tensor, step_log2=None,
+        bits: int | None = None, impl: str = "cuda") -> torch.Tensor:
+    """PE1 (Eq. 5): Z(a,b,c) x G(b,d,c) -> (a,d), optional fused requantize
+    (``bits`` selects the pow-2 grid at ``step_log2``; the plain version's
+    epilogue is the codec registry's, the kernel's is held to it bit for
+    bit)."""
+    step = 0.0 if step_log2 is None else step_log2
+    fn = _route("pe1", impl, (z, g), ttm_pe1.pe1_cuda, ttm_pe1.pe1_torch)
+    return fn(z, g, step, bits)
+
+
+def pe2(z: torch.Tensor, g: torch.Tensor, impl: str = "cuda") -> torch.Tensor:
+    """PE2 (Eq. 6): Z(a,b,c) x G(b,d) -> (a,d,c)."""
+    return _route("pe2", impl, (z, g), ttm_pe2.pe2_cuda,
+                  ttm_pe2.pe2_torch)(z, g)
+
+
+def pe3(ybar: torch.Tensor, x: torch.Tensor,
+        impl: str = "cuda") -> torch.Tensor:
+    """PE3: Ybar(b,j) x X(b,i) -> What(j,i) (batch-contracted outer
+    product)."""
+    return _route("pe3", impl, (ybar, x), ttm_pe3.pe3_cuda,
+                  ttm_pe3.pe3_torch)(ybar, x)
+
+
+def quantize_fused(x: torch.Tensor, step_log2, bits: int,
+                   impl: str = "cuda") -> torch.Tensor:
+    """Fused pow-2 quantize-dequantize over an arbitrary-shape tensor with
+    one ``step_log2`` (no gradient rule; ``numerics.fake_quant`` adds the
+    clipped STE)."""
+    from ..numerics import cuda_backend as CB
+    return _route("quantize_fused", impl, (x,), CB.fake_quant_scalar,
+                  CB.fake_quant_plain)(x, step_log2, bits)
+
+
+def ttm_matvec_kernels(cores, x, spec, impl: str = "cuda"):
+    """TTM forward chain routed through the PE kernels (kernel-path analogue
+    of ``core.ttm.ttm_matvec``)."""
+    from ..core.ttm import ttm_matvec_pe
+    return ttm_matvec_pe(cores, x, spec,
+                         pe1=lambda z, g: pe1(z, g, impl=impl),
+                         pe2=lambda z, g: pe2(z, g, impl=impl))

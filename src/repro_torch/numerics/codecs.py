@@ -1,20 +1,23 @@
-"""Codec registry: ``encode / decode`` for the pow-2 QuantSpec, with
-selectable backends — the port of ``repro/numerics/codecs.py`` as far as
-the serving slice needs it.
+"""Codec registry: ``encode / decode / fake_quant`` for the pow-2
+QuantSpec, with selectable backends — the port of
+``repro/numerics/codecs.py`` as far as the serving and training slices
+need it.
 
 - ``"reference"``: plain PyTorch — the numerics oracle, runs everywhere.
-- ``"cuda"``: the hand-written row-scale kernels of
-  ``kernels/csrc/pow2_rows.cu`` (``numerics/cuda_backend.py``), codes
-  bit-identical to the reference. On a CPU tensor it runs the kernel's
-  plain version.
+- ``"cuda"``: the hand-written kernels (``numerics/cuda_backend.py``): the
+  row-scale encode/decode of ``kernels/csrc/pow2_rows.cu`` and the scalar
+  fake-quant of ``kernels/csrc/pow2_fq.cu``, bit-identical to the
+  reference. On a CPU tensor it runs the kernels' plain versions.
 
 Numerics contract (``repro``'s, unchanged): pow2 encode/decode compute in
-f32, ``round`` is half-to-even, codes clip to ``qrange(bits)``, and a
+f32; pow2 fake_quant computes in ``x.dtype`` with ``scale = exp2(k)`` cast
+to ``x.dtype`` and the clip bounds in ``x.dtype`` too (as JAX's
+weak-typed ``jnp.clip`` does: a bf16 16-bit ``hi`` of 32767 is 32768);
+``round`` is half-to-even, codes clip to ``qrange(bits)``, and a
 non-scalar scale broadcasts against the LEADING dims of the data
 (``_bcast``: one scale per (layer, slot) of the KV pool).
 
-Not yet ported (ROADMAP): ``fake_quant`` with the clipped STE, the
-``epilogue`` shared with PE1, int4x2 packing, and the blockwise codec.
+Not yet ported (ROADMAP): int4x2 packing and the blockwise codec.
 """
 from __future__ import annotations
 
@@ -29,6 +32,63 @@ def _bcast(scale, ndim: int, device=None) -> torch.Tensor:
     (layer, slot), data (L, S, *feat))."""
     scale = torch.as_tensor(scale, dtype=torch.float32, device=device)
     return scale.reshape(tuple(scale.shape) + (1,) * (ndim - scale.dim()))
+
+
+def _bounds(bits: int, dtype: torch.dtype) -> tuple[float, float]:
+    """``qrange(bits)`` rounded to ``dtype`` — the bounds JAX's ``jnp.clip``
+    applies to an array of that dtype (a bf16 16-bit grid clips at 32768,
+    not 32767). Rounded on the host, they compare the same in any
+    precision, and a call on the card copies nothing to the device."""
+    lo, hi = torch.tensor(qrange(bits), dtype=dtype).tolist()
+    return lo, hi
+
+
+def pow2_qdq(x: torch.Tensor, scale_log2, bits: int) -> torch.Tensor:
+    """Raw quantize-dequantize on the pow-2 grid in ``x.dtype`` — the Q(.)
+    of paper Eq. (3), no gradient rule attached. ``scale_log2`` is a
+    scalar or a tensor that broadcasts against ``x``."""
+    scale = torch.exp2(torch.as_tensor(scale_log2, dtype=torch.float32,
+                                       device=x.device)).to(x.dtype)
+    lo, hi = _bounds(bits, x.dtype)
+    return torch.clamp(torch.round(x / scale), lo, hi) * scale
+
+
+def pow2_inside(x: torch.Tensor, scale_log2, bits: int) -> torch.Tensor:
+    """The clipped STE's mask: where ``x / 2^k`` (in ``x.dtype``) lies in
+    the representable range."""
+    scale = torch.exp2(torch.as_tensor(scale_log2, dtype=torch.float32,
+                                       device=x.device)).to(x.dtype)
+    lo, hi = _bounds(bits, x.dtype)
+    v = x / scale
+    return (v >= lo) & (v <= hi)
+
+
+class _Pow2STE(torch.autograd.Function):
+    """Quantize-dequantize with the clipped straight-through estimator:
+    the gradient passes where the pre-quant value was representable, zero
+    outside (the paper's "clipped ReLU" STE). ``qdq`` computes the value
+    (the plain ``pow2_qdq`` or a kernel); the mask is plain PyTorch, kept
+    outside any kernel as in ``repro``'s Pallas backend."""
+
+    @staticmethod
+    def forward(ctx, x, scale_log2, bits, qdq):
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(pow2_inside(x, scale_log2, bits))
+        return qdq(x, scale_log2, bits)
+
+    @staticmethod
+    def backward(ctx, g):
+        inside, = ctx.saved_tensors
+        return (torch.where(inside, g, torch.zeros((), dtype=g.dtype,
+                                                   device=g.device)),
+                None, None, None)
+
+
+def pow2_fake_quant(x: torch.Tensor, scale_log2, bits: int,
+                    qdq=pow2_qdq) -> torch.Tensor:
+    """``pow2_qdq`` with the clipped STE backward (``repro``'s
+    ``pow2_fake_quant`` custom_vjp)."""
+    return _Pow2STE.apply(x, scale_log2, bits, qdq)
 
 
 class Pow2Reference:
@@ -53,6 +113,23 @@ class Pow2Reference:
                 "(ROADMAP queue 2)")
         step = torch.exp2(_bcast(qt.scale, qt.codes.dim(), qt.codes.device))
         return (qt.codes.float() * step).to(dtype)
+
+    def epilogue(self, acc: torch.Tensor, spec: QuantSpec,
+                 scale_log2) -> torch.Tensor:
+        """Requantize-on-writeback in f32: the FPGA PE's fused epilogue,
+        the same round/clip/scale as encode→decode (PE1's plain version
+        calls it; the CUDA kernel's epilogue is held to it bit for bit)."""
+        scale = torch.exp2(torch.as_tensor(scale_log2, dtype=torch.float32,
+                                           device=acc.device))
+        lo, hi = qrange(spec.bits)
+        return torch.clamp(torch.round(acc / scale), lo, hi) * scale
+
+    def fake_quant(self, x: torch.Tensor, spec: QuantSpec,
+                   scale) -> torch.Tensor:
+        # non-scalar scales broadcast against x's LEADING dims (_bcast),
+        # the codec API's one scale convention
+        return pow2_fake_quant(x, _bcast(scale, x.dim(), x.device),
+                               spec.bits)
 
 
 # ---------------------------------------------------------------------------
@@ -91,6 +168,19 @@ def encode(x: torch.Tensor, spec: QuantSpec, scale=None,
 def decode(qt: QTensor, dtype=torch.float32,
            backend: str = "reference") -> torch.Tensor:
     return get_codec(qt.spec, backend).decode(qt, dtype)
+
+
+def fake_quant(x: torch.Tensor, spec: QuantSpec, scale=None,
+               backend: str = "reference") -> torch.Tensor:
+    """Quantize-dequantize with the clipped STE (the §3.2 Q(.))."""
+    return get_codec(spec, backend).fake_quant(x, spec, scale)
+
+
+def roundtrip(x: torch.Tensor, spec: QuantSpec, scale=None,
+              backend: str = "reference") -> torch.Tensor:
+    """decode(encode(x)) without STE — pure value quantization."""
+    codec = get_codec(spec, backend)
+    return codec.decode(codec.encode(x, spec, scale), x.dtype)
 
 
 def per_tensor_max_scale_log2(x: torch.Tensor, spec: QuantSpec,

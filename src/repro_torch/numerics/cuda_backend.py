@@ -1,7 +1,9 @@
 """CUDA codec backend: the row-scale pow-2 encode/decode kernels of
-``kernels/csrc/pow2_rows.cu`` behind the ``encode / decode`` API of the
-reference codec — the port of ``repro/numerics/pallas_backend.py``'s
-multi-scale (row-scale) path.
+``kernels/csrc/pow2_rows.cu`` and the scalar-scale fake-quant kernel of
+``kernels/csrc/pow2_fq.cu`` behind the ``encode / decode / fake_quant``
+API of the reference codec — the port of
+``repro/numerics/pallas_backend.py``'s multi-scale (row-scale) codec and
+its scalar fake-quant.
 
 A scale that follows the ``codecs._bcast`` convention (one scale per
 leading index, e.g. the KV pool's per-(layer, slot) arrays) collapses the
@@ -14,6 +16,12 @@ a CUDA tensor launches the kernel, and anything the kernel does not take (a
 scale that is not one value per leading index, storage wider than int8, an
 unsupported dtype) raises. A one-element scale is one row: the value the
 reference's scalar-scale kernels compute, through the row kernel.
+
+``fake_quant`` takes a one-element scale only (the TT cores' fixed
+per-core steps and the managed activation/gradient edges): that launches
+``p2_fake_quant``, with the clipped STE's mask computed outside the
+kernel, as in the Pallas backend. A scale per leading index is the
+row-scale fake-quant of ROADMAP queue 2 item 2 and raises.
 """
 from __future__ import annotations
 
@@ -22,13 +30,16 @@ import ctypes
 import torch
 
 from ..kernels import build as B
-from .codecs import Pow2Reference, register_codec
+from .codecs import Pow2Reference, pow2_fake_quant, pow2_qdq, register_codec
 from .spec import QTensor, QuantSpec, qrange
 
 ENC = "p2_enc_rows"
 DEC = "p2_dec_rows"
 SOURCE = "pow2_rows"
+FQ = "p2_fake_quant"
+FQ_SOURCE = "pow2_fq"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_FQ_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _rowwise(x: torch.Tensor, scale) -> tuple[torch.Tensor, torch.Tensor] | None:
@@ -136,6 +147,48 @@ def decode_rows(q2d: torch.Tensor, srow: torch.Tensor,
     return y
 
 
+def _fq_lib() -> ctypes.CDLL:
+    lib = B.load(FQ_SOURCE)
+    if not getattr(lib, "_repro_typed", False):
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.p2_fake_quant.argtypes = [p, i, p, p, ll, i, p]
+        lib.p2_fake_quant.restype = i
+        lib._repro_typed = True
+    return lib
+
+
+def fake_quant_plain(x: torch.Tensor, step_log2, bits: int) -> torch.Tensor:
+    """The kernel's plain version: ``pow2_qdq`` with one scale."""
+    return pow2_qdq(x, torch.as_tensor(step_log2, dtype=torch.float32,
+                                       device=x.device).reshape(()), bits)
+
+
+def fake_quant_scalar(x: torch.Tensor, step_log2, bits: int) -> torch.Tensor:
+    """Quantize-dequantize ``x`` on the ``bits``-bit pow-2 grid of one
+    ``step_log2`` (a number or a one-element tensor, read on the device by
+    the kernel), in ``x.dtype``. No gradient rule: ``Pow2Cuda.fake_quant``
+    wraps it in the clipped STE."""
+    s = torch.as_tensor(step_log2, dtype=torch.float32, device=x.device)
+    if s.numel() != 1:
+        raise ValueError(f"{FQ}: one scale_log2 for the tensor, got shape "
+                         f"{tuple(s.shape)}")
+    if not x.is_cuda:
+        return fake_quant_plain(x, s, bits)
+    if x.dtype not in _FQ_DTYPE_CODE:
+        raise TypeError(f"{FQ}: unsupported dtype {x.dtype}")
+    if not 2 <= bits <= 16:
+        raise ValueError(f"{FQ}: bits must be 2..16, got {bits}")
+    x = x.contiguous()
+    s = s.reshape(1).contiguous()
+    y = torch.empty_like(x)
+    lib = _fq_lib()
+    B.check(lib, lib.p2_fake_quant(
+        x.data_ptr(), _FQ_DTYPE_CODE[x.dtype], s.data_ptr(), y.data_ptr(),
+        x.numel(), bits, torch.cuda.current_stream(x.device).cuda_stream), FQ)
+    B.note_launch(FQ)
+    return y
+
+
 class Pow2Cuda(Pow2Reference):
     backend = "cuda"
 
@@ -165,6 +218,17 @@ class Pow2Cuda(Pow2Reference):
                 "row kernel takes no other layout")
         q2d, srow = rw
         return decode_rows(q2d, srow, dtype).reshape(qt.codes.shape)
+
+    def fake_quant(self, x: torch.Tensor, spec: QuantSpec,
+                   scale) -> torch.Tensor:
+        s = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+        if s.numel() != 1:
+            raise NotImplementedError(
+                f"{FQ}: a scale of shape {tuple(s.shape)} (one per leading "
+                "index) is the row-scale fake-quant, ROADMAP queue 2 item 2; "
+                "the scalar kernel takes one scale")
+        return pow2_fake_quant(x, s.reshape(()), spec.bits,
+                               qdq=fake_quant_scalar)
 
 
 register_codec("pow2", "cuda", Pow2Cuda())

@@ -10,7 +10,15 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
     (fp32) over MHA/GQA/MQA, S in {1, 4}, int8 and fp pages, head dims
     that are and are not multiples of the warp;
 (c) the engine's fused and gather paths emit identical greedy tokens in
-    fp32 on the card, and each path launches its kernels.
+    fp32 on the card, and each path launches its kernels;
+(d) the scalar pow-2 fake-quant kernel is BIT-identical to its plain
+    version at bits 4/8/16, f32 and bf16, on the vector and scalar paths;
+(e) the PE1/PE2/PE3 kernels match their plain versions (f32 1e-4, bf16
+    2e-2, the JAX kernel tests' tolerances) at odd shapes and at every
+    shape of the FMNIST training step, and PE1's fused epilogue is
+    bit-identical to its own unfused output through encode -> decode;
+(f) one training step of the FMNIST TT MLP on the card matches the same
+    step on the CPU and launches each kernel the counted number of times.
 """
 import numpy as np
 import pytest
@@ -18,12 +26,20 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch.configs as C  # noqa: E402
+from repro_torch import numerics as TN  # noqa: E402
+from repro_torch.numerics import codecs  # noqa: E402
+from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.kernels import build as B  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
+from repro_torch.kernels import ttm_pe1, ttm_pe2, ttm_pe3  # noqa: E402
+from repro_torch.launch import train_fmnist as TF  # noqa: E402
 from repro_torch.models import build_lm, init_lm  # noqa: E402
+from repro_torch.models import mlp_tt as MLP  # noqa: E402
 from repro_torch.numerics import cuda_backend as CB  # noqa: E402
+from repro_torch.optim import adam as A  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig, PoolConfig  # noqa: E402
+from repro_torch.tree import leaves, tree_map  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -131,3 +147,137 @@ def test_engine_fused_equals_gather_fp32_on_card(cuda):
     (fl, steps), (gl, _) = launches
     assert fl["paged_attention"] == steps * cfg.num_layers
     assert fl["p2_enc_rows"] > 0 and gl["p2_dec_rows"] > 0
+
+
+# ---------------------------------------------------------------------------
+# (d)-(f) the training slice's kernels
+# ---------------------------------------------------------------------------
+
+def _fq_data(n, bits, dtype, gen, cuda):
+    """Values on, between and far outside a bits-bit grid of step 2^-3:
+    exact .5 ties, random values and both clip ends."""
+    hi = 2 ** (bits - 1)
+    codes = torch.randint(-hi - 20, hi + 20, (n,), generator=gen,
+                          device=cuda).float()
+    kind = torch.randint(0, 3, (n,), generator=gen, device=cuda)
+    noise = torch.randn((n,), generator=gen, device=cuda) * hi
+    x = torch.where(kind == 0, codes + 0.5, torch.where(kind == 1, codes,
+                                                         noise))
+    return (x * 2.0 ** -3).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [4, 8, 16])
+@pytest.mark.parametrize("n", [4096, 4099])      # vector / scalar path
+def test_fake_quant_kernel_bit_identical(cuda, dtype, bits, n):
+    g = torch.Generator(device=cuda).manual_seed(bits + n)
+    x = _fq_data(n, bits, dtype, g, cuda)
+    step = torch.tensor(-3.0, device=cuda)
+    y = CB.fake_quant_scalar(x, step, bits)
+    ref = CB.fake_quant_plain(x, step, bits)
+    assert y.dtype == dtype
+    assert torch.equal(y.view(torch.int16) if dtype == torch.bfloat16
+                       else y.view(torch.int32),
+                       ref.view(torch.int16) if dtype == torch.bfloat16
+                       else ref.view(torch.int32))
+    q = ref.float() * 8
+    assert q.max().item() >= 2 ** (bits - 1) - 1 and \
+        q.min().item() == -2 ** (bits - 1)
+    # through the codec API: same values, and the clipped STE gradient
+    xr = x.clone().requires_grad_()
+    yc = TN.fake_quant(xr, TN.QuantSpec("pow2", bits), step, backend="cuda")
+    assert torch.equal(yc, y)
+    yc.sum().backward()
+    assert torch.equal(xr.grad, codecs.pow2_inside(x, step, bits).to(dtype))
+
+
+def test_fake_quant_row_scale_refused(cuda):
+    x = torch.zeros((4, 8), device=cuda)
+    with pytest.raises(NotImplementedError):
+        TN.fake_quant(x, TN.QuantSpec("pow2", 8), torch.zeros(4, device=cuda),
+                      backend="cuda")
+
+
+def _step_pe_calls():
+    from repro_torch.core.ttm import pe_shapes
+    d = MLP.make_mlp()
+    return [c for s in (d.spec1, d.spec2) for sp in (s, s.transposed())
+            for c in pe_shapes(sp, 64)]
+
+
+PE_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+          torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _close(a, b, dtype):
+    np.testing.assert_allclose(a.float().cpu().numpy(),
+                               b.float().cpu().numpy(), **PE_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pe_kernels_match_plain_at_step_and_odd_shapes(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def rnd(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device=cuda) * scale).to(dtype)
+    calls = _step_pe_calls() + [("pe1", (37, 5, 48), (5, 18, 48)),
+                                ("pe1", (8, 7, 130), (7, 8, 130)),
+                                ("pe2", (19, 7, 33), (7, 21)),
+                                ("pe2", (1, 4, 16), (4, 130))]
+    for kind, zs, gs in calls:
+        z, w = rnd(*zs), rnd(*gs, scale=0.2)
+        mod = ttm_pe1 if kind == "pe1" else ttm_pe2
+        out = getattr(mod, f"{kind}_cuda")(z, w)
+        ref = getattr(mod, f"{kind}_torch")(z, w)
+        assert out.dtype == dtype and out.shape == ref.shape
+        _close(out, ref, dtype)
+    for b, j, i in [(64, 512, 896), (64, 16, 512), (130, 47, 65), (8, 1, 300)]:
+        y, x = rnd(b, j, scale=0.1), rnd(b, i)
+        _close(ttm_pe3.pe3_cuda(y, x), ttm_pe3.pe3_torch(y, x), dtype)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("shape", [(3584, 1, 16, 256), (37, 5, 48, 18),
+                                   (256, 16, 256, 128)])
+def test_pe1_epilogue_bit_identical_to_encode_decode_on_card(cuda, bits,
+                                                             shape):
+    a, b, c, d = shape
+    g = torch.Generator(device=cuda).manual_seed(bits)
+    z = torch.randn((a, b, c), generator=g, device=cuda)
+    w = torch.randn((b, d, c), generator=g, device=cuda)
+    acc = ttm_pe1.pe1_cuda(z, w)
+    hi = 2 ** (bits - 1) - 1
+    tail = float(min(acc.max(), -acc.min()))
+    step = torch.tensor(float(np.floor(np.log2(0.5 * tail / hi))),
+                        device=cuda)
+    fused = ttm_pe1.pe1_cuda(z, w, step, bits)
+    spec = TN.QuantSpec("pow2", bits)
+    unfused = TN.decode(TN.encode(acc, spec, step, backend="cuda"),
+                        torch.float32, backend="cuda")
+    assert torch.equal(fused, unfused)
+    q = fused / 2.0 ** float(step)
+    assert q.max() == hi and q.min() == -hi - 1
+
+
+def test_train_step_on_card_matches_cpu_and_counts_launches(cuda):
+    d = MLP.make_mlp()
+    tcfg = TrainConfig(learning_rate=3e-3, weight_decay=0.0)
+    p_cpu = MLP.init_mlp(torch.Generator().manual_seed(0), d, device="cpu")
+    p_gpu = tree_map(lambda t: t.to(cuda), p_cpu)
+    xs, ys = TF.fashion_like(256, seed=1)
+    batch_c = {"x": torch.from_numpy(xs[:64]), "y": torch.from_numpy(ys[:64])}
+    batch_g = {k: v.to(cuda) for k, v in batch_c.items()}
+    step = TF.make_step(d, tcfg)
+    o_cpu, o_gpu = A.init_adam(p_cpu, tcfg), A.init_adam(p_gpu, tcfg)
+    B.reset_launches()
+    p_gpu, o_gpu, l_gpu = step(p_gpu, o_gpu, batch_g)
+    torch.cuda.synchronize()
+    assert dict(B.LAUNCHES) == TF.launches_per_step(d)
+    p_cpu, o_cpu, l_cpu = step(p_cpu, o_cpu, batch_c)
+    assert abs(l_gpu.item() - l_cpu.item()) <= 1e-5 * abs(l_cpu.item())
+    for a, b in zip(leaves(p_gpu), leaves(p_cpu)):
+        if a.is_floating_point():
+            # Adam's first step moves each element by at most lr
+            assert (a.cpu() - b).abs().max() <= 2 * tcfg.learning_rate + 1e-6
+        else:
+            assert torch.equal(a.cpu(), b)

@@ -161,3 +161,147 @@ def test_quant_spec_matches_reference_json():
     assert TN.packed_trailing(7) == 4
     with pytest.raises(ValueError):
         TN.QuantSpec(kind="nope")
+
+
+# ---------------------------------------------------------------------------
+# The training slice: scalar fake-quant with the clipped STE, the quant
+# edge, and the §3.3 scale manager
+# ---------------------------------------------------------------------------
+
+import jax  # noqa: E402
+
+from repro.core import quant as JQ  # noqa: E402
+from repro_torch.core import quant as TQ  # noqa: E402
+from repro_torch.numerics import codecs as TC  # noqa: E402
+
+
+def _fq_values(n, bits, seed):
+    """Values on, between (exact .5 ties) and far outside a bits-bit grid
+    of step 2^-3, in f32."""
+    rng = np.random.RandomState(seed)
+    hi = 2 ** (bits - 1)
+    codes = rng.randint(-hi - 20, hi + 20, n).astype(np.float64)
+    kind = rng.randint(0, 3, n)
+    x = np.where(kind == 0, codes + 0.5,
+                 np.where(kind == 1, codes, rng.randn(n) * hi))
+    return (x * 2.0 ** -3).astype(np.float32)
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fake_quant_bit_identical_to_pallas_with_ste(bits, dtype):
+    """The kernel's plain version (the ``cuda`` codec on a CPU tensor), the
+    port's reference codec and JAX's Pallas kernel (interpret mode): the
+    same bits out, and the same clipped-STE gradient. Tolerance: none."""
+    x = jnp.asarray(_fq_values(1000, bits, seed=bits), dtype)
+    step = jnp.asarray(-3.0)
+    spec_j, spec_t = JN.QuantSpec("pow2", bits), TN.QuantSpec("pow2", bits)
+    ref = JN.fake_quant(x, spec_j, step, backend="pallas")
+    gref = jax.grad(lambda v: jnp.sum(JN.fake_quant(
+        v, spec_j, step, backend="pallas").astype(jnp.float32)))(x)
+    for backend in ("cuda", "reference"):
+        xt = _to_torch(np.asarray(x)).requires_grad_()
+        y = TN.fake_quant(xt, spec_t, torch.tensor(-3.0), backend=backend)
+        np.testing.assert_array_equal(_bits(y.detach()), _bits(ref))
+        y.float().sum().backward()
+        np.testing.assert_array_equal(_bits(xt.grad), _bits(gref))
+    q = np.asarray(ref, np.float32) * 8
+    assert q.min() == -2 ** (bits - 1) and q.max() >= 2 ** (bits - 1) - 1
+    assert 0 < float(jnp.sum(gref == 0)) < x.size
+
+
+def test_bf16_16bit_grid_clips_where_jax_clips():
+    """JAX's weak-typed ``jnp.clip`` rounds the 16-bit hi bound 32767 to
+    bf16's 32768; the port clips there too (f32 keeps 32767)."""
+    x = np.array([40000.0, 32767.0, -40000.0], np.float32)
+    spec_j, spec_t = JN.QuantSpec("pow2", 16), TN.QuantSpec("pow2", 16)
+    for dtype, top in (("bfloat16", 32768.0), ("float32", 32767.0)):
+        ref = JN.fake_quant(jnp.asarray(x, dtype), spec_j, jnp.asarray(0.0),
+                            backend="pallas")
+        got = TN.fake_quant(_to_torch(np.asarray(jnp.asarray(x, dtype))),
+                            spec_t, torch.tensor(0.0), backend="cuda")
+        np.testing.assert_array_equal(_bits(got), _bits(ref))
+        assert float(got[0]) == top and float(got[2]) == -32768.0
+
+
+def test_cuda_fake_quant_refuses_a_scale_per_leading_index():
+    x = torch.zeros(3, 4)
+    with pytest.raises(NotImplementedError, match="queue 2 item 2"):
+        TN.fake_quant(x, TN.QuantSpec("pow2", 8), torch.zeros(3),
+                      backend="cuda")
+    # the reference codec takes it (its leading-dim convention)
+    assert TN.fake_quant(x, TN.QuantSpec("pow2", 8), torch.zeros(3)
+                         ).shape == (3, 4)
+
+
+def test_quantize_fused_and_roundtrip_match_reference():
+    x = _fq_values(257, 8, seed=3)
+    spec_j, spec_t = JN.QuantSpec("pow2", 8), TN.QuantSpec("pow2", 8)
+    want = np.asarray(JN.roundtrip(jnp.asarray(x), spec_j, jnp.asarray(-3.0)))
+    for backend in ("reference", "cuda"):
+        got = TN.roundtrip(torch.from_numpy(x), spec_t, torch.tensor(-3.0),
+                           backend=backend)
+        np.testing.assert_array_equal(got.numpy(), want)
+    from repro_torch.kernels import ops as TOPS
+    np.testing.assert_array_equal(
+        TOPS.quantize_fused(torch.from_numpy(x), -3.0, 8).numpy(),
+        np.asarray(JN.fake_quant(jnp.asarray(x), spec_j, jnp.asarray(-3.0),
+                                 backend="pallas")))
+
+
+def _site_pair(act_log2, grad_log2):
+    j = JQ.ActQuant(JN.ScaleState(jnp.asarray(act_log2, jnp.int32),
+                                  jnp.asarray(0.2, jnp.float32)),
+                    JN.ScaleState(jnp.asarray(grad_log2, jnp.int32),
+                                  jnp.asarray(0.2, jnp.float32)),
+                    jnp.zeros((), jnp.float32))
+    t = TQ.ActQuant(TN.ScaleState(torch.tensor(act_log2, dtype=torch.int32),
+                                  torch.tensor(0.2)),
+                    TN.ScaleState(torch.tensor(grad_log2, dtype=torch.int32),
+                                  torch.tensor(0.2)),
+                    torch.zeros((), requires_grad=True))
+    return j, t
+
+
+def test_quant_edge_forward_bit_identical_backward_and_probe_1e6():
+    """``quant_edge``: 8-bit forward bit-identical to JAX; the backward's
+    16-bit gradient and the probe statistic mean|g|/2^k within 1e-6."""
+    rng = np.random.RandomState(0)
+    x = (rng.randn(64, 512) * 1.5).astype(np.float32)
+    g = (rng.randn(64, 512) * 3e-3).astype(np.float32)
+    js, ts = _site_pair(1, -6)
+
+    def jf(xx, site):
+        return jnp.sum(JQ.quant_edge(xx, site, 8, 16) * jnp.asarray(g))
+    y_j = JQ.quant_edge(jnp.asarray(x), js, 8, 16)
+    gx_j, gs_j = jax.grad(jf, argnums=(0, 1), allow_int=True)(
+        jnp.asarray(x), js)
+    xt = torch.from_numpy(x).requires_grad_()
+    y_t = TQ.quant_edge(xt, ts, 8, 16)
+    np.testing.assert_array_equal(y_t.detach().numpy(), np.asarray(y_j))
+    (y_t * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx_j), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(float(ts.probe.grad), float(gs_j.probe),
+                               rtol=1e-6, atol=1e-6)
+    # some values clipped (zero gradient), the rest passed quantized
+    assert 0 < int((xt.grad == 0).sum()) < x.size
+
+
+def test_scale_manager_matches_reference():
+    """``update_scale`` / ``update_act_quant`` over a few steps: the same
+    exponents and tracked means (1e-6) as JAX's."""
+    rng = np.random.RandomState(1)
+    js, ts = _site_pair(0, 0)
+    for i in range(6):
+        x = (rng.randn(32, 16) * 2.0 ** (i - 2)).astype(np.float32)
+        stat = float(rng.rand() * 0.6)
+        js = JQ.update_act_quant(js, jnp.asarray(x), jnp.asarray(stat),
+                                 0.1, 0.3, 0.9)
+        ts = TQ.update_act_quant(ts, torch.from_numpy(x), torch.tensor(stat),
+                                 0.1, 0.3, 0.9)
+        for a, b in ((js.act, ts.act), (js.grad, ts.grad)):
+            assert int(a.log2) == int(b.log2)
+            np.testing.assert_allclose(float(b.mean_abs), float(a.mean_abs),
+                                       rtol=1e-6)
+    assert float(TN.step_log2(ts.act, 8)) == float(JN.step_log2(js.act, 8))
