@@ -51,6 +51,30 @@ Phases (any failure raises and the script exits non-zero):
 6. train identity — one step from the same initial params on the card and
              on the CPU (plain versions): loss, gradients and the stepped
              params within the CPU parity tests' tolerances.
+   wire kernels — the blockwise encode/decode kernels against their plain
+             versions bit for bit (codes, scales, values) at every Adam
+             moment shape (block 256) and every flattened gradient-leaf
+             length of the wire (block 1024) of the step, a padded
+             multi-block (3, 1000) at block 256 and an all-zero block; the
+             packed int4x2 encode/decode kernels on the six FMNIST cores
+             at their wscale_log2, a stacked tensor with a step per row and
+             an odd trailing dim, and a scalar. Each timed beside its bound,
+             its plain version and a library call where one computes the
+             same function.
+7. train wire — the third main path: the same MLP stepped 300 times with
+             the paper's full Table-1 wire (``make_step(..., compress=True)``
+             with int8 Adam moments and the int8 gradient wire), counts
+             zeroed just before and read just after (each must equal 300 x
+             ``launches_per_step``); the loss and accuracy locks of phase
+             5; then, counts zeroed again, the per-site byte table from the
+             card's live tensors (``launch/train_wire.py::site_table``:
+             7,160 / 91,148 / 98,290 / 14,993 B against 7,844,096 B fp32,
+             37.07x) with the packed deploy export of the trained params,
+             loaded back by ``load_tt_deploy`` on the card, its cores equal
+             to encode -> decode of the params bit for bit; a profiled
+             window of wire steps.
+8. train wire identity — one wire step from the same state on the card and
+             on the CPU, under the CPU parity tests' tolerances.
 
 Output: human-readable lines, then one JSON line describing every kernel,
 then the card's name and power limit (nvidia-smi), then the last line
@@ -74,7 +98,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_OPS_PER_S = 989e12            # dense bf16 tensor-core peak
 FP32_OPS_PER_S = 67e12             # fp32 peak outside the tensor cores
 ARCH = "internlm2-1.8b"
-SOURCES = ["pow2_rows", "paged_attention", "pow2_fq", "ttm_pe"]
+SOURCES = ["pow2_rows", "paged_attention", "pow2_fq", "ttm_pe",
+           "blockwise", "pow2_packed"]
 TRAIN_STEPS = 300
 
 
@@ -784,8 +809,12 @@ def phase_train(torch, device: str = "cuda", steps: int = TRAIN_STEPS
         f"{c['dense_bits'] / c['fixed_bits']:.0f}x vs dense (full rank: "
         f"{full['tt_params']:,} params, "
         f"{full['dense_bits'] / full['fixed_bits']:.0f}x)")
-    prof = _profile_train(torch, step, params, opt, xs, ys) \
-        if device == "cuda" else None
+    state = {"params": params, "opt": opt}
+
+    def one(i):
+        state["params"], state["opt"], _ = step(
+            state["params"], state["opt"], TF.batch_at(xs, ys, i))
+    prof = _profile_train(torch, one) if device == "cuda" else None
     return {"steps": steps, "step_ms": wall * 1e3,
             "loss_first": loss[0].item(), "loss_last": loss[-1].item(),
             "loss_first20": first, "loss_last20": last,
@@ -810,22 +839,21 @@ def _device_summary(torch, prof, steps: int) -> tuple[float, list]:
                     "ms_per_step": dev(e) / steps / 1e3} for e in top]
 
 
-def _profile_train(torch, step, params, opt, xs, ys, steps: int = 20):
-    """Host wall of ``steps`` unprofiled training steps, then one profiled
-    window of as many for the device time per kernel. busy_share = device
-    time / wall time."""
+def _profile_train(torch, one, steps: int = 20):
+    """Host wall of ``steps`` unprofiled training steps (``one(i)`` runs
+    step i), then one profiled window of as many for the device time per
+    kernel. busy_share = device time / wall time."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch import train_fmnist as TF
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(steps):
-        params, opt, _ = step(params, opt, TF.batch_at(xs, ys, i))
+        one(i)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(steps):
-            params, opt, _ = step(params, opt, TF.batch_at(xs, ys, i))
+            one(steps + i)
         torch.cuda.synchronize()
     total, rows = _device_summary(torch, prof, steps)
     log(f"train profile: {wall*1e3:.2f} ms per step (host wall), device "
@@ -896,6 +924,358 @@ def phase_train_identity(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# wire kernels and phases 7-8: the full Table-1 wire (int8 moments, int8
+# gradient wire, packed int4 deploy export)
+# ---------------------------------------------------------------------------
+
+MOMENT_SHAPES = [(16, 16, 16, 1), (16, 4, 4, 16), (16, 2, 2, 16),
+                 (1, 4, 7, 16), (1, 1, 32, 16), (512,), (16,), ()]
+WIRE_LENGTHS = [4096, 1024, 512, 448, 16, 1]
+PACKED_NONE = ("none: no PyTorch call packs signed int4 pairs (quint4x2 "
+               "is unsigned with a zero point and has no CUDA kernel)")
+BW_ENC_NONE = ("none: no PyTorch call derives per-block absmax scales "
+               "(quantize_per_channel takes the scales as input)")
+
+
+def _bw_row(torch, timer, shape, block, gen, what) -> dict:
+    """One blockwise shape: encode and decode kernels against their plain
+    versions bit for bit, then timed with bounds and the library decode."""
+    from repro_torch import numerics as TN
+    from repro_torch.numerics import cuda_backend as CB
+    x = torch.randn(shape, generator=gen, device=gen.device) * 0.05
+    last = x.shape[-1] if x.dim() else 1
+    if last > block:
+        x[..., :block] = 0.0                         # an all-zero block
+    x2d = x.reshape(-1, last)
+    rows = x2d.shape[0]
+    b, nb, _ = TN.blockwise_geometry(TN.QuantSpec("blockwise", 8, block),
+                                     last)
+    codes, sc = CB.bw_encode(x2d, block)
+    rc, rs = CB.bw_encode_plain(x2d, block)
+    check(torch.equal(codes, rc), f"bw_enc codes differ ({what})")
+    check(_bits_equal(torch, sc, rs), f"bw_enc scales differ ({what})")
+    if last > block:
+        check(sc[0, 0].item() == 0.0 and not codes[0, :b].any().item(),
+              f"bw_enc: all-zero block not coded as zeros ({what})")
+    y = CB.bw_decode(codes, sc, last)
+    check(_bits_equal(torch, y, CB.bw_decode_plain(codes, sc, last)),
+          f"bw_dec values differ ({what})")
+    n = rows * last
+    enc = dict(shape=list(shape), block=block, b=b, what=what,
+               max_abs_err=0.0,
+               ms=timer(lambda: CB.bw_encode(x2d, block)),
+               plain_ms=timer(lambda: CB.bw_encode_plain(x2d, block),
+                              iters=10),
+               library_ms=None, library_note=BW_ENC_NONE)
+    enc["bound_ms"], enc["bound_by"] = bound_ms(
+        n * 4 + rows * nb * (b + 4), 4 * n, FP32_OPS_PER_S)
+    dec = dict(shape=list(shape), block=block, b=b, what=what,
+               max_abs_err=0.0,
+               ms=timer(lambda: CB.bw_decode(codes, sc, last)),
+               plain_ms=timer(lambda: CB.bw_decode_plain(codes, sc, last),
+                              iters=10))
+    dec["library_ms"], dec["library_note"] = _library_yardstick(
+        timer, lambda: _library_bw_decode(torch, codes, sc, b, last),
+        lambda r: _bits_equal(torch, r, y))
+    dec["bound_ms"], dec["bound_by"] = bound_ms(
+        rows * nb * (b + 4) + n * 4, n, FP32_OPS_PER_S)
+    log(f"bw {what} {tuple(shape)} b={b}: enc {enc['ms']*1e3:.1f} us "
+        f"(plain {enc['plain_ms']*1e3:.1f}, bound "
+        f"{enc['bound_ms']*1e3:.3f}), dec {dec['ms']*1e3:.1f} us (plain "
+        f"{dec['plain_ms']*1e3:.1f}, library {dec['library_note']}, bound "
+        f"{dec['bound_ms']*1e3:.3f}); bit-exact")
+    return enc, dec
+
+
+def _library_bw_decode(torch, codes, sc, b, last):
+    """Yardstick only: a per-channel quantized tensor over the codes, one
+    channel per block, dequantized, the pad sliced away."""
+    rows, nb = sc.shape
+    qt = torch._make_per_channel_quantized_tensor(
+        codes.reshape(rows * nb, b), sc.reshape(-1).double(),
+        torch.zeros(rows * nb, dtype=torch.long, device=codes.device), 0)
+    return qt.dequantize().reshape(rows, nb * b)[:, :last]
+
+
+def _packed_row(torch, timer, x, s, what) -> tuple[dict, dict]:
+    from repro_torch import numerics as TN
+    from repro_torch.numerics import cuda_backend as CB
+    spec = TN.QuantSpec("pow2", 4, 0, "int4x2", "fixed")
+    x2d, srow = CB._rowwise_lastdim(x, s)
+    rows, last = x2d.shape
+    p = CB.encode_packed(x2d, srow, 4)
+    check(torch.equal(p, CB.encode_packed_plain(x2d, srow, 4)),
+          f"p2_enc_packed bytes differ ({what})")
+    y = CB.decode_packed(p, srow, last)
+    check(_bits_equal(torch, y, CB.decode_packed_plain(p, srow, last)),
+          f"p2_dec_packed values differ ({what})")
+    qt = TN.encode(x, spec, s, backend="cuda")      # the codec's view
+    ref = TN.encode(x.cpu(), spec, s.cpu())
+    check(torch.equal(qt.codes.cpu(), ref.codes),
+          f"packed codec differs from the reference ({what})")
+    n, pk = rows * last, p.shape[1]
+    enc = dict(shape=list(x.shape), what=what, max_abs_err=0.0,
+               ms=timer(lambda: CB.encode_packed(x2d, srow, 4)),
+               plain_ms=timer(lambda: CB.encode_packed_plain(x2d, srow, 4),
+                              iters=10),
+               library_ms=None, library_note=PACKED_NONE)
+    enc["bound_ms"], enc["bound_by"] = bound_ms(
+        n * 4 + rows * pk + srow.numel() * 4, 4 * n, FP32_OPS_PER_S)
+    dec = dict(shape=list(x.shape), what=what, max_abs_err=0.0,
+               ms=timer(lambda: CB.decode_packed(p, srow, last)),
+               plain_ms=timer(lambda: CB.decode_packed_plain(p, srow, last),
+                              iters=10),
+               library_ms=None, library_note=PACKED_NONE)
+    dec["bound_ms"], dec["bound_by"] = bound_ms(
+        rows * pk + n * 4 + srow.numel() * 4, 2 * n, FP32_OPS_PER_S)
+    log(f"packed {what} {tuple(x.shape)}: enc {enc['ms']*1e3:.1f} us "
+        f"(plain {enc['plain_ms']*1e3:.1f}, bound "
+        f"{enc['bound_ms']*1e3:.4f}), dec {dec['ms']*1e3:.1f} us (plain "
+        f"{dec['plain_ms']*1e3:.1f}, bound {dec['bound_ms']*1e3:.4f}); "
+        f"bit-exact")
+    return enc, dec
+
+
+def phase_wire_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
+    """The wire's codec kernels against their plain versions, bit for bit,
+    at the shapes of the step: every Adam moment shape at block 256 and
+    every flattened gradient length of the wire at block 1024, a padded
+    (3, 1000) at 256 with an all-zero block; the packed codec on the six
+    cores at their wscale_log2, a stacked (3, 5, 7) with a step per row,
+    and a scalar."""
+    from repro_torch.kernels import build as B
+    from repro_torch.models import mlp_tt as MLP
+    gen = torch.Generator(device=device).manual_seed(3)
+    enc, dec = [], []
+    cases = [(s, 256, "moment") for s in MOMENT_SHAPES]
+    cases += [((n,), 1024, "wire") for n in WIRE_LENGTHS]
+    cases += [((3, 1000), 256, "padded")]
+    for shape, block, what in cases:
+        e, d_ = _bw_row(torch, timer, shape, block, gen, what)
+        enc.append(e)
+        dec.append(d_)
+    d = MLP.make_mlp()
+    params = MLP.init_mlp(torch.Generator(device=device).manual_seed(0), d,
+                          device=device)
+    penc, pdec = [], []
+    cores = [(f"{layer}/core_{n}", params[layer][f"core_{n}"].reshape(-1),
+              params[layer]["wscale_log2"][n].float())
+             for layer, spec in (("l1", d.spec1), ("l2", d.spec2))
+             for n in range(spec.d)]
+    cores.sort(key=lambda c: -c[1].numel())
+    cases = cores + [
+        ("stacked per-row", torch.randn((3, 5, 7), generator=gen,
+                                        device=device) * 0.3,
+         torch.tensor([-3.0, -2.0, -4.0], device=device)),
+        ("scalar", torch.tensor(0.7, device=device),
+         torch.tensor(-2.0, device=device))]
+    for what, x, s in cases:
+        e, d_ = _packed_row(torch, timer, x, s, what)
+        penc.append(e)
+        pdec.append(d_)
+    _sync(torch, device)
+    B.reset_launches()
+    return {"bw_enc": enc, "bw_dec": dec, "p2_enc_packed": penc,
+            "p2_dec_packed": pdec}
+
+
+EXPECT_SITES = {"tt_factor": 7160, "activation": 91148,
+                "optimizer_moment": 98290, "dp_wire": 14993}
+
+
+def phase_train_wire(torch, device: str = "cuda",
+                     steps: int = TRAIN_STEPS) -> dict:
+    """The full-wire training path on the card: ``steps`` steps of
+    ``make_step(d, tcfg, compress=True)`` with int8 moments from seeded
+    random params, launch counts per step asserted; the loss and accuracy
+    locks; then the per-site byte table from the live tensors with the
+    deploy export, loaded back on the card and held to encode -> decode of
+    the params; a profiled window of wire steps."""
+    import tempfile
+    from repro_torch import numerics as TN
+    from repro_torch.ckpt import load_tt_deploy
+    from repro_torch.data import fashion_like
+    from repro_torch.kernels import build as B
+    from repro_torch.launch import train_fmnist as TF
+    from repro_torch.launch import train_wire as TW
+    from repro_torch.models import mlp_tt as MLP
+    from repro_torch.optim import adam as A
+    from repro_torch.tree import leaves
+
+    d = MLP.make_mlp()
+    tcfg = TW.wire_config()
+    params = MLP.init_mlp(torch.Generator(device=device).manual_seed(0), d,
+                          device=device)
+    opt = A.init_adam(params, tcfg)
+    xs, ys = (torch.from_numpy(a).to(device)
+              for a in fashion_like(8192, seed=1))
+    xt, yt = (torch.from_numpy(a).to(device)
+              for a in fashion_like(2048, seed=2))
+    step = TF.make_step(d, tcfg, compress=True)
+    acc0 = TF.accuracy(params, xt, yt, d)
+    residual = grads = None
+    _sync(torch, device)
+
+    B.reset_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(steps):
+        params, opt, loss, grads, residual = step(
+            params, opt, TF.batch_at(xs, ys, i), residual)
+        losses.append(loss)
+    _sync(torch, device)
+    wall = (time.perf_counter() - t0) / steps
+    launches = dict(B.LAUNCHES)
+    per = TF.launches_per_step(d, tcfg, compress=True)
+    want = {k: v * steps for k, v in per.items()}
+    if device == "cuda":
+        check(launches == want, f"wire launches {launches}, want {want} "
+              f"({per} a step)")
+    loss = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(loss).all()), "wire: non-finite loss")
+    first, last = loss[:20].mean().item(), loss[-20:].mean().item()
+    check(last < 0.5 * first, f"wire: loss did not fall: first 20 steps "
+          f"{first:.4f}, last 20 {last:.4f}")
+    acc = TF.accuracy(params, xt, yt, d)
+    check(acc > 0.5, f"wire: test accuracy {acc:.3f} not above chance")
+    eff1, eff2 = MLP.effective_ranks(params, d)
+    c = MLP.param_counts(d, eff1, eff2)
+    log(f"train wire: {steps} steps, loss {loss[0].item():.4f} -> "
+        f"{loss[-1].item():.4f} (mean of first/last 20: {first:.4f} / "
+        f"{last:.4f}), test acc {acc0:.3f} -> {acc:.3f}, {wall*1e3:.2f} ms "
+        f"per step (host wall), launches per step {per}")
+    log(f"train wire: effective ranks L1 {eff1} L2 {eff2}, params "
+        f"{c['tt_params']:,}, reduction "
+        f"{c['dense_bits'] / c['fixed_bits']:.0f}x vs dense")
+
+    # the byte table and the deploy export, from the card's live tensors
+    result = {"new_params": params, "opt": opt, "grads": grads,
+              "policy": d.qc.policy(), "batch": TF.BATCH}
+    _sync(torch, device)
+    B.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        sites, baseline, deploy = TW.site_table(result,
+                                                f"{tmp}/deploy.ckpt")
+        back, _ = load_tt_deploy(f"{tmp}/deploy.ckpt", device=device)
+    _sync(torch, device)
+    export_launches = dict(B.LAUNCHES)
+    n_cores = d.spec1.d + d.spec2.d
+    n_wire = sum(1 for g in leaves(grads) if g is not None
+                 and g.is_floating_point())
+    if device == "cuda":
+        check(export_launches == {"p2_enc_packed": n_cores,
+                                  "p2_dec_packed": n_cores,
+                                  "bw_enc": n_wire},
+              f"export launches {export_launches}")
+    check(sites == EXPECT_SITES, f"site table {sites}, want {EXPECT_SITES}")
+    low, base = sum(sites.values()), sum(baseline.values())
+    check(low == 211591 and base == 7844096
+          and round(base / low, 2) == 37.07,
+          f"Table-1 total {low} vs {base}")
+    check(round(deploy["reduction_x"], 2) == 7.97, f"deploy {deploy}")
+    spec = TN.QuantSpec("pow2", 4, 0, "int4x2", "fixed")
+    for layer, sp in (("l1", d.spec1), ("l2", d.spec2)):
+        for n in range(sp.d):
+            core = params[layer][f"core_{n}"].cpu()
+            want_core = TN.roundtrip(
+                core.reshape(-1), spec,
+                params[layer]["wscale_log2"][n].float().cpu()).reshape(
+                    core.shape)
+            got = back[layer][f"core_{n}"]
+            check(got.device.type == torch.device(device).type
+                  and _bits_equal(torch, got.cpu(), want_core),
+                  f"deploy {layer}/core_{n} differs from encode -> decode")
+    log(f"train wire: sites {sites} -> {low:,} B vs fp32 {base:,} B "
+        f"({base / low:.2f}x); deploy {deploy['packed_bytes']:,} B "
+        f"({deploy['reduction_x']:.2f}x), loaded back on the card equal to "
+        f"encode -> decode; export launches {export_launches}")
+    for k, v in export_launches.items():
+        launches[k] = launches.get(k, 0) + v
+
+    state = {"params": params, "opt": opt, "res": residual}
+
+    def one(i):
+        state["params"], state["opt"], _, _, state["res"] = step(
+            state["params"], state["opt"], TF.batch_at(xs, ys, i),
+            state["res"])
+    prof = _profile_train(torch, one) if device == "cuda" else None
+    return {"steps": steps, "step_ms": wall * 1e3,
+            "loss_first": loss[0].item(), "loss_last": loss[-1].item(),
+            "loss_first20": first, "loss_last20": last,
+            "test_acc_init": acc0, "test_acc": acc,
+            "effective_ranks": [eff1, eff2], "param_counts": c,
+            "launches_per_step": per, "export_launches": export_launches,
+            "launches": launches, "sites": sites, "baseline": baseline,
+            "deploy": deploy, "profile": prof}
+
+
+def phase_train_wire_identity(torch, device: str = "cuda") -> dict:
+    """One wire step from the same state on the card and on the CPU: the
+    loss within 1e-5 relative; every compressed gradient and residual
+    element within one wire step of its leaf (a value within roundoff of a
+    rounding boundary may take the neighbouring code) + 1e-5 of the leaf's
+    largest |g|, and at least 99.5% of them within 1e-5; params within 2
+    lr; scale exponents and effective ranks equal."""
+    from repro_torch.data import fashion_like
+    from repro_torch.launch import train_fmnist as TF
+    from repro_torch.launch import train_wire as TW
+    from repro_torch.models import mlp_tt as MLP
+    from repro_torch.optim import adam as A
+    from repro_torch.tree import flatten_with_path
+
+    d = MLP.make_mlp()
+    tcfg = TW.wire_config()
+    p_cpu = MLP.init_mlp(torch.Generator().manual_seed(0), d, device="cpu")
+    p_gpu = _tensor_tree(torch, p_cpu, device)
+    xs, ys = fashion_like(8192, seed=1)
+    b_cpu = {"x": torch.from_numpy(xs[:64]), "y": torch.from_numpy(ys[:64])}
+    b_gpu = {k: v.to(device) for k, v in b_cpu.items()}
+    step = TF.make_step(d, tcfg, compress=True)
+    pg, _, lg, gg, rg = step(p_gpu, A.init_adam(p_gpu, tcfg), b_gpu, None)
+    pc, _, lc, gc, rc = step(p_cpu, A.init_adam(p_cpu, tcfg), b_cpu, None)
+    rel = abs(lg.item() - lc.item()) / abs(lc.item())
+    check(rel <= 1e-5, f"wire identity: loss rel diff {rel:.2e}")
+    close = total = 0
+    worst = 0.0
+    paths = [p for p, _ in flatten_with_path(gc)]
+    gmax = {}
+    for (p, a), (_, b) in zip(flatten_with_path(gg), flatten_with_path(gc)):
+        if b is None:
+            check(a is None, f"{p}: gradient on one side only")
+            continue
+        m = gmax[p] = b.abs().max().item()
+        e = (a.cpu() - b).abs()
+        check(e.max().item() <= m / 127 + 1e-5 * m + 1e-12,
+              f"wire identity: {p} compressed grad err {e.max().item():.3e}")
+        close += int((e <= 1e-5 * m).sum())
+        total += e.numel()
+        worst = max(worst, e.max().item() / m if m else 0.0)
+    check(close >= 0.995 * total, f"wire identity: {close}/{total} close")
+    for p, a, b in zip(paths, rg, rc):
+        check((a is None) == (b is None), f"{p}: residual on one side only")
+        if b is not None:
+            e = (a.cpu() - b).abs().max().item()
+            check(e <= gmax[p] / 127 + 1e-5 * gmax[p] + 1e-12,
+                  f"wire identity: {p} residual err {e:.3e}")
+    move = 0.0
+    for (p, a), (_, b) in zip(flatten_with_path(pg), flatten_with_path(pc)):
+        if not a.is_floating_point():
+            check(torch.equal(a.cpu(), b), f"wire identity: {p} differs")
+            continue
+        e = (a.cpu() - b).abs().max().item()
+        check(e <= 2 * tcfg.learning_rate + 1e-6,
+              f"wire identity: {p} after the step differs by {e:.3e}")
+        move = max(move, e)
+    check(MLP.effective_ranks(pg, d) == MLP.effective_ranks(pc, d),
+          "wire identity: effective ranks differ")
+    log(f"train wire identity: card vs CPU loss rel diff {rel:.2e}, "
+        f"compressed grads {close}/{total} within 1e-5 of their leaf max "
+        f"(worst {worst:.2e}), params within {move:.2e}")
+    return {"loss_rel_diff": rel, "grads_close": close, "grads_total": total,
+            "grad_worst_rel": worst, "param_max_diff": move}
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "p2_enc_rows": ("src/repro_torch/kernels/csrc/pow2_rows.cu",
@@ -904,6 +1284,16 @@ KERNELS = {
                     "src/repro/numerics/pallas_backend.py:196"),
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:134"),
+}
+WIRE_KERNELS = {
+    "bw_enc": ("src/repro_torch/kernels/csrc/blockwise.cu",
+               "src/repro/numerics/pallas_backend.py:450"),
+    "bw_dec": ("src/repro_torch/kernels/csrc/blockwise.cu",
+               "src/repro/numerics/pallas_backend.py:458"),
+    "p2_enc_packed": ("src/repro_torch/kernels/csrc/pow2_packed.cu",
+                      "src/repro/numerics/pallas_backend.py:229"),
+    "p2_dec_packed": ("src/repro_torch/kernels/csrc/pow2_packed.cu",
+                      "src/repro/numerics/pallas_backend.py:245"),
 }
 TRAIN_KERNELS = {
     "p2_fake_quant": ("src/repro_torch/kernels/csrc/pow2_fq.cu",
@@ -927,7 +1317,8 @@ def _kernel_row(name, src, replaces, shapes, launches, path) -> dict:
             "library_ms": head.get("library_ms"), "shapes": shapes}
 
 
-def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict) -> dict:
+def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
+                 wkern: dict, wire: dict) -> dict:
     rows = []
     for name, (src, replaces) in KERNELS.items():
         on_main = eng["launches_main"].get(name, 0)
@@ -939,6 +1330,11 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict) -> dict:
         rows.append(_kernel_row(name, src, replaces, tkern[name],
                                 train["launches"].get(name, 0),
                                 f"train ({train['steps']} steps)"))
+    for name, (src, replaces) in WIRE_KERNELS.items():
+        rows.append(_kernel_row(name, src, replaces, wkern[name],
+                                wire["launches"].get(name, 0),
+                                f"train wire ({wire['steps']} steps, site "
+                                "table and deploy export)"))
     return {"kernels": rows}
 
 
@@ -969,14 +1365,18 @@ def main(argv=None) -> int:
     timer = Timer(torch)
     report["kernels"] = phase_kernels(torch, timer)
     report["train_kernels"] = phase_train_kernels(torch, timer)
+    report["wire_kernels"] = phase_wire_kernels(torch, timer)
     del timer
     report["engine"] = phase_engine(torch)
     report["identity"] = phase_identity(torch)
     report["train"] = phase_train(torch)
     report["train_identity"] = phase_train_identity(torch)
+    report["train_wire"] = phase_train_wire(torch)
+    report["train_wire_identity"] = phase_train_wire_identity(torch)
     report["seconds"] = time.perf_counter() - t0
     line = kernels_line(report["kernels"], report["engine"],
-                        report["train_kernels"], report["train"])
+                        report["train_kernels"], report["train"],
+                        report["wire_kernels"], report["train_wire"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -33,11 +33,7 @@ class TTConfig:
 
 @dataclass(frozen=True)
 class QuantConfig:
-    """Low-precision training config (paper §3.2-3.3).
-
-    ``policy()``, which lowers these knobs onto a ``NumericsPolicy``, comes
-    with the port of ``numerics/policy.py`` (the training slice).
-    """
+    """Low-precision training config (paper §3.2-3.3)."""
     enable: bool = False
     weight_bits: int = 4            # TT factors
     act_bits: int = 8               # activations + bias
@@ -48,6 +44,12 @@ class QuantConfig:
     target_hi: float = 0.3
     ema: float = 0.9                # running-mean decay for |x| tracking
     health: bool = False            # trace quant-health aggregates (repro.obs)
+
+    def policy(self):
+        """Lower onto the unified numerics policy (lazy import: configs
+        stay importable without the numerics modules)."""
+        from ..numerics.policy import policy_from_quant_config
+        return policy_from_quant_config(self)
 
 
 # ---------------------------------------------------------------------------

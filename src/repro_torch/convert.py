@@ -6,7 +6,10 @@ leaf on axis 0 (``params["layers"]``, consumed by ``lax.scan``); the port
 keeps one dict per layer, so this unstacks them. ``mlp_params_from_jax``
 takes the paper's TT MLP, whose ``ActQuant``/``ScaleState`` nodes arrive as
 ``repro``'s NamedTuples and are matched by their ``_fields``. Everything
-else maps key for key. bf16 arrays (numpy's ``ml_dtypes.bfloat16``) are
+else maps key for key. ``adam_state_from_jax`` and ``residual_from_jax``
+carry the optimizer moments (f32, or blockwise-int8 ``QTensor``s) and the
+gradient wire's error-feedback residual, so both packages can step from
+one state. bf16 arrays (numpy's ``ml_dtypes.bfloat16``) are
 carried bit for bit.
 
 Nothing here imports JAX: callers convert with ``jax.tree.map(np.asarray,
@@ -21,6 +24,8 @@ import torch
 from .core.quant import ActQuant
 from .device import resolve_device
 from .numerics.policy import ScaleState
+from .numerics.spec import QTensor, QuantSpec
+from .optim.adam import AdamState
 
 # repro's NamedTuple node types, by their fields -> the port's
 _NAMEDTUPLES = {ActQuant._fields: ActQuant, ScaleState._fields: ScaleState}
@@ -74,3 +79,33 @@ def mlp_params_from_jax(tree: dict, device=None) -> dict:
             return _NAMEDTUPLES[fields](*(walk(v) for v in node))
         return _tensor(node, device)
     return walk(tree)
+
+
+def _moment(node, device: torch.device):
+    """None, an array, or ``repro``'s ``QTensor`` (matched by its
+    ``codes``/``spec`` attributes) -> the port's."""
+    if node is None:
+        return None
+    if hasattr(node, "codes") and hasattr(node, "spec"):
+        return QTensor(_tensor(node.codes, device), _tensor(node.scale, device),
+                       QuantSpec.from_json_dict(node.spec.to_json_dict()),
+                       tuple(node.shape))
+    return _tensor(node, device)
+
+
+def adam_state_from_jax(state, device=None) -> AdamState:
+    """``repro``'s ``AdamState`` with numpy leaves (``jax.tree.map(
+    np.asarray, state)`` keeps its ``QTensor`` moments) -> the port's, on
+    ``device`` (default ``"cuda"``; pass ``"cpu"`` explicitly off the
+    card)."""
+    device = resolve_device(device)
+    return AdamState(_tensor(state.step, device),
+                     tuple(_moment(m, device) for m in state.m),
+                     tuple(_moment(v, device) for v in state.v))
+
+
+def residual_from_jax(residual, device=None) -> tuple:
+    """The gradient wire's residual tuple (None for the integer leaves) ->
+    the port's, on ``device`` (default ``"cuda"``)."""
+    device = resolve_device(device)
+    return tuple(_moment(r, device) for r in residual)

@@ -1,12 +1,14 @@
-"""repro_torch.numerics — the pow-2 quantization API of ``repro.numerics``
-as far as the serving and training slices use it: ``QuantSpec``/
-``QTensor``, the ``reference`` codec, the ``cuda`` codec (row-scale
-encode/decode and scalar fake-quant kernels, bit-identical), and the §3.3
-scale manager (``policy``). ``NumericsPolicy`` and the blockwise codec
-come with the wire slice."""
-from .codecs import (BACKENDS, decode, encode, fake_quant,  # noqa: F401
-                     get_codec, per_tensor_max_scale_log2, register_codec,
-                     roundtrip)
-from .policy import (ScaleState, init_scale, step_log2,  # noqa: F401
+"""repro_torch.numerics — the quantization API of ``repro.numerics``:
+``QuantSpec``/``QTensor``, the ``reference`` codecs (pow2 with int4x2
+packing, blockwise), the ``cuda`` codecs (row-scale, packed and blockwise
+encode/decode and the scalar fake-quant kernels, bit-identical), the
+``NumericsPolicy`` site map and the §3.3 scale manager (``policy``)."""
+from .codecs import (BACKENDS, blockwise_geometry, decode,  # noqa: F401
+                     encode, fake_quant, get_codec, pack_int4,
+                     per_tensor_max_scale_log2, register_codec, roundtrip,
+                     unpack_int4)
+from .policy import (SITES, NumericsPolicy, ScaleState,  # noqa: F401
+                     init_scale, policy_from_quant_config, step_log2,
                      update_scale)
-from .spec import QTensor, QuantSpec, packed_trailing, qrange  # noqa: F401
+from .spec import (QTensor, QuantSpec, packed_trailing, qrange,  # noqa: F401
+                   spec_nbytes)

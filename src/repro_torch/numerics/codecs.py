@@ -1,12 +1,12 @@
-"""Codec registry: ``encode / decode / fake_quant`` for the pow-2
-QuantSpec, with selectable backends — the port of
-``repro/numerics/codecs.py`` as far as the serving and training slices
-need it.
+"""Codec registry: ``encode / decode / fake_quant`` for every QuantSpec,
+with selectable backends — the port of ``repro/numerics/codecs.py``.
 
 - ``"reference"``: plain PyTorch — the numerics oracle, runs everywhere.
 - ``"cuda"``: the hand-written kernels (``numerics/cuda_backend.py``): the
-  row-scale encode/decode of ``kernels/csrc/pow2_rows.cu`` and the scalar
-  fake-quant of ``kernels/csrc/pow2_fq.cu``, bit-identical to the
+  row-scale encode/decode of ``kernels/csrc/pow2_rows.cu``, the scalar
+  fake-quant of ``kernels/csrc/pow2_fq.cu``, the int4x2 packed
+  encode/decode of ``kernels/csrc/pow2_packed.cu`` and the blockwise
+  encode/decode of ``kernels/csrc/blockwise.cu``, bit-identical to the
   reference. On a CPU tensor it runs the kernels' plain versions.
 
 Numerics contract (``repro``'s, unchanged): pow2 encode/decode compute in
@@ -15,15 +15,41 @@ to ``x.dtype`` and the clip bounds in ``x.dtype`` too (as JAX's
 weak-typed ``jnp.clip`` does: a bf16 16-bit ``hi`` of 32767 is 32768);
 ``round`` is half-to-even, codes clip to ``qrange(bits)``, and a
 non-scalar scale broadcasts against the LEADING dims of the data
-(``_bcast``: one scale per (layer, slot) of the KV pool).
-
-Not yet ported (ROADMAP): int4x2 packing and the blockwise codec.
+(``_bcast``: one scale per (layer, slot) of the KV pool). Packed int4x2
+codes pair nibbles along the trailing axis, the low nibble holding the
+even index. Blockwise uses symmetric ±(2^{b-1}-1) codes with ``scale =
+absmax/qmax`` (an IEEE division) and ``codes = rint(x / max(scale,
+1e-20))``.
 """
 from __future__ import annotations
 
 import torch
 
 from .spec import QTensor, QuantSpec, qrange
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """Pack int4 codes (values in [-8, 7]) two per byte along the trailing
+    axis: the low nibble holds the even index. An odd trailing dim gets one
+    zero pad nibble (the high nibble of the last byte). Returns int8 of
+    shape ``q.shape[:-1] + (ceil(last/2),)``."""
+    v = q.to(torch.int32)
+    if v.shape[-1] % 2:
+        v = torch.cat([v, v.new_zeros(v.shape[:-1] + (1,))], dim=-1)
+    lo = v[..., 0::2] & 0xF
+    hi = v[..., 1::2] & 0xF
+    return (lo | (hi << 4)).to(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor, last: int) -> torch.Tensor:
+    """Inverse of ``pack_int4``: int8 bytes -> int32 codes in [-8, 7] of
+    trailing dim ``last`` (the pad nibble, if any, is sliced away)."""
+    v = packed.to(torch.int32) & 0xFF
+    lo = ((v & 0xF) ^ 8) - 8                 # sign-extend each nibble
+    hi = ((v >> 4) ^ 8) - 8
+    q = torch.stack([lo, hi], dim=-1).reshape(
+        tuple(packed.shape[:-1]) + (packed.shape[-1] * 2,))
+    return q[..., :last]
 
 
 def _bcast(scale, ndim: int, device=None) -> torch.Tensor:
@@ -97,22 +123,24 @@ class Pow2Reference:
     backend = "reference"
 
     def encode(self, x: torch.Tensor, spec: QuantSpec, scale) -> QTensor:
-        if spec.packed:
-            raise NotImplementedError(
-                "int4x2 packed codes come with the packed-codec slice "
-                "(ROADMAP queue 2)")
         lo, hi = qrange(spec.bits)
         step = torch.exp2(_bcast(scale, x.dim(), x.device))
         q = torch.clamp(torch.round(x.float() / step), lo, hi)
+        if spec.packed:
+            # 0-d: one (1,)-code row (one nibble + one pad nibble); decode's
+            # `shape or (1,)` mirrors this
+            return QTensor(pack_int4(q[None] if q.dim() == 0 else q), scale,
+                           spec, tuple(x.shape))
         return QTensor(q.to(spec.torch_storage), scale, spec, tuple(x.shape))
 
     def decode(self, qt: QTensor, dtype=torch.float32) -> torch.Tensor:
+        codes = qt.codes
         if qt.spec.packed:
-            raise NotImplementedError(
-                "int4x2 packed codes come with the packed-codec slice "
-                "(ROADMAP queue 2)")
-        step = torch.exp2(_bcast(qt.scale, qt.codes.dim(), qt.codes.device))
-        return (qt.codes.float() * step).to(dtype)
+            codes = unpack_int4(codes, qt.shape[-1] if qt.shape else 1)
+        step = torch.exp2(_bcast(qt.scale, codes.dim(), codes.device))
+        out = codes.float() * step
+        return out.reshape(qt.shape).to(dtype) if qt.spec.packed \
+            else out.to(dtype)
 
     def epilogue(self, acc: torch.Tensor, spec: QuantSpec,
                  scale_log2) -> torch.Tensor:
@@ -133,11 +161,64 @@ class Pow2Reference:
 
 
 # ---------------------------------------------------------------------------
+# blockwise: per-block absmax along the last axis
+# ---------------------------------------------------------------------------
+
+def blockwise_geometry(spec: QuantSpec, last: int) -> tuple[int, int, int]:
+    """(block, num_blocks, pad) along a last axis of size ``last``. The block
+    clamps to the axis so the codes keep the leading shape of the input."""
+    b = min(spec.block, max(1, last))
+    nb = -(-last // b)
+    return b, nb, nb * b - last
+
+
+class BlockwiseReference:
+    """Reference blockwise-absmax codec in plain PyTorch (Dettmers-style)."""
+    kind = "blockwise"
+    backend = "reference"
+
+    def encode(self, x: torch.Tensor, spec: QuantSpec, scale=None) -> QTensor:
+        v = x.float()
+        if v.dim() == 0:
+            v = v[None]
+        shape = tuple(v.shape)
+        b, nb, pad = blockwise_geometry(spec, shape[-1])
+        if pad:
+            v = torch.cat([v, v.new_zeros(shape[:-1] + (pad,))], dim=-1)
+        blocks = v.reshape(shape[:-1] + (nb, b))
+        qmax = spec.qmax
+        # divide by a tensor on the data's device: PyTorch's CUDA division
+        # by a Python number multiplies by its f32 reciprocal instead,
+        # which can leave the scale an ulp off max|x| / qmax
+        sc = torch.amax(torch.abs(blocks), dim=-1) / blocks.new_full((),
+                                                                     qmax)
+        q = torch.round(blocks / torch.clamp(sc, min=1e-20)[..., None])
+        codes = torch.clamp(q, -qmax, qmax).to(spec.torch_storage)
+        return QTensor(codes.reshape(shape[:-1] + (nb * b,)), sc, spec, shape)
+
+    def decode(self, qt: QTensor, dtype=torch.float32) -> torch.Tensor:
+        nb = qt.scale.shape[-1]
+        b = qt.codes.shape[-1] // nb
+        lead = tuple(qt.codes.shape[:-1])
+        blocks = qt.codes.float().reshape(lead + (nb, b)) * qt.scale[..., None]
+        flat = blocks.reshape(lead + (nb * b,))
+        out = flat[..., :qt.shape[-1]] if qt.shape else flat[..., :1]
+        return out.reshape(qt.shape).to(dtype)
+
+    def fake_quant(self, x: torch.Tensor, spec: QuantSpec,
+                   scale=None) -> torch.Tensor:
+        # plain STE: identity gradient (blockwise sites sit outside autograd)
+        y = self.decode(self.encode(x, spec), x.dtype)
+        return x + (y - x).detach()
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 
 _CODECS: dict[tuple[str, str], object] = {
     ("pow2", "reference"): Pow2Reference(),
+    ("blockwise", "reference"): BlockwiseReference(),
 }
 
 BACKENDS = ("reference", "cuda")
@@ -178,7 +259,8 @@ def fake_quant(x: torch.Tensor, spec: QuantSpec, scale=None,
 
 def roundtrip(x: torch.Tensor, spec: QuantSpec, scale=None,
               backend: str = "reference") -> torch.Tensor:
-    """decode(encode(x)) without STE — pure value quantization."""
+    """decode(encode(x)) without STE — pure value quantization (the
+    optimizer moments and the gradient wire, where no gradient flows)."""
     codec = get_codec(spec, backend)
     return codec.decode(codec.encode(x, spec, scale), x.dtype)
 

@@ -1,9 +1,10 @@
 """CUDA codec backend: the row-scale pow-2 encode/decode kernels of
-``kernels/csrc/pow2_rows.cu`` and the scalar-scale fake-quant kernel of
-``kernels/csrc/pow2_fq.cu`` behind the ``encode / decode / fake_quant``
-API of the reference codec — the port of
-``repro/numerics/pallas_backend.py``'s multi-scale (row-scale) codec and
-its scalar fake-quant.
+``kernels/csrc/pow2_rows.cu``, the scalar-scale fake-quant kernel of
+``kernels/csrc/pow2_fq.cu``, the int4x2 packed encode/decode kernels of
+``kernels/csrc/pow2_packed.cu`` and the blockwise encode/decode kernels of
+``kernels/csrc/blockwise.cu`` behind the ``encode / decode / fake_quant``
+API of the reference codecs — the port of
+``repro/numerics/pallas_backend.py``.
 
 A scale that follows the ``codecs._bcast`` convention (one scale per
 leading index, e.g. the KV pool's per-(layer, slot) arrays) collapses the
@@ -21,7 +22,15 @@ reference's scalar-scale kernels compute, through the row kernel.
 per-core steps and the managed activation/gradient edges): that launches
 ``p2_fake_quant``, with the clipped STE's mask computed outside the
 kernel, as in the Pallas backend. A scale per leading index is the
-row-scale fake-quant of ROADMAP queue 2 item 2 and raises.
+row-scale fake-quant of ROADMAP queue 2 and raises.
+
+Packed int4x2 storage views the data as ``(rows, last)`` keeping the
+logical trailing dim (``_rowwise_lastdim``), so a byte's two nibbles never
+straddle rows; a one-element scale is every row's (stride 0 in the kernel).
+
+The blockwise codec (``BlockwiseCuda``) views the data as ``(rows, last)``
+and encodes each row's ``blockwise_geometry`` blocks with one launch of
+``bw_enc``; ``bw_dec`` decodes and drops the pad.
 """
 from __future__ import annotations
 
@@ -30,14 +39,21 @@ import ctypes
 import torch
 
 from ..kernels import build as B
-from .codecs import Pow2Reference, pow2_fake_quant, pow2_qdq, register_codec
-from .spec import QTensor, QuantSpec, qrange
+from .codecs import (BlockwiseReference, Pow2Reference, blockwise_geometry,
+                     pow2_fake_quant, pow2_qdq, register_codec)
+from .spec import QTensor, QuantSpec, packed_trailing, qrange
 
 ENC = "p2_enc_rows"
 DEC = "p2_dec_rows"
 SOURCE = "pow2_rows"
 FQ = "p2_fake_quant"
 FQ_SOURCE = "pow2_fq"
+PENC = "p2_enc_packed"
+PDEC = "p2_dec_packed"
+PACKED_SOURCE = "pow2_packed"
+BENC = "bw_enc"
+BDEC = "bw_dec"
+BW_SOURCE = "blockwise"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _FQ_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -66,6 +82,30 @@ def _rowwise(x: torch.Tensor, scale) -> tuple[torch.Tensor, torch.Tensor] | None
         rows *= d
     srow = torch.broadcast_to(scale.reshape(sh), lead).reshape(rows)
     return x.reshape(rows, -1), srow
+
+
+def _rowwise_lastdim(x: torch.Tensor, scale
+                     ) -> tuple[torch.Tensor, torch.Tensor] | None:
+    """View ``x`` as (rows, last) with one scale per row, KEEPING the
+    logical trailing dim intact (the packed codec pairs nibbles along it;
+    ``_rowwise``'s full collapse would let pairs straddle rows when the
+    trailing dim is odd). A one-element scale comes back as shape (1,):
+    every row's. None when the scale extends into the trailing dim."""
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    x2d = x.reshape(-1, x.shape[-1]) if x.dim() else x.reshape(1, 1)
+    if scale.numel() == 1:
+        return x2d, scale.reshape(1)
+    sh = list(scale.shape)
+    while sh and sh[-1] == 1:
+        sh.pop()
+    if len(sh) > x.dim() - 1:
+        return None
+    lead = tuple(x.shape[:-1])
+    if any(s not in (1, d) for s, d in zip(sh, lead)):
+        return None
+    srow = torch.broadcast_to(
+        scale.reshape(tuple(sh) + (1,) * (len(lead) - len(sh))), lead)
+    return x2d, srow.reshape(-1)
 
 
 # ---- plain versions (the CPU path, and the kernels' oracle on the card) ----
@@ -189,11 +229,198 @@ def fake_quant_scalar(x: torch.Tensor, step_log2, bits: int) -> torch.Tensor:
     return y
 
 
+# ---- int4x2 packed encode / decode ----------------------------------------
+
+def encode_packed_plain(x2d: torch.Tensor, srow: torch.Tensor,
+                        bits: int) -> torch.Tensor:
+    """The packed encode kernel's plain version: the reference codec on the
+    (rows, last) view, one scale per row (or one for all)."""
+    spec = QuantSpec("pow2", bits, 0, "int4x2")
+    return Pow2Reference().encode(x2d, spec, srow).codes
+
+
+def decode_packed_plain(p2d: torch.Tensor, srow: torch.Tensor,
+                        last: int) -> torch.Tensor:
+    """The packed decode kernel's plain version: f32 (rows, last)."""
+    qt = QTensor(p2d, srow, QuantSpec("pow2", 4, 0, "int4x2"),
+                 (p2d.shape[0], last))
+    return Pow2Reference().decode(qt, torch.float32)
+
+
+def _packed_lib() -> ctypes.CDLL:
+    lib = B.load(PACKED_SOURCE)
+    if not getattr(lib, "_repro_typed", False):
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.p2_enc_packed.argtypes = [p, p, ll, p, ll, ll, i, p]
+        lib.p2_enc_packed.restype = i
+        lib.p2_dec_packed.argtypes = [p, p, ll, p, ll, ll, p]
+        lib.p2_dec_packed.restype = i
+        lib._repro_typed = True
+    return lib
+
+
+def _check_row_scales(rows: int, srow: torch.Tensor, dev) -> torch.Tensor:
+    if srow.dim() != 1 or srow.shape[0] not in (1, rows):
+        raise ValueError(f"want (rows,) or (1,) scales for {rows} rows, got "
+                         f"{tuple(srow.shape)}")
+    if srow.device != dev:
+        raise ValueError("data and scales must be on one device")
+    return srow.to(torch.float32).contiguous()
+
+
+def encode_packed(x2d: torch.Tensor, srow: torch.Tensor,
+                  bits: int) -> torch.Tensor:
+    """int8 bytes (rows, ceil(last/2)) of a (rows, last) tensor, two 4-bit
+    codes a byte, with one scale_log2 per row or one (shape (1,)) for all."""
+    if x2d.dim() != 2:
+        raise ValueError(f"{PENC}: want (rows, last) data, got "
+                         f"{tuple(x2d.shape)}")
+    srow = _check_row_scales(x2d.shape[0], srow, x2d.device)
+    if not x2d.is_cuda:
+        return encode_packed_plain(x2d, srow, bits)
+    if not 2 <= bits <= 4:
+        raise ValueError(f"{PENC}: a nibble holds 2..4 bits, got {bits}")
+    x2d = x2d.float().contiguous()
+    rows, last = x2d.shape
+    out = torch.empty((rows, packed_trailing(last)), dtype=torch.int8,
+                      device=x2d.device)
+    lib = _packed_lib()
+    B.check(lib, lib.p2_enc_packed(
+        x2d.data_ptr(), srow.data_ptr(), int(srow.shape[0] > 1),
+        out.data_ptr(), rows, last, bits,
+        torch.cuda.current_stream(x2d.device).cuda_stream), PENC)
+    B.note_launch(PENC)
+    return out
+
+
+def decode_packed(p2d: torch.Tensor, srow: torch.Tensor,
+                  last: int) -> torch.Tensor:
+    """f32 (rows, last) values of (rows, ceil(last/2)) packed bytes."""
+    if p2d.dim() != 2 or p2d.shape[1] != packed_trailing(last):
+        raise ValueError(f"{PDEC}: want (rows, {packed_trailing(last)}) "
+                         f"bytes for last={last}, got {tuple(p2d.shape)}")
+    srow = _check_row_scales(p2d.shape[0], srow, p2d.device)
+    if not p2d.is_cuda:
+        return decode_packed_plain(p2d, srow, last)
+    if p2d.dtype != torch.int8:
+        raise TypeError(f"{PDEC}: packed codes must be int8, got {p2d.dtype}")
+    p2d = p2d.contiguous()
+    rows = p2d.shape[0]
+    y = torch.empty((rows, last), dtype=torch.float32, device=p2d.device)
+    lib = _packed_lib()
+    B.check(lib, lib.p2_dec_packed(
+        p2d.data_ptr(), srow.data_ptr(), int(srow.shape[0] > 1), y.data_ptr(),
+        rows, last, torch.cuda.current_stream(p2d.device).cuda_stream), PDEC)
+    B.note_launch(PDEC)
+    return y
+
+
+# ---- blockwise encode / decode --------------------------------------------
+
+def _bw_spec(b: int, bits: int) -> QuantSpec:
+    return QuantSpec("blockwise", bits, b, "int8", "per_tensor_max")
+
+
+def bw_encode_plain(x2d: torch.Tensor, block: int, bits: int = 8
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The blockwise encode kernel's plain version: (codes (rows, nb*b) int8,
+    scales (rows, nb) f32) of a (rows, last) tensor, by the reference."""
+    qt = BlockwiseReference().encode(x2d, _bw_spec(block, bits))
+    return qt.codes, qt.scale
+
+
+def bw_decode_plain(codes: torch.Tensor, scales: torch.Tensor,
+                    last: int) -> torch.Tensor:
+    """The blockwise decode kernel's plain version: f32 (rows, last)."""
+    b = codes.shape[-1] // scales.shape[-1]
+    qt = QTensor(codes, scales, _bw_spec(b, 8), (codes.shape[0], last))
+    return BlockwiseReference().decode(qt, torch.float32)
+
+
+def _bw_lib() -> ctypes.CDLL:
+    lib = B.load(BW_SOURCE)
+    if not getattr(lib, "_repro_typed", False):
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.bw_enc.argtypes = [p, p, p, ll, ll, ll, ll, i, p]
+        lib.bw_enc.restype = i
+        lib.bw_dec.argtypes = [p, p, p, ll, ll, ll, ll, p]
+        lib.bw_dec.restype = i
+        lib._repro_typed = True
+    return lib
+
+
+def bw_encode(x2d: torch.Tensor, block: int, bits: int = 8
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise absmax codes and scales of a (rows, last) tensor in blocks
+    of ``blockwise_geometry``'s width (``block`` clamped to ``last``)."""
+    if x2d.dim() != 2:
+        raise ValueError(f"{BENC}: want (rows, last) data, got "
+                         f"{tuple(x2d.shape)}")
+    if not x2d.is_cuda:
+        return bw_encode_plain(x2d, block, bits)
+    if not 2 <= bits <= 8:
+        raise ValueError(f"{BENC}: int8 storage holds 2..8 bits, got {bits}")
+    x2d = x2d.float().contiguous()
+    rows, last = x2d.shape
+    b, nb, _ = blockwise_geometry(_bw_spec(block, bits), last)
+    codes = torch.empty((rows, nb * b), dtype=torch.int8, device=x2d.device)
+    scales = torch.empty((rows, nb), dtype=torch.float32, device=x2d.device)
+    lib = _bw_lib()
+    B.check(lib, lib.bw_enc(
+        x2d.data_ptr(), codes.data_ptr(), scales.data_ptr(), rows, last, b, nb,
+        int(qrange(bits)[1]),
+        torch.cuda.current_stream(x2d.device).cuda_stream), BENC)
+    B.note_launch(BENC)
+    return codes, scales
+
+
+def bw_decode(codes: torch.Tensor, scales: torch.Tensor,
+              last: int) -> torch.Tensor:
+    """f32 (rows, last) values of blockwise (rows, nb*b) codes and (rows, nb)
+    scales; the pad past ``last`` is dropped."""
+    if codes.dim() != 2 or scales.dim() != 2 \
+            or scales.shape[0] != codes.shape[0] \
+            or codes.shape[1] % scales.shape[1]:
+        raise ValueError(f"{BDEC}: want (rows, nb*b) codes and (rows, nb) "
+                         f"scales, got {tuple(codes.shape)} and "
+                         f"{tuple(scales.shape)}")
+    if scales.device != codes.device:
+        raise ValueError("codes and scales must be on one device")
+    if not codes.is_cuda:
+        return bw_decode_plain(codes, scales, last)
+    if codes.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f"{BDEC}: want int8 codes and f32 scales, got "
+                        f"{codes.dtype} and {scales.dtype}")
+    rows, nb = scales.shape
+    b = codes.shape[1] // nb
+    codes, scales = codes.contiguous(), scales.contiguous()
+    y = torch.empty((rows, last), dtype=torch.float32, device=codes.device)
+    lib = _bw_lib()
+    B.check(lib, lib.bw_dec(
+        codes.data_ptr(), scales.data_ptr(), y.data_ptr(), rows, last, b, nb,
+        torch.cuda.current_stream(codes.device).cuda_stream), BDEC)
+    B.note_launch(BDEC)
+    return y
+
+
 class Pow2Cuda(Pow2Reference):
     backend = "cuda"
 
     def encode(self, x, spec: QuantSpec, scale) -> QTensor:
-        if spec.packed or spec.torch_storage != torch.int8:
+        if spec.packed:
+            rw = _rowwise_lastdim(x, scale)
+            if rw is None:
+                raise NotImplementedError(
+                    f"{PENC}: scale of shape "
+                    f"{tuple(torch.as_tensor(scale).shape)} is not one scale "
+                    "per leading index; the packed kernel takes no other "
+                    "layout")
+            x2d, srow = rw
+            codes = encode_packed(x2d, srow, spec.bits)
+            return QTensor(codes.reshape(tuple(x.shape[:-1])
+                                         + (codes.shape[-1],)),
+                           scale, spec, tuple(x.shape))
+        if spec.torch_storage != torch.int8:
             raise NotImplementedError(
                 f"{ENC}: the kernel stores int8 codes; {spec.storage_dtype} "
                 "is a later slice")
@@ -209,8 +436,14 @@ class Pow2Cuda(Pow2Reference):
 
     def decode(self, qt: QTensor, dtype=torch.float32) -> torch.Tensor:
         if qt.spec.packed:
-            raise NotImplementedError(
-                f"{DEC}: int4x2 packed codes are a later slice")
+            rw = _rowwise_lastdim(qt.codes, qt.scale)
+            if rw is None:
+                raise NotImplementedError(
+                    f"{PDEC}: scale is not one scale per leading index; the "
+                    "packed kernel takes no other layout")
+            p2d, srow = rw
+            last = qt.shape[-1] if qt.shape else 1
+            return decode_packed(p2d, srow, last).reshape(qt.shape).to(dtype)
         rw = _rowwise(qt.codes, qt.scale)
         if rw is None:
             raise NotImplementedError(
@@ -231,4 +464,28 @@ class Pow2Cuda(Pow2Reference):
                                qdq=fake_quant_scalar)
 
 
+class BlockwiseCuda(BlockwiseReference):
+    """The blockwise codec on ``bw_enc`` / ``bw_dec``: the data as a
+    (rows, last) view, one launch each way."""
+    backend = "cuda"
+
+    def encode(self, x: torch.Tensor, spec: QuantSpec, scale=None) -> QTensor:
+        if spec.torch_storage != torch.int8:
+            raise NotImplementedError(
+                f"{BENC}: the kernel stores int8 codes, not "
+                f"{spec.storage_dtype}")
+        shape = tuple(x.shape) if x.dim() else (1,)
+        lead = shape[:-1]
+        codes, sc = bw_encode(x.reshape(-1, shape[-1]), spec.block, spec.bits)
+        return QTensor(codes.reshape(lead + (codes.shape[-1],)),
+                       sc.reshape(lead + (sc.shape[-1],)), spec, shape)
+
+    def decode(self, qt: QTensor, dtype=torch.float32) -> torch.Tensor:
+        last = qt.shape[-1] if qt.shape else 1
+        y = bw_decode(qt.codes.reshape(-1, qt.codes.shape[-1]),
+                      qt.scale.reshape(-1, qt.scale.shape[-1]), last)
+        return y.reshape(qt.shape).to(dtype)
+
+
 register_codec("pow2", "cuda", Pow2Cuda())
+register_codec("blockwise", "cuda", BlockwiseCuda())

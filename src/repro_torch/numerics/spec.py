@@ -4,15 +4,16 @@
 
 - ``kind="pow2"``: symmetric fixed point on a power-of-2 grid,
   ``x ≈ q * 2^scale_log2`` with ``q ∈ [-2^{b-1}, 2^{b-1}-1]`` (paper §3.2).
-- ``kind="blockwise"``: per-block absmax along the last axis (its codec is
-  ported with the training slice; the spec is kept whole so JSON written by
-  either package round-trips).
+- ``kind="blockwise"``: per-block absmax along the last axis,
+  ``q ∈ [-(2^{b-1}-1), 2^{b-1}-1]``, one f32 scale per block of ``block``
+  elements (the optimizer moments and the gradient wire).
 
 Specs are frozen dataclasses, hashable and JSON-round-trippable.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import torch
@@ -89,9 +90,15 @@ class QuantSpec:
 
 
 class QTensor:
-    """A quantized tensor: integer ``codes`` + ``scale`` metadata. For pow2,
-    ``scale`` is the ``scale_log2`` tensor (scalar, or one value per leading
-    index — see ``codecs._bcast``); value = codes * 2^scale."""
+    """A quantized tensor: integer ``codes`` + ``scale`` metadata.
+
+    - pow2: ``scale`` is the ``scale_log2`` (a number or a tensor: scalar,
+      or one value per leading index — see ``codecs._bcast``); value =
+      codes * 2^scale. With packed ``int4x2`` storage ``codes`` is
+      ``shape[:-1] + (ceil(last/2),)`` int8 bytes, two nibbles each.
+    - blockwise: ``codes`` is ``shape[:-1] + (nb*block,)`` (last axis
+      padded to a block multiple), ``scale`` is ``shape[:-1] + (nb,)`` f32;
+      value = codes * scale per block, sliced back to ``shape``."""
 
     __slots__ = ("codes", "scale", "spec", "shape")
 
@@ -104,12 +111,32 @@ class QTensor:
             else tuple(codes.shape)
 
     def nbytes(self) -> int:
-        """Resident bytes of the quantized representation."""
+        """Resident bytes of the quantized representation. A scale given
+        as a Python number counts as the 4-byte scalar ``repro`` stores it
+        as (its codecs wrap every scale in an array)."""
         n = self.codes.numel() * self.codes.element_size()
         if isinstance(self.scale, torch.Tensor):
             n += self.scale.numel() * self.scale.element_size()
+        elif self.scale is not None:
+            n += 4
         return n
 
     def __repr__(self):
         return (f"QTensor(kind={self.spec.kind!r}, bits={self.spec.bits}, "
                 f"shape={self.shape}, nbytes={self.nbytes()})")
+
+
+def spec_nbytes(spec: QuantSpec, shape: tuple[int, ...]) -> int:
+    """Analytic resident bytes of quantizing ``shape`` under ``spec``
+    (without materializing): codes + scale metadata."""
+    n = math.prod(shape) if shape else 1
+    itemsize = torch.empty((), dtype=spec.torch_storage).element_size()
+    last = shape[-1] if shape else 1
+    lead = n // max(last, 1)
+    if spec.kind == "pow2":
+        if spec.packed:
+            return lead * packed_trailing(last) * itemsize + 4
+        return n * itemsize + 4
+    b = min(spec.block, max(1, last))
+    nb = -(-last // b)
+    return lead * nb * b * itemsize + lead * nb * 4

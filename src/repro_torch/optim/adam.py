@@ -1,7 +1,12 @@
-"""AdamW with f32 first/second moments — the port of ``repro/optim/
-adam.py``. The block-wise int8 moments (``opt_state_dtype="int8"``) come
-with the blockwise codec kernels (ROADMAP queue 2 items 3-4) and raise
-here.
+"""AdamW with f32 or block-wise int8 first/second moments — the port of
+``repro/optim/adam.py``.
+
+The int8 state (``opt_state_dtype="int8"``) is the ``optimizer_moment``
+site: each moment is a blockwise-int8 ``QTensor`` at ``MOMENT_SPEC``
+(block 256 along the last axis, shape-preserving), decoded before the
+update and encoded after it through the ``cuda`` codec — the
+``bw_dec``/``bw_enc`` kernels on the card, their plain versions on CPU
+tensors.
 
 Leaf rule (``repro``'s ``_is_adam_leaf``, kept exactly): every floating
 leaf except ``lambda_*`` (closed-form Eq. 4 update) and ``wscale*`` gets
@@ -12,12 +17,20 @@ probes move (their gradient is the scale manager's statistic), the
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from ..configs.base import TrainConfig
+from ..numerics import QTensor, QuantSpec, decode, encode
+from ..numerics.codecs import blockwise_geometry
 from ..tree import flatten_with_path, leaves, unflatten
+
+# the optimizer_moment spec (NumericsPolicy default): blockwise int8 along
+# the last axis
+MOMENT_SPEC = QuantSpec("blockwise", 8, 256, "int8", "per_tensor_max")
+OPT_STATE_DTYPES = ("float32", "int8")
 
 
 def _is_adam_leaf(path: str, leaf) -> bool:
@@ -27,16 +40,26 @@ def _is_adam_leaf(path: str, leaf) -> bool:
     return not name.startswith(("lambda_", "wscale"))
 
 
-def _check(cfg: TrainConfig) -> None:
-    if cfg.opt_state_dtype != "float32":
-        raise NotImplementedError(
-            f"opt_state_dtype={cfg.opt_state_dtype!r}: block-wise int8 "
-            "moments come with the blockwise codec slice (ROADMAP queue 1)")
+def _int8(cfg: TrainConfig) -> bool:
+    if cfg.opt_state_dtype not in OPT_STATE_DTYPES:
+        raise ValueError(f"opt_state_dtype={cfg.opt_state_dtype!r}; one of "
+                         f"{OPT_STATE_DTYPES}")
+    return cfg.opt_state_dtype == "int8"
+
+
+def _q8_init(x: torch.Tensor) -> QTensor:
+    shape = tuple(x.shape) if x.dim() > 0 else (1,)
+    b, nb, _ = blockwise_geometry(MOMENT_SPEC, shape[-1])
+    return QTensor(torch.zeros(shape[:-1] + (nb * b,), dtype=torch.int8,
+                               device=x.device),
+                   torch.zeros(shape[:-1] + (nb,), dtype=torch.float32,
+                               device=x.device),
+                   MOMENT_SPEC, shape)
 
 
 class AdamState(NamedTuple):
     """Moments as tuples aligned with the flattened params tree (element
-    = None | f32 tensor)."""
+    = None | f32 tensor | blockwise-int8 ``QTensor``)."""
     step: torch.Tensor
     m: tuple
     v: tuple
@@ -49,12 +72,16 @@ def adam_leaf_paths(params) -> list[str]:
 
 
 def init_adam(params, cfg: TrainConfig) -> AdamState:
-    _check(cfg)
+    int8 = _int8(cfg)
     flat = flatten_with_path(params)
-    m = tuple(torch.zeros(leaf.shape, dtype=torch.float32, device=leaf.device)
+    m = tuple((_q8_init(leaf) if int8 else
+               torch.zeros(leaf.shape, dtype=torch.float32,
+                           device=leaf.device))
               if _is_adam_leaf(p, leaf) else None for p, leaf in flat)
-    v = tuple(None if t is None else t.clone() for t in m)
-    device = next(t.device for t in m if t is not None)
+    v = tuple(None if t is None else
+              QTensor(t.codes.clone(), t.scale.clone(), t.spec, t.shape)
+              if int8 else t.clone() for t in m)
+    device = next(leaf.device for p, leaf in flat if _is_adam_leaf(p, leaf))
     return AdamState(torch.zeros((), dtype=torch.int32, device=device), m, v)
 
 
@@ -63,7 +90,7 @@ def adam_update(params, grads, state: AdamState, lr, cfg: TrainConfig):
     """Returns (new_params, new_state). ``grads`` mirrors ``params``; a
     ``None`` gradient leaves its parameter and moments unchanged (the
     zero-gradient update of a ``mean_abs`` leaf is the identity)."""
-    _check(cfg)
+    int8 = _int8(cfg)
     b1, b2, eps, wd = cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay
     step = state.step + 1
     c1 = 1.0 - torch.pow(b1, step.float())
@@ -77,15 +104,41 @@ def adam_update(params, grads, state: AdamState, lr, cfg: TrainConfig):
             new_v.append(v)
             continue
         g32 = g.float()
-        m32 = b1 * m + (1 - b1) * g32
-        v32 = b2 * v + (1 - b2) * torch.square(g32)
+        if int8:
+            m32 = decode(m, torch.float32, backend="cuda").reshape(p.shape)
+            v32 = decode(v, torch.float32, backend="cuda").reshape(p.shape)
+        else:
+            m32, v32 = m, v
+        m32 = b1 * m32 + (1 - b1) * g32
+        v32 = b2 * v32 + (1 - b2) * torch.square(g32)
         update = (m32 / c1) / (torch.sqrt(v32 / c2) + eps)
         name = path.split("/")[-1]
         decay = 0.0 if name in ("scale", "b", "bias") or p.dim() < 2 else wd
         p32 = p.float()
         p32 = p32 - lr * (update + decay * p32)
         new_p.append(p32.to(p.dtype))
-        new_m.append(m32)
-        new_v.append(v32)
+        if int8:
+            new_m.append(encode(m32, MOMENT_SPEC, backend="cuda"))
+            new_v.append(encode(v32, MOMENT_SPEC, backend="cuda"))
+        else:
+            new_m.append(m32)
+            new_v.append(v32)
     return (unflatten(params, new_p),
             AdamState(step, tuple(new_m), tuple(new_v)))
+
+
+def moment_nbytes(state: AdamState) -> tuple[int, int]:
+    """(resident, fp32-shadow) bytes of the optimizer moments: QTensor
+    moments count codes + block scales as stored; the shadow is what the
+    same moments would cost as two f32 tensors per tracked leaf."""
+    resident = fp32 = 0
+    for mm in (*state.m, *state.v):
+        if mm is None:
+            continue
+        if isinstance(mm, QTensor):
+            resident += mm.nbytes()
+            fp32 += 4 * math.prod(mm.shape)
+        else:
+            resident += mm.numel() * mm.element_size()
+            fp32 += 4 * mm.numel()
+    return resident, fp32

@@ -18,7 +18,14 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
     shape of the FMNIST training step, and PE1's fused epilogue is
     bit-identical to its own unfused output through encode -> decode;
 (f) one training step of the FMNIST TT MLP on the card matches the same
-    step on the CPU and launches each kernel the counted number of times.
+    step on the CPU and launches each kernel the counted number of times;
+(g) the blockwise encode/decode kernels are BIT-identical to their plain
+    versions (codes, scales, values) at b = 1, 16, 256, 1024, padded
+    blocks and an all-zero block, and the packed int4x2 encode/decode
+    kernels at the FMNIST cores' sizes, per-row steps and odd trailing
+    dims;
+(h) one full-wire step (int8 moments and the gradient wire) on the card
+    matches the CPU step and launches the counted codec kernels.
 """
 import numpy as np
 import pytest
@@ -281,3 +288,82 @@ def test_train_step_on_card_matches_cpu_and_counts_launches(cuda):
             assert (a.cpu() - b).abs().max() <= 2 * tcfg.learning_rate + 1e-6
         else:
             assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("shape,block", [((512,), 256), ((16, 16, 16, 1), 256),
+                                         ((16, 4, 4, 16), 256), ((), 256),
+                                         ((4096,), 1024), ((14273,), 1024),
+                                         ((3, 1000), 256), ((5, 33), 16)])
+def test_blockwise_kernels_bit_identical(cuda, shape, block):
+    g = torch.Generator(device=cuda).manual_seed(block + len(shape))
+    x = torch.randn(shape, generator=g, device=cuda) * 0.05
+    if x.dim() and x.shape[-1] > block:
+        x[..., :block] = 0.0                       # an all-zero block
+    spec = TN.QuantSpec("blockwise", 8, block, "int8", "per_tensor_max")
+    last = x.shape[-1] if x.dim() else 1
+    x2d = x.reshape(-1, last)
+    codes, sc = CB.bw_encode(x2d, block)
+    rc, rs = CB.bw_encode_plain(x2d, block)
+    assert torch.equal(codes, rc)
+    assert torch.equal(sc.view(torch.int32), rs.view(torch.int32))
+    assert torch.equal(CB.bw_decode(codes, sc, last),
+                       CB.bw_decode_plain(codes, sc, last))
+    qt = TN.encode(x, spec, backend="cuda")
+    ref = TN.encode(x.cpu(), spec)
+    assert torch.equal(qt.codes.cpu(), ref.codes) and qt.shape == ref.shape
+    assert torch.equal(TN.decode(qt, backend="cuda").cpu(), TN.decode(ref))
+
+
+def _packed_case_data(cuda):
+    d = MLP.make_mlp()
+    p = MLP.init_mlp(torch.Generator(device=cuda).manual_seed(0), d,
+                     device=cuda)
+    out = [(p[l][f"core_{n}"].reshape(-1), p[l]["wscale_log2"][n].float())
+           for l, spec in (("l1", d.spec1), ("l2", d.spec2))
+           for n in range(spec.d)]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    out.append((torch.randn((3, 5, 7), generator=g, device=cuda) * 0.3,
+                torch.tensor([-3.0, -2.0, -4.0], device=cuda)))
+    out.append((torch.randn((2, 3, 9), generator=g, device=cuda),
+                torch.randint(-4, 0, (2, 3), generator=g,
+                              device=cuda).float()))
+    return out
+
+
+def test_packed_kernels_bit_identical(cuda):
+    spec = TN.QuantSpec("pow2", 4, 0, "int4x2", "fixed")
+    for x, s in _packed_case_data(cuda):
+        qt = TN.encode(x, spec, s, backend="cuda")
+        ref = TN.encode(x.cpu(), spec, s.cpu())
+        assert torch.equal(qt.codes.cpu(), ref.codes)
+        assert torch.equal(TN.decode(qt, backend="cuda").cpu(),
+                           TN.decode(ref))
+        x2d, srow = CB._rowwise_lastdim(x, s)
+        assert torch.equal(CB.encode_packed(x2d, srow, 4),
+                           CB.encode_packed_plain(x2d, srow, 4))
+
+
+def test_wire_step_on_card_matches_cpu_and_counts_launches(cuda):
+    d = MLP.make_mlp()
+    tcfg = TrainConfig(learning_rate=3e-3, weight_decay=0.0,
+                       opt_state_dtype="int8")
+    p_cpu = MLP.init_mlp(torch.Generator().manual_seed(0), d, device="cpu")
+    p_gpu = tree_map(lambda t: t.to(cuda), p_cpu)
+    xs, ys = TF.fashion_like(256, seed=1)
+    batch_c = {"x": torch.from_numpy(xs[:64]), "y": torch.from_numpy(ys[:64])}
+    batch_g = {k: v.to(cuda) for k, v in batch_c.items()}
+    step = TF.make_step(d, tcfg, compress=True)
+    B.reset_launches()
+    p_gpu, o_gpu, l_gpu, _, r_gpu = step(p_gpu, A.init_adam(p_gpu, tcfg),
+                                         batch_g, None)
+    torch.cuda.synchronize()
+    assert dict(B.LAUNCHES) == TF.launches_per_step(d, tcfg, compress=True)
+    p_cpu, o_cpu, l_cpu, _, r_cpu = step(p_cpu, A.init_adam(p_cpu, tcfg),
+                                         batch_c, None)
+    assert abs(l_gpu.item() - l_cpu.item()) <= 1e-5 * abs(l_cpu.item())
+    for a, b in zip(leaves(p_gpu), leaves(p_cpu)):
+        if a.is_floating_point():
+            assert (a.cpu() - b).abs().max() <= 2 * tcfg.learning_rate + 1e-6
+        else:
+            assert torch.equal(a.cpu(), b)
+    assert sum(r is not None for r in r_gpu) == 21

@@ -146,9 +146,13 @@ def test_rowwise_view_and_rejections():
     # the cuda codec takes leading-index scales only — no silent fallback
     with pytest.raises(NotImplementedError):
         TN.encode(x, SPEC_T, torch.ones(2, 4), backend="cuda")
+    # int4x2: one scale per leading index packs along the trailing dim;
+    # a scale that is not one per leading index still raises
+    packed = TN.QuantSpec("pow2", 4, 0, "int4x2")
+    qt = TN.encode(x, packed, torch.ones(3), backend="cuda")
+    assert tuple(qt.codes.shape) == (3, 4, 3) and qt.codes.dtype == torch.int8
     with pytest.raises(NotImplementedError):
-        TN.encode(x, TN.QuantSpec("pow2", 4, 0, "int4x2"), torch.ones(3),
-                  backend="cuda")
+        TN.encode(x, packed, torch.ones(2, 4), backend="cuda")
 
 
 def test_quant_spec_matches_reference_json():

@@ -44,6 +44,7 @@ from repro_torch.data import fashion_like  # noqa: E402
 from repro_torch.kernels import ops as TOPS  # noqa: E402
 from repro_torch.launch import train_fmnist as TF  # noqa: E402
 from repro_torch.models import mlp_tt as TM  # noqa: E402
+from repro_torch import numerics as TN  # noqa: E402
 from repro_torch.numerics import cuda_backend as CB  # noqa: E402
 from repro_torch.optim import adam as TA  # noqa: E402
 from repro_torch.optim.binaryconnect import quantize_for_deploy  # noqa: E402
@@ -137,8 +138,20 @@ def test_adam_leaf_rule_and_f32_moments_only():
     assert "q_in/.probe" in got and "q_h/.grad/.mean_abs" in got
     assert not any("lambda_" in p or "wscale" in p or p.endswith(".log2")
                    for p in got)
-    with pytest.raises(NotImplementedError, match="blockwise"):
-        TA.init_adam(_port(jp), TrainConfig(opt_state_dtype="int8"))
+    # int8 moments: a blockwise QTensor per Adam leaf, repro's layout
+    jst = JA.init_adam(jp, JTrainConfig(opt_state_dtype="int8"))
+    tst = TA.init_adam(_port(jp), TrainConfig(opt_state_dtype="int8"))
+    for jm, tm in zip(jst.m + jst.v, tst.m + tst.v):
+        assert (jm is None) == (tm is None)
+        if tm is not None:
+            assert isinstance(tm, TN.QTensor) and tm.spec == TA.MOMENT_SPEC
+            assert tm.shape == jm.shape and tm.nbytes() == jm.nbytes()
+            np.testing.assert_array_equal(tm.codes.numpy(),
+                                          np.asarray(jm.codes))
+            np.testing.assert_array_equal(tm.scale.numpy(),
+                                          np.asarray(jm.scale))
+    with pytest.raises(ValueError, match="opt_state_dtype"):
+        TA.init_adam(_port(jp), TrainConfig(opt_state_dtype="int4"))
 
 
 def _managed_grad_scales(jp, log2: int):
