@@ -37,8 +37,21 @@ Phases (any failure raises and the script exits non-zero):
              where the decode kernel runs. Last, a steady window of decode
              steps is timed on the host and profiled on the device: step
              time, device time per kernel, busy share.
+   serve chunked prefix — the fourth main path, on the same model:
+             chunked prefill (128) with the radix prefix cache, 16 requests
+             (12 behind a shared 256-token preamble, 4 of them diverging
+             mid-page for a COW fork; 4 random), 64 new tokens each; counts
+             zeroed just before and read just after: 48 p2_enc and 48
+             p2_dec per chunk step (the chunk steps counted from the
+             prefills and their hits), paged attention once per layer per
+             decode step; hits, forks and saved pages must be non-zero.
+             Then one chunk step's host and device time, profiled.
 4. identity — the same requests in float32 at full width with 4 layers:
              fused and gather engines must emit identical greedy tokens.
+   chunked identity — float32, 4 layers: an int8 prefix hit (a 16-page
+             donor, 8 followers) must equal the cache-off run with a chunk
+             boundary at the resume position on every completion, with no
+             COW fork; prefix on vs off on the slice's requests is reported.
 5. train   — the second main path: the paper's FMNIST TT MLP at its
              published widths, random params from a seeded generator on
              the card, 300 steps of ``launch/train_fmnist.py``'s step on
@@ -46,8 +59,10 @@ Phases (any failure raises and the script exits non-zero):
              launch counts zeroed just before and read just after (each
              must equal 300 x ``launches_per_step``); the loss must fall
              and test accuracy on ``fashion_like(2048, seed=2)`` beat
-             chance. Then a profiled window of steps: step time, device
-             time per kernel, busy share.
+             chance; the BinaryConnect export (one p2_enc and one p2_dec
+             per core and bias) bit for bit with the CPU. Then a profiled
+             window of steps: step time, device time per kernel, busy
+             share.
 6. train identity — one step from the same initial params on the card and
              on the CPU (plain versions): loss, gradients and the stepped
              params within the CPU parity tests' tolerances.
@@ -61,6 +76,16 @@ Phases (any failure raises and the script exits non-zero):
              an odd trailing dim, and a scalar. Each timed beside its bound,
              its plain version and a library call where one computes the
              same function.
+   scalar kernels — the scalar-scale encode/decode kernels bit for bit
+             against their plain versions at the chunk step's full-width
+             shapes ((128, 8, 128) bf16/f32 -> int8, (1, 1024, 8, 128)
+             int8 -> bf16/f32), an odd length and an unaligned view, scales
+             -8..2; the row-scale fake-quant kernel bit for bit in values
+             and STE gradient at (4, 6, 8) and (24, 8, 16384), 4/8/16 bits;
+             each timed beside its bound, its plain version and a library
+             call (quantize_per_tensor, a per-tensor dequantize,
+             fake_quantize_per_channel_affine); then the codec API's
+             per-row fake_quant with its launch count.
 7. train wire — the third main path: the same MLP stepped 300 times with
              the paper's full Table-1 wire (``make_step(..., compress=True)``
              with int8 Adam moments and the int8 gradient wire), counts
@@ -99,7 +124,7 @@ BF16_OPS_PER_S = 989e12            # dense bf16 tensor-core peak
 FP32_OPS_PER_S = 67e12             # fp32 peak outside the tensor cores
 ARCH = "internlm2-1.8b"
 SOURCES = ["pow2_rows", "paged_attention", "pow2_fq", "ttm_pe",
-           "blockwise", "pow2_packed"]
+           "blockwise", "pow2_packed", "pow2_scalar"]
 TRAIN_STEPS = 300
 
 
@@ -405,12 +430,14 @@ def _requests(vocab: int, n: int = 16, seed: int = 0):
             for _ in range(n)]
 
 
-def _serve(torch, lm, params, fused: bool, prompts, gen_len: int):
+def _serve_engine(torch, lm, params, prompts, gen_len: int, **ekw):
+    """Serve ``prompts`` on a fresh engine over the int8 pool (8 slots x 64
+    pages of 16); every completion must have ``gen_len`` in-vocabulary
+    tokens. Returns (engine, completions in submission order)."""
     from repro_torch.serve import Engine, EngineConfig, PoolConfig
     pool = PoolConfig(num_slots=8, page_size=16, pages_per_slot=64,
                       quantized=True)
-    eng = Engine(lm, params, EngineConfig(pool=pool, fused_attention=fused),
-                 device="cuda")
+    eng = Engine(lm, params, EngineConfig(pool=pool, **ekw), device="cuda")
     torch.cuda.synchronize()
     rids = [eng.submit(p, max_new_tokens=gen_len) for p in prompts]
     res = eng.run()
@@ -421,14 +448,20 @@ def _serve(torch, lm, params, fused: bool, prompts, gen_len: int):
               f"{gen_len}")
         check(all(0 <= x < lm.cfg.vocab_size for x in t),
               "token id outside the vocabulary")
+    return eng, toks
+
+
+def _serve(torch, lm, params, fused: bool, prompts, gen_len: int):
+    eng, toks = _serve_engine(torch, lm, params, prompts, gen_len,
+                              fused_attention=fused)
     return toks, eng.summary()
 
 
-def phase_engine(torch) -> dict:
+def full_model(torch):
+    """internlm2-1.8b at full width and depth, bf16, random weights from a
+    seeded generator on the card (shared by the serving phases)."""
     import repro_torch.configs as C
-    from repro_torch.kernels import build as B
     from repro_torch.models import build_lm, init_lm
-
     cfg = C.get_config(ARCH)
     lm = build_lm(cfg)
     t0 = time.perf_counter()
@@ -439,6 +472,13 @@ def phase_engine(torch) -> dict:
     log(f"engine: {ARCH} {cfg.num_layers} layers d_model {cfg.d_model}, "
         f"{n_params/1e9:.3f} B params {cfg.dtype}, init "
         f"{time.perf_counter() - t0:.1f} s")
+    return lm, params
+
+
+def phase_engine(torch, lm, params) -> dict:
+    from repro_torch.kernels import build as B
+
+    cfg = lm.cfg
     prompts = _requests(cfg.vocab_size)
     _serve(torch, lm, params, True, prompts[:2], 4)          # warm-up
     torch.cuda.reset_peak_memory_stats()
@@ -476,8 +516,6 @@ def phase_engine(torch) -> dict:
            "launches_gather": gather, "peak_bytes": peak,
            "bf16_token_agreement": agree}
     out["decode_profile"] = _profile_decode(torch, lm, params, prompts)
-    del params
-    torch.cuda.empty_cache()
     return out
 
 
@@ -782,11 +820,23 @@ def phase_train(torch, device: str = "cuda", steps: int = TRAIN_STEPS
           f"{first:.4f}, last 20 {last:.4f}")
     acc = TF.accuracy(params, xt, yt, d)
     check(acc > 0.5, f"test accuracy {acc:.3f} not above chance (0.1)")
-    # the BinaryConnect export: 4-bit cores, 8-bit biases, through the
-    # row-scale codec kernels, bit for bit with their plain versions
+    # the BinaryConnect export: 4-bit cores, 8-bit biases, one step each,
+    # through the scalar-scale codec kernels, bit for bit with their plain
+    # versions on the CPU; one p2_enc and one p2_dec per leaf
     from repro_torch.optim.binaryconnect import quantize_for_deploy
     from repro_torch.tree import flatten_with_path
+    _sync(torch, device)
+    B.reset_launches()
     deploy = quantize_for_deploy(params, d.qc)
+    _sync(torch, device)
+    export_launches = dict(B.LAUNCHES)
+    n_leaves = sum(1 for k, _ in flatten_with_path(params)
+                   if k.split("/")[-1].startswith("core_")
+                   or k.endswith("/bias"))
+    if device == "cuda":
+        check(export_launches == {"p2_enc": n_leaves, "p2_dec": n_leaves},
+              f"BinaryConnect export launches {export_launches}, want "
+              f"{n_leaves} p2_enc and p2_dec")
     plain = quantize_for_deploy(_tensor_tree(torch, params, "cpu"), d.qc)
     for (path, a), (_, b) in zip(flatten_with_path(deploy),
                                  flatten_with_path(plain)):
@@ -804,6 +854,8 @@ def phase_train(torch, device: str = "cuda", steps: int = TRAIN_STEPS
         f"{last:.4f}), test acc {acc0:.3f} -> {acc:.3f}, {wall*1e3:.2f} ms "
         f"per step (host wall), launches per step "
         f"{TF.launches_per_step(d)}")
+    log(f"train: BinaryConnect export of {n_leaves} leaves bit for bit "
+        f"with the CPU, launches {export_launches}")
     log(f"train: effective ranks L1 {eff1} L2 {eff2}, params "
         f"{c['tt_params']:,}, memory {c['fixed_bits']:,} bits, reduction "
         f"{c['dense_bits'] / c['fixed_bits']:.0f}x vs dense (full rank: "
@@ -820,7 +872,8 @@ def phase_train(torch, device: str = "cuda", steps: int = TRAIN_STEPS
             "loss_first20": first, "loss_last20": last,
             "test_acc_init": acc0, "test_acc": acc,
             "effective_ranks": [eff1, eff2], "param_counts": c,
-            "launches": launches, "profile": prof}
+            "launches": launches, "export_launches": export_launches,
+            "profile": prof}
 
 
 def _device_summary(torch, prof, steps: int) -> tuple[float, list]:
@@ -1276,6 +1329,372 @@ def phase_train_wire_identity(torch, device: str = "cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the chunked-prefill slice: scalar-scale codec kernels, row fake-quant,
+# chunked prefill with the radix prefix cache
+# ---------------------------------------------------------------------------
+
+def _library_encode_scalar(torch, x, s):
+    """Yardstick only: int8 codes of x at scale 2^s, zero point 0 (the f32
+    cast, then torch.quantize_per_tensor, its int_repr)."""
+    return torch.quantize_per_tensor(x.float(), 2.0 ** s.item(), 0,
+                                     torch.qint8).int_repr()
+
+
+def _library_decode_scalar(torch, q, s, dt):
+    """Yardstick only: codes x 2^s (a per-tensor quantized tensor over the
+    codes, dequantize, cast)."""
+    return torch._make_per_tensor_quantized_tensor(
+        q, 2.0 ** s.item(), 0).dequantize().to(dt)
+
+
+def _library_fq_rows(torch, x, srow, bits):
+    """Yardstick only: fake_quantize_per_channel_affine along dim 0."""
+    hi = 2 ** (bits - 1)
+    return torch.fake_quantize_per_channel_affine(
+        x, torch.exp2(srow), torch.zeros(srow.shape, dtype=torch.int32,
+                                         device=x.device), 0, -hi, hi - 1)
+
+
+def phase_scalar_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
+    """The scalar-scale encode/decode kernels against their plain versions
+    bit for bit at the chunk step's full-width shapes ((128, 8, 128) bf16
+    and f32 -> int8; (1, 1024, 8, 128) int8 -> bf16 and f32), an odd length
+    (1,001 elements), an unaligned view and scales -8..2; the row-scale
+    fake-quant kernel bit for bit in values and in the clipped STE's
+    gradient at (4, 6, 8) with (4, 1) scales and (24, 8, 16384) with (24,)
+    scales in f32 and bf16 at 4/8/16 bits. Then the codec API's per-row
+    fake_quant as a caller uses it, counts zeroed just before and read
+    just after."""
+    from repro_torch import numerics as TN
+    from repro_torch.kernels import build as B
+    from repro_torch.numerics import cuda_backend as CB
+    gen = torch.Generator(device=device).manual_seed(4)
+    out = {"p2_enc": [], "p2_dec": [], "p2_fq_rows": []}
+
+    def scale_for(x):
+        return torch.ceil(torch.log2(x.float().abs().amax() / 127)) - 1
+
+    # --- p2_enc: the chunk write (S_chunk, Hkv, Dh), odd and unaligned
+    base = torch.randn(128 * 8 * 128 + 1, generator=gen, device=device) * 3
+    cases = [((128, 8, 128), torch.bfloat16, "chunk write bf16", None),
+             ((128, 8, 128), torch.float32, "chunk write f32", None),
+             ((1001,), torch.float32, "odd length", None),
+             ((1001,), torch.bfloat16, "odd length bf16", None),
+             ((4096,), torch.float32, "unaligned view", 1)]
+    for shape, dt, what, off in cases:
+        n = math.prod(shape)
+        x = base.to(dt)[off or 0:(off or 0) + n].reshape(shape)
+        for s_val in range(-8, 3):
+            s = torch.tensor(float(s_val), device=device)
+            xs = x * 2.0 ** (s_val + 5)
+            q = CB.encode_scalar(xs, s, 8)
+            check(torch.equal(q, CB.encode_scalar_plain(xs, s, 8)),
+                  f"p2_enc codes differ ({what}, scale {s_val})")
+        s = scale_for(x)
+        q = CB.encode_scalar(x, s, 8)
+        check(torch.equal(q, CB.encode_scalar_plain(x, s, 8)),
+              f"p2_enc codes differ ({what})")
+        check(q.min().item() == -128 and q.max().item() == 127,
+              "p2_enc data did not reach both clip ends")
+        row = dict(shape=list(shape), dtype=str(dt)[6:], what=what,
+                   max_abs_err=0, aligned=x.data_ptr() % 16 == 0,
+                   ms=timer(lambda: CB.encode_scalar(x, s, 8)),
+                   plain_ms=timer(lambda: CB.encode_scalar_plain(x, s, 8),
+                                  iters=10))
+        row["library_ms"], row["library_note"] = _library_yardstick(
+            timer, lambda: _library_encode_scalar(torch, x, s),
+            lambda r: torch.equal(r, q))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            n * (x.element_size() + 1) + 4)
+        out["p2_enc"].append(row)
+        log(f"p2_enc {what} {tuple(shape)}: {row['ms']*1e3:.1f} us (plain "
+            f"{row['plain_ms']*1e3:.1f} us, library {row['library_note']}, "
+            f"bound {row['bound_ms']*1e3:.3f} us), codes exact at scales "
+            "-8..2")
+
+    # --- p2_dec: one slot's history (1, max_len, Hkv, Dh), odd, unaligned
+    codes = torch.randint(-128, 128, (1024 * 8 * 128 + 1,), generator=gen,
+                          device=device).to(torch.int8)
+    cases = [((1, 1024, 8, 128), torch.bfloat16, "slot history bf16", 0),
+             ((1, 1024, 8, 128), torch.float32, "slot history f32", 0),
+             ((1001,), torch.float32, "odd length", 0),
+             ((4096,), torch.bfloat16, "unaligned view", 1)]
+    for shape, dt, what, off in cases:
+        n = math.prod(shape)
+        q = codes[off:off + n].reshape(shape)
+        for s_val in range(-8, 3):
+            s = torch.tensor(float(s_val), device=device)
+            check(_bits_equal(torch, CB.decode_scalar(q, s, dt),
+                              CB.decode_scalar_plain(q, s, dt)),
+                  f"p2_dec values differ ({what}, scale {s_val})")
+        s = torch.tensor(-6.0, device=device)
+        y = CB.decode_scalar(q, s, dt)
+        row = dict(shape=list(shape), dtype=str(dt)[6:], what=what,
+                   max_abs_err=0, aligned=q.data_ptr() % 4 == 0,
+                   ms=timer(lambda: CB.decode_scalar(q, s, dt)),
+                   plain_ms=timer(lambda: CB.decode_scalar_plain(q, s, dt),
+                                  iters=10))
+        row["library_ms"], row["library_note"] = _library_yardstick(
+            timer, lambda: _library_decode_scalar(torch, q, s, dt),
+            lambda r: _bits_equal(torch, r, y))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            n * (1 + y.element_size()) + 4)
+        out["p2_dec"].append(row)
+        log(f"p2_dec {what} {tuple(shape)}: {row['ms']*1e3:.1f} us (plain "
+            f"{row['plain_ms']*1e3:.1f} us, library {row['library_note']}, "
+            f"bound {row['bound_ms']*1e3:.3f} us), values exact at scales "
+            "-8..2")
+
+    # --- p2_fq_rows: values and the clipped STE gradient, bit for bit
+    for shape, sshape, what in (((24, 8, 16384), (24,), "per-layer rows"),
+                                ((4, 6, 8), (4, 1), "small")):
+        for bits in (4, 8, 16):
+            hi = 2 ** (bits - 1)
+            s = torch.randint(-8, 3, sshape, generator=gen,
+                              device=device).float()
+            sb = s.reshape(sshape + (1,) * (len(shape) - len(sshape)))
+            for dt in (torch.float32, torch.bfloat16):
+                x = (torch.randn(shape, generator=gen, device=device) * 0.6
+                     * hi * torch.exp2(sb)).to(dt)
+                x.view(-1)[:4] = (torch.tensor([0.5, 2.5, -1.5, 4 * hi],
+                                               device=device)
+                                  * 2.0 ** s.view(-1)[0].item()).to(dt)
+                spec = TN.QuantSpec("pow2", bits)
+                xk = x.clone().requires_grad_()
+                yk = TN.fake_quant(xk, spec, s, backend="cuda")
+                yk.float().sum().backward()
+                xr = x.clone().requires_grad_()
+                yr = TN.fake_quant(xr, spec, s)        # the plain path
+                yr.float().sum().backward()
+                check(_bits_equal(torch, yk.detach(), yr.detach())
+                      and _bits_equal(torch, xk.grad, xr.grad),
+                      f"p2_fq_rows {what} {bits}-bit {dt}: values or STE "
+                      "gradient differ")
+                check(0 < int((xk.grad == 0).sum()) < x.numel(),
+                      "p2_fq_rows data did not clip")
+                if what != "per-layer rows" or (bits != 8
+                                                and dt == torch.bfloat16):
+                    continue
+                x2d, srow = CB._rowwise(x, s)
+                n = x.numel()
+                row = dict(shape=list(shape), scales=list(sshape), bits=bits,
+                           dtype=str(dt)[6:], what=what, max_abs_err=0,
+                           ms=timer(lambda: CB.fake_quant_rows(x, s, bits)),
+                           plain_ms=timer(lambda: CB.fake_quant_rows_plain(
+                               x2d, srow, bits), iters=10))
+                y = yk.detach()
+                row["library_ms"], row["library_note"] = _library_yardstick(
+                    timer, lambda: _library_fq_rows(torch, x, srow, bits),
+                    lambda r: torch.equal(r, y))   # -0.0 == 0.0
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    2 * n * x.element_size() + srow.numel() * 4, 4 * n,
+                    FP32_OPS_PER_S)
+                out["p2_fq_rows"].append(row)
+                log(f"p2_fq_rows {what} {tuple(shape)} {bits}-bit "
+                    f"{row['dtype']}: {row['ms']*1e3:.1f} us (plain "
+                    f"{row['plain_ms']*1e3:.1f} us, library "
+                    f"{row['library_note']}, bound "
+                    f"{row['bound_ms']*1e3:.3f} us); values and STE "
+                    "gradient exact")
+    # put the 8-bit f32 row first: the kernel line's head shape
+    out["p2_fq_rows"].sort(key=lambda r: (r["bits"] != 8,
+                                          r["dtype"] != "float32"))
+
+    # --- the codec API path: a per-layer fake-quant forward and backward
+    x = (torch.randn((24, 8, 16384), generator=gen, device=device) * 0.05
+         ).requires_grad_()
+    s = torch.full((24,), -9.0, device=device)
+    _sync(torch, device)
+    B.reset_launches()
+    y = TN.fake_quant(x, TN.QuantSpec("pow2", 8), s, backend="cuda")
+    y.sum().backward()
+    _sync(torch, device)
+    api = dict(B.LAUNCHES)
+    check(api == {"p2_fq_rows": 1}, f"codec API launches {api}")
+    out["api_launches"] = api
+    log(f"codec API fake_quant, (24,) scales: launches {api}")
+    B.reset_launches()
+    return out
+
+
+def _chunked_prefix_requests(vocab: int, seed: int = 5):
+    """The slice's request set: 12 prompts share a 256-token preamble (16
+    whole pages) followed by a random 32..128-token suffix, 4 of them
+    repeat the first 8..24 tokens (never exactly one page) of an earlier
+    request's suffix and then diverge mid-page (a COW fork); 4 random
+    prompts of 128..512 tokens are mixed in. Returns the prompts in
+    submission order."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    pre = rng.randint(0, vocab, 256).tolist()
+
+    def rand(lo, hi):
+        return rng.randint(0, vocab, int(rng.randint(lo, hi + 1))).tolist()
+
+    donors, prompts = [], []
+    for kind in "RDDDCRDDCDRCDDCR":
+        if kind == "R":
+            prompts.append(rand(128, 512))
+        elif kind == "D":
+            sfx = rand(32, 128)
+            donors.append(sfx)
+            prompts.append(pre + sfx)
+        else:
+            src = donors[int(rng.randint(len(donors)))]
+            k = int(rng.choice([k for k in range(8, 25) if k != 16]))
+            tail = rand(max(32 - k, 8), 128 - k)
+            prompts.append(pre + src[:k] + tail)
+    return prompts
+
+
+def _chunk_steps(prefills, chunk: int) -> int:
+    """Chunk steps the engine runs for these (prompt_len, hit) prefills: a
+    hit computes its suffix in chunks; a miss computes its first chunk with
+    the model's forward and the rest in chunk steps."""
+    n = 0
+    for plen, hit in prefills:
+        n += (-(-(plen - hit) // chunk) if hit
+              else max(-(-plen // chunk), 1) - 1)
+    return n
+
+
+CHUNK = 128
+
+
+def phase_serve_chunked(torch, lm, params) -> dict:
+    """The slice's main path at full width: chunked prefill (128) with the
+    prefix cache over the int8 pool, fused decode, 16 requests x 64 new
+    tokens; launch counts zeroed just before and read just after. Then the
+    chunk step's host and device time, profiled."""
+    from repro_torch.kernels import build as B
+    from repro_torch.serve import kv_cache as KC
+    cfg = lm.cfg
+    prompts = _chunked_prefix_requests(cfg.vocab_size)
+    kw = dict(fused_attention=True, prefill_chunk=CHUNK, prefix_cache=True)
+    _serve_engine(torch, lm, params, prompts[:3], 2, **kw)        # warm-up
+    B.reset_launches()
+    eng, _ = _serve_engine(torch, lm, params, prompts, 64, **kw)
+    launches = dict(B.LAUNCHES)
+    s = eng.summary()
+    steps = _chunk_steps(eng.metrics.prefills, CHUNK)
+    per = 2 * cfg.num_layers
+    check(s["requests_completed"] == len(prompts), "requests lost")
+    check(s["prefix_hit_tokens"] > 0 and s["cow_forks"] > 0
+          and s["pages_saved"] > 0, f"prefix cache: {s}")
+    check(steps > 0 and launches.get("p2_enc", 0) == per * steps
+          and launches.get("p2_dec", 0) == per * steps,
+          f"chunk steps {steps}: launches {launches}, want {per} p2_enc and "
+          f"p2_dec per step")
+    check(launches.get("paged_attention", 0)
+          == s["decode_steps"] * cfg.num_layers,
+          f"{launches.get('paged_attention', 0)} attention launches for "
+          f"{s['decode_steps']} decode steps")
+    tree = eng.sched.prefix.bytes_stats(KC.page_nbytes(eng.pool, eng.pcfg))
+    savings = s["prompt_tokens"] / s["prefill_tokens"]
+    log(f"serve chunked prefix: {s['requests_completed']} requests, "
+        f"{s['generated_tokens']} tokens, {s['tokens_per_s']:.1f} tok/s, "
+        f"TTFT p50 {s['ttft_p50_s']*1e3:.1f} ms, p95 "
+        f"{s['ttft_p95_s']*1e3:.1f} ms; {steps} chunk steps; hits "
+        f"{s['prefix_hit_tokens']} of {s['prompt_tokens']} prompt tokens "
+        f"(rate {s['prefix_hit_rate']:.3f}), cow forks {s['cow_forks']}, "
+        f"pages saved {s['pages_saved']}, evictions "
+        f"{s['prefix_evictions']}; prefill compute savings "
+        f"{savings:.3f}x (prompt / computed tokens); tree {tree['pages']} "
+        f"pages, {tree['bytes']/2**20:.1f} MiB of the pool; launches "
+        f"{launches}")
+    return {"summary": s, "launches": launches, "chunk_steps": steps,
+            "prefill_compute_savings": savings, "tree": tree,
+            "chunk_profile": _profile_chunk(torch, lm, params, prompts)}
+
+
+def _profile_chunk(torch, lm, params, prompts, reps: int = 10) -> dict:
+    """One chunk step at full width (128 tokens at position 256 of a slot
+    whose history holds 384 prompt tokens), repeated: host wall per step
+    (synchronised), then one profiled window for the device time per
+    kernel. The step rewrites the same positions with the same values."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import Engine, EngineConfig, PoolConfig
+    eng = Engine(lm, params, EngineConfig(
+        pool=PoolConfig(num_slots=8, page_size=16, pages_per_slot=64,
+                        quantized=True), fused_attention=True,
+        prefill_chunk=CHUNK), device="cuda")
+    prompt = (prompts[1] + prompts[0])[:384]
+    eng.submit(prompt, max_new_tokens=8)
+    eng.step()                      # prefills 0..383 in 3 chunks, 1 decode
+    table_row = eng._tensor(eng.sched.page_table[0])
+    toks = prompt[256:384]
+    eng._chunk(toks, table_row, 0, 256)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        eng._chunk(toks, table_row, 0, 256)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            eng._chunk(toks, table_row, 0, 256)
+        torch.cuda.synchronize()
+    total, rows = _device_summary(torch, prof, reps)
+    log(f"chunk step profile: {wall*1e3:.2f} ms per step (host wall), "
+        f"device {total:.2f} ms busy, busy share {total / (wall*1e3):.3f}")
+    for r in rows:
+        log(f"  {r['ms_per_step']:8.3f} ms  {r['calls_per_step']:6.1f}x  "
+            f"{r['name']}")
+    return {"step_ms": wall * 1e3, "device_ms": total,
+            "busy_share": total / (wall * 1e3), "top": rows}
+
+
+def phase_chunked_identity(torch) -> dict:
+    """fp32, 4 layers. Hard lock: an int8 prefix hit equals a cache-off run
+    with a chunk boundary at the resume position — a cache-on engine serves
+    a 256-token donor (16 whole pages), then 8 followers (the donor plus a
+    random 7..100-token suffix); a cache-off engine serves the followers;
+    both with prefill_chunk 256. Completions must be identical, with no
+    COW fork. Report only: prefix on against off on the slice's request
+    set (chunk 128), the fraction of completions that agree."""
+    import numpy as np
+    import repro_torch.configs as C
+    from repro_torch.models import build_lm, init_lm
+    cfg = C.get_config(ARCH).replace(num_layers=4, dtype="float32")
+    lm = build_lm(cfg)
+    params = init_lm(torch.Generator(device="cuda").manual_seed(0), lm,
+                     device="cuda")
+    rng = np.random.RandomState(17)
+    donor = rng.randint(0, cfg.vocab_size, 256).tolist()
+    followers = [donor + rng.randint(0, cfg.vocab_size,
+                                     int(rng.randint(7, 101))).tolist()
+                 for _ in range(8)]
+    kw = dict(fused_attention=True, prefill_chunk=256)
+    eng, _ = _serve_engine(torch, lm, params, [donor], 1, prefix_cache=True,
+                           **kw)
+    rids = [eng.submit(p, max_new_tokens=16) for p in followers]
+    res = eng.run()
+    on = [res[r].tokens for r in rids]
+    s = eng.summary()
+    _, off = _serve_engine(torch, lm, params, followers, 16, **kw)
+    same = sum(a == b for a, b in zip(on, off))
+    check(on == off, f"int8 hit vs chunk-boundary recompute: {same}/8 "
+          "completions identical")
+    check(s["cow_forks"] == 0 and s["prefix_hit_tokens"] == 8 * 256,
+          f"chunked identity: {s['cow_forks']} forks, "
+          f"{s['prefix_hit_tokens']} hit tokens")
+    prompts = _chunked_prefix_requests(cfg.vocab_size)
+    _, a = _serve_engine(torch, lm, params, prompts, 32, fused_attention=True,
+                         prefill_chunk=CHUNK, prefix_cache=True)
+    _, b = _serve_engine(torch, lm, params, prompts, 32, fused_attention=True,
+                         prefill_chunk=CHUNK)
+    agree = sum(x == y for x, y in zip(a, b)) / len(prompts)
+    log(f"chunked identity: fp32 {cfg.num_layers} layers, int8 hit == "
+        f"chunk-boundary recompute on all 8 completions (no fork); prefix "
+        f"on vs off on the slice's requests: {agree:.3f} of completions "
+        "identical (report only)")
+    del params
+    torch.cuda.empty_cache()
+    return {"identical_completions": same, "on_off_agreement": agree}
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "p2_enc_rows": ("src/repro_torch/kernels/csrc/pow2_rows.cu",
@@ -1294,6 +1713,14 @@ WIRE_KERNELS = {
                       "src/repro/numerics/pallas_backend.py:229"),
     "p2_dec_packed": ("src/repro_torch/kernels/csrc/pow2_packed.cu",
                       "src/repro/numerics/pallas_backend.py:245"),
+}
+SCALAR_KERNELS = {
+    "p2_enc": ("src/repro_torch/kernels/csrc/pow2_scalar.cu",
+               "src/repro/numerics/pallas_backend.py:120"),
+    "p2_dec": ("src/repro_torch/kernels/csrc/pow2_scalar.cu",
+               "src/repro/numerics/pallas_backend.py:127"),
+    "p2_fq_rows": ("src/repro_torch/kernels/csrc/pow2_fq.cu",
+                   "src/repro/numerics/pallas_backend.py:332"),
 }
 TRAIN_KERNELS = {
     "p2_fake_quant": ("src/repro_torch/kernels/csrc/pow2_fq.cu",
@@ -1318,7 +1745,8 @@ def _kernel_row(name, src, replaces, shapes, launches, path) -> dict:
 
 
 def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
-                 wkern: dict, wire: dict) -> dict:
+                 wkern: dict, wire: dict, skern: dict, chunked: dict
+                 ) -> dict:
     rows = []
     for name, (src, replaces) in KERNELS.items():
         on_main = eng["launches_main"].get(name, 0)
@@ -1335,6 +1763,17 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
                                 wire["launches"].get(name, 0),
                                 f"train wire ({wire['steps']} steps, site "
                                 "table and deploy export)"))
+    for name, (src, replaces) in SCALAR_KERNELS.items():
+        if name == "p2_fq_rows":
+            launches = skern["api_launches"].get(name, 0)
+            path = ("codec API (numerics.fake_quant with a scale per leading "
+                    "index; no serving or training path)")
+        else:
+            launches = chunked["launches"].get(name, 0)
+            path = (f"serve chunked prefix ({chunked['chunk_steps']} chunk "
+                    "steps)")
+        rows.append(_kernel_row(name, src, replaces, skern[name], launches,
+                                path))
     return {"kernels": rows}
 
 
@@ -1366,9 +1805,15 @@ def main(argv=None) -> int:
     report["kernels"] = phase_kernels(torch, timer)
     report["train_kernels"] = phase_train_kernels(torch, timer)
     report["wire_kernels"] = phase_wire_kernels(torch, timer)
+    report["scalar_kernels"] = phase_scalar_kernels(torch, timer)
     del timer
-    report["engine"] = phase_engine(torch)
+    lm, params = full_model(torch)
+    report["engine"] = phase_engine(torch, lm, params)
+    report["serve_chunked"] = phase_serve_chunked(torch, lm, params)
+    del params
+    torch.cuda.empty_cache()
     report["identity"] = phase_identity(torch)
+    report["chunked_identity"] = phase_chunked_identity(torch)
     report["train"] = phase_train(torch)
     report["train_identity"] = phase_train_identity(torch)
     report["train_wire"] = phase_train_wire(torch)
@@ -1376,7 +1821,8 @@ def main(argv=None) -> int:
     report["seconds"] = time.perf_counter() - t0
     line = kernels_line(report["kernels"], report["engine"],
                         report["train_kernels"], report["train"],
-                        report["wire_kernels"], report["train_wire"])
+                        report["wire_kernels"], report["train_wire"],
+                        report["scalar_kernels"], report["serve_chunked"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

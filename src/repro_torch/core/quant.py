@@ -27,8 +27,9 @@ from ..numerics.spec import QuantSpec, qrange  # noqa: F401
 
 def quantize_store(x: torch.Tensor, scale_log2, bits: int) -> torch.Tensor:
     """Pure quantize (no STE) — the Q(.) of paper Eq. (3); used on the
-    BinaryConnect buffer at export. Runs the codec's encode→decode (the
-    row-scale kernels with a one-element scale on the card)."""
+    BinaryConnect buffer at export. Runs the codec's encode→decode: each
+    core and bias has one step, so on the card that is the scalar-scale
+    kernels ``p2_enc`` / ``p2_dec``."""
     return codecs.roundtrip(x, QuantSpec("pow2", bits), scale_log2, "cuda")
 
 

@@ -1,12 +1,16 @@
-// Scalar-scale pow-2 fake-quant: y = clip(rint(x / 2^s), lo, hi) * 2^s in
-// the dtype of x, one f32 scale_log2 for the whole tensor.
+// Pow-2 fake-quant: y = clip(rint(x / 2^s), lo, hi) * 2^s in the dtype of
+// x, with one f32 scale_log2 for the whole tensor (`p2_fake_quant`) or one
+// per row of a contiguous (rows, cols) view (`p2_fq_rows`).
 //
 // Replaces: repro/numerics/pallas_backend.py `_p2_fq_kernel` (launched
 // through `_elementwise_2d` / `_flat_call` by `_p2_fake_quant_pallas`, and
 // by the shims kernels/quantize.py `quantize` and kernels/ops.py
-// `quantize_fused`). On the training path it is every TT-core quantization
-// (4-bit, fixed per-core scale), every activation edge (8-bit) and every
-// gradient edge (16-bit) of the paper's MLP.
+// `quantize_fused`) and `_p2_fq_rows_kernel` (through `_rowscale_call` by
+// `_p2_fake_quant_rows`). On the training path the scalar kernel is every
+// TT-core quantization (4-bit, fixed per-core scale), every activation edge
+// (8-bit) and every gradient edge (16-bit) of the paper's MLP. The row
+// kernel is what the codec API's `fake_quant` runs for a scale per leading
+// index (`Pow2Pallas.fake_quant`); no path of the reference reaches it.
 //
 // Numerics (bit-identical to Pow2Reference.fake_quant, i.e. JAX's
 // `pow2_qdq`, which computes in x.dtype):
@@ -20,15 +24,18 @@
 // s (exact); the build has no --use_fast_math, so `/` and rintf keep their
 // IEEE meaning. The clip is written with comparisons so a NaN passes
 // through, as jnp.clip's does. The STE mask is not computed here: it stays
-// outside the kernel, as in the Pallas backend (pallas_backend.py:326).
+// outside the kernel, as in the Pallas backend (pallas_backend.py:326 and
+// :350-355, the row kernel's mask on the `_bcast`-shaped scale).
 //
 // Bound on the H100: bytes. One read and one write per element and a
 // handful of operations, far below the card's ~295 operations per byte.
-// The scale is read from device memory (a one-element tensor), so a
-// managed scale that the step just updated needs no host round trip.
+// The scales are read from device memory, so a managed scale that the step
+// just updated needs no host round trip.
 // Design: a grid-stride loop over 4-element vectors (16/8-byte accesses)
-// when the pointers are aligned and n % 4 == 0, else a scalar loop. No
-// shared memory, no synchronisation.
+// when the pointers are aligned and n % 4 == 0 (the row kernel: cols % 4
+// == 0, so a vector never straddles two rows; its row's step is one cached
+// load per vector), else a scalar loop. No shared memory, no
+// synchronisation.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -87,6 +94,29 @@ __global__ void p2_fq_kernel(const T* __restrict__ x, const float* __restrict__ 
   }
 }
 
+template <typename T, bool VEC>
+__global__ void p2_fq_rows_kernel(const T* __restrict__ x, const float* __restrict__ s,
+                                  T* __restrict__ y, long long n, long long cols, float lo,
+                                  float hi) {
+  const float lo_t = in_t<T>(lo), hi_t = in_t<T>(hi);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (VEC) {
+    const long long cv = cols / 4;
+    for (long long i = first; i < n / 4; i += stride) {
+      const float scale = in_t<T>(pow2_step(__ldg(s + i / cv)));
+      const Vec4<T> in = reinterpret_cast<const Vec4<T>*>(x)[i];
+      Vec4<T> out;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) out.v[j] = fq_one(in.v[j], scale, lo_t, hi_t);
+      reinterpret_cast<Vec4<T>*>(y)[i] = out;
+    }
+  } else {
+    for (long long i = first; i < n; i += stride)
+      y[i] = fq_one(x[i], in_t<T>(pow2_step(__ldg(s + i / cols))), lo_t, hi_t);
+  }
+}
+
 constexpr int kThreads = 256;
 
 inline int grid_for(long long work) {
@@ -108,6 +138,18 @@ void launch(const void* x, const float* s, void* y, long long n, float lo, float
     p2_fq_kernel<T, false><<<grid_for(n), kThreads, 0, st>>>((const T*)x, s, (T*)y, n, lo, hi);
 }
 
+template <typename T>
+void launch_rows(const void* x, const float* s, void* y, long long rows, long long cols,
+                 float lo, float hi, cudaStream_t st) {
+  const long long n = rows * cols;
+  if (cols % 4 == 0 && aligned(x, 4 * sizeof(T)) && aligned(y, 4 * sizeof(T)))
+    p2_fq_rows_kernel<T, true><<<grid_for(n / 4), kThreads, 0, st>>>((const T*)x, s, (T*)y,
+                                                                     n, cols, lo, hi);
+  else
+    p2_fq_rows_kernel<T, false><<<grid_for(n), kThreads, 0, st>>>((const T*)x, s, (T*)y, n,
+                                                                  cols, lo, hi);
+}
+
 }  // namespace
 
 extern "C" {
@@ -123,6 +165,22 @@ int p2_fake_quant(const void* x, int x_dtype, const void* s, void* y, long long 
   switch (x_dtype) {
     case F32: launch<float>(x, (const float*)s, y, n, lo, hi, st); break;
     case BF16: launch<__nv_bfloat16>(x, (const float*)s, y, n, lo, hi, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// x, y: (rows, cols) contiguous of x_dtype; s: (rows,) f32 scale_log2 on
+// the device; bits in [2, 16].
+int p2_fq_rows(const void* x, int x_dtype, const void* s, void* y, long long rows,
+               long long cols, int bits, void* stream) {
+  if (bits < 2 || bits > 16) return (int)cudaErrorInvalidValue;
+  if (rows * cols == 0) return (int)cudaSuccess;
+  const float lo = -(float)(1 << (bits - 1)), hi = (float)((1 << (bits - 1)) - 1);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (x_dtype) {
+    case F32: launch_rows<float>(x, (const float*)s, y, rows, cols, lo, hi, st); break;
+    case BF16: launch_rows<__nv_bfloat16>(x, (const float*)s, y, rows, cols, lo, hi, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

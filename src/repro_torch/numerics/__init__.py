@@ -1,7 +1,8 @@
 """repro_torch.numerics — the quantization API of ``repro.numerics``:
 ``QuantSpec``/``QTensor``, the ``reference`` codecs (pow2 with int4x2
-packing, blockwise), the ``cuda`` codecs (row-scale, packed and blockwise
-encode/decode and the scalar fake-quant kernels, bit-identical), the
+packing, blockwise), the ``cuda`` codecs (scalar- and row-scale, packed
+and blockwise encode/decode and the scalar- and row-scale fake-quant
+kernels, bit-identical), the
 ``NumericsPolicy`` site map and the §3.3 scale manager (``policy``)."""
 from .codecs import (BACKENDS, blockwise_geometry, decode,  # noqa: F401
                      encode, fake_quant, get_codec, pack_int4,

@@ -3,8 +3,9 @@ with selectable backends — the port of ``repro/numerics/codecs.py``.
 
 - ``"reference"``: plain PyTorch — the numerics oracle, runs everywhere.
 - ``"cuda"``: the hand-written kernels (``numerics/cuda_backend.py``): the
-  row-scale encode/decode of ``kernels/csrc/pow2_rows.cu``, the scalar
-  fake-quant of ``kernels/csrc/pow2_fq.cu``, the int4x2 packed
+  scalar-scale encode/decode of ``kernels/csrc/pow2_scalar.cu``, the
+  row-scale encode/decode of ``kernels/csrc/pow2_rows.cu``, the scalar- and
+  row-scale fake-quant of ``kernels/csrc/pow2_fq.cu``, the int4x2 packed
   encode/decode of ``kernels/csrc/pow2_packed.cu`` and the blockwise
   encode/decode of ``kernels/csrc/blockwise.cu``, bit-identical to the
   reference. On a CPU tensor it runs the kernels' plain versions.

@@ -1,28 +1,29 @@
-"""CUDA codec backend: the row-scale pow-2 encode/decode kernels of
-``kernels/csrc/pow2_rows.cu``, the scalar-scale fake-quant kernel of
+"""CUDA codec backend: the pow-2 encode/decode kernels with one scale
+(``kernels/csrc/pow2_scalar.cu``) or one scale per row
+(``kernels/csrc/pow2_rows.cu``), the pow-2 fake-quant kernels of
 ``kernels/csrc/pow2_fq.cu``, the int4x2 packed encode/decode kernels of
 ``kernels/csrc/pow2_packed.cu`` and the blockwise encode/decode kernels of
 ``kernels/csrc/blockwise.cu`` behind the ``encode / decode / fake_quant``
 API of the reference codecs — the port of
 ``repro/numerics/pallas_backend.py``.
 
-A scale that follows the ``codecs._bcast`` convention (one scale per
-leading index, e.g. the KV pool's per-(layer, slot) arrays) collapses the
-data to a contiguous ``(rows, cols)`` view with one f32 ``scale_log2`` per
-row (``_rowwise``), and one kernel launch encodes or decodes it.
+Dispatch mirrors ``Pow2Pallas``: a one-element scale (``_scalar``: a 0-d
+tensor or one of size 1, e.g. a one-slot read or a one-layer pool) goes to
+the scalar-scale kernels ``p2_enc`` / ``p2_dec`` / ``p2_fake_quant``, the
+step read on the device. A scale that follows the ``codecs._bcast``
+convention (one scale per leading index, e.g. the KV pool's per-(layer,
+slot) arrays) collapses the data to a contiguous ``(rows, cols)`` view with
+one f32 ``scale_log2`` per row (``_rowwise``) for ``p2_enc_rows`` /
+``p2_dec_rows`` / ``p2_fq_rows``. ``fake_quant`` wraps either kernel in the
+clipped STE, its mask computed outside the kernel on the ``_bcast``-shaped
+scale, as in the Pallas backend.
 
 Routing is by the tensor's device, never by a fallback: a CPU tensor runs
-the kernel's plain version (``encode_rows_plain`` / ``decode_rows_plain``);
-a CUDA tensor launches the kernel, and anything the kernel does not take (a
-scale that is not one value per leading index, storage wider than int8, an
-unsupported dtype) raises. A one-element scale is one row: the value the
-reference's scalar-scale kernels compute, through the row kernel.
-
-``fake_quant`` takes a one-element scale only (the TT cores' fixed
-per-core steps and the managed activation/gradient edges): that launches
-``p2_fake_quant``, with the clipped STE's mask computed outside the
-kernel, as in the Pallas backend. A scale per leading index is the
-row-scale fake-quant of ROADMAP queue 2 and raises.
+the kernel's plain version (``encode_scalar_plain``, ``encode_rows_plain``,
+...); a CUDA tensor launches the kernel, and anything the kernel does not
+take (a scale that is not one value per leading index, storage wider than
+int8, an unsupported dtype) raises — where ``Pow2Pallas`` falls back to the
+reference codec, the port does not.
 
 Packed int4x2 storage views the data as ``(rows, last)`` keeping the
 logical trailing dim (``_rowwise_lastdim``), so a byte's two nibbles never
@@ -39,14 +40,19 @@ import ctypes
 import torch
 
 from ..kernels import build as B
-from .codecs import (BlockwiseReference, Pow2Reference, blockwise_geometry,
-                     pow2_fake_quant, pow2_qdq, register_codec)
+from .codecs import (BlockwiseReference, Pow2Reference, _bcast,
+                     blockwise_geometry, pow2_fake_quant, pow2_qdq,
+                     register_codec)
 from .spec import QTensor, QuantSpec, packed_trailing, qrange
 
 ENC = "p2_enc_rows"
 DEC = "p2_dec_rows"
 SOURCE = "pow2_rows"
+SENC = "p2_enc"
+SDEC = "p2_dec"
+SCALAR_SOURCE = "pow2_scalar"
 FQ = "p2_fake_quant"
+FQR = "p2_fq_rows"
 FQ_SOURCE = "pow2_fq"
 PENC = "p2_enc_packed"
 PDEC = "p2_dec_packed"
@@ -63,12 +69,10 @@ def _rowwise(x: torch.Tensor, scale) -> tuple[torch.Tensor, torch.Tensor] | None
 
     After stripping trailing length-1 dims, ``scale.shape`` must broadcast
     against the same number of *leading* dims of ``x`` (each dim equal or
-    1). A one-element scale (a scalar, or a pool with one layer or one slot)
-    makes the whole tensor one row. Returns (x2d, scale_row) or None when
-    the convention doesn't hold."""
+    1). Returns (x2d, scale_row), or None when the convention doesn't hold
+    — a one-element scale included, as in the reference: the scalar
+    kernels take that one (``_scalar``)."""
     scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
-    if scale.numel() == 1:
-        return x.reshape(1, -1), scale.reshape(1)
     sh = list(scale.shape)
     while sh and sh[-1] == 1:
         sh.pop()
@@ -120,6 +124,24 @@ def encode_rows_plain(x2d: torch.Tensor, srow: torch.Tensor,
 def decode_rows_plain(q2d: torch.Tensor, srow: torch.Tensor,
                       dtype: torch.dtype) -> torch.Tensor:
     return (q2d.float() * torch.exp2(srow.float())[:, None]).to(dtype)
+
+
+def encode_scalar_plain(x: torch.Tensor, s: torch.Tensor,
+                        bits: int) -> torch.Tensor:
+    return encode_rows_plain(x.reshape(1, -1), s.reshape(1),
+                             bits).reshape(x.shape)
+
+
+def decode_scalar_plain(q: torch.Tensor, s: torch.Tensor,
+                        dtype: torch.dtype) -> torch.Tensor:
+    return decode_rows_plain(q.reshape(1, -1), s.reshape(1),
+                             dtype).reshape(q.shape)
+
+
+def fake_quant_rows_plain(x2d: torch.Tensor, srow: torch.Tensor,
+                          bits: int) -> torch.Tensor:
+    """The row fake-quant kernel's plain version: ``pow2_qdq`` per row."""
+    return pow2_qdq(x2d, srow.float()[:, None], bits)
 
 
 # ---- kernel wrappers ------------------------------------------------------
@@ -187,12 +209,74 @@ def decode_rows(q2d: torch.Tensor, srow: torch.Tensor,
     return y
 
 
+def _scalar_lib() -> ctypes.CDLL:
+    lib = B.load(SCALAR_SOURCE)
+    if not getattr(lib, "_repro_typed", False):
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.p2_enc.argtypes = [p, i, p, p, ll, i, p]
+        lib.p2_enc.restype = i
+        lib.p2_dec.argtypes = [p, p, p, i, ll, p]
+        lib.p2_dec.restype = i
+        lib._repro_typed = True
+    return lib
+
+
+def _one_scale(s, dev, what: str) -> torch.Tensor:
+    s = torch.as_tensor(s, dtype=torch.float32, device=dev)
+    if s.numel() != 1:
+        raise ValueError(f"{what}: one scale_log2 for the tensor, got shape "
+                         f"{tuple(s.shape)}")
+    return s.reshape(1).contiguous()
+
+
+def encode_scalar(x: torch.Tensor, s, bits: int) -> torch.Tensor:
+    """int8 codes of ``x`` (any shape) under one scale_log2 (a number or a
+    one-element tensor, read on the device by the kernel)."""
+    s = _one_scale(s, x.device, SENC)
+    if not x.is_cuda:
+        return encode_scalar_plain(x, s, bits)
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{SENC}: unsupported input dtype {x.dtype}")
+    if not 2 <= bits <= 8:
+        raise ValueError(f"{SENC}: int8 storage holds 2..8 bits, got {bits}")
+    x = x.contiguous()
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    lib = _scalar_lib()
+    B.check(lib, lib.p2_enc(
+        x.data_ptr(), _DTYPE_CODE[x.dtype], s.data_ptr(), q.data_ptr(),
+        x.numel(), bits, torch.cuda.current_stream(x.device).cuda_stream),
+        SENC)
+    B.note_launch(SENC)
+    return q
+
+
+def decode_scalar(q: torch.Tensor, s, dtype: torch.dtype) -> torch.Tensor:
+    """``dtype`` values of int8 codes (any shape) under one scale_log2."""
+    s = _one_scale(s, q.device, SDEC)
+    if not q.is_cuda:
+        return decode_scalar_plain(q, s, dtype)
+    if q.dtype != torch.int8:
+        raise TypeError(f"{SDEC}: codes must be int8, got {q.dtype}")
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"{SDEC}: unsupported output dtype {dtype}")
+    q = q.contiguous()
+    y = torch.empty(q.shape, dtype=dtype, device=q.device)
+    lib = _scalar_lib()
+    B.check(lib, lib.p2_dec(
+        q.data_ptr(), s.data_ptr(), y.data_ptr(), _DTYPE_CODE[dtype],
+        q.numel(), torch.cuda.current_stream(q.device).cuda_stream), SDEC)
+    B.note_launch(SDEC)
+    return y
+
+
 def _fq_lib() -> ctypes.CDLL:
     lib = B.load(FQ_SOURCE)
     if not getattr(lib, "_repro_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.p2_fake_quant.argtypes = [p, i, p, p, ll, i, p]
         lib.p2_fake_quant.restype = i
+        lib.p2_fq_rows.argtypes = [p, i, p, p, ll, ll, i, p]
+        lib.p2_fq_rows.restype = i
         lib._repro_typed = True
     return lib
 
@@ -208,10 +292,7 @@ def fake_quant_scalar(x: torch.Tensor, step_log2, bits: int) -> torch.Tensor:
     ``step_log2`` (a number or a one-element tensor, read on the device by
     the kernel), in ``x.dtype``. No gradient rule: ``Pow2Cuda.fake_quant``
     wraps it in the clipped STE."""
-    s = torch.as_tensor(step_log2, dtype=torch.float32, device=x.device)
-    if s.numel() != 1:
-        raise ValueError(f"{FQ}: one scale_log2 for the tensor, got shape "
-                         f"{tuple(s.shape)}")
+    s = _one_scale(step_log2, x.device, FQ)
     if not x.is_cuda:
         return fake_quant_plain(x, s, bits)
     if x.dtype not in _FQ_DTYPE_CODE:
@@ -219,7 +300,6 @@ def fake_quant_scalar(x: torch.Tensor, step_log2, bits: int) -> torch.Tensor:
     if not 2 <= bits <= 16:
         raise ValueError(f"{FQ}: bits must be 2..16, got {bits}")
     x = x.contiguous()
-    s = s.reshape(1).contiguous()
     y = torch.empty_like(x)
     lib = _fq_lib()
     B.check(lib, lib.p2_fake_quant(
@@ -227,6 +307,36 @@ def fake_quant_scalar(x: torch.Tensor, step_log2, bits: int) -> torch.Tensor:
         x.numel(), bits, torch.cuda.current_stream(x.device).cuda_stream), FQ)
     B.note_launch(FQ)
     return y
+
+
+def fake_quant_rows(x: torch.Tensor, scale, bits: int) -> torch.Tensor:
+    """Quantize-dequantize ``x`` on the pow-2 grid of one scale per leading
+    index (the ``_bcast`` convention, any of its shapes), in ``x.dtype``.
+    No gradient rule: ``Pow2Cuda.fake_quant`` wraps it in the clipped
+    STE."""
+    rw = _rowwise(x, scale)
+    if rw is None:
+        raise NotImplementedError(
+            f"{FQR}: scale of shape {tuple(torch.as_tensor(scale).shape)} is "
+            "not one scale per leading index; the row kernel takes no other "
+            "layout")
+    x2d, srow = rw
+    srow = srow.contiguous()
+    if not x.is_cuda:
+        return fake_quant_rows_plain(x2d, srow, bits).reshape(x.shape)
+    if x.dtype not in _FQ_DTYPE_CODE:
+        raise TypeError(f"{FQR}: unsupported dtype {x.dtype}")
+    if not 2 <= bits <= 16:
+        raise ValueError(f"{FQR}: bits must be 2..16, got {bits}")
+    x2d = x2d.contiguous()
+    y = torch.empty_like(x2d)
+    lib = _fq_lib()
+    B.check(lib, lib.p2_fq_rows(
+        x2d.data_ptr(), _FQ_DTYPE_CODE[x.dtype], srow.data_ptr(), y.data_ptr(),
+        x2d.shape[0], x2d.shape[1], bits,
+        torch.cuda.current_stream(x.device).cuda_stream), FQR)
+    B.note_launch(FQR)
+    return y.reshape(x.shape)
 
 
 # ---- int4x2 packed encode / decode ----------------------------------------
@@ -406,6 +516,12 @@ def bw_decode(codes: torch.Tensor, scales: torch.Tensor,
 class Pow2Cuda(Pow2Reference):
     backend = "cuda"
 
+    @staticmethod
+    def _scalar(scale) -> bool:
+        """``Pow2Pallas._scalar``: a 0-d scale or one of size 1."""
+        s = torch.as_tensor(scale)
+        return s.dim() == 0 or s.numel() == 1
+
     def encode(self, x, spec: QuantSpec, scale) -> QTensor:
         if spec.packed:
             rw = _rowwise_lastdim(x, scale)
@@ -424,6 +540,9 @@ class Pow2Cuda(Pow2Reference):
             raise NotImplementedError(
                 f"{ENC}: the kernel stores int8 codes; {spec.storage_dtype} "
                 "is a later slice")
+        if self._scalar(scale):
+            return QTensor(encode_scalar(x, scale, spec.bits), scale, spec,
+                           tuple(x.shape))
         rw = _rowwise(x, scale)
         if rw is None:
             raise NotImplementedError(
@@ -444,6 +563,8 @@ class Pow2Cuda(Pow2Reference):
             p2d, srow = rw
             last = qt.shape[-1] if qt.shape else 1
             return decode_packed(p2d, srow, last).reshape(qt.shape).to(dtype)
+        if self._scalar(qt.scale):
+            return decode_scalar(qt.codes, qt.scale, dtype)
         rw = _rowwise(qt.codes, qt.scale)
         if rw is None:
             raise NotImplementedError(
@@ -455,13 +576,18 @@ class Pow2Cuda(Pow2Reference):
     def fake_quant(self, x: torch.Tensor, spec: QuantSpec,
                    scale) -> torch.Tensor:
         s = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
-        if s.numel() != 1:
+        if self._scalar(s):
+            return pow2_fake_quant(x, s.reshape(()), spec.bits,
+                                   qdq=fake_quant_scalar)
+        # the STE mask and the kernel both see the _bcast-shaped scale
+        s = _bcast(s, x.dim(), x.device)
+        if _rowwise(x, s) is None:
             raise NotImplementedError(
-                f"{FQ}: a scale of shape {tuple(s.shape)} (one per leading "
-                "index) is the row-scale fake-quant, ROADMAP queue 2 item 2; "
-                "the scalar kernel takes one scale")
-        return pow2_fake_quant(x, s.reshape(()), spec.bits,
-                               qdq=fake_quant_scalar)
+                f"{FQR}: a scale of shape {tuple(s.shape)} is not one scale "
+                "per leading index; the row kernel takes no other layout "
+                "(the Pallas backend falls back to the reference, the port "
+                "does not)")
+        return pow2_fake_quant(x, s, spec.bits, qdq=fake_quant_rows)
 
 
 class BlockwiseCuda(BlockwiseReference):

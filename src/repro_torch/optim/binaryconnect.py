@@ -5,8 +5,9 @@ The full-precision buffer is the params tree itself; the forward pass sees
 fake-quantized cores (``core.tt_layer.effective_cores``) and the optimizer
 updates the buffer with gradients taken through the STE. At export the
 cores are hard-quantized to ``weight_bits`` on their fixed per-core steps
-and the biases to ``act_bits``, through the codec's encode→decode (the
-row-scale kernels with a one-element scale on the card).
+and the biases to ``act_bits``, through the codec's encode→decode (one
+step per leaf: the scalar-scale kernels ``p2_enc`` / ``p2_dec`` on the
+card).
 """
 from __future__ import annotations
 

@@ -4,12 +4,20 @@
 Requests occupy *slots* of a ``num_slots``-lane decode batch, each at its
 own length; a retired slot (max-new-tokens or EOS) frees its pages and is
 refilled on the next iteration, so the batch never drains to admit work.
-Prefill is the model's own whole-prompt ``lm_forward``, whose K/V cache is
-scattered into the slot-paged (optionally int8 pow-2) pool; decode appends
-each new token's K/V and attends either through the fused paged-attention
-kernel (``fused_attention=True``) or by gathering and dequantizing every
-slot's view and running ``gqa_attend`` (the default, and the in-engine
-reference for the fused path).
+Prefill's first chunk (the whole prompt unless ``prefill_chunk`` splits
+it) is the model's own ``lm_forward``, whose K/V cache is scattered into
+the slot-paged (optionally int8 pow-2) pool; later chunks go through the
+chunk step (``_chunk``: write the chunk's K/V, gather the slot's history,
+attend). Decode appends each new token's K/V and attends either through
+the fused paged-attention kernel (``fused_attention=True``) or by
+gathering and dequantizing every slot's view and running ``gqa_attend``
+(the default, and the in-engine reference for the fused path).
+
+With ``prefix_cache=True`` a radix tree (``serve/prefix.py``) shares the
+pages of prompt prefixes it has seen: a hit adopts its donor's scales,
+copies a partly matched page (COW) and computes only the suffix through
+the chunk step — exactly what a cache-off engine with a chunk boundary at
+the resume position computes.
 
 Numerics: float32 matmuls stay float32 on the card — the engine sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (and cuDNN's) where it
@@ -17,10 +25,11 @@ is built, so the fp32 fused-vs-gather identity holds as in the reference.
 The pool is updated in place (see ``kv_cache``); PyTorch runs eagerly, so
 there is no compiled-step cache.
 
-Out of this slice (they raise ``NotImplementedError`` naming the slice
-they wait for): prefix cache, speculative decoding, chunked prefill,
-recurrent/MoE/MLA sublayers (at ``build_lm``), a mesh, quant-health
-policies and trace recorders.
+Not carried over: the reference's ``CompileCache`` / ``max_prefill_shapes``
+(they bound live jitted prefill shapes; eager PyTorch compiles none).
+Still to port (they raise ``NotImplementedError`` naming what they wait
+for): speculative decoding, recurrent/MoE/MLA sublayers (at ``build_lm``),
+a mesh, quant-health policies and trace recorders.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from ..models.lm import LMDef, embed_tokens, lm_forward, sub_ffn_decode
 from . import kv_cache as KC
 from .kv_cache import PoolConfig
 from .metrics import ServeMetrics
+from .prefix import RadixPrefixCache
 from .sampling import SamplingParams, sample_tokens
 from .scheduler import Request, Scheduler
 
@@ -51,13 +61,14 @@ class Completion(NamedTuple):
 @dataclass(frozen=True)
 class EngineConfig:
     pool: PoolConfig
-    prefill_chunk: int = 0      # > 0: chunked prefill (later slice)
+    prefill_chunk: int = 0      # 0: whole-prompt prefill only
     prefill_bucket: int = 0     # pad prompts to a multiple of this (0: exact)
     seed: int = 0               # seeds the sampling generator
     fused_attention: bool = False
                                 # decode attends via the fused paged-
                                 # attention kernel instead of gather + attend
-    prefix_cache: bool = False  # radix prefix sharing (later slice)
+    prefix_cache: bool = False  # radix-tree COW prefix sharing over the
+                                # paged pool (serve/prefix.py)
     spec_k: int = 0             # speculative decoding (later slice)
     policy: object = None       # NumericsPolicy / quant health (later slice)
 
@@ -76,12 +87,8 @@ class Engine:
     def __init__(self, lm: LMDef, params: dict, ecfg: EngineConfig,
                  device=None, clock=time.monotonic, plan=None, trace=None,
                  draft=None):
-        later = [(ecfg.prefix_cache, "the radix prefix cache (ROADMAP "
-                  "queue 1: serve/prefix.py)"),
-                 (ecfg.spec_k != 0 or draft is not None,
+        later = [(ecfg.spec_k != 0 or draft is not None,
                   "speculative decoding (ROADMAP queue 1)"),
-                 (ecfg.prefill_chunk > 0, "chunked prefill (ROADMAP queue "
-                  "1: kv_cache.write_chunk and the engine's chunk step)"),
                  (ecfg.policy is not None, "numerics policies and quant "
                   "health (the training slice, numerics/policy.py)"),
                  (plan is not None, "multi-device serving (ROADMAP queue 1: "
@@ -106,7 +113,13 @@ class Engine:
         self.ecfg = ecfg
         self.pcfg = ecfg.pool
         self.pool = KC.init_pool(lm, self.pcfg, self.device)
-        self.sched = Scheduler(self.pcfg)
+        # prefix sharing needs per-token paged memory, i.e. an attention-
+        # only arch: every arch init_pool takes (recurrent mixers raise)
+        self._prefix = (RadixPrefixCache(self.pcfg.page_size,
+                                         self.pcfg.total_pages)
+                        if ecfg.prefix_cache else None)
+        self.sched = Scheduler(self.pcfg, ecfg.prefill_chunk,
+                               prefix=self._prefix)
         self.metrics = ServeMetrics(clock=clock)
         self.metrics.num_slots = self.pcfg.num_slots
         self.metrics.cache_bytes = KC.pool_bytes(self.pool)
@@ -160,20 +173,98 @@ class Engine:
         return apply_site(self.params["head"], x, lm.head, lm.cfg)[:, 0]
 
     @torch.no_grad()
-    def _prefill(self, slot: int, st) -> torch.Tensor:
-        """Whole-prompt prefill: the model's own forward, then one scatter
-        of its cache into the pool. Returns the last real position's logits
-        (1, V)."""
-        toks = st.req.prompt
+    def _prefill(self, toks: list[int], table_row: torch.Tensor,
+                 slot: int) -> torch.Tensor:
+        """A first chunk at position 0: the model's own forward, then one
+        scatter of its cache into the pool (which chooses the slot's
+        scales). Returns the last real position's logits (1, V)."""
         padded = toks + [0] * (_bucket_len(len(toks), self.ecfg.prefill_bucket)
                                - len(toks))
         logits, _, cache = lm_forward(
             self.params, self.lm, tokens=self._tensor([padded], torch.long),
             return_cache=True)
-        table_row = self._tensor(self.sched.page_table[slot])
         KC.write_prefill(self.pool, cache, table_row, slot, len(toks),
                          self.pcfg)
         return logits[0, len(toks) - 1][None]
+
+    def _sub_chunk(self, pp: dict, x: torch.Tensor, layer: int, key: str,
+                   sub, table_row, slot: int, start: int, valid_len: int,
+                   positions) -> torch.Tensor:
+        cfg = self.lm.cfg
+        d = sub.mixer
+        h = rms_norm(x, pp["norm1"]["scale"], cfg.norm_eps)
+        q, k_new, v_new = A.gqa_decode_qkv(pp["mixer"], h, d, cfg, positions)
+        kv = {}
+        for name, new in (("k", k_new), ("v", v_new)):
+            data = self.pool["data"][key][name][layer]
+            scale = self.pool["scale_log2"][key][name][layer]
+            KC.write_chunk(data, scale, new[0], table_row, start, valid_len,
+                           slot, self.pcfg)
+            kv[name] = KC.gather_slots(data, scale[slot][None],
+                                       table_row[None], self.pcfg, h.dtype)
+        attn = A.gqa_attend(q, kv["k"], kv["v"], d, positions)
+        x = x + apply_site(pp["mixer"]["o"], attn, d.o, cfg)
+        return sub_ffn_decode(pp, x, sub, cfg)
+
+    @torch.no_grad()
+    def _chunk(self, toks: list[int], table_row: torch.Tensor, slot: int,
+               start: int) -> torch.Tensor:
+        """Chunked-prefill step of one slot (the reference's
+        ``_chunk_impl`` for GQA sublayers): each layer writes the chunk's
+        K/V into the pool under the slot's scale and attends over the
+        slot's whole gathered history (not the fused kernel, as in the
+        reference). ``toks`` is padded to the chunk width (or the bucketed
+        length when chunking is off); pad rows go to the trash page.
+        Returns the last real position's logits (1, V)."""
+        lm, ecfg = self.lm, self.ecfg
+        width = (ecfg.prefill_chunk if ecfg.prefill_chunk > 0
+                 else _bucket_len(len(toks), ecfg.prefill_bucket))
+        tokens = self._tensor([toks + [0] * (width - len(toks))], torch.long)
+        positions = (start + torch.arange(width, device=self.device))[None]
+        x = embed_tokens(self.params, tokens, lm)
+        for layer, pp in enumerate(self.params["layers"]):
+            for i, sub in enumerate(lm.period):
+                x = self._sub_chunk(pp[f"sub_{i}"], x, layer, f"sub_{i}", sub,
+                                    table_row, slot, start, len(toks),
+                                    positions)
+        x = x[:, len(toks) - 1:len(toks)]
+        x = rms_norm(x, self.params["final_norm"]["scale"], lm.cfg.norm_eps)
+        return apply_site(self.params["head"], x, lm.head, lm.cfg)[:, 0]
+
+    def _do_prefill(self, slot: int, st) -> None:
+        """Prefill one admitted request (the reference's ``_do_prefill``):
+        on a prefix hit, adopt the donor's scales, make the COW copy and
+        compute only the suffix through the chunk step; else the first
+        chunk through ``lm_forward`` and later ones through the chunk step.
+        Then sample the first token and donate the prompt's full pages to
+        the prefix tree."""
+        plen, resume = st.prompt_len, st.prefix_len
+        table_row = self._tensor(self.sched.page_table[slot])
+        if resume > 0:
+            if self.pcfg.quantized and st.prefix_scales is not None:
+                KC.adopt_scales(self.pool, slot, st.prefix_scales)
+            if st.fork is not None:
+                KC.fork_page(self.pool, *st.fork)
+                self.metrics.cow_forked()
+            self.metrics.prefix_hit(resume, resume // self.pcfg.page_size)
+            c = self.ecfg.prefill_chunk
+            chunks = ([(s, min(s + c, plen)) for s in range(resume, plen, c)]
+                      if c > 0 else [(resume, plen)])
+        else:
+            chunks = self.sched.prefill_chunks(plen)
+        for c0, c1 in chunks:
+            toks = st.req.prompt[c0:c1]
+            last = (self._prefill(toks, table_row, slot) if c0 == 0
+                    else self._chunk(toks, table_row, slot, c0))
+        self.metrics.prefill(plen, computed=plen - resume)
+        tok = int(self._sample(last, [slot])[0])
+        st.generated.append(tok)
+        st.last_token = tok
+        self.metrics.request_first_token(st.req.rid)
+        if self._prefix is not None:
+            scales = (KC.snapshot_scales(self.pool, slot)
+                      if self.pcfg.quantized else None)
+            self.sched.commit_prefix(slot, scales)
 
     def _sample(self, logits: torch.Tensor, slots: list[int]) -> np.ndarray:
         sp = [self.sched.slots[s].req.sampling if self.sched.slots[s]
@@ -210,12 +301,7 @@ class Engine:
         while (adm := sched.try_admit()) is not None:
             slot, st = adm
             self.metrics.request_admitted(st.req.rid, st.prompt_len)
-            last = self._prefill(slot, st)
-            self.metrics.prefill(st.prompt_len)
-            tok = int(self._sample(last, [slot])[0])
-            st.generated.append(tok)
-            st.last_token = tok
-            self.metrics.request_first_token(st.req.rid)
+            self._do_prefill(slot, st)
             if st.done():
                 self._finish(slot)
 
@@ -258,6 +344,8 @@ class Engine:
         return dict(self._completions)
 
     def summary(self) -> dict:
+        if self._prefix is not None:
+            self.metrics.prefix_evictions = self._prefix.evictions
         out = self.metrics.summary()
         out["device"] = str(self.device)
         return out

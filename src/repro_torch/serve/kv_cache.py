@@ -9,10 +9,12 @@ a power-of-2 grid, ``x ≈ q * 2^scale_log2``, one ``scale_log2`` per
 (layer, slot, tensor) chosen from the prompt's range at prefill and reused
 by decode appends (the paper's §3.2 numerics applied to serving).
 
-Every pool write goes through the row-scale encode kernel and every
-gathered read through the row-scale decode kernel (``numerics``' ``cuda``
-codec; on CPU tensors their plain versions). The fused path reads pages
-straight from the pool inside the paged-attention kernel.
+Every pool write goes through an encode kernel and every gathered read
+through a decode kernel (``numerics``' ``cuda`` codec; on CPU tensors their
+plain versions): the row-scale kernels where a launch covers several
+(layer, slot) scales, the scalar-scale ones where it covers one — a
+chunked-prefill write and its one-slot history read. The fused path reads
+pages straight from the pool inside the paged-attention kernel.
 
 In-place updates: where the reference donates the pool to a jitted step
 and rebuilds it with ``.at[].set``, the port writes into the preallocated
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..models.common import torch_dtype
@@ -121,6 +124,15 @@ def pool_bytes_fp32(pool: dict) -> int:
     return 4 * sum(t.numel() for t in _leaves(pool["data"]))
 
 
+def page_nbytes(pool: dict, pcfg: PoolConfig) -> int:
+    """Physical bytes of ONE page summed across every cached tensor of
+    every layer (each data leaf (L, P+1, page, *feat) gives each of its
+    P+1 pages an equal slice); per-slot scales excluded."""
+    n = pcfg.total_pages + 1
+    return sum(t.numel() * t.element_size() // n
+               for t in _leaves(pool["data"]))
+
+
 # ---------------------------------------------------------------------------
 # Quantize / dequantize — the ``kv_cache`` site of the codec registry
 # ---------------------------------------------------------------------------
@@ -138,7 +150,8 @@ def choose_scale_log2(x: torch.Tensor, valid: torch.Tensor,
 def quantize(x: torch.Tensor, scale_log2: torch.Tensor,
              bits: int) -> torch.Tensor:
     """fp -> int8 codes; scale_log2 broadcast against x's leading dims (one
-    row-scale encode launch)."""
+    encode launch: the scalar kernel for a one-element scale, else the
+    row-scale kernel)."""
     spec = _kv_spec(bits)
     return get_codec(spec, CODEC_BACKEND).encode(x, spec, scale_log2).codes
 
@@ -159,7 +172,8 @@ def gather_slots(data_l: torch.Tensor, scale_l: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
     """Materialize every slot's cache view for one layer: data_l (P+1,
     page, *feat), scale_l (B,), table (B, pages_per_slot) -> (B, max_len,
-    *feat) in ``dtype``, dequantized on read (rows = B)."""
+    *feat) in ``dtype``, dequantized on read (one decode launch: rows = B,
+    or the scalar kernel for the chunk step's one slot)."""
     g = data_l[table.long()]                              # (B, pp, page, *f)
     b = table.shape[0]
     g = g.reshape((b, pcfg.max_len) + tuple(g.shape[3:]))
@@ -229,4 +243,92 @@ def write_prefill(pool: dict, cache: dict, table_row: torch.Tensor,
             else:
                 vals = vals.to(dest.dtype)
             dest[:, pages, offs] = vals
+    return pool
+
+
+def write_chunk(data_l: torch.Tensor, scale_l: torch.Tensor,
+                vals: torch.Tensor, table_row: torch.Tensor, start: int,
+                valid_len: int, slot: int, pcfg: PoolConfig
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Write a prefill chunk of one slot into one layer's pool, in place.
+
+    vals: (S, *feat) fp (positions start..start+S-1; only the first
+    ``valid_len`` rows are real). The slot's scale must already be set (the
+    first prefill chunk goes through ``write_prefill``, or a prefix hit
+    adopts its donor's); this chunk clips into that range, one scalar-scale
+    encode launch. Pad rows go to the trash page; their page index is
+    clamped first (the reference's gather clamps it silently, PyTorch's
+    indexing would raise past the slot's last page)."""
+    s = vals.shape[0]
+    dev = vals.device
+    j = torch.arange(s, device=dev)
+    pos = start + j
+    page_idx = torch.clamp(pos // pcfg.page_size, max=pcfg.pages_per_slot - 1)
+    pages = torch.where(j < valid_len, table_row.long()[page_idx],
+                        pcfg.trash_page)
+    offs = pos % pcfg.page_size
+    if pcfg.quantized:
+        vals = quantize(vals, scale_l[slot][None], pcfg.bits)
+    else:
+        vals = vals.to(data_l.dtype)
+    data_l.index_put_((pages, offs), vals)
+    return data_l, scale_l
+
+
+class PageRefs:
+    """Host-side reference counts over the pool's physical pages.
+
+    A page's count is the number of *readers* currently holding it mapped
+    or reserved: every slot that acquired the page as a shared prefix page,
+    plus the slot (if any) that reserved it as a COW-fork source. Tree
+    ownership itself (``serve/prefix.py``) is NOT a reference — a cached
+    page with no live readers has count 0 and is evictable."""
+
+    def __init__(self, num_pages: int):
+        self._refs = np.zeros(num_pages, np.int32)
+
+    def acquire(self, pages: list[int]) -> None:
+        for p in pages:
+            self._refs[p] += 1
+
+    def release(self, pages: list[int]) -> None:
+        for p in pages:
+            self._refs[p] -= 1
+            if self._refs[p] < 0:
+                raise AssertionError(f"page {p} released below zero")
+
+    def count(self, page: int) -> int:
+        return int(self._refs[page])
+
+    def unreferenced(self, pages: list[int]) -> bool:
+        return all(self._refs[p] == 0 for p in pages)
+
+
+def fork_page(pool: dict, src: int, dst: int) -> dict:
+    """Copy-on-write page copy, in place: physical page ``src`` into
+    ``dst`` for every cached tensor of every layer, codes (or fp values)
+    verbatim — no dequant/requant, so a forked page is the donor's up to
+    the fork point. The reader must adopt the donor's scales
+    (``adopt_scales``) for those codes to decode to the donor's values."""
+    for t in _leaves(pool["data"]):
+        t[:, dst] = t[:, src]
+    return pool
+
+
+def snapshot_scales(pool: dict, slot: int) -> dict:
+    """Copy of one slot's per-layer scales, {key: {name: (L,) f32}}, on the
+    pool's device. Taken after prefill so the prefix tree can hand the same
+    decode grid to every future reader of the inserted pages."""
+    return {key: {name: arr[:, slot].clone() for name, arr in kinds.items()}
+            for key, kinds in pool["scale_log2"].items()}
+
+
+def adopt_scales(pool: dict, slot: int, snap: dict) -> dict:
+    """Set one slot's scale rows from a prefix node's snapshot (leaves
+    (L,)), in place. Shared int8 pages then decode under the exact grid
+    they were written with; the reader's own suffix chunks and decode
+    appends clip into it, as chunked prefill does."""
+    for key, kinds in snap.items():
+        for name, vals in kinds.items():
+            pool["scale_log2"][key][name][:, slot] = torch.as_tensor(vals)
     return pool

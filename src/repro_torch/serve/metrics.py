@@ -1,6 +1,7 @@
 """Serving telemetry — the port of ``repro/serve/metrics.py`` trimmed to
-this slice: throughput, time-to-first-token (split into queue wait and
-compute), request latency percentiles, batch fill and cache-pool bytes.
+the port's serving path: throughput, time-to-first-token (split into queue
+wait and compute), request latency percentiles, batch fill, cache-pool
+bytes and the prefix-cache counters.
 The clock is injectable for deterministic tests; host-side only."""
 from __future__ import annotations
 
@@ -33,8 +34,19 @@ class ServeMetrics:
     _t_end: float | None = None
     decode_steps: int = 0
     decode_tokens: int = 0      # tokens produced by batched decode steps
-    prefill_tokens: int = 0     # prompt tokens run through prefill
+    prefill_tokens: int = 0     # prompt tokens actually COMPUTED by prefill
+    prompt_tokens: int = 0      # prompt tokens submitted through prefill
+                                # (computed + prefix-cache hits)
     preemptions: int = 0
+    # prefix-cache counters (serve/prefix.py; engine-maintained)
+    prefix_hit_tokens: int = 0  # prompt tokens served from cached pages
+    cow_forks: int = 0          # copy-on-write page copies (mid-page hits)
+    prefix_evictions: int = 0   # LRU leaf evictions under page pressure
+    pages_saved: int = 0        # physical pages NOT allocated thanks to
+                                # sharing (sum of shared spans at admission)
+    # one (prompt_len, hit_tokens) per prefill, in order: what each prefill
+    # computed, so a caller can count its chunk steps
+    prefills: list = field(default_factory=list)
     num_slots: int = 0          # pool width (set by the engine)
     cache_bytes: int = 0        # resident KV pool bytes (set by the engine)
     cache_bytes_fp32: int = 0   # what the same pool would cost unquantized
@@ -75,8 +87,21 @@ class ServeMetrics:
         self._free_min = free_pages if self._free_min is None \
             else min(self._free_min, free_pages)
 
-    def prefill(self, n_tokens: int) -> None:
-        self.prefill_tokens += n_tokens
+    def prefill(self, n_tokens: int, computed: int | None = None) -> None:
+        """One request prefilled: ``n_tokens`` prompt positions, of which
+        ``computed`` were run through the model (the rest were served from
+        the prefix cache; default: all of them)."""
+        computed = n_tokens if computed is None else computed
+        self.prompt_tokens += n_tokens
+        self.prefill_tokens += computed
+        self.prefills.append((n_tokens, n_tokens - computed))
+
+    def prefix_hit(self, hit_tokens: int, pages: int) -> None:
+        self.prefix_hit_tokens += hit_tokens
+        self.pages_saved += pages
+
+    def cow_forked(self) -> None:
+        self.cow_forks += 1
 
     def preempted(self) -> None:
         self.preemptions += 1
@@ -102,8 +127,15 @@ class ServeMetrics:
             "requests_completed": len(done),
             "generated_tokens": total_gen,
             "prefill_tokens": self.prefill_tokens,
+            "prompt_tokens": self.prompt_tokens,
             "decode_steps": self.decode_steps,
             "preemptions": self.preemptions,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "prefix_hit_rate": (self.prefix_hit_tokens / self.prompt_tokens
+                                if self.prompt_tokens else 0.0),
+            "cow_forks": self.cow_forks,
+            "prefix_evictions": self.prefix_evictions,
+            "pages_saved": self.pages_saved,
             "wall_s": wall,
             "tokens_per_s": total_gen / wall if wall > 0 else 0.0,
             "ttft_p50_s": _pct(ttft, 50), "ttft_p95_s": _pct(ttft, 95),

@@ -1,13 +1,18 @@
 """Host-side continuous-batching scheduler — the port of
-``repro/serve/scheduler.py`` trimmed to this slice (no prefix cache, no
-chunked-prefill planning, no speculative spans). Plain Python and numpy.
+``repro/serve/scheduler.py`` without the speculative spans (a later slice)
+and the unpaged pure-SSM mode. Plain Python and numpy.
 
 - **Admission**: FIFO queue; a request is admitted when a slot is free and
-  the pool can page its prompt plus one decode page.
+  the pool can page its prompt plus one decode page. With a prefix cache
+  the longest cached prefix is matched and its pages acquired first; only
+  the rest of the prompt needs fresh pages, and prefill resumes there.
 - **Paging**: pages are allocated lazily as a slot's length crosses page
   boundaries. If the pool is exhausted mid-decode the *youngest* slot is
   preempted: its pages return to the free list and the request re-queues
   with its generated prefix folded into the prompt (recompute preemption).
+  Allocation evicts cold prefix-cache leaves before it gives up.
+- **Chunked prefill**: prompts longer than ``prefill_chunk`` are split into
+  fixed-size chunks.
 """
 from __future__ import annotations
 
@@ -35,6 +40,14 @@ class SlotState:
     prompt_len: int
     generated: list[int] = field(default_factory=list)
     last_token: int = -1
+    # prefix-cache admission outcome (serve/prefix.py): positions below
+    # ``prefix_len`` are already resident (shared pages + an optional COW
+    # fork) and prefill resumes there. ``fork`` is the pending (src, dst)
+    # page copy the engine performs before the first suffix chunk;
+    # ``prefix_scales`` the matched node's scale snapshot to adopt.
+    prefix_len: int = 0
+    fork: tuple[int, int] | None = None
+    prefix_scales: dict | None = None
 
     @property
     def next_pos(self) -> int:
@@ -70,12 +83,22 @@ class PageAllocator:
 class Scheduler:
     """Slot/page bookkeeping for one engine. All state is host-side."""
 
-    def __init__(self, pcfg: PoolConfig):
+    def __init__(self, pcfg: PoolConfig, prefill_chunk: int = 0,
+                 prefix=None):
         self.pcfg = pcfg
+        self.prefill_chunk = prefill_chunk
+        self.prefix = prefix    # optional serve.prefix.RadixPrefixCache
         self.queue: deque[Request] = deque()
         self.slots: list[SlotState | None] = [None] * pcfg.num_slots
         self.alloc = PageAllocator(pcfg.total_pages)
+        # slot_pages: pages PRIVATE to the slot (freed at retire).
+        # slot_shared: tree-owned pages mapped in the slot's row (stay in the
+        # prefix cache at retire). slot_refs: pages this slot holds refcounts
+        # on (shared pages + a pending COW-fork source), released at retire.
         self.slot_pages: list[list[int]] = [[] for _ in range(pcfg.num_slots)]
+        self.slot_shared: list[list[int]] = [[] for _ in
+                                             range(pcfg.num_slots)]
+        self.slot_refs: list[list[int]] = [[] for _ in range(pcfg.num_slots)]
         # device-facing page table; unmapped entries point at the trash page
         self.page_table = np.full((pcfg.num_slots, pcfg.pages_per_slot),
                                   pcfg.trash_page, np.int32)
@@ -102,35 +125,101 @@ class Scheduler:
         self.queue.append(req)
         return req.rid
 
+    def alloc_pages(self, n: int) -> list[int] | None:
+        """Allocate ``n`` pages, evicting cold prefix-cache leaves first if
+        the free list alone cannot cover it. Eviction only reclaims
+        refcount-0 spans, so pages mapped (or matched and acquired) by a
+        live slot are untouchable: running requests are reclaimed by
+        preemption, never by cache eviction."""
+        got = self.alloc.alloc(n)
+        if got is None and self.prefix is not None:
+            freed = self.prefix.evict(n - self.alloc.free_pages)
+            if freed:
+                self.alloc.free(freed)
+                got = self.alloc.alloc(n)
+        return got
+
     def try_admit(self) -> tuple[int, SlotState] | None:
         """Admit the head-of-queue request if a slot + pages are available
-        (the prompt's pages plus one decode page, reserved up front)."""
+        (the prompt's pages plus one decode page, reserved up front).
+
+        With a prefix cache the longest cached prefix is matched and its
+        pages acquired *before* the private allocation, so eviction
+        triggered by that allocation can never free the matched span."""
         if not self.queue:
             return None
         free_slots = [i for i, s in enumerate(self.slots) if s is None]
         if not free_slots:
             return None
         req = self.queue[0]
-        pages = self.alloc.alloc(self.pcfg.pages_for(len(req.prompt) + 1))
+        shared: list[int] = []
+        refs: list[int] = []
+        m = self.prefix.match(req.prompt) if self.prefix is not None else None
+        if m is not None:
+            self.prefix.acquire(m)
+            shared = list(m.shared_pages)
+            refs = shared + ([m.fork_src] if m.fork_src is not None else [])
+        pages = self.alloc_pages(self.pcfg.pages_for(len(req.prompt) + 1)
+                                 - len(shared))
         if pages is None:
+            if refs:
+                self.prefix.release(refs)
             return None
         self.queue.popleft()
         slot = free_slots[0]
         self.slot_pages[slot] = pages
-        self.page_table[slot, :len(pages)] = pages
+        self.slot_shared[slot] = shared
+        self.slot_refs[slot] = refs
+        row = shared + pages
+        self.page_table[slot, :len(row)] = row
         st = SlotState(req, prompt_len=len(req.prompt))
+        if m is not None:
+            st.prefix_len = m.resume
+            st.prefix_scales = m.scales
+            if m.fork_src is not None:
+                # the first private page sits right after the shared span:
+                # it is the COW destination the engine copies into
+                st.fork = (m.fork_src, pages[0])
         self.slots[slot] = st
         self.admission_order.append(slot)
         return slot, st
+
+    def commit_prefix(self, slot: int, scales: dict | None) -> list[int]:
+        """After prefill: donate the slot's fully-prompt-covered private
+        pages to the prefix tree. Donated pages move from the private list
+        (freed at retire) to the acquired-shared lists (refs released at
+        retire). Returns the donated pages."""
+        if self.prefix is None:
+            return []
+        st = self.slots[slot]
+        n_full = st.prompt_len // self.pcfg.page_size
+        if n_full <= len(self.slot_shared[slot]):
+            return []       # nothing beyond the already-shared span
+        row = self.slot_shared[slot] + self.slot_pages[slot]
+        donated = self.prefix.insert(st.req.prompt, row[:n_full], scales)
+        for p in donated:
+            self.slot_pages[slot].remove(p)
+        if donated:
+            self.prefix.refs.acquire(donated)
+            self.slot_refs[slot].extend(donated)
+            self.slot_shared[slot].extend(donated)
+        return donated
+
+    def prefill_chunks(self, prompt_len: int) -> list[tuple[int, int]]:
+        """(start, end) chunks covering the prompt."""
+        if self.prefill_chunk <= 0 or prompt_len <= self.prefill_chunk:
+            return [(0, prompt_len)]
+        c = self.prefill_chunk
+        return [(s, min(s + c, prompt_len)) for s in range(0, prompt_len, c)]
 
     def ensure_page(self, slot: int) -> bool:
         """Make sure the page holding the *next* token position is mapped.
         Returns False when the pool is exhausted (caller should preempt)."""
         st = self.slots[slot]
         page_idx = st.next_pos // self.pcfg.page_size
-        if page_idx < len(self.slot_pages[slot]):
+        if page_idx < len(self.slot_shared[slot]) + len(self.slot_pages[slot]):
             return True
-        pages = self.alloc.alloc(1)
+        pages = self.alloc_pages(1)
         if pages is None:
             return False
         self.slot_pages[slot].append(pages[0])
@@ -140,7 +229,13 @@ class Scheduler:
     def retire(self, slot: int) -> SlotState:
         st = self.slots[slot]
         self.alloc.free(self.slot_pages[slot])
+        if self.slot_refs[slot]:
+            # shared/acquired pages stay in the prefix tree; dropping the
+            # refs makes them evictable once no other reader remains
+            self.prefix.release(self.slot_refs[slot])
         self.slot_pages[slot] = []
+        self.slot_shared[slot] = []
+        self.slot_refs[slot] = []
         self.page_table[slot, :] = self.pcfg.trash_page
         self.slots[slot] = None
         self.admission_order.remove(slot)
@@ -148,8 +243,9 @@ class Scheduler:
 
     def preempt_youngest(self) -> int | None:
         """Evict the most recently admitted slot; its request re-queues with
-        the generated prefix folded into the prompt (recompute on re-admit).
-        Returns the evicted slot id, or None if nothing is evictable."""
+        the generated prefix folded into the prompt (recompute on re-admit;
+        ``retire`` releases its prefix refs). Returns the evicted slot id,
+        or None if nothing is evictable."""
         if len(self.admission_order) <= 1:
             return None     # never preempt the last running request
         slot = self.admission_order[-1]
@@ -176,3 +272,18 @@ class Scheduler:
 
     def has_work(self) -> bool:
         return bool(self.queue) or any(s is not None for s in self.slots)
+
+    def mapped_page_stats(self) -> tuple[int, int]:
+        """(logical, physical) mapped-page counts over live slots: a page
+        shared by k readers counts k times in the first, once in the
+        second. The difference is the pages prefix sharing saves right now
+        (times ``kv_cache.page_nbytes``: the bytes)."""
+        logical = 0
+        phys: set[int] = set()
+        for slot, st in enumerate(self.slots):
+            if st is None:
+                continue
+            row = self.slot_shared[slot] + self.slot_pages[slot]
+            logical += len(row)
+            phys.update(row)
+        return logical, len(phys)

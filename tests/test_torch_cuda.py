@@ -25,8 +25,16 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
     kernels at the FMNIST cores' sizes, per-row steps and odd trailing
     dims;
 (h) one full-wire step (int8 moments and the gradient wire) on the card
-    matches the CPU step and launches the counted codec kernels.
+    matches the CPU step and launches the counted codec kernels;
+(i) the scalar-scale encode/decode kernels are BIT-identical to their
+    plain versions on the vector path, the scalar tail and unaligned
+    views, and a one-element scale dispatches to them; the row-scale
+    fake-quant kernel is BIT-identical in values and STE gradient;
+(j) chunked prefill with the prefix cache on the card: prefix on == off
+    in fp32 and 48 scalar encode + decode launches per chunk step.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -199,10 +207,17 @@ def test_fake_quant_kernel_bit_identical(cuda, dtype, bits, n):
 
 
 def test_fake_quant_row_scale_refused(cuda):
+    """A scale that is not one per leading index is refused (the Pallas
+    backend falls back to the reference there, the port does not); one per
+    leading index launches the row fake-quant kernel."""
     x = torch.zeros((4, 8), device=cuda)
     with pytest.raises(NotImplementedError):
-        TN.fake_quant(x, TN.QuantSpec("pow2", 8), torch.zeros(4, device=cuda),
+        TN.fake_quant(x, TN.QuantSpec("pow2", 8), torch.zeros(2, device=cuda),
                       backend="cuda")
+    B.reset_launches()
+    TN.fake_quant(x, TN.QuantSpec("pow2", 8), torch.zeros(4, device=cuda),
+                  backend="cuda")
+    assert dict(B.LAUNCHES) == {"p2_fq_rows": 1}
 
 
 def _step_pe_calls():
@@ -367,3 +382,99 @@ def test_wire_step_on_card_matches_cpu_and_counts_launches(cuda):
         else:
             assert torch.equal(a.cpu(), b)
     assert sum(r is not None for r in r_gpu) == 21
+
+
+# ---------------------------------------------------------------------------
+# (i)-(j) the chunked-prefill slice
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n,off", [(131072, 0), (1001, 0), (4096, 1), (3, 0)])
+def test_scalar_codec_kernels_bit_identical(cuda, dtype, n, off):
+    g = torch.Generator(device=cuda).manual_seed(n + off)
+    base = (torch.randn(n + off, generator=g, device=cuda) * 50).to(dtype)
+    x = base[off:]                          # off = 1: an unaligned view
+    codes = torch.randint(-128, 128, (n + off,), generator=g, device=cuda
+                          ).to(torch.int8)[off:]
+    for s_val in range(-8, 3):
+        s = torch.tensor(float(s_val), device=cuda)
+        q = CB.encode_scalar(x, s, 8)
+        assert torch.equal(q, CB.encode_scalar_plain(x, s, 8))
+        y, ref = CB.decode_scalar(codes, s, dtype), \
+            CB.decode_scalar_plain(codes, s, dtype)
+        iv = torch.int16 if dtype != torch.float32 else torch.int32
+        assert torch.equal(y.view(iv), ref.view(iv))
+
+
+def test_one_element_scale_dispatches_to_the_scalar_kernels(cuda):
+    spec = TN.QuantSpec("pow2", 8, 0, "int8", "per_tensor_max")
+    x = torch.randn((1, 9, 2, 8), device=cuda) * 4
+    for s in (torch.tensor(-3.0, device=cuda),
+              torch.full((1,), -3.0, device=cuda),
+              torch.full((1, 1), -3.0, device=cuda)):
+        B.reset_launches()
+        qt = TN.encode(x, spec, s, backend="cuda")
+        y = TN.decode(qt, torch.bfloat16, backend="cuda")
+        assert dict(B.LAUNCHES) == {"p2_enc": 1, "p2_dec": 1}
+        ref = TN.encode(x.cpu(), spec, s.cpu())
+        assert torch.equal(qt.codes.cpu(), ref.codes)
+        assert torch.equal(y.cpu(), TN.decode(ref, torch.bfloat16))
+    B.reset_launches()
+    TN.encode(x.reshape(3, 3, 2, 8), spec, torch.zeros((3, 1), device=cuda),
+              backend="cuda")
+    assert dict(B.LAUNCHES) == {"p2_enc_rows": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [4, 8, 16])
+@pytest.mark.parametrize("shape,sshape", [((4, 6, 8), (4, 1)),
+                                          ((5, 7, 3), (5,)),
+                                          ((24, 8, 128), (24,))])
+def test_row_fake_quant_kernel_bit_identical(cuda, dtype, bits, shape,
+                                             sshape):
+    g = torch.Generator(device=cuda).manual_seed(bits + len(shape))
+    s = torch.randint(-6, 2, sshape, generator=g, device=cuda).float()
+    sb = s.reshape(sshape + (1,) * (len(shape) - len(sshape)))
+    x = (_fq_data(math.prod(shape), bits, torch.float32, g, cuda)
+         .reshape(shape) * torch.exp2(sb) * 8).to(dtype)
+    spec = TN.QuantSpec("pow2", bits)
+    xk = x.clone().requires_grad_()
+    yk = TN.fake_quant(xk, spec, s, backend="cuda")
+    yk.float().sum().backward()
+    xr = x.cpu().clone().requires_grad_()
+    yr = TN.fake_quant(xr, spec, s.cpu())
+    yr.float().sum().backward()
+    iv = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(yk.detach().cpu().view(iv), yr.detach().view(iv))
+    assert torch.equal(xk.grad.cpu().view(iv), xr.grad.view(iv))
+    assert 0 < int((xr.grad == 0).sum()) < x.numel()
+
+
+def test_engine_chunked_prefix_on_card(cuda):
+    cfg = C.get_reduced("internlm2-1.8b").replace(dtype="float32")
+    lm = build_lm(cfg)
+    params = init_lm(torch.Generator(device=cuda).manual_seed(0), lm,
+                     device=cuda)
+    rng = np.random.RandomState(7)
+    v = cfg.vocab_size
+    base = rng.randint(0, v, 20).tolist()
+    sfx = [rng.randint(0, v, 6).tolist() for _ in range(3)]
+    prompts = [base + sfx[0], base + sfx[1], base[:18] + sfx[2],
+               base + sfx[0][:3] + sfx[1][:3]]
+    outs = []
+    for prefix in (False, True):
+        B.reset_launches()
+        eng = Engine(lm, params, EngineConfig(
+            pool=PoolConfig(num_slots=2, page_size=8, pages_per_slot=4,
+                            quantized=True), prefill_chunk=8,
+            prefix_cache=prefix, fused_attention=True), device=cuda)
+        rids = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        res = eng.run()
+        outs.append([res[r].tokens for r in rids])
+        steps = sum(-(-(n - h) // 8) if h else -(-n // 8) - 1
+                    for n, h in eng.metrics.prefills)
+        per = 2 * cfg.num_layers
+        assert B.LAUNCHES["p2_enc"] == B.LAUNCHES["p2_dec"] == per * steps
+    assert outs[0] == outs[1]
+    assert eng.summary()["cow_forks"] > 0

@@ -140,9 +140,11 @@ def test_rowwise_view_and_rejections():
     x2d, srow = CB._rowwise(x, torch.ones(1, 4))    # broadcast leading dim
     assert tuple(x2d.shape) == (12, 5) and tuple(srow.shape) == (12,)
     assert CB._rowwise(x, torch.ones(3, 2)) is None
-    # a one-element scale (scalar, one layer, one slot) is one row
-    x2d, srow = CB._rowwise(x, torch.ones(1, 1))
-    assert tuple(x2d.shape) == (1, 60) and tuple(srow.shape) == (1,)
+    # a one-element scale (scalar, one layer, one slot) is no row layout,
+    # as in the reference: the scalar-scale kernels take it
+    assert CB._rowwise(x, torch.ones(1, 1)) is None
+    assert CB.Pow2Cuda._scalar(torch.ones(1, 1)) and \
+        not CB.Pow2Cuda._scalar(torch.ones(3, 1))
     # the cuda codec takes leading-index scales only — no silent fallback
     with pytest.raises(NotImplementedError):
         TN.encode(x, SPEC_T, torch.ones(2, 4), backend="cuda")
@@ -229,13 +231,20 @@ def test_bf16_16bit_grid_clips_where_jax_clips():
 
 
 def test_cuda_fake_quant_refuses_a_scale_per_leading_index():
-    x = torch.zeros(3, 4)
-    with pytest.raises(NotImplementedError, match="queue 2 item 2"):
-        TN.fake_quant(x, TN.QuantSpec("pow2", 8), torch.zeros(3),
+    """A scale per leading index is the row fake-quant's (``p2_fq_rows``,
+    its plain twin here): the same values as the reference codec. A scale
+    outside the leading-dim convention is still refused — the Pallas
+    backend falls back to the reference there, the port does not."""
+    x = torch.arange(12.0).reshape(3, 4) - 5.5
+    got = TN.fake_quant(x, TN.QuantSpec("pow2", 8), torch.tensor([-1.0, 0.0,
+                                                                  1.0]),
+                        backend="cuda")
+    want = TN.fake_quant(x, TN.QuantSpec("pow2", 8), torch.tensor([-1.0, 0.0,
+                                                                   1.0]))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    with pytest.raises(NotImplementedError, match="not one scale per leading"):
+        TN.fake_quant(x, TN.QuantSpec("pow2", 8), torch.zeros(2),
                       backend="cuda")
-    # the reference codec takes it (its leading-dim convention)
-    assert TN.fake_quant(x, TN.QuantSpec("pow2", 8), torch.zeros(3)
-                         ).shape == (3, 4)
 
 
 def test_quantize_fused_and_roundtrip_match_reference():

@@ -173,8 +173,12 @@ def test_entry_points_raise_without_a_card(models, monkeypatch):
     Engine(tlm, tp, EngineConfig(pool=pool), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(prefix_cache=True), dict(spec_k=2),
-                                dict(prefill_chunk=8), dict(policy=object())])
+# chunked prefill and the prefix cache are ported: with them on, what is
+# still to port raises all the same
+@pytest.mark.parametrize("kw", [dict(prefix_cache=True, spec_k=2),
+                                dict(spec_k=2),
+                                dict(prefill_chunk=8, policy=object()),
+                                dict(policy=object())])
 def test_out_of_slice_engine_configs_raise(models, kw):
     _, _, tlm, tp = models
     pool = PoolConfig(num_slots=2, page_size=4, pages_per_slot=8)
