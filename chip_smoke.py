@@ -22,9 +22,12 @@ Phases (any failure raises and the script exits non-zero):
    train kernels — the training kernels at the step's shapes: the scalar
              fake-quant bit-exact at 4/8/16 bits in f32 and bf16, every
              PE1/PE2/PE3 call of a step within 1e-4 (f32) / 2e-2 (bf16),
-             PE1's requant epilogue bit-identical to its own output through
-             encode -> decode; timed beside the plain version and a library
-             yardstick (fake_quantize_per_tensor_affine, torch.matmul).
+             PE2 and PE3 bit-identical over two launches, PE1's requant
+             epilogue bit-identical to its own output through encode ->
+             decode; timed beside the plain version and a library
+             yardstick (fake_quantize_per_tensor_affine, torch.matmul), and
+             PE2/PE3 beside the strided pe_gemm they replaced
+             (``previous_ms``, launched for timing only).
 3. engine  — the main path: internlm2-1.8b at full width and depth, bf16,
              random weights from a seeded generator on the card, an int8
              paged pool (8 slots x 64 pages of 16) and fused paged
@@ -62,7 +65,8 @@ Phases (any failure raises and the script exits non-zero):
              chance; the BinaryConnect export (one p2_enc and one p2_dec
              per core and bias) bit for bit with the CPU. Then a profiled
              window of steps: step time, device time per kernel, busy
-             share.
+             share, and the PE kernels by name (pe_gemm_kernel for PE1's
+             6 launches a step, pe2_kernel 12, pe3_kernel 2; asserted).
 6. train identity — one step from the same initial params on the card and
              on the CPU (plain versions): loss, gradients and the stepped
              params within the CPU parity tests' tolerances.
@@ -106,6 +110,12 @@ then the card's name and power limit (nvidia-smi), then the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without printing a
 result when no CUDA device is available or when the repository's
 ``src/repro_torch`` is not beside this script.
+
+``python3 chip_smoke.py --pe-anatomy [--out report.json]`` runs only the
+build and a diagnostic of the PE2/PE3 kernels: each rebuilt with its FMA
+loop, its copies or its stores cut out and timed at the step's shapes, so
+the time of each phase reads as a difference (no profiler of kernel
+internals works on the card's machine). It prints no result line.
 """
 from __future__ import annotations
 
@@ -123,8 +133,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_OPS_PER_S = 989e12            # dense bf16 tensor-core peak
 FP32_OPS_PER_S = 67e12             # fp32 peak outside the tensor cores
 ARCH = "internlm2-1.8b"
-SOURCES = ["pow2_rows", "paged_attention", "pow2_fq", "ttm_pe",
-           "blockwise", "pow2_packed", "pow2_scalar"]
+SOURCES = ["pow2_rows", "paged_attention", "pow2_fq", "ttm_pe", "ttm_pe2",
+           "ttm_pe3", "blockwise", "pow2_packed", "pow2_scalar"]
 TRAIN_STEPS = 300
 
 
@@ -200,6 +210,7 @@ def phase_build() -> dict:
         spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores",
                                               logs[name]))
         check(bool(regs), f"no ptxas report for {name}")
+        check(spill == 0, f"ptxas spilled {spill} bytes in {name}")
         ptxas[name] = {"max_registers": max(regs), "spill_bytes": spill,
                        "instances": len(regs)}
         log(f"  ptxas {name}: {len(regs)} kernel instances, at most "
@@ -626,6 +637,106 @@ def _pe_library(torch, kind, z, g):
     return torch.matmul(z.t(), g)         # PE3: Ybar^T X
 
 
+def _pe_previous(kind, z, g):
+    """Yardstick only: PE2 or PE3 on the design they replaced, the
+    strided ``pe_gemm`` that now serves PE1 alone, launched with the strides its
+    wrappers gave it then (PE2 batched over a with G shared, PE3 as one
+    product). Never on a path."""
+    from repro_torch.kernels import pe_gemm
+    if kind == "pe2":
+        a, b, c = z.shape
+        d = g.shape[1]
+        out = z.new_empty((a, d, c))
+        pe_gemm.launch("pe_gemm_previous", g, z, out, dict(
+            batch=a, M=d, N=c, K1=b, K2=1, a_z=0, a_m=1, a_k1=d, a_k2=0,
+            b_z=b * c, b_n=1, b_k1=c, b_k2=0, c_z=d * c, c_m=c, c_n=1))
+        return out
+    b, j = z.shape
+    i = g.shape[1]
+    out = z.new_empty((j, i))
+    pe_gemm.launch("pe_gemm_previous", z, g, out, dict(
+        batch=1, M=j, N=i, K1=b, K2=1, a_z=0, a_m=1, a_k1=j, a_k2=0,
+        b_z=0, b_n=1, b_k1=i, b_k2=0, c_z=0, c_m=i, c_n=1))
+    return out
+
+
+# --pe-anatomy: csrc/tt_contract.cuh with one phase cut out at a time, text
+# replacements of the lines that run it (a store is kept behind a test that
+# never holds, so the sums are still computed)
+PE_PHASES = {
+    "fma": [("fma_row<T, RD>(zr + r * p.zp, gr + r * p.gp, acc);", ";")],
+    "copy": [("++i) issue(i, i);", "++i) {}"),
+             ("if (ch + p.stages < nch) issue(ch + p.stages, st);", "")],
+    "store": [("if (dgi * RD + i < nrows_d) store4(",
+               "if (acc[i][0] == 1.5e38f) store4(")],
+}
+
+
+def phase_pe_anatomy(torch, timer: Timer) -> dict:
+    """Where a PE2/PE3 launch spends its time, without a profiler: the
+    kernels rebuilt with their FMA loop, their copies into shared memory,
+    their stores, or all three cut out (``PE_PHASES``), each timed at the
+    step's f32 shapes beside the full kernel and ``torch.matmul``. A
+    phase's cost is the full time less the time without it. Builds under
+    ``kernels/_build/anatomy``."""
+    import ctypes
+    import shutil
+    from repro_torch.kernels import build as B, tt_contract as TC
+    header = (B.CSRC / "tt_contract.cuh").read_text()
+    cuts = {"full": [], **{f"no {k}": [k] for k in PE_PHASES},
+            "none": list(PE_PHASES)}
+    procs, libs = [], {}
+    for cut, phases in cuts.items():
+        text = header
+        for ph in phases:
+            for old, new in PE_PHASES[ph]:
+                check(old in text, f"anatomy: '{old}' not in tt_contract.cuh")
+                text = text.replace(old, new)
+        out = B.BUILD_DIR / "anatomy" / cut.replace(" ", "_")
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "tt_contract.cuh").write_text(text)
+        for src in ("ttm_pe2", "ttm_pe3"):
+            shutil.copy(B.CSRC / f"{src}.cu", out / f"{src}.cu")
+            so = out / f"lib{src}.so"
+            cmd = [B.nvcc(), *B.NVCC_FLAGS, "-o", str(so),
+                   str(out / f"{src}.cu")]
+            procs.append(((cut, src), so, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    entry = {"ttm_pe2": "pe2", "ttm_pe3": "pe3"}
+    for (cut, src), so, proc in procs:
+        msg = proc.communicate()[0]
+        check(proc.returncode == 0, f"anatomy build {cut} {src}:\n{msg}")
+        libs[(cut, src)] = TC.typed(ctypes.CDLL(str(so)), entry[src])
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for kind, zs, gs in _step_pe_calls():
+        if kind == "pe1":
+            continue
+        z = torch.randn(zs, generator=gen, device="cuda")
+        g = torch.randn(gs, generator=gen, device="cuda") * 0.2
+        if kind == "pe2":
+            args, src = (z, g, z.new_empty((zs[0], gs[1], zs[2]))), "ttm_pe2"
+        else:   # PE3 is PE2 at a = 1 with Z = X, G = Ybar
+            args = (g.view(1, *gs), z, z.new_empty((1, zs[1], gs[1])))
+            src = "ttm_pe3"
+        row = {"kind": kind, "z": list(zs), "g": list(gs),
+               "library_ms": timer(lambda: _pe_library(torch, kind, z, g))}
+        for cut in cuts:
+            lib = libs[(cut, src)]
+            row[cut] = timer(lambda: TC.launch(kind, src, *args, lib=lib))
+        for ph in PE_PHASES:
+            row[f"{ph}_ms"] = row["full"] - row[f"no {ph}"]
+        rows.append(row)
+        log(f"anatomy {kind} {zs} x {gs}: full {row['full']*1e3:.1f} us, "
+            f"matmul {row['library_ms']*1e3:.1f}; FMA loop "
+            f"{row['fma_ms']*1e3:.1f}, copies {row['copy_ms']*1e3:.1f}, "
+            f"stores {row['store_ms']*1e3:.1f}; with all three cut out "
+            f"{row['none']*1e3:.1f} us (the timer's floor, the launch, the "
+            f"prologue, syncs and any b-split reduction)")
+    return {"rows": rows}
+
+
 def _pe_work(kind, zs, gs, elsize) -> tuple[int, int]:
     """(bytes each input read once and the output written once, flops)."""
     import math
@@ -648,7 +759,9 @@ def phase_train_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
     step's shapes: fake-quant bit-exact at bits 4/8/16 in f32 and bf16
     (the steps the step uses: cores ~2^-4, activations 2^-7, gradients
     2^-15), every PE call of the step within 1e-4 (f32) / 2e-2 (bf16)
-    relative and absolute, and PE1's fused epilogue bit-identical to its
+    relative and absolute, PE2 and PE3 bit-identical over two launches
+    (no atomics) and timed beside the strided design they replaced
+    (``previous_ms``), and PE1's fused epilogue bit-identical to its
     unfused output through the codec's encode -> decode."""
     from repro_torch import numerics as TN
     from repro_torch.kernels import build as B
@@ -711,6 +824,9 @@ def phase_train_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
             check(bool((err <= tol + tol * r.float().abs()).all()),
                   f"{kind} {zs}x{gs} {name}: max err {err.max().item()}")
             row[f"max_abs_err_{name}"] = err.max().item()
+            if kind != "pe1":
+                check(_bits_equal(torch, kern(z, g), o),
+                      f"{kind} {zs}x{gs} {name}: two launches differ")
             if dt == torch.float32:
                 lib = _pe_library(torch, kind, z, g)
                 check((lib - r).abs().max().item() <= 1e-4 * (
@@ -719,13 +835,21 @@ def phase_train_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
                 row["plain_ms"] = timer(lambda: plain(z, g), iters=10)
                 row["library_ms"] = timer(
                     lambda: _pe_library(torch, kind, z, g))
+                if kind != "pe1":
+                    prev = _pe_previous(kind, z, g)
+                    check((prev - r).abs().max().item() <= 1e-4 * (
+                        1 + r.abs().max().item()), f"{kind} previous differs")
+                    row["previous_ms"] = timer(
+                        lambda: _pe_previous(kind, z, g))
                 nbytes, flops = _pe_work(kind, zs, gs, 4)
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     nbytes, flops, FP32_OPS_PER_S)
         row["max_abs_err"] = row["max_abs_err_float32"]
         rows[kind].append(row)
+        was = (f", previous {row['previous_ms']*1e3:.1f} us"
+               if "previous_ms" in row else "")
         log(f"{kind} {zs} x {gs}: {row['ms']*1e3:.1f} us (plain "
-            f"{row['plain_ms']*1e3:.1f} us, library "
+            f"{row['plain_ms']*1e3:.1f} us{was}, library "
             f"{row['library_ms']*1e3:.1f} us, bound "
             f"{row['bound_ms']*1e3:.3f} us {row['bound_by']}); err f32 "
             f"{row['max_abs_err_float32']:.1e}, bf16 "
@@ -914,8 +1038,34 @@ def _profile_train(torch, one, steps: int = 20):
     for r in rows:
         log(f"  {r['ms_per_step']*1e3:8.1f} us  {r['calls_per_step']:6.1f}x  "
             f"{r['name']}")
+    pe = _pe_profile(torch, prof, steps)
+    for name, r in pe.items():
+        log(f"  PE {name}: {r['calls_per_step']:.1f} launches, "
+            f"{r['ms_per_step']*1e3:.1f} us a step")
+    want = {"pe_gemm_kernel": 6.0, "pe2_kernel": 12.0, "pe3_kernel": 2.0}
+    check({k: r["calls_per_step"] for k, r in pe.items()} == want,
+          f"train profile PE kernels {pe}, want launches {want} a step")
     return {"step_ms": wall * 1e3, "device_ms": total,
-            "busy_share": total / (wall * 1e3), "top": rows}
+            "busy_share": total / (wall * 1e3), "top": rows, "pe": pe}
+
+
+def _pe_profile(torch, prof, steps: int) -> dict:
+    """Launches and device ms per step of the PE kernels, by kernel name:
+    ``pe_gemm_kernel`` (PE1), ``pe2_kernel``, ``pe3_kernel``."""
+    cuda = torch.autograd.DeviceType.CUDA
+    calls, us = {}, {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != cuda:
+            continue
+        for name in ("pe_gemm_kernel", "pe2_kernel", "pe3_kernel"):
+            if f"{name}<" in e.key:
+                calls[name] = calls.get(name, 0) + e.count
+                us[name] = us.get(name, 0.0) + getattr(
+                    e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+    return {name: {"calls_per_step": n / steps,
+                   "ms_per_step": us[name] / steps / 1e3}
+            for name, n in calls.items()}
 
 
 def phase_train_identity(torch) -> dict:
@@ -1727,21 +1877,24 @@ TRAIN_KERNELS = {
                       "src/repro/numerics/pallas_backend.py:112"),
     "pe1": ("src/repro_torch/kernels/csrc/ttm_pe.cu",
             "src/repro/kernels/ttm_pe1.py:34"),
-    "pe2": ("src/repro_torch/kernels/csrc/ttm_pe.cu",
+    "pe2": ("src/repro_torch/kernels/csrc/ttm_pe2.cu",
             "src/repro/kernels/ttm_pe2.py:25"),
-    "pe3": ("src/repro_torch/kernels/csrc/ttm_pe.cu",
+    "pe3": ("src/repro_torch/kernels/csrc/ttm_pe3.cu",
             "src/repro/kernels/ttm_pe3.py:23"),
 }
 
 
 def _kernel_row(name, src, replaces, shapes, launches, path) -> dict:
     head = shapes[0]            # the main path's first (largest) shape
-    return {"name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches, "path": path,
-            "max_abs_err": max(s["max_abs_err"] for s in shapes),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
-            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head.get("library_ms"), "shapes": shapes}
+    row = {"name": name, "route": "cuda", "source": src,
+           "replaces": replaces, "launches": launches, "path": path,
+           "max_abs_err": max(s["max_abs_err"] for s in shapes),
+           "ms": head["ms"], "plain_ms": head["plain_ms"],
+           "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+           "library_ms": head.get("library_ms"), "shapes": shapes}
+    if "previous_ms" in head:
+        row["previous_ms"] = head["previous_ms"]
+    return row
 
 
 def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
@@ -1780,6 +1933,9 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON here")
+    ap.add_argument("--pe-anatomy", action="store_true",
+                    help="only build and time the PE2/PE3 kernels with one "
+                    "phase cut out at a time (no result line)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1802,6 +1958,12 @@ def main(argv=None) -> int:
     report = {"device": smi}
     report["build"] = phase_build()
     timer = Timer(torch)
+    if args.pe_anatomy:
+        report["pe_anatomy"] = phase_pe_anatomy(torch, timer)
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(report, indent=1))
+        return 0
     report["kernels"] = phase_kernels(torch, timer)
     report["train_kernels"] = phase_train_kernels(torch, timer)
     report["wire_kernels"] = phase_wire_kernels(torch, timer)

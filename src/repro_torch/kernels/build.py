@@ -9,8 +9,9 @@ by ``nvcc`` into its own shared library, loaded with ``ctypes``:
 No PyTorch headers are included (a build takes seconds, not minutes) and
 ``--use_fast_math`` is deliberately absent: the codec's codes must match
 the reference bit for bit, and the attention softmax uses IEEE ``expf``.
-Libraries are keyed by a hash of their source, so an edited kernel is
-rebuilt and a stale one is never loaded. The build directory
+Libraries are keyed by a hash of their source and the shared headers
+(``csrc/*.cuh``), so an edited kernel is rebuilt and a stale one is never
+loaded. The build directory
 (``kernels/_build``) is listed in ``.gitignore``.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -61,9 +62,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library of ``csrc/<name>.cu``, keyed by its source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

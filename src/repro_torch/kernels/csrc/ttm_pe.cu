@@ -1,42 +1,39 @@
-// The paper's three PE contractions as one tiled fp32 FMA kernel:
+// PE1 (paper Eq. 5) as a tiled fp32 FMA kernel, with the FPGA PE's
+// optional requantize-on-writeback epilogue:
 //
-//   PE1 (Eq. 5)  Z'(a,d)   = sum_{b,c} Z(a,b,c) G(b,d,c)   [+ pow-2 requant]
-//   PE2 (Eq. 6)  Z'(a,d,c) = sum_b     Z(a,b,c) G(b,d)
-//   PE3 (A.2)    W^(j,i)   = sum_b     Y(b,j)   X(b,i)
+//   Z'(a, d) = sum_{b,c} Z(a, b, c) G(b, d, c)   [+ pow-2 requant]
 //
-// Replaces: repro/kernels/ttm_pe1.py `_pe1_kernel` / `pe1_matmul`,
-// ttm_pe2.py `_pe2_kernel` / `pe2_batched`, ttm_pe3.py `_pe3_kernel` /
-// `pe3_outer`. On the training path PE1 and PE2 run every TT matvec chain
-// (forward and the transposed dx chain) and PE3 the full-weight gradient
-// that the core gradients are contracted from.
+// Replaces: repro/kernels/ttm_pe1.py:34 `_pe1_kernel` / `pe1_matmul`. On the
+// training path it runs every TT matvec chain's first contraction (6
+// launches a step). PE2 and PE3 have kernels of their own (ttm_pe2.cu,
+// ttm_pe3.cu); this one served all three until then and is still generic:
 //
-// All three are one batched product C[z][m][n] = sum_k A[z][m][k] B[z][k][n]
-// over arbitrary element strides, with the contraction index split in two
-// (k = k1 * K2 + k2) so that PE1's (b, c) pair needs no re-layout of G:
+// a batched product C[z][m][n] = sum_k A[z][m][k] B[z][k][n] over arbitrary
+// element strides, with the contraction index split in two (k = k1 * K2 +
+// k2) so that PE1's (b, c) pair needs no re-layout of G:
 //   PE1: z = -, m = a, n = d, (k1, k2) = (b, c)
-//   PE2: z = a, m = d, n = c, k = b        (A = G shared: batch stride 0)
-//   PE3: z = -, m = j, n = i, k = b
-// The Python wrappers (kernels/ttm_pe{1,2,3}.py) fill the strides.
+// The Python wrapper (kernels/ttm_pe1.py) fills the strides; chip_smoke.py
+// also launches it with PE2's and PE3's strides of that design, to time the
+// kernels that replaced it there.
 //
 // Numerics: inputs f32 or bf16, products accumulated in f32 with FMA on the
 // CUDA cores (no tensor cores, so no TF32), k in increasing order, one
 // thread per output element in its tile. Out-of-range rows, columns and k
 // are masked with bounds checks (zeros in shared memory), never padded in
-// device memory. PE1's optional epilogue requantizes the f32 sum before the
+// device memory. The optional epilogue requantizes the f32 sum before the
 // store exactly as Pow2Reference.epilogue / encode -> decode do:
 //   clip(rintf(acc / 2^s), lo, hi) * 2^s, then cast to the output dtype,
 // so the fused output is bit-identical to the unfused one passed through
 // the codec.
 //
-// Bound on the H100: launch latency at the training step's shapes (each
-// call moves at most a few MB and does at most ~60 MFLOP, i.e. ~1 us at
-// 3.35 TB/s or at the 67 TFLOP/s FP32 peak). Design: 64 x 64 output tiles,
-// 256 threads each computing a 4 x 4 strided sub-tile, K staged through
-// shared memory 16 at a time; loads walk whichever of (row, k) is unit
-// stride so a warp touches contiguous addresses where the layout allows.
-// Grid-stride loops over row tiles and batch cover any shape. A simple,
-// correct kernel: tiles narrower than the output (PE2's c = 16) waste
-// lanes, and nothing is pipelined; speed is a later PR's work.
+// Bound on the H100: launch latency at the training step's PE1 shapes (each
+// call moves at most ~4 MB and does ~30 MFLOP, about 1 us at 3.35 TB/s).
+// Design: 64 x 64 output tiles, 256 threads each computing a 4 x 4 strided
+// sub-tile, K staged through shared memory 16 at a time; loads walk
+// whichever of (row, k) is unit stride. Grid-stride loops over row tiles
+// and batch cover any shape. A simple, correct kernel: the split index is
+// divided in 64 bits per staged element and nothing is pipelined; making
+// it fast is the next item of the port's kernel queue.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -1,8 +1,9 @@
-"""ctypes binding of ``csrc/ttm_pe.cu``: the one strided, batched fp32-FMA
-product ``C[z][m][n] = sum_k A[z][m][k] B[z][k][n]`` that the PE1, PE2 and
-PE3 wrappers (``ttm_pe1.py``, ``ttm_pe2.py``, ``ttm_pe3.py``) launch with
-their own strides. The library is built at the first launch, never at
-import."""
+"""ctypes binding of ``csrc/ttm_pe.cu``: the strided, batched fp32-FMA
+product ``C[z][m][n] = sum_k A[z][m][k] B[z][k][n]`` that the PE1 wrapper
+(``ttm_pe1.py``) launches with its strides and optional requant epilogue.
+PE2 and PE3 have kernels of their own (``ttm_pe2.py``, ``ttm_pe3.py``);
+``launch`` stays generic so a caller can time this design at their shapes.
+The library is built at the first launch, never at import."""
 from __future__ import annotations
 
 import ctypes

@@ -3,7 +3,8 @@
     Z'(a, d, c) = sum_b  Z(a, b, c) * G(b, d)
 
 The port of ``repro/kernels/ttm_pe2.py``. ``pe2_cuda`` launches the
-hand-written kernel (``csrc/ttm_pe.cu``, batched over a with G shared);
+hand-written kernel (``csrc/ttm_pe2.cu``: slabs Z[a] streamed through
+shared memory with G, launch plan from ``tt_contract.plan``);
 ``pe2_torch`` is its plain version. Both accumulate in f32 and return
 Z's dtype.
 """
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from . import pe_gemm
+from . import pe_gemm, tt_contract
 
 NAME = "pe2"
 
@@ -35,9 +36,6 @@ def pe2_cuda(z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     pe_gemm.check_operands(NAME, z, g)
     z, g = z.contiguous(), g.contiguous()
     out = torch.empty((a, d, c), dtype=z.dtype, device=z.device)
-    pe_gemm.launch(NAME, g, z, out, dict(
-        batch=a, M=d, N=c, K1=b, K2=1,
-        a_z=0, a_m=1, a_k1=d, a_k2=0,              # G(b, d), shared
-        b_z=b * c, b_n=1, b_k1=c, b_k2=0,          # Z(a, b, c)
-        c_z=d * c, c_m=c, c_n=1))
+    tt_contract.check_sizes(NAME, z, g, out)
+    tt_contract.launch(NAME, "ttm_pe2", z, g, out)
     return out

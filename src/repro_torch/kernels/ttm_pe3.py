@@ -4,7 +4,8 @@ gradient (paper Appendix A.2):
     What(j, i) = sum_b  Ybar(b, j) * X(b, i)
 
 The port of ``repro/kernels/ttm_pe3.py``. ``pe3_cuda`` launches the
-hand-written kernel (``csrc/ttm_pe.cu``, contracting the batch dim);
+hand-written kernel (``csrc/ttm_pe3.cu``: PE2's streamed contraction at
+a = 1, Z = X and G = Ybar, launch plan from ``tt_contract.plan``);
 ``pe3_torch`` is its plain version. Both accumulate in f32 and return
 Ybar's dtype.
 """
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from . import pe_gemm
+from . import pe_gemm, tt_contract
 
 NAME = "pe3"
 
@@ -36,9 +37,7 @@ def pe3_cuda(ybar: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     pe_gemm.check_operands(NAME, ybar, x)
     ybar, x = ybar.contiguous(), x.contiguous()
     out = torch.empty((j, i), dtype=ybar.dtype, device=ybar.device)
-    pe_gemm.launch(NAME, ybar, x, out, dict(
-        batch=1, M=j, N=i, K1=b, K2=1,
-        a_z=0, a_m=1, a_k1=j, a_k2=0,              # Ybar(b, j)
-        b_z=0, b_n=1, b_k1=i, b_k2=0,              # X(b, i)
-        c_z=0, c_m=i, c_n=1))
+    tt_contract.check_sizes(NAME, ybar, x, out)
+    tt_contract.launch(NAME, "ttm_pe3", x.view(1, b, i), ybar,
+                       out.view(1, j, i))
     return out

@@ -15,8 +15,10 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
     version at bits 4/8/16, f32 and bf16, on the vector and scalar paths;
 (e) the PE1/PE2/PE3 kernels match their plain versions (f32 1e-4, bf16
     2e-2, the JAX kernel tests' tolerances) at odd shapes and at every
-    shape of the FMNIST training step, and PE1's fused epilogue is
-    bit-identical to its own unfused output through encode -> decode;
+    shape of the FMNIST training step; PE2 and PE3 also on unaligned and
+    sliced operands, over the b-split and two-stage paths, and repeat bit
+    for bit; PE1's fused epilogue is bit-identical to its own unfused
+    output through encode -> decode;
 (f) one training step of the FMNIST TT MLP on the card matches the same
     step on the CPU and launches each kernel the counted number of times;
 (g) the blockwise encode/decode kernels are BIT-identical to their plain
@@ -236,6 +238,21 @@ def _close(a, b, dtype):
                                b.float().cpu().numpy(), **PE_TOL[dtype])
 
 
+# PE2 edge cases of the streamed kernel (csrc/ttm_pe2.cu): c not a multiple
+# of 4 (4-byte / plain copies), d = 1 with b split across threads (b = 512,
+# 2048), d = 2, a = 1, and G larger than one stage (b-chunks through the
+# ring).
+PE2_ODD = [((19, 7, 33), (7, 21)), ((1, 4, 16), (4, 130)),
+           ((5, 9, 13), (9, 6)), ((64, 2048, 16), (2048, 1)),
+           ((3, 2048, 5), (2048, 1)), ((1, 300, 96), (300, 64)),
+           ((4, 2048, 40), (2048, 48)), ((3, 4096, 33), (4096, 5)),
+           ((6, 33, 20), (33, 2))]
+# PE3 (b, j, i): the step's, odd widths, and b = 2100 over two stages of
+# 336 (f32) / 672 (bf16) rows, no multiple of either
+PE3_ODD = [(64, 512, 896), (64, 16, 512), (130, 47, 65), (8, 1, 300),
+           (2100, 96, 200)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pe_kernels_match_plain_at_step_and_odd_shapes(cuda, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -243,9 +260,8 @@ def test_pe_kernels_match_plain_at_step_and_odd_shapes(cuda, dtype):
     def rnd(*s, scale=1.0):
         return (torch.randn(s, generator=g, device=cuda) * scale).to(dtype)
     calls = _step_pe_calls() + [("pe1", (37, 5, 48), (5, 18, 48)),
-                                ("pe1", (8, 7, 130), (7, 8, 130)),
-                                ("pe2", (19, 7, 33), (7, 21)),
-                                ("pe2", (1, 4, 16), (4, 130))]
+                                ("pe1", (8, 7, 130), (7, 8, 130))] + [
+        ("pe2", zs, gs) for zs, gs in PE2_ODD]
     for kind, zs, gs in calls:
         z, w = rnd(*zs), rnd(*gs, scale=0.2)
         mod = ttm_pe1 if kind == "pe1" else ttm_pe2
@@ -253,9 +269,45 @@ def test_pe_kernels_match_plain_at_step_and_odd_shapes(cuda, dtype):
         ref = getattr(mod, f"{kind}_torch")(z, w)
         assert out.dtype == dtype and out.shape == ref.shape
         _close(out, ref, dtype)
-    for b, j, i in [(64, 512, 896), (64, 16, 512), (130, 47, 65), (8, 1, 300)]:
+    for b, j, i in PE3_ODD:
         y, x = rnd(b, j, scale=0.1), rnd(b, i)
         _close(ttm_pe3.pe3_cuda(y, x), ttm_pe3.pe3_torch(y, x), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pe2_pe3_take_unaligned_and_sliced_operands(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    flat = torch.randn(1 + 64 * 112 * 128, generator=g, device=cuda).to(dtype)
+    z = flat[1:].view(64, 112, 128)       # contiguous, one element off 16 B
+    assert z.is_contiguous() and z.data_ptr() % 16 != 0
+    w = (torch.randn((112, 4), generator=g, device=cuda) * 0.2).to(dtype)
+    _close(ttm_pe2.pe2_cuda(z, w), ttm_pe2.pe2_torch(z, w), dtype)
+    zs = torch.randn((9, 40, 37), generator=g, device=cuda).to(dtype)[:, 3:,
+                                                                     1:34]
+    assert not zs.is_contiguous()         # the wrapper makes it contiguous
+    w = (torch.randn((37, 7), generator=g, device=cuda) * 0.2).to(dtype)
+    _close(ttm_pe2.pe2_cuda(zs, w), ttm_pe2.pe2_torch(zs, w), dtype)
+    y = flat[3:3 + 64 * 16].view(64, 16)
+    x = torch.randn((64, 520), generator=g, device=cuda).to(dtype)[:, 5:517]
+    _close(ttm_pe3.pe3_cuda(y, x), ttm_pe3.pe3_torch(y, x), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pe2_pe3_launches_repeat_bit_for_bit(cuda, dtype):
+    """No atomics: the b-split partials are added in a fixed order."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    iv = torch.int32 if dtype == torch.float32 else torch.int16
+    for zs, gs in [((64, 512, 16), (512, 1)), ((64, 112, 128), (112, 4)),
+                   ((64, 2048, 16), (2048, 1)), ((1792, 32, 16), (32, 32))]:
+        z = torch.randn(zs, generator=g, device=cuda).to(dtype)
+        w = torch.randn(gs, generator=g, device=cuda).to(dtype)
+        assert torch.equal(ttm_pe2.pe2_cuda(z, w).view(iv),
+                           ttm_pe2.pe2_cuda(z, w).view(iv))
+    for b, j, i in [(64, 16, 512), (64, 512, 896), (2100, 96, 200)]:
+        y = torch.randn((b, j), generator=g, device=cuda).to(dtype)
+        x = torch.randn((b, i), generator=g, device=cuda).to(dtype)
+        assert torch.equal(ttm_pe3.pe3_cuda(y, x).view(iv),
+                           ttm_pe3.pe3_cuda(y, x).view(iv))
 
 
 @pytest.mark.parametrize("bits", [4, 8])
