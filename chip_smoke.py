@@ -14,20 +14,22 @@ Phases (any failure raises and the script exits non-zero):
              S*1024, decode rows 8 x 1024) and decode (gather rows 8 x
              1024*1024) bit-exact; paged attention over an int8 pool
              (513, 16, 8, 128) with B=8, S in {1, 4}, ragged contexts up to
-             1024, within 1e-5 in fp32 and 2 bf16 ulp (+1e-5) with bf16 q. Times
-             each kernel (CUDA events, L2 flushed between launches), its
-             plain version and a library yardstick (per-channel
-             quantize / dequantize for the codec where its codes match;
-             gather + dequant + scaled_dot_product_attention).
+             1024, within 1e-5 in fp32 and 2 bf16 ulp (+1e-5) with bf16 q,
+             bit-identical over two launches, and each of its two kernels
+             (the split pass, the combine pass) against its plain mirror on
+             the same inputs. Times each kernel (CUDA events, L2 flushed
+             between launches), its plain version and a library yardstick
+             (per-channel quantize / dequantize for the codec where its
+             codes match; gather + dequant + scaled_dot_product_attention).
    train kernels — the training kernels at the step's shapes: the scalar
              fake-quant bit-exact at 4/8/16 bits in f32 and bf16, every
              PE1/PE2/PE3 call of a step within 1e-4 (f32) / 2e-2 (bf16),
-             PE2 and PE3 bit-identical over two launches, PE1's requant
+             PE1, PE2 and PE3 bit-identical over two launches, PE1's requant
              epilogue bit-identical to its own output through encode ->
              decode; timed beside the plain version and a library
              yardstick (fake_quantize_per_tensor_affine, torch.matmul), and
-             PE2/PE3 beside the strided pe_gemm they replaced
-             (``previous_ms``, launched for timing only).
+             beside the strided pe_gemm they replaced (``previous_ms``,
+             launched for timing only).
 3. engine  — the main path: internlm2-1.8b at full width and depth, bf16,
              random weights from a seeded generator on the card, an int8
              paged pool (8 slots x 64 pages of 16) and fused paged
@@ -65,8 +67,8 @@ Phases (any failure raises and the script exits non-zero):
              chance; the BinaryConnect export (one p2_enc and one p2_dec
              per core and bias) bit for bit with the CPU. Then a profiled
              window of steps: step time, device time per kernel, busy
-             share, and the PE kernels by name (pe_gemm_kernel for PE1's
-             6 launches a step, pe2_kernel 12, pe3_kernel 2; asserted).
+             share, and the PE kernels by name (pe1_kernel 6 launches a
+             step, pe2_kernel 12, pe3_kernel 2; asserted).
 6. train identity — one step from the same initial params on the card and
              on the CPU (plain versions): loss, gradients and the stepped
              params within the CPU parity tests' tolerances.
@@ -84,7 +86,9 @@ Phases (any failure raises and the script exits non-zero):
              against their plain versions at the chunk step's full-width
              shapes ((128, 8, 128) bf16/f32 -> int8, (1, 1024, 8, 128)
              int8 -> bf16/f32), an odd length and an unaligned view, scales
-             -8..2; the row-scale fake-quant kernel bit for bit in values
+             -8..2, and both scalar and row kernels with int16, int32 and
+             float32 codes; the row-scale fake-quant kernel bit for bit in
+             values
              and STE gradient at (4, 6, 8) and (24, 8, 16384), 4/8/16 bits;
              each timed beside its bound, its plain version and a library
              call (quantize_per_tensor, a per-tensor dequantize,
@@ -112,10 +116,12 @@ result when no CUDA device is available or when the repository's
 ``src/repro_torch`` is not beside this script.
 
 ``python3 chip_smoke.py --pe-anatomy [--out report.json]`` runs only the
-build and a diagnostic of the PE2/PE3 kernels: each rebuilt with its FMA
+build and a diagnostic of the PE1/PE2/PE3 kernels: each rebuilt with its FMA
 loop, its copies or its stores cut out and timed at the step's shapes, so
 the time of each phase reads as a difference (no profiler of kernel
-internals works on the card's machine). It prints no result line.
+internals works on the card's machine). ``--pa-anatomy`` does the same for
+the attention split pass (K/V staging, query load, scores, softmax, P @ V)
+beside its combine pass. Neither prints a result line.
 """
 from __future__ import annotations
 
@@ -133,8 +139,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_OPS_PER_S = 989e12            # dense bf16 tensor-core peak
 FP32_OPS_PER_S = 67e12             # fp32 peak outside the tensor cores
 ARCH = "internlm2-1.8b"
-SOURCES = ["pow2_rows", "paged_attention", "pow2_fq", "ttm_pe", "ttm_pe2",
-           "ttm_pe3", "blockwise", "pow2_packed", "pow2_scalar"]
+SOURCES = ["pow2_rows", "paged_attention", "pow2_fq", "ttm_pe", "ttm_pe1",
+           "ttm_pe2", "ttm_pe3", "blockwise", "pow2_packed", "pow2_scalar"]
 TRAIN_STEPS = 300
 
 
@@ -302,28 +308,21 @@ def phase_kernels(torch, timer: Timer) -> dict:
     out["p2_dec_rows"] = dec_shapes
 
     # --- paged attention: B=8, Hq=16, Hkv=8, Dh=128, page 16, 64 pages/slot
-    b, hq, hkv, dh, page, pps = 8, 16, 8, 128, 16, 64
-    total = b * pps
-    kd = torch.randint(-128, 128, (total + 1, page, hkv, dh), generator=gen,
-                       device="cuda").to(torch.int8)
-    vd = torch.randint(-128, 128, (total + 1, page, hkv, dh), generator=gen,
-                       device="cuda").to(torch.int8)
-    ks = torch.randint(-9, -4, (b,), generator=gen, device="cuda").float()
-    vs = torch.randint(-9, -4, (b,), generator=gen, device="cuda").float()
-    table = torch.randperm(total, generator=gen, device="cuda").reshape(
-        b, pps).to(torch.int32)
+    b, hq, hkv, dh, page, pps = PA_SHAPE
+    kd, vd, ks, vs, table = _pa_pool(torch, gen)
     kw = dict(page_size=page, quantized=True)
-    att_shapes = []
+    att_shapes, comb_shapes = [], []
     for s_rows in (1, 4):
-        hi = pps * page - s_rows
-        lens = torch.tensor([0, page - 1, page, 100, 333, 517, 800, hi],
-                            dtype=torch.int32, device="cuda")
+        lens = _pa_lens(torch, s_rows)
         q32 = torch.randn((b, s_rows, hq, dh), generator=gen, device="cuda")
         o32 = PA.paged_attention_cuda(q32, kd, vd, ks, vs, table, lens, **kw)
         r32 = PA.paged_attention_torch(q32, kd, vd, ks, vs, table, lens, **kw)
         err32 = (o32 - r32).abs().max().item()
         check(err32 <= 1e-5, f"paged_attention fp32 S={s_rows}: max abs "
               f"err {err32} > 1e-5")
+        check(_bits_equal(torch, o32, PA.paged_attention_cuda(
+            q32, kd, vd, ks, vs, table, lens, **kw)),
+            f"paged_attention S={s_rows}: two launches differ")
         qb = q32.to(torch.bfloat16)
         ob = PA.paged_attention_cuda(qb, kd, vd, ks, vs, table, lens, **kw)
         rb = PA.paged_attention_torch(qb, kd, vd, ks, vs, table, lens, **kw)
@@ -332,6 +331,9 @@ def phase_kernels(torch, timer: Timer) -> dict:
         check(over <= 0, f"paged_attention bf16 S={s_rows}: error exceeds "
               f"2 bf16 ulp + 1e-5 by {over}")
         errb = diff.max().item()
+        comb = _pa_kernels_vs_mirrors(torch, timer, qb, kd, vd, ks, vs,
+                                      table, lens, page, s_rows)
+        comb_shapes.append(comb)
         # pages this run's data needs: those holding a position <= lens+S-1
         npg = torch.clamp((lens + s_rows - 1) // page + 1, max=pps)
         # keys attended: row j of slot b sees lens[b] + j + 1 positions
@@ -351,10 +353,13 @@ def phase_kernels(torch, timer: Timer) -> dict:
         att_shapes.append(dict(S=s_rows, ms=ms, plain_ms=pms, library_ms=lms,
                                bound_ms=bms, bound_by=by, max_abs_err=errb,
                                max_abs_err_fp32=err32, max_ulp_bf16=ulps,
-                               library_max_abs_err=lerr))
-        log(f"paged_attention S={s_rows}: {ms*1e3:.1f} us (plain "
-            f"{pms*1e3:.1f} us, library {lms*1e3:.1f} us, bound "
-            f"{bms*1e3:.2f} us); fp32 err {err32:.2e}, bf16 {ulps:.2f} ulp")
+                               library_max_abs_err=lerr,
+                               split_ms=comb["split_ms"]))
+        log(f"paged_attention S={s_rows}: {ms*1e3:.1f} us (split "
+            f"{comb['split_ms']*1e3:.1f} + combine {comb['ms']*1e3:.1f}; "
+            f"plain {pms*1e3:.1f} us, library "
+            f"{lms*1e3:.1f} us, bound {bms*1e3:.2f} us); fp32 err "
+            f"{err32:.2e}, bf16 {ulps:.2f} ulp, two launches bit-identical")
     # the model-dtype page template (unquantized pool), S=1
     kb = (kd.float() * 2.0 ** -6).to(torch.bfloat16)
     vb = (vd.float() * 2.0 ** -6).to(torch.bfloat16)
@@ -369,6 +374,7 @@ def phase_kernels(torch, timer: Timer) -> dict:
           f"+ 1e-5 by {over}")
     log(f"paged_attention bf16 pages S=1: {ulps:.2f} ulp")
     out["paged_attention"] = att_shapes
+    out["paged_attention_combine"] = comb_shapes
     # what the timer reads with no work between its events: the floor
     # under every time above (event and launch latency on this card)
     out["timer_floor_ms"] = timer(lambda: None)
@@ -377,6 +383,99 @@ def phase_kernels(torch, timer: Timer) -> dict:
     torch.cuda.synchronize()
     B.reset_launches()
     return out
+
+
+PA_SHAPE = (8, 16, 8, 128, 16, 64)     # B, Hq, Hkv, Dh, page, pages/slot
+
+
+def _pa_pool(torch, gen):
+    """The attention timing case's int8 pool (B * pps pages and the trash
+    page), pow-2 scales and a shuffled page table."""
+    b, hq, hkv, dh, page, pps = PA_SHAPE
+    total = b * pps
+    kd = torch.randint(-128, 128, (total + 1, page, hkv, dh), generator=gen,
+                       device="cuda").to(torch.int8)
+    vd = torch.randint(-128, 128, (total + 1, page, hkv, dh), generator=gen,
+                       device="cuda").to(torch.int8)
+    ks = torch.randint(-9, -4, (b,), generator=gen, device="cuda").float()
+    vs = torch.randint(-9, -4, (b,), generator=gen, device="cuda").float()
+    table = torch.randperm(total, generator=gen, device="cuda").reshape(
+        b, pps).to(torch.int32)
+    return kd, vd, ks, vs, table
+
+
+def _pa_lens(torch, s_rows):
+    """Ragged contexts up to the last position: slot 1's row 0 sees to the
+    last key of the first span and its rows 1.. the next, a span where a
+    row has no unmasked key."""
+    from repro_torch.kernels import paged_attention as PA
+    b, hq, hkv, dh, page, pps = PA_SHAPE
+    edge = PA.PAGES_PER_SPLIT * page - 1
+    return torch.tensor([0, edge, page, 100, 333, 517, 800,
+                         pps * page - s_rows], dtype=torch.int32,
+                        device="cuda")
+
+
+def _pa_kernels_vs_mirrors(torch, timer, q, kd, vd, ks, vs, table, lens,
+                           page, s_rows) -> dict:
+    """Each attention kernel against its plain mirror on the same inputs:
+    the split pass's partials on the spans each slot needs — m and l
+    within 1e-5 relative, and the span's weighted mean of V, acc / l,
+    within 1e-5 absolute (the output's scale, as the fp32 end-to-end
+    check: acc itself is a sum of up to 128 terms of |e v| <= 4 whose
+    roundoff in two summation orders reaches 1e-5 of its terms, not of
+    its value) — and a span with an all-masked row holding m = -1e30; the
+    combine pass on those partials within 1e-6 relative (f32 out). Times
+    both kernels; returns the combine's row for the kernels line."""
+    from repro_torch.kernels import paged_attention as PA
+    kw = dict(page_size=page, quantized=True)
+    q4, kd4, vd4, ks4, vs4, t4, l4, _, p = PA._checked(
+        q, kd, vd, ks, vs, table, lens, page, True)
+    m, l, acc = PA.pa_split_cuda(q4, kd4, vd4, ks4, vs4, t4, l4, p, True)
+    mm, ml, macc = PA.pa_split_torch(q, kd, vd, ks, vs, table, lens,
+                                     pages_per_split=p.pps_split, **kw)
+    need = PA.spans_needed(lens, s_rows, page, p.pps, p.pps_split)
+    on = torch.arange(p.n_split, device=m.device)[None] < need[:, None]
+    sel = on[:, None, :, None].expand(m.shape)
+    err = 0.0
+    for what, d in (
+            ("m", (m - mm).abs() / (1 + mm.abs())),
+            ("l", (l - ml).abs() / (1 + ml.abs())),
+            ("acc / l", (acc / l[..., None] - macc / ml[..., None]).abs())):
+        d = d[sel].max().item()
+        check(d <= 1e-5, f"pa split S={s_rows}: partial {what} differs from "
+              f"the mirror by {d:.2e}")
+        err = max(err, d)
+    if s_rows > 1:
+        check(m[1, :, 1, 0].eq(PA.NEG_INF).all().item(),
+              "pa split: the all-masked span's row is not at -1e30")
+    c32 = PA.pa_combine_cuda(m, l, acc, l4, p, torch.float32)
+    want = PA.pa_combine_torch(m, l, acc, lens, s=s_rows, page_size=page,
+                               pps=p.pps, pages_per_split=p.pps_split,
+                               dtype=torch.float32)
+    cerr = ((c32 - want).abs() / (1 + want.abs())).max().item()
+    check(cerr <= 1e-6, f"pa combine S={s_rows}: differs from its mirror by "
+          f"{cerr:.2e}")
+    n_read = int(need.sum()) * p.Hkv * p.R * (p.Dh + 2) * 4
+    bms, by = bound_ms(n_read + q.numel() * q.element_size() + p.B * 4,
+                       3.0 * int(need.sum()) * p.Hkv * p.R * p.Dh,
+                       FP32_OPS_PER_S)
+    row = dict(S=s_rows, max_abs_err=cerr, split_max_rel_err=err,
+               spans=int(need.sum()), n_split=p.n_split,
+               ms=timer(lambda: PA.pa_combine_cuda(m, l, acc, l4, p, q.dtype)),
+               plain_ms=timer(lambda: PA.pa_combine_torch(
+                   m, l, acc, lens, s=s_rows, page_size=page, pps=p.pps,
+                   pages_per_split=p.pps_split, dtype=q.dtype), iters=10),
+               split_ms=timer(lambda: PA.pa_split_cuda(
+                   q4, kd4, vd4, ks4, vs4, t4, l4, p, True)),
+               bound_ms=bms, bound_by=by, library_ms=None,
+               library_note="none: no PyTorch call merges softmax partials")
+    log(f"pa split S={s_rows}: {row['split_ms']*1e3:.1f} us, {row['spans']} "
+        f"spans x {p.Hkv} heads of {p.B * p.n_split * p.Hkv} CTAs; partials "
+        f"within {err:.1e} of the mirror. combine: {row['ms']*1e3:.1f} us "
+        f"(plain {row['plain_ms']*1e3:.1f} us, bound {bms*1e3:.3f} us); "
+        f"within {cerr:.1e}")
+    return row
 
 
 def _library_yardstick(timer, fn, same) -> tuple[float | None, str]:
@@ -502,6 +601,8 @@ def phase_engine(torch, lm, params) -> dict:
           fs["decode_steps"] * cfg.num_layers,
           f"fused path: {main.get('paged_attention', 0)} attention launches "
           f"for {fs['decode_steps']} decode steps x {cfg.num_layers} layers")
+    check(main.get("paged_attention_combine", 0) == main["paged_attention"],
+          "fused path: combine launches differ from split launches")
     check(fs["requests_completed"] == len(prompts), "requests lost")
     peak = torch.cuda.max_memory_allocated()
 
@@ -509,7 +610,8 @@ def phase_engine(torch, lm, params) -> dict:
     gather_toks, gs = _serve(torch, lm, params, False, prompts, 64)
     gather = dict(B.LAUNCHES)
     check(gather.get("p2_dec_rows", 0) > 0, "gather path: no decode launch")
-    check(gather.get("paged_attention", 0) == 0,
+    check(gather.get("paged_attention", 0) == 0
+          and gather.get("paged_attention_combine", 0) == 0,
           "gather path launched paged attention")
     agree = sum(a == b for fa, ga in zip(fused_toks, gather_toks)
                 for a, b in zip(fa, ga)) / (len(prompts) * 64)
@@ -638,11 +740,19 @@ def _pe_library(torch, kind, z, g):
 
 
 def _pe_previous(kind, z, g):
-    """Yardstick only: PE2 or PE3 on the design they replaced, the
-    strided ``pe_gemm`` that now serves PE1 alone, launched with the strides its
-    wrappers gave it then (PE2 batched over a with G shared, PE3 as one
-    product). Never on a path."""
+    """Yardstick only: a PE call on the design it replaced, the strided
+    ``pe_gemm``, launched with the strides its wrappers gave it
+    then (PE1 with (b, c) as a split contraction index, PE2 batched over a
+    with G shared, PE3 as one product). Never on a path."""
     from repro_torch.kernels import pe_gemm
+    if kind == "pe1":
+        a, b, c = z.shape
+        d = g.shape[1]
+        out = z.new_empty((a, d))
+        pe_gemm.launch("pe_gemm_previous", z, g, out, dict(
+            batch=1, M=a, N=d, K1=b, K2=c, a_z=0, a_m=b * c, a_k1=c, a_k2=1,
+            b_z=0, b_n=c, b_k1=d * c, b_k2=1, c_z=0, c_m=d, c_n=1))
+        return out
     if kind == "pe2":
         a, b, c = z.shape
         d = g.shape[1]
@@ -660,71 +770,108 @@ def _pe_previous(kind, z, g):
     return out
 
 
-# --pe-anatomy: csrc/tt_contract.cuh with one phase cut out at a time, text
-# replacements of the lines that run it (a store is kept behind a test that
+# --pe-anatomy: the PE kernels' bodies with one phase cut out at a time, text
+# replacements of the lines that run it, by file (csrc/tt_contract.cuh for
+# PE2 and PE3, csrc/ttm_pe1.cu for PE1; a store is kept behind a test that
 # never holds, so the sums are still computed)
 PE_PHASES = {
-    "fma": [("fma_row<T, RD>(zr + r * p.zp, gr + r * p.gp, acc);", ";")],
-    "copy": [("++i) issue(i, i);", "++i) {}"),
-             ("if (ch + p.stages < nch) issue(ch + p.stages, st);", "")],
-    "store": [("if (dgi * RD + i < nrows_d) store4(",
-               "if (acc[i][0] == 1.5e38f) store4(")],
+    "fma": {"tt_contract.cuh": [
+        ("fma_row<T, RD>(zr + r * p.zp, gr + r * p.gp, acc);", ";")],
+        "ttm_pe1.cu": [("      if (active) {\n        const T* zr = Zs",
+                        "      if (false) {\n        const T* zr = Zs")]},
+    "copy": {"tt_contract.cuh": [
+        ("++i) issue(i, i);", "++i) {}"),
+        ("if (ch + p.stages < nch) issue(ch + p.stages, st);", "")],
+        "ttm_pe1.cu": [
+            ("      tt_contract::copy_any<T>(p.gz, Zs,",
+             "      if (false) tt_contract::copy_any<T>(p.gz, Zs,"),
+            ("      stage_g_any<T>(p.gg, Gs,",
+             "      if (false) stage_g_any<T>(p.gg, Gs,")]},
+    "store": {"tt_contract.cuh": [
+        ("if (dgi * RD + i < nrows_d) store4(",
+         "if (acc[i][0] == 1.5e38f) store4(")],
+        "ttm_pe1.cu": [
+            ("    tt_contract::store4(Y + (a0 + m) * p.d",
+             "    if (acc[i][0] == 1.5e38f) tt_contract::store4(Y + (a0 + m) "
+             "* p.d")]},
 }
+ANATOMY_SOURCES = {"pe1": "ttm_pe1", "pe2": "ttm_pe2", "pe3": "ttm_pe3"}
 
 
-def phase_pe_anatomy(torch, timer: Timer) -> dict:
-    """Where a PE2/PE3 launch spends its time, without a profiler: the
-    kernels rebuilt with their FMA loop, their copies into shared memory,
-    their stores, or all three cut out (``PE_PHASES``), each timed at the
-    step's f32 shapes beside the full kernel and ``torch.matmul``. A
-    phase's cost is the full time less the time without it. Builds under
-    ``kernels/_build/anatomy``."""
+def _anatomy_libs(table: dict, cuts: dict, files: tuple, sources: tuple,
+                  tag: str) -> dict:
+    """``sources`` built once per cut under ``kernels/_build/anatomy/
+    <tag>_<cut>``, from copies of ``files`` with the cut's phases' lines
+    replaced (``table``: phase -> file -> [(old, new)]); every nvcc at
+    once. Returns ``{(cut, source): CDLL}``."""
     import ctypes
     import shutil
-    from repro_torch.kernels import build as B, tt_contract as TC
-    header = (B.CSRC / "tt_contract.cuh").read_text()
-    cuts = {"full": [], **{f"no {k}": [k] for k in PE_PHASES},
-            "none": list(PE_PHASES)}
+    from repro_torch.kernels import build as B
     procs, libs = [], {}
     for cut, phases in cuts.items():
-        text = header
-        for ph in phases:
-            for old, new in PE_PHASES[ph]:
-                check(old in text, f"anatomy: '{old}' not in tt_contract.cuh")
-                text = text.replace(old, new)
-        out = B.BUILD_DIR / "anatomy" / cut.replace(" ", "_")
+        out = B.BUILD_DIR / "anatomy" / f"{tag}_{cut.replace(' ', '_')}"
         out.mkdir(parents=True, exist_ok=True)
-        (out / "tt_contract.cuh").write_text(text)
-        for src in ("ttm_pe2", "ttm_pe3"):
-            shutil.copy(B.CSRC / f"{src}.cu", out / f"{src}.cu")
+        for name in files:
+            text = (B.CSRC / name).read_text()
+            for ph in phases:
+                for old, new in table[ph].get(name, []):
+                    check(old in text, f"anatomy: '{old}' not in {name}")
+                    text = text.replace(old, new)
+            (out / name).write_text(text)
+        for src in sources:
+            if f"{src}.cu" not in files:
+                shutil.copy(B.CSRC / f"{src}.cu", out / f"{src}.cu")
             so = out / f"lib{src}.so"
             cmd = [B.nvcc(), *B.NVCC_FLAGS, "-o", str(so),
                    str(out / f"{src}.cu")]
             procs.append(((cut, src), so, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-    entry = {"ttm_pe2": "pe2", "ttm_pe3": "pe3"}
     for (cut, src), so, proc in procs:
         msg = proc.communicate()[0]
         check(proc.returncode == 0, f"anatomy build {cut} {src}:\n{msg}")
-        libs[(cut, src)] = TC.typed(ctypes.CDLL(str(so)), entry[src])
+        libs[(cut, src)] = ctypes.CDLL(str(so))
+    return libs
+
+
+def phase_pe_anatomy(torch, timer: Timer) -> dict:
+    """Where a PE launch spends its time, without a profiler: the kernels
+    rebuilt with their FMA loop, their copies into shared memory, their
+    stores, or all three cut out (``PE_PHASES``), each timed at the step's
+    f32 shapes beside the full kernel and ``torch.matmul``. A phase's cost
+    is the full time less the time without it. Builds under
+    ``kernels/_build/anatomy``."""
+    from repro_torch.kernels import tt_contract as TC, ttm_pe1
+    cuts = {"full": [], **{f"no {k}": [k] for k in PE_PHASES},
+            "none": list(PE_PHASES)}
+    libs = {key: (ttm_pe1.typed(lib) if key[1] == "ttm_pe1"
+                  else TC.typed(lib, key[1][4:]))
+            for key, lib in _anatomy_libs(
+                PE_PHASES, cuts, ("tt_contract.cuh", "ttm_pe1.cu"),
+                ("ttm_pe1", "ttm_pe2", "ttm_pe3"), "pe").items()}
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
     for kind, zs, gs in _step_pe_calls():
-        if kind == "pe1":
-            continue
         z = torch.randn(zs, generator=gen, device="cuda")
         g = torch.randn(gs, generator=gen, device="cuda") * 0.2
-        if kind == "pe2":
-            args, src = (z, g, z.new_empty((zs[0], gs[1], zs[2]))), "ttm_pe2"
-        else:   # PE3 is PE2 at a = 1 with Z = X, G = Ybar
-            args = (g.view(1, *gs), z, z.new_empty((1, zs[1], gs[1])))
-            src = "ttm_pe3"
+        src = ANATOMY_SOURCES[kind]
+        if kind == "pe1":
+            def run(lib):
+                return ttm_pe1.launch(z, g, z.new_empty((zs[0], gs[1])),
+                                      lib=lib)
+        else:
+            if kind == "pe2":
+                args = (z, g, z.new_empty((zs[0], gs[1], zs[2])))
+            else:   # PE3 is PE2 at a = 1 with Z = X, G = Ybar
+                args = (g.view(1, *gs), z, z.new_empty((1, zs[1], gs[1])))
+
+            def run(lib):
+                return TC.launch(kind, src, *args, lib=lib)
         row = {"kind": kind, "z": list(zs), "g": list(gs),
                "library_ms": timer(lambda: _pe_library(torch, kind, z, g))}
         for cut in cuts:
             lib = libs[(cut, src)]
-            row[cut] = timer(lambda: TC.launch(kind, src, *args, lib=lib))
+            row[cut] = timer(lambda: run(lib))
         for ph in PE_PHASES:
             row[f"{ph}_ms"] = row["full"] - row[f"no {ph}"]
         rows.append(row)
@@ -734,6 +881,78 @@ def phase_pe_anatomy(torch, timer: Timer) -> dict:
             f"stores {row['store_ms']*1e3:.1f}; with all three cut out "
             f"{row['none']*1e3:.1f} us (the timer's floor, the launch, the "
             f"prologue, syncs and any b-split reduction)")
+    return {"rows": rows}
+
+
+# --pa-anatomy: the attention split pass with one phase cut out at a time,
+# text replacements in csrc/paged_attention.cu (the stores of m, l and acc
+# stay, so the work before them is not dropped); "exit" returns at once
+PA_PHASES = {p: {"paged_attention.cu": r} for p, r in {
+    "stage": [("  stage<GB>(Ks,", "  if (false) stage<GB>(Ks,"),
+              ("  stage<GB>(Vs,", "  if (false) stage<GB>(Vs,")],
+    "query": [("for (int e = tid; e < R * Dh;",
+               "for (int e = tid; false && e < R * Dh;")],
+    "scores": [("for (int pr = tid; pr < R * nk;",
+                "for (int pr = tid; false && pr < R * nk;")],
+    "softmax": [("    for (int t = lane; t < nk; t += 32) mx = fmaxf(",
+                 "    for (int t = lane; false && t < nk; t += 32) mx = "
+                 "fmaxf("),
+                ("    for (int t = lane; t < nk; t += 32) {\n      const "
+                 "float e = expf(", "    for (int t = lane; false && t < nk;"
+                 " t += 32) {\n      const float e = expf(")],
+    "pv": [("    if (on) {\n      const float* pr = Ps + r * KS;",
+            "    if (false) {\n      const float* pr = Ps + r * KS;")],
+    "exit": [("  if (p0 >= n_pages) return;", "  return;")],
+}.items()}
+PA_CUT = ("stage", "query", "scores", "softmax", "pv")
+
+
+def phase_pa_anatomy(torch, timer: Timer) -> dict:
+    """Where the attention split pass spends its time, as the PE anatomy
+    does it: the kernel rebuilt with its K/V staging, its query load, its
+    scores, its softmax or its P @ V cut out (``PA_PHASES``), with all five
+    cut out, and returning at once, each timed on the timing case of phase
+    2 (bf16 q, int8 pool, S = 1 and 4) beside the full split pass, the
+    combine pass and the whole call. A phase's cost is the full time less
+    the time without it."""
+    from repro_torch.kernels import paged_attention as PA
+    cuts = {"full": [], **{f"no {k}": [k] for k in PA_CUT},
+            "none": list(PA_CUT), "exit": ["exit"]}
+    libs = {k[0]: PA.typed(lib) for k, lib in _anatomy_libs(
+        PA_PHASES, cuts, ("paged_attention.cu",), ("paged_attention",),
+        "pa").items()}
+    b, hq, hkv, dh, page, pps = PA_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    kd, vd, ks, vs, table = _pa_pool(torch, gen)
+    rows = []
+    for s_rows in (1, 4):
+        lens = _pa_lens(torch, s_rows)
+        q = torch.randn((b, s_rows, hq, dh), generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        ops = PA._checked(q, kd, vd, ks, vs, table, lens, page, True)
+        q4, kd4, vd4, ks4, vs4, t4, l4, _, p = ops
+        m, l, acc = PA.pa_split_cuda(*ops[:7], p, True)
+        row = {"S": s_rows, "call": timer(lambda: PA.paged_attention_cuda(
+                   q, kd, vd, ks, vs, table, lens, page_size=page,
+                   quantized=True)),
+               "combine": timer(lambda: PA.pa_combine_cuda(
+                   m, l, acc, l4, p, q.dtype)),
+               "timer_floor": timer(lambda: None)}
+        for cut in cuts:
+            row[cut] = timer(lambda: PA.pa_split_cuda(
+                *ops[:7], p, True, lib=libs[cut]))
+        for ph in PA_CUT:
+            row[f"{ph}_ms"] = row["full"] - row[f"no {ph}"]
+        rows.append(row)
+        log(f"anatomy paged_attention S={s_rows}: call {row['call']*1e3:.1f}"
+            f" us = split {row['full']*1e3:.1f} + combine "
+            f"{row['combine']*1e3:.1f}; split phases: staging "
+            f"{row['stage_ms']*1e3:.1f}, query {row['query_ms']*1e3:.1f}, "
+            f"scores {row['scores_ms']*1e3:.1f}, softmax "
+            f"{row['softmax_ms']*1e3:.1f}, P@V {row['pv_ms']*1e3:.1f}; all "
+            f"five cut out {row['none']*1e3:.1f}, immediate exit "
+            f"{row['exit']*1e3:.1f}, timer floor "
+            f"{row['timer_floor']*1e3:.1f} us")
     return {"rows": rows}
 
 
@@ -824,9 +1043,8 @@ def phase_train_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
             check(bool((err <= tol + tol * r.float().abs()).all()),
                   f"{kind} {zs}x{gs} {name}: max err {err.max().item()}")
             row[f"max_abs_err_{name}"] = err.max().item()
-            if kind != "pe1":
-                check(_bits_equal(torch, kern(z, g), o),
-                      f"{kind} {zs}x{gs} {name}: two launches differ")
+            check(_bits_equal(torch, kern(z, g), o),
+                  f"{kind} {zs}x{gs} {name}: two launches differ")
             if dt == torch.float32:
                 lib = _pe_library(torch, kind, z, g)
                 check((lib - r).abs().max().item() <= 1e-4 * (
@@ -835,19 +1053,16 @@ def phase_train_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
                 row["plain_ms"] = timer(lambda: plain(z, g), iters=10)
                 row["library_ms"] = timer(
                     lambda: _pe_library(torch, kind, z, g))
-                if kind != "pe1":
-                    prev = _pe_previous(kind, z, g)
-                    check((prev - r).abs().max().item() <= 1e-4 * (
-                        1 + r.abs().max().item()), f"{kind} previous differs")
-                    row["previous_ms"] = timer(
-                        lambda: _pe_previous(kind, z, g))
+                prev = _pe_previous(kind, z, g)
+                check((prev - r).abs().max().item() <= 1e-4 * (
+                    1 + r.abs().max().item()), f"{kind} previous differs")
+                row["previous_ms"] = timer(lambda: _pe_previous(kind, z, g))
                 nbytes, flops = _pe_work(kind, zs, gs, 4)
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     nbytes, flops, FP32_OPS_PER_S)
         row["max_abs_err"] = row["max_abs_err_float32"]
         rows[kind].append(row)
-        was = (f", previous {row['previous_ms']*1e3:.1f} us"
-               if "previous_ms" in row else "")
+        was = f", previous {row['previous_ms']*1e3:.1f} us"
         log(f"{kind} {zs} x {gs}: {row['ms']*1e3:.1f} us (plain "
             f"{row['plain_ms']*1e3:.1f} us{was}, library "
             f"{row['library_ms']*1e3:.1f} us, bound "
@@ -1042,7 +1257,7 @@ def _profile_train(torch, one, steps: int = 20):
     for name, r in pe.items():
         log(f"  PE {name}: {r['calls_per_step']:.1f} launches, "
             f"{r['ms_per_step']*1e3:.1f} us a step")
-    want = {"pe_gemm_kernel": 6.0, "pe2_kernel": 12.0, "pe3_kernel": 2.0}
+    want = {"pe1_kernel": 6.0, "pe2_kernel": 12.0, "pe3_kernel": 2.0}
     check({k: r["calls_per_step"] for k, r in pe.items()} == want,
           f"train profile PE kernels {pe}, want launches {want} a step")
     return {"step_ms": wall * 1e3, "device_ms": total,
@@ -1051,13 +1266,13 @@ def _profile_train(torch, one, steps: int = 20):
 
 def _pe_profile(torch, prof, steps: int) -> dict:
     """Launches and device ms per step of the PE kernels, by kernel name:
-    ``pe_gemm_kernel`` (PE1), ``pe2_kernel``, ``pe3_kernel``."""
+    ``pe1_kernel``, ``pe2_kernel``, ``pe3_kernel``."""
     cuda = torch.autograd.DeviceType.CUDA
     calls, us = {}, {}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != cuda:
             continue
-        for name in ("pe_gemm_kernel", "pe2_kernel", "pe3_kernel"):
+        for name in ("pe1_kernel", "pe2_kernel", "pe3_kernel"):
             if f"{name}<" in e.key:
                 calls[name] = calls.get(name, 0) + e.count
                 us[name] = us.get(name, 0.0) + getattr(
@@ -1595,6 +1810,59 @@ def phase_scalar_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
             f"bound {row['bound_ms']*1e3:.3f} us), values exact at scales "
             "-8..2")
 
+    # --- codes in every storage type the spec names: the scalar and row
+    # kernels (and the blockwise ones) at the chunk write's shape, bit for
+    # bit with their twins, both clip ends and the saturating 32-bit top
+    out["storage"] = []
+    big = base[:128 * 8 * 128].reshape(128, 8, 128) * 2.0 ** 14
+    big.view(-1)[:2] = torch.tensor([1e10, -1e10], device=device)
+    for storage, bits in ((torch.int16, 16), (torch.int32, 32),
+                          (torch.float32, 16)):
+        for dt in (torch.bfloat16, torch.float32):
+            x = big.to(dt)
+            s = torch.tensor(0.0, device=device)
+            q = CB.encode_scalar(x, s, bits, storage)
+            check(q.dtype == storage and _bits_equal(
+                torch, q, CB.encode_scalar_plain(x, s, bits, storage)),
+                f"p2_enc {storage} codes differ")
+            lo, hi = TN.qrange(bits)
+            check(q.min().item() <= lo and q.max().item() >= min(
+                hi, 2 ** 31 - 1), f"p2_enc {storage}: clip ends not reached")
+            check(_bits_equal(torch, CB.decode_scalar(q, s, dt),
+                              CB.decode_scalar_plain(q, s, dt)),
+                  f"p2_dec {storage} values differ")
+            x2d = x.reshape(128, -1)
+            srow = torch.randint(-2, 2, (128,), generator=gen,
+                                 device=device).float()
+            qr = CB.encode_rows(x2d, srow, bits, storage)
+            check(_bits_equal(torch, qr, CB.encode_rows_plain(
+                x2d, srow, bits, storage)), f"p2_enc_rows {storage} differ")
+            check(_bits_equal(torch, CB.decode_rows(qr, srow, dt),
+                              CB.decode_rows_plain(qr, srow, dt)),
+                  f"p2_dec_rows {storage} values differ")
+        x2d = big.float().reshape(-1)[:64 * 1000].reshape(64, 1000) * 2e-4
+        codes, sc = CB.bw_encode(x2d, 256, bits, storage)
+        rc, rs = CB.bw_encode_plain(x2d, 256, bits, storage)
+        check(_bits_equal(torch, codes, rc) and _bits_equal(torch, sc, rs)
+              and _bits_equal(torch, CB.bw_decode(codes, sc, 1000),
+                              CB.bw_decode_plain(codes, sc, 1000)),
+              f"bw {storage} differs from its twin")
+        x = big.to(torch.bfloat16)
+        s = torch.tensor(0.0, device=device)
+        row = dict(shape=[128, 8, 128], dtype="bfloat16",
+                   storage=str(storage)[6:], bits=bits, max_abs_err=0,
+                   ms=timer(lambda: CB.encode_scalar(x, s, bits, storage)),
+                   plain_ms=timer(lambda: CB.encode_scalar_plain(
+                       x, s, bits, storage), iters=10))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            x.numel() * (2 + q.element_size()) + 4)
+        out["storage"].append(row)
+        log(f"p2_enc / p2_dec / p2_enc_rows / p2_dec_rows / bw with "
+            f"{row['storage']} codes ({bits} bits): bit for bit with their "
+            f"twins; p2_enc (128, 8, 128) bf16 -> {row['storage']} "
+            f"{row['ms']*1e3:.1f} us (plain {row['plain_ms']*1e3:.1f} us, "
+            f"bound {row['bound_ms']*1e3:.3f} us)")
+
     # --- p2_fq_rows: values and the clipped STE gradient, bit for bit
     for shape, sshape, what in (((24, 8, 16384), (24,), "per-layer rows"),
                                 ((4, 6, 8), (4, 1), "small")):
@@ -1736,7 +2004,8 @@ def phase_serve_chunked(torch, lm, params) -> dict:
           f"chunk steps {steps}: launches {launches}, want {per} p2_enc and "
           f"p2_dec per step")
     check(launches.get("paged_attention", 0)
-          == s["decode_steps"] * cfg.num_layers,
+          == s["decode_steps"] * cfg.num_layers
+          == launches.get("paged_attention_combine", 0),
           f"{launches.get('paged_attention', 0)} attention launches for "
           f"{s['decode_steps']} decode steps")
     tree = eng.sched.prefix.bytes_stats(KC.page_nbytes(eng.pool, eng.pcfg))
@@ -1853,6 +2122,9 @@ KERNELS = {
                     "src/repro/numerics/pallas_backend.py:196"),
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:134"),
+    "paged_attention_combine": (
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:134"),
 }
 WIRE_KERNELS = {
     "bw_enc": ("src/repro_torch/kernels/csrc/blockwise.cu",
@@ -1875,7 +2147,7 @@ SCALAR_KERNELS = {
 TRAIN_KERNELS = {
     "p2_fake_quant": ("src/repro_torch/kernels/csrc/pow2_fq.cu",
                       "src/repro/numerics/pallas_backend.py:112"),
-    "pe1": ("src/repro_torch/kernels/csrc/ttm_pe.cu",
+    "pe1": ("src/repro_torch/kernels/csrc/ttm_pe1.cu",
             "src/repro/kernels/ttm_pe1.py:34"),
     "pe2": ("src/repro_torch/kernels/csrc/ttm_pe2.cu",
             "src/repro/kernels/ttm_pe2.py:25"),
@@ -1934,8 +2206,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON here")
     ap.add_argument("--pe-anatomy", action="store_true",
-                    help="only build and time the PE2/PE3 kernels with one "
-                    "phase cut out at a time (no result line)")
+                    help="only build and time the PE1/PE2/PE3 kernels with "
+                    "one phase cut out at a time (no result line)")
+    ap.add_argument("--pa-anatomy", action="store_true",
+                    help="only build and time the attention split pass with "
+                    "one phase cut out at a time (no result line)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1958,8 +2233,11 @@ def main(argv=None) -> int:
     report = {"device": smi}
     report["build"] = phase_build()
     timer = Timer(torch)
-    if args.pe_anatomy:
-        report["pe_anatomy"] = phase_pe_anatomy(torch, timer)
+    if args.pe_anatomy or args.pa_anatomy:
+        if args.pe_anatomy:
+            report["pe_anatomy"] = phase_pe_anatomy(torch, timer)
+        if args.pa_anatomy:
+            report["pa_anatomy"] = phase_pa_anatomy(torch, timer)
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(report, indent=1))

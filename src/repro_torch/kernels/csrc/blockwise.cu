@@ -1,5 +1,6 @@
-// Blockwise absmax int8 codec: per-block f32 scale along the last axis of a
-// contiguous (rows, last) f32 view, codes padded to nb * b per row.
+// Blockwise absmax codec: per-block f32 scale along the last axis of a
+// contiguous (rows, last) f32 view, codes padded to nb * b per row, in any
+// storage type of the spec (int8, int16, int32 or float32; pow2_codes.cuh).
 //
 // Replaces: repro/numerics/pallas_backend.py `_bw_enc_kernel` and
 // `_bw_dec_kernel` (launched by `BlockwisePallas.encode` / `.decode`). On the
@@ -15,14 +16,14 @@
 //
 // Numerics (bit-identical to BlockwiseReference on finite inputs):
 //   sc = max|x| / qmax                      IEEE f32 division
-//   q  = int8(clip(rint(x / max(sc, 1e-20)), -qmax, qmax))
+//   q  = Q(clip(rint(x / max(sc, 1e-20)), -qmax, qmax))   Q saturating
 //   y  = float(q) * sc                       decode
 // An all-zero block gives sc = 0 and codes 0. The build has no
 // --use_fast_math, so `/` is the correctly rounded division (not a reciprocal
 // multiply) and rintf rounds half to even, as jnp.round does. NaN is outside
 // the lock: fmaxf drops a NaN operand, jnp.max keeps it.
 //
-// Bound on the H100: bytes (4 in, 1 + 4/b out per element, a handful of
+// Bound on the H100: bytes (4 in, 1-4 + 4/b out per element, a handful of
 // operations each) — and at the step's sizes (a few thousand elements a
 // leaf) launch latency, far above either bound.
 // Design: the mapping follows b. For b <= 32 one thread owns a block (the
@@ -32,20 +33,23 @@
 // grid-stride loop. Decode is one thread per output element (pads are never
 // read back). No shared memory, no synchronisation beyond the warp shuffle.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "pow2_codes.cuh"
 
 namespace {
+
+using namespace pow2_codes;
 
 constexpr int kThreads = 256;
 constexpr float kScaleFloor = 1e-20f;
 
-__device__ __forceinline__ int8_t bw_code(float v, float d, float qmax) {
-  return (int8_t)(int)fminf(fmaxf(rintf(v / d), -qmax), qmax);
+template <typename Q>
+__device__ __forceinline__ Q bw_code(float v, float d, float qmax) {
+  return to_code<Q>(fminf(fmaxf(rintf(v / d), -qmax), qmax));
 }
 
 // one thread per (row, block)
-__global__ void bw_enc_thread_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
+template <typename Q>
+__global__ void bw_enc_thread_kernel(const float* __restrict__ x, Q* __restrict__ q,
                                      float* __restrict__ sc, long long rows, long long last,
                                      long long b, long long nb, float qmax) {
   const long long units = rows * nb;
@@ -59,15 +63,16 @@ __global__ void bw_enc_thread_kernel(const float* __restrict__ x, int8_t* __rest
     for (long long t = 0; t < n; ++t) amax = fmaxf(amax, fabsf(xr[c0 + t]));
     const float s = amax / qmax;
     const float d = fmaxf(s, kScaleFloor);
-    int8_t* qr = q + r * nb * b + c0;
-    for (long long t = 0; t < n; ++t) qr[t] = bw_code(xr[c0 + t], d, qmax);
-    for (long long t = n; t < b; ++t) qr[t] = 0;
+    Q* qr = q + r * nb * b + c0;
+    for (long long t = 0; t < n; ++t) qr[t] = bw_code<Q>(xr[c0 + t], d, qmax);
+    for (long long t = n; t < b; ++t) qr[t] = Q(0);
     sc[u] = s;
   }
 }
 
 // one warp per (row, block)
-__global__ void bw_enc_warp_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
+template <typename Q>
+__global__ void bw_enc_warp_kernel(const float* __restrict__ x, Q* __restrict__ q,
                                    float* __restrict__ sc, long long rows, long long last,
                                    long long b, long long nb, float qmax) {
   const long long units = rows * nb;
@@ -86,20 +91,21 @@ __global__ void bw_enc_warp_kernel(const float* __restrict__ x, int8_t* __restri
       amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
     const float s = amax / qmax;
     const float d = fmaxf(s, kScaleFloor);
-    int8_t* qr = q + r * nb * b + c0;
-    for (long long t = lane; t < b; t += 32) qr[t] = t < n ? bw_code(xr[c0 + t], d, qmax) : 0;
+    Q* qr = q + r * nb * b + c0;
+    for (long long t = lane; t < b; t += 32) qr[t] = t < n ? bw_code<Q>(xr[c0 + t], d, qmax) : Q(0);
     if (lane == 0) sc[u] = s;
   }
 }
 
-__global__ void bw_dec_kernel(const int8_t* __restrict__ q, const float* __restrict__ sc,
+template <typename Q>
+__global__ void bw_dec_kernel(const Q* __restrict__ q, const float* __restrict__ sc,
                               float* __restrict__ y, long long rows, long long last,
                               long long b, long long nb) {
   const long long n = rows * last;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const long long r = i / last, c = i % last;
-    y[i] = (float)q[r * nb * b + c] * __ldg(sc + r * nb + c / b);
+    y[i] = to_f32(q[r * nb * b + c]) * __ldg(sc + r * nb + c / b);
   }
 }
 
@@ -114,33 +120,41 @@ inline int grid_for(long long work) {
 
 extern "C" {
 
-// x: (rows, last) f32; q: (rows, nb * b) int8; sc: (rows, nb) f32.
-// qmax = 2^(bits-1) - 1 for bits in [2, 8]. Returns cudaGetLastError().
-int bw_enc(const void* x, void* q, void* sc, long long rows, long long last, long long b,
-           long long nb, int qmax, void* stream) {
-  if (qmax < 1 || qmax > 127 || b < 1 || nb < 1 || nb * b < last || (nb - 1) * b >= last)
+// x: (rows, last) f32; q: (rows, nb * b) codes of q_code (0 int8, 1 int16,
+// 2 int32, 3 f32); sc: (rows, nb) f32. qmax = 2^(bits-1) - 1 for bits in
+// [2, code_bits(q_code)]. Returns cudaGetLastError().
+int bw_enc(const void* x, void* q, int q_code, void* sc, long long rows, long long last,
+           long long b, long long nb, int bits, void* stream) {
+  if (bits < 2 || bits > code_bits(q_code) || b < 1 || nb < 1 || nb * b < last ||
+      (nb - 1) * b >= last)
     return (int)cudaErrorInvalidValue;
   if (rows * last == 0) return (int)cudaSuccess;
+  float lo, qmax;
+  qrange_f32(bits, &lo, &qmax);
   cudaStream_t st = (cudaStream_t)stream;
   const long long units = rows * nb;
-  if (b <= 32)
-    bw_enc_thread_kernel<<<grid_for(units), kThreads, 0, st>>>(
-        (const float*)x, (int8_t*)q, (float*)sc, rows, last, b, nb, (float)qmax);
-  else
-    bw_enc_warp_kernel<<<grid_for(units * 32), kThreads, 0, st>>>(
-        (const float*)x, (int8_t*)q, (float*)sc, rows, last, b, nb, (float)qmax);
-  return (int)cudaGetLastError();
+  return with_code(q_code, [&](auto qt) {
+    using Q = decltype(qt);
+    if (b <= 32)
+      bw_enc_thread_kernel<Q><<<grid_for(units), kThreads, 0, st>>>(
+          (const float*)x, (Q*)q, (float*)sc, rows, last, b, nb, qmax);
+    else
+      bw_enc_warp_kernel<Q><<<grid_for(units * 32), kThreads, 0, st>>>(
+          (const float*)x, (Q*)q, (float*)sc, rows, last, b, nb, qmax);
+  });
 }
 
-// q: (rows, nb * b) int8; sc: (rows, nb) f32; y: (rows, last) f32.
-int bw_dec(const void* q, const void* sc, void* y, long long rows, long long last, long long b,
-           long long nb, void* stream) {
-  if (b < 1 || nb < 1 || nb * b < last || (nb - 1) * b >= last)
+// q: (rows, nb * b) codes of q_code; sc: (rows, nb) f32; y: (rows, last) f32.
+int bw_dec(const void* q, int q_code, const void* sc, void* y, long long rows, long long last,
+           long long b, long long nb, void* stream) {
+  if (code_bits(q_code) == 0 || b < 1 || nb < 1 || nb * b < last || (nb - 1) * b >= last)
     return (int)cudaErrorInvalidValue;
   if (rows * last == 0) return (int)cudaSuccess;
-  bw_dec_kernel<<<grid_for(rows * last), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)q, (const float*)sc, (float*)y, rows, last, b, nb);
-  return (int)cudaGetLastError();
+  return with_code(q_code, [&](auto qt) {
+    using Q = decltype(qt);
+    bw_dec_kernel<Q><<<grid_for(rows * last), kThreads, 0, (cudaStream_t)stream>>>(
+        (const Q*)q, (const float*)sc, (float*)y, rows, last, b, nb);
+  });
 }
 
 const char* error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -1,5 +1,6 @@
-// Row-scale pow-2 codec: int8 encode and decode with one f32 scale_log2 per
-// row of a contiguous (rows, cols) view.
+// Row-scale pow-2 codec: encode and decode with one f32 scale_log2 per row of
+// a contiguous (rows, cols) view, codes in any storage type of the spec
+// (int8, int16, int32 or float32; pow2_codes.cuh).
 //
 // Replaces: repro/numerics/pallas_backend.py `_p2_enc_rows_kernel` and
 // `_p2_dec_rows_kernel` (launched through `_rowscale_call`). On the serving
@@ -8,7 +9,8 @@
 // path's dequantize (rows = slots, cols = T*Hkv*Dh).
 //
 // Numerics (bit-identical to Pow2Reference):
-//   encode  q = int8(clamp(rint(x / 2^s), lo, hi))   rint: half-to-even
+//   encode  q = Q(clamp(rint(x / 2^s), lo, hi))      rint: half-to-even,
+//                                                       Q saturating
 //   decode  y = T(float(q) * 2^s)                      round-to-nearest cast
 // 2^s is formed with ldexpf(1, s), exact for the integer-valued scales the
 // pool uses (codecs.per_tensor_max_scale_log2 takes a ceil); a fractional s
@@ -17,92 +19,62 @@
 // no --use_fast_math: division, rintf and exp2f keep their IEEE meaning.
 //
 // Bound on the H100: bytes. Each element is read once and written once
-// (encode: 4 or 2 bytes in, 1 out; decode: 1 in, 4 or 2 out) with one
+// (encode: 4 or 2 bytes in, 1-4 out; decode: 1-4 in, 4 or 2 out) with one
 // divide and one round, far under the card's ~295 operations per byte.
 // Design: a grid-stride loop over 4-element vectors (16/8-byte loads of the
-// float side, 4-byte int8 words) so each warp moves whole 128-byte lines;
+// float side, 4/8/16-byte words of codes) so each warp moves whole lines;
 // the row's scale is one cached load per vector (all 4 elements share a
 // row because the vector path needs cols % 4 == 0 and aligned pointers,
 // else the scalar path runs). No shared memory, no synchronisation.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <stdint.h>
+#include "pow2_codes.cuh"
 
 namespace {
 
-enum DType { F32 = 0, BF16 = 1, F16 = 2 };
+using namespace pow2_codes;
 
-__device__ __forceinline__ float pow2_step(float s) {
-  // exact 2^s for integer-valued s; the range guard keeps (int)s defined
-  if (s == truncf(s) && fabsf(s) <= 1024.f) return ldexpf(1.f, (int)s);
-  return exp2f(s);
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half_rn(v);
-}
-
-__device__ __forceinline__ int8_t encode_one(float x, float step, float lo, float hi) {
-  return (int8_t)(int)fminf(fmaxf(rintf(x / step), lo), hi);
-}
-
-// aligned bundle of 4 elements of T (16 bytes for f32, 8 for 16-bit types)
-template <typename T> struct alignas(4 * sizeof(T)) Vec4 { T v[4]; };
-
-template <typename T, bool VEC>
+template <typename T, typename Q, bool VEC>
 __global__ void p2_enc_rows_kernel(const T* __restrict__ x, const float* __restrict__ s,
-                                   int8_t* __restrict__ q, long long n, long long cols,
+                                   Q* __restrict__ q, long long n, long long cols,
                                    float lo, float hi) {
   const long long stride = (long long)gridDim.x * blockDim.x;
+  auto enc = [lo, hi](float v, float step) {
+    return to_code<Q>(fminf(fmaxf(rintf(v / step), lo), hi));
+  };
   if (VEC) {
     const long long nv = n / 4, cv = cols / 4;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < nv; i += stride) {
       const float step = pow2_step(__ldg(s + i / cv));
       const Vec4<T> in = reinterpret_cast<const Vec4<T>*>(x)[i];
-      char4 out;
-      out.x = encode_one(to_f32(in.v[0]), step, lo, hi);
-      out.y = encode_one(to_f32(in.v[1]), step, lo, hi);
-      out.z = encode_one(to_f32(in.v[2]), step, lo, hi);
-      out.w = encode_one(to_f32(in.v[3]), step, lo, hi);
-      reinterpret_cast<char4*>(q)[i] = out;
+      Vec4<Q> out;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) out.v[k] = enc(to_f32(in.v[k]), step);
+      reinterpret_cast<Vec4<Q>*>(q)[i] = out;
     }
   } else {
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-      q[i] = encode_one(to_f32(x[i]), pow2_step(__ldg(s + i / cols)), lo, hi);
+      q[i] = enc(to_f32(x[i]), pow2_step(__ldg(s + i / cols)));
     }
   }
 }
 
-template <typename T, bool VEC>
-__global__ void p2_dec_rows_kernel(const int8_t* __restrict__ q, const float* __restrict__ s,
+template <typename Q, typename T, bool VEC>
+__global__ void p2_dec_rows_kernel(const Q* __restrict__ q, const float* __restrict__ s,
                                    T* __restrict__ y, long long n, long long cols) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   if (VEC) {
     const long long nv = n / 4, cv = cols / 4;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < nv; i += stride) {
       const float step = pow2_step(__ldg(s + i / cv));
-      const char4 in = reinterpret_cast<const char4*>(q)[i];
+      const Vec4<Q> in = reinterpret_cast<const Vec4<Q>*>(q)[i];
       Vec4<T> out;
-      out.v[0] = from_f32<T>((float)in.x * step);
-      out.v[1] = from_f32<T>((float)in.y * step);
-      out.v[2] = from_f32<T>((float)in.z * step);
-      out.v[3] = from_f32<T>((float)in.w * step);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) out.v[k] = from_f32<T>(to_f32(in.v[k]) * step);
       reinterpret_cast<Vec4<T>*>(y)[i] = out;
     }
   } else {
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-      y[i] = from_f32<T>((float)q[i] * pow2_step(__ldg(s + i / cols)));
+      y[i] = from_f32<T>(to_f32(q[i]) * pow2_step(__ldg(s + i / cols)));
     }
   }
 }
@@ -116,69 +88,73 @@ inline int grid_for(long long work) {
   return blocks < 1 ? 1 : (int)blocks;
 }
 
-inline bool aligned(const void* p, size_t a) { return ((uintptr_t)p % a) == 0; }
-
-template <typename T>
+template <typename T, typename Q>
 void launch_enc(const void* x, const float* s, void* q, long long rows, long long cols,
                 float lo, float hi, cudaStream_t st) {
   const long long n = rows * cols;
-  const bool vec = cols % 4 == 0 && aligned(x, 4 * sizeof(T)) && aligned(q, 4);
+  const bool vec = cols % 4 == 0 && aligned(x, 4 * sizeof(T)) && aligned(q, 4 * sizeof(Q));
   if (vec)
-    p2_enc_rows_kernel<T, true><<<grid_for(n / 4), kThreads, 0, st>>>(
-        (const T*)x, s, (int8_t*)q, n, cols, lo, hi);
+    p2_enc_rows_kernel<T, Q, true><<<grid_for(n / 4), kThreads, 0, st>>>(
+        (const T*)x, s, (Q*)q, n, cols, lo, hi);
   else
-    p2_enc_rows_kernel<T, false><<<grid_for(n), kThreads, 0, st>>>(
-        (const T*)x, s, (int8_t*)q, n, cols, lo, hi);
+    p2_enc_rows_kernel<T, Q, false><<<grid_for(n), kThreads, 0, st>>>(
+        (const T*)x, s, (Q*)q, n, cols, lo, hi);
 }
 
-template <typename T>
+template <typename Q, typename T>
 void launch_dec(const void* q, const float* s, void* y, long long rows, long long cols,
                 cudaStream_t st) {
   const long long n = rows * cols;
-  const bool vec = cols % 4 == 0 && aligned(q, 4) && aligned(y, 4 * sizeof(T));
+  const bool vec = cols % 4 == 0 && aligned(q, 4 * sizeof(Q)) && aligned(y, 4 * sizeof(T));
   if (vec)
-    p2_dec_rows_kernel<T, true><<<grid_for(n / 4), kThreads, 0, st>>>(
-        (const int8_t*)q, s, (T*)y, n, cols);
+    p2_dec_rows_kernel<Q, T, true><<<grid_for(n / 4), kThreads, 0, st>>>(
+        (const Q*)q, s, (T*)y, n, cols);
   else
-    p2_dec_rows_kernel<T, false><<<grid_for(n), kThreads, 0, st>>>(
-        (const int8_t*)q, s, (T*)y, n, cols);
+    p2_dec_rows_kernel<Q, T, false><<<grid_for(n), kThreads, 0, st>>>(
+        (const Q*)q, s, (T*)y, n, cols);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x: (rows, cols) of x_dtype, s: (rows,) f32, q: (rows, cols) int8.
-// bits in [2, 8]. Returns cudaGetLastError() after the launch.
-int p2_enc_rows(const void* x, int x_dtype, const void* s, void* q, long long rows,
+// x: (rows, cols) of x_dtype (0 f32, 1 bf16, 2 f16), s: (rows,) f32, q:
+// (rows, cols) of q_code (0 int8, 1 int16, 2 int32, 3 f32). bits in
+// [2, code_bits(q_code)]. Returns cudaGetLastError() after the launch.
+int p2_enc_rows(const void* x, int x_dtype, const void* s, void* q, int q_code, long long rows,
                 long long cols, int bits, void* stream) {
-  if (bits < 2 || bits > 8) return (int)cudaErrorInvalidValue;
+  if (bits < 2 || bits > code_bits(q_code) || x_dtype < F32 || x_dtype > F16)
+    return (int)cudaErrorInvalidValue;
   if (rows * cols == 0) return (int)cudaSuccess;
-  const float lo = -(float)(1 << (bits - 1)), hi = (float)((1 << (bits - 1)) - 1);
+  float lo, hi;
+  qrange_f32(bits, &lo, &hi);
   cudaStream_t st = (cudaStream_t)stream;
   const float* sc = (const float*)s;
-  switch (x_dtype) {
-    case F32: launch_enc<float>(x, sc, q, rows, cols, lo, hi, st); break;
-    case BF16: launch_enc<__nv_bfloat16>(x, sc, q, rows, cols, lo, hi, st); break;
-    case F16: launch_enc<__half>(x, sc, q, rows, cols, lo, hi, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return with_code(q_code, [&](auto qt) {
+    using Q = decltype(qt);
+    switch (x_dtype) {
+      case F32: launch_enc<float, Q>(x, sc, q, rows, cols, lo, hi, st); break;
+      case BF16: launch_enc<__nv_bfloat16, Q>(x, sc, q, rows, cols, lo, hi, st); break;
+      case F16: launch_enc<__half, Q>(x, sc, q, rows, cols, lo, hi, st); break;
+    }
+  });
 }
 
-// q: (rows, cols) int8, s: (rows,) f32, y: (rows, cols) of y_dtype.
-int p2_dec_rows(const void* q, const void* s, void* y, int y_dtype, long long rows,
+// q: (rows, cols) of q_code, s: (rows,) f32, y: (rows, cols) of y_dtype.
+int p2_dec_rows(const void* q, int q_code, const void* s, void* y, int y_dtype, long long rows,
                 long long cols, void* stream) {
+  if (code_bits(q_code) == 0 || y_dtype < F32 || y_dtype > F16) return (int)cudaErrorInvalidValue;
   if (rows * cols == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   const float* sc = (const float*)s;
-  switch (y_dtype) {
-    case F32: launch_dec<float>(q, sc, y, rows, cols, st); break;
-    case BF16: launch_dec<__nv_bfloat16>(q, sc, y, rows, cols, st); break;
-    case F16: launch_dec<__half>(q, sc, y, rows, cols, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return with_code(q_code, [&](auto qt) {
+    using Q = decltype(qt);
+    switch (y_dtype) {
+      case F32: launch_dec<Q, float>(q, sc, y, rows, cols, st); break;
+      case BF16: launch_dec<Q, __nv_bfloat16>(q, sc, y, rows, cols, st); break;
+      case F16: launch_dec<Q, __half>(q, sc, y, rows, cols, st); break;
+    }
+  });
 }
 
 const char* error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -1,39 +1,29 @@
-// PE1 (paper Eq. 5) as a tiled fp32 FMA kernel, with the FPGA PE's
-// optional requantize-on-writeback epilogue:
+// The strided fp32 FMA product PE1-PE3 first used, kept as a yardstick only: it
+// is on no path. PE1, PE2 and PE3 each have a kernel of their own
+// (ttm_pe1.cu, ttm_pe2.cu, ttm_pe3.cu); chip_smoke.py launches this one
+// with the strides their wrappers once gave it and reports its time as
+// each PE row's `previous_ms`. It computes
 //
-//   Z'(a, d) = sum_{b,c} Z(a, b, c) G(b, d, c)   [+ pow-2 requant]
+//   a batched product C[z][m][n] = sum_k A[z][m][k] B[z][k][n] over arbitrary
+//   element strides, with the contraction index split in two (k = k1 * K2 +
+//   k2) so that PE1's (b, c) pair needs no re-layout of G:
+//     PE1: z = -, m = a, n = d, (k1, k2) = (b, c)
 //
-// Replaces: repro/kernels/ttm_pe1.py:34 `_pe1_kernel` / `pe1_matmul`. On the
-// training path it runs every TT matvec chain's first contraction (6
-// launches a step). PE2 and PE3 have kernels of their own (ttm_pe2.cu,
-// ttm_pe3.cu); this one served all three until then and is still generic:
-//
-// a batched product C[z][m][n] = sum_k A[z][m][k] B[z][k][n] over arbitrary
-// element strides, with the contraction index split in two (k = k1 * K2 +
-// k2) so that PE1's (b, c) pair needs no re-layout of G:
-//   PE1: z = -, m = a, n = d, (k1, k2) = (b, c)
-// The Python wrapper (kernels/ttm_pe1.py) fills the strides; chip_smoke.py
-// also launches it with PE2's and PE3's strides of that design, to time the
-// kernels that replaced it there.
+// with the FPGA PE's optional requantize-on-writeback epilogue
+// (clip(rintf(acc / 2^s), lo, hi) * 2^s, as Pow2Reference.epilogue).
 //
 // Numerics: inputs f32 or bf16, products accumulated in f32 with FMA on the
 // CUDA cores (no tensor cores, so no TF32), k in increasing order, one
 // thread per output element in its tile. Out-of-range rows, columns and k
 // are masked with bounds checks (zeros in shared memory), never padded in
-// device memory. The optional epilogue requantizes the f32 sum before the
-// store exactly as Pow2Reference.epilogue / encode -> decode do:
-//   clip(rintf(acc / 2^s), lo, hi) * 2^s, then cast to the output dtype,
-// so the fused output is bit-identical to the unfused one passed through
-// the codec.
+// device memory.
 //
-// Bound on the H100: launch latency at the training step's PE1 shapes (each
-// call moves at most ~4 MB and does ~30 MFLOP, about 1 us at 3.35 TB/s).
 // Design: 64 x 64 output tiles, 256 threads each computing a 4 x 4 strided
 // sub-tile, K staged through shared memory 16 at a time; loads walk
 // whichever of (row, k) is unit stride. Grid-stride loops over row tiles
-// and batch cover any shape. A simple, correct kernel: the split index is
-// divided in 64 bits per staged element and nothing is pipelined; making
-// it fast is the next item of the port's kernel queue.
+// and batch cover any shape. The split index is divided in 64 bits per
+// staged element and nothing is pipelined: what the kernels that replaced
+// it avoid.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -1,9 +1,10 @@
 """ctypes binding of ``csrc/ttm_pe.cu``: the strided, batched fp32-FMA
-product ``C[z][m][n] = sum_k A[z][m][k] B[z][k][n]`` that the PE1 wrapper
-(``ttm_pe1.py``) launches with its strides and optional requant epilogue.
-PE2 and PE3 have kernels of their own (``ttm_pe2.py``, ``ttm_pe3.py``);
-``launch`` stays generic so a caller can time this design at their shapes.
-The library is built at the first launch, never at import."""
+product ``C[z][m][n] = sum_k A[z][m][k] B[z][k][n]`` that served PE1, PE2
+and PE3 before. It is on no path now: each PE has a kernel of its
+own (``ttm_pe1.py``, ``ttm_pe2.py``, ``ttm_pe3.py``), and ``chip_smoke.py``
+launches this one only to time the design they replaced (``previous_ms``);
+no other module imports it. The library is built at the first launch, never
+at import."""
 from __future__ import annotations
 
 import ctypes
@@ -11,9 +12,9 @@ import ctypes
 import torch
 
 from . import build as B
+from .tt_contract import DTYPE_CODE
 
 SOURCE = "ttm_pe"
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 GEOM_FIELDS = ("batch", "M", "N", "K1", "K2", "a_z", "a_m", "a_k1", "a_k2",
                "b_z", "b_n", "b_k1", "b_k2", "c_z", "c_m", "c_n")
 
@@ -27,18 +28,6 @@ def _lib() -> ctypes.CDLL:
         lib.pe_gemm.restype = i
         lib._repro_typed = True
     return lib
-
-
-def check_operands(name: str, *ts: torch.Tensor) -> None:
-    """Raise on what the kernel does not take: operands off the card, on
-    two devices, of two dtypes, or of a dtype other than f32/bf16."""
-    dev, dt = ts[0].device, ts[0].dtype
-    if not all(t.is_cuda and t.device == dev for t in ts):
-        raise ValueError(f"{name}: all operands must be on one CUDA device")
-    if any(t.dtype != dt for t in ts) or dt not in DTYPE_CODE:
-        raise TypeError(f"{name}: operands must share one dtype of "
-                        f"{sorted(map(str, DTYPE_CODE))}, got "
-                        f"{[str(t.dtype) for t in ts]}")
 
 
 def launch(name: str, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,

@@ -8,7 +8,8 @@ operands' alignment, so the CPU tests can check it (every output covered
 once, shared memory within the card's limit, the grid filling the SMs)
 where no kernel can run. A CTA owns ``spc`` slabs and one tile of
 ``dg * rd`` rows of d by ``cg * 4`` columns of c; ``split`` threads share a
-tile over b. The libraries are built at the first launch, never at import.
+tile over b. ``check_operands`` and ``DTYPE_CODE`` serve PE1's wrapper
+too. The libraries are built at the first launch, never at import.
 """
 from __future__ import annotations
 
@@ -19,8 +20,8 @@ from dataclasses import astuple, dataclass
 import torch
 
 from . import build as B
-from .pe_gemm import DTYPE_CODE
 
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SMS = 132                   # H100 SXM streaming multiprocessors
 MAX_THREADS = 256           # tt_contract::kMaxThreads
 MIN_THREADS = 128           # split b until a CTA has this many threads ...
@@ -182,6 +183,18 @@ def _layout(a: int, b: int, c: int, d: int, elsize: int, rd: int, cg: int,
     return Plan(a, b, c, d, rd, cg, dg, spc, split, threads, bc, stages, gz,
                 gg, zp, gp, z_stage, stage, max(stages * stage, red), tiles_c,
                 tiles_d, _cdiv(a, spc) * tiles_c * tiles_d, int(c % 4 == 0))
+
+
+def check_operands(name: str, *ts: torch.Tensor) -> None:
+    """Raise on what the kernels do not take: operands off the card, on
+    two devices, of two dtypes, or of a dtype other than f32/bf16."""
+    dev, dt = ts[0].device, ts[0].dtype
+    if not all(t.is_cuda and t.device == dev for t in ts):
+        raise ValueError(f"{name}: all operands must be on one CUDA device")
+    if any(t.dtype != dt for t in ts) or dt not in DTYPE_CODE:
+        raise TypeError(f"{name}: operands must share one dtype of "
+                        f"{sorted(map(str, DTYPE_CODE))}, got "
+                        f"{[str(t.dtype) for t in ts]}")
 
 
 def check_sizes(name: str, *ts: torch.Tensor) -> None:

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from . import pe_gemm, tt_contract
+from . import tt_contract
 
 NAME = "pe2"
 
@@ -33,7 +33,7 @@ def pe2_torch(z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def pe2_cuda(z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     a, b, c, d = _shapes(z, g)
-    pe_gemm.check_operands(NAME, z, g)
+    tt_contract.check_operands(NAME, z, g)
     z, g = z.contiguous(), g.contiguous()
     out = torch.empty((a, d, c), dtype=z.dtype, device=z.device)
     tt_contract.check_sizes(NAME, z, g, out)

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from . import pe_gemm, tt_contract
+from . import tt_contract
 
 NAME = "pe3"
 
@@ -34,7 +34,7 @@ def pe3_torch(ybar: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def pe3_cuda(ybar: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     b, j, i = _shapes(ybar, x)
-    pe_gemm.check_operands(NAME, ybar, x)
+    tt_contract.check_operands(NAME, ybar, x)
     ybar, x = ybar.contiguous(), x.contiguous()
     out = torch.empty((j, i), dtype=ybar.dtype, device=ybar.device)
     tt_contract.check_sizes(NAME, ybar, x, out)

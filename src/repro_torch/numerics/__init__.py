@@ -7,7 +7,7 @@ kernels, bit-identical), the
 from .codecs import (BACKENDS, blockwise_geometry, decode,  # noqa: F401
                      encode, fake_quant, get_codec, pack_int4,
                      per_tensor_max_scale_log2, register_codec, roundtrip,
-                     unpack_int4)
+                     to_storage, unpack_int4)
 from .policy import (SITES, NumericsPolicy, ScaleState,  # noqa: F401
                      init_scale, policy_from_quant_config, step_log2,
                      update_scale)

@@ -14,7 +14,8 @@ Numerics contract (``repro``'s, unchanged): pow2 encode/decode compute in
 f32; pow2 fake_quant computes in ``x.dtype`` with ``scale = exp2(k)`` cast
 to ``x.dtype`` and the clip bounds in ``x.dtype`` too (as JAX's
 weak-typed ``jnp.clip`` does: a bf16 16-bit ``hi`` of 32767 is 32768);
-``round`` is half-to-even, codes clip to ``qrange(bits)``, and a
+``round`` is half-to-even, codes clip to ``qrange(bits)`` and saturate to
+their storage type (``to_storage``), and a
 non-scalar scale broadcasts against the LEADING dims of the data
 (``_bcast``: one scale per (layer, slot) of the KV pool). Packed int4x2
 codes pair nibbles along the trailing axis, the low nibble holding the
@@ -51,6 +52,22 @@ def unpack_int4(packed: torch.Tensor, last: int) -> torch.Tensor:
     q = torch.stack([lo, hi], dim=-1).reshape(
         tuple(packed.shape[:-1]) + (packed.shape[-1] * 2,))
     return q[..., :last]
+
+
+def to_storage(q: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Integer-valued codes ``q`` in the storage ``dtype``, saturated to an
+    integer type's range as JAX's float-to-int conversion saturates (a
+    32-bit grid's top, 2^31 - 1, is 2^31 in f32; a grid wider than its
+    storage keeps the type's ends)."""
+    if dtype.is_floating_point:
+        return q.to(dtype)
+    info = torch.iinfo(dtype)
+    if dtype == torch.int32 and q.dtype != torch.float64:
+        # INT32_MAX is no f32: clamp to the largest f32 below 2^31, then
+        # put the values at or past 2^31 at the top
+        low = torch.clamp(q, info.min, 2147483520.0).to(dtype)
+        return torch.where(q >= 2.0 ** 31, info.max, low)
+    return torch.clamp(q, info.min, info.max).to(dtype)
 
 
 def _bcast(scale, ndim: int, device=None) -> torch.Tensor:
@@ -132,7 +149,8 @@ class Pow2Reference:
             # `shape or (1,)` mirrors this
             return QTensor(pack_int4(q[None] if q.dim() == 0 else q), scale,
                            spec, tuple(x.shape))
-        return QTensor(q.to(spec.torch_storage), scale, spec, tuple(x.shape))
+        return QTensor(to_storage(q, spec.torch_storage), scale, spec,
+                       tuple(x.shape))
 
     def decode(self, qt: QTensor, dtype=torch.float32) -> torch.Tensor:
         codes = qt.codes
@@ -194,7 +212,7 @@ class BlockwiseReference:
         sc = torch.amax(torch.abs(blocks), dim=-1) / blocks.new_full((),
                                                                      qmax)
         q = torch.round(blocks / torch.clamp(sc, min=1e-20)[..., None])
-        codes = torch.clamp(q, -qmax, qmax).to(spec.torch_storage)
+        codes = to_storage(torch.clamp(q, -qmax, qmax), spec.torch_storage)
         return QTensor(codes.reshape(shape[:-1] + (nb * b,)), sc, spec, shape)
 
     def decode(self, qt: QTensor, dtype=torch.float32) -> torch.Tensor:

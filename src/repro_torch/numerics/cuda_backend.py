@@ -18,12 +18,17 @@ one f32 ``scale_log2`` per row (``_rowwise``) for ``p2_enc_rows`` /
 clipped STE, its mask computed outside the kernel on the ``_bcast``-shaped
 scale, as in the Pallas backend.
 
+Codes are stored in the spec's storage type (``int8``, ``int16``,
+``int32`` or ``float32``; the kernels are templated over it), saturated to
+an integer type's range as JAX converts (``codecs.to_storage``); a grid
+takes at most as many bits as its storage holds (32 for float32).
+
 Routing is by the tensor's device, never by a fallback: a CPU tensor runs
 the kernel's plain version (``encode_scalar_plain``, ``encode_rows_plain``,
 ...); a CUDA tensor launches the kernel, and anything the kernel does not
-take (a scale that is not one value per leading index, storage wider than
-int8, an unsupported dtype) raises — where ``Pow2Pallas`` falls back to the
-reference codec, the port does not.
+take (a scale that is not one value per leading index, more bits than the
+storage holds, an unsupported dtype) raises — where ``Pow2Pallas`` falls
+back to the reference codec, the port does not.
 
 Packed int4x2 storage views the data as ``(rows, last)`` keeping the
 logical trailing dim (``_rowwise_lastdim``), so a byte's two nibbles never
@@ -42,7 +47,7 @@ import torch
 from ..kernels import build as B
 from .codecs import (BlockwiseReference, Pow2Reference, _bcast,
                      blockwise_geometry, pow2_fake_quant, pow2_qdq,
-                     register_codec)
+                     register_codec, to_storage)
 from .spec import QTensor, QuantSpec, packed_trailing, qrange
 
 ENC = "p2_enc_rows"
@@ -62,6 +67,29 @@ BDEC = "bw_dec"
 BW_SOURCE = "blockwise"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _FQ_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# code storage types of the codec kernels (csrc/pow2_codes.cuh Code) and
+# the widest grid each holds
+_CODE = {torch.int8: 0, torch.int16: 1, torch.int32: 2, torch.float32: 3}
+_CODE_BITS = {torch.int8: 8, torch.int16: 16, torch.int32: 32,
+              torch.float32: 32}
+
+
+def _check_storage(what: str, bits: int, storage: torch.dtype) -> int:
+    """The kernel's code for ``storage``; raises on a storage type the
+    kernels do not write or a grid wider than it holds."""
+    if storage not in _CODE:
+        raise TypeError(f"{what}: unsupported code storage {storage}")
+    if not 2 <= bits <= _CODE_BITS[storage]:
+        raise ValueError(f"{what}: {storage} storage holds 2.."
+                         f"{_CODE_BITS[storage]} bits, got {bits}")
+    return _CODE[storage]
+
+
+def _code_of(what: str, q: torch.Tensor) -> int:
+    if q.dtype not in _CODE:
+        raise TypeError(f"{what}: codes must be one of "
+                        f"{sorted(map(str, _CODE))}, got {q.dtype}")
+    return _CODE[q.dtype]
 
 
 def _rowwise(x: torch.Tensor, scale) -> tuple[torch.Tensor, torch.Tensor] | None:
@@ -114,11 +142,12 @@ def _rowwise_lastdim(x: torch.Tensor, scale
 
 # ---- plain versions (the CPU path, and the kernels' oracle on the card) ----
 
-def encode_rows_plain(x2d: torch.Tensor, srow: torch.Tensor,
-                      bits: int) -> torch.Tensor:
+def encode_rows_plain(x2d: torch.Tensor, srow: torch.Tensor, bits: int,
+                      storage: torch.dtype = torch.int8) -> torch.Tensor:
     lo, hi = qrange(bits)
     step = torch.exp2(srow.float())[:, None]
-    return torch.clamp(torch.round(x2d.float() / step), lo, hi).to(torch.int8)
+    return to_storage(torch.clamp(torch.round(x2d.float() / step), lo, hi),
+                      storage)
 
 
 def decode_rows_plain(q2d: torch.Tensor, srow: torch.Tensor,
@@ -126,10 +155,10 @@ def decode_rows_plain(q2d: torch.Tensor, srow: torch.Tensor,
     return (q2d.float() * torch.exp2(srow.float())[:, None]).to(dtype)
 
 
-def encode_scalar_plain(x: torch.Tensor, s: torch.Tensor,
-                        bits: int) -> torch.Tensor:
-    return encode_rows_plain(x.reshape(1, -1), s.reshape(1),
-                             bits).reshape(x.shape)
+def encode_scalar_plain(x: torch.Tensor, s: torch.Tensor, bits: int,
+                        storage: torch.dtype = torch.int8) -> torch.Tensor:
+    return encode_rows_plain(x.reshape(1, -1), s.reshape(1), bits,
+                             storage).reshape(x.shape)
 
 
 def decode_scalar_plain(q: torch.Tensor, s: torch.Tensor,
@@ -150,9 +179,9 @@ def _lib() -> ctypes.CDLL:
     lib = B.load(SOURCE)
     if not getattr(lib, "_repro_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.p2_enc_rows.argtypes = [p, i, p, p, ll, ll, i, p]
+        lib.p2_enc_rows.argtypes = [p, i, p, p, i, ll, ll, i, p]
         lib.p2_enc_rows.restype = i
-        lib.p2_dec_rows.argtypes = [p, p, p, i, ll, ll, p]
+        lib.p2_dec_rows.argtypes = [p, i, p, p, i, ll, ll, p]
         lib.p2_dec_rows.restype = i
         lib._repro_typed = True
     return lib
@@ -167,22 +196,22 @@ def _check_operands(x2d: torch.Tensor, srow: torch.Tensor) -> torch.Tensor:
     return srow.to(torch.float32).contiguous()
 
 
-def encode_rows(x2d: torch.Tensor, srow: torch.Tensor,
-                bits: int) -> torch.Tensor:
-    """int8 codes of a (rows, cols) tensor with one scale_log2 per row."""
+def encode_rows(x2d: torch.Tensor, srow: torch.Tensor, bits: int,
+                storage: torch.dtype = torch.int8) -> torch.Tensor:
+    """``storage`` codes of a (rows, cols) tensor with one scale_log2 per
+    row."""
     srow = _check_operands(x2d, srow)
     if not x2d.is_cuda:
-        return encode_rows_plain(x2d, srow, bits)
+        return encode_rows_plain(x2d, srow, bits, storage)
     if x2d.dtype not in _DTYPE_CODE:
         raise TypeError(f"{ENC}: unsupported input dtype {x2d.dtype}")
-    if not 2 <= bits <= 8:
-        raise ValueError(f"{ENC}: int8 storage holds 2..8 bits, got {bits}")
+    code = _check_storage(ENC, bits, storage)
     x2d = x2d.contiguous()
-    q = torch.empty(x2d.shape, dtype=torch.int8, device=x2d.device)
+    q = torch.empty(x2d.shape, dtype=storage, device=x2d.device)
     lib = _lib()
     B.check(lib, lib.p2_enc_rows(
         x2d.data_ptr(), _DTYPE_CODE[x2d.dtype], srow.data_ptr(), q.data_ptr(),
-        x2d.shape[0], x2d.shape[1], bits,
+        code, x2d.shape[0], x2d.shape[1], bits,
         torch.cuda.current_stream(x2d.device).cuda_stream), ENC)
     B.note_launch(ENC)
     return q
@@ -190,20 +219,20 @@ def encode_rows(x2d: torch.Tensor, srow: torch.Tensor,
 
 def decode_rows(q2d: torch.Tensor, srow: torch.Tensor,
                 dtype: torch.dtype) -> torch.Tensor:
-    """``dtype`` values of (rows, cols) int8 codes with one scale per row."""
+    """``dtype`` values of (rows, cols) codes (int8, int16, int32 or f32)
+    with one scale per row."""
     srow = _check_operands(q2d, srow)
     if not q2d.is_cuda:
         return decode_rows_plain(q2d, srow, dtype)
-    if q2d.dtype != torch.int8:
-        raise TypeError(f"{DEC}: codes must be int8, got {q2d.dtype}")
+    code = _code_of(DEC, q2d)
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"{DEC}: unsupported output dtype {dtype}")
     q2d = q2d.contiguous()
     y = torch.empty(q2d.shape, dtype=dtype, device=q2d.device)
     lib = _lib()
     B.check(lib, lib.p2_dec_rows(
-        q2d.data_ptr(), srow.data_ptr(), y.data_ptr(), _DTYPE_CODE[dtype],
-        q2d.shape[0], q2d.shape[1],
+        q2d.data_ptr(), code, srow.data_ptr(), y.data_ptr(),
+        _DTYPE_CODE[dtype], q2d.shape[0], q2d.shape[1],
         torch.cuda.current_stream(q2d.device).cuda_stream), DEC)
     B.note_launch(DEC)
     return y
@@ -213,9 +242,9 @@ def _scalar_lib() -> ctypes.CDLL:
     lib = B.load(SCALAR_SOURCE)
     if not getattr(lib, "_repro_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.p2_enc.argtypes = [p, i, p, p, ll, i, p]
+        lib.p2_enc.argtypes = [p, i, p, p, i, ll, i, p]
         lib.p2_enc.restype = i
-        lib.p2_dec.argtypes = [p, p, p, i, ll, p]
+        lib.p2_dec.argtypes = [p, i, p, p, i, ll, p]
         lib.p2_dec.restype = i
         lib._repro_typed = True
     return lib
@@ -229,21 +258,21 @@ def _one_scale(s, dev, what: str) -> torch.Tensor:
     return s.reshape(1).contiguous()
 
 
-def encode_scalar(x: torch.Tensor, s, bits: int) -> torch.Tensor:
-    """int8 codes of ``x`` (any shape) under one scale_log2 (a number or a
-    one-element tensor, read on the device by the kernel)."""
+def encode_scalar(x: torch.Tensor, s, bits: int,
+                  storage: torch.dtype = torch.int8) -> torch.Tensor:
+    """``storage`` codes of ``x`` (any shape) under one scale_log2 (a
+    number or a one-element tensor, read on the device by the kernel)."""
     s = _one_scale(s, x.device, SENC)
     if not x.is_cuda:
-        return encode_scalar_plain(x, s, bits)
+        return encode_scalar_plain(x, s, bits, storage)
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{SENC}: unsupported input dtype {x.dtype}")
-    if not 2 <= bits <= 8:
-        raise ValueError(f"{SENC}: int8 storage holds 2..8 bits, got {bits}")
+    code = _check_storage(SENC, bits, storage)
     x = x.contiguous()
-    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    q = torch.empty(x.shape, dtype=storage, device=x.device)
     lib = _scalar_lib()
     B.check(lib, lib.p2_enc(
-        x.data_ptr(), _DTYPE_CODE[x.dtype], s.data_ptr(), q.data_ptr(),
+        x.data_ptr(), _DTYPE_CODE[x.dtype], s.data_ptr(), q.data_ptr(), code,
         x.numel(), bits, torch.cuda.current_stream(x.device).cuda_stream),
         SENC)
     B.note_launch(SENC)
@@ -251,19 +280,19 @@ def encode_scalar(x: torch.Tensor, s, bits: int) -> torch.Tensor:
 
 
 def decode_scalar(q: torch.Tensor, s, dtype: torch.dtype) -> torch.Tensor:
-    """``dtype`` values of int8 codes (any shape) under one scale_log2."""
+    """``dtype`` values of codes (any shape; int8, int16, int32 or f32)
+    under one scale_log2."""
     s = _one_scale(s, q.device, SDEC)
     if not q.is_cuda:
         return decode_scalar_plain(q, s, dtype)
-    if q.dtype != torch.int8:
-        raise TypeError(f"{SDEC}: codes must be int8, got {q.dtype}")
+    code = _code_of(SDEC, q)
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"{SDEC}: unsupported output dtype {dtype}")
     q = q.contiguous()
     y = torch.empty(q.shape, dtype=dtype, device=q.device)
     lib = _scalar_lib()
     B.check(lib, lib.p2_dec(
-        q.data_ptr(), s.data_ptr(), y.data_ptr(), _DTYPE_CODE[dtype],
+        q.data_ptr(), code, s.data_ptr(), y.data_ptr(), _DTYPE_CODE[dtype],
         q.numel(), torch.cuda.current_stream(q.device).cuda_stream), SDEC)
     B.note_launch(SDEC)
     return y
@@ -427,15 +456,23 @@ def decode_packed(p2d: torch.Tensor, srow: torch.Tensor,
 
 # ---- blockwise encode / decode --------------------------------------------
 
-def _bw_spec(b: int, bits: int) -> QuantSpec:
-    return QuantSpec("blockwise", bits, b, "int8", "per_tensor_max")
+_STORAGE_NAME = {torch.int8: "int8", torch.int16: "int16",
+                 torch.int32: "int32", torch.float32: "float32"}
 
 
-def bw_encode_plain(x2d: torch.Tensor, block: int, bits: int = 8
+def _bw_spec(b: int, bits: int, storage: torch.dtype = torch.int8
+             ) -> QuantSpec:
+    return QuantSpec("blockwise", bits, b, _STORAGE_NAME[storage],
+                     "per_tensor_max")
+
+
+def bw_encode_plain(x2d: torch.Tensor, block: int, bits: int = 8,
+                    storage: torch.dtype = torch.int8
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The blockwise encode kernel's plain version: (codes (rows, nb*b) int8,
-    scales (rows, nb) f32) of a (rows, last) tensor, by the reference."""
-    qt = BlockwiseReference().encode(x2d, _bw_spec(block, bits))
+    """The blockwise encode kernel's plain version: (codes (rows, nb*b) of
+    ``storage``, scales (rows, nb) f32) of a (rows, last) tensor, by the
+    reference."""
+    qt = BlockwiseReference().encode(x2d, _bw_spec(block, bits, storage))
     return qt.codes, qt.scale
 
 
@@ -451,34 +488,35 @@ def _bw_lib() -> ctypes.CDLL:
     lib = B.load(BW_SOURCE)
     if not getattr(lib, "_repro_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.bw_enc.argtypes = [p, p, p, ll, ll, ll, ll, i, p]
+        lib.bw_enc.argtypes = [p, p, i, p, ll, ll, ll, ll, i, p]
         lib.bw_enc.restype = i
-        lib.bw_dec.argtypes = [p, p, p, ll, ll, ll, ll, p]
+        lib.bw_dec.argtypes = [p, i, p, p, ll, ll, ll, ll, p]
         lib.bw_dec.restype = i
         lib._repro_typed = True
     return lib
 
 
-def bw_encode(x2d: torch.Tensor, block: int, bits: int = 8
+def bw_encode(x2d: torch.Tensor, block: int, bits: int = 8,
+              storage: torch.dtype = torch.int8
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Blockwise absmax codes and scales of a (rows, last) tensor in blocks
-    of ``blockwise_geometry``'s width (``block`` clamped to ``last``)."""
+    """Blockwise absmax codes (of ``storage``) and scales of a (rows, last)
+    tensor in blocks of ``blockwise_geometry``'s width (``block`` clamped
+    to ``last``)."""
     if x2d.dim() != 2:
         raise ValueError(f"{BENC}: want (rows, last) data, got "
                          f"{tuple(x2d.shape)}")
     if not x2d.is_cuda:
-        return bw_encode_plain(x2d, block, bits)
-    if not 2 <= bits <= 8:
-        raise ValueError(f"{BENC}: int8 storage holds 2..8 bits, got {bits}")
+        return bw_encode_plain(x2d, block, bits, storage)
+    code = _check_storage(BENC, bits, storage)
     x2d = x2d.float().contiguous()
     rows, last = x2d.shape
     b, nb, _ = blockwise_geometry(_bw_spec(block, bits), last)
-    codes = torch.empty((rows, nb * b), dtype=torch.int8, device=x2d.device)
+    codes = torch.empty((rows, nb * b), dtype=storage, device=x2d.device)
     scales = torch.empty((rows, nb), dtype=torch.float32, device=x2d.device)
     lib = _bw_lib()
     B.check(lib, lib.bw_enc(
-        x2d.data_ptr(), codes.data_ptr(), scales.data_ptr(), rows, last, b, nb,
-        int(qrange(bits)[1]),
+        x2d.data_ptr(), codes.data_ptr(), code, scales.data_ptr(), rows, last,
+        b, nb, bits,
         torch.cuda.current_stream(x2d.device).cuda_stream), BENC)
     B.note_launch(BENC)
     return codes, scales
@@ -486,8 +524,9 @@ def bw_encode(x2d: torch.Tensor, block: int, bits: int = 8
 
 def bw_decode(codes: torch.Tensor, scales: torch.Tensor,
               last: int) -> torch.Tensor:
-    """f32 (rows, last) values of blockwise (rows, nb*b) codes and (rows, nb)
-    scales; the pad past ``last`` is dropped."""
+    """f32 (rows, last) values of blockwise (rows, nb*b) codes (int8, int16,
+    int32 or f32) and (rows, nb) scales; the pad past ``last`` is
+    dropped."""
     if codes.dim() != 2 or scales.dim() != 2 \
             or scales.shape[0] != codes.shape[0] \
             or codes.shape[1] % scales.shape[1]:
@@ -498,16 +537,17 @@ def bw_decode(codes: torch.Tensor, scales: torch.Tensor,
         raise ValueError("codes and scales must be on one device")
     if not codes.is_cuda:
         return bw_decode_plain(codes, scales, last)
-    if codes.dtype != torch.int8 or scales.dtype != torch.float32:
-        raise TypeError(f"{BDEC}: want int8 codes and f32 scales, got "
-                        f"{codes.dtype} and {scales.dtype}")
+    code = _code_of(BDEC, codes)
+    if scales.dtype != torch.float32:
+        raise TypeError(f"{BDEC}: want f32 scales, got {scales.dtype}")
     rows, nb = scales.shape
     b = codes.shape[1] // nb
     codes, scales = codes.contiguous(), scales.contiguous()
     y = torch.empty((rows, last), dtype=torch.float32, device=codes.device)
     lib = _bw_lib()
     B.check(lib, lib.bw_dec(
-        codes.data_ptr(), scales.data_ptr(), y.data_ptr(), rows, last, b, nb,
+        codes.data_ptr(), code, scales.data_ptr(), y.data_ptr(), rows, last,
+        b, nb,
         torch.cuda.current_stream(codes.device).cuda_stream), BDEC)
     B.note_launch(BDEC)
     return y
@@ -536,13 +576,10 @@ class Pow2Cuda(Pow2Reference):
             return QTensor(codes.reshape(tuple(x.shape[:-1])
                                          + (codes.shape[-1],)),
                            scale, spec, tuple(x.shape))
-        if spec.torch_storage != torch.int8:
-            raise NotImplementedError(
-                f"{ENC}: the kernel stores int8 codes; {spec.storage_dtype} "
-                "is a later slice")
+        storage = spec.torch_storage
         if self._scalar(scale):
-            return QTensor(encode_scalar(x, scale, spec.bits), scale, spec,
-                           tuple(x.shape))
+            return QTensor(encode_scalar(x, scale, spec.bits, storage), scale,
+                           spec, tuple(x.shape))
         rw = _rowwise(x, scale)
         if rw is None:
             raise NotImplementedError(
@@ -550,7 +587,7 @@ class Pow2Cuda(Pow2Reference):
                 " is not one scale per leading index; the row kernel "
                 "takes no other layout")
         x2d, srow = rw
-        codes = encode_rows(x2d, srow, spec.bits)
+        codes = encode_rows(x2d, srow, spec.bits, storage)
         return QTensor(codes.reshape(x.shape), scale, spec, tuple(x.shape))
 
     def decode(self, qt: QTensor, dtype=torch.float32) -> torch.Tensor:
@@ -596,13 +633,10 @@ class BlockwiseCuda(BlockwiseReference):
     backend = "cuda"
 
     def encode(self, x: torch.Tensor, spec: QuantSpec, scale=None) -> QTensor:
-        if spec.torch_storage != torch.int8:
-            raise NotImplementedError(
-                f"{BENC}: the kernel stores int8 codes, not "
-                f"{spec.storage_dtype}")
         shape = tuple(x.shape) if x.dim() else (1,)
         lead = shape[:-1]
-        codes, sc = bw_encode(x.reshape(-1, shape[-1]), spec.block, spec.bits)
+        codes, sc = bw_encode(x.reshape(-1, shape[-1]), spec.block, spec.bits,
+                              spec.torch_storage)
         return QTensor(codes.reshape(lead + (codes.shape[-1],)),
                        sc.reshape(lead + (sc.shape[-1],)), spec, shape)
 

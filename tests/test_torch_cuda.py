@@ -33,7 +33,13 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
     views, and a one-element scale dispatches to them; the row-scale
     fake-quant kernel is BIT-identical in values and STE gradient;
 (j) chunked prefill with the prefix cache on the card: prefix on == off
-    in fp32 and 48 scalar encode + decode launches per chunk step.
+    in fp32 and 48 scalar encode + decode launches per chunk step;
+(k) the codec kernels in int16, int32 and float32 storage bit for bit
+    (the 32-bit grid's saturating top, bf16's 16-bit top code); PE1's own
+    kernel at odd granules, unaligned, repeating bit for bit; the split
+    and combine attention kernels each against its plain mirror, over
+    span sizes 1, 2, 3 and 8 pages, a span where a row has no unmasked
+    key, model-dtype pages and 4-byte-granule head dims.
 """
 import math
 
@@ -137,8 +143,9 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):     # page size mismatch
         PA.paged_attention_cuda(q, kd, kd, sc, sc, table, lens, page_size=4,
                                 quantized=True)
-    with pytest.raises(TypeError):
-        CB.decode_rows(torch.zeros((2, 4), device=cuda), sc, torch.float32)
+    with pytest.raises(TypeError):      # codes in no storage type
+        CB.decode_rows(torch.zeros((2, 4), device=cuda, dtype=torch.float16),
+                       sc, torch.float32)
 
 
 def test_engine_fused_equals_gather_fp32_on_card(cuda):
@@ -530,3 +537,222 @@ def test_engine_chunked_prefix_on_card(cuda):
         assert B.LAUNCHES["p2_enc"] == B.LAUNCHES["p2_dec"] == per * steps
     assert outs[0] == outs[1]
     assert eng.summary()["cow_forks"] > 0
+
+
+# ---------------------------------------------------------------------------
+# (k) codes in every storage type, the redesigned PE1 and paged attention
+# ---------------------------------------------------------------------------
+
+STORAGES = [(torch.int16, 16), (torch.int16, 12), (torch.int32, 32),
+            (torch.int32, 20), (torch.float32, 16), (torch.int8, 8)]
+
+
+def _bits_eq(a, b):
+    iv = {1: torch.int8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(iv), b.view(iv))
+
+
+@pytest.mark.parametrize("storage,bits", STORAGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_codec_kernels_wider_storage_bit_identical(cuda, storage, bits,
+                                                   dtype):
+    """The row and scalar pow-2 kernels in every storage type, vector and
+    scalar paths (cols % 4, an unaligned view), against their twins bit
+    for bit, including the 32-bit grid's saturating top."""
+    g = torch.Generator(device=cuda).manual_seed(bits)
+    hi = 2.0 ** (bits - 1)
+    for rows, cols, off in ((8, 1024, 0), (5, 37, 0), (3, 4096, 1)):
+        base = torch.randn(rows * cols + off, generator=g, device=cuda) * hi
+        x = base[off:].reshape(rows, cols).to(dtype)
+        x.view(-1)[:4] = torch.tensor([4 * hi, -4 * hi, 2.5, -1.5])
+        s = torch.randint(-3, 2, (rows,), generator=g, device=cuda).float()
+        q = CB.encode_rows(x, s, bits, storage)
+        assert q.dtype == storage
+        assert _bits_eq(q, CB.encode_rows_plain(x, s, bits, storage))
+        for dt in (torch.float32, torch.bfloat16):
+            assert _bits_eq(CB.decode_rows(q, s, dt),
+                            CB.decode_rows_plain(q, s, dt))
+        s1 = s[:1]
+        q1 = CB.encode_scalar(x, s1, bits, storage)
+        assert _bits_eq(q1, CB.encode_scalar_plain(x, s1, bits, storage))
+        assert _bits_eq(CB.decode_scalar(q1, s1, dtype),
+                        CB.decode_scalar_plain(q1, s1, dtype))
+    with pytest.raises(ValueError, match="holds 2.."):
+        CB.encode_rows(x, s, 33 if storage != torch.int8 else 9, storage)
+
+
+def test_codec_api_int16_top_code_on_card(cuda):
+    """A bf16 tensor at 16 bits in int16: the kernels store 32767 where a
+    plain cast of bf16's 32768 would wrap."""
+    x = torch.tensor([40000.0, 32767.0, -40000.0, 1e10, 3.0],
+                     device=cuda).to(torch.bfloat16)
+    spec = TN.QuantSpec("pow2", 16, 0, "int16")
+    for scale in (torch.tensor(0.0, device=cuda),
+                  torch.zeros((5, 1), device=cuda)):
+        qt = TN.encode(x.reshape(5, 1), spec, scale, backend="cuda")
+        assert qt.codes.dtype == torch.int16
+        assert qt.codes.reshape(-1).tolist() == [32767, 32767, -32768,
+                                                 32767, 3]
+
+
+@pytest.mark.parametrize("storage,bits", [(torch.int16, 16),
+                                          (torch.int32, 24),
+                                          (torch.float32, 16)])
+@pytest.mark.parametrize("shape,block", [((512,), 256), ((16, 4, 4, 16), 256),
+                                         ((14273,), 1024), ((5, 33), 16)])
+def test_blockwise_kernels_wider_storage(cuda, storage, bits, shape, block):
+    g = torch.Generator(device=cuda).manual_seed(block + bits)
+    x = torch.randn(shape, generator=g, device=cuda) * 3
+    x2d = x.reshape(-1, shape[-1])
+    codes, sc = CB.bw_encode(x2d, block, bits, storage)
+    rc, rs = CB.bw_encode_plain(x2d, block, bits, storage)
+    assert codes.dtype == storage and _bits_eq(codes, rc)
+    assert _bits_eq(sc, rs)
+    assert _bits_eq(CB.bw_decode(codes, sc, shape[-1]),
+                    CB.bw_decode_plain(codes, sc, shape[-1]))
+    name = {torch.int16: "int16", torch.int32: "int32",
+            torch.float32: "float32"}[storage]
+    spec = TN.QuantSpec("blockwise", bits, block, name, "per_tensor_max")
+    qt = TN.encode(x, spec, backend="cuda")
+    ref = TN.encode(x.cpu(), spec)
+    assert _bits_eq(qt.codes.cpu(), ref.codes)
+    assert _bits_eq(TN.decode(qt, backend="cuda").cpu(), TN.decode(ref))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pe1_kernel_odd_granules_unaligned_and_repeat(cuda, dtype):
+    """PE1 with c = 7 (4-byte f32 / 2-byte bf16 granules), an unaligned
+    Z view, b = 3, d = 9 (no float4 store), and the step's shape twice
+    over, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    flat = torch.randn(1 + 40 * 3 * 7, generator=g, device=cuda).to(dtype)
+    z = flat[1:].view(40, 3, 7)
+    w = (torch.randn((3, 9, 7), generator=g, device=cuda) * 0.2).to(dtype)
+    _close(ttm_pe1.pe1_cuda(z, w), ttm_pe1.pe1_torch(z, w), dtype)
+    for a in (3584, 64, 1):
+        z = torch.randn((a, 1, 16), generator=g, device=cuda).to(dtype)
+        w = (torch.randn((1, 256, 16), generator=g, device=cuda) * 0.2
+             ).to(dtype)
+        out = ttm_pe1.pe1_cuda(z, w)
+        _close(out, ttm_pe1.pe1_torch(z, w), dtype)
+        assert _bits_eq(out, ttm_pe1.pe1_cuda(z, w))
+
+
+def _pa_case(cuda, seed, *, b, pp, page, hkv, hq, dh, s_rows, quantized,
+             dtype=torch.float32):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    total = b * pp
+    if quantized:
+        kd = torch.randint(-128, 128, (total + 1, page, hkv, dh),
+                           generator=g, device=cuda).to(torch.int8)
+        vd = torch.randint(-128, 128, (total + 1, page, hkv, dh),
+                           generator=g, device=cuda).to(torch.int8)
+        ks = torch.randint(-9, -4, (b,), generator=g, device=cuda).float()
+        vs = torch.randint(-9, -4, (b,), generator=g, device=cuda).float()
+    else:
+        kd = torch.randn((total + 1, page, hkv, dh), generator=g,
+                         device=cuda).to(dtype)
+        vd = torch.randn((total + 1, page, hkv, dh), generator=g,
+                         device=cuda).to(dtype)
+        ks = vs = torch.zeros(b, device=cuda)
+    table = torch.randperm(total, generator=g, device=cuda).reshape(
+        b, pp).int()
+    q = torch.randn((b, s_rows, hq, dh), generator=g, device=cuda).to(dtype)
+    return q, kd, vd, ks, vs, table
+
+
+def _split_combine(q, kd, vd, ks, vs, table, lens, page, quantized,
+                   pages_per_split):
+    """The two attention kernels with spans of ``pages_per_split`` pages:
+    (output, partials (m, l, acc), plan, checked lens)."""
+    q4, kd4, vd4, ks4, vs4, t4, l4, squeeze, p = PA._checked(
+        q, kd, vd, ks, vs, table, lens, page, quantized)
+    mis = (kd4.data_ptr() % 16) | (vd4.data_ptr() % 16)
+    p = PA.plan(p.B, p.S, p.Hq, p.Hkv, p.Dh, page, p.pps,
+                kd4.element_size(), mis, pages_per_split)
+    m, l, acc = PA.pa_split_cuda(q4, kd4, vd4, ks4, vs4, t4, l4, p,
+                                 quantized)
+    out = PA.pa_combine_cuda(m, l, acc, l4, p, q4.dtype)
+    return out, (m, l, acc), p, l4
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (6, 2), (3, 1)])
+@pytest.mark.parametrize("s_rows", [1, 4])
+@pytest.mark.parametrize("pages_per_split", [1, 2, 3, 8])
+def test_paged_attention_splits_and_combine(cuda, hq, hkv, s_rows,
+                                            pages_per_split):
+    """Split kernel == its mirror partial for partial on the spans each
+    slot needs; combine kernel == its mirror; split + combine == the page
+    walk within 1e-5 and bit-identical over two launches. Slot 1's row 0
+    sees up to the last key of a span, its rows 1.. the next span: a span
+    where a row has no unmasked key."""
+    b, pp, page, dh = 4, 7, 8, 16
+    q, kd, vd, ks, vs, table = _pa_case(
+        cuda, hq + s_rows + pages_per_split, b=b, pp=pp, page=page, hkv=hkv,
+        hq=hq, dh=dh, s_rows=s_rows, quantized=True)
+    edge = min(min(pages_per_split, pp) * page - 1, pp * page - s_rows)
+    lens = torch.tensor([0, edge, page, pp * page - s_rows], device=cuda,
+                        dtype=torch.int32)
+    kw = dict(page_size=page, quantized=True)
+    ref = PA.paged_attention_torch(q, kd, vd, ks, vs, table, lens, **kw)
+    args = (q, kd, vd, ks, vs, table, lens, page, True, pages_per_split)
+    out, (m, l, acc), p, l4 = _split_combine(*args)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    assert _bits_eq(out, _split_combine(*args)[0])
+    if pages_per_split == PA.PAGES_PER_SPLIT:     # the entry point's spans
+        assert _bits_eq(out, PA.paged_attention_cuda(
+            q, kd, vd, ks, vs, table, lens, **kw))
+    mm, ml, macc = PA.pa_split_torch(q, kd, vd, ks, vs, table, lens,
+                                     pages_per_split=pages_per_split, **kw)
+    need = PA.spans_needed(lens, s_rows, page, pp, p.pps_split)
+    for bi in range(b):
+        n = int(need[bi])
+        np.testing.assert_allclose(m[bi, :, :n].cpu(), mm[bi, :, :n].cpu(),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(l[bi, :, :n].cpu(), ml[bi, :, :n].cpu(),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(acc[bi, :, :n].cpu(),
+                                   macc[bi, :, :n].cpu(), rtol=1e-5,
+                                   atol=1e-5)
+    if s_rows > 1 and pp > p.pps_split:       # the all-masked span exists
+        neg = torch.tensor(PA.NEG_INF, device=cuda)
+        assert torch.equal(m[1, :, 1, 0], neg.expand(hkv))
+        n_pages = min(pp, (edge + s_rows - 1) // page + 1)
+        keys = min(p.pps_split, n_pages - p.pps_split) * page
+        assert bool((l[1, :, 1, 0] == keys).all())   # l counts masked keys
+    comb = PA.pa_combine_cuda(m, l, acc, l4, p, torch.float32)
+    want = PA.pa_combine_torch(m, l, acc, lens, s=s_rows, page_size=page,
+                               pps=pp, pages_per_split=pages_per_split,
+                               dtype=torch.float32)
+    np.testing.assert_allclose(comb.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("dh", [16, 12, 128])
+def test_paged_attention_model_dtype_pages_and_odd_head_dims(cuda, dtype,
+                                                             dh):
+    """Pages in the model dtype and head dims whose rows take 4-byte
+    copies (12 int8 = 12 bytes): within 1e-5 (fp32) / 2 ulp + 1e-5 of the
+    page walk."""
+    b, pp, page = 3, 9, 8
+    for quantized in (True, False):
+        q, kd, vd, ks, vs, table = _pa_case(
+            cuda, dh, b=b, pp=pp, page=page, hkv=2, hq=4, dh=dh, s_rows=2,
+            quantized=quantized, dtype=dtype)
+        lens = torch.tensor([5, 31, pp * page - 2], device=cuda,
+                            dtype=torch.int32)
+        kw = dict(page_size=page, quantized=quantized)
+        out = _split_combine(q, kd, vd, ks, vs, table, lens, page, quantized,
+                             2)[0]
+        ref = PA.paged_attention_torch(q, kd, vd, ks, vs, table, lens, **kw)
+        diff = (out.float() - ref.float()).abs()
+        if dtype == torch.float32:
+            assert diff.max().item() <= 1e-5
+        else:
+            r = ref.float().abs()
+            ulp = torch.exp2(torch.floor(torch.log2(torch.clamp(
+                r, min=1e-30))) - (7 if dtype == torch.bfloat16 else 10))
+            assert bool((diff <= 2 * ulp + 1e-5).all())
