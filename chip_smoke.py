@@ -22,7 +22,11 @@ Phases (any failure raises and the script exits non-zero):
              (per-channel quantize / dequantize for the codec where its
              codes match; gather + dequant + scaled_dot_product_attention).
    train kernels — the training kernels at the step's shapes: the scalar
-             fake-quant bit-exact at 4/8/16 bits in f32 and bf16, every
+             fake-quant bit-exact at 4/8/16 bits in f32 and bf16, each
+             layer's cores in one grouped fake-quant launch (layer 1's 4,
+             layer 2's 2) bit for bit with its twin and over two launches,
+             timed beside the loop of one-entry launches it replaced
+             (``previous_ms``) and a library loop, every
              PE1/PE2/PE3 call of a step within 1e-4 (f32) / 2e-2 (bf16),
              PE1, PE2 and PE3 bit-identical over two launches, PE1's requant
              epilogue bit-identical to its own output through encode ->
@@ -67,8 +71,9 @@ Phases (any failure raises and the script exits non-zero):
              chance; the BinaryConnect export (one p2_enc and one p2_dec
              per core and bias) bit for bit with the CPU. Then a profiled
              window of steps: step time, device time per kernel, busy
-             share, and the PE kernels by name (pe1_kernel 6 launches a
-             step, pe2_kernel 12, pe3_kernel 2; asserted).
+             share, and the kernels by name as ``launches_per_step``
+             counts them (pe1_kernel 6 launches a step, pe2_kernel 12,
+             pe3_kernel 2, p2_fq_group_kernel 9; asserted).
 6. train identity — one step from the same initial params on the card and
              on the CPU (plain versions): loss, gradients and the stepped
              params within the CPU parity tests' tolerances.
@@ -77,6 +82,10 @@ Phases (any failure raises and the script exits non-zero):
              moment shape (block 256) and every flattened gradient-leaf
              length of the wire (block 1024) of the step, a padded
              multi-block (3, 1000) at block 256 and an all-zero block; the
+             step's two encode groups (its 34 moments, its 21 wire leaves)
+             each in one launch, bit for bit with the twin, the one-entry
+             launches and a second launch, timed beside the loop of
+             one-entry launches it replaced (``previous_ms``); the
              packed int4x2 encode/decode kernels on the six FMNIST cores
              at their wscale_log2, a stacked tensor with a step per row and
              an odd trailing dim, and a scalar. Each timed beside its bound,
@@ -105,7 +114,8 @@ Phases (any failure raises and the script exits non-zero):
              37.07x) with the packed deploy export of the trained params,
              loaded back by ``load_tt_deploy`` on the card, its cores equal
              to encode -> decode of the params bit for bit; a profiled
-             window of wire steps.
+             window of wire steps (bw_enc_group_kernel 2 launches a step,
+             bw_dec_kernel 55, p2_fq_group_kernel 9; asserted).
 8. train wire identity — one wire step from the same state on the card and
              on the CPU, under the CPU parity tests' tolerances.
 
@@ -1024,7 +1034,8 @@ def phase_train_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
                     f"{row['library_note']}, bound "
                     f"{row['bound_ms']*1e3:.3f} us); f32 and bf16 exact")
             fq.append(row)
-    out["p2_fake_quant"] = [r for r in fq if "ms" in r]
+    out["p2_fake_quant"] = [r for r in fq if "ms" in r] + \
+        _fq_group_rows(torch, timer, device)
 
     # --- PE1/PE2/PE3: every call of the step, f32 (the step's) and bf16
     rows = {"pe1": [], "pe2": [], "pe3": []}
@@ -1095,6 +1106,65 @@ def phase_train_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
     _sync(torch, device)
     B.reset_launches()
     return out
+
+
+def _fq_group_rows(torch, timer: Timer, device: str) -> list:
+    """Each layer's cores in one grouped fake-quant launch at the step's
+    ``wscale_log2`` (layer 1's 4 cores, layer 2's 2): bit for bit with the
+    twin in f32 and bf16 and over two launches, timed beside the loop of
+    one-entry launches it replaced (``previous_ms``) and the library loop
+    of ``fake_quantize_per_tensor_affine``; the bound is the group's
+    bytes."""
+    from repro_torch.core import tt_layer as TL
+    from repro_torch.kernels import build as B
+    from repro_torch.models import mlp_tt as MLP
+    from repro_torch.numerics import cuda_backend as CB
+    d = MLP.make_mlp()
+    params = MLP.init_mlp(torch.Generator(device=device).manual_seed(0), d,
+                          device=device)
+    rows = []
+    for layer, spec in (("l1", d.spec1), ("l2", d.spec2)):
+        cores = [c.detach() for c in TL.get_cores(params[layer], spec)]
+        steps = params[layer]["wscale_log2"].float()
+        for dt in (torch.float32, torch.bfloat16):
+            xs = [c.to(dt) for c in cores]
+            _sync(torch, device)
+            B.reset_launches()
+            ys = CB.fake_quant_scalar_many(xs, steps, 4)
+            _sync(torch, device)
+            check(B.LAUNCHES == {"p2_fake_quant": 1},
+                  f"fake-quant group {layer}: launches {B.LAUNCHES}")
+            again = CB.fake_quant_scalar_many(xs, steps, 4)
+            for n, (y, r, a) in enumerate(zip(
+                    ys, CB.fake_quant_many_plain(xs, steps, 4), again)):
+                check(_bits_equal(torch, y, r) and _bits_equal(torch, a, y),
+                      f"fake-quant group {layer} core_{n} {dt}: not "
+                      "bit-exact or not repeatable")
+        ys = CB.fake_quant_scalar_many(cores, steps, 4)
+        scales = [2.0 ** v for v in steps.tolist()]
+        n = sum(c.numel() for c in cores)
+        row = dict(shape=[list(c.shape) for c in cores], bits=4,
+                   dtype="float32", what=f"group {layer} cores",
+                   entries=len(cores), max_abs_err=0.0)
+        row["ms"] = timer(lambda: CB.fake_quant_scalar_many(cores, steps, 4))
+        row["previous_ms"] = timer(lambda: [
+            CB.fake_quant_scalar(c, steps[i], 4) for i, c in enumerate(cores)])
+        row["plain_ms"] = timer(
+            lambda: CB.fake_quant_many_plain(cores, steps, 4), iters=10)
+        row["library_ms"], row["library_note"] = _library_yardstick(
+            timer, lambda: [torch.fake_quantize_per_tensor_affine(
+                c, scales[i], 0, -8, 7) for i, c in enumerate(cores)],
+            lambda r: all(torch.equal(a, b) for a, b in zip(r, ys)))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            2 * n * 4 + 4 * len(cores), 4 * n, FP32_OPS_PER_S)
+        log(f"p2_fake_quant group {layer} ({len(cores)} cores, {n} "
+            f"elements): {row['ms']*1e3:.1f} us one launch (one-entry loop "
+            f"{row['previous_ms']*1e3:.1f} us, plain "
+            f"{row['plain_ms']*1e3:.1f} us, library loop "
+            f"{row['library_note']}, bound {row['bound_ms']*1e3:.3f} us); "
+            f"f32 and bf16 exact, two launches equal")
+        rows.append(row)
+    return rows
 
 
 def _sync(torch, device) -> None:
@@ -1205,7 +1275,8 @@ def phase_train(torch, device: str = "cuda", steps: int = TRAIN_STEPS
     def one(i):
         state["params"], state["opt"], _ = step(
             state["params"], state["opt"], TF.batch_at(xs, ys, i))
-    prof = _profile_train(torch, one) if device == "cuda" else None
+    prof = _profile_train(torch, one, TF.launches_per_step(d)) \
+        if device == "cuda" else None
     return {"steps": steps, "step_ms": wall * 1e3,
             "loss_first": loss[0].item(), "loss_last": loss[-1].item(),
             "loss_first20": first, "loss_last20": last,
@@ -1224,17 +1295,26 @@ def _device_summary(torch, prof, steps: int) -> tuple[float, list]:
                        getattr(e, "self_cuda_time_total", 0.0))
     cuda = torch.autograd.DeviceType.CUDA
     evs = [e for e in prof.key_averages()
-           if getattr(e, "device_type", None) == cuda and dev(e) > 0]
+           if getattr(e, "device_type", None) == cuda and dev(e) > 0
+           and "spin_kernel" not in e.key]
     total = sum(dev(e) for e in evs) / steps / 1e3
     top = sorted(evs, key=dev, reverse=True)[:12]
     return total, [{"name": e.key[:80], "calls_per_step": e.count / steps,
                     "ms_per_step": dev(e) / steps / 1e3} for e in top]
 
 
-def _profile_train(torch, one, steps: int = 20):
+# launch-count name -> the kernel function's name in a profile
+KERNEL_FN = {"pe1": "pe1_kernel", "pe2": "pe2_kernel", "pe3": "pe3_kernel",
+             "p2_fake_quant": "p2_fq_group_kernel",
+             "bw_enc": "bw_enc_group_kernel", "bw_dec": "bw_dec_kernel"}
+
+
+def _profile_train(torch, one, per: dict, steps: int = 20):
     """Host wall of ``steps`` unprofiled training steps (``one(i)`` runs
     step i), then one profiled window of as many for the device time per
-    kernel. busy_share = device time / wall time."""
+    kernel. busy_share = device time / wall time. Each kernel of ``per``
+    (the step's ``launches_per_step``) must appear in the profile as often
+    a step, by its function's name."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1244,35 +1324,48 @@ def _profile_train(torch, one, steps: int = 20):
     wall = (time.perf_counter() - t0) / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _pad_window(torch)
         for i in range(steps):
             one(steps + i)
-        torch.cuda.synchronize()
+        _pad_window(torch)
     total, rows = _device_summary(torch, prof, steps)
     log(f"train profile: {wall*1e3:.2f} ms per step (host wall), device "
         f"{total:.3f} ms busy, busy share {total / (wall*1e3):.3f}")
     for r in rows:
         log(f"  {r['ms_per_step']*1e3:8.1f} us  {r['calls_per_step']:6.1f}x  "
             f"{r['name']}")
-    pe = _pe_profile(torch, prof, steps)
-    for name, r in pe.items():
-        log(f"  PE {name}: {r['calls_per_step']:.1f} launches, "
+    want = {KERNEL_FN[k]: float(v) for k, v in per.items()}
+    kern = _kernel_profile(torch, prof, steps, want)
+    for name, r in kern.items():
+        log(f"  kernel {name}: {r['calls_per_step']:.1f} launches, "
             f"{r['ms_per_step']*1e3:.1f} us a step")
-    want = {"pe1_kernel": 6.0, "pe2_kernel": 12.0, "pe3_kernel": 2.0}
-    check({k: r["calls_per_step"] for k, r in pe.items()} == want,
-          f"train profile PE kernels {pe}, want launches {want} a step")
+    check({k: r["calls_per_step"] for k, r in kern.items()} == want,
+          f"train profile kernels {kern}, want launches {want} a step")
     return {"step_ms": wall * 1e3, "device_ms": total,
-            "busy_share": total / (wall * 1e3), "top": rows, "pe": pe}
+            "busy_share": total / (wall * 1e3), "top": rows,
+            "kernels": kern}
 
 
-def _pe_profile(torch, prof, steps: int) -> dict:
-    """Launches and device ms per step of the PE kernels, by kernel name:
-    ``pe1_kernel``, ``pe2_kernel``, ``pe3_kernel``."""
+def _pad_window(torch, n: int = 8) -> None:
+    """A few spin kernels between synchronisations at each edge of a
+    profiled window: the trace drops a device event or two at a window's
+    edge (PR 16's run counted 16.9 fake-quant launches a step of 17), and
+    these are the ones it may drop. ``_device_summary`` leaves them out."""
+    torch.cuda.synchronize()
+    for _ in range(n):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+def _kernel_profile(torch, prof, steps: int, names) -> dict:
+    """Launches and device ms per step of the named kernel functions (a
+    profile key holds ``name<``, the template's start)."""
     cuda = torch.autograd.DeviceType.CUDA
     calls, us = {}, {}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != cuda:
             continue
-        for name in ("pe1_kernel", "pe2_kernel", "pe3_kernel"):
+        for name in names:
             if f"{name}<" in e.key:
                 calls[name] = calls.get(name, 0) + e.count
                 us[name] = us.get(name, 0.0) + getattr(
@@ -1405,6 +1498,82 @@ def _bw_row(torch, timer, shape, block, gen, what) -> dict:
     return enc, dec
 
 
+def _bw_group_rows(torch, timer, gen, device) -> list:
+    """The step's two encode groups, each in one launch: the 34 moments (m
+    and v of the 17 Adam leaves, block 256) and the 21 wire leaves
+    (flattened, block 1024), random, each leaf's first quarter zero (all-
+    zero blocks). Codes and scales bit for bit with the twin, with the
+    loop of one-entry launches and over two launches; timed beside that
+    loop (``previous_ms``); the bound is the group's bytes."""
+    from repro_torch import numerics as TN
+    from repro_torch.kernels import build as B
+    from repro_torch.models import mlp_tt as MLP
+    from repro_torch.numerics import cuda_backend as CB
+    from repro_torch.optim import adam as A
+    from repro_torch.tree import flatten_with_path
+    d = MLP.make_mlp()
+    params = MLP.init_mlp(torch.Generator(device=device).manual_seed(0), d,
+                          device=device)
+    flat = dict(flatten_with_path(params))
+
+    def data(shape):
+        x = torch.randn(shape, generator=gen, device=device) * 0.05
+        x.view(-1)[:x.numel() // 4] = 0.0
+        return x.reshape(-1, x.shape[-1] if x.dim() else 1)
+    moments = [data(flat[k].shape) for _ in "mv"
+               for k in A.adam_leaf_paths(params)]
+    wire = [data((leaf.numel(),)) for leaf in flat.values()
+            if isinstance(leaf, torch.Tensor) and leaf.is_floating_point()]
+    check((len(moments), len(wire)) == (34, 21),
+          f"leaf sets {len(moments)} / {len(wire)}, want 34 / 21")
+    rows = []
+    for what, xs, block in (("group moments", moments, 256),
+                            ("group wire", wire, 1024)):
+        _sync(torch, device)
+        B.reset_launches()
+        got = CB.bw_encode_many(xs, block)
+        _sync(torch, device)
+        check(B.LAUNCHES == {"bw_enc": 1},
+              f"bw_enc {what}: launches {B.LAUNCHES}")
+        again = CB.bw_encode_many(xs, block)
+        zero = 0
+        for i, (x, (c, sc), (rc, rs), (ac, asc)) in enumerate(zip(
+                xs, got, CB.bw_encode_many_plain(xs, block), again)):
+            oc, osc = CB.bw_encode(x, block)
+            check(torch.equal(c, rc) and _bits_equal(torch, sc, rs),
+                  f"bw_enc {what} leaf {i}: differs from the twin")
+            check(torch.equal(c, oc) and _bits_equal(torch, sc, osc),
+                  f"bw_enc {what} leaf {i}: differs from a one-entry launch")
+            check(torch.equal(ac, c) and _bits_equal(torch, asc, sc),
+                  f"bw_enc {what} leaf {i}: two launches differ")
+            zero += int((sc == 0).sum().item())
+        check(zero > 0, f"bw_enc {what}: no all-zero block")
+        nbytes = n = 0
+        for x in xs:
+            rws, last = x.shape
+            b, nb, _ = TN.blockwise_geometry(
+                TN.QuantSpec("blockwise", 8, block), last)
+            nbytes += rws * last * 4 + rws * nb * (b + 4)
+            n += rws * last
+        row = dict(shape=[list(x.shape) for x in xs], block=block,
+                   what=what, entries=len(xs), max_abs_err=0.0,
+                   ms=timer(lambda: CB.bw_encode_many(xs, block)),
+                   previous_ms=timer(lambda: [CB.bw_encode(x, block)
+                                              for x in xs]),
+                   plain_ms=timer(lambda: CB.bw_encode_many_plain(xs, block),
+                                  iters=10),
+                   library_ms=None, library_note=BW_ENC_NONE)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4 * n,
+                                                    FP32_OPS_PER_S)
+        log(f"bw_enc {what} ({len(xs)} leaves, {n} elements): "
+            f"{row['ms']*1e3:.1f} us one launch (one-entry loop "
+            f"{row['previous_ms']*1e3:.1f} us, plain "
+            f"{row['plain_ms']*1e3:.1f} us, bound {row['bound_ms']*1e3:.3f}"
+            f" us); bit-exact, {zero} all-zero blocks, two launches equal")
+        rows.append(row)
+    return rows
+
+
 def _library_bw_decode(torch, codes, sc, b, last):
     """Yardstick only: a per-channel quantized tensor over the codes, one
     channel per block, dequantized, the pad sliced away."""
@@ -1472,6 +1641,7 @@ def phase_wire_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
         e, d_ = _bw_row(torch, timer, shape, block, gen, what)
         enc.append(e)
         dec.append(d_)
+    enc += _bw_group_rows(torch, timer, gen, device)
     d = MLP.make_mlp()
     params = MLP.init_mlp(torch.Generator(device=device).manual_seed(0), d,
                           device=device)
@@ -1616,7 +1786,7 @@ def phase_train_wire(torch, device: str = "cuda",
         state["params"], state["opt"], _, _, state["res"] = step(
             state["params"], state["opt"], TF.batch_at(xs, ys, i),
             state["res"])
-    prof = _profile_train(torch, one) if device == "cuda" else None
+    prof = _profile_train(torch, one, per) if device == "cuda" else None
     return {"steps": steps, "step_ms": wall * 1e3,
             "loss_first": loss[0].item(), "loss_last": loss[-1].item(),
             "loss_first20": first, "loss_last20": last,

@@ -3,8 +3,9 @@
 
 Params are plain dicts of tensors, specs are static. The matvec is
 ``ttm.tt_matvec`` (PE1/PE2 kernels forward, PE3 + Appendix A.2 backward)
-and the cores' 4-bit fake-quant is the scalar fake-quant kernel, so a
-layer on the card runs only hand-written kernels for its TT work.
+and the cores' 4-bit fake-quant is one launch of the group fake-quant
+kernel for the layer's cores, so a layer on the card runs only
+hand-written kernels for its TT work.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 
 from ..configs.base import QuantConfig, TTConfig
 from ..device import resolve_device
-from ..numerics import QuantSpec, fake_quant
+from ..numerics import QuantSpec, fake_quant_many
 from . import rank_adapt as RA
 from .ttm import TTMSpec, core_sigma, init_cores, make_spec, tt_matvec
 
@@ -64,7 +65,8 @@ def get_lambdas(params: Params, spec: TTMSpec) -> list[torch.Tensor] | None:
 def effective_cores(params: Params, spec: TTMSpec, tt: TTConfig,
                     qc: QuantConfig) -> list[torch.Tensor]:
     """Cores as seen by the forward pass: rank-masked then fake-quantized
-    (the ``tt_factor`` site: pow-2 codec, fixed per-core scales, §3.2)."""
+    (the ``tt_factor`` site: pow-2 codec, fixed per-core scales, §3.2), all
+    d cores in one call, their steps read on the device."""
     cores = get_cores(params, spec)
     if tt.rank_adapt and spec.d > 1:
         masks = RA.rank_masks([lam.detach()
@@ -73,9 +75,8 @@ def effective_cores(params: Params, spec: TTMSpec, tt: TTConfig,
         cores = RA.apply_masks(cores, masks)
     if qc.enable:
         qspec = QuantSpec("pow2", qc.weight_bits, 0, "int8", "fixed")
-        steps = params["wscale_log2"]
-        cores = [fake_quant(c, qspec, steps[n].float(), backend="cuda")
-                 for n, c in enumerate(cores)]
+        cores = fake_quant_many(cores, qspec, params["wscale_log2"].float(),
+                                backend="cuda")
     return cores
 
 

@@ -100,6 +100,8 @@ int with_code(int code, F&& f) {
   return (int)cudaGetLastError();
 }
 
-inline bool aligned(const void* p, size_t a) { return ((uintptr_t)p % a) == 0; }
+__host__ __device__ inline bool aligned(const void* p, size_t a) {
+  return ((uintptr_t)p % a) == 0;
+}
 
 }  // namespace pow2_codes

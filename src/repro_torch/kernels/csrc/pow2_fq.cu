@@ -1,16 +1,17 @@
 // Pow-2 fake-quant: y = clip(rint(x / 2^s), lo, hi) * 2^s in the dtype of
-// x, with one f32 scale_log2 for the whole tensor (`p2_fake_quant`) or one
-// per row of a contiguous (rows, cols) view (`p2_fq_rows`).
+// x, with one f32 scale_log2 for each tensor of a group (`p2_fq_group`) or
+// one per row of a contiguous (rows, cols) view (`p2_fq_rows`).
 //
 // Replaces: repro/numerics/pallas_backend.py `_p2_fq_kernel` (launched
 // through `_elementwise_2d` / `_flat_call` by `_p2_fake_quant_pallas`, and
 // by the shims kernels/quantize.py `quantize` and kernels/ops.py
 // `quantize_fused`) and `_p2_fq_rows_kernel` (through `_rowscale_call` by
-// `_p2_fake_quant_rows`). On the training path the scalar kernel is every
-// TT-core quantization (4-bit, fixed per-core scale), every activation edge
-// (8-bit) and every gradient edge (16-bit) of the paper's MLP. The row
-// kernel is what the codec API's `fake_quant` runs for a scale per leading
-// index (`Pow2Pallas.fake_quant`); no path of the reference reaches it.
+// `_p2_fake_quant_rows`). On the training path the group kernel is every
+// TT-core quantization (4-bit, fixed per-core scale: one launch for a
+// layer's cores), every activation edge (8-bit) and every gradient edge
+// (16-bit) of the paper's MLP (a group of one). The row kernel is what the
+// codec API's `fake_quant` runs for a scale per leading index
+// (`Pow2Pallas.fake_quant`); no path of the reference reaches it.
 //
 // Numerics (bit-identical to Pow2Reference.fake_quant, i.e. JAX's
 // `pow2_qdq`, which computes in x.dtype):
@@ -31,11 +32,19 @@
 // handful of operations, far below the card's ~295 operations per byte.
 // The scales are read from device memory, so a managed scale that the step
 // just updated needs no host round trip.
-// Design: a grid-stride loop over 4-element vectors (16/8-byte accesses)
-// when the pointers are aligned and n % 4 == 0 (the row kernel: cols % 4
-// == 0, so a vector never straddles two rows; its row's step is one cached
-// load per vector), else a scalar loop. No shared memory, no
-// synchronisation.
+// Design, group kernel: the training step's tensors are a few hundred to a
+// few thousand elements each, so a launch per tensor costs ~6 us against a
+// bound of a hundredth of that; one launch covers up to kFqCap tensors of
+// one dtype and bit width, described by a table passed by value as a
+// __grid_constant__ parameter (no copy to the device, no extra launch),
+// sized to the group (a single tensor passes a table of one). CTAs take tiles of kTile elements in tensor-major order (a tile never
+// straddles two tensors) and find their tensor by a binary search of the
+// table's prefix of tile counts. A tensor whose pointers are aligned and
+// whose n % 4 == 0 is read and written as 4-element vectors (16/8 bytes a
+// thread), else element by element, coalesced. The row kernel is a
+// grid-stride loop over 4-element vectors (cols % 4 == 0, so a vector never
+// straddles two rows; its row's step is one cached load per vector), else a
+// scalar loop. No shared memory, no synchronisation.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -74,23 +83,62 @@ __device__ __forceinline__ T fq_one(T x, float scale, float lo, float hi) {
 
 template <typename T> struct alignas(4 * sizeof(T)) Vec4 { T v[4]; };
 
-template <typename T, bool VEC>
-__global__ void p2_fq_kernel(const T* __restrict__ x, const float* __restrict__ s,
-                             T* __restrict__ y, long long n, float lo, float hi) {
-  const float scale = in_t<T>(pow2_step(__ldg(s)));
+constexpr int kThreads = 256;
+constexpr int kTile = 4 * kThreads;   // elements a CTA takes at a time
+constexpr int kFqCap = 64;            // tensors a launch takes
+
+// The group's table, passed by value: N entries, sized to the group (N =
+// 1, 8 or kFqCap; 2.6 KB of the 4 KB parameter space at kFqCap, 48 bytes
+// at 1, since a launch's parameters cost launch time). tile_end[e] is the
+// prefix sum of ceil(n / kTile) over tensors 0..e.
+template <int N>
+struct FqGroup {
+  const void* x[N];
+  void* y[N];
+  const float* s[N];          // each tensor's f32 scale_log2, on the device
+  long long n[N];
+  long long tile_end[N];
+  int count;
+};
+
+__host__ __device__ inline bool aligned(const void* p, size_t a) {
+  return ((uintptr_t)p % a) == 0;
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+    p2_fq_group_kernel(const __grid_constant__ FqGroup<N> g, float lo, float hi) {
   const float lo_t = in_t<T>(lo), hi_t = in_t<T>(hi);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (VEC) {
-    for (long long i = first; i < n / 4; i += stride) {
-      const Vec4<T> in = reinterpret_cast<const Vec4<T>*>(x)[i];
-      Vec4<T> out;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) out.v[j] = fq_one(in.v[j], scale, lo_t, hi_t);
-      reinterpret_cast<Vec4<T>*>(y)[i] = out;
+  const long long tiles = g.tile_end[N == 1 ? 0 : g.count - 1];
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    // the first tensor whose tiles end past `tile`; a table of one indexes
+    // its entry with a constant, read straight from the parameter bank
+    int e = 0, top = N == 1 ? 0 : g.count - 1;
+    while (e < top) {
+      const int mid = (e + top) / 2;
+      if (g.tile_end[mid] > tile) top = mid; else e = mid + 1;
     }
-  } else {
-    for (long long i = first; i < n; i += stride) y[i] = fq_one(x[i], scale, lo_t, hi_t);
+    const long long base = (tile - (e ? g.tile_end[e - 1] : 0)) * kTile;
+    const T* __restrict__ x = static_cast<const T*>(g.x[e]);
+    T* __restrict__ y = static_cast<T*>(g.y[e]);
+    const long long n = g.n[e];
+    const float scale = in_t<T>(pow2_step(__ldg(g.s[e])));
+    if (n % 4 == 0 && aligned(x, 4 * sizeof(T)) && aligned(y, 4 * sizeof(T))) {
+      const long long i = base / 4 + threadIdx.x;
+      if (i < n / 4) {
+        const Vec4<T> in = reinterpret_cast<const Vec4<T>*>(x)[i];
+        Vec4<T> out;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) out.v[j] = fq_one(in.v[j], scale, lo_t, hi_t);
+        reinterpret_cast<Vec4<T>*>(y)[i] = out;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const long long i = base + j * kThreads + threadIdx.x;
+        if (i < n) y[i] = fq_one(x[i], scale, lo_t, hi_t);
+      }
+    }
   }
 }
 
@@ -117,25 +165,11 @@ __global__ void p2_fq_rows_kernel(const T* __restrict__ x, const float* __restri
   }
 }
 
-constexpr int kThreads = 256;
-
 inline int grid_for(long long work) {
   long long blocks = (work + kThreads - 1) / kThreads;
   const long long cap = 132LL * 32;  // enough resident blocks for every SM
   if (blocks > cap) blocks = cap;
   return blocks < 1 ? 1 : (int)blocks;
-}
-
-inline bool aligned(const void* p, size_t a) { return ((uintptr_t)p % a) == 0; }
-
-template <typename T>
-void launch(const void* x, const float* s, void* y, long long n, float lo, float hi,
-            cudaStream_t st) {
-  if (n % 4 == 0 && aligned(x, 4 * sizeof(T)) && aligned(y, 4 * sizeof(T)))
-    p2_fq_kernel<T, true><<<grid_for(n / 4), kThreads, 0, st>>>((const T*)x, s, (T*)y, n, lo,
-                                                                hi);
-  else
-    p2_fq_kernel<T, false><<<grid_for(n), kThreads, 0, st>>>((const T*)x, s, (T*)y, n, lo, hi);
 }
 
 template <typename T>
@@ -150,24 +184,49 @@ void launch_rows(const void* x, const float* s, void* y, long long rows, long lo
                                                                   cols, lo, hi);
 }
 
+template <int N>
+int fq_launch(const long long* table, int count, int x_dtype, int bits, cudaStream_t st) {
+  FqGroup<N> g{};
+  long long prev = 0;
+  for (int e = 0; e < count; ++e) {
+    const long long* row = table + 5 * e;
+    g.x[e] = (const void*)row[0];
+    g.y[e] = (void*)row[1];
+    g.s[e] = (const float*)row[2];
+    g.n[e] = row[3];
+    g.tile_end[e] = row[4];
+    if (g.n[e] < 0 || g.tile_end[e] - prev != (g.n[e] + kTile - 1) / kTile)
+      return (int)cudaErrorInvalidValue;
+    prev = g.tile_end[e];
+  }
+  g.count = count;
+  if (prev == 0) return (int)cudaSuccess;
+  const float lo = -(float)(1 << (bits - 1)), hi = (float)((1 << (bits - 1)) - 1);
+  const int grid = grid_for(prev * kThreads);
+  switch (x_dtype) {
+    case F32: p2_fq_group_kernel<float, N><<<grid, kThreads, 0, st>>>(g, lo, hi); break;
+    case BF16: p2_fq_group_kernel<__nv_bfloat16, N><<<grid, kThreads, 0, st>>>(g, lo, hi); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// x, y: n contiguous elements of x_dtype; s: one f32 scale_log2 on the
-// device; bits in [2, 16]. Returns cudaGetLastError() after the launch.
-int p2_fake_quant(const void* x, int x_dtype, const void* s, void* y, long long n, int bits,
-                  void* stream) {
-  if (bits < 2 || bits > 16) return (int)cudaErrorInvalidValue;
-  if (n == 0) return (int)cudaSuccess;
-  const float lo = -(float)(1 << (bits - 1)), hi = (float)((1 << (bits - 1)) - 1);
+// A group of `count` (1..kFqCap) tensors of x_dtype, as rows of `table`:
+// {x, y, s, n, tile_end} (pointers as integers; x, y: n contiguous
+// elements; s: one f32 scale_log2 on the device; tile_end: the prefix sum
+// of ceil(n / kTile), kernels/grouped.py::fq_plan); bits in [2, 16].
+// Returns cudaGetLastError() after the launch (none for a group with no
+// elements).
+int p2_fq_group(const long long* table, int count, int x_dtype, int bits, void* stream) {
+  if (bits < 2 || bits > 16 || count < 1 || count > kFqCap) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (x_dtype) {
-    case F32: launch<float>(x, (const float*)s, y, n, lo, hi, st); break;
-    case BF16: launch<__nv_bfloat16>(x, (const float*)s, y, n, lo, hi, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (count == 1) return fq_launch<1>(table, count, x_dtype, bits, st);
+  if (count <= 8) return fq_launch<8>(table, count, x_dtype, bits, st);
+  return fq_launch<kFqCap>(table, count, x_dtype, bits, st);
 }
 
 // x, y: (rows, cols) contiguous of x_dtype; s: (rows,) f32 scale_log2 on

@@ -1,0 +1,123 @@
+"""Launch plans of the grouped kernels: the pow-2 fake-quant group
+(``csrc/pow2_fq.cu::p2_fq_group``) and the blockwise encode group
+(``csrc/blockwise.cu::bw_enc_group``). One launch covers a list of
+tensors, described by a table the C side passes to the kernel by value.
+
+Both plans are pure functions of the shapes, so the CPU tests can check
+them where no kernel can run:
+
+- ``fq_plan``: the tensors chunked into launches of at most ``FQ_CAP``,
+  each with the prefix of its tensors' tile counts (a tile is ``FQ_TILE``
+  elements, one CTA's work at a time; a tile never straddles two tensors).
+- ``bw_plan``: the leaves chunked into launches of at most ``BW_CAP``, each
+  with the prefix of its leaves' warp tasks (32 consecutive blocks for a
+  block width b <= 32, one block for b > 32) and each leaf's offset in the
+  launch's one flat codes buffer (on 16 bytes) and one flat scales buffer.
+
+The caps keep each table within the 4 KB of a launch's parameters.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..numerics.codecs import blockwise_geometry
+from ..numerics.spec import QuantSpec
+
+FQ_CAP = 64                 # pow2_fq.cu kFqCap
+FQ_TILE = 1024              # pow2_fq.cu kTile: 256 threads x 4 elements
+BW_CAP = 48                 # blockwise.cu kBwCap
+WARP = 32
+CODE_ALIGN = 16             # bytes: each leaf's codes start on 16 bytes
+
+
+def chunks(n: int, cap: int) -> list[range]:
+    """Indices 0..n-1 in runs of at most ``cap``, one per launch."""
+    return [range(i, min(i + cap, n)) for i in range(0, n, cap)]
+
+
+@dataclass(frozen=True)
+class FqLaunch:
+    index: range                 # the tensors of this launch
+    tile_end: tuple[int, ...]    # prefix sum of ceil(n / FQ_TILE)
+
+    @property
+    def tiles(self) -> int:
+        return self.tile_end[-1]
+
+
+def fq_plan(numels: list[int], cap: int = FQ_CAP) -> list[FqLaunch]:
+    """The fake-quant group's launches over tensors of ``numels`` elements
+    (an empty list gives none)."""
+    out = []
+    for idx in chunks(len(numels), cap):
+        ends, acc = [], 0
+        for i in idx:
+            acc += -(-numels[i] // FQ_TILE)
+            ends.append(acc)
+        out.append(FqLaunch(idx, tuple(ends)))
+    return out
+
+
+@dataclass(frozen=True)
+class BwLeaf:
+    rows: int
+    last: int
+    b: int
+    nb: int
+    tasks: int                   # warp tasks
+    code_off: int                # elements into the launch's codes buffer
+    scale_off: int               # elements into its scales buffer
+
+    @property
+    def codes(self) -> int:
+        return self.rows * self.nb * self.b
+
+    @property
+    def scales(self) -> int:
+        return self.rows * self.nb
+
+
+@dataclass(frozen=True)
+class BwLaunch:
+    index: range                 # the leaves of this launch
+    leaves: tuple[BwLeaf, ...]
+    task_end: tuple[int, ...]    # prefix sum of the leaves' tasks
+    codes: int                   # elements of the flat codes buffer
+    scales: int                  # elements of the flat scales buffer
+
+    @property
+    def tasks(self) -> int:
+        return self.task_end[-1]
+
+
+def bw_tasks(rows: int, last: int, b: int, nb: int) -> int:
+    """Warp tasks of one leaf: a warp per 32 blocks (b <= 32) or per block
+    (b > 32); none for an empty leaf."""
+    units = rows * nb if rows * last else 0
+    return -(-units // WARP) if b <= WARP else units
+
+
+def bw_plan(shapes: list[tuple[int, int]], block: int,
+            storage: torch.dtype = torch.int8,
+            cap: int = BW_CAP) -> list[BwLaunch]:
+    """The blockwise encode group's launches over (rows, last) leaves at
+    ``block`` with codes of ``storage`` (an empty list gives none)."""
+    per = CODE_ALIGN // storage.itemsize      # codes per 16 bytes
+    spec = QuantSpec("blockwise", 8, block)
+    out = []
+    for idx in chunks(len(shapes), cap):
+        leaves, ends, tasks, code, scale = [], [], 0, 0, 0
+        for i in idx:
+            rows, last = shapes[i]
+            b, nb, _ = blockwise_geometry(spec, last)
+            leaf = BwLeaf(rows, last, b, nb, bw_tasks(rows, last, b, nb),
+                          code, scale)
+            leaves.append(leaf)
+            tasks += leaf.tasks
+            ends.append(tasks)
+            code += -(-leaf.codes // per) * per
+            scale += leaf.scales
+        out.append(BwLaunch(idx, tuple(leaves), tuple(ends), code, scale))
+    return out

@@ -11,9 +11,9 @@ synthetic FashionMNIST drop-in — the port of
 It runs on the card unless ``--device cpu`` is given. On the card every
 TT contraction and every fake-quant of the step is a hand-written CUDA
 kernel: PE1/PE2 for the TT chains (forward, scale-manager forward, the
-transposed dx chains), PE3 for the full-weight gradients, the scalar
-fake-quant for the cores and the activation/gradient edges; with int8
-Adam moments and the gradient wire (``make_step(..., compress=True)``,
+transposed dx chains), PE3 for the full-weight gradients, the group
+fake-quant for each layer's cores and the activation/gradient edges; with
+int8 Adam moments and the gradient wire (``make_step(..., compress=True)``,
 ``launch/train_wire.py``) the blockwise encode/decode kernels too, and the
 deploy export runs the packed int4 encode kernel.
 """
@@ -27,6 +27,7 @@ import torch
 from ..configs.base import TrainConfig
 from ..data import fashion_like
 from ..device import resolve_device
+from ..kernels import grouped as G
 from ..models import mlp_tt as MLP
 from ..optim import adam as A
 from ..optim.binaryconnect import quantize_for_deploy
@@ -111,26 +112,28 @@ def launches_per_step(d: MLP.MLPDef, tcfg: TrainConfig | None = None,
     """Kernel launches of one ``make_step(d, tcfg, compress)`` step on the
     card, from the code:
 
-    - ``p2_fake_quant``: every core in the loss forward and again in the
-      scale manager's forward (``mlp_scale_update``), the three edges'
-      8-bit forwards, and the 16-bit backwards of ``q_h`` and ``q_out``
-      (``q_in``'s input is the batch, which takes no gradient, so its
-      backward only forms the probe statistic).
+    - ``p2_fake_quant``: one group launch for each layer's cores in the
+      loss forward and again in the scale manager's forward
+      (``mlp_scale_update``), the three edges' 8-bit forwards, and the
+      16-bit backwards of ``q_h`` and ``q_out`` (``q_in``'s input is the
+      batch, which takes no gradient, so its backward only forms the probe
+      statistic).
     - ``pe1``/``pe2``: one forward chain per layer in the loss and in the
       scale manager's forward (one PE1, d-1 PE2 each), and one transposed
       dx chain per layer (layer 1's dx is what ``q_in``'s probe reads).
     - ``pe3``: one full-weight gradient per layer.
-    - ``bw_enc``/``bw_dec`` (int8 moments): m and v of every Adam leaf
-      whose gradient is not None, decoded before the update and encoded
-      after it. Without the wire those are the cores, biases and probes
+    - ``bw_enc`` (int8 moments): one group launch over m and v of every
+      Adam leaf whose gradient is not None (``grouped.BW_CAP`` leaves a
+      launch). Without the wire those are the cores, biases and probes
       (the ``mean_abs`` leaves get None and keep their state); with it,
       every Adam leaf (the wire hands ``mean_abs`` a zero gradient).
-    - ``bw_enc``/``bw_dec`` (the wire): one round trip of every floating
-      gradient leaf, λ and ``mean_abs`` included."""
+      ``bw_dec``: each of those moments, decoded before the update.
+    - ``bw_enc`` (the wire): one group launch over every floating gradient
+      leaf, λ and ``mean_abs`` included; ``bw_dec``: each of them."""
     if not (d.qc.enable and d.tt.enable):
         raise ValueError("counted for the quantized TT step only")
     specs = (d.spec1, d.spec2)
-    out = {"p2_fake_quant": 2 * sum(s.d for s in specs) + 3 + 2,
+    out = {"p2_fake_quant": 2 * len(specs) + 3 + 2,
            "pe1": 3 * len(specs),
            "pe2": 3 * sum(s.d - 1 for s in specs),
            "pe3": len(specs)}
@@ -138,13 +141,16 @@ def launches_per_step(d: MLP.MLPDef, tcfg: TrainConfig | None = None,
     edges = 3                                        # q_in, q_h, q_out
     adam_leaves = layer_leaves + 3 * edges           # + probe, 2 mean_abs
     lambdas = sum(s.d - 1 for s in specs) if d.tt.rank_adapt else 0
-    codec = 0
+    enc = dec = 0
     if tcfg is not None and tcfg.opt_state_dtype == "int8":
-        codec += 2 * (adam_leaves if compress else layer_leaves + edges)
+        moments = 2 * (adam_leaves if compress else layer_leaves + edges)
+        enc += len(G.chunks(moments, G.BW_CAP))
+        dec += moments
     if compress:
-        codec += adam_leaves + lambdas
-    if codec:
-        out["bw_enc"] = out["bw_dec"] = codec
+        enc += len(G.chunks(adam_leaves + lambdas, G.BW_CAP))
+        dec += adam_leaves + lambdas
+    if dec:
+        out["bw_enc"], out["bw_dec"] = enc, dec
     return out
 
 

@@ -135,6 +135,39 @@ def pow2_fake_quant(x: torch.Tensor, scale_log2, bits: int,
     return _Pow2STE.apply(x, scale_log2, bits, qdq)
 
 
+class _Pow2STEMany(torch.autograd.Function):
+    """``_Pow2STE`` over a list of tensors, each with its own scalar step:
+    ``qdq_many(xs, steps, bits)`` computes every value at once (a group
+    kernel), and the backward of each tensor is ``_Pow2STE``'s, its own
+    mask's ``where(inside, g, 0)``."""
+
+    @staticmethod
+    def forward(ctx, steps_log2, bits, qdq_many, *xs):
+        if any(ctx.needs_input_grad[3:]):
+            ctx.save_for_backward(*[pow2_inside(x, steps_log2[n], bits)
+                                    for n, x in enumerate(xs)])
+        return tuple(qdq_many(list(xs), steps_log2, bits))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, None) + tuple(
+            torch.where(inside, g, torch.zeros((), dtype=g.dtype,
+                                               device=g.device))
+            for inside, g in zip(ctx.saved_tensors, gs))
+
+
+def pow2_fake_quant_many(xs: list[torch.Tensor], steps_log2: torch.Tensor,
+                         bits: int, qdq_many) -> list[torch.Tensor]:
+    """``pow2_fake_quant(xs[n], steps_log2[n], bits)`` for every n, the
+    values from one call of ``qdq_many`` (a group kernel on the card), the
+    gradient of each tensor exactly ``pow2_fake_quant``'s."""
+    if not xs:
+        return []
+    steps = torch.as_tensor(steps_log2, dtype=torch.float32,
+                            device=xs[0].device).reshape(-1)
+    return list(_Pow2STEMany.apply(steps, bits, qdq_many, *xs))
+
+
 class Pow2Reference:
     """Reference pow-2 codec in plain PyTorch."""
     kind = "pow2"
@@ -178,6 +211,12 @@ class Pow2Reference:
         return pow2_fake_quant(x, _bcast(scale, x.dim(), x.device),
                                spec.bits)
 
+    def fake_quant_many(self, xs: list[torch.Tensor], spec: QuantSpec,
+                        scales) -> list[torch.Tensor]:
+        """``fake_quant(xs[n], spec, scales[n])`` for every n (one scalar
+        scale per tensor)."""
+        return [self.fake_quant(x, spec, scales[n]) for n, x in enumerate(xs)]
+
 
 # ---------------------------------------------------------------------------
 # blockwise: per-block absmax along the last axis
@@ -214,6 +253,10 @@ class BlockwiseReference:
         q = torch.round(blocks / torch.clamp(sc, min=1e-20)[..., None])
         codes = to_storage(torch.clamp(q, -qmax, qmax), spec.torch_storage)
         return QTensor(codes.reshape(shape[:-1] + (nb * b,)), sc, spec, shape)
+
+    def encode_many(self, xs: list[torch.Tensor],
+                    spec: QuantSpec) -> list[QTensor]:
+        return [self.encode(x, spec) for x in xs]
 
     def decode(self, qt: QTensor, dtype=torch.float32) -> torch.Tensor:
         nb = qt.scale.shape[-1]
@@ -265,6 +308,14 @@ def encode(x: torch.Tensor, spec: QuantSpec, scale=None,
     return get_codec(spec, backend).encode(x, spec, scale)
 
 
+def encode_many(xs: list[torch.Tensor], spec: QuantSpec,
+                backend: str = "reference") -> list[QTensor]:
+    """``encode(x, spec)`` of every tensor of ``xs`` (a blockwise spec: no
+    scale to pass); the ``cuda`` backend encodes them in one group
+    launch."""
+    return get_codec(spec, backend).encode_many(xs, spec)
+
+
 def decode(qt: QTensor, dtype=torch.float32,
            backend: str = "reference") -> torch.Tensor:
     return get_codec(qt.spec, backend).decode(qt, dtype)
@@ -274,6 +325,13 @@ def fake_quant(x: torch.Tensor, spec: QuantSpec, scale=None,
                backend: str = "reference") -> torch.Tensor:
     """Quantize-dequantize with the clipped STE (the §3.2 Q(.))."""
     return get_codec(spec, backend).fake_quant(x, spec, scale)
+
+
+def fake_quant_many(xs: list[torch.Tensor], spec: QuantSpec, scales,
+                    backend: str = "reference") -> list[torch.Tensor]:
+    """``fake_quant(xs[n], spec, scales[n])`` for every n, one scalar scale
+    per tensor; the ``cuda`` pow2 codec runs one group launch."""
+    return get_codec(spec, backend).fake_quant_many(xs, spec, scales)
 
 
 def roundtrip(x: torch.Tensor, spec: QuantSpec, scale=None,

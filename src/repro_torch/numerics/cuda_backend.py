@@ -35,8 +35,16 @@ logical trailing dim (``_rowwise_lastdim``), so a byte's two nibbles never
 straddle rows; a one-element scale is every row's (stride 0 in the kernel).
 
 The blockwise codec (``BlockwiseCuda``) views the data as ``(rows, last)``
-and encodes each row's ``blockwise_geometry`` blocks with one launch of
-``bw_enc``; ``bw_dec`` decodes and drops the pad.
+and encodes each row's ``blockwise_geometry`` blocks with ``bw_enc``;
+``bw_dec`` decodes and drops the pad.
+
+Grouped launches: the fake-quant and the blockwise encode kernels take a
+table of tensors (``kernels/grouped.py`` plans it), so a list costs one
+launch. ``fake_quant_scalar_many`` quantizes a layer's TT cores, each
+under its own step, and ``bw_encode_many`` (``encode_many`` of the codec)
+encodes the optimizer's moments or the wire's gradient leaves, their codes
+and scales views into one buffer each a launch. A single tensor
+(``fake_quant_scalar``, ``bw_encode``) is a group of one.
 """
 from __future__ import annotations
 
@@ -45,8 +53,9 @@ import ctypes
 import torch
 
 from ..kernels import build as B
+from ..kernels import grouped as G
 from .codecs import (BlockwiseReference, Pow2Reference, _bcast,
-                     blockwise_geometry, pow2_fake_quant, pow2_qdq,
+                     pow2_fake_quant, pow2_fake_quant_many, pow2_qdq,
                      register_codec, to_storage)
 from .spec import QTensor, QuantSpec, packed_trailing, qrange
 
@@ -302,8 +311,8 @@ def _fq_lib() -> ctypes.CDLL:
     lib = B.load(FQ_SOURCE)
     if not getattr(lib, "_repro_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.p2_fake_quant.argtypes = [p, i, p, p, ll, i, p]
-        lib.p2_fake_quant.restype = i
+        lib.p2_fq_group.argtypes = [ctypes.POINTER(ll), i, i, i, p]
+        lib.p2_fq_group.restype = i
         lib.p2_fq_rows.argtypes = [p, i, p, p, ll, ll, i, p]
         lib.p2_fq_rows.restype = i
         lib._repro_typed = True
@@ -316,26 +325,77 @@ def fake_quant_plain(x: torch.Tensor, step_log2, bits: int) -> torch.Tensor:
                                        device=x.device).reshape(()), bits)
 
 
+def fake_quant_many_plain(xs: list[torch.Tensor], steps_log2: torch.Tensor,
+                          bits: int) -> list[torch.Tensor]:
+    """The group kernel's plain version: ``fake_quant_plain`` of each x
+    with its own step."""
+    return [fake_quant_plain(x, steps_log2[n], bits) for n, x in enumerate(xs)]
+
+
+def _fq_group(xs: list[torch.Tensor], steps: torch.Tensor,
+              bits: int) -> list[torch.Tensor]:
+    """Launch ``p2_fq_group`` over CUDA tensors ``xs`` of one dtype, one f32
+    step each in ``steps`` (read on the device): one launch per
+    ``grouped.FQ_CAP`` tensors."""
+    dev = xs[0].device
+    if any(x.device != dev for x in xs) or steps.device != dev:
+        raise ValueError(f"{FQ}: tensors and steps must be on one device")
+    dtype = xs[0].dtype
+    if dtype not in _FQ_DTYPE_CODE or any(x.dtype != dtype for x in xs):
+        raise TypeError(f"{FQ}: want one dtype of "
+                        f"{sorted(map(str, _FQ_DTYPE_CODE))}, got "
+                        f"{sorted({str(x.dtype) for x in xs})}")
+    if not 2 <= bits <= 16:
+        raise ValueError(f"{FQ}: bits must be 2..16, got {bits}")
+    xs = [x.contiguous() for x in xs]
+    ys = [torch.empty_like(x) for x in xs]
+    lib = _fq_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    s0, ssz = steps.data_ptr(), steps.element_size()
+    for launch in G.fq_plan([x.numel() for x in xs]):
+        if not launch.tiles:
+            continue
+        rows = []
+        for i, end in zip(launch.index, launch.tile_end):
+            rows += [xs[i].data_ptr(), ys[i].data_ptr(), s0 + i * ssz,
+                     xs[i].numel(), end]
+        table = (ctypes.c_longlong * len(rows))(*rows)
+        B.check(lib, lib.p2_fq_group(table, len(launch.index),
+                                     _FQ_DTYPE_CODE[dtype], bits, stream), FQ)
+        B.note_launch(FQ)
+    return ys
+
+
 def fake_quant_scalar(x: torch.Tensor, step_log2, bits: int) -> torch.Tensor:
     """Quantize-dequantize ``x`` on the ``bits``-bit pow-2 grid of one
     ``step_log2`` (a number or a one-element tensor, read on the device by
-    the kernel), in ``x.dtype``. No gradient rule: ``Pow2Cuda.fake_quant``
-    wraps it in the clipped STE."""
+    the kernel), in ``x.dtype``: a group of one. No gradient rule:
+    ``Pow2Cuda.fake_quant`` wraps it in the clipped STE."""
     s = _one_scale(step_log2, x.device, FQ)
     if not x.is_cuda:
         return fake_quant_plain(x, s, bits)
-    if x.dtype not in _FQ_DTYPE_CODE:
-        raise TypeError(f"{FQ}: unsupported dtype {x.dtype}")
-    if not 2 <= bits <= 16:
-        raise ValueError(f"{FQ}: bits must be 2..16, got {bits}")
-    x = x.contiguous()
-    y = torch.empty_like(x)
-    lib = _fq_lib()
-    B.check(lib, lib.p2_fake_quant(
-        x.data_ptr(), _FQ_DTYPE_CODE[x.dtype], s.data_ptr(), y.data_ptr(),
-        x.numel(), bits, torch.cuda.current_stream(x.device).cuda_stream), FQ)
-    B.note_launch(FQ)
-    return y
+    return _fq_group([x], s, bits)[0]
+
+
+def fake_quant_scalar_many(xs: list[torch.Tensor], steps_log2,
+                           bits: int) -> list[torch.Tensor]:
+    """``fake_quant_scalar`` of each tensor of ``xs`` (one dtype, one
+    device) under its own step, ``steps_log2[n]`` for ``xs[n]`` (a tensor of
+    ``len(xs)`` steps, read on the device, never on the host): on the card
+    one launch for the lot. No gradient rule: ``Pow2Cuda.fake_quant_many``
+    wraps it in the clipped STE."""
+    if not xs:
+        return []
+    steps = torch.as_tensor(steps_log2, dtype=torch.float32,
+                            device=xs[0].device).reshape(-1)
+    if steps.numel() != len(xs):
+        raise ValueError(f"{FQ}: one step per tensor, got {steps.numel()} "
+                         f"steps for {len(xs)} tensors")
+    if not xs[0].is_cuda:
+        if any(x.is_cuda for x in xs):
+            raise ValueError(f"{FQ}: tensors must be on one device")
+        return fake_quant_many_plain(xs, steps, bits)
+    return _fq_group(xs, steps.contiguous(), bits)
 
 
 def fake_quant_rows(x: torch.Tensor, scale, bits: int) -> torch.Tensor:
@@ -488,12 +548,64 @@ def _bw_lib() -> ctypes.CDLL:
     lib = B.load(BW_SOURCE)
     if not getattr(lib, "_repro_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.bw_enc.argtypes = [p, p, i, p, ll, ll, ll, ll, i, p]
-        lib.bw_enc.restype = i
+        lib.bw_enc_group.argtypes = [ctypes.POINTER(ll), i, i, i, p]
+        lib.bw_enc_group.restype = i
         lib.bw_dec.argtypes = [p, i, p, p, ll, ll, ll, ll, p]
         lib.bw_dec.restype = i
         lib._repro_typed = True
     return lib
+
+
+def bw_encode_many_plain(xs: list[torch.Tensor], block: int, bits: int = 8,
+                         storage: torch.dtype = torch.int8
+                         ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """The group encode's plain version: ``bw_encode_plain`` of each
+    (rows, last) tensor."""
+    return [bw_encode_plain(x, block, bits, storage) for x in xs]
+
+
+def _bw_group(xs: list[torch.Tensor], block: int, bits: int,
+              storage: torch.dtype
+              ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Launch ``bw_enc_group`` over (rows, last) CUDA tensors: one launch
+    per ``grouped.BW_CAP`` leaves, each writing one codes and one scales
+    buffer, returned as per-leaf views."""
+    code = _check_storage(BENC, bits, storage)
+    dev = xs[0].device
+    if any(x.device != dev for x in xs):
+        raise ValueError(f"{BENC}: tensors must be on one device")
+    xs = [x.float().contiguous() for x in xs]
+    lib = _bw_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = []
+    for launch in G.bw_plan([tuple(x.shape) for x in xs], block, storage):
+        codes = torch.empty(launch.codes, dtype=storage, device=dev)
+        scales = torch.empty(launch.scales, dtype=torch.float32, device=dev)
+        c0, s0 = codes.data_ptr(), scales.data_ptr()
+        csz = codes.element_size()
+        rows = []
+        for i, leaf, end in zip(launch.index, launch.leaves, launch.task_end):
+            rows += [xs[i].data_ptr(), c0 + leaf.code_off * csz,
+                     s0 + 4 * leaf.scale_off, leaf.rows, leaf.last, leaf.b,
+                     leaf.nb, end]
+            out.append((
+                codes[leaf.code_off:leaf.code_off + leaf.codes].view(
+                    leaf.rows, leaf.nb * leaf.b),
+                scales[leaf.scale_off:leaf.scale_off + leaf.scales].view(
+                    leaf.rows, leaf.nb)))
+        if not launch.tasks:
+            continue
+        table = (ctypes.c_longlong * len(rows))(*rows)
+        B.check(lib, lib.bw_enc_group(table, len(launch.index), code, bits,
+                                      stream), BENC)
+        B.note_launch(BENC)
+    return out
+
+
+def _check_2d(what: str, x: torch.Tensor) -> None:
+    if x.dim() != 2:
+        raise ValueError(f"{what}: want (rows, last) data, got "
+                         f"{tuple(x.shape)}")
 
 
 def bw_encode(x2d: torch.Tensor, block: int, bits: int = 8,
@@ -501,25 +613,28 @@ def bw_encode(x2d: torch.Tensor, block: int, bits: int = 8,
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Blockwise absmax codes (of ``storage``) and scales of a (rows, last)
     tensor in blocks of ``blockwise_geometry``'s width (``block`` clamped
-    to ``last``)."""
-    if x2d.dim() != 2:
-        raise ValueError(f"{BENC}: want (rows, last) data, got "
-                         f"{tuple(x2d.shape)}")
+    to ``last``): a group of one."""
+    _check_2d(BENC, x2d)
     if not x2d.is_cuda:
         return bw_encode_plain(x2d, block, bits, storage)
-    code = _check_storage(BENC, bits, storage)
-    x2d = x2d.float().contiguous()
-    rows, last = x2d.shape
-    b, nb, _ = blockwise_geometry(_bw_spec(block, bits), last)
-    codes = torch.empty((rows, nb * b), dtype=storage, device=x2d.device)
-    scales = torch.empty((rows, nb), dtype=torch.float32, device=x2d.device)
-    lib = _bw_lib()
-    B.check(lib, lib.bw_enc(
-        x2d.data_ptr(), codes.data_ptr(), code, scales.data_ptr(), rows, last,
-        b, nb, bits,
-        torch.cuda.current_stream(x2d.device).cuda_stream), BENC)
-    B.note_launch(BENC)
-    return codes, scales
+    return _bw_group([x2d], block, bits, storage)[0]
+
+
+def bw_encode_many(xs: list[torch.Tensor], block: int, bits: int = 8,
+                   storage: torch.dtype = torch.int8
+                   ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """``bw_encode`` of each (rows, last) tensor of ``xs`` (one device): on
+    the card one launch for up to ``grouped.BW_CAP`` of them, their codes
+    and scales views into one codes and one scales buffer a launch."""
+    for x in xs:
+        _check_2d(BENC, x)
+    if not xs:
+        return []
+    if not xs[0].is_cuda:
+        if any(x.is_cuda for x in xs):
+            raise ValueError(f"{BENC}: tensors must be on one device")
+        return bw_encode_many_plain(xs, block, bits, storage)
+    return _bw_group(xs, block, bits, storage)
 
 
 def bw_decode(codes: torch.Tensor, scales: torch.Tensor,
@@ -626,19 +741,46 @@ class Pow2Cuda(Pow2Reference):
                 "does not)")
         return pow2_fake_quant(x, s, spec.bits, qdq=fake_quant_rows)
 
+    def fake_quant_many(self, xs: list[torch.Tensor], spec: QuantSpec,
+                        scales) -> list[torch.Tensor]:
+        """``fake_quant`` of each tensor under its own scalar scale
+        (``scales[n]`` for ``xs[n]``): one group launch on the card."""
+        return pow2_fake_quant_many(xs, scales, spec.bits,
+                                    qdq_many=fake_quant_scalar_many)
+
+
+def _bw_view(x: torch.Tensor) -> tuple[torch.Tensor, tuple[int, ...]]:
+    """(the (rows, last) view of ``x``, the shape its QTensor records: a
+    0-d ``x`` is one element of shape (1,))."""
+    shape = tuple(x.shape) if x.dim() else (1,)
+    return x.reshape(-1, shape[-1]), shape
+
+
+def _bw_qtensor(codes: torch.Tensor, sc: torch.Tensor, spec: QuantSpec,
+                shape: tuple[int, ...]) -> QTensor:
+    lead = shape[:-1]
+    return QTensor(codes.reshape(lead + (codes.shape[-1],)),
+                   sc.reshape(lead + (sc.shape[-1],)), spec, shape)
+
 
 class BlockwiseCuda(BlockwiseReference):
     """The blockwise codec on ``bw_enc`` / ``bw_dec``: the data as a
-    (rows, last) view, one launch each way."""
+    (rows, last) view, one launch each way; ``encode_many`` encodes a list
+    of tensors in one group launch."""
     backend = "cuda"
 
     def encode(self, x: torch.Tensor, spec: QuantSpec, scale=None) -> QTensor:
-        shape = tuple(x.shape) if x.dim() else (1,)
-        lead = shape[:-1]
-        codes, sc = bw_encode(x.reshape(-1, shape[-1]), spec.block, spec.bits,
-                              spec.torch_storage)
-        return QTensor(codes.reshape(lead + (codes.shape[-1],)),
-                       sc.reshape(lead + (sc.shape[-1],)), spec, shape)
+        x2d, shape = _bw_view(x)
+        codes, sc = bw_encode(x2d, spec.block, spec.bits, spec.torch_storage)
+        return _bw_qtensor(codes, sc, spec, shape)
+
+    def encode_many(self, xs: list[torch.Tensor],
+                    spec: QuantSpec) -> list[QTensor]:
+        views = [_bw_view(x) for x in xs]
+        pairs = bw_encode_many([v for v, _ in views], spec.block, spec.bits,
+                               spec.torch_storage)
+        return [_bw_qtensor(codes, sc, spec, shape)
+                for (codes, sc), (_, shape) in zip(pairs, views)]
 
     def decode(self, qt: QTensor, dtype=torch.float32) -> torch.Tensor:
         last = qt.shape[-1] if qt.shape else 1

@@ -4,9 +4,10 @@
 The int8 state (``opt_state_dtype="int8"``) is the ``optimizer_moment``
 site: each moment is a blockwise-int8 ``QTensor`` at ``MOMENT_SPEC``
 (block 256 along the last axis, shape-preserving), decoded before the
-update and encoded after it through the ``cuda`` codec — the
-``bw_dec``/``bw_enc`` kernels on the card, their plain versions on CPU
-tensors.
+update and encoded after it through the ``cuda`` codec — the ``bw_dec``
+kernel once per moment and one group launch of the ``bw_enc`` kernel for
+every m and v of the step on the card (the moments are then views into
+one codes and one scales buffer), their plain versions on CPU tensors.
 
 Leaf rule (``repro``'s ``_is_adam_leaf``, kept exactly): every floating
 leaf except ``lambda_*`` (closed-form Eq. 4 update) and ``wscale*`` gets
@@ -23,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from ..configs.base import TrainConfig
-from ..numerics import QTensor, QuantSpec, decode, encode
+from ..numerics import QTensor, QuantSpec, decode, encode_many
 from ..numerics.codecs import blockwise_geometry
 from ..tree import flatten_with_path, leaves, unflatten
 
@@ -89,13 +90,14 @@ def init_adam(params, cfg: TrainConfig) -> AdamState:
 def adam_update(params, grads, state: AdamState, lr, cfg: TrainConfig):
     """Returns (new_params, new_state). ``grads`` mirrors ``params``; a
     ``None`` gradient leaves its parameter and moments unchanged (the
-    zero-gradient update of a ``mean_abs`` leaf is the identity)."""
+    zero-gradient update of a ``mean_abs`` leaf is the identity). With int8
+    moments every updated m and v is encoded in one ``encode_many``."""
     int8 = _int8(cfg)
     b1, b2, eps, wd = cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay
     step = state.step + 1
     c1 = 1.0 - torch.pow(b1, step.float())
     c2 = 1.0 - torch.pow(b2, step.float())
-    new_p, new_m, new_v = [], [], []
+    new_p, new_m, new_v, moved = [], [], [], []
     for (path, p), g, m, v in zip(flatten_with_path(params), leaves(grads),
                                   state.m, state.v):
         if m is None or g is None:
@@ -117,12 +119,14 @@ def adam_update(params, grads, state: AdamState, lr, cfg: TrainConfig):
         p32 = p.float()
         p32 = p32 - lr * (update + decay * p32)
         new_p.append(p32.to(p.dtype))
-        if int8:
-            new_m.append(encode(m32, MOMENT_SPEC, backend="cuda"))
-            new_v.append(encode(v32, MOMENT_SPEC, backend="cuda"))
-        else:
-            new_m.append(m32)
-            new_v.append(v32)
+        moved.append(len(new_m))
+        new_m.append(m32)
+        new_v.append(v32)
+    if int8 and moved:
+        qs = encode_many([new_m[i] for i in moved] + [new_v[i] for i in moved],
+                         MOMENT_SPEC, backend="cuda")
+        for k, i in enumerate(moved):
+            new_m[i], new_v[i] = qs[k], qs[len(moved) + k]
     return (unflatten(params, new_p),
             AdamState(step, tuple(new_m), tuple(new_v)))
 

@@ -4,7 +4,8 @@ the port of ``repro/optim/grad_compress.py``'s single-program path.
 
 The quantizer is the ``dp_wire`` site: each gradient leaf is flattened and
 round-tripped through the blockwise int8 codec at block 1024 (one f32 scale
-per KiB of payload), on the card through the ``bw_enc``/``bw_dec`` kernels.
+per KiB of payload), on the card every leaf encoded by one group launch of
+the ``bw_enc`` kernel and each decoded by the ``bw_dec`` kernel.
 ``psum_int8``, the collective that puts the codes themselves on the wire,
 comes with the multi-device slice (ROADMAP queue 1).
 
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ..numerics import QuantSpec, roundtrip, spec_nbytes
+from ..numerics import QuantSpec, decode, encode_many, spec_nbytes
 from ..tree import leaves, unflatten
 
 WIRE_SPEC = QuantSpec("blockwise", 8, 1024, "int8", "per_tensor_max")
@@ -56,15 +57,14 @@ def compress_decompress(grads, residual, spec: QuantSpec = WIRE_SPEC):
     if residual is None:
         residual = tuple(torch.zeros_like(g, dtype=torch.float32)
                          if _is_float(g) else None for g in flat)
-    out, new_res = [], []
-    for g, r in zip(flat, residual):
-        if r is None or not _is_float(g):
-            out.append(g)
-            new_res.append(r)
-            continue
-        corrected = g.float() + r
-        deq = roundtrip(corrected.reshape(-1), spec,
-                        backend="cuda").reshape(g.shape)
-        out.append(deq.to(g.dtype))
-        new_res.append(corrected - deq)
+    out, new_res = list(flat), list(residual)
+    live = [i for i, (g, r) in enumerate(zip(flat, residual))
+            if r is not None and _is_float(g)]
+    corrected = [flat[i].float() + residual[i] for i in live]
+    qts = encode_many([c.reshape(-1) for c in corrected], spec,
+                      backend="cuda")
+    for i, c, qt in zip(live, corrected, qts):
+        deq = decode(qt, torch.float32, backend="cuda").reshape(c.shape)
+        out[i] = deq.to(flat[i].dtype)
+        new_res[i] = c - deq
     return unflatten(grads, out), tuple(new_res)

@@ -39,7 +39,13 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
     kernel at odd granules, unaligned, repeating bit for bit; the split
     and combine attention kernels each against its plain mirror, over
     span sizes 1, 2, 3 and 8 pages, a span where a row has no unmasked
-    key, model-dtype pages and 4-byte-granule head dims.
+    key, model-dtype pages and 4-byte-granule head dims;
+(l) the grouped launches: the fake-quant group (f32, bf16; bits 4/8/16)
+    and the blockwise encode group (int8, int16, int32, float32 codes) on
+    the step's leaf sets bit for bit with their twins and over two
+    launches, one launch per group and two just above the cap, and the
+    int8 moments of a grouped step saved byte for byte as the per-leaf
+    path's.
 """
 import math
 
@@ -62,7 +68,7 @@ from repro_torch.models import mlp_tt as MLP  # noqa: E402
 from repro_torch.numerics import cuda_backend as CB  # noqa: E402
 from repro_torch.optim import adam as A  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig, PoolConfig  # noqa: E402
-from repro_torch.tree import leaves, tree_map  # noqa: E402
+from repro_torch.tree import flatten_with_path, leaves, tree_map  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -756,3 +762,157 @@ def test_paged_attention_model_dtype_pages_and_odd_head_dims(cuda, dtype,
             ulp = torch.exp2(torch.floor(torch.log2(torch.clamp(
                 r, min=1e-30))) - (7 if dtype == torch.bfloat16 else 10))
             assert bool((diff <= 2 * ulp + 1e-5).all())
+
+
+# ---------------------------------------------------------------------------
+# (l) grouped launches: a layer's cores in one fake-quant launch, a moment
+#     or wire set in one blockwise encode launch
+# ---------------------------------------------------------------------------
+
+def _bits_of(t):
+    return t.view(torch.int16) if t.element_size() == 2 else \
+        t.view(torch.int32) if t.element_size() == 4 else t
+
+
+def _group_fq_case(cuda, bits, dtype, seed):
+    """Layer 1's four core shapes, an odd length (the scalar path), an
+    unaligned view and an empty tensor, each on the grid of its own step."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    sizes = [448, 4096, 1024, 4096, 4099, 0]
+    xs = [_fq_data(n, bits, dtype, g, cuda) for n in sizes]
+    xs.append(_fq_data(1025, bits, dtype, g, cuda)[1:])    # unaligned
+    steps = torch.tensor([-3.0, -4.0, -2.0, -3.0, -3.0, -1.0, -3.0],
+                         device=cuda)
+    return xs, steps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_grouped_fake_quant_bit_identical_in_one_launch(cuda, dtype, bits):
+    xs, steps = _group_fq_case(cuda, bits, dtype, bits)
+    B.reset_launches()
+    ys = CB.fake_quant_scalar_many(xs, steps, bits)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES == {"p2_fake_quant": 1}
+    again = CB.fake_quant_scalar_many(xs, steps, bits)
+    for y, r, a, x in zip(ys, CB.fake_quant_many_plain(xs, steps, bits),
+                          again, xs):
+        assert y.dtype == dtype and y.shape == x.shape
+        assert torch.equal(_bits_of(y), _bits_of(r))
+        assert torch.equal(_bits_of(a), _bits_of(y))
+    # through the codec API, with the clipped STE per tensor
+    live = [x.clone().requires_grad_() for x in xs]
+    out = TN.fake_quant_many(live, TN.QuantSpec("pow2", bits), steps,
+                             backend="cuda")
+    torch.autograd.backward(out, [torch.ones_like(o) for o in out])
+    for n, (x, o, y) in enumerate(zip(xs, out, ys)):
+        assert torch.equal(o, y)
+        assert torch.equal(live[n].grad,
+                           codecs.pow2_inside(x, steps[n], bits).to(dtype))
+
+
+def _moment_and_wire_sets(cuda, seed):
+    """The step's 34 moments ((rows, last) views, block 256) and 21 wire
+    leaves (flattened, block 1024), random, each with an all-zero first
+    quarter."""
+    d = MLP.make_mlp()
+    p = MLP.init_mlp(torch.Generator(device=cuda).manual_seed(0), d,
+                     device=cuda)
+    flat = dict(flatten_with_path(p))
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def data(shape):
+        x = torch.randn(shape, generator=g, device=cuda) * 0.05
+        x.view(-1)[:x.numel() // 4] = 0.0
+        return x
+    moments = [data(flat[k].shape) for k in A.adam_leaf_paths(p)] * 2
+    moments = [m.reshape(-1, m.shape[-1] if m.dim() else 1) for m in moments]
+    wire = [data((leaf.numel(),)).reshape(1, -1) for leaf in flat.values()
+            if isinstance(leaf, torch.Tensor) and leaf.is_floating_point()]
+    assert (len(moments), len(wire)) == (34, 21)
+    return moments, wire
+
+
+@pytest.mark.parametrize("storage,bits", [(torch.int8, 8), (torch.int16, 16),
+                                          (torch.int32, 24),
+                                          (torch.float32, 16)])
+def test_grouped_blockwise_encode_bit_identical_in_one_launch(cuda, storage,
+                                                              bits):
+    moments, wire = _moment_and_wire_sets(cuda, bits)
+    for xs, block in ((moments, 256), (wire, 1024)):
+        B.reset_launches()
+        got = CB.bw_encode_many(xs, block, bits, storage)
+        torch.cuda.synchronize()
+        assert B.LAUNCHES == {"bw_enc": 1}
+        again = CB.bw_encode_many(xs, block, bits, storage)
+        plain = CB.bw_encode_many_plain(xs, block, bits, storage)
+        for x, (c, s), (rc, rs), (ac, as_) in zip(xs, got, plain, again):
+            assert c.dtype == storage and c.shape == rc.shape
+            assert torch.equal(c, rc) and torch.equal(ac, c)
+            assert torch.equal(_bits_of(s), _bits_of(rs))
+            assert torch.equal(_bits_of(as_), _bits_of(s))
+            one_c, one_s = CB.bw_encode(x, block, bits, storage)
+            assert torch.equal(one_c, c) and torch.equal(_bits_of(one_s),
+                                                         _bits_of(s))
+        assert any((s == 0).any().item() for _, s in got)   # zero blocks
+
+
+def test_group_launches_one_per_cap(cuda):
+    """A group of exactly the cap is one launch, one more is two, and the
+    result is the twin's either way."""
+    from repro_torch.kernels import grouped as G
+    g = torch.Generator(device=cuda).manual_seed(9)
+    for cap, launches in ((G.FQ_CAP, 1), (G.FQ_CAP + 1, 2)):
+        xs = [torch.randn((37 * (i % 5) + 3,), generator=g, device=cuda)
+              for i in range(cap)]
+        steps = torch.full((cap,), -4.0, device=cuda)
+        B.reset_launches()
+        ys = CB.fake_quant_scalar_many(xs, steps, 4)
+        assert B.LAUNCHES == {"p2_fake_quant": launches}
+        for y, r in zip(ys, CB.fake_quant_many_plain(xs, steps, 4)):
+            assert torch.equal(_bits_of(y), _bits_of(r))
+    for cap, launches in ((G.BW_CAP, 1), (G.BW_CAP + 1, 2)):
+        xs = [torch.randn((i % 3 + 1, 40 * (i % 7) + 1), generator=g,
+                          device=cuda) for i in range(cap)]
+        B.reset_launches()
+        got = CB.bw_encode_many(xs, 16)
+        assert B.LAUNCHES == {"bw_enc": launches}
+        for (c, s), (rc, rs) in zip(got, CB.bw_encode_many_plain(xs, 16)):
+            assert torch.equal(c, rc) and torch.equal(_bits_of(s),
+                                                      _bits_of(rs))
+
+
+def test_int8_moments_of_a_grouped_step_save_as_the_per_leaf_path(
+        cuda, tmp_path, monkeypatch):
+    """After one int8-moment step the moments are views into one codes and
+    one scales buffer; saved through ckpt, the file is byte for byte the
+    one a step that encodes each moment alone writes."""
+    from repro_torch import ckpt as TCK
+    d = MLP.make_mlp()
+    tcfg = TrainConfig(learning_rate=3e-3, weight_decay=0.0,
+                       opt_state_dtype="int8")
+    p0 = MLP.init_mlp(torch.Generator(device=cuda).manual_seed(0), d,
+                      device=cuda)
+    xs, ys = TF.fashion_like(256, seed=1)
+    batch = {"x": torch.from_numpy(xs[:64]).to(cuda),
+             "y": torch.from_numpy(ys[:64]).to(cuda)}
+    step = TF.make_step(d, tcfg)
+    paths = []
+    for grouped in (True, False):
+        if not grouped:
+            monkeypatch.setattr(A, "encode_many", lambda vs, spec, backend: [
+                TN.encode(v, spec, backend=backend) for v in vs])
+        B.reset_launches()
+        p, o, _ = step(p0, A.init_adam(p0, tcfg), batch)
+        torch.cuda.synchronize()
+        assert B.LAUNCHES["bw_enc"] == (1 if grouped else 22)
+        if grouped:      # every moment the step moved, in one buffer
+            names = [k for k, _ in flatten_with_path(p0)] * 2
+            bases = {m.codes.untyped_storage().data_ptr()
+                     for k, m in zip(names, o.m + o.v)
+                     if m is not None and "mean_abs" not in k}
+            assert len(bases) == 1
+        paths.append(str(tmp_path / f"{grouped}.ckpt"))
+        TCK.save(paths[-1], {"params": p, "opt": o}, {"step": 1})
+    with open(paths[0], "rb") as f, open(paths[1], "rb") as g:
+        assert f.read() == g.read()

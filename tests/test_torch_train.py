@@ -317,7 +317,9 @@ def test_five_steps_match_the_jax_example_step():
 def test_kernel_wrappers_per_step_are_the_counted_ones(monkeypatch):
     """Each kernel wrapper is entered per step exactly as often as
     ``launches_per_step`` works out from the code (on the card each entry
-    is one launch; here each runs the plain version)."""
+    is one launch; here each runs the plain version). The fake-quant kernel
+    has two wrappers: the edges' single tensors and a layer's cores, one
+    group launch for the layer."""
     _, td = _defs()
     calls = collections.Counter()
 
@@ -328,6 +330,8 @@ def test_kernel_wrappers_per_step_are_the_counted_ones(monkeypatch):
         return f
     monkeypatch.setattr(CB, "fake_quant_scalar",
                         spy("p2_fake_quant", CB.fake_quant_scalar))
+    monkeypatch.setattr(CB, "fake_quant_scalar_many",
+                        spy("p2_fake_quant", CB.fake_quant_scalar_many))
     for name in ("pe1", "pe2", "pe3"):
         monkeypatch.setattr(TOPS, name, spy(name, getattr(TOPS, name)))
     tcfg = TrainConfig(learning_rate=LR, weight_decay=0.0)
@@ -339,7 +343,7 @@ def test_kernel_wrappers_per_step_are_the_counted_ones(monkeypatch):
         tp, opt, _ = step(tp, opt, tb)
         assert dict(calls) == {k: n * v for k, v in
                                TF.launches_per_step(td).items()}
-    assert TF.launches_per_step(td) == {"p2_fake_quant": 17, "pe1": 6,
+    assert TF.launches_per_step(td) == {"p2_fake_quant": 9, "pe1": 6,
                                         "pe2": 12, "pe3": 2}
 
 
