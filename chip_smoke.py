@@ -11,8 +11,15 @@ Phases (any failure raises and the script exits non-zero):
              in parallel) and print each kernel's register/spill report.
 2. kernels — each serving kernel against its plain PyTorch version at the
              serving path's shapes: the row-scale pow-2 encode (prefill rows 24 x
-             S*1024, decode rows 8 x 1024) and decode (gather rows 8 x
-             1024*1024) bit-exact; paged attention over an int8 pool
+             S*1024; the 8 x 1024 decode rows of the previous append) and
+             decode (gather rows 8 x 1024*1024) bit-exact; the paged KV
+             append (K and V of 8 slots x 8 heads x 128, bf16, into an int8
+             pool (513, 16, 8, 128), V a strided view, inactive slots and a
+             slot past its pages to the trash page) bit for bit with its
+             twin on the whole pool and over two launches, timed beside the
+             design it replaced (page arithmetic, p2_enc_rows and
+             index_put_ for K and for V: ``previous_ms``); paged attention
+             over an int8 pool
              (513, 16, 8, 128) with B=8, S in {1, 4}, ragged contexts up to
              1024, within 1e-5 in fp32 and 2 bf16 ulp (+1e-5) with bf16 q,
              bit-identical over two launches, and each of its two kernels
@@ -39,21 +46,26 @@ Phases (any failure raises and the script exits non-zero):
              paged pool (8 slots x 64 pages of 16) and fused paged
              attention, serving 16 requests (seeded prompts of 128..512
              tokens, 64 new tokens each). Launch counts are zeroed just
-             before and read just after: every pool write went through the
-             encode kernel and each decode step launched paged attention
-             once per layer. The gather engine (the default path) then
-             serves the same requests with its counts zeroed, which is
-             where the decode kernel runs. Last, a steady window of decode
-             steps is timed on the host and profiled on the device: step
-             time, device time per kernel, busy share.
+             before and read just after: each decode step launched the
+             paged KV append and paged attention once per layer, and the
+             row-scale encode ran for the prefills alone (K and V once
+             each). The gather engine (the default path) then serves the
+             same requests with its counts zeroed, which is where the
+             decode kernel runs. Last, a steady window of decode steps is
+             timed on the host and profiled on the device: step time,
+             device time per kernel, busy share, and the append by name
+             (p2_append_paged_kernel 24 a step, p2_enc_rows_kernel none;
+             asserted).
    serve chunked prefix — the fourth main path, on the same model:
              chunked prefill (128) with the radix prefix cache, 16 requests
              (12 behind a shared 256-token preamble, 4 of them diverging
              mid-page for a COW fork; 4 random), 64 new tokens each; counts
              zeroed just before and read just after: 48 p2_enc and 48
              p2_dec per chunk step (the chunk steps counted from the
-             prefills and their hits), paged attention once per layer per
-             decode step; hits, forks and saved pages must be non-zero.
+             prefills and their hits), paged attention and the KV append
+             once per layer per decode step, p2_enc_rows twice per
+             whole-prompt prefill; hits, forks and saved pages must be
+             non-zero.
              Then one chunk step's host and device time, profiled.
 4. identity — the same requests in float32 at full width with 4 layers:
              fused and gather engines must emit identical greedy tokens.
@@ -82,10 +94,11 @@ Phases (any failure raises and the script exits non-zero):
              moment shape (block 256) and every flattened gradient-leaf
              length of the wire (block 1024) of the step, a padded
              multi-block (3, 1000) at block 256 and an all-zero block; the
-             step's two encode groups (its 34 moments, its 21 wire leaves)
-             each in one launch, bit for bit with the twin, the one-entry
-             launches and a second launch, timed beside the loop of
-             one-entry launches it replaced (``previous_ms``); the
+             step's two encode groups and two decode groups (its 34
+             moments, its 21 wire leaves) each in one launch, bit for bit
+             with the twin, the one-entry launches and a second launch,
+             timed beside the loop of one-entry launches it replaced
+             (``previous_ms``); the
              packed int4x2 encode/decode kernels on the six FMNIST cores
              at their wscale_log2, a stacked tensor with a step per row and
              an odd trailing dim, and a scalar. Each timed beside its bound,
@@ -115,7 +128,7 @@ Phases (any failure raises and the script exits non-zero):
              loaded back by ``load_tt_deploy`` on the card, its cores equal
              to encode -> decode of the params bit for bit; a profiled
              window of wire steps (bw_enc_group_kernel 2 launches a step,
-             bw_dec_kernel 55, p2_fq_group_kernel 9; asserted).
+             bw_dec_group_kernel 2, p2_fq_group_kernel 9; asserted).
 8. train wire identity — one wire step from the same state on the card and
              on the CPU, under the CPU parity tests' tolerances.
 
@@ -132,6 +145,12 @@ the time of each phase reads as a difference (no profiler of kernel
 internals works on the card's machine). ``--pa-anatomy`` does the same for
 the attention split pass (K/V staging, query load, scores, softmax, P @ V)
 beside its combine pass. Neither prints a result line.
+
+``python3 chip_smoke.py --tokens PATH [--src DIR]`` serves the engine
+phase's requests (fused and gather) and the chunked-prefix run's at full
+width with the port found under DIR (default: this checkout's ``src``;
+another tree's ``src`` compares two versions in one call) and writes their
+greedy tokens to PATH as JSON; no result line.
 """
 from __future__ import annotations
 
@@ -150,7 +169,8 @@ BF16_OPS_PER_S = 989e12            # dense bf16 tensor-core peak
 FP32_OPS_PER_S = 67e12             # fp32 peak outside the tensor cores
 ARCH = "internlm2-1.8b"
 SOURCES = ["pow2_rows", "paged_attention", "pow2_fq", "ttm_pe", "ttm_pe1",
-           "ttm_pe2", "ttm_pe3", "blockwise", "pow2_packed", "pow2_scalar"]
+           "ttm_pe2", "ttm_pe3", "blockwise", "pow2_packed", "pow2_scalar",
+           "kv_append"]
 TRAIN_STEPS = 300
 
 
@@ -251,6 +271,109 @@ def _bf16_excess(diff, ref) -> tuple[float, float]:
             (diff - 2 * ulp - 1e-5).max().item())
 
 
+APPEND_NONE = ("none: no PyTorch call encodes tokens under per-slot scales "
+               "into their pages")
+
+
+def _append_inputs(torch, gen):
+    """A decode step's append at full width: K and V of 8 slots x 8 heads x
+    128 in bf16 (V the strided half of the fused kv projection, as
+    ``gqa_qkv`` slices it) into an int8 pool (513, 16, 8, 128) of random
+    codes, 64 pages a slot. Slots at the first and the last offset of a
+    page and at the last of their last page, two inactive slots at distinct
+    trash offsets, one slot past its pages (trash); scales cover each
+    slot's max but one slot's, which clips at both ends."""
+    b, hkv, dh, page, pps = 8, 8, 128, 16, 64
+    total = b * pps
+    pools = [torch.randint(-128, 128, (total + 1, page, hkv, dh),
+                           generator=gen, device=gen.device).to(torch.int8)
+             for _ in range(2)]
+    table = torch.randperm(total, generator=gen, device=gen.device).reshape(
+        b, pps).to(torch.int32)
+    lens = torch.tensor([0, 15, page * pps - 1, 100, 16, 511, page * pps, 5],
+                        dtype=torch.int32, device=gen.device)
+    active = torch.tensor([1, 1, 1, 0, 1, 1, 1, 0], dtype=torch.bool,
+                          device=gen.device)
+    kv = (torch.randn((b, 1, 2, hkv, dh), generator=gen, device=gen.device) * 3
+          ).to(torch.bfloat16)
+    k, v = kv[:, :, 0].contiguous(), kv[:, :, 1]
+    scales = [torch.ceil(torch.log2(t.float().abs().amax((1, 2, 3)) / 127))
+              for t in (k, v)]
+    scales[0][0] -= 1
+    return (pools[0], pools[1], scales[0], scales[1], k, v, table, lens,
+            active), dict(page_size=page, bits=8)
+
+
+def _append_previous(CB, KA, kd, vd, ks, vs, k, v, table, lens, active, *,
+                     page_size, bits):
+    """The design the append replaced, per tensor: the page arithmetic,
+    the row-scale encode kernel and an ``index_put_``."""
+    for data, s, new in ((kd, ks, k), (vd, vs, v)):
+        b = new.shape[0]
+        pages, offs = KA.append_slots(table, lens, active, page_size,
+                                      data.shape[0] - 1)
+        codes = CB.encode_rows(new.reshape(b, -1), s, bits)
+        data.index_put_((pages, offs), codes.reshape((b,) + data.shape[2:]))
+
+
+def _append_row(torch, timer, gen) -> dict:
+    """The paged KV append against its twin on the whole pool, bit for bit
+    (trash page included), over two launches and against the previous
+    design; timed beside the twin and that design (``previous_ms``)."""
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import kv_append as KA
+    from repro_torch.numerics import cuda_backend as CB
+    args, kw = _append_inputs(torch, gen)
+    kd, vd = args[0], args[1]
+    check(not args[5].is_contiguous(), "append: V is not a strided view")
+    orig = kd.clone()
+    want = [kd.clone(), vd.clone()]
+    KA.append_paged_torch(*want, *args[2:], **kw)
+    prev = [kd.clone(), vd.clone()]
+    _append_previous(CB, KA, *prev, *args[2:], **kw)
+    _sync(torch, kd.device)
+    B.reset_launches()
+    KA.append_paged_cuda(*args, **kw)
+    _sync(torch, kd.device)
+    check(B.LAUNCHES == {"p2_append_paged": 1},
+          f"p2_append_paged launches {B.LAUNCHES}")
+    check(torch.equal(kd, want[0]) and torch.equal(vd, want[1]),
+          "p2_append_paged pool differs from the twin")
+    check(torch.equal(kd, prev[0]) and torch.equal(vd, prev[1]),
+          "p2_append_paged pool differs from the previous design")
+    written = (kd != orig).flatten(2).any(2)          # (pages, offsets)
+    check(bool(written[-1, [0, 4, 5]].all()),
+          "p2_append_paged: the trash page missed an inactive slot")
+    codes = kd[KA.append_slots(*args[6:], kw["page_size"], kd.shape[0] - 1)]
+    check(codes.min().item() == -128 and codes.max().item() == 127,
+          "append data did not reach both clip ends")
+    again = [kd.clone(), vd.clone()]
+    KA.append_paged_cuda(*again, *args[2:], **kw)
+    check(torch.equal(again[0], kd) and torch.equal(again[1], vd),
+          "p2_append_paged: two launches differ")
+    n = 2 * args[4].numel()                           # K and V elements
+    b = args[4].shape[0]
+    row = dict(shape=[list(args[4].shape), list(kd.shape)],
+               what="decode append, 8 slots", max_abs_err=0.0,
+               ms=timer(lambda: KA.append_paged_cuda(*args, **kw)),
+               previous_ms=timer(lambda: _append_previous(CB, KA, *args,
+                                                          **kw)),
+               plain_ms=timer(lambda: KA.append_paged_torch(*args, **kw),
+                              iters=10),
+               library_ms=None, library_note=APPEND_NONE)
+    # bf16 in, int8 codes out, and per slot two scales, a length, an
+    # active flag and one table entry
+    row["bound_ms"], row["bound_by"] = bound_ms(n * 3 + b * 17, 2 * n,
+                                                FP32_OPS_PER_S)
+    log(f"p2_append_paged (K and V, {b} slots x {args[4].shape[2]} x "
+        f"{args[4].shape[3]} bf16): {row['ms']*1e3:.2f} us one launch "
+        f"(previous design {row['previous_ms']*1e3:.2f} us, plain "
+        f"{row['plain_ms']*1e3:.1f} us, library {APPEND_NONE[:4]}, bound "
+        f"{row['bound_ms']*1e3:.4f} us); pool bit-exact with the twin and "
+        "the previous design, trash page written, two launches equal")
+    return row
+
+
 def phase_kernels(torch, timer: Timer) -> dict:
     from repro_torch.kernels import build as B
     from repro_torch.kernels import paged_attention as PA
@@ -261,9 +384,9 @@ def phase_kernels(torch, timer: Timer) -> dict:
 
     # --- row-scale encode: decode-append rows (8 x 1024) and prefill rows
     enc_shapes = []
-    for rows, cols, what in ((8, 8 * 128, "decode append"),
-                             (24, 512 * 8 * 128, "prefill S=512"),
-                             (24, 128 * 8 * 128, "prefill S=128")):
+    for rows, cols, what in ((24, 512 * 8 * 128, "prefill S=512"),
+                             (24, 128 * 8 * 128, "prefill S=128"),
+                             (8, 8 * 128, "previous decode append")):
         x = (torch.randn((rows, cols), generator=gen, device="cuda") * 3
              ).to(torch.bfloat16)
         # the pool's scales: smallest pow-2 step covering each row's max
@@ -289,6 +412,7 @@ def phase_kernels(torch, timer: Timer) -> dict:
             f"(plain {pms*1e3:.1f} us, library {lnote}, bound "
             f"{bms*1e3:.2f} us), codes exact")
     out["p2_enc_rows"] = enc_shapes
+    out["p2_append_paged"] = [_append_row(torch, timer, gen)]
 
     # --- row-scale decode: the gather path's view (8 x 1024*1024) -> bf16
     dec_shapes = []
@@ -595,6 +719,20 @@ def full_model(torch):
     return lm, params
 
 
+def _check_appends(what, launches, summ, prefills, cfg) -> None:
+    """Each decode step appended K and V once a layer through
+    p2_append_paged, and p2_enc_rows ran for the ``prefills`` whole-prompt
+    prefills alone (K and V, one launch each)."""
+    want = summ["decode_steps"] * cfg.num_layers
+    check(summ["decode_steps"] > 0
+          and launches.get("p2_append_paged", 0) == want,
+          f"{what}: {launches.get('p2_append_paged', 0)} append launches for "
+          f"{summ['decode_steps']} decode steps x {cfg.num_layers} layers")
+    check(prefills > 0 and launches.get("p2_enc_rows", 0) == 2 * prefills,
+          f"{what}: {launches.get('p2_enc_rows', 0)} p2_enc_rows launches "
+          f"for {prefills} whole-prompt prefills")
+
+
 def phase_engine(torch, lm, params) -> dict:
     from repro_torch.kernels import build as B
 
@@ -604,9 +742,10 @@ def phase_engine(torch, lm, params) -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     B.reset_launches()
-    fused_toks, fs = _serve(torch, lm, params, True, prompts, 64)
-    main = dict(B.LAUNCHES)
-    check(main.get("p2_enc_rows", 0) > 0, "fused path: no encode launch")
+    eng, fused_toks = _serve_engine(torch, lm, params, prompts, 64,
+                                    fused_attention=True)
+    main, fs = dict(B.LAUNCHES), eng.summary()
+    _check_appends("fused path", main, fs, len(eng.metrics.prefills), cfg)
     check(main.get("paged_attention", 0) ==
           fs["decode_steps"] * cfg.num_layers,
           f"fused path: {main.get('paged_attention', 0)} attention launches "
@@ -617,8 +756,10 @@ def phase_engine(torch, lm, params) -> dict:
     peak = torch.cuda.max_memory_allocated()
 
     B.reset_launches()
-    gather_toks, gs = _serve(torch, lm, params, False, prompts, 64)
-    gather = dict(B.LAUNCHES)
+    eng, gather_toks = _serve_engine(torch, lm, params, prompts, 64,
+                                     fused_attention=False)
+    gather, gs = dict(B.LAUNCHES), eng.summary()
+    _check_appends("gather path", gather, gs, len(eng.metrics.prefills), cfg)
     check(gather.get("p2_dec_rows", 0) > 0, "gather path: no decode launch")
     check(gather.get("paged_attention", 0) == 0
           and gather.get("paged_attention_combine", 0) == 0,
@@ -663,17 +804,29 @@ def _profile_decode(torch, lm, params, prompts, steps: int = 20) -> dict:
     wall = (time.perf_counter() - t0) / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _pad_window(torch)
         for _ in range(steps):
             eng.step()
-        torch.cuda.synchronize()
+        _pad_window(torch)
     total, rows = _device_summary(torch, prof, steps)
     log(f"decode profile: {wall*1e3:.2f} ms per step (host wall), device "
         f"{total:.2f} ms busy, busy share {total / (wall*1e3):.3f}")
     for r in rows:
         log(f"  {r['ms_per_step']:8.3f} ms  {r['calls_per_step']:6.1f}x  "
             f"{r['name']}")
+    kern = _kernel_profile(torch, prof, steps, ["p2_append_paged_kernel",
+                                                "p2_enc_rows_kernel"])
+    for name, r in kern.items():
+        log(f"  kernel {name}: {r['calls_per_step']:.1f} launches, "
+            f"{r['ms_per_step']*1e3:.1f} us a step")
+    layers = lm.cfg.num_layers
+    check({k: r["calls_per_step"] for k, r in kern.items()}
+          == {"p2_append_paged_kernel": float(layers)},
+          f"decode profile kernels {kern}, want p2_append_paged_kernel "
+          f"{layers} a step and no p2_enc_rows_kernel")
     return {"step_ms": wall * 1e3, "device_ms": total,
-            "busy_share": total / (wall * 1e3), "top": rows}
+            "busy_share": total / (wall * 1e3), "top": rows,
+            "kernels": kern}
 
 
 def phase_identity(torch) -> dict:
@@ -1306,7 +1459,7 @@ def _device_summary(torch, prof, steps: int) -> tuple[float, list]:
 # launch-count name -> the kernel function's name in a profile
 KERNEL_FN = {"pe1": "pe1_kernel", "pe2": "pe2_kernel", "pe3": "pe3_kernel",
              "p2_fake_quant": "p2_fq_group_kernel",
-             "bw_enc": "bw_enc_group_kernel", "bw_dec": "bw_dec_kernel"}
+             "bw_enc": "bw_enc_group_kernel", "bw_dec": "bw_dec_group_kernel"}
 
 
 def _profile_train(torch, one, per: dict, steps: int = 20):
@@ -1446,6 +1599,8 @@ PACKED_NONE = ("none: no PyTorch call packs signed int4 pairs (quint4x2 "
                "is unsigned with a zero point and has no CUDA kernel)")
 BW_ENC_NONE = ("none: no PyTorch call derives per-block absmax scales "
                "(quantize_per_channel takes the scales as input)")
+BW_DEC_GROUP_NONE = ("none: no one PyTorch call dequantizes a list of "
+                     "tensors (one per-channel dequantize a leaf)")
 
 
 def _bw_row(torch, timer, shape, block, gen, what) -> dict:
@@ -1498,13 +1653,15 @@ def _bw_row(torch, timer, shape, block, gen, what) -> dict:
     return enc, dec
 
 
-def _bw_group_rows(torch, timer, gen, device) -> list:
+def _bw_group_rows(torch, timer, gen, device) -> tuple[list, list]:
     """The step's two encode groups, each in one launch: the 34 moments (m
     and v of the 17 Adam leaves, block 256) and the 21 wire leaves
     (flattened, block 1024), random, each leaf's first quarter zero (all-
     zero blocks). Codes and scales bit for bit with the twin, with the
     loop of one-entry launches and over two launches; timed beside that
-    loop (``previous_ms``); the bound is the group's bytes."""
+    loop (``previous_ms``); the bound is the group's bytes. Then the two
+    decode groups of those codes, likewise. Returns (encode rows, decode
+    rows)."""
     from repro_torch import numerics as TN
     from repro_torch.kernels import build as B
     from repro_torch.models import mlp_tt as MLP
@@ -1526,7 +1683,7 @@ def _bw_group_rows(torch, timer, gen, device) -> list:
             if isinstance(leaf, torch.Tensor) and leaf.is_floating_point()]
     check((len(moments), len(wire)) == (34, 21),
           f"leaf sets {len(moments)} / {len(wire)}, want 34 / 21")
-    rows = []
+    rows, dec_rows = [], []
     for what, xs, block in (("group moments", moments, 256),
                             ("group wire", wire, 1024)):
         _sync(torch, device)
@@ -1571,7 +1728,57 @@ def _bw_group_rows(torch, timer, gen, device) -> list:
             f"{row['plain_ms']*1e3:.1f} us, bound {row['bound_ms']*1e3:.3f}"
             f" us); bit-exact, {zero} all-zero blocks, two launches equal")
         rows.append(row)
-    return rows
+        dec_rows.append(_bw_dec_group_row(torch, timer, got, xs, block,
+                                          what, device))
+    return rows, dec_rows
+
+
+def _bw_dec_group_row(torch, timer, pairs, xs, block, what, device) -> dict:
+    """One decode group (the codes and scales ``pairs`` of the leaves
+    ``xs``) in one launch: values bit for bit with the twin, with the
+    one-entry launches and over two launches, in one output buffer; timed
+    beside the loop of one-entry launches (``previous_ms``)."""
+    from repro_torch.kernels import build as B
+    from repro_torch.numerics import cuda_backend as CB
+    codes, scales = [c for c, _ in pairs], [sc for _, sc in pairs]
+    lasts = [x.shape[1] for x in xs]
+    _sync(torch, device)
+    B.reset_launches()
+    ys = CB.bw_decode_many(codes, scales, lasts)
+    _sync(torch, device)
+    check(B.LAUNCHES == {"bw_dec": 1},
+          f"bw_dec {what}: launches {B.LAUNCHES}")
+    check(len({y.untyped_storage().data_ptr() for y in ys}) == 1,
+          f"bw_dec {what}: values not in one buffer")
+    again = CB.bw_decode_many(codes, scales, lasts)
+    for i, (c, sc, last, y, r, a) in enumerate(zip(
+            codes, scales, lasts, ys,
+            CB.bw_decode_many_plain(codes, scales, lasts), again)):
+        check(_bits_equal(torch, y, r),
+              f"bw_dec {what} leaf {i}: differs from the twin")
+        check(_bits_equal(torch, y, CB.bw_decode(c, sc, last)),
+              f"bw_dec {what} leaf {i}: differs from a one-entry launch")
+        check(_bits_equal(torch, a, y),
+              f"bw_dec {what} leaf {i}: two launches differ")
+    n = sum(x.numel() for x in xs)
+    nbytes = sum(c.numel() * c.element_size() + sc.numel() * 4
+                 for c, sc in pairs) + 4 * n
+    row = dict(shape=[list(x.shape) for x in xs], block=block, what=what,
+               entries=len(xs), max_abs_err=0.0,
+               ms=timer(lambda: CB.bw_decode_many(codes, scales, lasts)),
+               previous_ms=timer(lambda: [
+                   CB.bw_decode(c, sc, last)
+                   for c, sc, last in zip(codes, scales, lasts)]),
+               plain_ms=timer(lambda: CB.bw_decode_many_plain(
+                   codes, scales, lasts), iters=10),
+               library_ms=None, library_note=BW_DEC_GROUP_NONE)
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, n, FP32_OPS_PER_S)
+    log(f"bw_dec {what} ({len(xs)} leaves, {n} elements): "
+        f"{row['ms']*1e3:.1f} us one launch (one-entry loop "
+        f"{row['previous_ms']*1e3:.1f} us, plain {row['plain_ms']*1e3:.1f} "
+        f"us, bound {row['bound_ms']*1e3:.3f} us); bit-exact, one output "
+        "buffer, two launches equal")
+    return row
 
 
 def _library_bw_decode(torch, codes, sc, b, last):
@@ -1633,15 +1840,16 @@ def phase_wire_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
     from repro_torch.kernels import build as B
     from repro_torch.models import mlp_tt as MLP
     gen = torch.Generator(device=device).manual_seed(3)
-    enc, dec = [], []
     cases = [(s, 256, "moment") for s in MOMENT_SHAPES]
     cases += [((n,), 1024, "wire") for n in WIRE_LENGTHS]
     cases += [((3, 1000), 256, "padded")]
+    # the groups first: the main path launches them (the kernels line
+    # reads each kernel's first row)
+    enc, dec = _bw_group_rows(torch, timer, gen, device)
     for shape, block, what in cases:
         e, d_ = _bw_row(torch, timer, shape, block, gen, what)
         enc.append(e)
         dec.append(d_)
-    enc += _bw_group_rows(torch, timer, gen, device)
     d = MLP.make_mlp()
     params = MLP.init_mlp(torch.Generator(device=device).manual_seed(0), d,
                           device=device)
@@ -2178,6 +2386,8 @@ def phase_serve_chunked(torch, lm, params) -> dict:
           == launches.get("paged_attention_combine", 0),
           f"{launches.get('paged_attention', 0)} attention launches for "
           f"{s['decode_steps']} decode steps")
+    _check_appends("serve chunked prefix", launches, s,
+                   sum(1 for _, hit in eng.metrics.prefills if not hit), cfg)
     tree = eng.sched.prefix.bytes_stats(KC.page_nbytes(eng.pool, eng.pcfg))
     savings = s["prompt_tokens"] / s["prefill_tokens"]
     log(f"serve chunked prefix: {s['requests_completed']} requests, "
@@ -2288,6 +2498,8 @@ def phase_chunked_identity(torch) -> dict:
 KERNELS = {
     "p2_enc_rows": ("src/repro_torch/kernels/csrc/pow2_rows.cu",
                     "src/repro/numerics/pallas_backend.py:189"),
+    "p2_append_paged": ("src/repro_torch/kernels/csrc/kv_append.cu",
+                        "src/repro/numerics/pallas_backend.py:189"),
     "p2_dec_rows": ("src/repro_torch/kernels/csrc/pow2_rows.cu",
                     "src/repro/numerics/pallas_backend.py:196"),
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -2372,6 +2584,25 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
     return {"kernels": rows}
 
 
+def phase_tokens(torch, path: str) -> None:
+    """The greedy tokens of the serving runs at full width (engine fused
+    and gather, chunked prefix), written to ``path``."""
+    lm, params = full_model(torch)
+    prompts = _requests(lm.cfg.vocab_size)
+    out = {}
+    for name, kw in (("fused", dict(fused_attention=True)),
+                     ("gather", dict(fused_attention=False)),
+                     ("chunked_prefix", dict(fused_attention=True,
+                                             prefill_chunk=CHUNK,
+                                             prefix_cache=True))):
+        reqs = (_chunked_prefix_requests(lm.cfg.vocab_size)
+                if name == "chunked_prefix" else prompts)
+        _, out[name] = _serve_engine(torch, lm, params, reqs, 64, **kw)
+        log(f"tokens {name}: {len(out[name])} completions")
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(json.dumps(out))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON here")
@@ -2381,12 +2612,17 @@ def main(argv=None) -> int:
     ap.add_argument("--pa-anatomy", action="store_true",
                     help="only build and time the attention split pass with "
                     "one phase cut out at a time (no result line)")
+    ap.add_argument("--tokens", metavar="PATH",
+                    help="only serve the engine and chunked-prefix requests "
+                    "and write their tokens here (no result line)")
+    ap.add_argument("--src", help="the directory holding repro_torch "
+                    "(default: src beside this script)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    src = ROOT / "src"
+    src = Path(args.src).resolve() if args.src else ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: {src}/repro_torch not found", file=sys.stderr)
         return 2
@@ -2399,6 +2635,9 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"device: {torch.cuda.get_device_name(0)} ({smi}), torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
+    if args.tokens:
+        phase_tokens(torch, args.tokens)
+        return 0
     t0 = time.perf_counter()
     report = {"device": smi}
     report["build"] = phase_build()

@@ -9,7 +9,7 @@
 // and v) and the gradient wire (`optim/grad_compress.py`, block 1024: every
 // floating gradient leaf flattened and round-tripped): a wire step's 55
 // leaves are encoded in two launches (the 34 moments, the 21 wire leaves)
-// and decoded in 55.
+// and decoded in two (the same two sets).
 //
 // Geometry (`codecs.blockwise_geometry`): b = min(block, max(1, last)),
 // nb = ceil(last / b); elements past `last` in the last block are zero pads,
@@ -26,13 +26,14 @@
 //
 // Bound on the H100: bytes (4 in, 1-4 + 4/b out per element, a handful of
 // operations each) — and at the step's sizes (a few thousand elements a
-// leaf) launch latency, far above either bound.
+// leaf) launch latency, far above either bound. Both directions therefore
+// take a group of leaves in one launch: a table passed by value as a
+// __grid_constant__ parameter (no copy to the device, no extra launch),
+// sized to the group (1, 8 or kBwCap entries), since a launch's parameters
+// cost launch time; a single leaf passes a table of one.
 // Design, encode: one launch covers a group of up to kBwCap leaves of one
 // storage type and bit width (the step's 34 moments, or its 21 wire
-// leaves), described by a table passed by value as a __grid_constant__
-// parameter (no copy to the device, no extra launch), sized to the group:
-// the parameters' bytes cost launch time, so a single leaf passes a table
-// of one. The work unit is a warp task, and its mapping follows each
+// leaves). The work unit is a warp task, and its mapping follows each
 // leaf's b: for b <= 32 a warp codes 32 consecutive blocks, one per lane
 // (the moments' blocks are 1 or 16 wide, and a warp per block would leave
 // most lanes idle); for b > 32 a warp codes one block, each lane striding
@@ -42,9 +43,23 @@
 // up to b = 1,024 in registers): at these sizes a chain of dependent
 // loads, not bytes, is what a task waits on. Warps walk the tasks with a grid-stride
 // loop and find their leaf by a binary search of the table's prefix of task
-// counts, so both mappings live in one launch. Decode is one thread per
-// output element (pads are never read back). No shared memory, no
-// synchronisation beyond the warp shuffle.
+// counts, so both mappings live in one launch.
+// Design, decode: one launch covers up to kBwCap leaves, each entry with its
+// own code type (a CTA-uniform switch), and writes every leaf's f32 values
+// into ONE output buffer at the entry's offset (the wrapper hands out views
+// of it: one allocation a launch, not one a leaf). The work unit is a tile
+// of kDecTile consecutive output elements of one leaf (never two), a CTA's
+// work at a time; CTAs walk the tiles grid-stride and find their leaf by a
+// binary search of the tile prefix, as the encode does. Where b % 4 == 0,
+// last % 4 == 0 and the codes start on 4 codes (the encode group puts each
+// leaf on 16 bytes) a thread reads 4 codes in one load, all of one row and
+// one block (one scale), and writes a float4; a leaf of last = 1 (a code
+// and a scale a row) skips the index arithmetic and, where its scales
+// start on 16 bytes, reads 4 of each a load; elsewhere threads take single
+// elements, coalesced. Index arithmetic is 32-bit wherever a leaf's codes
+// fit (a 64-bit division is a long software sequence, and a b = 1 leaf
+// takes its divisions per element). Pads are never read. No shared
+// memory, no synchronisation.
 
 #include "pow2_codes.cuh"
 
@@ -60,7 +75,7 @@ __device__ __forceinline__ Q bw_code(float v, float d, float qmax) {
   return to_code<Q>(fminf(fmaxf(rintf(v / d), -qmax), qmax));
 }
 
-constexpr int kBwCap = 48;      // leaves an encode launch takes
+constexpr int kBwCap = 48;      // leaves a launch takes, either way
 constexpr int kLaneBlock = 32;  // b <= kLaneBlock: a lane codes a block
 constexpr int kWarpVecs = 8;    // b <= 4 * 32 * kWarpVecs: a warp codes a
                                 // block from registers
@@ -202,15 +217,117 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename Q>
-__global__ void bw_dec_kernel(const Q* __restrict__ q, const float* __restrict__ sc,
-                              float* __restrict__ y, long long rows, long long last,
-                              long long b, long long nb) {
-  const long long n = rows * last;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const long long r = i / last, c = i % last;
-    y[i] = to_f32(q[r * nb * b + c]) * __ldg(sc + r * nb + c / b);
+constexpr int kDecTile = 4 * kThreads;   // output elements a CTA decodes
+
+// The decode group's table, passed by value: N entries sized to the group
+// (N = 1, 8 or kBwCap; 3.3 KB at kBwCap). tile_end[e] is the prefix sum of
+// ceil(rows * last / kDecTile) of leaves 0..e.
+template <int N>
+struct BwdGroup {
+  const void* q[N];            // (rows, nb * b) codes of code[e]
+  const float* sc[N];          // (rows, nb) scales
+  long long y_off[N];          // elements into y: the leaf's (rows, last)
+  long long rows[N], last[N], b[N], nb[N];
+  long long tile_end[N];
+  int code[N];
+  int count;
+  float* y;                    // the launch's one f32 output buffer
+};
+
+// one tile of a leaf: outputs base .. base + kDecTile - 1 of its n, with
+// index arithmetic in I (32-bit where the leaf's codes fit: a 64-bit
+// division is a long software sequence, and b = 1 leaves take three an
+// element)
+template <typename Q, typename I>
+__device__ __forceinline__ void bw_dec_tile(const Q* __restrict__ q, const float* __restrict__ sc,
+                                            float* __restrict__ y, I base, I n, I last, I b,
+                                            I nb) {
+  const I row_codes = nb * b;
+  if (last == 1) {
+    // b = nb = 1 (the moments' (..., 1) leaves, a 0-d leaf): a code and a
+    // scale a row, no index arithmetic
+    if (n % 4 == 0 && aligned(q, 4 * sizeof(Q)) && aligned(sc, 16) && aligned(y, 16)) {
+      const I i = base + 4 * (I)threadIdx.x;
+      if (i < n) {
+        const Vec4<Q> in = *reinterpret_cast<const Vec4<Q>*>(q + i);
+        const float4 s = *reinterpret_cast<const float4*>(sc + i);
+        float4 out;
+        out.x = to_f32(in.v[0]) * s.x;
+        out.y = to_f32(in.v[1]) * s.y;
+        out.z = to_f32(in.v[2]) * s.z;
+        out.w = to_f32(in.v[3]) * s.w;
+        *reinterpret_cast<float4*>(y + i) = out;
+      }
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const I i = base + (I)(j * kThreads + threadIdx.x);
+      if (i < n) y[i] = to_f32(q[i]) * __ldg(sc + i);
+    }
+    return;
+  }
+  if (b % 4 == 0 && last % 4 == 0 && aligned(q, 4 * sizeof(Q)) && aligned(y, 16)) {
+    // 4 outputs of one row and one block (last % 4 == 0 keeps i + 3 < n)
+    const I i = base + 4 * (I)threadIdx.x;
+    if (i < n) {
+      const I r = i / last, c = i % last;
+      const float s = __ldg(sc + r * nb + c / b);
+      const Vec4<Q> in = *reinterpret_cast<const Vec4<Q>*>(q + r * row_codes + c);
+      float4 out;
+      out.x = to_f32(in.v[0]) * s;
+      out.y = to_f32(in.v[1]) * s;
+      out.z = to_f32(in.v[2]) * s;
+      out.w = to_f32(in.v[3]) * s;
+      *reinterpret_cast<float4*>(y + i) = out;
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const I i = base + (I)(j * kThreads + threadIdx.x);
+    if (i < n) {
+      const I r = i / last, c = i % last;
+      y[i] = to_f32(q[r * row_codes + c]) * __ldg(sc + r * nb + c / b);
+    }
+  }
+}
+
+template <typename I, int N>
+__device__ __forceinline__ void bw_dec_entry(const BwdGroup<N>& g, int e, long long base) {
+  const I last = (I)g.last[e], b = (I)g.b[e], nb = (I)g.nb[e];
+  const I n = (I)(g.rows[e] * g.last[e]);
+  float* y = g.y + g.y_off[e];
+  switch (g.code[e]) {   // uniform across the CTA
+    case I8: bw_dec_tile<int8_t, I>(static_cast<const int8_t*>(g.q[e]), g.sc[e], y, (I)base, n,
+                                    last, b, nb); break;
+    case I16: bw_dec_tile<int16_t, I>(static_cast<const int16_t*>(g.q[e]), g.sc[e], y, (I)base,
+                                      n, last, b, nb); break;
+    case I32: bw_dec_tile<int32_t, I>(static_cast<const int32_t*>(g.q[e]), g.sc[e], y, (I)base,
+                                      n, last, b, nb); break;
+    default: bw_dec_tile<float, I>(static_cast<const float*>(g.q[e]), g.sc[e], y, (I)base, n,
+                                   last, b, nb); break;
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+    bw_dec_group_kernel(const __grid_constant__ BwdGroup<N> g) {
+  const long long tiles = g.tile_end[N == 1 ? 0 : g.count - 1];
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    // the first leaf whose tiles end past `tile`; a table of one indexes
+    // its entry with a constant, read straight from the parameter bank
+    int e = 0, top = N == 1 ? 0 : g.count - 1;
+    while (e < top) {
+      const int mid = (e + top) / 2;
+      if (g.tile_end[mid] > tile) top = mid; else e = mid + 1;
+    }
+    const long long base = (tile - (e ? g.tile_end[e - 1] : 0)) * kDecTile;
+    // every index of the leaf (codes, scales, values) below 2^32
+    if (g.rows[e] * g.nb[e] * g.b[e] < (1LL << 32))
+      bw_dec_entry<unsigned, N>(g, e, base);
+    else
+      bw_dec_entry<long long, N>(g, e, base);
   }
 }
 
@@ -250,6 +367,34 @@ int bw_enc_launch(const long long* table, int count, int q_code, int bits, cudaS
   });
 }
 
+template <int N>
+int bw_dec_launch(const long long* table, int count, void* y, cudaStream_t st) {
+  BwdGroup<N> g{};
+  long long prev = 0;
+  for (int e = 0; e < count; ++e) {
+    const long long* row = table + 9 * e;
+    g.q[e] = (const void*)row[0];
+    g.code[e] = (int)row[1];
+    g.sc[e] = (const float*)row[2];
+    g.y_off[e] = row[3];
+    const long long rows = g.rows[e] = row[4], last = g.last[e] = row[5];
+    const long long b = g.b[e] = row[6], nb = g.nb[e] = row[7];
+    g.tile_end[e] = row[8];
+    const long long n = rows * last;
+    if (code_bits(g.code[e]) == 0 || rows < 0 || last < 0 || g.y_off[e] < 0 ||
+        (n && (b < 1 || nb < 1 || nb * b < last || (nb - 1) * b >= last)) ||
+        g.tile_end[e] - prev != (n + kDecTile - 1) / kDecTile)
+      return (int)cudaErrorInvalidValue;
+    prev = g.tile_end[e];
+  }
+  g.count = count;
+  g.y = (float*)y;
+  if (prev == 0) return (int)cudaSuccess;
+  const long long cap = 132LL * 32;  // enough resident blocks for every SM
+  bw_dec_group_kernel<N><<<(int)(prev < cap ? prev : cap), kThreads, 0, st>>>(g);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -270,17 +415,19 @@ int bw_enc_group(const long long* table, int count, int q_code, int bits, void* 
   return bw_enc_launch<kBwCap>(table, count, q_code, bits, st);
 }
 
-// q: (rows, nb * b) codes of q_code; sc: (rows, nb) f32; y: (rows, last) f32.
-int bw_dec(const void* q, int q_code, const void* sc, void* y, long long rows, long long last,
-           long long b, long long nb, void* stream) {
-  if (code_bits(q_code) == 0 || b < 1 || nb < 1 || nb * b < last || (nb - 1) * b >= last)
-    return (int)cudaErrorInvalidValue;
-  if (rows * last == 0) return (int)cudaSuccess;
-  return with_code(q_code, [&](auto qt) {
-    using Q = decltype(qt);
-    bw_dec_kernel<Q><<<grid_for(rows * last), kThreads, 0, (cudaStream_t)stream>>>(
-        (const Q*)q, (const float*)sc, (float*)y, rows, last, b, nb);
-  });
+// A group of `count` (1..kBwCap) leaves as rows of `table`: {q, q_code,
+// sc, y_off, rows, last, b, nb, tile_end} (pointers as integers; q: (rows,
+// nb * b) codes of q_code (0 int8, 1 int16, 2 int32, 3 f32); sc: (rows, nb)
+// f32; y_off: where the leaf's (rows, last) f32 values start in y, in
+// elements; tile_end: the prefix sum of each leaf's ceil(rows * last /
+// 1024) tiles, kernels/grouped.py::bwd_plan). Returns cudaGetLastError()
+// after the launch (none for a group with no elements).
+int bw_dec_group(const long long* table, int count, void* y, void* stream) {
+  if (count < 1 || count > kBwCap) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (count == 1) return bw_dec_launch<1>(table, count, y, st);
+  if (count <= 8) return bw_dec_launch<8>(table, count, y, st);
+  return bw_dec_launch<kBwCap>(table, count, y, st);
 }
 
 const char* error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -1,9 +1,10 @@
 """Launch plans of the grouped kernels: the pow-2 fake-quant group
-(``csrc/pow2_fq.cu::p2_fq_group``) and the blockwise encode group
-(``csrc/blockwise.cu::bw_enc_group``). One launch covers a list of
-tensors, described by a table the C side passes to the kernel by value.
+(``csrc/pow2_fq.cu::p2_fq_group``) and the blockwise encode and decode
+groups (``csrc/blockwise.cu::bw_enc_group`` / ``bw_dec_group``). One launch
+covers a list of tensors, described by a table the C side passes to the
+kernel by value.
 
-Both plans are pure functions of the shapes, so the CPU tests can check
+The plans are pure functions of the shapes, so the CPU tests can check
 them where no kernel can run:
 
 - ``fq_plan``: the tensors chunked into launches of at most ``FQ_CAP``,
@@ -13,6 +14,10 @@ them where no kernel can run:
   with the prefix of its leaves' warp tasks (32 consecutive blocks for a
   block width b <= 32, one block for b > 32) and each leaf's offset in the
   launch's one flat codes buffer (on 16 bytes) and one flat scales buffer.
+- ``bwd_plan``: the leaves chunked into launches of at most ``BW_CAP``,
+  each with the prefix of its leaves' tile counts (a tile is ``BWD_TILE``
+  output elements, one CTA's work at a time, never two leaves) and each
+  leaf's offset in the launch's one f32 output buffer (on 16 bytes).
 
 The caps keep each table within the 4 KB of a launch's parameters.
 """
@@ -30,6 +35,8 @@ FQ_TILE = 1024              # pow2_fq.cu kTile: 256 threads x 4 elements
 BW_CAP = 48                 # blockwise.cu kBwCap
 WARP = 32
 CODE_ALIGN = 16             # bytes: each leaf's codes start on 16 bytes
+BWD_TILE = 1024             # blockwise.cu kDecTile: 256 threads x 4 outputs
+OUT_ALIGN = 4               # f32 elements: each leaf's values on 16 bytes
 
 
 def chunks(n: int, cap: int) -> list[range]:
@@ -120,4 +127,50 @@ def bw_plan(shapes: list[tuple[int, int]], block: int,
             code += -(-leaf.codes // per) * per
             scale += leaf.scales
         out.append(BwLaunch(idx, tuple(leaves), tuple(ends), code, scale))
+    return out
+
+
+@dataclass(frozen=True)
+class BwdLeaf:
+    rows: int
+    last: int
+    b: int
+    nb: int
+    tiles: int                   # ceil(rows * last / BWD_TILE)
+    out_off: int                 # elements into the launch's output buffer
+
+    @property
+    def numel(self) -> int:
+        return self.rows * self.last
+
+
+@dataclass(frozen=True)
+class BwdLaunch:
+    index: range                 # the leaves of this launch
+    leaves: tuple[BwdLeaf, ...]
+    tile_end: tuple[int, ...]    # prefix sum of the leaves' tiles
+    out: int                     # elements of the f32 output buffer
+
+    @property
+    def tiles(self) -> int:
+        return self.tile_end[-1]
+
+
+def bwd_plan(leaves: list[tuple[int, int, int, int]],
+             cap: int = BW_CAP) -> list[BwdLaunch]:
+    """The blockwise decode group's launches over leaves given as (rows,
+    last, b, nb) — codes (rows, nb * b), scales (rows, nb), values (rows,
+    last) — (an empty list gives none)."""
+    out = []
+    for idx in chunks(len(leaves), cap):
+        plan, ends, tiles, off = [], [], 0, 0
+        for i in idx:
+            rows, last, b, nb = leaves[i]
+            leaf = BwdLeaf(rows, last, b, nb, -(-(rows * last) // BWD_TILE),
+                           off)
+            plan.append(leaf)
+            tiles += leaf.tiles
+            ends.append(tiles)
+            off += -(-leaf.numel // OUT_ALIGN) * OUT_ALIGN
+        out.append(BwdLaunch(idx, tuple(plan), tuple(ends), off))
     return out

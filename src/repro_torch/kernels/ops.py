@@ -1,7 +1,7 @@
 """Public kernel entry points — the port of ``repro/kernels/ops.py`` as far
-as the serving and training slices go: paged attention, the PE1/PE2/PE3
-contractions, the fused pow-2 fake-quant, and the TTM chain through the
-PE kernels.
+as the serving and training slices go: paged attention, the decode step's
+paged KV append, the PE1/PE2/PE3 contractions, the fused pow-2 fake-quant,
+and the TTM chain through the PE kernels.
 
 ``impl`` names what runs, and the tensors' device decides nothing behind
 the caller's back:
@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from . import kv_append
 from . import paged_attention as PA
 from . import ttm_pe1, ttm_pe2, ttm_pe3
 
@@ -56,6 +57,20 @@ def paged_attention(q: torch.Tensor, kdata: torch.Tensor,
             return PA.paged_attention_cuda(*args, **kw)
         return PA.paged_attention_torch(*args, **kw)
     raise ValueError(f"unknown paged_attention impl {impl!r}")
+
+
+def append_paged(kdata: torch.Tensor, vdata: torch.Tensor,
+                 kscale: torch.Tensor, vscale: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, table: torch.Tensor, lens: torch.Tensor,
+                 active: torch.Tensor, *, page_size: int, bits: int,
+                 impl: str = "cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode token per slot, K and V of one layer, encoded under each
+    slot's pow-2 scale into the quantized pool's pages in place (inactive
+    slots to the trash page). Layouts in ``kernels/kv_append.py``."""
+    fn = _route("append_paged", impl, (kdata, vdata, k, v),
+                kv_append.append_paged_cuda, kv_append.append_paged_torch)
+    return fn(kdata, vdata, kscale, vscale, k, v, table, lens, active,
+              page_size=page_size, bits=bits)
 
 
 def pe1(z: torch.Tensor, g: torch.Tensor, step_log2=None,

@@ -127,9 +127,11 @@ def launches_per_step(d: MLP.MLPDef, tcfg: TrainConfig | None = None,
       launch). Without the wire those are the cores, biases and probes
       (the ``mean_abs`` leaves get None and keep their state); with it,
       every Adam leaf (the wire hands ``mean_abs`` a zero gradient).
-      ``bw_dec``: each of those moments, decoded before the update.
+      ``bw_dec``: one group launch over the same moments, decoded before
+      the update.
     - ``bw_enc`` (the wire): one group launch over every floating gradient
-      leaf, λ and ``mean_abs`` included; ``bw_dec``: each of them."""
+      leaf, λ and ``mean_abs`` included; ``bw_dec``: one over the same
+      leaves."""
     if not (d.qc.enable and d.tt.enable):
         raise ValueError("counted for the quantized TT step only")
     specs = (d.spec1, d.spec2)
@@ -145,10 +147,10 @@ def launches_per_step(d: MLP.MLPDef, tcfg: TrainConfig | None = None,
     if tcfg is not None and tcfg.opt_state_dtype == "int8":
         moments = 2 * (adam_leaves if compress else layer_leaves + edges)
         enc += len(G.chunks(moments, G.BW_CAP))
-        dec += moments
+        dec += len(G.chunks(moments, G.BW_CAP))
     if compress:
         enc += len(G.chunks(adam_leaves + lambdas, G.BW_CAP))
-        dec += adam_leaves + lambdas
+        dec += len(G.chunks(adam_leaves + lambdas, G.BW_CAP))
     if dec:
         out["bw_enc"], out["bw_dec"] = enc, dec
     return out

@@ -5,7 +5,7 @@ and blockwise encode/decode and the scalar- and row-scale fake-quant
 kernels, bit-identical), the
 ``NumericsPolicy`` site map and the §3.3 scale manager (``policy``)."""
 from .codecs import (BACKENDS, blockwise_geometry, decode,  # noqa: F401
-                     encode, encode_many, fake_quant, fake_quant_many,
+                     decode_many, encode, encode_many, fake_quant, fake_quant_many,
                      get_codec, pack_int4,
                      per_tensor_max_scale_log2, register_codec, roundtrip,
                      to_storage, unpack_int4)

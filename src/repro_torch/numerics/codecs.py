@@ -267,6 +267,10 @@ class BlockwiseReference:
         out = flat[..., :qt.shape[-1]] if qt.shape else flat[..., :1]
         return out.reshape(qt.shape).to(dtype)
 
+    def decode_many(self, qts: list[QTensor],
+                    dtype=torch.float32) -> list[torch.Tensor]:
+        return [self.decode(qt, dtype) for qt in qts]
+
     def fake_quant(self, x: torch.Tensor, spec: QuantSpec,
                    scale=None) -> torch.Tensor:
         # plain STE: identity gradient (blockwise sites sit outside autograd)
@@ -319,6 +323,15 @@ def encode_many(xs: list[torch.Tensor], spec: QuantSpec,
 def decode(qt: QTensor, dtype=torch.float32,
            backend: str = "reference") -> torch.Tensor:
     return get_codec(qt.spec, backend).decode(qt, dtype)
+
+
+def decode_many(qts: list[QTensor], dtype=torch.float32,
+                backend: str = "reference") -> list[torch.Tensor]:
+    """``decode(qt, dtype)`` of every blockwise ``QTensor`` of ``qts``; the
+    ``cuda`` backend decodes them in one group launch."""
+    if not qts:
+        return []
+    return get_codec(qts[0].spec, backend).decode_many(qts, dtype)
 
 
 def fake_quant(x: torch.Tensor, spec: QuantSpec, scale=None,

@@ -38,13 +38,15 @@ The blockwise codec (``BlockwiseCuda``) views the data as ``(rows, last)``
 and encodes each row's ``blockwise_geometry`` blocks with ``bw_enc``;
 ``bw_dec`` decodes and drops the pad.
 
-Grouped launches: the fake-quant and the blockwise encode kernels take a
-table of tensors (``kernels/grouped.py`` plans it), so a list costs one
-launch. ``fake_quant_scalar_many`` quantizes a layer's TT cores, each
-under its own step, and ``bw_encode_many`` (``encode_many`` of the codec)
-encodes the optimizer's moments or the wire's gradient leaves, their codes
-and scales views into one buffer each a launch. A single tensor
-(``fake_quant_scalar``, ``bw_encode``) is a group of one.
+Grouped launches: the fake-quant and the blockwise encode and decode
+kernels take a table of tensors (``kernels/grouped.py`` plans it), so a
+list costs one launch. ``fake_quant_scalar_many`` quantizes a layer's TT
+cores, each under its own step; ``bw_encode_many`` (``encode_many`` of the
+codec) encodes the optimizer's moments or the wire's gradient leaves, their
+codes and scales views into one buffer each a launch, and
+``bw_decode_many`` (``decode_many``) decodes them, their values views into
+one f32 buffer a launch. A single tensor (``fake_quant_scalar``,
+``bw_encode``, ``bw_decode``) is a group of one.
 """
 from __future__ import annotations
 
@@ -539,9 +541,21 @@ def bw_encode_plain(x2d: torch.Tensor, block: int, bits: int = 8,
 def bw_decode_plain(codes: torch.Tensor, scales: torch.Tensor,
                     last: int) -> torch.Tensor:
     """The blockwise decode kernel's plain version: f32 (rows, last)."""
+    if not scales.shape[1]:                 # no blocks: last == 0
+        return torch.zeros((codes.shape[0], last), dtype=torch.float32,
+                           device=codes.device)
     b = codes.shape[-1] // scales.shape[-1]
     qt = QTensor(codes, scales, _bw_spec(b, 8), (codes.shape[0], last))
     return BlockwiseReference().decode(qt, torch.float32)
+
+
+def bw_decode_many_plain(codes: list[torch.Tensor],
+                         scales: list[torch.Tensor],
+                         lasts: list[int]) -> list[torch.Tensor]:
+    """The group decode's plain version: ``bw_decode_plain`` of each
+    leaf."""
+    return [bw_decode_plain(c, s, last)
+            for c, s, last in zip(codes, scales, lasts)]
 
 
 def _bw_lib() -> ctypes.CDLL:
@@ -550,8 +564,8 @@ def _bw_lib() -> ctypes.CDLL:
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.bw_enc_group.argtypes = [ctypes.POINTER(ll), i, i, i, p]
         lib.bw_enc_group.restype = i
-        lib.bw_dec.argtypes = [p, i, p, p, ll, ll, ll, ll, p]
-        lib.bw_dec.restype = i
+        lib.bw_dec_group.argtypes = [ctypes.POINTER(ll), i, p, p]
+        lib.bw_dec_group.restype = i
         lib._repro_typed = True
     return lib
 
@@ -637,35 +651,86 @@ def bw_encode_many(xs: list[torch.Tensor], block: int, bits: int = 8,
     return _bw_group(xs, block, bits, storage)
 
 
-def bw_decode(codes: torch.Tensor, scales: torch.Tensor,
-              last: int) -> torch.Tensor:
-    """f32 (rows, last) values of blockwise (rows, nb*b) codes (int8, int16,
-    int32 or f32) and (rows, nb) scales; the pad past ``last`` is
-    dropped."""
+def _check_bw_codes(codes: torch.Tensor, scales: torch.Tensor,
+                    last: int) -> None:
+    nb = scales.shape[1] if scales.dim() == 2 else 0
     if codes.dim() != 2 or scales.dim() != 2 \
             or scales.shape[0] != codes.shape[0] \
-            or codes.shape[1] % scales.shape[1]:
+            or (codes.shape[1] % nb if nb else last):
         raise ValueError(f"{BDEC}: want (rows, nb*b) codes and (rows, nb) "
                          f"scales, got {tuple(codes.shape)} and "
                          f"{tuple(scales.shape)}")
     if scales.device != codes.device:
         raise ValueError("codes and scales must be on one device")
+
+
+def _bwd_group(codes: list[torch.Tensor], scales: list[torch.Tensor],
+               lasts: list[int]) -> list[torch.Tensor]:
+    """Launch ``bw_dec_group`` over CUDA leaves (each its own code type):
+    one launch per ``grouped.BW_CAP`` leaves, each writing one f32 buffer,
+    returned as per-leaf (rows, last) views."""
+    dev = codes[0].device
+    if any(c.device != dev for c in codes):
+        raise ValueError(f"{BDEC}: tensors must be on one device")
+    kinds = [_code_of(BDEC, c) for c in codes]
+    if any(s.dtype != torch.float32 for s in scales):
+        raise TypeError(f"{BDEC}: want f32 scales, got "
+                        f"{sorted({str(s.dtype) for s in scales})}")
+    codes = [c.contiguous() for c in codes]
+    scales = [s.contiguous() for s in scales]
+    lib = _bw_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    shapes = [(c.shape[0], last, c.shape[1] // s.shape[1] if s.shape[1]
+               else 1, s.shape[1])
+              for c, s, last in zip(codes, scales, lasts)]
+    out = []
+    for launch in G.bwd_plan(shapes):
+        y = torch.empty(launch.out, dtype=torch.float32, device=dev)
+        rows = []
+        for i, leaf, end in zip(launch.index, launch.leaves, launch.tile_end):
+            rows += [codes[i].data_ptr(), kinds[i], scales[i].data_ptr(),
+                     leaf.out_off, leaf.rows, leaf.last, leaf.b, leaf.nb,
+                     end]
+            out.append(y[leaf.out_off:leaf.out_off + leaf.numel].view(
+                leaf.rows, leaf.last))
+        if not launch.tiles:
+            continue
+        table = (ctypes.c_longlong * len(rows))(*rows)
+        B.check(lib, lib.bw_dec_group(table, len(launch.index), y.data_ptr(),
+                                      stream), BDEC)
+        B.note_launch(BDEC)
+    return out
+
+
+def bw_decode(codes: torch.Tensor, scales: torch.Tensor,
+              last: int) -> torch.Tensor:
+    """f32 (rows, last) values of blockwise (rows, nb*b) codes (int8, int16,
+    int32 or f32) and (rows, nb) scales; the pad past ``last`` is dropped:
+    a group of one."""
+    _check_bw_codes(codes, scales, last)
     if not codes.is_cuda:
         return bw_decode_plain(codes, scales, last)
-    code = _code_of(BDEC, codes)
-    if scales.dtype != torch.float32:
-        raise TypeError(f"{BDEC}: want f32 scales, got {scales.dtype}")
-    rows, nb = scales.shape
-    b = codes.shape[1] // nb
-    codes, scales = codes.contiguous(), scales.contiguous()
-    y = torch.empty((rows, last), dtype=torch.float32, device=codes.device)
-    lib = _bw_lib()
-    B.check(lib, lib.bw_dec(
-        codes.data_ptr(), code, scales.data_ptr(), y.data_ptr(), rows, last,
-        b, nb,
-        torch.cuda.current_stream(codes.device).cuda_stream), BDEC)
-    B.note_launch(BDEC)
-    return y
+    return _bwd_group([codes], [scales], [last])[0]
+
+
+def bw_decode_many(codes: list[torch.Tensor], scales: list[torch.Tensor],
+                   lasts: list[int]) -> list[torch.Tensor]:
+    """``bw_decode`` of each leaf (``codes[n]``, ``scales[n]``,
+    ``lasts[n]``; one device, any mix of code types): on the card one
+    launch for up to ``grouped.BW_CAP`` of them, their values views into one
+    f32 buffer a launch."""
+    if not len(codes) == len(scales) == len(lasts):
+        raise ValueError(f"{BDEC}: {len(codes)} codes, {len(scales)} scales "
+                         f"and {len(lasts)} lengths")
+    for c, s, last in zip(codes, scales, lasts):
+        _check_bw_codes(c, s, last)
+    if not codes:
+        return []
+    if not codes[0].is_cuda:
+        if any(c.is_cuda for c in codes):
+            raise ValueError(f"{BDEC}: tensors must be on one device")
+        return bw_decode_many_plain(codes, scales, lasts)
+    return _bwd_group(codes, scales, lasts)
 
 
 class Pow2Cuda(Pow2Reference):
@@ -765,8 +830,8 @@ def _bw_qtensor(codes: torch.Tensor, sc: torch.Tensor, spec: QuantSpec,
 
 class BlockwiseCuda(BlockwiseReference):
     """The blockwise codec on ``bw_enc`` / ``bw_dec``: the data as a
-    (rows, last) view, one launch each way; ``encode_many`` encodes a list
-    of tensors in one group launch."""
+    (rows, last) view, one launch each way; ``encode_many`` and
+    ``decode_many`` take a list of tensors in one group launch."""
     backend = "cuda"
 
     def encode(self, x: torch.Tensor, spec: QuantSpec, scale=None) -> QTensor:
@@ -783,10 +848,15 @@ class BlockwiseCuda(BlockwiseReference):
                 for (codes, sc), (_, shape) in zip(pairs, views)]
 
     def decode(self, qt: QTensor, dtype=torch.float32) -> torch.Tensor:
-        last = qt.shape[-1] if qt.shape else 1
-        y = bw_decode(qt.codes.reshape(-1, qt.codes.shape[-1]),
-                      qt.scale.reshape(-1, qt.scale.shape[-1]), last)
-        return y.reshape(qt.shape).to(dtype)
+        return self.decode_many([qt], dtype)[0]
+
+    def decode_many(self, qts: list[QTensor],
+                    dtype=torch.float32) -> list[torch.Tensor]:
+        ys = bw_decode_many(
+            [qt.codes.reshape(-1, qt.codes.shape[-1]) for qt in qts],
+            [qt.scale.reshape(-1, qt.scale.shape[-1]) for qt in qts],
+            [qt.shape[-1] if qt.shape else 1 for qt in qts])
+        return [y.reshape(qt.shape).to(dtype) for y, qt in zip(ys, qts)]
 
 
 register_codec("pow2", "cuda", Pow2Cuda())

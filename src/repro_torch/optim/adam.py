@@ -4,10 +4,11 @@
 The int8 state (``opt_state_dtype="int8"``) is the ``optimizer_moment``
 site: each moment is a blockwise-int8 ``QTensor`` at ``MOMENT_SPEC``
 (block 256 along the last axis, shape-preserving), decoded before the
-update and encoded after it through the ``cuda`` codec — the ``bw_dec``
-kernel once per moment and one group launch of the ``bw_enc`` kernel for
-every m and v of the step on the card (the moments are then views into
-one codes and one scales buffer), their plain versions on CPU tensors.
+update and encoded after it through the ``cuda`` codec — one group launch
+of the ``bw_dec`` kernel for every m and v the step updates and one of the
+``bw_enc`` kernel for the same set on the card (the encoded moments are
+then views into one codes and one scales buffer, the decoded ones into one
+f32 buffer), their plain versions on CPU tensors.
 
 Leaf rule (``repro``'s ``_is_adam_leaf``, kept exactly): every floating
 leaf except ``lambda_*`` (closed-form Eq. 4 update) and ``wscale*`` gets
@@ -24,7 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ..configs.base import TrainConfig
-from ..numerics import QTensor, QuantSpec, decode, encode_many
+from ..numerics import QTensor, QuantSpec, decode_many, encode_many
 from ..numerics.codecs import blockwise_geometry
 from ..tree import flatten_with_path, leaves, unflatten
 
@@ -91,26 +92,36 @@ def adam_update(params, grads, state: AdamState, lr, cfg: TrainConfig):
     """Returns (new_params, new_state). ``grads`` mirrors ``params``; a
     ``None`` gradient leaves its parameter and moments unchanged (the
     zero-gradient update of a ``mean_abs`` leaf is the identity). With int8
-    moments every updated m and v is encoded in one ``encode_many``."""
+    moments every m and v the step updates is decoded in one
+    ``decode_many`` (the m's, then the v's) and encoded in one
+    ``encode_many``."""
     int8 = _int8(cfg)
     b1, b2, eps, wd = cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay
     step = state.step + 1
     c1 = 1.0 - torch.pow(b1, step.float())
     c2 = 1.0 - torch.pow(b2, step.float())
+    grads = leaves(grads)
+    live = [i for i, (m, g) in enumerate(zip(state.m, grads))
+            if m is not None and g is not None]
+    if int8:
+        dec = decode_many([state.m[i] for i in live]
+                          + [state.v[i] for i in live], torch.float32,
+                          backend="cuda")
+        m_in = dict(zip(live, dec))
+        v_in = dict(zip(live, dec[len(live):]))
+    else:
+        m_in, v_in = state.m, state.v
     new_p, new_m, new_v, moved = [], [], [], []
-    for (path, p), g, m, v in zip(flatten_with_path(params), leaves(grads),
-                                  state.m, state.v):
+    for i, ((path, p), g, m, v) in enumerate(zip(
+            flatten_with_path(params), grads, state.m, state.v)):
         if m is None or g is None:
             new_p.append(p)
             new_m.append(m)
             new_v.append(v)
             continue
         g32 = g.float()
-        if int8:
-            m32 = decode(m, torch.float32, backend="cuda").reshape(p.shape)
-            v32 = decode(v, torch.float32, backend="cuda").reshape(p.shape)
-        else:
-            m32, v32 = m, v
+        m32 = m_in[i].reshape(p.shape)
+        v32 = v_in[i].reshape(p.shape)
         m32 = b1 * m32 + (1 - b1) * g32
         v32 = b2 * v32 + (1 - b2) * torch.square(g32)
         update = (m32 / c1) / (torch.sqrt(v32 / c2) + eps)

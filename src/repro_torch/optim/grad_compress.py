@@ -5,7 +5,7 @@ the port of ``repro/optim/grad_compress.py``'s single-program path.
 The quantizer is the ``dp_wire`` site: each gradient leaf is flattened and
 round-tripped through the blockwise int8 codec at block 1024 (one f32 scale
 per KiB of payload), on the card every leaf encoded by one group launch of
-the ``bw_enc`` kernel and each decoded by the ``bw_dec`` kernel.
+the ``bw_enc`` kernel and decoded by one of the ``bw_dec`` kernel.
 ``psum_int8``, the collective that puts the codes themselves on the wire,
 comes with the multi-device slice (ROADMAP queue 1).
 
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from ..numerics import QuantSpec, decode, encode_many, spec_nbytes
+from ..numerics import QuantSpec, decode_many, encode_many, spec_nbytes
 from ..tree import leaves, unflatten
 
 WIRE_SPEC = QuantSpec("blockwise", 8, 1024, "int8", "per_tensor_max")
@@ -63,8 +63,9 @@ def compress_decompress(grads, residual, spec: QuantSpec = WIRE_SPEC):
     corrected = [flat[i].float() + residual[i] for i in live]
     qts = encode_many([c.reshape(-1) for c in corrected], spec,
                       backend="cuda")
-    for i, c, qt in zip(live, corrected, qts):
-        deq = decode(qt, torch.float32, backend="cuda").reshape(c.shape)
+    deqs = decode_many(qts, torch.float32, backend="cuda")
+    for i, c, deq in zip(live, corrected, deqs):
+        deq = deq.reshape(c.shape)
         out[i] = deq.to(flat[i].dtype)
         new_res[i] = c - deq
     return unflatten(grads, out), tuple(new_res)

@@ -143,9 +143,8 @@ class Engine:
         q, k_new, v_new = A.gqa_decode_qkv(pp["mixer"], h, d, cfg, positions)
         data = {n: t[layer] for n, t in self.pool["data"][key].items()}
         scale = {n: t[layer] for n, t in self.pool["scale_log2"][key].items()}
-        for name, new in (("k", k_new), ("v", v_new)):
-            KC.append_token(data[name], scale[name], new, table, lens, active,
-                            self.pcfg)
+        KC.append_kv(data["k"], data["v"], scale["k"], scale["v"], k_new,
+                     v_new, table, lens, active, self.pcfg)
         if self.ecfg.fused_attention:
             attn = KC.fused_attend(data["k"], data["v"], scale["k"],
                                    scale["v"], q[:, 0], table, lens,

@@ -10,11 +10,14 @@ a power-of-2 grid, ``x ≈ q * 2^scale_log2``, one ``scale_log2`` per
 by decode appends (the paper's §3.2 numerics applied to serving).
 
 Every pool write goes through an encode kernel and every gathered read
-through a decode kernel (``numerics``' ``cuda`` codec; on CPU tensors their
-plain versions): the row-scale kernels where a launch covers several
-(layer, slot) scales, the scalar-scale ones where it covers one — a
-chunked-prefill write and its one-slot history read. The fused path reads
-pages straight from the pool inside the paged-attention kernel.
+through a decode kernel (on CPU tensors their plain versions): a decode
+step's append through ``p2_append_paged`` (``kernels/kv_append.py``: K and
+V of every slot into the layer's pages in one launch), the other writes
+and reads through ``numerics``' ``cuda`` codec — the row-scale kernels
+where a launch covers several (layer, slot) scales, the scalar-scale ones
+where it covers one (a chunked-prefill write and its one-slot history
+read). The fused path reads pages straight from the pool inside the
+paged-attention kernel.
 
 In-place updates: where the reference donates the pool to a jitted step
 and rebuilds it with ``.at[].set``, the port writes into the preallocated
@@ -28,6 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..kernels.kv_append import append_slots
 from ..models.common import torch_dtype
 from ..numerics import QTensor, QuantSpec, get_codec, per_tensor_max_scale_log2
 
@@ -199,15 +203,16 @@ def fused_attend(kdata_l: torch.Tensor, vdata_l: torch.Tensor,
 def append_token(data_l: torch.Tensor, scale_l: torch.Tensor,
                  new: torch.Tensor, table: torch.Tensor, lens: torch.Tensor,
                  active: torch.Tensor, pcfg: PoolConfig) -> torch.Tensor:
-    """Write one new token per slot at its own length, in place.
+    """Write one new token per slot at its own length, in place: one
+    tensor's half of ``append_kv``.
 
-    new: (B, 1, *feat); inactive slots go to the trash page. Decode appends
-    reuse the slot's prefill scale (clipping into its range); rows = B."""
+    new: (B, 1, *feat); inactive slots, and a position past the slot's
+    last page (whose write the reference drops), go to the trash page.
+    Decode appends reuse the slot's prefill scale (clipping into its
+    range); rows = B."""
     b = new.shape[0]
-    lens = lens.long()
-    pages = table.long().gather(1, (lens // pcfg.page_size)[:, None])[:, 0]
-    pages = torch.where(active, pages, pcfg.trash_page)
-    offs = lens % pcfg.page_size
+    pages, offs = append_slots(table, lens, active, pcfg.page_size,
+                               pcfg.trash_page)
     vals = new[:, 0]
     if pcfg.quantized:
         vals = quantize(vals, scale_l.reshape((b,) + (1,) * (vals.dim() - 1)),
@@ -215,6 +220,24 @@ def append_token(data_l: torch.Tensor, scale_l: torch.Tensor,
     else:
         vals = vals.to(data_l.dtype)
     return data_l.index_put_((pages, offs), vals)
+
+
+def append_kv(kdata_l: torch.Tensor, vdata_l: torch.Tensor,
+              kscale_l: torch.Tensor, vscale_l: torch.Tensor,
+              k_new: torch.Tensor, v_new: torch.Tensor, table: torch.Tensor,
+              lens: torch.Tensor, active: torch.Tensor, pcfg: PoolConfig
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A decode step's K and V tokens (B, 1, *feat) of one layer into its
+    pages, in place: a quantized pool takes one ``p2_append_paged`` launch
+    (its plain twin on CPU tensors), a model-dtype pool ``append_token``
+    per tensor (the reference runs no kernel there either)."""
+    if pcfg.quantized:
+        from ..kernels.ops import append_paged
+        return append_paged(kdata_l, vdata_l, kscale_l, vscale_l, k_new,
+                            v_new, table, lens, active,
+                            page_size=pcfg.page_size, bits=pcfg.bits)
+    return (append_token(kdata_l, kscale_l, k_new, table, lens, active, pcfg),
+            append_token(vdata_l, vscale_l, v_new, table, lens, active, pcfg))
 
 
 def write_prefill(pool: dict, cache: dict, table_row: torch.Tensor,

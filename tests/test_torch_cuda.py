@@ -45,7 +45,14 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
     the step's leaf sets bit for bit with their twins and over two
     launches, one launch per group and two just above the cap, and the
     int8 moments of a grouped step saved byte for byte as the per-leaf
-    path's.
+    path's;
+(m) the decode group on the step's leaf sets (every code type, mixed in
+    one launch) and on unaligned leaves bit for bit with its twin, one
+    launch per set and two just above the cap; the paged KV append
+    (``p2_append_paged``) bit for bit with its twin on the whole pool,
+    trash page included, for f32/bf16 tokens, 8/4-bit codes and V as a
+    strided view, and an engine's decode steps launching it once a layer
+    and ``p2_enc_rows`` only for prefills.
 """
 import math
 
@@ -162,7 +169,7 @@ def test_engine_fused_equals_gather_fp32_on_card(cuda):
     rng = np.random.RandomState(7)
     prompts = [rng.randint(0, cfg.vocab_size, int(rng.randint(5, 16))
                            ).tolist() for _ in range(4)]
-    outs, launches = [], []
+    outs, launches, summaries = [], [], []
     for fused in (True, False):
         B.reset_launches()
         eng = Engine(lm, params, EngineConfig(
@@ -173,10 +180,16 @@ def test_engine_fused_equals_gather_fp32_on_card(cuda):
         res = eng.run()
         outs.append([res[r].tokens for r in rids])
         launches.append((dict(B.LAUNCHES), eng.summary()["decode_steps"]))
+        summaries.append((fused, len(eng.metrics.prefills)))
     assert outs[0] == outs[1]
-    (fl, steps), (gl, _) = launches
+    (fl, steps), (gl, gsteps) = launches
     assert fl["paged_attention"] == steps * cfg.num_layers
-    assert fl["p2_enc_rows"] > 0 and gl["p2_dec_rows"] > 0
+    assert fl["p2_append_paged"] == steps * cfg.num_layers
+    assert gl["p2_append_paged"] == gsteps * cfg.num_layers
+    # p2_enc_rows comes from the whole-prompt prefills alone: K and V once
+    for launch, (_, summ) in zip((fl, gl), summaries):
+        assert launch["p2_enc_rows"] == 2 * summ and summ >= len(prompts)
+    assert gl["p2_dec_rows"] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -916,3 +929,140 @@ def test_int8_moments_of_a_grouped_step_save_as_the_per_leaf_path(
         TCK.save(paths[-1], {"params": p, "opt": o}, {"step": 1})
     with open(paths[0], "rb") as f, open(paths[1], "rb") as g:
         assert f.read() == g.read()
+
+
+# ---------------------------------------------------------------------------
+# (m) the blockwise decode group and the paged KV append
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("storage,bits", [(torch.int8, 8), (torch.int16, 16),
+                                          (torch.int32, 24),
+                                          (torch.float32, 16)])
+def test_grouped_blockwise_decode_bit_identical_in_one_launch(cuda, storage,
+                                                              bits):
+    moments, wire = _moment_and_wire_sets(cuda, bits + 1)
+    for xs, block in ((moments, 256), (wire, 1024)):
+        pairs = CB.bw_encode_many(xs, block, bits, storage)
+        codes, scales = [c for c, _ in pairs], [s for _, s in pairs]
+        lasts = [x.shape[1] for x in xs]
+        B.reset_launches()
+        got = CB.bw_decode_many(codes, scales, lasts)
+        torch.cuda.synchronize()
+        assert B.LAUNCHES == {"bw_dec": 1}
+        again = CB.bw_decode_many(codes, scales, lasts)
+        plain = CB.bw_decode_many_plain(codes, scales, lasts)
+        bases = {y.untyped_storage().data_ptr() for y in got if y.numel()}
+        assert len(bases) == 1                  # one output buffer
+        for c, s, last, y, r, a in zip(codes, scales, lasts, got, plain,
+                                       again):
+            assert y.shape == (c.shape[0], last) and y.dtype == torch.float32
+            assert _bits_eq(y, r) and _bits_eq(a, y)
+            assert _bits_eq(CB.bw_decode(c, s, last), y)    # a group of one
+
+
+def test_grouped_blockwise_decode_mixed_codes_and_unaligned(cuda):
+    """One launch over leaves of every code type, with codes that start
+    off 4-code alignment, odd lengths, b = 1 and an empty leaf: the scalar
+    path beside the vector path, bit for bit with the twin."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    cases = [((5, 33), 16, torch.int8), ((3, 1000), 256, torch.int16),
+             ((4096, 1), 256, torch.int32), ((1, 4099), 1024, torch.float32),
+             ((2, 448), 256, torch.int8), ((0, 7), 256, torch.int8)]
+    codes, scales, lasts = [], [], []
+    for shape, block, storage in cases:
+        x = torch.randn(shape, generator=g, device=cuda)
+        c, s = CB.bw_encode(x, block, 8, storage)
+        if shape == (2, 448):                   # codes off 4-code alignment
+            buf = torch.zeros(c.numel() + 1, dtype=c.dtype, device=cuda)
+            buf[1:] = c.reshape(-1)
+            c = buf[1:].view(c.shape)
+        codes.append(c)
+        scales.append(s)
+        lasts.append(shape[1])
+    B.reset_launches()
+    got = CB.bw_decode_many(codes, scales, lasts)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES == {"bw_dec": 1}
+    for y, r in zip(got, CB.bw_decode_many_plain(codes, scales, lasts)):
+        assert _bits_eq(y, r)
+
+
+def test_grouped_blockwise_decode_one_launch_per_cap(cuda):
+    from repro_torch.kernels import grouped as G
+    g = torch.Generator(device=cuda).manual_seed(19)
+    for n, launches in ((G.BW_CAP, 1), (G.BW_CAP + 1, 2)):
+        xs = [torch.randn((i % 3 + 1, 40 * (i % 7) + 1), generator=g,
+                          device=cuda) for i in range(n)]
+        pairs = CB.bw_encode_many(xs, 16)
+        codes, scales = [c for c, _ in pairs], [s for _, s in pairs]
+        lasts = [x.shape[1] for x in xs]
+        B.reset_launches()
+        got = CB.bw_decode_many(codes, scales, lasts)
+        assert B.LAUNCHES == {"bw_dec": launches}
+        for y, r in zip(got, CB.bw_decode_many_plain(codes, scales, lasts)):
+            assert _bits_eq(y, r)
+
+
+def _append_case(cuda, dtype, bits, seed, slots=8, hkv=8, dh=128, page=16,
+                 pps=4):
+    """A pool of random codes and a decode step's K/V: V the strided half
+    of a fused (B, 1, 2, Hkv, Dh) projection; slots at the first and the
+    last offset of a page and of their last page, two inactive slots at
+    distinct trash offsets, one past its last page."""
+    from repro_torch.kernels import kv_append as KA
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    total = slots * pps
+    kd = torch.randint(-128, 128, (total + 1, page, hkv, dh), generator=g,
+                       device=cuda).to(torch.int8)
+    vd = torch.randint(-128, 128, kd.shape, generator=g, device=cuda
+                       ).to(torch.int8)
+    table = torch.randperm(total, generator=g, device=cuda).reshape(
+        slots, pps).to(torch.int32)
+    lens = torch.tensor([0, 15, 63, 5, 20, 33, 64, 7][:slots],
+                        dtype=torch.int32, device=cuda)
+    active = torch.tensor([1, 1, 1, 0, 1, 1, 1, 0][:slots], dtype=torch.bool,
+                          device=cuda)
+    ks = torch.randint(-8, 0, (slots,), generator=g, device=cuda).float()
+    vs = torch.randint(-8, 0, (slots,), generator=g, device=cuda).float()
+    step = torch.exp2(torch.stack([ks, vs], 1))[:, None, :, None, None]
+    kv = torch.randn((slots, 1, 2, hkv, dh), generator=g, device=cuda) \
+        * step * 2 ** (bits - 1)
+    kv = kv.to(dtype)
+    return KA, (kd, vd, ks, vs, kv[:, :, 0], kv[:, :, 1], table, lens,
+                active), dict(page_size=page, bits=bits)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_paged_append_bit_identical_on_the_pool(cuda, dtype, bits):
+    KA, args, kw = _append_case(cuda, dtype, bits, seed=bits)
+    assert not args[5].is_contiguous()
+    orig = args[0].clone()
+    want = [t.clone() for t in args[:2]]
+    KA.append_paged_torch(*want, *args[2:], **kw)
+    B.reset_launches()
+    KA.append_paged_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES == {"p2_append_paged": 1}
+    assert torch.equal(args[0], want[0]) and torch.equal(args[1], want[1])
+    # the trash page took the inactive slots (offsets 5, 7) and the slot
+    # past its last page (offset 0)
+    assert (args[0][-1, [0, 5, 7]] != orig[-1, [0, 5, 7]]).flatten(1).any(1
+                                                                       ).all()
+    again = [t.clone() for t in args[:2]]
+    KA.append_paged_cuda(*again, *args[2:], **kw)
+    assert torch.equal(again[0], args[0]) and torch.equal(again[1], args[1])
+
+
+def test_paged_append_contiguous_and_one_slot(cuda):
+    """The scalar path (a head dim that is no multiple of 8 bf16 elements)
+    and a batch of one slot, each bit for bit with the twin."""
+    for slots, dh in ((8, 12), (1, 128)):
+        KA, args, kw = _append_case(cuda, torch.bfloat16, 8, seed=slots,
+                                    slots=slots, dh=dh)
+        args = args[:4] + (args[4].contiguous(), args[5].contiguous()) \
+            + args[6:]
+        want = [t.clone() for t in args[:2]]
+        KA.append_paged_torch(*want, *args[2:], **kw)
+        KA.append_paged_cuda(*args, **kw)
+        assert torch.equal(args[0], want[0]) and torch.equal(args[1], want[1])

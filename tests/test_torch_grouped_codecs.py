@@ -1,10 +1,11 @@
-"""The grouped fake-quant and blockwise-encode launches of repro_torch
-against repro (the JAX reference), on the CPU.
+"""The grouped fake-quant and blockwise encode and decode launches of
+repro_torch against repro (the JAX reference), on the CPU.
 
 On the card one launch of ``csrc/pow2_fq.cu::p2_fq_group`` quantizes a
-layer's TT cores and one of ``csrc/blockwise.cu::bw_enc_group`` encodes
-the step's moments or its wire leaves. Here, where no kernel runs, the
-tests hold what the card's launches rest on:
+layer's TT cores, one of ``csrc/blockwise.cu::bw_enc_group`` encodes the
+step's moments or its wire leaves and one of ``bw_dec_group`` decodes
+them. Here, where no kernel runs, the tests hold what the card's launches
+rest on:
 
 (a) the launch plans (``kernels/grouped.py``), pure functions of the
     shapes: chunking above the cap, 16-byte code offsets, the task prefix
@@ -17,7 +18,14 @@ tests hold what the card's launches rest on:
     loop of ``encode``;
 (c) both layers' grouped fake-quant (``core/tt_layer.py::effective_cores``)
     against JAX's ``effective_cores``, values and the clipped-STE
-    gradient with respect to the cores.
+    gradient with respect to the cores;
+(d) the decode group: its plan (``bwd_plan``: tile prefix, chunks above
+    the cap, 16-byte output offsets, 0-d and empty leaves) and its plain
+    twin on the step's leaf sets in every storage against JAX's decode
+    leaf by leaf (the reference, and the Pallas kernel in interpret mode
+    for int8); ``decode_many`` as a loop of ``decode``; an int8-moment
+    Adam update and a wire round trip through one ``decode_many`` each
+    equal, bit for bit, to the per-leaf decodes they replaced.
 
 Inputs are made with numpy from a seed and handed to both packages; the
 params start from JAX's ``init_mlp`` and cross by ``mlp_params_from_jax``.
@@ -324,3 +332,186 @@ def test_grouped_fake_quant_twin_and_backends_agree():
             assert many[n].dtype == dtype
             assert torch.equal(many[n], one) and torch.equal(ref[n], one)
             assert torch.equal(twin[n], one)
+
+
+# ---------------------------------------------------------------------------
+# (d) the decode group
+# ---------------------------------------------------------------------------
+
+def _bwd_leaf(shape, block):
+    """(rows, last, b, nb) of a leaf of ``shape`` at ``block``."""
+    rows, last = _view2d(shape)
+    b, nb, _ = TN.blockwise_geometry(TN.QuantSpec("blockwise", 8, block),
+                                     last)
+    return rows, last, b, nb
+
+
+def test_bwd_plan_chunks_above_the_cap_with_aligned_outputs():
+    rng = np.random.RandomState(5)
+    leaves = [_bwd_leaf((int(rng.randint(0, 4)), int(rng.randint(0, 3000))),
+                        256) for _ in range(G.BW_CAP + 1)]
+    plan = G.bwd_plan(leaves)
+    assert [list(p.index) for p in plan] == [list(range(G.BW_CAP)),
+                                              [G.BW_CAP]]
+    for launch in plan:
+        ends = out_end = 0
+        for leaf, end, i in zip(launch.leaves, launch.tile_end, launch.index):
+            assert (leaf.rows, leaf.last, leaf.b, leaf.nb) == leaves[i]
+            assert leaf.tiles == -(-leaf.numel // G.BWD_TILE)
+            assert end - ends == leaf.tiles
+            ends = end
+            assert (leaf.out_off * 4) % 16 == 0 and leaf.out_off >= out_end
+            assert leaf.out_off - out_end < G.OUT_ALIGN
+            out_end = leaf.out_off + leaf.numel
+        assert launch.out >= out_end and launch.out - out_end < G.OUT_ALIGN
+        assert launch.tiles == ends
+
+
+def test_bwd_plan_tiles_of_the_step_sets():
+    """Each set is one launch; a tile never straddles two leaves, so a
+    4,096-element leaf takes 4 tiles and every leaf of at most 1,024
+    elements one."""
+    _, tp = _params()
+    for shapes, block in ((_moment_shapes(tp), 256),
+                          ([(n,) for n in _wire_lengths(tp)], 1024)):
+        (launch,) = G.bwd_plan([_bwd_leaf(s, block) for s in shapes])
+        n = [int(np.prod(s)) for s in shapes]
+        assert [lf.tiles for lf in launch.leaves] == [-(-k // 1024) for k in n]
+        assert launch.tile_end == tuple(np.cumsum(
+            [-(-k // 1024) for k in n]).tolist())
+        assert launch.out == sum(-(-k // 4) * 4 for k in n)
+    (wire,) = G.bwd_plan([_bwd_leaf((n,), 1024) for n in _wire_lengths(tp)])
+    # 14,873 elements in 30 tiles: each 4,096-element leaf takes 4
+    assert wire.tiles == 30 and max(lf.tiles for lf in wire.leaves) == 4
+
+
+def test_bwd_plan_zero_d_and_empty_leaves():
+    plan = G.bwd_plan([_bwd_leaf((), 256), (0, 5, 5, 1), (2, 0, 1, 0),
+                       _bwd_leaf((3,), 256), _bwd_leaf((2, 1000), 256)])
+    (launch,) = plan
+    assert [(lf.tiles, lf.out_off) for lf in launch.leaves] == [
+        (1, 0), (0, 4), (0, 4), (1, 4), (2, 8)]
+    assert launch.tile_end == (1, 1, 1, 2, 4) and launch.out == 2008
+    assert G.bwd_plan([]) == []
+
+
+def _jax_encoded(leaf_set, bits, storage):
+    """JAX's blockwise encode of a step leaf set: (numpy inputs, JAX
+    QTensors, block)."""
+    _, tp = _params()
+    if leaf_set == "moments":
+        shapes, block = _moment_shapes(tp), 256
+    else:
+        shapes, block = [(n,) for n in _wire_lengths(tp)], 1024
+    xs = _leaf_data(shapes, seed=3 * len(shapes) + bits)
+    jspec = JN.QuantSpec("blockwise", bits, block, storage, "per_tensor_max")
+    return xs, [JN.encode(jnp.asarray(x), jspec) for x in xs], block
+
+
+@pytest.mark.parametrize("bits,storage", STORAGES)
+@pytest.mark.parametrize("leaf_set", ["moments", "wire"])
+def test_group_decode_twin_equals_jax_per_leaf(leaf_set, bits, storage,
+                                               monkeypatch):
+    xs, jqs, block = _jax_encoded(leaf_set, bits, storage)
+    codes = [torch.from_numpy(np.array(q.codes).reshape(-1,
+                                                        q.codes.shape[-1]))
+             for q in jqs]
+    scales = [torch.from_numpy(np.array(q.scale).reshape(
+        -1, q.scale.shape[-1])) for q in jqs]
+    lasts = [x.shape[-1] if x.ndim else 1 for x in xs]
+    got = CB.bw_decode_many_plain(codes, scales, lasts)
+    spec = TN.QuantSpec("blockwise", bits, block, storage, "per_tensor_max")
+    tqs = [TN.QTensor(c.reshape(tuple(q.codes.shape)),
+                      s.reshape(tuple(q.scale.shape)), spec, tuple(q.shape))
+           for c, s, q in zip(codes, scales, jqs)]
+    api = TN.decode_many(tqs, backend="cuda")
+    if storage == "int8":       # the step's storage: the Pallas kernel too
+        monkeypatch.setenv("JAX_PALLAS_INTERPRET", "1")
+    for q, y, a, c in zip(jqs, got, api, codes):
+        want = np.asarray(JN.decode(q)).reshape(y.shape)
+        assert y.dtype == torch.float32 and c.dtype == TORCH_STORE[storage]
+        np.testing.assert_array_equal(y.numpy().view(np.int32),
+                                      want.view(np.int32))
+        assert tuple(a.shape) == tuple(q.shape)
+        np.testing.assert_array_equal(a.numpy().reshape(y.shape), y.numpy())
+        if storage == "int8":
+            pallas = np.asarray(JN.decode(q, backend="pallas"))
+            np.testing.assert_array_equal(
+                pallas.reshape(y.shape).view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+def test_decode_many_is_a_loop_of_decode(backend):
+    _, tp = _params()
+    shapes = _moment_shapes(tp) + [(3, 1000), (0, 7), ()]
+    xs = [torch.from_numpy(x) for x in _leaf_data(shapes, seed=4)]
+    qts = []
+    for i, x in enumerate(xs):           # every storage, three block widths
+        bits, storage = STORAGES[i % len(STORAGES)]
+        spec = TN.QuantSpec("blockwise", bits, (256, 16, 1024)[i % 3],
+                            storage, "per_tensor_max")
+        qts.append(TN.encode(x, spec, backend=backend))
+    many = TN.decode_many(qts, backend=backend)
+    assert len(many) == len(qts) and TN.decode_many([]) == []
+    for qt, y in zip(qts, many):
+        one = TN.decode(qt, backend=backend)
+        assert y.shape == one.shape and y.dtype == one.dtype
+        assert torch.equal(y.view(torch.int32), one.view(torch.int32))
+
+
+def test_group_decode_wrapper_refuses_what_it_does_not_take():
+    c, s = torch.zeros((2, 8), dtype=torch.int8), torch.zeros((2, 2))
+    with pytest.raises(ValueError):
+        CB.bw_decode_many([c, c], [s], [8, 8])
+    with pytest.raises(ValueError):           # 8 codes in 3 blocks
+        CB.bw_decode_many([c], [torch.zeros((2, 3))], [8])
+    with pytest.raises(ValueError):           # no blocks for 4 values
+        CB.bw_decode_many([c[:, :0]], [s[:, :0]], [4])
+    assert CB.bw_decode_many([], [], []) == []
+    y = CB.bw_decode_many([c[:, :0]], [s[:, :0]], [0])[0]
+    assert tuple(y.shape) == (2, 0)
+
+
+def _per_leaf_decode(qts, dtype=torch.float32, backend="reference"):
+    """The decode before the group: one ``decode`` a leaf."""
+    return [TN.decode(qt, dtype, backend=backend) for qt in qts]
+
+
+def test_adam_and_wire_step_bit_for_bit_with_per_leaf_decodes(monkeypatch):
+    """Two int8-moment AdamW updates after a wire round trip each, on the
+    CPU: the grouped ``decode_many`` gives params, moments, compressed
+    grads and residuals bit for bit equal to one ``decode`` a leaf."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.optim import grad_compress as TG
+    from repro_torch.tree import leaves, unflatten
+    _, tp = _params()
+    cfg = TrainConfig(learning_rate=3e-3, opt_state_dtype="int8")
+    rng = np.random.RandomState(11)
+    grads = [unflatten(tp, [
+        torch.from_numpy(np.asarray(rng.standard_normal(tuple(v.shape))
+                                    * 0.01, np.float32))
+        if isinstance(v, torch.Tensor) and v.is_floating_point() else None
+        for _, v in flatten_with_path(tp)]) for _ in range(2)]
+
+    def run():
+        params, state, res, out = tp, TA.init_adam(tp, cfg), None, []
+        for g in grads:
+            gc, res = TG.compress_decompress(g, res)
+            params, state = TA.adam_update(params, gc, state, 3e-3, cfg)
+            out += [t for t in leaves(gc) if t is not None]
+            out += [t for t in res if t is not None]
+        out += [t for t in leaves(params) if isinstance(t, torch.Tensor)]
+        for m in (*state.m, *state.v):
+            if m is not None:
+                out += [m.codes, m.scale]
+        return out
+
+    grouped = run()
+    monkeypatch.setattr(TA, "decode_many", _per_leaf_decode)
+    monkeypatch.setattr(TG, "decode_many", _per_leaf_decode)
+    per_leaf = run()
+    assert len(grouped) == len(per_leaf) > 100
+    for a, b in zip(grouped, per_leaf):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
