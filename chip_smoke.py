@@ -18,7 +18,15 @@ Phases (any failure raises and the script exits non-zero):
              slot past its pages to the trash page) bit for bit with its
              twin on the whole pool and over two launches, timed beside the
              design it replaced (page arithmetic, p2_enc_rows and
-             index_put_ for K and for V: ``previous_ms``); paged attention
+             index_put_ for K and for V: ``previous_ms``); the chunk step's
+             paged write (the same kernel at S = 128: one slot's 128 rows,
+             a page-aligned chunk and one whose pad rows and valid rows run
+             past the slot's last page) and the paged read (p2_read_paged:
+             one slot and 8 slots of 64 pages -> bf16 and f32), bit for bit
+             with their twins, with the parent's route and over two
+             launches, each timed beside the parent's route (page
+             arithmetic + p2_enc + index_put_; page gather + p2_dec or
+             p2_dec_rows: ``previous_ms``); paged attention
              over an int8 pool
              (513, 16, 8, 128) with B=8, S in {1, 4}, ragged contexts up to
              1024, within 1e-5 in fp32 and 2 bf16 ulp (+1e-5) with bf16 q,
@@ -50,23 +58,27 @@ Phases (any failure raises and the script exits non-zero):
              paged KV append and paged attention once per layer, and the
              row-scale encode ran for the prefills alone (K and V once
              each). The gather engine (the default path) then serves the
-             same requests with its counts zeroed, which is where the
-             decode kernel runs. Last, a steady window of decode steps is
-             timed on the host and profiled on the device: step time,
-             device time per kernel, busy share, and the append by name
-             (p2_append_paged_kernel 24 a step, p2_enc_rows_kernel none;
+             same requests with its counts zeroed: it reads every slot's
+             view once a layer a decode step through p2_read_paged and
+             never launches p2_dec_rows. Last, a steady window of decode
+             steps of each engine is timed on the host and profiled on the
+             device: step time, device time per kernel, busy share, and the
+             KV kernels by name (p2_append_paged_kernel 24 a step, and
+             p2_read_paged_kernel 24 on the gather engine; no other;
              asserted).
    serve chunked prefix — the fourth main path, on the same model:
              chunked prefill (128) with the radix prefix cache, 16 requests
              (12 behind a shared 256-token preamble, 4 of them diverging
              mid-page for a COW fork; 4 random), 64 new tokens each; counts
-             zeroed just before and read just after: 48 p2_enc and 48
-             p2_dec per chunk step (the chunk steps counted from the
-             prefills and their hits), paged attention and the KV append
-             once per layer per decode step, p2_enc_rows twice per
-             whole-prompt prefill; hits, forks and saved pages must be
-             non-zero.
-             Then one chunk step's host and device time, profiled.
+             zeroed just before and read just after: p2_read_paged and
+             p2_append_paged once per layer per chunk step (the chunk steps
+             counted from the prefills and their hits) and no p2_enc or
+             p2_dec, paged attention and the KV append once per layer per
+             decode step, p2_enc_rows twice per whole-prompt prefill; hits,
+             forks and saved pages must be non-zero.
+             Then one chunk step's host and device time, profiled
+             (p2_append_paged_kernel and p2_read_paged_kernel 24 a step;
+             no other KV kernel; asserted).
 4. identity — the same requests in float32 at full width with 4 layers:
              fused and gather engines must emit identical greedy tokens.
    chunked identity — float32, 4 layers: an int8 prefix hit (a 16-page
@@ -105,9 +117,10 @@ Phases (any failure raises and the script exits non-zero):
              its plain version and a library call where one computes the
              same function.
    scalar kernels — the scalar-scale encode/decode kernels bit for bit
-             against their plain versions at the chunk step's full-width
-             shapes ((128, 8, 128) bf16/f32 -> int8, (1, 1024, 8, 128)
-             int8 -> bf16/f32), an odd length and an unaligned view, scales
+             against their plain versions at the full-width shapes the
+             chunk step gave them before the paged write and read ((128,
+             8, 128) bf16/f32 -> int8, (1, 1024, 8, 128) int8 ->
+             bf16/f32), an odd length and an unaligned view, scales
              -8..2, and both scalar and row kernels with int16, int32 and
              float32 codes; the row-scale fake-quant kernel bit for bit in
              values
@@ -115,7 +128,8 @@ Phases (any failure raises and the script exits non-zero):
              each timed beside its bound, its plain version and a library
              call (quantize_per_tensor, a per-tensor dequantize,
              fake_quantize_per_channel_affine); then the codec API's
-             per-row fake_quant with its launch count.
+             per-row fake_quant and per-row decode with their launch
+             counts.
 7. train wire — the third main path: the same MLP stepped 300 times with
              the paper's full Table-1 wire (``make_step(..., compress=True)``
              with int8 Adam moments and the int8 gradient wire), counts
@@ -150,7 +164,10 @@ beside its combine pass. Neither prints a result line.
 phase's requests (fused and gather) and the chunked-prefix run's at full
 width with the port found under DIR (default: this checkout's ``src``;
 another tree's ``src`` compares two versions in one call) and writes their
-greedy tokens to PATH as JSON; no result line.
+greedy tokens to PATH as JSON; no result line. ``--steps PATH [--src
+DIR]`` likewise profiles the chunk step and the fused and gather decode
+steps (host wall, device time, the KV kernels' launches) and writes them
+to PATH, asserting nothing.
 """
 from __future__ import annotations
 
@@ -168,9 +185,6 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_OPS_PER_S = 989e12            # dense bf16 tensor-core peak
 FP32_OPS_PER_S = 67e12             # fp32 peak outside the tensor cores
 ARCH = "internlm2-1.8b"
-SOURCES = ["pow2_rows", "paged_attention", "pow2_fq", "ttm_pe", "ttm_pe1",
-           "ttm_pe2", "ttm_pe3", "blockwise", "pow2_packed", "pow2_scalar",
-           "kv_append"]
 TRAIN_STEPS = 300
 
 
@@ -238,10 +252,10 @@ def bound_ms(nbytes: float, ops: float = 0.0,
 def phase_build() -> dict:
     from repro_torch.kernels import build as B
     t0 = time.perf_counter()
-    logs = B.build(SOURCES, verbose=True)
+    logs = B.build(list(B.SOURCES), verbose=True)
     dt = time.perf_counter() - t0
     ptxas = {}
-    for name in SOURCES:
+    for name in B.SOURCES:
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", logs[name])]
         spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores",
                                               logs[name]))
@@ -251,7 +265,7 @@ def phase_build() -> dict:
                        "instances": len(regs)}
         log(f"  ptxas {name}: {len(regs)} kernel instances, at most "
             f"{max(regs)} registers, {spill} bytes spilled")
-    log(f"build: {len(SOURCES)} libraries in {dt:.1f} s")
+    log(f"build: {len(B.SOURCES)} libraries in {dt:.1f} s")
     return {"build_s": dt, "ptxas": ptxas}
 
 
@@ -374,6 +388,184 @@ def _append_row(torch, timer, gen) -> dict:
     return row
 
 
+PAGED_NONE = ("none: no PyTorch call writes or reads tokens through a page "
+              "table under per-slot scales")
+
+
+def _paged_pool(torch, gen):
+    """The serving pool at full width: int8 K and V pages (513, 16, 8, 128)
+    of random codes, 8 slots x 64 pages, each slot's pow-2 scales."""
+    b, hkv, dh, page, pps = 8, 8, 128, 16, 64
+    total = b * pps
+    kd, vd = (torch.randint(-128, 128, (total + 1, page, hkv, dh),
+                            generator=gen, device=gen.device).to(torch.int8)
+              for _ in range(2))
+    table = torch.randperm(total, generator=gen, device=gen.device).reshape(
+        b, pps).to(torch.int32)
+    ks, vs = (torch.randint(-9, -2, (b,), generator=gen, device=gen.device
+                            ).float() for _ in range(2))
+    return kd, vd, ks, vs, table
+
+
+def _chunk_write_previous(CB, kd, vd, ks, vs, k, v, table_row, start, valid,
+                          slot, page, bits=8):
+    """The chunk write as the parent ran it, per tensor: the page
+    arithmetic on the host stream, the scalar-scale encode kernel and an
+    ``index_put_`` (``kv_cache.write_chunk`` before the paged write)."""
+    import torch
+    for data, scale, new in ((kd, ks, k), (vd, vs, v)):
+        new = new[0]
+        j = torch.arange(new.shape[0], device=new.device)
+        pos = start + j
+        idx = torch.clamp(pos // page, max=table_row.shape[0] - 1)
+        pages = torch.where(j < valid, table_row.long()[idx],
+                            data.shape[0] - 1)
+        codes = CB.encode_scalar(new, scale[slot][None], bits)
+        data.index_put_((pages, pos % page), codes)
+
+
+def _read_previous(CB, kd, vd, ks, vs, table, dtype):
+    """The read as the parent ran it, per tensor: the page gather, then the
+    scalar-scale decode kernel for one slot or the row-scale one for
+    several (``kv_cache.gather_slots``)."""
+    b = table.shape[0]
+    out = []
+    for data, scale in ((kd, ks), (vd, vs)):
+        g = data[table.long()].reshape(b, -1)
+        out.append(CB.decode_scalar(g, scale, dtype) if b == 1
+                   else CB.decode_rows(g, scale, dtype))
+    return out
+
+
+def _paged_write_row(torch, timer, gen, pool) -> dict:
+    """The chunk step's write (128 rows of one slot, K and V 8 x 128 bf16,
+    V the strided half of the fused projection) into the serving pool:
+    bit for bit with the twin and with the parent's route on the real
+    pages, over two launches, for a page-aligned chunk and one whose pad
+    rows and valid rows run past the slot's last page; timed beside the
+    twin and the parent's route (``previous_ms``)."""
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import kv_append as KA
+    from repro_torch.numerics import cuda_backend as CB
+    kd0, vd0, ks, vs, table = pool
+    slot, page, s = 3, 16, 128
+    kv = (torch.randn((1, s, 2, 8, 128), generator=gen, device=gen.device)
+          * 2 ** -3).to(torch.bfloat16)
+    k, v = kv[:, :, 0].contiguous(), kv[:, :, 1]
+    check(not v.is_contiguous(), "chunk write: V is not a strided view")
+    row_t = table[slot][None]
+    for start, valid in ((256, 128), (1000, 100)):
+        lens = torch.tensor([start], dtype=torch.int32, device=gen.device)
+        nv = torch.tensor([valid], dtype=torch.int32, device=gen.device)
+        args = (ks[slot:slot + 1], vs[slot:slot + 1], k, v, row_t, lens, None)
+        kw = dict(page_size=page, bits=8, n_valid=nv, clamp_last=True)
+        got, want, prev = ([kd0.clone(), vd0.clone()] for _ in range(3))
+        KA.append_paged_torch(*want, *args, **kw)
+        _chunk_write_previous(CB, *prev, ks, vs, k, v, table[slot], start,
+                              valid, slot, page)
+        _sync(torch, "cuda")
+        B.reset_launches()
+        KA.append_paged_cuda(*got, *args, **kw)
+        _sync(torch, "cuda")
+        check(B.LAUNCHES == {"p2_append_paged": 1},
+              f"chunk write launches {B.LAUNCHES}")
+        for a, w, p_, o in zip(got, want, prev, (kd0, vd0)):
+            # past the last page the parent's index_put_ met rows in one
+            # cell, which CUDA resolves in no set order: the twin only
+            check(torch.equal(a[:-1], w[:-1]) and (
+                start + valid > 1024 or torch.equal(a[:-1], p_[:-1])),
+                f"chunk write ({start}, {valid}): real pages differ from "
+                "the twin or the parent's route")
+            check(not torch.equal(a[:-1], o[:-1]), "chunk write wrote "
+                  "nothing")
+        again = [kd0.clone(), vd0.clone()]
+        KA.append_paged_cuda(*again, *args, **kw)
+        check(torch.equal(again[0][:-1], got[0][:-1])
+              and torch.equal(again[1][:-1], got[1][:-1]),
+              "chunk write: two launches differ")
+    # time the engine's chunk (position 256, 128 valid rows) in place
+    kd, vd = kd0.clone(), vd0.clone()
+    lens = torch.tensor([256], dtype=torch.int32, device=gen.device)
+    nv = torch.tensor([128], dtype=torch.int32, device=gen.device)
+    args = (kd, vd, ks[slot:slot + 1], vs[slot:slot + 1], k, v, row_t, lens,
+            None)
+    kw = dict(page_size=page, bits=8, n_valid=nv, clamp_last=True)
+    n = 2 * k.numel()
+    row = dict(shape=[list(k.shape), list(kd.shape)],
+               what="chunk write, S=128", max_abs_err=0.0,
+               ms=timer(lambda: KA.append_paged_cuda(*args, **kw)),
+               previous_ms=timer(lambda: _chunk_write_previous(
+                   CB, kd, vd, ks, vs, k, v, table[slot], 256, 128, slot,
+                   page)),
+               plain_ms=timer(lambda: KA.append_paged_torch(*args, **kw),
+                              iters=10),
+               library_ms=None, library_note=PAGED_NONE)
+    # bf16 in, int8 codes out; two scales, the start, the count, the pages
+    row["bound_ms"], row["bound_by"] = bound_ms(n * 3 + 4 * 4 + 4 * 8,
+                                                2 * n, FP32_OPS_PER_S)
+    log(f"p2_append_paged chunk write (K and V, 128 rows x 8 x 128 bf16): "
+        f"{row['ms']*1e3:.2f} us one launch (previous route "
+        f"{row['previous_ms']*1e3:.2f} us, plain {row['plain_ms']*1e3:.1f} "
+        f"us, bound {row['bound_ms']*1e3:.4f} us); real pages bit-exact "
+        "with the twin and the parent's route, clamp rule and pad rows, two "
+        "launches equal")
+    return row
+
+
+def _paged_read_rows(torch, timer, pool) -> list:
+    """The history read: one slot (the chunk step) and all 8 (the gather
+    engine's decode step), 64 pages of 16 x 8 x 128 a slot -> bf16 and
+    f32, bit for bit with the twin, with the parent's route and over two
+    launches, one launch each; timed beside the twin and the parent's
+    route (``previous_ms``)."""
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import kv_read as KR
+    from repro_torch.numerics import cuda_backend as CB
+    kd, vd, ks, vs, table = pool
+    rows = []
+    for b, dt, what in ((1, torch.bfloat16, "chunk step, one slot"),
+                        (8, torch.bfloat16, "gather decode, 8 slots"),
+                        (1, torch.float32, "one slot -> f32"),
+                        (8, torch.float32, "8 slots -> f32")):
+        sl = slice(3, 4) if b == 1 else slice(0, 8)     # slot 3, or all
+        args = (kd, vd, ks[sl], vs[sl], table[sl])
+        _sync(torch, "cuda")
+        B.reset_launches()
+        got = KR.read_paged_cuda(*args, dtype=dt)
+        _sync(torch, "cuda")
+        check(B.LAUNCHES == {"p2_read_paged": 1},
+              f"read launches {B.LAUNCHES}")
+        want = KR.read_paged_torch(*args, dtype=dt)
+        prev = _read_previous(CB, *args, dt)
+        again = KR.read_paged_cuda(*args, dtype=dt)
+        for a, w, p_, r in zip(got, want, prev, again):
+            check(_bits_equal(torch, a, w) and _bits_equal(
+                torch, a, p_.reshape(a.shape)) and _bits_equal(torch, a, r),
+                f"p2_read_paged ({what}) differs from the twin, the "
+                "parent's route or its own second launch")
+        n = 2 * got[0].numel()
+        row = dict(shape=list(got[0].shape), dtype=str(dt)[6:], what=what,
+                   max_abs_err=0.0,
+                   ms=timer(lambda: KR.read_paged_cuda(*args, dtype=dt)),
+                   previous_ms=timer(lambda: _read_previous(CB, *args, dt)),
+                   plain_ms=timer(lambda: KR.read_paged_torch(*args,
+                                                              dtype=dt),
+                                  iters=10),
+                   library_ms=None, library_note=PAGED_NONE)
+        # int8 codes in, values out; two scales and the page list a slot
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            n * (1 + got[0].element_size()) + b * (8 + 4 * table.shape[1]),
+            n, FP32_OPS_PER_S)
+        rows.append(row)
+        log(f"p2_read_paged {what} {tuple(got[0].shape)} {row['dtype']}: "
+            f"{row['ms']*1e3:.2f} us one launch (previous route "
+            f"{row['previous_ms']*1e3:.2f} us, plain "
+            f"{row['plain_ms']*1e3:.1f} us, bound "
+            f"{row['bound_ms']*1e3:.3f} us); bit-exact with the twin and "
+            "the parent's route, two launches equal")
+    return rows
+
+
 def phase_kernels(torch, timer: Timer) -> dict:
     from repro_torch.kernels import build as B
     from repro_torch.kernels import paged_attention as PA
@@ -412,7 +604,11 @@ def phase_kernels(torch, timer: Timer) -> dict:
             f"(plain {pms*1e3:.1f} us, library {lnote}, bound "
             f"{bms*1e3:.2f} us), codes exact")
     out["p2_enc_rows"] = enc_shapes
-    out["p2_append_paged"] = [_append_row(torch, timer, gen)]
+    pool = _paged_pool(torch, gen)
+    out["p2_append_paged"] = [_append_row(torch, timer, gen),
+                              _paged_write_row(torch, timer, gen, pool)]
+    out["p2_read_paged"] = _paged_read_rows(torch, timer, pool)
+    del pool
 
     # --- row-scale decode: the gather path's view (8 x 1024*1024) -> bf16
     dec_shapes = []
@@ -719,15 +915,18 @@ def full_model(torch):
     return lm, params
 
 
-def _check_appends(what, launches, summ, prefills, cfg) -> None:
-    """Each decode step appended K and V once a layer through
-    p2_append_paged, and p2_enc_rows ran for the ``prefills`` whole-prompt
-    prefills alone (K and V, one launch each)."""
-    want = summ["decode_steps"] * cfg.num_layers
+def _check_appends(what, launches, summ, prefills, cfg,
+                   chunk_steps: int = 0) -> None:
+    """Each decode step and each of the ``chunk_steps`` chunk steps wrote K
+    and V once a layer through p2_append_paged, and p2_enc_rows ran for
+    the ``prefills`` whole-prompt prefills alone (K and V, one launch
+    each)."""
+    want = (summ["decode_steps"] + chunk_steps) * cfg.num_layers
     check(summ["decode_steps"] > 0
           and launches.get("p2_append_paged", 0) == want,
           f"{what}: {launches.get('p2_append_paged', 0)} append launches for "
-          f"{summ['decode_steps']} decode steps x {cfg.num_layers} layers")
+          f"{summ['decode_steps']} decode steps and {chunk_steps} chunk "
+          f"steps x {cfg.num_layers} layers")
     check(prefills > 0 and launches.get("p2_enc_rows", 0) == 2 * prefills,
           f"{what}: {launches.get('p2_enc_rows', 0)} p2_enc_rows launches "
           f"for {prefills} whole-prompt prefills")
@@ -760,7 +959,12 @@ def phase_engine(torch, lm, params) -> dict:
                                      fused_attention=False)
     gather, gs = dict(B.LAUNCHES), eng.summary()
     _check_appends("gather path", gather, gs, len(eng.metrics.prefills), cfg)
-    check(gather.get("p2_dec_rows", 0) > 0, "gather path: no decode launch")
+    check(gather.get("p2_read_paged", 0) == gs["decode_steps"] * cfg.num_layers
+          and "p2_dec_rows" not in gather,
+          f"gather path: {gather.get('p2_read_paged', 0)} paged reads for "
+          f"{gs['decode_steps']} decode steps x {cfg.num_layers} layers, "
+          f"{gather.get('p2_dec_rows', 0)} p2_dec_rows")
+    check("p2_read_paged" not in main, "fused path launched a paged read")
     check(gather.get("paged_attention", 0) == 0
           and gather.get("paged_attention_combine", 0) == 0,
           "gather path launched paged attention")
@@ -779,22 +983,80 @@ def phase_engine(torch, lm, params) -> dict:
     out = {"fused": fs, "gather": gs, "launches_main": main,
            "launches_gather": gather, "peak_bytes": peak,
            "bf16_token_agreement": agree}
-    out["decode_profile"] = _profile_decode(torch, lm, params, prompts)
+    layers = cfg.num_layers
+    out["decode_profile"] = _profile_decode(
+        torch, lm, params, prompts, fused=True,
+        want={"p2_append_paged_kernel": layers})
+    out["gather_profile"] = _profile_decode(
+        torch, lm, params, prompts, fused=False,
+        want={"p2_append_paged_kernel": layers,
+              "p2_read_paged_kernel": layers})
     return out
 
 
-def _profile_decode(torch, lm, params, prompts, steps: int = 20) -> dict:
-    """Where a steady decode step's time goes: the host wall time of
-    ``steps`` unprofiled decode steps of the fused engine with all 8 slots
-    busy, then one profiled window of as many steps for
-    the device time per kernel. busy_share = device time / wall time."""
+# the paged KV kernels and the codec kernels they took over from, by the
+# kernel function's name in a profile
+KV_KERNEL_FNS = ["p2_append_paged_kernel", "p2_read_paged_kernel",
+                 "p2_enc_kernel", "p2_dec_kernel", "p2_enc_rows_kernel",
+                 "p2_dec_rows_kernel"]
+
+
+PROFILE_TRIES = 3
+
+
+def _profile_window(torch, window, steps: int, names, want, what: str,
+                    tries: int = PROFILE_TRIES):
+    """Profile ``window()`` (``steps`` steps, spin kernels at each edge):
+    (profile, the named kernels' launches and device ms a step). With
+    ``want`` (name -> launches a step) every window must count exactly
+    that; a window that does not is logged and profiled again, and the
+    check fails when ``tries`` windows all miss. The trace now and then
+    loses a device event inside a window (one p2_fq_group_kernel launch of
+    180 in a wire-step window on the H100), which the launch counters
+    (``kernels.build.LAUNCHES``, asserted exactly on every path) never
+    do; a kernel launched too often or too rarely misses in every
+    window."""
     from torch.profiler import ProfilerActivity, profile
+    for attempt in range(1 if want is None else tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _pad_window(torch)
+            window()
+            _pad_window(torch)
+        kern = _kernel_profile(torch, prof, steps, names)
+        got = {k: r["calls_per_step"] for k, r in kern.items()}
+        if want is None or got == want:
+            return prof, kern
+        log(f"  {what} profile window {attempt + 1}: launches a step "
+            f"{got}, want {want}; profiling another window")
+    check(False, f"{what} profile kernels {kern} in {tries} windows, want "
+          f"launches {want} a step")
+
+
+def _kv_want(want):
+    return None if want is None else {k: float(v) for k, v in want.items()}
+
+
+def _log_kernels(kern: dict) -> None:
+    for name, r in kern.items():
+        log(f"  kernel {name}: {r['calls_per_step']:.1f} launches, "
+            f"{r['ms_per_step']*1e3:.1f} us a step")
+
+
+def _profile_decode(torch, lm, params, prompts, steps: int = 20,
+                    fused: bool = True, want=None) -> dict:
+    """Where a steady decode step's time goes: the host wall time of
+    ``steps`` unprofiled decode steps of the fused (or gather) engine with
+    all 8 slots busy, then one profiled window of as many steps for the
+    device time per kernel. busy_share = device time / wall time."""
     from repro_torch.serve import Engine, EngineConfig, PoolConfig
     eng = Engine(lm, params, EngineConfig(
         pool=PoolConfig(num_slots=8, page_size=16, pages_per_slot=64,
-                        quantized=True), fused_attention=True), device="cuda")
+                        quantized=True), fused_attention=fused),
+        device="cuda")
+    # enough tokens that every slot stays busy through each window
     for p in prompts[:8]:
-        eng.submit(p, max_new_tokens=3 * steps + 2)
+        eng.submit(p, max_new_tokens=(2 + PROFILE_TRIES) * steps + 2)
     eng.step()                          # admits + prefills all 8, 1 decode
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -802,28 +1064,17 @@ def _profile_decode(torch, lm, params, prompts, steps: int = 20) -> dict:
         eng.step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _pad_window(torch)
-        for _ in range(steps):
-            eng.step()
-        _pad_window(torch)
+    what = "decode" if fused else "gather decode"
+    prof, kern = _profile_window(
+        torch, lambda: [eng.step() for _ in range(steps)], steps,
+        KV_KERNEL_FNS, _kv_want(want), what)
     total, rows = _device_summary(torch, prof, steps)
-    log(f"decode profile: {wall*1e3:.2f} ms per step (host wall), device "
+    log(f"{what} profile: {wall*1e3:.2f} ms per step (host wall), device "
         f"{total:.2f} ms busy, busy share {total / (wall*1e3):.3f}")
     for r in rows:
         log(f"  {r['ms_per_step']:8.3f} ms  {r['calls_per_step']:6.1f}x  "
             f"{r['name']}")
-    kern = _kernel_profile(torch, prof, steps, ["p2_append_paged_kernel",
-                                                "p2_enc_rows_kernel"])
-    for name, r in kern.items():
-        log(f"  kernel {name}: {r['calls_per_step']:.1f} launches, "
-            f"{r['ms_per_step']*1e3:.1f} us a step")
-    layers = lm.cfg.num_layers
-    check({k: r["calls_per_step"] for k, r in kern.items()}
-          == {"p2_append_paged_kernel": float(layers)},
-          f"decode profile kernels {kern}, want p2_append_paged_kernel "
-          f"{layers} a step and no p2_enc_rows_kernel")
+    _log_kernels(kern)
     return {"step_ms": wall * 1e3, "device_ms": total,
             "busy_share": total / (wall * 1e3), "top": rows,
             "kernels": kern}
@@ -1468,32 +1719,25 @@ def _profile_train(torch, one, per: dict, steps: int = 20):
     kernel. busy_share = device time / wall time. Each kernel of ``per``
     (the step's ``launches_per_step``) must appear in the profile as often
     a step, by its function's name."""
-    from torch.profiler import ProfilerActivity, profile
+    import itertools
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(steps):
         one(i)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _pad_window(torch)
-        for i in range(steps):
-            one(steps + i)
-        _pad_window(torch)
+    want = {KERNEL_FN[k]: float(v) for k, v in per.items()}
+    batch = itertools.count(steps)              # the next batch's index
+    prof, kern = _profile_window(
+        torch, lambda: [one(next(batch)) for _ in range(steps)], steps,
+        want, want, "train")
     total, rows = _device_summary(torch, prof, steps)
     log(f"train profile: {wall*1e3:.2f} ms per step (host wall), device "
         f"{total:.3f} ms busy, busy share {total / (wall*1e3):.3f}")
     for r in rows:
         log(f"  {r['ms_per_step']*1e3:8.1f} us  {r['calls_per_step']:6.1f}x  "
             f"{r['name']}")
-    want = {KERNEL_FN[k]: float(v) for k, v in per.items()}
-    kern = _kernel_profile(torch, prof, steps, want)
-    for name, r in kern.items():
-        log(f"  kernel {name}: {r['calls_per_step']:.1f} launches, "
-            f"{r['ms_per_step']*1e3:.1f} us a step")
-    check({k: r["calls_per_step"] for k, r in kern.items()} == want,
-          f"train profile kernels {kern}, want launches {want} a step")
+    _log_kernels(kern)
     return {"step_ms": wall * 1e3, "device_ms": total,
             "busy_share": total / (wall * 1e3), "top": rows,
             "kernels": kern}
@@ -2117,10 +2361,12 @@ def phase_scalar_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
     def scale_for(x):
         return torch.ceil(torch.log2(x.float().abs().amax() / 127)) - 1
 
-    # --- p2_enc: the chunk write (S_chunk, Hkv, Dh), odd and unaligned
+    # --- p2_enc: at the previous chunk write's (S_chunk, Hkv, Dh), odd and
+    # unaligned
     base = torch.randn(128 * 8 * 128 + 1, generator=gen, device=device) * 3
-    cases = [((128, 8, 128), torch.bfloat16, "chunk write bf16", None),
-             ((128, 8, 128), torch.float32, "chunk write f32", None),
+    cases = [((128, 8, 128), torch.bfloat16, "previous chunk write bf16",
+              None),
+             ((128, 8, 128), torch.float32, "previous chunk write f32", None),
              ((1001,), torch.float32, "odd length", None),
              ((1001,), torch.bfloat16, "odd length bf16", None),
              ((4096,), torch.float32, "unaligned view", 1)]
@@ -2155,11 +2401,14 @@ def phase_scalar_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
             f"bound {row['bound_ms']*1e3:.3f} us), codes exact at scales "
             "-8..2")
 
-    # --- p2_dec: one slot's history (1, max_len, Hkv, Dh), odd, unaligned
+    # --- p2_dec: at the previous history read's (1, max_len, Hkv, Dh), odd,
+    # unaligned
     codes = torch.randint(-128, 128, (1024 * 8 * 128 + 1,), generator=gen,
                           device=device).to(torch.int8)
-    cases = [((1, 1024, 8, 128), torch.bfloat16, "slot history bf16", 0),
-             ((1, 1024, 8, 128), torch.float32, "slot history f32", 0),
+    cases = [((1, 1024, 8, 128), torch.bfloat16,
+              "previous slot history read bf16", 0),
+             ((1, 1024, 8, 128), torch.float32,
+              "previous slot history read f32", 0),
              ((1001,), torch.float32, "odd length", 0),
              ((4096,), torch.bfloat16, "unaligned view", 1)]
     for shape, dt, what, off in cases:
@@ -2307,8 +2556,24 @@ def phase_scalar_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
     _sync(torch, device)
     api = dict(B.LAUNCHES)
     check(api == {"p2_fq_rows": 1}, f"codec API launches {api}")
-    out["api_launches"] = api
     log(f"codec API fake_quant, (24,) scales: launches {api}")
+    # --- and a per-layer decode, the row decode's one caller since the
+    # gather engine reads through p2_read_paged
+    spec = TN.QuantSpec("pow2", 8)
+    q = torch.randint(-128, 128, (24, 8, 16384), generator=gen,
+                      device=device).to(torch.int8)
+    _sync(torch, device)
+    B.reset_launches()
+    y = TN.get_codec(spec, "cuda").decode(TN.QTensor(q, s, spec),
+                                          torch.bfloat16)
+    _sync(torch, device)
+    dec = dict(B.LAUNCHES)
+    check(dec == {"p2_dec_rows": 1}, f"codec API decode launches {dec}")
+    want = CB.decode_rows_plain(q.reshape(24, -1), s, torch.bfloat16)
+    check(torch.equal(y, want.reshape(q.shape)),
+          "codec API decode differs from the row decode's twin")
+    log(f"codec API decode, (24,) scales: launches {dec}")
+    out["api_launches"] = {**api, **dec}
     B.reset_launches()
     return out
 
@@ -2373,21 +2638,26 @@ def phase_serve_chunked(torch, lm, params) -> dict:
     launches = dict(B.LAUNCHES)
     s = eng.summary()
     steps = _chunk_steps(eng.metrics.prefills, CHUNK)
-    per = 2 * cfg.num_layers
+    layers = cfg.num_layers
     check(s["requests_completed"] == len(prompts), "requests lost")
     check(s["prefix_hit_tokens"] > 0 and s["cow_forks"] > 0
           and s["pages_saved"] > 0, f"prefix cache: {s}")
-    check(steps > 0 and launches.get("p2_enc", 0) == per * steps
-          and launches.get("p2_dec", 0) == per * steps,
-          f"chunk steps {steps}: launches {launches}, want {per} p2_enc and "
-          f"p2_dec per step")
+    # a chunk step reads its history once a layer (p2_read_paged) and
+    # writes its chunk once a layer (p2_append_paged, counted with the
+    # decode appends below); the scalar codec no longer runs
+    check(steps > 0 and launches.get("p2_read_paged", 0) == layers * steps
+          and not {"p2_enc", "p2_dec", "p2_dec_rows"} & set(launches),
+          f"chunk steps {steps}: launches {launches}, want {layers} "
+          f"p2_read_paged and p2_append_paged per step and no p2_enc, "
+          "p2_dec or p2_dec_rows")
     check(launches.get("paged_attention", 0)
           == s["decode_steps"] * cfg.num_layers
           == launches.get("paged_attention_combine", 0),
           f"{launches.get('paged_attention', 0)} attention launches for "
           f"{s['decode_steps']} decode steps")
     _check_appends("serve chunked prefix", launches, s,
-                   sum(1 for _, hit in eng.metrics.prefills if not hit), cfg)
+                   sum(1 for _, hit in eng.metrics.prefills if not hit), cfg,
+                   chunk_steps=steps)
     tree = eng.sched.prefix.bytes_stats(KC.page_nbytes(eng.pool, eng.pcfg))
     savings = s["prompt_tokens"] / s["prefill_tokens"]
     log(f"serve chunked prefix: {s['requests_completed']} requests, "
@@ -2403,15 +2673,18 @@ def phase_serve_chunked(torch, lm, params) -> dict:
         f"{launches}")
     return {"summary": s, "launches": launches, "chunk_steps": steps,
             "prefill_compute_savings": savings, "tree": tree,
-            "chunk_profile": _profile_chunk(torch, lm, params, prompts)}
+            "chunk_profile": _profile_chunk(
+                torch, lm, params, prompts,
+                want={"p2_append_paged_kernel": layers,
+                      "p2_read_paged_kernel": layers})}
 
 
-def _profile_chunk(torch, lm, params, prompts, reps: int = 10) -> dict:
+def _profile_chunk(torch, lm, params, prompts, reps: int = 10,
+                   want=None) -> dict:
     """One chunk step at full width (128 tokens at position 256 of a slot
     whose history holds 384 prompt tokens), repeated: host wall per step
     (synchronised), then one profiled window for the device time per
     kernel. The step rewrites the same positions with the same values."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import Engine, EngineConfig, PoolConfig
     eng = Engine(lm, params, EngineConfig(
         pool=PoolConfig(num_slots=8, page_size=16, pages_per_slot=64,
@@ -2429,19 +2702,20 @@ def _profile_chunk(torch, lm, params, prompts, reps: int = 10) -> dict:
         eng._chunk(toks, table_row, 0, 256)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / reps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            eng._chunk(toks, table_row, 0, 256)
-        torch.cuda.synchronize()
+    prof, kern = _profile_window(
+        torch, lambda: [eng._chunk(toks, table_row, 0, 256)
+                        for _ in range(reps)], reps, KV_KERNEL_FNS,
+        _kv_want(want), "chunk step")
     total, rows = _device_summary(torch, prof, reps)
     log(f"chunk step profile: {wall*1e3:.2f} ms per step (host wall), "
         f"device {total:.2f} ms busy, busy share {total / (wall*1e3):.3f}")
     for r in rows:
         log(f"  {r['ms_per_step']:8.3f} ms  {r['calls_per_step']:6.1f}x  "
             f"{r['name']}")
+    _log_kernels(kern)
     return {"step_ms": wall * 1e3, "device_ms": total,
-            "busy_share": total / (wall * 1e3), "top": rows}
+            "busy_share": total / (wall * 1e3), "top": rows,
+            "kernels": kern}
 
 
 def phase_chunked_identity(torch) -> dict:
@@ -2500,8 +2774,6 @@ KERNELS = {
                     "src/repro/numerics/pallas_backend.py:189"),
     "p2_append_paged": ("src/repro_torch/kernels/csrc/kv_append.cu",
                         "src/repro/numerics/pallas_backend.py:189"),
-    "p2_dec_rows": ("src/repro_torch/kernels/csrc/pow2_rows.cu",
-                    "src/repro/numerics/pallas_backend.py:196"),
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:134"),
     "paged_attention_combine": (
@@ -2536,6 +2808,10 @@ TRAIN_KERNELS = {
     "pe3": ("src/repro_torch/kernels/csrc/ttm_pe3.cu",
             "src/repro/kernels/ttm_pe3.py:23"),
 }
+READ = ("src/repro_torch/kernels/csrc/kv_read.cu",
+        "src/repro/numerics/pallas_backend.py:127")
+DEC_ROWS = ("src/repro_torch/kernels/csrc/pow2_rows.cu",
+            "src/repro/numerics/pallas_backend.py:196")
 
 
 def _kernel_row(name, src, replaces, shapes, launches, path) -> dict:
@@ -2556,11 +2832,19 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
                  ) -> dict:
     rows = []
     for name, (src, replaces) in KERNELS.items():
-        on_main = eng["launches_main"].get(name, 0)
-        path = "main (fused)" if on_main else "gather (engine default)"
-        launches = on_main or eng["launches_gather"].get(name, 0)
-        rows.append(_kernel_row(name, src, replaces, kern[name], launches,
-                                path))
+        rows.append(_kernel_row(name, src, replaces, kern[name],
+                                eng["launches_main"].get(name, 0),
+                                "main (fused)"))
+    rows.append(_kernel_row(
+        "p2_read_paged", *READ, kern["p2_read_paged"],
+        chunked["launches"].get("p2_read_paged", 0),
+        f"serve chunked prefix ({chunked['chunk_steps']} chunk steps); "
+        f"gather engine {eng['launches_gather'].get('p2_read_paged', 0)}"))
+    rows.append(_kernel_row(
+        "p2_dec_rows", *DEC_ROWS, kern["p2_dec_rows"],
+        skern["api_launches"].get("p2_dec_rows", 0),
+        "codec API (numerics decode with a scale per leading index; the "
+        "gather engine reads through p2_read_paged)"))
     for name, (src, replaces) in TRAIN_KERNELS.items():
         rows.append(_kernel_row(name, src, replaces, tkern[name],
                                 train["launches"].get(name, 0),
@@ -2576,9 +2860,10 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
             path = ("codec API (numerics.fake_quant with a scale per leading "
                     "index; no serving or training path)")
         else:
-            launches = chunked["launches"].get(name, 0)
-            path = (f"serve chunked prefix ({chunked['chunk_steps']} chunk "
-                    "steps)")
+            launches = train["export_launches"].get(name, 0)
+            path = ("BinaryConnect export (train phase); the chunk step "
+                    "writes and reads through p2_append_paged and "
+                    "p2_read_paged")
         rows.append(_kernel_row(name, src, replaces, skern[name], launches,
                                 path))
     return {"kernels": rows}
@@ -2603,6 +2888,21 @@ def phase_tokens(torch, path: str) -> None:
     Path(path).write_text(json.dumps(out))
 
 
+def phase_steps(torch, path: str) -> None:
+    """The chunk step's and the decode steps' (fused and gather) host wall
+    and device time at full width, with the KV kernels' launches a step,
+    written to ``path``; nothing asserted, so a parent tree's port can be
+    measured beside this one in one call."""
+    lm, params = full_model(torch)
+    prompts = _requests(lm.cfg.vocab_size)
+    out = {"chunk": _profile_chunk(torch, lm, params, prompts),
+           "decode": _profile_decode(torch, lm, params, prompts, fused=True),
+           "gather_decode": _profile_decode(torch, lm, params, prompts,
+                                            fused=False)}
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(json.dumps(out))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON here")
@@ -2615,6 +2915,10 @@ def main(argv=None) -> int:
     ap.add_argument("--tokens", metavar="PATH",
                     help="only serve the engine and chunked-prefix requests "
                     "and write their tokens here (no result line)")
+    ap.add_argument("--steps", metavar="PATH",
+                    help="only profile the chunk step and the fused and "
+                    "gather decode steps and write them here (no result "
+                    "line)")
     ap.add_argument("--src", help="the directory holding repro_torch "
                     "(default: src beside this script)")
     args = ap.parse_args(argv)
@@ -2635,8 +2939,11 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"device: {torch.cuda.get_device_name(0)} ({smi}), torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-    if args.tokens:
-        phase_tokens(torch, args.tokens)
+    if args.tokens or args.steps:
+        if args.tokens:
+            phase_tokens(torch, args.tokens)
+        if args.steps:
+            phase_steps(torch, args.steps)
         return 0
     t0 = time.perf_counter()
     report = {"device": smi}

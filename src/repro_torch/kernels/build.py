@@ -18,9 +18,11 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on a non-zero code, so a refused launch (too much shared
 memory, a bad configuration) never passes silently.
 
-``LAUNCHES`` counts kernel launches per kernel name: each wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that the
-main path went through the kernels.
+``SOURCES`` names every source of ``csrc/`` (``chip_smoke.py`` builds
+them all at once, one ``nvcc`` each); ``LAUNCHES`` counts kernel launches
+per kernel name: each wrapper adds one where it launches its kernel and
+nowhere else, so a run can show that the main path went through the
+kernels.
 """
 from __future__ import annotations
 
@@ -36,6 +38,11 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC")
+
+# every csrc/<name>.cu, in the order chip_smoke.py reports their builds
+SOURCES = ("pow2_rows", "paged_attention", "pow2_fq", "ttm_pe", "ttm_pe1",
+           "ttm_pe2", "ttm_pe3", "blockwise", "pow2_packed", "pow2_scalar",
+           "kv_append", "kv_read")
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: dict[str, int] = {}

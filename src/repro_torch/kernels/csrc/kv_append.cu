@@ -1,41 +1,54 @@
-// Decode-step KV append: one new token per slot, K and V of one layer,
-// encoded to pow-2 codes under the slot's scale and written straight into
-// the layer's pool pages, in place, in one launch.
+// Paged KV write: S tokens per slot, K and V of one layer, encoded to pow-2
+// codes under the slot's scale and written straight into the layer's pool
+// pages, in place, in one launch. S = 1 is the decode step's append; S > 1
+// is the chunk step's write (chunked prefill, a prefix hit's suffix).
 //
 // Replaces: repro/numerics/pallas_backend.py `_p2_enc_rows_kernel` as the
 // reference's decode append runs it (repro/serve/kv_cache.py append_token:
 // the page gathered from the page table, the trash redirect of inactive
 // slots, the row-scale encode of the (B, Hkv*Dh) token and the
-// `.at[pages, offs].set` scatter), for K and for V. On the serving path this
-// is once a layer a decode step (24 launches a step on internlm2-1.8b),
-// where the port launched `p2_enc_rows` twice a layer with about six eager
-// index kernels and an `index_put_` around each launch.
+// `.at[pages, offs].set` scatter), and `_p2_enc_kernel` (:120) as its chunk
+// write runs it (kv_cache.py write_chunk: the page index of each row, the
+// trash redirect of pad rows, the scalar-scale encode of the (S, Hkv*Dh)
+// chunk and the scatter), for K and for V. On the serving path this is once
+// a layer a decode step and once a layer a chunk step (24 launches a step
+// on internlm2-1.8b), where the port launched an encode twice a layer with
+// about six eager index kernels and an `index_put_` around each launch.
 //
-// Per slot b, on the device (nothing is read back to the host):
-//   j    = lens[b] / page_size
-//   page = active[b] and 0 <= j < pages_per_slot ? table[b, j] : trash
-//   off  = lens[b] mod page_size                    (non-negative)
-//   data[page, off, :] = Q(clamp(rint(x / 2^scale[b]), lo, hi))
-// with p2_enc_rows's numerics: 2^s formed exactly (pow2_step), IEEE
-// division and rintf (no --use_fast_math), Q saturating (to_code). A
-// position past the slot's last page goes to the trash page: the
-// reference's take_along_axis fills such an index (INT_MIN) and its scatter
-// drops the write, so no real page changes either way. A page number
-// outside the pool is sent to the trash page too, so a bad table never
-// writes outside it.
+// Row j of slot b (position pos = lens[b] + j), on the device (nothing is
+// read back to the host):
+//   valid = (active == null or active[b]) and (n_valid == null or j < n_valid[b])
+//   idx   = pos / page_size
+//   drop rule  (clamp_last = 0, append_token): idx >= pages_per_slot -> trash
+//   clamp rule (clamp_last = 1, write_chunk):  idx = min(idx, pages_per_slot - 1)
+//   page  = valid and 0 <= idx < pages_per_slot ? table[b, idx] : trash
+//   data[page, pos mod page_size, :] = Q(clamp(rint(x / 2^scale[b]), lo, hi))
+// with p2_enc_rows's and p2_enc's numerics (which are the same): 2^s formed
+// exactly (pow2_step), IEEE division and rintf (no --use_fast_math), Q
+// saturating (to_code). The two rules are the reference's two writes where
+// they differ: append_token's take_along_axis fills an index past the
+// slot's last page (INT_MIN) and its scatter drops the write, so no real
+// page changes; write_chunk's gather clamps it, so the row lands in the last
+// page. Under the clamp rule two valid rows pos and pos + page_size both past
+// the last page's start write one cell; the reference's scatter keeps the
+// later, so the earlier goes to the trash page here and the result does not
+// depend on the order the CTAs run in. A negative position and a page number
+// outside the pool go to the trash page, so a bad table never writes outside
+// it.
 //
-// Bound on the H100: bytes. 2 x B x F inputs read once and as many codes
-// written (48 KB for K and V of 8 slots x 8 heads x 128 in bf16: 0.015 us
-// at 3.35 TB/s), one divide and one round an element; at these sizes the
-// launch itself is what a call waits on. Design: one launch takes K and V
-// of every slot, so a decode step pays one launch a layer and no host work
-// beyond it. Grid (slot, tensor): a CTA reads its slot's page, offset and
-// step from device memory and walks the slot's F elements in 16-byte
-// vectors of the input (8 bf16 or 4 f32 elements), writing the codes as
-// one 8- or 4-byte word a vector where the rows are aligned, else element
-// by element. Each input is taken at its own slot stride, so V, a strided
-// view of the fused kv projection, is read in place with no copy. No shared
-// memory, no synchronisation.
+// Bound on the H100: bytes. 2 x B x S x F inputs read once and as many codes
+// written (786 KB for K and V of a 128-token chunk x 8 heads x 128 in bf16:
+// 0.235 us at 3.35 TB/s; 48 KB for a decode step's 8 slots, 0.015 us), one
+// divide and one round an element; at these sizes the launch itself is what
+// a call waits on. Design: one launch takes K and V of every row of every
+// slot, so a step pays one launch a layer and no host work beyond it. Grid
+// (slot x row, tensor): a CTA reads its slot's page, offset and step from
+// device memory and walks the row's F elements in 16-byte vectors of the
+// input (8 bf16 or 4 f32 elements), writing the codes as one 8- or 4-byte
+// word a vector where the rows are aligned, else element by element. Each
+// input is taken at its own slot and token strides, so V, a strided view of
+// the fused kv projection, is read in place with no copy. No shared memory,
+// no synchronisation.
 
 #include "pow2_codes.cuh"
 
@@ -52,37 +65,60 @@ struct alignas(sizeof(T) * V < 16 ? sizeof(T) * V : 16) VecN {
 };
 
 struct AppendArgs {
-  const void* x[2];          // K, V tokens: slot b's F elements at x + b * stride
+  const void* x[2];          // K, V: row j of slot b at x + b * stride + j * tstride
   long long stride[2];       // their slot strides, in elements
+  long long tstride[2];      // their token strides, in elements
   void* data[2];             // K, V pages (trash + 1, page_size, F) codes
   const float* scale[2];     // (B,) scale_log2 of each slot
   const int* table;          // (B, pages_per_slot) int32, row stride table_stride
   long long table_stride;
-  const int* lens;           // (B,) int32 position of each slot's new token
-  const uint8_t* active;     // (B,) bool
+  const int* lens;           // (B,) int32 position of each slot's row 0
+  const uint8_t* active;     // (B,) bool, or null: every slot active
+  const int* n_valid;        // (B,) int32 valid rows, or null: every row valid
   long long feat;            // F = Hkv * Dh
+  int tokens;                // S rows a slot
   int pages_per_slot, page_size, trash;
+  int clamp_last;            // 0: drop rule, 1: clamp rule
   int vec[2];                // K / V take the vector path
   float lo, hi;
 };
+
+// the page row j of slot b (at position pos) writes, given the slot's
+// active flag and valid count: trash for a row that writes no real page
+__device__ __forceinline__ int row_page(const AppendArgs& a, int b, int j, int pos, bool act,
+                                        int nv) {
+  if (!act || j >= nv || pos < 0) return a.trash;
+  int idx = pos / a.page_size;
+  if (a.clamp_last && idx >= a.pages_per_slot - 1) {
+    if (j + a.page_size < nv) return a.trash;   // a later row writes this cell
+    idx = a.pages_per_slot - 1;
+  }
+  if (idx >= a.pages_per_slot) return a.trash;
+  const int page = __ldg(a.table + b * a.table_stride + idx);
+  return page < 0 || page > a.trash ? a.trash : page;
+}
 
 template <typename T, typename Q>
 __global__ void __launch_bounds__(kThreads)
     p2_append_paged_kernel(const __grid_constant__ AppendArgs a) {
   constexpr int V = 16 / sizeof(T);
-  const int b = blockIdx.x, t = blockIdx.y;
+  const int t = blockIdx.y;
+  const int b = a.tokens == 1 ? blockIdx.x : blockIdx.x / a.tokens;
+  const int j = blockIdx.x - b * a.tokens;
+  // the slot's loads are independent of each other: issue them together,
+  // so the table read is the only one that waits on another
   const int len = __ldg(a.lens + b);
-  const int j = len / a.page_size;
-  int page = a.trash;
-  if (a.active[b] && len >= 0 && j < a.pages_per_slot) {
-    page = __ldg(a.table + b * a.table_stride + j);
-    if (page < 0 || page > a.trash) page = a.trash;
-  }
-  const int off = (len % a.page_size + a.page_size) % a.page_size;
-  const T* __restrict__ x = static_cast<const T*>(a.x[t]) + b * a.stride[t];
+  const bool act = a.active == nullptr || a.active[b];
+  const int nv = a.n_valid == nullptr ? a.tokens : min(__ldg(a.n_valid + b), a.tokens);
+  const float s = __ldg(a.scale[t] + b);
+  const int pos = len + j;
+  const int page = row_page(a, b, j, pos, act, nv);
+  const int off = (pos % a.page_size + a.page_size) % a.page_size;
+  const T* __restrict__ x =
+      static_cast<const T*>(a.x[t]) + b * a.stride[t] + j * a.tstride[t];
   Q* __restrict__ q =
       static_cast<Q*>(a.data[t]) + ((long long)page * a.page_size + off) * a.feat;
-  const float step = pow2_step(__ldg(a.scale[t] + b));
+  const float step = pow2_step(s);
   const float lo = a.lo, hi = a.hi;
   auto enc = [lo, hi, step](float v) {
     return to_code<Q>(fminf(fmaxf(rintf(v / step), lo), hi));
@@ -106,36 +142,45 @@ void launch(AppendArgs a, int slots, cudaStream_t st) {
   for (int t = 0; t < 2; ++t)
     a.vec[t] = a.feat % V == 0 && aligned(a.x[t], 16) &&
                (slots == 1 || (a.stride[t] * (long long)sizeof(T)) % 16 == 0) &&
+               (a.tokens == 1 || (a.tstride[t] * (long long)sizeof(T)) % 16 == 0) &&
                aligned(a.data[t], alignof(VecN<Q, V>));
-  p2_append_paged_kernel<T, Q><<<dim3(slots, 2), kThreads, 0, st>>>(a);
+  p2_append_paged_kernel<T, Q><<<dim3(slots * a.tokens, 2), kThreads, 0, st>>>(a);
 }
 
 }  // namespace
 
 extern "C" {
 
-// k, v: slot b's F = Hkv * Dh elements of x_dtype (0 f32, 1 bf16, 2 f16)
-// at k + b * k_stride (v + b * v_stride), contiguous within the slot;
-// kdata, vdata: (trash + 1, page_size, F) codes of q_code (0 int8, 1 int16,
-// 2 int32, 3 f32), written in place; kscale, vscale: (slots,) f32
-// scale_log2; table: (slots, pages_per_slot) int32 with row stride
-// table_stride; lens: (slots,) int32; active: (slots,) bool. bits in
-// [2, code_bits(q_code)]. Returns cudaGetLastError() after the launch.
+// k, v: row j of slot b holds F = Hkv * Dh elements of x_dtype (0 f32,
+// 1 bf16, 2 f16) at k + b * k_stride + j * k_tstride (v likewise),
+// contiguous within the row, j < tokens; kdata, vdata: (trash + 1,
+// page_size, F) codes of q_code (0 int8, 1 int16, 2 int32, 3 f32), written
+// in place; kscale, vscale: (slots,) f32 scale_log2; table: (slots,
+// pages_per_slot) int32 with row stride table_stride; lens: (slots,) int32
+// position of row 0; active: (slots,) bool or null (every slot active);
+// n_valid: (slots,) int32 or null (every row valid); clamp_last selects the
+// rule for a valid row past the slot's last page (0 trash, 1 the last page).
+// bits in [2, code_bits(q_code)]. Returns cudaGetLastError() after the
+// launch.
 int p2_append_paged(const void* k, const void* v, int x_dtype, long long k_stride,
-                    long long v_stride, void* kdata, void* vdata, int q_code,
-                    const void* kscale, const void* vscale, const void* table,
-                    long long table_stride, int pages_per_slot, const void* lens,
-                    const void* active, int slots, long long feat, int page_size, int trash,
-                    int bits, void* stream) {
+                    long long v_stride, long long k_tstride, long long v_tstride, int tokens,
+                    void* kdata, void* vdata, int q_code, const void* kscale,
+                    const void* vscale, const void* table, long long table_stride,
+                    int pages_per_slot, const void* lens, const void* active,
+                    const void* n_valid, int clamp_last, int slots, long long feat,
+                    int page_size, int trash, int bits, void* stream) {
   if (bits < 2 || bits > code_bits(q_code) || x_dtype < F32 || x_dtype > F16 || slots < 0 ||
-      feat < 0 || page_size < 1 || pages_per_slot < 1 || trash < 0)
+      tokens < 0 || feat < 0 || page_size < 1 || pages_per_slot < 1 || trash < 0 ||
+      (long long)slots * tokens > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  if (slots == 0 || feat == 0) return (int)cudaSuccess;
+  if (slots == 0 || tokens == 0 || feat == 0) return (int)cudaSuccess;
   AppendArgs a{};
   a.x[0] = k;
   a.x[1] = v;
   a.stride[0] = k_stride;
   a.stride[1] = v_stride;
+  a.tstride[0] = k_tstride;
+  a.tstride[1] = v_tstride;
   a.data[0] = kdata;
   a.data[1] = vdata;
   a.scale[0] = (const float*)kscale;
@@ -144,10 +189,13 @@ int p2_append_paged(const void* k, const void* v, int x_dtype, long long k_strid
   a.table_stride = table_stride;
   a.lens = (const int*)lens;
   a.active = (const uint8_t*)active;
+  a.n_valid = (const int*)n_valid;
   a.feat = feat;
+  a.tokens = tokens;
   a.pages_per_slot = pages_per_slot;
   a.page_size = page_size;
   a.trash = trash;
+  a.clamp_last = clamp_last != 0;
   qrange_f32(bits, &a.lo, &a.hi);
   cudaStream_t st = (cudaStream_t)stream;
   return with_code(q_code, [&](auto qt) {

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from . import kv_append
+from . import kv_append, kv_read
 from . import paged_attention as PA
 from . import ttm_pe1, ttm_pe2, ttm_pe3
 
@@ -62,15 +62,31 @@ def paged_attention(q: torch.Tensor, kdata: torch.Tensor,
 def append_paged(kdata: torch.Tensor, vdata: torch.Tensor,
                  kscale: torch.Tensor, vscale: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor, table: torch.Tensor, lens: torch.Tensor,
-                 active: torch.Tensor, *, page_size: int, bits: int,
-                 impl: str = "cuda") -> tuple[torch.Tensor, torch.Tensor]:
-    """One decode token per slot, K and V of one layer, encoded under each
-    slot's pow-2 scale into the quantized pool's pages in place (inactive
-    slots to the trash page). Layouts in ``kernels/kv_append.py``."""
+                 active, *, page_size: int, bits: int, n_valid=None,
+                 clamp_last: bool = False, impl: str = "cuda"
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """S tokens per slot (S = 1: the decode append; S > 1: a chunk), K and
+    V of one layer, encoded under each slot's pow-2 scale into the
+    quantized pool's pages in place (inactive slots and rows at or past
+    ``n_valid`` to the trash page; ``clamp_last`` picks the rule for a row
+    past the slot's last page). Layouts in ``kernels/kv_append.py``."""
     fn = _route("append_paged", impl, (kdata, vdata, k, v),
                 kv_append.append_paged_cuda, kv_append.append_paged_torch)
     return fn(kdata, vdata, kscale, vscale, k, v, table, lens, active,
-              page_size=page_size, bits=bits)
+              page_size=page_size, bits=bits, n_valid=n_valid,
+              clamp_last=clamp_last)
+
+
+def read_paged(kdata: torch.Tensor, vdata: torch.Tensor,
+               kscale: torch.Tensor, vscale: torch.Tensor,
+               table: torch.Tensor, *, dtype: torch.dtype,
+               impl: str = "cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """Every slot's (B, pages_per_slot * page_size, *feat) view of K and V
+    of one layer, decoded from the quantized pool's pages under each slot's
+    pow-2 scale into ``dtype``. Layouts in ``kernels/kv_read.py``."""
+    fn = _route("read_paged", impl, (kdata, vdata),
+                kv_read.read_paged_cuda, kv_read.read_paged_torch)
+    return fn(kdata, vdata, kscale, vscale, table, dtype=dtype)
 
 
 def pe1(z: torch.Tensor, g: torch.Tensor, step_log2=None,

@@ -7,11 +7,14 @@ refilled on the next iteration, so the batch never drains to admit work.
 Prefill's first chunk (the whole prompt unless ``prefill_chunk`` splits
 it) is the model's own ``lm_forward``, whose K/V cache is scattered into
 the slot-paged (optionally int8 pow-2) pool; later chunks go through the
-chunk step (``_chunk``: write the chunk's K/V, gather the slot's history,
-attend). Decode appends each new token's K/V and attends either through
-the fused paged-attention kernel (``fused_attention=True``) or by
-gathering and dequantizing every slot's view and running ``gqa_attend``
-(the default, and the in-engine reference for the fused path).
+chunk step (``_chunk``: write the chunk's K/V, read the slot's history,
+attend; on an int8 pool one ``p2_append_paged`` and one ``p2_read_paged``
+launch a layer). Decode appends each new token's K/V (one
+``p2_append_paged`` launch a layer) and attends either through the fused
+paged-attention kernel (``fused_attention=True``) or by reading every
+slot's view off the pages (one ``p2_read_paged`` launch a layer) and
+running ``gqa_attend`` (the default, and the in-engine reference for the
+fused path).
 
 With ``prefix_cache=True`` a radix tree (``serve/prefix.py``) shares the
 pages of prompt prefixes it has seen: a hit adopts its donor's scales,
@@ -152,9 +155,9 @@ class Engine:
             attn = attn[:, :d.real_heads].reshape(b, 1,
                                                   d.real_heads * d.head_dim)
         else:
-            kv = {n: KC.gather_slots(data[n], scale[n], table, self.pcfg,
-                                     h.dtype) for n in ("k", "v")}
-            attn = A.gqa_attend(q, kv["k"], kv["v"], d, positions)
+            k, v = KC.read_kv(data["k"], data["v"], scale["k"], scale["v"],
+                              table, self.pcfg, h.dtype)
+            attn = A.gqa_attend(q, k, v, d, positions)
         x = x + apply_site(pp["mixer"]["o"], attn, d.o, cfg)
         return sub_ffn_decode(pp, x, sub, cfg)
 
@@ -187,21 +190,20 @@ class Engine:
         return logits[0, len(toks) - 1][None]
 
     def _sub_chunk(self, pp: dict, x: torch.Tensor, layer: int, key: str,
-                   sub, table_row, slot: int, start: int, valid_len: int,
+                   sub, table, slot: int, start, n_valid,
                    positions) -> torch.Tensor:
         cfg = self.lm.cfg
         d = sub.mixer
         h = rms_norm(x, pp["norm1"]["scale"], cfg.norm_eps)
         q, k_new, v_new = A.gqa_decode_qkv(pp["mixer"], h, d, cfg, positions)
-        kv = {}
-        for name, new in (("k", k_new), ("v", v_new)):
-            data = self.pool["data"][key][name][layer]
-            scale = self.pool["scale_log2"][key][name][layer]
-            KC.write_chunk(data, scale, new[0], table_row, start, valid_len,
-                           slot, self.pcfg)
-            kv[name] = KC.gather_slots(data, scale[slot][None],
-                                       table_row[None], self.pcfg, h.dtype)
-        attn = A.gqa_attend(q, kv["k"], kv["v"], d, positions)
+        data = {n: t[layer] for n, t in self.pool["data"][key].items()}
+        scale = {n: t[layer, slot:slot + 1]
+                 for n, t in self.pool["scale_log2"][key].items()}
+        KC.write_chunk_kv(data["k"], data["v"], scale["k"], scale["v"], k_new,
+                          v_new, table, start, n_valid, self.pcfg)
+        k, v = KC.read_kv(data["k"], data["v"], scale["k"], scale["v"], table,
+                          self.pcfg, h.dtype)
+        attn = A.gqa_attend(q, k, v, d, positions)
         x = x + apply_site(pp["mixer"]["o"], attn, d.o, cfg)
         return sub_ffn_decode(pp, x, sub, cfg)
 
@@ -211,20 +213,23 @@ class Engine:
         """Chunked-prefill step of one slot (the reference's
         ``_chunk_impl`` for GQA sublayers): each layer writes the chunk's
         K/V into the pool under the slot's scale and attends over the
-        slot's whole gathered history (not the fused kernel, as in the
-        reference). ``toks`` is padded to the chunk width (or the bucketed
-        length when chunking is off); pad rows go to the trash page.
+        slot's whole history, read off the pages (not the fused kernel, as
+        in the reference). ``toks`` is padded to the chunk width (or the
+        bucketed length when chunking is off); pad rows go to the trash
+        page. The slot's scales stay on the device, as (1,) views.
         Returns the last real position's logits (1, V)."""
         lm, ecfg = self.lm, self.ecfg
         width = (ecfg.prefill_chunk if ecfg.prefill_chunk > 0
                  else _bucket_len(len(toks), ecfg.prefill_bucket))
         tokens = self._tensor([toks + [0] * (width - len(toks))], torch.long)
         positions = (start + torch.arange(width, device=self.device))[None]
+        # the chunk's (1,) start and valid count, on the device once a step
+        start_t, valid_t = self._tensor([[start], [len(toks)]], torch.int32)
         x = embed_tokens(self.params, tokens, lm)
         for layer, pp in enumerate(self.params["layers"]):
             for i, sub in enumerate(lm.period):
                 x = self._sub_chunk(pp[f"sub_{i}"], x, layer, f"sub_{i}", sub,
-                                    table_row, slot, start, len(toks),
+                                    table_row[None], slot, start_t, valid_t,
                                     positions)
         x = x[:, len(toks) - 1:len(toks)]
         x = rms_norm(x, self.params["final_norm"]["scale"], lm.cfg.norm_eps)

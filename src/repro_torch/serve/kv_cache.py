@@ -11,13 +11,15 @@ by decode appends (the paper's §3.2 numerics applied to serving).
 
 Every pool write goes through an encode kernel and every gathered read
 through a decode kernel (on CPU tensors their plain versions): a decode
-step's append through ``p2_append_paged`` (``kernels/kv_append.py``: K and
-V of every slot into the layer's pages in one launch), the other writes
-and reads through ``numerics``' ``cuda`` codec — the row-scale kernels
-where a launch covers several (layer, slot) scales, the scalar-scale ones
-where it covers one (a chunked-prefill write and its one-slot history
-read). The fused path reads pages straight from the pool inside the
-paged-attention kernel.
+step's append and a chunk step's write through ``p2_append_paged``
+(``kernels/kv_append.py``: K and V of every row into the layer's pages in
+one launch), a chunk step's history read and the gather engine's decode
+read through ``p2_read_paged`` (``kernels/kv_read.py``: K and V of every
+slot off the pages in one launch), a whole-prompt prefill's write through
+``numerics``' ``cuda`` codec (the row-scale kernel, one launch a tensor
+over the layers). The fused path reads pages straight from the pool
+inside the paged-attention kernel. A model-dtype pool runs no kernel: its
+writes are scatters and its reads gathers, as in the reference.
 
 In-place updates: where the reference donates the pool to a jitted step
 and rebuilds it with ``.at[].set``, the port writes into the preallocated
@@ -270,16 +272,16 @@ def write_prefill(pool: dict, cache: dict, table_row: torch.Tensor,
 
 
 def write_chunk(data_l: torch.Tensor, scale_l: torch.Tensor,
-                vals: torch.Tensor, table_row: torch.Tensor, start: int,
-                valid_len: int, slot: int, pcfg: PoolConfig
+                vals: torch.Tensor, table_row: torch.Tensor, start,
+                valid_len, slot: int, pcfg: PoolConfig
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Write a prefill chunk of one slot into one layer's pool, in place.
 
     vals: (S, *feat) fp (positions start..start+S-1; only the first
-    ``valid_len`` rows are real). The slot's scale must already be set (the
-    first prefill chunk goes through ``write_prefill``, or a prefix hit
-    adopts its donor's); this chunk clips into that range, one scalar-scale
-    encode launch. Pad rows go to the trash page; their page index is
+    ``valid_len`` rows are real; each an int or a 0-d tensor). The slot's
+    scale must already be set (the first prefill chunk goes through
+    ``write_prefill``, or a prefix hit adopts its donor's); this chunk
+    clips into that range, one scalar-scale encode launch. Pad rows go to the trash page; their page index is
     clamped first (the reference's gather clamps it silently, PyTorch's
     indexing would raise past the slot's last page)."""
     s = vals.shape[0]
@@ -296,6 +298,50 @@ def write_chunk(data_l: torch.Tensor, scale_l: torch.Tensor,
         vals = vals.to(data_l.dtype)
     data_l.index_put_((pages, offs), vals)
     return data_l, scale_l
+
+
+def write_chunk_kv(kdata_l: torch.Tensor, vdata_l: torch.Tensor,
+                   kscale_l: torch.Tensor, vscale_l: torch.Tensor,
+                   k: torch.Tensor, v: torch.Tensor, table: torch.Tensor,
+                   start: torch.Tensor, n_valid: torch.Tensor,
+                   pcfg: PoolConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """A chunk's K and V tokens (B, S, *feat) of one layer into its pages,
+    in place: row j of slot b at position ``start[b] + j``, the first
+    ``n_valid[b]`` rows real, the others to the trash page, under the
+    slots' scales ``kscale_l``/``vscale_l`` (B,) (the engine's chunk step
+    passes its slot's as (1,) views). ``start`` and ``n_valid`` are (B,)
+    int tensors, read on the device. A quantized pool takes one
+    ``p2_append_paged`` launch with ``write_chunk``'s rule for a row past
+    the slot's last page (its page index clamped); a model-dtype pool
+    ``write_chunk`` per slot and tensor (the reference runs no kernel
+    there either)."""
+    if pcfg.quantized:
+        from ..kernels.ops import append_paged
+        return append_paged(kdata_l, vdata_l, kscale_l, vscale_l, k, v,
+                            table, start, None, page_size=pcfg.page_size,
+                            bits=pcfg.bits, n_valid=n_valid, clamp_last=True)
+    for b in range(k.shape[0]):
+        write_chunk(kdata_l, kscale_l, k[b], table[b], start[b], n_valid[b],
+                    b, pcfg)
+        write_chunk(vdata_l, vscale_l, v[b], table[b], start[b], n_valid[b],
+                    b, pcfg)
+    return kdata_l, vdata_l
+
+
+def read_kv(kdata_l: torch.Tensor, vdata_l: torch.Tensor,
+            kscale_l: torch.Tensor, vscale_l: torch.Tensor,
+            table: torch.Tensor, pcfg: PoolConfig, dtype: torch.dtype
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every slot's (B, max_len, *feat) K and V views of one layer in
+    ``dtype``: ``gather_slots`` of each tensor. A quantized pool takes one
+    ``p2_read_paged`` launch, decoding straight off the pages; a
+    model-dtype pool ``gather_slots`` per tensor."""
+    if pcfg.quantized:
+        from ..kernels.ops import read_paged
+        return read_paged(kdata_l, vdata_l, kscale_l, vscale_l, table,
+                          dtype=dtype)
+    return (gather_slots(kdata_l, kscale_l, table, pcfg, dtype),
+            gather_slots(vdata_l, vscale_l, table, pcfg, dtype))
 
 
 class PageRefs:

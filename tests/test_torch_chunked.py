@@ -12,8 +12,9 @@
     same pool cells as JAX's, bit for bit, pad rows past the slot's last
     page included (JAX clamps that page index silently; the port clamps it
     explicitly and sends the rows to the trash page);
-(d) a chunk step's writes and reads go through the scalar-scale codec
-    (its one-slot scale), never the row-scale one.
+(d) a chunk step's write and history read are one paged launch a layer
+    each (``append_paged``, ``read_paged``), with no scalar-scale or
+    row-scale codec call.
 """
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,7 @@ from repro.serve import kv_cache as JKC  # noqa: E402
 from repro.sharding import ShardPlan  # noqa: E402
 import repro_torch.configs as TC  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import build_lm as t_build  # noqa: E402
 from repro_torch.numerics import cuda_backend as CB  # noqa: E402
 from repro_torch.serve import Engine, EngineConfig, PoolConfig  # noqa: E402
@@ -151,17 +153,22 @@ def test_write_chunk_bit_identical_to_jax(quantized, start, valid):
 
 
 def test_chunk_step_runs_the_scalar_codec(models, monkeypatch):
-    """A chunk step's write and read each go through the scalar-scale codec
-    wrappers (their plain twins on the CPU): 2 of each per layer; the row
-    wrappers run only for the first chunk's ``write_prefill``."""
+    """A chunk step no longer runs the scalar-scale codec: its write and its
+    history read are one paged launch a layer each, K and V together
+    (``ops.append_paged`` and ``ops.read_paged``, their plain twins on the
+    CPU); the row encode runs only for the first chunk's
+    ``write_prefill``."""
     _, _, tlm, tp = models
     calls = {"encode_scalar": 0, "decode_scalar": 0, "encode_rows": 0,
-             "decode_rows": 0}
-    for name in calls:
-        def wrapped(*a, _n=name, _fn=getattr(CB, name), **k):
-            calls[_n] += 1
-            return _fn(*a, **k)
-        monkeypatch.setattr(CB, name, wrapped)
+             "decode_rows": 0, "append_paged": 0, "read_paged": 0}
+    for mod, names in ((CB, ("encode_scalar", "decode_scalar", "encode_rows",
+                             "decode_rows")),
+                       (ops, ("append_paged", "read_paged"))):
+        for name in names:
+            def wrapped(*a, _n=name, _fn=getattr(mod, name), **k):
+                calls[_n] += 1
+                return _fn(*a, **k)
+            monkeypatch.setattr(mod, name, wrapped)
     eng = Engine(tlm, tp, EngineConfig(
         pool=PoolConfig(**POOL, quantized=True), prefill_chunk=8),
         device="cpu")
@@ -170,8 +177,9 @@ def test_chunk_step_runs_the_scalar_codec(models, monkeypatch):
     eng.run()
     # 20 tokens in chunks of 8: the first through lm_forward (write_prefill:
     # one row-scale encode each of K and V over the layers), then 2 chunk
-    # steps x layers x (K, V)
-    per = 2 * 2 * tlm.n_periods
+    # steps x layers, one write and one read each
+    per = 2 * tlm.n_periods
     assert tlm.n_periods > 1
-    assert calls == {"encode_scalar": per, "decode_scalar": per,
-                     "encode_rows": 2, "decode_rows": 0}
+    assert calls == {"encode_scalar": 0, "decode_scalar": 0, "encode_rows": 2,
+                     "decode_rows": 0, "append_paged": per,
+                     "read_paged": per}

@@ -33,7 +33,8 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
     views, and a one-element scale dispatches to them; the row-scale
     fake-quant kernel is BIT-identical in values and STE gradient;
 (j) chunked prefill with the prefix cache on the card: prefix on == off
-    in fp32 and 48 scalar encode + decode launches per chunk step;
+    in fp32, one paged write and one paged read a layer a chunk step and
+    no scalar codec launch;
 (k) the codec kernels in int16, int32 and float32 storage bit for bit
     (the 32-bit grid's saturating top, bf16's 16-bit top code); PE1's own
     kernel at odd granules, unaligned, repeating bit for bit; the split
@@ -52,7 +53,12 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
     (``p2_append_paged``) bit for bit with its twin on the whole pool,
     trash page included, for f32/bf16 tokens, 8/4-bit codes and V as a
     strided view, and an engine's decode steps launching it once a layer
-    and ``p2_enc_rows`` only for prefills.
+    and ``p2_enc_rows`` only for prefills;
+(n) the chunk step's paged write (``p2_append_paged`` at S > 1) and the
+    paged read (``p2_read_paged``) bit for bit with their twins and over
+    two launches at the chunk and gather shapes, strided V, an odd and an
+    unaligned feature layout, and int8, int16, int32 and float32 codes;
+    ``impl="torch"`` and mixed devices refused.
 """
 import math
 
@@ -66,6 +72,8 @@ from repro_torch import numerics as TN  # noqa: E402
 from repro_torch.numerics import codecs  # noqa: E402
 from repro_torch.configs.base import TrainConfig  # noqa: E402
 from repro_torch.kernels import build as B  # noqa: E402
+from repro_torch.kernels import kv_append as KA  # noqa: E402
+from repro_torch.kernels import kv_read as KR  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as PA  # noqa: E402
 from repro_torch.kernels import ttm_pe1, ttm_pe2, ttm_pe3  # noqa: E402
@@ -189,7 +197,10 @@ def test_engine_fused_equals_gather_fp32_on_card(cuda):
     # p2_enc_rows comes from the whole-prompt prefills alone: K and V once
     for launch, (_, summ) in zip((fl, gl), summaries):
         assert launch["p2_enc_rows"] == 2 * summ and summ >= len(prompts)
-    assert gl["p2_dec_rows"] > 0
+    # the gather path reads every slot's view off the pages: one paged
+    # read a layer a decode step, no row decode
+    assert gl["p2_read_paged"] == gsteps * cfg.num_layers
+    assert "p2_dec_rows" not in gl and "p2_read_paged" not in fl
 
 
 # ---------------------------------------------------------------------------
@@ -552,8 +563,14 @@ def test_engine_chunked_prefix_on_card(cuda):
         outs.append([res[r].tokens for r in rids])
         steps = sum(-(-(n - h) // 8) if h else -(-n // 8) - 1
                     for n, h in eng.metrics.prefills)
-        per = 2 * cfg.num_layers
-        assert B.LAUNCHES["p2_enc"] == B.LAUNCHES["p2_dec"] == per * steps
+        # one paged write and one paged read a layer a chunk step, the
+        # write also once a layer a decode step; no scalar codec launch
+        layers = cfg.num_layers
+        decode = eng.summary()["decode_steps"]
+        assert steps > 0
+        assert B.LAUNCHES["p2_read_paged"] == layers * steps
+        assert B.LAUNCHES["p2_append_paged"] == layers * (steps + decode)
+        assert "p2_enc" not in B.LAUNCHES and "p2_dec" not in B.LAUNCHES
     assert outs[0] == outs[1]
     assert eng.summary()["cow_forks"] > 0
 
@@ -1009,7 +1026,6 @@ def _append_case(cuda, dtype, bits, seed, slots=8, hkv=8, dh=128, page=16,
     of a fused (B, 1, 2, Hkv, Dh) projection; slots at the first and the
     last offset of a page and of their last page, two inactive slots at
     distinct trash offsets, one past its last page."""
-    from repro_torch.kernels import kv_append as KA
     g = torch.Generator(device=cuda).manual_seed(seed)
     total = slots * pps
     kd = torch.randint(-128, 128, (total + 1, page, hkv, dh), generator=g,
@@ -1066,3 +1082,190 @@ def test_paged_append_contiguous_and_one_slot(cuda):
         KA.append_paged_torch(*want, *args[2:], **kw)
         KA.append_paged_cuda(*args, **kw)
         assert torch.equal(args[0], want[0]) and torch.equal(args[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# (n) the chunk step's paged write and the paged read
+# ---------------------------------------------------------------------------
+
+CODE_TYPES = [(torch.int8, 8), (torch.int8, 4), (torch.int16, 16),
+              (torch.int32, 32), (torch.float32, 16)]
+
+
+def _codes(shape, storage, bits, g, cuda):
+    hi = 2 ** (bits - 1)
+    q = torch.randint(-min(hi, 2 ** 30), min(hi, 2 ** 30), shape,
+                      generator=g, device=cuda)
+    return q.to(storage)
+
+
+def _chunk_write_case(cuda, dtype, storage, bits, seed, *, slots=1, s=128,
+                      hkv=8, dh=128, page=16, pps=16, unaligned=False):
+    """A pool of random codes, slot tables, and S rows a slot of fused
+    K/V (V the strided half of a (B, S, 2, Hkv, Dh) projection; with
+    ``unaligned`` K a view one element into its buffer), scaled so the
+    codes reach both clip ends."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    total = slots * pps
+    kd = _codes((total + 1, page, hkv, dh), storage, min(bits, 8), g, cuda)
+    vd = _codes(kd.shape, storage, min(bits, 8), g, cuda)
+    table = torch.randperm(total, generator=g, device=cuda).reshape(
+        slots, pps).to(torch.int32)
+    ks = torch.randint(-8, 0, (slots,), generator=g, device=cuda).float()
+    vs = torch.randint(-8, 0, (slots,), generator=g, device=cuda).float()
+    step = torch.exp2(torch.stack([ks, vs], 1))[:, None, :, None, None]
+    kv = (torch.randn((slots, s, 2, hkv, dh), generator=g, device=cuda)
+          * step * 2 ** (bits - 1)).to(dtype)
+    k = kv[:, :, 0].contiguous()
+    if unaligned:
+        buf = torch.empty(k.numel() + 1, dtype=dtype, device=cuda)
+        buf[1:] = k.reshape(-1)
+        k = buf[1:].view(k.shape)
+    return kd, vd, ks, vs, k, kv[:, :, 1], table
+
+
+def _write_both(args, kw):
+    """The kernel and its twin on copies of the pools: (kernel's, twin's)
+    (K, V) pools."""
+    kd, vd = args[0], args[1]
+    got = [kd.clone(), vd.clone()]
+    want = [kd.clone(), vd.clone()]
+    KA.append_paged_cuda(*got, *args[2:], **kw)
+    KA.append_paged_torch(*want, *args[2:], **kw)
+    return got, want
+
+
+@pytest.mark.parametrize("storage,bits", CODE_TYPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("start,valid", [(256, 128), (200, 77), (450, 128)])
+def test_paged_chunk_write_bit_identical(cuda, dtype, storage, bits, start,
+                                         valid):
+    """The chunk write (B = 1, S = 128, 8 x 128, pages of 16, 32 pages a
+    slot): a page-aligned chunk, one crossing pages with pad rows, and one
+    whose valid rows run past the slot's last page (clamped into it, the
+    later of two rows in one cell kept). Real pages bit for bit with the
+    twin and over two launches; one launch."""
+    kd, vd, ks, vs, k, v, table = _chunk_write_case(
+        cuda, dtype, storage, bits, seed=start + valid, pps=32)
+    assert not v.is_contiguous()
+    lens = torch.tensor([start], dtype=torch.int32, device=cuda)
+    kw = dict(page_size=16, bits=bits, clamp_last=True,
+              n_valid=torch.tensor([valid], dtype=torch.int32, device=cuda))
+    args = (kd, vd, ks, vs, k, v, table, lens, None)
+    B.reset_launches()
+    got, want = _write_both(args, kw)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES == {"p2_append_paged": 1}
+    for a, b, orig in zip(got, want, (kd, vd)):
+        assert _bits_eq(a[:-1], b[:-1])             # the trash page aside
+        assert not torch.equal(a[:-1], orig[:-1])
+    again, _ = _write_both(args, kw)
+    assert all(_bits_eq(a[:-1], b[:-1]) for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("layout", ["odd width", "unaligned", "slots"])
+def test_paged_write_odd_unaligned_and_many_slots(cuda, layout):
+    """The element loop (Hkv 3 x Dh 12: 36 bf16 a row, no multiple of 8),
+    an unaligned K, and 4 slots x 5 rows under the drop rule with an
+    inactive slot and one running past its pages; bit for bit with the
+    twin on the real pages."""
+    kw = dict(page_size=16, bits=8)
+    if layout == "odd width":
+        args = _chunk_write_case(cuda, torch.bfloat16, torch.int8, 8, 1,
+                                 hkv=3, dh=12)
+    elif layout == "unaligned":
+        args = _chunk_write_case(cuda, torch.bfloat16, torch.int8, 8, 2,
+                                 unaligned=True)
+        assert args[4].data_ptr() % 16 != 0
+    else:
+        args = _chunk_write_case(cuda, torch.float32, torch.int16, 12, 3,
+                                 slots=4, s=5, pps=4)
+        kw["bits"] = 12
+    b = args[4].shape[0]
+    lens = torch.tensor([30, 60, 3, 17][:b], dtype=torch.int32, device=cuda)
+    active = torch.tensor([True, True, False, True][:b], device=cuda)
+    if layout != "slots":
+        kw.update(clamp_last=True, n_valid=torch.tensor(
+            [100], dtype=torch.int32, device=cuda))
+    got, want = _write_both(args[:7] + (lens, active), kw)
+    for a, w in zip(got, want):
+        assert _bits_eq(a[:-1], w[:-1])
+
+
+def _read_case(cuda, storage, bits, seed, *, slots, hkv=8, dh=128, page=16,
+               pps=64, unaligned=False):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    total = slots * pps
+    shape = (total + 1, page, hkv, dh)
+    pools = []
+    for _ in range(2):
+        q = _codes(shape, storage, bits, g, cuda)
+        if unaligned:
+            buf = torch.empty(q.numel() + 1, dtype=storage, device=cuda)
+            buf[1:] = q.reshape(-1)
+            q = buf[1:].view(shape)
+        pools.append(q)
+    table = torch.randperm(total, generator=g, device=cuda).reshape(
+        slots, pps).to(torch.int32)
+    table[0, 1] = total                      # the trash page
+    table[-1, -1] = total + 7                # outside the pool: trash
+    ks = torch.randint(-9, 3, (slots,), generator=g, device=cuda).float()
+    vs = torch.randint(-9, 3, (slots,), generator=g, device=cuda).float()
+    return pools[0], pools[1], ks, vs, table
+
+
+@pytest.mark.parametrize("storage,bits", CODE_TYPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("slots", [1, 8])
+def test_paged_read_bit_identical(cuda, slots, dtype, storage, bits):
+    """The chunk step's read (B = 1) and the gather engine's (B = 8), 64
+    pages of 16 x 8 x 128 a slot; every position bit for bit with the twin
+    and over two launches; one launch."""
+    args = _read_case(cuda, storage, bits, seed=slots + bits, slots=slots)
+    B.reset_launches()
+    got = KR.read_paged_cuda(*args, dtype=dtype)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES == {"p2_read_paged": 1}
+    want = KR.read_paged_torch(*args, dtype=dtype)
+    again = KR.read_paged_cuda(*args, dtype=dtype)
+    for a, w, r in zip(got, want, again):
+        assert a.shape == (slots, 64 * 16, 8, 128) and a.dtype == dtype
+        assert _bits_eq(a, w) and _bits_eq(a, r)
+
+
+@pytest.mark.parametrize("layout", ["odd width", "unaligned"])
+def test_paged_read_odd_and_unaligned(cuda, layout):
+    """The element loop: pages of 5 x 3 x 12 codes (180, no multiple of
+    16) and a pool one element into its buffer; bit for bit with the
+    twin."""
+    if layout == "odd width":
+        args = _read_case(cuda, torch.int8, 8, 1, slots=3, hkv=3, dh=12,
+                          page=5, pps=4)
+    else:
+        args = _read_case(cuda, torch.int16, 16, 2, slots=2, pps=4,
+                          unaligned=True)
+        assert args[0].data_ptr() % 16 != 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for a, w in zip(KR.read_paged_cuda(*args, dtype=dtype),
+                        KR.read_paged_torch(*args, dtype=dtype)):
+            assert _bits_eq(a, w)
+
+
+def test_paged_kv_wrappers_refuse_on_card(cuda):
+    """``impl="torch"`` takes CPU tensors only, and a CPU table beside CUDA
+    pools is refused, for the write and the read."""
+    kd, vd, ks, vs, k, v, table = _chunk_write_case(
+        cuda, torch.bfloat16, torch.int8, 8, 5, s=4)
+    lens = torch.tensor([3], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        ops.append_paged(kd, vd, ks, vs, k, v, table, lens, None,
+                         page_size=16, bits=8, impl="torch")
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.append_paged(kd, vd, ks, vs, k, v, table.cpu(), lens, None,
+                         page_size=16, bits=8)
+    with pytest.raises(ValueError):
+        ops.read_paged(kd, vd, ks, vs, table, dtype=torch.float32,
+                       impl="torch")
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.read_paged(kd, vd, ks, vs, table.cpu(), dtype=torch.float32)
