@@ -26,7 +26,13 @@ Phases (any failure raises and the script exits non-zero):
              with their twins, with the parent's route and over two
              launches, each timed beside the parent's route (page
              arithmetic + p2_enc + index_put_; page gather + p2_dec or
-             p2_dec_rows: ``previous_ms``); paged attention
+             p2_dec_rows: ``previous_ms``); the whole-prompt prefill write
+             (p2_prefill_paged: K and V of 24 layers x S x 8 x 128 bf16
+             into an int8 pool (24, 513, 16, 8, 128), S = 512 and 128, and
+             512 with 400 valid rows) bit for bit with its twin and the
+             parent's route on every real page and every scale, over two
+             launches, timed beside that route (2 x choose_scale_log2 +
+             p2_enc_rows + index_put_: ``previous_ms``); paged attention
              over an int8 pool
              (513, 16, 8, 128) with B=8, S in {1, 4}, ragged contexts up to
              1024, within 1e-5 in fp32 and 2 bf16 ulp (+1e-5) with bf16 q,
@@ -41,7 +47,11 @@ Phases (any failure raises and the script exits non-zero):
              layer's cores in one grouped fake-quant launch (layer 1's 4,
              layer 2's 2) bit for bit with its twin and over two launches,
              timed beside the loop of one-entry launches it replaced
-             (``previous_ms``) and a library loop, every
+             (``previous_ms``) and a library loop; the export's grouped
+             round trips (p2_fq_group in its round-trip mode: the 6 cores,
+             the 2 biases) bit for bit with the twin and the per-leaf
+             p2_enc + p2_dec route, +0.0 zeros, timed beside that route;
+             every
              PE1/PE2/PE3 call of a step within 1e-4 (f32) / 2e-2 (bf16),
              PE1, PE2 and PE3 bit-identical over two launches, PE1's requant
              epilogue bit-identical to its own output through encode ->
@@ -55,9 +65,9 @@ Phases (any failure raises and the script exits non-zero):
              attention, serving 16 requests (seeded prompts of 128..512
              tokens, 64 new tokens each). Launch counts are zeroed just
              before and read just after: each decode step launched the
-             paged KV append and paged attention once per layer, and the
-             row-scale encode ran for the prefills alone (K and V once
-             each). The gather engine (the default path) then serves the
+             paged KV append and paged attention once per layer, and each
+             whole-prompt prefill p2_prefill_paged once (no p2_enc_rows).
+             The gather engine (the default path) then serves the
              same requests with its counts zeroed: it reads every slot's
              view once a layer a decode step through p2_read_paged and
              never launches p2_dec_rows. Last, a steady window of decode
@@ -65,7 +75,9 @@ Phases (any failure raises and the script exits non-zero):
              device: step time, device time per kernel, busy share, and the
              KV kernels by name (p2_append_paged_kernel 24 a step, and
              p2_read_paged_kernel 24 on the gather engine; no other;
-             asserted).
+             asserted); then one whole-prompt prefill of 512 tokens, timed
+             and profiled the same way (p2_prefill_paged_kernel once; no
+             other KV kernel; asserted).
    serve chunked prefix — the fourth main path, on the same model:
              chunked prefill (128) with the radix prefix cache, 16 requests
              (12 behind a shared 256-token preamble, 4 of them diverging
@@ -74,7 +86,8 @@ Phases (any failure raises and the script exits non-zero):
              p2_append_paged once per layer per chunk step (the chunk steps
              counted from the prefills and their hits) and no p2_enc or
              p2_dec, paged attention and the KV append once per layer per
-             decode step, p2_enc_rows twice per whole-prompt prefill; hits,
+             decode step, p2_prefill_paged once per whole-prompt prefill
+             and no p2_enc_rows; hits,
              forks and saved pages must be non-zero.
              Then one chunk step's host and device time, profiled
              (p2_append_paged_kernel and p2_read_paged_kernel 24 a step;
@@ -92,8 +105,9 @@ Phases (any failure raises and the script exits non-zero):
              launch counts zeroed just before and read just after (each
              must equal 300 x ``launches_per_step``); the loss must fall
              and test accuracy on ``fashion_like(2048, seed=2)`` beat
-             chance; the BinaryConnect export (one p2_enc and one p2_dec
-             per core and bias) bit for bit with the CPU. Then a profiled
+             chance; the BinaryConnect export (one p2_rt_group launch a bit
+             width: the 4-bit cores, the 8-bit biases; no p2_enc or p2_dec)
+             bit for bit with the CPU, zeros' sign included. Then a profiled
              window of steps: step time, device time per kernel, busy
              share, and the kernels by name as ``launches_per_step``
              counts them (pe1_kernel 6 launches a step, pe2_kernel 12,
@@ -128,8 +142,10 @@ Phases (any failure raises and the script exits non-zero):
              each timed beside its bound, its plain version and a library
              call (quantize_per_tensor, a per-tensor dequantize,
              fake_quantize_per_channel_affine); then the codec API's
-             per-row fake_quant and per-row decode with their launch
-             counts.
+             per-row fake_quant, per-row decode, per-row encode and a
+             one-step round trip (``core.quant.quantize_store``) with their
+             launch counts: the paths left to p2_fq_rows, p2_dec_rows,
+             p2_enc_rows, p2_enc and p2_dec.
 7. train wire — the third main path: the same MLP stepped 300 times with
              the paper's full Table-1 wire (``make_step(..., compress=True)``
              with int8 Adam moments and the int8 gradient wire), counts
@@ -165,9 +181,9 @@ phase's requests (fused and gather) and the chunked-prefix run's at full
 width with the port found under DIR (default: this checkout's ``src``;
 another tree's ``src`` compares two versions in one call) and writes their
 greedy tokens to PATH as JSON; no result line. ``--steps PATH [--src
-DIR]`` likewise profiles the chunk step and the fused and gather decode
-steps (host wall, device time, the KV kernels' launches) and writes them
-to PATH, asserting nothing.
+DIR]`` likewise profiles a whole-prompt prefill of 512 tokens, the chunk
+step and the fused and gather decode steps (host wall, device time, the
+KV kernels' launches) and writes them to PATH, asserting nothing.
 """
 from __future__ import annotations
 
@@ -566,6 +582,111 @@ def _paged_read_rows(torch, timer, pool) -> list:
     return rows
 
 
+def _prefill_previous(CB, kd, vd, ks, vs, k, v, table_row, slot, length,
+                      page, bits=8):
+    """The whole-prompt prefill write as the parent ran it: the page
+    arithmetic once, then per tensor ``choose_scale_log2`` (an f32 cast,
+    abs, mask, amax, clamp, divide, log2, ceil), the scale column's write,
+    the row-scale encode kernel and an ``index_put_`` over L x S cells
+    (``kv_cache.write_prefill`` before the paged prefill write)."""
+    import torch
+    from repro_torch.numerics import QuantSpec, per_tensor_max_scale_log2
+    s = k.shape[1]
+    pos = torch.arange(s, device=k.device)
+    valid = pos < length
+    idx = torch.clamp(pos // page, max=table_row.shape[0] - 1)
+    pages = torch.where(valid, table_row.long()[idx], kd.shape[1] - 1)
+    offs = pos % page
+    spec = QuantSpec("pow2", bits, 0, "int8", "per_tensor_max")
+    for data, scale, x in ((kd, ks, k), (vd, vs, v)):
+        step = per_tensor_max_scale_log2(
+            x, spec, valid=valid.reshape((1, -1) + (1,) * (x.dim() - 2)),
+            reduce_axes=tuple(range(1, x.dim())))
+        scale[:, slot] = step
+        codes = CB.encode_rows(x.reshape(x.shape[0], -1), step, bits)
+        data[:, pages, offs] = codes.reshape(x.shape)
+
+
+def _prefill_rows(torch, timer, gen) -> list:
+    """The whole-prompt prefill write at full width (24 layers, K and V of
+    8 x 128 bf16 as ``lm_forward`` stacks them, into int8 pools (24, 513,
+    16, 8, 128) of random codes, slot 3 of 8 x 64 pages) at S = 128 and
+    512: pages and scales bit for bit with the twin and with the parent's
+    route, and over two launches, one launch each; then S = 512 with 400
+    valid rows (bucket padding). Timed beside the twin and the parent's
+    route (``previous_ms``)."""
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import kv_prefill as KP
+    from repro_torch.numerics import cuda_backend as CB
+    layers, b, hkv, dh, page, pps, slot = 24, 8, 8, 128, 16, 64, 3
+    total = b * pps
+    kd0, vd0 = (torch.randint(-128, 128, (layers, total + 1, page, hkv, dh),
+                              generator=gen, device=gen.device
+                              ).to(torch.int8) for _ in range(2))
+    ks0, vs0 = (torch.randint(-9, -2, (layers, b), generator=gen,
+                              device=gen.device).float() for _ in range(2))
+    table = torch.randperm(total, generator=gen, device=gen.device).reshape(
+        b, pps).to(torch.int32)
+    rows = []
+    for s, length in ((512, 512), (128, 128), (512, 400)):
+        mag = torch.exp2(torch.randint(-4, 3, (layers, 1, 1, 1, 1),
+                                       generator=gen, device=gen.device
+                                       ).float())
+        kv = (torch.randn((layers, s, 2, hkv, dh), generator=gen,
+                          device=gen.device) * mag).to(torch.bfloat16)
+        k, v = kv[:, :, 0].contiguous(), kv[:, :, 1].contiguous()
+        n = torch.tensor([length], dtype=torch.int32, device=gen.device)
+        args = (k, v, table[slot], slot, n)
+        kw = dict(page_size=page, bits=8)
+        want = [kd0.clone(), vd0.clone(), ks0.clone(), vs0.clone()]
+        KP.prefill_paged_torch(*want, *args, **kw)
+        prev = [kd0.clone(), vd0.clone(), ks0.clone(), vs0.clone()]
+        _prefill_previous(CB, *prev, k, v, table[slot], slot, length, page)
+        got = [kd0.clone(), vd0.clone(), ks0.clone(), vs0.clone()]
+        _sync(torch, "cuda")
+        B.reset_launches()
+        KP.prefill_paged_cuda(*got, *args, **kw)
+        _sync(torch, "cuda")
+        check(B.LAUNCHES == {"p2_prefill_paged": 1},
+              f"prefill write launches {B.LAUNCHES}")
+        again = [kd0.clone(), vd0.clone(), ks0.clone(), vs0.clone()]
+        KP.prefill_paged_cuda(*again, *args, **kw)
+        for i, (a, w, p_, r) in enumerate(zip(got, want, prev, again)):
+            cut = slice(None) if i >= 2 else (slice(None), slice(0, -1))
+            check(torch.equal(a[cut], w[cut]) and torch.equal(a[cut], p_[cut])
+                  and torch.equal(a[cut], r[cut]),
+                  f"p2_prefill_paged (S={s}, length {length}): "
+                  f"{'pages scales'.split()[i // 2]} differ from the twin, "
+                  "the parent's route or its own second launch")
+        check(not torch.equal(got[0][:, :-1], kd0[:, :-1]),
+              "prefill write wrote nothing")
+        # time the write in place, as the engine does
+        pool = [kd0.clone(), vd0.clone(), ks0.clone(), vs0.clone()]
+        nbytes = 2 * k.numel() * (2 + 1) + 2 * layers * 4 + 4 * pps + 4
+        row = dict(shape=[list(k.shape), list(kd0.shape)], S=s,
+                   length=length, what=f"prefill S={s}, {length} valid",
+                   max_abs_err=0.0,
+                   ms=timer(lambda: KP.prefill_paged_cuda(*pool, *args,
+                                                          **kw)),
+                   previous_ms=timer(lambda: _prefill_previous(
+                       CB, *pool, k, v, table[slot], slot, length, page)),
+                   plain_ms=timer(lambda: KP.prefill_paged_torch(
+                       *pool, *args, **kw), iters=10),
+                   library_ms=None, library_note=PAGED_NONE)
+        # bf16 in (every row is read: pad rows go to the trash page), int8
+        # codes out, a scale a (tensor, layer), the table row, the length
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4 * k.numel(),
+                                                    FP32_OPS_PER_S)
+        rows.append(row)
+        log(f"p2_prefill_paged (K and V, 24 x {s} x 8 x 128 bf16, {length} "
+            f"valid): {row['ms']*1e3:.2f} us one launch (previous route "
+            f"{row['previous_ms']*1e3:.2f} us, plain "
+            f"{row['plain_ms']*1e3:.1f} us, bound "
+            f"{row['bound_ms']*1e3:.2f} us); pages and scales bit-exact "
+            "with the twin and the parent's route, two launches equal")
+    return rows
+
+
 def phase_kernels(torch, timer: Timer) -> dict:
     from repro_torch.kernels import build as B
     from repro_torch.kernels import paged_attention as PA
@@ -609,6 +730,7 @@ def phase_kernels(torch, timer: Timer) -> dict:
                               _paged_write_row(torch, timer, gen, pool)]
     out["p2_read_paged"] = _paged_read_rows(torch, timer, pool)
     del pool
+    out["p2_prefill_paged"] = _prefill_rows(torch, timer, gen)
 
     # --- row-scale decode: the gather path's view (8 x 1024*1024) -> bf16
     dec_shapes = []
@@ -918,18 +1040,20 @@ def full_model(torch):
 def _check_appends(what, launches, summ, prefills, cfg,
                    chunk_steps: int = 0) -> None:
     """Each decode step and each of the ``chunk_steps`` chunk steps wrote K
-    and V once a layer through p2_append_paged, and p2_enc_rows ran for
-    the ``prefills`` whole-prompt prefills alone (K and V, one launch
-    each)."""
+    and V once a layer through p2_append_paged, each of the ``prefills``
+    whole-prompt prefills wrote K and V of every layer through one
+    p2_prefill_paged, and p2_enc_rows never ran."""
     want = (summ["decode_steps"] + chunk_steps) * cfg.num_layers
     check(summ["decode_steps"] > 0
           and launches.get("p2_append_paged", 0) == want,
           f"{what}: {launches.get('p2_append_paged', 0)} append launches for "
           f"{summ['decode_steps']} decode steps and {chunk_steps} chunk "
           f"steps x {cfg.num_layers} layers")
-    check(prefills > 0 and launches.get("p2_enc_rows", 0) == 2 * prefills,
-          f"{what}: {launches.get('p2_enc_rows', 0)} p2_enc_rows launches "
-          f"for {prefills} whole-prompt prefills")
+    check(prefills > 0 and launches.get("p2_prefill_paged", 0) == prefills
+          and "p2_enc_rows" not in launches,
+          f"{what}: {launches.get('p2_prefill_paged', 0)} p2_prefill_paged "
+          f"and {launches.get('p2_enc_rows', 0)} p2_enc_rows launches for "
+          f"{prefills} whole-prompt prefills")
 
 
 def phase_engine(torch, lm, params) -> dict:
@@ -991,14 +1115,16 @@ def phase_engine(torch, lm, params) -> dict:
         torch, lm, params, prompts, fused=False,
         want={"p2_append_paged_kernel": layers,
               "p2_read_paged_kernel": layers})
+    out["prefill_profile"] = _profile_prefill(
+        torch, lm, params, prompts, want={"p2_prefill_paged_kernel": 1})
     return out
 
 
 # the paged KV kernels and the codec kernels they took over from, by the
 # kernel function's name in a profile
 KV_KERNEL_FNS = ["p2_append_paged_kernel", "p2_read_paged_kernel",
-                 "p2_enc_kernel", "p2_dec_kernel", "p2_enc_rows_kernel",
-                 "p2_dec_rows_kernel"]
+                 "p2_prefill_paged_kernel", "p2_enc_kernel", "p2_dec_kernel",
+                 "p2_enc_rows_kernel", "p2_dec_rows_kernel"]
 
 
 PROFILE_TRIES = 3
@@ -1071,6 +1197,46 @@ def _profile_decode(torch, lm, params, prompts, steps: int = 20,
     total, rows = _device_summary(torch, prof, steps)
     log(f"{what} profile: {wall*1e3:.2f} ms per step (host wall), device "
         f"{total:.2f} ms busy, busy share {total / (wall*1e3):.3f}")
+    for r in rows:
+        log(f"  {r['ms_per_step']:8.3f} ms  {r['calls_per_step']:6.1f}x  "
+            f"{r['name']}")
+    _log_kernels(kern)
+    return {"step_ms": wall * 1e3, "device_ms": total,
+            "busy_share": total / (wall * 1e3), "top": rows,
+            "kernels": kern}
+
+
+def _profile_prefill(torch, lm, params, prompts, reps: int = 10,
+                     want=None) -> dict:
+    """One whole-prompt prefill at full width (512 tokens into slot 0 of
+    the int8 pool: ``lm_forward`` and the pool write), repeated: host wall
+    per prefill (synchronised), then one profiled window for the device
+    time per kernel and the KV kernels' launches. Each repeat rewrites the
+    slot's pages and scales with the same values."""
+    from repro_torch.serve import Engine, EngineConfig, PoolConfig
+    eng = Engine(lm, params, EngineConfig(
+        pool=PoolConfig(num_slots=8, page_size=16, pages_per_slot=64,
+                        quantized=True), fused_attention=True),
+        device="cuda")
+    prompt = sum(prompts[:4], [])[:512]       # four prompts of 128..512
+    eng.submit(prompt, max_new_tokens=8)
+    eng.step()                          # admits + prefills slot 0, 1 decode
+    table_row = eng._tensor(eng.sched.page_table[0])
+    eng._prefill(prompt, table_row, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        eng._prefill(prompt, table_row, 0)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps
+    prof, kern = _profile_window(
+        torch, lambda: [eng._prefill(prompt, table_row, 0)
+                        for _ in range(reps)], reps, KV_KERNEL_FNS,
+        _kv_want(want), "prefill")
+    total, rows = _device_summary(torch, prof, reps)
+    log(f"prefill profile (S=512): {wall*1e3:.2f} ms per prefill (host "
+        f"wall), device {total:.3f} ms busy, busy share "
+        f"{total / (wall*1e3):.3f}")
     for r in rows:
         log(f"  {r['ms_per_step']:8.3f} ms  {r['calls_per_step']:6.1f}x  "
             f"{r['name']}")
@@ -1440,6 +1606,7 @@ def phase_train_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
             fq.append(row)
     out["p2_fake_quant"] = [r for r in fq if "ms" in r] + \
         _fq_group_rows(torch, timer, device)
+    out["p2_rt_group"] = _rt_group_rows(torch, timer, device)
 
     # --- PE1/PE2/PE3: every call of the step, f32 (the step's) and bf16
     rows = {"pe1": [], "pe2": [], "pe3": []}
@@ -1571,6 +1738,77 @@ def _fq_group_rows(torch, timer: Timer, device: str) -> list:
     return rows
 
 
+def _rt_group_rows(torch, timer: Timer, device: str) -> list:
+    """The BinaryConnect export's grouped round trips at the MLP's leaves
+    (its six 4-bit cores on their ``wscale_log2``, its two 8-bit biases on
+    2^-7), with zeros, small negatives and saturating values set in each:
+    one launch a group, bit for bit (zeros' sign included) with the twin,
+    with the per-leaf ``p2_enc`` + ``p2_dec`` route it replaced and over
+    two launches; timed beside that route (``previous_ms``) and a library
+    loop of ``fake_quantize_per_tensor_affine`` (the same values, zeros'
+    sign aside)."""
+    from repro_torch.kernels import build as B
+    from repro_torch.models import mlp_tt as MLP
+    from repro_torch.numerics import QuantSpec, roundtrip
+    from repro_torch.numerics import cuda_backend as CB
+    from repro_torch.optim.binaryconnect import deploy_leaves
+    d = MLP.make_mlp()
+    params = MLP.init_mlp(torch.Generator(device=device).manual_seed(0), d,
+                          device=device)
+    rows = []
+    for (bits, _), leaves in sorted(deploy_leaves(params, d.qc).items(),
+                                    key=lambda kv: kv[0][0]):
+        xs = [v.detach().clone() for _, _, v, _ in leaves]
+        steps = [st for _, _, _, st in leaves]
+        for x, st in zip(xs, steps):
+            step = 2.0 ** st.item()
+            x.view(-1)[:6] = torch.tensor([0.0, -0.3, -0.5, 1e3, -1e3, 2.5],
+                                          device=device) * step
+        spec = QuantSpec("pow2", bits)
+        _sync(torch, device)
+        B.reset_launches()
+        ys = CB.roundtrip_many(xs, steps, bits)
+        _sync(torch, device)
+        check(B.LAUNCHES == {"p2_rt_group": 1},
+              f"round-trip group {bits}-bit: launches {B.LAUNCHES}")
+        plain = CB.roundtrip_many_plain(xs, steps, bits)
+        prev = [roundtrip(x, spec, st, "cuda") for x, st in zip(xs, steps)]
+        again = CB.roundtrip_many(xs, steps, bits)
+        for n, (y, r, p_, a) in enumerate(zip(ys, plain, prev, again)):
+            check(_bits_equal(torch, y, r) and _bits_equal(torch, y, p_)
+                  and _bits_equal(torch, y, a),
+                  f"round-trip group {bits}-bit leaf {n}: not bit-exact "
+                  "with the twin or the per-leaf route, or not repeatable")
+            check(not torch.signbit(y[y == 0]).any(),
+                  f"round-trip group {bits}-bit leaf {n}: a -0.0")
+        qmax = 2 ** (bits - 1)
+        scales = [2.0 ** st.item() for st in steps]
+        n = sum(x.numel() for x in xs)
+        row = dict(shape=[list(x.shape) for x in xs], bits=bits,
+                   dtype="float32", what=f"export {bits}-bit group",
+                   entries=len(xs), max_abs_err=0.0)
+        row["ms"] = timer(lambda: CB.roundtrip_many(xs, steps, bits))
+        row["previous_ms"] = timer(lambda: [
+            roundtrip(x, spec, st, "cuda") for x, st in zip(xs, steps)])
+        row["plain_ms"] = timer(
+            lambda: CB.roundtrip_many_plain(xs, steps, bits), iters=10)
+        row["library_ms"], row["library_note"] = _library_yardstick(
+            timer, lambda: [torch.fake_quantize_per_tensor_affine(
+                x, scales[i], 0, -qmax, qmax - 1) for i, x in enumerate(xs)],
+            lambda r: all(torch.equal(a, b) for a, b in zip(r, ys)))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            2 * n * 4 + 4 * len(xs), 4 * n, FP32_OPS_PER_S)
+        log(f"p2_rt_group export {bits}-bit ({len(xs)} leaves, {n} "
+            f"elements): {row['ms']*1e3:.2f} us one launch (per-leaf "
+            f"p2_enc + p2_dec {row['previous_ms']*1e3:.2f} us, plain "
+            f"{row['plain_ms']*1e3:.1f} us, library loop "
+            f"{row['library_note']}, bound {row['bound_ms']*1e3:.4f} us); "
+            "bit-exact with the twin and the per-leaf route, +0.0 zeros, "
+            "two launches equal")
+        rows.append(row)
+    return rows
+
+
 def _sync(torch, device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -1634,8 +1872,8 @@ def phase_train(torch, device: str = "cuda", steps: int = TRAIN_STEPS
     acc = TF.accuracy(params, xt, yt, d)
     check(acc > 0.5, f"test accuracy {acc:.3f} not above chance (0.1)")
     # the BinaryConnect export: 4-bit cores, 8-bit biases, one step each,
-    # through the scalar-scale codec kernels, bit for bit with their plain
-    # versions on the CPU; one p2_enc and one p2_dec per leaf
+    # through the grouped round trip (one p2_rt_group launch a bit width),
+    # bit for bit with the plain versions on the CPU, zeros' sign included
     from repro_torch.optim.binaryconnect import quantize_for_deploy
     from repro_torch.tree import flatten_with_path
     _sync(torch, device)
@@ -1647,13 +1885,14 @@ def phase_train(torch, device: str = "cuda", steps: int = TRAIN_STEPS
                    if k.split("/")[-1].startswith("core_")
                    or k.endswith("/bias"))
     if device == "cuda":
-        check(export_launches == {"p2_enc": n_leaves, "p2_dec": n_leaves},
-              f"BinaryConnect export launches {export_launches}, want "
-              f"{n_leaves} p2_enc and p2_dec")
+        check(export_launches == {"p2_rt_group": 2},
+              f"BinaryConnect export launches {export_launches}, want 2 "
+              f"p2_rt_group for its {n_leaves} leaves")
     plain = quantize_for_deploy(_tensor_tree(torch, params, "cpu"), d.qc)
     for (path, a), (_, b) in zip(flatten_with_path(deploy),
                                  flatten_with_path(plain)):
-        check(torch.equal(a.cpu(), b), f"deploy export: {path} differs")
+        check(_bits_equal(torch, a.cpu(), b), f"deploy export: {path} "
+              "differs")
     check(deploy["l1"]["core_0"].unique().numel() <= 16,
           "deploy export: more than 16 levels in a 4-bit core")
     eff1, eff2 = MLP.effective_ranks(params, d)
@@ -2353,6 +2592,7 @@ def phase_scalar_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
     fake_quant as a caller uses it, counts zeroed just before and read
     just after."""
     from repro_torch import numerics as TN
+    from repro_torch.core import quant as TQ
     from repro_torch.kernels import build as B
     from repro_torch.numerics import cuda_backend as CB
     gen = torch.Generator(device=device).manual_seed(4)
@@ -2573,7 +2813,29 @@ def phase_scalar_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
     check(torch.equal(y, want.reshape(q.shape)),
           "codec API decode differs from the row decode's twin")
     log(f"codec API decode, (24,) scales: launches {dec}")
-    out["api_launches"] = {**api, **dec}
+    # --- a per-layer encode, the row encode's one caller since the
+    # prefill writes through p2_prefill_paged, and a one-step round trip
+    # (core.quant.quantize_store), the scalar codec's since the export
+    # runs one grouped round trip a bit width
+    xe = (torch.randn((24, 8, 16384), generator=gen, device=device) * 0.05
+          ).to(torch.bfloat16)
+    w = torch.randn((16, 4, 4, 16), generator=gen, device=device) * 0.1
+    _sync(torch, device)
+    B.reset_launches()
+    qt = TN.encode(xe, spec, s, backend="cuda")
+    rt = TQ.quantize_store(w, torch.tensor(-5.0, device=device), 4)
+    _sync(torch, device)
+    enc = dict(B.LAUNCHES)
+    check(enc == {"p2_enc_rows": 1, "p2_enc": 1, "p2_dec": 1},
+          f"codec API encode and round trip launches {enc}")
+    check(torch.equal(qt.codes, CB.encode_rows_plain(
+        xe.reshape(24, -1), s, 8).reshape(xe.shape)) and _bits_equal(
+        torch, rt, CB.roundtrip_many_plain(
+            [w], [torch.tensor([-5.0], device=device)], 4)[0]),
+        "codec API encode or round trip differs from its twin")
+    log(f"codec API encode, (24,) scales, and a one-step round trip: "
+        f"launches {enc}")
+    out["api_launches"] = {**api, **dec, **enc}
     B.reset_launches()
     return out
 
@@ -2770,8 +3032,8 @@ def phase_chunked_identity(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 KERNELS = {
-    "p2_enc_rows": ("src/repro_torch/kernels/csrc/pow2_rows.cu",
-                    "src/repro/numerics/pallas_backend.py:189"),
+    "p2_prefill_paged": ("src/repro_torch/kernels/csrc/kv_prefill.cu",
+                         "src/repro/numerics/pallas_backend.py:189"),
     "p2_append_paged": ("src/repro_torch/kernels/csrc/kv_append.cu",
                         "src/repro/numerics/pallas_backend.py:189"),
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -2810,8 +3072,12 @@ TRAIN_KERNELS = {
 }
 READ = ("src/repro_torch/kernels/csrc/kv_read.cu",
         "src/repro/numerics/pallas_backend.py:127")
+ENC_ROWS = ("src/repro_torch/kernels/csrc/pow2_rows.cu",
+            "src/repro/numerics/pallas_backend.py:189")
 DEC_ROWS = ("src/repro_torch/kernels/csrc/pow2_rows.cu",
             "src/repro/numerics/pallas_backend.py:196")
+RT_GROUP = ("src/repro_torch/kernels/csrc/pow2_fq.cu",
+            "src/repro/numerics/pallas_backend.py:120")
 
 
 def _kernel_row(name, src, replaces, shapes, launches, path) -> dict:
@@ -2841,6 +3107,11 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
         f"serve chunked prefix ({chunked['chunk_steps']} chunk steps); "
         f"gather engine {eng['launches_gather'].get('p2_read_paged', 0)}"))
     rows.append(_kernel_row(
+        "p2_enc_rows", *ENC_ROWS, kern["p2_enc_rows"],
+        skern["api_launches"].get("p2_enc_rows", 0),
+        "codec API (numerics encode with a scale per leading index; the "
+        "prefill writes through p2_prefill_paged)"))
+    rows.append(_kernel_row(
         "p2_dec_rows", *DEC_ROWS, kern["p2_dec_rows"],
         skern["api_launches"].get("p2_dec_rows", 0),
         "codec API (numerics decode with a scale per leading index; the "
@@ -2849,6 +3120,10 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
         rows.append(_kernel_row(name, src, replaces, tkern[name],
                                 train["launches"].get(name, 0),
                                 f"train ({train['steps']} steps)"))
+    rows.append(_kernel_row(
+        "p2_rt_group", *RT_GROUP, tkern["p2_rt_group"],
+        train["export_launches"].get("p2_rt_group", 0),
+        "BinaryConnect export (train phase; replaces :127 too)"))
     for name, (src, replaces) in WIRE_KERNELS.items():
         rows.append(_kernel_row(name, src, replaces, wkern[name],
                                 wire["launches"].get(name, 0),
@@ -2860,10 +3135,11 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
             path = ("codec API (numerics.fake_quant with a scale per leading "
                     "index; no serving or training path)")
         else:
-            launches = train["export_launches"].get(name, 0)
-            path = ("BinaryConnect export (train phase); the chunk step "
-                    "writes and reads through p2_append_paged and "
-                    "p2_read_paged")
+            launches = skern["api_launches"].get(name, 0)
+            path = ("codec API (numerics.roundtrip with one step, "
+                    "core.quant.quantize_store; the export runs "
+                    "p2_rt_group, the chunk step p2_append_paged and "
+                    "p2_read_paged)")
         rows.append(_kernel_row(name, src, replaces, skern[name], launches,
                                 path))
     return {"kernels": rows}
@@ -2889,13 +3165,15 @@ def phase_tokens(torch, path: str) -> None:
 
 
 def phase_steps(torch, path: str) -> None:
-    """The chunk step's and the decode steps' (fused and gather) host wall
-    and device time at full width, with the KV kernels' launches a step,
-    written to ``path``; nothing asserted, so a parent tree's port can be
-    measured beside this one in one call."""
+    """The whole-prompt prefill's (S = 512), the chunk step's and the decode
+    steps' (fused and gather) host wall and device time at full width,
+    with the KV kernels' launches a step, written to ``path``; nothing
+    asserted, so a parent tree's port can be measured beside this one in
+    one call."""
     lm, params = full_model(torch)
     prompts = _requests(lm.cfg.vocab_size)
-    out = {"chunk": _profile_chunk(torch, lm, params, prompts),
+    out = {"prefill": _profile_prefill(torch, lm, params, prompts),
+           "chunk": _profile_chunk(torch, lm, params, prompts),
            "decode": _profile_decode(torch, lm, params, prompts, fused=True),
            "gather_decode": _profile_decode(torch, lm, params, prompts,
                                             fused=False)}
@@ -2916,9 +3194,9 @@ def main(argv=None) -> int:
                     help="only serve the engine and chunked-prefix requests "
                     "and write their tokens here (no result line)")
     ap.add_argument("--steps", metavar="PATH",
-                    help="only profile the chunk step and the fused and "
-                    "gather decode steps and write them here (no result "
-                    "line)")
+                    help="only profile the whole-prompt prefill, the chunk "
+                    "step and the fused and gather decode steps and write "
+                    "them here (no result line)")
     ap.add_argument("--src", help="the directory holding repro_torch "
                     "(default: src beside this script)")
     args = ap.parse_args(argv)
@@ -2982,6 +3260,8 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))
+    idle = [r["name"] for r in line["kernels"] if r["launches"] < 1]
+    check(not idle, f"kernels launched no time on their path: {idle}")
     log(f"all phases passed in {report['seconds']:.1f} s")
     print(json.dumps(line))
     print(smi)

@@ -33,6 +33,15 @@ def quantize_store(x: torch.Tensor, scale_log2, bits: int) -> torch.Tensor:
     return codecs.roundtrip(x, QuantSpec("pow2", bits), scale_log2, "cuda")
 
 
+def quantize_store_many(xs: list[torch.Tensor], scales_log2: list,
+                        bits: int) -> list[torch.Tensor]:
+    """``quantize_store`` of each tensor under its own step (``scales_log2[n]``
+    for ``xs[n]``), bit for bit: on the card one grouped round-trip launch
+    (``p2_fq_group`` in its round-trip mode) for the lot."""
+    return CB.roundtrip_many(xs, scales_log2, bits,
+                             QuantSpec("pow2", bits).torch_storage)
+
+
 class ActQuant(NamedTuple):
     """A forward-activation + backward-gradient quantization site: 8-bit
     activations forward, 16-bit gradients backward, independently managed

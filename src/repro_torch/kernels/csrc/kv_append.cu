@@ -50,6 +50,7 @@
 // the fused kv projection, is read in place with no copy. No shared memory,
 // no synchronisation.
 
+#include "kv_pages.cuh"
 #include "pow2_codes.cuh"
 
 namespace {
@@ -83,21 +84,6 @@ struct AppendArgs {
   float lo, hi;
 };
 
-// the page row j of slot b (at position pos) writes, given the slot's
-// active flag and valid count: trash for a row that writes no real page
-__device__ __forceinline__ int row_page(const AppendArgs& a, int b, int j, int pos, bool act,
-                                        int nv) {
-  if (!act || j >= nv || pos < 0) return a.trash;
-  int idx = pos / a.page_size;
-  if (a.clamp_last && idx >= a.pages_per_slot - 1) {
-    if (j + a.page_size < nv) return a.trash;   // a later row writes this cell
-    idx = a.pages_per_slot - 1;
-  }
-  if (idx >= a.pages_per_slot) return a.trash;
-  const int page = __ldg(a.table + b * a.table_stride + idx);
-  return page < 0 || page > a.trash ? a.trash : page;
-}
-
 template <typename T, typename Q>
 __global__ void __launch_bounds__(kThreads)
     p2_append_paged_kernel(const __grid_constant__ AppendArgs a) {
@@ -112,7 +98,8 @@ __global__ void __launch_bounds__(kThreads)
   const int nv = a.n_valid == nullptr ? a.tokens : min(__ldg(a.n_valid + b), a.tokens);
   const float s = __ldg(a.scale[t] + b);
   const int pos = len + j;
-  const int page = row_page(a, b, j, pos, act, nv);
+  const int page = kv_pages::row_page(a.table + b * a.table_stride, a.pages_per_slot,
+                                      a.page_size, a.trash, a.clamp_last, j, pos, act, nv);
   const int off = (pos % a.page_size + a.page_size) % a.page_size;
   const T* __restrict__ x =
       static_cast<const T*>(a.x[t]) + b * a.stride[t] + j * a.tstride[t];

@@ -1,6 +1,8 @@
 // Pow-2 fake-quant: y = clip(rint(x / 2^s), lo, hi) * 2^s in the dtype of
 // x, with one f32 scale_log2 for each tensor of a group (`p2_fq_group`) or
-// one per row of a contiguous (rows, cols) view (`p2_fq_rows`).
+// one per row of a contiguous (rows, cols) view (`p2_fq_rows`). The group
+// kernel also runs the codec's round trip, decode(encode(x)) under the
+// same table (`p2_fq_group` with a code type): the BinaryConnect export.
 //
 // Replaces: repro/numerics/pallas_backend.py `_p2_fq_kernel` (launched
 // through `_elementwise_2d` / `_flat_call` by `_p2_fake_quant_pallas`, and
@@ -27,6 +29,19 @@
 // through, as jnp.clip's does. The STE mask is not computed here: it stays
 // outside the kernel, as in the Pallas backend (pallas_backend.py:326 and
 // :350-355, the row kernel's mask on the `_bcast`-shaped scale).
+//
+// Round trip (replaces `_p2_enc_kernel` and `_p2_dec_kernel`, :120 and
+// :127, as the reference's export runs them: repro/optim/binaryconnect.py
+// quantize_for_deploy, one encode and one decode a leaf through
+// core/quant.py quantize_store): bit-identical to p2_enc then p2_dec, which
+// compute in f32 whatever T is:
+//   q = clip(rint(float(x) / 2^s), lo, hi)   fminf/fmaxf, as p2_enc
+//   q = Q(q)                                  the code: an integer type's
+//                                             zero has no sign (+0.f does
+//                                             that); an f32 code keeps -0
+//   y = T(float(q) * 2^s)                     as p2_dec
+// so a zero code decodes to +0.0 where the fake-quant gives -0.0 for a
+// small negative x. One launch covers every leaf of one bit width.
 //
 // Bound on the H100: bytes. One read and one write per element and a
 // handful of operations, far below the card's ~295 operations per byte.
@@ -81,6 +96,15 @@ __device__ __forceinline__ T fq_one(T x, float scale, float lo, float hi) {
   return from_f32<T>(q * scale);
 }
 
+// decode(encode(x)); int_codes: through an integer code type, whose zero
+// has no sign
+template <typename T>
+__device__ __forceinline__ T rt_one(T x, float step, float lo, float hi, bool int_codes) {
+  float q = fminf(fmaxf(rintf(to_f32(x) / step), lo), hi);
+  if (int_codes) q += 0.f;
+  return from_f32<T>(q * step);
+}
+
 template <typename T> struct alignas(4 * sizeof(T)) Vec4 { T v[4]; };
 
 constexpr int kThreads = 256;
@@ -105,10 +129,14 @@ __host__ __device__ inline bool aligned(const void* p, size_t a) {
   return ((uintptr_t)p % a) == 0;
 }
 
-template <typename T, int N>
+template <typename T, int N, bool RT>
 __global__ void __launch_bounds__(kThreads)
-    p2_fq_group_kernel(const __grid_constant__ FqGroup<N> g, float lo, float hi) {
+    p2_fq_group_kernel(const __grid_constant__ FqGroup<N> g, float lo, float hi, int int_codes) {
   const float lo_t = in_t<T>(lo), hi_t = in_t<T>(hi);
+  auto one = [&](T v, float step) {
+    return RT ? rt_one(v, step, lo, hi, int_codes)
+              : fq_one(v, in_t<T>(step), lo_t, hi_t);
+  };
   const long long tiles = g.tile_end[N == 1 ? 0 : g.count - 1];
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     // the first tensor whose tiles end past `tile`; a table of one indexes
@@ -122,21 +150,21 @@ __global__ void __launch_bounds__(kThreads)
     const T* __restrict__ x = static_cast<const T*>(g.x[e]);
     T* __restrict__ y = static_cast<T*>(g.y[e]);
     const long long n = g.n[e];
-    const float scale = in_t<T>(pow2_step(__ldg(g.s[e])));
+    const float step = pow2_step(__ldg(g.s[e]));
     if (n % 4 == 0 && aligned(x, 4 * sizeof(T)) && aligned(y, 4 * sizeof(T))) {
       const long long i = base / 4 + threadIdx.x;
       if (i < n / 4) {
         const Vec4<T> in = reinterpret_cast<const Vec4<T>*>(x)[i];
         Vec4<T> out;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) out.v[j] = fq_one(in.v[j], scale, lo_t, hi_t);
+        for (int j = 0; j < 4; ++j) out.v[j] = one(in.v[j], step);
         reinterpret_cast<Vec4<T>*>(y)[i] = out;
       }
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const long long i = base + j * kThreads + threadIdx.x;
-        if (i < n) y[i] = fq_one(x[i], scale, lo_t, hi_t);
+        if (i < n) y[i] = one(x[i], step);
       }
     }
   }
@@ -184,8 +212,9 @@ void launch_rows(const void* x, const float* s, void* y, long long rows, long lo
                                                                   cols, lo, hi);
 }
 
-template <int N>
-int fq_launch(const long long* table, int count, int x_dtype, int bits, cudaStream_t st) {
+template <int N, bool RT>
+int fq_launch(const long long* table, int count, int x_dtype, int bits, int int_codes,
+              cudaStream_t st) {
   FqGroup<N> g{};
   long long prev = 0;
   for (int e = 0; e < count; ++e) {
@@ -204,11 +233,21 @@ int fq_launch(const long long* table, int count, int x_dtype, int bits, cudaStre
   const float lo = -(float)(1 << (bits - 1)), hi = (float)((1 << (bits - 1)) - 1);
   const int grid = grid_for(prev * kThreads);
   switch (x_dtype) {
-    case F32: p2_fq_group_kernel<float, N><<<grid, kThreads, 0, st>>>(g, lo, hi); break;
-    case BF16: p2_fq_group_kernel<__nv_bfloat16, N><<<grid, kThreads, 0, st>>>(g, lo, hi); break;
+    case F32: p2_fq_group_kernel<float, N, RT><<<grid, kThreads, 0, st>>>(g, lo, hi, int_codes); break;
+    case BF16:
+      p2_fq_group_kernel<__nv_bfloat16, N, RT><<<grid, kThreads, 0, st>>>(g, lo, hi, int_codes);
+      break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+template <bool RT>
+int fq_dispatch(const long long* table, int count, int x_dtype, int bits, int int_codes,
+                cudaStream_t st) {
+  if (count == 1) return fq_launch<1, RT>(table, count, x_dtype, bits, int_codes, st);
+  if (count <= 8) return fq_launch<8, RT>(table, count, x_dtype, bits, int_codes, st);
+  return fq_launch<kFqCap, RT>(table, count, x_dtype, bits, int_codes, st);
 }
 
 }  // namespace
@@ -219,14 +258,18 @@ extern "C" {
 // {x, y, s, n, tile_end} (pointers as integers; x, y: n contiguous
 // elements; s: one f32 scale_log2 on the device; tile_end: the prefix sum
 // of ceil(n / kTile), kernels/grouped.py::fq_plan); bits in [2, 16].
-// Returns cudaGetLastError() after the launch (none for a group with no
-// elements).
-int p2_fq_group(const long long* table, int count, int x_dtype, int bits, void* stream) {
-  if (bits < 2 || bits > 16 || count < 1 || count > kFqCap) return (int)cudaErrorInvalidValue;
+// q_code -1: the fake-quant; 0 int8, 1 int16, 2 int32, 3 f32: the round
+// trip through codes of that type (bits at most the type's, so the grid
+// lies inside it and to_code's saturation never acts). Returns
+// cudaGetLastError() after the launch (none for a group with no elements).
+int p2_fq_group(const long long* table, int count, int x_dtype, int bits, int q_code,
+                void* stream) {
+  if (bits < 2 || bits > 16 || count < 1 || count > kFqCap || q_code < -1 || q_code > 3 ||
+      (q_code == 0 && bits > 8))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (count == 1) return fq_launch<1>(table, count, x_dtype, bits, st);
-  if (count <= 8) return fq_launch<8>(table, count, x_dtype, bits, st);
-  return fq_launch<kFqCap>(table, count, x_dtype, bits, st);
+  if (q_code < 0) return fq_dispatch<false>(table, count, x_dtype, bits, 0, st);
+  return fq_dispatch<true>(table, count, x_dtype, bits, q_code != 3, st);
 }
 
 // x, y: (rows, cols) contiguous of x_dtype; s: (rows,) f32 scale_log2 on

@@ -1,7 +1,8 @@
 """Public kernel entry points — the port of ``repro/kernels/ops.py`` as far
-as the serving and training slices go: paged attention, the decode step's
-paged KV append, the PE1/PE2/PE3 contractions, the fused pow-2 fake-quant,
-and the TTM chain through the PE kernels.
+as the serving and training slices go: paged attention, the paged KV
+append, the whole-prompt prefill's paged write, the paged read, the
+PE1/PE2/PE3 contractions, the fused pow-2 fake-quant, and the TTM chain
+through the PE kernels.
 
 ``impl`` names what runs, and the tensors' device decides nothing behind
 the caller's back:
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from . import kv_append, kv_read
+from . import kv_append, kv_prefill, kv_read
 from . import paged_attention as PA
 from . import ttm_pe1, ttm_pe2, ttm_pe3
 
@@ -75,6 +76,22 @@ def append_paged(kdata: torch.Tensor, vdata: torch.Tensor,
     return fn(kdata, vdata, kscale, vscale, k, v, table, lens, active,
               page_size=page_size, bits=bits, n_valid=n_valid,
               clamp_last=clamp_last)
+
+
+def prefill_paged(kdata: torch.Tensor, vdata: torch.Tensor,
+                  kscale: torch.Tensor, vscale: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor, table_row: torch.Tensor,
+                  slot: int, length, *, page_size: int, bits: int,
+                  impl: str = "cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """A whole-prompt prefill's K and V (L, S, *feat), every layer, into
+    one slot's pages of the quantized pools (L, P+1, page, *feat) in place,
+    each (tensor, layer) scale chosen from the first ``length`` rows and
+    written to column ``slot`` of the (L, num_slots) scales; rows at or past
+    ``length`` to the trash page. Layouts in ``kernels/kv_prefill.py``."""
+    fn = _route("prefill_paged", impl, (kdata, vdata, k, v),
+                kv_prefill.prefill_paged_cuda, kv_prefill.prefill_paged_torch)
+    return fn(kdata, vdata, kscale, vscale, k, v, table_row, slot, length,
+              page_size=page_size, bits=bits)
 
 
 def read_paged(kdata: torch.Tensor, vdata: torch.Tensor,

@@ -68,6 +68,7 @@ SENC = "p2_enc"
 SDEC = "p2_dec"
 SCALAR_SOURCE = "pow2_scalar"
 FQ = "p2_fake_quant"
+RT = "p2_rt_group"
 FQR = "p2_fq_rows"
 FQ_SOURCE = "pow2_fq"
 PENC = "p2_enc_packed"
@@ -313,7 +314,7 @@ def _fq_lib() -> ctypes.CDLL:
     lib = B.load(FQ_SOURCE)
     if not getattr(lib, "_repro_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.p2_fq_group.argtypes = [ctypes.POINTER(ll), i, i, i, p]
+        lib.p2_fq_group.argtypes = [ctypes.POINTER(ll), i, i, i, i, p]
         lib.p2_fq_group.restype = i
         lib.p2_fq_rows.argtypes = [p, i, p, p, ll, ll, i, p]
         lib.p2_fq_rows.restype = i
@@ -334,38 +335,45 @@ def fake_quant_many_plain(xs: list[torch.Tensor], steps_log2: torch.Tensor,
     return [fake_quant_plain(x, steps_log2[n], bits) for n, x in enumerate(xs)]
 
 
-def _fq_group(xs: list[torch.Tensor], steps: torch.Tensor,
-              bits: int) -> list[torch.Tensor]:
-    """Launch ``p2_fq_group`` over CUDA tensors ``xs`` of one dtype, one f32
-    step each in ``steps`` (read on the device): one launch per
-    ``grouped.FQ_CAP`` tensors."""
-    dev = xs[0].device
-    if any(x.device != dev for x in xs) or steps.device != dev:
-        raise ValueError(f"{FQ}: tensors and steps must be on one device")
+def _fq_group(xs: list[torch.Tensor], steps: list[int], bits: int,
+              storage: torch.dtype | None = None) -> list[torch.Tensor]:
+    """Launch ``p2_fq_group`` over CUDA tensors ``xs`` of one dtype, the f32
+    step of ``xs[n]`` at device address ``steps[n]`` (read on the device):
+    one launch per ``grouped.FQ_CAP`` tensors. ``storage`` None: the
+    fake-quant; a code type: the codec's round trip through it."""
+    what = FQ if storage is None else RT
     dtype = xs[0].dtype
     if dtype not in _FQ_DTYPE_CODE or any(x.dtype != dtype for x in xs):
-        raise TypeError(f"{FQ}: want one dtype of "
+        raise TypeError(f"{what}: want one dtype of "
                         f"{sorted(map(str, _FQ_DTYPE_CODE))}, got "
                         f"{sorted({str(x.dtype) for x in xs})}")
     if not 2 <= bits <= 16:
-        raise ValueError(f"{FQ}: bits must be 2..16, got {bits}")
+        raise ValueError(f"{what}: bits must be 2..16, got {bits}")
+    code = -1 if storage is None else _check_storage(what, bits, storage)
     xs = [x.contiguous() for x in xs]
     ys = [torch.empty_like(x) for x in xs]
     lib = _fq_lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    s0, ssz = steps.data_ptr(), steps.element_size()
+    stream = torch.cuda.current_stream(xs[0].device).cuda_stream
     for launch in G.fq_plan([x.numel() for x in xs]):
         if not launch.tiles:
             continue
         rows = []
         for i, end in zip(launch.index, launch.tile_end):
-            rows += [xs[i].data_ptr(), ys[i].data_ptr(), s0 + i * ssz,
+            rows += [xs[i].data_ptr(), ys[i].data_ptr(), steps[i],
                      xs[i].numel(), end]
         table = (ctypes.c_longlong * len(rows))(*rows)
         B.check(lib, lib.p2_fq_group(table, len(launch.index),
-                                     _FQ_DTYPE_CODE[dtype], bits, stream), FQ)
-        B.note_launch(FQ)
+                                     _FQ_DTYPE_CODE[dtype], bits, code,
+                                     stream), what)
+        B.note_launch(what)
     return ys
+
+
+def _one_device(xs: list[torch.Tensor], steps: list[torch.Tensor],
+                what: str) -> None:
+    dev = xs[0].device
+    if any(t.device != dev for t in xs + steps):
+        raise ValueError(f"{what}: tensors and steps must be on one device")
 
 
 def fake_quant_scalar(x: torch.Tensor, step_log2, bits: int) -> torch.Tensor:
@@ -376,7 +384,7 @@ def fake_quant_scalar(x: torch.Tensor, step_log2, bits: int) -> torch.Tensor:
     s = _one_scale(step_log2, x.device, FQ)
     if not x.is_cuda:
         return fake_quant_plain(x, s, bits)
-    return _fq_group([x], s, bits)[0]
+    return _fq_group([x], [s.data_ptr()], bits)[0]
 
 
 def fake_quant_scalar_many(xs: list[torch.Tensor], steps_log2,
@@ -397,7 +405,42 @@ def fake_quant_scalar_many(xs: list[torch.Tensor], steps_log2,
         if any(x.is_cuda for x in xs):
             raise ValueError(f"{FQ}: tensors must be on one device")
         return fake_quant_many_plain(xs, steps, bits)
-    return _fq_group(xs, steps.contiguous(), bits)
+    _one_device(xs, [steps], FQ)
+    steps = steps.contiguous()
+    return _fq_group(xs, [steps.data_ptr() + 4 * n for n in range(len(xs))],
+                     bits)
+
+
+def roundtrip_many_plain(xs: list[torch.Tensor], steps: list[torch.Tensor],
+                         bits: int, storage: torch.dtype = torch.int8
+                         ) -> list[torch.Tensor]:
+    """The round-trip group's plain version: the scalar encode's and
+    decode's plain versions of each x under its own step, back in x's
+    dtype."""
+    return [decode_scalar_plain(encode_scalar_plain(x, s, bits, storage), s,
+                                x.dtype) for x, s in zip(xs, steps)]
+
+
+def roundtrip_many(xs: list[torch.Tensor], steps, bits: int,
+                   storage: torch.dtype = torch.int8) -> list[torch.Tensor]:
+    """decode(encode(x)) of each tensor of ``xs`` (one dtype, one device)
+    under its own scalar step, ``steps[n]`` (a one-element tensor or a
+    number) for ``xs[n]``, through ``storage`` codes, in x's dtype: the
+    codec's ``roundtrip`` leaf by leaf, bit for bit (a zero code is +0.0).
+    On the card one ``p2_fq_group`` launch in its round-trip mode, the
+    steps read on the device."""
+    if not xs:
+        return []
+    if len(steps) != len(xs):
+        raise ValueError(f"{RT}: one step per tensor, got {len(steps)} steps "
+                         f"for {len(xs)} tensors")
+    steps = [_one_scale(s, xs[0].device, RT) for s in steps]
+    if not xs[0].is_cuda:
+        if any(x.is_cuda for x in xs):
+            raise ValueError(f"{RT}: tensors must be on one device")
+        return roundtrip_many_plain(xs, steps, bits, storage)
+    _one_device(xs, steps, RT)
+    return _fq_group(xs, [s.data_ptr() for s in steps], bits, storage)
 
 
 def fake_quant_rows(x: torch.Tensor, scale, bits: int) -> torch.Tensor:

@@ -178,15 +178,17 @@ class Engine:
     def _prefill(self, toks: list[int], table_row: torch.Tensor,
                  slot: int) -> torch.Tensor:
         """A first chunk at position 0: the model's own forward, then one
-        scatter of its cache into the pool (which chooses the slot's
-        scales). Returns the last real position's logits (1, V)."""
+        write of its cache into the pool (which chooses the slot's scales;
+        one ``p2_prefill_paged`` launch on a quantized pool). Returns the
+        last real position's logits (1, V)."""
         padded = toks + [0] * (_bucket_len(len(toks), self.ecfg.prefill_bucket)
                                - len(toks))
         logits, _, cache = lm_forward(
             self.params, self.lm, tokens=self._tensor([padded], torch.long),
             return_cache=True)
-        KC.write_prefill(self.pool, cache, table_row, slot, len(toks),
-                         self.pcfg)
+        # the prompt's length on the device: the write reads it there
+        KC.write_prefill(self.pool, cache, table_row, slot,
+                         self._tensor([len(toks)], torch.int32), self.pcfg)
         return logits[0, len(toks) - 1][None]
 
     def _sub_chunk(self, pp: dict, x: torch.Tensor, layer: int, key: str,

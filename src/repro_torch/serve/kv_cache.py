@@ -13,13 +13,14 @@ Every pool write goes through an encode kernel and every gathered read
 through a decode kernel (on CPU tensors their plain versions): a decode
 step's append and a chunk step's write through ``p2_append_paged``
 (``kernels/kv_append.py``: K and V of every row into the layer's pages in
-one launch), a chunk step's history read and the gather engine's decode
-read through ``p2_read_paged`` (``kernels/kv_read.py``: K and V of every
-slot off the pages in one launch), a whole-prompt prefill's write through
-``numerics``' ``cuda`` codec (the row-scale kernel, one launch a tensor
-over the layers). The fused path reads pages straight from the pool
-inside the paged-attention kernel. A model-dtype pool runs no kernel: its
-writes are scatters and its reads gathers, as in the reference.
+one launch), a whole-prompt prefill's write through ``p2_prefill_paged``
+(``kernels/kv_prefill.py``: K and V of every layer into the slot's pages
+in one launch that also chooses the slot's scales), a chunk step's history
+read and the gather engine's decode read through ``p2_read_paged``
+(``kernels/kv_read.py``: K and V of every slot off the pages in one
+launch). The fused path reads pages straight from the pool inside the
+paged-attention kernel. A model-dtype pool runs no kernel: its writes are
+scatters and its reads gathers, as in the reference.
 
 In-place updates: where the reference donates the pool to a jitted step
 and rebuilds it with ``.at[].set``, the port writes into the preallocated
@@ -35,7 +36,7 @@ import torch
 
 from ..kernels.kv_append import append_slots
 from ..models.common import torch_dtype
-from ..numerics import QTensor, QuantSpec, get_codec, per_tensor_max_scale_log2
+from ..numerics import QTensor, QuantSpec, get_codec
 
 CODEC_BACKEND = "cuda"
 
@@ -143,16 +144,6 @@ def page_nbytes(pool: dict, pcfg: PoolConfig) -> int:
 # Quantize / dequantize — the ``kv_cache`` site of the codec registry
 # ---------------------------------------------------------------------------
 
-def choose_scale_log2(x: torch.Tensor, valid: torch.Tensor,
-                      bits: int) -> torch.Tensor:
-    """Smallest pow-2 step covering max|x| over valid rows, one per layer.
-
-    x: (L, S, *feat); valid: (S,) bool. Returns (L,) f32 integer-valued."""
-    mask = valid.reshape((1, -1) + (1,) * (x.dim() - 2))
-    return per_tensor_max_scale_log2(x, _kv_spec(bits), valid=mask,
-                                     reduce_axes=tuple(range(1, x.dim())))
-
-
 def quantize(x: torch.Tensor, scale_log2: torch.Tensor,
              bits: int) -> torch.Tensor:
     """fp -> int8 codes; scale_log2 broadcast against x's leading dims (one
@@ -243,31 +234,34 @@ def append_kv(kdata_l: torch.Tensor, vdata_l: torch.Tensor,
 
 
 def write_prefill(pool: dict, cache: dict, table_row: torch.Tensor,
-                  slot: int, length: int, pcfg: PoolConfig) -> dict:
+                  slot: int, length, pcfg: PoolConfig) -> dict:
     """Scatter a whole-prompt prefill cache (``lm_forward``'s, leaves
     (L, 1, S, *feat)) into the pool for one slot, all layers at once, in
-    place. Rows past ``length`` (bucket padding) go to the trash page. With
-    a quantized pool the slot's per-layer scales are chosen here and each
-    tensor is encoded in one launch (rows = L)."""
+    place. Rows past ``length`` (an int, or a (1,) int tensor read on the
+    device; bucket padding) go to the trash page. A quantized pool takes
+    one ``p2_prefill_paged`` launch for K and V of every layer, which
+    chooses the slot's per-layer scales on the device (its plain twin on
+    CPU tensors); a model-dtype pool a scatter per tensor (the reference
+    runs no kernel there either)."""
+    if pcfg.quantized:
+        from ..kernels.ops import prefill_paged
+        for key, kinds in cache.items():
+            data, scale = pool["data"][key], pool["scale_log2"][key]
+            prefill_paged(data["k"], data["v"], scale["k"], scale["v"],
+                          kinds["k"][:, 0], kinds["v"][:, 0], table_row, slot,
+                          length, page_size=pcfg.page_size, bits=pcfg.bits)
+        return pool
     sample = next(iter(next(iter(cache.values())).values()))
     s = sample.shape[2]
-    dev = sample.device
-    pos = torch.arange(s, device=dev)
-    valid = pos < length
+    pos = torch.arange(s, device=sample.device)
     page_idx = torch.clamp(pos // pcfg.page_size, max=pcfg.pages_per_slot - 1)
-    pages = torch.where(valid, table_row.long()[page_idx], pcfg.trash_page)
+    pages = torch.where(pos < length, table_row.long()[page_idx],
+                        pcfg.trash_page)
     offs = pos % pcfg.page_size
     for key, kinds in cache.items():
         for name, arr in kinds.items():
-            vals = arr[:, 0]                             # (L, S, *feat)
             dest = pool["data"][key][name]
-            if pcfg.quantized:
-                step = choose_scale_log2(vals, valid, pcfg.bits)   # (L,)
-                pool["scale_log2"][key][name][:, slot] = step
-                vals = quantize(vals, step[:, None], pcfg.bits)
-            else:
-                vals = vals.to(dest.dtype)
-            dest[:, pages, offs] = vals
+            dest[:, pages, offs] = arr[:, 0].to(dest.dtype)
     return pool
 
 

@@ -156,14 +156,16 @@ def test_chunk_step_runs_the_scalar_codec(models, monkeypatch):
     """A chunk step no longer runs the scalar-scale codec: its write and its
     history read are one paged launch a layer each, K and V together
     (``ops.append_paged`` and ``ops.read_paged``, their plain twins on the
-    CPU); the row encode runs only for the first chunk's
-    ``write_prefill``."""
+    CPU); the first chunk's ``write_prefill`` is one ``ops.prefill_paged``
+    for K and V of every layer, and no row-scale codec runs at all."""
     _, _, tlm, tp = models
     calls = {"encode_scalar": 0, "decode_scalar": 0, "encode_rows": 0,
-             "decode_rows": 0, "append_paged": 0, "read_paged": 0}
+             "decode_rows": 0, "append_paged": 0, "read_paged": 0,
+             "prefill_paged": 0}
     for mod, names in ((CB, ("encode_scalar", "decode_scalar", "encode_rows",
                              "decode_rows")),
-                       (ops, ("append_paged", "read_paged"))):
+                       (ops, ("append_paged", "read_paged",
+                              "prefill_paged"))):
         for name in names:
             def wrapped(*a, _n=name, _fn=getattr(mod, name), **k):
                 calls[_n] += 1
@@ -176,10 +178,10 @@ def test_chunk_step_runs_the_scalar_codec(models, monkeypatch):
     eng.submit(prompt, max_new_tokens=1)
     eng.run()
     # 20 tokens in chunks of 8: the first through lm_forward (write_prefill:
-    # one row-scale encode each of K and V over the layers), then 2 chunk
+    # one paged prefill write for K and V of every layer), then 2 chunk
     # steps x layers, one write and one read each
     per = 2 * tlm.n_periods
     assert tlm.n_periods > 1
-    assert calls == {"encode_scalar": 0, "decode_scalar": 0, "encode_rows": 2,
+    assert calls == {"encode_scalar": 0, "decode_scalar": 0, "encode_rows": 0,
                      "decode_rows": 0, "append_paged": per,
-                     "read_paged": per}
+                     "read_paged": per, "prefill_paged": 1}

@@ -58,7 +58,15 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
     paged read (``p2_read_paged``) bit for bit with their twins and over
     two launches at the chunk and gather shapes, strided V, an odd and an
     unaligned feature layout, and int8, int16, int32 and float32 codes;
-    ``impl="torch"`` and mixed devices refused.
+    ``impl="torch"`` and mixed devices refused;
+(o) the whole-prompt prefill write (``p2_prefill_paged``) bit for bit with
+    its twin on the whole pool and the scales, over two launches: S from
+    1 to 1,024, bucket padding, the clamp past the slot's last page,
+    f32/bf16 caches, V a strided view, 8/4-bit codes in every storage
+    type, an all-zero layer, a max at ``qmax * 2^k`` and its f32
+    neighbours, odd and unaligned rows; the BinaryConnect export's grouped round trip
+    (``p2_fq_group`` in its round-trip mode) bit for bit with the codec's
+    per-leaf round trip, zeros' sign included, one launch a bit width.
 """
 import math
 
@@ -194,9 +202,11 @@ def test_engine_fused_equals_gather_fp32_on_card(cuda):
     assert fl["paged_attention"] == steps * cfg.num_layers
     assert fl["p2_append_paged"] == steps * cfg.num_layers
     assert gl["p2_append_paged"] == gsteps * cfg.num_layers
-    # p2_enc_rows comes from the whole-prompt prefills alone: K and V once
+    # a whole-prompt prefill is one p2_prefill_paged for K and V of every
+    # layer; no row-scale encode runs
     for launch, (_, summ) in zip((fl, gl), summaries):
-        assert launch["p2_enc_rows"] == 2 * summ and summ >= len(prompts)
+        assert launch["p2_prefill_paged"] == summ and summ >= len(prompts)
+        assert "p2_enc_rows" not in launch
     # the gather path reads every slot's view off the pages: one paged
     # read a layer a decode step, no row decode
     assert gl["p2_read_paged"] == gsteps * cfg.num_layers
@@ -1269,3 +1279,166 @@ def test_paged_kv_wrappers_refuse_on_card(cuda):
                        impl="torch")
     with pytest.raises(ValueError, match="CUDA device"):
         ops.read_paged(kd, vd, ks, vs, table.cpu(), dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# (o) the whole-prompt prefill write and the export's grouped round trip
+# ---------------------------------------------------------------------------
+
+def _prefill_case(cuda, dtype, storage, bits, s, layers=3, hkv=2, dh=64,
+                  seed=0, page=16, pps=4, slots=3):
+    """Pools of random codes (layers, slots * pps + 1, page, hkv, dh), the
+    scales, slot 1's table row, and K/V (layers, s, hkv, dh) with V the
+    strided half of a fused projection; each layer's values on its own
+    scale, pad rows (past row 2s/3) far larger."""
+    from repro_torch.kernels import kv_prefill as KP
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    total = slots * pps
+    shape = (layers, total + 1, page, hkv, dh)
+    lo, hi = (-128, 128) if storage == torch.int8 else (-2 ** 15, 2 ** 15)
+    kd, vd = (torch.randint(lo, hi, shape, generator=g, device=cuda).to(
+        storage) for _ in range(2))
+    ks, vs = (torch.randint(-6, 0, (layers, slots), generator=g,
+                            device=cuda).float() for _ in range(2))
+    table = torch.randperm(total, generator=g, device=cuda).reshape(
+        slots, pps).to(torch.int32)
+    mag = torch.exp2(torch.randint(-6, 4, (layers, 1, 1, 1, 1), generator=g,
+                                   device=cuda).float())
+    kv = torch.randn((layers, s, 2, hkv, dh), generator=g, device=cuda) * mag
+    kv[:, (2 * s) // 3 + 1:] *= 1e3
+    kv = kv.to(dtype)
+    return KP, [kd, vd, ks, vs, kv[:, :, 0].contiguous(), kv[:, :, 1],
+                table[1], 1], dict(page_size=page, bits=bits)
+
+
+def _prefill_check(KP, args, kw, length):
+    """The kernel against its twin on every real page and every scale, one
+    launch, and a second launch the same."""
+    n = torch.tensor([length], dtype=torch.int32, device=args[0].device)
+    want = [t.clone() for t in args[:4]]
+    KP.prefill_paged_torch(*want, *args[4:], n, **kw)
+    got = [t.clone() for t in args[:4]]
+    B.reset_launches()
+    KP.prefill_paged_cuda(*got, *args[4:], n, **kw)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES == {"p2_prefill_paged": 1}
+    for a, w in zip(got[:2], want[:2]):
+        assert torch.equal(a[:, :-1], w[:, :-1])
+    for a, w in zip(got[2:], want[2:]):
+        assert torch.equal(a, w)
+    again = [t.clone() for t in args[:4]]
+    KP.prefill_paged_cuda(*again, *args[4:], n, **kw)
+    for a, w in zip(again, got):
+        assert torch.equal(a[:, :-1] if a.dim() > 2 else a,
+                           w[:, :-1] if w.dim() > 2 else w)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,length", [(1, 1), (1, 0), (7, 5), (17, 17),
+                                      (64, 50), (65, 65), (100, 80),
+                                      (128, 128), (512, 400)])
+def test_prefill_paged_bit_identical(cuda, dtype, s, length):
+    pps = max(4, -(-s // 16))
+    KP, args, kw = _prefill_case(cuda, dtype, torch.int8, 8, s, pps=pps,
+                                 seed=s + length)
+    assert not args[5].is_contiguous()
+    got = _prefill_check(KP, args, kw, length)
+    if length:
+        assert not torch.equal(got[0][:, :-1], args[0][:, :-1])
+
+
+@pytest.mark.parametrize("storage,bits", [(torch.int8, 8), (torch.int8, 4),
+                                          (torch.int16, 16), (torch.int32, 8),
+                                          (torch.float32, 8)])
+def test_prefill_paged_code_types(cuda, storage, bits):
+    KP, args, kw = _prefill_case(cuda, torch.bfloat16, storage, bits, 48,
+                                 seed=bits)
+    _prefill_check(KP, args, kw, 40)
+
+
+@pytest.mark.parametrize("s", [1024, 700])
+def test_prefill_paged_long_prompts(cuda, s):
+    """Full width (8 x 128) up to the engine's longest prompt, 128 rows a
+    CTA at S = 1,024."""
+    from repro_torch.kernels import kv_prefill as KP
+    _, args, kw = _prefill_case(cuda, torch.bfloat16, torch.int8, 8, s,
+                                layers=2, hkv=8, dh=128, pps=64, seed=s)
+    _prefill_check(KP, args, kw, s - 3)
+
+
+def test_prefill_paged_clamp_zero_layer_and_edges(cuda):
+    """Rows past the slot's last page (the clamp; the later of two rows in
+    one cell kept), an all-zero layer, and layers whose max sits at
+    127 * 2^k and its f32 neighbours: the scale as PyTorch forms it on the
+    card (a multiply by the reciprocal of qmax)."""
+    KP, args, kw = _prefill_case(cuda, torch.float32, torch.int8, 8, 80,
+                                 layers=8, pps=4, seed=3)
+    args[4][1] = 0.0
+    for i, (k, d) in enumerate([(-5, 1), (-5, 2), (3, 1), (-11, 3), (0, 0),
+                                (-2, -1)]):
+        m = np.float32(127 * 2.0 ** k)
+        for _ in range(abs(d)):
+            m = np.nextafter(m, np.float32(np.inf if d > 0 else -np.inf))
+        x = args[4][i + 2]
+        x.copy_(torch.rand_like(x) * float(m) / 3)
+        x[3, 1, 5] = -float(m)
+    _prefill_check(KP, args, kw, 80)
+
+
+@pytest.mark.parametrize("layout", ["odd width", "unaligned"])
+def test_prefill_paged_odd_and_unaligned(cuda, layout):
+    from repro_torch.kernels import kv_prefill as KP
+    if layout == "odd width":
+        _, args, kw = _prefill_case(cuda, torch.bfloat16, torch.int8, 8, 33,
+                                    hkv=1, dh=12, seed=1)
+    else:
+        _, args, kw = _prefill_case(cuda, torch.bfloat16, torch.int8, 8, 33,
+                                    seed=2)
+        buf = torch.empty(args[4].numel() + 1, dtype=args[4].dtype,
+                          device=cuda)
+        args[4] = buf[1:].view(args[4].shape).copy_(args[4])
+    _prefill_check(KP, args, kw, 30)
+
+
+def test_prefill_paged_wrappers_refuse_on_card(cuda):
+    KP, args, kw = _prefill_case(cuda, torch.bfloat16, torch.int8, 8, 9)
+    with pytest.raises(ValueError):
+        ops.prefill_paged(*args, 9, **kw, impl="torch")
+    bad = list(args)
+    bad[6] = bad[6].cpu()
+    with pytest.raises(ValueError, match="CUDA device"):
+        KP.prefill_paged_cuda(*bad, 9, **kw)
+
+
+def test_export_round_trip_group_bit_identical(cuda):
+    """The BinaryConnect export of the FMNIST MLP on the card: one grouped
+    round trip a bit width, bit for bit (zeros' sign included) with the
+    codec's per-leaf ``roundtrip`` on the card and with the CPU export, at
+    zeros, small negatives and saturating values."""
+    from repro_torch.optim.binaryconnect import quantize_for_deploy
+    d = MLP.make_mlp()
+    params = MLP.init_mlp(torch.Generator(device=cuda).manual_seed(2), d,
+                          device=cuda)
+    for layer in ("l1", "l2"):
+        for k, v in params[layer].items():
+            if k.startswith("core_") or k == "bias":
+                flat = v.view(-1)
+                flat[:6] = torch.tensor([0.0, -1e-6, -1e-9, 1e3, -1e3, 0.0],
+                                        device=cuda)
+    B.reset_launches()
+    got = quantize_for_deploy(params, d.qc)
+    torch.cuda.synchronize()
+    assert dict(B.LAUNCHES) == {"p2_rt_group": 2}
+    cpu = quantize_for_deploy(tree_map(lambda t: t.cpu(), params), d.qc)
+    spec4 = TN.QuantSpec("pow2", d.qc.weight_bits)
+    for (p, a), (_, c) in zip(flatten_with_path(got), flatten_with_path(cpu)):
+        if a.dtype == torch.float32:
+            assert torch.equal(a.cpu().view(torch.int32), c.view(torch.int32)
+                               ), p
+    steps = params["l1"]["wscale_log2"].float()
+    one = codecs.roundtrip(params["l1"]["core_1"], spec4, steps[1], "cuda")
+    assert torch.equal(got["l1"]["core_1"].view(torch.int32),
+                       one.view(torch.int32))
+    assert not torch.signbit(got["l1"]["core_0"][got["l1"]["core_0"] == 0]
+                             ).any()

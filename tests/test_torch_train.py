@@ -386,6 +386,83 @@ def test_quantize_for_deploy_matches_reference():
     assert len(np.unique(np.asarray(want["l1/core_0"]))) <= 16
 
 
+def _edge_leaves(jp, jd):
+    """Cores and biases with exact zeros, small negatives that round to a
+    zero code (the fake-quant would give -0.0 there, the round trip +0.0),
+    ties, and values far past the grid (saturating), each on its leaf's
+    own step."""
+    rng = np.random.RandomState(4)
+    for layer in ("l1", "l2"):
+        tree = jp[layer]
+        steps = np.asarray(tree["wscale_log2"]).astype(np.float64)
+        for k in list(tree):
+            if k.startswith("core_") or k == "bias":
+                step = 2.0 ** (steps[int(k.split("_")[1])]
+                               if k != "bias" else -(jd.qc.act_bits - 1))
+                x = np.asarray(tree[k]).copy().reshape(-1)
+                x[:8] = np.array([0.0, -0.3, -0.5, 0.5, 1e3, -1e3, 2.5, -1e-9]
+                                 ) * step
+                x[8::13] = rng.choice([-0.25, -0.49, 100.0, -100.0],
+                                      x[8::13].shape) * step
+                tree[k] = jnp.asarray(x.reshape(np.shape(tree[k])),
+                                      jnp.float32)
+    return jp
+
+
+def test_grouped_export_matches_reference_bit_for_bit():
+    """The export's grouped round trip (``core.quant.quantize_store_many``,
+    its plain twin here) against JAX's ``quantize_for_deploy`` leaf by
+    leaf, bit for bit including the sign of zeros, at zero,
+    negative-near-zero and saturating inputs."""
+    jd, td = _defs()
+    jp = _edge_leaves(JM.init_mlp(jax.random.PRNGKey(3), jd), jd)
+    want = _jax_flat(JBC.quantize_for_deploy(jp, jd.qc))
+    got = dict(flatten_with_path(quantize_for_deploy(_port(jp), td.qc)))
+    assert list(got) == list(want)
+    zeros = 0
+    for p, leaf in want.items():
+        w = np.asarray(leaf)
+        if w.dtype == np.float32:
+            np.testing.assert_array_equal(got[p].numpy().view(np.int32),
+                                          w.view(np.int32), err_msg=p)
+            zeros += int((w == 0).sum())
+        else:
+            np.testing.assert_array_equal(got[p].numpy(), w, err_msg=p)
+    assert zeros > 0 and not any(
+        np.signbit(np.asarray(want[p])[np.asarray(want[p]) == 0]).any()
+        for p in want if p.split("/")[-1].startswith(("core_", "bias")))
+    l1 = np.asarray(want["l1/core_0"])
+    step = 2.0 ** float(np.asarray(jp["l1"]["wscale_log2"])[0])
+    assert l1.max() == 7 * step and l1.min() == -8 * step      # saturated
+
+
+def test_grouped_export_plan_and_route(monkeypatch):
+    """The export's plan (pure Python, ``deploy_leaves``): the six 4-bit
+    cores in one group and the two 8-bit biases in another, each one
+    ``p2_fq_group`` launch by ``grouped.fq_plan``; the export runs one
+    grouped round trip per group and no scalar encode or decode."""
+    from repro_torch.kernels import grouped as G
+    from repro_torch.optim.binaryconnect import deploy_leaves
+    jd, td = _defs()
+    tp = _port(JM.init_mlp(jax.random.PRNGKey(1), jd))
+    groups = deploy_leaves(tp, td.qc)
+    assert {key: [k for _, k, _, _ in leaves]
+            for key, leaves in groups.items()} == {
+        (4, torch.float32): ["core_0", "core_1", "core_2", "core_3",
+                             "core_0", "core_1"],
+        (8, torch.float32): ["bias", "bias"]}
+    for leaves in groups.values():
+        assert len(G.fq_plan([v.numel() for _, _, v, _ in leaves])) == 1
+    calls = collections.Counter()
+    for name in ("roundtrip_many", "encode_scalar", "decode_scalar"):
+        def wrapped(*a, _n=name, _fn=getattr(CB, name), **k):
+            calls[_n] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(CB, name, wrapped)
+    quantize_for_deploy(tp, td.qc)
+    assert dict(calls) == {"roundtrip_many": 2}
+
+
 def test_main_runs_on_the_cpu_when_asked(capsys):
     TF.main(["--device", "cpu", "--steps", "3"])
     out = capsys.readouterr().out
