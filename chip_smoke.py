@@ -124,10 +124,13 @@ Phases (any failure raises and the script exits non-zero):
              moments, its 21 wire leaves) each in one launch, bit for bit
              with the twin, the one-entry launches and a second launch,
              timed beside the loop of one-entry launches it replaced
-             (``previous_ms``); the
-             packed int4x2 encode/decode kernels on the six FMNIST cores
-             at their wscale_log2, a stacked tensor with a step per row and
-             an odd trailing dim, and a scalar. Each timed beside its bound,
+             (``previous_ms``); the packed int4x2 encode and decode groups
+             on the deploy export's six cores in one launch each, bit for
+             bit with the twin, the one-entry launches and a second launch,
+             timed beside the loop of one-entry launches; then each core
+             at its wscale_log2, a stacked tensor with a step per row and
+             an odd trailing dim, and a scalar, as groups of one. Each
+             timed beside its bound,
              its plain version and a library call where one computes the
              same function.
    scalar kernels — the scalar-scale encode/decode kernels bit for bit
@@ -156,7 +159,9 @@ Phases (any failure raises and the script exits non-zero):
              7,160 / 91,148 / 98,290 / 14,993 B against 7,844,096 B fp32,
              37.07x) with the packed deploy export of the trained params,
              loaded back by ``load_tt_deploy`` on the card, its cores equal
-             to encode -> decode of the params bit for bit; a profiled
+             to encode -> decode of the params bit for bit (the export and
+             the load one p2_enc_packed and one p2_dec_packed launch,
+             asserted); a profiled
              window of wire steps (bw_enc_group_kernel 2 launches a step,
              bw_dec_group_kernel 2, p2_fq_group_kernel 9; asserted).
 8. train wire identity — one wire step from the same state on the card and
@@ -184,6 +189,11 @@ greedy tokens to PATH as JSON; no result line. ``--steps PATH [--src
 DIR]`` likewise profiles a whole-prompt prefill of 512 tokens, the chunk
 step and the fused and gather decode steps (host wall, device time, the
 KV kernels' launches) and writes them to PATH, asserting nothing.
+``--deploy PATH [--src DIR]`` likewise times the deploy export's packed
+encode and decode of the six FMNIST cores, core by core and (where the
+port has them) as one group each, and the host wall of
+``export_tt_deploy`` and ``load_tt_deploy`` with their launches, and
+writes them to PATH, asserting nothing.
 """
 from __future__ import annotations
 
@@ -2313,15 +2323,96 @@ def _packed_row(torch, timer, x, s, what) -> tuple[dict, dict]:
     return enc, dec
 
 
+def _export_cores(torch, device):
+    """The deploy export's six cores of the seeded FMNIST MLP, each as the
+    export views it: ((1, n) values, (1,) step), largest first."""
+    from repro_torch.models import mlp_tt as MLP
+    d = MLP.make_mlp()
+    params = MLP.init_mlp(torch.Generator(device=device).manual_seed(0), d,
+                          device=device)
+    cores = [(f"{layer}/core_{n}", params[layer][f"core_{n}"].reshape(1, -1),
+              params[layer]["wscale_log2"][n].float().reshape(1))
+             for layer, spec in (("l1", d.spec1), ("l2", d.spec2))
+             for n in range(spec.d)]
+    return sorted(cores, key=lambda c: -c[1].numel())
+
+
+def _packed_group_rows(torch, timer, device) -> tuple[dict, dict]:
+    """The deploy export's six cores through the packed encode group and
+    its bytes through the decode group, one launch each: bit for bit with
+    the twin, with the one-entry launches and over two launches, in one
+    buffer; timed beside the loop of one-entry launches (``previous_ms``),
+    the twin and the byte bound. Returns (encode row, decode row)."""
+    from repro_torch.kernels import build as B
+    from repro_torch.numerics import cuda_backend as CB
+    cores = _export_cores(torch, device)
+    xs = [x for _, x, _ in cores]
+    ss = [s for _, _, s in cores]
+    lasts = [x.shape[1] for x in xs]
+    _sync(torch, device)
+    B.reset_launches()
+    ps = CB.encode_packed_many(xs, ss, 4)
+    ys = CB.decode_packed_many(ps, ss, lasts)
+    _sync(torch, device)
+    check(B.LAUNCHES == {"p2_enc_packed": 1, "p2_dec_packed": 1},
+          f"packed groups: launches {B.LAUNCHES}")
+    check(len({p.untyped_storage().data_ptr() for p in ps}) == 1
+          and len({y.untyped_storage().data_ptr() for y in ys}) == 1,
+          "packed groups: not one buffer each")
+    again_p = CB.encode_packed_many(xs, ss, 4)
+    again_y = CB.decode_packed_many(ps, ss, lasts)
+    for i, (x, s, last, p, y, tp, ty, ap, ay) in enumerate(zip(
+            xs, ss, lasts, ps, ys, CB.encode_packed_many_plain(xs, ss, 4),
+            CB.decode_packed_many_plain(ps, ss, lasts), again_p, again_y)):
+        check(torch.equal(p, tp) and _bits_equal(torch, y, ty),
+              f"packed group core {i}: differs from the twin")
+        check(torch.equal(p, CB.encode_packed(x, s, 4))
+              and _bits_equal(torch, y, CB.decode_packed(p, s, last)),
+              f"packed group core {i}: differs from a one-entry launch")
+        check(torch.equal(ap, p) and _bits_equal(torch, ay, y),
+              f"packed group core {i}: two launches differ")
+    n = sum(lasts)
+    nbytes = sum(p.numel() for p in ps) + 4 * n + 4 * len(ss)
+    shape = [list(x.shape) for x in xs]
+    enc = dict(shape=shape, what="group export cores", entries=len(xs),
+               max_abs_err=0.0,
+               ms=timer(lambda: CB.encode_packed_many(xs, ss, 4)),
+               previous_ms=timer(lambda: [CB.encode_packed(x, s, 4)
+                                          for x, s in zip(xs, ss)]),
+               plain_ms=timer(lambda: CB.encode_packed_many_plain(xs, ss, 4),
+                              iters=10),
+               library_ms=None, library_note=PACKED_NONE)
+    enc["bound_ms"], enc["bound_by"] = bound_ms(nbytes, 4 * n,
+                                                FP32_OPS_PER_S)
+    dec = dict(shape=shape, what="group export cores", entries=len(xs),
+               max_abs_err=0.0,
+               ms=timer(lambda: CB.decode_packed_many(ps, ss, lasts)),
+               previous_ms=timer(lambda: [
+                   CB.decode_packed(p, s, last)
+                   for p, s, last in zip(ps, ss, lasts)]),
+               plain_ms=timer(lambda: CB.decode_packed_many_plain(
+                   ps, ss, lasts), iters=10),
+               library_ms=None, library_note=PACKED_NONE)
+    dec["bound_ms"], dec["bound_by"] = bound_ms(nbytes, 2 * n,
+                                                FP32_OPS_PER_S)
+    for what, row in (("p2_enc_packed", enc), ("p2_dec_packed", dec)):
+        log(f"{what} group ({len(xs)} cores, {n} elements): "
+            f"{row['ms']*1e3:.2f} us one launch (one-entry loop "
+            f"{row['previous_ms']*1e3:.2f} us, plain "
+            f"{row['plain_ms']*1e3:.1f} us, bound {row['bound_ms']*1e3:.4f}"
+            " us); bit-exact, one buffer, two launches equal")
+    return enc, dec
+
+
 def phase_wire_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
     """The wire's codec kernels against their plain versions, bit for bit,
     at the shapes of the step: every Adam moment shape at block 256 and
     every flattened gradient length of the wire at block 1024, a padded
     (3, 1000) at 256 with an all-zero block; the packed codec on the six
     cores at their wscale_log2, a stacked (3, 5, 7) with a step per row,
-    and a scalar."""
+    and a scalar (groups of one), after the export's six cores as one
+    group each way."""
     from repro_torch.kernels import build as B
-    from repro_torch.models import mlp_tt as MLP
     gen = torch.Generator(device=device).manual_seed(3)
     cases = [(s, 256, "moment") for s in MOMENT_SHAPES]
     cases += [((n,), 1024, "wire") for n in WIRE_LENGTHS]
@@ -2333,15 +2424,10 @@ def phase_wire_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
         e, d_ = _bw_row(torch, timer, shape, block, gen, what)
         enc.append(e)
         dec.append(d_)
-    d = MLP.make_mlp()
-    params = MLP.init_mlp(torch.Generator(device=device).manual_seed(0), d,
-                          device=device)
-    penc, pdec = [], []
-    cores = [(f"{layer}/core_{n}", params[layer][f"core_{n}"].reshape(-1),
-              params[layer]["wscale_log2"][n].float())
-             for layer, spec in (("l1", d.spec1), ("l2", d.spec2))
-             for n in range(spec.d)]
-    cores.sort(key=lambda c: -c[1].numel())
+    e, d_ = _packed_group_rows(torch, timer, device)
+    penc, pdec = [e], [d_]
+    cores = [(what, x.reshape(-1), s.reshape(()))
+             for what, x, s in _export_cores(torch, device)]
     cases = cores + [
         ("stacked per-row", torch.randn((3, 5, 7), generator=gen,
                                         device=device) * 0.3,
@@ -2438,12 +2524,10 @@ def phase_train_wire(torch, device: str = "cuda",
         back, _ = load_tt_deploy(f"{tmp}/deploy.ckpt", device=device)
     _sync(torch, device)
     export_launches = dict(B.LAUNCHES)
-    n_cores = d.spec1.d + d.spec2.d
     n_wire = sum(1 for g in leaves(grads) if g is not None
                  and g.is_floating_point())
     if device == "cuda":
-        check(export_launches == {"p2_enc_packed": n_cores,
-                                  "p2_dec_packed": n_cores,
+        check(export_launches == {"p2_enc_packed": 1, "p2_dec_packed": 1,
                                   "bw_enc": n_wire},
               f"export launches {export_launches}")
     check(sites == EXPECT_SITES, f"site table {sites}, want {EXPECT_SITES}")
@@ -3181,6 +3265,59 @@ def phase_steps(torch, path: str) -> None:
     Path(path).write_text(json.dumps(out))
 
 
+def phase_deploy(torch, path: str, reps: int = 20) -> None:
+    """The deploy export's packed encode and decode of the six FMNIST cores
+    on the card, core by core and, where the port has the groups, as one
+    group each way (CUDA-event means, ``Timer``); the host wall of
+    ``export_tt_deploy`` and ``load_tt_deploy`` of the seeded MLP over
+    ``reps`` calls each, synchronised, with their launches; written to
+    ``path``. Nothing asserted, so a parent tree's port can be measured
+    beside this one in one call."""
+    import tempfile
+    from repro_torch.ckpt import export_tt_deploy, load_tt_deploy
+    from repro_torch.kernels import build as B
+    from repro_torch.models import mlp_tt as MLP
+    from repro_torch.numerics import cuda_backend as CB
+    timer = Timer(torch)
+    cores = _export_cores(torch, "cuda")
+    xs = [x for _, x, _ in cores]
+    ss = [s for _, _, s in cores]
+    lasts = [x.shape[1] for x in xs]
+    ps = [CB.encode_packed(x, s, 4) for x, s in zip(xs, ss)]
+    out = {"per_core_enc_ms": timer(lambda: [
+               CB.encode_packed(x, s, 4) for x, s in zip(xs, ss)]),
+           "per_core_dec_ms": timer(lambda: [
+               CB.decode_packed(p, s, last)
+               for p, s, last in zip(ps, ss, lasts)])}
+    if hasattr(CB, "encode_packed_many"):
+        out["group_enc_ms"] = timer(lambda: CB.encode_packed_many(xs, ss, 4))
+        out["group_dec_ms"] = timer(lambda: CB.decode_packed_many(
+            ps, ss, lasts))
+    params = MLP.init_mlp(torch.Generator(device="cuda").manual_seed(0),
+                          MLP.make_mlp(), device="cuda")
+    walls = {"export": [], "load": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        f = f"{tmp}/deploy.ckpt"
+        for i in range(reps + 1):               # the first call warms up
+            for what, fn in (("export", lambda: export_tt_deploy(f, params)),
+                             ("load", lambda: load_tt_deploy(f,
+                                                             device="cuda"))):
+                torch.cuda.synchronize()
+                B.reset_launches()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                if i:
+                    walls[what].append((time.perf_counter() - t0) * 1e3)
+                out[f"{what}_launches"] = dict(B.LAUNCHES)
+    for what, ms in walls.items():
+        out[f"{what}_wall_ms"] = ms
+        out[f"{what}_wall_ms_mean"] = sum(ms) / len(ms)
+    log(f"deploy: {json.dumps(out)}")
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(json.dumps(out))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the full report as JSON here")
@@ -3197,6 +3334,10 @@ def main(argv=None) -> int:
                     help="only profile the whole-prompt prefill, the chunk "
                     "step and the fused and gather decode steps and write "
                     "them here (no result line)")
+    ap.add_argument("--deploy", metavar="PATH",
+                    help="only time the deploy export's packed encode and "
+                    "decode, core by core and grouped, and the export's and "
+                    "load's host wall, and write them here (no result line)")
     ap.add_argument("--src", help="the directory holding repro_torch "
                     "(default: src beside this script)")
     args = ap.parse_args(argv)
@@ -3217,11 +3358,13 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"device: {torch.cuda.get_device_name(0)} ({smi}), torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-    if args.tokens or args.steps:
+    if args.tokens or args.steps or args.deploy:
         if args.tokens:
             phase_tokens(torch, args.tokens)
         if args.steps:
             phase_steps(torch, args.steps)
+        if args.deploy:
+            phase_deploy(torch, args.deploy)
         return 0
     t0 = time.perf_counter()
     report = {"device": smi}

@@ -1,6 +1,8 @@
 """Launch plans of the grouped kernels: the pow-2 fake-quant group
-(``csrc/pow2_fq.cu::p2_fq_group``) and the blockwise encode and decode
-groups (``csrc/blockwise.cu::bw_enc_group`` / ``bw_dec_group``). One launch
+(``csrc/pow2_fq.cu::p2_fq_group``), the blockwise encode and decode
+groups (``csrc/blockwise.cu::bw_enc_group`` / ``bw_dec_group``) and the
+packed int4 encode and decode groups (``csrc/pow2_packed.cu::
+p2_enc_packed`` / ``p2_dec_packed``). One launch
 covers a list of tensors, described by a table the C side passes to the
 kernel by value.
 
@@ -18,6 +20,11 @@ them where no kernel can run:
   each with the prefix of its leaves' tile counts (a tile is ``BWD_TILE``
   output elements, one CTA's work at a time, never two leaves) and each
   leaf's offset in the launch's one f32 output buffer (on 16 bytes).
+- ``pk_plan``: the (rows, last) entries chunked into launches of at most
+  ``PK_CAP``, each with the prefix of its entries' tile counts (a tile is
+  ``PK_TILE`` packed bytes, one CTA's work at a time, never two entries),
+  each entry's offset in the encode's one int8 codes buffer (on 16 bytes)
+  and in the decode's one f32 values buffer (on 16 bytes).
 
 The caps keep each table within the 4 KB of a launch's parameters.
 """
@@ -28,7 +35,7 @@ from dataclasses import dataclass
 import torch
 
 from ..numerics.codecs import blockwise_geometry
-from ..numerics.spec import QuantSpec
+from ..numerics.spec import QuantSpec, packed_trailing
 
 FQ_CAP = 64                 # pow2_fq.cu kFqCap
 FQ_TILE = 1024              # pow2_fq.cu kTile: 256 threads x 4 elements
@@ -37,6 +44,8 @@ WARP = 32
 CODE_ALIGN = 16             # bytes: each leaf's codes start on 16 bytes
 BWD_TILE = 1024             # blockwise.cu kDecTile: 256 threads x 4 outputs
 OUT_ALIGN = 4               # f32 elements: each leaf's values on 16 bytes
+PK_CAP = 64                 # pow2_packed.cu kPkCap
+PK_TILE = 2048              # pow2_packed.cu kTile: 256 threads x 8 bytes
 
 
 def chunks(n: int, cap: int) -> list[range]:
@@ -173,4 +182,63 @@ def bwd_plan(leaves: list[tuple[int, int, int, int]],
             ends.append(tiles)
             off += -(-leaf.numel // OUT_ALIGN) * OUT_ALIGN
         out.append(BwdLaunch(idx, tuple(plan), tuple(ends), off))
+    return out
+
+
+def _align(n: int, a: int) -> int:
+    return -(-n // a) * a
+
+
+@dataclass(frozen=True)
+class PkLeaf:
+    rows: int
+    last: int
+    tiles: int                   # ceil(rows * pk / PK_TILE)
+    code_off: int                # bytes into the launch's codes buffer
+    out_off: int                 # elements into its f32 values buffer
+
+    @property
+    def pk(self) -> int:
+        return packed_trailing(self.last)
+
+    @property
+    def nbytes(self) -> int:
+        return self.rows * self.pk
+
+    @property
+    def numel(self) -> int:
+        return self.rows * self.last
+
+
+@dataclass(frozen=True)
+class PkLaunch:
+    index: range                 # the entries of this launch
+    leaves: tuple[PkLeaf, ...]
+    tile_end: tuple[int, ...]    # prefix sum of the entries' tiles
+    codes: int                   # bytes of the int8 codes buffer
+    out: int                     # elements of the f32 values buffer
+
+    @property
+    def tiles(self) -> int:
+        return self.tile_end[-1]
+
+
+def pk_plan(shapes: list[tuple[int, int]],
+            cap: int = PK_CAP) -> list[PkLaunch]:
+    """The packed encode and decode groups' launches over (rows, last)
+    entries, two codes a byte along ``last`` (an empty list gives none)."""
+    out = []
+    for idx in chunks(len(shapes), cap):
+        plan, ends, tiles, code, val = [], [], 0, 0, 0
+        for i in idx:
+            rows, last = shapes[i]
+            leaf = PkLeaf(rows, last,
+                          -(-(rows * packed_trailing(last)) // PK_TILE),
+                          code, val)
+            plan.append(leaf)
+            tiles += leaf.tiles
+            ends.append(tiles)
+            code += _align(leaf.nbytes, CODE_ALIGN)
+            val += _align(leaf.numel, OUT_ALIGN)
+        out.append(PkLaunch(idx, tuple(plan), tuple(ends), code, val))
     return out

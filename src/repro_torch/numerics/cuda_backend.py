@@ -38,15 +38,18 @@ The blockwise codec (``BlockwiseCuda``) views the data as ``(rows, last)``
 and encodes each row's ``blockwise_geometry`` blocks with ``bw_enc``;
 ``bw_dec`` decodes and drops the pad.
 
-Grouped launches: the fake-quant and the blockwise encode and decode
-kernels take a table of tensors (``kernels/grouped.py`` plans it), so a
-list costs one launch. ``fake_quant_scalar_many`` quantizes a layer's TT
-cores, each under its own step; ``bw_encode_many`` (``encode_many`` of the
-codec) encodes the optimizer's moments or the wire's gradient leaves, their
-codes and scales views into one buffer each a launch, and
-``bw_decode_many`` (``decode_many``) decodes them, their values views into
-one f32 buffer a launch. A single tensor (``fake_quant_scalar``,
-``bw_encode``, ``bw_decode``) is a group of one.
+Grouped launches: the fake-quant, the blockwise encode and decode and
+the packed encode and decode kernels take a table of tensors
+(``kernels/grouped.py`` plans it), so a list costs one launch.
+``fake_quant_scalar_many`` quantizes a layer's TT cores, each under its
+own step; ``bw_encode_many`` (``encode_many`` of the codec) encodes the
+optimizer's moments or the wire's gradient leaves, their codes and
+scales views into one buffer each a launch, and ``bw_decode_many``
+(``decode_many``) decodes them, their values views into one f32 buffer a
+launch; ``encode_packed_many`` and ``decode_packed_many`` write and read
+the deploy export's packed cores, their bytes or values views into one
+buffer a launch. A single tensor (``fake_quant_scalar``, ``bw_encode``,
+``bw_decode``, ``encode_packed``, ``decode_packed``) is a group of one.
 """
 from __future__ import annotations
 
@@ -491,13 +494,63 @@ def decode_packed_plain(p2d: torch.Tensor, srow: torch.Tensor,
     return Pow2Reference().decode(qt, torch.float32)
 
 
+def _pk_flat(shapes: list[tuple[int, int]], dev, fill, values: bool
+             ) -> list[torch.Tensor]:
+    """The packed groups' layout filled by ``fill(i)``, the (rows, pk)
+    bytes (``values`` False) or (rows, last) f32 values of entry i: one
+    zeroed buffer a ``grouped.pk_plan`` launch, per-entry views of it."""
+    out = []
+    for launch in G.pk_plan(shapes):
+        buf = torch.zeros(launch.out if values else launch.codes,
+                          dtype=torch.float32 if values else torch.int8,
+                          device=dev)
+        for i, leaf in zip(launch.index, launch.leaves):
+            if values:
+                v = buf[leaf.out_off:leaf.out_off + leaf.numel].view(
+                    leaf.rows, leaf.last)
+            else:
+                v = buf[leaf.code_off:leaf.code_off + leaf.nbytes].view(
+                    leaf.rows, leaf.pk)
+            v.copy_(fill(i))
+            out.append(v)
+    return out
+
+
+def encode_packed_many_plain(x2ds: list[torch.Tensor],
+                             srows: list[torch.Tensor],
+                             bits: int) -> list[torch.Tensor]:
+    """The group encode's plain version: ``encode_packed_plain`` of each
+    (rows, last) tensor, into the group's layout (one int8 buffer a launch,
+    each entry's bytes on 16 bytes, zero pad bytes)."""
+    if not x2ds:
+        return []
+    return _pk_flat([tuple(x.shape) for x in x2ds], x2ds[0].device,
+                    lambda i: encode_packed_plain(x2ds[i], srows[i], bits),
+                    False)
+
+
+def decode_packed_many_plain(p2ds: list[torch.Tensor],
+                             srows: list[torch.Tensor],
+                             lasts: list[int]) -> list[torch.Tensor]:
+    """The group decode's plain version: ``decode_packed_plain`` of each
+    entry, into the group's layout (one f32 buffer a launch, each entry's
+    values on 16 bytes, zero pads)."""
+    if not p2ds:
+        return []
+    return _pk_flat([(p.shape[0], last) for p, last in zip(p2ds, lasts)],
+                    p2ds[0].device,
+                    lambda i: decode_packed_plain(p2ds[i], srows[i],
+                                                  lasts[i]), True)
+
+
 def _packed_lib() -> ctypes.CDLL:
     lib = B.load(PACKED_SOURCE)
     if not getattr(lib, "_repro_typed", False):
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.p2_enc_packed.argtypes = [p, p, ll, p, ll, ll, i, p]
+        p, i = ctypes.c_void_p, ctypes.c_int
+        table = ctypes.POINTER(ctypes.c_longlong)
+        lib.p2_enc_packed.argtypes = [table, i, p, i, p]
         lib.p2_enc_packed.restype = i
-        lib.p2_dec_packed.argtypes = [p, p, ll, p, ll, ll, p]
+        lib.p2_dec_packed.argtypes = [table, i, p, p]
         lib.p2_dec_packed.restype = i
         lib._repro_typed = True
     return lib
@@ -512,51 +565,110 @@ def _check_row_scales(rows: int, srow: torch.Tensor, dev) -> torch.Tensor:
     return srow.to(torch.float32).contiguous()
 
 
+def _pk_group(ins: list[torch.Tensor], srows: list[torch.Tensor],
+              lasts: list[int], bits: int | None) -> list[torch.Tensor]:
+    """Launch the packed encode group (``bits``: f32 (rows, last) ``ins``)
+    or decode group (``bits`` None: int8 (rows, pk) ``ins``) over CUDA
+    entries: one launch per ``grouped.PK_CAP`` of them, each writing one
+    buffer, returned as per-entry views."""
+    enc = bits is not None
+    what = PENC if enc else PDEC
+    dev = ins[0].device
+    lib = _packed_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = []
+    for launch in G.pk_plan([(x.shape[0], last)
+                             for x, last in zip(ins, lasts)]):
+        buf = torch.empty(launch.codes if enc else launch.out,
+                          dtype=torch.int8 if enc else torch.float32,
+                          device=dev)
+        rows = []
+        for i, leaf, end in zip(launch.index, launch.leaves, launch.tile_end):
+            s = srows[i]
+            off = leaf.code_off if enc else leaf.out_off
+            rows += [ins[i].data_ptr(), s.data_ptr(), int(s.shape[0] > 1),
+                     leaf.rows, leaf.last, off, end]
+            out.append(buf[off:off + leaf.nbytes].view(leaf.rows, leaf.pk)
+                       if enc else
+                       buf[off:off + leaf.numel].view(leaf.rows, leaf.last))
+        if not launch.tiles:
+            continue
+        table = (ctypes.c_longlong * len(rows))(*rows)
+        code = (lib.p2_enc_packed(table, len(launch.index), buf.data_ptr(),
+                                  bits, stream) if enc else
+                lib.p2_dec_packed(table, len(launch.index), buf.data_ptr(),
+                                  stream))
+        B.check(lib, code, what)
+        B.note_launch(what)
+    return out
+
+
+def encode_packed_many(x2ds: list[torch.Tensor], srows: list[torch.Tensor],
+                       bits: int) -> list[torch.Tensor]:
+    """int8 bytes (rows, ceil(last/2)) of each (rows, last) tensor of
+    ``x2ds`` (one device), two 4-bit codes a byte, under its own scales
+    ``srows[n]`` (one scale_log2 per row, or one of shape (1,) for all):
+    on the card one launch for up to ``grouped.PK_CAP`` of them, their
+    bytes views into one int8 buffer a launch."""
+    if len(x2ds) != len(srows):
+        raise ValueError(f"{PENC}: {len(x2ds)} tensors and {len(srows)} "
+                         "scales")
+    for x in x2ds:
+        if x.dim() != 2:
+            raise ValueError(f"{PENC}: want (rows, last) data, got "
+                             f"{tuple(x.shape)}")
+    srows = [_check_row_scales(x.shape[0], s, x.device)
+             for x, s in zip(x2ds, srows)]
+    if not x2ds:
+        return []
+    _one_device(x2ds, [], PENC)
+    if not x2ds[0].is_cuda:
+        return encode_packed_many_plain(x2ds, srows, bits)
+    if not 2 <= bits <= 4:
+        raise ValueError(f"{PENC}: a nibble holds 2..4 bits, got {bits}")
+    x2ds = [x.float().contiguous() for x in x2ds]
+    return _pk_group(x2ds, srows, [x.shape[1] for x in x2ds], bits)
+
+
+def decode_packed_many(p2ds: list[torch.Tensor], srows: list[torch.Tensor],
+                       lasts: list[int]) -> list[torch.Tensor]:
+    """f32 (rows, last) values of each entry's (rows, ceil(last/2)) packed
+    bytes ``p2ds[n]`` under ``srows[n]``, ``lasts[n]`` (one device): on the
+    card one launch for up to ``grouped.PK_CAP`` of them, their values
+    views into one f32 buffer a launch."""
+    if not len(p2ds) == len(srows) == len(lasts):
+        raise ValueError(f"{PDEC}: {len(p2ds)} codes, {len(srows)} scales "
+                         f"and {len(lasts)} lengths")
+    for p, last in zip(p2ds, lasts):
+        if p.dim() != 2 or p.shape[1] != packed_trailing(last):
+            raise ValueError(f"{PDEC}: want (rows, {packed_trailing(last)}) "
+                             f"bytes for last={last}, got {tuple(p.shape)}")
+    srows = [_check_row_scales(p.shape[0], s, p.device)
+             for p, s in zip(p2ds, srows)]
+    if not p2ds:
+        return []
+    _one_device(p2ds, [], PDEC)
+    if not p2ds[0].is_cuda:
+        return decode_packed_many_plain(p2ds, srows, lasts)
+    if any(p.dtype != torch.int8 for p in p2ds):
+        raise TypeError(f"{PDEC}: packed codes must be int8, got "
+                        f"{sorted({str(p.dtype) for p in p2ds})}")
+    return _pk_group([p.contiguous() for p in p2ds], srows, lasts, None)
+
+
 def encode_packed(x2d: torch.Tensor, srow: torch.Tensor,
                   bits: int) -> torch.Tensor:
     """int8 bytes (rows, ceil(last/2)) of a (rows, last) tensor, two 4-bit
-    codes a byte, with one scale_log2 per row or one (shape (1,)) for all."""
-    if x2d.dim() != 2:
-        raise ValueError(f"{PENC}: want (rows, last) data, got "
-                         f"{tuple(x2d.shape)}")
-    srow = _check_row_scales(x2d.shape[0], srow, x2d.device)
-    if not x2d.is_cuda:
-        return encode_packed_plain(x2d, srow, bits)
-    if not 2 <= bits <= 4:
-        raise ValueError(f"{PENC}: a nibble holds 2..4 bits, got {bits}")
-    x2d = x2d.float().contiguous()
-    rows, last = x2d.shape
-    out = torch.empty((rows, packed_trailing(last)), dtype=torch.int8,
-                      device=x2d.device)
-    lib = _packed_lib()
-    B.check(lib, lib.p2_enc_packed(
-        x2d.data_ptr(), srow.data_ptr(), int(srow.shape[0] > 1),
-        out.data_ptr(), rows, last, bits,
-        torch.cuda.current_stream(x2d.device).cuda_stream), PENC)
-    B.note_launch(PENC)
-    return out
+    codes a byte, with one scale_log2 per row or one (shape (1,)) for all:
+    a group of one."""
+    return encode_packed_many([x2d], [srow], bits)[0]
 
 
 def decode_packed(p2d: torch.Tensor, srow: torch.Tensor,
                   last: int) -> torch.Tensor:
-    """f32 (rows, last) values of (rows, ceil(last/2)) packed bytes."""
-    if p2d.dim() != 2 or p2d.shape[1] != packed_trailing(last):
-        raise ValueError(f"{PDEC}: want (rows, {packed_trailing(last)}) "
-                         f"bytes for last={last}, got {tuple(p2d.shape)}")
-    srow = _check_row_scales(p2d.shape[0], srow, p2d.device)
-    if not p2d.is_cuda:
-        return decode_packed_plain(p2d, srow, last)
-    if p2d.dtype != torch.int8:
-        raise TypeError(f"{PDEC}: packed codes must be int8, got {p2d.dtype}")
-    p2d = p2d.contiguous()
-    rows = p2d.shape[0]
-    y = torch.empty((rows, last), dtype=torch.float32, device=p2d.device)
-    lib = _packed_lib()
-    B.check(lib, lib.p2_dec_packed(
-        p2d.data_ptr(), srow.data_ptr(), int(srow.shape[0] > 1), y.data_ptr(),
-        rows, last, torch.cuda.current_stream(p2d.device).cuda_stream), PDEC)
-    B.note_launch(PDEC)
-    return y
+    """f32 (rows, last) values of (rows, ceil(last/2)) packed bytes: a
+    group of one."""
+    return decode_packed_many([p2d], [srow], [last])[0]
 
 
 # ---- blockwise encode / decode --------------------------------------------

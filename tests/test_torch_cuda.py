@@ -66,7 +66,14 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
     type, an all-zero layer, a max at ``qmax * 2^k`` and its f32
     neighbours, odd and unaligned rows; the BinaryConnect export's grouped round trip
     (``p2_fq_group`` in its round-trip mode) bit for bit with the codec's
-    per-leaf round trip, zeros' sign included, one launch a bit width.
+    per-leaf round trip, zeros' sign included, one launch a bit width;
+(p) the packed int4 encode and decode groups (``p2_enc_packed`` /
+    ``p2_dec_packed``) bit for bit with their twins over two launches, and
+    with the CPU at integer steps: the export's six cores, a stacked tensor with a step per
+    row, odd ``last``, a non-integer step, a scalar and misaligned views
+    in one group, one launch each way; more entries than the cap in two; a
+    group of one; the deploy export and load one launch each, the file
+    byte for byte the CPU export's and the cores the CPU load's.
 """
 import math
 
@@ -1442,3 +1449,146 @@ def test_export_round_trip_group_bit_identical(cuda):
                        one.view(torch.int32))
     assert not torch.signbit(got["l1"]["core_0"][got["l1"]["core_0"] == 0]
                              ).any()
+
+
+# ---------------------------------------------------------------------------
+# (p) the packed int4 groups of the deploy export and load
+# ---------------------------------------------------------------------------
+
+def _pk_entries(cuda, seed):
+    """(rows, last) values and their row steps on the card: the export's six
+    cores at their wscale_log2, a stacked (3, 5, 7) with a step per row,
+    an odd last, a non-integer step, a scalar, and two views that start off
+    16 bytes (an aligned width and an odd one)."""
+    d = MLP.make_mlp()
+    p = MLP.init_mlp(torch.Generator(device=cuda).manual_seed(seed), d,
+                     device=cuda)
+    out = [(p[l][f"core_{n}"].reshape(1, -1),
+            p[l]["wscale_log2"][n].float().reshape(1))
+           for l, spec in (("l1", d.spec1), ("l2", d.spec2))
+           for n in range(spec.d)]
+    g = torch.Generator(device=cuda).manual_seed(seed + 1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    out.append(CB._rowwise_lastdim(randn(3, 5, 7) * .3,
+                                   torch.tensor([-3.0, -2.0, -4.0],
+                                                device=cuda)))
+    out.append((randn(5, 13), torch.tensor([-2.0], device=cuda)))
+    out.append((randn(4, 32), torch.tensor([-2.5], device=cuda)))
+    out.append((torch.tensor([[0.7]], device=cuda),
+                torch.tensor([-2.0], device=cuda)))
+    out.append((randn(4 * 32 + 1)[1:].view(4, 32),
+                torch.tensor([-1.0, -2.0, -3.0, -4.0], device=cuda)))
+    out.append((randn(3 * 17 + 3)[3:].view(3, 17),
+                torch.tensor([-3.0], device=cuda)))
+    return [x for x, _ in out], [s for _, s in out], \
+        [x.shape[1] for x, _ in out]
+
+
+def _misaligned_bytes(p2d):
+    """A copy of ``p2d`` that starts one byte past a 16-byte boundary."""
+    raw = torch.empty(p2d.numel() + 1, dtype=torch.int8, device=p2d.device)
+    v = raw[1:].view(p2d.shape)
+    v.copy_(p2d)
+    return v
+
+
+def test_packed_groups_bit_identical_in_one_launch(cuda):
+    xs, ss, lasts = _pk_entries(cuda, 0)
+    assert xs[-2].data_ptr() % 16 and xs[-1].data_ptr() % 16
+    B.reset_launches()
+    ps = CB.encode_packed_many(xs, ss, 4)
+    torch.cuda.synchronize()
+    assert dict(B.LAUNCHES) == {"p2_enc_packed": 1}
+    # the decode also takes bytes that start off 16 (the scalar path)
+    ins = ps[:-2] + [_misaligned_bytes(p) for p in ps[-2:]]
+    B.reset_launches()
+    ys = CB.decode_packed_many(ins, ss, lasts)
+    torch.cuda.synchronize()
+    assert dict(B.LAUNCHES) == {"p2_dec_packed": 1}
+    assert len({p.untyped_storage().data_ptr() for p in ps}) == 1
+    assert len({y.untyped_storage().data_ptr() for y in ys}) == 1
+    cpu_p = CB.encode_packed_many([x.cpu() for x in xs],
+                                  [s.cpu() for s in ss], 4)
+    again_p = CB.encode_packed_many(xs, ss, 4)
+    again_y = CB.decode_packed_many(ins, ss, lasts)
+    for i, (p, y, tp, ty, cp, ap, ay) in enumerate(zip(
+            ps, ys, CB.encode_packed_many_plain(xs, ss, 4),
+            CB.decode_packed_many_plain(ins, ss, lasts), cpu_p, again_p,
+            again_y)):
+        assert torch.equal(p, tp) and torch.equal(ap, p), i
+        assert torch.equal(y.view(torch.int32), ty.view(torch.int32)), i
+        assert torch.equal(ay.view(torch.int32), y.view(torch.int32)), i
+        # the CPU's too where 2^s is exact (an integer step): exp2f of the
+        # non-integer step is within 2 ulp of the CPU's exp2, not equal
+        if torch.equal(ss[i], ss[i].round()):
+            assert torch.equal(p.cpu(), cp), i
+            want = CB.decode_packed_plain(cp, ss[i].cpu(), lasts[i])
+            assert torch.equal(y.cpu().view(torch.int32),
+                               want.view(torch.int32)), i
+
+
+def test_packed_groups_one_launch_per_cap_and_a_group_of_one(cuda):
+    from repro_torch.kernels import grouped as G
+    g = torch.Generator(device=cuda).manual_seed(9)
+    xs = [torch.randn((2, 16 + 3 * i), generator=g, device=cuda)
+          for i in range(G.PK_CAP + 1)]
+    ss = [torch.tensor([-float(i % 4 + 1)], device=cuda) for i in range(
+        len(xs))]
+    lasts = [x.shape[1] for x in xs]
+    B.reset_launches()
+    ps = CB.encode_packed_many(xs, ss, 4)
+    ys = CB.decode_packed_many(ps, ss, lasts)
+    torch.cuda.synchronize()
+    assert dict(B.LAUNCHES) == {"p2_enc_packed": 2, "p2_dec_packed": 2}
+    for p, y, tp, ty in zip(ps, ys, CB.encode_packed_many_plain(xs, ss, 4),
+                            CB.decode_packed_many_plain(ps, ss, lasts)):
+        assert torch.equal(p, tp)
+        assert torch.equal(y.view(torch.int32), ty.view(torch.int32))
+    B.reset_launches()
+    one = CB.encode_packed(xs[3], ss[3], 4)
+    back = CB.decode_packed(one, ss[3], lasts[3])
+    torch.cuda.synchronize()
+    assert dict(B.LAUNCHES) == {"p2_enc_packed": 1, "p2_dec_packed": 1}
+    assert torch.equal(one, ps[3])
+    assert torch.equal(back.view(torch.int32), ys[3].view(torch.int32))
+    with pytest.raises(TypeError, match="int8"):
+        CB.decode_packed(one.to(torch.int16), ss[3], lasts[3])
+    with pytest.raises(ValueError, match="one device"):
+        CB.encode_packed_many([xs[0], xs[1].cpu()], [ss[0], ss[1].cpu()], 4)
+
+
+def _cpu_copy(tree):
+    """``tree`` on the CPU in its own key order (``tree_map`` sorts dict
+    keys, and the deploy file keeps the tree's order)."""
+    if isinstance(tree, dict):
+        return {k: _cpu_copy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*map(_cpu_copy, tree))
+    return tree.cpu()
+
+
+def test_deploy_export_and_load_one_launch_each(cuda, tmp_path):
+    from repro_torch.ckpt import export_tt_deploy, load_tt_deploy
+    d = MLP.make_mlp()
+    params = MLP.init_mlp(torch.Generator(device=cuda).manual_seed(4), d,
+                          device=cuda)
+    gpu, cpu = str(tmp_path / "g"), str(tmp_path / "c")
+    B.reset_launches()
+    stats = export_tt_deploy(gpu, params)
+    torch.cuda.synchronize()
+    assert dict(B.LAUNCHES) == {"p2_enc_packed": 1}
+    assert stats == export_tt_deploy(cpu, _cpu_copy(params))
+    assert stats["packed_bytes"] == 7160
+    with open(gpu, "rb") as f, open(cpu, "rb") as g:
+        assert f.read() == g.read()
+    B.reset_launches()
+    back, _ = load_tt_deploy(gpu, device=cuda)
+    torch.cuda.synchronize()
+    assert dict(B.LAUNCHES) == {"p2_dec_packed": 1}
+    host, _ = load_tt_deploy(gpu, device="cpu")
+    for layer in ("l1", "l2"):
+        for k, v in host[layer].items():
+            got = back[layer][k]
+            assert got.is_cuda and torch.equal(got.cpu(), v), (layer, k)
