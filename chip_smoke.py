@@ -166,6 +166,35 @@ Phases (any failure raises and the script exits non-zero):
              bw_dec_group_kernel 2, p2_fq_group_kernel 9; asserted).
 8. train wire identity — one wire step from the same state on the card and
              on the CPU, under the CPU parity tests' tolerances.
+   lm kernels — PE1/PE2/PE3 at every distinct shape of the zoo-LM step
+             (with_tt(internlm2-1.8b) at 8 x 256 tokens: PE1 up to
+             (524288, 1, 32), PE2 up to (32768, 256, 16) x (256, 256), PE3
+             up to 2048 x 8192 x 2048), bf16, held to the plain version
+             within 2e-2 and timed beside it, beside one torch.matmul of
+             the same product and beside the bound (bytes at 3.35 TB/s or
+             bf16 operations at 989 TFLOP/s).
+9. train lm — the fifth main path: with_tt(internlm2-1.8b, quantize=True)
+             at full width and depth (24 layers, 144 TT sites at rank 16,
+             bf16, remat full), int8 Adam moments and the int8 gradient
+             wire, 8 steps of ``launch/train.py::train`` on
+             ``lm_batch(step, batch=8, seq=256, seed=0)``, seeded weights
+             on the card; counts zeroed just before and read just after
+             (each 8 x ``steps.launches_per_step``, computed from the
+             config); every loss finite and the last below the first
+             (the cross-entropy is printed: with int8 moments it diverges
+             at the third step, as the reference's numerics do); the
+             scale manager's states moved; every λ the Eq. 4 update of
+             its cores; the parameter counts, the state's bytes and the
+             peak memory printed; then one profiled step (pe1_kernel 432,
+             pe2_kernel 864, pe3_kernel 144, p2_fq_group_kernel 375,
+             bw_enc_group_kernel 22, bw_dec_group_kernel 22 launches;
+             asserted by name); then the same 8 steps with f32 moments,
+             whose cross-entropy must fall.
+10. train lm identity — one step of a small TT LM (2 layers, d_model 32,
+             every projection TT, f32, int8 moments and the wire) from the
+             same state on the card and on the CPU: loss, ce and prior
+             within 1e-5, gnorm within 1e-4, scale exponents equal, params
+             within 2 lr and 99.9% within 2e-5.
 
 Output: human-readable lines, then one JSON line describing every kernel,
 then the card's name and power limit (nvidia-smi), then the last line
@@ -198,6 +227,7 @@ writes them to PATH, asserting nothing.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import re
@@ -3114,6 +3144,315 @@ def phase_chunked_identity(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the zoo-LM training slice: with_tt(internlm2-1.8b) with the low-precision
+# step (TT weight sites, activation and gradient edges, int8 moments, the
+# int8 gradient wire)
+# ---------------------------------------------------------------------------
+
+LM_BATCH, LM_SEQ, LM_STEPS = 8, 256, 8
+
+
+def _lm_config():
+    from repro_torch import configs as C
+    return C.with_tt(C.get_config(ARCH), quantize=True)
+
+
+def _lm_pe_calls():
+    """(kind, Z shape, G shape) of every distinct PE call of the LM step:
+    each TT site's forward and transposed chains at 8 x 256 rows, and each
+    site's Ŵ (PE3: Ybar (rows, out), X (rows, in))."""
+    from repro_torch.core.ttm import pe_shapes
+    from repro_torch.models.lm import _walk_sites, build_lm
+    lm = build_lm(_lm_config())
+    rows = LM_BATCH * LM_SEQ
+    seen = []
+    for _, site in _walk_sites(lm):
+        if not site.use_tt:
+            continue
+        s = site.spec
+        calls = [c for sp in (s, s.transposed()) for c in pe_shapes(sp, rows)]
+        calls.append(("pe3", (rows, s.out_dim), (rows, s.in_dim)))
+        seen += [c for c in calls if c not in seen]
+    return seen
+
+
+def phase_lm_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
+    """PE1/PE2/PE3 at every distinct shape of the LM step, in bf16 (the
+    LM's type): held to the plain version within 2e-2 relative and
+    absolute, timed beside it, beside one ``torch.matmul`` of the same
+    product on the same bf16 tensors (cuBLAS, tensor cores) and beside the
+    bound (bytes at 3.35 TB/s or the bf16 operations at 989 TFLOP/s)."""
+    gen = torch.Generator(device=device).manual_seed(4)
+    rows = {"pe1": [], "pe2": [], "pe3": []}
+    tol = PE_TOL["bfloat16"]
+    for kind, zs, gs in _lm_pe_calls():
+        kern, plain = _pe_fns(kind)
+        z = torch.randn(zs, generator=gen, device=device).to(torch.bfloat16)
+        g = (torch.randn(gs, generator=gen, device=device) * 0.2).to(
+            torch.bfloat16)
+        o, r = kern(z, g), plain(z, g)
+        err = (o.float() - r.float()).abs()
+        check(bool((err <= tol + tol * r.float().abs()).all()),
+              f"lm {kind} {zs}x{gs}: max err {err.max().item()}")
+        lib = _pe_library(torch, kind, z, g)
+        lerr = (lib.float() - r.float()).abs()
+        check(bool((lerr <= tol + tol * r.float().abs()).all()),
+              f"lm {kind} yardstick differs")
+        row = dict(z=list(zs), g=list(gs), dtype="bfloat16",
+                   max_abs_err=err.max().item())
+        del o, r, lib, err, lerr
+        row["ms"] = timer(lambda: kern(z, g), iters=10)
+        row["plain_ms"] = timer(lambda: plain(z, g), iters=5)
+        row["library_ms"] = timer(lambda: _pe_library(torch, kind, z, g),
+                                  iters=10)
+        nbytes, flops = _pe_work(kind, zs, gs, 2)
+        row["flops"] = flops
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops,
+                                                    BF16_OPS_PER_S)
+        row["tflops"] = flops / row["ms"] / 1e9
+        rows[kind].append(row)
+        log(f"lm {kind} {zs} x {gs} bf16: {row['ms']*1e3:.1f} us "
+            f"({row['tflops']:.1f} TFLOP/s; plain {row['plain_ms']*1e3:.1f}"
+            f" us, torch.matmul {row['library_ms']*1e3:.1f} us, bound "
+            f"{row['bound_ms']*1e3:.2f} us {row['bound_by']}); err "
+            f"{row['max_abs_err']:.1e}")
+        del z, g
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _lm_state_checks(torch, lm, state) -> dict:
+    """After a step: the scale manager's states moved off their init, and
+    every λ is the closed-form Eq. 4 update of its cores (bit for bit:
+    the step's last act)."""
+    from repro_torch.models.lm import _site_params, _walk_sites
+    from repro_torch.models.common import site_lambda_update
+    for name in ("activation", "grad_edge"):
+        st = state.scales[name]
+        check(int(st.log2) != 0 or float(st.mean_abs) != 0.2,
+              f"lm: the {name} scale state did not move")
+    n = 0
+    for path, site in _walk_sites(lm):
+        if not site.use_tt:
+            continue
+        for full, p in _site_params(state.params, path):
+            want = site_lambda_update(p, site, lm.cfg)
+            for k in range(site.spec.d - 1):
+                check(torch.equal(p[f"lambda_{k}"], want[f"lambda_{k}"]),
+                      f"lm: {full} lambda_{k} is not Eq. 4 of its cores")
+                n += 1
+    return {name: {"log2": int(state.scales[name].log2),
+                   "mean_abs": float(state.scales[name].mean_abs)}
+            for name in ("activation", "grad_edge")} | {"lambdas": n}
+
+
+def _lm_group_bounds(lm, state, per: dict) -> dict:
+    """Byte bounds (ms at 3.35 TB/s) of one LM step's group launches, each
+    input read once and each output written once: ``bw_enc`` and
+    ``bw_dec`` move the moments (f32 one way, codes and scales the other)
+    and the wire's flattened leaves likewise; ``p2_fake_quant`` reads and
+    writes each TT core per forward (the remat recompute too), each
+    activation edge's (B, S, d_model) stream and every gradient (the grad
+    edge)."""
+    from repro_torch.models.lm import _site_params, _walk_sites
+    from repro_torch.optim.adam import moment_nbytes
+    from repro_torch.optim.grad_compress import wire_nbytes
+    from repro_torch.tree import flatten_with_path
+    m_res, m_f32 = moment_nbytes(state.opt)
+    w_enc, w_f32 = wire_nbytes(state.params)
+    bw = m_res + m_f32 + w_enc + w_f32
+    fwd = 2 if lm.cfg.remat == "full" else 1
+    cores = sum(t.numel() * t.element_size()
+                for path, site in _walk_sites(lm) if site.use_tt
+                for _, p in _site_params(state.params, path)
+                for k, t in p.items() if k.startswith("core_"))
+    edges = 2 + lm.n_periods * (fwd + 1)
+    stream = LM_BATCH * LM_SEQ * lm.cfg.d_model * 2        # bf16
+    grads = sum(t.numel() * t.element_size()
+                for _, t in flatten_with_path(state.params)
+                if t.is_floating_point())
+    fq = 2 * (fwd * cores + edges * stream + grads)
+    out = {}
+    for name, nbytes in (("bw_enc", bw), ("bw_dec", bw),
+                         ("p2_fake_quant", fq)):
+        if name in per:
+            out[name] = {"bytes": nbytes,
+                         "bound_ms": bound_ms(nbytes)[0]}
+    return out
+
+
+def phase_train_lm(torch, device: str = "cuda",
+                   steps: int = LM_STEPS) -> dict:
+    """The zoo-LM training path: ``with_tt(internlm2-1.8b, quantize=True)``
+    at full width and depth (24 layers, 144 TT sites, bf16, remat full),
+    int8 moments and the int8 gradient wire, ``steps`` steps of
+    ``launch/train.py::train`` on ``lm_batch`` (8 x 256 tokens), seeded
+    weights on the card. Counts zeroed just before and read just after:
+    each kernel ``steps`` x ``launches_per_step``. Every loss finite and
+    the last below the first; the scale states moved; every λ the Eq. 4
+    update of its cores. Then one profiled step (host wall, device time,
+    busy share, the kernels by name, exactly). Last, the same steps with
+    f32 moments: their cross-entropy must fall."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import build as B
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import train
+    from repro_torch.models.lm import build_lm, lm_param_counts
+
+    cfg = _lm_config()
+    lm = build_lm(cfg)
+    tcfg = TrainConfig(opt_state_dtype="int8", grad_compress=True,
+                       total_steps=steps, warmup_steps=5, log_every=1)
+    per = S.launches_per_step(lm, tcfg)
+    n_tt = sum(site.use_tt for _, site in S._walk_sites(lm)) * lm.n_periods
+    check(n_tt == 144 and lm.n_periods == 24 and cfg.d_model == 2048
+          and cfg.dtype == "bfloat16" and cfg.remat == "full",
+          f"lm config: {n_tt} TT sites, {lm.n_periods} layers")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ces = []
+    B.reset_launches()
+    t0 = time.perf_counter()
+    state, losses = train(cfg, "tp", tcfg, batch=LM_BATCH, seq=LM_SEQ,
+                          device=device,
+                          on_step=lambda i, m: ces.append(float(m["ce"])))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps
+    launches = dict(B.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * steps for k, v in per.items()}
+    check(launches == want, f"lm launches {launches}, want {want} ({per} "
+          "a step)")
+    check(all(math.isfinite(x) for x in losses + ces),
+          f"lm losses {losses}, ce {ces}")
+    check(losses[-1] < losses[0], f"lm loss did not fall: {losses}")
+    counts = lm_param_counts(state.params, lm)
+    sites = S.train_state_sites(state)
+    checks = _lm_state_checks(torch, lm, state)
+    bounds = _lm_group_bounds(lm, state, per)
+    log(f"train lm: {steps} steps of 8 x 256 tokens, losses "
+        f"{[round(x, 4) for x in losses]}, cross-entropy "
+        f"{[round(x, 4) for x in ces]}, {wall*1e3:.1f} ms a step (host "
+        f"wall incl. init), peak memory {peak / 2**30:.2f} GiB")
+    log(f"train lm: launches per step {per}")
+    log(f"train lm: params dense-equiv {counts['dense']:,} TT "
+        f"{counts['tt']:,} live {counts['live']:,} compression "
+        f"{counts['compression']:.2f}x")
+    log(f"train lm: state bytes " + ", ".join(
+        f"{k} {v['bytes']:,} (fp32 {v['fp32_bytes']:,})"
+        for k, v in sites.items()))
+    log(f"train lm: scales {checks}")
+    log(f"train lm: group launches' byte bounds a step {bounds}")
+
+    step = S.make_train_step(lm, None, tcfg)
+    box = {"state": state}
+    del state
+
+    def one(i):
+        b = lm_batch(steps + i, batch=LM_BATCH, seq=LM_SEQ,
+                     vocab=cfg.vocab_size, seed=tcfg.seed)
+        box["state"], _ = step(box["state"], {
+            k: torch.from_numpy(v).to(device) for k, v in b.items()})
+    prof = _profile_train(torch, one, per, steps=1)
+    del box
+    torch.cuda.empty_cache()
+    # The loss carries the rank prior, which the λ update drives down on
+    # its own, so the cross-entropy says whether the model learns. With
+    # int8 moments it does not here: the blockwise v of an element far
+    # below its block's largest decodes to 0, and where the next gradient
+    # is small (an embedding row whose token is not in the batch: 0) the
+    # update is m / eps (the reference's numerics; its tiny TT LM does
+    # the same at its third step). The same step with f32 moments must
+    # lower the cross-entropy.
+    f32 = dataclasses.replace(tcfg, opt_state_dtype="float32")
+    ces_f32 = []
+    done, _ = train(cfg, "tp", f32, batch=LM_BATCH, seq=LM_SEQ,
+                    device=device, verbose=False,
+                    on_step=lambda i, m: ces_f32.append(float(m["ce"])))
+    del done
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(x) for x in ces_f32) and ces_f32[-1] < ces_f32[0],
+          f"lm cross-entropy with f32 moments did not fall: {ces_f32}")
+    log(f"train lm: the same {steps} steps with f32 moments, cross-entropy "
+        f"{[round(x, 4) for x in ces_f32]}")
+    return {"steps": steps, "losses": losses, "ce": ces, "ce_f32": ces_f32,
+            "step_wall_ms": wall * 1e3,
+            "peak_bytes": peak, "launches": launches,
+            "launches_per_step": per, "param_counts": counts,
+            "state_bytes": sites, "state_checks": checks,
+            "group_bounds": bounds,
+            "tt_sites": n_tt, "profile": prof}
+
+
+def phase_train_lm_identity(torch, device: str = "cuda") -> dict:
+    """One LM step on the card equals the same step on the CPU from the
+    same state: a small TT LM (2 layers, d_model 32, every projection TT,
+    f32, int8 moments and the wire). Loss, ce, prior within 1e-5
+    relative, gnorm within 1e-4 (a wire code may flip: see below); scale
+    exponents equal, their statistics within 1e-5; params within 2 lr
+    (Adam's first step moves an element by at most lr; a gradient value
+    within roundoff of a wire code boundary can take the neighbouring
+    code) and 99.9% of their elements within 2e-5."""
+    from repro_torch.configs.base import (ModelConfig, QuantConfig,
+                                          TrainConfig, TTConfig)
+    from repro_torch.data import lm_batch
+    from repro_torch.launch import steps as S
+    from repro_torch.models.lm import build_lm, init_lm
+    from repro_torch.tree import flatten_with_path
+
+    cfg = ModelConfig(name="t", num_layers=2, d_model=32, num_heads=2,
+                      num_kv_heads=2, d_ff=64, vocab_size=64, remat="full",
+                      dtype="float32",
+                      tt=TTConfig(enable=True, d=3, max_rank=4,
+                                  min_elements=1024),
+                      quant=QuantConfig(enable=True))
+    lm = build_lm(cfg)
+    tcfg = TrainConfig(opt_state_dtype="int8", grad_compress=True,
+                       total_steps=8, warmup_steps=5)
+    p_cpu = init_lm(torch.Generator().manual_seed(0), lm, device="cpu")
+    out = {}
+    b = lm_batch(0, batch=2, seq=16, vocab=64, seed=0)
+    for dev in ("cpu", device):
+        params = _tensor_tree(torch, p_cpu, dev)
+        state = S.init_train_state(params, tcfg, cfg.quant.policy())
+        out[dev] = S.make_train_step(lm, None, tcfg)(
+            state, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+    (sc, mc), (sg, mg) = out["cpu"], out[device]
+    rels = {}
+    for k in ("loss", "ce", "prior", "gnorm"):
+        rels[k] = abs(mg[k].item() - mc[k].item()) / abs(mc[k].item())
+        check(rels[k] <= (1e-4 if k == "gnorm" else 1e-5),
+              f"lm identity: {k} rel diff {rels[k]:.2e}")
+    for name in ("activation", "grad_edge"):
+        check(int(sg.scales[name].log2) == int(sc.scales[name].log2),
+              f"lm identity: {name} exponent differs")
+        r = abs(sg.scales[name].mean_abs.item()
+                - sc.scales[name].mean_abs.item()) \
+            / sc.scales[name].mean_abs.item()
+        check(r <= 1e-5, f"lm identity: {name} statistic rel diff {r:.2e}")
+    close = total = 0
+    move = 0.0
+    for (p, a), (_, c) in zip(flatten_with_path(sg.params),
+                              flatten_with_path(sc.params)):
+        if not a.is_floating_point():
+            check(torch.equal(a.cpu(), c), f"lm identity: {p} differs")
+            continue
+        e = (a.cpu() - c).abs()
+        check(e.max().item() <= 2 * tcfg.learning_rate + 1e-6,
+              f"lm identity: {p} differs by {e.max().item():.3e}")
+        move = max(move, e.max().item())
+        close += int((e <= 2e-5).sum())
+        total += e.numel()
+    check(close >= 0.999 * total, f"lm identity: {close}/{total} close")
+    log(f"train lm identity: card vs CPU {rels}, params within {move:.2e} "
+        f"({close}/{total} within 2e-5); scale exponents equal")
+    return {"rel": rels, "param_max_diff": move, "params_close": close,
+            "params_total": total}
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "p2_prefill_paged": ("src/repro_torch/kernels/csrc/kv_prefill.cu",
@@ -3178,8 +3517,8 @@ def _kernel_row(name, src, replaces, shapes, launches, path) -> dict:
 
 
 def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
-                 wkern: dict, wire: dict, skern: dict, chunked: dict
-                 ) -> dict:
+                 wkern: dict, wire: dict, skern: dict, chunked: dict,
+                 lmkern: dict, lm: dict) -> dict:
     rows = []
     for name, (src, replaces) in KERNELS.items():
         rows.append(_kernel_row(name, src, replaces, kern[name],
@@ -3213,6 +3552,14 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
                                 wire["launches"].get(name, 0),
                                 f"train wire ({wire['steps']} steps, site "
                                 "table and deploy export)"))
+    for row in rows:
+        # the LM step's launches, and PE1-3 at its shapes after the MLP's
+        if row["name"] in lm["launches"]:
+            row["lm_launches"] = lm["launches"][row["name"]]
+            row["path"] += (f"; train lm ({lm['steps']} steps, "
+                            f"{lm['launches_per_step'][row['name']]} a step)")
+        if row["name"] in lmkern:
+            row["shapes"] = row["shapes"] + lmkern[row["name"]]
     for name, (src, replaces) in SCALAR_KERNELS.items():
         if name == "p2_fq_rows":
             launches = skern["api_launches"].get(name, 0)
@@ -3395,11 +3742,15 @@ def main(argv=None) -> int:
     report["train_identity"] = phase_train_identity(torch)
     report["train_wire"] = phase_train_wire(torch)
     report["train_wire_identity"] = phase_train_wire_identity(torch)
+    report["lm_kernels"] = phase_lm_kernels(torch, Timer(torch))
+    report["train_lm"] = phase_train_lm(torch)
+    report["train_lm_identity"] = phase_train_lm_identity(torch)
     report["seconds"] = time.perf_counter() - t0
     line = kernels_line(report["kernels"], report["engine"],
                         report["train_kernels"], report["train"],
                         report["wire_kernels"], report["train_wire"],
-                        report["scalar_kernels"], report["serve_chunked"])
+                        report["scalar_kernels"], report["serve_chunked"],
+                        report["lm_kernels"], report["train_lm"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -9,7 +9,9 @@ takes the paper's TT MLP, whose ``ActQuant``/``ScaleState`` nodes arrive as
 else maps key for key. ``adam_state_from_jax`` and ``residual_from_jax``
 carry the optimizer moments (f32, or blockwise-int8 ``QTensor``s) and the
 gradient wire's error-feedback residual, so both packages can step from
-one state. bf16 arrays (numpy's ``ml_dtypes.bfloat16``) are
+one state; ``lm_train_state_from_jax`` carries a zoo LM's whole
+``TrainState``, re-ordering the moments and the residual from the
+reference's stacked leaves to the port's per-layer ones. bf16 arrays (numpy's ``ml_dtypes.bfloat16``) are
 carried bit for bit.
 
 Nothing here imports JAX: callers convert with ``jax.tree.map(np.asarray,
@@ -109,3 +111,70 @@ def residual_from_jax(residual, device=None) -> tuple:
     the port's, on ``device`` (default ``"cuda"``)."""
     device = resolve_device(device)
     return tuple(_moment(r, device) for r in residual)
+
+
+def _unstack(node, n_layers: int, device: torch.device) -> list:
+    """One stacked moment or residual (None, an array, or a ``QTensor``
+    over (L, ...)) -> its L per-layer slices. A blockwise moment blocks
+    along the last axis only, so a slice of its codes and scales along
+    axis 0 is the per-layer leaf's own encoding."""
+    if node is None:
+        return [None] * n_layers
+    if hasattr(node, "codes") and hasattr(node, "spec"):
+        if len(node.shape) < 2:
+            raise ValueError(f"a stacked moment of shape {node.shape} blocks "
+                             "along the layer axis")
+        spec = QuantSpec.from_json_dict(node.spec.to_json_dict())
+        codes, scale = np.asarray(node.codes), np.asarray(node.scale)
+        return [QTensor(_tensor(codes[i], device), _tensor(scale[i], device),
+                        spec, tuple(node.shape[1:])) for i in range(n_layers)]
+    a = np.asarray(node)
+    return [_tensor(a[i], device) for i in range(n_layers)]
+
+
+def lm_train_state_from_jax(state, device=None):
+    """``repro.launch.steps.TrainState`` of a zoo LM with numpy leaves
+    (``jax.tree.map(np.asarray, state)`` keeps its ``QTensor`` moments and
+    ``ScaleState`` nodes) -> the port's ``launch.steps.TrainState`` on
+    ``device`` (default ``"cuda"``; pass ``"cpu"`` explicitly off the
+    card).
+
+    The reference's moments and residual are tuples in its leaf order over
+    stacked leaves; the port's are in its own order over per-layer leaves
+    (``tree.py``): reference leaf k under ``layers`` becomes its L
+    per-layer slices, placed at the port's positions of that leaf in
+    every layer."""
+    from .launch.steps import TrainState
+    from .tree import flatten_with_path, stacked_groups
+    device = resolve_device(device)
+    params = params_from_jax(state.params, device)
+    paths = [p for p, _ in flatten_with_path(params)]
+    groups = stacked_groups(paths)
+    n_ref = len(flatten_with_path(state.params))
+    if len(groups) != n_ref:
+        raise ValueError(f"{n_ref} reference leaves, {len(groups)} port "
+                         "leaf groups")
+
+    def reorder(seq):
+        if seq is None:
+            return None
+        if len(seq) != n_ref:
+            raise ValueError(f"{len(seq)} entries for {n_ref} leaves")
+        out = [None] * len(paths)
+        for group, node in zip(groups, seq):
+            if paths[group[0]].startswith("layers/"):
+                for i, t in zip(group, _unstack(node, len(group), device)):
+                    out[i] = t
+            else:
+                out[group[0]] = _moment(node, device)
+        return tuple(out)
+
+    opt = AdamState(_tensor(state.opt.step, device), reorder(state.opt.m),
+                    reorder(state.opt.v))
+    scales = None
+    if state.scales is not None:
+        scales = {k: ScaleState(_tensor(v.log2, device),
+                                _tensor(v.mean_abs, device))
+                  for k, v in state.scales.items()}
+    return TrainState(params, opt, _tensor(state.step, device),
+                      reorder(state.residual), scales)

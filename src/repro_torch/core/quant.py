@@ -6,6 +6,9 @@ over ``repro_torch.numerics``; the port of ``repro/core/quant.py``.
 - ``quant_edge``: an (8-bit forward, 16-bit backward) quantization point on
   an activation, with the clipped STE and a ``probe`` whose gradient is the
   scale manager's statistic mean|g|/2^k of the backward gradient.
+- ``quant_edge_shared``: the zoo LM's edge, on the policy's shared
+  managed scales (no probe); ``quant_act``: an activation's fake-quant at
+  its managed scale.
 - ``update_act_quant``: the §3.3 manager step for one such site.
 
 Both quantizations of an edge run the scalar fake-quant kernel
@@ -94,6 +97,25 @@ def quant_edge(x: torch.Tensor, site: ActQuant, act_bits: int,
     statistic ``update_act_quant`` reads. The backward quantizes g only
     when x itself needs a gradient."""
     return _QuantEdge.apply(x, site.act.log2, site.grad.log2, site.probe,
+                            act_bits, grad_bits)
+
+
+def quant_act(x: torch.Tensor, state: ScaleState, bits: int) -> torch.Tensor:
+    """Fake-quant an activation with its managed scale, at step
+    ``step_log2(state, bits)`` = k - (bits - 1), with the clipped STE."""
+    return codecs.fake_quant(x, QuantSpec("pow2", bits),
+                             step_log2(state, bits), backend="cuda")
+
+
+def quant_edge_shared(x: torch.Tensor, act: ScaleState, grad: ScaleState,
+                      act_bits: int, grad_bits: int) -> torch.Tensor:
+    """The zoo-LM form of ``quant_edge``: an (act_bits fwd, grad_bits bwd)
+    point driven by the policy's shared managed scales (one ``ScaleState``
+    owner per site across the whole stack). No probe: the step observes
+    the statistic itself (``launch/steps.py``)."""
+    return _QuantEdge.apply(x, act.log2, grad.log2,
+                            torch.zeros((), dtype=torch.float32,
+                                        device=x.device),
                             act_bits, grad_bits)
 
 

@@ -1,2 +1,2 @@
-"""Synthetic datasets of the training slice (numpy only)."""
-from .synthetic import fashion_like  # noqa: F401
+"""Synthetic datasets of the training slices (numpy only)."""
+from .synthetic import fashion_like, lm_batch  # noqa: F401

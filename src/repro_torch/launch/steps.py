@@ -1,0 +1,375 @@
+"""Train step factories of the zoo LM — the port of
+``repro/launch/steps.py``'s single-program half: ``TrainState``, the loss,
+the step with the policy's quant sites, and the gradient-accumulation step.
+
+A step runs in the reference's order: the loss and its gradients (the
+``activation`` edges live in the forward when the state carries managed
+scales), the §3.3 manager on the observed activation statistic, the int8
+gradient wire with error feedback (``grad_compress``), the ``grad_edge``
+quantizer, global-norm clipping, AdamW (f32 or int8 moments), the Eq. 4 λ
+update. Every value stays on the device: a step reads nothing back to
+the host.
+
+The port's params keep one dict per layer where the reference stacks
+leaves (``tree.py``). Where the reference takes one statistic over a
+stacked leaf, the port takes it over that leaf's per-layer tensors
+together: the grad edge's per-tensor-max step and the wire's flattened
+blockwise round trip (``optim/grad_compress.py``). So the two packages
+quantize every gradient on the same grid.
+
+Not ported here: the data-parallel step and a ``plan`` with a mesh
+(ROADMAP queue 1 item 8), and the quant-health aggregates of
+``policy.health`` (item 6); both raise.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from ..configs.base import TrainConfig
+from ..kernels import grouped as G
+from ..models.lm import (LMDef, _walk_sites, init_lm, lm_forward,
+                         lm_lambda_update, lm_prior_loss)
+from ..numerics import NumericsPolicy, per_tensor_max_scale_log2
+from ..numerics import cuda_backend as CB
+from ..optim.adam import (AdamState, _is_adam_leaf, _is_float, adam_update,
+                          clip_by_global_norm, init_adam)
+from ..optim.schedule import lr_at
+from ..tree import flatten_with_path, stacked_groups, unflatten
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: AdamState
+    step: torch.Tensor
+    residual: Any = None     # grad-compression error feedback (optional)
+    scales: Any = None       # NumericsPolicy managed scale-state tree
+
+
+def _no_mesh(plan) -> None:
+    if plan is not None and getattr(plan, "mesh", None) is not None:
+        raise NotImplementedError(
+            "a plan with a mesh (the data-parallel and sharded steps) is "
+            "not ported: ROADMAP queue 1 item 8")
+
+
+def _no_health(policy: NumericsPolicy) -> None:
+    if policy.health and policy.enable:
+        raise NotImplementedError(
+            "quant-health aggregates (policy.health, _train_health) are not "
+            "ported: ROADMAP queue 1 item 6")
+
+
+def init_train_state(params, tcfg: TrainConfig,
+                     policy: NumericsPolicy | None = None) -> TrainState:
+    """Zero moments, step 0, a zero residual per floating leaf when the
+    wire is on (None for the others), and the policy's scale tree when it
+    is enabled; all on the params' device."""
+    flat = flatten_with_path(params)
+    device = next(leaf.device for _, leaf in flat if _is_float(leaf))
+    residual = None
+    if tcfg.grad_compress:
+        residual = tuple(torch.zeros(leaf.shape, dtype=torch.float32,
+                                     device=leaf.device)
+                         if _is_float(leaf) else None for _, leaf in flat)
+    scales = None
+    if policy is not None and policy.enable:
+        scales = policy.init_scales(device)
+    return TrainState(params, init_adam(params, tcfg),
+                      torch.zeros((), dtype=torch.int32, device=device),
+                      residual, scales)
+
+
+def train_state_sites(state: TrainState) -> dict[str, dict]:
+    """Byte accounting of one TrainState by ``obs.ledger`` site: params,
+    int8 Adam moments, the wire's error-feedback residual, the managed
+    scale state; each beside what the same tensors would cost in f32."""
+    from ..optim.adam import moment_nbytes
+    from ..optim.grad_compress import residual_nbytes
+    p_res = p_fp32 = 0
+    for _, leaf in flatten_with_path(state.params):
+        p_res += leaf.numel() * leaf.element_size()
+        p_fp32 += 4 * leaf.numel()
+    m_res, m_fp32 = moment_nbytes(state.opt)
+    out = {
+        "params": {"bytes": p_res, "fp32_bytes": p_fp32},
+        "optimizer_moment": {"bytes": m_res, "fp32_bytes": m_fp32},
+    }
+    r = residual_nbytes(state.residual)
+    if r:
+        out["grad_residual"] = {"bytes": r, "fp32_bytes": r}
+    if state.scales is not None:
+        s = sum(t.numel() * t.element_size()
+                for _, t in flatten_with_path(state.scales))
+        out["scale_state"] = {"bytes": s, "fp32_bytes": s}
+    return out
+
+
+def _quantize_grad_edge(grads, scales, policy: NumericsPolicy):
+    """The ``grad_edge`` site at the step level: round every floating
+    gradient onto the grad_bits pow-2 grid under a per-tensor-max step
+    (clip-free), one step per reference leaf: the max runs over the
+    leaf's per-layer tensors together. On the card one group fake-quant
+    launch per dtype and ``grouped.FQ_CAP`` tensors, the steps read on the
+    device. The managed ``grad_edge`` ScaleState advances on the mean
+    |g| over every floating leaf."""
+    if scales is None or "grad_edge" not in scales:
+        return grads, scales
+    spec = policy.spec_for("grad_edge")
+    flat = flatten_with_path(grads)
+    live = [i for i, (_, g) in enumerate(flat) if _is_float(g)]
+    steps: dict[int, torch.Tensor] = {}
+    for group in stacked_groups([flat[i][0] for i in live]):
+        members = [flat[live[k]][1] for k in group]
+        amax = torch.stack([g.detach().abs().amax().float()
+                            for g in members]).amax()
+        step = per_tensor_max_scale_log2(amax, spec)
+        for k in group:
+            steps[live[k]] = step
+    out = [g for _, g in flat]
+    by_dtype: dict[torch.dtype, list[int]] = {}
+    for i in live:
+        by_dtype.setdefault(flat[i][1].dtype, []).append(i)
+    for idx in by_dtype.values():
+        qs = CB.fake_quant_scalar_many([flat[i][1].detach() for i in idx],
+                                       torch.stack([steps[i] for i in idx]),
+                                       spec.bits)
+        for i, q in zip(idx, qs):
+            out[i] = q
+    tot = torch.stack([torch.sum(flat[i][1].abs(), dtype=torch.float32)
+                       for i in live]).sum()
+    cnt = sum(flat[i][1].numel() for i in live)
+    gm = (tot / max(cnt, 1))[None]
+    return unflatten(grads, out), policy.update_scales(scales,
+                                                       {"grad_edge": gm})
+
+
+def _ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over positions with label >= 0, in f32."""
+    logits = logits.float()
+    labels = labels.long()
+    mask = (labels >= 0).float()
+    lab = torch.clamp(labels, min=0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+    ce = (logz - gold) * mask
+    return torch.sum(ce) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def make_loss_fn(lm: LMDef, plan, tcfg: TrainConfig):
+    """``loss_fn(params, batch, scales=None) -> (loss, (metrics, obs))``:
+    CE mean plus the rank prior scaled per token (Eq. 1); with a managed
+    scale tree the forward runs the ``activation`` edges and ``obs``
+    carries their statistic. ``batch``: ``{"tokens", "labels"}`` (B, S)
+    integer tensors on the params' device."""
+    _no_mesh(plan)
+    cfg = lm.cfg
+
+    def loss_fn(params, batch, scales=None):
+        if scales is not None:
+            logits, aux, _, obs = lm_forward(params, lm, tokens=batch["tokens"],
+                                             scales=scales)
+        else:
+            logits, aux, _ = lm_forward(params, lm, tokens=batch["tokens"])
+            obs = {}
+        labels = batch["labels"]
+        ce = _ce_loss(logits, labels)
+        loss = ce + cfg.moe.router_aux_coef * aux
+        prior = torch.zeros((), dtype=torch.float32, device=ce.device)
+        if cfg.tt.enable and cfg.tt.rank_adapt:
+            # Eq. (1): CE mean + prior, the prior scaled per token so its
+            # gradient pressure does not depend on the batch size
+            denom = float(labels.shape[0] * labels.shape[1]) \
+                * tcfg.total_steps
+            prior = lm_prior_loss(params, lm) / denom
+        metrics = {"ce": ce.detach(), "aux": aux, "prior": prior.detach()}
+        return loss + prior, (metrics, obs)
+
+    return loss_fn
+
+
+def _value_and_grad(loss_fn, params, batch, scales):
+    """JAX's ``value_and_grad(..., allow_int=True)`` on the port's tree:
+    (loss, aux, grads), a gradient for every floating leaf (zeros where the
+    loss does not reach it, as λ behind its stop-gradients) and None for
+    the integer leaves."""
+    flat = flatten_with_path(params)
+    live = [leaf.detach().requires_grad_() if _is_float(leaf) else leaf
+            for _, leaf in flat]
+    loss, aux = loss_fn(unflatten(params, live), batch, scales)
+    wanted = [t for t in live if _is_float(t)]
+    got = iter(torch.autograd.grad(loss, wanted, allow_unused=True))
+    grads = []
+    for t in live:
+        if not _is_float(t):
+            grads.append(None)
+            continue
+        g = next(got)
+        grads.append(torch.zeros_like(t) if g is None else g)
+    return loss.detach(), aux, unflatten(params, grads)
+
+
+def _finish_step(state: TrainState, lm: LMDef, tcfg: TrainConfig,
+                 policy: NumericsPolicy, grads, scales):
+    """Everything after the gradients: the wire, the grad edge, clipping,
+    AdamW and the λ update. Returns (params, opt, residual, scales, gnorm,
+    lr)."""
+    residual = state.residual
+    if tcfg.grad_compress:
+        from ..optim.grad_compress import compress_decompress
+        grads, residual = compress_decompress(grads, residual,
+                                              policy.spec_for("dp_wire"))
+    grads, scales = _quantize_grad_edge(grads, scales, policy)
+    if tcfg.grad_clip > 0:
+        grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+    else:
+        gnorm = torch.zeros((), dtype=torch.float32, device=state.step.device)
+    lr = lr_at(state.step, tcfg)
+    params, opt = adam_update(state.params, grads, state.opt, lr, tcfg)
+    # closed-form Eq. (4) rank-hyperparameter update (no-op if TT is off)
+    params = lm_lambda_update(params, lm)
+    return params, opt, residual, scales, gnorm, lr
+
+
+def make_train_step(lm: LMDef, plan, tcfg: TrainConfig):
+    """``step(state, batch) -> (state, metrics)``; ``plan`` must be None
+    (or carry no mesh). Metrics: ce, aux, prior, loss, gnorm, lr, device
+    scalars."""
+    _no_mesh(plan)
+    loss_fn = make_loss_fn(lm, plan, tcfg)
+    policy = lm.cfg.quant.policy()
+    _no_health(policy)
+
+    def train_step(state: TrainState, batch):
+        loss, (metrics, obs), grads = _value_and_grad(
+            loss_fn, state.params, batch, state.scales)
+        scales = state.scales
+        if scales is not None and obs:
+            # §3.3 activation scale manager: advance on the forward's
+            # observed mean |activation| (lm_forward's edges)
+            scales = policy.update_scales(scales, obs)
+        params, opt, residual, scales, gnorm, lr = _finish_step(
+            state, lm, tcfg, policy, grads, scales)
+        metrics = dict(metrics, loss=loss, gnorm=gnorm, lr=lr)
+        return TrainState(params, opt, state.step + 1, residual,
+                          scales), metrics
+
+    return train_step
+
+
+def make_grad_accum_train_step(lm: LMDef, plan, tcfg: TrainConfig,
+                               n_micro: int):
+    """Gradient accumulation: every batch leaf leads with ``n_micro``.
+    Identical to ``make_train_step`` after the gradient average: the wire,
+    the grad edge and clipping apply to the mean gradient, and the
+    activation statistic is the micro-batches' mean."""
+    _no_mesh(plan)
+    loss_fn = make_loss_fn(lm, plan, tcfg)
+    policy = lm.cfg.quant.policy()
+    _no_health(policy)
+
+    def train_step(state: TrainState, batch):
+        gsum = lsum = osum = None
+        for k in range(n_micro):
+            mb = {name: v[k] for name, v in batch.items()}
+            loss, (_, obs), g = _value_and_grad(loss_fn, state.params, mb,
+                                                state.scales)
+            flat = flatten_with_path(g)
+            g32 = [x.float() if _is_float(x) else None for _, x in flat]
+            gsum = g32 if gsum is None else [
+                a if b is None else a + b for a, b in zip(gsum, g32)]
+            lsum = loss if lsum is None else lsum + loss
+            if "activation" in obs:
+                osum = obs["activation"] if osum is None \
+                    else osum + obs["activation"]
+        grads = unflatten(state.params, [None if g is None else g / n_micro
+                                         for g in gsum])
+        scales = state.scales
+        if scales is not None and "activation" in scales \
+                and lm.cfg.quant.enable and osum is not None:
+            scales = policy.update_scales(
+                scales, {"activation": osum / n_micro})
+        params, opt, residual, scales, gnorm, lr = _finish_step(
+            state, lm, tcfg, policy, grads, scales)
+        metrics = {"loss": lsum / n_micro, "gnorm": gnorm, "lr": lr}
+        return TrainState(params, opt, state.step + 1, residual,
+                          scales), metrics
+
+    return train_step
+
+
+def launches_per_step(lm: LMDef, tcfg: TrainConfig,
+                      params=None) -> dict[str, int]:
+    """Kernel launches of one ``make_train_step(lm, None, tcfg)`` step on
+    the card, from the config (``params`` gives the leaf dtypes; without it
+    they follow the config: cores and dense weights in ``cfg.dtype``,
+    norm scales and λ in f32):
+
+    - ``pe1`` / ``pe2`` / ``pe3``: per TT site and layer, one forward chain
+      (one PE1, d-1 PE2), again in the backward when ``remat="full"``
+      recomputes the layer, the transposed dx chain, and one PE3.
+    - ``p2_fake_quant``: per TT site and layer one group launch of its
+      cores per forward (two with remat); with the ``activation`` site,
+      the embedding's edge forward and backward and each layer's edge
+      forward, its recompute and its backward; the grad edge, one group
+      launch per dtype of the floating gradients and ``FQ_CAP`` of them.
+    - ``bw_dec`` / ``bw_enc`` (int8 moments): m and v of every Adam leaf in
+      groups of ``BW_CAP``; (the wire) one entry per reference leaf, the
+      per-layer tensors of a stacked leaf flattened together."""
+    cfg = lm.cfg
+    if cfg.remat not in ("none", "full"):
+        raise ValueError(f"remat {cfg.remat!r} is not ported")
+    fwd = 2 if cfg.remat == "full" else 1
+    layers = lm.n_periods
+    out = {"pe1": 0, "pe2": 0, "pe3": 0, "p2_fake_quant": 0, "bw_dec": 0,
+           "bw_enc": 0}
+    for path, site in _walk_sites(lm):
+        if not site.use_tt:
+            continue
+        if path[0] != "layers":
+            raise ValueError("counted for TT sites inside the layers only")
+        d = site.spec.d
+        out["pe1"] += layers * (fwd + 1)
+        out["pe2"] += layers * (fwd + 1) * (d - 1)
+        out["pe3"] += layers
+        if cfg.quant.enable:
+            out["p2_fake_quant"] += layers * fwd
+    if params is None:
+        params = init_lm(None, lm, device="meta")
+    floats = [(p, leaf.dtype) for p, leaf in flatten_with_path(params)
+              if leaf.is_floating_point()]
+    if cfg.quant.policy().enable:
+        out["p2_fake_quant"] += 2 + layers * (fwd + 1)
+        for dt in {dt for _, dt in floats}:
+            n = sum(1 for _, d in floats if d == dt)
+            out["p2_fake_quant"] += len(G.chunks(n, G.FQ_CAP))
+    if tcfg.opt_state_dtype == "int8":
+        moments = 2 * sum(1 for p, _ in floats
+                          if _is_adam_leaf(p, torch.zeros(())))
+        out["bw_dec"] += len(G.chunks(moments, G.BW_CAP))
+        out["bw_enc"] += len(G.chunks(moments, G.BW_CAP))
+    if tcfg.grad_compress:
+        wire = len(stacked_groups([p for p, _ in floats]))
+        out["bw_dec"] += len(G.chunks(wire, G.BW_CAP))
+        out["bw_enc"] += len(G.chunks(wire, G.BW_CAP))
+    return {k: v for k, v in out.items() if v}
+
+
+def step_flops(lm: LMDef, batch: int, seq: int) -> float:
+    """FLOPs of the TT chains of one step (forward, remat recompute, dx
+    chain; ``ttm_flops_matvec``) plus PE3's Ŵ, as the launches count them."""
+    from ..core.ttm import ttm_flops_matvec
+    cfg = lm.cfg
+    fwd = 2 if cfg.remat == "full" else 1
+    rows = batch * seq
+    total = 0.0
+    for path, site in _walk_sites(lm):
+        if not site.use_tt:
+            continue
+        s = site.spec
+        mult = lm.n_periods if path[0] == "layers" else 1
+        total += mult * (fwd * ttm_flops_matvec(s, rows)
+                         + ttm_flops_matvec(s.transposed(), rows)
+                         + 2.0 * rows * s.out_dim * s.in_dim)
+    return total

@@ -9,6 +9,12 @@ and loops; ``convert.params_from_jax`` unstacks a JAX tree into it.
 Parameters are plain nested dicts of tensors with the reference's names,
 so the two packages' trees correspond key for key. MoE, MLA and the
 recurrent families are later slices and raise at ``build_lm``.
+
+Every weight site may be TT-factorized (``with_tt``): TT sites add the
+rank-shrinkage prior (``lm_prior_loss``) and take the closed-form λ update
+(``lm_lambda_update``); with a managed scale tree ``lm_forward`` runs the
+policy's ``activation`` quant edges. ``remat="full"`` recomputes each
+layer's forward in the backward (``torch.utils.checkpoint``).
 """
 from __future__ import annotations
 
@@ -17,13 +23,16 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..core.quant import quant_edge_shared
+from ..core.tt_layer import effective_cores
 from ..device import resolve_device
 from . import attention as A
 from . import ffn as F
-from .common import SiteDef, apply_site, init_site, make_site, rms_norm, \
-    torch_dtype
+from .common import (SiteDef, apply_site, init_site, make_site, rms_norm,
+                     site_lambda_update, site_prior_loss, torch_dtype)
 
 
 @dataclass(frozen=True)
@@ -82,12 +91,14 @@ def init_lm(gen: torch.Generator, lm: LMDef, device=None) -> dict:
     device = resolve_device(device)
     cfg = lm.cfg
     if lm.embed.use_tt:
-        raise NotImplementedError("TT embeddings are a later slice")
-    sigma = 1.0 / math.sqrt(cfg.d_model)
-    embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+        embed = init_site(gen, lm.embed, cfg, device)
+    else:
+        sigma = 1.0 / math.sqrt(cfg.d_model)
+        w = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                         device=device, dtype=torch.float32) * sigma
+        embed = {"w": w.to(torch_dtype(cfg.dtype))}
     return {
-        "embed": {"w": embed.to(torch_dtype(cfg.dtype))},
+        "embed": embed,
         "layers": [{f"sub_{i}": _init_sub(gen, sub, cfg, device)
                     for i, sub in enumerate(lm.period)}
                    for _ in range(lm.n_periods)],
@@ -97,7 +108,34 @@ def init_lm(gen: torch.Generator, lm: LMDef, device=None) -> dict:
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor, lm: LMDef) -> torch.Tensor:
+    if lm.embed.use_tt:
+        return tt_embed_lookup(params["embed"], tokens, lm.embed, lm.cfg)
     return params["embed"]["w"][tokens.long()].to(torch_dtype(lm.cfg.dtype))
+
+
+def tt_embed_lookup(eparams: dict, tokens: torch.Tensor, site: SiteDef,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Row lookup in a TT-represented (V, D) table: V is factored over the
+    cores' J dims, each token id split into mixed-radix digits (most
+    significant first), and the row is the product of the selected core
+    slices, contracted in f32 in the reference's order."""
+    spec = site.spec
+    cores = effective_cores(eparams, spec, cfg.tt, cfg.quant)
+    ids = tokens.reshape(-1).long()
+    digits, rem = [], ids
+    for n in range(spec.d - 1, -1, -1):
+        digits.append(rem % spec.j_dims[n])
+        rem = rem // spec.j_dims[n]
+    digits = digits[::-1]
+    t = ids.shape[0]
+    m = torch.ones((t, 1, 1), dtype=torch.float32, device=ids.device)
+    for n in range(spec.d):
+        g = cores[n].float()                              # (R, J, I, R')
+        gsel = g[:, digits[n]].movedim(1, 0)              # (T, R, I, R')
+        m = torch.einsum("tpr,trik->tpik", m, gsel).reshape(t, -1,
+                                                            g.shape[3])
+    return m[..., 0].reshape(tuple(tokens.shape) + (spec.in_dim,)).to(
+        torch_dtype(cfg.dtype))
 
 
 def _sub_forward(pp: dict, x: torch.Tensor, sub: SubDef, cfg: ModelConfig,
@@ -115,24 +153,81 @@ def _sub_forward(pp: dict, x: torch.Tensor, sub: SubDef, cfg: ModelConfig,
                                              if return_cache else {})
 
 
+def _act_quant_edge(x: torch.Tensor, scales: dict,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """The policy-owned ``activation`` site of the zoo LMs: fake-quant the
+    residual stream forward at ``act_bits`` and its gradient backward at
+    ``grad_bits`` (clipped STE), with the shared managed scales of the
+    ``TrainState.scales`` tree."""
+    return quant_edge_shared(x, scales["activation"], scales["grad_edge"],
+                             cfg.quant.act_bits, cfg.quant.grad_bits)
+
+
+def _remat_wrap(fn, cfg: ModelConfig):
+    """``"full"``: the layer's forward runs again in the backward and only
+    its inputs are kept (``torch.utils.checkpoint``, non-reentrant), as
+    ``jax.checkpoint`` with ``nothing_saveable``; only while autograd
+    records. ``"dots"`` (keep the products, recompute the rest) raises:
+    the TT sites' products are kernel launches outside the dispatcher, so
+    a selective checkpoint cannot keep them (ROADMAP queue 1)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            'remat="dots" is not ported: the TT products are kernel '
+            "launches a selective checkpoint cannot save (ROADMAP queue 1)")
+    if cfg.remat != "full":
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+    return wrapped
+
+
 def lm_forward(params: dict, lm: LMDef, *, tokens: torch.Tensor,
-               return_cache: bool = False):
-    """Prefill forward. tokens: (B, S) int. Returns (logits, aux, cache):
-    aux is 0 (no MoE in this slice); cache (when asked) is
+               return_cache: bool = False, scales: dict | None = None):
+    """Train/prefill forward. tokens: (B, S) int. Returns (logits, aux,
+    cache): aux is 0 (no MoE in this slice); cache (when asked) is
     ``{"sub_i": {"k", "v"}}`` with leaves stacked over layers,
-    (L, B, S, Hkv, Dh), the reference's layout."""
+    (L, B, S, Hkv, Dh), the reference's layout.
+
+    ``scales``: the policy's managed scale-state tree
+    (``TrainState.scales``). With it (and ``cfg.quant.enable``) the
+    ``activation`` site goes live: the residual stream is fake-quantized
+    after the embedding and after every sublayer with the shared managed
+    scales, and the return gains a 4th element ``obs``, the per-layer
+    mean |activation| the scale manager consumes:
+    (logits, aux, cache, obs)."""
     cfg = lm.cfg
+    # the edge quantizes forward AND backward: both managed sites needed
+    quant_acts = (scales is not None and cfg.quant.enable
+                  and "activation" in scales and "grad_edge" in scales)
     x = embed_tokens(params, tokens, lm)
     b, s, _ = x.shape
+    if quant_acts:
+        x = _act_quant_edge(x, scales, cfg)
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    caches: list[dict] = []
-    for pp in params["layers"]:
+
+    def layer(pp, x):
         layer_cache = {}
         for i, sub in enumerate(lm.period):
             x, c = _sub_forward(pp[f"sub_{i}"], x, sub, cfg, positions,
                                 return_cache)
+            if quant_acts:
+                x = _act_quant_edge(x, scales, cfg)
             layer_cache[f"sub_{i}"] = c
+        return x, layer_cache
+
+    layer = _remat_wrap(layer, cfg)
+    caches: list[dict] = []
+    amean = torch.zeros((), dtype=torch.float32, device=x.device)
+    for pp in params["layers"]:
+        x, layer_cache = layer(pp, x)
         caches.append(layer_cache)
+        if quant_acts:
+            amean = amean + torch.mean(torch.abs(x.detach().float()))
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     logits = apply_site(params["head"], x, lm.head, cfg)
     if cfg.logits_softcap > 0:
@@ -142,7 +237,11 @@ def lm_forward(params: dict, lm: LMDef, *, tokens: torch.Tensor,
         cache = {key: {name: torch.stack([c[key][name] for c in caches])
                        for name in caches[0][key]}
                  for key in caches[0]}
-    return logits, torch.zeros((), device=x.device), cache
+    aux = torch.zeros((), device=x.device)
+    if scales is None:
+        return logits, aux, cache
+    obs = {"activation": (amean / lm.n_periods)[None]} if quant_acts else {}
+    return logits, aux, cache, obs
 
 
 def sub_ffn_decode(pp: dict, x: torch.Tensor, sub: SubDef,
@@ -152,3 +251,99 @@ def sub_ffn_decode(pp: dict, x: torch.Tensor, sub: SubDef,
         return x
     h = rms_norm(x, pp["norm2"]["scale"], cfg.norm_eps)
     return x + F.ffn_forward(pp["ffn"], h, sub.ffn, cfg)
+
+
+# ---------------------------------------------------------------------------
+# TT-site walking (prior loss, λ update, param counting)
+# ---------------------------------------------------------------------------
+
+def _walk_sites(lm: LMDef):
+    """Yield (path in the reference's stacked tree, SiteDef) for every
+    weight site; a ``layers`` path names the site in every layer."""
+    yield ("embed",), lm.embed
+    for i, sub in enumerate(lm.period):
+        base = ("layers", f"sub_{i}")
+        for n in ("q", "kv", "o"):
+            yield base + ("mixer", n), getattr(sub.mixer, n)
+        for n in ("gate", "up", "down"):
+            yield base + ("ffn", n), getattr(sub.ffn, n)
+    yield ("head",), lm.head
+
+
+def _get_path(params, path):
+    node = params
+    for p in path:
+        node = node[p]
+    return node
+
+
+def _site_params(params: dict, path: tuple) -> list[tuple[tuple, dict]]:
+    """(port path, site params) of a ``_walk_sites`` path: one per layer for
+    a ``layers`` path, in layer order; else the one."""
+    if path[0] != "layers":
+        return [(path, _get_path(params, path))]
+    return [(("layers", l) + path[1:], _get_path(pp, path[1:]))
+            for l, pp in enumerate(params["layers"])]
+
+
+def lm_prior_loss(params: dict, lm: LMDef) -> torch.Tensor:
+    """Sum of every TT site's prior over every layer."""
+    dev = params["final_norm"]["scale"].device
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for path, site in _walk_sites(lm):
+        if site.use_tt:
+            for _, p in _site_params(params, path):
+                total = total + site_prior_loss(p, site, lm.cfg)
+    return total
+
+
+def lm_lambda_update(params: dict, lm: LMDef) -> dict:
+    """Every TT site's λ updated in closed form (Eq. 4), layer by layer;
+    a new tree (dicts and the layer list copied), the old one untouched."""
+    if not lm.cfg.tt.enable or not lm.cfg.tt.rank_adapt:
+        return params
+
+    def copy(node):
+        if isinstance(node, dict):
+            return {k: copy(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [copy(v) for v in node]
+        return node
+    new = copy(params)
+    for path, site in _walk_sites(lm):
+        if site.use_tt:
+            for full, p in _site_params(new, path):
+                _get_path(new, full[:-1])[full[-1]] = site_lambda_update(
+                    p, site, lm.cfg)
+    return new
+
+
+def lm_param_counts(params: dict, lm: LMDef) -> dict:
+    """Dense-equivalent vs TT vs live (after rank pruning) parameter
+    counts, as the reference counts them. Reads λ on the host."""
+    dense = actual = live = 0
+    th = lm.cfg.tt.prune_threshold
+    for path, site in _walk_sites(lm):
+        mult = lm.n_periods if path[0] == "layers" else 1
+        if not site.use_tt:
+            n = site.out_dim * site.in_dim * mult
+            dense += n
+            actual += n
+            live += n
+            continue
+        spec = site.spec
+        dense += site.out_dim * site.in_dim * mult
+        actual += spec.num_params * mult
+        for _, p in _site_params(params, path):
+            lambdas = [p[f"lambda_{n}"] for n in range(spec.d - 1)
+                       if f"lambda_{n}" in p]
+            if not lambdas:
+                live += spec.num_params
+                continue
+            eff = [int(torch.sum(lam > th * torch.max(lam)))
+                   for lam in lambdas]
+            ranks = [1] + eff + [1]
+            live += sum(ranks[n] * spec.j_dims[n] * spec.i_dims[n]
+                        * ranks[n + 1] for n in range(spec.d))
+    return {"dense": dense, "tt": actual, "live": live,
+            "compression": dense / max(live, 1)}

@@ -130,6 +130,21 @@ class NumericsPolicy:
     def managed_sites(self) -> tuple[str, ...]:
         return tuple(n for n, s in self.sites if s.scale_policy == "managed")
 
+    def init_scales(self, device=None) -> dict[str, ScaleState]:
+        """One ScaleState per managed site: the scale-state tree threaded
+        through ``TrainState.scales``."""
+        return {n: init_scale(0, device) for n in self.managed_sites()}
+
+    def update_scales(self, scales: dict, observed: dict) -> dict:
+        """Scale-manager step for every observed site. ``observed`` maps
+        site name -> tensor whose magnitude statistic to track."""
+        out = dict(scales)
+        for name, x in observed.items():
+            if name in out:
+                out[name] = update_scale(out[name], x, lo=self.target_lo,
+                                         hi=self.target_hi, ema=self.ema)
+        return out
+
     def to_json_dict(self) -> dict:
         return {
             "enable": self.enable,

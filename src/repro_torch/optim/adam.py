@@ -157,3 +157,23 @@ def moment_nbytes(state: AdamState) -> tuple[int, int]:
             resident += mm.numel() * mm.element_size()
             fp32 += 4 * mm.numel()
     return resident, fp32
+
+
+def _is_float(g) -> bool:
+    return isinstance(g, torch.Tensor) and g.is_floating_point()
+
+
+def global_norm(grads) -> torch.Tensor:
+    """sqrt(sum of every floating leaf's squared f32 values + 1e-20)."""
+    sq = [torch.sum(torch.square(g.float())) for g in leaves(grads)
+          if _is_float(g)]
+    return torch.sqrt(torch.stack(sq).sum() + 1e-20)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled by min(1, max_norm / norm), norm): every floating leaf
+    times one f32 factor, back in its dtype; other leaves as they are."""
+    gn = global_norm(grads)
+    scale = torch.clamp(max_norm / gn, max=1.0)
+    return unflatten(grads, [(g * scale).to(g.dtype) if _is_float(g) else g
+                             for g in leaves(grads)]), gn

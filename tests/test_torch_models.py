@@ -153,8 +153,12 @@ def test_out_of_slice_families_raise():
                  "moonshot-v1-16b"):
         with pytest.raises(NotImplementedError):
             t_build(TC.get_reduced(arch))
+    # TT sites are ported (every projection TT here); remat="dots" is not
     cfg = TC.with_tt(TC.get_reduced(ARCH).replace(dtype="float32"))
     lm = t_build(cfg.replace(tt=cfg.tt.__class__(enable=True,
                                                  min_elements=1)))
+    params = t_init(torch.Generator(), lm, device="cpu")
+    assert "core_2" in params["layers"][0]["sub_0"]["ffn"]["down"]
     with pytest.raises(NotImplementedError):
-        t_init(torch.Generator(), lm, device="cpu")
+        t_forward(params, t_build(lm.cfg.replace(remat="dots")),
+                  tokens=torch.zeros((1, 4), dtype=torch.int64))

@@ -165,3 +165,66 @@ def test_plan_refuses_bad_shapes_and_cpu_tensors_route_to_plain():
     with pytest.raises(ValueError, match="CUDA"):
         ttm_pe1.pe1_cuda(z, g)
     assert ttm_pe1.plan(0, 1, 16, 8, 4).grid == 0
+
+
+# ---------------------------------------------------------------------------
+# the zoo LM's step: with_tt(internlm2-1.8b) at 8 x 256 tokens
+# ---------------------------------------------------------------------------
+
+def _lm_shapes():
+    from repro_torch import configs as C
+    from repro_torch.models.lm import _walk_sites, build_lm
+    lm = build_lm(C.with_tt(C.get_config("internlm2-1.8b"), quantize=True))
+    return sorted({(*zs, gs[1]) for _, site in _walk_sites(lm)
+                   if site.use_tt
+                   for sp in (site.spec, site.spec.transposed())
+                   for kind, zs, gs in pe_shapes(sp, 8 * 256)
+                   if kind == "pe1"})
+
+
+LM = _lm_shapes()
+
+
+def test_lm_step_shapes_are_the_issue_table():
+    assert LM == [(262144, 1, 16, 256), (262144, 1, 16, 512),
+                  (524288, 1, 32, 256)]
+
+
+def _once(starts_extents, n):
+    """Tiles given as (start, extent) cover [0, n) exactly once."""
+    seen = np.zeros(n, dtype=np.int64)
+    for s, e in starts_extents:
+        seen[s:s + e] += 1
+    return (seen == 1).all()
+
+
+@pytest.mark.parametrize("shape", LM)
+@pytest.mark.parametrize("elsize", [4, 2])
+def test_lm_shapes_store_every_output_once(shape, elsize):
+    """``_writes`` factored (the grid is too large to walk here): the
+    threads of a CTA store each (row, column) of its tile once, the tiles
+    cover a and d once, and CTA index -> tile is one to one."""
+    p = ttm_pe1.plan(*shape, elsize)
+    rows = [ty * p.rm + i for ty in range(p.ta) for i in range(p.rm)]
+    cols = [tx * 4 + j for tx in range(p.td) for j in range(4)]
+    assert sorted(rows) == list(range(p.at))
+    assert sorted(cols) == list(range(p.dt))
+    assert _once([(t * p.at, min(p.at, p.a - t * p.at))
+                  for t in range(p.tiles_a)], p.a)
+    assert _once([(t * p.dt, min(p.dt, p.d - t * p.dt))
+                  for t in range(p.tiles_d)], p.d)
+    tiles = {(bid // p.tiles_d, bid % p.tiles_d) for bid in range(p.grid)}
+    assert len(tiles) == p.grid == p.tiles_a * p.tiles_d
+
+
+@pytest.mark.parametrize("shape", LM)
+@pytest.mark.parametrize("elsize", [4, 2])
+def test_lm_shapes_fit_the_card_and_32_bit_indices(shape, elsize):
+    test_fits_the_card_and_the_kernels_limits(shape, elsize)
+    p = ttm_pe1.plan(*shape, elsize)
+    a, b, c, d = shape
+    assert a * b * c < 2 ** 31 and a * d < 2 ** 31 and b * d * c < 2 ** 31
+    assert p.grid <= 2 ** 31 - 1 and 8 * p.grid >= 7 * SMS
+    assert (_stage_g_walk(p, elsize) == 1).all()
+    assert (_z_copy_walk(p, elsize) == 1).all()
+    assert p.rm == 8 and (p.gz, p.gg) == (16, 16)

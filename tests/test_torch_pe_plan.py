@@ -186,3 +186,84 @@ def test_ops_route_cpu_tensors_to_the_plain_versions(monkeypatch):
     y, x = (torch.from_numpy(rng.randn(*s).astype(np.float32))
             for s in ((4, 2), (4, 3)))
     assert torch.equal(ops.pe3(y, x), ttm_pe3.pe3_torch(y, x))
+
+
+# ---------------------------------------------------------------------------
+# the zoo LM's step: with_tt(internlm2-1.8b) at 8 x 256 tokens
+# ---------------------------------------------------------------------------
+
+def _lm_shapes():
+    """PE2 calls of every TT site's forward and transposed chains, and PE3
+    (as PE2 at a = 1, c = i, d = j) of every site's Ŵ, at 2,048 rows."""
+    from repro_torch import configs as C
+    from repro_torch.models.lm import _walk_sites, build_lm
+    lm = build_lm(C.with_tt(C.get_config("internlm2-1.8b"), quantize=True))
+    specs = [site.spec for _, site in _walk_sites(lm) if site.use_tt]
+    pe2 = sorted({(*zs, gs[1]) for s in specs
+                  for sp in (s, s.transposed())
+                  for kind, zs, gs in pe_shapes(sp, 8 * 256)
+                  if kind == "pe2"})
+    pe3 = sorted({(1, 8 * 256, s.in_dim, s.out_dim) for s in specs})
+    return pe2, pe3
+
+
+LM_PE2, LM_PE3 = _lm_shapes()
+LM = LM_PE2 + LM_PE3
+
+
+def test_lm_step_shapes_are_the_issue_table():
+    assert LM_PE2 == [(2048, 128, 256, 8), (2048, 128, 512, 16),
+                      (2048, 256, 256, 8), (16384, 256, 16, 256),
+                      (16384, 256, 32, 256), (32768, 256, 16, 256)]
+    assert LM_PE3 == [(1, 2048, 2048, 2048), (1, 2048, 2048, 8192),
+                      (1, 2048, 8192, 2048)]
+
+
+def _once(starts_extents, n):
+    seen = np.zeros(n, dtype=np.int64)
+    for s, e in starts_extents:
+        seen[s:s + e] += 1
+    return (seen == 1).all()
+
+
+@pytest.mark.parametrize("elsize", ELSIZES)
+@pytest.mark.parametrize("shape", LM)
+def test_lm_shapes_write_every_output_once(shape, elsize):
+    """``_writes`` factored (the grid is too large to walk here): share 0
+    of each (slab, d group, c group) is one thread of the CTA, its rows
+    and columns cover the tile once, the tiles cover a, d and c once, and
+    CTA index -> (run, d tile, c tile) is one to one."""
+    p = tt_contract.plan(*shape, elsize)
+    owners = []
+    for tid in range(p.threads):
+        k, t = tid % p.split, tid // p.split
+        cgi, t = t % p.cg, t // p.cg
+        dgi, s = t % p.dg, t // p.dg
+        if k == 0 and s < p.spc:
+            owners.append((s, dgi, cgi))
+    assert sorted(owners) == [(s, dg, cg) for s in range(p.spc)
+                              for dg in range(p.dg) for cg in range(p.cg)]
+    assert _once([(t * p.spc, min(p.spc, p.a - t * p.spc))
+                  for t in range(p.runs)], p.a)
+    assert _once([(t * p.dt, min(p.dt, p.d - t * p.dt))
+                  for t in range(p.tiles_d)], p.d)
+    assert _once([(t * p.ct, min(p.ct, p.c - t * p.ct))
+                  for t in range(p.tiles_c)], p.c)
+    cells = set()
+    for bid in range(p.grid):
+        t = bid // p.tiles_c
+        cells.add((t // p.tiles_d, t % p.tiles_d, bid % p.tiles_c))
+    assert len(cells) == p.grid == p.runs * p.tiles_d * p.tiles_c
+
+
+@pytest.mark.parametrize("elsize", ELSIZES)
+@pytest.mark.parametrize("shape", LM)
+def test_lm_shapes_fit_the_card_and_32_bit_indices(shape, elsize):
+    test_threads_shared_memory_and_b_split(shape, elsize)
+    test_grid_fills_the_card_where_the_work_allows(shape, elsize)
+    test_copy_granules_fit_rows_tiles_and_pointers(shape, elsize)
+    a, b, c, d = shape
+    p = tt_contract.plan(a, b, c, d, elsize)
+    # the kernels index in int: every tensor under 2^31 elements
+    assert a * b * c < 2 ** 31 and b * d < 2 ** 31 and a * d * c < 2 ** 31
+    assert p.grid <= 2 ** 31 - 1 and p.grid >= tt_contract.SMS

@@ -170,6 +170,19 @@ def test_entry_points_raise_without_a_card(models, monkeypatch):
         t_init(torch.Generator(), tlm)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         params_from_jax({"layers": {}})
+    # the zoo-LM training slice: init with TT sites, the state converter
+    # and the training loop
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.convert import lm_train_state_from_jax
+    from repro_torch.launch.train import train
+    tt_lm = t_build(TC.with_tt(tlm.cfg, quantize=True).replace(
+        tt=TC.TTConfig(enable=True, min_elements=1)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_init(torch.Generator(), tt_lm)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_train_state_from_jax(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(tt_lm.cfg, "tp", TrainConfig(total_steps=1), batch=1, seq=4)
     Engine(tlm, tp, EngineConfig(pool=pool), device="cpu")
 
 
