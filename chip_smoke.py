@@ -172,7 +172,11 @@ Phases (any failure raises and the script exits non-zero):
              up to 2048 x 8192 x 2048), bf16, held to the plain version
              within 2e-2 and timed beside it, beside one torch.matmul of
              the same product and beside the bound (bytes at 3.35 TB/s or
-             bf16 operations at 989 TFLOP/s).
+             bf16 operations at 989 TFLOP/s). Each of the nine PE2/PE3
+             calls takes the tensor-core route (tt_mma.plan, asserted),
+             repeats bit for bit over two launches, and is timed beside
+             the CUDA-core body at the same shape (``previous_ms``, held to
+             the plain version too).
 9. train lm — the fifth main path: with_tt(internlm2-1.8b, quantize=True)
              at full width and depth (24 layers, 144 TT sites at rank 16,
              bf16, remat full), int8 Adam moments and the int8 gradient
@@ -185,11 +189,16 @@ Phases (any failure raises and the script exits non-zero):
              at the third step, as the reference's numerics do); the
              scale manager's states moved; every λ the Eq. 4 update of
              its cores; the parameter counts, the state's bytes and the
-             peak memory printed; then one profiled step (pe1_kernel 432,
-             pe2_kernel 864, pe3_kernel 144, p2_fq_group_kernel 375,
-             bw_enc_group_kernel 22, bw_dec_group_kernel 22 launches;
-             asserted by name); then the same 8 steps with f32 moments,
-             whose cross-entropy must fall.
+             peak memory printed; the step's three kinds of grouped
+             fake-quant launch (a site's cores, an activation edge, a
+             grad-edge group) bit for bit with the plain version, timed
+             beside it and a loop of fake_quantize_per_tensor_affine;
+             then one profiled step (pe1_kernel 432, pe2_mma_kernel 864,
+             pe3_mma_kernel 144 and no pe2_kernel or pe3_kernel,
+             p2_fq_group_kernel 375, bw_enc_group_kernel 22,
+             bw_dec_group_kernel 22 launches; asserted by name); then the
+             same 8 steps with f32 moments, whose cross-entropy must
+             fall.
 10. train lm identity — one step of a small TT LM (2 layers, d_model 32,
              every projection TT, f32, int8 moments and the wire) from the
              same state on the card and on the CPU: loss, ce and prior
@@ -206,7 +215,9 @@ result when no CUDA device is available or when the repository's
 build and a diagnostic of the PE1/PE2/PE3 kernels: each rebuilt with its FMA
 loop, its copies or its stores cut out and timed at the step's shapes, so
 the time of each phase reads as a difference (no profiler of kernel
-internals works on the card's machine). ``--pa-anatomy`` does the same for
+internals works on the card's machine). It covers the CUDA-core bodies
+only, at the MLP's f32 shapes; the tensor-core route (tt_mma.cuh) has no
+anatomy. ``--pa-anatomy`` does the same for
 the attention split pass (K/V staging, query load, scores, softmax, P @ V)
 beside its combine pass. Neither prints a result line.
 
@@ -1460,7 +1471,8 @@ def phase_pe_anatomy(torch, timer: Timer) -> dict:
     stores, or all three cut out (``PE_PHASES``), each timed at the step's
     f32 shapes beside the full kernel and ``torch.matmul``. A phase's cost
     is the full time less the time without it. Builds under
-    ``kernels/_build/anatomy``."""
+    ``kernels/_build/anatomy``. The CUDA-core bodies only (the f32 route);
+    the bf16 tensor-core route is not cut here."""
     from repro_torch.kernels import tt_contract as TC, ttm_pe1
     cuts = {"full": [], **{f"no {k}": [k] for k in PE_PHASES},
             "none": list(PE_PHASES)}
@@ -1986,18 +1998,26 @@ def _device_summary(torch, prof, steps: int) -> tuple[float, list]:
                     "ms_per_step": dev(e) / steps / 1e3} for e in top]
 
 
-# launch-count name -> the kernel function's name in a profile
+# launch-count name -> the kernel function's name in a profile (the
+# MLP's f32 steps: PE2 and PE3 on the CUDA cores)
 KERNEL_FN = {"pe1": "pe1_kernel", "pe2": "pe2_kernel", "pe3": "pe3_kernel",
              "p2_fake_quant": "p2_fq_group_kernel",
              "bw_enc": "bw_enc_group_kernel", "bw_dec": "bw_dec_group_kernel"}
+# the LM's bf16 step: PE2 and PE3 on the tensor cores, and none of their
+# launches on the CUDA-core kernels
+LM_KERNEL_FN = {**KERNEL_FN, "pe2": "pe2_mma_kernel",
+                "pe3": "pe3_mma_kernel"}
+LM_ABSENT_FN = ("pe2_kernel", "pe3_kernel")
 
 
-def _profile_train(torch, one, per: dict, steps: int = 20):
+def _profile_train(torch, one, per: dict, steps: int = 20, fn=KERNEL_FN,
+                   absent=()):
     """Host wall of ``steps`` unprofiled training steps (``one(i)`` runs
     step i), then one profiled window of as many for the device time per
     kernel. busy_share = device time / wall time. Each kernel of ``per``
     (the step's ``launches_per_step``) must appear in the profile as often
-    a step, by its function's name."""
+    a step, by its function's name (``fn``), and the functions named in
+    ``absent`` not at all."""
     import itertools
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2005,11 +2025,11 @@ def _profile_train(torch, one, per: dict, steps: int = 20):
         one(i)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps
-    want = {KERNEL_FN[k]: float(v) for k, v in per.items()}
+    want = {fn[k]: float(v) for k, v in per.items()}
     batch = itertools.count(steps)              # the next batch's index
     prof, kern = _profile_window(
         torch, lambda: [one(next(batch)) for _ in range(steps)], steps,
-        want, want, "train")
+        [*want, *absent], want, "train")
     total, rows = _device_summary(torch, prof, steps)
     log(f"train profile: {wall*1e3:.2f} ms per step (host wall), device "
         f"{total:.3f} ms busy, busy share {total / (wall*1e3):.3f}")
@@ -3176,15 +3196,41 @@ def _lm_pe_calls():
     return seen
 
 
+def _pe_contraction(kind, z, g):
+    """PE2's (Z, G) of a PE2 or PE3 call: PE3 (Ybar (b, j), X (b, i)) is
+    PE2 at a = 1 with Z = X and G = Ybar."""
+    return (z, g) if kind == "pe2" else (g.view(1, *g.shape), z)
+
+
+def _pe_fma(kind, z, g):
+    """A PE2 or PE3 call on the CUDA-core body (``tt_contract``), whatever
+    route its plan gives: the design the tensor-core route replaced at the
+    LM's shapes, launched for timing only (``previous_ms``)."""
+    from repro_torch.kernels import tt_contract
+    zz, gg = _pe_contraction(kind, z, g)
+    out = zz.new_empty((zz.shape[0], gg.shape[1], zz.shape[2]))
+    tt_contract.launch(kind, f"ttm_{kind}", zz, gg, out)
+    return out if kind == "pe2" else out[0]
+
+
 def phase_lm_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
     """PE1/PE2/PE3 at every distinct shape of the LM step, in bf16 (the
     LM's type): held to the plain version within 2e-2 relative and
     absolute, timed beside it, beside one ``torch.matmul`` of the same
     product on the same bf16 tensors (cuBLAS, tensor cores) and beside the
-    bound (bytes at 3.35 TB/s or the bf16 operations at 989 TFLOP/s)."""
+    bound (bytes at 3.35 TB/s or the bf16 operations at 989 TFLOP/s).
+    Every PE2 and PE3 call takes the tensor-core route (``tt_mma.plan``,
+    asserted), repeats bit for bit over two launches, and is timed beside
+    the CUDA-core body at the same shape (``previous_ms``: the route the
+    tensor cores replaced there), itself held to the plain version."""
+    from repro_torch.kernels import tt_mma
     gen = torch.Generator(device=device).manual_seed(4)
     rows = {"pe1": [], "pe2": [], "pe3": []}
     tol = PE_TOL["bfloat16"]
+
+    def close(out, ref):
+        return bool(((out.float() - ref.float()).abs()
+                     <= tol + tol * ref.float().abs()).all())
     for kind, zs, gs in _lm_pe_calls():
         kern, plain = _pe_fns(kind)
         z = torch.randn(zs, generator=gen, device=device).to(torch.bfloat16)
@@ -3192,16 +3238,27 @@ def phase_lm_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
             torch.bfloat16)
         o, r = kern(z, g), plain(z, g)
         err = (o.float() - r.float()).abs()
-        check(bool((err <= tol + tol * r.float().abs()).all()),
-              f"lm {kind} {zs}x{gs}: max err {err.max().item()}")
-        lib = _pe_library(torch, kind, z, g)
-        lerr = (lib.float() - r.float()).abs()
-        check(bool((lerr <= tol + tol * r.float().abs()).all()),
+        check(close(o, r), f"lm {kind} {zs}x{gs}: max err {err.max().item()}")
+        check(close(_pe_library(torch, kind, z, g), r),
               f"lm {kind} yardstick differs")
         row = dict(z=list(zs), g=list(gs), dtype="bfloat16",
                    max_abs_err=err.max().item())
-        del o, r, lib, err, lerr
+        if kind != "pe1":
+            p = tt_mma.plan_for(*_pe_contraction(kind, z, g))
+            check(p is not None,
+                  f"lm {kind} {zs}x{gs}: not on the tensor-core route")
+            check(_bits_equal(torch, kern(z, g), o),
+                  f"lm {kind} {zs}x{gs}: two launches differ")
+            check(close(_pe_fma(kind, z, g), r),
+                  f"lm {kind} {zs}x{gs}: the CUDA-core body differs")
+            row.update(route="tensor cores", orientation=p.orientation,
+                       tile=[p.bm, p.bn], stages=p.stages,
+                       resident=bool(p.resident), grid=p.grid,
+                       smem=p.smem)
+        del o, r, err
         row["ms"] = timer(lambda: kern(z, g), iters=10)
+        if kind != "pe1":
+            row["previous_ms"] = timer(lambda: _pe_fma(kind, z, g), iters=5)
         row["plain_ms"] = timer(lambda: plain(z, g), iters=5)
         row["library_ms"] = timer(lambda: _pe_library(torch, kind, z, g),
                                   iters=10)
@@ -3211,10 +3268,14 @@ def phase_lm_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
                                                     BF16_OPS_PER_S)
         row["tflops"] = flops / row["ms"] / 1e9
         rows[kind].append(row)
+        was = ("" if kind == "pe1" else
+               f"; {row['orientation']} {row['tile'][0]} x {row['tile'][1]}"
+               f", CUDA-core body {row['previous_ms']*1e3:.1f} us, "
+               f"{row['previous_ms'] / row['ms']:.1f}x")
         log(f"lm {kind} {zs} x {gs} bf16: {row['ms']*1e3:.1f} us "
             f"({row['tflops']:.1f} TFLOP/s; plain {row['plain_ms']*1e3:.1f}"
             f" us, torch.matmul {row['library_ms']*1e3:.1f} us, bound "
-            f"{row['bound_ms']*1e3:.2f} us {row['bound_by']}); err "
+            f"{row['bound_ms']*1e3:.2f} us {row['bound_by']}{was}); err "
             f"{row['max_abs_err']:.1e}")
         del z, g
     torch.cuda.empty_cache()
@@ -3281,6 +3342,78 @@ def _lm_group_bounds(lm, state, per: dict) -> dict:
     return out
 
 
+def _lm_fq_rows(torch, lm, params) -> list:
+    """The LM step's three kinds of grouped fake-quant launch (row 4b), each
+    one ``p2_fq_group`` launch (asserted) on the trained state's tensors:
+    the first TT site's cores at their ``wscale_log2`` (4-bit), one
+    activation edge (8 x 256 x d_model bf16, 8-bit at 2^-7) and one
+    grad-edge group (the first 64 floating bf16 leaves, standing in for
+    their gradients, 16-bit at each one's per-tensor-max step); bit for bit
+    with the plain version, timed beside it, beside the loop of
+    ``torch.fake_quantize_per_tensor_affine`` over the same tensors (the
+    library yardstick) and beside the group's byte bound."""
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels.grouped import FQ_CAP
+    from repro_torch.models.lm import _site_params, _walk_sites
+    from repro_torch.numerics import QuantSpec
+    from repro_torch.numerics.codecs import per_tensor_max_scale_log2
+    from repro_torch.numerics import cuda_backend as CB
+    from repro_torch.tree import flatten_with_path
+    timer = Timer(torch)
+    q = lm.cfg.quant
+    path = next(p for p, site in _walk_sites(lm) if site.use_tt)
+    _, sp = _site_params(params, path)[0]
+    cores = [sp[k].detach() for k in sorted(sp) if k.startswith("core_")]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    edge = (torch.randn((LM_BATCH, LM_SEQ, lm.cfg.d_model), generator=gen,
+                        device="cuda") * 0.2).to(torch.bfloat16)
+    grads = [t.detach() for _, t in flatten_with_path(params)
+             if t.dtype == torch.bfloat16][:FQ_CAP]
+    gspec = QuantSpec("pow2", q.grad_bits)
+    sets = [("site cores " + "/".join(map(str, path)), cores,
+             sp["wscale_log2"].float(), q.weight_bits),
+            ("activation edge", [edge],
+             torch.full((1,), -7.0, device="cuda"), q.act_bits),
+            ("grad-edge group", grads, torch.stack([
+                per_tensor_max_scale_log2(t, gspec) for t in grads]),
+             q.grad_bits)]
+    rows = []
+    for what, xs, steps, bits in sets:
+        torch.cuda.synchronize()
+        B.reset_launches()
+        ys = CB.fake_quant_scalar_many(xs, steps, bits)
+        torch.cuda.synchronize()
+        check(B.LAUNCHES == {"p2_fake_quant": 1},
+              f"lm fake-quant {what}: launches {B.LAUNCHES}")
+        check(all(_bits_equal(torch, y, r) for y, r in zip(
+            ys, CB.fake_quant_many_plain(xs, steps, bits))),
+              f"lm fake-quant {what}: not bit-exact")
+        n = sum(x.numel() for x in xs)
+        nbytes = 2 * sum(x.numel() * x.element_size() for x in xs) + 4 * len(xs)
+        hi = 2 ** (bits - 1)
+        scales = [2.0 ** v for v in steps.tolist()]
+        row = dict(what=what, shape=[list(x.shape) for x in xs], bits=bits,
+                   dtype=sorted({str(x.dtype)[6:] for x in xs}),
+                   entries=len(xs), elements=n, max_abs_err=0.0)
+        row["ms"] = timer(lambda: CB.fake_quant_scalar_many(xs, steps, bits))
+        row["plain_ms"] = timer(
+            lambda: CB.fake_quant_many_plain(xs, steps, bits), iters=5)
+        row["library_ms"], row["library_note"] = _library_yardstick(
+            timer, lambda: [torch.fake_quantize_per_tensor_affine(
+                x, scales[i], 0, -hi, hi - 1) for i, x in enumerate(xs)],
+            lambda r: all(torch.equal(a, b) for a, b in zip(r, ys)))
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes)
+        log(f"lm p2_fake_quant {what} ({len(xs)} tensors, {n:,} elements, "
+            f"{bits}-bit): {row['ms']*1e3:.1f} us one launch (plain "
+            f"{row['plain_ms']*1e3:.1f} us, library loop "
+            f"{row['library_note']}, bound {row['bound_ms']*1e3:.2f} us); "
+            "bit-exact")
+        rows.append(row)
+    del timer
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_train_lm(torch, device: str = "cuda",
                    steps: int = LM_STEPS) -> dict:
     """The zoo-LM training path: ``with_tt(internlm2-1.8b, quantize=True)``
@@ -3345,6 +3478,7 @@ def phase_train_lm(torch, device: str = "cuda",
         for k, v in sites.items()))
     log(f"train lm: scales {checks}")
     log(f"train lm: group launches' byte bounds a step {bounds}")
+    fq_rows = _lm_fq_rows(torch, lm, state.params)
 
     step = S.make_train_step(lm, None, tcfg)
     box = {"state": state}
@@ -3355,7 +3489,8 @@ def phase_train_lm(torch, device: str = "cuda",
                      vocab=cfg.vocab_size, seed=tcfg.seed)
         box["state"], _ = step(box["state"], {
             k: torch.from_numpy(v).to(device) for k, v in b.items()})
-    prof = _profile_train(torch, one, per, steps=1)
+    prof = _profile_train(torch, one, per, steps=1, fn=LM_KERNEL_FN,
+                          absent=LM_ABSENT_FN)
     del box
     torch.cuda.empty_cache()
     # The loss carries the rank prior, which the λ update drives down on
@@ -3382,7 +3517,7 @@ def phase_train_lm(torch, device: str = "cuda",
             "peak_bytes": peak, "launches": launches,
             "launches_per_step": per, "param_counts": counts,
             "state_bytes": sites, "state_checks": checks,
-            "group_bounds": bounds,
+            "group_bounds": bounds, "fq_rows": fq_rows,
             "tt_sites": n_tt, "profile": prof}
 
 
@@ -3493,6 +3628,13 @@ TRAIN_KERNELS = {
     "pe3": ("src/repro_torch/kernels/csrc/ttm_pe3.cu",
             "src/repro/kernels/ttm_pe3.py:23"),
 }
+# the tensor-core route of PE2 / PE3 (the LM step's every launch of each)
+LM_KERNELS = {
+    "pe2_mma": ("src/repro_torch/kernels/csrc/ttm_pe2.cu",
+                "src/repro/kernels/ttm_pe2.py:25", "pe2"),
+    "pe3_mma": ("src/repro_torch/kernels/csrc/ttm_pe3.cu",
+                "src/repro/kernels/ttm_pe3.py:23", "pe3"),
+}
 READ = ("src/repro_torch/kernels/csrc/kv_read.cu",
         "src/repro/numerics/pallas_backend.py:127")
 ENC_ROWS = ("src/repro_torch/kernels/csrc/pow2_rows.cu",
@@ -3553,13 +3695,23 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
                                 f"train wire ({wire['steps']} steps, site "
                                 "table and deploy export)"))
     for row in rows:
-        # the LM step's launches, and PE1-3 at its shapes after the MLP's
-        if row["name"] in lm["launches"]:
-            row["lm_launches"] = lm["launches"][row["name"]]
+        # the LM step's launches, and PE1 at its shapes after the MLP's
+        # (its PE2 / PE3 launches are the tensor-core rows below)
+        name = row["name"]
+        if name in lm["launches"] and name not in ("pe2", "pe3"):
+            row["lm_launches"] = lm["launches"][name]
             row["path"] += (f"; train lm ({lm['steps']} steps, "
-                            f"{lm['launches_per_step'][row['name']]} a step)")
-        if row["name"] in lmkern:
-            row["shapes"] = row["shapes"] + lmkern[row["name"]]
+                            f"{lm['launches_per_step'][name]} a step)")
+        if name == "pe1":
+            row["shapes"] = row["shapes"] + lmkern[name]
+        if name == "p2_fake_quant":
+            row["shapes"] = row["shapes"] + lm["fq_rows"]
+    for name, (src, replaces, kind) in LM_KERNELS.items():
+        rows.append(_kernel_row(
+            name, src, replaces, lmkern[kind], lm["launches"].get(kind, 0),
+            f"train lm ({lm['steps']} steps, "
+            f"{lm['launches_per_step'][kind]} a step: every {kind} launch of "
+            "the LM step, by route and by profile name)"))
     for name, (src, replaces) in SCALAR_KERNELS.items():
         if name == "p2_fq_rows":
             launches = skern["api_launches"].get(name, 0)

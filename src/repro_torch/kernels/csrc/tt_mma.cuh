@@ -1,0 +1,531 @@
+// The tensor-core body behind PE2 and PE3 in bf16 (sm_90a):
+//
+//   O(a, d, c) = sum_b  Z(a, b, c) * G(b, d)
+//
+// with f32 sums on wgmma and bf16 out. PE2 (csrc/ttm_pe2.cu) is this as
+// written; PE3 (csrc/ttm_pe3.cu) is it at a = 1 with Z = X (b, i) and G =
+// Ybar (b, j). Each source wraps `gemm` in a __global__ kernel of its own
+// name; the f32 calls and the bf16 calls the plan cannot tile stay on the
+// CUDA-core body (tt_contract.cuh).
+//
+// As a product on the tensor cores, every output tile is D = A^T B with M
+// = d, N = c and K = b: A is a tile of G (b rows, d contiguous) and B a
+// tile of Z (b rows, c contiguous), both MN-major (wgmma's transposed bf16
+// operands), read by wgmma from shared memory through 128-, 64- or 32-byte
+// swizzled layouts that the TMA writes as it copies. The plan
+// (kernels/tt_mma.py) picks one of three tilings by shape:
+//   wide     d > 64, c not 16 or 32 (PE3's Ŵ): 128 (d) x 256 (c) tiles,
+//            two consumer warpgroups of 64 x 256, b through the ring.
+//   thin     d <= 64 (PE2 with d = 8 or 16, c = 256 or 512): 64 x 256
+//            tiles of one slab, two warpgroups of 64 x 128; the rows of d
+//            past d are the TMA's zero fill (4-8x the products, all under
+//            the byte bound), so the output needs no transpose.
+//   stacked  c = 16 or 32 (PE2 with d = 256): N runs over 64 / c whole
+//            slabs side by side (one 3-D TMA box (c, 64 rows of b, slabs),
+//            32- or 64-byte swizzle), M over all of d in up to four
+//            warpgroups of 64 x 64.
+// Where a CTA's tiles share one row of tiles of G (d <= its tile), the
+// whole of G is loaded once for the CTA's life ("resident"), so only Z
+// streams; 256 x 256 bf16 is 128 KB of shared memory.
+//
+// Schedule: a persistent grid (at most one CTA per SM) walks the tiles in
+// order, N fastest. A producer (one warp; a warpgroup for 64 x 256, which
+// hands its registers to the consumers) keeps TMA loads of 64-row
+// b-chunks in flight through a ring of stages under mbarriers (full:
+// bytes landed; empty: every consumer warpgroup is done with the slot),
+// across tile boundaries, so HBM never waits for an epilogue. Each consumer
+// warpgroup issues its 4 wgmma k-steps a chunk and keeps one chunk's group
+// in flight (wait_group 1) before it frees the previous slot. The epilogue
+// converts the f32 sums to bf16 into a staging tile in shared memory laid
+// out as the rows lie in O (a stacked tile's slab: 64 rows of c, one
+// contiguous run of 2-4 KB; otherwise rows of WGN columns a padded pitch
+// apart, so the fragment writes do not conflict), and bulk copies
+// (cp.async.bulk) take it out while the next tile's products run; the
+// 32- and 64-byte rows of c = 16 / 32 are written whole. No split-K and no
+// atomics: each output is one warpgroup's sum in a fixed order, so two
+// launches give the same bits.
+//
+// Requirements (checked by the plan, which routes the rest to the FMA
+// body): bf16; c and d multiples of 8 (16-byte rows of Z, G and O, the
+// TMA's stride unit); Z and G 16-byte aligned. Ragged edges in a, b, c
+// and d are the TMA's zero fill on the way in and masks on the way out.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+namespace tt_mma {
+
+constexpr int kMaxSmem = 232448;  // 227 KB, the most a CTA may ask for
+constexpr int kBK = 64;           // b rows per chunk
+constexpr int kABox = 64;         // G's box: 64 columns of d (128 bytes)
+// CTA size bound per N of a warpgroup: up to four consumer warpgroups of 64
+// x 64 (32 f32 sums a thread), two of 64 x 128 or 64 x 256 (up to 128), and
+// the producer warp; the register file (64 K) splits over them.
+// The producer is one warp, or (64 x 256) a whole warpgroup, which hands
+// its registers to the consumers (setmaxnreg redistributes a CTA's own).
+template <int WGN>
+constexpr int kMaxWG = WGN <= 64 ? 4 : 2;
+template <int WGN>
+constexpr int kProducer = WGN == 256 ? 128 : 32;
+template <int WGN>
+constexpr int kMaxThreads = kMaxWG<WGN> * 128 + kProducer<WGN>;
+
+// Field order is kernels/tt_mma.py PLAN_FIELDS.
+struct Plan {
+  int a, b, c, d;              // Z (a, b, c), G (b, d), O (a, d, c)
+  int wgn, sw;                 // N per warpgroup, B's swizzle bytes (the template)
+  int wm, wn;                  // consumer warpgroups along M and N
+  int nk, stages, resident;    // b-chunks; ring slots; G loaded once (1) or streamed
+  int slabs, bw;               // slabs side by side in a tile; B box columns
+  int tiles_m, tiles_c, tiles_n, tiles;
+  int grid, threads;
+  int a_chunk, b_chunk, stage, a_res, out_pitch, smem;  // bytes
+};
+constexpr int kPlanFields = 25;
+static_assert(sizeof(Plan) == kPlanFields * sizeof(int), "Plan is 25 int32");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// Until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// ---- TMA loads, completing on `bar`
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int x,
+                                       int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y)
+      : "memory");
+}
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int x,
+                                       int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+// ---- wgmma
+// Shared-memory matrix descriptor: start address, leading byte offset (for
+// an MN-major swizzled operand: between the swizzle-wide column blocks),
+// stride byte offset (between 8-row groups of K), swizzle (1: 128 B, 2: 64
+// B, 3: 32 B).
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t sbo, int sw) {
+  const uint64_t layout = sw == 128 ? 1 : sw == 64 ? 2 : 3;
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+__device__ __forceinline__ void mma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void mma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void mma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x N, f32) += A^T B over one k-step of 16: A and B MN-major (the
+// trailing "1, 1" of the instruction); scale_d = 0 starts a sum.
+template <int N>
+__device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
+template <>
+__device__ __forceinline__ void mma<64>(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void mma<128>(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void mma<256>(float (&d)[128], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// ---- bulk stores (shared -> global), completing in this thread's groups
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's bulk stores have read shared memory (.read) or are done
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// The body. WGN: N per consumer warpgroup (64, 128 or 256); SW: B's swizzle
+// bytes (32, 64 or 128; below 128 the tiling is stacked, c = SW / 2).
+// Warps 0 .. 4 * wm * wn - 1 are the consumer warpgroups (warpgroup g takes
+// rows 64 * (g / wn) and columns WGN * (g % wn) of a tile), the rest the
+// producer.
+template <int WGN, int SW>
+__device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* tb,
+                                     __nv_bfloat16* __restrict__ O, const Plan& p) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                           ~uintptr_t(1023));
+  const int nwg = p.wm * p.wn;
+  uint8_t* a_res = sm;
+  uint8_t* ring = sm + p.a_res;
+  uint8_t* outs = ring + p.stages * p.stage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(outs + nwg * 64 * p.out_pitch);
+  uint64_t* empty = full + p.stages;
+  uint64_t* abar = empty + p.stages;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, nwg);
+    }
+    mbar_init(abar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int bm = 64 * p.wm, bn = WGN * p.wn;
+  const int a_box = kABox * kBK * 2;             // bytes of one box of G
+  const int b_box = p.bw * kBK * p.slabs * 2;    // and of Z
+  const int nbox = bn / (p.bw * p.slabs);
+
+  // 64 x 256 warpgroups hold 128 sums a thread: at 384 threads the
+  // compiler's budget is 168 registers, so the producer warpgroup gives
+  // its registers back and the consumers take 232 (setmaxnreg; the two
+  // roles never meet again below)
+  if (wg == nwg) {  // ---- producer: one lane issues every copy
+    if constexpr (WGN == 256) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if ((threadIdx.x & (kProducer<WGN> - 1)) != 0) return;
+    if (p.resident) {
+      mbar_expect_tx(abar, p.a_res);
+      for (int kc = 0; kc < p.nk; ++kc)
+        for (int mb = 0; mb < p.wm; ++mb)
+          tma_2d(a_res + kc * p.a_chunk + mb * a_box, ta, abar, kABox * mb, kc * kBK);
+    }
+    int st = 0, ph = 0;
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      const int tm = t / p.tiles_n, tn = t - tm * p.tiles_n;
+      const int ct = tn % p.tiles_c;
+      const int d0 = tm * bm, a0 = (tn / p.tiles_c) * p.slabs, c0 = ct * bn;
+      for (int kc = 0; kc < p.nk; ++kc) {
+        mbar_wait(empty + st, ph ^ 1);
+        mbar_expect_tx(full + st, p.stage);
+        uint8_t* slot = ring + st * p.stage;
+        if (!p.resident) {
+          for (int mb = 0; mb < p.wm; ++mb)
+            tma_2d(slot + mb * a_box, ta, full + st, d0 + kABox * mb, kc * kBK);
+          slot += p.a_chunk;
+        }
+        for (int i = 0; i < nbox; ++i)
+          tma_3d(slot + i * b_box, tb, full + st, c0 + i * p.bw, kc * kBK, a0);
+        if (++st == p.stages) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup wg
+  if constexpr (WGN == 256) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wmi = wg / p.wn, wni = wg - (wg / p.wn) * p.wn;
+  const int lane = threadIdx.x & 127;
+  const uint32_t a_lbo = kBK * 128, b_lbo = kBK * SW;
+  // this warpgroup's column block of B, and its row block of A
+  const int b_off = (wni * WGN / p.bw) * (p.bw * kBK * 2);
+  const int a_off = wmi * a_box;
+  uint8_t* stg = outs + wg * 64 * p.out_pitch;
+  constexpr bool kStacked = SW < 128;
+  constexpr int kC = SW / 2;  // c of a stacked tiling
+  float acc[WGN / 2];
+#pragma unroll
+  for (int i = 0; i < WGN / 2; ++i) acc[i] = 0.f;
+  if (p.resident) mbar_wait(abar, 0);
+  int st = 0, ph = 0;
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const int tm = t / p.tiles_n, tn = t - tm * p.tiles_n;
+    const int ct = tn % p.tiles_c;
+    const int d0 = tm * bm + 64 * wmi, a0 = (tn / p.tiles_c) * p.slabs, c0 = ct * bn;
+    int prev = 0;
+    for (int kc = 0; kc < p.nk; ++kc) {
+      mbar_wait(full + st, ph);
+      uint8_t* slot = ring + st * p.stage;
+      const uint8_t* as = (p.resident ? a_res + kc * p.a_chunk : slot) + a_off;
+      const uint8_t* bs = slot + (p.resident ? 0 : p.a_chunk) + b_off;
+      fence_acc(acc);
+      mma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kBK / 16; ++ks)
+        mma<WGN>(acc, desc(as + ks * 16 * 128, a_lbo, 8 * 128, 128),
+                 desc(bs + ks * 16 * SW, b_lbo, 8 * SW, SW), (kc | ks) != 0);
+      mma_commit();
+      fence_acc(acc);
+      mma_wait<1>();  // the previous chunk's products are done: free its slot
+      fence_acc(acc);
+      if (kc > 0 && lane == 0) mbar_arrive(empty + prev);
+      prev = st;
+      if (++st == p.stages) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
+    mma_wait<0>();
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(empty + prev);
+
+    // epilogue: f32 -> bf16 into this warpgroup's staging tile, laid out
+    // as its rows lie in O (stacked: a slab's 64 rows of c dense; else a
+    // row of WGN columns a pitch apart, 4 banks on), then out by bulk
+    // copies that run while the next tile's products do; warp 0 issues
+    // them and, before the staging tile is written again, waits until they
+    // have read it
+    if (lane < 32) bulk_wait_read();
+    bar_sync(1 + wg);
+    {
+      const int r0 = (lane >> 5) * 16 + ((lane & 31) >> 2), cb = 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < WGN / 8; ++j) {
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+        uint8_t* at;
+        int pitch;
+        if constexpr (kStacked) {
+          at = stg + (8 * j / kC) * (64 * kC * 2) + ((8 * j) % kC + cb) * 2;
+          pitch = kC * 2;
+        } else {
+          at = stg + (8 * j + cb) * 2;
+          pitch = p.out_pitch;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(at + r0 * pitch) = lo;
+        *reinterpret_cast<__nv_bfloat162*>(at + (r0 + 8) * pitch) = hi;
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bar_sync(1 + wg);
+    if (lane < 32) {
+      const int rows = min(64, p.d - d0);
+      if constexpr (kStacked) {  // lane s: the WGN / kC slabs' runs
+        if (lane < WGN / kC && a0 + lane < p.a && rows > 0)
+          bulk_store(O + ((size_t)(a0 + lane) * p.d + d0) * p.c, stg + lane * (64 * kC * 2),
+                     rows * kC * 2);
+      } else {  // lanes over rows: each row's WGN columns (fewer at c's edge)
+        const int col = c0 + wni * WGN;
+        const int n = min(WGN, p.c - col);
+        for (int m = lane; m < rows && n > 0; m += 32)
+          bulk_store(O + ((size_t)a0 * p.d + d0 + m) * p.c + col, stg + m * p.out_pitch, n * 2);
+      }
+      bulk_commit();
+    }
+  }
+  if (lane < 32) bulk_wait();
+}
+
+// ---- host side
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (the
+// libraries link nothing but cudart).
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return nullptr;
+#endif
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+inline CUtensorMapSwizzle swizzle(int bytes) {
+  return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+         : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                       : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+// G (b, d) as A: boxes of 64 columns of d by kBK rows, 128-byte swizzle;
+// Z (a, b, c) as B: boxes of bw columns by kBK rows by `slabs` slabs.
+inline bool encode(const Plan& p, const void* z, const void* g, CUtensorMap* ta,
+                   CUtensorMap* tb) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t gdim[2] = {(cuuint64_t)p.d, (cuuint64_t)p.b};
+  const cuuint64_t gstr[1] = {(cuuint64_t)p.d * 2};
+  const cuuint32_t gbox[2] = {(cuuint32_t)kABox, (cuuint32_t)kBK};
+  const cuuint64_t zdim[3] = {(cuuint64_t)p.c, (cuuint64_t)p.b, (cuuint64_t)p.a};
+  const cuuint64_t zstr[2] = {(cuuint64_t)p.c * 2, (cuuint64_t)p.b * p.c * 2};
+  const cuuint32_t zbox[3] = {(cuuint32_t)p.bw, (cuuint32_t)kBK, (cuuint32_t)p.slabs};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return enc(ta, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(g), gdim, gstr, gbox,
+             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+             CUDA_SUCCESS &&
+         enc(tb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(z), zdim, zstr, zbox,
+             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle(p.sw),
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+             CUDA_SUCCESS;
+}
+
+// The instance of `Kernel` for the plan's (wgn, sw), or null.
+template <template <int, int> class Kernel>
+const void* pick(int wgn, int sw) {
+  if (wgn == 64 && sw == 32) return Kernel<64, 32>::fn();
+  if (wgn == 64 && sw == 64) return Kernel<64, 64>::fn();
+  if (wgn == 128 && sw == 128) return Kernel<128, 128>::fn();
+  if (wgn == 256 && sw == 128) return Kernel<256, 128>::fn();
+  return nullptr;
+}
+
+// Check the plan, encode the two tensor maps and launch `fn` (a kernel
+// taking (CUtensorMap, CUtensorMap, bf16*, Plan)) on `stream`; returns
+// cudaGetLastError() after the launch.
+inline int launch(const void* fn, const void* z, const void* g, void* o, const int* fields,
+                  void* stream) {
+  Plan p;
+  memcpy(&p, fields, sizeof(Plan));
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  if (p.tiles == 0) return (int)cudaSuccess;
+  const int nwg = p.wm * p.wn;
+  const bool ok =
+      p.threads == nwg * 128 + (p.wgn == 256 ? 128 : 32) && nwg >= 1 &&
+      nwg <= (p.wgn <= 64 ? 4 : 2) && (p.sw == 128 || p.c * 2 == p.sw) && p.stages >= 2 && p.nk >= 1 &&
+      p.smem <= kMaxSmem && p.c % 8 == 0 && p.d % 8 == 0 && p.grid >= 1 &&
+      p.tiles == p.tiles_m * p.tiles_n && p.a_chunk == 64 * p.wm * kBK * 2 &&
+      p.b_chunk == p.wgn * p.wn * kBK * 2 && p.stage == p.b_chunk + (p.resident ? 0 : p.a_chunk) &&
+      p.a_res == (p.resident ? p.nk * p.a_chunk : 0) && (p.wgn * p.wn) % (p.bw * p.slabs) == 0 &&
+      p.smem >= 1024 + p.a_res + p.stages * p.stage + nwg * 64 * p.out_pitch + 16 * p.stages + 8 &&
+      (reinterpret_cast<uintptr_t>(z) | reinterpret_cast<uintptr_t>(g) |
+       reinterpret_cast<uintptr_t>(o)) % 16 == 0;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  if (!encode(p, z, g, &ta, &tb)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (e != cudaSuccess) return (int)e;
+  void* args[] = {&ta, &tb, &o, &p};
+  e = cudaLaunchKernel(fn, dim3((unsigned)p.grid), dim3((unsigned)p.threads), args,
+                       (size_t)p.smem, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tt_mma

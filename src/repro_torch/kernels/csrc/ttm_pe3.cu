@@ -1,24 +1,40 @@
 // PE3 (paper Appendix A.2): What(j, i) = sum_b Ybar(b, j) X(b, i), the
 // batch-contracted outer product the full-weight gradient comes from.
 //
-// Replaces: repro/kernels/ttm_pe3.py:23 `_pe3_kernel` / `pe3_outer`. On the
-// training path: one launch per layer a step, at b = 64 with (j, i) =
-// (512, 896) and (16, 512).
+// Replaces: repro/kernels/ttm_pe3.py:23 `_pe3_kernel` / `pe3_outer`
+// (pallas_call at :51). On the training path: one launch per TT site a
+// step, in each layer's backward: 2 an FMNIST MLP step (f32, b = 64, (j,
+// i) = (512, 896) and (16, 512)), 144 a step of with_tt(internlm2-1.8b)
+// (bf16, b = 2048, Ŵ 8192 x 2048, 2048 x 8192 and 2048 x 2048).
 //
-// Bound on the H100: FP32 operations for the large shape (58.7 MFLOP, 0.88
-// us at 67 TFLOP/s), bytes for the small one (0.05 us); at both sizes what
-// costs is filling the card: a 64 x 64 output tile gives 112 CTAs for 512 x
-// 896 and 8 for 16 x 512 on 132 SMs.
+// PE3 is the PE2 contraction at a = 1 with Z = X (1, b, i) and G = Ybar
+// (b, j), so it runs PE2's two bodies under names of its own, chosen by
+// kernels/tt_mma.py::plan:
 //
-// Design: PE3 is the PE2 contraction at a = 1 with Z = X (1, b, i) and G =
-// Ybar (b, j), so it runs the same streamed body (tt_contract.cuh) under
-// its own kernel name. The plan (kernels/tt_contract.py) gives 512 x 896
-// tiles of 32 (j) x 64 (i): 224 CTAs of 128 threads, each thread a 4 x 4
-// register tile, the whole b = 64 in one 24 KB stage brought in with 16-byte
-// cp.async. 16 x 512 gets 4 x 8 tiles, 256 CTAs, with b split 32 ways
-// across a warp's lanes and the shares added by a fixed xor tree.
+// bf16 with 16-byte rows (every LM call): `pe3_mma_kernel`, wgmma on the
+// tensor cores (tt_mma.cuh). Bound on the H100 at the LM's shapes: bf16
+// operations. 8192 x 2048 x 2048 is 68.7 GFLOP, 69.5 us at 989 TFLOP/s,
+// against 50 MB of operands and output (15 us at 3.35 TB/s). What the
+// design does about it: a plain GEMM on the tensor cores, M = j, N = i,
+// K = b, both operands MN-major as they lie in memory (no transpose
+// pass): 128 x 256 tiles, each of two consumer warpgroups a 64 x 256
+// product of m64n256k16 wgmma steps with 128 f32 sums a thread, b in
+// chunks of 64 rows streamed by TMA (128-byte swizzle) through a ring of
+// three 48 KB stages that a producer warp keeps full across tiles of a
+// persistent CTA. The whole of b (2,048) runs in each CTA: no split-K.
+//
+// f32 (the MLP) and the bf16 calls the plan cannot tile: `pe3_kernel`,
+// PE2's streamed FMA body (tt_contract.cuh). Bound: FP32 operations for
+// 512 x 896 (58.7 MFLOP, 0.88 us at 67 TFLOP/s), bytes for 16 x 512 (0.05
+// us); at both sizes what costs is filling the card. The plan
+// (kernels/tt_contract.py) gives 512 x 896 tiles of 32 (j) x 64 (i): 224
+// CTAs of 128 threads, each thread a 4 x 4 register tile, the whole b = 64
+// in one 24 KB stage brought in with 16-byte cp.async. 16 x 512 gets 4 x 8
+// tiles, 256 CTAs, with b split 32 ways across a warp's lanes and the
+// shares added by a fixed xor tree.
 
 #include "tt_contract.cuh"
+#include "tt_mma.cuh"
 
 namespace {
 
@@ -28,6 +44,18 @@ pe3_kernel(const T* __restrict__ x, const T* __restrict__ ybar, T* __restrict__ 
            tt_contract::Plan p) {
   tt_contract::contract<T, RD>(x, ybar, w, p);
 }
+
+template <int WGN, int SW>
+__global__ void __launch_bounds__(tt_mma::kMaxThreads<WGN>, 1)
+pe3_mma_kernel(const __grid_constant__ CUtensorMap ybar, const __grid_constant__ CUtensorMap x,
+               __nv_bfloat16* __restrict__ w, const tt_mma::Plan p) {
+  tt_mma::gemm<WGN, SW>(&ybar, &x, w, p);
+}
+
+template <int WGN, int SW>
+struct Mma {
+  static const void* fn() { return (const void*)pe3_mma_kernel<WGN, SW>; }
+};
 
 template <typename T>
 const void* pick(int rd) {
@@ -53,6 +81,14 @@ int pe3(const void* x, const void* ybar, void* w, int dtype, const int* plan, vo
                    : dtype == tt_contract::BF16 ? pick<__nv_bfloat16>(rd)
                                                 : nullptr;
   return tt_contract::launch(fn, x, ybar, w, plan, stream);
+}
+
+// The tensor-core route: x (b, i), ybar (b, j), w (j, i), contiguous bf16,
+// 16-byte aligned; `plan` is the PE2 plan at a = 1, c = i, d = j (25
+// int32, kernels/tt_mma.py PLAN_FIELDS). Returns cudaGetLastError() after
+// the launch.
+int pe3_mma(const void* x, const void* ybar, void* w, const int* plan, void* stream) {
+  return tt_mma::launch(tt_mma::pick<Mma>(plan[4], plan[5]), x, ybar, w, plan, stream);
 }
 
 const char* error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -2,17 +2,20 @@
 
     Z'(a, d, c) = sum_b  Z(a, b, c) * G(b, d)
 
-The port of ``repro/kernels/ttm_pe2.py``. ``pe2_cuda`` launches the
-hand-written kernel (``csrc/ttm_pe2.cu``: slabs Z[a] streamed through
-shared memory with G, launch plan from ``tt_contract.plan``);
-``pe2_torch`` is its plain version. Both accumulate in f32 and return
-Z's dtype.
+The port of ``repro/kernels/ttm_pe2.py``. ``pe2_cuda`` launches one of
+the hand-written kernels of ``csrc/ttm_pe2.cu``, by the route
+``tt_mma.plan`` gives for the dtype, shapes and alignment: bf16 with
+16-byte rows on the tensor cores (``pe2_mma_kernel``), everything else on
+the CUDA cores (``pe2_kernel``: slabs Z[a] streamed through shared memory
+with G, plan from ``tt_contract.plan``); both count as ``pe2`` launches.
+``pe2_torch`` is the plain version. All accumulate in f32 and return Z's
+dtype.
 """
 from __future__ import annotations
 
 import torch
 
-from . import tt_contract
+from . import tt_contract, tt_mma
 
 NAME = "pe2"
 
@@ -37,5 +40,9 @@ def pe2_cuda(z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     z, g = z.contiguous(), g.contiguous()
     out = torch.empty((a, d, c), dtype=z.dtype, device=z.device)
     tt_contract.check_sizes(NAME, z, g, out)
-    tt_contract.launch(NAME, "ttm_pe2", z, g, out)
+    p = tt_mma.plan_for(z, g)
+    if p is None:
+        tt_contract.launch(NAME, "ttm_pe2", z, g, out)
+    else:
+        tt_mma.launch(NAME, "ttm_pe2", p, z, g, out)
     return out

@@ -3,17 +3,19 @@ gradient (paper Appendix A.2):
 
     What(j, i) = sum_b  Ybar(b, j) * X(b, i)
 
-The port of ``repro/kernels/ttm_pe3.py``. ``pe3_cuda`` launches the
-hand-written kernel (``csrc/ttm_pe3.cu``: PE2's streamed contraction at
-a = 1, Z = X and G = Ybar, launch plan from ``tt_contract.plan``);
-``pe3_torch`` is its plain version. Both accumulate in f32 and return
-Ybar's dtype.
+The port of ``repro/kernels/ttm_pe3.py``. ``pe3_cuda`` launches one of
+the hand-written kernels of ``csrc/ttm_pe3.cu``: PE2's contraction at
+a = 1, Z = X and G = Ybar, by the same routes (``tt_mma.plan``): bf16 with
+16-byte rows on the tensor cores (``pe3_mma_kernel``), the rest on the
+CUDA cores (``pe3_kernel``, plan from ``tt_contract.plan``); both count as
+``pe3`` launches. ``pe3_torch`` is the plain version. All accumulate in
+f32 and return Ybar's dtype.
 """
 from __future__ import annotations
 
 import torch
 
-from . import tt_contract
+from . import tt_contract, tt_mma
 
 NAME = "pe3"
 
@@ -38,6 +40,10 @@ def pe3_cuda(ybar: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     ybar, x = ybar.contiguous(), x.contiguous()
     out = torch.empty((j, i), dtype=ybar.dtype, device=ybar.device)
     tt_contract.check_sizes(NAME, ybar, x, out)
-    tt_contract.launch(NAME, "ttm_pe3", x.view(1, b, i), ybar,
-                       out.view(1, j, i))
+    z, o = x.view(1, b, i), out.view(1, j, i)
+    p = tt_mma.plan_for(z, ybar)
+    if p is None:
+        tt_contract.launch(NAME, "ttm_pe3", z, ybar, o)
+    else:
+        tt_mma.launch(NAME, "ttm_pe3", p, z, ybar, o)
     return out

@@ -17,8 +17,10 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
     2e-2, the JAX kernel tests' tolerances) at odd shapes and at every
     shape of the FMNIST training step; PE2 and PE3 also on unaligned and
     sliced operands, over the b-split and two-stage paths, and repeat bit
-    for bit; PE1's fused epilogue is bit-identical to its own unfused
-    output through encode -> decode;
+    for bit; PE2 and PE3 in bf16 on the tensor cores (every tiling at
+    ragged shapes, the LM's calls cut down) match and repeat bit for bit,
+    one ``pe2`` launch a call; PE1's fused epilogue is bit-identical to its
+    own unfused output through encode -> decode;
 (f) one training step of the FMNIST TT MLP on the card matches the same
     step on the CPU and launches each kernel the counted number of times;
 (g) the blockwise encode/decode kernels are BIT-identical to their plain
@@ -362,6 +364,36 @@ def test_pe2_pe3_launches_repeat_bit_for_bit(cuda, dtype):
         x = torch.randn((b, i), generator=g, device=cuda).to(dtype)
         assert torch.equal(ttm_pe3.pe3_cuda(y, x).view(iv),
                            ttm_pe3.pe3_cuda(y, x).view(iv))
+
+
+# PE2 / PE3 on the tensor cores (csrc/tt_mma.cuh, bf16 with 16-byte rows):
+# every tiling (stacked at c = 16 and 32, thin, wide) at ragged a, b, c and
+# d, and the LM step's calls with a (PE2) or j and i (PE3) cut down
+PE_MMA = [(19, 7, 40, 24), (9, 100, 16, 256), (13, 256, 32, 128),
+          (3, 128, 256, 16), (2, 200, 136, 8), (1, 130, 520, 200),
+          (2, 64, 264, 72), (64, 256, 16, 256), (64, 256, 32, 256),
+          (64, 128, 512, 16), (64, 256, 256, 8), (1, 2048, 128, 512),
+          (1, 2048, 512, 128)]
+
+
+def test_pe_tensor_core_route_matches_plain_and_repeats(cuda):
+    from repro_torch.kernels import tt_mma
+    g = torch.Generator(device=cuda).manual_seed(5)
+    iv = torch.int16
+    for a, b, c, d in PE_MMA:
+        z = torch.randn((a, b, c), generator=g, device=cuda).to(torch.bfloat16)
+        w = (torch.randn((b, d), generator=g, device=cuda) * 0.2).to(
+            torch.bfloat16)
+        assert tt_mma.plan_for(z, w) is not None
+        B.reset_launches()
+        out = ttm_pe2.pe2_cuda(z, w)
+        assert B.LAUNCHES == {"pe2": 1}
+        _close(out, ttm_pe2.pe2_torch(z, w), torch.bfloat16)
+        assert torch.equal(out.view(iv), ttm_pe2.pe2_cuda(z, w).view(iv))
+        if a == 1:          # the same product as PE3: Ybar = w, X = z[0]
+            what = ttm_pe3.pe3_cuda(w, z[0])
+            _close(what, ttm_pe3.pe3_torch(w, z[0]), torch.bfloat16)
+            assert torch.equal(what.view(iv), out[0].view(iv))
 
 
 @pytest.mark.parametrize("bits", [4, 8])
