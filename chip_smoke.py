@@ -52,7 +52,8 @@ Phases (any failure raises and the script exits non-zero):
              the 2 biases) bit for bit with the twin and the per-leaf
              p2_enc + p2_dec route, +0.0 zeros, timed beside that route;
              every
-             PE1/PE2/PE3 call of a step within 1e-4 (f32) / 2e-2 (bf16),
+             PE1/PE2/PE3 call of a step within 1e-4 (f32) / 2e-2 (bf16; PE1
+             on the tensor cores there),
              PE1, PE2 and PE3 bit-identical over two launches, PE1's requant
              epilogue bit-identical to its own output through encode ->
              decode; timed beside the plain version and a library
@@ -172,11 +173,15 @@ Phases (any failure raises and the script exits non-zero):
              up to 2048 x 8192 x 2048), bf16, held to the plain version
              within 2e-2 and timed beside it, beside one torch.matmul of
              the same product and beside the bound (bytes at 3.35 TB/s or
-             bf16 operations at 989 TFLOP/s). Each of the nine PE2/PE3
-             calls takes the tensor-core route (tt_mma.plan, asserted),
-             repeats bit for bit over two launches, and is timed beside
-             the CUDA-core body at the same shape (``previous_ms``, held to
-             the plain version too).
+             bf16 operations at 989 TFLOP/s). Each of the twelve calls
+             (three PE1, six PE2, three PE3) takes the tensor-core route
+             (ttm_pe1.plan_pe1, tt_mma.plan; asserted), repeats bit for bit
+             over two launches, and is timed beside the CUDA-core body at
+             the same shape (``previous_ms``, held to the plain version
+             too); PE1's first call also runs with the requant epilogue on
+             the tensor cores, 4- and 8-bit, bit for bit the plain version
+             with the codec's epilogue and equal to encode -> decode of the
+             plain sum (integer operands: exact sums in any order).
 9. train lm — the fifth main path: with_tt(internlm2-1.8b, quantize=True)
              at full width and depth (24 layers, 144 TT sites at rank 16,
              bf16, remat full), int8 Adam moments and the int8 gradient
@@ -193,9 +198,9 @@ Phases (any failure raises and the script exits non-zero):
              fake-quant launch (a site's cores, an activation edge, a
              grad-edge group) bit for bit with the plain version, timed
              beside it and a loop of fake_quantize_per_tensor_affine;
-             then one profiled step (pe1_kernel 432, pe2_mma_kernel 864,
-             pe3_mma_kernel 144 and no pe2_kernel or pe3_kernel,
-             p2_fq_group_kernel 375, bw_enc_group_kernel 22,
+             then one profiled step (pe1_mma_kernel 432, pe2_mma_kernel
+             864, pe3_mma_kernel 144 and no pe1_kernel, pe2_kernel or
+             pe3_kernel, p2_fq_group_kernel 375, bw_enc_group_kernel 22,
              bw_dec_group_kernel 22 launches; asserted by name); then the
              same 8 steps with f32 moments, whose cross-entropy must
              fall.
@@ -216,8 +221,8 @@ build and a diagnostic of the PE1/PE2/PE3 kernels: each rebuilt with its FMA
 loop, its copies or its stores cut out and timed at the step's shapes, so
 the time of each phase reads as a difference (no profiler of kernel
 internals works on the card's machine). It covers the CUDA-core bodies
-only, at the MLP's f32 shapes; the tensor-core route (tt_mma.cuh) has no
-anatomy. ``--pa-anatomy`` does the same for
+only, at the MLP's f32 shapes; the tensor-core routes (tt_mma.cuh,
+pe1_mma_kernel) have no anatomy. ``--pa-anatomy`` does the same for
 the attention split pass (K/V staging, query load, scores, softmax, P @ V)
 beside its combine pass. Neither prints a result line.
 
@@ -1479,7 +1484,8 @@ def phase_pe_anatomy(torch, timer: Timer) -> dict:
     libs = {key: (ttm_pe1.typed(lib) if key[1] == "ttm_pe1"
                   else TC.typed(lib, key[1][4:]))
             for key, lib in _anatomy_libs(
-                PE_PHASES, cuts, ("tt_contract.cuh", "ttm_pe1.cu"),
+                PE_PHASES, cuts, ("tt_contract.cuh", "tt_mma.cuh",
+                                  "ttm_pe1.cu"),
                 ("ttm_pe1", "ttm_pe2", "ttm_pe3"), "pe").items()}
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
@@ -2003,11 +2009,11 @@ def _device_summary(torch, prof, steps: int) -> tuple[float, list]:
 KERNEL_FN = {"pe1": "pe1_kernel", "pe2": "pe2_kernel", "pe3": "pe3_kernel",
              "p2_fake_quant": "p2_fq_group_kernel",
              "bw_enc": "bw_enc_group_kernel", "bw_dec": "bw_dec_group_kernel"}
-# the LM's bf16 step: PE2 and PE3 on the tensor cores, and none of their
-# launches on the CUDA-core kernels
-LM_KERNEL_FN = {**KERNEL_FN, "pe2": "pe2_mma_kernel",
-                "pe3": "pe3_mma_kernel"}
-LM_ABSENT_FN = ("pe2_kernel", "pe3_kernel")
+# the LM's bf16 step: PE1, PE2 and PE3 on the tensor cores, and none of
+# their launches on the CUDA-core kernels
+LM_KERNEL_FN = {**KERNEL_FN, "pe1": "pe1_mma_kernel",
+                "pe2": "pe2_mma_kernel", "pe3": "pe3_mma_kernel"}
+LM_ABSENT_FN = ("pe1_kernel", "pe2_kernel", "pe3_kernel")
 
 
 def _profile_train(torch, one, per: dict, steps: int = 20, fn=KERNEL_FN,
@@ -3192,7 +3198,9 @@ def _lm_pe_calls():
         s = site.spec
         calls = [c for sp in (s, s.transposed()) for c in pe_shapes(sp, rows)]
         calls.append(("pe3", (rows, s.out_dim), (rows, s.in_dim)))
-        seen += [c for c in calls if c not in seen]
+        for c in calls:       # a site's two chains can share a shape
+            if c not in seen:
+                seen.append(c)
     return seen
 
 
@@ -3203,14 +3211,59 @@ def _pe_contraction(kind, z, g):
 
 
 def _pe_fma(kind, z, g):
-    """A PE2 or PE3 call on the CUDA-core body (``tt_contract``), whatever
-    route its plan gives: the design the tensor-core route replaced at the
-    LM's shapes, launched for timing only (``previous_ms``)."""
-    from repro_torch.kernels import tt_contract
+    """A PE call on its CUDA-core body (``ttm_pe1.launch`` with the FMA
+    plan; ``tt_contract`` for PE2 and PE3), whatever route its plan gives:
+    the design the tensor-core route replaced at the LM's shapes, launched
+    for timing only (``previous_ms``)."""
+    from repro_torch.kernels import tt_contract, ttm_pe1
+    if kind == "pe1":
+        out = z.new_empty((z.shape[0], g.shape[1]))
+        ttm_pe1.launch(z, g, out)
+        return out
     zz, gg = _pe_contraction(kind, z, g)
     out = zz.new_empty((zz.shape[0], gg.shape[1], zz.shape[2]))
     tt_contract.launch(kind, f"ttm_{kind}", zz, gg, out)
     return out if kind == "pe2" else out[0]
+
+
+def _lm_pe1_epilogue(torch, gen, zs, gs) -> list:
+    """PE1 at an LM shape on the tensor-core route with the requant
+    epilogue, 4- and 8-bit: integer operands in [-8, 8], whose sums f32
+    holds exactly in any order, so the kernel's sums are the plain
+    version's. Bit for bit with the plain version (einsum + the codec's
+    epilogue, -0.0 where a sum rounds to 0 from below), value for value
+    with the codec's encode -> decode of the plain f32 sum (+0.0 there),
+    and clipped at both ends of the grid. Returns the bit widths held."""
+    from repro_torch import numerics as TN
+    from repro_torch.kernels import ttm_pe1
+    z = torch.randint(-8, 9, zs, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    g = torch.randint(-8, 9, gs, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    check(ttm_pe1.plan_pe1_for(z, g) is not None,
+          "lm pe1 epilogue: not on the tensor-core route")
+    acc = ttm_pe1.pe1_torch(z.float(), g.float())
+    held = []
+    for bits, s in ((4, 3.0), (8, 1.0)):
+        step = torch.tensor(s, device="cuda")
+        fused = ttm_pe1.pe1_cuda(z, g, step, bits)
+        plain = ttm_pe1.pe1_torch(z, g, step, bits)
+        check(torch.equal(fused.view(torch.int16), plain.view(torch.int16)),
+              f"lm pe1 epilogue {bits}-bit: not bit for bit the plain "
+              "version")
+        unfused = TN.decode(TN.encode(acc, TN.QuantSpec("pow2", bits), step,
+                                      backend="cuda"), torch.float32,
+                            backend="cuda")
+        check(torch.equal(fused.float(), unfused),
+              f"lm pe1 epilogue {bits}-bit differs from encode -> decode")
+        q = fused.float() / 2.0 ** s
+        check(q.max().item() == 2 ** (bits - 1) - 1
+              and q.min().item() == -2 ** (bits - 1),
+              f"lm pe1 epilogue {bits}-bit: data did not clip at both ends")
+        held.append(bits)
+    log(f"lm pe1 epilogue on the tensor cores {zs} x {gs}: 4- and 8-bit bit "
+        "for bit the plain version, equal to encode -> decode")
+    return held
 
 
 def phase_lm_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
@@ -3219,11 +3272,16 @@ def phase_lm_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
     absolute, timed beside it, beside one ``torch.matmul`` of the same
     product on the same bf16 tensors (cuBLAS, tensor cores) and beside the
     bound (bytes at 3.35 TB/s or the bf16 operations at 989 TFLOP/s).
-    Every PE2 and PE3 call takes the tensor-core route (``tt_mma.plan``,
-    asserted), repeats bit for bit over two launches, and is timed beside
-    the CUDA-core body at the same shape (``previous_ms``: the route the
-    tensor cores replaced there), itself held to the plain version."""
-    from repro_torch.kernels import tt_mma
+    Every PE1, PE2 and PE3 call takes the tensor-core route
+    (``ttm_pe1.plan_pe1``, ``tt_mma.plan``; asserted), repeats bit for bit
+    over two launches, and is timed beside the CUDA-core body at the same
+    shape (``previous_ms``: the route the tensor cores replaced there),
+    itself held to the plain version. PE1's first call also runs with the
+    requant epilogue on the tensor-core route, held bit for bit to the
+    plain version with the codec's epilogue and value for value to the
+    codec's encode -> decode of the plain sum, on integer operands whose
+    sums f32 holds exactly in any order."""
+    from repro_torch.kernels import tt_mma, ttm_pe1
     gen = torch.Generator(device=device).manual_seed(4)
     rows = {"pe1": [], "pe2": [], "pe3": []}
     tol = PE_TOL["bfloat16"]
@@ -3243,22 +3301,25 @@ def phase_lm_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
               f"lm {kind} yardstick differs")
         row = dict(z=list(zs), g=list(gs), dtype="bfloat16",
                    max_abs_err=err.max().item())
-        if kind != "pe1":
-            p = tt_mma.plan_for(*_pe_contraction(kind, z, g))
-            check(p is not None,
-                  f"lm {kind} {zs}x{gs}: not on the tensor-core route")
-            check(_bits_equal(torch, kern(z, g), o),
-                  f"lm {kind} {zs}x{gs}: two launches differ")
-            check(close(_pe_fma(kind, z, g), r),
-                  f"lm {kind} {zs}x{gs}: the CUDA-core body differs")
-            row.update(route="tensor cores", orientation=p.orientation,
-                       tile=[p.bm, p.bn], stages=p.stages,
-                       resident=bool(p.resident), grid=p.grid,
-                       smem=p.smem)
+        p = (ttm_pe1.plan_pe1_for(z, g) if kind == "pe1" else
+             tt_mma.plan_for(*_pe_contraction(kind, z, g)))
+        check(p is not None,
+              f"lm {kind} {zs}x{gs}: not on the tensor-core route")
+        check(_bits_equal(torch, kern(z, g), o),
+              f"lm {kind} {zs}x{gs}: two launches differ")
+        check(close(_pe_fma(kind, z, g), r),
+              f"lm {kind} {zs}x{gs}: the CUDA-core body differs")
+        row.update(route="tensor cores", tile=[p.bm, p.bn],
+                   stages=p.stages, grid=p.grid, smem=p.smem)
+        if kind == "pe1":
+            row.update(orientation="K-major", staging=p.nbuf)
+        else:
+            row.update(orientation=p.orientation, resident=bool(p.resident))
+        if kind == "pe1" and not rows["pe1"]:
+            row["epilogue_bits"] = _lm_pe1_epilogue(torch, gen, zs, gs)
         del o, r, err
         row["ms"] = timer(lambda: kern(z, g), iters=10)
-        if kind != "pe1":
-            row["previous_ms"] = timer(lambda: _pe_fma(kind, z, g), iters=5)
+        row["previous_ms"] = timer(lambda: _pe_fma(kind, z, g), iters=5)
         row["plain_ms"] = timer(lambda: plain(z, g), iters=5)
         row["library_ms"] = timer(lambda: _pe_library(torch, kind, z, g),
                                   iters=10)
@@ -3268,8 +3329,7 @@ def phase_lm_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
                                                     BF16_OPS_PER_S)
         row["tflops"] = flops / row["ms"] / 1e9
         rows[kind].append(row)
-        was = ("" if kind == "pe1" else
-               f"; {row['orientation']} {row['tile'][0]} x {row['tile'][1]}"
+        was = (f"; {row['orientation']} {row['tile'][0]} x {row['tile'][1]}"
                f", CUDA-core body {row['previous_ms']*1e3:.1f} us, "
                f"{row['previous_ms'] / row['ms']:.1f}x")
         log(f"lm {kind} {zs} x {gs} bf16: {row['ms']*1e3:.1f} us "
@@ -3628,8 +3688,11 @@ TRAIN_KERNELS = {
     "pe3": ("src/repro_torch/kernels/csrc/ttm_pe3.cu",
             "src/repro/kernels/ttm_pe3.py:23"),
 }
-# the tensor-core route of PE2 / PE3 (the LM step's every launch of each)
+# the tensor-core route of PE1 / PE2 / PE3 (the LM step's every launch of
+# each)
 LM_KERNELS = {
+    "pe1_mma": ("src/repro_torch/kernels/csrc/ttm_pe1.cu",
+                "src/repro/kernels/ttm_pe1.py:34", "pe1"),
     "pe2_mma": ("src/repro_torch/kernels/csrc/ttm_pe2.cu",
                 "src/repro/kernels/ttm_pe2.py:25", "pe2"),
     "pe3_mma": ("src/repro_torch/kernels/csrc/ttm_pe3.cu",
@@ -3695,15 +3758,13 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
                                 f"train wire ({wire['steps']} steps, site "
                                 "table and deploy export)"))
     for row in rows:
-        # the LM step's launches, and PE1 at its shapes after the MLP's
-        # (its PE2 / PE3 launches are the tensor-core rows below)
+        # the LM step's launches (its PE launches are the tensor-core rows
+        # below)
         name = row["name"]
-        if name in lm["launches"] and name not in ("pe2", "pe3"):
+        if name in lm["launches"] and name not in ("pe1", "pe2", "pe3"):
             row["lm_launches"] = lm["launches"][name]
             row["path"] += (f"; train lm ({lm['steps']} steps, "
                             f"{lm['launches_per_step'][name]} a step)")
-        if name == "pe1":
-            row["shapes"] = row["shapes"] + lmkern[name]
         if name == "p2_fake_quant":
             row["shapes"] = row["shapes"] + lm["fq_rows"]
     for name, (src, replaces, kind) in LM_KERNELS.items():

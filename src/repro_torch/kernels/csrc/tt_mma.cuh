@@ -49,6 +49,11 @@
 // body): bf16; c and d multiples of 8 (16-byte rows of Z, G and O, the
 // TMA's stride unit); Z and G 16-byte aligned. Ragged edges in a, b, c
 // and d are the TMA's zero fill on the way in and masks on the way out.
+//
+// The helpers below `gemm`'s (mbarriers, TMA loads and tensor stores, bulk
+// stores, descriptors, wgmma in both operand majors, the tensor-map
+// encoders) also serve PE1's tensor-core body (csrc/ttm_pe1.cu
+// `pe1_mma_kernel`).
 
 #pragma once
 
@@ -142,7 +147,9 @@ __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, uint64
 // Shared-memory matrix descriptor: start address, leading byte offset (for
 // an MN-major swizzled operand: between the swizzle-wide column blocks),
 // stride byte offset (between 8-row groups of K), swizzle (1: 128 B, 2: 64
-// B, 3: 32 B).
+// B, 3: 32 B). A K-major swizzled operand whose K fits one swizzle row
+// (PE1's) has no LBO and an SBO of 8 rows; its k-steps start 32 bytes
+// apart within the row.
 __device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t sbo, int sw) {
   const uint64_t layout = sw == 128 ? 1 : sw == 64 ? 2 : 3;
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
@@ -164,27 +171,26 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (64 x N, f32) += A^T B over one k-step of 16: A and B MN-major (the
-// trailing "1, 1" of the instruction); scale_d = 0 starts a sum.
-template <int N>
-__device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
-template <>
-__device__ __forceinline__ void mma<64>(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+// D (64 x N, f32) += A B over one k-step of 16; scale_d = 0 starts a sum.
+// TR is the instruction's two transpose immediates: 1, A and B MN-major
+// (D = A^T B of PE2 / PE3's tiles), 0, both K-major (PE1's).
+template <int TR>
+__device__ __forceinline__ void mma64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      "%32, %33, p, 1, 1, %35, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TR));
 }
-template <>
-__device__ __forceinline__ void mma<128>(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+template <int TR>
+__device__ __forceinline__ void mma128(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
@@ -193,7 +199,7 @@ __device__ __forceinline__ void mma<128>(float (&d)[64], uint64_t a, uint64_t b,
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      "%64, %65, p, 1, 1, %67, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -202,10 +208,10 @@ __device__ __forceinline__ void mma<128>(float (&d)[64], uint64_t a, uint64_t b,
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TR));
 }
-template <>
-__device__ __forceinline__ void mma<256>(float (&d)[128], uint64_t a, uint64_t b, int scale_d) {
+template <int TR>
+__device__ __forceinline__ void mma256(float (&d)[128], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %130, 0;\n"
@@ -218,7 +224,7 @@ __device__ __forceinline__ void mma<256>(float (&d)[128], uint64_t a, uint64_t b
       " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
       " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
       " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 1, 1;\n}\n"
+      "%128, %129, p, 1, 1, %131, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -235,9 +241,18 @@ __device__ __forceinline__ void mma<256>(float (&d)[128], uint64_t a, uint64_t b
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TR));
 }
-
+template <int N, int TR = 1>
+__device__ __forceinline__ void mma(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma N of this body: 64, 128 or 256");
+  if constexpr (N == 64)
+    mma64<TR>(d, a, b, scale_d);
+  else if constexpr (N == 128)
+    mma128<TR>(d, a, b, scale_d);
+  else
+    mma256<TR>(d, a, b, scale_d);
+}
 
 __device__ __forceinline__ void bar_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
@@ -249,12 +264,26 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t 
                "r"(smem_u32(src)), "r"(bytes)
                : "memory");
 }
+// a TMA tensor store of the box at (x, y) from a shared-memory tile laid out
+// as the map's swizzle says; rows and columns past the tensor are dropped
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int x,
+                                             int y) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(x), "r"(y)
+               : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 // this thread's bulk stores have read shared memory (.read) or are done
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// ... or all but this thread's N most recent groups have read it
+template <int N>
+__device__ __forceinline__ void bulk_wait_read_upto() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
@@ -461,6 +490,22 @@ inline CUtensorMapSwizzle swizzle(int bytes) {
   return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
          : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                        : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+// A 2-D bf16 map: `inner` x `outer` elements, rows `stride` bytes apart,
+// boxes of box_inner x box_outer under the `sw`-byte swizzle; reads past
+// the edges give zeros.
+inline bool map_2d(CUtensorMap* m, const void* ptr, uint64_t inner, uint64_t outer,
+                   uint64_t stride, uint32_t box_inner, uint32_t box_outer, int sw) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dim[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t str[1] = {(cuuint64_t)stride};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t ones[2] = {1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dim, str, box, ones,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle(sw), CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // G (b, d) as A: boxes of 64 columns of d by kBK rows, 128-byte swizzle;

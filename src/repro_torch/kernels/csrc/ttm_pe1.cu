@@ -4,49 +4,83 @@
 //   Y(a, d) = sum_{b,c} Z(a, b, c) G(b, d, c)   [+ pow-2 requant]
 //
 // Replaces: repro/kernels/ttm_pe1.py:34 `_pe1_kernel` / `pe1_matmul`. On the
-// training path it runs every TT matvec chain's first contraction: 6
-// launches a step, at Z (a, 1, 16) x G (1, 256, 16) with a = 3584, 2048,
-// 2048 and 64.
+// training path it runs every TT matvec chain's first contraction (Eq. 8,
+// b = 1): 6 launches an FMNIST MLP step (f32, Z (a, 1, 16) x G (1, 256, 16)
+// with a = 3584, 2048, 2048 and 64), 432 a step of with_tt(internlm2-1.8b)
+// (bf16: (262144, 1, 16) x (1, 256, 16) and x (1, 512, 16), (524288, 1, 32)
+// x (1, 256, 32)).
 //
-// Bound on the H100: bytes. With b = 1 and c = 16 each output is a 16-long
-// dot product: a = 3584 stores 3.67 MB (1.1 us at 3.35 TB/s) for 29 MFLOP
-// (0.44 us at the 67 TFLOP/s FP32 rate); at a = 64 the call is launch
-// latency. What costs is getting every SM storing early: the CTA's loads,
-// its few FMAs and its stores run one after another, so the design keeps
-// each of them short and the grid wide.
+// Two bodies, chosen by kernels/ttm_pe1.py from dtype, shape and alignment
+// alone (`plan_pe1`; the calls it cannot tile take `plan`):
 //
-// Design. Z and G are both contiguous along c, so the contraction walks
-// (b, c) in chunks of BK = 16 with nested counters (no division in any
-// loop). A CTA owns AT = rm * ta rows of a by DT = 4 * td columns of d; a
-// thread keeps an rm x 4 register tile of f32 sums, its four columns
-// adjacent so the output leaves as one float4 (8 bytes in bf16) store, and
-// along a warp the columns come first, so the warp stores whole lines. Per
-// chunk, Z's rows land in shared memory by 16-byte cp.async (8-, 4- or
-// 2-byte granules where c, the tile and the pointer allow no more; ragged
-// c is zero-filled) and are read as broadcasts; G's (d-tile, c-chunk)
-// slice is read with vector loads, a batch of granules in flight per
-// thread, widened to f32 and stored transposed (c-major), so each thread
-// reads its four columns as one conflict-free float4. At the step's shapes
-// G is 16 KB and one chunk. The tile and grid come from the pure function
-// kernels/ttm_pe1.py::plan: up to 64 columns of d (td = 16 threads of
-// four), 16 threads along a, and the largest row tile (rm <= 8) that still
-// gives CTAs for 7/8 of the 132 SMs: a = 3584 and 2048 take 224 and 128
-// CTAs of 64 x 64 outputs, a = 64 takes 16. Tried on the H100 at the
-// step's shapes and dropped (probe runs, not kept): tiles of 256 columns,
-// and reading Z and G straight into registers without shared memory; both
-// were slower.
+// bf16 with b = 1, c and d multiples of 8, c <= 64 and 16-byte aligned
+// operands (every LM call): `pe1_mma_kernel`, wgmma on the tensor cores.
+// With b = 1 the call is a plain GEMM, M = a, N = d, K = c, both operands
+// K-major (Z (a, c) and G (d, c) are contiguous along c). Bound on the H100:
+// bytes, the output's above all: Y is d / c = 8-32x Z. (262144, 1, 16) x (1,
+// 256, 16) writes 134 MB and reads 8.4 MB, 42.6 us at 3.35 TB/s, against 2.2
+// GFLOP, 2.2 us at 989 TFLOP/s (on the CUDA cores, at 16-20 TFLOP/s, the
+// products alone outlasted the bytes at c = 32). What the design does about
+// it: keep HBM's write stream full and put nothing in its way. A persistent
+// CTA (one per SM) walks its tiles in order; each tile spans all of d (128 x
+// 256 at d = 256, two consumer warpgroups along a; 64 x 512 at d = 512, two
+// along d), one contiguous run of Y of 64 KB. G (8-16 KB) is loaded once per
+// CTA and stays; Z streams through a ring of TMA loads (rows of c under the
+// 32-, 64- or 128-byte swizzle, zero-filled to the next 16 of K and past a)
+// that a producer warp keeps ahead. A warpgroup's 64 x 256 tile is two
+// m64n128 products (64 f32 sums a thread: at 128 the body spilled) of one to
+// four wgmma k-steps of 16, both operands K-major (the instruction's
+// transpose immediates 0); after each, the epilogue converts the f32 sums to
+// bf16 (requantized first when asked) into a staging tile laid out as the
+// output map's 128-byte swizzle (boxes of 64 columns, so the fragment writes
+// do not conflict), and TMA tensor stores take it out, rows past a dropped.
+// Each warpgroup double-buffers its staging: a tile's stores run under the
+// next tile's loads, products and conversions, and a warpgroup waits only
+// until the stores of the tile two back have read their staging. No split-K
+// and no atomics: each output is one warpgroup's sum in a fixed order, so
+// two launches give the same bits.
 //
-// Numerics: inputs f32 or bf16, products accumulated in f32 with FMA on the
-// CUDA cores (no tensor cores, so no TF32), each output's (b, c) terms in
-// increasing order: two launches give the same bits. The optional epilogue
-// requantizes the f32 sum before the store exactly as
-// Pow2Reference.epilogue / encode -> decode do:
+// f32, and the bf16 calls the tensor-core plan cannot tile: `pe1_kernel`,
+// FMA on the CUDA cores. Bound on the H100: bytes. With b = 1 and c = 16
+// each output is a 16-long dot product: a = 3584 stores 3.67 MB (1.1 us at
+// 3.35 TB/s) for 29 MFLOP (0.44 us at the 67 TFLOP/s FP32 rate); at a = 64
+// the call is launch latency. What costs is getting every SM storing early:
+// the CTA's loads, its few FMAs and its stores run one after another, so
+// the design keeps each of them short and the grid wide.
+//
+// Design of `pe1_kernel`. Z and G are both contiguous along c, so the
+// contraction walks (b, c) in chunks of BK = 16 with nested counters (no
+// division in any loop). A CTA owns AT = rm * ta rows of a by DT = 4 * td
+// columns of d; a thread keeps an rm x 4 register tile of f32 sums, its four
+// columns adjacent so the output leaves as one float4 (8 bytes in bf16)
+// store, and along a warp the columns come first, so the warp stores whole
+// lines. Per chunk, Z's rows land in shared memory by 16-byte cp.async (8-,
+// 4- or 2-byte granules where c, the tile and the pointer allow no more;
+// ragged c is zero-filled) and are read as broadcasts; G's (d-tile, c-chunk)
+// slice is read with vector loads, a batch of granules in flight per thread,
+// widened to f32 and stored transposed (c-major), so each thread reads its
+// four columns as one conflict-free float4. At the step's shapes G is 16 KB
+// and one chunk. The tile and grid come from the pure function
+// kernels/ttm_pe1.py::plan: up to 64 columns of d (td = 16 threads of four),
+// 16 threads along a, and the largest row tile (rm <= 8) that still gives
+// CTAs for 7/8 of the 132 SMs: a = 3584 and 2048 take 224 and 128 CTAs of 64
+// x 64 outputs, a = 64 takes 16. Tried on the H100 at the step's shapes and
+// dropped (probe runs, not kept): tiles of 256 columns, and reading Z and G
+// straight into registers without shared memory; both were slower.
+//
+// Numerics: `pe1_kernel` takes f32 or bf16 and accumulates in f32 with FMA
+// on the CUDA cores (no tensor cores, so no TF32), each output's (b, c)
+// terms in increasing order; `pe1_mma_kernel` takes bf16 and sums in f32 on
+// the tensor cores. Both carry the optional epilogue, which requantizes the
+// f32 sum before the store exactly as Pow2Reference.epilogue / encode ->
+// decode do:
 //   clip(rintf(acc / 2^s), lo, hi) * 2^s, then cast to the output dtype,
-// so the fused output is bit-identical to the unfused one passed through
+// so the fused output is bit-identical to the unfused sum passed through
 // the codec. All index math is 32-bit (the wrapper refuses tensors of 2^31
 // elements or more).
 
 #include "tt_contract.cuh"
+#include "tt_mma.cuh"
 
 namespace {
 
@@ -229,6 +263,190 @@ const void* pick(int rm) {
   }
 }
 
+// ---- the tensor-core body (bf16, b = 1)
+
+constexpr int kMmaThreads = 2 * 128 + 32;  // two consumer warpgroups, the producer warp
+constexpr int kOutBox = 64;                // output box: 64 columns (128 bytes) x 64 rows
+constexpr int kOutBoxBytes = kOutBox * 64 * 2;
+
+// Field order is kernels/ttm_pe1.py MMA_FIELDS.
+struct MmaPlan {
+  int a, c, d;               // Z (a, c), G (d, c), Y (a, d)
+  int wgn, sw, ksteps;       // N per warpgroup and Z's / G's swizzle bytes (the
+                             // template); k-steps of 16
+  int wm, wn;                // consumer warpgroups along a and along d
+  int tiles_m, tiles_n, tiles;
+  int grid, threads;
+  int stages, nbuf;          // ring slots; staging tiles per warpgroup
+  int stage, g_bytes, out_bytes, smem;  // bytes: a ring slot, resident G, a
+                                        // staging tile, the whole
+};
+constexpr int kMmaFields = 19;
+static_assert(sizeof(MmaPlan) == kMmaFields * sizeof(int), "MmaPlan is 19 int32");
+
+// until all but this thread's nbuf - 1 most recent bulk groups (one a
+// tile) have read their staging tiles
+__device__ __forceinline__ void wait_staging(int nbuf) {
+  if (nbuf == 1)
+    tt_mma::bulk_wait_read();
+  else
+    tt_mma::bulk_wait_read_upto<1>();
+}
+
+// Warps 0-7 are the consumer warpgroups (warpgroup g takes rows 64 * (g /
+// wn) and columns WGN * (g % wn) of a tile), warp 8 the producer. Shared
+// memory, from a 1024-byte boundary: resident G (rows of SW bytes, boxes of
+// WGN rows), the ring of Z slots (64 * wm rows of SW bytes), each
+// warpgroup's nbuf staging tiles (WGN / 64 boxes of 64 x 128 bytes), the
+// barriers.
+template <int WGN, int SW>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+pe1_mma_kernel(const __grid_constant__ CUtensorMap tz, const __grid_constant__ CUtensorMap tg,
+               const __grid_constant__ CUtensorMap ty, const MmaPlan p, int epilogue,
+               const float* __restrict__ step, float lo, float hi) {
+  using namespace tt_mma;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                           ~uintptr_t(1023));
+  const int nwg = p.wm * p.wn;
+  uint8_t* g_res = sm;
+  uint8_t* ring = g_res + p.g_bytes;
+  uint8_t* outs = ring + p.stages * p.stage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(outs + nwg * p.nbuf * p.out_bytes);
+  uint64_t* empty = full + p.stages;
+  uint64_t* gbar = empty + p.stages;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, nwg);
+    }
+    mbar_init(gbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int bm = 64 * p.wm, bn = WGN * p.wn;
+
+  if (wg == nwg) {  // ---- producer: one lane issues every copy
+    if ((threadIdx.x & 31) != 0) return;
+    mbar_expect_tx(gbar, p.g_bytes);
+    for (int i = 0; i < p.tiles_n * p.wn; ++i)
+      tma_2d(g_res + i * WGN * SW, &tg, gbar, 0, i * WGN);
+    int st = 0, ph = 0;
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      mbar_wait(empty + st, ph ^ 1);
+      mbar_expect_tx(full + st, p.stage);
+      tma_2d(ring + st * p.stage, &tz, full + st, 0, (t / p.tiles_n) * bm);
+      if (++st == p.stages) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup wg: its WGN columns as NH products of HN (a
+  // 64 x 256 tile as two of 64 x 128: 64 f32 sums a thread, not 128)
+  constexpr int NH = WGN > 128 ? WGN / 128 : 1, HN = WGN / NH;
+  const int wmi = wg / p.wn, wni = wg - (wg / p.wn) * p.wn;
+  const int lane = threadIdx.x & 127;
+  const float scale = epilogue ? pow2_step(__ldg(step)) : 1.f;
+  const uint32_t sbo = 8 * SW;  // K-major, K within one swizzle row: the
+                                // 8-row groups' stride; no LBO
+  // the fragment's rows r0 and r0 + 8, columns 8 j + cb, cb + 1
+  const int r0 = (lane >> 5) * 16 + ((lane & 31) >> 2), cb = 2 * (lane & 3);
+  uint8_t* stg0 = outs + wg * p.nbuf * p.out_bytes;
+  float acc[HN / 2];
+#pragma unroll
+  for (int i = 0; i < HN / 2; ++i) acc[i] = 0.f;
+  mbar_wait(gbar, 0);
+  int st = 0, ph = 0, buf = 0;
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const int tm = t / p.tiles_n, tn = t - tm * p.tiles_n;
+    const int m0 = tm * bm + 64 * wmi, n0 = tn * bn + WGN * wni;
+    mbar_wait(full + st, ph);
+    const uint8_t* as = ring + st * p.stage + wmi * 64 * SW;
+    // staging tile `buf`, free once the stores of the tile nbuf back have
+    // read it (lane 0 issued them), laid out as the output map's 128-byte
+    // swizzle: 16-byte chunk q of row r at q ^ (r % 8)
+    uint8_t* stg = stg0 + buf * p.out_bytes;
+    if (lane == 0) wait_staging(p.nbuf);
+    bar_sync(1 + wg);
+#pragma unroll 1
+    for (int h = 0; h < NH; ++h) {
+      const uint8_t* bs = g_res + (n0 + h * HN) * SW;
+      fence_acc(acc);
+      mma_fence();
+#pragma unroll
+      for (int ks = 0; ks < SW / 32; ++ks)
+        if (ks < p.ksteps)
+          mma<HN, 0>(acc, desc(as + 32 * ks, 16, sbo, SW), desc(bs + 32 * ks, 16, sbo, SW),
+                     ks != 0);
+      mma_commit();
+      fence_acc(acc);
+      mma_wait<0>();
+      fence_acc(acc);
+      if (h == NH - 1 && lane == 0) mbar_arrive(empty + st);
+      // epilogue: f32 -> bf16, requantized first when asked
+#pragma unroll
+      for (int j = 0; j < HN / 8; ++j) {
+        float v[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]};
+        if (epilogue) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float q = rintf(v[e] / scale);
+            q = q < lo ? lo : (q > hi ? hi : q);
+            v[e] = q * scale;
+          }
+        }
+        const int jj = h * (HN / 8) + j;
+        uint8_t* at =
+            stg + (jj >> 3) * kOutBoxBytes + ((((jj & 7) ^ (r0 & 7)) << 4) | (cb * 2));
+        *reinterpret_cast<__nv_bfloat162*>(at + r0 * 128) = __floats2bfloat162_rn(v[0], v[1]);
+        *reinterpret_cast<__nv_bfloat162*>(at + (r0 + 8) * 128) =
+            __floats2bfloat162_rn(v[2], v[3]);
+      }
+      // this product's boxes go out while the next one runs
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bar_sync(1 + wg);
+      if (lane == 0 && m0 < p.a)
+        for (int i = h * HN / kOutBox; i < (h + 1) * HN / kOutBox; ++i)
+          if (n0 + kOutBox * i < p.d)
+            tma_store_2d(&ty, stg + i * kOutBoxBytes, n0 + kOutBox * i, m0);
+    }
+    if (lane == 0) bulk_commit();
+    if (++st == p.stages) {
+      st = 0;
+      ph ^= 1;
+    }
+    if (++buf == p.nbuf) buf = 0;
+  }
+  if (lane == 0) bulk_wait();
+}
+
+template <int WGN, int SW>
+const void* mma_fn() {
+  return (const void*)pe1_mma_kernel<WGN, SW>;
+}
+
+// The instance for the plan's (wgn, sw), or null.
+const void* pick_mma(int wgn, int sw) {
+#define PE1_MMA_CASE(N)                       \
+  if (wgn == N) {                             \
+    if (sw == 32) return mma_fn<N, 32>();     \
+    if (sw == 64) return mma_fn<N, 64>();     \
+    if (sw == 128) return mma_fn<N, 128>();   \
+  }
+  PE1_MMA_CASE(64)
+  PE1_MMA_CASE(128)
+  PE1_MMA_CASE(256)
+#undef PE1_MMA_CASE
+  return nullptr;
+}
+
+int cdiv(int n, int m) { return (n + m - 1) / m; }
+
 }  // namespace
 
 extern "C" {
@@ -267,6 +485,49 @@ int pe1(const void* z, const void* g, void* y, int dtype, const int* fields, int
   void* args[] = {&z, &g, &y, &p, &epilogue, &step, (void*)&lo, (void*)&hi};
   const cudaError_t e = cudaLaunchKernel(fn, dim3((unsigned)p.grid), dim3((unsigned)p.threads),
                                          args, (size_t)p.smem, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core route: z (a, 1, c), g (1, d, c), y (a, d), contiguous bf16,
+// 16-byte aligned; `plan` is 19 int32 (kernels/ttm_pe1.py MMA_FIELDS); the
+// epilogue as `pe1`'s. Returns cudaGetLastError() after the launch.
+int pe1_mma(const void* z, const void* g, void* y, const int* fields, int epilogue,
+            const void* step, int bits, void* stream) {
+  MmaPlan p;
+  memcpy(&p, fields, sizeof(MmaPlan));
+  if (p.tiles == 0) return (int)cudaSuccess;
+  const int nwg = p.wm * p.wn;
+  const bool ok =
+      (p.wgn == 64 || p.wgn == 128 || p.wgn == 256) && (p.sw == 32 || p.sw == 64 || p.sw == 128) &&
+      p.a >= 1 && p.c >= 8 && p.c % 8 == 0 && p.d >= 8 && p.d % 8 == 0 && p.ksteps >= 1 &&
+      p.ksteps * 32 <= p.sw && p.ksteps * 16 >= p.c && nwg >= 1 && nwg <= 2 &&
+      p.threads == nwg * 128 + 32 && p.tiles_m == cdiv(p.a, 64 * p.wm) &&
+      p.tiles_n * p.wgn * p.wn >= p.d && p.tiles == p.tiles_m * p.tiles_n && p.grid >= 1 &&
+      p.grid <= p.tiles && p.stages >= 2 && (p.nbuf == 1 || p.nbuf == 2) &&
+      p.stage == 64 * p.wm * p.sw && p.g_bytes == p.tiles_n * p.wn * p.wgn * p.sw &&
+      p.out_bytes == 64 * p.wgn * 2 &&
+      p.smem >= 1024 + p.g_bytes + p.stages * p.stage + nwg * p.nbuf * p.out_bytes +
+                    16 * p.stages + 8 &&
+      p.smem <= tt_mma::kMaxSmem &&
+      (reinterpret_cast<uintptr_t>(z) | reinterpret_cast<uintptr_t>(g) |
+       reinterpret_cast<uintptr_t>(y)) % 16 == 0;
+  if (!ok || (epilogue && (bits < 2 || bits > 16 || step == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = pick_mma(p.wgn, p.sw);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  CUtensorMap tz, tg, ty;
+  if (!tt_mma::map_2d(&tz, z, p.c, p.a, (uint64_t)p.c * 2, p.sw / 2, 64 * p.wm, p.sw) ||
+      !tt_mma::map_2d(&tg, g, p.c, p.d, (uint64_t)p.c * 2, p.sw / 2, p.wgn, p.sw) ||
+      !tt_mma::map_2d(&ty, y, p.d, p.a, (uint64_t)p.d * 2, kOutBox, 64, 128))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (e != cudaSuccess) return (int)e;
+  const float lo = epilogue ? -ldexpf(1.f, bits - 1) : 0.f;
+  const float hi = epilogue ? ldexpf(1.f, bits - 1) - 1.f : 0.f;
+  void* args[] = {&tz, &tg, &ty, &p, &epilogue, &step, (void*)&lo, (void*)&hi};
+  e = cudaLaunchKernel(fn, dim3((unsigned)p.grid), dim3((unsigned)p.threads), args, (size_t)p.smem,
+                       (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

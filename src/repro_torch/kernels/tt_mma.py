@@ -24,6 +24,8 @@ fits beside at least two stages, G is ``resident``: loaded once per CTA.
 The ring then holds only Z's 64-row chunks, as many stages as fit. The
 grid is persistent: one CTA per SM, at most one per tile. CPU tests check
 all of it; the libraries are built at the first launch, never at import.
+PE1's tensor-core route runs on the same helpers of ``csrc/tt_mma.cuh``
+and is planned by ``ttm_pe1.plan_pe1``.
 """
 from __future__ import annotations
 

@@ -3,14 +3,26 @@ Eq. 5), with the FPGA PE's optional requantize-on-writeback epilogue:
 
     Z'(a, d) = sum_{b, c}  Z(a, b, c) * G(b, d, c)
 
-The port of ``repro/kernels/ttm_pe1.py``. ``pe1_cuda`` launches the
-hand-written kernel (``csrc/ttm_pe1.cu``: (b, c) walked in chunks, Z's rows
-staged by cp.async, G's slice transposed into shared memory, an rm x 4
-register tile per thread stored as float4); its launch plan is the pure
-function ``plan``, which the CPU tests check where no kernel runs.
-``pe1_torch`` is its plain version (einsum + the codec's ``epilogue``), the
-CPU path and the kernel's oracle on the card. Both accumulate in f32 (f64
-inputs stay f64 in the plain version) and return Z's dtype.
+The port of ``repro/kernels/ttm_pe1.py``. ``pe1_cuda`` launches one of the
+two hand-written kernels of ``csrc/ttm_pe1.cu``, by the route the pure
+function ``plan_pe1`` gives for the dtype, shapes and alignment:
+
+- ``pe1_mma_kernel``, wgmma on the tensor cores, for bf16 with b = 1 (the
+  chain's Eq. 8 form: a plain GEMM, M = a, N = d, K = c), c and d multiples
+  of 8, c at most 64 and both operands 16-byte aligned: every call of the
+  LM step. Persistent CTAs walk tiles that span all of d, G stays in shared
+  memory, Z streams through a TMA ring, and each tile leaves through TMA
+  tensor stores from a double-buffered staging tile (``MmaPlan``).
+- ``pe1_kernel``, FMA on the CUDA cores, for everything else (the MLP's f32
+  calls): (b, c) walked in chunks, Z's rows staged by cp.async, G's slice
+  transposed into shared memory, an rm x 4 register tile per thread stored
+  as float4; its launch plan is the pure function ``plan``.
+
+Both count as ``pe1`` launches and both carry the epilogue. The CPU tests
+check both plans where no kernel runs. ``pe1_torch`` is the plain version
+(einsum + the codec's ``epilogue``), the CPU path and the kernels' oracle on
+the card. All accumulate in f32 (f64 inputs stay f64 in the plain version)
+and return Z's dtype.
 """
 from __future__ import annotations
 
@@ -23,7 +35,7 @@ import torch
 from ..numerics.codecs import Pow2Reference
 from ..numerics.spec import QuantSpec
 from . import build as B
-from . import tt_contract
+from . import tt_contract, tt_mma
 
 NAME = "pe1"
 SOURCE = "ttm_pe1"
@@ -120,6 +132,109 @@ def plan(a: int, b: int, c: int, d: int, elsize: int, z_misalign: int = 0,
                 zs_bytes + BK * 4 * td * 4, int(d % 4 == 0))
 
 
+# ---------------------------------------------------------------------------
+# the tensor-core route (bf16, b = 1)
+# ---------------------------------------------------------------------------
+
+MMA_THREADS = 2 * 128 + 32    # two consumer warpgroups and the producer warp
+MMA_STAGES = 8                # Z ring slots at most
+OUT_BUFS = 2                  # staging tiles per warpgroup (1 where 2 do not fit)
+OUT_BOX = 64                  # columns of the output's TMA box (128 bytes)
+MAX_C = 64                    # K within one 128-byte swizzle row
+
+MMA_FIELDS = ("a", "c", "d", "wgn", "sw", "ksteps", "wm", "wn", "tiles_m",
+              "tiles_n", "tiles", "grid", "threads", "stages", "nbuf",
+              "stage", "g_bytes", "out_bytes", "smem")
+
+
+@dataclass(frozen=True)
+class MmaPlan:
+    a: int
+    c: int
+    d: int
+    wgn: int             # columns of d per warpgroup (the template): 64-256
+    sw: int              # bytes of a row of Z and G in shared memory and
+    #                      their swizzle (the template): 32, 64, 128
+    ksteps: int          # wgmma k-steps of 16 (c zero-filled to 16 ksteps)
+    wm: int              # consumer warpgroups along a
+    wn: int              # and along d
+    tiles_m: int
+    tiles_n: int
+    tiles: int
+    grid: int            # CTAs (persistent)
+    threads: int
+    stages: int          # Z ring slots
+    nbuf: int            # staging tiles per warpgroup
+    stage: int           # bytes of a ring slot: bm rows of sw bytes
+    g_bytes: int         # bytes of resident G: tiles_n * bn rows of sw
+    out_bytes: int       # bytes of a staging tile: 64 rows of wgn bf16
+    smem: int            # dynamic shared memory bytes
+
+    @property
+    def bm(self) -> int:
+        return 64 * self.wm
+
+    @property
+    def bn(self) -> int:
+        return self.wgn * self.wn
+
+    @functools.cached_property
+    def fields(self) -> ctypes.Array:
+        """The plan as the C side's ``int32[19]``."""
+        return (ctypes.c_int * len(MMA_FIELDS))(*astuple(self))
+
+
+assert tuple(MmaPlan.__dataclass_fields__) == MMA_FIELDS
+
+
+@functools.lru_cache(maxsize=512)
+def plan_pe1(a: int, b: int, c: int, d: int, elsize: int,
+             z_misalign: int = 0, g_misalign: int = 0) -> MmaPlan | None:
+    """The tensor-core plan of ``Y(a,d) = sum_{b,c} Z(a,b,c) G(b,d,c)``, or
+    ``None`` for the FMA route (``plan``). ``elsize`` is 2 (bf16) or 4
+    (f32), ``*_misalign`` the operands' addresses mod 16. A tile spans all
+    of d up to 512 columns (two warpgroups of up to 256 along a, or two of
+    256 along d past 256), G is resident, the ring as deep as shared memory
+    allows up to ``MMA_STAGES``."""
+    if elsize != 2 or b != 1 or min(a, c, d) < 1 or c % 8 or d % 8 \
+            or c > MAX_C or z_misalign % 16 or g_misalign % 16:
+        return None
+    ksteps = _cdiv(c, 16)
+    sw = next(w for w in (32, 64, 128) if w >= 32 * ksteps)
+    wgn = next(n for n in (64, 128, 256) if n >= min(d, 256))
+    wn = 2 if d > wgn else 1
+    wm = 2 // wn
+    bm, bn = 64 * wm, wgn * wn
+    tiles_m, tiles_n = _cdiv(a, bm), _cdiv(d, bn)
+    stage, g_bytes, out_bytes = bm * sw, tiles_n * bn * sw, 64 * wgn * 2
+
+    def smem_for(stages: int, nbuf: int) -> int:
+        return tt_mma.ALIGN + g_bytes + stages * stage \
+            + wm * wn * nbuf * out_bytes + 16 * stages + 8
+
+    fits = [n for n in range(OUT_BUFS, 0, -1)
+            if smem_for(2, n) <= tt_mma.SMEM_MAX]
+    if not fits:
+        return None
+    nbuf = fits[0]
+    stages = 2
+    while stages < MMA_STAGES and \
+            smem_for(stages + 1, nbuf) <= tt_mma.SMEM_MAX:
+        stages += 1
+    tiles = tiles_m * tiles_n
+    return MmaPlan(a, c, d, wgn, sw, ksteps, wm, wn, tiles_m, tiles_n, tiles,
+                   min(tiles, SMS), wm * wn * 128 + 32, stages, nbuf, stage,
+                   g_bytes, out_bytes, smem_for(stages, nbuf))
+
+
+def plan_pe1_for(z: torch.Tensor, g: torch.Tensor) -> MmaPlan | None:
+    """The tensor-core plan of contiguous operands ``z`` (a, b, c), ``g``
+    (b, d, c), or ``None``."""
+    a, b, c, d = _shapes(z, g)
+    return plan_pe1(a, b, c, d, z.element_size(), z.data_ptr() % 16,
+                    g.data_ptr() % 16)
+
+
 def _shapes(z: torch.Tensor, g: torch.Tensor) -> tuple[int, int, int, int]:
     if z.dim() != 3 or g.dim() != 3 or z.shape[1] != g.shape[0] \
             or z.shape[2] != g.shape[2]:
@@ -141,24 +256,26 @@ def pe1_torch(z: torch.Tensor, g: torch.Tensor, step_log2=None,
 
 
 def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """``lib`` (a build of ``csrc/ttm_pe1.cu``) with ``pe1`` given its C
-    signature."""
+    """``lib`` (a build of ``csrc/ttm_pe1.cu``) with ``pe1`` and ``pe1_mma``
+    given their C signatures."""
     if not getattr(lib, "_repro_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pe1.argtypes = [p, p, p, i, ctypes.POINTER(ctypes.c_int), i, p,
-                            i, p]
-        lib.pe1.restype = i
+        p, i, fields = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(
+            ctypes.c_int)
+        lib.pe1.argtypes = [p, p, p, i, fields, i, p, i, p]
+        lib.pe1_mma.argtypes = [p, p, p, fields, i, p, i, p]
+        lib.pe1.restype = lib.pe1_mma.restype = i
         lib._repro_typed = True
     return lib
 
 
 def launch(z: torch.Tensor, g: torch.Tensor, out: torch.Tensor, step=None,
            bits: int | None = None, lib: ctypes.CDLL | None = None) -> Plan:
-    """Launch ``csrc/ttm_pe1.cu``'s kernel (or ``lib``'s, a build of it
-    elsewhere) on ``out``'s stream: ``z`` (a, b, c), ``g`` (b, d, c), ``out``
-    (a, d), all contiguous, one dtype; ``bits`` turns on the requant
-    epilogue at ``step``, a one-element f32 tensor on the card. Counts one
-    launch of ``pe1``; returns the plan."""
+    """Launch ``csrc/ttm_pe1.cu``'s CUDA-core kernel (or ``lib``'s, a
+    build of it elsewhere) on ``out``'s stream, whatever route
+    ``plan_pe1`` gives: ``z`` (a, b, c), ``g`` (b, d, c), ``out`` (a, d),
+    all contiguous, one dtype; ``bits`` turns on the requant epilogue at
+    ``step``, a one-element f32 tensor on the card. Counts one launch of
+    ``pe1``; returns the plan."""
     a, b, c, d = _shapes(z, g)
     p = plan(a, b, c, d, z.element_size(), z.data_ptr() % 16,
              g.data_ptr() % 16)
@@ -172,10 +289,29 @@ def launch(z: torch.Tensor, g: torch.Tensor, out: torch.Tensor, step=None,
     return p
 
 
+def launch_mma(p: MmaPlan, z: torch.Tensor, g: torch.Tensor,
+               out: torch.Tensor, step=None,
+               bits: int | None = None) -> MmaPlan:
+    """Launch ``csrc/ttm_pe1.cu``'s tensor-core kernel on ``out``'s stream
+    under ``p`` (``plan_pe1_for(z, g)``): ``z`` (a, 1, c), ``g`` (1, d, c),
+    ``out`` (a, d), contiguous bf16; the epilogue as ``launch``'s. Counts
+    one launch of ``pe1``."""
+    if out.data_ptr() % 16:
+        raise ValueError(f"{NAME}: output not 16-byte aligned")
+    lib = typed(B.load(SOURCE))
+    B.check(lib, lib.pe1_mma(
+        z.data_ptr(), g.data_ptr(), out.data_ptr(), p.fields,
+        int(bits is not None), None if step is None else step.data_ptr(),
+        bits or 0, torch.cuda.current_stream(z.device).cuda_stream),
+        "pe1_mma")
+    B.note_launch(NAME)
+    return p
+
+
 def pe1_cuda(z: torch.Tensor, g: torch.Tensor, step_log2=None,
              bits: int | None = None) -> torch.Tensor:
-    """Launch the kernel (``csrc/ttm_pe1.cu``) on Z's stream; counts one
-    launch of ``pe1``."""
+    """Launch one of the kernels of ``csrc/ttm_pe1.cu`` on Z's stream, by
+    the route ``plan_pe1`` gives; counts one launch of ``pe1``."""
     a, b, c, d = _shapes(z, g)
     tt_contract.check_operands(NAME, z, g)
     if bits is not None and not 2 <= bits <= 16:
@@ -185,5 +321,9 @@ def pe1_cuda(z: torch.Tensor, g: torch.Tensor, step_log2=None,
     tt_contract.check_sizes(NAME, z, g, out)
     step = None if bits is None else torch.as_tensor(
         step_log2, dtype=torch.float32, device=z.device).reshape(1)
-    launch(z, g, out, step, bits)
+    p = plan_pe1_for(z, g)
+    if p is None:
+        launch(z, g, out, step, bits)
+    else:
+        launch_mma(p, z, g, out, step, bits)
     return out

@@ -20,7 +20,10 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
     for bit; PE2 and PE3 in bf16 on the tensor cores (every tiling at
     ragged shapes, the LM's calls cut down) match and repeat bit for bit,
     one ``pe2`` launch a call; PE1's fused epilogue is bit-identical to its
-    own unfused output through encode -> decode;
+    own unfused output through encode -> decode; PE1 in bf16 on the tensor
+    cores (ragged a, c = 8 / 16 / 32 and K fills, d in one, two and four
+    warpgroups) matches and repeats bit for bit, one ``pe1`` launch a call,
+    and its epilogue on exact sums is the plain version's bit for bit;
 (f) one training step of the FMNIST TT MLP on the card matches the same
     step on the CPU and launches each kernel the counted number of times;
 (g) the blockwise encode/decode kernels are BIT-identical to their plain
@@ -394,6 +397,56 @@ def test_pe_tensor_core_route_matches_plain_and_repeats(cuda):
             what = ttm_pe3.pe3_cuda(w, z[0])
             _close(what, ttm_pe3.pe3_torch(w, z[0]), torch.bfloat16)
             assert torch.equal(what.view(iv), out[0].view(iv))
+
+
+# PE1 on the tensor cores (csrc/ttm_pe1.cu pe1_mma_kernel, bf16, b = 1):
+# ragged a, c = 8 / 16 / 32 and the K fills past them (24, 40, 64), d in one
+# warpgroup (24, 64, 136, 256), two along d (512) and two tiles of d (1024)
+PE1_MMA = [(37, 8, 24), (1000, 16, 256), (129, 32, 256), (300, 16, 512),
+           (5, 40, 136), (77, 64, 64), (200, 24, 1024), (4097, 32, 256),
+           (1, 16, 8)]
+
+
+def test_pe1_tensor_core_route_matches_plain_and_repeats(cuda):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for a, c, d in PE1_MMA:
+        z = torch.randn((a, 1, c), generator=g, device=cuda).to(torch.bfloat16)
+        w = (torch.randn((1, d, c), generator=g, device=cuda) * 0.2).to(
+            torch.bfloat16)
+        assert ttm_pe1.plan_pe1_for(z, w) is not None
+        B.reset_launches()
+        out = ttm_pe1.pe1_cuda(z, w)
+        assert B.LAUNCHES == {"pe1": 1}
+        _close(out, ttm_pe1.pe1_torch(z, w), torch.bfloat16)
+        assert torch.equal(out.view(torch.int16),
+                           ttm_pe1.pe1_cuda(z, w).view(torch.int16))
+
+
+@pytest.mark.parametrize("bits,step", [(4, 3.0), (8, 1.0)])
+@pytest.mark.parametrize("shape", [(5000, 16, 256), (77, 32, 512),
+                                   (37, 8, 24)])
+def test_pe1_tensor_core_epilogue_bit_for_bit(cuda, bits, step, shape):
+    """Integer operands: every sum is exact in f32 in any order, so the
+    fused output is the plain version's (einsum + the codec's epilogue) bit
+    for bit and encode -> decode of the plain sum value for value."""
+    a, c, d = shape
+    g = torch.Generator(device=cuda).manual_seed(bits)
+    z = torch.randint(-8, 9, (a, 1, c), generator=g, device=cuda).to(
+        torch.bfloat16)
+    w = torch.randint(-8, 9, (1, d, c), generator=g, device=cuda).to(
+        torch.bfloat16)
+    assert ttm_pe1.plan_pe1_for(z, w) is not None
+    s = torch.tensor(step, device=cuda)
+    fused = ttm_pe1.pe1_cuda(z, w, s, bits)
+    assert torch.equal(fused.view(torch.int16),
+                       ttm_pe1.pe1_torch(z, w, s, bits).view(torch.int16))
+    unfused = TN.decode(TN.encode(ttm_pe1.pe1_torch(z.float(), w.float()),
+                                  TN.QuantSpec("pow2", bits), s,
+                                  backend="cuda"), torch.float32,
+                        backend="cuda")
+    assert torch.equal(fused.float(), unfused)
+    assert torch.equal(fused.view(torch.int16),
+                       ttm_pe1.pe1_cuda(z, w, s, bits).view(torch.int16))
 
 
 @pytest.mark.parametrize("bits", [4, 8])
