@@ -196,14 +196,26 @@ Phases (any failure raises and the script exits non-zero):
              its cores; the parameter counts, the state's bytes and the
              peak memory printed; the step's three kinds of grouped
              fake-quant launch (a site's cores, an activation edge, a
-             grad-edge group) bit for bit with the plain version, timed
-             beside it and a loop of fake_quantize_per_tensor_affine;
-             then one profiled step (pe1_mma_kernel 432, pe2_mma_kernel
-             864, pe3_mma_kernel 144 and no pe1_kernel, pe2_kernel or
+             grad-edge group) bit for bit with the plain version and over
+             two launches, the edge and the grad-edge group's embedding
+             and head on wide units (grouped.fq_plan; asserted), timed
+             beside the plain version, the narrow units throughout
+             (``previous_ms``) and a loop of
+             fake_quantize_per_tensor_affine; the step's large blockwise
+             encode launches (the moment group holding the embedding's m,
+             block 256, on the trained state's decoded moments; the wire
+             group, block 1,024, on seeded data of its shapes), their
+             large leaves on stream tasks
+             (grouped.bw_plan; asserted), codes and scales bit for bit
+             with the plain version, with the previous tasks and over two
+             launches, an all-zero block coded as zeros, timed beside the
+             plain version and the previous tasks (``previous_ms``); then
+             one profiled step (pe1_mma_kernel 432, pe2_mma_kernel 864,
+             pe3_mma_kernel 144 and no pe1_kernel, pe2_kernel or
              pe3_kernel, p2_fq_group_kernel 375, bw_enc_group_kernel 22,
-             bw_dec_group_kernel 22 launches; asserted by name); then the
-             same 8 steps with f32 moments, whose cross-entropy must
-             fall.
+             bw_dec_group_kernel 22 launches; asserted by name; each
+             codec launch's device time listed); then the same 8 steps
+             with f32 moments, whose cross-entropy must fall.
 10. train lm identity — one step of a small TT LM (2 layers, d_model 32,
              every projection TT, f32, int8 moments and the wire) from the
              same state on the card and on the CPU: loss, ce and prior
@@ -224,7 +236,12 @@ internals works on the card's machine). It covers the CUDA-core bodies
 only, at the MLP's f32 shapes; the tensor-core routes (tt_mma.cuh,
 pe1_mma_kernel) have no anatomy. ``--pa-anatomy`` does the same for
 the attention split pass (K/V staging, query load, scores, softmax, P @ V)
-beside its combine pass. Neither prints a result line.
+beside its combine pass. ``--codec-anatomy`` times the LM step's large
+fake-quant and blockwise-encode launches on their stream units and on
+the previous units: the fake-quant group in full, with its arithmetic cut
+out and as a table of one, beside a ``copy_`` loop; the blockwise encode
+group in full, with its coding pass cut out and with loads only. None of
+the three prints a result line.
 
 ``python3 chip_smoke.py --tokens PATH [--src DIR]`` serves the engine
 phase's requests (fused and gather) and the chunked-prefix run's at full
@@ -1746,6 +1763,7 @@ def _fq_group_rows(torch, timer: Timer, device: str) -> list:
     bytes."""
     from repro_torch.core import tt_layer as TL
     from repro_torch.kernels import build as B
+    from repro_torch.kernels import grouped as G
     from repro_torch.models import mlp_tt as MLP
     from repro_torch.numerics import cuda_backend as CB
     d = MLP.make_mlp()
@@ -1757,6 +1775,9 @@ def _fq_group_rows(torch, timer: Timer, device: str) -> list:
         steps = params[layer]["wscale_log2"].float()
         for dt in (torch.float32, torch.bfloat16):
             xs = [c.to(dt) for c in cores]
+            check(not any(any(launch.wide) for launch in G.fq_plan(
+                [x.numel() for x in xs], xs[0].element_size())),
+                  f"fake-quant group {layer}: a tensor planned for wide units")
             _sync(torch, device)
             B.reset_launches()
             ys = CB.fake_quant_scalar_many(xs, steps, 4)
@@ -2016,14 +2037,29 @@ LM_KERNEL_FN = {**KERNEL_FN, "pe1": "pe1_mma_kernel",
 LM_ABSENT_FN = ("pe1_kernel", "pe2_kernel", "pe3_kernel")
 
 
+def _launch_times(torch, prof, names) -> dict:
+    """Each launch's device µs of the named kernel functions in a profile,
+    longest first (a profile key holds ``name<``, the template's start)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {name: [] for name in names}
+    for e in prof.events():
+        if getattr(e, "device_type", None) != cuda:
+            continue
+        for name in names:
+            if f"{name}<" in e.name:
+                out[name].append(e.time_range.elapsed_us())
+    return {name: sorted(v, reverse=True) for name, v in out.items()}
+
+
 def _profile_train(torch, one, per: dict, steps: int = 20, fn=KERNEL_FN,
-                   absent=()):
+                   absent=(), times=()):
     """Host wall of ``steps`` unprofiled training steps (``one(i)`` runs
     step i), then one profiled window of as many for the device time per
     kernel. busy_share = device time / wall time. Each kernel of ``per``
     (the step's ``launches_per_step``) must appear in the profile as often
     a step, by its function's name (``fn``), and the functions named in
-    ``absent`` not at all."""
+    ``absent`` not at all. ``times``: kernel functions whose every
+    launch's device time the result lists (``launch_us``)."""
     import itertools
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2043,9 +2079,14 @@ def _profile_train(torch, one, per: dict, steps: int = 20, fn=KERNEL_FN,
         log(f"  {r['ms_per_step']*1e3:8.1f} us  {r['calls_per_step']:6.1f}x  "
             f"{r['name']}")
     _log_kernels(kern)
+    launch_us = _launch_times(torch, prof, times)
+    for name, us in launch_us.items():
+        log(f"  {name}: {len(us)} launches, {sum(us):.1f} us; longest "
+            f"{[round(u, 1) for u in us[:8]]}, the other {len(us[8:])} "
+            f"{sum(us[8:]):.1f} us")
     return {"step_ms": wall * 1e3, "device_ms": total,
             "busy_share": total / (wall * 1e3), "top": rows,
-            "kernels": kern}
+            "kernels": kern, "launch_us": launch_us}
 
 
 def _pad_window(torch, n: int = 8) -> None:
@@ -2213,6 +2254,7 @@ def _bw_group_rows(torch, timer, gen, device) -> tuple[list, list]:
     rows)."""
     from repro_torch import numerics as TN
     from repro_torch.kernels import build as B
+    from repro_torch.kernels import grouped as G
     from repro_torch.models import mlp_tt as MLP
     from repro_torch.numerics import cuda_backend as CB
     from repro_torch.optim import adam as A
@@ -2235,6 +2277,9 @@ def _bw_group_rows(torch, timer, gen, device) -> tuple[list, list]:
     rows, dec_rows = [], []
     for what, xs, block in (("group moments", moments, 256),
                             ("group wire", wire, 1024)):
+        check(not any(lf.stream for launch in G.bw_plan(
+            [tuple(x.shape) for x in xs], block) for lf in launch.leaves),
+              f"bw_enc {what}: a leaf planned for stream tasks")
         _sync(torch, device)
         B.reset_launches()
         got = CB.bw_encode_many(xs, block)
@@ -3408,12 +3453,17 @@ def _lm_fq_rows(torch, lm, params) -> list:
     the first TT site's cores at their ``wscale_log2`` (4-bit), one
     activation edge (8 x 256 x d_model bf16, 8-bit at 2^-7) and one
     grad-edge group (the first 64 floating bf16 leaves, standing in for
-    their gradients, 16-bit at each one's per-tensor-max step); bit for bit
-    with the plain version, timed beside it, beside the loop of
-    ``torch.fake_quantize_per_tensor_affine`` over the same tensors (the
-    library yardstick) and beside the group's byte bound."""
+    their gradients, 16-bit at each one's per-tensor-max step). The plan
+    gives the edge and the grad-edge group's embedding and head wide units
+    and the cores narrow ones (asserted). Bit for bit with the plain
+    version and over two launches, timed beside it, beside the same call
+    on narrow units throughout (``previous_ms``: the design the wide units
+    replaced, itself bit for bit the plain version; a yardstick only),
+    beside the loop of ``torch.fake_quantize_per_tensor_affine`` over the
+    same tensors (the library yardstick) and beside the group's byte
+    bound."""
     from repro_torch.kernels import build as B
-    from repro_torch.kernels.grouped import FQ_CAP
+    from repro_torch.kernels import grouped as G
     from repro_torch.models.lm import _site_params, _walk_sites
     from repro_torch.numerics import QuantSpec
     from repro_torch.numerics.codecs import per_tensor_max_scale_log2
@@ -3428,50 +3478,320 @@ def _lm_fq_rows(torch, lm, params) -> list:
     edge = (torch.randn((LM_BATCH, LM_SEQ, lm.cfg.d_model), generator=gen,
                         device="cuda") * 0.2).to(torch.bfloat16)
     grads = [t.detach() for _, t in flatten_with_path(params)
-             if t.dtype == torch.bfloat16][:FQ_CAP]
+             if t.dtype == torch.bfloat16][:G.FQ_CAP]
     gspec = QuantSpec("pow2", q.grad_bits)
     sets = [("site cores " + "/".join(map(str, path)), cores,
-             sp["wscale_log2"].float(), q.weight_bits),
+             sp["wscale_log2"].float(), q.weight_bits, 0),
             ("activation edge", [edge],
-             torch.full((1,), -7.0, device="cuda"), q.act_bits),
+             torch.full((1,), -7.0, device="cuda"), q.act_bits, 1),
             ("grad-edge group", grads, torch.stack([
                 per_tensor_max_scale_log2(t, gspec) for t in grads]),
-             q.grad_bits)]
+             q.grad_bits, 2)]
     rows = []
-    for what, xs, steps, bits in sets:
+    for what, xs, steps, bits, wide in sets:
+        (launch,) = G.fq_plan([x.numel() for x in xs], xs[0].element_size())
+        check(sum(launch.wide) == wide,
+              f"lm fake-quant {what}: {sum(launch.wide)} tensors on wide "
+              f"units, want {wide}")
+        ptrs = [steps.data_ptr() + 4 * i for i in range(len(xs))]
         torch.cuda.synchronize()
         B.reset_launches()
         ys = CB.fake_quant_scalar_many(xs, steps, bits)
         torch.cuda.synchronize()
         check(B.LAUNCHES == {"p2_fake_quant": 1},
               f"lm fake-quant {what}: launches {B.LAUNCHES}")
-        check(all(_bits_equal(torch, y, r) for y, r in zip(
-            ys, CB.fake_quant_many_plain(xs, steps, bits))),
+        plain = CB.fake_quant_many_plain(xs, steps, bits)
+        check(all(_bits_equal(torch, y, r) for y, r in zip(ys, plain)),
               f"lm fake-quant {what}: not bit-exact")
+        check(all(_bits_equal(torch, y, a) for y, a in zip(
+            ys, CB.fake_quant_scalar_many(xs, steps, bits))),
+              f"lm fake-quant {what}: two launches differ")
+        check(all(_bits_equal(torch, y, a) for y, a in zip(
+            ys, CB._fq_group(xs, ptrs, bits, stream=False))),
+              f"lm fake-quant {what}: the narrow units differ")
+        del plain
         n = sum(x.numel() for x in xs)
-        nbytes = 2 * sum(x.numel() * x.element_size() for x in xs) + 4 * len(xs)
         hi = 2 ** (bits - 1)
         scales = [2.0 ** v for v in steps.tolist()]
         row = dict(what=what, shape=[list(x.shape) for x in xs], bits=bits,
                    dtype=sorted({str(x.dtype)[6:] for x in xs}),
-                   entries=len(xs), elements=n, max_abs_err=0.0)
+                   entries=len(xs), elements=n, wide=wide, max_abs_err=0.0)
         row["ms"] = timer(lambda: CB.fake_quant_scalar_many(xs, steps, bits))
+        row["previous_ms"] = timer(lambda: CB._fq_group(xs, ptrs, bits,
+                                                        stream=False))
         row["plain_ms"] = timer(
             lambda: CB.fake_quant_many_plain(xs, steps, bits), iters=5)
         row["library_ms"], row["library_note"] = _library_yardstick(
             timer, lambda: [torch.fake_quantize_per_tensor_affine(
                 x, scales[i], 0, -hi, hi - 1) for i, x in enumerate(xs)],
             lambda r: all(torch.equal(a, b) for a, b in zip(r, ys)))
-        row["bound_ms"], row["bound_by"] = bound_ms(nbytes)
+        row["bound_ms"], row["bound_by"] = bound_ms(_fq_bytes(xs))
         log(f"lm p2_fake_quant {what} ({len(xs)} tensors, {n:,} elements, "
-            f"{bits}-bit): {row['ms']*1e3:.1f} us one launch (plain "
+            f"{bits}-bit, {wide} on wide units): {row['ms']*1e3:.1f} us one "
+            f"launch (narrow units {row['previous_ms']*1e3:.1f} us, plain "
             f"{row['plain_ms']*1e3:.1f} us, library loop "
-            f"{row['library_note']}, bound {row['bound_ms']*1e3:.2f} us); "
-            "bit-exact")
+            f"{row['library_note']}, bound {row['bound_ms']*1e3:.2f} us, "
+            f"{row['ms'] / row['bound_ms']:.2f}x); bit-exact, two launches "
+            "equal")
         rows.append(row)
     del timer
     torch.cuda.empty_cache()
     return rows
+
+
+def _lm_moments(torch, state) -> list:
+    """m of the first ``BW_CAP`` Adam leaves of a trained LM state (the
+    step's first moment group, the embedding's and the head's m among
+    them), decoded to f32 (rows, last) views: the data the step encodes,
+    most of it zeros (rows of tokens not in a batch)."""
+    from repro_torch.kernels.grouped import BW_CAP
+    from repro_torch.numerics import decode_many
+    qts = [m for m in state.opt.m if m is not None][:BW_CAP]
+    return [y.reshape(-1, y.shape[-1] if y.dim() else 1)
+            for y in decode_many(qts, torch.float32, backend="cuda")]
+
+
+def _lm_bw_rows(torch, sets) -> list:
+    """The LM step's large blockwise encode launches (row 10b): the moment
+    group that holds the embedding's m (block 256) and the wire group
+    (block 1,024), each one ``bw_enc`` launch (asserted) whose embedding
+    and head leaves the plan gives stream tasks (asserted). Codes equal and
+    scales bit for bit with the plain version, with the same call on the
+    previous tasks throughout and over two launches; a stream leaf's
+    all-zero blocks code as zeros under a zero scale.
+    Timed beside the plain version, beside the previous tasks
+    (``previous_ms``: the design the stream tasks replaced, a yardstick
+    only) and beside the group's byte bound."""
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import grouped as G
+    from repro_torch.numerics import cuda_backend as CB
+    timer = Timer(torch)
+    rows = []
+    for what, xs, block in sets["bw"]:
+        (launch,) = G.bw_plan([tuple(x.shape) for x in xs], block)
+        big = [x.numel() >= G.STREAM_MIN for x in xs]
+        check([lf.stream for lf in launch.leaves] == big and sum(big) >= 2,
+              f"lm bw_enc {what}: stream leaves "
+              f"{[lf.stream for lf in launch.leaves]}, want {big}")
+        torch.cuda.synchronize()
+        B.reset_launches()
+        got = CB.bw_encode_many(xs, block)
+        torch.cuda.synchronize()
+        check(B.LAUNCHES == {"bw_enc": 1},
+              f"lm bw_enc {what}: launches {B.LAUNCHES}")
+        for i, x in enumerate(xs):
+            c, sc = got[i]
+            rc, rs = CB.bw_encode_plain(x, block)
+            check(torch.equal(c, rc) and _bits_equal(torch, sc, rs),
+                  f"lm bw_enc {what} leaf {i}: differs from the plain version")
+            del rc, rs
+        for name, other in (("previous tasks", CB._bw_group(
+                xs, block, 8, torch.int8, stream=False)),
+                ("a second launch", CB.bw_encode_many(xs, block))):
+            check(all(torch.equal(c, oc) and _bits_equal(torch, sc, osc)
+                      for (c, sc), (oc, osc) in zip(got, other)),
+                  f"lm bw_enc {what}: differs from {name}")
+            del other
+        c, sc = got[next(i for i, b in enumerate(big) if b)]
+        zero = sc == 0
+        check(bool(zero.any()) and not c.view(*sc.shape, -1)[zero].any(),
+              f"lm bw_enc {what}: no all-zero block, or one not coded as "
+              "zeros")
+        del got, c, sc, zero
+        n = sum(x.numel() for x in xs)
+        row = dict(what=what, shape=[list(x.shape) for x in xs], block=block,
+                   entries=len(xs), elements=n, stream=sum(big),
+                   max_abs_err=0.0, library_ms=None,
+                   library_note=BW_ENC_NONE)
+        row["ms"] = timer(lambda: CB.bw_encode_many(xs, block))
+        row["previous_ms"] = timer(lambda: CB._bw_group(
+            xs, block, 8, torch.int8, stream=False))
+        row["plain_ms"] = timer(lambda: CB.bw_encode_many_plain(xs, block),
+                                iters=3)
+        row["bound_ms"], row["bound_by"] = bound_ms(_bw_bytes(xs, block))
+        log(f"lm bw_enc {what} ({len(xs)} leaves, {n:,} elements, block "
+            f"{block}, {sum(big)} on stream tasks): {row['ms']*1e3:.1f} us "
+            f"one launch (previous tasks {row['previous_ms']*1e3:.1f} us, "
+            f"plain {row['plain_ms']*1e3:.1f} us, bound "
+            f"{row['bound_ms']*1e3:.1f} us, {row['ms'] / row['bound_ms']:.2f}"
+            "x); codes and scales bit-exact, the zero block zeros, two "
+            "launches equal")
+        rows.append(row)
+    del timer
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _lm_codec_sets(torch, gen) -> dict:
+    """The LM step's large codec launches on seeded data of their shapes
+    (``init_lm`` on the meta device gives them): the grad-edge group (the
+    first ``FQ_CAP`` bf16 leaves, standing in for their gradients, 16-bit
+    at each one's per-tensor-max step), an activation edge (8 x 256 x
+    d_model bf16, 8-bit at 2^-7), the first moment group (m of the first
+    ``BW_CAP`` Adam leaves, the embedding's and the head's among them, f32
+    as (rows, last) views, block 256) and the wire group (every reference
+    leaf's gradient flattened, f32, block 1,024); and, as ``bw_small``, the
+    second moment group (TT cores and norm scales: the step's 19 small
+    moment groups). The first block of the embedding's m and of the wire's
+    first large leaf is all zero."""
+    from repro_torch.kernels.grouped import BW_CAP, FQ_CAP
+    from repro_torch.models.lm import build_lm, init_lm
+    from repro_torch.numerics import QuantSpec
+    from repro_torch.numerics.codecs import per_tensor_max_scale_log2
+    from repro_torch.optim.adam import _is_adam_leaf
+    from repro_torch.tree import flatten_with_path, stacked_groups
+    lm = build_lm(_lm_config())
+    q = lm.cfg.quant
+    flat = flatten_with_path(init_lm(None, lm, device="meta"))
+    grads = [(torch.randn(t.shape, generator=gen, device="cuda") * 0.02).to(
+        torch.bfloat16) for _, t in flat if t.dtype == torch.bfloat16][:FQ_CAP]
+    gspec = QuantSpec("pow2", q.grad_bits)
+    edge = (torch.randn((LM_BATCH, LM_SEQ, lm.cfg.d_model), generator=gen,
+                        device="cuda") * 0.2).to(torch.bfloat16)
+    adam = [(p, t.shape) for p, t in flat if _is_adam_leaf(p, t)]
+    moments, cores = [], []
+    for k, (p, shape) in enumerate(adam[:2 * BW_CAP]):
+        m = torch.randn(shape, generator=gen, device="cuda") * 1e-3
+        if p == "embed/w":
+            m.view(-1)[:256] = 0.0
+        (moments if k < BW_CAP else cores).append(
+            m.reshape(-1, shape[-1] if len(shape) else 1))
+    floats = [(p, t) for p, t in flat if t.is_floating_point()]
+    wire = []
+    for grp in stacked_groups([p for p, _ in floats]):
+        n = sum(floats[i][1].numel() for i in grp)
+        w = torch.randn((1, n), generator=gen, device="cuda") * 1e-2
+        if n >= 1 << 20 and not any(x.numel() >= 1 << 20 for x in wire):
+            w[0, :1024] = 0.0
+        wire.append(w)
+    return {"fq": [("grad-edge group", grads, torch.stack([
+                        per_tensor_max_scale_log2(t, gspec) for t in grads]),
+                    q.grad_bits),
+                   ("activation edge", [edge],
+                    torch.full((1,), -7.0, device="cuda"), q.act_bits)],
+            "bw": [("moment group (the embedding's m)", moments, 256),
+                   ("wire group", wire, 1024)],
+            "bw_small": [("moment group (TT cores' m)", cores, 256)]}
+
+
+def _fq_bytes(xs) -> int:
+    """A fake-quant group's bytes: each tensor read and written once, its
+    f32 step read once."""
+    return sum(2 * x.numel() * x.element_size() + 4 for x in xs)
+
+
+def _bw_bytes(xs, block: int, storage_bytes: int = 1) -> int:
+    """A blockwise encode group's bytes: f32 values read once, codes (each
+    row padded to whole blocks) and f32 scales written once."""
+    from repro_torch.numerics import QuantSpec
+    from repro_torch.numerics.codecs import blockwise_geometry
+    total = 0
+    for x in xs:
+        rows, last = x.shape
+        b, nb, _ = blockwise_geometry(QuantSpec("blockwise", 8, block), last)
+        total += 4 * rows * last + rows * nb * (b * storage_bytes + 4)
+    return total
+
+
+# --codec-anatomy: the fake-quant group and the blockwise encode group with
+# one part cut out at a time, text replacements in their sources (a store
+# kept behind a test that never holds, so the values it needs are still
+# computed)
+FQ_PHASES = {"arith": {"pow2_fq.cu": [
+    ("out.v[j] = one(in.v[j], step);", "out.v[j] = in.v[j];"),
+    ("if (i < n) y[i] = one(x[i], step);", "if (i < n) y[i] = x[i];"),
+    ("out.v[j] = wide_one<T, RT, MUL>(in[k].v[j], step, inv, lo, hi, lo_t, "
+     "hi_t, int_codes);", "out.v[j] = in[k].v[j];"),
+    ("if (i < n) y[i] = wide_one<T, RT, MUL>(x[i], step, inv, lo, hi, lo_t, "
+     "hi_t, int_codes);", "if (i < n) y[i] = x[i];")]}}
+BW_PHASES = {
+    "code": {"blockwise.cu": [
+        ("      if (k < b) {\n        Vec4<Q> out;",
+         "      if (false && k < b) {\n        Vec4<Q> out;"),
+        ("  for (int t = 0; t < n; ++t) qr[t] = bw_code<Q>(xr[t], d, qmax);\n"
+         "  for (int t = n; t < b; ++t) qr[t] = Q(0);\n", ""),
+        ("  for (int t = lane; t < b; t += 32) qb[t] = t < n ? "
+         "bw_code<Q>(xb[t], d, qmax) : Q(0);\n", ""),
+        ("    if (n > 0) {\n      Q* qb",
+         "    if (false && n > 0) {\n      Q* qb")]},
+    "reduce": {"blockwise.cu": [
+        ("const float s = warp_max(amax) / qmax;", "const float s = amax;"),
+        ("if (lane == 0) sc[u] = s;", "if (s == 1.5e38f) sc[u] = s;"),
+        ("  sc[u] = s;\n}", "  if (s == 1.5e38f) sc[u] = s;\n}"),
+        ("      amax[g] = fmaxf(amax[g], __shfl_xor_sync(0xffffffffu, amax[g], "
+         "off));", "      ;"),
+        ("const float s = amax[g] > 0.f ? amax[g] / qmax : 0.f;",
+         "const float s = amax[g];"),
+        ("  if (mine_real) sc[u + lane] = mine;",
+         "  if (mine == 1.5e38f) sc[u + lane] = mine;")]},
+}
+
+
+def phase_codec_anatomy(torch, timer: Timer) -> dict:
+    """Where the LM step's large fake-quant and blockwise-encode launches
+    spend their time, without a profiler: at the step's calls
+    (``_lm_codec_sets``), on the stream units the plan gives them and on
+    the previous design's units throughout (``stream=False``), the
+    fake-quant group timed in full, rebuilt with its arithmetic cut out (a
+    copy with the same units), and as a table of one (the same elements as
+    one tensor: no per-unit search), beside a loop of ``copy_`` over the
+    same tensors and the byte bound; the blockwise encode group in full,
+    with its coding pass cut out (absmax and scale only) and with loads
+    only. Builds under ``kernels/_build/anatomy``."""
+    from repro_torch.numerics import cuda_backend as CB
+    fq_cuts = {"full": [], "no arithmetic": ["arith"]}
+    bw_cuts = {"full": [], "no coding": ["code"],
+               "loads only": ["code", "reduce"]}
+    fq_libs = {k[0]: CB.fq_typed(lib) for k, lib in _anatomy_libs(
+        FQ_PHASES, fq_cuts, ("pow2_fq.cu",), ("pow2_fq",), "fq").items()}
+    bw_libs = {k[0]: CB.bw_typed(lib) for k, lib in _anatomy_libs(
+        BW_PHASES, bw_cuts, ("blockwise.cu", "pow2_codes.cuh"),
+        ("blockwise",), "bw").items()}
+    sets = _lm_codec_sets(torch, torch.Generator(device="cuda").manual_seed(8))
+    out = {"timer_floor_ms": timer(lambda: None), "fq": [], "bw": []}
+    for what, xs, steps, bits in sets["fq"]:
+        ptrs = [steps.data_ptr() + 4 * i for i in range(len(xs))]
+        ys = [torch.empty_like(x) for x in xs]
+        one = torch.cat([x.reshape(-1) for x in xs])
+        base = {"what": what, "entries": len(xs),
+                "elements": sum(x.numel() for x in xs),
+                "bound_ms": bound_ms(_fq_bytes(xs))[0],
+                "copy_ms": timer(lambda: [y.copy_(x) for x, y in zip(xs, ys)])}
+        for route in (True, False):
+            row = dict(base, units="stream" if route else "previous")
+            for cut, lib in fq_libs.items():
+                row[cut] = timer(lambda: CB._fq_group(
+                    xs, ptrs, bits, lib=lib, stream=route))
+            row["table of one"] = timer(lambda: CB._fq_group(
+                [one], ptrs[:1], bits, stream=route))
+            log(f"anatomy p2_fake_quant {what} ({row['entries']} tensors, "
+                f"{row['elements']:,} elements), {row['units']} units: full "
+                f"{row['full']*1e3:.1f} us, no arithmetic "
+                f"{row['no arithmetic']*1e3:.1f}, table of one "
+                f"{row['table of one']*1e3:.1f}; copy_ loop "
+                f"{row['copy_ms']*1e3:.1f}, bound {row['bound_ms']*1e3:.1f} us")
+            out["fq"].append(row)
+        del one, ys
+    for what, xs, block in sets["bw"] + sets["bw_small"]:
+        base = {"what": what, "entries": len(xs),
+                "elements": sum(x.numel() for x in xs), "block": block,
+                "bound_ms": bound_ms(_bw_bytes(xs, block))[0]}
+        for route in (True, False):
+            row = dict(base, tasks="stream" if route else "previous")
+            for cut, lib in bw_libs.items():
+                row[cut] = timer(lambda: CB._bw_group(
+                    xs, block, 8, torch.int8, lib=lib, stream=route))
+            log(f"anatomy bw_enc {what} ({row['entries']} leaves, "
+                f"{row['elements']:,} elements, block {block}), "
+                f"{row['tasks']} tasks: full {row['full']*1e3:.1f} us, no "
+                f"coding {row['no coding']*1e3:.1f}, loads only "
+                f"{row['loads only']*1e3:.1f}, bound "
+                f"{row['bound_ms']*1e3:.1f} us")
+            out["bw"].append(row)
+    log(f"anatomy: timer floor {out['timer_floor_ms']*1e3:.1f} us")
+    del sets
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_train_lm(torch, device: str = "cuda",
@@ -3539,6 +3859,11 @@ def phase_train_lm(torch, device: str = "cuda",
     log(f"train lm: scales {checks}")
     log(f"train lm: group launches' byte bounds a step {bounds}")
     fq_rows = _lm_fq_rows(torch, lm, state.params)
+    sets = _lm_codec_sets(torch, torch.Generator(device="cuda").manual_seed(7))
+    sets["bw"][0] = ("moment group (the embedding's m, the trained state's)",
+                     _lm_moments(torch, state), 256)
+    bw_rows = _lm_bw_rows(torch, sets)
+    del sets
 
     step = S.make_train_step(lm, None, tcfg)
     box = {"state": state}
@@ -3550,7 +3875,9 @@ def phase_train_lm(torch, device: str = "cuda",
         box["state"], _ = step(box["state"], {
             k: torch.from_numpy(v).to(device) for k, v in b.items()})
     prof = _profile_train(torch, one, per, steps=1, fn=LM_KERNEL_FN,
-                          absent=LM_ABSENT_FN)
+                          absent=LM_ABSENT_FN, times=(
+                              "p2_fq_group_kernel", "bw_enc_group_kernel",
+                              "bw_dec_group_kernel"))
     del box
     torch.cuda.empty_cache()
     # The loss carries the rank prior, which the λ update drives down on
@@ -3577,7 +3904,7 @@ def phase_train_lm(torch, device: str = "cuda",
             "peak_bytes": peak, "launches": launches,
             "launches_per_step": per, "param_counts": counts,
             "state_bytes": sites, "state_checks": checks,
-            "group_bounds": bounds, "fq_rows": fq_rows,
+            "group_bounds": bounds, "fq_rows": fq_rows, "bw_rows": bw_rows,
             "tt_sites": n_tt, "profile": prof}
 
 
@@ -3767,6 +4094,8 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
                             f"{lm['launches_per_step'][name]} a step)")
         if name == "p2_fake_quant":
             row["shapes"] = row["shapes"] + lm["fq_rows"]
+        if name == "bw_enc":
+            row["shapes"] = row["shapes"] + lm["bw_rows"]
     for name, (src, replaces, kind) in LM_KERNELS.items():
         rows.append(_kernel_row(
             name, src, replaces, lmkern[kind], lm["launches"].get(kind, 0),
@@ -3887,6 +4216,10 @@ def main(argv=None) -> int:
     ap.add_argument("--pa-anatomy", action="store_true",
                     help="only build and time the attention split pass with "
                     "one phase cut out at a time (no result line)")
+    ap.add_argument("--codec-anatomy", action="store_true",
+                    help="only build and time the LM step's large fake-quant "
+                    "and blockwise-encode launches with one part cut out at "
+                    "a time (no result line)")
     ap.add_argument("--tokens", metavar="PATH",
                     help="only serve the engine and chunked-prefix requests "
                     "and write their tokens here (no result line)")
@@ -3930,11 +4263,13 @@ def main(argv=None) -> int:
     report = {"device": smi}
     report["build"] = phase_build()
     timer = Timer(torch)
-    if args.pe_anatomy or args.pa_anatomy:
+    if args.pe_anatomy or args.pa_anatomy or args.codec_anatomy:
         if args.pe_anatomy:
             report["pe_anatomy"] = phase_pe_anatomy(torch, timer)
         if args.pa_anatomy:
             report["pa_anatomy"] = phase_pa_anatomy(torch, timer)
+        if args.codec_anatomy:
+            report["codec_anatomy"] = phase_codec_anatomy(torch, timer)
         if args.out:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(report, indent=1))

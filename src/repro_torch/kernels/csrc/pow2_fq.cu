@@ -52,11 +52,32 @@
 // bound of a hundredth of that; one launch covers up to kFqCap tensors of
 // one dtype and bit width, described by a table passed by value as a
 // __grid_constant__ parameter (no copy to the device, no extra launch),
-// sized to the group (a single tensor passes a table of one). CTAs take tiles of kTile elements in tensor-major order (a tile never
-// straddles two tensors) and find their tensor by a binary search of the
-// table's prefix of tile counts. A tensor whose pointers are aligned and
-// whose n % 4 == 0 is read and written as 4-element vectors (16/8 bytes a
-// thread), else element by element, coalesced. The row kernel is a
+// sized to the group (a single tensor passes a table of one). CTAs take
+// units in tensor-major order (a unit never straddles two tensors) and
+// find their tensor by a binary search of the table's prefix of unit
+// counts. A narrow unit is kTile elements: a tensor whose pointers are
+// aligned and whose n % 4 == 0 is read and written as 4-element vectors
+// (16/8 bytes a thread), else element by element, coalesced.
+// Design, wide units (the LM step: its activation edges, 4M bf16 each, and
+// the grad-edge group's embedding and head, 190M each; kernels/grouped.py
+// plans them for tensors of at least STREAM_MIN elements): there the
+// narrow units leave 8 bytes a thread in flight (about 16 KB an SM) and pay
+// the table search, the step's load and the alignment checks every kTile
+// elements; measured on the H100 (chip_smoke.py --codec-anatomy), the
+// group of 64 ran at 2.07x its byte bound with its arithmetic cut out as
+// with it in, and as a table of one at 1.36x. A wide unit is 16 KB of x:
+// each thread issues four independent 16-byte loads (8 bf16 or 4 f32
+// each) before any arithmetic, 64 bytes in flight a thread, and the search,
+// the step, the alignment checks and the choice between x * 2^-s and x /
+// 2^s are made once a unit. Plain loads were taken over bulk asynchronous
+// copies into a shared-memory ring: the data passes through each thread
+// once with no reuse, so a ring adds a shared-memory round trip and its
+// barriers without adding bytes in flight that four loads a thread do not
+// already give at this occupancy. A group with wide units launches an
+// instantiation of its own (WIDE: 62 registers against the narrow path's
+// 32), so the MLP's groups and the previous units keep their occupancy;
+// the LM's grad-edge group ran at 1.16x its bound with the arithmetic's
+// cost hidden. The row kernel is a
 // grid-stride loop over 4-element vectors (cols % 4 == 0, so a vector never
 // straddles two rows; its row's step is one cached load per vector), else a
 // scalar loop. No shared memory, no synchronisation.
@@ -64,6 +85,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -106,15 +129,25 @@ __device__ __forceinline__ T rt_one(T x, float step, float lo, float hi, bool in
 }
 
 template <typename T> struct alignas(4 * sizeof(T)) Vec4 { T v[4]; };
+// 16 bytes of T: 4 f32 or 8 bf16
+template <typename T> struct alignas(16) Vec16 { T v[16 / sizeof(T)]; };
 
 constexpr int kThreads = 256;
-constexpr int kTile = 4 * kThreads;   // elements a CTA takes at a time
+constexpr int kTile = 4 * kThreads;   // elements of a narrow unit
+constexpr int kWideVecs = 4;          // 16-byte loads a thread issues in a wide unit
 constexpr int kFqCap = 64;            // tensors a launch takes
 
+// elements of a wide unit: kWideVecs 16-byte vectors a thread (16 KB of x)
+template <typename T> __host__ __device__ constexpr long long wide_tile() {
+  return (long long)kThreads * kWideVecs * (16 / sizeof(T));
+}
+
 // The group's table, passed by value: N entries, sized to the group (N =
-// 1, 8 or kFqCap; 2.6 KB of the 4 KB parameter space at kFqCap, 48 bytes
-// at 1, since a launch's parameters cost launch time). tile_end[e] is the
-// prefix sum of ceil(n / kTile) over tensors 0..e.
+// 1, 8 or kFqCap; 2.8 KB of the 4 KB parameter space at kFqCap, 48 bytes
+// at 1, since a launch's parameters cost launch time). A tensor takes
+// narrow units of kTile elements or, where `wide` is set, wide units of
+// wide_tile<T>(); tile_end[e] is the prefix sum of the units of tensors
+// 0..e.
 template <int N>
 struct FqGroup {
   const void* x[N];
@@ -122,6 +155,7 @@ struct FqGroup {
   const float* s[N];          // each tensor's f32 scale_log2, on the device
   long long n[N];
   long long tile_end[N];
+  int wide[N];
   int count;
 };
 
@@ -129,7 +163,71 @@ __host__ __device__ inline bool aligned(const void* p, size_t a) {
   return ((uintptr_t)p % a) == 0;
 }
 
-template <typename T, int N, bool RT>
+// x / step for step = 2^s: x * 2^-s where that is bit-identical (MUL: s an
+// integer with |s| <= 126, so 2^s and 2^-s are normal f32 and both are the
+// one correctly rounded x / 2^s, subnormal results included), else the
+// IEEE division
+template <bool MUL>
+__device__ __forceinline__ float div_step(float x, float step, float inv) {
+  return MUL ? x * inv : x / step;
+}
+
+template <typename T, bool RT, bool MUL>
+__device__ __forceinline__ T wide_one(T x, float step, float inv, float lo, float hi,
+                                      float lo_t, float hi_t, bool int_codes) {
+  if (RT) {   // rt_one
+    float q = fminf(fmaxf(rintf(div_step<MUL>(to_f32(x), step, inv)), lo), hi);
+    if (int_codes) q += 0.f;
+    return from_f32<T>(q * step);
+  }
+  // fq_one with the scale in T (exact for |s| <= 126: 2^s is a normal bf16)
+  const float scale = in_t<T>(step);
+  float q = rintf(in_t<T>(div_step<MUL>(to_f32(x), scale, inv)));
+  q = q < lo_t ? lo_t : (q > hi_t ? hi_t : q);
+  return from_f32<T>(q * scale);
+}
+
+// One wide unit: elements base .. base + wide_tile<T>() - 1 of a tensor of
+// n. Where x and y start on 16 bytes and n fills whole vectors, each
+// thread issues its kWideVecs 16-byte loads (neighbouring threads on
+// neighbouring vectors) before any arithmetic, then stores as many; else
+// it takes single elements, coalesced.
+template <typename T, bool RT, bool MUL>
+__device__ __forceinline__ void fq_wide_unit(const T* __restrict__ x, T* __restrict__ y,
+                                             long long base, long long n, float step,
+                                             float inv, float lo, float hi, float lo_t,
+                                             float hi_t, bool int_codes) {
+  constexpr int kPer = 16 / sizeof(T);
+  if (n % kPer == 0 && aligned(x, 16) && aligned(y, 16)) {
+    const long long v0 = base / kPer + threadIdx.x, nv = n / kPer;
+    Vec16<T> in[kWideVecs];
+#pragma unroll
+    for (int k = 0; k < kWideVecs; ++k) {
+      const long long i = v0 + (long long)k * kThreads;
+      if (i < nv) in[k] = reinterpret_cast<const Vec16<T>*>(x)[i];
+    }
+#pragma unroll
+    for (int k = 0; k < kWideVecs; ++k) {
+      const long long i = v0 + (long long)k * kThreads;
+      if (i < nv) {
+        Vec16<T> out;
+#pragma unroll
+        for (int j = 0; j < kPer; ++j)
+          out.v[j] = wide_one<T, RT, MUL>(in[k].v[j], step, inv, lo, hi, lo_t, hi_t, int_codes);
+        reinterpret_cast<Vec16<T>*>(y)[i] = out;
+      }
+    }
+    return;
+  }
+  for (int j = 0; j < kWideVecs * kPer; ++j) {
+    const long long i = base + (long long)j * kThreads + threadIdx.x;
+    if (i < n) y[i] = wide_one<T, RT, MUL>(x[i], step, inv, lo, hi, lo_t, hi_t, int_codes);
+  }
+}
+
+// WIDE: the group has wide units (an instantiation of its own, so a group
+// of narrow units runs the narrow path's code and registers alone)
+template <typename T, int N, bool RT, bool WIDE>
 __global__ void __launch_bounds__(kThreads)
     p2_fq_group_kernel(const __grid_constant__ FqGroup<N> g, float lo, float hi, int int_codes) {
   const float lo_t = in_t<T>(lo), hi_t = in_t<T>(hi);
@@ -146,10 +244,23 @@ __global__ void __launch_bounds__(kThreads)
       const int mid = (e + top) / 2;
       if (g.tile_end[mid] > tile) top = mid; else e = mid + 1;
     }
-    const long long base = (tile - (e ? g.tile_end[e - 1] : 0)) * kTile;
+    const long long unit = tile - (e ? g.tile_end[e - 1] : 0);
     const T* __restrict__ x = static_cast<const T*>(g.x[e]);
     T* __restrict__ y = static_cast<T*>(g.y[e]);
     const long long n = g.n[e];
+    if (WIDE && g.wide[e]) {
+      // the step, and whether x / 2^s may be a product, once a unit
+      const float s = __ldg(g.s[e]);
+      const float step = pow2_step(s);
+      const long long base = unit * wide_tile<T>();
+      if (s == truncf(s) && fabsf(s) <= 126.f)
+        fq_wide_unit<T, RT, true>(x, y, base, n, step, ldexpf(1.f, -(int)s), lo, hi, lo_t,
+                                  hi_t, int_codes);
+      else
+        fq_wide_unit<T, RT, false>(x, y, base, n, step, 0.f, lo, hi, lo_t, hi_t, int_codes);
+      continue;
+    }
+    const long long base = unit * kTile;
     const float step = pow2_step(__ldg(g.s[e]));
     if (n % 4 == 0 && aligned(x, 4 * sizeof(T)) && aligned(y, 4 * sizeof(T))) {
       const long long i = base / 4 + threadIdx.x;
@@ -217,14 +328,17 @@ int fq_launch(const long long* table, int count, int x_dtype, int bits, int int_
               cudaStream_t st) {
   FqGroup<N> g{};
   long long prev = 0;
+  const long long wide = x_dtype == BF16 ? wide_tile<__nv_bfloat16>() : wide_tile<float>();
   for (int e = 0; e < count; ++e) {
-    const long long* row = table + 5 * e;
+    const long long* row = table + 6 * e;
     g.x[e] = (const void*)row[0];
     g.y[e] = (void*)row[1];
     g.s[e] = (const float*)row[2];
     g.n[e] = row[3];
     g.tile_end[e] = row[4];
-    if (g.n[e] < 0 || g.tile_end[e] - prev != (g.n[e] + kTile - 1) / kTile)
+    g.wide[e] = row[5] != 0;
+    const long long unit = g.wide[e] ? wide : kTile;
+    if (g.n[e] < 0 || g.tile_end[e] - prev != (g.n[e] + unit - 1) / unit)
       return (int)cudaErrorInvalidValue;
     prev = g.tile_end[e];
   }
@@ -232,10 +346,20 @@ int fq_launch(const long long* table, int count, int x_dtype, int bits, int int_
   if (prev == 0) return (int)cudaSuccess;
   const float lo = -(float)(1 << (bits - 1)), hi = (float)((1 << (bits - 1)) - 1);
   const int grid = grid_for(prev * kThreads);
+  bool wide_any = false;
+  for (int e = 0; e < count; ++e) wide_any = wide_any || g.wide[e];
+  auto launch = [&](auto t, auto w) {
+    using T = decltype(t);
+    p2_fq_group_kernel<T, N, RT, decltype(w)::value><<<grid, kThreads, 0, st>>>(g, lo, hi,
+                                                                             int_codes);
+  };
   switch (x_dtype) {
-    case F32: p2_fq_group_kernel<float, N, RT><<<grid, kThreads, 0, st>>>(g, lo, hi, int_codes); break;
+    case F32:
+      if (wide_any) launch(float{}, std::true_type{}); else launch(float{}, std::false_type{});
+      break;
     case BF16:
-      p2_fq_group_kernel<__nv_bfloat16, N, RT><<<grid, kThreads, 0, st>>>(g, lo, hi, int_codes);
+      if (wide_any) launch(__nv_bfloat16{}, std::true_type{});
+      else launch(__nv_bfloat16{}, std::false_type{});
       break;
     default: return (int)cudaErrorInvalidValue;
   }
@@ -255,9 +379,11 @@ int fq_dispatch(const long long* table, int count, int x_dtype, int bits, int in
 extern "C" {
 
 // A group of `count` (1..kFqCap) tensors of x_dtype, as rows of `table`:
-// {x, y, s, n, tile_end} (pointers as integers; x, y: n contiguous
-// elements; s: one f32 scale_log2 on the device; tile_end: the prefix sum
-// of ceil(n / kTile), kernels/grouped.py::fq_plan); bits in [2, 16].
+// {x, y, s, n, tile_end, wide} (pointers as integers; x, y: n contiguous
+// elements; s: one f32 scale_log2 on the device; wide: 0 for narrow units
+// of kTile elements, 1 for wide units of wide_tile<T>(); tile_end: the
+// prefix sum of ceil(n / unit), kernels/grouped.py::fq_plan); bits in
+// [2, 16].
 // q_code -1: the fake-quant; 0 int8, 1 int16, 2 int32, 3 f32: the round
 // trip through codes of that type (bits at most the type's, so the grid
 // lies inside it and to_code's saturation never acts). Returns

@@ -10,12 +10,17 @@ The plans are pure functions of the shapes, so the CPU tests can check
 them where no kernel can run:
 
 - ``fq_plan``: the tensors chunked into launches of at most ``FQ_CAP``,
-  each with the prefix of its tensors' tile counts (a tile is ``FQ_TILE``
-  elements, one CTA's work at a time; a tile never straddles two tensors).
+  each with the prefix of its tensors' unit counts (a unit is one CTA's
+  work at a time and never straddles two tensors: ``FQ_TILE`` elements, or
+  for a tensor of at least ``STREAM_MIN`` elements a wide unit of
+  ``FQ_WIDE_BYTES``, four 16-byte loads a thread).
 - ``bw_plan``: the leaves chunked into launches of at most ``BW_CAP``, each
   with the prefix of its leaves' warp tasks (32 consecutive blocks for a
-  block width b <= 32, one block for b > 32) and each leaf's offset in the
-  launch's one flat codes buffer (on 16 bytes) and one flat scales buffer.
+  block width b <= 32, one block for b > 32, and for a stream leaf
+  ``BW_STREAM_STEPS`` steps of 1024 / b blocks) and each leaf's offset in
+  the launch's one flat codes buffer (on 16 bytes) and one flat scales
+  buffer. A stream leaf (``bw_stream``) holds at least ``STREAM_MIN``
+  elements in blocks of 256, 512 or 1024 on rows of whole float4.
 - ``bwd_plan``: the leaves chunked into launches of at most ``BW_CAP``,
   each with the prefix of its leaves' tile counts (a tile is ``BWD_TILE``
   output elements, one CTA's work at a time, never two leaves) and each
@@ -26,7 +31,13 @@ them where no kernel can run:
   each entry's offset in the encode's one int8 codes buffer (on 16 bytes)
   and in the decode's one f32 values buffer (on 16 bytes).
 
-The caps keep each table within the 4 KB of a launch's parameters.
+The caps keep each table within the 4 KB of a launch's parameters. The
+routes follow from the shapes alone: the LM step's large entries (its
+grad-edge group's embedding and head, its activation edges, the
+embedding's and the head's moments, their wire leaves) take the stream
+units; the MLP's tensors, a few thousand elements each, and the LM's TT
+cores keep the units sized for launch latency. ``stream=False`` plans the
+latter for every entry: the previous design, a yardstick only.
 """
 from __future__ import annotations
 
@@ -39,7 +50,11 @@ from ..numerics.spec import QuantSpec, packed_trailing
 
 FQ_CAP = 64                 # pow2_fq.cu kFqCap
 FQ_TILE = 1024              # pow2_fq.cu kTile: 256 threads x 4 elements
+FQ_WIDE_BYTES = 16384       # pow2_fq.cu wide_tile: 256 threads x 4 x 16 B
+STREAM_MIN = 1 << 20        # elements: an entry this large streams
 BW_CAP = 48                 # blockwise.cu kBwCap
+BW_STREAM_STEPS = 8         # blockwise.cu kStreamSteps
+BW_STEP = 1024              # values a warp holds a step: 8 float4 a lane
 WARP = 32
 CODE_ALIGN = 16             # bytes: each leaf's codes start on 16 bytes
 BWD_TILE = 1024             # blockwise.cu kDecTile: 256 threads x 4 outputs
@@ -56,23 +71,35 @@ def chunks(n: int, cap: int) -> list[range]:
 @dataclass(frozen=True)
 class FqLaunch:
     index: range                 # the tensors of this launch
-    tile_end: tuple[int, ...]    # prefix sum of ceil(n / FQ_TILE)
+    tile_end: tuple[int, ...]    # prefix sum of ceil(n / unit)
+    wide: tuple[bool, ...]       # each tensor's units: wide or FQ_TILE
 
     @property
     def tiles(self) -> int:
         return self.tile_end[-1]
 
 
-def fq_plan(numels: list[int], cap: int = FQ_CAP) -> list[FqLaunch]:
+def fq_unit(numel: int, itemsize: int, stream: bool = True) -> int:
+    """Elements of one unit of a tensor: a wide unit (``FQ_WIDE_BYTES``)
+    for one of at least ``STREAM_MIN`` elements, else ``FQ_TILE``."""
+    if stream and numel >= STREAM_MIN:
+        return FQ_WIDE_BYTES // itemsize
+    return FQ_TILE
+
+
+def fq_plan(numels: list[int], itemsize: int = 4, cap: int = FQ_CAP,
+            stream: bool = True) -> list[FqLaunch]:
     """The fake-quant group's launches over tensors of ``numels`` elements
-    (an empty list gives none)."""
+    of ``itemsize`` bytes (an empty list gives none)."""
     out = []
     for idx in chunks(len(numels), cap):
-        ends, acc = [], 0
+        ends, wide, acc = [], [], 0
         for i in idx:
-            acc += -(-numels[i] // FQ_TILE)
+            unit = fq_unit(numels[i], itemsize, stream)
+            acc += -(-numels[i] // unit)
             ends.append(acc)
-        out.append(FqLaunch(idx, tuple(ends)))
+            wide.append(unit != FQ_TILE)
+        out.append(FqLaunch(idx, tuple(ends), tuple(wide)))
     return out
 
 
@@ -85,6 +112,7 @@ class BwLeaf:
     tasks: int                   # warp tasks
     code_off: int                # elements into the launch's codes buffer
     scale_off: int               # elements into its scales buffer
+    stream: bool = False         # stream tasks (bw_stream)
 
     @property
     def codes(self) -> int:
@@ -108,16 +136,27 @@ class BwLaunch:
         return self.task_end[-1]
 
 
-def bw_tasks(rows: int, last: int, b: int, nb: int) -> int:
-    """Warp tasks of one leaf: a warp per 32 blocks (b <= 32) or per block
-    (b > 32); none for an empty leaf."""
+def bw_stream(rows: int, last: int, b: int) -> bool:
+    """Whether a leaf takes stream tasks: at least ``STREAM_MIN`` elements
+    in blocks of 256, 512 or 1024 on rows of whole float4."""
+    return rows * last >= STREAM_MIN and b in (256, 512, 1024) \
+        and last % 4 == 0
+
+
+def bw_tasks(rows: int, last: int, b: int, nb: int,
+             stream: bool = False) -> int:
+    """Warp tasks of one leaf: a warp per 32 blocks (b <= 32), per block
+    (b > 32) or, for stream tasks, per ``BW_STREAM_STEPS`` steps of
+    ``BW_STEP // b`` blocks; none for an empty leaf."""
     units = rows * nb if rows * last else 0
+    if stream:
+        return -(-units // (BW_STREAM_STEPS * (BW_STEP // b)))
     return -(-units // WARP) if b <= WARP else units
 
 
 def bw_plan(shapes: list[tuple[int, int]], block: int,
             storage: torch.dtype = torch.int8,
-            cap: int = BW_CAP) -> list[BwLaunch]:
+            cap: int = BW_CAP, stream: bool = True) -> list[BwLaunch]:
     """The blockwise encode group's launches over (rows, last) leaves at
     ``block`` with codes of ``storage`` (an empty list gives none)."""
     per = CODE_ALIGN // storage.itemsize      # codes per 16 bytes
@@ -128,8 +167,9 @@ def bw_plan(shapes: list[tuple[int, int]], block: int,
         for i in idx:
             rows, last = shapes[i]
             b, nb, _ = blockwise_geometry(spec, last)
-            leaf = BwLeaf(rows, last, b, nb, bw_tasks(rows, last, b, nb),
-                          code, scale)
+            st = stream and bw_stream(rows, last, b)
+            leaf = BwLeaf(rows, last, b, nb, bw_tasks(rows, last, b, nb, st),
+                          code, scale, st)
             leaves.append(leaf)
             tasks += leaf.tasks
             ends.append(tasks)

@@ -313,8 +313,8 @@ def decode_scalar(q: torch.Tensor, s, dtype: torch.dtype) -> torch.Tensor:
     return y
 
 
-def _fq_lib() -> ctypes.CDLL:
-    lib = B.load(FQ_SOURCE)
+def fq_typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/pow2_fq.cu``) with its C signatures."""
     if not getattr(lib, "_repro_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.p2_fq_group.argtypes = [ctypes.POINTER(ll), i, i, i, i, p]
@@ -323,6 +323,10 @@ def _fq_lib() -> ctypes.CDLL:
         lib.p2_fq_rows.restype = i
         lib._repro_typed = True
     return lib
+
+
+def _fq_lib() -> ctypes.CDLL:
+    return fq_typed(B.load(FQ_SOURCE))
 
 
 def fake_quant_plain(x: torch.Tensor, step_log2, bits: int) -> torch.Tensor:
@@ -339,11 +343,15 @@ def fake_quant_many_plain(xs: list[torch.Tensor], steps_log2: torch.Tensor,
 
 
 def _fq_group(xs: list[torch.Tensor], steps: list[int], bits: int,
-              storage: torch.dtype | None = None) -> list[torch.Tensor]:
+              storage: torch.dtype | None = None, *,
+              lib: ctypes.CDLL | None = None,
+              stream: bool = True) -> list[torch.Tensor]:
     """Launch ``p2_fq_group`` over CUDA tensors ``xs`` of one dtype, the f32
     step of ``xs[n]`` at device address ``steps[n]`` (read on the device):
-    one launch per ``grouped.FQ_CAP`` tensors. ``storage`` None: the
-    fake-quant; a code type: the codec's round trip through it."""
+    one launch per ``grouped.FQ_CAP`` tensors, units as ``grouped.fq_plan``
+    gives them. ``storage`` None: the fake-quant; a code type: the codec's
+    round trip through it. ``lib``: another build of the source;
+    ``stream=False``: narrow units throughout (both yardsticks only)."""
     what = FQ if storage is None else RT
     dtype = xs[0].dtype
     if dtype not in _FQ_DTYPE_CODE or any(x.dtype != dtype for x in xs):
@@ -355,19 +363,20 @@ def _fq_group(xs: list[torch.Tensor], steps: list[int], bits: int,
     code = -1 if storage is None else _check_storage(what, bits, storage)
     xs = [x.contiguous() for x in xs]
     ys = [torch.empty_like(x) for x in xs]
-    lib = _fq_lib()
-    stream = torch.cuda.current_stream(xs[0].device).cuda_stream
-    for launch in G.fq_plan([x.numel() for x in xs]):
+    lib = _fq_lib() if lib is None else lib
+    cuda_stream = torch.cuda.current_stream(xs[0].device).cuda_stream
+    for launch in G.fq_plan([x.numel() for x in xs], xs[0].element_size(),
+                            stream=stream):
         if not launch.tiles:
             continue
         rows = []
-        for i, end in zip(launch.index, launch.tile_end):
+        for i, end, wide in zip(launch.index, launch.tile_end, launch.wide):
             rows += [xs[i].data_ptr(), ys[i].data_ptr(), steps[i],
-                     xs[i].numel(), end]
+                     xs[i].numel(), end, int(wide)]
         table = (ctypes.c_longlong * len(rows))(*rows)
         B.check(lib, lib.p2_fq_group(table, len(launch.index),
                                      _FQ_DTYPE_CODE[dtype], bits, code,
-                                     stream), what)
+                                     cuda_stream), what)
         B.note_launch(what)
     return ys
 
@@ -713,8 +722,8 @@ def bw_decode_many_plain(codes: list[torch.Tensor],
             for c, s, last in zip(codes, scales, lasts)]
 
 
-def _bw_lib() -> ctypes.CDLL:
-    lib = B.load(BW_SOURCE)
+def bw_typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/blockwise.cu``) with its C signatures."""
     if not getattr(lib, "_repro_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.bw_enc_group.argtypes = [ctypes.POINTER(ll), i, i, i, p]
@@ -723,6 +732,10 @@ def _bw_lib() -> ctypes.CDLL:
         lib.bw_dec_group.restype = i
         lib._repro_typed = True
     return lib
+
+
+def _bw_lib() -> ctypes.CDLL:
+    return bw_typed(B.load(BW_SOURCE))
 
 
 def bw_encode_many_plain(xs: list[torch.Tensor], block: int, bits: int = 8,
@@ -734,20 +747,24 @@ def bw_encode_many_plain(xs: list[torch.Tensor], block: int, bits: int = 8,
 
 
 def _bw_group(xs: list[torch.Tensor], block: int, bits: int,
-              storage: torch.dtype
+              storage: torch.dtype, *, lib: ctypes.CDLL | None = None,
+              stream: bool = True
               ) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """Launch ``bw_enc_group`` over (rows, last) CUDA tensors: one launch
     per ``grouped.BW_CAP`` leaves, each writing one codes and one scales
-    buffer, returned as per-leaf views."""
+    buffer, returned as per-leaf views; tasks as ``grouped.bw_plan`` gives
+    them. ``lib``: another build of the source; ``stream=False``: no
+    stream tasks (both yardsticks only)."""
     code = _check_storage(BENC, bits, storage)
     dev = xs[0].device
     if any(x.device != dev for x in xs):
         raise ValueError(f"{BENC}: tensors must be on one device")
     xs = [x.float().contiguous() for x in xs]
-    lib = _bw_lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _bw_lib() if lib is None else lib
+    cuda_stream = torch.cuda.current_stream(dev).cuda_stream
     out = []
-    for launch in G.bw_plan([tuple(x.shape) for x in xs], block, storage):
+    for launch in G.bw_plan([tuple(x.shape) for x in xs], block, storage,
+                            stream=stream):
         codes = torch.empty(launch.codes, dtype=storage, device=dev)
         scales = torch.empty(launch.scales, dtype=torch.float32, device=dev)
         c0, s0 = codes.data_ptr(), scales.data_ptr()
@@ -756,7 +773,7 @@ def _bw_group(xs: list[torch.Tensor], block: int, bits: int,
         for i, leaf, end in zip(launch.index, launch.leaves, launch.task_end):
             rows += [xs[i].data_ptr(), c0 + leaf.code_off * csz,
                      s0 + 4 * leaf.scale_off, leaf.rows, leaf.last, leaf.b,
-                     leaf.nb, end]
+                     leaf.nb, end, int(leaf.stream)]
             out.append((
                 codes[leaf.code_off:leaf.code_off + leaf.codes].view(
                     leaf.rows, leaf.nb * leaf.b),
@@ -766,7 +783,7 @@ def _bw_group(xs: list[torch.Tensor], block: int, bits: int,
             continue
         table = (ctypes.c_longlong * len(rows))(*rows)
         B.check(lib, lib.bw_enc_group(table, len(launch.index), code, bits,
-                                      stream), BENC)
+                                      cuda_stream), BENC)
         B.note_launch(BENC)
     return out
 

@@ -78,7 +78,17 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
     row, odd ``last``, a non-integer step, a scalar and misaligned views
     in one group, one launch each way; more entries than the cap in two; a
     group of one; the deploy export and load one launch each, the file
-    byte for byte the CPU export's and the cores the CPU load's.
+    byte for byte the CPU export's and the cores the CPU load's;
+(q) the stream routes: the fake-quant group's wide units beside narrow
+    ones (f32, bf16; bits 4/8/16; an odd length and a view one element in,
+    steps at 2^-127 / 2^127 and a non-integer step) and the round trip on
+    wide units, bit for bit with their twins (integer steps against the
+    twin on the CPU: the card's ``torch.exp2(-127)`` is an ulp off 2^-127),
+    the narrow units and a second launch; the blockwise encode group's
+    stream tasks at b = 256, 512 and 1,024 (ragged row ends, rows of one
+    block, a long row, a view one float in, all-zero blocks; int8, int16,
+    int32 and float32 codes) bit for bit with the twin, the previous tasks
+    and a second launch.
 """
 import math
 
@@ -1677,3 +1687,100 @@ def test_deploy_export_and_load_one_launch_each(cuda, tmp_path):
         for k, v in host[layer].items():
             got = back[layer][k]
             assert got.is_cuda and torch.equal(got.cpu(), v), (layer, k)
+
+
+# ---------------------------------------------------------------------------
+# (q) the stream routes: the fake-quant group's wide units and the
+#     blockwise encode group's stream tasks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bits", [4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fq_group_wide_units_bit_identical(cuda, dtype, bits):
+    """Wide units beside narrow ones in one launch, bit for bit with the
+    twin (zeros' sign included), the narrow units throughout and a second
+    launch: an aligned tensor of a ragged unit count, an odd length and a
+    view one element in (the element loop), steps at 2^-127 / 2^127 and a
+    non-integer step (the division), and a small tensor."""
+    from repro_torch.kernels import grouped as G
+    g = torch.Generator(device=cuda).manual_seed(bits)
+    n = G.STREAM_MIN
+    base = torch.randn(n + 4099, generator=g, device=cuda) * 0.3
+    base[:64] = torch.tensor([0.0, -0.0, -1e-30, 1e-30] * 16, device=cuda)
+    xs = [base[:n + 4096].to(dtype), base[1:n + 1].to(dtype),
+          (base[:n + 3] * 2.0 ** -120).to(dtype), (base[:n] * 1e30).to(dtype),
+          base[:n].to(dtype), base[:777].to(dtype)]
+    steps = torch.tensor([-3.0, -2.0, -127.0, 127.0, -2.5, -4.0],
+                         device=cuda)
+    (launch,) = G.fq_plan([x.numel() for x in xs], xs[0].element_size())
+    assert launch.wide == (True,) * 5 + (False,)
+    B.reset_launches()
+    ys = CB.fake_quant_scalar_many(xs, steps, bits)
+    torch.cuda.synchronize()
+    assert dict(B.LAUNCHES) == {"p2_fake_quant": 1}
+    ptrs = [steps.data_ptr() + 4 * i for i in range(len(xs))]
+    # the plain version: on the CPU at integer steps (the card's torch.exp2
+    # gives 2^-127 an ulp off, the kernel's ldexpf and the CPU's exp2 give it
+    # exactly), on the card at the non-integer step (there the kernel's
+    # exp2f is the card's)
+    card = CB.fake_quant_many_plain(xs, steps, bits)
+    host = CB.fake_quant_many_plain([x.cpu() for x in xs], steps.cpu(), bits)
+    for i, (y, r, h, p, a) in enumerate(zip(
+            ys, card, host, CB._fq_group(xs, ptrs, bits, stream=False),
+            CB.fake_quant_scalar_many(xs, steps, bits))):
+        integer = float(steps[i]) == int(steps[i])
+        assert _bits_eq(y.cpu(), h) if integer else _bits_eq(y, r), i
+        assert _bits_eq(y, p) and _bits_eq(y, a), i
+
+
+@pytest.mark.parametrize("storage", [torch.int8, torch.int16, torch.float32])
+def test_rt_group_wide_units_bit_identical(cuda, storage):
+    """The round trip on wide units (a leaf over ``STREAM_MIN``) bit for
+    bit with its twin, +0.0 zeros through integer codes."""
+    from repro_torch.kernels import grouped as G
+    g = torch.Generator(device=cuda).manual_seed(5)
+    xs = [torch.randn(G.STREAM_MIN + 8, generator=g, device=cuda) * 0.4,
+          torch.randn(300, generator=g, device=cuda)]
+    xs[0][:4] = torch.tensor([0.0, -0.0, -0.01, 0.01], device=cuda)
+    steps = [torch.tensor(-3.0, device=cuda), torch.tensor(-2.0, device=cuda)]
+    ys = CB.roundtrip_many(xs, steps, 8, storage)
+    for y, r in zip(ys, CB.roundtrip_many_plain(xs, steps, 8, storage)):
+        assert _bits_eq(y, r)
+    if storage != torch.float32:             # an f32 code keeps -0.0
+        assert not torch.signbit(ys[0][ys[0] == 0]).any()
+
+
+@pytest.mark.parametrize("storage,bits", [(torch.int8, 8), (torch.int16, 12),
+                                          (torch.int32, 20),
+                                          (torch.float32, 16)])
+@pytest.mark.parametrize("block", [256, 512, 1024])
+def test_bw_group_stream_tasks_bit_identical(cuda, block, storage, bits):
+    """Stream tasks beside the previous tasks in one launch, bit for bit
+    with the twin (codes and scales), the previous tasks throughout and a
+    second launch: rows whose last block is ragged, rows of one block,
+    one long row (the wire's view) with a ragged end, a view one float in
+    (the strided fallback), all-zero blocks, and small leaves."""
+    from repro_torch.kernels import grouped as G
+    g = torch.Generator(device=cuda).manual_seed(block + bits)
+    m = G.STREAM_MIN
+    flat = torch.randn(m + 4 * block + 8, generator=g, device=cuda) * 0.05
+    flat[:2 * block] = 0.0
+    last = 3 * block + 4 * (block // 8)          # ragged last block a row
+    xs = [flat[:m - m % last + last].view(-1, last),
+          flat[:m].view(-1, block),
+          flat[:m + 2 * block + 4].view(1, -1),
+          flat[1:m + 1].view(-1, 1024),
+          flat[:5 * block].view(5, block), flat[:300].view(10, 30)]
+    (launch,) = G.bw_plan([tuple(x.shape) for x in xs], block, storage)
+    assert [lf.stream for lf in launch.leaves] == [True] * 4 + [False] * 2
+    B.reset_launches()
+    got = CB.bw_encode_many(xs, block, bits, storage)
+    torch.cuda.synchronize()
+    assert dict(B.LAUNCHES) == {"bw_enc": 1}
+    prev = CB._bw_group(xs, block, bits, storage, stream=False)
+    again = CB.bw_encode_many(xs, block, bits, storage)
+    for x, (c, sc), (pc, ps), (ac, asc) in zip(xs, got, prev, again):
+        rc, rs = CB.bw_encode_plain(x, block, bits, storage)
+        for other, osc in ((rc, rs), (pc, ps), (ac, asc)):
+            assert _bits_eq(c, other) and _bits_eq(sc, osc)
+    assert (got[0][1][0, :2] == 0).all() and not got[0][0][0, :2 * block].any()
