@@ -21,7 +21,11 @@ Phases (any failure raises and the script exits non-zero):
              index_put_ for K and for V: ``previous_ms``); the chunk step's
              paged write (the same kernel at S = 128: one slot's 128 rows,
              a page-aligned chunk and one whose pad rows and valid rows run
-             past the slot's last page) and the paged read (p2_read_paged:
+             past the slot's last page; and the speculative verify's write,
+             8 slots x S = 4 at per-slot lengths, one slot overhanging the
+             horizon and one inactive, bit for bit with its twin on the
+             whole pool and with the reference's route) and the paged read
+             (p2_read_paged:
              one slot and 8 slots of 64 pages -> bf16 and f32), bit for bit
              with their twins, with the parent's route and over two
              launches, each timed beside the parent's route (page
@@ -35,7 +39,9 @@ Phases (any failure raises and the script exits non-zero):
              p2_enc_rows + index_put_: ``previous_ms``); paged attention
              over an int8 pool
              (513, 16, 8, 128) with B=8, S in {1, 4}, ragged contexts up to
-             1024, within 1e-5 in fp32 and 2 bf16 ulp (+1e-5) with bf16 q,
+             1024 (and S = 4 with one slot's block overhanging the
+             horizon, the speculative verify's shape: rows inside it held
+             to the twin), within 1e-5 in fp32 and 2 bf16 ulp (+1e-5) with bf16 q,
              bit-identical over two launches, and each of its two kernels
              (the split pass, the combine pass) against its plain mirror on
              the same inputs. Times each kernel (CUDA events, L2 flushed
@@ -93,8 +99,27 @@ Phases (any failure raises and the script exits non-zero):
              Then one chunk step's host and device time, profiled
              (p2_append_paged_kernel and p2_read_paged_kernel 24 a step;
              no other KV kernel; asserted).
+   serve spec — the sixth main path, on the same model: speculative
+             decoding (k = 3, fused attention) of the engine phase's 16
+             requests, 64 new tokens each, with (a) an independent 2-layer
+             draft of the same config (its own seeded weights) and (b) a
+             self-draft; counts zeroed just before and read just after
+             each: per round 24 + 4 x L_draft p2_append_paged, 24 split and
+             24 combine, 4 x L_draft p2_read_paged, 2 p2_prefill_paged per
+             admission and no other kernel of the kernels line; every page
+             back on the free list; the acceptance, tokens per round and
+             greedy agreement with the engine phase's fused tokens
+             reported. Then a steady round of (a), timed on the host and
+             profiled (p2_append_paged_kernel 32, p2_read_paged_kernel 8,
+             pa_split_kernel and pa_combine_kernel 24 a round; no other KV
+             kernel; asserted by name).
 4. identity — the same requests in float32 at full width with 4 layers:
-             fused and gather engines must emit identical greedy tokens.
+             fused and gather engines must emit identical greedy tokens;
+             speculative decoding (k = 3) with a 2-layer fp32 draft, fused
+             and gather, must emit them too, and a self-draft on the gather
+             path with acceptance 1.0; an fp pool config under
+             NumericsPolicy(enable=True) must serve from an int8 pool with
+             the int8 engine's tokens.
    chunked identity — float32, 4 layers: an int8 prefix hit (a 16-page
              donor, 8 followers) must equal the cache-off run with a chunk
              boundary at the resume position on every completion, with no
@@ -407,16 +432,19 @@ def _append_inputs(torch, gen):
             active), dict(page_size=page, bits=8)
 
 
-def _append_previous(CB, KA, kd, vd, ks, vs, k, v, table, lens, active, *,
+def _tokens_previous(CB, KA, kd, vd, ks, vs, k, v, table, lens, active, *,
                      page_size, bits):
-    """The design the append replaced, per tensor: the page arithmetic,
-    the row-scale encode kernel and an ``index_put_``."""
-    for data, s, new in ((kd, ks, k), (vd, vs, v)):
-        b = new.shape[0]
-        pages, offs = KA.append_slots(table, lens, active, page_size,
-                                      data.shape[0] - 1)
-        codes = CB.encode_rows(new.reshape(b, -1), s, bits)
-        data.index_put_((pages, offs), codes.reshape((b,) + data.shape[2:]))
+    """The reference's S-row write (``kv_cache.append_tokens``; at S = 1
+    ``append_token``, the design the append replaced) run per tensor: the
+    page arithmetic, the row-scale encode kernel and an ``index_put_``."""
+    b, s = k.shape[:2]
+    for data, sc, new in ((kd, ks, k), (vd, vs, v)):
+        pages, offs = KA.token_pages(table, lens, active, s, page_size,
+                                     data.shape[0] - 1)
+        srow = sc.reshape(b, 1).expand(b, s).reshape(b * s)
+        codes = CB.encode_rows(new.reshape(b * s, -1), srow, bits)
+        data.index_put_((pages.reshape(-1), offs.reshape(-1)),
+                        codes.reshape((b * s,) + tuple(data.shape[2:])))
 
 
 def _append_row(torch, timer, gen) -> dict:
@@ -433,7 +461,7 @@ def _append_row(torch, timer, gen) -> dict:
     want = [kd.clone(), vd.clone()]
     KA.append_paged_torch(*want, *args[2:], **kw)
     prev = [kd.clone(), vd.clone()]
-    _append_previous(CB, KA, *prev, *args[2:], **kw)
+    _tokens_previous(CB, KA, *prev, *args[2:], **kw)
     _sync(torch, kd.device)
     B.reset_launches()
     KA.append_paged_cuda(*args, **kw)
@@ -447,7 +475,8 @@ def _append_row(torch, timer, gen) -> dict:
     written = (kd != orig).flatten(2).any(2)          # (pages, offsets)
     check(bool(written[-1, [0, 4, 5]].all()),
           "p2_append_paged: the trash page missed an inactive slot")
-    codes = kd[KA.append_slots(*args[6:], kw["page_size"], kd.shape[0] - 1)]
+    codes = kd[KA.token_pages(*args[6:], 1, kw["page_size"],
+                              kd.shape[0] - 1)]
     check(codes.min().item() == -128 and codes.max().item() == 127,
           "append data did not reach both clip ends")
     again = [kd.clone(), vd.clone()]
@@ -459,7 +488,7 @@ def _append_row(torch, timer, gen) -> dict:
     row = dict(shape=[list(args[4].shape), list(kd.shape)],
                what="decode append, 8 slots", max_abs_err=0.0,
                ms=timer(lambda: KA.append_paged_cuda(*args, **kw)),
-               previous_ms=timer(lambda: _append_previous(CB, KA, *args,
+               previous_ms=timer(lambda: _tokens_previous(CB, KA, *args,
                                                           **kw)),
                plain_ms=timer(lambda: KA.append_paged_torch(*args, **kw),
                               iters=10),
@@ -598,6 +627,78 @@ def _paged_write_row(torch, timer, gen, pool) -> dict:
         f"us, bound {row['bound_ms']*1e3:.4f} us); real pages bit-exact "
         "with the twin and the parent's route, clamp rule and pad rows, two "
         "launches equal")
+    return row
+
+
+def _spec_write_row(torch, timer, gen, pool) -> dict:
+    """The speculative verify's write: K and V of 8 slots x S = 4 rows x 8
+    x 128 bf16 (V the strided half of the fused projection) at per-slot
+    lengths into the serving pool, one launch with ``clamp_last=False``:
+    slot 1 crosses a page, slot 3 overhangs the horizon (rows 1024 and
+    1025 to the trash page), slot 6 is inactive. Bit for bit with the twin
+    and with the reference's route on the whole pool (the trash page
+    aside, where rows meet in one cell in no set order), over two
+    launches; timed beside the twin and that route (``previous_ms``)."""
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import kv_append as KA
+    from repro_torch.numerics import cuda_backend as CB
+    kd0, vd0, ks, vs, table = pool
+    b, s, page, pps = 8, 4, 16, 64
+    dev = gen.device
+    kv = (torch.randn((b, s, 2, 8, 128), generator=gen, device=dev)
+          * 2 ** -3).to(torch.bfloat16)
+    k, v = kv[:, :, 0].contiguous(), kv[:, :, 1]
+    check(not v.is_contiguous(), "spec write: V is not a strided view")
+    lens = torch.tensor([0, 14, 100, page * pps - 2, 511, 300, 5, 700],
+                        dtype=torch.int32, device=dev)
+    active = torch.tensor([1, 1, 1, 1, 1, 1, 0, 1], dtype=torch.bool,
+                          device=dev)
+    args = (ks, vs, k, v, table, lens, active)
+    kw = dict(page_size=page, bits=8)
+    got, want, prev = ([kd0.clone(), vd0.clone()] for _ in range(3))
+    KA.append_paged_torch(*want, *args, **kw)
+    _tokens_previous(CB, KA, *prev, *args, **kw)
+    _sync(torch, "cuda")
+    B.reset_launches()
+    KA.append_paged_cuda(*got, *args, **kw)
+    _sync(torch, "cuda")
+    check(B.LAUNCHES == {"p2_append_paged": 1},
+          f"spec write launches {B.LAUNCHES}")
+    for a, w, p_, o in zip(got, want, prev, (kd0, vd0)):
+        check(torch.equal(a, w), "spec write: pool differs from the twin")
+        check(torch.equal(a[:-1], p_[:-1]), "spec write: real pages differ "
+              "from the reference's route")
+        written = (a != o).flatten(2).any(2)            # (pages, offsets)
+        check(not bool(written[table[6].long()].any()),
+              "spec write touched the inactive slot's pages")
+        last = table[3, -1].long()
+        check(bool(written[last, 14:].all()) and bool(written[-1].any()),
+              "spec write: the overhanging slot's rows missed their page "
+              "or the trash page")
+    again = [kd0.clone(), vd0.clone()]
+    KA.append_paged_cuda(*again, *args, **kw)
+    check(torch.equal(again[0], got[0]) and torch.equal(again[1], got[1]),
+          "spec write: two launches differ")
+    kd, vd = kd0.clone(), vd0.clone()
+    n = 2 * k.numel()
+    row = dict(shape=[list(k.shape), list(kd.shape)],
+               what="spec verify write, 8 slots x S=4", max_abs_err=0.0,
+               ms=timer(lambda: KA.append_paged_cuda(kd, vd, *args, **kw)),
+               previous_ms=timer(lambda: _tokens_previous(
+                   CB, KA, kd, vd, *args, **kw)),
+               plain_ms=timer(lambda: KA.append_paged_torch(kd, vd, *args,
+                                                            **kw), iters=10),
+               library_ms=None, library_note=APPEND_NONE)
+    # bf16 in, int8 codes out; per slot two scales, a length, an active
+    # flag and the table entries the block may reach (two pages)
+    row["bound_ms"], row["bound_by"] = bound_ms(n * 3 + b * (13 + 8), 2 * n,
+                                                FP32_OPS_PER_S)
+    log(f"p2_append_paged spec verify write (K and V, {b} slots x S={s} x 8 "
+        f"x 128 bf16): {row['ms']*1e3:.2f} us one launch (the reference's "
+        f"route {row['previous_ms']*1e3:.2f} us, plain "
+        f"{row['plain_ms']*1e3:.1f} us, bound {row['bound_ms']*1e3:.4f} "
+        "us); pool bit-exact with the twin and that route, overhang to the "
+        "trash page, inactive slot untouched, two launches equal")
     return row
 
 
@@ -800,7 +901,8 @@ def phase_kernels(torch, timer: Timer) -> dict:
     out["p2_enc_rows"] = enc_shapes
     pool = _paged_pool(torch, gen)
     out["p2_append_paged"] = [_append_row(torch, timer, gen),
-                              _paged_write_row(torch, timer, gen, pool)]
+                              _paged_write_row(torch, timer, gen, pool),
+                              _spec_write_row(torch, timer, gen, pool)]
     out["p2_read_paged"] = _paged_read_rows(torch, timer, pool)
     del pool
     out["p2_prefill_paged"] = _prefill_rows(torch, timer, gen)
@@ -837,12 +939,19 @@ def phase_kernels(torch, timer: Timer) -> dict:
     kd, vd, ks, vs, table = _pa_pool(torch, gen)
     kw = dict(page_size=page, quantized=True)
     att_shapes, comb_shapes = [], []
-    for s_rows in (1, 4):
+    # S = 1 (decode), S = 4 (a q-block), and S = 4 as the spec verify meets
+    # it: slot 7's block overhangs the horizon (rows 1024 and 1025 are
+    # never emitted, so only the rows inside it are held to the twin)
+    for s_rows, overhang in ((1, False), (4, False), (4, True)):
         lens = _pa_lens(torch, s_rows)
+        if overhang:
+            lens[7] = pps * page - 2
+        inside = (lens[:, None] + torch.arange(s_rows, device="cuda")
+                  < pps * page)                              # (B, S)
         q32 = torch.randn((b, s_rows, hq, dh), generator=gen, device="cuda")
         o32 = PA.paged_attention_cuda(q32, kd, vd, ks, vs, table, lens, **kw)
         r32 = PA.paged_attention_torch(q32, kd, vd, ks, vs, table, lens, **kw)
-        err32 = (o32 - r32).abs().max().item()
+        err32 = (o32 - r32).abs()[inside].max().item()
         check(err32 <= 1e-5, f"paged_attention fp32 S={s_rows}: max abs "
               f"err {err32} > 1e-5")
         check(_bits_equal(torch, o32, PA.paged_attention_cuda(
@@ -851,18 +960,24 @@ def phase_kernels(torch, timer: Timer) -> dict:
         qb = q32.to(torch.bfloat16)
         ob = PA.paged_attention_cuda(qb, kd, vd, ks, vs, table, lens, **kw)
         rb = PA.paged_attention_torch(qb, kd, vd, ks, vs, table, lens, **kw)
-        diff = (ob.float() - rb.float()).abs()
-        ulps, over = _bf16_excess(diff, rb)
+        check(bool(ob.float().isfinite().all()),
+              f"paged_attention S={s_rows}: a non-finite output")
+        diff = (ob.float() - rb.float()).abs()[inside]
+        ulps, over = _bf16_excess(diff, rb[inside])
         check(over <= 0, f"paged_attention bf16 S={s_rows}: error exceeds "
               f"2 bf16 ulp + 1e-5 by {over}")
         errb = diff.max().item()
         comb = _pa_kernels_vs_mirrors(torch, timer, qb, kd, vd, ks, vs,
                                       table, lens, page, s_rows)
+        if overhang:
+            comb["what"] = "spec verify, slot 7 overhanging"
         comb_shapes.append(comb)
         # pages this run's data needs: those holding a position <= lens+S-1
         npg = torch.clamp((lens + s_rows - 1) // page + 1, max=pps)
-        # keys attended: row j of slot b sees lens[b] + j + 1 positions
-        keys = sum(l + j + 1 for l in lens.tolist() for j in range(s_rows))
+        # keys attended: row j of slot b sees lens[b] + j + 1 positions,
+        # at most the slot's pps * page
+        keys = sum(min(l + j + 1, pps * page) for l in lens.tolist()
+                   for j in range(s_rows))
         nbytes = (int(npg.sum()) * 2 * page * hkv * dh   # int8 K and V
                   + 2 * qb.numel() * 2 + b * (pps + 3) * 4)
         bms, by = bound_ms(nbytes, ops=4.0 * dh * hq * keys)
@@ -874,13 +989,15 @@ def phase_kernels(torch, timer: Timer) -> dict:
         lms = timer(lambda: _library_attention(torch, qb, kd, vd, ks, vs,
                                                table, lens, page))
         lib = _library_attention(torch, qb, kd, vd, ks, vs, table, lens, page)
-        lerr = (lib.float() - rb.float()).abs().max().item()
+        lerr = (lib.float() - rb.float()).abs()[inside].max().item()
         att_shapes.append(dict(S=s_rows, ms=ms, plain_ms=pms, library_ms=lms,
                                bound_ms=bms, bound_by=by, max_abs_err=errb,
                                max_abs_err_fp32=err32, max_ulp_bf16=ulps,
                                library_max_abs_err=lerr,
-                               split_ms=comb["split_ms"]))
-        log(f"paged_attention S={s_rows}: {ms*1e3:.1f} us (split "
+                               split_ms=comb["split_ms"],
+                               what=comb.get("what", f"S={s_rows}")))
+        log(f"paged_attention S={s_rows}{' overhanging' * overhang}: "
+            f"{ms*1e3:.1f} us (split "
             f"{comb['split_ms']*1e3:.1f} + combine {comb['ms']*1e3:.1f}; "
             f"plain {pms*1e3:.1f} us, library "
             f"{lms*1e3:.1f} us, bound {bms*1e3:.2f} us); fp32 err "
@@ -1065,14 +1182,18 @@ def _requests(vocab: int, n: int = 16, seed: int = 0):
             for _ in range(n)]
 
 
-def _serve_engine(torch, lm, params, prompts, gen_len: int, **ekw):
+def _serve_engine(torch, lm, params, prompts, gen_len: int, draft=None,
+                  quantized: bool = True, **ekw):
     """Serve ``prompts`` on a fresh engine over the int8 pool (8 slots x 64
-    pages of 16); every completion must have ``gen_len`` in-vocabulary
-    tokens. Returns (engine, completions in submission order)."""
+    pages of 16; ``quantized=False`` asks for a model-dtype one, which a
+    ``policy`` may override); every completion must have ``gen_len``
+    in-vocabulary tokens. Returns (engine, completions in submission
+    order)."""
     from repro_torch.serve import Engine, EngineConfig, PoolConfig
     pool = PoolConfig(num_slots=8, page_size=16, pages_per_slot=64,
-                      quantized=True)
-    eng = Engine(lm, params, EngineConfig(pool=pool, **ekw), device="cuda")
+                      quantized=quantized)
+    eng = Engine(lm, params, EngineConfig(pool=pool, **ekw), device="cuda",
+                 draft=draft)
     torch.cuda.synchronize()
     rids = [eng.submit(p, max_new_tokens=gen_len) for p in prompts]
     res = eng.run()
@@ -1086,9 +1207,9 @@ def _serve_engine(torch, lm, params, prompts, gen_len: int, **ekw):
     return eng, toks
 
 
-def _serve(torch, lm, params, fused: bool, prompts, gen_len: int):
+def _serve(torch, lm, params, fused: bool, prompts, gen_len: int, **kw):
     eng, toks = _serve_engine(torch, lm, params, prompts, gen_len,
-                              fused_attention=fused)
+                              fused_attention=fused, **kw)
     return toks, eng.summary()
 
 
@@ -1179,7 +1300,7 @@ def phase_engine(torch, lm, params) -> dict:
         f"agreement {agree:.3f}, launches {main}")
     out = {"fused": fs, "gather": gs, "launches_main": main,
            "launches_gather": gather, "peak_bytes": peak,
-           "bf16_token_agreement": agree}
+           "bf16_token_agreement": agree, "fused_tokens": fused_toks}
     layers = cfg.num_layers
     out["decode_profile"] = _profile_decode(
         torch, lm, params, prompts, fused=True,
@@ -1209,19 +1330,34 @@ def _profile_window(torch, window, steps: int, names, want, what: str,
     (profile, the named kernels' launches and device ms a step). With
     ``want`` (name -> launches a step) every window must count exactly
     that; a window that does not is logged and profiled again, and the
-    check fails when ``tries`` windows all miss. The trace now and then
-    loses a device event inside a window (one p2_fq_group_kernel launch of
-    180 in a wire-step window on the H100), which the launch counters
-    (``kernels.build.LAUNCHES``, asserted exactly on every path) never
-    do; a kernel launched too often or too rarely misses in every
-    window."""
+    check fails when ``tries`` windows all miss. The trace loses device
+    events at a window's start (``_pad_window``), which the launch
+    counters (``kernels.build.LAUNCHES``, asserted exactly on every path)
+    never do: the leading pad is sized from the most any earlier window
+    of the process lost (``_lead_spins``), and a window whose trace kept
+    none of it may have lost real launches, so it is profiled again with
+    a larger pad. A kernel launched too often or too rarely misses in
+    every window."""
     from torch.profiler import ProfilerActivity, profile
-    for attempt in range(1 if want is None else tries):
+    kern = None
+    for attempt in range(tries):
+        n = _lead_spins()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            _pad_window(torch)
+            _pad_window(torch, n, LEAD_CYCLES)
             window()
-            _pad_window(torch)
+            _pad_window(torch, TRAIL_SPINS, TRAIL_CYCLES)
+        cuda = torch.autograd.DeviceType.CUDA
+        lead = sum(e.count for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == cuda
+                   and "spin_kernel" in e.key) - TRAIL_SPINS
+        LEAD_LOST[0] = max(LEAD_LOST[0], n - lead)
+        log(f"  {what} profile window {attempt + 1}: the trace kept {lead} "
+            f"of {n} leading pad spins")
+        if lead <= 0:
+            log(f"  {what} profile window {attempt + 1}: the trace may have "
+                "lost the window's first launches; profiling another window")
+            continue
         kern = _kernel_profile(torch, prof, steps, names)
         got = {k: r["calls_per_step"] for k, r in kern.items()}
         if want is None or got == want:
@@ -1319,6 +1455,133 @@ def _profile_prefill(torch, lm, params, prompts, reps: int = 10,
             "kernels": kern}
 
 
+SPEC_K = 3                  # draft tokens a round
+DRAFT_LAYERS = 2            # the independent draft: the target's config cut
+                            # to 2 layers, its own seeded weights
+PA_KERNEL_FNS = ["pa_split_kernel", "pa_combine_kernel"]
+
+
+def _spec_want(layers: int, draft_layers: int) -> dict:
+    """Launches of one speculative round: the verify writes the block
+    once a layer and attends it once a layer (split + combine); each of
+    the k + 1 draft steps writes and reads once a draft layer."""
+    d = (SPEC_K + 1) * draft_layers
+    return {"p2_append_paged": layers + d, "paged_attention": layers,
+            "paged_attention_combine": layers, "p2_read_paged": d}
+
+
+def phase_serve_spec(torch, lm, params, fused_toks) -> dict:
+    """The sixth main path: speculative decoding (k = 3) on the shared
+    full-width model with fused attention, the engine phase's 16 requests,
+    64 new tokens each, twice: (a) an independent shallow draft (2 layers
+    of the same config, its own seeded weights), (b) a self-draft. Counts
+    zeroed just before and read just after each: per round 24 + 4 x L_d
+    ``p2_append_paged``, 24 split + 24 combine, 4 x L_d ``p2_read_paged``;
+    2 ``p2_prefill_paged`` per admission (the target's and the draft's);
+    no other KV kernel. Every page back on the free list. Then a steady
+    round of (a) timed and profiled, its kernels asserted by name."""
+    from repro_torch.kernels import build as B
+    import repro_torch.configs as C
+    from repro_torch.models import build_lm, init_lm
+    cfg = lm.cfg
+    prompts = _requests(cfg.vocab_size)
+    dlm = build_lm(C.get_config(ARCH).replace(num_layers=DRAFT_LAYERS))
+    dparams = init_lm(torch.Generator(device="cuda").manual_seed(1), dlm,
+                      device="cuda")
+    _serve_engine(torch, lm, params, prompts[:2], 4, fused_attention=True,
+                  spec_k=SPEC_K, draft=(dlm, dparams))           # warm-up
+    out = {}
+    for name, draft, dl in (("draft", (dlm, dparams), DRAFT_LAYERS),
+                            ("self", (lm, params), cfg.num_layers)):
+        B.reset_launches()
+        t0 = time.perf_counter()
+        eng, toks = _serve_engine(torch, lm, params, prompts, 64,
+                                  fused_attention=True, spec_k=SPEC_K,
+                                  draft=draft)
+        wall = time.perf_counter() - t0
+        launches, summ = dict(B.LAUNCHES), eng.summary()
+        rounds, admits = summ["spec"]["steps"], len(eng.metrics.prefills)
+        want = {k: rounds * v for k, v in _spec_want(cfg.num_layers,
+                                                     dl).items()}
+        want["p2_prefill_paged"] = 2 * admits
+        got = {k: launches.get(k, 0) for k in want}
+        check(rounds > 0 and rounds == summ["decode_steps"] and got == want,
+              f"spec ({name}): launches {got} for {rounds} rounds and "
+              f"{admits} admissions, want {want}")
+        others = set(launches) - set(want)
+        check(not others, f"spec ({name}): other launches {others}")
+        check(summ["requests_completed"] == len(prompts), "requests lost")
+        free = eng.sched.alloc.free_pages
+        check(free == eng.pcfg.total_pages, f"spec ({name}): {free} pages "
+              f"free of {eng.pcfg.total_pages} at the end")
+        agree = sum(a == b for ft, st in zip(fused_toks, toks)
+                    for a, b in zip(ft, st)) / (len(prompts) * 64)
+        out[name] = {"spec": summ["spec"], "launches": launches,
+                     "rounds": rounds, "admissions": admits,
+                     "free_pages": free, "wall_s": wall,
+                     "tokens_per_s": summ["tokens_per_s"],
+                     "ttft_p50_s": summ["ttft_p50_s"],
+                     "preemptions": summ["preemptions"],
+                     "bf16_token_agreement_with_engine": agree}
+        log(f"serve spec ({name}, k={SPEC_K}, {dl}-layer draft): "
+            f"{summ['requests_completed']} requests in {wall:.2f} s, "
+            f"{rounds} rounds, {summ['tokens_per_s']:.1f} tok/s, "
+            f"spec {summ['spec']}, greedy agreement with the engine's fused "
+            f"tokens {agree:.3f}, {free} pages free at the end; launches "
+            f"{launches}")
+        del eng
+    out["profile"] = _profile_spec(torch, lm, params, prompts,
+                                   (dlm, dparams), DRAFT_LAYERS)
+    return out
+
+
+def _profile_spec(torch, lm, params, prompts, draft, draft_layers: int,
+                  steps: int = 10) -> dict:
+    """Where a steady speculative round's time goes: the host wall time of
+    ``steps`` unprofiled rounds with all 8 slots busy, then profiled
+    windows of as many for the device time per kernel; the KV and
+    attention kernels asserted by name at ``_spec_want``'s counts a round
+    (up to three windows). busy_share = device time / wall time."""
+    from repro_torch.serve import Engine, EngineConfig, PoolConfig
+    eng = Engine(lm, params, EngineConfig(
+        pool=PoolConfig(num_slots=8, page_size=16, pages_per_slot=64,
+                        quantized=True), fused_attention=True,
+        spec_k=SPEC_K), device="cuda", draft=draft)
+    # enough tokens that no slot retires within the windows, whatever is
+    # accepted
+    for p in prompts[:8]:
+        eng.submit(p, max_new_tokens=(2 + PROFILE_TRIES) * steps
+                   * (SPEC_K + 1) + 2)
+    eng.step()                          # admits + prefills all 8, 1 round
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps
+    per = _spec_want(lm.cfg.num_layers, draft_layers)
+    want = {"p2_append_paged_kernel": float(per["p2_append_paged"]),
+            "p2_read_paged_kernel": float(per["p2_read_paged"]),
+            "pa_split_kernel": float(per["paged_attention"]),
+            "pa_combine_kernel": float(per["paged_attention_combine"])}
+    prof, kern = _profile_window(
+        torch, lambda: [eng.step() for _ in range(steps)], steps,
+        KV_KERNEL_FNS + PA_KERNEL_FNS, want, "spec round")
+    check(all(s is not None for s in eng.sched.slots),
+          "spec profile: a slot retired inside the windows")
+    total, rows = _device_summary(torch, prof, steps)
+    log(f"spec round profile (k={SPEC_K}, {draft_layers}-layer draft): "
+        f"{wall*1e3:.2f} ms per round (host wall), device {total:.2f} ms "
+        f"busy, busy share {total / (wall*1e3):.3f}")
+    for r in rows:
+        log(f"  {r['ms_per_step']:8.3f} ms  {r['calls_per_step']:6.1f}x  "
+            f"{r['name']}")
+    _log_kernels(kern)
+    return {"step_ms": wall * 1e3, "device_ms": total,
+            "busy_share": total / (wall * 1e3), "top": rows,
+            "kernels": kern, "spec": eng.summary()["spec"]}
+
+
 def phase_identity(torch) -> dict:
     import repro_torch.configs as C
     from repro_torch.models import build_lm, init_lm
@@ -1335,9 +1598,44 @@ def phase_identity(torch) -> dict:
           "completions identical")
     log(f"identity: fp32 {cfg.num_layers} layers, fused == gather on all "
         f"{len(prompts)} completions")
-    del params
+    # speculative decoding: greedy spec output is the non-spec output, with
+    # an independent 2-layer draft on either path, and a self-draft on the
+    # gather path accepts every proposal
+    dlm = build_lm(cfg.replace(num_layers=DRAFT_LAYERS))
+    dparams = init_lm(torch.Generator(device="cuda").manual_seed(1), dlm,
+                      device="cuda")
+    spec = {}
+    for name, fz, draft, ref in (("draft fused", True, (dlm, dparams), fused),
+                                 ("draft gather", False, (dlm, dparams),
+                                  gather),
+                                 ("self gather", False, (lm, params),
+                                  gather)):
+        toks, s = _serve(torch, lm, params, fz, prompts, 64, spec_k=SPEC_K,
+                         draft=draft)
+        n_same = sum(t == r for t, r in zip(toks, ref))
+        check(toks == ref, f"fp32 spec ({name}) vs non-spec: "
+              f"{n_same}/{len(prompts)} completions identical")
+        spec[name] = s["spec"]
+        log(f"identity: fp32 spec k={SPEC_K} ({name}) == non-spec on all "
+            f"{len(prompts)} completions; {s['spec']}")
+    check(spec["self gather"]["acceptance_rate"] == 1.0,
+          f"fp32 self-draft acceptance {spec['self gather']}")
+    # the policy owns the pool's numerics: an fp pool config under an
+    # enabled policy serves from an int8 pool, the int8 engine's tokens
+    from repro_torch.numerics import NumericsPolicy
+    eng, pol = _serve_engine(torch, lm, params, prompts, 64, quantized=False,
+                             fused_attention=True,
+                             policy=NumericsPolicy(enable=True))
+    leaf = eng.pool["data"]["sub_0"]["k"]
+    check(eng.pcfg.quantized and leaf.dtype == torch.int8 and pol == fused,
+          f"policy engine: pool {leaf.dtype}, "
+          f"{sum(a == b for a, b in zip(pol, fused))}/{len(prompts)} "
+          "completions equal to the int8 engine's")
+    log("identity: an fp pool under NumericsPolicy(enable=True) serves from "
+        "an int8 pool, tokens equal to the int8 engine's")
+    del params, dparams, eng
     torch.cuda.empty_cache()
-    return {"identical_completions": same}
+    return {"identical_completions": same, "spec": spec}
 
 
 def _leaves(tree):
@@ -2089,14 +2387,33 @@ def _profile_train(torch, one, per: dict, steps: int = 20, fn=KERNEL_FN,
             "kernels": kern, "launch_us": launch_us}
 
 
-def _pad_window(torch, n: int = 8) -> None:
-    """A few spin kernels between synchronisations at each edge of a
-    profiled window: the trace drops a device event or two at a window's
-    edge (PR 16's run counted 16.9 fake-quant launches a step of 17), and
-    these are the ones it may drop. ``_device_summary`` leaves them out."""
+LEAD_MARGIN = 8             # leading spins beyond twice the most lost
+LEAD_CYCLES = 2_000_000     # each ~1 ms on an H100
+TRAIL_SPINS = 8             # spins after a window, each ~0.5 µs
+TRAIL_CYCLES = 1000
+LEAD_LOST = [0]             # the most leading spins a window of this
+                            # process lost
+
+
+def _lead_spins() -> int:
+    """Leading spins for the next profiled window: twice the most any
+    earlier window lost, plus ``LEAD_MARGIN``."""
+    return 2 * LEAD_LOST[0] + LEAD_MARGIN
+
+
+def _pad_window(torch, n: int, cycles: int) -> None:
+    """``n`` spin kernels of ``cycles`` between synchronisations at an edge
+    of a profiled window. The trace drops device events at a window's
+    start, and the leading spins are the ones it may drop; the end pads
+    stay whole. The cause is not known. How many it drops differs between
+    windows and grows, though not steadily, over a process's profiler
+    sessions (an H100 run of this script with 64 leading spins of ~1 ms:
+    0, 0, 5, 0, 11, 14, 16 and 19 lost in its eight windows, in order).
+    ``_profile_window`` logs what each window kept; ``_device_summary``
+    leaves the spins out."""
     torch.cuda.synchronize()
     for _ in range(n):
-        torch.cuda._sleep(1000)
+        torch.cuda._sleep(cycles)
     torch.cuda.synchronize()
 
 
@@ -4050,7 +4367,7 @@ def _kernel_row(name, src, replaces, shapes, launches, path) -> dict:
 
 def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
                  wkern: dict, wire: dict, skern: dict, chunked: dict,
-                 lmkern: dict, lm: dict) -> dict:
+                 lmkern: dict, lm: dict, spec: dict) -> dict:
     rows = []
     for name, (src, replaces) in KERNELS.items():
         rows.append(_kernel_row(name, src, replaces, kern[name],
@@ -4061,6 +4378,12 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
         chunked["launches"].get("p2_read_paged", 0),
         f"serve chunked prefix ({chunked['chunk_steps']} chunk steps); "
         f"gather engine {eng['launches_gather'].get('p2_read_paged', 0)}"))
+    for row in rows:
+        # the speculative path's launches, run (a): the shallow draft (the
+        # rows so far are its five kernels; none below runs on it)
+        row["spec_launches"] = spec["draft"]["launches"].get(row["name"], 0)
+        row["path"] += (f"; serve spec ({spec['draft']['rounds']} rounds, "
+                        f"{row['spec_launches']} launches)")
     rows.append(_kernel_row(
         "p2_enc_rows", *ENC_ROWS, kern["p2_enc_rows"],
         skern["api_launches"].get("p2_enc_rows", 0),
@@ -4282,6 +4605,8 @@ def main(argv=None) -> int:
     lm, params = full_model(torch)
     report["engine"] = phase_engine(torch, lm, params)
     report["serve_chunked"] = phase_serve_chunked(torch, lm, params)
+    report["serve_spec"] = phase_serve_spec(
+        torch, lm, params, report["engine"]["fused_tokens"])
     del params
     torch.cuda.empty_cache()
     report["identity"] = phase_identity(torch)
@@ -4298,7 +4623,8 @@ def main(argv=None) -> int:
                         report["train_kernels"], report["train"],
                         report["wire_kernels"], report["train_wire"],
                         report["scalar_kernels"], report["serve_chunked"],
-                        report["lm_kernels"], report["train_lm"])
+                        report["lm_kernels"], report["train_lm"],
+                        report["serve_spec"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

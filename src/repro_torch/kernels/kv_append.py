@@ -5,7 +5,8 @@ layer's pool pages in place (``csrc/kv_append.cu::p2_append_paged``). At S
 ``repro/serve/kv_cache.py::append_token`` does twice a layer through the
 row-scale encode kernel and a scatter; at S > 1 the chunk step's write,
 what ``write_chunk`` does twice a layer through the scalar-scale encode
-kernel and a scatter.
+kernel and a scatter, and the speculative verify's block of every slot,
+what ``append_tokens`` does twice a layer.
 
 - ``append_paged_cuda``: the kernel. The page, offset, validity and step of
   each row are read on the device (``table``, ``lens``, ``active``,
@@ -24,7 +25,6 @@ kernel and a scatter.
   later wins, as in the reference's scatter (the earlier goes to the trash
   page). Inactive slots and rows at or past ``n_valid`` go to the trash
   page; so does a negative position, and a page number outside the pool.
-- ``append_slots``: ``token_pages`` of one token a slot (the decode step).
 
 Layouts: pages ``(P + 1, page_size, *feat)`` codes (int8, int16, int32 or
 f32), row P the trash page, which is write-only scratch; tokens ``(B, S,
@@ -73,16 +73,6 @@ def token_pages(table: torch.Tensor, lens: torch.Tensor, active, s: int,
     pages = table.long().gather(1, idx.clamp(0, pps - 1))
     ok = ok & (pages >= 0) & (pages <= trash)
     return torch.where(ok, pages, trash), pos % page_size
-
-
-def append_slots(table: torch.Tensor, lens: torch.Tensor,
-                 active: torch.Tensor, page_size: int, trash: int
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(page, offset) of each slot's new token, int64 (B,) each: the page
-    of ``table`` holding position ``lens``, or ``trash`` for an inactive
-    slot or a position outside the slot's pages."""
-    pages, offs = token_pages(table, lens, active, 1, page_size, trash)
-    return pages[:, 0], offs[:, 0]
 
 
 def _check(kdata, vdata, kscale, vscale, k, v, table, lens, active, n_valid,

@@ -263,7 +263,10 @@ def make_grad_accum_train_step(lm: LMDef, plan, tcfg: TrainConfig,
     """Gradient accumulation: every batch leaf leads with ``n_micro``.
     Identical to ``make_train_step`` after the gradient average: the wire,
     the grad edge and clipping apply to the mean gradient, and the
-    activation statistic is the micro-batches' mean."""
+    activation statistic is the micro-batches' mean. As in the reference,
+    a state whose scales hold ``activation`` advances it whenever
+    quantization is on, on a zero statistic where no forward ran an
+    edge."""
     _no_mesh(plan)
     loss_fn = make_loss_fn(lm, plan, tcfg)
     policy = lm.cfg.quant.policy()
@@ -285,9 +288,13 @@ def make_grad_accum_train_step(lm: LMDef, plan, tcfg: TrainConfig,
                     else osum + obs["activation"]
         grads = unflatten(state.params, [None if g is None else g / n_micro
                                          for g in gsum])
+        if osum is None:
+            # no micro-batch ran an edge: the reference's scan still
+            # advances the scale, on its (1,) zero start
+            osum = torch.zeros((1,), device=state.step.device)
         scales = state.scales
         if scales is not None and "activation" in scales \
-                and lm.cfg.quant.enable and osum is not None:
+                and lm.cfg.quant.enable:
             scales = policy.update_scales(
                 scales, {"activation": osum / n_micro})
         params, opt, residual, scales, gnorm, lr = _finish_step(

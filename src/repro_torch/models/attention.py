@@ -140,14 +140,6 @@ def gqa_qkv(params: dict, x: torch.Tensor, d: GQADef, cfg: ModelConfig,
 gqa_decode_qkv = gqa_qkv
 
 
-def len_positions(cur_len, b: int) -> torch.Tensor:
-    """(B,1) query positions from a scalar or per-slot (B,) ``cur_len``."""
-    cl = torch.as_tensor(cur_len, dtype=torch.int32)
-    if cl.dim() == 0:
-        return cl.expand(b, 1)
-    return cl.reshape(b, 1)
-
-
 def causal_len_mask(qpos: torch.Tensor, t: int) -> torch.Tensor:
     """(B, S, T) mask: key position visible iff kpos <= qpos."""
     kpos = torch.arange(t, device=qpos.device)

@@ -16,6 +16,17 @@ slot's view off the pages (one ``p2_read_paged`` launch a layer) and
 running ``gqa_attend`` (the default, and the in-engine reference for the
 fused path).
 
+Speculative decoding (``spec_k > 0`` with ``Engine(..., draft=(lm,
+params))``): a draft model proposes k tokens per slot over its own pool
+(S = 1 steps: one ``p2_append_paged`` and one ``p2_read_paged`` launch a
+layer on an int8 pool), the target scores the incoming token and the k
+proposals as one (B, k+1) block (one ``p2_append_paged`` launch a layer,
+then the fused attention's q-block or the paged read), and rejection
+sampling accepts a prefix on the device; one host read-back a round.
+Greedy slots emit exactly what the non-speculative engine emits.
+``policy`` (a ``NumericsPolicy``) owns the pool's numerics: its
+``kv_cache`` site overrides the pool's ``quantized`` and ``bits``.
+
 With ``prefix_cache=True`` a radix tree (``serve/prefix.py``) shares the
 pages of prompt prefixes it has seen: a hit adopts its donor's scales,
 copies a partly matched page (COW) and computes only the suffix through
@@ -31,11 +42,12 @@ there is no compiled-step cache.
 Not carried over: the reference's ``CompileCache`` / ``max_prefill_shapes``
 (they bound live jitted prefill shapes; eager PyTorch compiles none).
 Still to port (they raise ``NotImplementedError`` naming what they wait
-for): speculative decoding, recurrent/MoE/MLA sublayers (at ``build_lm``),
-a mesh, quant-health policies and trace recorders.
+for): recurrent/MoE/MLA sublayers (at ``build_lm``), a mesh, quant-health
+policies and trace recorders.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -51,7 +63,8 @@ from . import kv_cache as KC
 from .kv_cache import PoolConfig
 from .metrics import ServeMetrics
 from .prefix import RadixPrefixCache
-from .sampling import SamplingParams, sample_tokens
+from .sampling import (SamplingParams, processed_probs, sample_from_probs,
+                       sample_tokens, spec_accept)
 from .scheduler import Request, Scheduler
 
 
@@ -72,8 +85,29 @@ class EngineConfig:
                                 # attention kernel instead of gather + attend
     prefix_cache: bool = False  # radix-tree COW prefix sharing over the
                                 # paged pool (serve/prefix.py)
-    spec_k: int = 0             # speculative decoding (later slice)
-    policy: object = None       # NumericsPolicy / quant health (later slice)
+    spec_k: int = 0             # speculative decoding: draft tokens
+                                # proposed per step (0: off); needs
+                                # Engine(..., draft=(lm, params))
+    policy: object = None       # NumericsPolicy: its kv_cache site
+                                # overrides the pool's quantized/bits
+
+
+def _check_draft(lm: LMDef, draft) -> None:
+    """What speculative decoding needs of its draft (the reference's
+    checks): one given, attention-only (a recurrent state advanced through
+    a rejected token cannot roll back), over the target's vocabulary."""
+    if draft is None:
+        raise ValueError("spec_k > 0 needs a draft model: "
+                         "Engine(..., draft=(draft_lm, draft_params))")
+    dlm = draft[0]
+    for sub in dlm.period:
+        if sub.mixer_kind != "attn_gqa":
+            raise NotImplementedError(
+                "speculative decoding needs an attention-only DRAFT (got "
+                f"mixer {sub.mixer_kind!r}; the port serves attn_gqa)")
+    if dlm.cfg.vocab_size != lm.cfg.vocab_size:
+        raise ValueError(f"draft vocab {dlm.cfg.vocab_size} != target vocab "
+                         f"{lm.cfg.vocab_size}")
 
 
 def _bucket_len(n: int, bucket: int) -> int:
@@ -90,10 +124,8 @@ class Engine:
     def __init__(self, lm: LMDef, params: dict, ecfg: EngineConfig,
                  device=None, clock=time.monotonic, plan=None, trace=None,
                  draft=None):
-        later = [(ecfg.spec_k != 0 or draft is not None,
-                  "speculative decoding (ROADMAP queue 1)"),
-                 (ecfg.policy is not None, "numerics policies and quant "
-                  "health (the training slice, numerics/policy.py)"),
+        later = [(ecfg.policy is not None and ecfg.policy.health,
+                  "quant health (ROADMAP queue 1, item 6: obs/)"),
                  (plan is not None, "multi-device serving (ROADMAP queue 1: "
                   "sharding)"),
                  (trace is not None, "trace recorders (ROADMAP queue 1: "
@@ -105,16 +137,33 @@ class Engine:
         cfg = lm.cfg
         if cfg.is_encoder:
             raise NotImplementedError("encoder-only archs have no decode path")
+        if ecfg.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {ecfg.spec_k}")
+        self._spec = ecfg.spec_k > 0
+        if self._spec:
+            _check_draft(lm, draft)
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        wdev = params["embed"]["w"].device
-        if wdev.type != self.device.type:
-            raise ValueError(f"params live on {wdev}, engine on {self.device}")
+        trees = [("params", params)]
+        if self._spec:
+            trees.append(("draft params", draft[1]))
+        for what, tree in trees:
+            wdev = tree["embed"]["w"].device
+            if wdev.type != self.device.type:
+                raise ValueError(f"{what} live on {wdev}, engine on "
+                                 f"{self.device}")
         self.lm = lm
         self.params = params
         self.ecfg = ecfg
-        self.pcfg = ecfg.pool
+        pcfg = ecfg.pool
+        if ecfg.policy is not None:
+            # one owner for the system's numerics: the policy's kv_cache
+            # site (the port has no recurrent sublayers, so no ssm_state)
+            pcfg = dataclasses.replace(
+                pcfg, quantized=ecfg.policy.enable,
+                bits=ecfg.policy.spec_for("kv_cache").bits)
+        self.pcfg = pcfg
         self.pool = KC.init_pool(lm, self.pcfg, self.device)
         # prefix sharing needs per-token paged memory, i.e. an attention-
         # only arch: every arch init_pool takes (recurrent mixers raise)
@@ -131,48 +180,141 @@ class Engine:
         self._gen.manual_seed(ecfg.seed)
         self._completions: dict[int, Completion] = {}
         self._orig_prompt: dict[int, list[int]] = {}
+        if self._spec:
+            # the draft's own pool mirrors the target's geometry and
+            # numerics (after the policy override) and shares nothing: a
+            # static identity table (slot i owns pages i*pp .. (i+1)*pp-1),
+            # so draft-side rollback is the length not advancing, and K/V
+            # above a slot's length is masked as on the target's side
+            self._draft, self._draft_params = draft
+            self._draft_pcfg = dataclasses.replace(self.pcfg, num_pages=0)
+            self._draft_pool = KC.init_pool(self._draft, self._draft_pcfg,
+                                            self.device)
+            pp = self._draft_pcfg.pages_per_slot
+            self._draft_table = torch.arange(
+                self.pcfg.num_slots * pp, dtype=torch.int32,
+                device=self.device).reshape(self.pcfg.num_slots, pp)
 
     # ---- device steps --------------------------------------------------
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
-    def _sub_decode(self, pp: dict, x: torch.Tensor, layer: int, key: str,
-                    sub, table, lens, active) -> torch.Tensor:
-        cfg = self.lm.cfg
+    def _sub_block(self, lm: LMDef, pool: dict, pcfg: PoolConfig,
+                   fused: bool, pp: dict, x: torch.Tensor, layer: int,
+                   key: str, sub, table, lens, active,
+                   positions) -> torch.Tensor:
+        """One sublayer over (B, S) new tokens at ``positions`` = lens ..
+        lens+S-1: write their K/V (one ``append_kv``), then attend each
+        row causally through itself, off the pages (fused) or over every
+        slot's view read off them (``read_kv`` + ``gqa_attend``)."""
+        cfg = lm.cfg
         d = sub.mixer
-        b = x.shape[0]
-        positions = A.len_positions(lens, b)
+        b, s = x.shape[:2]
         h = rms_norm(x, pp["norm1"]["scale"], cfg.norm_eps)
         q, k_new, v_new = A.gqa_decode_qkv(pp["mixer"], h, d, cfg, positions)
-        data = {n: t[layer] for n, t in self.pool["data"][key].items()}
-        scale = {n: t[layer] for n, t in self.pool["scale_log2"][key].items()}
+        data = {n: t[layer] for n, t in pool["data"][key].items()}
+        scale = {n: t[layer] for n, t in pool["scale_log2"][key].items()}
         KC.append_kv(data["k"], data["v"], scale["k"], scale["v"], k_new,
-                     v_new, table, lens, active, self.pcfg)
-        if self.ecfg.fused_attention:
+                     v_new, table, lens, active, pcfg)
+        if fused:
             attn = KC.fused_attend(data["k"], data["v"], scale["k"],
-                                   scale["v"], q[:, 0], table, lens,
-                                   self.pcfg)
-            attn = attn[:, :d.real_heads].reshape(b, 1,
-                                                  d.real_heads * d.head_dim)
+                                   scale["v"], q[:, 0] if s == 1 else q,
+                                   table, lens, pcfg)
+            attn = attn[..., :d.real_heads, :].reshape(
+                b, s, d.real_heads * d.head_dim)
         else:
             k, v = KC.read_kv(data["k"], data["v"], scale["k"], scale["v"],
-                              table, self.pcfg, h.dtype)
+                              table, pcfg, h.dtype)
             attn = A.gqa_attend(q, k, v, d, positions)
         x = x + apply_site(pp["mixer"]["o"], attn, d.o, cfg)
         return sub_ffn_decode(pp, x, sub, cfg)
+
+    def _block(self, lm: LMDef, params: dict, pool: dict, pcfg: PoolConfig,
+               fused: bool, tokens, table, lens, active) -> torch.Tensor:
+        """Forward of (B, S) tokens, row j of slot b at position lens[b] + j,
+        over a paged pool updated in place: the decode step at S = 1, the
+        speculative verify at S = k+1, and the draft's steps over its own
+        pool. Returns logits (B, S, V)."""
+        x = embed_tokens(params, tokens, lm)
+        positions = lens[:, None] + torch.arange(
+            tokens.shape[1], dtype=lens.dtype, device=lens.device)
+        for layer, pp in enumerate(params["layers"]):
+            for i, sub in enumerate(lm.period):
+                x = self._sub_block(lm, pool, pcfg, fused, pp[f"sub_{i}"], x,
+                                    layer, f"sub_{i}", sub, table, lens,
+                                    active, positions)
+        x = rms_norm(x, params["final_norm"]["scale"], lm.cfg.norm_eps)
+        return apply_site(params["head"], x, lm.head, lm.cfg)
 
     @torch.no_grad()
     def _decode(self, table, lens, active, tokens) -> torch.Tensor:
         """One batched decode step. tokens: (B,1); lens/active: (B,).
         Returns logits (B, V); the pool is updated in place."""
-        lm = self.lm
-        x = embed_tokens(self.params, tokens, lm)
-        for layer, pp in enumerate(self.params["layers"]):
-            for i, sub in enumerate(lm.period):
-                x = self._sub_decode(pp[f"sub_{i}"], x, layer, f"sub_{i}",
-                                     sub, table, lens, active)
-        x = rms_norm(x, self.params["final_norm"]["scale"], lm.cfg.norm_eps)
-        return apply_site(self.params["head"], x, lm.head, lm.cfg)[:, 0]
+        return self._block(self.lm, self.params, self.pool, self.pcfg,
+                           self.ecfg.fused_attention, tokens, table, lens,
+                           active)[:, 0]
+
+    @torch.no_grad()
+    def _verify(self, table, lens, active, block) -> torch.Tensor:
+        """The target over the (B, k+1) verify block (the incoming token and
+        the k proposals) in one step: each layer writes the block's K/V
+        with one ``append_kv`` and attends every row (the fused q-block or
+        the paged read). Returns (B, k+1, V) logits; a rejected tail's K/V
+        stays as junk above the slot's advanced length."""
+        return self._block(self.lm, self.params, self.pool, self.pcfg,
+                           self.ecfg.fused_attention, block, table, lens,
+                           active)
+
+    def _draft_step(self, lens, active, tokens) -> torch.Tensor:
+        """One S = 1 decode step of the draft over its own pool, on the
+        gather path whatever ``fused_attention`` says (as in the
+        reference). Returns logits (B, V)."""
+        return self._block(self._draft, self._draft_params, self._draft_pool,
+                           self._draft_pcfg, False, tokens, self._draft_table,
+                           lens, active)[:, 0]
+
+    @torch.no_grad()
+    def _draft_propose(self, lens, active, tokens, temp, topk, topp
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+        """k draft steps, each drawing its proposal from the processed draft
+        distribution Q (kept: the accept test reads it, and greedy slots
+        their one-hots), then the trailing cache-fill step at lens + k.
+        Everything stays on the device. Returns ((B, k) int32 tokens,
+        (B, k, V) probs)."""
+        toks, probs = [], []
+        cur = tokens
+        for i in range(self.ecfg.spec_k):
+            qp = processed_probs(self._draft_step(lens + i, active, cur),
+                                 temp, topk, topp)
+            t = sample_from_probs(qp, self._gen)
+            toks.append(t)
+            probs.append(qp)
+            cur = t[:, None]
+        # each step above writes its incoming token's K/V, so the last
+        # proposal has none yet; when the target accepts all k, the next
+        # round starts at lens + k + 1 and would read a hole at lens + k.
+        # Feed it once more (logits unused); for a slot that rejected,
+        # the write is junk above its final length
+        self._draft_step(lens + self.ecfg.spec_k, active, cur)
+        return torch.stack(toks, dim=1), torch.stack(probs, dim=1)
+
+    @torch.no_grad()
+    def _draft_prefill(self, slot: int, st) -> None:
+        """Whole-prompt prefill of the draft for one slot into its pool (one
+        ``p2_prefill_paged`` launch on an int8 pool). The draft always
+        recomputes the full prompt: no chunking, no prefix sharing. The
+        reference masks bucket padding out of the forward with
+        ``token_mask``, which changes MoE routing only; the port has no
+        MoE, so its ``lm_forward`` takes none."""
+        toks = st.req.prompt
+        padded = toks + [0] * (_bucket_len(len(toks), self.ecfg.prefill_bucket)
+                               - len(toks))
+        _, _, cache = lm_forward(
+            self._draft_params, self._draft,
+            tokens=self._tensor([padded], torch.long), return_cache=True)
+        KC.write_prefill(self._draft_pool, cache, self._draft_table[slot],
+                         slot, self._tensor([len(toks)], torch.int32),
+                         self._draft_pcfg)
 
     @torch.no_grad()
     def _prefill(self, toks: list[int], table_row: torch.Tensor,
@@ -263,6 +405,11 @@ class Engine:
             last = (self._prefill(toks, table_row, slot) if c0 == 0
                     else self._chunk(toks, table_row, slot, c0))
         self.metrics.prefill(plen, computed=plen - resume)
+        if self._spec:
+            # the draft tracks the slot from position 0; a preempted
+            # request re-enters here with its generated prefix folded in,
+            # so its draft cache is rebuilt too
+            self._draft_prefill(slot, st)
         tok = int(self._sample(last, [slot])[0])
         st.generated.append(tok)
         st.last_token = tok
@@ -272,15 +419,58 @@ class Engine:
                       if self.pcfg.quantized else None)
             self.sched.commit_prefix(slot, scales)
 
-    def _sample(self, logits: torch.Tensor, slots: list[int]) -> np.ndarray:
+    def _knobs(self, slots: list[int]) -> tuple[torch.Tensor, ...]:
+        """The slots' (temperature, top_k, top_p) vectors on the device."""
         sp = [self.sched.slots[s].req.sampling if self.sched.slots[s]
               else SamplingParams() for s in slots]
-        toks = sample_tokens(
-            logits, self._gen,
-            self._tensor([p.temperature for p in sp], torch.float32),
-            self._tensor([p.top_k for p in sp], torch.int32),
-            self._tensor([p.top_p for p in sp], torch.float32))
-        return toks.cpu().numpy()
+        return (self._tensor([p.temperature for p in sp], torch.float32),
+                self._tensor([p.top_k for p in sp], torch.int32),
+                self._tensor([p.top_p for p in sp], torch.float32))
+
+    def _sample(self, logits: torch.Tensor, slots: list[int]) -> np.ndarray:
+        return sample_tokens(logits, self._gen,
+                             *self._knobs(slots)).cpu().numpy()
+
+    def _spec_step(self, active_slots: list[int]) -> None:
+        """One speculative round over the batch: k draft proposals per
+        slot, one verify block on the target, the accept test on the
+        device, then ONE host read-back of the accept lengths, next
+        tokens and proposals together. Each slot emits its accepted prefix
+        and its next token, cut at eos or max_new_tokens, and frees the
+        pages a rejected tail left mapped (``trim_unused``)."""
+        sched = self.sched
+        k = self.ecfg.spec_k
+        table = self._tensor(sched.page_table)
+        lens = self._tensor(sched.lens_vector())
+        active = self._tensor(sched.active_mask())
+        tokens = self._tensor(sched.tokens_vector())
+        knobs = self._knobs(list(range(self.pcfg.num_slots)))
+        dtoks, dprobs = self._draft_propose(lens, active, tokens, *knobs)
+        vlogits = self._verify(table, lens, active,
+                               torch.cat([tokens, dtoks], dim=1))
+        acc, nxt = spec_accept(vlogits, dprobs, dtoks, self._gen, *knobs)
+        host = torch.cat([acc[:, None], nxt[:, None], dtoks], dim=1
+                         ).cpu().numpy()
+        accepted = emitted = 0
+        for slot in active_slots:
+            st = sched.slots[slot]
+            a = int(host[slot, 0])
+            accepted += a
+            # tokens past a stop never leave the engine: their K/V junk
+            # sits above the slot's final length and the slot retires
+            for tok in [int(t) for t in host[slot, 2:2 + a]] + [
+                    int(host[slot, 1])]:
+                st.generated.append(tok)
+                st.last_token = tok
+                emitted += 1
+                if st.done():
+                    break
+            sched.trim_unused(slot)
+            if st.done():
+                self._finish(slot)
+        self.metrics.decode_step(emitted, sched.alloc.free_pages)
+        self.metrics.spec_step(len(active_slots), k * len(active_slots),
+                               accepted, emitted)
 
     # ---- request lifecycle --------------------------------------------
     def submit(self, prompt: list[int], max_new_tokens: int = 32,
@@ -302,7 +492,8 @@ class Engine:
         self.metrics.request_finished(rid, len(tokens))
 
     def step(self) -> None:
-        """One engine iteration: admit + prefill, then one batched decode."""
+        """One engine iteration: admit + prefill, then one batched decode
+        (or one speculative round)."""
         sched = self.sched
         while (adm := sched.try_admit()) is not None:
             slot, st = adm
@@ -312,12 +503,14 @@ class Engine:
                 self._finish(slot)
 
         active_slots = [i for i, s in enumerate(sched.slots) if s is not None]
-        # map the page each active slot is about to write; preempt the
-        # youngest slot while the pool is exhausted
+        # map the page(s) each active slot is about to write: one for
+        # decode, the k+1 verify span for speculative decoding; preempt
+        # the youngest slot while the pool is exhausted
+        span = self.ecfg.spec_k + 1 if self._spec else 1
         for slot in active_slots:
             if sched.slots[slot] is None:
                 continue
-            while not sched.ensure_page(slot):
+            while not sched.ensure_span(slot, span):
                 evicted = sched.preempt_youngest()
                 if evicted is None:
                     raise RuntimeError(
@@ -328,6 +521,9 @@ class Engine:
                     break
         active_slots = [i for i, s in enumerate(sched.slots) if s is not None]
         if not active_slots:
+            return
+        if self._spec:
+            self._spec_step(active_slots)
             return
         logits = self._decode(self._tensor(sched.page_table),
                               self._tensor(sched.lens_vector()),

@@ -11,9 +11,9 @@ by decode appends (the paper's §3.2 numerics applied to serving).
 
 Every pool write goes through an encode kernel and every gathered read
 through a decode kernel (on CPU tensors their plain versions): a decode
-step's append and a chunk step's write through ``p2_append_paged``
-(``kernels/kv_append.py``: K and V of every row into the layer's pages in
-one launch), a whole-prompt prefill's write through ``p2_prefill_paged``
+step's append, a speculative verify block's and a chunk step's write
+through ``p2_append_paged`` (``kernels/kv_append.py``: K and V of every
+row into the layer's pages in one launch), a whole-prompt prefill's write through ``p2_prefill_paged``
 (``kernels/kv_prefill.py``: K and V of every layer into the slot's pages
 in one launch that also chooses the slot's scales), a chunk step's history
 read and the gather engine's decode read through ``p2_read_paged``
@@ -34,7 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..kernels.kv_append import append_slots
+from ..kernels.kv_append import token_pages
 from ..models.common import torch_dtype
 from ..numerics import QTensor, QuantSpec, get_codec
 
@@ -193,25 +193,26 @@ def fused_attend(kdata_l: torch.Tensor, vdata_l: torch.Tensor,
                            quantized=pcfg.quantized)
 
 
-def append_token(data_l: torch.Tensor, scale_l: torch.Tensor,
-                 new: torch.Tensor, table: torch.Tensor, lens: torch.Tensor,
-                 active: torch.Tensor, pcfg: PoolConfig) -> torch.Tensor:
-    """Write one new token per slot at its own length, in place: one
-    tensor's half of ``append_kv``.
+def append_tokens(data_l: torch.Tensor, scale_l: torch.Tensor,
+                  new: torch.Tensor, table: torch.Tensor, lens: torch.Tensor,
+                  active: torch.Tensor, pcfg: PoolConfig) -> torch.Tensor:
+    """Write S new tokens per slot at positions lens .. lens+S-1, one
+    tensor, in place (the reference's ``append_tokens``, the speculative
+    verify write; one tensor's half of ``append_kv``).
 
-    new: (B, 1, *feat); inactive slots, and a position past the slot's
-    last page (whose write the reference drops), go to the trash page.
-    Decode appends reuse the slot's prefill scale (clipping into its
-    range); rows = B."""
-    b = new.shape[0]
-    pages, offs = append_slots(table, lens, active, pcfg.page_size,
-                               pcfg.trash_page)
-    vals = new[:, 0]
+    new: (B, S, *feat). Inactive slots and rows at or past ``max_len`` (a
+    verify block overhanging the slot's horizon) go to the trash page.
+    Values clip into the slot's prefill scale. A rejected tail's K/V stays
+    above the slot's length, where no read looks and a later write
+    overwrites it: rollback moves no data (``Scheduler.trim_unused``)."""
+    b, s = new.shape[:2]
+    pages, offs = token_pages(table, lens, active, s, pcfg.page_size,
+                              pcfg.trash_page)
     if pcfg.quantized:
-        vals = quantize(vals, scale_l.reshape((b,) + (1,) * (vals.dim() - 1)),
+        vals = quantize(new, scale_l.reshape((b,) + (1,) * (new.dim() - 1)),
                         pcfg.bits)
     else:
-        vals = vals.to(data_l.dtype)
+        vals = new.to(data_l.dtype)
     return data_l.index_put_((pages, offs), vals)
 
 
@@ -220,17 +221,22 @@ def append_kv(kdata_l: torch.Tensor, vdata_l: torch.Tensor,
               k_new: torch.Tensor, v_new: torch.Tensor, table: torch.Tensor,
               lens: torch.Tensor, active: torch.Tensor, pcfg: PoolConfig
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """A decode step's K and V tokens (B, 1, *feat) of one layer into its
-    pages, in place: a quantized pool takes one ``p2_append_paged`` launch
-    (its plain twin on CPU tensors), a model-dtype pool ``append_token``
-    per tensor (the reference runs no kernel there either)."""
+    """K and V tokens (B, S, *feat) of one layer into its pages at
+    positions lens .. lens+S-1, in place: S = 1 is the decode step's
+    append, S = k+1 the speculative verify block. A quantized pool takes
+    one ``p2_append_paged`` launch (its plain twin on CPU tensors), rows
+    past the slot's last page to the trash page; a model-dtype pool
+    ``append_tokens`` per tensor (the reference runs no kernel there
+    either)."""
     if pcfg.quantized:
         from ..kernels.ops import append_paged
         return append_paged(kdata_l, vdata_l, kscale_l, vscale_l, k_new,
                             v_new, table, lens, active,
                             page_size=pcfg.page_size, bits=pcfg.bits)
-    return (append_token(kdata_l, kscale_l, k_new, table, lens, active, pcfg),
-            append_token(vdata_l, vscale_l, v_new, table, lens, active, pcfg))
+    return (append_tokens(kdata_l, kscale_l, k_new, table, lens, active,
+                          pcfg),
+            append_tokens(vdata_l, vscale_l, v_new, table, lens, active,
+                          pcfg))
 
 
 def write_prefill(pool: dict, cache: dict, table_row: torch.Tensor,

@@ -1,7 +1,7 @@
 """Serving telemetry — the port of ``repro/serve/metrics.py`` trimmed to
 the port's serving path: throughput, time-to-first-token (split into queue
 wait and compute), request latency percentiles, batch fill, cache-pool
-bytes and the prefix-cache counters.
+bytes, the prefix-cache counters and the speculative-decoding counters.
 The clock is injectable for deterministic tests; host-side only."""
 from __future__ import annotations
 
@@ -38,6 +38,12 @@ class ServeMetrics:
     prompt_tokens: int = 0      # prompt tokens submitted through prefill
                                 # (computed + prefix-cache hits)
     preemptions: int = 0
+    # speculative-decoding counters (engine-maintained; see spec_step)
+    spec_steps: int = 0         # batched verify steps run
+    spec_slots: int = 0         # slot-steps verified (slots x steps)
+    spec_proposed: int = 0      # draft tokens proposed to the target
+    spec_accepted: int = 0      # draft tokens that passed rejection
+    spec_emitted: int = 0       # tokens emitted by spec steps (post-trunc)
     # prefix-cache counters (serve/prefix.py; engine-maintained)
     prefix_hit_tokens: int = 0  # prompt tokens served from cached pages
     cow_forks: int = 0          # copy-on-write page copies (mid-page hits)
@@ -106,6 +112,19 @@ class ServeMetrics:
     def preempted(self) -> None:
         self.preemptions += 1
 
+    def spec_step(self, n_slots: int, proposed: int, accepted: int,
+                  emitted: int) -> None:
+        """One speculative verify step: ``n_slots`` slots verified
+        ``proposed`` draft tokens, ``accepted`` of them passed the
+        rejection test, and ``emitted`` tokens left the engine (the
+        accepted prefix plus the next token per slot, cut at eos or
+        max_new_tokens)."""
+        self.spec_steps += 1
+        self.spec_slots += n_slots
+        self.spec_proposed += proposed
+        self.spec_accepted += accepted
+        self.spec_emitted += emitted
+
     def summary(self) -> dict:
         done = [t for t in self._req.values() if t.finished is not None]
         ttft = [t.first_token - t.submitted for t in done
@@ -151,4 +170,16 @@ class ServeMetrics:
             "cache_bytes_fp32": self.cache_bytes_fp32,
             "cache_reduction": (self.cache_bytes_fp32 / self.cache_bytes
                                 if self.cache_bytes else 0.0),
+            # acceptance over proposed draft tokens, and tokens emitted per
+            # verified slot-step
+            "spec": {
+                "steps": self.spec_steps,
+                "proposed": self.spec_proposed,
+                "accepted": self.spec_accepted,
+                "emitted": self.spec_emitted,
+                "acceptance_rate": (self.spec_accepted / self.spec_proposed
+                                    if self.spec_proposed else 0.0),
+                "tokens_per_step": (self.spec_emitted / self.spec_slots
+                                    if self.spec_slots else 0.0),
+            },
         }

@@ -1,6 +1,6 @@
 """Host-side continuous-batching scheduler — the port of
-``repro/serve/scheduler.py`` without the speculative spans (a later slice)
-and the unpaged pure-SSM mode. Plain Python and numpy.
+``repro/serve/scheduler.py`` without the unpaged pure-SSM mode. Plain
+Python and numpy.
 
 - **Admission**: FIFO queue; a request is admitted when a slot is free and
   the pool can page its prompt plus one decode page. With a prefix cache
@@ -13,6 +13,10 @@ and the unpaged pure-SSM mode. Plain Python and numpy.
   Allocation evicts cold prefix-cache leaves before it gives up.
 - **Chunked prefill**: prompts longer than ``prefill_chunk`` are split into
   fixed-size chunks.
+- **Spans**: before each step ``ensure_span`` maps the pages the step
+  writes (one token for decode, a k+1-token verify block for speculative
+  decoding); ``trim_unused`` frees the private pages a rejected tail left
+  mapped after it.
 """
 from __future__ import annotations
 
@@ -50,10 +54,14 @@ class SlotState:
     prefix_scales: dict | None = None
 
     @property
+    def cur_len(self) -> int:
+        return self.prompt_len + len(self.generated)
+
+    @property
     def next_pos(self) -> int:
         """Cache position of the *incoming* decode token (= the last sampled
         token, which has not been written to the cache yet)."""
-        return self.prompt_len + len(self.generated) - 1
+        return self.cur_len - 1
 
     def done(self) -> bool:
         if len(self.generated) >= self.req.max_new_tokens:
@@ -212,19 +220,44 @@ class Scheduler:
         c = self.prefill_chunk
         return [(s, min(s + c, prompt_len)) for s in range(0, prompt_len, c)]
 
-    def ensure_page(self, slot: int) -> bool:
-        """Make sure the page holding the *next* token position is mapped.
-        Returns False when the pool is exhausted (caller should preempt)."""
+    def ensure_span(self, slot: int, n: int) -> bool:
+        """Map every page covering positions ``next_pos .. next_pos+n-1``:
+        the incoming decode token at n = 1, the speculative verify block
+        at n = k+1. Positions at or past the slot's horizon are clamped:
+        their writes go to the trash page and need no mapping. Returns
+        False when the pool is exhausted (caller should preempt)."""
         st = self.slots[slot]
-        page_idx = st.next_pos // self.pcfg.page_size
-        if page_idx < len(self.slot_shared[slot]) + len(self.slot_pages[slot]):
-            return True
-        pages = self.alloc_pages(1)
-        if pages is None:
-            return False
-        self.slot_pages[slot].append(pages[0])
-        self.page_table[slot, page_idx] = pages[0]
-        return True
+        ps = self.pcfg.page_size
+        last = min(st.next_pos + n - 1, self.pcfg.max_len - 1)
+        need = last // ps + 1           # mapped pages required
+        while True:
+            have = len(self.slot_shared[slot]) + len(self.slot_pages[slot])
+            if have >= need:
+                return True
+            pages = self.alloc_pages(1)
+            if pages is None:
+                return False
+            self.slot_pages[slot].append(pages[0])
+            self.page_table[slot, have] = pages[0]
+
+    def trim_unused(self, slot: int) -> int:
+        """Free the private pages above the page holding ``next_pos``: the
+        rollback half of speculative decoding (a rejected tail's K/V sits
+        above the slot's length and is never read). Shared prefix pages
+        are never trimmed; freed table entries point at the trash page
+        again. Returns the count freed."""
+        st = self.slots[slot]
+        keep = st.next_pos // self.pcfg.page_size + 1
+        n_shared = len(self.slot_shared[slot])
+        keep_private = max(0, keep - n_shared)
+        extra = self.slot_pages[slot][keep_private:]
+        if not extra:
+            return 0
+        self.slot_pages[slot] = self.slot_pages[slot][:keep_private]
+        have = n_shared + keep_private
+        self.page_table[slot, have:have + len(extra)] = self.pcfg.trash_page
+        self.alloc.free(extra)
+        return len(extra)
 
     def retire(self, slot: int) -> SlotState:
         st = self.slots[slot]

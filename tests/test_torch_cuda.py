@@ -10,7 +10,9 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
     (fp32) over MHA/GQA/MQA, S in {1, 4}, int8 and fp pages, head dims
     that are and are not multiples of the warp;
 (c) the engine's fused and gather paths emit identical greedy tokens in
-    fp32 on the card, and each path launches its kernels;
+    fp32 on the card, and each path launches its kernels; greedy
+    speculative decoding (an independent draft and a self-draft, fused
+    and gather) emits the non-spec tokens with its launches as counted;
 (d) the scalar pow-2 fake-quant kernel is BIT-identical to its plain
     version at bits 4/8/16, f32 and bf16, on the vector and scalar paths;
 (e) the PE1/PE2/PE3 kernels match their plain versions (f32 1e-4, bf16
@@ -233,6 +235,54 @@ def test_engine_fused_equals_gather_fp32_on_card(cuda):
     # read a layer a decode step, no row decode
     assert gl["p2_read_paged"] == gsteps * cfg.num_layers
     assert "p2_dec_rows" not in gl and "p2_read_paged" not in fl
+
+
+def test_engine_spec_equals_nonspec_fp32_on_card(cuda):
+    """A 2-layer greedy speculative run (an independent draft of the same
+    config, fused and gather; a self-draft) emits the non-spec run's
+    tokens, with the verify and the draft steps launching the paged
+    kernels as counted, and returns every page."""
+    cfg = C.get_reduced("internlm2-1.8b").replace(dtype="float32")
+    lm = build_lm(cfg)
+    params = init_lm(torch.Generator(device=cuda).manual_seed(0), lm,
+                     device=cuda)
+    dparams = init_lm(torch.Generator(device=cuda).manual_seed(1), lm,
+                      device=cuda)
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(0, cfg.vocab_size, int(rng.randint(5, 16))
+                           ).tolist() for _ in range(4)]
+    pool = PoolConfig(num_slots=2, page_size=4, pages_per_slot=8,
+                      quantized=True)
+
+    def serve(fused, spec_k=0, draft=None):
+        B.reset_launches()
+        eng = Engine(lm, params, EngineConfig(pool=pool, spec_k=spec_k,
+                                              fused_attention=fused),
+                     device=cuda, draft=draft)
+        rids = [eng.submit(p, max_new_tokens=9) for p in prompts]
+        res = eng.run()
+        return [res[r].tokens for r in rids], eng, dict(B.LAUNCHES)
+
+    k, layers = 3, cfg.num_layers
+    for fused in (True, False):
+        ref, _, _ = serve(fused)
+        for draft in ((lm, dparams), (lm, params)):
+            out, eng, launches = serve(fused, k, draft)
+            assert out == ref
+            rounds = eng.summary()["spec"]["steps"]
+            assert rounds == eng.summary()["decode_steps"] > 0
+            assert launches["p2_append_paged"] == rounds * (layers
+                                                            + (k + 1) * layers)
+            assert launches["p2_read_paged"] == rounds * (
+                (k + 1) * layers + (0 if fused else layers))
+            assert launches.get("paged_attention", 0) == (
+                rounds * layers if fused else 0)
+            assert launches["p2_prefill_paged"] == 2 * len(
+                eng.metrics.prefills)
+            assert eng.sched.alloc.free_pages == pool.total_pages
+            if draft[1] is params and not fused:
+                # the self-draft canary on the gather path
+                assert eng.summary()["spec"]["acceptance_rate"] == 1.0
 
 
 # ---------------------------------------------------------------------------

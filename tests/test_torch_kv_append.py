@@ -13,7 +13,8 @@ on the whole pool:
     writing the first and the last offset of a page and the last offset of
     their last page, values past the scale's range saturating, exact .5
     ties, ``lens`` in int32;
-(b) the page arithmetic (``append_slots``) at the last page: a position
+(b) the page arithmetic (``token_pages`` of one token a slot) at the
+    last page: a position
     past it goes to the trash page, where JAX's ``take_along_axis`` fills
     the index and its scatter drops the write, so no real page changes in
     either package;
@@ -114,14 +115,14 @@ def _run(how, kw, c):
     elif how == "append_kv":
         TKC.append_kv(*args, pcfg)
     else:                                  # the per-tensor form
-        TKC.append_token(t["kd"], t["ks"], t["k"], t["table"], t["lens"],
-                         t["active"], pcfg)
-        TKC.append_token(t["vd"], t["vs"], t["v"], t["table"], t["lens"],
-                         t["active"], pcfg)
+        TKC.append_tokens(t["kd"], t["ks"], t["k"], t["table"], t["lens"],
+                          t["active"], pcfg)
+        TKC.append_tokens(t["vd"], t["vs"], t["v"], t["table"], t["lens"],
+                          t["active"], pcfg)
     return t["kd"].numpy(), t["vd"].numpy()
 
 
-@pytest.mark.parametrize("how", ["twin", "ops", "append_kv", "append_token"])
+@pytest.mark.parametrize("how", ["twin", "ops", "append_kv", "append_tokens"])
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_append_equals_jax_append_token_per_tensor(dtype, bits, how):
@@ -135,9 +136,10 @@ def test_append_equals_jax_append_token_per_tensor(dtype, bits, how):
     # other page than the targets touched
     lo, hi = -2 ** (bits - 1), 2 ** (bits - 1) - 1
     trash, page = kw["num_slots"] * kw["pages_per_slot"], kw["page_size"]
-    pages, offs = KA.append_slots(torch.from_numpy(c["table"]),
-                                  torch.from_numpy(c["lens"]),
-                                  torch.from_numpy(c["active"]), page, trash)
+    pages, offs = KA.token_pages(torch.from_numpy(c["table"]),
+                                 torch.from_numpy(c["lens"]),
+                                 torch.from_numpy(c["active"]), 1, page,
+                                 trash)
     written = got_k[pages.numpy(), offs.numpy()]
     assert written.min() == lo and written.max() == hi
     assert sorted(offs[pages == trash].tolist()) == [1, 2]
@@ -157,8 +159,9 @@ def test_append_slots_at_the_last_page():
         lens = torch.tensor([page * pps - 1, page * pps, page * pps - 1],
                             dtype=dt)
         active = torch.tensor([True, True, False])
-        pages, offs = KA.append_slots(table, lens, active, page, 9)
-        assert pages.tolist() == [7, 9, 9] and offs.tolist() == [3, 0, 3]
+        pages, offs = KA.token_pages(table, lens, active, 1, page, 9)
+        assert pages.tolist() == [[7], [9], [9]]
+        assert offs.tolist() == [[3], [0], [3]]
         assert pages.dtype == offs.dtype == torch.int64
     kw, c = _pool(3, slots=3, pps=pps, lens_active=((11, True), (12, True),
                                                      (11, False)))
@@ -172,18 +175,18 @@ def test_append_slots_at_the_last_page():
 
 
 def test_one_slot_batch_equals_jax():
-    """B = 1: append_token's codec takes the scalar-scale path, the twin the
-    row path; both equal JAX."""
+    """B = 1: append_tokens' codec takes the scalar-scale path, the twin
+    the row path; both equal JAX."""
     kw, c = _pool(9, slots=1, lens_active=((6, True),))
     want = _jax(kw, c)
-    for how in ("twin", "append_token"):
+    for how in ("twin", "append_tokens"):
         got = _run(how, kw, c)
         np.testing.assert_array_equal(got[0], want[0])
         np.testing.assert_array_equal(got[1], want[1])
 
 
 def test_model_dtype_pool_appends_through_index_put():
-    """A model-dtype pool takes no kernel: append_kv is append_token per
+    """A model-dtype pool takes no kernel: append_kv is append_tokens per
     tensor, equal to JAX's."""
     kw, c = _pool(4)
     kw["quantized"] = False

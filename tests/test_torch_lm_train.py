@@ -412,6 +412,37 @@ def test_grad_accum_matches_jax(tiny):
             float(js.scales[k].mean_abs), rel=1e-5)
 
 
+def test_grad_accum_advances_activation_without_an_edge(tiny):
+    """A state whose scales hold ``activation`` but not ``grad_edge`` (the
+    policy passed to ``init_train_state`` demotes ``grad_edge`` from
+    managed) runs no activation edge; the reference's accum step still
+    advances the ``activation`` scale, on its (1,) zero statistic, and so
+    must the port's."""
+    import dataclasses
+    jlm, jp, tlm, _ = tiny
+    jt = JTrainConfig(total_steps=5, warmup_steps=1, grad_compress=True)
+    tt = TrainConfig(total_steps=5, warmup_steps=1, grad_compress=True)
+    jpol = jlm.cfg.quant.policy()
+    jpol = jpol.with_spec("grad_edge", dataclasses.replace(
+        jpol.spec_for("grad_edge"), scale_policy="fixed"))
+    js = JS.init_train_state(jp, jt, policy=jpol)
+    assert set(js.scales) == {"activation"}
+    ts = _port(js)
+    b0, t0 = _batch(seed=0)
+    b1, t1 = _batch(seed=1)
+    jb = jax.tree.map(lambda a, b: jnp.stack([a, b]), b0, b1)
+    tb = {k: torch.stack([t0[k], t1[k]]) for k in t0}
+    js, jm = jax.jit(JS.make_grad_accum_train_step(jlm, PLAN, jt, 2))(js, jb)
+    ts, tm = TS.make_grad_accum_train_step(tlm, None, tt, 2)(ts, tb)
+    assert float(js.scales["activation"].mean_abs) != pytest.approx(0.2)
+    assert int(ts.scales["activation"].log2) == int(
+        js.scales["activation"].log2)
+    assert float(ts.scales["activation"].mean_abs) == pytest.approx(
+        float(js.scales["activation"].mean_abs), rel=1e-6)
+    assert float(tm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
+    _params_close(js, ts, atol=2e-5)
+
+
 def _stacked_grads(jp, rng, scale):
     return jax.tree.map(
         lambda a: jnp.asarray(rng.normal(size=a.shape) * scale, a.dtype)

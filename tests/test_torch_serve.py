@@ -9,7 +9,9 @@ port's package rules.
 (b) sampling knobs process logits exactly as the reference does;
 (c) no file of the port imports ``jax`` or ``repro``; entry points raise
     without a card unless asked for the CPU; configs outside the slice
-    raise ``NotImplementedError``.
+    raise ``NotImplementedError``;
+(d) ``EngineConfig.policy``'s kv_cache site sets the pool's numerics, and
+    a 4-bit site serves the JAX engine's greedy tokens.
 """
 import ast
 from pathlib import Path
@@ -186,16 +188,75 @@ def test_entry_points_raise_without_a_card(models, monkeypatch):
     Engine(tlm, tp, EngineConfig(pool=pool), device="cpu")
 
 
-# chunked prefill and the prefix cache are ported: with them on, what is
-# still to port raises all the same
-@pytest.mark.parametrize("kw", [dict(prefix_cache=True, spec_k=2),
-                                dict(spec_k=2),
-                                dict(prefill_chunk=8, policy=object()),
-                                dict(policy=object())])
-def test_out_of_slice_engine_configs_raise(models, kw):
+# chunked prefill, the prefix cache, speculative decoding and the policy's
+# kv_cache site are ported: what is still to port raises all the same
+@pytest.mark.parametrize("ekw,kw", [
+    (dict(policy="health"), {}),
+    (dict(policy="health", prefill_chunk=8), {}),
+    (dict(policy="health", spec_k=2), dict(draft="self")),
+    ({}, dict(plan=object())),
+    (dict(prefix_cache=True), dict(plan=object())),
+    ({}, dict(trace=object())),
+])
+def test_out_of_slice_engine_configs_raise(models, ekw, kw):
     _, _, tlm, tp = models
+    from repro_torch.numerics import NumericsPolicy
     pool = PoolConfig(num_slots=2, page_size=4, pages_per_slot=8)
+    if ekw.get("policy") == "health":
+        ekw = dict(ekw, policy=NumericsPolicy(enable=True, health=True))
+    if kw.get("draft") == "self":
+        kw = dict(kw, draft=(tlm, tp))
     with pytest.raises(NotImplementedError, match="later slice"):
-        Engine(tlm, tp, EngineConfig(pool=pool, **kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Engine(tlm, tp, EngineConfig(pool=pool), device="cpu", plan=object())
+        Engine(tlm, tp, EngineConfig(pool=pool, **ekw), device="cpu", **kw)
+
+
+def test_engine_pool_numerics_follow_policy(models):
+    """EngineConfig.policy: the kv_cache site owns the pool's numerics (the
+    port's twin of test_numerics.py's test of that name)."""
+    _, _, tlm, tp = models
+    from repro_torch.numerics import NumericsPolicy
+    pol = NumericsPolicy(enable=True)
+    eng = Engine(tlm, tp, EngineConfig(
+        pool=PoolConfig(num_slots=2, quantized=False), policy=pol),
+        device="cpu")
+    assert eng.pcfg.quantized and eng.pcfg.bits == \
+        pol.spec_for("kv_cache").bits
+    assert eng.pcfg.spec == pol.spec_for("kv_cache")
+    leaf = next(iter(next(iter(eng.pool["data"].values())).values()))
+    assert leaf.dtype == torch.int8
+    off = Engine(tlm, tp, EngineConfig(
+        pool=PoolConfig(num_slots=2, quantized=True),
+        policy=NumericsPolicy(enable=False)), device="cpu")
+    assert not off.pcfg.quantized
+    assert next(iter(off.pool["data"]["sub_0"].values())).dtype == \
+        torch.float32
+
+
+def test_policy_with_a_4_bit_kv_site_equals_jax(models):
+    """A policy whose kv_cache site is 4-bit over an fp pool config: an
+    int8-stored 4-bit pool in both packages, the same greedy tokens."""
+    import dataclasses
+    from repro.numerics import NumericsPolicy as JPolicy
+    from repro_torch.numerics import NumericsPolicy
+    jlm, jp, tlm, tp = models
+    pool, gens, (seed, lo, hi) = CASES["recycle"]
+    prompts = _prompts(jlm.cfg.vocab_size, len(gens), seed, lo, hi)
+    jpol = JPolicy(enable=True)
+    jpol = jpol.with_spec("kv_cache", dataclasses.replace(
+        jpol.spec_for("kv_cache"), bits=4))
+    tpol = NumericsPolicy(enable=True)
+    tpol = tpol.with_spec("kv_cache", dataclasses.replace(
+        tpol.spec_for("kv_cache"), bits=4))
+    jeng = JEngine(jlm, jp, JEC(pool=JPC(**pool), policy=jpol),
+                   ShardPlan(mesh=None))
+    want = _serve(jeng, prompts, gens)
+    eng = Engine(tlm, tp, EngineConfig(pool=PoolConfig(**pool), policy=tpol),
+                 device="cpu")
+    assert eng.pcfg.quantized and eng.pcfg.bits == 4
+    got = _serve(eng, prompts, gens)
+    assert got == want
+    # 4-bit codes stay inside [-8, 7]
+    leaf = eng.pool["data"]["sub_0"]["k"]
+    assert leaf.dtype == torch.int8 and int(leaf.min()) >= -8 \
+        and int(leaf.max()) <= 7
+    assert eng.summary()["cache_bytes"] == jeng.summary()["cache_bytes"]
