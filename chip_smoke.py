@@ -48,6 +48,13 @@ Phases (any failure raises and the script exits non-zero):
              between launches), its plain version and a library yardstick
              (per-channel quantize / dequantize for the codec where its
              codes match; gather + dequant + scaled_dot_product_attention).
+   state kernels — the state path's codec kernels at rwkv6-1.6b's state
+             shapes, bit for bit with their plain versions: p2_enc_rows
+             and p2_dec_rows at the decode step's 8 slots (wkv 8 x 32 x 64
+             x 64 f32, shift 8 x 2,048 bf16) and p2_enc_rows at the
+             24-layer prefill write, p2_enc and p2_dec at the chunk step's
+             one slot; each timed beside its plain version, its bound and
+             a library call.
    train kernels — the training kernels at the step's shapes: the scalar
              fake-quant bit-exact at 4/8/16 bits in f32 and bf16, each
              layer's cores in one grouped fake-quant launch (layer 1's 4,
@@ -124,6 +131,35 @@ Phases (any failure raises and the script exits non-zero):
              donor, 8 followers) must equal the cache-off run with a chunk
              boundary at the resume position on every completion, with no
              COW fork; prefix on vs off on the slice's requests is reported.
+   serve rwkv6 — the seventh main path: rwkv6-1.6b at full size (24
+             layers, d_model 2048, 32 heads x 64, d_ff 7168, vocab 65,536,
+             bf16, ~1.58 B seeded parameters) serving 16 requests of the
+             engine phase's lengths (128..512 tokens, 64 new, 8 slots)
+             from an int8 state pool, an fp pool and, chunked (128), the
+             int8 pool; counts zeroed just before and read just after
+             each run, exact: 72 p2_dec_rows + 72 p2_enc_rows a decode
+             step (24 layers x 3 state tensors), 3 p2_enc_rows a
+             whole-prompt prefill, 72 p2_dec + 72 p2_enc a chunk step, no
+             kernel on the fp pool; no KV kernel, cache_bytes 0, every
+             slot free at the end, state_reduction >= 3.5; the int8-vs-fp
+             greedy agreement (bf16) reported; the decode step, a
+             512-token prefill and a chunk step timed and profiled, the
+             codec kernels asserted by name.
+   serve hybrid — jamba-1.5-large with dense FFNs at full width for one
+             period (8 layers: 7 Mamba, 1 attention; ~9.0 B parameters),
+             8 requests x 64 new tokens over an int8 KV pool and an int8
+             state pool, fused attention: a decode step 14 p2_dec_rows +
+             14 p2_enc_rows, 1 p2_append_paged, 1 split + 1 combine; a
+             prefill 14 p2_enc (a one-layer stack has one scale) and 1
+             p2_prefill_paged; by counter and by profile name.
+   ssm identity — fp32: rwkv6 with 4 layers at full width and the reduced
+             jamba with dense FFNs: the engine (slots recycling) equals
+             static decode (lm_forward with its cache, then lm_decode_step
+             at B = 1), chunked prefill (128) equals it, a forced
+             preemption resumes identically, and an fp pool under
+             NumericsPolicy(enable=True) serves from an int8 state pool
+             with the int8 engine's tokens, token for token; a failed
+             check lists which products differ between M = 1 and M = 8.
 5. train   — the second main path: the paper's FMNIST TT MLP at its
              published widths, random params from a seeded generator on
              the card, 300 steps of ``launch/train_fmnist.py``'s step on
@@ -1325,7 +1361,7 @@ PROFILE_TRIES = 3
 
 
 def _profile_window(torch, window, steps: int, names, want, what: str,
-                    tries: int = PROFILE_TRIES):
+                    tries: int = PROFILE_TRIES, cpu: bool = True):
     """Profile ``window()`` (``steps`` steps, spin kernels at each edge):
     (profile, the named kernels' launches and device ms a step). With
     ``want`` (name -> launches a step) every window must count exactly
@@ -1337,13 +1373,15 @@ def _profile_window(torch, window, steps: int, names, want, what: str,
     of the process lost (``_lead_spins``), and a window whose trace kept
     none of it may have lost real launches, so it is profiled again with
     a larger pad. A kernel launched too often or too rarely misses in
-    every window."""
+    every window. ``cpu=False`` records device activity only: a window of
+    the recurrent scans holds ~100,000 launches, and the host-side op
+    events would multiply the trace the profiler processes."""
     from torch.profiler import ProfilerActivity, profile
     kern = None
+    acts = ([ProfilerActivity.CPU] if cpu else []) + [ProfilerActivity.CUDA]
     for attempt in range(tries):
         n = _lead_spins()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
             _pad_window(torch, n, LEAD_CYCLES)
             window()
             _pad_window(torch, TRAIL_SPINS, TRAIL_CYCLES)
@@ -1379,11 +1417,13 @@ def _log_kernels(kern: dict) -> None:
 
 
 def _profile_decode(torch, lm, params, prompts, steps: int = 20,
-                    fused: bool = True, want=None) -> dict:
+                    fused: bool = True, want=None, names=KV_KERNEL_FNS,
+                    what: str | None = None, cpu: bool = True) -> dict:
     """Where a steady decode step's time goes: the host wall time of
     ``steps`` unprofiled decode steps of the fused (or gather) engine with
     all 8 slots busy, then one profiled window of as many steps for the
-    device time per kernel. busy_share = device time / wall time."""
+    device time per kernel (``names``, held to ``want``). busy_share =
+    device time / wall time."""
     from repro_torch.serve import Engine, EngineConfig, PoolConfig
     eng = Engine(lm, params, EngineConfig(
         pool=PoolConfig(num_slots=8, page_size=16, pages_per_slot=64,
@@ -1399,10 +1439,10 @@ def _profile_decode(torch, lm, params, prompts, steps: int = 20,
         eng.step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps
-    what = "decode" if fused else "gather decode"
+    what = what or ("decode" if fused else "gather decode")
     prof, kern = _profile_window(
         torch, lambda: [eng.step() for _ in range(steps)], steps,
-        KV_KERNEL_FNS, _kv_want(want), what)
+        names, _kv_want(want), what, cpu=cpu)
     total, rows = _device_summary(torch, prof, steps)
     log(f"{what} profile: {wall*1e3:.2f} ms per step (host wall), device "
         f"{total:.2f} ms busy, busy share {total / (wall*1e3):.3f}")
@@ -1416,12 +1456,16 @@ def _profile_decode(torch, lm, params, prompts, steps: int = 20,
 
 
 def _profile_prefill(torch, lm, params, prompts, reps: int = 10,
-                     want=None) -> dict:
+                     want=None, names=KV_KERNEL_FNS,
+                     what: str = "prefill", cpu: bool = True,
+                     window_tokens: int = 512) -> dict:
     """One whole-prompt prefill at full width (512 tokens into slot 0 of
-    the int8 pool: ``lm_forward`` and the pool write), repeated: host wall
+    the int8 pool: ``lm_forward`` and the pool writes), repeated: host wall
     per prefill (synchronised), then one profiled window for the device
-    time per kernel and the KV kernels' launches. Each repeat rewrites the
-    slot's pages and scales with the same values."""
+    time per kernel and the pool kernels' launches, of prefills of the
+    prompt's first ``window_tokens`` (a shorter window keeps a recurrent
+    scan's trace small; its host wall is timed too). Each repeat rewrites
+    the slot's pages and scales with the same values."""
     from repro_torch.serve import Engine, EngineConfig, PoolConfig
     eng = Engine(lm, params, EngineConfig(
         pool=PoolConfig(num_slots=8, page_size=16, pages_per_slot=64,
@@ -1438,20 +1482,29 @@ def _profile_prefill(torch, lm, params, prompts, reps: int = 10,
         eng._prefill(prompt, table_row, 0)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / reps
+    short = prompt[:window_tokens]
+    win_wall = wall
+    if len(short) < len(prompt):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            eng._prefill(short, table_row, 0)
+        torch.cuda.synchronize()
+        win_wall = (time.perf_counter() - t0) / reps
     prof, kern = _profile_window(
-        torch, lambda: [eng._prefill(prompt, table_row, 0)
-                        for _ in range(reps)], reps, KV_KERNEL_FNS,
-        _kv_want(want), "prefill")
+        torch, lambda: [eng._prefill(short, table_row, 0)
+                        for _ in range(reps)], reps, names,
+        _kv_want(want), what, cpu=cpu)
     total, rows = _device_summary(torch, prof, reps)
-    log(f"prefill profile (S=512): {wall*1e3:.2f} ms per prefill (host "
-        f"wall), device {total:.3f} ms busy, busy share "
-        f"{total / (wall*1e3):.3f}")
+    log(f"{what} profile: S=512 {wall*1e3:.2f} ms per prefill (host wall); "
+        f"profiled S={len(short)}: {win_wall*1e3:.2f} ms host, device "
+        f"{total:.3f} ms busy, busy share {total / (win_wall*1e3):.3f}")
     for r in rows:
         log(f"  {r['ms_per_step']:8.3f} ms  {r['calls_per_step']:6.1f}x  "
             f"{r['name']}")
     _log_kernels(kern)
-    return {"step_ms": wall * 1e3, "device_ms": total,
-            "busy_share": total / (wall * 1e3), "top": rows,
+    return {"step_ms": wall * 1e3, "window_tokens": len(short),
+            "window_ms": win_wall * 1e3, "device_ms": total,
+            "busy_share": total / (win_wall * 1e3), "top": rows,
             "kernels": kern}
 
 
@@ -3444,7 +3497,8 @@ def phase_serve_chunked(torch, lm, params) -> dict:
 
 
 def _profile_chunk(torch, lm, params, prompts, reps: int = 10,
-                   want=None) -> dict:
+                   want=None, names=KV_KERNEL_FNS,
+                   what: str = "chunk step", cpu: bool = True) -> dict:
     """One chunk step at full width (128 tokens at position 256 of a slot
     whose history holds 384 prompt tokens), repeated: host wall per step
     (synchronised), then one profiled window for the device time per
@@ -3468,10 +3522,10 @@ def _profile_chunk(torch, lm, params, prompts, reps: int = 10,
     wall = (time.perf_counter() - t0) / reps
     prof, kern = _profile_window(
         torch, lambda: [eng._chunk(toks, table_row, 0, 256)
-                        for _ in range(reps)], reps, KV_KERNEL_FNS,
-        _kv_want(want), "chunk step")
+                        for _ in range(reps)], reps, names,
+        _kv_want(want), what, cpu=cpu)
     total, rows = _device_summary(torch, prof, reps)
-    log(f"chunk step profile: {wall*1e3:.2f} ms per step (host wall), "
+    log(f"{what} profile: {wall*1e3:.2f} ms per step (host wall), "
         f"device {total:.2f} ms busy, busy share {total / (wall*1e3):.3f}")
     for r in rows:
         log(f"  {r['ms_per_step']:8.3f} ms  {r['calls_per_step']:6.1f}x  "
@@ -3529,6 +3583,497 @@ def phase_chunked_identity(torch) -> dict:
     del params
     torch.cuda.empty_cache()
     return {"identical_completions": same, "on_off_agreement": agree}
+
+
+# ---------------------------------------------------------------------------
+# the recurrent slice: rwkv6-1.6b and jamba's Mamba layers served from the
+# slot-indexed state pool (serve/state_cache.py), with static decode as the
+# oracle
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "rwkv6-1.6b"
+HYBRID_ARCH = "jamba-1.5-large"
+PA_KV_FNS = KV_KERNEL_FNS + PA_KERNEL_FNS
+
+
+def _state_model(torch, arch: str, **over):
+    """``arch`` at full width (``over`` replaces config fields), bf16,
+    random weights from a seeded generator on the card."""
+    import repro_torch.configs as C
+    from repro_torch.models import build_lm, init_lm
+    cfg = C.get_config(arch).replace(**over)
+    lm = build_lm(cfg)
+    t0 = time.perf_counter()
+    params = init_lm(torch.Generator(device="cuda").manual_seed(0), lm,
+                     device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"{arch}: {cfg.num_layers} layers ({lm.n_periods} x "
+        f"{len(lm.period)}: {[s.mixer_kind for s in lm.period]}), d_model "
+        f"{cfg.d_model}, {n/1e9:.3f} B params {cfg.dtype}, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    return lm, params
+
+
+def _state_inputs(torch, gen, rows: int, cols: int, dt):
+    """A state-like (rows, cols) tensor, each row at its own magnitude, and
+    the scales the state cache picks for it (``per_tensor_max`` per row)."""
+    mag = torch.exp2(torch.randint(-6, 7, (rows, 1), generator=gen,
+                                   device="cuda").float())
+    x = (torch.randn((rows, cols), generator=gen, device="cuda") * mag
+         ).to(dt)
+    s = torch.ceil(torch.log2(torch.clamp(x.float().abs().amax(1), min=1e-8)
+                              / 127))
+    return x, s
+
+
+def phase_state_kernels(torch, timer: Timer) -> dict:
+    """The four codec kernels of the state path against their plain
+    versions at the state shapes of both served models, codes and values
+    bit for bit: the decode step's read and write of 8 slots
+    (``p2_dec_rows`` / ``p2_enc_rows``; rwkv6-1.6b's ``wkv`` 8 x 32 x 64
+    x 64 f32 and ``shift`` 8 x 2,048 bf16, jamba's Mamba ``h`` 8 x 16,384
+    x 16 f32 and ``conv`` 8 x 3 x 16,384 bf16), rwkv6's whole-prompt
+    prefill write of the 24-layer stack (``p2_enc_rows``, 24 x 131,072
+    f32), and one slot (``p2_enc`` / ``p2_dec``: the chunk step's, and
+    jamba's one-layer prefill write). Each timed beside its plain version,
+    the byte bound and a library call (per-channel / per-tensor quantize
+    and dequantize where their codes or values match)."""
+    from repro_torch.numerics import cuda_backend as CB
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    wkv, h, conv = 32 * 64 * 64, 16384 * 16, 3 * 16384
+    out = {"p2_enc_rows": [], "p2_dec_rows": [], "p2_enc": [],
+           "p2_dec": []}
+
+    def row(name, what, shape, ms, pms, lib, nbytes, exact):
+        check(exact, f"{name} {what}: differs from its plain version")
+        bms, by = bound_ms(nbytes)
+        r = dict(shape=list(shape), what=what, ms=ms, plain_ms=pms,
+                 library_ms=lib[0], library_note=lib[1], bound_ms=bms,
+                 bound_by=by, max_abs_err=0)
+        out[name].append(r)
+        log(f"{name} state {what} {tuple(shape)}: {ms*1e3:.2f} us (plain "
+            f"{pms*1e3:.1f} us, library {lib[1]}, bound {bms*1e3:.3f} us), "
+            "bit for bit")
+
+    for rows, cols, dt, what in ((8, wkv, torch.float32, "decode wkv 8 slots"),
+                                 (8, 2048, torch.bfloat16,
+                                  "decode shift 8 slots"),
+                                 (24, wkv, torch.float32,
+                                  "prefill wkv 24 layers"),
+                                 (8, h, torch.float32,
+                                  "jamba decode h 8 slots"),
+                                 (8, conv, torch.bfloat16,
+                                  "jamba decode conv 8 slots")):
+        x, s = _state_inputs(torch, gen, rows, cols, dt)
+        q = CB.encode_rows(x, s, 8)
+        row("p2_enc_rows", what, (rows, cols),
+            timer(lambda: CB.encode_rows(x, s, 8)),
+            timer(lambda: CB.encode_rows_plain(x, s, 8), iters=10),
+            _library_yardstick(timer, lambda: _library_encode(torch, x, s),
+                               lambda r: torch.equal(r.int_repr(), q)),
+            rows * cols * (x.element_size() + 1) + rows * 4,
+            torch.equal(q, CB.encode_rows_plain(x, s, 8)))
+        if rows == 8:
+            y = CB.decode_rows(q, s, dt)
+            row("p2_dec_rows", what, (rows, cols),
+                timer(lambda: CB.decode_rows(q, s, dt)),
+                timer(lambda: CB.decode_rows_plain(q, s, dt), iters=10),
+                _library_yardstick(
+                    timer, lambda: _library_decode(torch, q, s, dt),
+                    lambda r: _bits_equal(torch, r, y)),
+                rows * cols * (1 + y.element_size()) + rows * 4,
+                _bits_equal(torch, y, CB.decode_rows_plain(q, s, dt)))
+    for cols, dt, what in ((wkv, torch.float32, "chunk wkv one slot"),
+                           (2048, torch.bfloat16, "chunk shift one slot"),
+                           (h, torch.float32,
+                            "jamba prefill / chunk h one slot"),
+                           (conv, torch.bfloat16,
+                            "jamba prefill / chunk conv one slot")):
+        x, s = _state_inputs(torch, gen, 1, cols, dt)
+        x, s = x[0], s.reshape(1)
+        q = CB.encode_scalar(x, s, 8)
+        row("p2_enc", what, (cols,), timer(lambda: CB.encode_scalar(x, s, 8)),
+            timer(lambda: CB.encode_scalar_plain(x, s, 8), iters=10),
+            _library_yardstick(
+                timer, lambda: _library_encode_scalar(torch, x, s),
+                lambda r: torch.equal(r, q)),
+            cols * (x.element_size() + 1) + 4,
+            torch.equal(q, CB.encode_scalar_plain(x, s, 8)))
+        y = CB.decode_scalar(q, s, dt)
+        row("p2_dec", what, (cols,), timer(lambda: CB.decode_scalar(q, s, dt)),
+            timer(lambda: CB.decode_scalar_plain(q, s, dt), iters=10),
+            _library_yardstick(
+                timer, lambda: _library_decode_scalar(torch, q, s, dt),
+                lambda r: _bits_equal(torch, r, y)),
+            cols * (1 + y.element_size()) + 4,
+            _bits_equal(torch, y, CB.decode_scalar_plain(q, s, dt)))
+    return out
+
+
+def _state_want(lm, decode_steps: int, prefills: int = 0,
+                chunk_steps: int = 0) -> dict:
+    """The state codec's launches on an int8 pool: each decode step reads
+    and writes every state tensor of every layer for all slots (row
+    kernels), each chunk step the one slot's (scalar kernels), and each
+    whole-prompt prefill writes each tensor's layer stack once (a row
+    kernel, or the scalar one for a one-period stack)."""
+    from repro_torch.serve import state_cache as SC
+    tensors = sum(len(SC.state_feature_shapes(s, lm.cfg)) for s in lm.period)
+    per = lm.n_periods * tensors
+    want = {"p2_dec_rows": per * decode_steps,
+            "p2_enc_rows": per * decode_steps,
+            "p2_dec": per * chunk_steps, "p2_enc": per * chunk_steps}
+    want["p2_enc_rows" if lm.n_periods > 1 else "p2_enc"] += \
+        tensors * prefills
+    return {k: v for k, v in want.items() if v}
+
+
+def _state_steps(lm) -> dict:
+    """The state codec's launches a decode step, a whole-prompt prefill and
+    a chunk step (``_state_want``), as the kernels line reports them."""
+    return {"decode": _state_want(lm, 1), "prefill": _state_want(lm, 0, 1),
+            "chunk": _state_want(lm, 0, 0, 1)}
+
+
+def _wkv_error_by_decay(torch, lm, params, prompt) -> dict:
+    """Where the int8 state pool loses rwkv6's ``wkv``: one prompt's
+    post-prompt state (``lm_forward(return_cache=True)``), coded as the
+    pool codes it (one scale a layer and slot), the share of nonzero
+    entries that code to 0 and the relative L2 error per quarter of the
+    key channels ordered by their decay base ``w0`` (the first quarter
+    decays slowest), over every layer."""
+    from repro_torch.models import lm_forward
+    from repro_torch.serve import state_cache as SC
+    with torch.no_grad():
+        _, _, cache = lm_forward(params, lm, tokens=torch.tensor(
+            [prompt], device="cuda"), return_cache=True)
+    scfg = SC.StateCacheConfig(quantized=True)
+    x = cache["sub_0"]["wkv"][:, 0].float()          # (L, H, Dk, Dv)
+    codes, step = SC._encode(x, scfg)
+    y = SC._decode(codes, step, torch.float32, scfg)
+    w0 = torch.stack([pp["sub_0"]["mixer"]["w0"] for pp in params["layers"]])
+    rank = torch.argsort(torch.argsort(w0, dim=-1), dim=-1)
+    quarter = (rank * 4 // w0.shape[-1]).reshape(x.shape[:3] + (1,)
+                                                 ).expand_as(x)
+    out = {"zero_share": [], "rel_l2": [], "max_abs": [],
+           "prompt_len": len(prompt)}
+    for qi in range(4):
+        m = quarter == qi
+        xs, ys = x[m], y[m]
+        out["zero_share"].append(float(((ys == 0) & (xs != 0)).sum()
+                                       / (xs != 0).sum()))
+        out["rel_l2"].append(float((ys - xs).norm() / xs.norm()))
+        out["max_abs"].append(float(xs.abs().max()))
+    log(f"rwkv6 wkv coded int8 (one scale a layer and slot) after a "
+        f"{len(prompt)}-token prompt, by quarter of w0 (slowest decay "
+        f"first): nonzero entries coded to 0 {out['zero_share']}, relative "
+        f"L2 error {out['rel_l2']}, max |wkv| {out['max_abs']}")
+    return out
+
+
+def _check_state_run(what, eng, launches, want, n_req) -> dict:
+    s = eng.summary()
+    check(launches == want, f"{what}: launches {launches}, want {want}")
+    check(s["requests_completed"] == n_req, f"{what}: requests lost")
+    check(all(st is None for st in eng.sched.slots) and not eng.sched.queue,
+          f"{what}: a slot or the queue is not empty at the end")
+    return s
+
+
+def phase_serve_rwkv6(torch, lm, params) -> dict:
+    """The slice's main path: rwkv6-1.6b at full size serving the engine
+    phase's 16 requests (64 new tokens, 8 slots) from an int8 state pool,
+    an fp pool and, chunked (128), the int8 pool again; counts zeroed just
+    before and read just after each run, exact (``_state_want``); no KV
+    kernel, ``cache_bytes`` 0, every slot free at the end,
+    ``state_reduction`` >= 3.5. Then the decode step, a 512-token prefill
+    and a chunk step, timed and profiled, the codec kernels by name."""
+    from repro_torch.kernels import build as B
+    t0 = time.perf_counter()
+    cfg = lm.cfg
+    prompts = _requests(cfg.vocab_size)
+    _serve_engine(torch, lm, params, prompts[:2], 4)              # warm-up
+    out, toks = {}, {}
+    for name, kw in (("int8", {}), ("fp", dict(quantized=False)),
+                     ("chunked", dict(prefill_chunk=CHUNK))):
+        B.reset_launches()
+        t1 = time.perf_counter()
+        eng, toks[name] = _serve_engine(torch, lm, params, prompts, 64, **kw)
+        wall = time.perf_counter() - t1
+        launches = dict(B.LAUNCHES)
+        summ = eng.summary()
+        chunks = (_chunk_steps(eng.metrics.prefills, CHUNK)
+                  if name == "chunked" else 0)
+        want = ({} if name == "fp" else _state_want(
+            lm, summ["decode_steps"], len(eng.metrics.prefills), chunks))
+        s = _check_state_run(f"serve rwkv6 ({name})", eng, launches, want,
+                             len(prompts))
+        check(s["cache_bytes"] == 0 and not eng.sched.paged,
+              f"serve rwkv6 ({name}): a KV pool of {s['cache_bytes']} B")
+        if name != "fp":
+            check(s["state_reduction"] >= 3.5,
+                  f"state_reduction {s['state_reduction']}")
+        out[name] = {"summary": s, "launches": launches, "wall_s": wall,
+                     "chunk_steps": chunks}
+        log(f"serve rwkv6 ({name}): {s['requests_completed']} requests in "
+            f"{wall:.2f} s, {s['generated_tokens']} tokens, "
+            f"{s['decode_steps']} decode steps, {chunks} chunk steps, "
+            f"{s['tokens_per_s']:.1f} tok/s, TTFT p50 "
+            f"{s['ttft_p50_s']*1e3:.1f} ms, p95 {s['ttft_p95_s']*1e3:.1f} "
+            f"ms; state_bytes {s['state_bytes']} ({s['state_reduction']:.4f}x "
+            f"vs fp32 {s['state_bytes_fp32']}), cache_bytes "
+            f"{s['cache_bytes']}; launches {launches}")
+        del eng
+    out["per_step"] = _state_steps(lm)
+    out["wkv_error_by_decay"] = _wkv_error_by_decay(torch, lm, params,
+                                                    prompts[0])
+    out["bf16_agreement_int8_fp"] = sum(
+        a == b for x, y in zip(toks["int8"], toks["fp"])
+        for a, b in zip(x, y)) / (len(prompts) * 64)
+    log(f"serve rwkv6: bf16 greedy agreement int8 vs fp pool "
+        f"{out['bf16_agreement_int8_fp']:.3f}")
+    out["runs_s"] = time.perf_counter() - t0
+    # short windows of device activity only: a 512-token prefill's
+    # per-token scan issues ~60,000 launches; the trace of a window that
+    # large lost launches on the card, and its processing grows with them
+    per = _state_want(lm, 1)
+    out["decode_profile"] = _profile_decode(
+        torch, lm, params, prompts, steps=6, fused=False, names=PA_KV_FNS,
+        what="rwkv6 decode", cpu=False,
+        want={f"{k}_kernel": v for k, v in per.items()})
+    out["prefill_profile"] = _profile_prefill(
+        torch, lm, params, prompts, reps=1, names=PA_KV_FNS,
+        what="rwkv6 prefill", cpu=False, window_tokens=128,
+        want={f"{k}_kernel": v for k, v in _state_want(lm, 0, 1).items()})
+    out["chunk_profile"] = _profile_chunk(
+        torch, lm, params, prompts, reps=1, names=PA_KV_FNS,
+        what="rwkv6 chunk step", cpu=False,
+        want={f"{k}_kernel": v for k, v in _state_want(
+            lm, 0, 0, 1).items()})
+    out["seconds"] = time.perf_counter() - t0
+    log(f"serve rwkv6: {out['runs_s']:.1f} s for the three runs, "
+        f"{out['seconds']:.1f} s with the profiles")
+    return out
+
+
+def phase_serve_hybrid(torch) -> dict:
+    """jamba-1.5-large with dense FFNs at full width for one period (8
+    layers: 7 Mamba, 1 attention), bf16, 8 requests x 64 new tokens over
+    an int8 KV pool and an int8 state pool with fused attention, whole
+    prompt and chunked (128: the chunks' remainders are unpadded widths);
+    counts exact: a decode step 14 + 14 row codec launches, one paged
+    append, one split and one combine; a prefill 14 ``p2_enc`` (a
+    one-layer stack) and one ``p2_prefill_paged``; a chunk step 14
+    ``p2_dec`` + 14 ``p2_enc`` (one slot), one paged append and one paged
+    read. Then the decode step, a prefill and a chunk step, profiled, the
+    kernels by name."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.kernels import build as B
+    t0 = time.perf_counter()
+    lm, params = _state_model(torch, HYBRID_ARCH, num_layers=8,
+                              moe=MoEConfig(num_experts=0))
+    cfg = lm.cfg
+    n_attn = sum(s.mixer_kind == "attn_gqa" for s in lm.period) * lm.n_periods
+    prompts = _requests(cfg.vocab_size, n=8, seed=1)
+    _serve_engine(torch, lm, params, prompts[:2], 4, fused_attention=True)
+    out = {"per_step": _state_steps(lm)}
+    for name, chunk in (("whole", 0), ("chunked", CHUNK)):
+        B.reset_launches()
+        t1 = time.perf_counter()
+        eng, _ = _serve_engine(torch, lm, params, prompts, 64,
+                               fused_attention=True, prefill_chunk=chunk)
+        wall = time.perf_counter() - t1
+        launches = dict(B.LAUNCHES)
+        steps = eng.summary()["decode_steps"]
+        admits = len(eng.metrics.prefills)
+        chunks = _chunk_steps(eng.metrics.prefills, chunk) if chunk else 0
+        check(bool(chunk) == (chunks > 0),
+              f"serve hybrid ({name}): {chunks} chunk steps")
+        want = _state_want(lm, steps, admits, chunks)
+        want.update({"p2_append_paged": n_attn * (steps + chunks),
+                     "paged_attention": n_attn * steps,
+                     "paged_attention_combine": n_attn * steps,
+                     "p2_prefill_paged": admits})
+        if chunks:
+            want["p2_read_paged"] = n_attn * chunks
+        s = _check_state_run(f"serve hybrid ({name})", eng, launches, want,
+                             len(prompts))
+        check(eng.sched.alloc.free_pages == eng.pcfg.total_pages,
+              f"serve hybrid ({name}): pages still mapped at the end")
+        log(f"serve hybrid ({name}): {s['requests_completed']} requests in "
+            f"{wall:.2f} s, {s['decode_steps']} decode steps, {chunks} chunk "
+            f"steps, {s['tokens_per_s']:.1f} tok/s, TTFT p50 "
+            f"{s['ttft_p50_s']*1e3:.1f} ms; cache_bytes {s['cache_bytes']} "
+            f"({s['cache_reduction']:.3f}x), state_bytes {s['state_bytes']} "
+            f"({s['state_reduction']:.4f}x); launches {launches}")
+        out[name] = {"summary": s, "launches": launches, "wall_s": wall,
+                     "chunk_steps": chunks}
+        del eng
+    dec = {f"{k}_kernel": v for k, v in _state_want(lm, 1).items()}
+    dec.update({"p2_append_paged_kernel": n_attn, "pa_split_kernel": n_attn,
+                "pa_combine_kernel": n_attn})
+    pre = {f"{k}_kernel": v for k, v in _state_want(lm, 0, 1).items()}
+    pre["p2_prefill_paged_kernel"] = 1
+    chk = {f"{k}_kernel": v for k, v in _state_want(lm, 0, 0, 1).items()}
+    chk.update({"p2_append_paged_kernel": n_attn,
+                "p2_read_paged_kernel": n_attn})
+    out.update({
+        "decode_profile": _profile_decode(
+            torch, lm, params, prompts, steps=6, fused=True,
+            names=PA_KV_FNS, what="hybrid decode", want=dec, cpu=False),
+        "prefill_profile": _profile_prefill(
+            torch, lm, params, prompts, reps=1, names=PA_KV_FNS,
+            what="hybrid prefill", want=pre, cpu=False, window_tokens=128),
+        "chunk_profile": _profile_chunk(
+            torch, lm, params, prompts, reps=1, names=PA_KV_FNS,
+            what="hybrid chunk step", want=chk, cpu=False)})
+    del params
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"serve hybrid: {out['seconds']:.1f} s with the profiles")
+    return out
+
+
+def _static_greedy(torch, lm, params, prompt, gen_len: int, horizon: int):
+    """The static reference of one request: whole-prompt ``lm_forward``
+    with its cache, attention leaves padded to ``horizon``, then greedy
+    ``lm_decode_step`` at B = 1 with a scalar length."""
+    from repro_torch.models import lm_decode_step, lm_forward
+    toks = torch.tensor([prompt], dtype=torch.long, device="cuda")
+    with torch.no_grad():
+        logits, _, cache = lm_forward(params, lm, tokens=toks,
+                                      return_cache=True)
+        n = len(prompt)
+        cache = {key: {name: (torch.nn.functional.pad(
+                     a, (0, 0, 0, 0, 0, horizon - n)) if name in ("k", "v")
+                     else a) for name, a in kinds.items()}
+                 for key, kinds in cache.items()}
+        tok = int(logits[0, -1].argmax())
+        out = [tok]
+        for j in range(gen_len - 1):
+            lg, cache = lm_decode_step(
+                params, cache, torch.tensor([[tok]], device="cuda"), n + j,
+                lm)
+            tok = int(lg[0, -1].argmax())
+            out.append(tok)
+    return out
+
+
+def _batch_probe(torch, lm, params) -> dict:
+    """Whether a row of a product is the same bits at M = 1 and inside an
+    M = 8 batch, for each dense weight of layer 0 and the head (the static
+    reference runs at B = 1, the engine at 8): the products that could
+    make the two disagree."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    tree = {"head": params["head"],
+            **{f"{k}/{n}": v for k, sub in params["layers"][0].items()
+               for n, v in sub["mixer"].items() if isinstance(v, dict)}}
+    for name, site in tree.items():
+        w = site.get("w")
+        if w is None:
+            continue
+        x = torch.randn((8, w.shape[0]), generator=gen, device="cuda"
+                        ).to(w.dtype)
+        out[name] = bool(torch.equal((x @ w)[:1], x[:1] @ w))
+    return out
+
+
+def _identity_checks(torch, what, lm, params, prompts, gen_len: int,
+                     slots: int, chunk: int) -> dict:
+    """fp32: the engine (``slots`` slots, the requests recycling them) ≡
+    static decode; chunked (``chunk``, shorter than the prompts: the run
+    must take chunk steps) ≡ whole-prompt; a forced preemption
+    resumes identically; an fp pool under ``NumericsPolicy(enable=True)``
+    serves from an int8 state pool with the int8 engine's tokens."""
+    from repro_torch.numerics import NumericsPolicy
+    from repro_torch.serve import Engine, EngineConfig, PoolConfig
+    pool = PoolConfig(num_slots=slots, page_size=16, pages_per_slot=64,
+                      quantized=False)
+    static = [_static_greedy(torch, lm, params, p, gen_len, pool.max_len)
+              for p in prompts]
+
+    def serve(preempt=False, **kw):
+        pcfg = dataclasses.replace(pool, quantized=kw.pop("quantized",
+                                                          False))
+        eng = Engine(lm, params, EngineConfig(pool=pcfg, **kw),
+                     device="cuda")
+        rids = [eng.submit(p, max_new_tokens=gen_len) for p in prompts]
+        if preempt:
+            for _ in range(3):
+                eng.step()
+            check(eng.sched.preempt_youngest() is not None,
+                  f"{what}: nothing to preempt")
+            eng.metrics.preempted()
+        res = eng.run()
+        return eng, [res[r].tokens for r in rids]
+
+    ceng, chunked = serve(prefill_chunk=chunk)
+    chunks = _chunk_steps(ceng.metrics.prefills, chunk)
+    check(chunks > 0, f"{what}: the chunked run took no chunk step")
+    del ceng
+    got = {"engine": serve()[1], "chunked": chunked,
+           "preempted": serve(preempt=True)[1]}
+    probe = None
+    for name, toks in got.items():
+        if toks != static:
+            probe = probe or _batch_probe(torch, lm, params)
+        check(toks == static, f"{what}: {name} vs static decode: "
+              f"{sum(a == b for a, b in zip(toks, static))}/{len(prompts)} "
+              f"completions identical; products equal at M = 1 and 8: "
+              f"{probe}")
+    eng, q = serve(quantized=True)
+    peng, pol = serve(policy=NumericsPolicy(enable=True))
+    leaf = next(t for k in peng._state_keys
+                for t in peng.spool["data"][k].values())
+    check(peng.scfg.quantized and leaf.dtype == torch.int8 and pol == q,
+          f"{what}: policy engine's state pool {leaf.dtype}, "
+          f"{sum(a == b for a, b in zip(pol, q))}/{len(prompts)} "
+          "completions equal to the int8 engine's")
+    agree = sum(a == b for x, y in zip(q, static) for a, b in zip(x, y)) \
+        / (len(prompts) * gen_len)
+    log(f"ssm identity ({what}): fp32 engine == static decode == chunked "
+        f"({chunks} chunk steps of {chunk}) == preempted on all "
+        f"{len(prompts)} completions; the policy engine serves from an int8 "
+        f"state pool with the int8 engine's tokens (int8 vs fp32 greedy "
+        f"agreement {agree:.3f})")
+    return {"completions": len(prompts), "int8_fp_agreement": agree,
+            "chunk": chunk, "chunk_steps": chunks}
+
+
+def phase_ssm_identity(torch) -> dict:
+    """fp32 at reduced depth: rwkv6-1.6b with 4 layers at full width (8
+    requests of 128..512 tokens on 4 slots, 32 new tokens, chunks of 128)
+    and the reduced jamba with dense FFNs (8 requests of 8..40 tokens on 3
+    slots, 16 new tokens, chunks of 7): ``_identity_checks``."""
+    import numpy as np
+    import repro_torch.configs as C
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import build_lm, init_lm
+    t0 = time.perf_counter()
+    out = {}
+    lm, params = _state_model(torch, SSM_ARCH, num_layers=4,
+                              dtype="float32")
+    out["rwkv6"] = _identity_checks(torch, "rwkv6 4 layers", lm, params,
+                                    _requests(lm.cfg.vocab_size, n=8,
+                                              seed=2), 32, 4, CHUNK)
+    del params
+    cfg = C.get_reduced(HYBRID_ARCH).replace(
+        dtype="float32", moe=MoEConfig(num_experts=0))
+    lm = build_lm(cfg)
+    params = init_lm(torch.Generator(device="cuda").manual_seed(0), lm,
+                     device="cuda")
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, cfg.vocab_size, int(rng.randint(8, 41))
+                           ).tolist() for _ in range(8)]
+    out["jamba"] = _identity_checks(torch, "reduced dense jamba", lm, params,
+                                    prompts, 16, 3, 7)
+    del params
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"ssm identity: {out['seconds']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4365,9 +4910,28 @@ def _kernel_row(name, src, replaces, shapes, launches, path) -> dict:
     return row
 
 
+def _state_path(name: str, rwkv: dict, hybrid: dict, api: dict) -> str:
+    """Where a codec kernel runs on the state path, with its launches a
+    step (from ``_state_want``, which the runs and profiles asserted) and
+    in each run."""
+    def per(steps):
+        return ", ".join(f"{steps[k][name]} a {w}" for k, w in
+                         (("decode", "decode step"),
+                          ("prefill", "whole-prompt prefill"),
+                          ("chunk", "chunk step")) if name in steps[k])
+    return (f"serve rwkv6 ({per(rwkv['per_step'])}): int8 run "
+            f"{rwkv['int8']['launches'].get(name, 0)}, chunked run "
+            f"{rwkv['chunked']['launches'].get(name, 0)}; serve hybrid "
+            f"({per(hybrid['per_step'])}): whole-prompt run "
+            f"{hybrid['whole']['launches'].get(name, 0)}, chunked run "
+            f"{hybrid['chunked']['launches'].get(name, 0)}; codec API "
+            f"{api.get(name, 0)}")
+
+
 def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
                  wkern: dict, wire: dict, skern: dict, chunked: dict,
-                 lmkern: dict, lm: dict, spec: dict) -> dict:
+                 lmkern: dict, lm: dict, spec: dict, state: dict,
+                 rwkv: dict, hybrid: dict) -> dict:
     rows = []
     for name, (src, replaces) in KERNELS.items():
         rows.append(_kernel_row(name, src, replaces, kern[name],
@@ -4384,16 +4948,15 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
         row["spec_launches"] = spec["draft"]["launches"].get(row["name"], 0)
         row["path"] += (f"; serve spec ({spec['draft']['rounds']} rounds, "
                         f"{row['spec_launches']} launches)")
-    rows.append(_kernel_row(
-        "p2_enc_rows", *ENC_ROWS, kern["p2_enc_rows"],
-        skern["api_launches"].get("p2_enc_rows", 0),
-        "codec API (numerics encode with a scale per leading index; the "
-        "prefill writes through p2_prefill_paged)"))
-    rows.append(_kernel_row(
-        "p2_dec_rows", *DEC_ROWS, kern["p2_dec_rows"],
-        skern["api_launches"].get("p2_dec_rows", 0),
-        "codec API (numerics decode with a scale per leading index; the "
-        "gather engine reads through p2_read_paged)"))
+    # the state path's codec launches (the int8 rwkv6 run for the row
+    # kernels, the chunked run for the scalar ones), its shapes first
+    api = skern["api_launches"]
+    for name, src in (("p2_enc_rows", ENC_ROWS), ("p2_dec_rows", DEC_ROWS)):
+        rows.append(_kernel_row(
+            name, *src, state[name] + kern[name],
+            rwkv["int8"]["launches"].get(name, 0),
+            _state_path(name, rwkv, hybrid, api)))
+        rows[-1]["api_launches"] = api.get(name, 0)
     for name, (src, replaces) in TRAIN_KERNELS.items():
         rows.append(_kernel_row(name, src, replaces, tkern[name],
                                 train["launches"].get(name, 0),
@@ -4427,17 +4990,16 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
             "the LM step, by route and by profile name)"))
     for name, (src, replaces) in SCALAR_KERNELS.items():
         if name == "p2_fq_rows":
-            launches = skern["api_launches"].get(name, 0)
-            path = ("codec API (numerics.fake_quant with a scale per leading "
-                    "index; no serving or training path)")
-        else:
-            launches = skern["api_launches"].get(name, 0)
-            path = ("codec API (numerics.roundtrip with one step, "
-                    "core.quant.quantize_store; the export runs "
-                    "p2_rt_group, the chunk step p2_append_paged and "
-                    "p2_read_paged)")
-        rows.append(_kernel_row(name, src, replaces, skern[name], launches,
-                                path))
+            rows.append(_kernel_row(
+                name, src, replaces, skern[name], api.get(name, 0),
+                "codec API (numerics.fake_quant with a scale per leading "
+                "index; no serving or training path)"))
+            continue
+        rows.append(_kernel_row(
+            name, src, replaces, state[name] + skern[name],
+            rwkv["chunked"]["launches"].get(name, 0),
+            _state_path(name, rwkv, hybrid, api)))
+        rows[-1]["api_launches"] = api.get(name, 0)
     return {"kernels": rows}
 
 
@@ -4601,6 +5163,7 @@ def main(argv=None) -> int:
     report["train_kernels"] = phase_train_kernels(torch, timer)
     report["wire_kernels"] = phase_wire_kernels(torch, timer)
     report["scalar_kernels"] = phase_scalar_kernels(torch, timer)
+    report["state_kernels"] = phase_state_kernels(torch, timer)
     del timer
     lm, params = full_model(torch)
     report["engine"] = phase_engine(torch, lm, params)
@@ -4611,6 +5174,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     report["identity"] = phase_identity(torch)
     report["chunked_identity"] = phase_chunked_identity(torch)
+    t_state = time.perf_counter()
+    lm, params = _state_model(torch, SSM_ARCH)
+    report["serve_rwkv6"] = phase_serve_rwkv6(torch, lm, params)
+    del params
+    torch.cuda.empty_cache()
+    report["serve_hybrid"] = phase_serve_hybrid(torch)
+    report["ssm_identity"] = phase_ssm_identity(torch)
+    report["state_phases_s"] = time.perf_counter() - t_state
+    log(f"recurrent phases (serve rwkv6, serve hybrid, ssm identity) in "
+        f"{report['state_phases_s']:.1f} s")
     report["train"] = phase_train(torch)
     report["train_identity"] = phase_train_identity(torch)
     report["train_wire"] = phase_train_wire(torch)
@@ -4624,7 +5197,8 @@ def main(argv=None) -> int:
                         report["wire_kernels"], report["train_wire"],
                         report["scalar_kernels"], report["serve_chunked"],
                         report["lm_kernels"], report["train_lm"],
-                        report["serve_spec"])
+                        report["serve_spec"], report["state_kernels"],
+                        report["serve_rwkv6"], report["serve_hybrid"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

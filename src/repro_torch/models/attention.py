@@ -4,7 +4,8 @@ half (MLA is a later slice).
 ``chunked_attention`` is the prefill path: an online softmax over KV
 chunks inside a loop over Q chunks, in the reference's update order. The
 decode helpers (``gqa_decode_qkv``, ``gqa_attend``) serve the engine's
-gather path. Score einsums take f32 operands, as the reference's
+gather path; ``gqa_decode`` with ``cache_append`` and ``gqa_init_cache``
+is static decode's attention step over a dense (B, T) cache. Score einsums take f32 operands, as the reference's
 ``preferred_element_type=f32`` does: products of bf16 values are exact in
 f32, so the two agree up to summation order.
 """
@@ -140,6 +141,40 @@ def gqa_qkv(params: dict, x: torch.Tensor, d: GQADef, cfg: ModelConfig,
 gqa_decode_qkv = gqa_qkv
 
 
+def gqa_forward(params: dict, x: torch.Tensor, d: GQADef, cfg: ModelConfig,
+                *, causal: bool, positions: torch.Tensor) -> torch.Tensor:
+    q, k, v = gqa_qkv(params, x, d, cfg, positions)
+    out = chunked_attention(q, k, v, causal=causal)
+    b, s = x.shape[:2]
+    if d.real_heads != d.num_heads:
+        out = out[:, :, :d.real_heads]
+    return apply_site(params["o"], out.reshape(b, s, -1), d.o, cfg)
+
+
+def len_positions(cur_len, b: int, device=None) -> torch.Tensor:
+    """(B,1) query positions from a scalar (int or 0-d tensor) or a
+    per-slot (B,) ``cur_len``."""
+    cl = torch.as_tensor(cur_len, dtype=torch.int32, device=device)
+    if cl.dim() == 0:
+        return cl.expand(b, 1)
+    return cl.reshape(b, 1)
+
+
+def cache_append(cache_arr: torch.Tensor, new: torch.Tensor,
+                 cur_len) -> torch.Tensor:
+    """A copy of ``cache_arr`` (B, T, ...) with one new token (B, 1, ...)
+    written at position ``cur_len`` along axis 1: every row at a shared
+    scalar position, or each row at its own (B,) position."""
+    out = cache_arr.clone()
+    new = new.to(cache_arr.dtype)
+    cl = torch.as_tensor(cur_len, device=cache_arr.device).long()
+    if cl.dim() == 0:
+        out[:, cl:cl + 1] = new
+    else:
+        out[torch.arange(out.shape[0], device=out.device), cl] = new[:, 0]
+    return out
+
+
 def causal_len_mask(qpos: torch.Tensor, t: int) -> torch.Tensor:
     """(B, S, T) mask: key position visible iff kpos <= qpos."""
     kpos = torch.arange(t, device=qpos.device)
@@ -164,3 +199,25 @@ def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d: GQADef,
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
     out = out.reshape(b, s, d.num_heads, d.head_dim)[:, :, :d.real_heads]
     return out.reshape(b, s, d.real_heads * d.head_dim)
+
+
+def gqa_decode(params: dict, x: torch.Tensor, cache: dict, d: GQADef,
+               cfg: ModelConfig, cur_len) -> tuple[torch.Tensor, dict]:
+    """One-token decode. x: (B,1,D). cache: {"k","v"}: (B,T,Hkv,Dh).
+    ``cur_len``: scalar shared length, or (B,) per-slot lengths. Returns
+    (y, the new cache); the old one is unchanged."""
+    b = x.shape[0]
+    positions = len_positions(cur_len, b, x.device)
+    q, k_new, v_new = gqa_decode_qkv(params, x, d, cfg, positions)
+    k = cache_append(cache["k"], k_new, cur_len)
+    v = cache_append(cache["v"], v_new, cur_len)
+    out = gqa_attend(q, k, v, d, positions)
+    y = apply_site(params["o"], out, d.o, cfg)
+    return y, {"k": k, "v": v}
+
+
+def gqa_init_cache(d: GQADef, batch: int, max_len: int, dtype: torch.dtype,
+                   device: torch.device) -> dict:
+    shape = (batch, max_len, d.num_kv_heads, d.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,14 +1,21 @@
-"""Unified LM, dense family — the port of ``repro/models/lm.py``.
+"""Unified LM — the port of ``repro/models/lm.py``: the dense GQA family,
+pure-SSM RWKV6 and the Jamba hybrid (Mamba + attention; dense FFNs).
 
-Structure: embed -> per-layer sublayers (rms_norm -> GQA attention ->
-residual -> rms_norm -> SwiGLU FFN -> residual) -> final norm -> head.
-Where the reference stacks layer params on a leading axis for ``lax.scan``,
-the port keeps a Python list of per-layer dicts (``params["layers"][l]``)
-and loops; ``convert.params_from_jax`` unstacks a JAX tree into it.
+Structure: embed -> periods of sublayers -> final norm -> head. A period
+is a fixed pattern of sublayers (one for homogeneous stacks; Jamba's
+interleave of Mamba and attention). Where the reference stacks layer
+params on a leading axis for ``lax.scan``, the port keeps a Python list of
+per-period dicts (``params["layers"][l]``) and loops;
+``convert.params_from_jax`` unstacks a JAX tree into it.
 
 Parameters are plain nested dicts of tensors with the reference's names,
-so the two packages' trees correspond key for key. MoE, MLA and the
-recurrent families are later slices and raise at ``build_lm``.
+so the two packages' trees correspond key for key. MoE FFNs, MLA and the
+frontends are later slices and raise at ``build_lm``.
+
+Static decode (``lm_init_cache``, ``lm_decode_step``) is the reference's:
+one token a step against a cache of per-token K/V for attention
+sublayers and the recurrent state for the others; the serving engine's
+token identity is held against it.
 
 Every weight site may be TT-factorized (``with_tt``): TT sites add the
 rank-shrinkage prior (``lm_prior_loss``) and take the closed-form λ update
@@ -31,15 +38,16 @@ from ..core.tt_layer import effective_cores
 from ..device import resolve_device
 from . import attention as A
 from . import ffn as F
+from . import ssm as S
 from .common import (SiteDef, apply_site, init_site, make_site, rms_norm,
                      site_lambda_update, site_prior_loss, torch_dtype)
 
 
 @dataclass(frozen=True)
 class SubDef:
-    mixer_kind: str          # "attn_gqa" (this slice)
+    mixer_kind: str          # "attn_gqa" | "mamba" | "rwkv6"
     mixer: Any
-    ffn_kind: str | None     # "ffn"
+    ffn_kind: str | None     # "ffn" | None (rwkv6 has its own)
     ffn: Any
 
 
@@ -52,34 +60,63 @@ class LMDef:
     n_periods: int
 
 
+STATE_MIXERS = ("mamba", "rwkv6")
+
+
 def build_lm(cfg: ModelConfig) -> LMDef:
-    """Dense/GQA stacks only; other families name the slice they wait for."""
-    if cfg.family in ("ssm_rwkv6", "hybrid_jamba"):
-        raise NotImplementedError(
-            f"{cfg.family} sublayers (recurrent state) are a later slice "
-            "(ROADMAP queue 1: models/ssm.py + serve/state_cache.py)")
-    if cfg.moe.num_experts > 0:
-        raise NotImplementedError("MoE FFNs are a later slice (ROADMAP "
-                                  "queue 1: models/moe.py)")
+    """Dense GQA stacks, RWKV6 and the Jamba hybrid with dense FFNs; other
+    families name the slice they wait for."""
     if cfg.attn_kind == "mla":
         raise NotImplementedError("MLA attention is a later slice (ROADMAP "
-                                  "queue 1: attention.py MLA)")
+                                  "queue 1, item 5: attention.py MLA)")
     if cfg.frontend != "none":
         raise NotImplementedError("frontends are a later slice (ROADMAP "
-                                  "queue 1: models/frontend.py)")
-    sub = SubDef("attn_gqa", A.make_gqa(cfg), "ffn", F.make_ffn(cfg))
+                                  "queue 1, item 5: models/frontend.py)")
+
+    def ffn_for(use_moe: bool) -> tuple[str, Any]:
+        if use_moe and cfg.moe.num_experts > 0:
+            raise NotImplementedError("MoE FFNs are a later slice (ROADMAP "
+                                      "queue 1, item 4: models/moe.py)")
+        return "ffn", F.make_ffn(cfg)
+
+    if cfg.family == "ssm_rwkv6":
+        subs = [SubDef("rwkv6", S.make_rwkv6(cfg), None, None)]
+        n_periods = cfg.num_layers
+    elif cfg.family == "hybrid_jamba":
+        subs = []
+        for pos in range(cfg.period):
+            mixer = (("attn_gqa", A.make_gqa(cfg))
+                     if pos in cfg.attn_positions
+                     else ("mamba", S.make_mamba(cfg)))
+            subs.append(SubDef(*mixer, *ffn_for(pos in cfg.moe_positions)))
+        if cfg.num_layers % cfg.period:
+            raise ValueError(f"{cfg.num_layers} layers are not whole "
+                             f"periods of {cfg.period}")
+        n_periods = cfg.num_layers // cfg.period
+    else:
+        subs = [SubDef("attn_gqa", A.make_gqa(cfg), *ffn_for(True))]
+        n_periods = cfg.num_layers
     embed = make_site(cfg, "embed", cfg.vocab_size, cfg.d_model)
     head = make_site(cfg, "head", cfg.vocab_size, cfg.d_model)
-    return LMDef(cfg, embed, head, (sub,), cfg.num_layers)
+    return LMDef(cfg, embed, head, tuple(subs), n_periods)
 
 
 def _init_sub(gen: torch.Generator, sub: SubDef, cfg: ModelConfig,
               device: torch.device) -> dict:
     ones = torch.ones((cfg.d_model,), dtype=torch.float32, device=device)
-    return {"norm1": {"scale": ones.clone()},
-            "mixer": A.init_gqa(gen, sub.mixer, cfg, device),
-            "norm2": {"scale": ones.clone()},
-            "ffn": F.init_ffn(gen, sub.ffn, cfg, device)}
+    p = {"norm1": {"scale": ones.clone()}}
+    if sub.mixer_kind == "attn_gqa":
+        p["mixer"] = A.init_gqa(gen, sub.mixer, cfg, device)
+    elif sub.mixer_kind == "mamba":
+        p["mixer"] = S.init_mamba(gen, sub.mixer, cfg, device)
+    else:
+        p["mixer"] = S.init_rwkv6(gen, sub.mixer, cfg, device)
+        p["norm2"] = {"scale": ones.clone()}
+        return p
+    if sub.ffn_kind is not None:
+        p["norm2"] = {"scale": ones.clone()}
+        p["ffn"] = F.init_ffn(gen, sub.ffn, cfg, device)
+    return p
 
 
 def init_lm(gen: torch.Generator, lm: LMDef, device=None) -> dict:
@@ -140,17 +177,29 @@ def tt_embed_lookup(eparams: dict, tokens: torch.Tensor, site: SiteDef,
 
 def _sub_forward(pp: dict, x: torch.Tensor, sub: SubDef, cfg: ModelConfig,
                  positions: torch.Tensor, return_cache: bool):
-    """One sublayer (attention + FFN). Returns (x, cache_entry)."""
+    """One sublayer (mixer + FFN). Returns (x, cache_entry): K/V for
+    attention, the post-sequence recurrent state for mamba and rwkv6."""
     h = rms_norm(x, pp["norm1"]["scale"], cfg.norm_eps)
-    q, k, v = A.gqa_qkv(pp["mixer"], h, sub.mixer, cfg, positions)
-    out = A.chunked_attention(q, k, v, causal=not cfg.is_encoder)
-    b, s = h.shape[:2]
-    if sub.mixer.real_heads != sub.mixer.num_heads:
-        out = out[:, :, :sub.mixer.real_heads]
-    x = x + apply_site(pp["mixer"]["o"], out.reshape(b, s, -1), sub.mixer.o,
-                       cfg)
-    return sub_ffn_decode(pp, x, sub, cfg), ({"k": k, "v": v}
-                                             if return_cache else {})
+    if sub.mixer_kind == "attn_gqa":
+        q, k, v = A.gqa_qkv(pp["mixer"], h, sub.mixer, cfg, positions)
+        out = A.chunked_attention(q, k, v, causal=not cfg.is_encoder)
+        b, s = h.shape[:2]
+        if sub.mixer.real_heads != sub.mixer.num_heads:
+            out = out[:, :, :sub.mixer.real_heads]
+        out = apply_site(pp["mixer"]["o"], out.reshape(b, s, -1),
+                         sub.mixer.o, cfg)
+        cache = {"k": k, "v": v}
+    elif sub.mixer_kind == "mamba":
+        out, cache = S.mamba_forward(pp["mixer"], h, sub.mixer, cfg, None)
+    else:
+        out, st = S.rwkv6_time_mix(pp["mixer"], h, sub.mixer, cfg, None)
+        x = x + out
+        h2 = rms_norm(x, pp["norm2"]["scale"], cfg.norm_eps)
+        out2, st2 = S.rwkv6_channel_mix(pp["mixer"], h2, sub.mixer, cfg,
+                                        None)
+        return x + out2, ({**st, **st2} if return_cache else {})
+    return (sub_ffn_decode(pp, x + out, sub, cfg),
+            cache if return_cache else {})
 
 
 def _act_quant_edge(x: torch.Tensor, scales: dict,
@@ -189,9 +238,11 @@ def _remat_wrap(fn, cfg: ModelConfig):
 def lm_forward(params: dict, lm: LMDef, *, tokens: torch.Tensor,
                return_cache: bool = False, scales: dict | None = None):
     """Train/prefill forward. tokens: (B, S) int. Returns (logits, aux,
-    cache): aux is 0 (no MoE in this slice); cache (when asked) is
-    ``{"sub_i": {"k", "v"}}`` with leaves stacked over layers,
-    (L, B, S, Hkv, Dh), the reference's layout.
+    cache): aux is 0 (no MoE in this slice); cache (when asked) holds each
+    sublayer's entry with leaves stacked over periods, the reference's
+    layout: ``{"k", "v"}`` (L, B, S, Hkv, Dh) for attention, the state
+    after the last token for mamba (``conv``, ``h``) and rwkv6
+    (``shift``, ``wkv``, ``shift_ffn``).
 
     ``scales``: the policy's managed scale-state tree
     (``TrainState.scales``). With it (and ``cfg.quant.enable``) the
@@ -254,8 +305,81 @@ def sub_ffn_decode(pp: dict, x: torch.Tensor, sub: SubDef,
 
 
 # ---------------------------------------------------------------------------
+# Static decode: one token a step against a carried cache
+# ---------------------------------------------------------------------------
+
+def _sub_decode(pp: dict, x: torch.Tensor, cc: dict, sub: SubDef,
+                cfg: ModelConfig, cur_len):
+    h = rms_norm(x, pp["norm1"]["scale"], cfg.norm_eps)
+    if sub.mixer_kind == "attn_gqa":
+        out, cnew = A.gqa_decode(pp["mixer"], h, cc, sub.mixer, cfg, cur_len)
+    elif sub.mixer_kind == "mamba":
+        out, cnew = S.mamba_forward(pp["mixer"], h, sub.mixer, cfg, cc)
+    else:
+        out, st = S.rwkv6_time_mix(pp["mixer"], h, sub.mixer, cfg, cc)
+        x = x + out
+        h2 = rms_norm(x, pp["norm2"]["scale"], cfg.norm_eps)
+        out2, st2 = S.rwkv6_channel_mix(pp["mixer"], h2, sub.mixer, cfg, cc)
+        return x + out2, {**st, **st2}
+    return sub_ffn_decode(pp, x + out, sub, cfg), cnew
+
+
+def lm_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
+                   cur_len, lm: LMDef):
+    """One-token decode. tokens: (B,1). cache leaves stacked over periods
+    (``lm_init_cache``, or ``lm_forward``'s with attention leaves padded
+    to the horizon). ``cur_len``: a shared position (int or 0-d tensor),
+    or a per-slot (B,) vector, each row appending and attending at its
+    own length. Returns (logits, new_cache); the old cache is unchanged."""
+    cfg = lm.cfg
+    x = embed_tokens(params, tokens, lm)
+    layers = []
+    for l, pp in enumerate(params["layers"]):
+        new_cc = {}
+        for i, sub in enumerate(lm.period):
+            key = f"sub_{i}"
+            cc = {n: t[l] for n, t in cache[key].items()}
+            x, new_cc[key] = _sub_decode(pp[key], x, cc, sub, cfg, cur_len)
+        layers.append(new_cc)
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    logits = apply_site(params["head"], x, lm.head, cfg)
+    new_cache = {key: {n: torch.stack([c[key][n] for c in layers])
+                       for n in cache[key]} for key in cache}
+    return logits, new_cache
+
+
+def lm_init_cache(lm: LMDef, batch: int, max_len: int, device=None) -> dict:
+    """A zero decode cache: per sublayer, K/V over ``max_len`` positions or
+    the recurrent state, stacked over periods. ``device`` defaults to
+    ``"cuda"`` (raises without a card unless ``device="cpu"``)."""
+    device = resolve_device(device)
+    cfg = lm.cfg
+    dtype = torch_dtype(cfg.dtype)
+
+    def one_sub(sub: SubDef) -> dict:
+        if sub.mixer_kind == "attn_gqa":
+            return A.gqa_init_cache(sub.mixer, batch, max_len, dtype, device)
+        if sub.mixer_kind == "mamba":
+            return S.mamba_init_state(sub.mixer, batch, dtype, device)
+        return S.rwkv6_init_state(sub.mixer, batch, cfg.d_model, dtype,
+                                  device)
+
+    return {f"sub_{i}": {n: a[None].repeat((lm.n_periods,) + (1,) * a.dim())
+                         for n, a in one_sub(sub).items()}
+            for i, sub in enumerate(lm.period)}
+
+
+# ---------------------------------------------------------------------------
 # TT-site walking (prior loss, λ update, param counting)
 # ---------------------------------------------------------------------------
+
+_MIXER_SITES = {
+    "attn_gqa": ("q", "kv", "o"),
+    "mamba": ("in_proj", "x_proj", "dt_proj", "out_proj"),
+    "rwkv6": ("r", "k", "v", "g", "o", "w_lora_a", "w_lora_b", "ffn_k",
+              "ffn_v", "ffn_r"),
+}
+
 
 def _walk_sites(lm: LMDef):
     """Yield (path in the reference's stacked tree, SiteDef) for every
@@ -263,10 +387,11 @@ def _walk_sites(lm: LMDef):
     yield ("embed",), lm.embed
     for i, sub in enumerate(lm.period):
         base = ("layers", f"sub_{i}")
-        for n in ("q", "kv", "o"):
+        for n in _MIXER_SITES[sub.mixer_kind]:
             yield base + ("mixer", n), getattr(sub.mixer, n)
-        for n in ("gate", "up", "down"):
-            yield base + ("ffn", n), getattr(sub.ffn, n)
+        if sub.ffn_kind == "ffn":
+            for n in ("gate", "up", "down"):
+                yield base + ("ffn", n), getattr(sub.ffn, n)
     yield ("head",), lm.head
 
 

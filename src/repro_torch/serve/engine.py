@@ -1,5 +1,6 @@
 """Continuous-batching inference engine — the port of
-``repro/serve/engine.py`` for dense GQA models.
+``repro/serve/engine.py`` for dense GQA models, pure-SSM RWKV6 and the
+Jamba hybrid (Mamba and attention, dense FFNs).
 
 Requests occupy *slots* of a ``num_slots``-lane decode batch, each at its
 own length; a retired slot (max-new-tokens or EOS) frees its pages and is
@@ -33,6 +34,22 @@ copies a partly matched page (COW) and computes only the suffix through
 the chunk step — exactly what a cache-off engine with a chunk boundary at
 the resume position computes.
 
+Sublayer routing: attention sublayers read and write the paged KV pool;
+mamba and rwkv6 sublayers the slot-indexed recurrent-state pool
+(``serve/state_cache.py``), through the forwards of ``models/ssm.py``
+that static decode runs (at S = 1 for the decode step). A decode
+step reads each such layer's state for every slot (one ``p2_dec_rows``
+launch a state tensor on an int8 pool), advances it one token and writes
+the active slots back (one ``p2_enc_rows``); a chunk step reads and
+writes the one slot's (``p2_dec`` / ``p2_enc``); a whole-prompt prefill
+writes every layer's at once (one ``p2_enc_rows`` a tensor, ``p2_enc``
+when the stack is one period deep). A stateful arch resets the slot's
+state on admission, prefills exact-length (no bucket pad, no padded
+chunk: a pad token would enter the recurrence), takes no prefix cache,
+and a pure-SSM arch runs the scheduler unpaged. Speculative decoding
+needs an attention-only target and draft (a state advanced through a
+rejected token cannot roll back).
+
 Numerics: float32 matmuls stay float32 on the card — the engine sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (and cuDNN's) where it
 is built, so the fp32 fused-vs-gather identity holds as in the reference.
@@ -42,8 +59,8 @@ there is no compiled-step cache.
 Not carried over: the reference's ``CompileCache`` / ``max_prefill_shapes``
 (they bound live jitted prefill shapes; eager PyTorch compiles none).
 Still to port (they raise ``NotImplementedError`` naming what they wait
-for): recurrent/MoE/MLA sublayers (at ``build_lm``), a mesh, quant-health
-policies and trace recorders.
+for): MoE/MLA sublayers (at ``build_lm``), a mesh, quant-health policies
+and trace recorders.
 """
 from __future__ import annotations
 
@@ -57,9 +74,12 @@ import torch
 
 from ..device import resolve_device
 from ..models import attention as A
+from ..models import ssm as S
 from ..models.common import apply_site, rms_norm
-from ..models.lm import LMDef, embed_tokens, lm_forward, sub_ffn_decode
+from ..models.lm import (STATE_MIXERS, LMDef, embed_tokens, lm_forward,
+                         sub_ffn_decode)
 from . import kv_cache as KC
+from . import state_cache as SC
 from .kv_cache import PoolConfig
 from .metrics import ServeMetrics
 from .prefix import RadixPrefixCache
@@ -89,16 +109,22 @@ class EngineConfig:
                                 # proposed per step (0: off); needs
                                 # Engine(..., draft=(lm, params))
     policy: object = None       # NumericsPolicy: its kv_cache site
-                                # overrides the pool's quantized/bits
+                                # overrides the pool's quantized/bits, its
+                                # ssm_state site the state pool's
 
 
 def _check_draft(lm: LMDef, draft) -> None:
-    """What speculative decoding needs of its draft (the reference's
-    checks): one given, attention-only (a recurrent state advanced through
-    a rejected token cannot roll back), over the target's vocabulary."""
+    """What speculative decoding needs (the reference's checks): a draft
+    given, an attention-only target and draft (a recurrent state advanced
+    through a rejected token cannot roll back), one vocabulary."""
     if draft is None:
         raise ValueError("spec_k > 0 needs a draft model: "
                          "Engine(..., draft=(draft_lm, draft_params))")
+    if any(sub.mixer_kind in STATE_MIXERS for sub in lm.period):
+        raise NotImplementedError(
+            "speculative decoding needs an attention-only TARGET: recurrent "
+            "state advanced through a rejected draft token cannot be "
+            "rolled back")
     dlm = draft[0]
     for sub in dlm.period:
         if sub.mixer_kind != "attn_gqa":
@@ -156,26 +182,50 @@ class Engine:
         self.lm = lm
         self.params = params
         self.ecfg = ecfg
+        # per-sublayer routing: attention -> paged KV pool, mamba/rwkv6 ->
+        # slot-indexed recurrent-state pool
+        self._attn_keys = tuple(f"sub_{i}" for i, sub in enumerate(lm.period)
+                                if sub.mixer_kind not in STATE_MIXERS)
+        self._state_keys = tuple(f"sub_{i}" for i, sub in enumerate(lm.period)
+                                 if sub.mixer_kind in STATE_MIXERS)
         pcfg = ecfg.pool
+        squant, sbits = pcfg.quantized, pcfg.bits
         if ecfg.policy is not None:
             # one owner for the system's numerics: the policy's kv_cache
-            # site (the port has no recurrent sublayers, so no ssm_state)
+            # site sets the KV pool's, its ssm_state site the state pool's
             pcfg = dataclasses.replace(
                 pcfg, quantized=ecfg.policy.enable,
                 bits=ecfg.policy.spec_for("kv_cache").bits)
+            if self._state_keys:
+                ss = ecfg.policy.spec_for("ssm_state")
+                if (ss.kind, ss.storage_dtype) != ("pow2", "int8"):
+                    raise NotImplementedError(
+                        "the state cache stores pow2 int8 codes only; the "
+                        f"ssm_state site asks for {ss.kind}/"
+                        f"{ss.storage_dtype}")
+                squant, sbits = ecfg.policy.enable, ss.bits
         self.pcfg = pcfg
+        self.scfg = SC.StateCacheConfig(quantized=squant, bits=sbits)
         self.pool = KC.init_pool(lm, self.pcfg, self.device)
-        # prefix sharing needs per-token paged memory, i.e. an attention-
-        # only arch: every arch init_pool takes (recurrent mixers raise)
+        self.spool = SC.init_state_pool(lm, self.pcfg.num_slots, self.scfg,
+                                        self.device)
+        # prefix sharing needs per-token paged memory: attention-only archs
+        # opt in; a recurrent sublayer sends every request down the full
+        # prefill (the cache is simply absent)
         self._prefix = (RadixPrefixCache(self.pcfg.page_size,
                                          self.pcfg.total_pages)
-                        if ecfg.prefix_cache else None)
+                        if (ecfg.prefix_cache and not self._state_keys)
+                        else None)
+        # pure-SSM archs have no token-paged memory: admission is slot-only
         self.sched = Scheduler(self.pcfg, ecfg.prefill_chunk,
-                               prefix=self._prefix)
+                               prefix=self._prefix,
+                               paged=bool(self._attn_keys))
         self.metrics = ServeMetrics(clock=clock)
         self.metrics.num_slots = self.pcfg.num_slots
         self.metrics.cache_bytes = KC.pool_bytes(self.pool)
         self.metrics.cache_bytes_fp32 = KC.pool_bytes_fp32(self.pool)
+        self.metrics.state_bytes = SC.pool_bytes(self.spool)
+        self.metrics.state_bytes_fp32 = SC.pool_bytes_fp32(self.spool)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(ecfg.seed)
         self._completions: dict[int, Completion] = {}
@@ -240,11 +290,53 @@ class Engine:
             tokens.shape[1], dtype=lens.dtype, device=lens.device)
         for layer, pp in enumerate(params["layers"]):
             for i, sub in enumerate(lm.period):
+                if sub.mixer_kind in STATE_MIXERS:
+                    # the target's decode step only: spec (S > 1, and the
+                    # draft) is attention-only
+                    x = self._sub_decode_state(pp[f"sub_{i}"], x, layer,
+                                               f"sub_{i}", sub, active)
+                    continue
                 x = self._sub_block(lm, pool, pcfg, fused, pp[f"sub_{i}"], x,
                                     layer, f"sub_{i}", sub, table, lens,
                                     active, positions)
         x = rms_norm(x, params["final_norm"]["scale"], lm.cfg.norm_eps)
         return apply_site(params["head"], x, lm.head, lm.cfg)
+
+    def _state_mix(self, pp: dict, x: torch.Tensor, sub, state: dict):
+        """One recurrent sublayer from ``state``, through the forwards that
+        static decode runs (the decode step at S = 1, the chunk step over
+        the chunk). Returns (x, new state)."""
+        cfg = self.lm.cfg
+        h = rms_norm(x, pp["norm1"]["scale"], cfg.norm_eps)
+        if sub.mixer_kind == "mamba":
+            out, new_state = S.mamba_forward(pp["mixer"], h, sub.mixer, cfg,
+                                             state)
+            return sub_ffn_decode(pp, x + out, sub, cfg), new_state
+        # rwkv6: time mix and channel mix are the whole sublayer
+        out, st1 = S.rwkv6_time_mix(pp["mixer"], h, sub.mixer, cfg, state)
+        x = x + out
+        h2 = rms_norm(x, pp["norm2"]["scale"], cfg.norm_eps)
+        out2, st2 = S.rwkv6_channel_mix(pp["mixer"], h2, sub.mixer, cfg,
+                                        state)
+        return x + out2, {**st1, **st2}
+
+    def _sub_decode_state(self, pp: dict, x: torch.Tensor, layer: int,
+                          key: str, sub, active) -> torch.Tensor:
+        """One recurrent sublayer of the decode step: decode every slot's
+        state, advance one token through the mixer's forward, encode the
+        active lanes back (inactive lanes keep their
+        codes and scale)."""
+        cfg = self.lm.cfg
+        shapes = SC.state_feature_shapes(sub, cfg)
+        data = {n: t[layer] for n, t in self.spool["data"][key].items()}
+        scale = {n: t[layer] for n, t in self.spool["scale_log2"][key].items()}
+        state = {n: SC.read_layer(data[n], scale[n],
+                                  SC.natural_dtype(kind, cfg), self.scfg)
+                 for n, (_, kind) in shapes.items()}
+        x, new_state = self._state_mix(pp, x, sub, state)
+        for n in shapes:
+            SC.write_layer(data[n], scale[n], new_state[n], active, self.scfg)
+        return x
 
     @torch.no_grad()
     def _decode(self, table, lens, active, tokens) -> torch.Tensor:
@@ -320,17 +412,27 @@ class Engine:
     def _prefill(self, toks: list[int], table_row: torch.Tensor,
                  slot: int) -> torch.Tensor:
         """A first chunk at position 0: the model's own forward, then one
-        write of its cache into the pool (which chooses the slot's scales;
-        one ``p2_prefill_paged`` launch on a quantized pool). Returns the
-        last real position's logits (1, V)."""
-        padded = toks + [0] * (_bucket_len(len(toks), self.ecfg.prefill_bucket)
-                               - len(toks))
+        write of its cache into each pool: the attention sublayers' K/V
+        into the paged pool (which chooses the slot's scales; one
+        ``p2_prefill_paged`` launch on a quantized pool), the recurrent
+        sublayers' post-prompt state into the slot of the state pool (one
+        encode launch a state tensor on an int8 pool). A stateful arch
+        runs exact-length. Returns the last real position's logits (1, V)."""
+        bucket = 0 if self._state_keys else self.ecfg.prefill_bucket
+        padded = toks + [0] * (_bucket_len(len(toks), bucket) - len(toks))
         logits, _, cache = lm_forward(
             self.params, self.lm, tokens=self._tensor([padded], torch.long),
             return_cache=True)
-        # the prompt's length on the device: the write reads it there
-        KC.write_prefill(self.pool, cache, table_row, slot,
-                         self._tensor([len(toks)], torch.int32), self.pcfg)
+        if self._attn_keys:
+            # the prompt's length on the device: the write reads it there
+            KC.write_prefill(self.pool, {k: cache[k] for k in self._attn_keys},
+                             table_row, slot,
+                             self._tensor([len(toks)], torch.int32),
+                             self.pcfg)
+        if self._state_keys:
+            SC.write_prefill(self.spool,
+                             {k: cache[k] for k in self._state_keys}, slot,
+                             self.scfg)
         return logits[0, len(toks) - 1][None]
 
     def _sub_chunk(self, pp: dict, x: torch.Tensor, layer: int, key: str,
@@ -351,20 +453,43 @@ class Engine:
         x = x + apply_site(pp["mixer"]["o"], attn, d.o, cfg)
         return sub_ffn_decode(pp, x, sub, cfg)
 
+    def _sub_chunk_state(self, pp: dict, x: torch.Tensor, layer: int,
+                         key: str, sub, slot: int) -> torch.Tensor:
+        """One recurrent sublayer of the chunk step: decode the slot's state
+        (one ``p2_dec`` launch a tensor on an int8 pool: a one-element
+        scale), scan the chunk from it, encode the end-of-chunk state back
+        (one ``p2_enc`` a tensor)."""
+        cfg = self.lm.cfg
+        shapes = SC.state_feature_shapes(sub, cfg)
+        data = {n: t[layer] for n, t in self.spool["data"][key].items()}
+        scale = {n: t[layer] for n, t in self.spool["scale_log2"][key].items()}
+        state = {n: SC.read_layer(data[n][slot][None], scale[n][slot][None],
+                                  SC.natural_dtype(kind, cfg), self.scfg)
+                 for n, (_, kind) in shapes.items()}
+        x, new_state = self._state_mix(pp, x, sub, state)
+        for n in shapes:
+            SC.write_slot(data[n], scale[n], new_state[n][0], slot, self.scfg)
+        return x
+
     @torch.no_grad()
     def _chunk(self, toks: list[int], table_row: torch.Tensor, slot: int,
                start: int) -> torch.Tensor:
         """Chunked-prefill step of one slot (the reference's
-        ``_chunk_impl`` for GQA sublayers): each layer writes the chunk's
-        K/V into the pool under the slot's scale and attends over the
-        slot's whole history, read off the pages (not the fused kernel, as
-        in the reference). ``toks`` is padded to the chunk width (or the
-        bucketed length when chunking is off); pad rows go to the trash
-        page. The slot's scales stay on the device, as (1,) views.
-        Returns the last real position's logits (1, V)."""
+        ``_chunk_impl``): each attention layer writes the chunk's K/V into
+        the pool under the slot's scale and attends over the slot's whole
+        history, read off the pages (not the fused kernel, as in the
+        reference); each recurrent layer scans the chunk from the slot's
+        carried state and writes the end-of-chunk state back. ``toks`` is
+        padded to the chunk width (or the bucketed length when chunking is
+        off), except on a stateful arch; pad rows go to the trash page.
+        The slot's scales stay on the device, as (1,) views. Returns the
+        last real position's logits (1, V)."""
         lm, ecfg = self.lm, self.ecfg
-        width = (ecfg.prefill_chunk if ecfg.prefill_chunk > 0
-                 else _bucket_len(len(toks), ecfg.prefill_bucket))
+        if self._state_keys:
+            width = len(toks)
+        else:
+            width = (ecfg.prefill_chunk if ecfg.prefill_chunk > 0
+                     else _bucket_len(len(toks), ecfg.prefill_bucket))
         tokens = self._tensor([toks + [0] * (width - len(toks))], torch.long)
         positions = (start + torch.arange(width, device=self.device))[None]
         # the chunk's (1,) start and valid count, on the device once a step
@@ -372,6 +497,10 @@ class Engine:
         x = embed_tokens(self.params, tokens, lm)
         for layer, pp in enumerate(self.params["layers"]):
             for i, sub in enumerate(lm.period):
+                if sub.mixer_kind in STATE_MIXERS:
+                    x = self._sub_chunk_state(pp[f"sub_{i}"], x, layer,
+                                              f"sub_{i}", sub, slot)
+                    continue
                 x = self._sub_chunk(pp[f"sub_{i}"], x, layer, f"sub_{i}", sub,
                                     table_row[None], slot, start_t, valid_t,
                                     positions)
@@ -388,6 +517,11 @@ class Engine:
         the prefix tree."""
         plen, resume = st.prompt_len, st.prefix_len
         table_row = self._tensor(self.sched.page_table[slot])
+        if self._state_keys:
+            # reset-on-admit: the slot may hold a retired or preempted
+            # request's state (the first chunk overwrites every tensor
+            # anyway; this is hygiene against partial writes)
+            SC.reset_slot(self.spool, slot)
         if resume > 0:
             if self.pcfg.quantized and st.prefix_scales is not None:
                 KC.adopt_scales(self.pool, slot, st.prefix_scales)
@@ -530,7 +664,7 @@ class Engine:
                               self._tensor(sched.active_mask()),
                               self._tensor(sched.tokens_vector()))
         toks = self._sample(logits, list(range(self.pcfg.num_slots)))
-        free_pages = sched.alloc.free_pages
+        free_pages = sched.alloc.free_pages if sched.paged else None
         for slot in active_slots:
             st = sched.slots[slot]
             st.generated.append(int(toks[slot]))

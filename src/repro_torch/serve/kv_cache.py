@@ -85,18 +85,24 @@ class PoolConfig:
 
 def kv_feature_shapes(sub) -> dict[str, tuple[int, ...]]:
     """Per-token trailing feature shape of each cached tensor of a
-    sublayer. GQA only in this slice."""
+    sublayer. Recurrent mixers (mamba, rwkv6) cache no per-token tensors
+    (their O(1) state lives in ``state_cache``'s pool), so they map to {};
+    MLA is a later slice."""
     if sub.mixer_kind == "attn_gqa":
         d = sub.mixer
         return {"k": (d.num_kv_heads, d.head_dim),
                 "v": (d.num_kv_heads, d.head_dim)}
+    if sub.mixer_kind in ("mamba", "rwkv6"):
+        return {}
     raise NotImplementedError(f"{sub.mixer_kind!r} sublayers are a later "
                               "slice of the port")
 
 
 def init_pool(lm, pcfg: PoolConfig, device: torch.device) -> dict:
     """Allocate the pool: {"data": {sub_i: {name: (L, P+1, page, *feat)
-    int8|dtype}}, "scale_log2": {sub_i: {name: (L, num_slots) f32}}}."""
+    int8|dtype}}, "scale_log2": {sub_i: {name: (L, num_slots) f32}}}.
+    Recurrent sublayers get empty dicts (their state lives in
+    ``state_cache``'s pool, keyed alike)."""
     store = torch.int8 if pcfg.quantized else torch_dtype(lm.cfg.dtype)
     L = lm.n_periods
     data, scale = {}, {}

@@ -1,7 +1,7 @@
 """Serving telemetry — the port of ``repro/serve/metrics.py`` trimmed to
 the port's serving path: throughput, time-to-first-token (split into queue
 wait and compute), request latency percentiles, batch fill, cache-pool
-bytes, the prefix-cache counters and the speculative-decoding counters.
+bytes and recurrent-state pool bytes, the prefix-cache counters and the speculative-decoding counters.
 The clock is injectable for deterministic tests; host-side only."""
 from __future__ import annotations
 
@@ -56,6 +56,8 @@ class ServeMetrics:
     num_slots: int = 0          # pool width (set by the engine)
     cache_bytes: int = 0        # resident KV pool bytes (set by the engine)
     cache_bytes_fp32: int = 0   # what the same pool would cost unquantized
+    state_bytes: int = 0        # resident recurrent-state pool bytes
+    state_bytes_fp32: int = 0   # fp32 cost of the same state pool
     _free_min: int | None = None
 
     def _timing(self, rid: int) -> _ReqTiming:
@@ -87,11 +89,14 @@ class ServeMetrics:
         t.gen_len = gen_len
         self._t_end = t.finished
 
-    def decode_step(self, n_active: int, free_pages: int) -> None:
+    def decode_step(self, n_active: int, free_pages: int | None) -> None:
+        """One decode step of ``n_active`` slots; ``free_pages`` is None
+        for an unpaged (pure-SSM) engine."""
         self.decode_steps += 1
         self.decode_tokens += n_active
-        self._free_min = free_pages if self._free_min is None \
-            else min(self._free_min, free_pages)
+        if free_pages is not None:
+            self._free_min = free_pages if self._free_min is None \
+                else min(self._free_min, free_pages)
 
     def prefill(self, n_tokens: int, computed: int | None = None) -> None:
         """One request prefilled: ``n_tokens`` prompt positions, of which
@@ -170,6 +175,10 @@ class ServeMetrics:
             "cache_bytes_fp32": self.cache_bytes_fp32,
             "cache_reduction": (self.cache_bytes_fp32 / self.cache_bytes
                                 if self.cache_bytes else 0.0),
+            "state_bytes": self.state_bytes,
+            "state_bytes_fp32": self.state_bytes_fp32,
+            "state_reduction": (self.state_bytes_fp32 / self.state_bytes
+                                if self.state_bytes else 0.0),
             # acceptance over proposed draft tokens, and tokens emitted per
             # verified slot-step
             "spec": {

@@ -1,6 +1,5 @@
 """Host-side continuous-batching scheduler — the port of
-``repro/serve/scheduler.py`` without the unpaged pure-SSM mode. Plain
-Python and numpy.
+``repro/serve/scheduler.py``. Plain Python and numpy.
 
 - **Admission**: FIFO queue; a request is admitted when a slot is free and
   the pool can page its prompt plus one decode page. With a prefix cache
@@ -17,6 +16,12 @@ Python and numpy.
   writes (one token for decode, a k+1-token verify block for speculative
   decoding); ``trim_unused`` frees the private pages a rejected tail left
   mapped after it.
+- **Unpaged** (``paged=False``, pure-SSM archs: every mixer carries O(1)
+  recurrent state and nothing token-paged lives in the pool): admission
+  needs only a free slot, with no page reservation and no bound on prompt
+  plus new tokens; spans are always mapped. Preemption still works: the
+  request re-queues with its generated prefix and its state is rebuilt by
+  re-prefill.
 """
 from __future__ import annotations
 
@@ -92,10 +97,13 @@ class Scheduler:
     """Slot/page bookkeeping for one engine. All state is host-side."""
 
     def __init__(self, pcfg: PoolConfig, prefill_chunk: int = 0,
-                 prefix=None):
+                 prefix=None, paged: bool = True):
         self.pcfg = pcfg
         self.prefill_chunk = prefill_chunk
+        self.paged = paged
         self.prefix = prefix    # optional serve.prefix.RadixPrefixCache
+        if prefix is not None and not paged:
+            raise ValueError("prefix cache requires the paged pool")
         self.queue: deque[Request] = deque()
         self.slots: list[SlotState | None] = [None] * pcfg.num_slots
         self.alloc = PageAllocator(pcfg.total_pages)
@@ -117,6 +125,9 @@ class Scheduler:
         if req.max_new_tokens < 1:
             raise ValueError(f"request {req.rid}: max_new_tokens must be "
                              f">= 1 (the first token comes from prefill)")
+        if not self.paged:
+            # recurrent state is O(1): no page capacity to bound against
+            return self._enqueue(req)
         if len(req.prompt) + req.max_new_tokens > self.pcfg.max_len:
             raise ValueError(
                 f"request {req.rid}: prompt+max_new_tokens "
@@ -127,6 +138,9 @@ class Scheduler:
             raise ValueError(
                 f"request {req.rid}: horizon needs {need} pages but the "
                 f"pool has {self.pcfg.total_pages}")
+        return self._enqueue(req)
+
+    def _enqueue(self, req: Request) -> int:
         if req.rid < 0:
             req.rid = self._next_rid
             self._next_rid += 1
@@ -162,24 +176,27 @@ class Scheduler:
         req = self.queue[0]
         shared: list[int] = []
         refs: list[int] = []
+        pages: list[int] = []
         m = self.prefix.match(req.prompt) if self.prefix is not None else None
         if m is not None:
             self.prefix.acquire(m)
             shared = list(m.shared_pages)
             refs = shared + ([m.fork_src] if m.fork_src is not None else [])
-        pages = self.alloc_pages(self.pcfg.pages_for(len(req.prompt) + 1)
-                                 - len(shared))
-        if pages is None:
-            if refs:
-                self.prefix.release(refs)
-            return None
+        if self.paged:
+            pages = self.alloc_pages(self.pcfg.pages_for(len(req.prompt) + 1)
+                                     - len(shared))
+            if pages is None:
+                if refs:
+                    self.prefix.release(refs)
+                return None
         self.queue.popleft()
         slot = free_slots[0]
         self.slot_pages[slot] = pages
         self.slot_shared[slot] = shared
         self.slot_refs[slot] = refs
         row = shared + pages
-        self.page_table[slot, :len(row)] = row
+        if row:
+            self.page_table[slot, :len(row)] = row
         st = SlotState(req, prompt_len=len(req.prompt))
         if m is not None:
             st.prefix_len = m.resume
@@ -225,7 +242,10 @@ class Scheduler:
         the incoming decode token at n = 1, the speculative verify block
         at n = k+1. Positions at or past the slot's horizon are clamped:
         their writes go to the trash page and need no mapping. Returns
-        False when the pool is exhausted (caller should preempt)."""
+        False when the pool is exhausted (caller should preempt). An
+        unpaged scheduler maps nothing and never runs out."""
+        if not self.paged:
+            return True
         st = self.slots[slot]
         ps = self.pcfg.page_size
         last = min(st.next_pos + n - 1, self.pcfg.max_len - 1)
@@ -246,6 +266,8 @@ class Scheduler:
         above the slot's length and is never read). Shared prefix pages
         are never trimmed; freed table entries point at the trash page
         again. Returns the count freed."""
+        if not self.paged:
+            return 0
         st = self.slots[slot]
         keep = st.next_pos // self.pcfg.page_size + 1
         n_shared = len(self.slot_shared[slot])

@@ -149,10 +149,19 @@ def test_gqa_attend_matches_jax():
 
 
 def test_out_of_slice_families_raise():
-    for arch in ("deepseek-v2-236b", "rwkv6-1.6b", "jamba-1.5-large",
-                 "moonshot-v1-16b"):
+    for arch in ("deepseek-v2-236b", "jamba-1.5-large", "moonshot-v1-16b"):
         with pytest.raises(NotImplementedError):
             t_build(TC.get_reduced(arch))
+    # jamba's experts wait for the MoE slice; its Mamba layers and rwkv6
+    # build (tests/test_torch_ssm.py holds them to the reference)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        t_build(TC.get_config("jamba-1.5-large"))
+    from repro_torch.configs.base import MoEConfig
+    for arch, over in (("rwkv6-1.6b", {}),
+                       ("jamba-1.5-large", {"moe": MoEConfig(num_experts=0)})):
+        for cfg in (TC.get_reduced(arch), TC.get_config(arch)):
+            lm = t_build(cfg.replace(**over))
+            assert lm.n_periods * len(lm.period) == cfg.num_layers
     # TT sites are ported (every projection TT here); remat="dots" is not
     cfg = TC.with_tt(TC.get_reduced(ARCH).replace(dtype="float32"))
     lm = t_build(cfg.replace(tt=cfg.tt.__class__(enable=True,
