@@ -55,6 +55,18 @@ Phases (any failure raises and the script exits non-zero):
              24-layer prefill write, p2_enc and p2_dec at the chunk step's
              one slot; each timed beside its plain version, its bound and
              a library call.
+   state group — the decode step's two state launches at rwkv6-1.6b's
+             pool (24 layers x shift, wkv, shift_ffn; 8 slots) and
+             jamba's period (7 Mamba layers x conv, h): st_dec_group and
+             st_enc_group bit for bit with their plain twins and with the
+             per-layer route they replaced (read_layer / write_layer:
+             p2_dec_rows, the scale's eager ops, p2_enc_rows, the masked
+             copies), codes, scales and values, an inactive slot left
+             untouched, maxima at 127 * 2^k and their f32 / bf16
+             neighbours and an all-zero row; one launch each way (the
+             plan's count); each timed beside the per-layer route
+             (``previous_ms``), its plain twin and its byte bound, the
+             encode also re-reading its values (``reread_ms``).
    train kernels — the training kernels at the step's shapes: the scalar
              fake-quant bit-exact at 4/8/16 bits in f32 and bf16, each
              layer's cores in one grouped fake-quant launch (layer 1's 4,
@@ -137,19 +149,22 @@ Phases (any failure raises and the script exits non-zero):
              engine phase's lengths (128..512 tokens, 64 new, 8 slots)
              from an int8 state pool, an fp pool and, chunked (128), the
              int8 pool; counts zeroed just before and read just after
-             each run, exact: 72 p2_dec_rows + 72 p2_enc_rows a decode
-             step (24 layers x 3 state tensors), 3 p2_enc_rows a
-             whole-prompt prefill, 72 p2_dec + 72 p2_enc a chunk step, no
-             kernel on the fp pool; no KV kernel, cache_bytes 0, every
-             slot free at the end, state_reduction >= 3.5; the int8-vs-fp
-             greedy agreement (bf16) reported; the decode step, a
-             512-token prefill and a chunk step timed and profiled, the
-             codec kernels asserted by name.
+             each run, exact: 1 st_dec_group + 1 st_enc_group a decode
+             step (the plans' counts; no p2_dec_rows or p2_enc_rows), 3
+             p2_enc_rows a whole-prompt prefill, 72 p2_dec + 72 p2_enc a
+             chunk step, no kernel on the fp pool; no KV kernel,
+             cache_bytes 0, every slot free at the end, state_reduction
+             >= 3.5; a replay of 3 int8 decode steps (7 of 8 slots busy)
+             through the engine and again, from the same pool, through
+             the per-layer route: logits and every pool byte equal; the
+             int8-vs-fp greedy agreement (bf16) reported; the decode
+             step, a 512-token prefill and a chunk step timed and
+             profiled, the state kernels asserted by name.
    serve hybrid — jamba-1.5-large with dense FFNs at full width for one
              period (8 layers: 7 Mamba, 1 attention; ~9.0 B parameters),
              8 requests x 64 new tokens over an int8 KV pool and an int8
-             state pool, fused attention: a decode step 14 p2_dec_rows +
-             14 p2_enc_rows, 1 p2_append_paged, 1 split + 1 combine; a
+             state pool, fused attention: a decode step 1 st_dec_group +
+             1 st_enc_group, 1 p2_append_paged, 1 split + 1 combine; a
              prefill 14 p2_enc (a one-layer stack has one scale) and 1
              p2_prefill_paged; by counter and by profile name.
    ssm identity — fp32: rwkv6 with 4 layers at full width and the reduced
@@ -305,14 +320,19 @@ group in full, with its coding pass cut out and with loads only. None of
 the three prints a result line.
 
 ``python3 chip_smoke.py --tokens PATH [--src DIR]`` serves the engine
-phase's requests (fused and gather) and the chunked-prefix run's at full
-width with the port found under DIR (default: this checkout's ``src``;
-another tree's ``src`` compares two versions in one call) and writes their
-greedy tokens to PATH as JSON; no result line. ``--steps PATH [--src
-DIR]`` likewise profiles a whole-prompt prefill of 512 tokens, the chunk
-step and the fused and gather decode steps (host wall, device time, the
-KV kernels' launches) and writes them to PATH, asserting nothing.
-``--deploy PATH [--src DIR]`` likewise times the deploy export's packed
+phase's requests (fused and gather), the chunked-prefix run's and the int8
+rwkv6-1.6b and jamba runs at full width with the port found under DIR
+(default: this checkout's ``src``; another tree's ``src`` compares two
+versions in one call) and writes their greedy tokens to PATH as JSON; no
+result line. ``--steps PATH [--src DIR]`` likewise profiles a
+whole-prompt prefill of 512 tokens, the chunk step, the fused and gather
+decode steps and the int8 rwkv6-1.6b and jamba decode steps (host wall,
+device time, the pool kernels' launches, peak memory) and writes them to
+PATH, asserting nothing.
+``--pe-repeat N`` launches each of the LM's PE2 calls on the tensor
+cores N times into NaN-filled outputs and logs every launch whose bits
+differ from the first; no result line. ``--deploy PATH [--src DIR]``
+likewise times the deploy export's packed
 encode and decode of the six FMNIST cores, core by core and (where the
 port has them) as one group each, and the host wall of
 ``export_tt_deploy`` and ``load_tt_deploy`` with their launches, and
@@ -1434,25 +1454,31 @@ def _profile_decode(torch, lm, params, prompts, steps: int = 20,
         eng.submit(p, max_new_tokens=(2 + PROFILE_TRIES) * steps + 2)
     eng.step()                          # admits + prefills all 8, 1 decode
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(steps):
         eng.step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps
+    peak = torch.cuda.max_memory_allocated()
     what = what or ("decode" if fused else "gather decode")
     prof, kern = _profile_window(
         torch, lambda: [eng.step() for _ in range(steps)], steps,
         names, _kv_want(want), what, cpu=cpu)
     total, rows = _device_summary(torch, prof, steps)
     log(f"{what} profile: {wall*1e3:.2f} ms per step (host wall), device "
-        f"{total:.2f} ms busy, busy share {total / (wall*1e3):.3f}")
+        f"{total:.2f} ms busy, busy share {total / (wall*1e3):.3f}; peak "
+        f"memory over the steps {peak / 2**30:.3f} GiB "
+        f"({(peak - base) / 2**20:.1f} MiB above the engine's resident "
+        "bytes)")
     for r in rows:
         log(f"  {r['ms_per_step']:8.3f} ms  {r['calls_per_step']:6.1f}x  "
             f"{r['name']}")
     _log_kernels(kern)
     return {"step_ms": wall * 1e3, "device_ms": total,
             "busy_share": total / (wall * 1e3), "top": rows,
-            "kernels": kern}
+            "kernels": kern, "peak_bytes": peak, "step_bytes": peak - base}
 
 
 def _profile_prefill(torch, lm, params, prompts, reps: int = 10,
@@ -3594,6 +3620,8 @@ def phase_chunked_identity(torch) -> dict:
 SSM_ARCH = "rwkv6-1.6b"
 HYBRID_ARCH = "jamba-1.5-large"
 PA_KV_FNS = KV_KERNEL_FNS + PA_KERNEL_FNS
+ST_KERNEL_FNS = ["st_dec_group_kernel", "st_enc_group_kernel"]
+STATE_FNS = PA_KV_FNS + ST_KERNEL_FNS
 
 
 def _state_model(torch, arch: str, **over):
@@ -3711,19 +3739,216 @@ def phase_state_kernels(torch, timer: Timer) -> dict:
     return out
 
 
+# the decode step's state pool: (layers, feature shape, dtype) of each
+# tensor, as state_cache lays them out for 8 slots
+RWKV6_STEP = [(24, (1, 2048), "bfloat16"), (24, (32, 64, 64), "float32"),
+              (24, (1, 2048), "bfloat16")]            # shift, wkv, shift_ffn
+JAMBA_STEP = [(1, (3, 16384), "bfloat16"), (1, (16384, 16), "float32")] * 7
+STATE_SLOTS = 8
+INACTIVE_SLOT = 5
+ST_NONE = ("none: no PyTorch call chooses pow-2 scales per row and codes a "
+           "list of tensors")
+
+
+def _edge_values(torch, dt, k: int) -> list:
+    """``127 * 2^k`` in ``dt`` and the three values of ``dt`` either side."""
+    iv = torch.int16 if dt == torch.bfloat16 else torch.int32
+    base = torch.tensor([127.0 * 2.0 ** k], dtype=dt).view(iv)
+    return [float((base + d).view(dt)) for d in range(-3, 4)]
+
+
+def _state_step_case(torch, gen, entries, active):
+    """A decode step's state pool at ``entries`` (random codes and scales)
+    and its new states (each (layer, slot) row at its own magnitude); the
+    first two tensors' first active rows hold a max at ``127 * 2^k`` and its
+    neighbours (k = -3 and 2), and the third tensor's first row is all
+    zero."""
+    dts = [getattr(torch, d) for _, _, d in entries]
+    codes, scales, news = [], [], []
+    for (layers, feat, _), dt in zip(entries, dts):
+        cols = math.prod(feat)
+        codes.append(torch.randint(-128, 128, (layers, STATE_SLOTS) + feat,
+                                   generator=gen, device="cuda",
+                                   dtype=torch.int8))
+        scales.append(torch.randint(-12, 4, (layers, STATE_SLOTS),
+                                    generator=gen, device="cuda").float())
+        news.append([_state_inputs(torch, gen, STATE_SLOTS, cols, dt)[0]
+                     .reshape((STATE_SLOTS,) + feat)
+                     for _ in range(layers)])
+    for e, k in ((0, -3), (1, 2)):
+        lay_rows = [(lay, b) for lay in range(entries[e][0])
+                    for b in range(STATE_SLOTS) if bool(active[b])]
+        for (lay, b), v in zip(lay_rows, _edge_values(torch, dts[e], k)):
+            row = news[e][lay][b].reshape(-1)
+            row.copy_((row.float() / row.float().abs().max() * (v / 2))
+                      .to(dts[e]))
+            row[0] = -v if b % 2 else v
+    news[2][0][0].zero_()                   # slot 0 is active
+    return codes, scales, news, dts
+
+
+def _state_layer_read(torch, SC, scfg, codes, scales, dts):
+    """The per-layer route's read (the previous design): ``read_layer`` a
+    (layer, tensor), stacked."""
+    return [torch.stack([SC.read_layer(q[lay], s[lay], dt, scfg)
+                         for lay in range(q.shape[0])])
+            for q, s, dt in zip(codes, scales, dts)]
+
+
+def _state_layer_write(SC, scfg, codes, scales, news, active):
+    """The per-layer route's write (the previous design): ``write_layer`` a
+    (layer, tensor)."""
+    for q, s, layers in zip(codes, scales, news):
+        for lay, new in enumerate(layers):
+            SC.write_layer(q[lay], s[lay], new, active, scfg)
+
+
+def _state_bytes(codes, news, active_rows: int) -> int:
+    """Bytes the step's decode (or encode) must move: every code read and
+    every value written once (or the reverse), and the scales, for
+    ``active_rows`` of each tensor's (layer, slot) rows."""
+    total = 0
+    for q, layers in zip(codes, news):
+        rows = q.shape[0] * q.shape[1]
+        per = math.prod(q.shape[2:]) * (1 + layers[0].element_size()) + 4
+        total += per * rows * active_rows // q.shape[1]
+    return total
+
+
+def phase_state_group(torch, timer: Timer) -> dict:
+    """The decode step's two state launches at full shapes: rwkv6-1.6b's
+    pool (24 layers x shift, wkv, shift_ffn; 8 slots) and jamba's period (7
+    Mamba layers x conv, h), slot 5 inactive, the scale edges and an
+    all-zero row in it (``_state_step_case``). ``st_dec_group`` decodes the
+    whole pool and ``st_enc_group`` encodes every new state, each bit for
+    bit with its plain twin (run on the card) and with the per-layer route
+    (``read_layer`` / ``write_layer``: p2_dec_rows, the scale's eager ops,
+    p2_enc_rows, two masked copies), codes, scales and values, the
+    inactive slot's codes and scales untouched; each one launch (the
+    plan's count). Then, every slot active, each timed beside the
+    per-layer route (``previous_ms``), its plain twin and the byte bound;
+    the encode also re-reading its values in the second pass where the
+    plan stages them in shared memory (``reread_ms``, held bit for bit
+    too)."""
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import grouped as G
+    from repro_torch.numerics import cuda_backend as CB
+    from repro_torch.serve import state_cache as SC
+    scfg = SC.StateCacheConfig(quantized=True)
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    out = {"st_dec_group": [], "st_enc_group": []}
+    for what, entries in (("rwkv6-1.6b decode step", RWKV6_STEP),
+                          ("jamba period decode step", JAMBA_STEP)):
+        active = torch.ones(STATE_SLOTS, dtype=torch.bool, device="cuda")
+        active[INACTIVE_SLOT] = False
+        codes, scales, news, dts = _state_step_case(torch, gen, entries,
+                                                    active)
+        B.reset_launches()
+        ys = CB.state_decode_many(codes, scales, dts)
+        n_dec = dict(B.LAUNCHES)
+        want_dec = len(G.st_dec_plan([(q.shape[0] * q.shape[1],
+                                       math.prod(q.shape[2:]))
+                                      for q in codes]))
+        check(n_dec == {"st_dec_group": want_dec},
+              f"st_dec_group {what}: launches {n_dec}, want {want_dec}")
+        ok_plain = all(_bits_equal(torch, y, r) for y, r in zip(
+            ys, CB.state_decode_many_plain(codes, scales, dts)))
+        ok_prev = all(_bits_equal(torch, y, r) for y, r in zip(
+            ys, _state_layer_read(torch, SC, scfg, codes, scales, dts)))
+        check(ok_plain and ok_prev, f"st_dec_group {what}: differs from its "
+              f"twin ({ok_plain}) or the per-layer route ({ok_prev})")
+        pools = [([q.clone() for q in codes], [s.clone() for s in scales])
+                 for _ in range(4)]
+        B.reset_launches()
+        CB.state_encode_many(*pools[0], news, active, 8)
+        n_enc = dict(B.LAUNCHES)
+        want_enc = len(G.st_enc_plan([
+            (q.shape[0], STATE_SLOTS, math.prod(q.shape[2:]),
+             dt.itemsize) for q, dt in zip(codes, dts)]))
+        check(n_enc == {"st_enc_group": want_enc},
+              f"st_enc_group {what}: launches {n_enc}, want {want_enc}")
+        CB.state_encode_many_plain(*pools[1], news, active, 8)
+        _state_layer_write(SC, scfg, *pools[2], news, active)
+        CB._st_encode(*pools[3], news, active, 8, reread=True)
+        for name, (qs, ss) in (("twin", pools[1]), ("per-layer", pools[2]),
+                               ("re-read", pools[3])):
+            check(all(torch.equal(a, b) for a, b in zip(pools[0][0], qs))
+                  and all(_bits_equal(torch, a, b)
+                          for a, b in zip(pools[0][1], ss)),
+                  f"st_enc_group {what}: codes or scales differ from the "
+                  f"{name} route")
+        off = ~active
+        check(all(torch.equal(a[:, off], b[:, off]) for a, b in
+                  zip(pools[0][0] + pools[0][1], codes + scales)),
+              f"st_enc_group {what}: the inactive slot was written")
+        edges = [float(s) for s in pools[0][1][0].reshape(-1)[:8]]
+        log(f"state group {what}: decode and encode bit for bit with the "
+            f"twins and the per-layer route; {want_dec} + {want_enc} "
+            f"launches; the first edge rows' scales {edges}")
+        # timed with every slot active, the steady decode step
+        active.fill_(True)
+        qc, sc = pools[0]
+        dec_ms = timer(lambda: CB.state_decode_many(codes, scales, dts))
+        dec_prev = timer(lambda: _state_layer_read(torch, SC, scfg, codes,
+                                                   scales, dts), iters=10)
+        dec_plain = timer(lambda: CB.state_decode_many_plain(
+            codes, scales, dts), iters=5)
+        enc_ms = timer(lambda: CB.state_encode_many(qc, sc, news, active, 8))
+        enc_reread = timer(lambda: CB._st_encode(qc, sc, news, active, 8,
+                                                 reread=True))
+        enc_prev = timer(lambda: _state_layer_write(SC, scfg, qc, sc, news,
+                                                    active), iters=10)
+        enc_plain = timer(lambda: CB.state_encode_many_plain(
+            qc, sc, news, active, 8), iters=5)
+        nbytes = _state_bytes(codes, news, STATE_SLOTS)
+        bms, by = bound_ms(nbytes)
+        shape = [[q.shape[0], STATE_SLOTS, *q.shape[2:]] for q in codes]
+        for name, ms, prev, plain, extra in (
+                ("st_dec_group", dec_ms, dec_prev, dec_plain, {}),
+                ("st_enc_group", enc_ms, enc_prev, enc_plain,
+                 {"reread_ms": enc_reread})):
+            out[name].append(dict(
+                what=what, shape=shape, ms=ms, previous_ms=prev,
+                plain_ms=plain, bound_ms=bms, bound_by=by, bytes=nbytes,
+                library_ms=None, library_note=ST_NONE, max_abs_err=0,
+                launches=want_dec if name == "st_dec_group" else want_enc,
+                previous_launches=sum(q.shape[0] for q in codes), **extra))
+            log(f"{name} {what}: {ms*1e3:.2f} us (per-layer route "
+                f"{prev*1e3:.1f} us, plain {plain*1e3:.1f} us, bound "
+                f"{bms*1e3:.2f} us, {nbytes} B"
+                + (f", re-reading its values {enc_reread*1e3:.2f} us"
+                   if extra else "") + ")")
+    return out
+
+
+def _state_group_launches(lm, slots: int = STATE_SLOTS) -> tuple[int, int]:
+    """The decode step's ``st_dec_group`` and ``st_enc_group`` launches on
+    ``lm``'s int8 state pool: the plans' counts."""
+    from repro_torch.kernels import grouped as G
+    from repro_torch.serve import state_cache as SC
+    ents = [(lm.n_periods, math.prod(f), SC.natural_dtype(kind, lm.cfg)
+             .itemsize) for sub in lm.period
+            for f, kind in SC.state_feature_shapes(sub, lm.cfg).values()]
+    return (len(G.st_dec_plan([(n * slots, f) for n, f, _ in ents])),
+            len(G.st_enc_plan([(n, slots, f, i) for n, f, i in ents])))
+
+
 def _state_want(lm, decode_steps: int, prefills: int = 0,
                 chunk_steps: int = 0) -> dict:
     """The state codec's launches on an int8 pool: each decode step reads
-    and writes every state tensor of every layer for all slots (row
-    kernels), each chunk step the one slot's (scalar kernels), and each
-    whole-prompt prefill writes each tensor's layer stack once (a row
-    kernel, or the scalar one for a one-period stack)."""
+    the whole pool in one group launch and writes it in another (the
+    plans' counts, ``_state_group_launches``; no row kernel), each chunk
+    step reads and writes the one slot's state a (layer, tensor) (scalar
+    kernels), and each whole-prompt prefill writes each tensor's layer
+    stack once (a row kernel, or the scalar one for a one-period stack)."""
     from repro_torch.serve import state_cache as SC
     tensors = sum(len(SC.state_feature_shapes(s, lm.cfg)) for s in lm.period)
     per = lm.n_periods * tensors
-    want = {"p2_dec_rows": per * decode_steps,
-            "p2_enc_rows": per * decode_steps,
-            "p2_dec": per * chunk_steps, "p2_enc": per * chunk_steps}
+    dec, enc = _state_group_launches(lm)
+    want = {"st_dec_group": dec * decode_steps,
+            "st_enc_group": enc * decode_steps,
+            "p2_dec": per * chunk_steps, "p2_enc": per * chunk_steps,
+            "p2_enc_rows": 0}
     want["p2_enc_rows" if lm.n_periods > 1 else "p2_enc"] += \
         tensors * prefills
     return {k: v for k, v in want.items() if v}
@@ -3781,14 +4006,107 @@ def _check_state_run(what, eng, launches, want, n_req) -> dict:
     return s
 
 
+def _per_layer_decode(torch, eng, table, lens, active, tokens):
+    """A decode step of ``eng`` (no attention sublayer) through the
+    per-layer route, the previous design: ``read_layer``, the mixer's
+    forward and ``write_layer`` a (layer, tensor), p2_dec_rows and
+    p2_enc_rows each. Returns (B, V) logits; the pool is written in
+    place."""
+    from repro_torch.models.common import apply_site, rms_norm
+    from repro_torch.models.lm import STATE_MIXERS, embed_tokens
+    from repro_torch.serve import state_cache as SC
+    lm, params, cfg = eng.lm, eng.params, eng.lm.cfg
+    check(all(sub.mixer_kind in STATE_MIXERS for sub in lm.period),
+          "the per-layer replay runs recurrent sublayers only")
+    x = embed_tokens(params, tokens, lm)
+    for layer, pp in enumerate(params["layers"]):
+        for i, sub in enumerate(lm.period):
+            key = f"sub_{i}"
+            shapes = SC.state_feature_shapes(sub, cfg)
+            data = {n: t[layer] for n, t in eng.spool["data"][key].items()}
+            scale = {n: t[layer]
+                     for n, t in eng.spool["scale_log2"][key].items()}
+            state = {n: SC.read_layer(data[n], scale[n],
+                                      SC.natural_dtype(kind, cfg), eng.scfg)
+                     for n, (_, kind) in shapes.items()}
+            x, new = eng._state_mix(pp[key], x, sub, state)
+            for n in shapes:
+                SC.write_layer(data[n], scale[n], new[n], active, eng.scfg)
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    return apply_site(params["head"], x, lm.head, cfg)[:, 0]
+
+
+def _replay_state_steps(torch, lm, params, prompts, steps: int = 3) -> dict:
+    """``steps`` decode steps of the int8 rwkv6 engine at full size (7 of 8
+    slots busy after 32-token prompts: one inactive lane) through the
+    engine, then again from the same pool through the per-layer route
+    (``_per_layer_decode``), each feeding its own greedy tokens: logits and
+    every pool byte equal, the engine's run ``steps`` x the plans' group
+    launches and no row codec launch, the per-layer run 72 p2_dec_rows + 72
+    p2_enc_rows a step."""
+    from repro_torch.kernels import build as B
+    from repro_torch.serve import Engine, EngineConfig, PoolConfig
+    from repro_torch.serve import state_cache as SC
+    eng = Engine(lm, params, EngineConfig(pool=PoolConfig(
+        num_slots=STATE_SLOTS, quantized=True)), device="cuda")
+    for p in prompts[:STATE_SLOTS - 1]:
+        eng.submit(p[:32], max_new_tokens=steps + 4)
+    eng.step()                          # admits and prefills, one decode
+    sched = eng.sched
+    table = eng._tensor(sched.page_table)
+    lens = eng._tensor(sched.lens_vector())
+    active = eng._tensor(sched.active_mask())
+    tokens = eng._tensor(sched.tokens_vector())
+    check(int(active.sum()) == STATE_SLOTS - 1, "replay: one lane idle")
+    snap = [t.clone() for t in _leaves(eng.spool)]
+
+    def run(step):
+        for t, s in zip(_leaves(eng.spool), snap):
+            t.copy_(s)
+        torch.cuda.synchronize()
+        B.reset_launches()
+        logits, toks = [], tokens
+        with torch.no_grad():
+            for _ in range(steps):
+                lg = step(table, lens, active, toks)
+                logits.append(lg)
+                toks = lg.argmax(-1, keepdim=True).to(tokens.dtype)
+        torch.cuda.synchronize()
+        return logits, [t.clone() for t in _leaves(eng.spool)], \
+            dict(B.LAUNCHES)
+
+    ga, pa, la = run(eng._decode)
+    gb, pb, lb = run(lambda *a: _per_layer_decode(torch, eng, *a))
+    check(all(_bits_equal(torch, a, b) for a, b in zip(ga, gb)),
+          "replay: the engine's logits differ from the per-layer route's")
+    check(all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+              for a, b in zip(pa, pb)),
+          "replay: the pool differs from the per-layer route's")
+    dec, enc = _state_group_launches(lm)
+    per = lm.n_periods * sum(len(SC.state_feature_shapes(sub, lm.cfg))
+                             for sub in lm.period)
+    check(la == {"st_dec_group": steps * dec, "st_enc_group": steps * enc},
+          f"replay: engine launches {la}")
+    check(lb == {"p2_dec_rows": steps * per, "p2_enc_rows": steps * per},
+          f"replay: per-layer launches {lb}")
+    log(f"replay rwkv6: {steps} int8 decode steps (7 of 8 slots) through "
+        f"the engine ({la}) and the per-layer route ({lb}): logits and "
+        f"{sum(t.numel() * t.element_size() for t in pa)} pool bytes equal")
+    out = {"steps": steps, "launches": la, "per_layer_launches": lb}
+    del eng
+    return out
+
+
 def phase_serve_rwkv6(torch, lm, params) -> dict:
     """The slice's main path: rwkv6-1.6b at full size serving the engine
     phase's 16 requests (64 new tokens, 8 slots) from an int8 state pool,
     an fp pool and, chunked (128), the int8 pool again; counts zeroed just
     before and read just after each run, exact (``_state_want``); no KV
     kernel, ``cache_bytes`` 0, every slot free at the end,
-    ``state_reduction`` >= 3.5. Then the decode step, a 512-token prefill
-    and a chunk step, timed and profiled, the codec kernels by name."""
+    ``state_reduction`` >= 3.5. Then the replay of 3 decode steps through
+    the engine and the per-layer route (``_replay_state_steps``), and the
+    decode step, a 512-token prefill and a chunk step, timed and
+    profiled, the state kernels by name."""
     from repro_torch.kernels import build as B
     t0 = time.perf_counter()
     cfg = lm.cfg
@@ -3826,6 +4144,7 @@ def phase_serve_rwkv6(torch, lm, params) -> dict:
             f"{s['cache_bytes']}; launches {launches}")
         del eng
     out["per_step"] = _state_steps(lm)
+    out["replay"] = _replay_state_steps(torch, lm, params, prompts)
     out["wkv_error_by_decay"] = _wkv_error_by_decay(torch, lm, params,
                                                     prompts[0])
     out["bf16_agreement_int8_fp"] = sum(
@@ -3839,15 +4158,15 @@ def phase_serve_rwkv6(torch, lm, params) -> dict:
     # large lost launches on the card, and its processing grows with them
     per = _state_want(lm, 1)
     out["decode_profile"] = _profile_decode(
-        torch, lm, params, prompts, steps=6, fused=False, names=PA_KV_FNS,
+        torch, lm, params, prompts, steps=6, fused=False, names=STATE_FNS,
         what="rwkv6 decode", cpu=False,
         want={f"{k}_kernel": v for k, v in per.items()})
     out["prefill_profile"] = _profile_prefill(
-        torch, lm, params, prompts, reps=1, names=PA_KV_FNS,
+        torch, lm, params, prompts, reps=1, names=STATE_FNS,
         what="rwkv6 prefill", cpu=False, window_tokens=128,
         want={f"{k}_kernel": v for k, v in _state_want(lm, 0, 1).items()})
     out["chunk_profile"] = _profile_chunk(
-        torch, lm, params, prompts, reps=1, names=PA_KV_FNS,
+        torch, lm, params, prompts, reps=1, names=STATE_FNS,
         what="rwkv6 chunk step", cpu=False,
         want={f"{k}_kernel": v for k, v in _state_want(
             lm, 0, 0, 1).items()})
@@ -3862,8 +4181,9 @@ def phase_serve_hybrid(torch) -> dict:
     layers: 7 Mamba, 1 attention), bf16, 8 requests x 64 new tokens over
     an int8 KV pool and an int8 state pool with fused attention, whole
     prompt and chunked (128: the chunks' remainders are unpadded widths);
-    counts exact: a decode step 14 + 14 row codec launches, one paged
-    append, one split and one combine; a prefill 14 ``p2_enc`` (a
+    counts exact: a decode step one ``st_dec_group`` and one
+    ``st_enc_group``, one paged append, one split and one combine; a
+    prefill 14 ``p2_enc`` (a
     one-layer stack) and one ``p2_prefill_paged``; a chunk step 14
     ``p2_dec`` + 14 ``p2_enc`` (one slot), one paged append and one paged
     read. Then the decode step, a prefill and a chunk step, profiled, the
@@ -3921,12 +4241,12 @@ def phase_serve_hybrid(torch) -> dict:
     out.update({
         "decode_profile": _profile_decode(
             torch, lm, params, prompts, steps=6, fused=True,
-            names=PA_KV_FNS, what="hybrid decode", want=dec, cpu=False),
+            names=STATE_FNS, what="hybrid decode", want=dec, cpu=False),
         "prefill_profile": _profile_prefill(
-            torch, lm, params, prompts, reps=1, names=PA_KV_FNS,
+            torch, lm, params, prompts, reps=1, names=STATE_FNS,
             what="hybrid prefill", want=pre, cpu=False, window_tokens=128),
         "chunk_profile": _profile_chunk(
-            torch, lm, params, prompts, reps=1, names=PA_KV_FNS,
+            torch, lm, params, prompts, reps=1, names=STATE_FNS,
             what="hybrid chunk step", want=chk, cpu=False)})
     del params
     torch.cuda.empty_cache()
@@ -4893,6 +5213,10 @@ ENC_ROWS = ("src/repro_torch/kernels/csrc/pow2_rows.cu",
             "src/repro/numerics/pallas_backend.py:189")
 DEC_ROWS = ("src/repro_torch/kernels/csrc/pow2_rows.cu",
             "src/repro/numerics/pallas_backend.py:196")
+ST_DEC = ("src/repro_torch/kernels/csrc/state_codec.cu",
+          "src/repro/numerics/pallas_backend.py:196")
+ST_ENC = ("src/repro_torch/kernels/csrc/state_codec.cu",
+          "src/repro/numerics/pallas_backend.py:189")
 RT_GROUP = ("src/repro_torch/kernels/csrc/pow2_fq.cu",
             "src/repro/numerics/pallas_backend.py:120")
 
@@ -4931,7 +5255,7 @@ def _state_path(name: str, rwkv: dict, hybrid: dict, api: dict) -> str:
 def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
                  wkern: dict, wire: dict, skern: dict, chunked: dict,
                  lmkern: dict, lm: dict, spec: dict, state: dict,
-                 rwkv: dict, hybrid: dict) -> dict:
+                 rwkv: dict, hybrid: dict, sgroup: dict) -> dict:
     rows = []
     for name, (src, replaces) in KERNELS.items():
         rows.append(_kernel_row(name, src, replaces, kern[name],
@@ -4948,14 +5272,28 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
         row["spec_launches"] = spec["draft"]["launches"].get(row["name"], 0)
         row["path"] += (f"; serve spec ({spec['draft']['rounds']} rounds, "
                         f"{row['spec_launches']} launches)")
-    # the state path's codec launches (the int8 rwkv6 run for the row
-    # kernels, the chunked run for the scalar ones), its shapes first
+    # the state path's codec launches (the int8 rwkv6 run for the group
+    # kernels and the prefill's row encode, the chunked run for the scalar
+    # ones), its shapes first
     api = skern["api_launches"]
-    for name, src in (("p2_enc_rows", ENC_ROWS), ("p2_dec_rows", DEC_ROWS)):
+    for name, src in (("st_dec_group", ST_DEC), ("st_enc_group", ST_ENC)):
         rows.append(_kernel_row(
-            name, *src, state[name] + kern[name],
-            rwkv["int8"]["launches"].get(name, 0),
+            name, *src, sgroup[name], rwkv["int8"]["launches"].get(name, 0),
             _state_path(name, rwkv, hybrid, api)))
+    replay = rwkv["replay"]["per_layer_launches"]
+    for name, src in (("p2_enc_rows", ENC_ROWS), ("p2_dec_rows", DEC_ROWS)):
+        launches = rwkv["int8"]["launches"].get(name, 0)
+        path = _state_path(name, rwkv, hybrid, api)
+        if name == "p2_dec_rows":
+            # no serving path reads rows since the decode step's group
+            # read: its launches are the replay's per-layer route's, the
+            # previous design run on the same engine
+            launches = replay.get(name, 0)
+            path = ("no serving path (the decode step reads through "
+                    "st_dec_group); the replay's per-layer route "
+                    f"{launches}; " + path)
+        rows.append(_kernel_row(name, *src, state[name] + kern[name],
+                                launches, path))
         rows[-1]["api_launches"] = api.get(name, 0)
     for name, (src, replaces) in TRAIN_KERNELS.items():
         rows.append(_kernel_row(name, src, replaces, tkern[name],
@@ -5005,7 +5343,8 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
 
 def phase_tokens(torch, path: str) -> None:
     """The greedy tokens of the serving runs at full width (engine fused
-    and gather, chunked prefix), written to ``path``."""
+    and gather, chunked prefix; the int8 rwkv6-1.6b and jamba runs of
+    ``_recurrent_cells``), written to ``path``."""
     lm, params = full_model(torch)
     prompts = _requests(lm.cfg.vocab_size)
     out = {}
@@ -5018,16 +5357,39 @@ def phase_tokens(torch, path: str) -> None:
                 if name == "chunked_prefix" else prompts)
         _, out[name] = _serve_engine(torch, lm, params, reqs, 64, **kw)
         log(f"tokens {name}: {len(out[name])} completions")
+    del params
+    for name, (lm, params), reqs, kw in _recurrent_cells(torch):
+        _, out[name] = _serve_engine(torch, lm, params, reqs(lm), 64, **kw)
+        log(f"tokens {name}: {len(out[name])} completions")
+        del params
+        torch.cuda.empty_cache()
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     Path(path).write_text(json.dumps(out))
+
+
+def _recurrent_cells(torch):
+    """The int8 recurrent serving runs of ``--tokens`` and ``--steps``, one
+    model at a time: (name, (lm, params), prompts of lm, engine options):
+    rwkv6-1.6b at full size on the engine phase's 16 requests, and
+    jamba-1.5-large's period (dense FFNs) on 8, fused attention."""
+    from repro_torch.configs.base import MoEConfig
+    yield ("rwkv6_int8", _state_model(torch, SSM_ARCH),
+           lambda lm: _requests(lm.cfg.vocab_size), {})
+    torch.cuda.empty_cache()
+    yield ("hybrid_int8", _state_model(torch, HYBRID_ARCH, num_layers=8,
+                                       moe=MoEConfig(num_experts=0)),
+           lambda lm: _requests(lm.cfg.vocab_size, n=8, seed=1),
+           {"fused_attention": True})
 
 
 def phase_steps(torch, path: str) -> None:
     """The whole-prompt prefill's (S = 512), the chunk step's and the decode
     steps' (fused and gather) host wall and device time at full width,
-    with the KV kernels' launches a step, written to ``path``; nothing
-    asserted, so a parent tree's port can be measured beside this one in
-    one call."""
+    with the KV kernels' launches a step, then the int8 rwkv6-1.6b and
+    jamba decode steps' (``_recurrent_cells``; 6 steps, the state kernels'
+    launches a step, peak memory), written to ``path``; nothing asserted,
+    so a parent tree's port can be measured beside this one in one
+    call."""
     lm, params = full_model(torch)
     prompts = _requests(lm.cfg.vocab_size)
     out = {"prefill": _profile_prefill(torch, lm, params, prompts),
@@ -5035,8 +5397,64 @@ def phase_steps(torch, path: str) -> None:
            "decode": _profile_decode(torch, lm, params, prompts, fused=True),
            "gather_decode": _profile_decode(torch, lm, params, prompts,
                                             fused=False)}
+    del params
+    for name, (lm, params), reqs, kw in _recurrent_cells(torch):
+        out[f"{name}_decode"] = _profile_decode(
+            torch, lm, params, reqs(lm), steps=6,
+            fused=kw.get("fused_attention", False), names=STATE_FNS,
+            what=f"{name} decode", cpu=False)
+        del params
+        torch.cuda.empty_cache()
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     Path(path).write_text(json.dumps(out))
+
+
+def phase_pe_repeat(torch, reps: int) -> dict:
+    """Each of the LM's PE2 calls on the tensor cores ``reps`` times into
+    an output filled with NaN before every launch, held bit for bit to the
+    first launch: a launch that differs is logged with how many elements,
+    where (the a, d, c it touches) and how far from the plain version, and
+    an element never written would show as NaN. Nothing asserted, no
+    result line: a diagnostic of the ``lm kernels`` check "two launches
+    differ" (ROADMAP queue 3)."""
+    from repro_torch.kernels import tt_mma, ttm_pe2
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {}
+    for kind, zs, gs in _lm_pe_calls():
+        if kind != "pe2":
+            continue
+        z = torch.randn(zs, generator=gen, device="cuda").to(torch.bfloat16)
+        g = (torch.randn(gs, generator=gen, device="cuda") * 0.2).to(
+            torch.bfloat16)
+        p = tt_mma.plan_for(z, g)
+        ref = ttm_pe2.pe2_torch(z, g).float()
+        first, differ, nan = None, [], 0
+        for i in range(reps):
+            o = torch.full((zs[0], gs[1], zs[2]), float("nan"),
+                           dtype=torch.bfloat16, device="cuda")
+            tt_mma.launch("pe2", "ttm_pe2", p, z, g, o)
+            nan += int(o.isnan().sum())
+            if first is None:
+                first = o
+                continue
+            diff = o.view(torch.int16) != first.view(torch.int16)
+            if diff.any():
+                at = diff.nonzero()
+                differ.append({
+                    "launch": i, "elements": int(diff.sum()),
+                    "a": sorted(set(at[:, 0].tolist()))[:8],
+                    "d": sorted(set(at[:, 1].tolist()))[:8],
+                    "c": sorted(set(at[:, 2].tolist()))[:8],
+                    "err": float((o.float() - ref)[diff].abs().max()),
+                    "first_err": float((first.float() - ref)[diff]
+                                       .abs().max())})
+        name = f"{zs}x{gs}"
+        out[name] = {"orientation": p.orientation, "launches": reps,
+                     "differ": differ, "nan": nan}
+        log(f"pe repeat {name} ({p.orientation}): {len(differ)} of "
+            f"{reps - 1} launches differ from the first, {nan} NaN "
+            f"elements; {differ[:4]}")
+    return out
 
 
 def phase_deploy(torch, path: str, reps: int = 20) -> None:
@@ -5106,16 +5524,22 @@ def main(argv=None) -> int:
                     "and blockwise-encode launches with one part cut out at "
                     "a time (no result line)")
     ap.add_argument("--tokens", metavar="PATH",
-                    help="only serve the engine and chunked-prefix requests "
-                    "and write their tokens here (no result line)")
+                    help="only serve the engine, chunked-prefix and int8 "
+                    "rwkv6 and jamba requests and write their tokens here "
+                    "(no result line)")
     ap.add_argument("--steps", metavar="PATH",
                     help="only profile the whole-prompt prefill, the chunk "
-                    "step and the fused and gather decode steps and write "
-                    "them here (no result line)")
+                    "step, the fused and gather decode steps and the int8 "
+                    "rwkv6 and jamba decode steps and write them here (no "
+                    "result line)")
     ap.add_argument("--deploy", metavar="PATH",
                     help="only time the deploy export's packed encode and "
                     "decode, core by core and grouped, and the export's and "
                     "load's host wall, and write them here (no result line)")
+    ap.add_argument("--pe-repeat", type=int, metavar="N",
+                    help="only launch each of the LM's PE2 calls on the "
+                    "tensor cores N times and log every launch whose bits "
+                    "differ from the first (no result line)")
     ap.add_argument("--src", help="the directory holding repro_torch "
                     "(default: src beside this script)")
     args = ap.parse_args(argv)
@@ -5136,7 +5560,9 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"device: {torch.cuda.get_device_name(0)} ({smi}), torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-    if args.tokens or args.steps or args.deploy:
+    if args.tokens or args.steps or args.deploy or args.pe_repeat:
+        if args.pe_repeat:
+            phase_pe_repeat(torch, args.pe_repeat)
         if args.tokens:
             phase_tokens(torch, args.tokens)
         if args.steps:
@@ -5164,6 +5590,7 @@ def main(argv=None) -> int:
     report["wire_kernels"] = phase_wire_kernels(torch, timer)
     report["scalar_kernels"] = phase_scalar_kernels(torch, timer)
     report["state_kernels"] = phase_state_kernels(torch, timer)
+    report["state_group"] = phase_state_group(torch, timer)
     del timer
     lm, params = full_model(torch)
     report["engine"] = phase_engine(torch, lm, params)
@@ -5198,7 +5625,8 @@ def main(argv=None) -> int:
                         report["scalar_kernels"], report["serve_chunked"],
                         report["lm_kernels"], report["train_lm"],
                         report["serve_spec"], report["state_kernels"],
-                        report["serve_rwkv6"], report["serve_hybrid"])
+                        report["serve_rwkv6"], report["serve_hybrid"],
+                        report["state_group"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

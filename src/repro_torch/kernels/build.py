@@ -42,7 +42,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
 # every csrc/<name>.cu, in the order chip_smoke.py reports their builds
 SOURCES = ("pow2_rows", "paged_attention", "pow2_fq", "ttm_pe", "ttm_pe1",
            "ttm_pe2", "ttm_pe3", "blockwise", "pow2_packed", "pow2_scalar",
-           "kv_append", "kv_read", "kv_prefill")
+           "kv_append", "kv_read", "kv_prefill", "state_codec")
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: dict[str, int] = {}

@@ -2,7 +2,9 @@
 (``csrc/pow2_fq.cu::p2_fq_group``), the blockwise encode and decode
 groups (``csrc/blockwise.cu::bw_enc_group`` / ``bw_dec_group``) and the
 packed int4 encode and decode groups (``csrc/pow2_packed.cu::
-p2_enc_packed`` / ``p2_dec_packed``). One launch
+p2_enc_packed`` / ``p2_dec_packed``) and the recurrent-state pool's decode
+and encode groups (``csrc/state_codec.cu::st_dec_group`` /
+``st_enc_group``). One launch
 covers a list of tensors, described by a table the C side passes to the
 kernel by value.
 
@@ -30,6 +32,17 @@ them where no kernel can run:
   ``PK_TILE`` packed bytes, one CTA's work at a time, never two entries),
   each entry's offset in the encode's one int8 codes buffer (on 16 bytes)
   and in the decode's one f32 values buffer (on 16 bytes).
+- ``st_dec_plan``: the state pool's tensors chunked into launches of at
+  most ``ST_CAP``, each with its units (``ST_UNIT`` codes of one row, a
+  row being one (layer, slot)) and the prefix of its tiles (``ST_TILE``
+  units, one CTA's work at a time, never two tensors).
+- ``st_enc_plan``: the (tensor, layer) new states cut into pieces, at
+  most ``ST_CAP`` pieces and ``ST_PTR_CAP`` new-state pointers a launch;
+  a piece is a run of one tensor's layers, its rows (layer, slot) tasks
+  of a cluster of ``ST_CLUSTER`` CTAs each where a row holds at least
+  ``ST_BIG_BYTES`` of values, else ``ST_CLUSTER`` rows a task, one a CTA;
+  a launch whose CTAs each take at most ``ST_STAGE_MAX`` bytes of values
+  keeps them in shared memory between its two passes.
 
 The caps keep each table within the 4 KB of a launch's parameters. The
 routes follow from the shapes alone: the LM step's large entries (its
@@ -281,4 +294,162 @@ def pk_plan(shapes: list[tuple[int, int]],
             code += _align(leaf.nbytes, CODE_ALIGN)
             val += _align(leaf.numel, OUT_ALIGN)
         out.append(PkLaunch(idx, tuple(plan), tuple(ends), code, val))
+    return out
+
+
+ST_CAP = 16                 # state_codec.cu kCap
+ST_PTR_CAP = 160            # state_codec.cu kPtrCap
+ST_UNIT = 16                # state_codec.cu kUnit: int8 codes a unit
+ST_TILE = 1024              # state_codec.cu kDecTile: units a decode tile
+ST_CLUSTER = 16             # state_codec.cu kCluster
+ST_BIG_BYTES = 1 << 16      # a row of this many bytes of values or more
+                            # takes a cluster
+ST_STAGE_MAX = 1 << 16      # a launch whose CTAs each take at most this
+                            # many bytes of values stages them in shared
+                            # memory between the encode's passes
+_INT_MAX = (1 << 31) - 1
+
+
+def st_table_bytes() -> tuple[int, int]:
+    """Bytes of the decode's and the encode's tables as ``state_codec.cu``
+    lays them out (``DecGroup``, ``EncGroup``; both must stay within the
+    4,096 of a launch's parameters)."""
+    dec = ST_CAP * (3 * 8 + 4 * 4) + 4
+    enc = ST_CAP * (2 * 8 + 6 * 4) + ST_PTR_CAP * 16 + 8 + 4 * 5
+    return _align(dec, 8), _align(enc, 8)
+
+
+@dataclass(frozen=True)
+class StDecLaunch:
+    index: range                 # the pool tensors of this launch
+    units: tuple[int, ...]       # rows * ceil(feat / ST_UNIT) each
+    tile_end: tuple[int, ...]    # prefix sum of ceil(units / ST_TILE)
+
+    @property
+    def tiles(self) -> int:
+        return self.tile_end[-1]
+
+
+def st_units(rows: int, feat: int) -> int:
+    """Decode units of a pool tensor: ``ST_UNIT`` codes of one row (the
+    last of a row may hold fewer)."""
+    return rows * -(-feat // ST_UNIT)
+
+
+def st_dec_plan(shapes: list[tuple[int, int]],
+                cap: int = ST_CAP) -> list[StDecLaunch]:
+    """The state decode group's launches over pool tensors given as (rows,
+    feat): rows = layers x slots, feat the elements of one (layer, slot)
+    (an empty list gives none)."""
+    out = []
+    for idx in chunks(len(shapes), cap):
+        units, ends, tiles = [], [], 0
+        for i in idx:
+            u = st_units(*shapes[i])
+            tiles += -(-u // ST_TILE)
+            if shapes[i][0] * shapes[i][1] > _INT_MAX // 2 \
+                    or tiles * ST_TILE > _INT_MAX:
+                raise ValueError(f"st_dec_plan: {shapes[i]} has more units "
+                                 "than the kernel indexes")
+            units.append(u)
+            ends.append(tiles)
+        out.append(StDecLaunch(idx, tuple(units), tuple(ends)))
+    return out
+
+
+@dataclass(frozen=True)
+class StPiece:
+    entry: int                   # the pool tensor
+    layer0: int                  # its first layer here
+    layers: int
+    slots: int
+    feat: int
+    big: bool                    # a cluster a row
+    tasks: int                   # rows (big) or ceil(rows / ST_CLUSTER)
+    ptr0: int                    # its first new state in the launch's
+                                 # pointers
+
+    @property
+    def rows(self) -> int:
+        return self.layers * self.slots
+
+
+@dataclass(frozen=True)
+class StEncLaunch:
+    pieces: tuple[StPiece, ...]
+    task_end: tuple[int, ...]    # prefix sum of the pieces' tasks
+    ptrs: int                    # new-state pointers
+    stage_bytes: int             # the most values one CTA takes, in bytes
+
+    @property
+    def tasks(self) -> int:
+        return self.task_end[-1]
+
+    @property
+    def stage(self) -> bool:
+        """Whether the CTAs keep their values in shared memory between
+        the encode's passes (else they re-read them, L2-warm)."""
+        return self.stage_bytes <= ST_STAGE_MAX
+
+    @property
+    def ctas(self) -> int:
+        return self.tasks * ST_CLUSTER
+
+
+def st_big(feat: int, itemsize: int) -> bool:
+    """Whether a row of ``feat`` values of ``itemsize`` bytes takes a
+    cluster of ``ST_CLUSTER`` CTAs."""
+    return feat * itemsize >= ST_BIG_BYTES
+
+
+def _st_stage_bytes(feat: int, itemsize: int, big: bool) -> int:
+    units = -(-feat // ST_UNIT)
+    if big:
+        units = -(-units // ST_CLUSTER)
+    return units * ST_UNIT * itemsize
+
+
+def st_enc_plan(entries: list[tuple[int, int, int, int]],
+                cap: int = ST_CAP,
+                ptr_cap: int = ST_PTR_CAP) -> list[StEncLaunch]:
+    """The state encode group's launches over pool tensors given as
+    (layers, slots, feat, itemsize of the new states): each tensor's
+    layers in pieces, a new launch where the pieces or the pointers would
+    pass their caps (an empty tensor gives no piece; no piece gives no
+    launch)."""
+    out = []
+    pieces: list[StPiece] = []
+
+    def close():
+        if pieces:
+            ends, acc = [], 0
+            for pc in pieces:
+                acc += pc.tasks
+                ends.append(acc)
+            stage = max(_st_stage_bytes(pc.feat, isz[pc.entry], pc.big)
+                        for pc in pieces)
+            out.append(StEncLaunch(tuple(pieces), tuple(ends),
+                                   sum(pc.layers for pc in pieces), stage))
+            pieces.clear()
+
+    isz = [e[3] for e in entries]
+    for e, (layers, slots, feat, itemsize) in enumerate(entries):
+        if not layers * slots * feat:
+            continue
+        big = st_big(feat, itemsize)
+        l0 = 0
+        while l0 < layers:
+            ptrs = sum(pc.layers for pc in pieces)
+            if len(pieces) == cap or ptrs == ptr_cap:
+                close()
+                ptrs = 0
+            n = min(layers - l0, ptr_cap - ptrs)
+            rows = n * slots
+            tasks = rows if big else -(-rows // ST_CLUSTER)
+            if rows > _INT_MAX or feat > _INT_MAX:
+                raise ValueError(f"st_enc_plan: ({layers}, {slots}, {feat}) "
+                                 "is more than the kernel indexes")
+            pieces.append(StPiece(e, l0, n, slots, feat, big, tasks, ptrs))
+            l0 += n
+    close()
     return out

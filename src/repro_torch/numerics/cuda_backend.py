@@ -50,6 +50,11 @@ launch; ``encode_packed_many`` and ``decode_packed_many`` write and read
 the deploy export's packed cores, their bytes or values views into one
 buffer a launch. A single tensor (``fake_quant_scalar``, ``bw_encode``,
 ``bw_decode``, ``encode_packed``, ``decode_packed``) is a group of one.
+``state_decode_many`` and ``state_encode_many`` read and write the
+recurrent-state pool of a whole decode step (``serve/state_cache.py``
+``read_step`` / ``write_step``): every layer's state tensors in one launch
+each way (``kernels/csrc/state_codec.cu``), the encode choosing each
+(layer, slot)'s scale on the device and skipping inactive slots.
 """
 from __future__ import annotations
 
@@ -60,8 +65,9 @@ import torch
 from ..kernels import build as B
 from ..kernels import grouped as G
 from .codecs import (BlockwiseReference, Pow2Reference, _bcast,
-                     pow2_fake_quant, pow2_fake_quant_many, pow2_qdq,
-                     register_codec, to_storage)
+                     per_tensor_max_scale_log2, pow2_fake_quant,
+                     pow2_fake_quant_many, pow2_qdq, register_codec,
+                     to_storage)
 from .spec import QTensor, QuantSpec, packed_trailing, qrange
 
 ENC = "p2_enc_rows"
@@ -80,6 +86,9 @@ PACKED_SOURCE = "pow2_packed"
 BENC = "bw_enc"
 BDEC = "bw_dec"
 BW_SOURCE = "blockwise"
+STDEC = "st_dec_group"
+STENC = "st_enc_group"
+STATE_SOURCE = "state_codec"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _FQ_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # code storage types of the codec kernels (csrc/pow2_codes.cuh Code) and
@@ -681,6 +690,234 @@ def decode_packed(p2d: torch.Tensor, srow: torch.Tensor,
 
 
 # ---- blockwise encode / decode --------------------------------------------
+
+# ---- the recurrent-state pool of a decode step ----------------------------
+
+def _state_spec(bits: int) -> QuantSpec:
+    """The state pool's ``ssm_state`` spec (``serve/state_cache.py``)."""
+    return QuantSpec("pow2", bits, 0, "int8", "per_tensor_max")
+
+
+def state_decode_many_plain(codes: list[torch.Tensor],
+                            scales: list[torch.Tensor],
+                            dtypes: list[torch.dtype]) -> list[torch.Tensor]:
+    """The state decode group's plain version: each (L, B, *feat) pool
+    tensor decoded layer by layer as ``state_cache.read_layer`` decodes it
+    (``decode_rows_plain`` of the (B, F) view under its (B,) scales)."""
+    out = []
+    for q, s, dt in zip(codes, scales, dtypes):
+        y = torch.empty(q.shape, dtype=dt, device=q.device)
+        if q.numel():
+            for lay in range(q.shape[0]):
+                y[lay] = decode_rows_plain(q[lay].reshape(q.shape[1], -1),
+                                           s[lay], dt).reshape(q.shape[1:])
+        out.append(y)
+    return out
+
+
+def state_encode_many_plain(codes: list[torch.Tensor],
+                            scales: list[torch.Tensor],
+                            news: list[list[torch.Tensor]],
+                            active: torch.Tensor, bits: int) -> None:
+    """The state encode group's plain version: each (layer, tensor)'s new
+    state written into the pool as ``state_cache.write_layer`` writes it,
+    in place: a ``per_tensor_max`` scale per slot, ``encode_rows_plain``,
+    the active slots' codes and scales kept, the inactive slots' left."""
+    spec = _state_spec(bits)
+    for q, s, layers in zip(codes, scales, news):
+        for lay, new in enumerate(layers):
+            amask = active.reshape((-1,) + (1,) * (new.dim() - 1))
+            step = per_tensor_max_scale_log2(
+                new, spec, reduce_axes=tuple(range(1, new.dim())))
+            c = encode_rows_plain(new.reshape(new.shape[0], -1), step, bits,
+                                  q.dtype).reshape(new.shape)
+            q[lay].copy_(torch.where(amask, c, q[lay]))
+            s[lay].copy_(torch.where(active, step, s[lay]))
+
+
+def _state_lib() -> ctypes.CDLL:
+    lib = B.load(STATE_SOURCE)
+    if not getattr(lib, "_repro_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        table = ctypes.POINTER(ctypes.c_longlong)
+        lib.st_dec_group.argtypes = [table, i, p]
+        lib.st_dec_group.restype = i
+        lib.st_enc_group.argtypes = [table, i, table, i, p, i, i, i, i, p]
+        lib.st_enc_group.restype = i
+        lib._repro_typed = True
+    return lib
+
+
+def _state_feat(q: torch.Tensor) -> int:
+    n = 1
+    for d in q.shape[2:]:
+        n *= d
+    return n
+
+
+def _check_state_pool(what: str, codes: list[torch.Tensor],
+                      scales: list[torch.Tensor]) -> None:
+    if len(codes) != len(scales):
+        raise ValueError(f"{what}: {len(codes)} pool tensors and "
+                         f"{len(scales)} scales")
+    for q, s in zip(codes, scales):
+        if q.dim() < 2 or tuple(s.shape) != tuple(q.shape[:2]):
+            raise ValueError(f"{what}: want (L, B, *feat) codes and (L, B) "
+                             f"scales, got {tuple(q.shape)} and "
+                             f"{tuple(s.shape)}")
+    if codes:
+        _one_device(codes, scales, what)
+
+
+def _check_state_card(what: str, codes: list[torch.Tensor],
+                      scales: list[torch.Tensor]) -> None:
+    for q, s in zip(codes, scales):
+        if q.dtype != torch.int8:
+            raise TypeError(f"{what}: the state pool stores int8 codes, got "
+                            f"{q.dtype}")
+        if s.dtype != torch.float32:
+            raise TypeError(f"{what}: scales must be float32, got {s.dtype}")
+        if not (q.is_contiguous() and s.is_contiguous()):
+            raise ValueError(f"{what}: the pool's codes and scales must be "
+                             "contiguous")
+
+
+def state_decode_many(codes: list[torch.Tensor], scales: list[torch.Tensor],
+                      dtypes: list[torch.dtype]) -> list[torch.Tensor]:
+    """Every (L, B, *feat) int8 pool tensor ``codes[n]`` decoded under its
+    (L, B) ``scales[n]`` into a new (L, B, *feat) tensor of ``dtypes[n]``
+    (one device): on the card one ``st_dec_group`` launch for up to
+    ``grouped.ST_CAP`` of them, on the CPU the plain version."""
+    if len(dtypes) != len(codes):
+        raise ValueError(f"{STDEC}: {len(codes)} pool tensors and "
+                         f"{len(dtypes)} dtypes")
+    _check_state_pool(STDEC, codes, scales)
+    if not codes:
+        return []
+    if not codes[0].is_cuda:
+        return state_decode_many_plain(codes, scales, dtypes)
+    _check_state_card(STDEC, codes, scales)
+    for dt in dtypes:
+        if dt not in _DTYPE_CODE:
+            raise TypeError(f"{STDEC}: unsupported output dtype {dt}")
+    outs = [torch.empty(q.shape, dtype=dt, device=q.device)
+            for q, dt in zip(codes, dtypes)]
+    feats = [_state_feat(q) for q in codes]
+    lib = _state_lib()
+    stream = torch.cuda.current_stream(codes[0].device).cuda_stream
+    for launch in G.st_dec_plan([(q.shape[0] * q.shape[1], f)
+                                 for q, f in zip(codes, feats)]):
+        if not launch.tiles:
+            continue
+        rows = []
+        for i, units, end in zip(launch.index, launch.units,
+                                 launch.tile_end):
+            rows += [codes[i].data_ptr(), scales[i].data_ptr(),
+                     outs[i].data_ptr(), units, end, max(feats[i], 1),
+                     _DTYPE_CODE[dtypes[i]]]
+        table = (ctypes.c_longlong * len(rows))(*rows)
+        B.check(lib, lib.st_dec_group(table, len(launch.index), stream),
+                STDEC)
+        B.note_launch(STDEC)
+    return outs
+
+
+def _slot_stride(x: torch.Tensor) -> int | None:
+    """Elements between two slots' rows of a (B, *feat) tensor whose rows
+    are each contiguous (a strided view of whole rows included); None
+    where a row is not."""
+    expect = 1
+    for size, st in zip(reversed(x.shape[1:]), reversed(x.stride()[1:])):
+        if size != 1 and st != expect:
+            return None
+        expect *= size
+    return x.stride(0)
+
+
+def state_encode_many(codes: list[torch.Tensor], scales: list[torch.Tensor],
+                      news: list[list[torch.Tensor]], active: torch.Tensor,
+                      bits: int) -> None:
+    """Write every layer's new state into the pool, in place: ``news[n][l]``
+    (B, *feat) into layer l of the (L, B, *feat) int8 pool tensor
+    ``codes[n]`` and its (L, B) ``scales[n]``, a ``per_tensor_max`` scale
+    per slot, only where the (B,) bool ``active`` is set (one device). On
+    the card one ``st_enc_group`` launch for up to ``grouped.ST_CAP``
+    pieces and ``grouped.ST_PTR_CAP`` new states (``grouped.st_enc_plan``),
+    ``active`` read on the device; on the CPU the plain version."""
+    _st_encode(codes, scales, news, active, bits)
+
+
+def _st_encode(codes, scales, news, active, bits,
+               reread: bool = False) -> None:
+    """``state_encode_many``. ``reread`` has every launch re-read its
+    values from global memory in the second pass where the plan would
+    stage them in shared memory: a yardstick ``chip_smoke.py`` times, on
+    no path."""
+    if len(news) != len(codes):
+        raise ValueError(f"{STENC}: {len(codes)} pool tensors and "
+                         f"{len(news)} lists of new states")
+    _check_state_pool(STENC, codes, scales)
+    for q, layers in zip(codes, news):
+        if len(layers) != q.shape[0]:
+            raise ValueError(f"{STENC}: {len(layers)} new states for "
+                             f"{q.shape[0]} layers")
+        for n in layers:
+            if tuple(n.shape) != tuple(q.shape[1:]):
+                raise ValueError(f"{STENC}: a new state of shape "
+                                 f"{tuple(n.shape)} for a pool of "
+                                 f"{tuple(q.shape)}")
+    if not codes:
+        return
+    slots = codes[0].shape[1]
+    if tuple(active.shape) != (slots,) or any(q.shape[1] != slots
+                                              for q in codes):
+        raise ValueError(f"{STENC}: want {slots} slots in every pool tensor "
+                         f"and (B,) active, got {tuple(active.shape)}")
+    _one_device(codes, [n for layers in news for n in layers] + [active],
+                STENC)
+    if not codes[0].is_cuda:
+        return state_encode_many_plain(codes, scales, news, active, bits)
+    _check_state_card(STENC, codes, scales)
+    if not 2 <= bits <= 8:
+        raise ValueError(f"{STENC}: int8 storage holds 2..8 bits, got {bits}")
+    if active.dtype != torch.bool or not active.is_contiguous():
+        raise TypeError(f"{STENC}: active must be a contiguous bool tensor")
+    dts, strides = [], []
+    for layers in news:
+        kinds = {n.dtype for n in layers}
+        if len(kinds) > 1 or not kinds <= set(_DTYPE_CODE):
+            raise TypeError(f"{STENC}: a pool tensor's new states must share "
+                            f"one of {sorted(map(str, _DTYPE_CODE))}, got "
+                            f"{sorted(map(str, kinds))}")
+        dts.append(next(iter(kinds), torch.float32))
+        st = [_slot_stride(n) for n in layers]
+        if None in st:
+            raise ValueError(f"{STENC}: a new state's slot rows must each be "
+                             "contiguous")
+        strides.append(st)
+    feats = [_state_feat(q) for q in codes]
+    lib = _state_lib()
+    stream = torch.cuda.current_stream(codes[0].device).cuda_stream
+    for launch in G.st_enc_plan([(q.shape[0], slots, f, dt.itemsize)
+                                 for q, f, dt in zip(codes, feats, dts)]):
+        stage = launch.stage and not reread
+        pieces, ptrs = [], []
+        for pc, end in zip(launch.pieces, launch.task_end):
+            i, off = pc.entry, pc.layer0 * slots
+            pieces += [codes[i].data_ptr() + off * pc.feat,
+                       scales[i].data_ptr() + 4 * off, pc.feat,
+                       _DTYPE_CODE[dts[i]], pc.rows, pc.ptr0, int(pc.big),
+                       end]
+            for lay in range(pc.layer0, pc.layer0 + pc.layers):
+                ptrs += [news[i][lay].data_ptr(), strides[i][lay]]
+        ptab = (ctypes.c_longlong * len(pieces))(*pieces)
+        stab = (ctypes.c_longlong * max(len(ptrs), 1))(*ptrs)
+        B.check(lib, lib.st_enc_group(
+            ptab, len(launch.pieces), stab, launch.ptrs, active.data_ptr(),
+            slots, bits, int(stage), launch.stage_bytes if stage else 0,
+            stream), STENC)
+        B.note_launch(STENC)
+
 
 _STORAGE_NAME = {torch.int8: "int8", torch.int16: "int16",
                  torch.int32: "int32", torch.float32: "float32"}

@@ -38,10 +38,12 @@ Sublayer routing: attention sublayers read and write the paged KV pool;
 mamba and rwkv6 sublayers the slot-indexed recurrent-state pool
 (``serve/state_cache.py``), through the forwards of ``models/ssm.py``
 that static decode runs (at S = 1 for the decode step). A decode
-step reads each such layer's state for every slot (one ``p2_dec_rows``
-launch a state tensor on an int8 pool), advances it one token and writes
-the active slots back (one ``p2_enc_rows``); a chunk step reads and
-writes the one slot's (``p2_dec`` / ``p2_enc``); a whole-prompt prefill
+step reads every such layer's state for every slot before its first layer
+(``state_cache.read_step``: one ``st_dec_group`` launch on an int8 pool),
+advances each layer's one token and writes the active slots' new states
+back after its last layer (``write_step``: one ``st_enc_group``); a chunk
+step reads and writes the one slot's a layer (``p2_dec`` / ``p2_enc``); a
+whole-prompt prefill
 writes every layer's at once (one ``p2_enc_rows`` a tensor, ``p2_enc``
 when the stack is one period deep). A stateful arch resets the slot's
 state on admission, prefills exact-length (no bucket pad, no padded
@@ -209,6 +211,12 @@ class Engine:
         self.pool = KC.init_pool(lm, self.pcfg, self.device)
         self.spool = SC.init_state_pool(lm, self.pcfg.num_slots, self.scfg,
                                         self.device)
+        # the natural dtype of each state tensor, as the decode step reads it
+        self._state_dtypes = {
+            f"sub_{i}": {n: SC.natural_dtype(kind, lm.cfg) for n, (_, kind)
+                         in SC.state_feature_shapes(sub, lm.cfg).items()}
+            for i, sub in enumerate(lm.period)
+            if sub.mixer_kind in STATE_MIXERS}
         # prefix sharing needs per-token paged memory: attention-only archs
         # opt in; a recurrent sublayer sends every request down the full
         # prefill (the cache is simply absent)
@@ -288,17 +296,32 @@ class Engine:
         x = embed_tokens(params, tokens, lm)
         positions = lens[:, None] + torch.arange(
             tokens.shape[1], dtype=lens.dtype, device=lens.device)
+        # the target's decode step only: spec (S > 1, and the draft) is
+        # attention-only. Layer l's state is read only by layer l and what
+        # it writes only by the next step: read all before the first
+        # layer, write all after the last.
+        stateful = any(sub.mixer_kind in STATE_MIXERS for sub in lm.period)
+        if stateful:
+            states = SC.read_step(self.spool, self._state_dtypes, self.scfg)
+            new = {k: {n: [] for n in kinds}
+                   for k, kinds in self._state_dtypes.items()}
         for layer, pp in enumerate(params["layers"]):
             for i, sub in enumerate(lm.period):
+                key = f"sub_{i}"
                 if sub.mixer_kind in STATE_MIXERS:
-                    # the target's decode step only: spec (S > 1, and the
-                    # draft) is attention-only
-                    x = self._sub_decode_state(pp[f"sub_{i}"], x, layer,
-                                               f"sub_{i}", sub, active)
+                    # advance every slot one token; write_step encodes the
+                    # new state after the last layer
+                    x, st = self._state_mix(
+                        pp[key], x, sub,
+                        {n: t[layer] for n, t in states[key].items()})
+                    for n, t in st.items():
+                        new[key][n].append(t)
                     continue
-                x = self._sub_block(lm, pool, pcfg, fused, pp[f"sub_{i}"], x,
-                                    layer, f"sub_{i}", sub, table, lens,
+                x = self._sub_block(lm, pool, pcfg, fused, pp[key], x,
+                                    layer, key, sub, table, lens,
                                     active, positions)
+        if stateful:
+            SC.write_step(self.spool, new, active, self.scfg)
         x = rms_norm(x, params["final_norm"]["scale"], lm.cfg.norm_eps)
         return apply_site(params["head"], x, lm.head, lm.cfg)
 
@@ -319,24 +342,6 @@ class Engine:
         out2, st2 = S.rwkv6_channel_mix(pp["mixer"], h2, sub.mixer, cfg,
                                         state)
         return x + out2, {**st1, **st2}
-
-    def _sub_decode_state(self, pp: dict, x: torch.Tensor, layer: int,
-                          key: str, sub, active) -> torch.Tensor:
-        """One recurrent sublayer of the decode step: decode every slot's
-        state, advance one token through the mixer's forward, encode the
-        active lanes back (inactive lanes keep their
-        codes and scale)."""
-        cfg = self.lm.cfg
-        shapes = SC.state_feature_shapes(sub, cfg)
-        data = {n: t[layer] for n, t in self.spool["data"][key].items()}
-        scale = {n: t[layer] for n, t in self.spool["scale_log2"][key].items()}
-        state = {n: SC.read_layer(data[n], scale[n],
-                                  SC.natural_dtype(kind, cfg), self.scfg)
-                 for n, (_, kind) in shapes.items()}
-        x, new_state = self._state_mix(pp, x, sub, state)
-        for n in shapes:
-            SC.write_layer(data[n], scale[n], new_state[n], active, self.scfg)
-        return x
 
     @torch.no_grad()
     def _decode(self, table, lens, active, tokens) -> torch.Tensor:

@@ -12,13 +12,21 @@ Quantization (the ``ssm_state`` site of ``NumericsPolicy``): states are
 int8 codes on the pow-2 grid with one ``scale_log2`` per (layer, slot,
 tensor), re-chosen at every overwrite from the tensor written
 (``per_tensor_max``; recurrent state amplitude drifts with the decay) and
-decoded on read just before the recurrence step. Every encode and decode
-is one launch of the codec kernels through ``numerics/cuda_backend.py``
-(their plain versions on CPU tensors), the kernel chosen by the size of
-the scale as the reference's Pallas backend chooses it: a scale per row
-(``num_slots`` > 1 or ``L`` > 1) takes ``p2_enc_rows`` / ``p2_dec_rows``,
-a single-element scale (one slot, or one layer) ``p2_enc`` / ``p2_dec``.
-A model-dtype pool runs no kernel.
+decoded on read just before the recurrence step. A decode step reads the
+whole pool before its first layer and writes it after its last
+(``read_step`` / ``write_step``): in a decode step layer l's state is read
+only by layer l and only the next step reads what it writes, so on an int8
+pool the step costs two launches, ``st_dec_group`` and ``st_enc_group``
+(``kernels/csrc/state_codec.cu`` through ``numerics/cuda_backend.py``;
+their plain versions, loops over ``read_layer`` / ``write_layer``'s
+arithmetic, on CPU tensors), the encode choosing each (layer, slot)'s scale
+and masking the inactive slots on the device. The per-layer primitives
+(the chunk step's one slot, a whole-prompt prefill's write) are one launch
+of the codec kernels each, chosen by the size of the scale as the
+reference's Pallas backend chooses it: a scale per row (``num_slots`` > 1
+or ``L`` > 1) takes ``p2_enc_rows`` / ``p2_dec_rows``, a single-element
+scale (one slot, or one layer) ``p2_enc`` / ``p2_dec``. A model-dtype pool
+runs no kernel.
 
 In-place updates: where the reference donates the pool to a jitted step
 and rebuilds it with ``.at[].set``, the functions below write into the
@@ -27,9 +35,11 @@ symmetry with the reference.
 
 Lifecycle hooks the engine drives: ``reset_slot`` (zero a slot on
 admission), ``write_prefill`` (the post-prompt state ``lm_forward``
-returns, all layers of one slot), ``read_layer`` / ``write_layer`` (the
-per-layer decode primitives, active-masked: inactive lanes keep their
-codes and scale), ``write_slot`` (the chunk step's end-of-chunk state),
+returns, all layers of one slot), ``read_step`` / ``write_step`` (the
+decode step's whole pool, active-masked: inactive lanes keep their codes
+and scale), ``read_layer`` / ``write_layer`` (the per-layer primitives the
+step's plain versions follow), ``write_slot`` (the chunk step's
+end-of-chunk state),
 ``snapshot_slot`` / ``restore_slot`` (park and unpark one slot) and
 ``pool_bytes`` / ``pool_bytes_fp32`` (``ServeMetrics.state_bytes``).
 The reference's ``write_health`` and the snapshot trace events wait for
@@ -43,6 +53,7 @@ import torch
 
 from ..models.common import torch_dtype
 from ..numerics import QTensor, QuantSpec, get_codec, per_tensor_max_scale_log2
+from ..numerics import cuda_backend as CB
 from .kv_cache import CODEC_BACKEND, _leaves
 
 
@@ -191,6 +202,57 @@ def write_slot(data_l: torch.Tensor, scale_l: torch.Tensor,
     else:
         data_l[slot] = new.to(data_l.dtype)
     return data_l, scale_l
+
+
+# ---------------------------------------------------------------------------
+# The decode step's whole pool (the engine's decode step)
+# ---------------------------------------------------------------------------
+
+def _step_keys(tree: dict) -> list[tuple[str, str]]:
+    return [(key, name) for key, kinds in tree.items() for name in kinds]
+
+
+def read_step(pool: dict, dtypes: dict, scfg: StateCacheConfig) -> dict:
+    """Every layer's state of every tensor named in ``dtypes`` ({sub:
+    {name: dtype}}) for all slots, before a decode step's first layer:
+    {sub: {name: (L, num_slots, *feat) of that dtype}}. On an int8 pool one
+    ``st_dec_group`` launch (``cuda_backend.state_decode_many``) into a
+    fresh workspace; on a model-dtype pool the pool's own tensors where the
+    dtypes agree (``read_layer``'s views), no kernel."""
+    keys = _step_keys(dtypes)
+    data = [pool["data"][k][n] for k, n in keys]
+    want = [dtypes[k][n] for k, n in keys]
+    if scfg.quantized:
+        ys = CB.state_decode_many(
+            data, [pool["scale_log2"][k][n] for k, n in keys], want)
+    else:
+        ys = [d.to(dt) for d, dt in zip(data, want)]
+    out: dict = {}
+    for (k, n), y in zip(keys, ys):
+        out.setdefault(k, {})[n] = y
+    return out
+
+
+def write_step(pool: dict, new_states: dict, active: torch.Tensor,
+               scfg: StateCacheConfig) -> dict:
+    """Write a decode step's new states ({sub: {name: [(num_slots, *feat)
+    a layer]}}) into the pool after its last layer, in place; inactive
+    lanes keep their codes and scale. On an int8 pool one ``st_enc_group``
+    launch (``cuda_backend.state_encode_many``: a ``per_tensor_max`` scale
+    per (layer, slot), chosen on the device, ``write_layer``'s codes); on a
+    model-dtype pool ``write_layer``'s masked copy a layer, no kernel."""
+    keys = _step_keys(new_states)
+    if scfg.quantized:
+        CB.state_encode_many([pool["data"][k][n] for k, n in keys],
+                             [pool["scale_log2"][k][n] for k, n in keys],
+                             [new_states[k][n] for k, n in keys], active,
+                             scfg.bits)
+        return pool
+    for k, n in keys:
+        for layer, new in enumerate(new_states[k][n]):
+            write_layer(pool["data"][k][n][layer],
+                        pool["scale_log2"][k][n][layer], new, active, scfg)
+    return pool
 
 
 # ---------------------------------------------------------------------------

@@ -90,7 +90,18 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
     stream tasks at b = 256, 512 and 1,024 (ragged row ends, rows of one
     block, a long row, a view one float in, all-zero blocks; int8, int16,
     int32 and float32 codes) bit for bit with the twin, the previous tasks
-    and a second launch.
+    and a second launch;
+(r) the decode step's state groups (``st_dec_group`` / ``st_enc_group``)
+    bit for bit with their twins, with the per-layer route (``read_layer``
+    / ``write_layer``) and over two launches: large rows (clusters) and
+    small rows (a CTA each) in one launch, f32, bf16 and f16 states, a
+    strided view (the Mamba conv state), rows that are no multiple of 16
+    and an unaligned view (the element paths), a mixed ``active`` whose
+    inactive slot keeps its codes and scales, an all-zero row and maxima
+    at ``127 * 2^k`` and their neighbours, the re-read second pass, one
+    launch each way and more past the caps; the wrappers refuse what the
+    kernels do not take; an int8 rwkv6 engine's decode step launches one
+    of each and no row codec kernel.
 """
 import math
 
@@ -1834,3 +1845,164 @@ def test_bw_group_stream_tasks_bit_identical(cuda, block, storage, bits):
         for other, osc in ((rc, rs), (pc, ps), (ac, asc)):
             assert _bits_eq(c, other) and _bits_eq(sc, osc)
     assert (got[0][1][0, :2] == 0).all() and not got[0][0][0, :2 * block].any()
+
+
+# ---------------------------------------------------------------------------
+# (r) the decode step's state groups
+# ---------------------------------------------------------------------------
+
+def _st_case(cuda, seed, entries, slots=4):
+    """A state pool of ``entries`` ((layers, feat shape, dtype, strided)),
+    random codes and scales, and new states each row at its own magnitude
+    (``strided``: a view of whole rows with a gap between slots, as the
+    Mamba conv state); the first f32 tensor's rows hold maxima at
+    ``127 * 2^k`` and neighbours, its last row zero."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    codes, scales, news, dts = [], [], [], []
+    for layers, feat, dt, strided in entries:
+        codes.append(torch.randint(-128, 128, (layers, slots) + feat,
+                                   generator=g, device=cuda,
+                                   dtype=torch.int8))
+        scales.append(torch.randint(-9, 3, (layers, slots), generator=g,
+                                    device=cuda).float())
+        lay = []
+        for _ in range(layers):
+            mag = torch.exp2(torch.randint(-6, 7, (slots,) + (1,) * len(feat),
+                                           generator=g, device=cuda).float())
+            full = (slots, feat[0] + (1 if strided else 0)) + feat[1:]
+            x = (torch.randn(full, generator=g, device=cuda)
+                 * mag).to(dt)
+            lay.append(x[:, 1:] if strided else x)
+        news.append(lay)
+        dts.append(dt)
+    e = next(i for i, d in enumerate(dts) if d == torch.float32)
+    base = torch.tensor([127.0 * 2.0 ** -2]).view(torch.int32)
+    for b in range(slots):
+        for lay, x in enumerate(news[e]):
+            v = float((base + (lay * slots + b) % 7 - 3).view(torch.float32))
+            row = x[b].reshape(-1)
+            row.copy_(row / row.abs().max() * (v / 2))
+            row[0] = v
+    news[e][-1][-1].zero_()
+    return codes, scales, news, dts
+
+
+ST_ENTRIES = [(3, (2, 4096), torch.float32, False),     # clusters, staged
+              (3, (1, 96), torch.bfloat16, False),      # a CTA a row
+              (2, (3, 12000), torch.bfloat16, True),    # strided, clusters
+              (2, (5, 7), torch.float16, False),        # the element path
+              (3, (64, 64), torch.float32, False)]
+
+
+@pytest.mark.parametrize("active", [[True, False, True, True],
+                                    [True] * 4])
+def test_state_groups_bit_identical(cuda, active):
+    from repro_torch.serve import state_cache as SC
+    scfg = SC.StateCacheConfig(quantized=True)
+    codes, scales, news, dts = _st_case(cuda, 1, ST_ENTRIES)
+    act = torch.tensor(active, device=cuda)
+    B.reset_launches()
+    ys = CB.state_decode_many(codes, scales, dts)
+    torch.cuda.synchronize()
+    assert dict(B.LAUNCHES) == {"st_dec_group": 1}
+    again = CB.state_decode_many(codes, scales, dts)
+    for y, a, t, q, s, dt in zip(ys, again, CB.state_decode_many_plain(
+            codes, scales, dts), codes, scales, dts):
+        per = torch.stack([SC.read_layer(q[lay], s[lay], dt, scfg)
+                           for lay in range(q.shape[0])])
+        for other in (a, t, per):
+            assert _bits_eq(y, other)
+    pools = [([q.clone() for q in codes], [s.clone() for s in scales])
+             for _ in range(4)]
+    B.reset_launches()
+    CB.state_encode_many(*pools[0], news, act, 8)
+    torch.cuda.synchronize()
+    assert dict(B.LAUNCHES) == {"st_enc_group": 1}
+    CB.state_encode_many_plain(*pools[1], news, act, 8)
+    for q, s, layers in zip(*pools[2], news):
+        for lay, x in enumerate(layers):
+            SC.write_layer(q[lay], s[lay], x, act, scfg)
+    CB._st_encode(*pools[3], news, act, 8, reread=True)
+    for qs, ss in pools[1:]:
+        for a, b in zip(pools[0][0] + pools[0][1], qs + ss):
+            assert _bits_eq(a, b)
+    off = ~act
+    for a, b in zip(pools[0][0] + pools[0][1], codes + scales):
+        assert torch.equal(a[:, off], b[:, off])
+    CB.state_encode_many(*pools[0], news, act, 8)       # a second launch
+    for a, b in zip(pools[0][0] + pools[0][1], pools[1][0] + pools[1][1]):
+        assert _bits_eq(a, b)
+    assert not pools[0][0][0][-1, -1].any() or not act[-1]
+
+
+def test_state_groups_past_their_caps(cuda):
+    from repro_torch.kernels import grouped as G
+    ents = [(1, (40,), torch.float32, False)] * (G.ST_CAP + 3)
+    codes, scales, news, dts = _st_case(cuda, 2, ents, slots=2)
+    act = torch.tensor([True, True], device=cuda)
+    want = CB.state_decode_many_plain(codes, scales, dts)
+    ref = ([q.clone() for q in codes], [s.clone() for s in scales])
+    B.reset_launches()
+    ys = CB.state_decode_many(codes, scales, dts)
+    CB.state_encode_many(codes, scales, news, act, 8)
+    torch.cuda.synchronize()
+    assert dict(B.LAUNCHES) == {"st_dec_group": 2, "st_enc_group": 2}
+    for y, t in zip(ys, want):
+        assert _bits_eq(y, t)
+    CB.state_encode_many_plain(*ref, news, act, 8)
+    for a, b in zip(codes + scales, ref[0] + ref[1]):
+        assert _bits_eq(a, b)
+    deep = [(G.ST_PTR_CAP + 5, (2, 64), torch.float32, False)]
+    codes, scales, news, dts = _st_case(cuda, 3, deep, slots=2)
+    ref = ([q.clone() for q in codes], [s.clone() for s in scales])
+    B.reset_launches()
+    CB.state_encode_many(codes, scales, news, act, 4)
+    torch.cuda.synchronize()
+    assert dict(B.LAUNCHES) == {"st_enc_group": 2}
+    CB.state_encode_many_plain(*ref, news, act, 4)
+    for a, b in zip(codes + scales, ref[0] + ref[1]):
+        assert _bits_eq(a, b)
+
+
+def test_state_group_wrappers_refuse_on_card(cuda):
+    codes, scales, news, dts = _st_case(cuda, 4, [(2, (2, 32), torch.float32,
+                                                   False)])
+    act = torch.ones(4, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError, match="int8"):
+        CB.state_decode_many([codes[0].to(torch.int16)], scales, dts)
+    with pytest.raises(ValueError, match="contiguous"):
+        CB.state_decode_many([codes[0].transpose(0, 1)],
+                             [scales[0].transpose(0, 1)], dts)
+    with pytest.raises(ValueError, match="2..8 bits"):
+        CB.state_encode_many(codes, scales, news, act, 9)
+    with pytest.raises(TypeError, match="share"):
+        CB.state_encode_many(codes, scales, [[news[0][0],
+                                              news[0][1].half()]], act, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        CB.state_encode_many(codes, scales, [[x.transpose(1, 2).contiguous()
+                                              .transpose(1, 2)
+                                              for x in news[0]]], act, 8)
+    with pytest.raises(TypeError, match="bool"):
+        CB.state_encode_many(codes, scales, news, act.int(), 8)
+    with pytest.raises(ValueError, match="one device"):
+        CB.state_encode_many(codes, scales, news, act.cpu(), 8)
+
+
+def test_engine_decode_step_launches_the_state_groups(cuda):
+    """An int8 rwkv6 engine (reduced, f32) on the card: each decode step one
+    ``st_dec_group`` and one ``st_enc_group`` and no row codec kernel; the
+    prefill writes each tensor's layer stack with ``p2_enc_rows``."""
+    lm = build_lm(C.get_reduced("rwkv6-1.6b").replace(dtype="float32"))
+    params = init_lm(torch.Generator(device=cuda).manual_seed(0), lm,
+                     device=cuda)
+    eng = Engine(lm, params, EngineConfig(pool=PoolConfig(
+        num_slots=2, quantized=True)), device=cuda)
+    eng.submit([5, 3, 9, 1], max_new_tokens=5)
+    eng.submit([2, 7], max_new_tokens=3)
+    B.reset_launches()
+    eng.run()
+    steps = eng.summary()["decode_steps"]
+    assert lm.n_periods > 1 and steps >= 4
+    assert dict(B.LAUNCHES) == {"st_dec_group": steps,
+                                "st_enc_group": steps,
+                                "p2_enc_rows": 2 * 3}
