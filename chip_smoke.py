@@ -66,7 +66,21 @@ Phases (any failure raises and the script exits non-zero):
              neighbours and an all-zero row; one launch each way (the
              plan's count); each timed beside the per-layer route
              (``previous_ms``), its plain twin and its byte bound, the
-             encode also re-reading its values (``reread_ms``).
+             encode also re-reading its values (``reread_ms``). Then the
+             chunk step's and the prefill's one-slot launches at rwkv6's
+             full slot (24 layers) and jamba's period in a pool of 8
+             slots: st_dec_slot and st_enc_slot for the first, a middle
+             and the last slot, one launch each (the plan's count), bit
+             for bit with their twins and the per-layer route they
+             replaced (read_layer / write_slot: p2_dec, p2_enc and the
+             scale's eager ops a (layer, tensor)), scale edges and an
+             all-zero row in them, no other slot written; the prefill
+             write (write_prefill: the same launch) bit for bit with the
+             previous prefill route (p2_enc_rows a tensor, p2_enc for a
+             one-layer stack); each timed beside the per-layer route, its
+             twin and its byte bound, the encode also re-reading its
+             values and with a CTA a row, the prefill beside its previous
+             route.
    train kernels — the training kernels at the step's shapes: the scalar
              fake-quant bit-exact at 4/8/16 bits in f32 and bf16, each
              layer's cores in one grouped fake-quant launch (layer 1's 4,
@@ -150,23 +164,31 @@ Phases (any failure raises and the script exits non-zero):
              from an int8 state pool, an fp pool and, chunked (128), the
              int8 pool; counts zeroed just before and read just after
              each run, exact: 1 st_dec_group + 1 st_enc_group a decode
-             step (the plans' counts; no p2_dec_rows or p2_enc_rows), 3
-             p2_enc_rows a whole-prompt prefill, 72 p2_dec + 72 p2_enc a
-             chunk step, no kernel on the fp pool; no KV kernel,
+             step, 1 st_enc_slot a whole-prompt prefill, 1 st_dec_slot +
+             1 st_enc_slot a chunk step (the plans' counts; no p2_dec_rows,
+             p2_enc_rows, p2_dec or p2_enc), no kernel on the fp pool; no
+             KV kernel,
              cache_bytes 0, every slot free at the end, state_reduction
              >= 3.5; a replay of 3 int8 decode steps (7 of 8 slots busy)
              through the engine and again, from the same pool, through
-             the per-layer route: logits and every pool byte equal; the
-             int8-vs-fp greedy agreement (bf16) reported; the decode
+             the per-layer route: logits and every pool byte equal; a
+             replay of a chunked prefill (a 300-token prompt in chunks of
+             128 into the last slot) through the engine and the per-layer
+             route (lm_forward + p2_enc_rows, then read_layer /
+             write_slot a (layer, tensor)): logits and every pool byte
+             equal; the int8-vs-fp greedy agreement (bf16) reported; the
+             decode
              step, a 512-token prefill and a chunk step timed and
              profiled, the state kernels asserted by name.
    serve hybrid — jamba-1.5-large with dense FFNs at full width for one
              period (8 layers: 7 Mamba, 1 attention; ~9.0 B parameters),
              8 requests x 64 new tokens over an int8 KV pool and an int8
-             state pool, fused attention: a decode step 1 st_dec_group +
-             1 st_enc_group, 1 p2_append_paged, 1 split + 1 combine; a
-             prefill 14 p2_enc (a one-layer stack has one scale) and 1
-             p2_prefill_paged; by counter and by profile name.
+             state pool, fused attention, whole-prompt and chunked (128):
+             a decode step 1 st_dec_group + 1 st_enc_group, 1
+             p2_append_paged, 1 split + 1 combine; a prefill 1
+             st_enc_slot and 1 p2_prefill_paged; a chunk step 1
+             st_dec_slot + 1 st_enc_slot, 1 p2_append_paged and 1
+             p2_read_paged; by counter and by profile name.
    ssm identity — fp32: rwkv6 with 4 layers at full width and the reduced
              jamba with dense FFNs: the engine (slots recycling) equals
              static decode (lm_forward with its cache, then lm_decode_step
@@ -321,17 +343,20 @@ the three prints a result line.
 
 ``python3 chip_smoke.py --tokens PATH [--src DIR]`` serves the engine
 phase's requests (fused and gather), the chunked-prefix run's and the int8
-rwkv6-1.6b and jamba runs at full width with the port found under DIR
-(default: this checkout's ``src``; another tree's ``src`` compares two
-versions in one call) and writes their greedy tokens to PATH as JSON; no
-result line. ``--steps PATH [--src DIR]`` likewise profiles a
-whole-prompt prefill of 512 tokens, the chunk step, the fused and gather
-decode steps and the int8 rwkv6-1.6b and jamba decode steps (host wall,
-device time, the pool kernels' launches, peak memory) and writes them to
-PATH, asserting nothing.
-``--pe-repeat N`` launches each of the LM's PE2 calls on the tensor
-cores N times into NaN-filled outputs and logs every launch whose bits
-differ from the first; no result line. ``--deploy PATH [--src DIR]``
+rwkv6-1.6b and jamba runs (whole-prompt and chunked) at full width with
+the port found under DIR (default: this checkout's ``src``; another
+tree's ``src`` compares two versions in one call) and writes their greedy
+tokens to PATH as JSON; no result line. ``--steps PATH [--src DIR]``
+likewise profiles a whole-prompt prefill of 512 tokens, the chunk step,
+the fused and gather decode steps and the int8 rwkv6-1.6b and jamba
+decode steps, chunk steps and whole-prompt prefills (host wall, device
+time, the pool kernels' launches, peak memory) and writes them to PATH,
+asserting nothing.
+``--pe-repeat N`` replays ``lm kernels``' check sequence (kernel, plain
+twin, cuBLAS yardstick, plan, kernel again into a fresh allocation) N
+times for each of the LM's PE1, PE2 and PE3 calls, plus one PE2 launch a
+round into a NaN-filled output, and logs every launch whose bits differ;
+no result line. ``--deploy PATH [--src DIR]``
 likewise times the deploy export's packed
 encode and decode of the six FMNIST cores, core by core and (where the
 port has them) as one group each, and the host wall of
@@ -1484,14 +1509,16 @@ def _profile_decode(torch, lm, params, prompts, steps: int = 20,
 def _profile_prefill(torch, lm, params, prompts, reps: int = 10,
                      want=None, names=KV_KERNEL_FNS,
                      what: str = "prefill", cpu: bool = True,
-                     window_tokens: int = 512) -> dict:
+                     window_tokens: int = 512,
+                     window_reps: int | None = None) -> dict:
     """One whole-prompt prefill at full width (512 tokens into slot 0 of
     the int8 pool: ``lm_forward`` and the pool writes), repeated: host wall
-    per prefill (synchronised), then one profiled window for the device
-    time per kernel and the pool kernels' launches, of prefills of the
-    prompt's first ``window_tokens`` (a shorter window keeps a recurrent
-    scan's trace small; its host wall is timed too). Each repeat rewrites
-    the slot's pages and scales with the same values."""
+    per prefill (synchronised) and the peak memory over the repeats, then
+    one profiled window for the device time per kernel and the pool
+    kernels' launches, of ``window_reps`` (default ``reps``) prefills of
+    the prompt's first ``window_tokens`` (a shorter window keeps a
+    recurrent scan's trace small; its host wall is timed too). Each repeat
+    rewrites the slot's pages and scales with the same values."""
     from repro_torch.serve import Engine, EngineConfig, PoolConfig
     eng = Engine(lm, params, EngineConfig(
         pool=PoolConfig(num_slots=8, page_size=16, pages_per_slot=64,
@@ -1503,11 +1530,15 @@ def _profile_prefill(torch, lm, params, prompts, reps: int = 10,
     table_row = eng._tensor(eng.sched.page_table[0])
     eng._prefill(prompt, table_row, 0)
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(reps):
         eng._prefill(prompt, table_row, 0)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / reps
+    peak = torch.cuda.max_memory_allocated()
+    window_reps = window_reps or reps
     short = prompt[:window_tokens]
     win_wall = wall
     if len(short) < len(prompt):
@@ -1518,12 +1549,14 @@ def _profile_prefill(torch, lm, params, prompts, reps: int = 10,
         win_wall = (time.perf_counter() - t0) / reps
     prof, kern = _profile_window(
         torch, lambda: [eng._prefill(short, table_row, 0)
-                        for _ in range(reps)], reps, names,
+                        for _ in range(window_reps)], window_reps, names,
         _kv_want(want), what, cpu=cpu)
-    total, rows = _device_summary(torch, prof, reps)
+    total, rows = _device_summary(torch, prof, window_reps)
     log(f"{what} profile: S=512 {wall*1e3:.2f} ms per prefill (host wall); "
         f"profiled S={len(short)}: {win_wall*1e3:.2f} ms host, device "
-        f"{total:.3f} ms busy, busy share {total / (win_wall*1e3):.3f}")
+        f"{total:.3f} ms busy, busy share {total / (win_wall*1e3):.3f}; "
+        f"peak memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**20:.1f} "
+        "MiB above the engine's resident bytes)")
     for r in rows:
         log(f"  {r['ms_per_step']:8.3f} ms  {r['calls_per_step']:6.1f}x  "
             f"{r['name']}")
@@ -1531,7 +1564,7 @@ def _profile_prefill(torch, lm, params, prompts, reps: int = 10,
     return {"step_ms": wall * 1e3, "window_tokens": len(short),
             "window_ms": win_wall * 1e3, "device_ms": total,
             "busy_share": total / (win_wall * 1e3), "top": rows,
-            "kernels": kern}
+            "kernels": kern, "peak_bytes": peak, "step_bytes": peak - base}
 
 
 SPEC_K = 3                  # draft tokens a round
@@ -3524,11 +3557,14 @@ def phase_serve_chunked(torch, lm, params) -> dict:
 
 def _profile_chunk(torch, lm, params, prompts, reps: int = 10,
                    want=None, names=KV_KERNEL_FNS,
-                   what: str = "chunk step", cpu: bool = True) -> dict:
+                   what: str = "chunk step", cpu: bool = True,
+                   window_reps: int | None = None) -> dict:
     """One chunk step at full width (128 tokens at position 256 of a slot
     whose history holds 384 prompt tokens), repeated: host wall per step
-    (synchronised), then one profiled window for the device time per
-    kernel. The step rewrites the same positions with the same values."""
+    (synchronised) and the peak memory over the repeats, then one profiled
+    window of ``window_reps`` (default ``reps``) steps for the device time
+    per kernel. The step rewrites the same positions with the same
+    values."""
     from repro_torch.serve import Engine, EngineConfig, PoolConfig
     eng = Engine(lm, params, EngineConfig(
         pool=PoolConfig(num_slots=8, page_size=16, pages_per_slot=64,
@@ -3541,25 +3577,31 @@ def _profile_chunk(torch, lm, params, prompts, reps: int = 10,
     toks = prompt[256:384]
     eng._chunk(toks, table_row, 0, 256)
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(reps):
         eng._chunk(toks, table_row, 0, 256)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / reps
+    peak = torch.cuda.max_memory_allocated()
+    window_reps = window_reps or reps
     prof, kern = _profile_window(
         torch, lambda: [eng._chunk(toks, table_row, 0, 256)
-                        for _ in range(reps)], reps, names,
+                        for _ in range(window_reps)], window_reps, names,
         _kv_want(want), what, cpu=cpu)
-    total, rows = _device_summary(torch, prof, reps)
+    total, rows = _device_summary(torch, prof, window_reps)
     log(f"{what} profile: {wall*1e3:.2f} ms per step (host wall), "
-        f"device {total:.2f} ms busy, busy share {total / (wall*1e3):.3f}")
+        f"device {total:.2f} ms busy, busy share {total / (wall*1e3):.3f}; "
+        f"peak memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**20:.1f} "
+        "MiB above the engine's resident bytes)")
     for r in rows:
         log(f"  {r['ms_per_step']:8.3f} ms  {r['calls_per_step']:6.1f}x  "
             f"{r['name']}")
     _log_kernels(kern)
     return {"step_ms": wall * 1e3, "device_ms": total,
             "busy_share": total / (wall * 1e3), "top": rows,
-            "kernels": kern}
+            "kernels": kern, "peak_bytes": peak, "step_bytes": peak - base}
 
 
 def phase_chunked_identity(torch) -> dict:
@@ -3620,7 +3662,8 @@ def phase_chunked_identity(torch) -> dict:
 SSM_ARCH = "rwkv6-1.6b"
 HYBRID_ARCH = "jamba-1.5-large"
 PA_KV_FNS = KV_KERNEL_FNS + PA_KERNEL_FNS
-ST_KERNEL_FNS = ["st_dec_group_kernel", "st_enc_group_kernel"]
+ST_KERNEL_FNS = ["st_dec_group_kernel", "st_enc_group_kernel",
+                 "st_dec_slot_kernel", "st_enc_slot_kernel"]
 STATE_FNS = PA_KV_FNS + ST_KERNEL_FNS
 
 
@@ -3918,12 +3961,247 @@ def phase_state_group(torch, timer: Timer) -> dict:
                 f"{bms*1e3:.2f} us, {nbytes} B"
                 + (f", re-reading its values {enc_reread*1e3:.2f} us"
                    if extra else "") + ")")
+    out.update(_state_slot_rows(torch, timer, gen, scfg))
     return out
+
+
+SLOT_CASES = (0, 3, STATE_SLOTS - 1)       # first, middle and last slot
+TIMED_SLOT = 3
+
+
+def _state_slot_case(torch, gen, entries):
+    """A full pool of ``entries`` (random codes and scales, 8 slots) and one
+    slot's new states, a (1, *feat) a (layer, tensor), each at its own
+    magnitude; along the (tensor, layer) rows in order, row j of tensor e
+    holds its max at the j-th (mod 7) of ``127 * 2^k`` and its six
+    neighbours (k = -3 for even e, 2 for odd: every value of both kinds on
+    rwkv6's and on jamba's rows), and the last row is all zero."""
+    dts = [getattr(torch, d) for _, _, d in entries]
+    codes, scales, news = [], [], []
+    j = 0
+    for e, ((layers, feat, _), dt) in enumerate(zip(entries, dts)):
+        cols = math.prod(feat)
+        codes.append(torch.randint(-128, 128, (layers, STATE_SLOTS) + feat,
+                                   generator=gen, device="cuda",
+                                   dtype=torch.int8))
+        scales.append(torch.randint(-12, 4, (layers, STATE_SLOTS),
+                                    generator=gen, device="cuda").float())
+        edges = _edge_values(torch, dt, -3 if e % 2 == 0 else 2)
+        rows = []
+        for _ in range(layers):
+            row = _state_inputs(torch, gen, 1, cols, dt)[0].reshape(-1)
+            v = edges[j % 7]
+            row.copy_((row.float() / row.float().abs().max() * (v / 2))
+                      .to(dt))
+            row[0] = -v if j % 2 else v
+            rows.append(row.reshape((1,) + feat))
+            j += 1
+        news.append(rows)
+    news[-1][-1].zero_()
+    return codes, scales, news, dts
+
+
+def _state_slot_read(torch, SC, scfg, codes, scales, dts, b):
+    """The per-layer route's one-slot read (the previous design, the chunk
+    step's): ``read_layer`` of ``data[l][b][None]`` a (layer, tensor),
+    p2_dec each, stacked to (L, 1, *feat)."""
+    return [torch.stack([SC.read_layer(q[lay][b][None], s[lay][b][None],
+                                       dt, scfg)
+                         for lay in range(q.shape[0])])
+            for q, s, dt in zip(codes, scales, dts)]
+
+
+def _state_slot_write(SC, scfg, codes, scales, news, b):
+    """The per-layer route's one-slot write (the previous design, the chunk
+    step's): ``write_slot`` a (layer, tensor), p2_enc each."""
+    for q, s, layers in zip(codes, scales, news):
+        for lay, new in enumerate(layers):
+            SC.write_slot(q[lay], s[lay], new[0], b, scfg)
+
+
+def _state_prefill_previous(SC, scfg, pool, state, b):
+    """The previous whole-prompt prefill write: each tensor's (L, *feat)
+    stack under a scale per layer in one encode launch a tensor
+    (``p2_enc_rows``; ``p2_enc`` for a one-layer stack), then two index
+    copies."""
+    for key, kinds in state.items():
+        for name, arr in kinds.items():
+            codes, step = SC._encode(arr[:, 0], scfg)
+            pool["data"][key][name][:, b] = codes
+            pool["scale_log2"][key][name][:, b] = step
+
+
+def _state_slot_rows(torch, timer, gen, scfg) -> dict:
+    """The chunk step's and the prefill's one-slot launches at rwkv6-1.6b's
+    full slot (24 layers x shift, wkv, shift_ffn) and jamba's period (7
+    Mamba layers x conv, h) in a pool of 8 slots: for the first, a middle
+    and the last slot, ``st_dec_slot`` decodes the slot's every layer and
+    ``st_enc_slot`` encodes its new states (scale edges and an all-zero
+    row in them, ``_state_slot_case``), each one launch (the plan's
+    count), bit for bit with its plain twin (on the card) and with the
+    per-layer route it replaced (``read_layer`` / ``write_slot``: a p2_dec
+    and a p2_enc with the scale's eager ops a (layer, tensor)), every
+    other slot's codes and scales untouched; the prefill write
+    (``write_prefill``: the same launch over the stacked states) bit for
+    bit with the previous prefill route (``p2_enc_rows`` a tensor, or
+    ``p2_enc`` for jamba's one-layer stacks). Then each timed beside the
+    per-layer route (``previous_ms``), its twin and the byte bound; the
+    encode also re-reading its values (``reread_ms``) and with a CTA a
+    row (``cta_ms``), the prefill beside its previous route; and the host
+    wall of a chunk step's read and write, synchronised, beside the
+    per-layer route's."""
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import grouped as G
+    from repro_torch.numerics import cuda_backend as CB
+    from repro_torch.serve import state_cache as SC
+    out = {"st_dec_slot": [], "st_enc_slot": []}
+    for what, entries in (("rwkv6-1.6b chunk step / prefill", RWKV6_STEP),
+                          ("jamba period chunk step / prefill",
+                           JAMBA_STEP)):
+        codes, scales, news, dts = _state_slot_case(torch, gen, entries)
+        feats = [math.prod(q.shape[2:]) for q in codes]
+        want_dec = len(G.st_dec_plan([(q.shape[0], f)
+                                      for q, f in zip(codes, feats)]))
+        want_enc = len(G.st_enc_plan([(q.shape[0], 1, f, dt.itemsize)
+                                      for q, f, dt in zip(codes, feats,
+                                                          dts)]))
+        names = [f"t{i}" for i in range(len(codes))]
+
+        def as_pool(qs, ss):
+            return {"data": {"sub_0": dict(zip(names, qs))},
+                    "scale_log2": {"sub_0": dict(zip(names, ss))}}
+        for b in SLOT_CASES:
+            slot_t = torch.tensor([b], dtype=torch.int32, device="cuda")
+            B.reset_launches()
+            ys = CB.state_decode_slot(codes, scales, dts, slot_t)
+            n_dec = dict(B.LAUNCHES)
+            check(n_dec == {"st_dec_slot": want_dec},
+                  f"st_dec_slot {what} slot {b}: launches {n_dec}, want "
+                  f"{want_dec}")
+            ok_plain = all(_bits_equal(torch, y, r) for y, r in zip(
+                ys, CB.state_decode_slot_plain(codes, scales, dts, slot_t)))
+            ok_prev = all(_bits_equal(torch, y, r) for y, r in zip(
+                ys, _state_slot_read(torch, SC, scfg, codes, scales, dts,
+                                     b)))
+            check(ok_plain and ok_prev, f"st_dec_slot {what} slot {b}: "
+                  f"differs from its twin ({ok_plain}) or the per-layer "
+                  f"route ({ok_prev})")
+            pools = [([q.clone() for q in codes], [s.clone() for s in scales])
+                     for _ in range(7)]
+            B.reset_launches()
+            CB.state_encode_slot(*pools[0], news, slot_t, 8)
+            n_enc = dict(B.LAUNCHES)
+            check(n_enc == {"st_enc_slot": want_enc},
+                  f"st_enc_slot {what} slot {b}: launches {n_enc}, want "
+                  f"{want_enc}")
+            CB.state_encode_slot_plain(*pools[1], news, slot_t, 8)
+            _state_slot_write(SC, scfg, *pools[2], news, b)
+            CB._st_encode_slot(*pools[3], news, slot_t, 8, reread=True)
+            CB._st_encode_slot(*pools[4], news, slot_t, 8, cluster=False)
+            state = {"sub_0": {n: torch.stack(layers)
+                               for n, layers in zip(names, news)}}
+            B.reset_launches()
+            SC.write_prefill(as_pool(*pools[5]), state, b, scfg, slot_t)
+            n_pre = dict(B.LAUNCHES)
+            check(n_pre == {"st_enc_slot": want_enc},
+                  f"write_prefill {what} slot {b}: launches {n_pre}")
+            _state_prefill_previous(SC, scfg, as_pool(*pools[6]), state, b)
+            for name, (qs, ss) in (("twin", pools[1]),
+                                   ("per-layer", pools[2]),
+                                   ("re-read", pools[3]),
+                                   ("CTA a row", pools[4]),
+                                   ("prefill", pools[5]),
+                                   ("previous prefill", pools[6])):
+                check(all(torch.equal(x, y) for x, y in zip(pools[0][0], qs))
+                      and all(_bits_equal(torch, x, y)
+                              for x, y in zip(pools[0][1], ss)),
+                      f"st_enc_slot {what} slot {b}: codes or scales differ "
+                      f"from the {name} route")
+            off = torch.arange(STATE_SLOTS, device="cuda") != b
+            check(all(torch.equal(x[:, off], y[:, off]) for x, y in
+                      zip(pools[0][0] + pools[0][1], codes + scales)),
+                  f"st_enc_slot {what} slot {b}: another slot was written")
+        edges = [float(s[0, b]) for s in pools[0][1][:4]]
+        log(f"state slot {what}: slots {list(SLOT_CASES)} decode, encode "
+            f"and prefill write bit for bit with the twins and the "
+            f"per-layer and previous prefill routes, no other slot "
+            f"written; {want_dec} + {want_enc} launches; the first rows' "
+            f"scales {edges}")
+        b = TIMED_SLOT
+        slot_t = torch.tensor([b], dtype=torch.int32, device="cuda")
+        qc, sc = pools[0]
+        pool = as_pool(qc, sc)
+        dec_ms = timer(lambda: CB.state_decode_slot(codes, scales, dts,
+                                                    slot_t))
+        dec_prev = timer(lambda: _state_slot_read(torch, SC, scfg, codes,
+                                                  scales, dts, b), iters=10)
+        dec_plain = timer(lambda: CB.state_decode_slot_plain(
+            codes, scales, dts, slot_t), iters=5)
+        enc_ms = timer(lambda: CB.state_encode_slot(qc, sc, news, slot_t, 8))
+        enc_reread = timer(lambda: CB._st_encode_slot(
+            qc, sc, news, slot_t, 8, reread=True))
+        enc_cta = timer(lambda: CB._st_encode_slot(qc, sc, news, slot_t, 8,
+                                                   cluster=False))
+        enc_prev = timer(lambda: _state_slot_write(SC, scfg, qc, sc, news, b),
+                         iters=10)
+        enc_plain = timer(lambda: CB.state_encode_slot_plain(
+            qc, sc, news, slot_t, 8), iters=5)
+        pre_ms = timer(lambda: SC.write_prefill(pool, state, b, scfg, slot_t))
+        pre_prev = timer(lambda: _state_prefill_previous(SC, scfg, pool,
+                                                         state, b), iters=10)
+        host = _host_ms(torch, lambda: (
+            CB.state_decode_slot(codes, scales, dts, slot_t),
+            CB.state_encode_slot(qc, sc, news, slot_t, 8)))
+        host_prev = _host_ms(torch, lambda: (
+            _state_slot_read(torch, SC, scfg, codes, scales, dts, b),
+            _state_slot_write(SC, scfg, qc, sc, news, b)))
+        nbytes = _state_bytes(codes, news, 1)
+        bms, by = bound_ms(nbytes)
+        shape = [[q.shape[0], 1, *q.shape[2:]] for q in codes]
+        layers = sum(q.shape[0] for q in codes)
+        for name, ms, prev, plain, extra in (
+                ("st_dec_slot", dec_ms, dec_prev, dec_plain, {}),
+                ("st_enc_slot", enc_ms, enc_prev, enc_plain,
+                 {"reread_ms": enc_reread, "cta_ms": enc_cta,
+                  "prefill_ms": pre_ms, "prefill_previous_ms": pre_prev,
+                  "prefill_previous_launches": len(codes),
+                  "read_write_host_ms": host,
+                  "previous_read_write_host_ms": host_prev})):
+            out[name].append(dict(
+                what=what, shape=shape, pool_slots=STATE_SLOTS, ms=ms,
+                previous_ms=prev, plain_ms=plain, bound_ms=bms, bound_by=by,
+                bytes=nbytes, library_ms=None, library_note=ST_NONE,
+                max_abs_err=0,
+                launches=want_dec if name == "st_dec_slot" else want_enc,
+                previous_launches=layers, **extra))
+            log(f"{name} {what}: {ms*1e3:.2f} us (per-layer route "
+                f"{prev*1e3:.1f} us, plain {plain*1e3:.1f} us, bound "
+                f"{bms*1e3:.2f} us, {nbytes} B"
+                + (f"; re-reading its values {enc_reread*1e3:.2f} us, a CTA "
+                   f"a row {enc_cta*1e3:.2f} us; the prefill write "
+                   f"{pre_ms*1e3:.2f} us, its previous route "
+                   f"{pre_prev*1e3:.1f} us; the chunk step's read and "
+                   f"write {host:.3f} ms host wall, the per-layer route's "
+                   f"{host_prev:.3f} ms" if extra else "") + ")")
+    return out
+
+
+def _host_ms(torch, fn, reps: int = 20) -> float:
+    """Host wall of ``fn`` in ms, a mean over ``reps`` calls issued back to
+    back, synchronised before the first and after the last."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
 
 
 def _state_group_launches(lm, slots: int = STATE_SLOTS) -> tuple[int, int]:
     """The decode step's ``st_dec_group`` and ``st_enc_group`` launches on
-    ``lm``'s int8 state pool: the plans' counts."""
+    ``lm``'s int8 state pool: the plans' counts (``slots`` 1: the one-slot
+    ``st_dec_slot`` and ``st_enc_slot``'s)."""
     from repro_torch.kernels import grouped as G
     from repro_torch.serve import state_cache as SC
     ents = [(lm.n_periods, math.prod(f), SC.natural_dtype(kind, lm.cfg)
@@ -3936,21 +4214,17 @@ def _state_group_launches(lm, slots: int = STATE_SLOTS) -> tuple[int, int]:
 def _state_want(lm, decode_steps: int, prefills: int = 0,
                 chunk_steps: int = 0) -> dict:
     """The state codec's launches on an int8 pool: each decode step reads
-    the whole pool in one group launch and writes it in another (the
-    plans' counts, ``_state_group_launches``; no row kernel), each chunk
-    step reads and writes the one slot's state a (layer, tensor) (scalar
-    kernels), and each whole-prompt prefill writes each tensor's layer
-    stack once (a row kernel, or the scalar one for a one-period stack)."""
-    from repro_torch.serve import state_cache as SC
-    tensors = sum(len(SC.state_feature_shapes(s, lm.cfg)) for s in lm.period)
-    per = lm.n_periods * tensors
+    the whole pool in one group launch and writes it in another, each
+    chunk step reads and writes its one slot's every layer the same way
+    (``st_dec_slot`` / ``st_enc_slot``), and each whole-prompt prefill
+    writes the slot's every layer in one ``st_enc_slot`` (the plans'
+    counts, ``_state_group_launches``); no row or scalar codec kernel."""
     dec, enc = _state_group_launches(lm)
+    sdec, senc = _state_group_launches(lm, 1)
     want = {"st_dec_group": dec * decode_steps,
             "st_enc_group": enc * decode_steps,
-            "p2_dec": per * chunk_steps, "p2_enc": per * chunk_steps,
-            "p2_enc_rows": 0}
-    want["p2_enc_rows" if lm.n_periods > 1 else "p2_enc"] += \
-        tensors * prefills
+            "st_dec_slot": sdec * chunk_steps,
+            "st_enc_slot": senc * (chunk_steps + prefills)}
     return {k: v for k, v in want.items() if v}
 
 
@@ -4097,16 +4371,128 @@ def _replay_state_steps(torch, lm, params, prompts, steps: int = 3) -> dict:
     return out
 
 
+def _per_layer_chunk(torch, eng, toks, slot: int, start: int):
+    """A chunk step of ``eng`` (no attention sublayer) through the
+    per-layer route, the previous design: ``read_layer`` of the slot's
+    ``data[l][slot][None]``, the mixer's forward over the chunk and
+    ``write_slot`` a (layer, tensor), a p2_dec and a p2_enc each. Returns
+    the last position's (1, V) logits; the pool is written in place."""
+    from repro_torch.models.common import apply_site, rms_norm
+    from repro_torch.models.lm import embed_tokens
+    from repro_torch.serve import state_cache as SC
+    lm, params, cfg = eng.lm, eng.params, eng.lm.cfg
+    x = embed_tokens(params, eng._tensor([toks], torch.long), lm)
+    for layer, pp in enumerate(params["layers"]):
+        for i, sub in enumerate(lm.period):
+            key = f"sub_{i}"
+            shapes = SC.state_feature_shapes(sub, cfg)
+            data = {n: t[layer] for n, t in eng.spool["data"][key].items()}
+            scale = {n: t[layer]
+                     for n, t in eng.spool["scale_log2"][key].items()}
+            state = {n: SC.read_layer(data[n][slot][None],
+                                      scale[n][slot][None],
+                                      SC.natural_dtype(kind, cfg), eng.scfg)
+                     for n, (_, kind) in shapes.items()}
+            x, new = eng._state_mix(pp[key], x, sub, state)
+            for n in shapes:
+                SC.write_slot(data[n], scale[n], new[n][0], slot, eng.scfg)
+    x = rms_norm(x[:, -1:], params["final_norm"]["scale"], cfg.norm_eps)
+    return apply_site(params["head"], x, lm.head, cfg)[:, 0]
+
+
+def _per_layer_prefill(torch, eng, toks, slot: int):
+    """A whole-prompt prefill of ``eng`` (no attention sublayer) through
+    the previous route: ``lm_forward`` with its cache, then each state
+    tensor's layer stack encoded in one launch (``p2_enc_rows``; ``p2_enc``
+    for a one-layer stack) and copied into the slot. Returns the last
+    position's (1, V) logits."""
+    from repro_torch.models import lm_forward
+    from repro_torch.serve import state_cache as SC
+    logits, _, cache = lm_forward(eng.params, eng.lm, tokens=eng._tensor(
+        [toks], torch.long), return_cache=True)
+    _state_prefill_previous(SC, eng.scfg, eng.spool,
+                            {k: cache[k] for k in eng._state_keys}, slot)
+    return logits[0, -1][None]
+
+
+def _replay_chunked_prefill(torch, lm, params, prompts,
+                            slot: int = STATE_SLOTS - 1) -> dict:
+    """A chunked prefill (128) of a 300-token prompt into the last slot of
+    the int8 rwkv6 engine at full size, whose other slots hold other
+    prompts' states: the first chunk through the whole-prompt prefill, the other
+    two through chunk steps, once through the engine and again, from the
+    same pool, through the per-layer route (``_per_layer_prefill``,
+    ``_per_layer_chunk``): every chunk's logits and every pool byte equal;
+    the engine's launches the plans' one-slot counts (a prefill 1
+    st_enc_slot, a chunk step 1 st_dec_slot + 1 st_enc_slot), the
+    per-layer route's 3 p2_enc_rows a prefill and 72 p2_dec + 72 p2_enc a
+    chunk step."""
+    from repro_torch.kernels import build as B
+    from repro_torch.serve import Engine, EngineConfig, PoolConfig
+    from repro_torch.serve import state_cache as SC
+    eng = Engine(lm, params, EngineConfig(pool=PoolConfig(
+        num_slots=STATE_SLOTS, quantized=True), prefill_chunk=CHUNK),
+        device="cuda")
+    for p in prompts[:STATE_SLOTS - 1]:
+        eng.submit(p[:40], max_new_tokens=2)
+    eng.step()                          # other slots' states in the pool
+    toks = (prompts[2] + prompts[3])[:300]
+    table_row = eng._tensor(eng.sched.page_table[slot])
+    chunks = [(c, min(c + CHUNK, len(toks))) for c in range(0, len(toks),
+                                                            CHUNK)]
+    snap = [t.clone() for t in _leaves(eng.spool)]
+
+    def run(prefill, chunk):
+        for t, s0 in zip(_leaves(eng.spool), snap):
+            t.copy_(s0)
+        SC.reset_slot(eng.spool, slot)
+        torch.cuda.synchronize()
+        B.reset_launches()
+        with torch.no_grad():
+            logits = [prefill(toks[:chunks[0][1]])]
+            logits += [chunk(toks[c0:c1], c0) for c0, c1 in chunks[1:]]
+        torch.cuda.synchronize()
+        return logits, [t.clone() for t in _leaves(eng.spool)], \
+            dict(B.LAUNCHES)
+
+    ga, pa, la = run(lambda t: eng._prefill(t, table_row, slot),
+                     lambda t, c0: eng._chunk(t, table_row, slot, c0))
+    gb, pb, lb = run(lambda t: _per_layer_prefill(torch, eng, t, slot),
+                     lambda t, c0: _per_layer_chunk(torch, eng, t, slot, c0))
+    check(all(_bits_equal(torch, a, b) for a, b in zip(ga, gb)),
+          "chunked replay: the engine's logits differ from the per-layer "
+          "route's")
+    check(all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+              for a, b in zip(pa, pb)),
+          "chunked replay: the pool differs from the per-layer route's")
+    n = len(chunks) - 1
+    check(la == _state_want(lm, 0, 1, n),
+          f"chunked replay: engine launches {la}")
+    tensors = sum(len(SC.state_feature_shapes(sub, lm.cfg))
+                  for sub in lm.period)
+    per = lm.n_periods * tensors
+    check(lb == {"p2_enc_rows": tensors, "p2_dec": n * per,
+                 "p2_enc": n * per},
+          f"chunked replay: per-layer launches {lb}")
+    log(f"chunked replay rwkv6: a {len(toks)}-token prompt in {len(chunks)} "
+        f"chunks into slot {slot} through the engine ({la}) and the "
+        f"per-layer route ({lb}): logits and "
+        f"{sum(t.numel() * t.element_size() for t in pa)} pool bytes equal")
+    del eng
+    return {"chunks": len(chunks), "launches": la, "per_layer_launches": lb}
+
+
 def phase_serve_rwkv6(torch, lm, params) -> dict:
     """The slice's main path: rwkv6-1.6b at full size serving the engine
     phase's 16 requests (64 new tokens, 8 slots) from an int8 state pool,
     an fp pool and, chunked (128), the int8 pool again; counts zeroed just
     before and read just after each run, exact (``_state_want``); no KV
     kernel, ``cache_bytes`` 0, every slot free at the end,
-    ``state_reduction`` >= 3.5. Then the replay of 3 decode steps through
-    the engine and the per-layer route (``_replay_state_steps``), and the
-    decode step, a 512-token prefill and a chunk step, timed and
-    profiled, the state kernels by name."""
+    ``state_reduction`` >= 3.5. Then the replay of 3 decode steps and of
+    a chunked prefill through the engine and the per-layer route
+    (``_replay_state_steps``, ``_replay_chunked_prefill``), and the decode
+    step, a 512-token prefill and a chunk step, timed and profiled, the
+    state kernels by name."""
     from repro_torch.kernels import build as B
     t0 = time.perf_counter()
     cfg = lm.cfg
@@ -4145,6 +4531,7 @@ def phase_serve_rwkv6(torch, lm, params) -> dict:
         del eng
     out["per_step"] = _state_steps(lm)
     out["replay"] = _replay_state_steps(torch, lm, params, prompts)
+    out["chunk_replay"] = _replay_chunked_prefill(torch, lm, params, prompts)
     out["wkv_error_by_decay"] = _wkv_error_by_decay(torch, lm, params,
                                                     prompts[0])
     out["bf16_agreement_int8_fp"] = sum(
@@ -4183,11 +4570,10 @@ def phase_serve_hybrid(torch) -> dict:
     prompt and chunked (128: the chunks' remainders are unpadded widths);
     counts exact: a decode step one ``st_dec_group`` and one
     ``st_enc_group``, one paged append, one split and one combine; a
-    prefill 14 ``p2_enc`` (a
-    one-layer stack) and one ``p2_prefill_paged``; a chunk step 14
-    ``p2_dec`` + 14 ``p2_enc`` (one slot), one paged append and one paged
-    read. Then the decode step, a prefill and a chunk step, profiled, the
-    kernels by name."""
+    prefill one ``st_enc_slot`` and one ``p2_prefill_paged``; a chunk step
+    one ``st_dec_slot`` and one ``st_enc_slot``, one paged append and one
+    paged read. Then the decode step, a prefill and a chunk step,
+    profiled, the kernels by name."""
     from repro_torch.configs.base import MoEConfig
     from repro_torch.kernels import build as B
     t0 = time.perf_counter()
@@ -5217,6 +5603,10 @@ ST_DEC = ("src/repro_torch/kernels/csrc/state_codec.cu",
           "src/repro/numerics/pallas_backend.py:196")
 ST_ENC = ("src/repro_torch/kernels/csrc/state_codec.cu",
           "src/repro/numerics/pallas_backend.py:189")
+ST_DEC_SLOT = ("src/repro_torch/kernels/csrc/state_codec.cu",
+               "src/repro/numerics/pallas_backend.py:127")
+ST_ENC_SLOT = ("src/repro_torch/kernels/csrc/state_codec.cu",
+               "src/repro/numerics/pallas_backend.py:120")
 RT_GROUP = ("src/repro_torch/kernels/csrc/pow2_fq.cu",
             "src/repro/numerics/pallas_backend.py:120")
 
@@ -5276,22 +5666,24 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
     # kernels and the prefill's row encode, the chunked run for the scalar
     # ones), its shapes first
     api = skern["api_launches"]
-    for name, src in (("st_dec_group", ST_DEC), ("st_enc_group", ST_ENC)):
+    for name, src, run in (("st_dec_group", ST_DEC, "int8"),
+                           ("st_enc_group", ST_ENC, "int8"),
+                           ("st_dec_slot", ST_DEC_SLOT, "chunked"),
+                           ("st_enc_slot", ST_ENC_SLOT, "chunked")):
         rows.append(_kernel_row(
-            name, *src, sgroup[name], rwkv["int8"]["launches"].get(name, 0),
+            name, *src, sgroup[name], rwkv[run]["launches"].get(name, 0),
             _state_path(name, rwkv, hybrid, api)))
+    # no serving path runs the row and scalar codecs on the state pool
+    # since the grouped launches: their launches are the replays' per-layer
+    # routes', the previous design run on the same engine
     replay = rwkv["replay"]["per_layer_launches"]
+    chunk_replay = rwkv["chunk_replay"]["per_layer_launches"]
     for name, src in (("p2_enc_rows", ENC_ROWS), ("p2_dec_rows", DEC_ROWS)):
-        launches = rwkv["int8"]["launches"].get(name, 0)
-        path = _state_path(name, rwkv, hybrid, api)
-        if name == "p2_dec_rows":
-            # no serving path reads rows since the decode step's group
-            # read: its launches are the replay's per-layer route's, the
-            # previous design run on the same engine
-            launches = replay.get(name, 0)
-            path = ("no serving path (the decode step reads through "
-                    "st_dec_group); the replay's per-layer route "
-                    f"{launches}; " + path)
+        launches = replay.get(name, 0) + chunk_replay.get(name, 0)
+        path = ("no serving path (the decode step, the chunk step and the "
+                "prefill read and write through st_*_group / st_*_slot); "
+                f"the replays' per-layer routes {launches}; "
+                + _state_path(name, rwkv, hybrid, api))
         rows.append(_kernel_row(name, *src, state[name] + kern[name],
                                 launches, path))
         rows[-1]["api_launches"] = api.get(name, 0)
@@ -5333,10 +5725,12 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
                 "codec API (numerics.fake_quant with a scale per leading "
                 "index; no serving or training path)"))
             continue
+        launches = chunk_replay.get(name, 0)
         rows.append(_kernel_row(
-            name, src, replaces, state[name] + skern[name],
-            rwkv["chunked"]["launches"].get(name, 0),
-            _state_path(name, rwkv, hybrid, api)))
+            name, src, replaces, state[name] + skern[name], launches,
+            "no serving path (the chunk step reads and writes through "
+            "st_dec_slot / st_enc_slot); the chunked replay's per-layer "
+            f"route {launches}; " + _state_path(name, rwkv, hybrid, api)))
         rows[-1]["api_launches"] = api.get(name, 0)
     return {"kernels": rows}
 
@@ -5344,7 +5738,8 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
 def phase_tokens(torch, path: str) -> None:
     """The greedy tokens of the serving runs at full width (engine fused
     and gather, chunked prefix; the int8 rwkv6-1.6b and jamba runs of
-    ``_recurrent_cells``), written to ``path``."""
+    ``_recurrent_cells``, whole-prompt and chunked (128)), written to
+    ``path``."""
     lm, params = full_model(torch)
     prompts = _requests(lm.cfg.vocab_size)
     out = {}
@@ -5359,8 +5754,11 @@ def phase_tokens(torch, path: str) -> None:
         log(f"tokens {name}: {len(out[name])} completions")
     del params
     for name, (lm, params), reqs, kw in _recurrent_cells(torch):
-        _, out[name] = _serve_engine(torch, lm, params, reqs(lm), 64, **kw)
-        log(f"tokens {name}: {len(out[name])} completions")
+        for run, extra in ((name, {}),
+                           (f"{name}_chunked", {"prefill_chunk": CHUNK})):
+            _, out[run] = _serve_engine(torch, lm, params, reqs(lm), 64,
+                                        **kw, **extra)
+            log(f"tokens {run}: {len(out[run])} completions")
         del params
         torch.cuda.empty_cache()
     Path(path).parent.mkdir(parents=True, exist_ok=True)
@@ -5386,10 +5784,11 @@ def phase_steps(torch, path: str) -> None:
     """The whole-prompt prefill's (S = 512), the chunk step's and the decode
     steps' (fused and gather) host wall and device time at full width,
     with the KV kernels' launches a step, then the int8 rwkv6-1.6b and
-    jamba decode steps' (``_recurrent_cells``; 6 steps, the state kernels'
-    launches a step, peak memory), written to ``path``; nothing asserted,
-    so a parent tree's port can be measured beside this one in one
-    call."""
+    jamba decode steps' (``_recurrent_cells``; 6 steps), chunk steps' (128
+    tokens at 256) and whole-prompt prefills' (512 tokens; a window of
+    128), each with the state kernels' launches and peak memory, written
+    to ``path``; nothing asserted, so a parent tree's port can be measured
+    beside this one in one call."""
     lm, params = full_model(torch)
     prompts = _requests(lm.cfg.vocab_size)
     out = {"prefill": _profile_prefill(torch, lm, params, prompts),
@@ -5403,57 +5802,97 @@ def phase_steps(torch, path: str) -> None:
             torch, lm, params, reqs(lm), steps=6,
             fused=kw.get("fused_attention", False), names=STATE_FNS,
             what=f"{name} decode", cpu=False)
+        # a recurrent scan issues a launch a token a layer: one step a
+        # profiled window, 128 tokens of the prefill's
+        out[f"{name}_chunk"] = _profile_chunk(
+            torch, lm, params, reqs(lm), reps=3, window_reps=1,
+            names=STATE_FNS, what=f"{name} chunk step", cpu=False)
+        out[f"{name}_prefill"] = _profile_prefill(
+            torch, lm, params, reqs(lm), reps=3, window_reps=1,
+            names=STATE_FNS, what=f"{name} prefill", cpu=False,
+            window_tokens=128)
         del params
         torch.cuda.empty_cache()
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     Path(path).write_text(json.dumps(out))
 
 
+def _pe_diff(torch, o, first, ref) -> dict:
+    """Where ``o`` and ``first`` differ bit for bit: how many elements,
+    the (a, d, c) they touch (at most 8 of each), each launch's largest
+    error there against the plain version, and the two outputs' addresses
+    mod 1024."""
+    diff = o.view(torch.int16) != first.view(torch.int16)
+    at = diff.nonzero()
+    return {"elements": int(diff.sum()),
+            "a": sorted(set(at[:, 0].tolist()))[:8],
+            "d": sorted(set(at[:, 1].tolist()))[:8],
+            "c": sorted(set(at[:, -1].tolist()))[:8],
+            "err": float((o.float() - ref.float())[diff].abs().max()),
+            "first_err": float((first.float() - ref.float())[diff]
+                               .abs().max()),
+            "ptr_mod_1024": [o.data_ptr() % 1024, first.data_ptr() % 1024]}
+
+
 def phase_pe_repeat(torch, reps: int) -> dict:
-    """Each of the LM's PE2 calls on the tensor cores ``reps`` times into
-    an output filled with NaN before every launch, held bit for bit to the
-    first launch: a launch that differs is logged with how many elements,
-    where (the a, d, c it touches) and how far from the plain version, and
-    an element never written would show as NaN. Nothing asserted, no
-    result line: a diagnostic of the ``lm kernels`` check "two launches
-    differ" (ROADMAP queue 3)."""
-    from repro_torch.kernels import tt_mma, ttm_pe2
+    """ROADMAP queue 3's open fault, "lm pe2 (16384, 256, 16)x(256, 256):
+    two launches differ" (``phase_lm_kernels``), replayed: every PE1, PE2
+    and PE3 call of the LM step, on the same seeded inputs in the same
+    order, runs ``reps`` times the check's own sequence: the kernel into a
+    fresh allocation, the plain twin, the cuBLAS yardstick, the plan, and
+    the kernel again into another fresh allocation while the first output
+    is alive. A second launch that differs from the first, or a round's
+    first launch that differs from round 0's, is logged with its
+    elements, a / d / c, each launch's error against the plain twin and
+    the outputs' addresses mod 1024. Each PE2 call also launches once a
+    round into an output filled with NaN (an element never written shows
+    as NaN). Nothing asserted, no result line."""
+    from repro_torch.kernels import tt_mma, ttm_pe1
     gen = torch.Generator(device="cuda").manual_seed(4)
     out = {}
     for kind, zs, gs in _lm_pe_calls():
-        if kind != "pe2":
-            continue
+        kern, plain = _pe_fns(kind)
         z = torch.randn(zs, generator=gen, device="cuda").to(torch.bfloat16)
         g = (torch.randn(gs, generator=gen, device="cuda") * 0.2).to(
             torch.bfloat16)
-        p = tt_mma.plan_for(z, g)
-        ref = ttm_pe2.pe2_torch(z, g).float()
-        first, differ, nan = None, [], 0
+        base, pair, rounds, nan = None, [], [], 0
+        t0 = time.perf_counter()
         for i in range(reps):
-            o = torch.full((zs[0], gs[1], zs[2]), float("nan"),
-                           dtype=torch.bfloat16, device="cuda")
-            tt_mma.launch("pe2", "ttm_pe2", p, z, g, o)
-            nan += int(o.isnan().sum())
-            if first is None:
-                first = o
-                continue
-            diff = o.view(torch.int16) != first.view(torch.int16)
-            if diff.any():
-                at = diff.nonzero()
-                differ.append({
-                    "launch": i, "elements": int(diff.sum()),
-                    "a": sorted(set(at[:, 0].tolist()))[:8],
-                    "d": sorted(set(at[:, 1].tolist()))[:8],
-                    "c": sorted(set(at[:, 2].tolist()))[:8],
-                    "err": float((o.float() - ref)[diff].abs().max()),
-                    "first_err": float((first.float() - ref)[diff]
-                                       .abs().max())})
-        name = f"{zs}x{gs}"
-        out[name] = {"orientation": p.orientation, "launches": reps,
-                     "differ": differ, "nan": nan}
-        log(f"pe repeat {name} ({p.orientation}): {len(differ)} of "
-            f"{reps - 1} launches differ from the first, {nan} NaN "
-            f"elements; {differ[:4]}")
+            o = kern(z, g)
+            r = plain(z, g)
+            _pe_library(torch, kind, z, g)
+            p = (ttm_pe1.plan_pe1_for(z, g) if kind == "pe1" else
+                 tt_mma.plan_for(*_pe_contraction(kind, z, g)))
+            o2 = kern(z, g)
+            if not _bits_equal(torch, o2, o):
+                pair.append({"round": i, **_pe_diff(torch, o2, o, r)})
+            if base is None:
+                base = o
+            elif not _bits_equal(torch, o, base):
+                rounds.append({"round": i, **_pe_diff(torch, o, base, r)})
+            if kind == "pe2":
+                n = torch.full((zs[0], gs[1], zs[2]), float("nan"),
+                               dtype=torch.bfloat16, device="cuda")
+                tt_mma.launch("pe2", "ttm_pe2", p, z, g, n)
+                nan += int(n.isnan().sum())
+            del o, o2, r
+        torch.cuda.synchronize()
+        name = f"{kind} {zs}x{gs}"
+        out[name] = {"route": "tensor cores" if p is not None else "fma",
+                     "orientation": getattr(p, "orientation", "K-major"),
+                     "rounds": reps, "pair_differ": pair,
+                     "round_differ": rounds, "nan": nan,
+                     "seconds": time.perf_counter() - t0}
+        log(f"pe repeat {name} ({out[name]['orientation']}): {len(pair)} of "
+            f"{reps} rounds' two launches differ, {len(rounds)} rounds' first "
+            f"launch differs from round 0's, {nan} NaN elements, "
+            f"{out[name]['seconds']:.1f} s; {pair[:3]} {rounds[:3]}")
+        del z, g, base
+        torch.cuda.empty_cache()
+    total = sum(len(v["pair_differ"]) + len(v["round_differ"]) + v["nan"]
+                for v in out.values())
+    log(f"pe repeat: {reps} rounds of each of {len(out)} calls, "
+        f"{total} differences in all")
     return out
 
 
@@ -5537,9 +5976,9 @@ def main(argv=None) -> int:
                     "decode, core by core and grouped, and the export's and "
                     "load's host wall, and write them here (no result line)")
     ap.add_argument("--pe-repeat", type=int, metavar="N",
-                    help="only launch each of the LM's PE2 calls on the "
-                    "tensor cores N times and log every launch whose bits "
-                    "differ from the first (no result line)")
+                    help="only replay the lm kernels check's sequence N "
+                    "times for each of the LM's PE1, PE2 and PE3 calls and "
+                    "log every launch whose bits differ (no result line)")
     ap.add_argument("--src", help="the directory holding repro_torch "
                     "(default: src beside this script)")
     args = ap.parse_args(argv)

@@ -89,6 +89,41 @@
 //   chip_smoke.py's state group phase times the re-read beside the staged
 //   pass at rwkv6's and jamba's step: 69.0 / 61.2 us against 64.3 / 57.1
 //   (NVIDIA H100 80GB HBM3, 700 W).
+//
+// The one-slot forms (st_dec_slot, st_enc_slot): the same two kernels' work
+// over ONE slot of the pool, every layer of every state tensor, for a chunk
+// step (decode the slot's state before its first layer, encode the
+// end-of-chunk state after its last) and a whole-prompt prefill's write.
+// Replaces: repro/numerics/pallas_backend.py `_p2_dec_kernel` (:127) and
+// `_p2_enc_kernel` (:120) as the reference's chunk step runs them
+// (repro/serve/engine.py:593 read_layer of sd[slot][None], :616
+// write_slot: a one-element scale each), and `_p2_enc_rows_kernel` (:189)
+// as its write_prefill runs it (repro/serve/state_cache.py:226-246, a scale
+// per layer), first ported as one p2_dec / p2_enc launch per (layer,
+// tensor) (72 + 72 a rwkv6-1.6b chunk step) and one p2_enc_rows a tensor
+// (3 a prefill). In a chunk step layer l's state is read only by layer l
+// and only the next chunk or decode step reads what it writes, so the
+// grouping is exact as the decode step's is. The slot index is read on the
+// device (an int32 the chunk step already copies with its start and valid
+// count), so the step adds no host-to-device copy; a slot outside the
+// pool reads and writes nothing. The table's row r is layer r of the
+// slot: codes at q + (r * pool_slots + slot) * F, the scale at s[r *
+// pool_slots + slot]; the decode's values land at y + r * F (an (L, 1,
+// *feat) workspace), the encode's values come from src[ptr0 + r], and no
+// `active` mask is read (the slot is always written). Numerics are the
+// step kernels' own, op for op.
+// Design at one slot: rwkv6's wkv row is 512 KB of values, jamba's h 1 MB
+// and conv 96 KB, so every large row still takes a cluster of 16 CTAs
+// (24 wkv rows: 384 CTAs over 132 SMs; a CTA a row would leave 108 SMs
+// idle behind 24 CTAs streaming 512 KB each), and a CTA's part (32 / 64
+// KB) is staged in shared memory between the encode's passes as in the
+// step form. chip_smoke.py's state group phase times the one-slot encode
+// both other ways at rwkv6's slot and jamba's period: a CTA a row 53.9 /
+// 94.2 us, re-reading 17.3 / 16.5 us, against 16.4 / 14.0 us (NVIDIA H100
+// 80GB HBM3, 700 W).
+// Bound at one slot: 24 x (131,072 x 5 + 2 x 2,048 x 3) B = 16.02 MB each
+// way for rwkv6-1.6b, 4.78 us at 3.35 TB/s; 7 x (262,144 x 5 + 49,152 x 3)
+// B = 10.21 MB for jamba's period, 3.05 us.
 
 #include <cooperative_groups.h>
 
@@ -109,21 +144,27 @@ constexpr int kDecPer = 8;       // 16-byte words of values a thread has in flig
 
 // The decode's table: entry e's rows r < units / ceil(F / kUnit) hold F
 // codes at q + r * F, scale s[r], values at y + r * F.
+// The one-slot form: row r (layer r) reads its F codes at q + (r *
+// pool_slots + *slot) * F and its scale at s[r * pool_slots + *slot].
 struct DecGroup {
   const int8_t* q[kCap];
   const float* s[kCap];
   void* y[kCap];
+  const int* slot;               // one-slot form: the slot, on the device
   int units[kCap];               // rows * ceil(F / kUnit)
   int tile_end[kCap];            // prefix sum of ceil(units / kDecTile)
   int feat[kCap];                // F
   int dtype[kCap];               // of y: F32, BF16, F16
   int count;
+  int pool_slots;                // one-slot form: the pool's slots
 };
 
 // The encode's table: piece e covers `rows` = layers x slots rows of one pool
 // tensor from its first layer l0 here; row r = l * slots + b writes codes at
 // q + r * F and its scale at s + r (q, s already at layer l0) from slot b's
-// row of the new state src[ptr0 + l] + b * sstride[ptr0 + l].
+// row of the new state src[ptr0 + l] + b * sstride[ptr0 + l]. The one-slot
+// form has slots = 1: row l writes codes at q + (l * pool_slots + *slot) *
+// F and its scale at s + l * pool_slots + *slot from src[ptr0 + l].
 struct EncGroup {
   int8_t* q[kCap];
   float* s[kCap];
@@ -135,8 +176,10 @@ struct EncGroup {
   int task_end[kCap];            // prefix sum of the pieces' tasks
   const void* src[kPtrCap];
   long long sstride[kPtrCap];    // elements between two slots' rows
-  const unsigned char* active;   // (slots,) bool, on the device
+  const unsigned char* active;   // (slots,) bool, on the device (step form)
+  const int* slot;               // one-slot form: the slot, on the device
   int slots;
+  int pool_slots;                // one-slot form: the pool's slots
   int count;
   float lo, hi, inv_qmax;
 };
@@ -205,8 +248,9 @@ template <> struct Codes<__half> : Codes16<__half> {};
 // the tensor). Where every row is whole 16-byte words of codes (F % 16 == 0,
 // aligned bases) lane after lane takes C codes and stores one 16-byte word
 // of values, kDecPer words a thread in flight; else element by element.
-template <typename T>
-__device__ __forceinline__ void dec_tile(const DecGroup& g, int e, int ti) {
+// SLOT: the one-slot form, slot b of a pool of g.pool_slots.
+template <typename T, bool SLOT>
+__device__ __forceinline__ void dec_tile(const DecGroup& g, int e, int ti, int b) {
   const int F = g.feat[e], units = g.units[e];
   const int upr = (F + kUnit - 1) / kUnit;
   const int u1 = min((ti + 1) * kDecTile, units);
@@ -215,6 +259,11 @@ __device__ __forceinline__ void dec_tile(const DecGroup& g, int e, int ti) {
   const int8_t* __restrict__ q = g.q[e];
   const float* __restrict__ s = g.s[e];
   T* __restrict__ y = static_cast<T*>(g.y[e]);
+  // the code and the scale of value c (row c / F of the workspace)
+  const int ps = g.pool_slots;
+  const long long gap = SLOT ? (long long)(ps - 1) * F : 0, first = (long long)b * F;
+  auto code = [gap, first](int c, int r) { return SLOT ? c + r * gap + first : (long long)c; };
+  auto scale = [ps, b](int r) { return SLOT ? r * ps + b : r; };
   if (F % kUnit == 0 && aligned(q, 16) && aligned(y, 16)) {
     using C = Codes<T>;
     constexpr int kC = 16 / sizeof(T);
@@ -225,8 +274,9 @@ __device__ __forceinline__ void dec_tile(const DecGroup& g, int e, int ti) {
       for (int k = 0; k < kDecPer; ++k) {
         const int ck = c + k * kThreads * kC;
         if (ck < c1) {
-          w[k] = __ldg(reinterpret_cast<const typename C::W*>(q + ck));
-          step[k] = pow2_step(__ldg(s + ck / F));
+          const int r = ck / F;
+          w[k] = __ldg(reinterpret_cast<const typename C::W*>(q + code(ck, r)));
+          step[k] = pow2_step(__ldg(s + scale(r)));
         }
       }
 #pragma unroll
@@ -237,23 +287,38 @@ __device__ __forceinline__ void dec_tile(const DecGroup& g, int e, int ti) {
     }
     return;
   }
-  for (int c = c0 + (int)threadIdx.x; c < c1; c += kThreads)
-    y[c] = from_f32<T>(to_f32(q[c]) * pow2_step(__ldg(s + c / F)));
+  for (int c = c0 + (int)threadIdx.x; c < c1; c += kThreads) {
+    const int r = c / F;
+    y[c] = from_f32<T>(to_f32(q[code(c, r)]) * pow2_step(__ldg(s + scale(r))));
+  }
 }
 
-template <typename Q>
-__global__ void __launch_bounds__(kThreads)
-    st_dec_group_kernel(const __grid_constant__ DecGroup g) {
+template <bool SLOT>
+__device__ __forceinline__ void dec_tiles(const DecGroup& g, int b) {
   const int tiles = g.tile_end[g.count - 1];
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int e = find_entry(g.tile_end, g.count, tile);
     const int ti = tile - (e ? g.tile_end[e - 1] : 0);
     switch (g.dtype[e]) {
-      case F32: dec_tile<float>(g, e, ti); break;
-      case BF16: dec_tile<__nv_bfloat16>(g, e, ti); break;
-      default: dec_tile<__half>(g, e, ti); break;
+      case F32: dec_tile<float, SLOT>(g, e, ti, b); break;
+      case BF16: dec_tile<__nv_bfloat16, SLOT>(g, e, ti, b); break;
+      default: dec_tile<__half, SLOT>(g, e, ti, b); break;
     }
   }
+}
+
+template <typename Q>
+__global__ void __launch_bounds__(kThreads)
+    st_dec_group_kernel(const __grid_constant__ DecGroup g) {
+  dec_tiles<false>(g, 0);
+}
+
+template <typename Q>
+__global__ void __launch_bounds__(kThreads)
+    st_dec_slot_kernel(const __grid_constant__ DecGroup g) {
+  const int b = __ldg(g.slot);
+  if (b < 0 || b >= g.pool_slots) return;        // no such slot: nothing read
+  dec_tiles<true>(g, b);
 }
 
 // ---- encode ---------------------------------------------------------------
@@ -362,6 +427,23 @@ __device__ __forceinline__ void enc_row(const EncGroup& g, const T* __restrict__
   if (big) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
+// One CTA's part of row q / sc of piece e, whose values start at x: all of
+// it, or for a large row the rank-th of kCluster runs of its units.
+template <typename T, bool STAGE>
+__device__ __forceinline__ void enc_part(const EncGroup& g, int e, int rank, bool big,
+                                         const T* x, int8_t* q, float* sc, Shared& sh,
+                                         uint4* stage) {
+  const int F = g.feat[e];
+  const int units = (F + kUnit - 1) / kUnit;
+  int u0 = 0, u1 = units;
+  if (big) {
+    const int per = (units + kCluster - 1) / kCluster;
+    u0 = min(rank * per, units);
+    u1 = min(u0 + per, units);
+  }
+  enc_row<T, STAGE>(g, x, q, sc, F, u0, u1, big, sh, stage);
+}
+
 template <typename Q, bool STAGE>
 __global__ void __launch_bounds__(kThreads)
     st_enc_group_kernel(const __grid_constant__ EncGroup g) {
@@ -404,12 +486,47 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool STAGE>
-int launch_enc(const EncGroup& g, int tasks, int smem, cudaStream_t st) {
-  auto* kernel = st_enc_group_kernel<int8_t, STAGE>;
+// The one-slot form: a piece's row is a layer (slots 1), written at pool
+// row layer * pool_slots + slot.
+template <typename Q, bool STAGE>
+__global__ void __launch_bounds__(kThreads)
+    st_enc_slot_kernel(const __grid_constant__ EncGroup g) {
+  __shared__ Shared sh;
+  extern __shared__ uint4 stage[];
+  const int task = blockIdx.x / kCluster;
+  const int rank = blockIdx.x - task * kCluster;   // the cluster spans kCluster CTAs in x
+  const int e = find_entry(g.task_end, g.count, task);
+  const int t = task - (e ? g.task_end[e - 1] : 0);
+  const bool big = g.big[e];
+  const int row = big ? t : t * kCluster + rank;
+  if (row >= g.rows[e]) return;                  // a small task's spare CTA
+  const int b = __ldg(g.slot);
+  if (b < 0 || b >= g.pool_slots) return;        // no such slot: the whole cluster leaves
+  const long long prow = (long long)row * g.pool_slots + b;
+  Q* q = g.q[e] + prow * g.feat[e];
+  float* sc = g.s[e] + prow;
+  const void* x = g.src[g.ptr0[e] + row];
+  switch (g.dtype[e]) {
+    case F32:
+      enc_part<float, STAGE>(g, e, rank, big, static_cast<const float*>(x), q, sc, sh, stage);
+      break;
+    case BF16:
+      enc_part<__nv_bfloat16, STAGE>(g, e, rank, big, static_cast<const __nv_bfloat16*>(x), q,
+                                     sc, sh, stage);
+      break;
+    default:
+      enc_part<__half, STAGE>(g, e, rank, big, static_cast<const __half*>(x), q, sc, sh, stage);
+      break;
+  }
+}
+
+using EncKernel = void (*)(EncGroup);
+
+int launch_enc(EncKernel kernel, bool stage, const EncGroup& g, int tasks, int smem,
+               cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
-  if (STAGE) {
+  if (stage) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
@@ -421,7 +538,7 @@ int launch_enc(const EncGroup& g, int tasks, int smem, cudaStream_t st) {
   attr[0].val.clusterDim.z = 1;
   cfg.gridDim = dim3(tasks * kCluster);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = STAGE ? smem : 0;
+  cfg.dynamicSmemBytes = stage ? smem : 0;
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -430,18 +547,12 @@ int launch_enc(const EncGroup& g, int tasks, int smem, cudaStream_t st) {
 
 inline bool valid_dtype(long long d) { return d >= F32 && d <= F16; }
 
-}  // namespace
-
-extern "C" {
-
 // table: count rows of 7 long longs, one a pool tensor: codes (int8, rows x
 // F), scales (f32, rows), values (dtype, rows x F), units (rows *
 // ceil(F / 16)), tile_end (the prefix of ceil(units / 1024)), F, dtype (0
-// f32, 1 bf16, 2 f16). count in [1, 16]. Returns cudaGetLastError() after
-// the launch.
-int st_dec_group(const long long* table, int count, void* stream) {
+// f32, 1 bf16, 2 f16). count in [1, 16].
+int fill_dec(DecGroup& g, const long long* table, int count) {
   if (count < 1 || count > kCap) return (int)cudaErrorInvalidValue;
-  DecGroup g{};
   g.count = count;
   for (int e = 0; e < count; ++e) {
     const long long* t = table + 7 * e;
@@ -455,31 +566,30 @@ int st_dec_group(const long long* table, int count, void* stream) {
     g.feat[e] = (int)t[5];
     g.dtype[e] = (int)t[6];
   }
-  const int tiles = g.tile_end[count - 1];
+  return (int)cudaSuccess;
+}
+
+int launch_dec(void (*kernel)(DecGroup), const DecGroup& g, void* stream) {
+  const int tiles = g.tile_end[g.count - 1];
   if (tiles == 0) return (int)cudaSuccess;
   const int grid = tiles < 132 * 8 ? tiles : 132 * 8;   // resident blocks for every SM
-  st_dec_group_kernel<int8_t><<<grid, kThreads, 0, (cudaStream_t)stream>>>(g);
+  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(g);
   return (int)cudaGetLastError();
 }
 
 // pieces: count rows of 8 long longs: codes (int8, at the piece's first
 // layer), scales (f32, at its first layer), F, dtype of the new states, rows
 // (layers x slots), ptr0, big (0 / 1), task_end (the prefix of the pieces'
-// tasks: rows for a big piece, ceil(rows / 8) for a small one); ptrs: nptr
+// tasks: rows for a big piece, ceil(rows / 16) for a small one); ptrs: nptr
 // rows of 2 long longs, a new state's address and its slot stride in
-// elements; active: (slots,) bool on the device. bits in [2, 8]. stage 1
-// keeps each CTA's values in `smem` bytes of shared memory between its two
-// passes (the yardstick), 0 re-reads them. count in [1, 16], nptr in [0,
-// 160]. Returns the launch's error code, then cudaGetLastError().
-int st_enc_group(const long long* pieces, int count, const long long* ptrs, int nptr,
-                 const void* active, int slots, int bits, int stage, int smem, void* stream) {
+// elements. count in [1, 16], nptr in [0, 160], bits in [2, 8].
+int fill_enc(EncGroup& g, const long long* pieces, int count, const long long* ptrs, int nptr,
+             int slots, int bits, int smem) {
   if (count < 1 || count > kCap || nptr < 0 || nptr > kPtrCap || slots < 1 || bits < 2 ||
       bits > 8 || smem < 0)
     return (int)cudaErrorInvalidValue;
-  EncGroup g{};
   g.count = count;
   g.slots = slots;
-  g.active = static_cast<const unsigned char*>(active);
   qrange_f32(bits, &g.lo, &g.hi);
   g.inv_qmax = 1.0f / g.hi;     // PyTorch's reciprocal of the f32 scalar qmax
   for (int e = 0; e < count; ++e) {
@@ -501,10 +611,67 @@ int st_enc_group(const long long* pieces, int count, const long long* ptrs, int 
     g.src[i] = reinterpret_cast<const void*>(ptrs[2 * i]);
     g.sstride[i] = ptrs[2 * i + 1];
   }
+  return (int)cudaSuccess;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The decode step's read: `table` as fill_dec reads it. Returns
+// cudaGetLastError() after the launch.
+int st_dec_group(const long long* table, int count, void* stream) {
+  DecGroup g{};
+  const int err = fill_dec(g, table, count);
+  return err ? err : launch_dec(st_dec_group_kernel<int8_t>, g, stream);
+}
+
+// One slot's read: each entry's codes and scales are the whole pool tensor
+// (layer 0, slot 0), its rows its layers, its values an (L, 1, *feat)
+// workspace; slot: one int32 on the device, pool_slots >= 1.
+int st_dec_slot(const long long* table, int count, const void* slot, int pool_slots,
+                void* stream) {
+  if (slot == nullptr || pool_slots < 1) return (int)cudaErrorInvalidValue;
+  DecGroup g{};
+  const int err = fill_dec(g, table, count);
+  if (err) return err;
+  g.slot = static_cast<const int*>(slot);
+  g.pool_slots = pool_slots;
+  return launch_dec(st_dec_slot_kernel<int8_t>, g, stream);
+}
+
+// The decode step's write: pieces and ptrs as fill_enc reads them; active:
+// (slots,) bool on the device. stage 1 keeps each CTA's values in `smem`
+// bytes of shared memory between its two passes, 0 re-reads them. Returns
+// the launch's error code, then cudaGetLastError().
+int st_enc_group(const long long* pieces, int count, const long long* ptrs, int nptr,
+                 const void* active, int slots, int bits, int stage, int smem, void* stream) {
+  EncGroup g{};
+  int err = fill_enc(g, pieces, count, ptrs, nptr, slots, bits, smem);
+  if (err) return err;
+  g.active = static_cast<const unsigned char*>(active);
   const int tasks = g.task_end[count - 1];
   if (tasks == 0) return (int)cudaSuccess;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int err = stage ? launch_enc<true>(g, tasks, smem, st) : launch_enc<false>(g, tasks, 0, st);
+  err = launch_enc(stage ? st_enc_group_kernel<int8_t, true> : st_enc_group_kernel<int8_t, false>,
+                   stage, g, tasks, smem, (cudaStream_t)stream);
+  return err ? err : (int)cudaGetLastError();
+}
+
+// One slot's write: pieces with slots = 1 (rows = layers), their codes and
+// scales at the piece's first layer, slot 0; slot: one int32 on the
+// device, pool_slots >= 1; stage and smem as st_enc_group's.
+int st_enc_slot(const long long* pieces, int count, const long long* ptrs, int nptr,
+                const void* slot, int pool_slots, int bits, int stage, int smem, void* stream) {
+  if (slot == nullptr || pool_slots < 1) return (int)cudaErrorInvalidValue;
+  EncGroup g{};
+  int err = fill_enc(g, pieces, count, ptrs, nptr, 1, bits, smem);
+  if (err) return err;
+  g.slot = static_cast<const int*>(slot);
+  g.pool_slots = pool_slots;
+  const int tasks = g.task_end[count - 1];
+  if (tasks == 0) return (int)cudaSuccess;
+  err = launch_enc(stage ? st_enc_slot_kernel<int8_t, true> : st_enc_slot_kernel<int8_t, false>,
+                   stage, g, tasks, smem, (cudaStream_t)stream);
   return err ? err : (int)cudaGetLastError();
 }
 

@@ -440,7 +440,7 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
     bar_sync(1 + wg);
     if (lane < 32) {
       const int rows = min(64, p.d - d0);
-      if constexpr (kStacked) {  // lane s: the WGN / kC slabs' runs
+      if constexpr (kStacked) {  // lane s: the WGN / kC slabs' runs (wn is 1: launch checks)
         if (lane < WGN / kC && a0 + lane < p.a && rows > 0)
           bulk_store(O + ((size_t)(a0 + lane) * p.d + d0) * p.c, stg + lane * (64 * kC * 2),
                      rows * kC * 2);
@@ -558,6 +558,7 @@ inline int launch(const void* fn, const void* z, const void* g, void* o, const i
       p.tiles == p.tiles_m * p.tiles_n && p.a_chunk == 64 * p.wm * kBK * 2 &&
       p.b_chunk == p.wgn * p.wn * kBK * 2 && p.stage == p.b_chunk + (p.resident ? 0 : p.a_chunk) &&
       p.a_res == (p.resident ? p.nk * p.a_chunk : 0) && (p.wgn * p.wn) % (p.bw * p.slabs) == 0 &&
+      (p.slabs == 1 || p.wn == 1) &&  // the stacked store's slab index carries no wn offset
       p.smem >= 1024 + p.a_res + p.stages * p.stage + nwg * 64 * p.out_pitch + 16 * p.stages + 8 &&
       (reinterpret_cast<uintptr_t>(z) | reinterpret_cast<uintptr_t>(g) |
        reinterpret_cast<uintptr_t>(o)) % 16 == 0;

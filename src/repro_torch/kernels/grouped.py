@@ -312,10 +312,11 @@ _INT_MAX = (1 << 31) - 1
 
 def st_table_bytes() -> tuple[int, int]:
     """Bytes of the decode's and the encode's tables as ``state_codec.cu``
-    lays them out (``DecGroup``, ``EncGroup``; both must stay within the
-    4,096 of a launch's parameters)."""
-    dec = ST_CAP * (3 * 8 + 4 * 4) + 4
-    enc = ST_CAP * (2 * 8 + 6 * 4) + ST_PTR_CAP * 16 + 8 + 4 * 5
+    lays them out (``DecGroup``, ``EncGroup``, the one-slot form's slot
+    pointer and pool width included; both must stay within the 4,096 of a
+    launch's parameters)."""
+    dec = ST_CAP * (3 * 8 + 4 * 4) + 8 + 4 * 2
+    enc = ST_CAP * (2 * 8 + 6 * 4) + ST_PTR_CAP * 16 + 2 * 8 + 4 * 6
     return _align(dec, 8), _align(enc, 8)
 
 
@@ -340,7 +341,8 @@ def st_dec_plan(shapes: list[tuple[int, int]],
                 cap: int = ST_CAP) -> list[StDecLaunch]:
     """The state decode group's launches over pool tensors given as (rows,
     feat): rows = layers x slots, feat the elements of one (layer, slot)
-    (an empty list gives none)."""
+    (an empty list gives none). The one-slot form (``st_dec_slot``) plans
+    rows = layers: its rows are one slot's."""
     out = []
     for idx in chunks(len(shapes), cap):
         units, ends, tiles = [], [], 0
@@ -411,12 +413,15 @@ def _st_stage_bytes(feat: int, itemsize: int, big: bool) -> int:
 
 def st_enc_plan(entries: list[tuple[int, int, int, int]],
                 cap: int = ST_CAP,
-                ptr_cap: int = ST_PTR_CAP) -> list[StEncLaunch]:
+                ptr_cap: int = ST_PTR_CAP,
+                cluster: bool = True) -> list[StEncLaunch]:
     """The state encode group's launches over pool tensors given as
     (layers, slots, feat, itemsize of the new states): each tensor's
     layers in pieces, a new launch where the pieces or the pointers would
     pass their caps (an empty tensor gives no piece; no piece gives no
-    launch)."""
+    launch). The one-slot form (``st_enc_slot``) plans slots = 1.
+    ``cluster=False`` gives every row one CTA, the large rows too: a
+    yardstick ``chip_smoke.py`` times, on no path."""
     out = []
     pieces: list[StPiece] = []
 
@@ -436,7 +441,7 @@ def st_enc_plan(entries: list[tuple[int, int, int, int]],
     for e, (layers, slots, feat, itemsize) in enumerate(entries):
         if not layers * slots * feat:
             continue
-        big = st_big(feat, itemsize)
+        big = cluster and st_big(feat, itemsize)
         l0 = 0
         while l0 < layers:
             ptrs = sum(pc.layers for pc in pieces)

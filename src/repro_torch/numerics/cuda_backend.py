@@ -55,6 +55,10 @@ recurrent-state pool of a whole decode step (``serve/state_cache.py``
 ``read_step`` / ``write_step``): every layer's state tensors in one launch
 each way (``kernels/csrc/state_codec.cu``), the encode choosing each
 (layer, slot)'s scale on the device and skipping inactive slots.
+``state_decode_slot`` and ``state_encode_slot`` do the same for ONE slot,
+every layer (a chunk step's read and write, a whole-prompt prefill's
+write; ``read_slot`` / ``write_slot_step`` / ``write_prefill``): the
+slot's index an int32 on the device, no ``active`` mask.
 """
 from __future__ import annotations
 
@@ -88,6 +92,8 @@ BDEC = "bw_dec"
 BW_SOURCE = "blockwise"
 STDEC = "st_dec_group"
 STENC = "st_enc_group"
+STDEC_SLOT = "st_dec_slot"
+STENC_SLOT = "st_enc_slot"
 STATE_SOURCE = "state_codec"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _FQ_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -735,6 +741,50 @@ def state_encode_many_plain(codes: list[torch.Tensor],
             s[lay].copy_(torch.where(active, step, s[lay]))
 
 
+def _slot_of(slot: torch.Tensor) -> int:
+    """The slot index a twin reads (a host read of the (1,) tensor)."""
+    return int(slot.reshape(-1)[0])
+
+
+def state_decode_slot_plain(codes: list[torch.Tensor],
+                            scales: list[torch.Tensor],
+                            dtypes: list[torch.dtype],
+                            slot: torch.Tensor) -> list[torch.Tensor]:
+    """The one-slot decode's plain version: slot ``slot`` of each (L, B,
+    *feat) pool tensor decoded layer by layer as the chunk step's
+    ``state_cache.read_layer`` of ``data[l][slot][None]`` decodes it, into
+    an (L, 1, *feat) tensor."""
+    b = _slot_of(slot)
+    out = []
+    for q, s, dt in zip(codes, scales, dtypes):
+        y = torch.empty((q.shape[0], 1) + tuple(q.shape[2:]), dtype=dt,
+                        device=q.device)
+        for lay in range(q.shape[0] if q.numel() else 0):
+            y[lay] = decode_rows_plain(q[lay, b].reshape(1, -1),
+                                       s[lay, b:b + 1], dt).reshape(y.shape[1:])
+        out.append(y)
+    return out
+
+
+def state_encode_slot_plain(codes: list[torch.Tensor],
+                            scales: list[torch.Tensor],
+                            news: list[list[torch.Tensor]],
+                            slot: torch.Tensor, bits: int) -> None:
+    """The one-slot encode's plain version: each layer's (1, *feat) new
+    state written into slot ``slot`` of the pool as
+    ``state_cache.write_slot`` writes it, in place: a ``per_tensor_max``
+    scale a layer, ``encode_rows_plain``; no other slot touched."""
+    spec = _state_spec(bits)
+    b = _slot_of(slot)
+    for q, s, layers in zip(codes, scales, news):
+        for lay, new in enumerate(layers):
+            step = per_tensor_max_scale_log2(
+                new, spec, reduce_axes=tuple(range(1, new.dim())))
+            c = encode_rows_plain(new.reshape(1, -1), step, bits, q.dtype)
+            q[lay, b].copy_(c.reshape(q.shape[2:]))
+            s[lay, b].copy_(step[0])
+
+
 def _state_lib() -> ctypes.CDLL:
     lib = B.load(STATE_SOURCE)
     if not getattr(lib, "_repro_typed", False):
@@ -744,6 +794,10 @@ def _state_lib() -> ctypes.CDLL:
         lib.st_dec_group.restype = i
         lib.st_enc_group.argtypes = [table, i, table, i, p, i, i, i, i, p]
         lib.st_enc_group.restype = i
+        lib.st_dec_slot.argtypes = [table, i, p, i, p]
+        lib.st_dec_slot.restype = i
+        lib.st_enc_slot.argtypes = [table, i, table, i, p, i, i, i, i, p]
+        lib.st_enc_slot.restype = i
         lib._repro_typed = True
     return lib
 
@@ -802,10 +856,20 @@ def state_decode_many(codes: list[torch.Tensor], scales: list[torch.Tensor],
             raise TypeError(f"{STDEC}: unsupported output dtype {dt}")
     outs = [torch.empty(q.shape, dtype=dt, device=q.device)
             for q, dt in zip(codes, dtypes)]
-    feats = [_state_feat(q) for q in codes]
     lib = _state_lib()
     stream = torch.cuda.current_stream(codes[0].device).cuda_stream
-    for launch in G.st_dec_plan([(q.shape[0] * q.shape[1], f)
+    for table, n in _st_dec_tables(codes, scales, outs, dtypes, False):
+        B.check(lib, lib.st_dec_group(table, n, stream), STDEC)
+        B.note_launch(STDEC)
+    return outs
+
+
+def _st_dec_tables(codes, scales, outs, dtypes, one_slot: bool):
+    """(table, entries) of each decode launch: rows = layers x slots of
+    each pool tensor, or its layers (``one_slot``: the rows of one slot)."""
+    feats = [_state_feat(q) for q in codes]
+    for launch in G.st_dec_plan([(q.shape[0] * (1 if one_slot else
+                                                q.shape[1]), f)
                                  for q, f in zip(codes, feats)]):
         if not launch.tiles:
             continue
@@ -815,10 +879,54 @@ def state_decode_many(codes: list[torch.Tensor], scales: list[torch.Tensor],
             rows += [codes[i].data_ptr(), scales[i].data_ptr(),
                      outs[i].data_ptr(), units, end, max(feats[i], 1),
                      _DTYPE_CODE[dtypes[i]]]
-        table = (ctypes.c_longlong * len(rows))(*rows)
-        B.check(lib, lib.st_dec_group(table, len(launch.index), stream),
-                STDEC)
-        B.note_launch(STDEC)
+        yield (ctypes.c_longlong * len(rows))(*rows), len(launch.index)
+
+
+def _check_slot(what: str, codes: list[torch.Tensor],
+                slot: torch.Tensor) -> int:
+    """The pool's slots (one for every tensor); ``slot`` a (1,) int32 on
+    the pool's device."""
+    pool_slots = codes[0].shape[1]
+    if any(q.shape[1] != pool_slots for q in codes):
+        raise ValueError(f"{what}: want {pool_slots} slots in every pool "
+                         "tensor")
+    if tuple(slot.shape) != (1,) or slot.dtype != torch.int32:
+        raise TypeError(f"{what}: the slot must be a (1,) int32 tensor, got "
+                        f"{tuple(slot.shape)} {slot.dtype}")
+    if slot.device != codes[0].device:
+        raise ValueError(f"{what}: the slot must be on the pool's device")
+    return pool_slots
+
+
+def state_decode_slot(codes: list[torch.Tensor], scales: list[torch.Tensor],
+                      dtypes: list[torch.dtype],
+                      slot: torch.Tensor) -> list[torch.Tensor]:
+    """Slot ``slot`` ((1,) int32, on the pool's device) of every (L, B,
+    *feat) int8 pool tensor ``codes[n]``, every layer, decoded under its
+    (L, B) ``scales[n]`` into a new (L, 1, *feat) tensor of ``dtypes[n]``:
+    on the card one ``st_dec_slot`` launch for up to ``grouped.ST_CAP`` of
+    them, the slot read on the device; on the CPU the plain version."""
+    if len(dtypes) != len(codes):
+        raise ValueError(f"{STDEC_SLOT}: {len(codes)} pool tensors and "
+                         f"{len(dtypes)} dtypes")
+    _check_state_pool(STDEC_SLOT, codes, scales)
+    if not codes:
+        return []
+    pool_slots = _check_slot(STDEC_SLOT, codes, slot)
+    if not codes[0].is_cuda:
+        return state_decode_slot_plain(codes, scales, dtypes, slot)
+    _check_state_card(STDEC_SLOT, codes, scales)
+    for dt in dtypes:
+        if dt not in _DTYPE_CODE:
+            raise TypeError(f"{STDEC_SLOT}: unsupported output dtype {dt}")
+    outs = [torch.empty((q.shape[0], 1) + tuple(q.shape[2:]), dtype=dt,
+                        device=q.device) for q, dt in zip(codes, dtypes)]
+    lib = _state_lib()
+    stream = torch.cuda.current_stream(codes[0].device).cuda_stream
+    for table, n in _st_dec_tables(codes, scales, outs, dtypes, True):
+        B.check(lib, lib.st_dec_slot(table, n, slot.data_ptr(), pool_slots,
+                                     stream), STDEC_SLOT)
+        B.note_launch(STDEC_SLOT)
     return outs
 
 
@@ -853,19 +961,7 @@ def _st_encode(codes, scales, news, active, bits,
     values from global memory in the second pass where the plan would
     stage them in shared memory: a yardstick ``chip_smoke.py`` times, on
     no path."""
-    if len(news) != len(codes):
-        raise ValueError(f"{STENC}: {len(codes)} pool tensors and "
-                         f"{len(news)} lists of new states")
-    _check_state_pool(STENC, codes, scales)
-    for q, layers in zip(codes, news):
-        if len(layers) != q.shape[0]:
-            raise ValueError(f"{STENC}: {len(layers)} new states for "
-                             f"{q.shape[0]} layers")
-        for n in layers:
-            if tuple(n.shape) != tuple(q.shape[1:]):
-                raise ValueError(f"{STENC}: a new state of shape "
-                                 f"{tuple(n.shape)} for a pool of "
-                                 f"{tuple(q.shape)}")
+    _check_new_states(STENC, codes, scales, news, None)
     if not codes:
         return
     slots = codes[0].shape[1]
@@ -877,46 +973,110 @@ def _st_encode(codes, scales, news, active, bits,
                 STENC)
     if not codes[0].is_cuda:
         return state_encode_many_plain(codes, scales, news, active, bits)
-    _check_state_card(STENC, codes, scales)
-    if not 2 <= bits <= 8:
-        raise ValueError(f"{STENC}: int8 storage holds 2..8 bits, got {bits}")
     if active.dtype != torch.bool or not active.is_contiguous():
         raise TypeError(f"{STENC}: active must be a contiguous bool tensor")
+    lib = _state_lib()
+    for args in _st_enc_tables(STENC, codes, scales, news, bits, slots,
+                               slots, reread, True):
+        B.check(lib, lib.st_enc_group(*args[:4], active.data_ptr(), slots,
+                                      *args[4:]), STENC)
+        B.note_launch(STENC)
+
+
+def _check_new_states(what, codes, scales, news, slots) -> None:
+    """Each pool tensor's list of new states: one a layer, each (B, *feat)
+    (``slots`` None) or (slots, *feat)."""
+    if len(news) != len(codes):
+        raise ValueError(f"{what}: {len(codes)} pool tensors and "
+                         f"{len(news)} lists of new states")
+    _check_state_pool(what, codes, scales)
+    for q, layers in zip(codes, news):
+        if len(layers) != q.shape[0]:
+            raise ValueError(f"{what}: {len(layers)} new states for "
+                             f"{q.shape[0]} layers")
+        want = tuple(q.shape[1:]) if slots is None \
+            else (slots,) + tuple(q.shape[2:])
+        for n in layers:
+            if tuple(n.shape) != want:
+                raise ValueError(f"{what}: a new state of shape "
+                                 f"{tuple(n.shape)} for a pool of "
+                                 f"{tuple(q.shape)}")
+
+
+def _st_enc_tables(what, codes, scales, news, bits, rows_slots: int,
+                   pool_slots: int, reread: bool, cluster: bool):
+    """(pieces, count, ptrs, nptr, bits, stage, smem, stream) of each
+    encode launch over ``rows_slots`` rows a layer (the pool's slots for
+    the step form, 1 for the one-slot form, whose pieces start at slot 0
+    of their first layer of a pool of ``pool_slots``)."""
+    _check_state_card(what, codes, scales)
+    if not 2 <= bits <= 8:
+        raise ValueError(f"{what}: int8 storage holds 2..8 bits, got {bits}")
     dts, strides = [], []
     for layers in news:
         kinds = {n.dtype for n in layers}
         if len(kinds) > 1 or not kinds <= set(_DTYPE_CODE):
-            raise TypeError(f"{STENC}: a pool tensor's new states must share "
+            raise TypeError(f"{what}: a pool tensor's new states must share "
                             f"one of {sorted(map(str, _DTYPE_CODE))}, got "
                             f"{sorted(map(str, kinds))}")
         dts.append(next(iter(kinds), torch.float32))
         st = [_slot_stride(n) for n in layers]
         if None in st:
-            raise ValueError(f"{STENC}: a new state's slot rows must each be "
+            raise ValueError(f"{what}: a new state's slot rows must each be "
                              "contiguous")
         strides.append(st)
     feats = [_state_feat(q) for q in codes]
-    lib = _state_lib()
     stream = torch.cuda.current_stream(codes[0].device).cuda_stream
-    for launch in G.st_enc_plan([(q.shape[0], slots, f, dt.itemsize)
-                                 for q, f, dt in zip(codes, feats, dts)]):
+    for launch in G.st_enc_plan([(q.shape[0], rows_slots, f, dt.itemsize)
+                                 for q, f, dt in zip(codes, feats, dts)],
+                                cluster=cluster):
         stage = launch.stage and not reread
         pieces, ptrs = [], []
         for pc, end in zip(launch.pieces, launch.task_end):
-            i, off = pc.entry, pc.layer0 * slots
+            i, off = pc.entry, pc.layer0 * pool_slots
             pieces += [codes[i].data_ptr() + off * pc.feat,
                        scales[i].data_ptr() + 4 * off, pc.feat,
                        _DTYPE_CODE[dts[i]], pc.rows, pc.ptr0, int(pc.big),
                        end]
             for lay in range(pc.layer0, pc.layer0 + pc.layers):
                 ptrs += [news[i][lay].data_ptr(), strides[i][lay]]
-        ptab = (ctypes.c_longlong * len(pieces))(*pieces)
-        stab = (ctypes.c_longlong * max(len(ptrs), 1))(*ptrs)
-        B.check(lib, lib.st_enc_group(
-            ptab, len(launch.pieces), stab, launch.ptrs, active.data_ptr(),
-            slots, bits, int(stage), launch.stage_bytes if stage else 0,
-            stream), STENC)
-        B.note_launch(STENC)
+        yield ((ctypes.c_longlong * len(pieces))(*pieces), len(launch.pieces),
+               (ctypes.c_longlong * max(len(ptrs), 1))(*ptrs), launch.ptrs,
+               bits, int(stage), launch.stage_bytes if stage else 0, stream)
+
+
+def state_encode_slot(codes: list[torch.Tensor], scales: list[torch.Tensor],
+                      news: list[list[torch.Tensor]], slot: torch.Tensor,
+                      bits: int) -> None:
+    """Write every layer's new state into ONE slot of the pool, in place:
+    ``news[n][l]`` (1, *feat) into slot ``slot`` ((1,) int32, on the
+    pool's device) of layer l of the (L, B, *feat) int8 pool tensor
+    ``codes[n]`` and its (L, B) ``scales[n]``, a ``per_tensor_max`` scale
+    a layer; no other slot written. On the card one ``st_enc_slot``
+    launch for up to ``grouped.ST_CAP`` pieces and ``grouped.ST_PTR_CAP``
+    new states, the slot read and each scale chosen on the device; on the
+    CPU the plain version."""
+    _st_encode_slot(codes, scales, news, slot, bits)
+
+
+def _st_encode_slot(codes, scales, news, slot, bits, reread: bool = False,
+                    cluster: bool = True) -> None:
+    """``state_encode_slot``. ``reread`` (re-read the values in the second
+    pass) and ``cluster=False`` (a CTA a row, the large rows too) are
+    yardsticks ``chip_smoke.py`` times, on no path."""
+    _check_new_states(STENC_SLOT, codes, scales, news, 1)
+    if not codes:
+        return
+    pool_slots = _check_slot(STENC_SLOT, codes, slot)
+    _one_device(codes, [n for layers in news for n in layers], STENC_SLOT)
+    if not codes[0].is_cuda:
+        return state_encode_slot_plain(codes, scales, news, slot, bits)
+    lib = _state_lib()
+    for args in _st_enc_tables(STENC_SLOT, codes, scales, news, bits, 1,
+                               pool_slots, reread, cluster):
+        B.check(lib, lib.st_enc_slot(*args[:4], slot.data_ptr(), pool_slots,
+                                     *args[4:]), STENC_SLOT)
+        B.note_launch(STENC_SLOT)
 
 
 _STORAGE_NAME = {torch.int8: "int8", torch.int16: "int16",

@@ -42,10 +42,11 @@ step reads every such layer's state for every slot before its first layer
 (``state_cache.read_step``: one ``st_dec_group`` launch on an int8 pool),
 advances each layer's one token and writes the active slots' new states
 back after its last layer (``write_step``: one ``st_enc_group``); a chunk
-step reads and writes the one slot's a layer (``p2_dec`` / ``p2_enc``); a
-whole-prompt prefill
-writes every layer's at once (one ``p2_enc_rows`` a tensor, ``p2_enc``
-when the stack is one period deep). A stateful arch resets the slot's
+step does the same for its one slot (``read_slot`` / ``write_slot_step``:
+one ``st_dec_slot`` and one ``st_enc_slot``, the slot's index read on the
+device from the chunk's int32 tensor of start, valid count and slot); a
+whole-prompt prefill writes every layer's state of the slot in one
+``st_enc_slot`` launch (``write_prefill``). A stateful arch resets the slot's
 state on admission, prefills exact-length (no bucket pad, no padded
 chunk: a pad token would enter the recurrence), takes no prefix cache,
 and a pure-SSM arch runs the scheduler unpaged. Speculative decoding
@@ -421,23 +422,24 @@ class Engine:
         into the paged pool (which chooses the slot's scales; one
         ``p2_prefill_paged`` launch on a quantized pool), the recurrent
         sublayers' post-prompt state into the slot of the state pool (one
-        encode launch a state tensor on an int8 pool). A stateful arch
-        runs exact-length. Returns the last real position's logits (1, V)."""
+        ``st_enc_slot`` launch on an int8 pool). A stateful arch runs
+        exact-length. Returns the last real position's logits (1, V)."""
         bucket = 0 if self._state_keys else self.ecfg.prefill_bucket
         padded = toks + [0] * (_bucket_len(len(toks), bucket) - len(toks))
         logits, _, cache = lm_forward(
             self.params, self.lm, tokens=self._tensor([padded], torch.long),
             return_cache=True)
+        # the prompt's length and the slot on the device, in one copy: the
+        # writes read them there
+        meta = (self._tensor([len(toks), slot], torch.int32)
+                if self._attn_keys or self.scfg.quantized else None)
         if self._attn_keys:
-            # the prompt's length on the device: the write reads it there
             KC.write_prefill(self.pool, {k: cache[k] for k in self._attn_keys},
-                             table_row, slot,
-                             self._tensor([len(toks)], torch.int32),
-                             self.pcfg)
+                             table_row, slot, meta[0:1], self.pcfg)
         if self._state_keys:
             SC.write_prefill(self.spool,
                              {k: cache[k] for k in self._state_keys}, slot,
-                             self.scfg)
+                             self.scfg, None if meta is None else meta[1:2])
         return logits[0, len(toks) - 1][None]
 
     def _sub_chunk(self, pp: dict, x: torch.Tensor, layer: int, key: str,
@@ -458,24 +460,6 @@ class Engine:
         x = x + apply_site(pp["mixer"]["o"], attn, d.o, cfg)
         return sub_ffn_decode(pp, x, sub, cfg)
 
-    def _sub_chunk_state(self, pp: dict, x: torch.Tensor, layer: int,
-                         key: str, sub, slot: int) -> torch.Tensor:
-        """One recurrent sublayer of the chunk step: decode the slot's state
-        (one ``p2_dec`` launch a tensor on an int8 pool: a one-element
-        scale), scan the chunk from it, encode the end-of-chunk state back
-        (one ``p2_enc`` a tensor)."""
-        cfg = self.lm.cfg
-        shapes = SC.state_feature_shapes(sub, cfg)
-        data = {n: t[layer] for n, t in self.spool["data"][key].items()}
-        scale = {n: t[layer] for n, t in self.spool["scale_log2"][key].items()}
-        state = {n: SC.read_layer(data[n][slot][None], scale[n][slot][None],
-                                  SC.natural_dtype(kind, cfg), self.scfg)
-                 for n, (_, kind) in shapes.items()}
-        x, new_state = self._state_mix(pp, x, sub, state)
-        for n in shapes:
-            SC.write_slot(data[n], scale[n], new_state[n][0], slot, self.scfg)
-        return x
-
     @torch.no_grad()
     def _chunk(self, toks: list[int], table_row: torch.Tensor, slot: int,
                start: int) -> torch.Tensor:
@@ -487,8 +471,12 @@ class Engine:
         carried state and writes the end-of-chunk state back. ``toks`` is
         padded to the chunk width (or the bucketed length when chunking is
         off), except on a stateful arch; pad rows go to the trash page.
-        The slot's scales stay on the device, as (1,) views. Returns the
-        last real position's logits (1, V)."""
+        The slot's scales stay on the device, as (1,) views. A recurrent
+        layer's state is read only by that layer and what it writes only by
+        the next step, so the slot's state of every layer is read before
+        the first layer (``read_slot``) and written after the last
+        (``write_slot_step``). Returns the last real position's logits (1,
+        V)."""
         lm, ecfg = self.lm, self.ecfg
         if self._state_keys:
             width = len(toks)
@@ -497,18 +485,33 @@ class Engine:
                      else _bucket_len(len(toks), ecfg.prefill_bucket))
         tokens = self._tensor([toks + [0] * (width - len(toks))], torch.long)
         positions = (start + torch.arange(width, device=self.device))[None]
-        # the chunk's (1,) start and valid count, on the device once a step
-        start_t, valid_t = self._tensor([[start], [len(toks)]], torch.int32)
+        # the chunk's (1,) start, valid count and slot, on the device in
+        # one copy a step
+        start_t, valid_t, slot_t = self._tensor(
+            [[start], [len(toks)], [slot]], torch.int32)
         x = embed_tokens(self.params, tokens, lm)
+        if self._state_keys:
+            states = SC.read_slot(self.spool, self._state_dtypes, slot,
+                                  self.scfg, slot_t)
+            new = {k: {n: [] for n in kinds}
+                   for k, kinds in self._state_dtypes.items()}
         for layer, pp in enumerate(self.params["layers"]):
             for i, sub in enumerate(lm.period):
+                key = f"sub_{i}"
                 if sub.mixer_kind in STATE_MIXERS:
-                    x = self._sub_chunk_state(pp[f"sub_{i}"], x, layer,
-                                              f"sub_{i}", sub, slot)
+                    # scan the chunk from the slot's state; write_slot_step
+                    # encodes the end-of-chunk state after the last layer
+                    x, st = self._state_mix(
+                        pp[key], x, sub,
+                        {n: t[layer] for n, t in states[key].items()})
+                    for n, t in st.items():
+                        new[key][n].append(t)
                     continue
-                x = self._sub_chunk(pp[f"sub_{i}"], x, layer, f"sub_{i}", sub,
+                x = self._sub_chunk(pp[key], x, layer, key, sub,
                                     table_row[None], slot, start_t, valid_t,
                                     positions)
+        if self._state_keys:
+            SC.write_slot_step(self.spool, new, slot, self.scfg, slot_t)
         x = x[:, len(toks) - 1:len(toks)]
         x = rms_norm(x, self.params["final_norm"]["scale"], lm.cfg.norm_eps)
         return apply_site(self.params["head"], x, lm.head, lm.cfg)[:, 0]

@@ -20,13 +20,18 @@ pool the step costs two launches, ``st_dec_group`` and ``st_enc_group``
 (``kernels/csrc/state_codec.cu`` through ``numerics/cuda_backend.py``;
 their plain versions, loops over ``read_layer`` / ``write_layer``'s
 arithmetic, on CPU tensors), the encode choosing each (layer, slot)'s scale
-and masking the inactive slots on the device. The per-layer primitives
-(the chunk step's one slot, a whole-prompt prefill's write) are one launch
-of the codec kernels each, chosen by the size of the scale as the
-reference's Pallas backend chooses it: a scale per row (``num_slots`` > 1
-or ``L`` > 1) takes ``p2_enc_rows`` / ``p2_dec_rows``, a single-element
-scale (one slot, or one layer) ``p2_enc`` / ``p2_dec``. A model-dtype pool
-runs no kernel.
+and masking the inactive slots on the device. A chunk step does the same
+for its one slot (``read_slot`` / ``write_slot_step``: ``st_dec_slot`` and
+``st_enc_slot``, the slot's index an int32 on the device, a scale a layer),
+and a whole-prompt prefill writes every layer of the slot in one
+``st_enc_slot`` launch (``write_prefill``). The per-layer primitives
+(``read_layer`` / ``write_layer`` / ``write_slot``, which the step
+functions' plain versions follow) are one launch of the codec kernels
+each, chosen by the size of the scale as the reference's Pallas backend
+chooses it: a scale per row (``num_slots`` > 1 or ``L`` > 1) takes
+``p2_enc_rows`` / ``p2_dec_rows``, a single-element scale (one slot, or
+one layer) ``p2_enc`` / ``p2_dec``; no serving path runs them on an int8
+pool. A model-dtype pool runs no kernel.
 
 In-place updates: where the reference donates the pool to a jitted step
 and rebuilds it with ``.at[].set``, the functions below write into the
@@ -37,9 +42,9 @@ Lifecycle hooks the engine drives: ``reset_slot`` (zero a slot on
 admission), ``write_prefill`` (the post-prompt state ``lm_forward``
 returns, all layers of one slot), ``read_step`` / ``write_step`` (the
 decode step's whole pool, active-masked: inactive lanes keep their codes
-and scale), ``read_layer`` / ``write_layer`` (the per-layer primitives the
-step's plain versions follow), ``write_slot`` (the chunk step's
-end-of-chunk state),
+and scale), ``read_slot`` / ``write_slot_step`` (the chunk step's one
+slot, every layer), ``read_layer`` / ``write_layer`` / ``write_slot`` (the
+per-layer primitives the step functions' plain versions follow),
 ``snapshot_slot`` / ``restore_slot`` (park and unpark one slot) and
 ``pool_bytes`` / ``pool_bytes_fp32`` (``ServeMetrics.state_bytes``).
 The reference's ``write_health`` and the snapshot trace events wait for
@@ -256,6 +261,67 @@ def write_step(pool: dict, new_states: dict, active: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# One slot, every layer (the engine's chunk step and prefill)
+# ---------------------------------------------------------------------------
+
+def _slot_tensor(pool: dict, slot: int, slot_t) -> torch.Tensor:
+    """``slot_t`` (the caller's (1,) int32 copy of ``slot`` on the pool's
+    device), or one made here."""
+    if slot_t is not None:
+        return slot_t
+    dev = next(iter(_leaves(pool))).device
+    return torch.tensor([slot], dtype=torch.int32, device=dev)
+
+
+def read_slot(pool: dict, dtypes: dict, slot: int, scfg: StateCacheConfig,
+              slot_t: torch.Tensor | None = None) -> dict:
+    """Every layer's state of one slot for every tensor named in ``dtypes``
+    ({sub: {name: dtype}}), before a chunk step's first layer: {sub:
+    {name: (L, 1, *feat) of that dtype}}, layer l's what ``read_layer`` of
+    ``data[l][slot][None]`` gives. On an int8 pool one ``st_dec_slot``
+    launch (``cuda_backend.state_decode_slot``, the slot read on the device
+    from ``slot_t``, a (1,) int32 holding ``slot``) into a fresh
+    workspace; on a model-dtype pool views of the pool where the dtypes
+    agree, no kernel."""
+    keys = _step_keys(dtypes)
+    data = [pool["data"][k][n] for k, n in keys]
+    want = [dtypes[k][n] for k, n in keys]
+    if scfg.quantized:
+        ys = CB.state_decode_slot(
+            data, [pool["scale_log2"][k][n] for k, n in keys], want,
+            _slot_tensor(pool, slot, slot_t))
+    else:
+        ys = [d[:, slot:slot + 1].to(dt) for d, dt in zip(data, want)]
+    out: dict = {}
+    for (k, n), y in zip(keys, ys):
+        out.setdefault(k, {})[n] = y
+    return out
+
+
+def write_slot_step(pool: dict, new_states: dict, slot: int,
+                    scfg: StateCacheConfig,
+                    slot_t: torch.Tensor | None = None) -> dict:
+    """Write a chunk step's end-of-chunk states ({sub: {name: [(1, *feat) a
+    layer]}}) into one slot after its last layer, in place: layer l's what
+    ``write_slot`` writes. On an int8 pool one ``st_enc_slot`` launch
+    (``cuda_backend.state_encode_slot``: a ``per_tensor_max`` scale a
+    layer, chosen on the device; the slot read from ``slot_t``); on a
+    model-dtype pool ``write_slot``'s copy a layer, no kernel."""
+    keys = _step_keys(new_states)
+    if scfg.quantized:
+        CB.state_encode_slot([pool["data"][k][n] for k, n in keys],
+                             [pool["scale_log2"][k][n] for k, n in keys],
+                             [new_states[k][n] for k, n in keys],
+                             _slot_tensor(pool, slot, slot_t), scfg.bits)
+        return pool
+    for k, n in keys:
+        for layer, new in enumerate(new_states[k][n]):
+            write_slot(pool["data"][k][n][layer],
+                       pool["scale_log2"][k][n][layer], new[0], slot, scfg)
+    return pool
+
+
+# ---------------------------------------------------------------------------
 # Slot lifecycle (whole pool, in place)
 # ---------------------------------------------------------------------------
 
@@ -268,21 +334,22 @@ def reset_slot(pool: dict, slot: int) -> dict:
 
 
 def write_prefill(pool: dict, state: dict, slot: int,
-                  scfg: StateCacheConfig) -> dict:
+                  scfg: StateCacheConfig,
+                  slot_t: torch.Tensor | None = None) -> dict:
     """Scatter a whole-prompt prefill state (``lm_forward``'s, leaves
     (L, 1, *feat): the stacked per-layer states for batch 1) into one slot,
-    all layers at once, in place: one encode launch a tensor on a
-    quantized pool, with a scale per layer."""
+    all layers at once, in place, with a scale per layer: on a quantized
+    pool one ``st_enc_slot`` launch for every tensor (``write_slot_step``
+    of each layer's (1, *feat); the slot read from ``slot_t``, a (1,)
+    int32 holding ``slot``)."""
+    if scfg.quantized:
+        return write_slot_step(
+            pool, {key: {name: list(arr) for name, arr in kinds.items()}
+                   for key, kinds in state.items()}, slot, scfg, slot_t)
     for key, kinds in state.items():
-        data, scale = pool["data"][key], pool["scale_log2"][key]
+        data = pool["data"][key]
         for name, arr in kinds.items():
-            vals = arr[:, 0]                             # (L, *feat)
-            if scfg.quantized:
-                codes, step = _encode(vals, scfg)
-                data[name][:, slot] = codes
-                scale[name][:, slot] = step
-            else:
-                data[name][:, slot] = vals.to(data[name].dtype)
+            data[name][:, slot] = arr[:, 0].to(data[name].dtype)
     return pool
 
 

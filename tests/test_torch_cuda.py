@@ -1991,7 +1991,7 @@ def test_state_group_wrappers_refuse_on_card(cuda):
 def test_engine_decode_step_launches_the_state_groups(cuda):
     """An int8 rwkv6 engine (reduced, f32) on the card: each decode step one
     ``st_dec_group`` and one ``st_enc_group`` and no row codec kernel; the
-    prefill writes each tensor's layer stack with ``p2_enc_rows``."""
+    prefill writes the slot's every layer with one ``st_enc_slot``."""
     lm = build_lm(C.get_reduced("rwkv6-1.6b").replace(dtype="float32"))
     params = init_lm(torch.Generator(device=cuda).manual_seed(0), lm,
                      device=cuda)
@@ -2005,4 +2005,131 @@ def test_engine_decode_step_launches_the_state_groups(cuda):
     assert lm.n_periods > 1 and steps >= 4
     assert dict(B.LAUNCHES) == {"st_dec_group": steps,
                                 "st_enc_group": steps,
-                                "p2_enc_rows": 2 * 3}
+                                "st_enc_slot": 2}
+
+
+@pytest.mark.parametrize("b", [0, 2, 3])
+def test_state_slot_groups_bit_identical(cuda, b):
+    """The one-slot decode and encode (first, middle and last of 4 slots):
+    bit for bit with their twins, the per-layer route (``read_layer`` /
+    ``write_slot``), the re-read and a CTA a row, over two launches; one
+    launch each; no other slot written."""
+    from repro_torch.serve import state_cache as SC
+    scfg = SC.StateCacheConfig(quantized=True)
+    codes, scales, many, dts = _st_case(cuda, 5, ST_ENTRIES)
+    news = [[x[b:b + 1] for x in layers] for layers in many]
+    slot = torch.tensor([b], dtype=torch.int32, device=cuda)
+    B.reset_launches()
+    ys = CB.state_decode_slot(codes, scales, dts, slot)
+    torch.cuda.synchronize()
+    assert dict(B.LAUNCHES) == {"st_dec_slot": 1}
+    again = CB.state_decode_slot(codes, scales, dts, slot)
+    for y, a, t, q, s, dt in zip(ys, again, CB.state_decode_slot_plain(
+            codes, scales, dts, slot), codes, scales, dts):
+        per = torch.stack([SC.read_layer(q[lay][b][None], s[lay][b][None],
+                                         dt, scfg)
+                           for lay in range(q.shape[0])])
+        for other in (a, t, per):
+            assert _bits_eq(y, other)
+    pools = [([q.clone() for q in codes], [s.clone() for s in scales])
+             for _ in range(5)]
+    B.reset_launches()
+    CB.state_encode_slot(*pools[0], news, slot, 8)
+    torch.cuda.synchronize()
+    assert dict(B.LAUNCHES) == {"st_enc_slot": 1}
+    CB.state_encode_slot_plain(*pools[1], news, slot, 8)
+    for q, s, layers in zip(*pools[2], news):
+        for lay, x in enumerate(layers):
+            SC.write_slot(q[lay], s[lay], x[0], b, scfg)
+    CB._st_encode_slot(*pools[3], news, slot, 8, reread=True)
+    CB._st_encode_slot(*pools[4], news, slot, 8, cluster=False)
+    for qs, ss in pools[1:]:
+        for x, y in zip(pools[0][0] + pools[0][1], qs + ss):
+            assert _bits_eq(x, y)
+    off = torch.arange(4, device=cuda) != b
+    for x, y in zip(pools[0][0] + pools[0][1], codes + scales):
+        assert torch.equal(x[:, off], y[:, off])
+    CB.state_encode_slot(*pools[0], news, slot, 8)      # a second launch
+    for x, y in zip(pools[0][0] + pools[0][1], pools[1][0] + pools[1][1]):
+        assert _bits_eq(x, y)
+
+
+def test_state_slot_groups_past_their_caps(cuda):
+    from repro_torch.kernels import grouped as G
+    ents = [(1, (40,), torch.float32, False)] * (G.ST_CAP + 3)
+    codes, scales, many, dts = _st_case(cuda, 6, ents, slots=2)
+    news = [[x[1:] for x in layers] for layers in many]
+    slot = torch.tensor([1], dtype=torch.int32, device=cuda)
+    want = CB.state_decode_slot_plain(codes, scales, dts, slot)
+    ref = ([q.clone() for q in codes], [s.clone() for s in scales])
+    B.reset_launches()
+    ys = CB.state_decode_slot(codes, scales, dts, slot)
+    CB.state_encode_slot(codes, scales, news, slot, 8)
+    torch.cuda.synchronize()
+    assert dict(B.LAUNCHES) == {"st_dec_slot": 2, "st_enc_slot": 2}
+    for y, t in zip(ys, want):
+        assert _bits_eq(y, t)
+    CB.state_encode_slot_plain(*ref, news, slot, 8)
+    for x, y in zip(codes + scales, ref[0] + ref[1]):
+        assert _bits_eq(x, y)
+    deep = [(G.ST_PTR_CAP + 5, (2, 64), torch.float32, False)]
+    codes, scales, many, dts = _st_case(cuda, 7, deep, slots=2)
+    news = [[x[:1] for x in layers] for layers in many]
+    slot = torch.tensor([0], dtype=torch.int32, device=cuda)
+    ref = ([q.clone() for q in codes], [s.clone() for s in scales])
+    B.reset_launches()
+    CB.state_encode_slot(codes, scales, news, slot, 4)
+    torch.cuda.synchronize()
+    assert dict(B.LAUNCHES) == {"st_enc_slot": 2}
+    CB.state_encode_slot_plain(*ref, news, slot, 4)
+    for x, y in zip(codes + scales, ref[0] + ref[1]):
+        assert _bits_eq(x, y)
+
+
+def test_state_slot_out_of_range_writes_nothing(cuda):
+    """A slot index outside the pool, read on the device: the encode
+    writes no code or scale."""
+    codes, scales, many, dts = _st_case(cuda, 8, ST_ENTRIES[:2])
+    news = [[x[:1] for x in layers] for layers in many]
+    before = [t.clone() for t in codes + scales]
+    for b in (-1, 4):
+        CB.state_encode_slot(codes, scales, news, torch.tensor(
+            [b], dtype=torch.int32, device=cuda), 8)
+    for x, y in zip(codes + scales, before):
+        assert _bits_eq(x, y)
+
+
+def test_state_slot_wrappers_refuse_on_card(cuda):
+    codes, scales, many, dts = _st_case(cuda, 9, [(2, (2, 32), torch.float32,
+                                                   False)])
+    news = [[x[:1] for x in layers] for layers in many]
+    slot = torch.tensor([0], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int8"):
+        CB.state_decode_slot([codes[0].to(torch.int16)], scales, dts, slot)
+    with pytest.raises(ValueError, match="pool's device"):
+        CB.state_decode_slot(codes, scales, dts, slot.cpu())
+    with pytest.raises(ValueError, match="2..8 bits"):
+        CB.state_encode_slot(codes, scales, news, slot, 9)
+    with pytest.raises(ValueError, match="contiguous"):
+        CB.state_encode_slot(codes, scales, [[x.transpose(1, 2).contiguous()
+                                              .transpose(1, 2)
+                                              for x in news[0]]], slot, 8)
+
+
+def test_engine_chunk_step_launches_the_slot_groups(cuda):
+    """An int8 rwkv6 engine (reduced, f32) on the card, chunks of 4: each
+    chunk step one ``st_dec_slot`` and one ``st_enc_slot``, each prefill
+    one ``st_enc_slot``, and no scalar or row codec kernel."""
+    lm = build_lm(C.get_reduced("rwkv6-1.6b").replace(dtype="float32"))
+    params = init_lm(torch.Generator(device=cuda).manual_seed(0), lm,
+                     device=cuda)
+    eng = Engine(lm, params, EngineConfig(pool=PoolConfig(
+        num_slots=2, quantized=True), prefill_chunk=4), device=cuda)
+    eng.submit([5, 3, 9, 1, 4, 4, 8, 2, 6, 1], max_new_tokens=3)
+    eng.submit([2, 7], max_new_tokens=3)
+    B.reset_launches()
+    eng.run()
+    steps = eng.summary()["decode_steps"]
+    assert dict(B.LAUNCHES) == {"st_dec_group": steps,
+                                "st_enc_group": steps,
+                                "st_dec_slot": 2, "st_enc_slot": 2 + 2}

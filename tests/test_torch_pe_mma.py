@@ -145,6 +145,18 @@ def test_aligned_bf16_takes_the_tensor_cores(shape):
     assert tt_mma.plan(*shape, 2) == p     # a pure function of its inputs
 
 
+@pytest.mark.parametrize("c", [8, 16, 24, 32, 64, 136])
+@pytest.mark.parametrize("d", [8, 64, 72, 256, 1024])
+def test_stacked_plans_take_one_warpgroup_column(c, d):
+    """The stacked store indexes its slabs from the tile's first (no
+    per-warpgroup offset along c), so ``launch`` refuses a stacked plan
+    with ``wn > 1``: the planner never makes one."""
+    for a, b in ((1, 64), (37, 256), (16384, 256)):
+        p = tt_mma.plan(a, b, c, d, 2)
+        if p is not None and p.slabs > 1:
+            assert p.wn == 1 and p.orientation == "stacked"
+
+
 def test_plan_for_reads_dtype_and_alignment():
     z = torch.zeros((1 + 4 * 64 * 16,), dtype=torch.bfloat16)
     g = torch.zeros((64, 256), dtype=torch.bfloat16)

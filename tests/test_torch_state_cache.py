@@ -346,14 +346,14 @@ def test_slot_isolation_walk_matches_reference(quantized):
 # ---------------------------------------------------------------------------
 
 def test_state_codec_takes_the_kernel_of_its_scale(monkeypatch):
-    """Which kernel wrapper the codec calls: the decode step's read and
-    write of every slot (a scale per slot) the row kernels, a whole-prompt
-    prefill's write of a layer stack (a scale per layer) the row encode;
-    the chunk step's read and write of one slot and a one-layer prefill
-    (a single scale) the scalar kernels."""
+    """Which kernel wrapper the codec calls: the per-layer read and write
+    of every slot (a scale per slot) the row kernels, of one slot (a
+    single scale) the scalar kernels; a whole-prompt prefill's write of
+    the slot's every layer, a layer stack or one layer, the one-slot
+    group encode (a scale per layer, chosen in the launch)."""
     calls = []
     for name in ("encode_rows", "decode_rows", "encode_scalar",
-                 "decode_scalar"):
+                 "decode_scalar", "state_encode_slot"):
         real = getattr(CB, name)
         monkeypatch.setattr(CB, name, lambda *a, _n=name, _f=real, **k:
                             (calls.append(_n), _f(*a, **k))[1])
@@ -369,11 +369,11 @@ def test_state_codec_takes_the_kernel_of_its_scale(monkeypatch):
     TSC.read_layer(data[2][None], scale[2][None], torch.float32, scfg)
     TSC.write_slot(data, scale, new[0], 2, scfg)
     assert calls == ["decode_scalar", "encode_scalar"]
-    for layers, want in ((3, "encode_rows"), (1, "encode_scalar")):
+    for layers in (3, 1):
         calls.clear()
         pool = {"data": {"sub_0": {"h": torch.zeros((layers, 4, 2, 8),
                                                     dtype=torch.int8)}},
                 "scale_log2": {"sub_0": {"h": torch.zeros((layers, 4))}}}
         TSC.write_prefill(pool, {"sub_0": {"h": torch.randn(layers, 1, 2, 8)}},
                           1, scfg)
-        assert calls == [want]
+        assert calls == ["state_encode_slot"]
