@@ -197,6 +197,32 @@ Phases (any failure raises and the script exits non-zero):
              NumericsPolicy(enable=True) serves from an int8 state pool
              with the int8 engine's tokens, token for token; a failed
              check lists which products differ between M = 1 and M = 8.
+   serve moe — the eighth main path: moonshot-v1-16b at full size (48
+             layers, d_model 2048, 16 heads over 16 KV heads, 64 experts of
+             d_ff 1408, top-6, vocab 163,840, untied head; bf16,
+             28,057,995,264 seeded parameters, asserted), every earlier
+             model freed first (under 2 GiB allocated, asserted), serving
+             the engine phase's 16 requests x 64 new tokens from the int8
+             paged pool with fused attention, whole prompt and chunked
+             (128); counts zeroed just before and read just after each
+             run, exact: a decode step 48 p2_append_paged, 48 split and 48
+             combine, a whole-prompt prefill 1 p2_prefill_paged, a chunk
+             step 48 p2_append_paged and 48 p2_read_paged, no codec or
+             state launch; the (expert, token) pairs the capacity dropped
+             in each run; a decode step, a 512-token prefill and a chunk
+             step profiled (the pool and attention kernels by name, the
+             device time by kind of kernel), one MoE layer of the decode
+             step timed by part; rows 1b, 5b, 6b, 1c (48 layers) and 3
+             (S = 1, 16 query over 16 KV heads) at 16 KV heads, held to
+             their twins and timed; then fp32 at full width with 2
+             layers: at a drop-free capacity factor (64) the engine ==
+             chunked == preempted == static decode token for token (and
+             the policy engine's int8 KV pool serves the int8 engine's
+             tokens), and at the config's 1.25 a 512-token prefill on the
+             card against the CPU: the routed experts and the kept
+             (expert, token) pairs equal per layer but for near ties
+             under 1e-6 relative (listed), logits within 1e-4, pairs
+             dropped. The phase's wall must stay under 150 s.
 5. train   — the second main path: the paper's FMNIST TT MLP at its
              published widths, random params from a seeded generator on
              the card, 300 steps of ``launch/train_fmnist.py``'s step on
@@ -484,15 +510,15 @@ APPEND_NONE = ("none: no PyTorch call encodes tokens under per-slot scales "
                "into their pages")
 
 
-def _append_inputs(torch, gen):
-    """A decode step's append at full width: K and V of 8 slots x 8 heads x
-    128 in bf16 (V the strided half of the fused kv projection, as
+def _append_inputs(torch, gen, hkv: int = 8):
+    """A decode step's append at full width: K and V of 8 slots x ``hkv``
+    heads x 128 in bf16 (V the strided half of the fused kv projection, as
     ``gqa_qkv`` slices it) into an int8 pool (513, 16, 8, 128) of random
     codes, 64 pages a slot. Slots at the first and the last offset of a
     page and at the last of their last page, two inactive slots at distinct
     trash offsets, one slot past its pages (trash); scales cover each
     slot's max but one slot's, which clips at both ends."""
-    b, hkv, dh, page, pps = 8, 8, 128, 16, 64
+    b, dh, page, pps = 8, 128, 16, 64
     total = b * pps
     pools = [torch.randint(-128, 128, (total + 1, page, hkv, dh),
                            generator=gen, device=gen.device).to(torch.int8)
@@ -528,14 +554,15 @@ def _tokens_previous(CB, KA, kd, vd, ks, vs, k, v, table, lens, active, *,
                         codes.reshape((b * s,) + tuple(data.shape[2:])))
 
 
-def _append_row(torch, timer, gen) -> dict:
-    """The paged KV append against its twin on the whole pool, bit for bit
-    (trash page included), over two launches and against the previous
-    design; timed beside the twin and that design (``previous_ms``)."""
+def _append_row(torch, timer, gen, hkv: int = 8) -> dict:
+    """The paged KV append (``hkv`` heads) against its twin on the whole
+    pool, bit for bit (trash page included), over two launches and against
+    the previous design; timed beside the twin and that design
+    (``previous_ms``)."""
     from repro_torch.kernels import build as B
     from repro_torch.kernels import kv_append as KA
     from repro_torch.numerics import cuda_backend as CB
-    args, kw = _append_inputs(torch, gen)
+    args, kw = _append_inputs(torch, gen, hkv)
     kd, vd = args[0], args[1]
     check(not args[5].is_contiguous(), "append: V is not a strided view")
     orig = kd.clone()
@@ -591,10 +618,10 @@ PAGED_NONE = ("none: no PyTorch call writes or reads tokens through a page "
               "table under per-slot scales")
 
 
-def _paged_pool(torch, gen):
-    """The serving pool at full width: int8 K and V pages (513, 16, 8, 128)
-    of random codes, 8 slots x 64 pages, each slot's pow-2 scales."""
-    b, hkv, dh, page, pps = 8, 8, 128, 16, 64
+def _paged_pool(torch, gen, hkv: int = 8):
+    """The serving pool at full width: int8 K and V pages (513, 16, hkv,
+    128) of random codes, 8 slots x 64 pages, each slot's pow-2 scales."""
+    b, dh, page, pps = 8, 128, 16, 64
     total = b * pps
     kd, vd = (torch.randint(-128, 128, (total + 1, page, hkv, dh),
                             generator=gen, device=gen.device).to(torch.int8)
@@ -647,8 +674,8 @@ def _paged_write_row(torch, timer, gen, pool) -> dict:
     from repro_torch.kernels import kv_append as KA
     from repro_torch.numerics import cuda_backend as CB
     kd0, vd0, ks, vs, table = pool
-    slot, page, s = 3, 16, 128
-    kv = (torch.randn((1, s, 2, 8, 128), generator=gen, device=gen.device)
+    slot, page, s, hkv = 3, 16, 128, kd0.shape[2]
+    kv = (torch.randn((1, s, 2, hkv, 128), generator=gen, device=gen.device)
           * 2 ** -3).to(torch.bfloat16)
     k, v = kv[:, :, 0].contiguous(), kv[:, :, 1]
     check(not v.is_contiguous(), "chunk write: V is not a strided view")
@@ -702,8 +729,8 @@ def _paged_write_row(torch, timer, gen, pool) -> dict:
     # bf16 in, int8 codes out; two scales, the start, the count, the pages
     row["bound_ms"], row["bound_by"] = bound_ms(n * 3 + 4 * 4 + 4 * 8,
                                                 2 * n, FP32_OPS_PER_S)
-    log(f"p2_append_paged chunk write (K and V, 128 rows x 8 x 128 bf16): "
-        f"{row['ms']*1e3:.2f} us one launch (previous route "
+    log(f"p2_append_paged chunk write (K and V, 128 rows x {hkv} x 128 "
+        f"bf16): {row['ms']*1e3:.2f} us one launch (previous route "
         f"{row['previous_ms']*1e3:.2f} us, plain {row['plain_ms']*1e3:.1f} "
         f"us, bound {row['bound_ms']*1e3:.4f} us); real pages bit-exact "
         "with the twin and the parent's route, clamp rule and pad rows, two "
@@ -862,18 +889,22 @@ def _prefill_previous(CB, kd, vd, ks, vs, k, v, table_row, slot, length,
         data[:, pages, offs] = codes.reshape(x.shape)
 
 
-def _prefill_rows(torch, timer, gen) -> list:
-    """The whole-prompt prefill write at full width (24 layers, K and V of
-    8 x 128 bf16 as ``lm_forward`` stacks them, into int8 pools (24, 513,
-    16, 8, 128) of random codes, slot 3 of 8 x 64 pages) at S = 128 and
-    512: pages and scales bit for bit with the twin and with the parent's
-    route, and over two launches, one launch each; then S = 512 with 400
-    valid rows (bucket padding). Timed beside the twin and the parent's
-    route (``previous_ms``)."""
+PREFILL_CASES = ((512, 512), (128, 128), (512, 400))     # (S, valid rows)
+
+
+def _prefill_rows(torch, timer, gen, layers: int = 24, hkv: int = 8,
+                  cases=PREFILL_CASES) -> list:
+    """The whole-prompt prefill write at full width (``layers`` layers, K
+    and V of ``hkv`` x 128 bf16 as ``lm_forward`` stacks them, into int8
+    pools (layers, 513, 16, hkv, 128) of random codes, slot 3 of 8 x 64
+    pages) at S = 128 and 512: pages and scales bit for bit with the twin
+    and with the parent's route, and over two launches, one launch each;
+    then S = 512 with 400 valid rows (bucket padding). Timed beside the
+    twin and the parent's route (``previous_ms``)."""
     from repro_torch.kernels import build as B
     from repro_torch.kernels import kv_prefill as KP
     from repro_torch.numerics import cuda_backend as CB
-    layers, b, hkv, dh, page, pps, slot = 24, 8, 8, 128, 16, 64, 3
+    b, dh, page, pps, slot = 8, 128, 16, 64, 3
     total = b * pps
     kd0, vd0 = (torch.randint(-128, 128, (layers, total + 1, page, hkv, dh),
                               generator=gen, device=gen.device
@@ -883,7 +914,7 @@ def _prefill_rows(torch, timer, gen) -> list:
     table = torch.randperm(total, generator=gen, device=gen.device).reshape(
         b, pps).to(torch.int32)
     rows = []
-    for s, length in ((512, 512), (128, 128), (512, 400)):
+    for s, length in cases:
         mag = torch.exp2(torch.randint(-4, 3, (layers, 1, 1, 1, 1),
                                        generator=gen, device=gen.device
                                        ).float())
@@ -933,7 +964,8 @@ def _prefill_rows(torch, timer, gen) -> list:
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4 * k.numel(),
                                                     FP32_OPS_PER_S)
         rows.append(row)
-        log(f"p2_prefill_paged (K and V, 24 x {s} x 8 x 128 bf16, {length} "
+        log(f"p2_prefill_paged (K and V, {layers} x {s} x {hkv} x 128 bf16, "
+            f"{length} "
             f"valid): {row['ms']*1e3:.2f} us one launch (previous route "
             f"{row['previous_ms']*1e3:.2f} us, plain "
             f"{row['plain_ms']*1e3:.1f} us, bound "
@@ -1016,15 +1048,58 @@ def phase_kernels(torch, timer: Timer) -> dict:
     out["p2_dec_rows"] = dec_shapes
 
     # --- paged attention: B=8, Hq=16, Hkv=8, Dh=128, page 16, 64 pages/slot
+    att_shapes, comb_shapes, (kd, vd, ks, vs, table, lens) = _attention_rows(
+        torch, timer, gen)
     b, hq, hkv, dh, page, pps = PA_SHAPE
-    kd, vd, ks, vs, table = _pa_pool(torch, gen)
+    # the model-dtype page template (unquantized pool), S=1
+    kb = (kd.float() * 2.0 ** -6).to(torch.bfloat16)
+    vb = (vd.float() * 2.0 ** -6).to(torch.bfloat16)
+    qb = torch.randn((b, hq, dh), generator=gen, device="cuda"
+                     ).to(torch.bfloat16)
+    ob = PA.paged_attention_cuda(qb, kb, vb, ks, vs, table, lens,
+                                 page_size=page, quantized=False)
+    rb = PA.paged_attention_torch(qb, kb, vb, ks, vs, table, lens,
+                                  page_size=page, quantized=False)
+    ulps, over = _bf16_excess((ob.float() - rb.float()).abs(), rb)
+    check(over <= 0, f"paged_attention bf16 pages: error exceeds 2 bf16 ulp "
+          f"+ 1e-5 by {over}")
+    log(f"paged_attention bf16 pages S=1: {ulps:.2f} ulp")
+    out["paged_attention"] = att_shapes
+    out["paged_attention_combine"] = comb_shapes
+    # what the timer reads with no work between its events: the floor
+    # under every time above (event and launch latency on this card)
+    out["timer_floor_ms"] = timer(lambda: None)
+    log(f"timer floor (no work between events): "
+        f"{out['timer_floor_ms']*1e3:.1f} us")
+    torch.cuda.synchronize()
+    B.reset_launches()
+    return out
+
+
+PA_SHAPE = (8, 16, 8, 128, 16, 64)     # B, Hq, Hkv, Dh, page, pages/slot
+
+
+# S = 1 (decode), S = 4 (a q-block), and S = 4 as the spec verify meets it:
+# slot 7's block overhanging the horizon
+PA_CASES = ((1, False), (4, False), (4, True))
+
+
+def _attention_rows(torch, timer, gen, shape=PA_SHAPE, cases=PA_CASES):
+    """Paged attention over an int8 pool of ``shape`` (B, Hq, Hkv, Dh,
+    page, pages a slot) at each (S, overhang) case: within 1e-5 in fp32
+    and 2 bf16 ulp + 1e-5 with bf16 q of its twin, two launches
+    bit-identical, each kernel against its plain mirror; timed beside the
+    twin, the library's gather + dequant + SDPA and the bound. An
+    overhanging case's rows past the horizon are never emitted, so only
+    the rows inside it are held to the twin. Returns (attention rows,
+    combine rows, the pool and the last case's lengths)."""
+    from repro_torch.kernels import paged_attention as PA
+    b, hq, hkv, dh, page, pps = shape
+    kd, vd, ks, vs, table = _pa_pool(torch, gen, shape)
     kw = dict(page_size=page, quantized=True)
     att_shapes, comb_shapes = [], []
-    # S = 1 (decode), S = 4 (a q-block), and S = 4 as the spec verify meets
-    # it: slot 7's block overhangs the horizon (rows 1024 and 1025 are
-    # never emitted, so only the rows inside it are held to the twin)
-    for s_rows, overhang in ((1, False), (4, False), (4, True)):
-        lens = _pa_lens(torch, s_rows)
+    for s_rows, overhang in cases:
+        lens = _pa_lens(torch, s_rows, shape)
         if overhang:
             lens[7] = pps * page - 2
         inside = (lens[:, None] + torch.arange(s_rows, device="cuda")
@@ -1077,44 +1152,19 @@ def phase_kernels(torch, timer: Timer) -> dict:
                                library_max_abs_err=lerr,
                                split_ms=comb["split_ms"],
                                what=comb.get("what", f"S={s_rows}")))
-        log(f"paged_attention S={s_rows}{' overhanging' * overhang}: "
-            f"{ms*1e3:.1f} us (split "
+        log(f"paged_attention S={s_rows}{' overhanging' * overhang} (Hq "
+            f"{hq}, Hkv {hkv}): {ms*1e3:.1f} us (split "
             f"{comb['split_ms']*1e3:.1f} + combine {comb['ms']*1e3:.1f}; "
             f"plain {pms*1e3:.1f} us, library "
             f"{lms*1e3:.1f} us, bound {bms*1e3:.2f} us); fp32 err "
             f"{err32:.2e}, bf16 {ulps:.2f} ulp, two launches bit-identical")
-    # the model-dtype page template (unquantized pool), S=1
-    kb = (kd.float() * 2.0 ** -6).to(torch.bfloat16)
-    vb = (vd.float() * 2.0 ** -6).to(torch.bfloat16)
-    qb = torch.randn((b, hq, dh), generator=gen, device="cuda"
-                     ).to(torch.bfloat16)
-    ob = PA.paged_attention_cuda(qb, kb, vb, ks, vs, table, lens,
-                                 page_size=page, quantized=False)
-    rb = PA.paged_attention_torch(qb, kb, vb, ks, vs, table, lens,
-                                  page_size=page, quantized=False)
-    ulps, over = _bf16_excess((ob.float() - rb.float()).abs(), rb)
-    check(over <= 0, f"paged_attention bf16 pages: error exceeds 2 bf16 ulp "
-          f"+ 1e-5 by {over}")
-    log(f"paged_attention bf16 pages S=1: {ulps:.2f} ulp")
-    out["paged_attention"] = att_shapes
-    out["paged_attention_combine"] = comb_shapes
-    # what the timer reads with no work between its events: the floor
-    # under every time above (event and launch latency on this card)
-    out["timer_floor_ms"] = timer(lambda: None)
-    log(f"timer floor (no work between events): "
-        f"{out['timer_floor_ms']*1e3:.1f} us")
-    torch.cuda.synchronize()
-    B.reset_launches()
-    return out
+    return att_shapes, comb_shapes, (kd, vd, ks, vs, table, lens)
 
 
-PA_SHAPE = (8, 16, 8, 128, 16, 64)     # B, Hq, Hkv, Dh, page, pages/slot
-
-
-def _pa_pool(torch, gen):
+def _pa_pool(torch, gen, shape=PA_SHAPE):
     """The attention timing case's int8 pool (B * pps pages and the trash
     page), pow-2 scales and a shuffled page table."""
-    b, hq, hkv, dh, page, pps = PA_SHAPE
+    b, hq, hkv, dh, page, pps = shape
     total = b * pps
     kd = torch.randint(-128, 128, (total + 1, page, hkv, dh), generator=gen,
                        device="cuda").to(torch.int8)
@@ -1127,12 +1177,12 @@ def _pa_pool(torch, gen):
     return kd, vd, ks, vs, table
 
 
-def _pa_lens(torch, s_rows):
+def _pa_lens(torch, s_rows, shape=PA_SHAPE):
     """Ragged contexts up to the last position: slot 1's row 0 sees to the
     last key of the first span and its rows 1.. the next, a span where a
     row has no unmasked key."""
     from repro_torch.kernels import paged_attention as PA
-    b, hq, hkv, dh, page, pps = PA_SHAPE
+    b, hq, hkv, dh, page, pps = shape
     edge = PA.PAGES_PER_SPLIT * page - 1
     return torch.tensor([0, edge, page, 100, 333, 517, 800,
                          pps * page - s_rows], dtype=torch.int32,
@@ -1492,6 +1542,7 @@ def _profile_decode(torch, lm, params, prompts, steps: int = 20,
         torch, lambda: [eng.step() for _ in range(steps)], steps,
         names, _kv_want(want), what, cpu=cpu)
     total, rows = _device_summary(torch, prof, steps)
+    kinds = _device_by_kind(torch, prof, steps)
     log(f"{what} profile: {wall*1e3:.2f} ms per step (host wall), device "
         f"{total:.2f} ms busy, busy share {total / (wall*1e3):.3f}; peak "
         f"memory over the steps {peak / 2**30:.3f} GiB "
@@ -1500,10 +1551,14 @@ def _profile_decode(torch, lm, params, prompts, steps: int = 20,
     for r in rows:
         log(f"  {r['ms_per_step']:8.3f} ms  {r['calls_per_step']:6.1f}x  "
             f"{r['name']}")
+    log("  by kind (ms, launches a step): " + ", ".join(
+        f"{k} {v['ms_per_step']:.3f} ({v['calls_per_step']:.0f})"
+        for k, v in kinds.items()))
     _log_kernels(kern)
     return {"step_ms": wall * 1e3, "device_ms": total,
             "busy_share": total / (wall * 1e3), "top": rows,
-            "kernels": kern, "peak_bytes": peak, "step_bytes": peak - base}
+            "by_kind": kinds, "kernels": kern, "peak_bytes": peak,
+            "step_bytes": peak - base}
 
 
 def _profile_prefill(torch, lm, params, prompts, reps: int = 10,
@@ -2433,6 +2488,40 @@ def _device_summary(torch, prof, steps: int) -> tuple[float, list]:
     top = sorted(evs, key=dev, reverse=True)[:12]
     return total, [{"name": e.key[:80], "calls_per_step": e.count / steps,
                     "ms_per_step": dev(e) / steps / 1e3} for e in top]
+
+
+# a device kernel's kind, by the first of these substrings its profile name
+# holds (lower case); the rest is "other"
+DEVICE_KINDS = (
+    ("attention", ("pa_split", "pa_combine")),
+    ("kv pool", ("p2_append", "p2_read", "p2_prefill")),
+    ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "matmul")),
+    ("sort", ("sort",)),
+    ("index", ("index", "gather", "scatter")),
+    ("reduce", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "fill", "copy")),
+    ("softmax", ("softmax",)))
+
+
+def _device_by_kind(torch, prof, steps: int) -> dict:
+    """Device ms and launches per step of a profiler window by kind of
+    kernel (``DEVICE_KINDS``): where a step's device time goes."""
+    def dev(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    cuda = torch.autograd.DeviceType.CUDA
+    out: dict = {}
+    for e in prof.key_averages():
+        if (getattr(e, "device_type", None) != cuda or dev(e) <= 0
+                or "spin_kernel" in e.key):
+            continue
+        key = e.key.lower()
+        kind = next((k for k, subs in DEVICE_KINDS
+                     if any(sub in key for sub in subs)), "other")
+        r = out.setdefault(kind, {"ms_per_step": 0.0, "calls_per_step": 0.0})
+        r["ms_per_step"] += dev(e) / steps / 1e3
+        r["calls_per_step"] += e.count / steps
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["ms_per_step"]))
 
 
 # launch-count name -> the kernel function's name in a profile (the
@@ -4692,7 +4781,8 @@ def _identity_checks(torch, what, lm, params, prompts, gen_len: int,
     static decode; chunked (``chunk``, shorter than the prompts: the run
     must take chunk steps) ≡ whole-prompt; a forced preemption
     resumes identically; an fp pool under ``NumericsPolicy(enable=True)``
-    serves from an int8 state pool with the int8 engine's tokens."""
+    serves from an int8 state pool (the KV pool on an attention-only arch)
+    with the int8 engine's tokens."""
     from repro_torch.numerics import NumericsPolicy
     from repro_torch.serve import Engine, EngineConfig, PoolConfig
     pool = PoolConfig(num_slots=slots, page_size=16, pages_per_slot=64,
@@ -4731,18 +4821,20 @@ def _identity_checks(torch, what, lm, params, prompts, gen_len: int,
               f"{probe}")
     eng, q = serve(quantized=True)
     peng, pol = serve(policy=NumericsPolicy(enable=True))
-    leaf = next(t for k in peng._state_keys
-                for t in peng.spool["data"][k].values())
-    check(peng.scfg.quantized and leaf.dtype == torch.int8 and pol == q,
-          f"{what}: policy engine's state pool {leaf.dtype}, "
+    kind = "state" if peng._state_keys else "KV"
+    quant, pool = ((peng.scfg.quantized, peng.spool) if peng._state_keys
+                   else (peng.pcfg.quantized, peng.pool))
+    leaf = next(t for kinds in pool["data"].values() for t in kinds.values())
+    check(quant and leaf.dtype == torch.int8 and pol == q,
+          f"{what}: policy engine's {kind} pool {leaf.dtype}, "
           f"{sum(a == b for a, b in zip(pol, q))}/{len(prompts)} "
           "completions equal to the int8 engine's")
     agree = sum(a == b for x, y in zip(q, static) for a, b in zip(x, y)) \
         / (len(prompts) * gen_len)
-    log(f"ssm identity ({what}): fp32 engine == static decode == chunked "
+    log(f"identity ({what}): fp32 engine == static decode == chunked "
         f"({chunks} chunk steps of {chunk}) == preempted on all "
         f"{len(prompts)} completions; the policy engine serves from an int8 "
-        f"state pool with the int8 engine's tokens (int8 vs fp32 greedy "
+        f"{kind} pool with the int8 engine's tokens (int8 vs fp32 greedy "
         f"agreement {agree:.3f})")
     return {"completions": len(prompts), "int8_fp_agreement": agree,
             "chunk": chunk, "chunk_steps": chunks}
@@ -4779,6 +4871,335 @@ def phase_ssm_identity(torch) -> dict:
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     log(f"ssm identity: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# serve moe: moonshot-v1-16b at full size from the int8 paged pool
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "moonshot-v1-16b"
+# 48 layers x 570,560,512 + the embedding and the untied head (163,840 x
+# 2,048 each) + the final norm
+MOE_PARAMS = 28_057_995_264
+MOE_SHAPE = (8, 16, 16, 128, 16, 64)   # B, Hq, Hkv (g = 1), Dh, page, pps
+MOE_SECONDS = 150.0                    # the phase's wall, at most
+
+
+def _moe_kernel_rows(torch, timer) -> dict:
+    """Rows 1b, 5b, 6b, 1c and 3 at moonshot's shapes: 16 KV heads (16
+    query heads over 16 KV heads, g = 1), the prefill write over its 48
+    layers; each held to its twin as at internlm2's shapes and timed."""
+    from repro_torch.kernels import build as B
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    hkv = MOE_SHAPE[2]
+    pool = _paged_pool(torch, gen, hkv)
+    out = {"p2_append_paged": [_append_row(torch, timer, gen, hkv),
+                               _paged_write_row(torch, timer, gen, pool)],
+           "p2_read_paged": _paged_read_rows(torch, timer, pool)}
+    del pool
+    out["p2_prefill_paged"] = _prefill_rows(torch, timer, gen, layers=48,
+                                            hkv=hkv, cases=((512, 512),))
+    att, comb, _ = _attention_rows(torch, timer, gen, MOE_SHAPE,
+                                   ((1, False),))
+    out["paged_attention"], out["paged_attention_combine"] = att, comb
+    for rows in out.values():
+        for r in rows:
+            r["what"] = (f"{MOE_ARCH}, {hkv} KV heads: "
+                         + r.get("what", f"S={r.get('S')}"))
+    torch.cuda.synchronize()
+    B.reset_launches()
+    return out
+
+
+def _with_drop_count(torch, fn):
+    """(fn(), the (expert, token) pairs the MoE routers routed while it
+    ran, and of those the pairs their capacity dropped; summed over layers
+    and calls): each capacity selection adds its counts on the device,
+    read once at the end."""
+    from repro_torch.models import moe as M
+    select, counts = M._select, []
+
+    def counted(w_tok, capacity):
+        cw, cidx = select(w_tok, capacity)
+        routed = (w_tok > 0).sum()
+        counts.append(torch.stack([routed, routed - (cw > 0).sum()]))
+        return cw, cidx
+    M._select = counted
+    try:
+        out = fn()
+    finally:
+        M._select = select
+    routed, dropped = (torch.stack(counts).sum(0).tolist() if counts
+                       else (0, 0))
+    return out, routed, dropped
+
+
+def _moe_layer_parts(torch, timer, lm, params) -> dict:
+    """One MoE layer of the decode step (8 rows, layer 0's weights) by
+    part, each timed alone: the route (router, softmax, top-6), the
+    capacity selection (every expert's top-8 rows), the gather, the
+    experts' GLU (three bmm over all 64 experts at C = 8) and the combine
+    (``index_add_``); then ``moe_forward`` whole, beside its byte bound
+    (every expert's weights read once)."""
+    from repro_torch.models import moe as M
+    d, cfg = lm.period[0].ffn, lm.cfg
+    p = params["layers"][0]["sub_0"]["moe"]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((8, cfg.d_model), generator=gen, device="cuda"
+                    ).to(torch.bfloat16)
+    cap = M._capacity(8, d)
+    idx, w, _ = M._route(p, x, d, cfg)
+    eids = torch.arange(d.num_experts, device="cuda")
+
+    def w_tok():
+        return torch.where(idx[None] == eids[:, None, None], w[None].float(),
+                           0.0).sum(-1)
+    cw, cidx = M._select(w_tok(), cap)
+    flat = cidx.reshape(-1)
+    xe = x[flat].reshape(d.num_experts, cap, -1)
+    ye = M._expert_glu(p, xe)
+    yw = (ye * (cw * (cw > 0))[..., None].to(ye.dtype)).reshape(
+        -1, ye.shape[-1])
+    nbytes = sum(p[n]["w"].numel() * p[n]["w"].element_size()
+                 for n in ("gate", "up", "down"))
+    bms, by = bound_ms(nbytes + p["router"]["w"].numel() * 2
+                       + 2 * x.numel() * 2)
+    out = {"rows": 8, "capacity": cap, "experts_bytes": nbytes,
+           "bound_ms": bms, "bound_by": by,
+           "route_ms": timer(lambda: M._route(p, x, d, cfg)),
+           "select_ms": timer(lambda: M._select(w_tok(), cap)),
+           "gather_ms": timer(lambda: x[flat].reshape(d.num_experts, cap,
+                                                      -1)),
+           "experts_ms": timer(lambda: M._expert_glu(p, xe)),
+           "combine_ms": timer(lambda: torch.zeros_like(x).index_add_(
+               0, flat, yw)),
+           "layer_ms": timer(lambda: M.moe_forward(p, x[:, None], d, cfg))}
+    log(f"moe layer (decode, 8 rows, C = {cap}, all {d.num_experts} experts):"
+        f" {out['layer_ms']*1e3:.1f} us (route {out['route_ms']*1e3:.1f}, "
+        f"select {out['select_ms']*1e3:.1f}, gather "
+        f"{out['gather_ms']*1e3:.1f}, experts' GLU "
+        f"{out['experts_ms']*1e3:.1f}, combine {out['combine_ms']*1e3:.1f}; "
+        f"bound {bms*1e3:.1f} us: {nbytes/1e9:.3f} GB of experts)")
+    return out
+
+
+def _moe_records(torch, M, fn):
+    """(fn(), each routing's and each capacity selection's inputs and
+    outputs on the host, in call order): ``moe._route`` and
+    ``moe._select`` wrapped while ``fn`` runs."""
+    rec = {"route": [], "select": []}
+    route, select = M._route, M._select
+
+    def routed(params, x2d, d, cfg, mask=None):
+        out = route(params, x2d, d, cfg, mask)
+        rec["route"].append((x2d.float().cpu(), out[0].cpu()))
+        return out
+
+    def selected(w_tok, capacity):
+        cw, cidx = select(w_tok, capacity)
+        rec["select"].append((w_tok.cpu(), cw.cpu(), cidx.cpu()))
+        return cw, cidx
+    M._route, M._select = routed, selected
+    try:
+        return fn(), rec
+    finally:
+        M._route, M._select = route, select
+
+
+def _moe_card_vs_cpu(torch, lm, params, prompt) -> dict:
+    """One whole-prompt prefill (``lm_forward`` with the engine's mask) at
+    the config's capacity on the card and on the CPU, fp32: per layer the
+    routed experts and the kept (expert, token) pairs equal, but for pairs
+    whose boundary weights lie within 1e-6 relative (listed), the logits
+    within 1e-4 of their largest magnitude, and the capacity dropped
+    pairs."""
+    from repro_torch.models import lm_forward
+    from repro_torch.models import moe as M
+    toks = torch.tensor([prompt], dtype=torch.long)
+    mask = torch.ones((1, len(prompt)), dtype=torch.bool)
+    host = _tensor_tree(torch, params, "cpu")
+
+    def prefill(p, dev):
+        with torch.no_grad():
+            return lm_forward(p, lm, tokens=toks.to(dev),
+                              token_mask=mask.to(dev))[0].cpu()
+    t0 = time.perf_counter()
+    card, crec = _moe_records(torch, M, lambda: prefill(params, "cuda"))
+    cpu, hrec = _moe_records(torch, M, lambda: prefill(host, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    near, dropped = [], 0
+    for layer, pp in enumerate(host["layers"]):
+        (xh, ih), (_, ic) = hrec["route"][layer], crec["route"][layer]
+        probs = torch.softmax(xh @ pp["sub_0"]["moe"]["router"]["w"].float(),
+                              dim=-1)
+        swapped: dict = {}
+        for t, j in (ic != ih).nonzero().tolist():
+            a, b = int(ic[t, j]), int(ih[t, j])
+            pa, pb = float(probs[t, a]), float(probs[t, b])
+            rel = abs(pa - pb) / max(pa, pb)
+            check(rel < 1e-6, f"moe routing, layer {layer}, token {t}: the "
+                  f"card routes expert {a} (p {pa:.9g}), the CPU expert {b} "
+                  f"(p {pb:.9g}), {rel:.2e} apart")
+            near.append(dict(layer=layer, token=t, card=a, cpu=b, rel=rel))
+            swapped.setdefault(t, set()).update((a, b))
+        (wc, cwc, cic), (wh, cwh, cih) = crec["select"][layer], \
+            hrec["select"][layer]
+        dropped += int((wc > 0).sum() - (cwc > 0).sum())
+
+        def kept(cw, cidx):
+            return {(e, t) for e in range(cidx.shape[0])
+                    for t, w in zip(cidx[e].tolist(), cw[e].tolist())
+                    if w > 0}
+        for e, t in kept(cwc, cic) ^ kept(cwh, cih):
+            if e in swapped.get(t, ()):
+                continue            # the routing's listed near tie
+            edge, w = float(cwh[e, -1]), float(wh[e, t])
+            rel = abs(w - edge) / max(edge, 1e-30)
+            check(rel < 1e-6, f"moe capacity, layer {layer}: (expert {e}, "
+                  f"token {t}) kept on one side only, weight {w:.9g} "
+                  f"against the boundary {edge:.9g} ({rel:.2e} apart)")
+            near.append(dict(layer=layer, token=t, expert=e, rel=rel))
+    err = float((card - cpu).abs().max() / cpu.abs().max())
+    check(err <= 1e-4, f"moe prefill: card logits {err:.2e} of their "
+          "largest magnitude from the CPU's")
+    check(dropped > 0, "moe prefill: the capacity dropped nothing")
+    for n in near:
+        log(f"  moe near tie allowed: {n}")
+    log(f"moe identity (capacity factor {lm.cfg.moe.capacity_factor}, "
+        f"{len(prompt)}-token prefill, {lm.cfg.num_layers} layers): routing "
+        f"and kept pairs equal on the card and the CPU ({len(near)} near "
+        f"ties), {dropped} (expert, token) pairs dropped, logits within "
+        f"{err:.2e}; the CPU side {cpu_s:.1f} s")
+    return {"near_ties": near, "dropped": dropped, "logits_rel_err": err,
+            "capacity": M._capacity(len(prompt), lm.period[0].ffn),
+            "tokens": len(prompt)}
+
+
+def _moe_identity(torch) -> dict:
+    """fp32 at full width, 2 layers: at a drop-free capacity factor (64,
+    as ``tests/test_models.py`` takes it) the engine ≡ chunked ≡ preempted
+    ≡ static decode, token for token (``_identity_checks``); at the
+    config's 1.25 a capacity-bound 512-token prefill on the card against
+    the CPU (``_moe_card_vs_cpu``)."""
+    import repro_torch.configs as C
+    from repro_torch.models import build_lm
+    cfg = C.get_config(MOE_ARCH).replace(num_layers=2, dtype="float32")
+    free = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                               capacity_factor=64.0))
+    lm, params = _state_model(torch, MOE_ARCH, num_layers=2, dtype="float32",
+                              moe=free.moe)
+    prompts = _requests(cfg.vocab_size, n=8, seed=2)
+    out = {"drop_free": _identity_checks(torch, f"{MOE_ARCH} 2 layers", lm,
+                                         params, prompts, 32, 4, CHUNK)}
+    out["capacity"] = _moe_card_vs_cpu(torch, build_lm(cfg), params,
+                                       sum(prompts, [])[:512])
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_moe(torch) -> dict:
+    """moonshot-v1-16b at full size (48 layers, 64 experts, top-6, bf16,
+    seeded weights on the card) from the int8 paged pool (8 x 64 x 16),
+    fused attention: the engine phase's 16 requests x 64 new tokens whole
+    prompt and chunked (128); counts exact: a decode step 48
+    ``p2_append_paged``, 48 split and 48 combine, a whole-prompt prefill 1
+    ``p2_prefill_paged``, a chunk step 48 ``p2_append_paged`` and 48
+    ``p2_read_paged``, no codec or state launch; by counter, and by
+    profile name for a decode step, a prefill and a chunk step. Then the
+    decode step's breakdown, one MoE layer by part, rows 1b, 1c, 3, 5b and
+    6b at 16 KV heads, and the fp32 identities (``_moe_identity``)."""
+    from repro_torch.kernels import build as B
+    t0 = time.perf_counter()
+    parts = {}
+
+    def part(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+    resident = torch.cuda.memory_allocated()
+    check(resident < 2 << 30, f"serve moe: {resident / 2**30:.2f} GiB "
+          "still allocated before the model")
+    timer = Timer(torch)
+    out = {"kernels": _moe_kernel_rows(torch, timer), "parts_s": parts}
+    part("kernels")
+    lm, params = _state_model(torch, MOE_ARCH)
+    cfg, layers = lm.cfg, lm.cfg.num_layers
+    n = sum(t.numel() for t in _leaves(params))
+    check(n == MOE_PARAMS and cfg.dtype == "bfloat16" and layers == 48,
+          f"serve moe: {n} {cfg.dtype} parameters in {layers} layers")
+    out["params"], out["resident_bytes"] = n, torch.cuda.memory_allocated()
+    log(f"serve moe: {n:,} parameters, {out['resident_bytes'] / 2**30:.2f} "
+        "GiB resident")
+    prompts = _requests(cfg.vocab_size)
+    _serve_engine(torch, lm, params, prompts[:2], 4, fused_attention=True)
+    part("init")
+    for name, chunk in (("whole", 0), ("chunked", CHUNK)):
+        B.reset_launches()
+        t1 = time.perf_counter()
+        (eng, _), routed, dropped = _with_drop_count(
+            torch, lambda: _serve_engine(torch, lm, params, prompts, 64,
+                                         fused_attention=True,
+                                         prefill_chunk=chunk))
+        wall = time.perf_counter() - t1
+        launches = dict(B.LAUNCHES)
+        steps = eng.summary()["decode_steps"]
+        admits = len(eng.metrics.prefills)
+        chunks = _chunk_steps(eng.metrics.prefills, chunk) if chunk else 0
+        check(bool(chunk) == (chunks > 0),
+              f"serve moe ({name}): {chunks} chunk steps")
+        want = {"p2_append_paged": layers * (steps + chunks),
+                "paged_attention": layers * steps,
+                "paged_attention_combine": layers * steps,
+                "p2_prefill_paged": admits}
+        if chunks:
+            want["p2_read_paged"] = layers * chunks
+        s = _check_state_run(f"serve moe ({name})", eng, launches, want,
+                             len(prompts))
+        check(eng.sched.alloc.free_pages == eng.pcfg.total_pages,
+              f"serve moe ({name}): pages still mapped at the end")
+        log(f"serve moe ({name}): {s['requests_completed']} requests in "
+            f"{wall:.2f} s, {steps} decode steps, {chunks} chunk steps, "
+            f"{s['tokens_per_s']:.1f} tok/s, TTFT p50 "
+            f"{s['ttft_p50_s']*1e3:.1f} ms; the capacity dropped {dropped} "
+            f"of {routed} routed (expert, token) pairs "
+            f"({dropped / max(routed, 1):.4f}); cache_bytes "
+            f"{s['cache_bytes']} "
+            f"({s['cache_reduction']:.3f}x); launches {launches}")
+        out[name] = {"summary": s, "launches": launches, "wall_s": wall,
+                     "chunk_steps": chunks, "routed": routed,
+                     "dropped": dropped}
+        del eng
+        part(name)
+    # device activity only: a window's ~7,000 launches a step with their
+    # host-side op events would multiply what the profiler processes
+    out.update({
+        "decode_profile": _profile_decode(
+            torch, lm, params, prompts, steps=6, fused=True, names=STATE_FNS,
+            what="moe decode", want={"p2_append_paged_kernel": layers,
+                                     "pa_split_kernel": layers,
+                                     "pa_combine_kernel": layers},
+            cpu=False),
+        "prefill_profile": _profile_prefill(
+            torch, lm, params, prompts, reps=2, names=STATE_FNS,
+            what="moe prefill", want={"p2_prefill_paged_kernel": 1},
+            cpu=False),
+        "chunk_profile": _profile_chunk(
+            torch, lm, params, prompts, reps=2, names=STATE_FNS,
+            what="moe chunk step", want={"p2_append_paged_kernel": layers,
+                                         "p2_read_paged_kernel": layers},
+            cpu=False)})
+    part("profiles")
+    out["layer"] = _moe_layer_parts(torch, timer, lm, params)
+    del params, timer
+    torch.cuda.empty_cache()
+    part("layer")
+    out["identity"] = _moe_identity(torch)
+    part("identity")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"serve moe: {out['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+    check(out["seconds"] < MOE_SECONDS, f"serve moe took "
+          f"{out['seconds']:.1f} s, over {MOE_SECONDS:.0f}")
     return out
 
 
@@ -5645,7 +6066,7 @@ def _state_path(name: str, rwkv: dict, hybrid: dict, api: dict) -> str:
 def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
                  wkern: dict, wire: dict, skern: dict, chunked: dict,
                  lmkern: dict, lm: dict, spec: dict, state: dict,
-                 rwkv: dict, hybrid: dict, sgroup: dict) -> dict:
+                 rwkv: dict, hybrid: dict, sgroup: dict, moe: dict) -> dict:
     rows = []
     for name, (src, replaces) in KERNELS.items():
         rows.append(_kernel_row(name, src, replaces, kern[name],
@@ -5662,6 +6083,13 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
         row["spec_launches"] = spec["draft"]["launches"].get(row["name"], 0)
         row["path"] += (f"; serve spec ({spec['draft']['rounds']} rounds, "
                         f"{row['spec_launches']} launches)")
+        # the MoE path's launches and its g = 1 shapes (the same five)
+        got = [moe[r]["launches"].get(row["name"], 0)
+               for r in ("whole", "chunked")]
+        row["moe_launches"] = sum(got)
+        row["path"] += (f"; serve moe (whole-prompt run {got[0]}, chunked "
+                        f"run {got[1]})")
+        row["shapes"] = row["shapes"] + moe["kernels"][row["name"]]
     # the state path's codec launches (the int8 rwkv6 run for the group
     # kernels and the prefill's row encode, the chunked run for the scalar
     # ones), its shapes first
@@ -6050,6 +6478,7 @@ def main(argv=None) -> int:
     report["state_phases_s"] = time.perf_counter() - t_state
     log(f"recurrent phases (serve rwkv6, serve hybrid, ssm identity) in "
         f"{report['state_phases_s']:.1f} s")
+    report["serve_moe"] = phase_serve_moe(torch)
     report["train"] = phase_train(torch)
     report["train_identity"] = phase_train_identity(torch)
     report["train_wire"] = phase_train_wire(torch)
@@ -6065,7 +6494,7 @@ def main(argv=None) -> int:
                         report["lm_kernels"], report["train_lm"],
                         report["serve_spec"], report["state_kernels"],
                         report["serve_rwkv6"], report["serve_hybrid"],
-                        report["state_group"])
+                        report["state_group"], report["serve_moe"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -1,5 +1,6 @@
 """Unified LM — the port of ``repro/models/lm.py``: the dense GQA family,
-pure-SSM RWKV6 and the Jamba hybrid (Mamba + attention; dense FFNs).
+MoE stacks, pure-SSM RWKV6 and the Jamba hybrid (Mamba + attention, dense
+or MoE FFNs).
 
 Structure: embed -> periods of sublayers -> final norm -> head. A period
 is a fixed pattern of sublayers (one for homogeneous stacks; Jamba's
@@ -9,8 +10,9 @@ per-period dicts (``params["layers"][l]``) and loops;
 ``convert.params_from_jax`` unstacks a JAX tree into it.
 
 Parameters are plain nested dicts of tensors with the reference's names,
-so the two packages' trees correspond key for key. MoE FFNs, MLA and the
-frontends are later slices and raise at ``build_lm``.
+so the two packages' trees correspond key for key; an MoE sublayer's
+expert stacks keep their ``(E, in, out)`` leaves (``models/moe.py``). MLA
+and the frontends are later slices and raise at ``build_lm``.
 
 Static decode (``lm_init_cache``, ``lm_decode_step``) is the reference's:
 one token a step against a cache of per-token K/V for attention
@@ -38,6 +40,7 @@ from ..core.tt_layer import effective_cores
 from ..device import resolve_device
 from . import attention as A
 from . import ffn as F
+from . import moe as M
 from . import ssm as S
 from .common import (SiteDef, apply_site, init_site, make_site, rms_norm,
                      site_lambda_update, site_prior_loss, torch_dtype)
@@ -47,7 +50,7 @@ from .common import (SiteDef, apply_site, init_site, make_site, rms_norm,
 class SubDef:
     mixer_kind: str          # "attn_gqa" | "mamba" | "rwkv6"
     mixer: Any
-    ffn_kind: str | None     # "ffn" | None (rwkv6 has its own)
+    ffn_kind: str | None     # "ffn" | "moe" | None (rwkv6 has its own)
     ffn: Any
 
 
@@ -64,8 +67,8 @@ STATE_MIXERS = ("mamba", "rwkv6")
 
 
 def build_lm(cfg: ModelConfig) -> LMDef:
-    """Dense GQA stacks, RWKV6 and the Jamba hybrid with dense FFNs; other
-    families name the slice they wait for."""
+    """Dense and MoE GQA stacks, RWKV6 and the Jamba hybrid; other families
+    name the slice they wait for."""
     if cfg.attn_kind == "mla":
         raise NotImplementedError("MLA attention is a later slice (ROADMAP "
                                   "queue 1, item 5: attention.py MLA)")
@@ -75,8 +78,7 @@ def build_lm(cfg: ModelConfig) -> LMDef:
 
     def ffn_for(use_moe: bool) -> tuple[str, Any]:
         if use_moe and cfg.moe.num_experts > 0:
-            raise NotImplementedError("MoE FFNs are a later slice (ROADMAP "
-                                      "queue 1, item 4: models/moe.py)")
+            return "moe", M.make_moe(cfg)
         return "ffn", F.make_ffn(cfg)
 
     if cfg.family == "ssm_rwkv6":
@@ -113,7 +115,10 @@ def _init_sub(gen: torch.Generator, sub: SubDef, cfg: ModelConfig,
         p["mixer"] = S.init_rwkv6(gen, sub.mixer, cfg, device)
         p["norm2"] = {"scale": ones.clone()}
         return p
-    if sub.ffn_kind is not None:
+    if sub.ffn_kind == "moe":
+        p["norm2"] = {"scale": ones.clone()}
+        p["moe"] = M.init_moe(gen, sub.ffn, cfg, device)
+    elif sub.ffn_kind is not None:
         p["norm2"] = {"scale": ones.clone()}
         p["ffn"] = F.init_ffn(gen, sub.ffn, cfg, device)
     return p
@@ -176,9 +181,13 @@ def tt_embed_lookup(eparams: dict, tokens: torch.Tensor, site: SiteDef,
 
 
 def _sub_forward(pp: dict, x: torch.Tensor, sub: SubDef, cfg: ModelConfig,
-                 positions: torch.Tensor, return_cache: bool):
-    """One sublayer (mixer + FFN). Returns (x, cache_entry): K/V for
-    attention, the post-sequence recurrent state for mamba and rwkv6."""
+                 positions: torch.Tensor, return_cache: bool,
+                 token_mask: torch.Tensor | None = None,
+                 capacity_tokens: int | None = None):
+    """One sublayer (mixer + FFN). Returns (x, aux, cache_entry): the MoE
+    aux loss (None without an MoE); K/V for attention, the post-sequence
+    recurrent state for mamba and rwkv6. ``token_mask`` and
+    ``capacity_tokens`` reach the MoE router (``_ffn``)."""
     h = rms_norm(x, pp["norm1"]["scale"], cfg.norm_eps)
     if sub.mixer_kind == "attn_gqa":
         q, k, v = A.gqa_qkv(pp["mixer"], h, sub.mixer, cfg, positions)
@@ -197,9 +206,9 @@ def _sub_forward(pp: dict, x: torch.Tensor, sub: SubDef, cfg: ModelConfig,
         h2 = rms_norm(x, pp["norm2"]["scale"], cfg.norm_eps)
         out2, st2 = S.rwkv6_channel_mix(pp["mixer"], h2, sub.mixer, cfg,
                                         None)
-        return x + out2, ({**st, **st2} if return_cache else {})
-    return (sub_ffn_decode(pp, x + out, sub, cfg),
-            cache if return_cache else {})
+        return x + out2, None, ({**st, **st2} if return_cache else {})
+    x, aux = _ffn(pp, x + out, sub, cfg, token_mask, capacity_tokens)
+    return x, aux, cache if return_cache else {}
 
 
 def _act_quant_edge(x: torch.Tensor, scales: dict,
@@ -236,9 +245,14 @@ def _remat_wrap(fn, cfg: ModelConfig):
 
 
 def lm_forward(params: dict, lm: LMDef, *, tokens: torch.Tensor,
-               return_cache: bool = False, scales: dict | None = None):
+               return_cache: bool = False, scales: dict | None = None,
+               token_mask: torch.Tensor | None = None,
+               capacity_tokens: int | None = None):
     """Train/prefill forward. tokens: (B, S) int. Returns (logits, aux,
-    cache): aux is 0 (no MoE in this slice); cache (when asked) holds each
+    cache): aux is the sum of the MoE layers' load-balance losses (0
+    without MoE); ``token_mask`` (B, S) bool of real tokens keeps padding
+    out of the MoE routers' capacity, ``capacity_tokens`` replaces their
+    capacity's token basis (``moe._capacity``). cache (when asked) holds each
     sublayer's entry with leaves stacked over periods, the reference's
     layout: ``{"k", "v"}`` (L, B, S, Hkv, Dh) for attention, the state
     after the last token for mamba (``conv``, ``h``) and rwkv6
@@ -262,20 +276,25 @@ def lm_forward(params: dict, lm: LMDef, *, tokens: torch.Tensor,
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
 
     def layer(pp, x):
-        layer_cache = {}
+        layer_cache, layer_aux = {}, None
         for i, sub in enumerate(lm.period):
-            x, c = _sub_forward(pp[f"sub_{i}"], x, sub, cfg, positions,
-                                return_cache)
+            x, a, c = _sub_forward(pp[f"sub_{i}"], x, sub, cfg, positions,
+                                   return_cache, token_mask, capacity_tokens)
             if quant_acts:
                 x = _act_quant_edge(x, scales, cfg)
+            if a is not None:
+                layer_aux = a if layer_aux is None else layer_aux + a
             layer_cache[f"sub_{i}"] = c
-        return x, layer_cache
+        return x, layer_aux, layer_cache
 
     layer = _remat_wrap(layer, cfg)
     caches: list[dict] = []
     amean = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for pp in params["layers"]:
-        x, layer_cache = layer(pp, x)
+        x, layer_aux, layer_cache = layer(pp, x)
+        if layer_aux is not None:
+            aux = aux + layer_aux
         caches.append(layer_cache)
         if quant_acts:
             amean = amean + torch.mean(torch.abs(x.detach().float()))
@@ -288,20 +307,36 @@ def lm_forward(params: dict, lm: LMDef, *, tokens: torch.Tensor,
         cache = {key: {name: torch.stack([c[key][name] for c in caches])
                        for name in caches[0][key]}
                  for key in caches[0]}
-    aux = torch.zeros((), device=x.device)
     if scales is None:
         return logits, aux, cache
     obs = {"activation": (amean / lm.n_periods)[None]} if quant_acts else {}
     return logits, aux, cache, obs
 
 
-def sub_ffn_decode(pp: dict, x: torch.Tensor, sub: SubDef,
-                   cfg: ModelConfig) -> torch.Tensor:
-    """Post-mixer FFN half of a sublayer (shared by prefill and decode)."""
+def _ffn(pp: dict, x: torch.Tensor, sub: SubDef, cfg: ModelConfig,
+         token_mask: torch.Tensor | None, capacity_tokens: int | None):
+    """Post-mixer FFN or MoE half of a sublayer: (x, the MoE aux loss, or
+    None without an MoE). ``token_mask`` (B, S) keeps inactive serve slots
+    and prefill padding out of the MoE router's capacity; a dense FFN
+    ignores it and ``capacity_tokens`` (per-token math cannot interfere
+    across rows)."""
     if sub.ffn_kind is None:
-        return x
+        return x, None
     h = rms_norm(x, pp["norm2"]["scale"], cfg.norm_eps)
-    return x + F.ffn_forward(pp["ffn"], h, sub.ffn, cfg)
+    if sub.ffn_kind == "moe":
+        out, aux = M.moe_forward(pp["moe"], h, sub.ffn, cfg,
+                                 token_mask=token_mask,
+                                 capacity_tokens=capacity_tokens)
+        return x + out, aux
+    return x + F.ffn_forward(pp["ffn"], h, sub.ffn, cfg), None
+
+
+def sub_ffn_decode(pp: dict, x: torch.Tensor, sub: SubDef, cfg: ModelConfig,
+                   token_mask: torch.Tensor | None = None,
+                   capacity_tokens: int | None = None) -> torch.Tensor:
+    """Post-mixer FFN or MoE half of a sublayer (shared by static decode and
+    the serving engine's decode, chunk and verify steps); see ``_ffn``."""
+    return _ffn(pp, x, sub, cfg, token_mask, capacity_tokens)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -392,6 +427,13 @@ def _walk_sites(lm: LMDef):
         if sub.ffn_kind == "ffn":
             for n in ("gate", "up", "down"):
                 yield base + ("ffn", n), getattr(sub.ffn, n)
+        elif sub.ffn_kind == "moe":
+            for n in ("router", "gate", "up", "down"):
+                yield base + ("moe", n), getattr(sub.ffn, n)
+            if sub.ffn.shared is not None:
+                for n in ("gate", "up", "down"):
+                    yield (base + ("moe", "shared", n),
+                           getattr(sub.ffn.shared, n))
     yield ("head",), lm.head
 
 
@@ -445,7 +487,8 @@ def lm_lambda_update(params: dict, lm: LMDef) -> dict:
 
 def lm_param_counts(params: dict, lm: LMDef) -> dict:
     """Dense-equivalent vs TT vs live (after rank pruning) parameter
-    counts, as the reference counts them. Reads λ on the host."""
+    counts, as the reference counts them (an expert stack counts one
+    expert's ``out * in``, as there). Reads λ on the host."""
     dense = actual = live = 0
     th = lm.cfg.tt.prune_threshold
     for path, site in _walk_sites(lm):

@@ -1,6 +1,6 @@
 """Continuous-batching inference engine — the port of
-``repro/serve/engine.py`` for dense GQA models, pure-SSM RWKV6 and the
-Jamba hybrid (Mamba and attention, dense FFNs).
+``repro/serve/engine.py`` for dense and MoE GQA models, pure-SSM RWKV6 and
+the Jamba hybrid (Mamba and attention, dense or MoE FFNs).
 
 Requests occupy *slots* of a ``num_slots``-lane decode batch, each at its
 own length; a retired slot (max-new-tokens or EOS) frees its pages and is
@@ -53,6 +53,17 @@ and a pure-SSM arch runs the scheduler unpaged. Speculative decoding
 needs an attention-only target and draft (a state advanced through a
 rejected token cannot roll back).
 
+MoE routing (``models/moe.py``): every step masks the rows that are not
+real tokens out of the routers, as the reference does, so they never take
+expert capacity: inactive slots in the decode step, the draft's steps and
+the verify block (``active``), bucket padding in a whole-prompt prefill
+and the draft's prefill, and the pad rows of a chunk. A chunk is padded
+to the chunk width (or the bucketed suffix), as in the reference, and its
+routers see that padded width, so the capacity's clamp is the reference's
+(a stateful arch pads nothing, in both packages). With
+``moe_capacity_by_prompt`` every prefill shape of a request, whole or
+chunked, takes its capacity from the whole prompt's length.
+
 Numerics: float32 matmuls stay float32 on the card — the engine sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (and cuDNN's) where it
 is built, so the fp32 fused-vs-gather identity holds as in the reference.
@@ -62,8 +73,8 @@ there is no compiled-step cache.
 Not carried over: the reference's ``CompileCache`` / ``max_prefill_shapes``
 (they bound live jitted prefill shapes; eager PyTorch compiles none).
 Still to port (they raise ``NotImplementedError`` naming what they wait
-for): MoE/MLA sublayers (at ``build_lm``), a mesh, quant-health policies
-and trace recorders.
+for): MLA sublayers (at ``build_lm``), a mesh, quant-health policies and
+trace recorders.
 """
 from __future__ import annotations
 
@@ -114,6 +125,12 @@ class EngineConfig:
     policy: object = None       # NumericsPolicy: its kv_cache site
                                 # overrides the pool's quantized/bits, its
                                 # ssm_state site the state pool's
+    moe_capacity_by_prompt: bool = False
+                                # MoE chunked-prefill capacity parity:
+                                # expert capacity from the WHOLE prompt's
+                                # length, not the visible chunk, so chunked
+                                # prefill routes like the whole prompt at
+                                # capacity-bound loads
 
 
 def _check_draft(lm: LMDef, draft) -> None:
@@ -265,7 +282,8 @@ class Engine:
         """One sublayer over (B, S) new tokens at ``positions`` = lens ..
         lens+S-1: write their K/V (one ``append_kv``), then attend each
         row causally through itself, off the pages (fused) or over every
-        slot's view read off them (``read_kv`` + ``gqa_attend``)."""
+        slot's view read off them (``read_kv`` + ``gqa_attend``). Inactive
+        slots' rows are masked out of an MoE router."""
         cfg = lm.cfg
         d = sub.mixer
         b, s = x.shape[:2]
@@ -286,7 +304,8 @@ class Engine:
                               table, pcfg, h.dtype)
             attn = A.gqa_attend(q, k, v, d, positions)
         x = x + apply_site(pp["mixer"]["o"], attn, d.o, cfg)
-        return sub_ffn_decode(pp, x, sub, cfg)
+        return sub_ffn_decode(pp, x, sub, cfg,
+                              token_mask=active[:, None].expand(b, s))
 
     def _block(self, lm: LMDef, params: dict, pool: dict, pcfg: PoolConfig,
                fused: bool, tokens, table, lens, active) -> torch.Tensor:
@@ -314,7 +333,8 @@ class Engine:
                     # new state after the last layer
                     x, st = self._state_mix(
                         pp[key], x, sub,
-                        {n: t[layer] for n, t in states[key].items()})
+                        {n: t[layer] for n, t in states[key].items()},
+                        active[:, None])
                     for n, t in st.items():
                         new[key][n].append(t)
                     continue
@@ -326,16 +346,20 @@ class Engine:
         x = rms_norm(x, params["final_norm"]["scale"], lm.cfg.norm_eps)
         return apply_site(params["head"], x, lm.head, lm.cfg)
 
-    def _state_mix(self, pp: dict, x: torch.Tensor, sub, state: dict):
+    def _state_mix(self, pp: dict, x: torch.Tensor, sub, state: dict,
+                   token_mask: torch.Tensor | None = None,
+                   capacity_tokens: int | None = None):
         """One recurrent sublayer from ``state``, through the forwards that
         static decode runs (the decode step at S = 1, the chunk step over
-        the chunk). Returns (x, new state)."""
+        the chunk); ``token_mask`` and ``capacity_tokens`` reach a Mamba
+        sublayer's MoE. Returns (x, new state)."""
         cfg = self.lm.cfg
         h = rms_norm(x, pp["norm1"]["scale"], cfg.norm_eps)
         if sub.mixer_kind == "mamba":
             out, new_state = S.mamba_forward(pp["mixer"], h, sub.mixer, cfg,
                                              state)
-            return sub_ffn_decode(pp, x + out, sub, cfg), new_state
+            return sub_ffn_decode(pp, x + out, sub, cfg, token_mask,
+                                  capacity_tokens), new_state
         # rwkv6: time mix and channel mix are the whole sublayer
         out, st1 = S.rwkv6_time_mix(pp["mixer"], h, sub.mixer, cfg, state)
         x = x + out
@@ -400,35 +424,44 @@ class Engine:
     def _draft_prefill(self, slot: int, st) -> None:
         """Whole-prompt prefill of the draft for one slot into its pool (one
         ``p2_prefill_paged`` launch on an int8 pool). The draft always
-        recomputes the full prompt: no chunking, no prefix sharing. The
-        reference masks bucket padding out of the forward with
-        ``token_mask``, which changes MoE routing only; the port has no
-        MoE, so its ``lm_forward`` takes none."""
+        recomputes the full prompt: no chunking, no prefix sharing; bucket
+        padding is masked out of an MoE draft's routers."""
         toks = st.req.prompt
-        padded = toks + [0] * (_bucket_len(len(toks), self.ecfg.prefill_bucket)
-                               - len(toks))
+        width = _bucket_len(len(toks), self.ecfg.prefill_bucket)
         _, _, cache = lm_forward(
             self._draft_params, self._draft,
-            tokens=self._tensor([padded], torch.long), return_cache=True)
+            tokens=self._tensor([toks + [0] * (width - len(toks))],
+                                torch.long), return_cache=True,
+            token_mask=self._real_rows(width, len(toks)))
         KC.write_prefill(self._draft_pool, cache, self._draft_table[slot],
                          slot, self._tensor([len(toks)], torch.int32),
                          self._draft_pcfg)
 
+    def _real_rows(self, width: int, n: int) -> torch.Tensor:
+        """(1, width) bool: the first ``n`` rows are real tokens, the rest
+        padding that no MoE router may route."""
+        return (torch.arange(width, device=self.device) < n)[None]
+
     @torch.no_grad()
-    def _prefill(self, toks: list[int], table_row: torch.Tensor,
-                 slot: int) -> torch.Tensor:
+    def _prefill(self, toks: list[int], table_row: torch.Tensor, slot: int,
+                 capacity_tokens: int | None = None) -> torch.Tensor:
         """A first chunk at position 0: the model's own forward, then one
         write of its cache into each pool: the attention sublayers' K/V
         into the paged pool (which chooses the slot's scales; one
         ``p2_prefill_paged`` launch on a quantized pool), the recurrent
         sublayers' post-prompt state into the slot of the state pool (one
         ``st_enc_slot`` launch on an int8 pool). A stateful arch runs
-        exact-length. Returns the last real position's logits (1, V)."""
+        exact-length. Bucket padding is masked out of the MoE routers,
+        whose capacity takes ``capacity_tokens`` as its basis when given.
+        Returns the last real position's logits (1, V)."""
         bucket = 0 if self._state_keys else self.ecfg.prefill_bucket
-        padded = toks + [0] * (_bucket_len(len(toks), bucket) - len(toks))
+        width = _bucket_len(len(toks), bucket)
         logits, _, cache = lm_forward(
-            self.params, self.lm, tokens=self._tensor([padded], torch.long),
-            return_cache=True)
+            self.params, self.lm,
+            tokens=self._tensor([toks + [0] * (width - len(toks))],
+                                torch.long),
+            return_cache=True, token_mask=self._real_rows(width, len(toks)),
+            capacity_tokens=capacity_tokens)
         # the prompt's length and the slot on the device, in one copy: the
         # writes read them there
         meta = (self._tensor([len(toks), slot], torch.int32)
@@ -443,8 +476,8 @@ class Engine:
         return logits[0, len(toks) - 1][None]
 
     def _sub_chunk(self, pp: dict, x: torch.Tensor, layer: int, key: str,
-                   sub, table, slot: int, start, n_valid,
-                   positions) -> torch.Tensor:
+                   sub, table, slot: int, start, n_valid, positions,
+                   token_mask, capacity_tokens) -> torch.Tensor:
         cfg = self.lm.cfg
         d = sub.mixer
         h = rms_norm(x, pp["norm1"]["scale"], cfg.norm_eps)
@@ -458,11 +491,12 @@ class Engine:
                           self.pcfg, h.dtype)
         attn = A.gqa_attend(q, k, v, d, positions)
         x = x + apply_site(pp["mixer"]["o"], attn, d.o, cfg)
-        return sub_ffn_decode(pp, x, sub, cfg)
+        return sub_ffn_decode(pp, x, sub, cfg, token_mask, capacity_tokens)
 
     @torch.no_grad()
     def _chunk(self, toks: list[int], table_row: torch.Tensor, slot: int,
-               start: int) -> torch.Tensor:
+               start: int, capacity_tokens: int | None = None
+               ) -> torch.Tensor:
         """Chunked-prefill step of one slot (the reference's
         ``_chunk_impl``): each attention layer writes the chunk's K/V into
         the pool under the slot's scale and attends over the slot's whole
@@ -475,8 +509,10 @@ class Engine:
         layer's state is read only by that layer and what it writes only by
         the next step, so the slot's state of every layer is read before
         the first layer (``read_slot``) and written after the last
-        (``write_slot_step``). Returns the last real position's logits (1,
-        V)."""
+        (``write_slot_step``). The pad rows are masked out of the MoE
+        routers, which route over the padded width (the reference's
+        capacity clamp) with ``capacity_tokens`` as the capacity's basis
+        when given. Returns the last real position's logits (1, V)."""
         lm, ecfg = self.lm, self.ecfg
         if self._state_keys:
             width = len(toks)
@@ -490,6 +526,7 @@ class Engine:
         start_t, valid_t, slot_t = self._tensor(
             [[start], [len(toks)], [slot]], torch.int32)
         x = embed_tokens(self.params, tokens, lm)
+        mask = self._real_rows(width, len(toks))
         if self._state_keys:
             states = SC.read_slot(self.spool, self._state_dtypes, slot,
                                   self.scfg, slot_t)
@@ -503,13 +540,14 @@ class Engine:
                     # encodes the end-of-chunk state after the last layer
                     x, st = self._state_mix(
                         pp[key], x, sub,
-                        {n: t[layer] for n, t in states[key].items()})
+                        {n: t[layer] for n, t in states[key].items()},
+                        mask, capacity_tokens)
                     for n, t in st.items():
                         new[key][n].append(t)
                     continue
                 x = self._sub_chunk(pp[key], x, layer, key, sub,
                                     table_row[None], slot, start_t, valid_t,
-                                    positions)
+                                    positions, mask, capacity_tokens)
         if self._state_keys:
             SC.write_slot_step(self.spool, new, slot, self.scfg, slot_t)
         x = x[:, len(toks) - 1:len(toks)]
@@ -542,10 +580,13 @@ class Engine:
                       if c > 0 else [(resume, plen)])
         else:
             chunks = self.sched.prefill_chunks(plen)
+        # MoE capacity parity: every prefill shape of the request takes its
+        # capacity from the whole prompt
+        cap = plen if self.ecfg.moe_capacity_by_prompt else None
         for c0, c1 in chunks:
             toks = st.req.prompt[c0:c1]
-            last = (self._prefill(toks, table_row, slot) if c0 == 0
-                    else self._chunk(toks, table_row, slot, c0))
+            last = (self._prefill(toks, table_row, slot, cap) if c0 == 0
+                    else self._chunk(toks, table_row, slot, c0, cap))
         self.metrics.prefill(plen, computed=plen - resume)
         if self._spec:
             # the draft tracks the slot from position 0; a preempted

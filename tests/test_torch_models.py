@@ -149,19 +149,22 @@ def test_gqa_attend_matches_jax():
 
 
 def test_out_of_slice_families_raise():
-    for arch in ("deepseek-v2-236b", "jamba-1.5-large", "moonshot-v1-16b"):
-        with pytest.raises(NotImplementedError):
-            t_build(TC.get_reduced(arch))
-    # jamba's experts wait for the MoE slice; its Mamba layers and rwkv6
-    # build (tests/test_torch_ssm.py holds them to the reference)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        t_build(TC.get_config("jamba-1.5-large"))
+    # MLA waits for its slice (deepseek-v2-236b is MLA and MoE)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        t_build(TC.get_reduced("deepseek-v2-236b"))
+    # the MoE families build, experts and all (tests/test_torch_moe.py
+    # holds them to the reference); TT "expert" sites wait for MoE training
     from repro_torch.configs.base import MoEConfig
-    for arch, over in (("rwkv6-1.6b", {}),
+    for arch, over in (("rwkv6-1.6b", {}), ("moonshot-v1-16b", {}),
+                       ("jamba-1.5-large", {}),
                        ("jamba-1.5-large", {"moe": MoEConfig(num_experts=0)})):
         for cfg in (TC.get_reduced(arch), TC.get_config(arch)):
             lm = t_build(cfg.replace(**over))
             assert lm.n_periods * len(lm.period) == cfg.num_layers
+            assert ("moe" in [s.ffn_kind for s in lm.period]) == (
+                arch != "rwkv6-1.6b" and not over)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        t_build(TC.with_tt(TC.get_config("moonshot-v1-16b")))
     # TT sites are ported (every projection TT here); remat="dots" is not
     cfg = TC.with_tt(TC.get_reduced(ARCH).replace(dtype="float32"))
     lm = t_build(cfg.replace(tt=cfg.tt.__class__(enable=True,

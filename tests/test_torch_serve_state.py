@@ -1,7 +1,8 @@
 """repro_torch.serve with recurrent state against repro (the JAX reference):
 the twins of ``tests/test_serve_state.py`` on the reduced rwkv6-1.6b and
-jamba-1.5-large with dense FFNs (the reference's expert variant waits for
-the port's MoE), float32, weights carried by ``convert.params_from_jax``.
+jamba-1.5-large with dense FFNs (the expert variant is held in
+``tests/test_torch_serve_moe.py``), float32, weights carried by
+``convert.params_from_jax``.
 
 (a) continuous batching (admission, decode, retirement, refill, a recycled
     slot reset on admission) emits the JAX static reference's greedy

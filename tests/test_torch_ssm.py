@@ -49,8 +49,8 @@ ARCHS = ["rwkv6-1.6b", "jamba-1.5-large"]
 
 
 def _cfgs(arch):
-    """The reduced config in float32; jamba with dense FFNs (its MoE is a
-    later slice)."""
+    """The reduced config in float32; jamba with dense FFNs (its experts
+    are held in ``tests/test_torch_moe.py``)."""
     jo, to = {}, {}
     if arch.startswith("jamba"):
         jo, to = {"moe": JMoE(num_experts=0)}, {"moe": MoEConfig(num_experts=0)}
