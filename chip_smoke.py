@@ -223,6 +223,27 @@ Phases (any failure raises and the script exits non-zero):
              (expert, token) pairs equal per layer but for near ties
              under 1e-6 relative (listed), logits within 1e-4, pairs
              dropped. The phase's wall must stay under 150 s.
+   serve mla — the ninth main path: deepseek-v2-236b at full width
+             (d_model 5,120, 128 heads, MLA with kv_lora 512, q_lora
+             1,536, nope/rope/v 128/64/128; 160 experts and 2 shared of
+             d_ff 1,536, top-6; vocab 102,400; bf16) cut to 6 of its 60
+             layers (24,881,280,000 seeded parameters, asserted), every
+             earlier model freed first, from the int8 latent pool (c_kv 512
+             and k_rope 64 codes a token a layer, asserted, 4.00x against
+             fp32): rows 1b, 5b, 6b and 1c on the latent pair (two widths
+             in one launch; and at 512 + 36, one tensor on the element
+             loop) bit for bit with their twins and over two launches,
+             timed; the engine phase's 16 requests x 64 new tokens whole
+             prompt and chunked (128) with fused_attention=True, counts
+             exact (a decode step 6 p2_append_paged + 6 p2_read_paged, a
+             prefill 1 p2_prefill_paged, a chunk step 6 + 6, no
+             paged-attention or codec launch), by counter and by profile
+             name; a decode step's device and host ms beside its byte
+             bound, by kind, peak memory, the dropped-pair share; then fp32
+             at full width with 2 layers at capacity factor 64: engine ==
+             chunked == preempted == static decode (lm_decode_step with
+             mla_decode), the policy engine's int8 latent pool the int8
+             engine's tokens. Under 100 s.
 5. train   — the second main path: the paper's FMNIST TT MLP at its
              published widths, random params from a seeded generator on
              the card, 300 steps of ``launch/train_fmnist.py``'s step on
@@ -345,6 +366,17 @@ Phases (any failure raises and the script exits non-zero):
              same state on the card and on the CPU: loss, ce and prior
              within 1e-5, gnorm within 1e-4, scale exponents equal, params
              within 2 lr and 99.9% within 2e-5.
+11. train frontend — the tenth main path: one low-precision step (TT
+             sites, quantization, int8 moments and wire) of
+             with_tt(hubert-xlarge) at full size (48 layers, audio frames
+             of 8 x 256, no embedding site) and of with_tt(llava-next-34b)
+             at full width with 2 layers (56 heads padded to 64; 64
+             patches + 256 tokens, batch 2, the loss on the text
+             positions), launch/train.py's loop on make_batch_fn's
+             reference batches: launches exact against launches_per_step,
+             by counter and by profile name (PE1-3 on either route), the
+             cross-entropy finite; then one step of each at reduced width
+             on the card against the CPU, as train lm identity. Under 110 s.
 
 Output: human-readable lines, then one JSON line describing every kernel,
 then the card's name and power limit (nvidia-smi), then the last line
@@ -387,7 +419,9 @@ likewise times the deploy export's packed
 encode and decode of the six FMNIST cores, core by core and (where the
 port has them) as one group each, and the host wall of
 ``export_tt_deploy`` and ``load_tt_deploy`` with their launches, and
-writes them to PATH, asserting nothing.
+writes them to PATH, asserting nothing. ``--paged-rows PATH [--src DIR]``
+times the paged KV rows (1b, 5b, 6b, 1c) at GQA's shapes, each held to
+its twin, and writes them to PATH; no result line.
 """
 from __future__ import annotations
 
@@ -4740,9 +4774,12 @@ def _static_greedy(torch, lm, params, prompt, gen_len: int, horizon: int):
         logits, _, cache = lm_forward(params, lm, tokens=toks,
                                       return_cache=True)
         n = len(prompt)
+        # attention leaves (L, 1, S, *feat) padded along S: GQA's K and V,
+        # MLA's latent c_kv and k_rope
         cache = {key: {name: (torch.nn.functional.pad(
-                     a, (0, 0, 0, 0, 0, horizon - n)) if name in ("k", "v")
-                     else a) for name, a in kinds.items()}
+                     a, (0, 0) * (a.dim() - 3) + (0, horizon - n))
+                     if name in ("k", "v", "c_kv", "k_rope") else a)
+                     for name, a in kinds.items()}
                  for key, kinds in cache.items()}
         tok = int(logits[0, -1].argmax())
         out = [tok]
@@ -5200,6 +5237,324 @@ def phase_serve_moe(torch) -> dict:
         f"{k} {v:.1f}" for k, v in parts.items()) + ")")
     check(out["seconds"] < MOE_SECONDS, f"serve moe took "
           f"{out['seconds']:.1f} s, over {MOE_SECONDS:.0f}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# serve mla: deepseek-v2-236b at full width (6 layers) from int8 latent pages
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v2-236b"
+MLA_LAYERS = 6
+# 6 layers x 3,972,116,480 + the embedding and the untied head (102,400 x
+# 5,120 each) + the final norm
+MLA_PARAMS = 24_881_280_000
+MLA_WIDTHS = (512, 64)          # c_kv (kv_lora_rank), k_rope (rope dim)
+MLA_ODD_WIDTHS = (512, 36)      # k_rope no multiple of a 16-byte vector
+MLA_SECONDS = 100.0             # the phase's wall, at most
+
+
+def _latent_pool(torch, gen, widths, layers=None, slots=8, page=16,
+                 pps=64):
+    """The serving pool's latent pages at ``widths``: int8 codes of random
+    values (one leading layer axis when ``layers``), a page table of 8
+    slots x 64 pages and each slot's (each layer's) pow-2 scales."""
+    total = slots * pps
+    lead = () if layers is None else (layers,)
+    pools = [torch.randint(-128, 128, lead + (total + 1, page, w),
+                           generator=gen, device=gen.device).to(torch.int8)
+             for w in widths]
+    scales = [torch.randint(-9, -2, lead + (slots,), generator=gen,
+                            device=gen.device).float() for _ in widths]
+    table = torch.randperm(total, generator=gen, device=gen.device).reshape(
+        slots, pps).to(torch.int32)
+    return pools, scales, table
+
+
+def _latent_check(torch, what, launch, twin, pools, real):
+    """``launch`` (the kernel) and ``twin`` (its plain version) each on a
+    fresh copy of ``pools``; bit for bit on ``real(t)`` (the real pages, or
+    the outputs), one launch, and a second launch the same."""
+    from repro_torch.kernels import build as B
+    want = twin([p.clone() for p in pools])
+    _sync(torch, "cuda")
+    B.reset_launches()
+    got = launch([p.clone() for p in pools])
+    _sync(torch, "cuda")
+    check(sum(B.LAUNCHES.values()) == 1, f"{what}: launches {B.LAUNCHES}")
+    again = launch([p.clone() for p in pools])
+    for a, w, r in zip(got, want, again):
+        check(_bits_equal(torch, real(a), real(w))
+              and _bits_equal(torch, real(a), real(r)),
+              f"{what}: differs from the twin or its own second launch")
+    return got
+
+
+def _latent_rows(torch, timer, widths=MLA_WIDTHS, timed=True) -> dict:
+    """Rows 1b (the decode append, 8 slots x 1 row), 5b (the chunk write,
+    128 rows of one slot past its page ends: the clamp rule), 6b (the read,
+    one slot and 8 slots of 64 pages -> bf16) and 1c (the prefill write, 6
+    layers x 512 rows) on MLA's latent pair, ``c_kv`` and ``k_rope`` at
+    ``widths`` in one launch each: bit for bit with the twins (every real
+    page and scale, or every position read) and over two launches; timed
+    beside the twin and the byte bound (``timed``)."""
+    from repro_torch.kernels import kv_append as KA
+    from repro_torch.kernels import kv_prefill as KP
+    from repro_torch.kernels import kv_read as KR
+    gen = torch.Generator(device="cuda").manual_seed(sum(widths))
+    dev = gen.device
+    (cd, rd), (cs, rs), table = _latent_pool(torch, gen, widths)
+    tag = f"{MLA_ARCH} latent pair {widths[0]} + {widths[1]}"
+    out = {"p2_append_paged": [], "p2_read_paged": [],
+           "p2_prefill_paged": []}
+
+    def tokens(*lead):
+        return [(torch.randn(lead + (w,), generator=gen, device=dev) * 3
+                 ).to(torch.bfloat16) for w in widths]
+
+    def row(name, what, shape, n, bytes_, kernel, twin):
+        r = dict(shape=shape, what=f"{tag}: {what}", widths=list(widths),
+                 max_abs_err=0.0, library_ms=None, library_note=PAGED_NONE)
+        if timed:
+            r["ms"] = timer(kernel)
+            r["plain_ms"] = timer(twin, iters=10)
+            r["bound_ms"], r["bound_by"] = bound_ms(bytes_, n,
+                                                    FP32_OPS_PER_S)
+            log(f"{name} {tag}, {what}: {r['ms']*1e3:.2f} us one launch "
+                f"(plain {r['plain_ms']*1e3:.1f} us, bound "
+                f"{r['bound_ms']*1e3:.4f} us); bit-exact with the twin, two "
+                "launches equal")
+        out[name].append(r)
+
+    # row 1b: the decode step's append, one inactive slot, one at a page's
+    # last offset and one past its pages
+    k, v = tokens(8, 1)
+    lens = torch.tensor([0, 15, 1023, 100, 16, 511, 1024, 5],
+                        dtype=torch.int32, device=dev)
+    active = torch.tensor([1, 1, 1, 0, 1, 1, 1, 0], dtype=torch.bool,
+                          device=dev)
+    a = (cs, rs, k, v, table, lens, active)
+    kw = dict(page_size=16, bits=8)
+    _latent_check(torch, f"p2_append_paged ({tag}, decode)",
+                  lambda p: KA.append_paged_cuda(*p, *a, **kw),
+                  lambda p: KA.append_paged_torch(*p, *a, **kw), [cd, rd],
+                  lambda t: t[:-1])
+    n = k.numel() + v.numel()
+    pool = [cd.clone(), rd.clone()]
+    row("p2_append_paged", "decode append, 8 slots",
+        [list(k.shape), list(v.shape)], n, n * 3 + 8 * 17,
+        lambda: KA.append_paged_cuda(*pool, *a, **kw),
+        lambda: KA.append_paged_torch(*pool, *a, **kw))
+    # row 5b: a chunk of 128 rows of slot 3 (rows past its last page)
+    k, v = tokens(1, 128)
+    for start, valid in ((1000, 100), (256, 128)):      # the last timed
+        a = (cs[3:4], rs[3:4], k, v, table[3:4],
+             torch.tensor([start], dtype=torch.int32, device=dev), None)
+        kw = dict(page_size=16, bits=8, n_valid=torch.tensor(
+            [valid], dtype=torch.int32, device=dev), clamp_last=True)
+        _latent_check(torch, f"p2_append_paged ({tag}, chunk at {start})",
+                      lambda p: KA.append_paged_cuda(*p, *a, **kw),
+                      lambda p: KA.append_paged_torch(*p, *a, **kw),
+                      [cd, rd], lambda t: t[:-1])
+    n = k.numel() + v.numel()
+    row("p2_append_paged", "chunk write, S=128",
+        [list(k.shape), list(v.shape)], n, n * 3 + 48,
+        lambda: KA.append_paged_cuda(*pool, *a, **kw),
+        lambda: KA.append_paged_torch(*pool, *a, **kw))
+    # row 6b: one slot (the chunk step) and 8 (the decode step) -> bf16
+    for b in (1, 8):
+        sl = slice(3, 4) if b == 1 else slice(0, 8)
+        a = (cd, rd, cs[sl], rs[sl], table[sl])
+        got = _latent_check(
+            torch, f"p2_read_paged ({tag}, {b} slots)",
+            lambda p: KR.read_paged_cuda(*a, dtype=torch.bfloat16),
+            lambda p: KR.read_paged_torch(*a, dtype=torch.bfloat16), [],
+            lambda t: t)
+        n = got[0].numel() + got[1].numel()
+        row("p2_read_paged", f"read, {b} slot{'s' if b > 1 else ''}",
+            [list(t.shape) for t in got], n, n * 3 + b * (8 + 4 * 64),
+            lambda: KR.read_paged_cuda(*a, dtype=torch.bfloat16),
+            lambda: KR.read_paged_torch(*a, dtype=torch.bfloat16))
+    # row 1c: a whole-prompt prefill's write, 6 layers x 512 rows of slot 3
+    (pc, pr), (sc, sr), ptable = _latent_pool(torch, gen, widths,
+                                              layers=MLA_LAYERS)
+    k, v = tokens(MLA_LAYERS, 512)
+    for length in (512, 400):
+        a = (k, v, ptable[3], 3, torch.tensor([length], dtype=torch.int32,
+                                               device=dev))
+        _latent_check(
+            torch, f"p2_prefill_paged ({tag}, {length} valid)",
+            lambda p: KP.prefill_paged_cuda(*p, *a, page_size=16, bits=8)
+            and p, lambda p: KP.prefill_paged_torch(*p, *a, page_size=16,
+                                                    bits=8) and p,
+            [pc, pr, sc, sr], lambda t: t[:, :-1] if t.dim() > 2 else t)
+    n = k.numel() + v.numel()
+    pool = [pc.clone(), pr.clone(), sc.clone(), sr.clone()]
+    row("p2_prefill_paged", f"prefill, {MLA_LAYERS} layers x S=512",
+        [list(k.shape), list(v.shape)], 4 * n,
+        n * 3 + 2 * MLA_LAYERS * 4 + 4 * 64 + 4,
+        lambda: KP.prefill_paged_cuda(*pool, *a, page_size=16, bits=8),
+        lambda: KP.prefill_paged_torch(*pool, *a, page_size=16, bits=8))
+    torch.cuda.synchronize()
+    return out
+
+
+def _mla_decode_bound(torch, lm, params, pool) -> tuple[float, str, int]:
+    """A decode step's byte bound (ms, what bounds it, bytes): every weight
+    but the embedding read once (the MoE reads all its experts at C = 8),
+    8 rows of the embedding, every slot's latent pages read (the gather
+    path's ``p2_read_paged``) and a row of each written."""
+    w = sum(t.numel() * t.element_size() for t in _leaves(params))
+    emb = params["embed"]["w"]
+    w += 8 * emb.shape[1] * emb.element_size() \
+        - emb.numel() * emb.element_size()
+    kv = sum(t.numel() * t.element_size() for t in _leaves(pool["data"]))
+    nbytes = w + kv
+    ms, by = bound_ms(nbytes)
+    return ms, by, nbytes
+
+
+def _mla_identity(torch) -> dict:
+    """fp32 at full width, 2 layers, a drop-free capacity factor (64): the
+    engine ≡ chunked ≡ preempted ≡ static decode (``lm_decode_step`` with
+    ``mla_decode``) token for token, and the policy engine's int8 latent
+    pool serves the int8 engine's tokens (``_identity_checks``)."""
+    import repro_torch.configs as C
+    cfg = C.get_config(MLA_ARCH)
+    free = dataclasses.replace(cfg.moe, capacity_factor=64.0)
+    lm, params = _state_model(torch, MLA_ARCH, num_layers=2, dtype="float32",
+                              moe=free)
+    out = _identity_checks(torch, f"{MLA_ARCH} 2 layers", lm, params,
+                           _requests(cfg.vocab_size, n=8, seed=2), 32, 4,
+                           CHUNK)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_mla(torch) -> dict:
+    """deepseek-v2-236b at full width (d_model 5,120, 128 heads, kv_lora
+    512, q_lora 1,536, nope/rope/v 128/64/128, 160 experts + 2 shared of
+    d_ff 1,536, top-6, vocab 102,400, bf16) cut to 6 of its 60 layers,
+    seeded weights on the card, from the int8 latent pool (8 x 64 x 16):
+    the engine phase's 16 requests x 64 new tokens whole prompt and chunked
+    (128), ``fused_attention=True`` (MLA takes the gather path all the
+    same); counts exact: a decode step 6 ``p2_append_paged`` + 6
+    ``p2_read_paged``, a whole-prompt prefill 1 ``p2_prefill_paged``, a
+    chunk step 6 + 6, no paged-attention or codec launch; by counter and
+    by profile name; the pool's bytes (4.00x against fp32, 576 codes a
+    token a layer). Then a decode step's breakdown beside its byte bound,
+    rows 1b, 5b, 6b and 1c on the latent pair, and the fp32 identities
+    (``_mla_identity``)."""
+    from repro_torch.kernels import build as B
+    from repro_torch.serve import kv_cache as KC
+    t0 = time.perf_counter()
+    parts = {}
+
+    def part(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+    resident = torch.cuda.memory_allocated()
+    check(resident < 2 << 30, f"serve mla: {resident / 2**30:.2f} GiB "
+          "still allocated before the model")
+    timer = Timer(torch)
+    out = {"kernels": _latent_rows(torch, timer), "parts_s": parts}
+    _latent_rows(torch, timer, MLA_ODD_WIDTHS, timed=False)
+    log(f"serve mla: the three paged kernels bit-exact at the latent pair "
+        f"{MLA_ODD_WIDTHS} (k_rope on the element loop in the same launch)")
+    part("kernels")
+    lm, params = _state_model(torch, MLA_ARCH, num_layers=MLA_LAYERS)
+    cfg, layers = lm.cfg, lm.cfg.num_layers
+    n = sum(t.numel() for t in _leaves(params))
+    check(n == MLA_PARAMS and cfg.dtype == "bfloat16" and layers == 6
+          and [s.mixer_kind for s in lm.period] == ["attn_mla"]
+          and lm.period[0].ffn.shared is not None,
+          f"serve mla: {n} {cfg.dtype} parameters in {layers} layers")
+    out["params"], out["resident_bytes"] = n, torch.cuda.memory_allocated()
+    log(f"serve mla: {n:,} parameters, {out['resident_bytes'] / 2**30:.2f} "
+        "GiB resident")
+    prompts = _requests(cfg.vocab_size)
+    _serve_engine(torch, lm, params, prompts[:2], 4, fused_attention=True)
+    part("init")
+    for name, chunk in (("whole", 0), ("chunked", CHUNK)):
+        B.reset_launches()
+        t1 = time.perf_counter()
+        (eng, _), routed, dropped = _with_drop_count(
+            torch, lambda: _serve_engine(torch, lm, params, prompts, 64,
+                                         fused_attention=True,
+                                         prefill_chunk=chunk))
+        wall = time.perf_counter() - t1
+        launches = dict(B.LAUNCHES)
+        steps = eng.summary()["decode_steps"]
+        admits = len(eng.metrics.prefills)
+        chunks = _chunk_steps(eng.metrics.prefills, chunk) if chunk else 0
+        check(bool(chunk) == (chunks > 0),
+              f"serve mla ({name}): {chunks} chunk steps")
+        want = {"p2_append_paged": layers * (steps + chunks),
+                "p2_read_paged": layers * (steps + chunks),
+                "p2_prefill_paged": admits}
+        s = _check_state_run(f"serve mla ({name})", eng, launches, want,
+                             len(prompts))
+        check(eng.sched.alloc.free_pages == eng.pcfg.total_pages,
+              f"serve mla ({name}): pages still mapped at the end")
+        per_token = KC.page_nbytes(eng.pool, eng.pcfg) // eng.pcfg.page_size
+        check(per_token == sum(MLA_WIDTHS) * layers
+              and 3.99 < s["cache_reduction"] <= 4.0,
+              f"serve mla ({name}): {per_token} B a token, "
+              f"{s['cache_reduction']:.4f}x against fp32")
+        log(f"serve mla ({name}): {s['requests_completed']} requests in "
+            f"{wall:.2f} s, {steps} decode steps, {chunks} chunk steps, "
+            f"{s['tokens_per_s']:.1f} tok/s, TTFT p50 "
+            f"{s['ttft_p50_s']*1e3:.1f} ms; the capacity dropped {dropped} "
+            f"of {routed} routed (expert, token) pairs "
+            f"({dropped / max(routed, 1):.4f}); cache_bytes "
+            f"{s['cache_bytes']} ({s['cache_reduction']:.3f}x), {per_token} "
+            f"codes a token ({per_token // layers} a layer); launches "
+            f"{launches}")
+        out[name] = {"summary": s, "launches": launches, "wall_s": wall,
+                     "chunk_steps": chunks, "routed": routed,
+                     "dropped": dropped,
+                     "dropped_share": dropped / max(routed, 1),
+                     "bytes_per_token": per_token}
+        if name == "whole":
+            out["decode_bound_ms"], out["decode_bound_by"], \
+                out["decode_bytes"] = _mla_decode_bound(torch, lm, params,
+                                                        eng.pool)
+        del eng
+        part(name)
+    # the paged-attention kernels may not appear, fused or not
+    names = STATE_FNS
+    out.update({
+        "decode_profile": _profile_decode(
+            torch, lm, params, prompts, steps=6, fused=True, names=names,
+            what="mla decode", want={"p2_append_paged_kernel": layers,
+                                     "p2_read_paged_kernel": layers},
+            cpu=False),
+        "prefill_profile": _profile_prefill(
+            torch, lm, params, prompts, reps=2, names=names,
+            what="mla prefill", want={"p2_prefill_paged_kernel": 1},
+            cpu=False),
+        "chunk_profile": _profile_chunk(
+            torch, lm, params, prompts, reps=2, names=names,
+            what="mla chunk step", want={"p2_append_paged_kernel": layers,
+                                         "p2_read_paged_kernel": layers},
+            cpu=False)})
+    d = out["decode_profile"]
+    log(f"serve mla decode step: device {d['device_ms']:.3f} ms, host "
+        f"{d['step_ms']:.2f} ms, byte bound {out['decode_bound_ms']:.3f} ms "
+        f"({out['decode_bytes'] / 1e9:.2f} GB at 3.35 TB/s), peak memory "
+        f"{d['peak_bytes'] / 2**30:.2f} GiB; dropped-pair share "
+        f"{out['whole']['dropped_share']:.4f} (whole prompt), "
+        f"{out['chunked']['dropped_share']:.4f} (chunked)")
+    part("profiles")
+    del params, timer
+    torch.cuda.empty_cache()
+    out["identity"] = _mla_identity(torch)
+    part("identity")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"serve mla: {out['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()) + ")")
+    check(out["seconds"] < MLA_SECONDS, f"serve mla took "
+          f"{out['seconds']:.1f} s, over {MLA_SECONDS:.0f}")
     return out
 
 
@@ -5909,9 +6264,7 @@ def phase_train_lm_identity(torch, device: str = "cuda") -> dict:
     from repro_torch.configs.base import (ModelConfig, QuantConfig,
                                           TrainConfig, TTConfig)
     from repro_torch.data import lm_batch
-    from repro_torch.launch import steps as S
-    from repro_torch.models.lm import build_lm, init_lm
-    from repro_torch.tree import flatten_with_path
+    from repro_torch.models.lm import build_lm
 
     cfg = ModelConfig(name="t", num_layers=2, d_model=32, num_heads=2,
                       num_kv_heads=2, d_ff=64, vocab_size=64, remat="full",
@@ -5919,12 +6272,24 @@ def phase_train_lm_identity(torch, device: str = "cuda") -> dict:
                       tt=TTConfig(enable=True, d=3, max_rank=4,
                                   min_elements=1024),
                       quant=QuantConfig(enable=True))
-    lm = build_lm(cfg)
     tcfg = TrainConfig(opt_state_dtype="int8", grad_compress=True,
                        total_steps=8, warmup_steps=5)
+    return _step_card_vs_cpu(torch, build_lm(cfg), tcfg,
+                             lm_batch(0, batch=2, seq=16, vocab=64, seed=0),
+                             "lm identity", device)
+
+
+def _step_card_vs_cpu(torch, lm, tcfg, b, what: str,
+                      device: str = "cuda") -> dict:
+    """One train step of ``lm`` from one seeded state on the CPU and on the
+    card on the numpy batch ``b``, held as ``phase_train_lm_identity``
+    states."""
+    from repro_torch.launch import steps as S
+    from repro_torch.models.lm import init_lm
+    from repro_torch.tree import flatten_with_path
+    cfg = lm.cfg
     p_cpu = init_lm(torch.Generator().manual_seed(0), lm, device="cpu")
     out = {}
-    b = lm_batch(0, batch=2, seq=16, vocab=64, seed=0)
     for dev in ("cpu", device):
         params = _tensor_tree(torch, p_cpu, dev)
         state = S.init_train_state(params, tcfg, cfg.quant.policy())
@@ -5935,32 +6300,174 @@ def phase_train_lm_identity(torch, device: str = "cuda") -> dict:
     for k in ("loss", "ce", "prior", "gnorm"):
         rels[k] = abs(mg[k].item() - mc[k].item()) / abs(mc[k].item())
         check(rels[k] <= (1e-4 if k == "gnorm" else 1e-5),
-              f"lm identity: {k} rel diff {rels[k]:.2e}")
+              f"{what}: {k} rel diff {rels[k]:.2e}")
     for name in ("activation", "grad_edge"):
         check(int(sg.scales[name].log2) == int(sc.scales[name].log2),
-              f"lm identity: {name} exponent differs")
+              f"{what}: {name} exponent differs")
         r = abs(sg.scales[name].mean_abs.item()
                 - sc.scales[name].mean_abs.item()) \
             / sc.scales[name].mean_abs.item()
-        check(r <= 1e-5, f"lm identity: {name} statistic rel diff {r:.2e}")
+        check(r <= 1e-5, f"{what}: {name} statistic rel diff {r:.2e}")
     close = total = 0
     move = 0.0
     for (p, a), (_, c) in zip(flatten_with_path(sg.params),
                               flatten_with_path(sc.params)):
         if not a.is_floating_point():
-            check(torch.equal(a.cpu(), c), f"lm identity: {p} differs")
+            check(torch.equal(a.cpu(), c), f"{what}: {p} differs")
             continue
         e = (a.cpu() - c).abs()
         check(e.max().item() <= 2 * tcfg.learning_rate + 1e-6,
-              f"lm identity: {p} differs by {e.max().item():.3e}")
+              f"{what}: {p} differs by {e.max().item():.3e}")
         move = max(move, e.max().item())
         close += int((e <= 2e-5).sum())
         total += e.numel()
-    check(close >= 0.999 * total, f"lm identity: {close}/{total} close")
-    log(f"train lm identity: card vs CPU {rels}, params within {move:.2e} "
+    check(close >= 0.999 * total, f"{what}: {close}/{total} close")
+    log(f"train {what}: card vs CPU {rels}, params within {move:.2e} "
         f"({close}/{total} within 2e-5); scale exponents equal")
     return {"rel": rels, "param_max_diff": move, "params_close": close,
             "params_total": total}
+
+
+# ---------------------------------------------------------------------------
+# train frontend: the audio and vision frontends' low-precision train step
+# ---------------------------------------------------------------------------
+
+# (arch, layers (None: the config's), batch, seq): hubert's reference batch
+# of 8 x 256 frames; llava at full width with 2 layers, 2 x (64 patches +
+# 256 tokens)
+FRONTEND_CELLS = (("hubert-xlarge", None, 8, 256),
+                  ("llava-next-34b", 2, 2, 256))
+# launch-count name -> the kernel functions that count as it in a profile
+# (PE1-3 take the tensor cores or the CUDA cores by shape)
+FRONTEND_FNS = {"pe1": ("pe1_kernel", "pe1_mma_kernel"),
+                "pe2": ("pe2_kernel", "pe2_mma_kernel"),
+                "pe3": ("pe3_kernel", "pe3_mma_kernel"),
+                "p2_fake_quant": ("p2_fq_group_kernel",),
+                "bw_enc": ("bw_enc_group_kernel",),
+                "bw_dec": ("bw_dec_group_kernel",)}
+FRONTEND_SECONDS = 110.0        # the phase's wall, at most
+
+
+def _frontend_cell(torch, arch: str, layers, batch: int, seq: int) -> dict:
+    """One step of ``launch/train.py::train`` on ``with_tt(arch,
+    quantize=True)`` (int8 moments, the int8 wire) on the reference's
+    frontend batch, seeded weights on the card: counts zeroed just before
+    and read just after equal ``launches_per_step``, the cross-entropy
+    finite; then one more step profiled, each counted kernel by name."""
+    import repro_torch.configs as C
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import build as B
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import make_batch_fn, train
+    from repro_torch.models.lm import build_lm
+
+    cfg = C.get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    cfg = C.with_tt(cfg, quantize=True)
+    lm = build_lm(cfg)
+    tcfg = TrainConfig(opt_state_dtype="int8", grad_compress=True,
+                       total_steps=1, warmup_steps=1)
+    per = S.launches_per_step(lm, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ces = []
+    B.reset_launches()
+    t0 = time.perf_counter()
+    state, losses = train(cfg, "tp", tcfg, batch=batch, seq=seq,
+                          device="cuda", verbose=False,
+                          on_step=lambda i, m: ces.append(float(m["ce"])))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(B.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == per, f"train frontend ({arch}): launches {launches}, "
+          f"want {per}")
+    check(all(math.isfinite(x) for x in losses + ces),
+          f"train frontend ({arch}): loss {losses}, ce {ces}")
+    n = sum(t.numel() for t in _leaves(state.params))
+    batch_np = make_batch_fn(cfg, batch, seq, tcfg.seed)(1)
+    step = S.make_train_step(lm, None, tcfg)
+    box = {"state": state}
+    del state
+
+    def one():
+        box["state"], _ = step(box["state"], {
+            k: torch.from_numpy(v).to("cuda") for k, v in batch_np.items()})
+    torch.cuda.synchronize()            # warm: the first step ran in train
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    names = [f for fns in FRONTEND_FNS.values() for f in fns]
+    for attempt in range(PROFILE_TRIES):
+        prof, kern = _profile_window(torch, one, 1, names, None,
+                                     f"train frontend ({arch})", cpu=False)
+        by_name = {k: sum(kern.get(f, {}).get("calls_per_step", 0.0)
+                          for f in fns) for k, fns in FRONTEND_FNS.items()}
+        if {k: v for k, v in by_name.items() if v} == \
+                {k: float(v) for k, v in per.items()}:
+            break
+        log(f"  train frontend ({arch}) profile: launches by name "
+            f"{by_name}, want {per}; profiling another window")
+    else:
+        check(False, f"train frontend ({arch}): profile launches {by_name}, "
+              f"want {per}")
+    total, _ = _device_summary(torch, prof, 1)
+    del box
+    torch.cuda.empty_cache()
+    extra = " + patches" if cfg.frontend == "vision" else ""
+    log(f"train frontend ({arch}, {cfg.num_layers} layers, {n:,} params, "
+        f"batch {batch} x {seq}{extra}): ce {ces[0]:.4f}, first step "
+        f"{wall:.1f} s with init, a step "
+        f"{step_ms:.1f} ms host, {total:.2f} ms device, peak "
+        f"{peak / 2**30:.2f} GiB; launches {per} by counter and by name "
+        f"({ {f: round(r['calls_per_step']) for f, r in kern.items()} })")
+    return {"params": n, "layers": cfg.num_layers, "ce": ces,
+            "launches": launches, "launches_per_step": per,
+            "step_ms": step_ms, "device_ms": total, "peak_bytes": peak,
+            "profile": kern}
+
+
+def phase_train_frontend(torch) -> dict:
+    """The audio and vision frontends' low-precision train step
+    (``_frontend_cell``): with_tt(hubert-xlarge, quantize=True) at full
+    size (48 layers, 12,883,040 parameters with TT, asserted) on 8 x 256
+    frames, with_tt(llava-next-34b, quantize=True) at full width with 2
+    layers (56 heads padded to 64) on 2 x (64 patches + 256 tokens); then,
+    at a reduced width (every projection TT, d = 3, rank 4, f32, int8
+    moments and the wire), one step of each on the card against the same
+    step on the CPU (``_step_card_vs_cpu``)."""
+    import repro_torch.configs as C
+    from repro_torch.configs.base import QuantConfig, TrainConfig, TTConfig
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.lm import build_lm
+    t0 = time.perf_counter()
+    out = {"parts_s": {}}
+    for arch, layers, batch, seq in FRONTEND_CELLS:
+        out[arch] = _frontend_cell(torch, arch, layers, batch, seq)
+        out["parts_s"][arch] = time.perf_counter() - t0 - sum(
+            out["parts_s"].values())
+    check(out["hubert-xlarge"]["params"] == 12_883_040
+          and out["hubert-xlarge"]["layers"] == 48,
+          f"train frontend: hubert {out['hubert-xlarge']['params']} params")
+    tcfg = TrainConfig(opt_state_dtype="int8", grad_compress=True,
+                       total_steps=8, warmup_steps=5)
+    for arch, _, _, _ in FRONTEND_CELLS:
+        cfg = C.get_reduced(arch).replace(
+            dtype="float32", tt=TTConfig(enable=True, d=3, max_rank=4,
+                                         min_elements=1024),
+            quant=QuantConfig(enable=True))
+        out[f"{arch} identity"] = _step_card_vs_cpu(
+            torch, build_lm(cfg), tcfg, make_batch_fn(cfg, 2, 16, 0)(0),
+            f"frontend identity ({arch})")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"train frontend: {out['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["parts_s"].items()) + ", identity "
+        f"{out['seconds'] - sum(out['parts_s'].values()):.1f})")
+    check(out["seconds"] < FRONTEND_SECONDS, f"train frontend took "
+          f"{out['seconds']:.1f} s, over {FRONTEND_SECONDS:.0f}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -6066,7 +6573,8 @@ def _state_path(name: str, rwkv: dict, hybrid: dict, api: dict) -> str:
 def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
                  wkern: dict, wire: dict, skern: dict, chunked: dict,
                  lmkern: dict, lm: dict, spec: dict, state: dict,
-                 rwkv: dict, hybrid: dict, sgroup: dict, moe: dict) -> dict:
+                 rwkv: dict, hybrid: dict, sgroup: dict, moe: dict,
+                 mla: dict, frontend: dict) -> dict:
     rows = []
     for name, (src, replaces) in KERNELS.items():
         rows.append(_kernel_row(name, src, replaces, kern[name],
@@ -6090,6 +6598,15 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
         row["path"] += (f"; serve moe (whole-prompt run {got[0]}, chunked "
                         f"run {got[1]})")
         row["shapes"] = row["shapes"] + moe["kernels"][row["name"]]
+        # the MLA path's launches and its latent-pair shapes (the paged
+        # write, prefill write and read; no attention launch there)
+        if row["name"] in mla["kernels"]:
+            got = [mla[r]["launches"].get(row["name"], 0)
+                   for r in ("whole", "chunked")]
+            row["mla_launches"] = sum(got)
+            row["path"] += (f"; serve mla (whole-prompt run {got[0]}, "
+                            f"chunked run {got[1]})")
+            row["shapes"] = row["shapes"] + mla["kernels"][row["name"]]
     # the state path's codec launches (the int8 rwkv6 run for the group
     # kernels and the prefill's row encode, the chunked run for the scalar
     # ones), its shapes first
@@ -6128,7 +6645,14 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
                                 wire["launches"].get(name, 0),
                                 f"train wire ({wire['steps']} steps, site "
                                 "table and deploy export)"))
+    cells = [(a.split("-")[0], frontend[a]) for a, *_ in FRONTEND_CELLS]
     for row in rows:
+        # the frontends' step launches (PE1-3 on either route)
+        got = [c["launches"].get(row["name"], 0) for _, c in cells]
+        if any(got):
+            row["frontend_launches"] = sum(got)
+            row["path"] += "; train frontend (" + ", ".join(
+                f"{n} {g}" for (n, _), g in zip(cells, got)) + " a step)"
         # the LM step's launches (its PE launches are the tensor-core rows
         # below)
         name = row["name"]
@@ -6324,6 +6848,35 @@ def phase_pe_repeat(torch, reps: int) -> dict:
     return out
 
 
+def phase_paged_rows(torch, path: str) -> None:
+    """Rows 1b, 5b, 6b and 1c at GQA's shapes (internlm2-1.8b's 8 KV heads
+    and moonshot-v1-16b's 16; the prefill write at 24 x 8 and 48 x 16),
+    each held to its twin as in the kernel phases and timed, written to
+    ``path``: with ``--src`` a parent tree's kernels take the same inputs
+    in one call, so the two designs compare on one card."""
+    from repro_torch.kernels import build as B
+    B.build(["kv_append", "kv_read", "kv_prefill", "pow2_rows",
+             "pow2_scalar"])
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for hkv in (8, 16):
+        out[f"1b {hkv} heads"] = _append_row(torch, timer, gen, hkv)["ms"]
+        pool = _paged_pool(torch, gen, hkv)
+        out[f"5b {hkv} heads"] = _paged_write_row(torch, timer, gen,
+                                                  pool)["ms"]
+        for r in _paged_read_rows(torch, timer, pool):
+            out[f"6b {hkv} heads, {r['what']}"] = r["ms"]
+        del pool
+    for layers, hkv in ((24, 8), (48, 16)):
+        for r in _prefill_rows(torch, timer, gen, layers, hkv,
+                               ((512, 512), (128, 128))):
+            out[f"1c {layers} x {hkv} heads, {r['what']}"] = r["ms"]
+    log(f"paged rows: {json.dumps(out)}")
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(json.dumps(out))
+
+
 def phase_deploy(torch, path: str, reps: int = 20) -> None:
     """The deploy export's packed encode and decode of the six FMNIST cores
     on the card, core by core and, where the port has the groups, as one
@@ -6403,6 +6956,9 @@ def main(argv=None) -> int:
                     help="only time the deploy export's packed encode and "
                     "decode, core by core and grouped, and the export's and "
                     "load's host wall, and write them here (no result line)")
+    ap.add_argument("--paged-rows", metavar="PATH",
+                    help="only time rows 1b, 5b, 6b and 1c at GQA's shapes "
+                    "and write them here (no result line)")
     ap.add_argument("--pe-repeat", type=int, metavar="N",
                     help="only replay the lm kernels check's sequence N "
                     "times for each of the LM's PE1, PE2 and PE3 calls and "
@@ -6427,7 +6983,10 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"device: {torch.cuda.get_device_name(0)} ({smi}), torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-    if args.tokens or args.steps or args.deploy or args.pe_repeat:
+    if (args.tokens or args.steps or args.deploy or args.pe_repeat
+            or args.paged_rows):
+        if args.paged_rows:
+            phase_paged_rows(torch, args.paged_rows)
         if args.pe_repeat:
             phase_pe_repeat(torch, args.pe_repeat)
         if args.tokens:
@@ -6479,6 +7038,7 @@ def main(argv=None) -> int:
     log(f"recurrent phases (serve rwkv6, serve hybrid, ssm identity) in "
         f"{report['state_phases_s']:.1f} s")
     report["serve_moe"] = phase_serve_moe(torch)
+    report["serve_mla"] = phase_serve_mla(torch)
     report["train"] = phase_train(torch)
     report["train_identity"] = phase_train_identity(torch)
     report["train_wire"] = phase_train_wire(torch)
@@ -6486,6 +7046,7 @@ def main(argv=None) -> int:
     report["lm_kernels"] = phase_lm_kernels(torch, Timer(torch))
     report["train_lm"] = phase_train_lm(torch)
     report["train_lm_identity"] = phase_train_lm_identity(torch)
+    report["train_frontend"] = phase_train_frontend(torch)
     report["seconds"] = time.perf_counter() - t0
     line = kernels_line(report["kernels"], report["engine"],
                         report["train_kernels"], report["train"],
@@ -6494,7 +7055,8 @@ def main(argv=None) -> int:
                         report["lm_kernels"], report["train_lm"],
                         report["serve_spec"], report["state_kernels"],
                         report["serve_rwkv6"], report["serve_hybrid"],
-                        report["state_group"], report["serve_moe"])
+                        report["state_group"], report["serve_moe"],
+                        report["serve_mla"], report["train_frontend"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

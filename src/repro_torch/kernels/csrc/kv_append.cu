@@ -43,12 +43,14 @@
 // a call waits on. Design: one launch takes K and V of every row of every
 // slot, so a step pays one launch a layer and no host work beyond it. Grid
 // (slot x row, tensor): a CTA reads its slot's page, offset and step from
-// device memory and walks the row's F elements in 16-byte vectors of the
+// device memory and walks its tensor's row of F[t] elements (K and V may
+// differ in width: MLA's latent c_kv and rope key) in 16-byte vectors of the
 // input (8 bf16 or 4 f32 elements), writing the codes as one 8- or 4-byte
 // word a vector where the rows are aligned, else element by element. Each
 // input is taken at its own slot and token strides, so V, a strided view of
-// the fused kv projection, is read in place with no copy. No shared memory,
-// no synchronisation.
+// the fused kv projection, is read in place with no copy. Each tensor takes
+// the vector path or the element loop on its own width and alignment, so
+// one launch may run both. No shared memory, no synchronisation.
 
 #include "kv_pages.cuh"
 #include "pow2_codes.cuh"
@@ -76,7 +78,8 @@ struct AppendArgs {
   const int* lens;           // (B,) int32 position of each slot's row 0
   const uint8_t* active;     // (B,) bool, or null: every slot active
   const int* n_valid;        // (B,) int32 valid rows, or null: every row valid
-  long long feat;            // F = Hkv * Dh
+  long long feat[2];         // K, V: F = Hkv * Dh (GQA, the same twice), or
+                             // MLA's kv_lora_rank and qk_rope_head_dim
   int tokens;                // S rows a slot
   int pages_per_slot, page_size, trash;
   int clamp_last;            // 0: drop rule, 1: clamp rule
@@ -103,15 +106,16 @@ __global__ void __launch_bounds__(kThreads)
   const int off = (pos % a.page_size + a.page_size) % a.page_size;
   const T* __restrict__ x =
       static_cast<const T*>(a.x[t]) + b * a.stride[t] + j * a.tstride[t];
+  const long long F = a.feat[t];
   Q* __restrict__ q =
-      static_cast<Q*>(a.data[t]) + ((long long)page * a.page_size + off) * a.feat;
+      static_cast<Q*>(a.data[t]) + ((long long)page * a.page_size + off) * F;
   const float step = pow2_step(s);
   const float lo = a.lo, hi = a.hi;
   auto enc = [lo, hi, step](float v) {
     return to_code<Q>(fminf(fmaxf(rintf(v / step), lo), hi));
   };
   if (a.vec[t]) {
-    for (long long i = threadIdx.x; i < a.feat / V; i += blockDim.x) {
+    for (long long i = threadIdx.x; i < F / V; i += blockDim.x) {
       const VecN<T, V> in = reinterpret_cast<const VecN<T, V>*>(x)[i];
       VecN<Q, V> out;
 #pragma unroll
@@ -119,7 +123,7 @@ __global__ void __launch_bounds__(kThreads)
       reinterpret_cast<VecN<Q, V>*>(q)[i] = out;
     }
   } else {
-    for (long long i = threadIdx.x; i < a.feat; i += blockDim.x) q[i] = enc(to_f32(x[i]));
+    for (long long i = threadIdx.x; i < F; i += blockDim.x) q[i] = enc(to_f32(x[i]));
   }
 }
 
@@ -127,7 +131,7 @@ template <typename T, typename Q>
 void launch(AppendArgs a, int slots, cudaStream_t st) {
   constexpr int V = 16 / sizeof(T);
   for (int t = 0; t < 2; ++t)
-    a.vec[t] = a.feat % V == 0 && aligned(a.x[t], 16) &&
+    a.vec[t] = a.feat[t] % V == 0 && aligned(a.x[t], 16) &&
                (slots == 1 || (a.stride[t] * (long long)sizeof(T)) % 16 == 0) &&
                (a.tokens == 1 || (a.tstride[t] * (long long)sizeof(T)) % 16 == 0) &&
                aligned(a.data[t], alignof(VecN<Q, V>));
@@ -138,29 +142,30 @@ void launch(AppendArgs a, int slots, cudaStream_t st) {
 
 extern "C" {
 
-// k, v: row j of slot b holds F = Hkv * Dh elements of x_dtype (0 f32,
+// k, v: row j of slot b holds kfeat (vfeat) elements of x_dtype (0 f32,
 // 1 bf16, 2 f16) at k + b * k_stride + j * k_tstride (v likewise),
 // contiguous within the row, j < tokens; kdata, vdata: (trash + 1,
-// page_size, F) codes of q_code (0 int8, 1 int16, 2 int32, 3 f32), written
-// in place; kscale, vscale: (slots,) f32 scale_log2; table: (slots,
-// pages_per_slot) int32 with row stride table_stride; lens: (slots,) int32
-// position of row 0; active: (slots,) bool or null (every slot active);
-// n_valid: (slots,) int32 or null (every row valid); clamp_last selects the
-// rule for a valid row past the slot's last page (0 trash, 1 the last page).
-// bits in [2, code_bits(q_code)]. Returns cudaGetLastError() after the
+// page_size, kfeat) and (trash + 1, page_size, vfeat) codes of q_code
+// (0 int8, 1 int16, 2 int32, 3 f32), written in place; kscale, vscale:
+// (slots,) f32 scale_log2; table: (slots, pages_per_slot) int32 with row
+// stride table_stride; lens: (slots,) int32 position of row 0; active:
+// (slots,) bool or null (every slot active); n_valid: (slots,) int32 or
+// null (every row valid); clamp_last selects the rule for a valid row past
+// the slot's last page (0 trash, 1 the last page). bits in
+// [2, code_bits(q_code)]. Returns cudaGetLastError() after the
 // launch.
 int p2_append_paged(const void* k, const void* v, int x_dtype, long long k_stride,
                     long long v_stride, long long k_tstride, long long v_tstride, int tokens,
                     void* kdata, void* vdata, int q_code, const void* kscale,
                     const void* vscale, const void* table, long long table_stride,
                     int pages_per_slot, const void* lens, const void* active,
-                    const void* n_valid, int clamp_last, int slots, long long feat,
-                    int page_size, int trash, int bits, void* stream) {
+                    const void* n_valid, int clamp_last, int slots, long long kfeat,
+                    long long vfeat, int page_size, int trash, int bits, void* stream) {
   if (bits < 2 || bits > code_bits(q_code) || x_dtype < F32 || x_dtype > F16 || slots < 0 ||
-      tokens < 0 || feat < 0 || page_size < 1 || pages_per_slot < 1 || trash < 0 ||
-      (long long)slots * tokens > 0x7fffffffLL)
+      tokens < 0 || kfeat < 0 || vfeat < 0 || page_size < 1 || pages_per_slot < 1 ||
+      trash < 0 || (long long)slots * tokens > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  if (slots == 0 || tokens == 0 || feat == 0) return (int)cudaSuccess;
+  if (slots == 0 || tokens == 0 || kfeat + vfeat == 0) return (int)cudaSuccess;
   AppendArgs a{};
   a.x[0] = k;
   a.x[1] = v;
@@ -177,7 +182,8 @@ int p2_append_paged(const void* k, const void* v, int x_dtype, long long k_strid
   a.lens = (const int*)lens;
   a.active = (const uint8_t*)active;
   a.n_valid = (const int*)n_valid;
-  a.feat = feat;
+  a.feat[0] = kfeat;
+  a.feat[1] = vfeat;
   a.tokens = tokens;
   a.pages_per_slot = pages_per_slot;
   a.page_size = page_size;

@@ -33,7 +33,9 @@
 // a (tensor, layer) before any row can be encoded, and a (tensor, layer) is
 // 1 MB, more than one SM should carry. Design: one thread block cluster per
 // (tensor, layer), 2L clusters of up to kCluster CTAs, each CTA a run of
-// rows. A CTA reduces |x| over its valid rows, the cluster's max is
+// rows, over its own tensor's width (K and V may differ in width: MLA's
+// latent c_kv and rope key, 512 and 64). A CTA reduces |x| over its valid
+// rows, the cluster's max is
 // combined through distributed shared memory after a cluster barrier, every
 // CTA forms the scale (the leader writes it) and encodes its rows, re-read
 // from global memory (L2-warm by then), storing them to their page in
@@ -65,6 +67,10 @@ namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kCluster = 8;     // CTAs a (tensor, layer): the portable maximum
+// CTAs an SM keeps resident for int8 codes (the serving pool): at most 32
+// registers a thread. With a width per tensor ptxas chose 40, 6 CTAs an SM,
+// and a 48-layer x 512 x 16 x 128 prefill write ran 13% slower (PERF.md).
+constexpr int kMinBlocks = 8;
 
 template <typename T, int V>
 struct alignas(sizeof(T) * V < 16 ? sizeof(T) * V : 16) VecN {
@@ -82,13 +88,14 @@ struct PrefillArgs {
   const void* x[2];          // K, V: row j of layer l at x + l * lstride + j * tstride
   long long lstride[2];      // their layer strides, in elements
   long long tstride[2];      // their token strides, in elements
-  void* data[2];             // K, V pools (L, trash + 1, page_size, F) codes
-  long long data_lstride;    // elements between two layers of a pool
+  void* data[2];             // K, V pools (L, trash + 1, page_size, F[t]) codes
+  long long data_lstride[2]; // elements between two layers of each pool
   float* scale[2];           // (L, slots) f32 scale_log2, row stride scale_lstride
   long long scale_lstride;
   const int* table;          // (pages_per_slot,) int32, the slot's row
   const int* length;         // (1,) int32 valid rows
-  long long feat;            // F = Hkv * Dh
+  long long feat[2];         // K, V: F = Hkv * Dh (GQA, the same twice), or
+                             // MLA's kv_lora_rank and qk_rope_head_dim
   int tokens;                // S rows a layer
   int layers;                // L
   int slot, pages_per_slot, page_size, trash;
@@ -115,7 +122,7 @@ __device__ __forceinline__ float abs_max(const VecN<T, V> in, float m) {
 // one 16-byte load of x or one 16-byte store of codes, whichever covers
 // more (16 bf16 -> 16 int8, 4 f32 -> 4 int32).
 template <typename T, typename Q>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, sizeof(Q) == 1 ? kMinBlocks : 1)
     p2_prefill_paged_kernel(const __grid_constant__ PrefillArgs a) {
   constexpr int V = 16 / sizeof(T);            // elements a 16-byte load
   constexpr int kU = unit<T, Q>();
@@ -134,7 +141,7 @@ __global__ void __launch_bounds__(kThreads)
   const int nv = min(max(__ldg(a.length), 0), a.tokens);
   const int r0 = min(rank * a.rows_per_cta, a.tokens);
   const int r1 = min(r0 + a.rows_per_cta, a.tokens);
-  const int F = (int)a.feat;
+  const int F = (int)a.feat[t];
   const T* __restrict__ x = static_cast<const T*>(a.x[t]) + l * a.lstride[t];
   const long long ts = a.tstride[t];
   const bool vec = a.vec[t];
@@ -177,7 +184,7 @@ __global__ void __launch_bounds__(kThreads)
   const float inv = pow2_step(-scale_sh);
   const float lo = a.lo, hi = a.hi;
   auto enc = [inv, lo, hi](float v) { return to_code<Q>(fminf(fmaxf(rintf(v * inv), lo), hi)); };
-  Q* __restrict__ q0 = static_cast<Q*>(a.data[t]) + l * a.data_lstride;
+  Q* __restrict__ q0 = static_cast<Q*>(a.data[t]) + l * a.data_lstride[t];
   for (int j = r0 + warp; j < r1; j += kWarps) {
     const int page = kv_pages::row_page(a.table, a.pages_per_slot, a.page_size, a.trash, 1, j,
                                         j, true, nv);
@@ -205,7 +212,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, typename Q>
 int launch(PrefillArgs a, cudaStream_t st) {
   for (int t = 0; t < 2; ++t)
-    a.vec[t] = a.feat % unit<T, Q>() == 0 && aligned(a.x[t], 16) &&
+    a.vec[t] = a.feat[t] % unit<T, Q>() == 0 && aligned(a.x[t], 16) &&
                (a.lstride[t] * (long long)sizeof(T)) % 16 == 0 &&
                (a.tstride[t] * (long long)sizeof(T)) % 16 == 0 && aligned(a.data[t], 16);
   const int csize = a.tokens < kCluster ? a.tokens : kCluster;
@@ -228,27 +235,30 @@ int launch(PrefillArgs a, cudaStream_t st) {
 
 extern "C" {
 
-// k, v: row j of layer l holds F = Hkv * Dh elements of x_dtype (0 f32,
+// k, v: row j of layer l holds kfeat (vfeat) elements of x_dtype (0 f32,
 // 1 bf16, 2 f16) at k + l * k_lstride + j * k_tstride (v likewise),
 // contiguous within the row, j < tokens; kdata, vdata: (layers, trash + 1,
-// page_size, F) codes of q_code (0 int8, 1 int16, 2 int32, 3 f32), written
-// in place; kscale, vscale: (layers, slots) f32 with row stride
-// scale_lstride, column `slot` written; table: (pages_per_slot,) int32, the
-// slot's row of the page table; length: (1,) int32 valid rows, on the
-// device. bits in [2, code_bits(q_code)]; inv_qmax = 1 / (2^(bits-1) - 1)
-// in f32.
+// page_size, kfeat) and (layers, trash + 1, page_size, vfeat) codes of
+// q_code (0 int8, 1 int16, 2 int32, 3 f32), layers k_data_lstride /
+// v_data_lstride elements apart, written in place; kscale, vscale:
+// (layers, slots) f32 with row stride scale_lstride, column `slot` written;
+// table: (pages_per_slot,) int32, the slot's row of the page table;
+// length: (1,) int32 valid rows, on the device. bits in
+// [2, code_bits(q_code)]; inv_qmax = 1 / (2^(bits-1) - 1) in f32.
 // Returns the launch's error code, then cudaGetLastError().
 int p2_prefill_paged(const void* k, const void* v, int x_dtype, long long k_lstride,
                      long long v_lstride, long long k_tstride, long long v_tstride, int tokens,
-                     int layers, void* kdata, void* vdata, int q_code, long long data_lstride,
-                     void* kscale, void* vscale, long long scale_lstride, int slot,
-                     const void* table, int pages_per_slot, const void* length, long long feat,
+                     int layers, void* kdata, void* vdata, int q_code,
+                     long long k_data_lstride, long long v_data_lstride, void* kscale,
+                     void* vscale, long long scale_lstride, int slot, const void* table,
+                     int pages_per_slot, const void* length, long long kfeat, long long vfeat,
                      int page_size, int trash, int bits, void* stream) {
   if (bits < 2 || bits > code_bits(q_code) || x_dtype < F32 || x_dtype > F16 || tokens < 0 ||
-      layers < 0 || feat < 0 || page_size < 1 || pages_per_slot < 1 || trash < 0 || slot < 0 ||
-      feat > 0x7fffffffLL || 2LL * layers * kCluster > 0x7fffffffLL)
+      layers < 0 || kfeat < 0 || vfeat < 0 || page_size < 1 || pages_per_slot < 1 ||
+      trash < 0 || slot < 0 || kfeat > 0x7fffffffLL || vfeat > 0x7fffffffLL ||
+      2LL * layers * kCluster > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  if (tokens == 0 || layers == 0 || feat == 0) return (int)cudaSuccess;
+  if (tokens == 0 || layers == 0 || kfeat + vfeat == 0) return (int)cudaSuccess;
   PrefillArgs a{};
   a.x[0] = k;
   a.x[1] = v;
@@ -258,13 +268,15 @@ int p2_prefill_paged(const void* k, const void* v, int x_dtype, long long k_lstr
   a.tstride[1] = v_tstride;
   a.data[0] = kdata;
   a.data[1] = vdata;
-  a.data_lstride = data_lstride;
+  a.data_lstride[0] = k_data_lstride;
+  a.data_lstride[1] = v_data_lstride;
   a.scale[0] = (float*)kscale;
   a.scale[1] = (float*)vscale;
   a.scale_lstride = scale_lstride;
   a.table = (const int*)table;
   a.length = (const int*)length;
-  a.feat = feat;
+  a.feat[0] = kfeat;
+  a.feat[1] = vfeat;
   a.tokens = tokens;
   a.layers = layers;
   a.slot = slot;

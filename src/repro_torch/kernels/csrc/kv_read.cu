@@ -31,8 +31,11 @@
 // of f32; 4 int32 codes (16 bytes) -> 8 bytes of bf16), and neighbouring
 // threads take neighbouring vectors, so a warp's loads and stores each
 // cover whole lines. Splitting a page over several CTAs keeps enough of
-// them in flight when one slot's pages are all the work. Pages whose rows
-// are not multiples of V, or unaligned pools, take an element loop. No
+// them in flight when one slot's pages are all the work. K and V may differ
+// in width (MLA's latent c_kv and rope key): the grid's parts cover the
+// wider page and a CTA past the narrower tensor's page returns at once.
+// Pages whose rows are not multiples of V, or unaligned pools, take an
+// element loop, each tensor on its own. No
 // shared memory, no synchronisation.
 
 #include "pow2_codes.cuh"
@@ -62,7 +65,8 @@ struct ReadArgs {
   const float* scale[2];     // (B,) scale_log2 of each slot
   const int* table;          // (B, pages_per_slot) int32, row stride table_stride
   long long table_stride;
-  long long page_elems;      // page_size * F
+  long long page_elems[2];   // K, V: page_size * F[t] (GQA: the same twice;
+                             // MLA: kv_lora_rank and qk_rope_head_dim wide)
   long long part;            // elements of a page a CTA takes
   int pages_per_slot, trash;
   int vec[2];                // K / V take the vector path
@@ -73,14 +77,16 @@ __global__ void __launch_bounds__(kThreads)
     p2_read_paged_kernel(const __grid_constant__ ReadArgs a) {
   constexpr int V = vec_elems<Q, T>();
   const int t = blockIdx.y;
+  const long long pe = a.page_elems[t];
+  const long long lo = blockIdx.z * a.part;
+  if (lo >= pe) return;      // past the narrower tensor's page
   const int b = blockIdx.x / a.pages_per_slot, p = blockIdx.x - b * a.pages_per_slot;
   int page = __ldg(a.table + b * a.table_stride + p);
   if (page < 0 || page > a.trash) page = a.trash;
   const float step = pow2_step(__ldg(a.scale[t] + b));
-  const Q* __restrict__ src = static_cast<const Q*>(a.data[t]) + (long long)page * a.page_elems;
-  T* __restrict__ dst = static_cast<T*>(a.out[t]) + (long long)blockIdx.x * a.page_elems;
-  const long long lo = blockIdx.z * a.part;
-  const long long hi = min(lo + a.part, a.page_elems);
+  const Q* __restrict__ src = static_cast<const Q*>(a.data[t]) + (long long)page * pe;
+  T* __restrict__ dst = static_cast<T*>(a.out[t]) + (long long)blockIdx.x * pe;
+  const long long hi = min(lo + a.part, pe);
   if (a.vec[t]) {
 #pragma unroll
     for (int k = 0; k < kSteps; ++k) {
@@ -103,10 +109,11 @@ template <typename Q, typename T>
 int launch(ReadArgs a, int slots, cudaStream_t st) {
   constexpr int V = vec_elems<Q, T>();
   a.part = (long long)kThreads * V * kSteps;
-  const long long parts = (a.page_elems + a.part - 1) / a.part;
+  const long long widest = a.page_elems[0] > a.page_elems[1] ? a.page_elems[0] : a.page_elems[1];
+  const long long parts = (widest + a.part - 1) / a.part;
   if (parts > 65535) return (int)cudaErrorInvalidValue;
   for (int t = 0; t < 2; ++t)
-    a.vec[t] = a.page_elems % V == 0 && aligned(a.data[t], alignof(VecN<Q, V>)) &&
+    a.vec[t] = a.page_elems[t] % V == 0 && aligned(a.data[t], alignof(VecN<Q, V>)) &&
                aligned(a.out[t], alignof(VecN<T, V>));
   p2_read_paged_kernel<Q, T>
       <<<dim3(slots * a.pages_per_slot, 2, (unsigned)parts), kThreads, 0, st>>>(a);
@@ -117,20 +124,21 @@ int launch(ReadArgs a, int slots, cudaStream_t st) {
 
 extern "C" {
 
-// kdata, vdata: (trash + 1, page_size, F) codes of q_code (0 int8, 1 int16,
-// 2 int32, 3 f32); kout, vout: (slots, pages_per_slot * page_size, F) of
-// y_dtype (0 f32, 1 bf16, 2 f16), contiguous, written whole; kscale, vscale:
-// (slots,) f32 scale_log2; table: (slots, pages_per_slot) int32 with row
-// stride table_stride; page_elems = page_size * F. Returns
+// kdata, vdata: (trash + 1, page_size, kF) and (trash + 1, page_size, vF)
+// codes of q_code (0 int8, 1 int16, 2 int32, 3 f32); kout, vout: (slots,
+// pages_per_slot * page_size, kF / vF) of y_dtype (0 f32, 1 bf16, 2 f16),
+// contiguous, written whole; kscale, vscale: (slots,) f32 scale_log2;
+// table: (slots, pages_per_slot) int32 with row stride table_stride;
+// k_page_elems = page_size * kF, v_page_elems = page_size * vF. Returns
 // cudaGetLastError() after the launch.
 int p2_read_paged(const void* kdata, const void* vdata, int q_code, void* kout, void* vout,
                   int y_dtype, const void* kscale, const void* vscale, const void* table,
-                  long long table_stride, int slots, int pages_per_slot, long long page_elems,
-                  int trash, void* stream) {
-  if (y_dtype < F32 || y_dtype > F16 || slots < 0 || pages_per_slot < 1 || page_elems < 0 ||
-      trash < 0 || (long long)slots * pages_per_slot > 0x7fffffffLL)
+                  long long table_stride, int slots, int pages_per_slot,
+                  long long k_page_elems, long long v_page_elems, int trash, void* stream) {
+  if (y_dtype < F32 || y_dtype > F16 || slots < 0 || pages_per_slot < 1 || k_page_elems < 0 ||
+      v_page_elems < 0 || trash < 0 || (long long)slots * pages_per_slot > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  if (slots == 0 || page_elems == 0) return (int)cudaSuccess;
+  if (slots == 0 || k_page_elems + v_page_elems == 0) return (int)cudaSuccess;
   ReadArgs a{};
   a.data[0] = kdata;
   a.data[1] = vdata;
@@ -140,7 +148,8 @@ int p2_read_paged(const void* kdata, const void* vdata, int q_code, void* kout, 
   a.scale[1] = (const float*)vscale;
   a.table = (const int*)table;
   a.table_stride = table_stride;
-  a.page_elems = page_elems;
+  a.page_elems[0] = k_page_elems;
+  a.page_elems[1] = v_page_elems;
   a.pages_per_slot = pages_per_slot;
   a.trash = trash;
   cudaStream_t st = (cudaStream_t)stream;

@@ -28,7 +28,10 @@ what ``append_tokens`` does twice a layer.
 
 Layouts: pages ``(P + 1, page_size, *feat)`` codes (int8, int16, int32 or
 f32), row P the trash page, which is write-only scratch; tokens ``(B, S,
-*feat)`` f32, bf16 or f16, row j of slot b at position ``lens[b] + j``;
+*feat)`` f32, bf16 or f16, row j of slot b at position ``lens[b] + j``.
+The two tensors' ``*feat`` may differ (MLA's latent ``c_kv`` and rope key,
+``(kv_lora_rank,)`` and ``(qk_rope_head_dim,)``), each pool matching its
+tokens; they still take one launch (GQA's K and V pass one width twice);
 scales ``(B,)`` f32 ``scale_log2``; table ``(B, pages_per_slot)``; lens,
 ``n_valid`` and active ``(B,)`` (``n_valid`` None: every row valid; active
 None: every slot active). Both versions update the pages in place and
@@ -79,22 +82,23 @@ def _check(kdata, vdata, kscale, vscale, k, v, table, lens, active, n_valid,
            page_size: int, bits: int) -> int:
     """Raise on what the write does not take; the kernel's code for the
     pools' storage."""
-    if kdata.shape != vdata.shape or kdata.dtype != vdata.dtype \
-            or kdata.dim() < 3 or not (kdata.is_contiguous()
-                                       and vdata.is_contiguous()):
+    if kdata.shape[:2] != vdata.shape[:2] or kdata.dtype != vdata.dtype \
+            or min(kdata.dim(), vdata.dim()) < 3 \
+            or not (kdata.is_contiguous() and vdata.is_contiguous()):
         raise ValueError(f"{NAME}: want two contiguous (P+1, page, *feat) "
-                         f"pools of one dtype, got {tuple(kdata.shape)} "
-                         f"{kdata.dtype} and {tuple(vdata.shape)} "
-                         f"{vdata.dtype}")
+                         f"pools of one dtype and page count, got "
+                         f"{tuple(kdata.shape)} {kdata.dtype} and "
+                         f"{tuple(vdata.shape)} {vdata.dtype}")
     if kdata.shape[1] != page_size:
         raise ValueError(f"{NAME}: pages of {kdata.shape[1]} rows, "
                          f"page_size {page_size}")
     code = CB._check_storage(NAME, bits, kdata.dtype)
-    if k.dim() < 2 or tuple(k.shape) != tuple(v.shape) \
-            or tuple(k.shape[2:]) != tuple(kdata.shape[2:]):
+    if k.dim() < 2 or v.dim() < 2 or k.shape[:2] != v.shape[:2] \
+            or tuple(k.shape[2:]) != tuple(kdata.shape[2:]) \
+            or tuple(v.shape[2:]) != tuple(vdata.shape[2:]):
         raise ValueError(f"{NAME}: want (B, S) + {tuple(kdata.shape[2:])} "
-                         f"tokens, got {tuple(k.shape)} and "
-                         f"{tuple(v.shape)}")
+                         f"and (B, S) + {tuple(vdata.shape[2:])} tokens, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
     if k.dtype != v.dtype or k.dtype not in CB._DTYPE_CODE:
         raise TypeError(f"{NAME}: want K and V of one dtype of "
                         f"{sorted(map(str, CB._DTYPE_CODE))}, got {k.dtype} "
@@ -132,14 +136,17 @@ def append_paged_torch(kdata: torch.Tensor, vdata: torch.Tensor,
     return kdata, vdata
 
 
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# the C signature of p2_append_paged, the stream last
+ARGTYPES = (_P, _P, _I, _LL, _LL, _LL, _LL, _I, _P, _P, _I, _P, _P, _P, _LL,
+            _I, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _P)
+
+
 def _lib() -> ctypes.CDLL:
     lib = B.load(SOURCE)
     if not getattr(lib, "_repro_typed", False):
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.p2_append_paged.argtypes = [p, p, i, ll, ll, ll, ll, i, p, p, i,
-                                        p, p, p, ll, i, p, p, p, i, i, ll, i,
-                                        i, i, p]
-        lib.p2_append_paged.restype = i
+        lib.p2_append_paged.argtypes = list(ARGTYPES)
+        lib.p2_append_paged.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
 
@@ -152,24 +159,20 @@ def _token_rows(x: torch.Tensor, b: int, s: int, feat: int) -> torch.Tensor:
     return x3 if feat <= 1 or x3.stride(2) == 1 else x3.contiguous()
 
 
-def append_paged_cuda(kdata: torch.Tensor, vdata: torch.Tensor,
-                      kscale: torch.Tensor, vscale: torch.Tensor,
-                      k: torch.Tensor, v: torch.Tensor, table: torch.Tensor,
-                      lens: torch.Tensor, active, *, page_size: int,
-                      bits: int, n_valid=None, clamp_last: bool = False
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``p2_append_paged`` once for K and V of every row of every
-    slot; raises on anything the kernel does not take."""
+def c_args(kdata: torch.Tensor, vdata: torch.Tensor, kscale: torch.Tensor,
+           vscale: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           table: torch.Tensor, lens: torch.Tensor, active, *,
+           page_size: int, bits: int, n_valid=None,
+           clamp_last: bool = False) -> tuple[list, list]:
+    """The kernel's C arguments but the stream (pointers as ints), after
+    ``_check``, and the tensors they point into, which the caller keeps
+    alive until the launch. K and V pass their own widths (``kfeat``,
+    ``vfeat``: one value twice for GQA)."""
     code = _check(kdata, vdata, kscale, vscale, k, v, table, lens, active,
                   n_valid, page_size, bits)
-    dev = kdata.device
-    args = [kdata, vdata, kscale, vscale, k, v, table, lens] + [
-        t for t in (active, n_valid) if t is not None]
-    if any(t.device != dev for t in args) or not kdata.is_cuda:
-        raise ValueError(f"{NAME}: every tensor on one CUDA device")
     b, s = k.shape[:2]
-    feat = math.prod(kdata.shape[2:])
-    xk, xv = _token_rows(k, b, s, feat), _token_rows(v, b, s, feat)
+    kfeat, vfeat = math.prod(kdata.shape[2:]), math.prod(vdata.shape[2:])
+    xk, xv = _token_rows(k, b, s, kfeat), _token_rows(v, b, s, vfeat)
     kscale = kscale.reshape(b).to(torch.float32).contiguous()
     vscale = vscale.reshape(b).to(torch.float32).contiguous()
     table = table.to(torch.int32)
@@ -180,15 +183,36 @@ def append_paged_cuda(kdata: torch.Tensor, vdata: torch.Tensor,
         active = active.to(torch.bool).contiguous()
     if n_valid is not None:
         n_valid = n_valid.to(torch.int32).contiguous()
+    args = [xk.data_ptr(), xv.data_ptr(), CB._DTYPE_CODE[k.dtype],
+            xk.stride(0), xv.stride(0), xk.stride(1), xv.stride(1), s,
+            kdata.data_ptr(), vdata.data_ptr(), code, kscale.data_ptr(),
+            vscale.data_ptr(), table.data_ptr(), table.stride(0),
+            table.shape[1], lens.data_ptr(),
+            None if active is None else active.data_ptr(),
+            None if n_valid is None else n_valid.data_ptr(), int(clamp_last),
+            b, kfeat, vfeat, page_size, kdata.shape[0] - 1, bits]
+    return args, [xk, xv, kscale, vscale, table, lens, active, n_valid]
+
+
+def append_paged_cuda(kdata: torch.Tensor, vdata: torch.Tensor,
+                      kscale: torch.Tensor, vscale: torch.Tensor,
+                      k: torch.Tensor, v: torch.Tensor, table: torch.Tensor,
+                      lens: torch.Tensor, active, *, page_size: int,
+                      bits: int, n_valid=None, clamp_last: bool = False
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``p2_append_paged`` once for K and V of every row of every
+    slot; raises on anything the kernel does not take."""
+    dev = kdata.device
+    tensors = [kdata, vdata, kscale, vscale, k, v, table, lens] + [
+        t for t in (active, n_valid) if t is not None]
+    if any(t.device != dev for t in tensors) or not kdata.is_cuda:
+        raise ValueError(f"{NAME}: every tensor on one CUDA device")
+    args, keep = c_args(kdata, vdata, kscale, vscale, k, v, table, lens,
+                        active, page_size=page_size, bits=bits,
+                        n_valid=n_valid, clamp_last=clamp_last)
     lib = _lib()
     B.check(lib, lib.p2_append_paged(
-        xk.data_ptr(), xv.data_ptr(), CB._DTYPE_CODE[k.dtype], xk.stride(0),
-        xv.stride(0), xk.stride(1), xv.stride(1), s, kdata.data_ptr(),
-        vdata.data_ptr(), code, kscale.data_ptr(), vscale.data_ptr(),
-        table.data_ptr(), table.stride(0), table.shape[1], lens.data_ptr(),
-        None if active is None else active.data_ptr(),
-        None if n_valid is None else n_valid.data_ptr(), int(clamp_last), b,
-        feat, page_size, kdata.shape[0] - 1, bits,
-        torch.cuda.current_stream(dev).cuda_stream), NAME)
+        *args, torch.cuda.current_stream(dev).cuda_stream), NAME)
+    del keep
     B.note_launch(NAME)
     return kdata, vdata

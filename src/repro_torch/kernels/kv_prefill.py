@@ -18,7 +18,9 @@ once per tensor.
 Layouts: tokens ``(L, S, *feat)`` f32, bf16 or f16 (the prefill cache's
 ``(L, 1, S, *feat)`` leaves at index 0 of their second axis); pools ``(L, P
 + 1, page_size, *feat)`` codes (int8, int16, int32 or f32), row P of each
-layer the trash page, which is write-only scratch; scales ``(L,
+layer the trash page, which is write-only scratch; the two tensors'
+``*feat`` may differ (MLA's ``c_kv`` and ``k_rope``), each pool matching its
+tokens, in one launch; scales ``(L,
 num_slots)`` f32 ``scale_log2``, column ``slot`` written; ``table_row``
 ``(pages_per_slot,)``, the slot's row of the page table; ``length`` a
 ``(1,)`` int tensor (or an int), the prompt's valid rows. Row j goes to
@@ -56,23 +58,25 @@ def _check(kdata, vdata, kscale, vscale, k, v, table_row, slot: int,
            page_size: int, bits: int) -> int:
     """Raise on what the write does not take; the kernel's code for the
     pools' storage."""
-    if kdata.shape != vdata.shape or kdata.dtype != vdata.dtype \
-            or kdata.dim() < 4 or not (kdata.is_contiguous()
-                                       and vdata.is_contiguous()):
+    if kdata.shape[:3] != vdata.shape[:3] or kdata.dtype != vdata.dtype \
+            or min(kdata.dim(), vdata.dim()) < 4 \
+            or not (kdata.is_contiguous() and vdata.is_contiguous()):
         raise ValueError(f"{NAME}: want two contiguous (L, P+1, page, *feat) "
-                         f"pools of one dtype, got {tuple(kdata.shape)} "
-                         f"{kdata.dtype} and {tuple(vdata.shape)} "
-                         f"{vdata.dtype}")
+                         f"pools of one dtype, layers and pages, got "
+                         f"{tuple(kdata.shape)} {kdata.dtype} and "
+                         f"{tuple(vdata.shape)} {vdata.dtype}")
     if kdata.shape[2] != page_size:
         raise ValueError(f"{NAME}: pages of {kdata.shape[2]} rows, "
                          f"page_size {page_size}")
     code = CB._check_storage(NAME, bits, kdata.dtype)
     layers = kdata.shape[0]
-    if k.dim() < 2 or tuple(k.shape) != tuple(v.shape) \
+    if k.dim() < 2 or v.dim() < 2 or k.shape[:2] != v.shape[:2] \
             or k.shape[0] != layers \
-            or tuple(k.shape[2:]) != tuple(kdata.shape[3:]):
+            or tuple(k.shape[2:]) != tuple(kdata.shape[3:]) \
+            or tuple(v.shape[2:]) != tuple(vdata.shape[3:]):
         raise ValueError(f"{NAME}: want ({layers}, S) + "
-                         f"{tuple(kdata.shape[3:])} tokens, got "
+                         f"{tuple(kdata.shape[3:])} and ({layers}, S) + "
+                         f"{tuple(vdata.shape[3:])} tokens, got "
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
     if k.dtype != v.dtype or k.dtype not in CB._DTYPE_CODE:
         raise TypeError(f"{NAME}: want K and V of one dtype of "
@@ -113,10 +117,10 @@ def prefill_paged_torch(kdata: torch.Tensor, vdata: torch.Tensor,
     pages, offs = token_pages(table_row[None], torch.zeros_like(n), None, s,
                               page_size, kdata.shape[1] - 1, n_valid=n,
                               clamp_last=True)
-    valid = (torch.arange(s, device=k.device) < n).reshape(
-        (1, s) + (1,) * (k.dim() - 2))
+    rows = torch.arange(s, device=k.device) < n
     spec = QuantSpec("pow2", bits, 0, "int8", "per_tensor_max")
     for data, scale, x in ((kdata, kscale, k), (vdata, vscale, v)):
+        valid = rows.reshape((1, s) + (1,) * (x.dim() - 2))
         step = per_tensor_max_scale_log2(x, spec, valid=valid,
                                          reduce_axes=tuple(range(1, x.dim())))
         scale[:, slot] = step
@@ -126,14 +130,17 @@ def prefill_paged_torch(kdata: torch.Tensor, vdata: torch.Tensor,
     return kdata, vdata
 
 
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# the C signature of p2_prefill_paged, the stream last
+ARGTYPES = (_P, _P, _I, _LL, _LL, _LL, _LL, _I, _I, _P, _P, _I, _LL, _LL, _P,
+            _P, _LL, _I, _P, _I, _P, _LL, _LL, _I, _I, _I, _P)
+
+
 def _lib() -> ctypes.CDLL:
     lib = B.load(SOURCE)
     if not getattr(lib, "_repro_typed", False):
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.p2_prefill_paged.argtypes = [p, p, i, ll, ll, ll, ll, i, i, p, p,
-                                         i, ll, p, p, ll, i, p, i, p, ll, i,
-                                         i, i, p]
-        lib.p2_prefill_paged.restype = i
+        lib.p2_prefill_paged.argtypes = list(ARGTYPES)
+        lib.p2_prefill_paged.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
 
@@ -145,6 +152,31 @@ def _layer_rows(x: torch.Tensor, feat: int) -> torch.Tensor:
     return x3 if feat <= 1 or x3.stride(2) == 1 else x3.contiguous()
 
 
+def c_args(kdata: torch.Tensor, vdata: torch.Tensor, kscale: torch.Tensor,
+           vscale: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           table_row: torch.Tensor, slot: int, length, *, page_size: int,
+           bits: int) -> tuple[list, list]:
+    """The kernel's C arguments but the stream (pointers as ints), after
+    ``_check``, and the tensors they point into, which the caller keeps
+    alive until the launch. K and V pass their own widths and layer
+    strides (one value twice for GQA)."""
+    code = _check(kdata, vdata, kscale, vscale, k, v, table_row, slot,
+                  page_size, bits)
+    n = _length(length, kdata.device)
+    layers, s = k.shape[:2]
+    kfeat, vfeat = math.prod(kdata.shape[3:]), math.prod(vdata.shape[3:])
+    xk, xv = _layer_rows(k, kfeat), _layer_rows(v, vfeat)
+    table_row = table_row.to(torch.int32).contiguous()
+    args = [xk.data_ptr(), xv.data_ptr(), CB._DTYPE_CODE[k.dtype],
+            xk.stride(0), xv.stride(0), xk.stride(1), xv.stride(1), s,
+            layers, kdata.data_ptr(), vdata.data_ptr(), code,
+            kdata.stride(0), vdata.stride(0), kscale.data_ptr(),
+            vscale.data_ptr(), kscale.stride(0), slot, table_row.data_ptr(),
+            table_row.shape[0], n.data_ptr(), kfeat, vfeat, page_size,
+            kdata.shape[1] - 1, bits]
+    return args, [xk, xv, table_row, n]
+
+
 def prefill_paged_cuda(kdata: torch.Tensor, vdata: torch.Tensor,
                        kscale: torch.Tensor, vscale: torch.Tensor,
                        k: torch.Tensor, v: torch.Tensor,
@@ -153,25 +185,15 @@ def prefill_paged_cuda(kdata: torch.Tensor, vdata: torch.Tensor,
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``p2_prefill_paged`` once for K and V of every layer; raises
     on anything the kernel does not take."""
-    code = _check(kdata, vdata, kscale, vscale, k, v, table_row, slot,
-                  page_size, bits)
     dev = kdata.device
-    n = _length(length, dev)
     if any(t.device != dev for t in (vdata, kscale, vscale, k, v, table_row)) \
             or not kdata.is_cuda:
         raise ValueError(f"{NAME}: every tensor on one CUDA device")
-    layers, s = k.shape[:2]
-    feat = math.prod(kdata.shape[3:])
-    xk, xv = _layer_rows(k, feat), _layer_rows(v, feat)
-    table_row = table_row.to(torch.int32).contiguous()
+    args, keep = c_args(kdata, vdata, kscale, vscale, k, v, table_row, slot,
+                        length, page_size=page_size, bits=bits)
     lib = _lib()
     B.check(lib, lib.p2_prefill_paged(
-        xk.data_ptr(), xv.data_ptr(), CB._DTYPE_CODE[k.dtype], xk.stride(0),
-        xv.stride(0), xk.stride(1), xv.stride(1), s, layers,
-        kdata.data_ptr(), vdata.data_ptr(), code, kdata.stride(0),
-        kscale.data_ptr(), vscale.data_ptr(), kscale.stride(0), slot,
-        table_row.data_ptr(), table_row.shape[0], n.data_ptr(), feat,
-        page_size, kdata.shape[1] - 1, bits,
-        torch.cuda.current_stream(dev).cuda_stream), NAME)
+        *args, torch.cuda.current_stream(dev).cuda_stream), NAME)
+    del keep
     B.note_launch(NAME)
     return kdata, vdata

@@ -11,11 +11,13 @@ gather and a scalar- or row-scale decode kernel over the copy.
   to on the card.
 
 Layouts: pages ``(P + 1, page_size, *feat)`` codes (int8, int16, int32 or
-f32), row P the trash page; scales ``(B,)`` f32 ``scale_log2``; table
-``(B, pages_per_slot)``. Returns the ``(B, pages_per_slot * page_size,
-*feat)`` views of K and V in ``dtype`` (f32, bf16 or f16), every position
-written, masked or not. A page number outside ``[0, P]`` reads the trash
-page (the reference's gather clamps a too-large one there too).
+f32), row P the trash page, the two pools' ``*feat`` their own (MLA's
+``c_kv`` and ``k_rope`` differ; one launch all the same); scales ``(B,)``
+f32 ``scale_log2``; table ``(B, pages_per_slot)``. Returns the ``(B,
+pages_per_slot * page_size, *feat)`` views of K and V, each at its own
+``*feat``, in ``dtype`` (f32, bf16 or f16), every position written, masked
+or not. A page number outside ``[0, P]`` reads the trash page (the
+reference's gather clamps a too-large one there too).
 """
 from __future__ import annotations
 
@@ -34,13 +36,13 @@ SOURCE = "kv_read"
 def _check(kdata, vdata, kscale, vscale, table, dtype) -> int:
     """Raise on what the read does not take; the kernel's code for the
     pools' storage."""
-    if kdata.shape != vdata.shape or kdata.dtype != vdata.dtype \
-            or kdata.dim() < 3 or not (kdata.is_contiguous()
-                                       and vdata.is_contiguous()):
+    if kdata.shape[:2] != vdata.shape[:2] or kdata.dtype != vdata.dtype \
+            or min(kdata.dim(), vdata.dim()) < 3 \
+            or not (kdata.is_contiguous() and vdata.is_contiguous()):
         raise ValueError(f"{NAME}: want two contiguous (P+1, page, *feat) "
-                         f"pools of one dtype, got {tuple(kdata.shape)} "
-                         f"{kdata.dtype} and {tuple(vdata.shape)} "
-                         f"{vdata.dtype}")
+                         f"pools of one dtype and page count, got "
+                         f"{tuple(kdata.shape)} {kdata.dtype} and "
+                         f"{tuple(vdata.shape)} {vdata.dtype}")
     code = CB._code_of(NAME, kdata)
     if dtype not in CB._DTYPE_CODE:
         raise TypeError(f"{NAME}: want values of one of "
@@ -80,15 +82,43 @@ def read_paged_torch(kdata: torch.Tensor, vdata: torch.Tensor,
     return out[0], out[1]
 
 
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# the C signature of p2_read_paged, the stream last
+ARGTYPES = (_P, _P, _I, _P, _P, _I, _P, _P, _P, _LL, _I, _I, _LL, _LL, _I, _P)
+
+
 def _lib() -> ctypes.CDLL:
     lib = B.load(SOURCE)
     if not getattr(lib, "_repro_typed", False):
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.p2_read_paged.argtypes = [p, p, i, p, p, i, p, p, p, ll, i, i,
-                                      ll, i, p]
-        lib.p2_read_paged.restype = i
+        lib.p2_read_paged.argtypes = list(ARGTYPES)
+        lib.p2_read_paged.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
+
+
+def c_args(kdata: torch.Tensor, vdata: torch.Tensor, kscale: torch.Tensor,
+           vscale: torch.Tensor, table: torch.Tensor, *,
+           dtype: torch.dtype) -> tuple[list, list]:
+    """The kernel's C arguments but the stream (pointers as ints), after
+    ``_check``, and the tensors they point into (the two outputs first),
+    which the caller keeps alive until the launch. K and V pass their own
+    page sizes in elements (one value twice for GQA)."""
+    code = _check(kdata, vdata, kscale, vscale, table, dtype)
+    dev = kdata.device
+    b, pps = table.shape
+    kscale = kscale.reshape(b).to(torch.float32).contiguous()
+    vscale = vscale.reshape(b).to(torch.float32).contiguous()
+    table = table.to(torch.int32)
+    if table.stride(1) != 1:
+        table = table.contiguous()
+    kout = torch.empty(_view_shape(kdata, table), dtype=dtype, device=dev)
+    vout = torch.empty(_view_shape(vdata, table), dtype=dtype, device=dev)
+    args = [kdata.data_ptr(), vdata.data_ptr(), code, kout.data_ptr(),
+            vout.data_ptr(), CB._DTYPE_CODE[dtype], kscale.data_ptr(),
+            vscale.data_ptr(), table.data_ptr(), table.stride(0), b, pps,
+            math.prod(kdata.shape[1:]), math.prod(vdata.shape[1:]),
+            kdata.shape[0] - 1]
+    return args, [kout, vout, kscale, vscale, table]
 
 
 def read_paged_cuda(kdata: torch.Tensor, vdata: torch.Tensor,
@@ -97,26 +127,13 @@ def read_paged_cuda(kdata: torch.Tensor, vdata: torch.Tensor,
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``p2_read_paged`` once for K and V of every slot; raises on
     anything the kernel does not take."""
-    code = _check(kdata, vdata, kscale, vscale, table, dtype)
     dev = kdata.device
     if any(t.device != dev for t in (vdata, kscale, vscale, table)) \
             or not kdata.is_cuda:
         raise ValueError(f"{NAME}: every tensor on one CUDA device")
-    b, pps = table.shape
-    kscale = kscale.reshape(b).to(torch.float32).contiguous()
-    vscale = vscale.reshape(b).to(torch.float32).contiguous()
-    table = table.to(torch.int32)
-    if table.stride(1) != 1:
-        table = table.contiguous()
-    shape = _view_shape(kdata, table)
-    kout = torch.empty(shape, dtype=dtype, device=dev)
-    vout = torch.empty(shape, dtype=dtype, device=dev)
+    args, keep = c_args(kdata, vdata, kscale, vscale, table, dtype=dtype)
     lib = _lib()
     B.check(lib, lib.p2_read_paged(
-        kdata.data_ptr(), vdata.data_ptr(), code, kout.data_ptr(),
-        vout.data_ptr(), CB._DTYPE_CODE[dtype], kscale.data_ptr(),
-        vscale.data_ptr(), table.data_ptr(), table.stride(0), b, pps,
-        math.prod(kdata.shape[1:]), kdata.shape[0] - 1,
-        torch.cuda.current_stream(dev).cuda_stream), NAME)
+        *args, torch.cuda.current_stream(dev).cuda_stream), NAME)
     B.note_launch(NAME)
-    return kout, vout
+    return keep[0], keep[1]

@@ -162,18 +162,31 @@ def make_loss_fn(lm: LMDef, plan, tcfg: TrainConfig):
     CE mean plus the rank prior scaled per token (Eq. 1); with a managed
     scale tree the forward runs the ``activation`` edges and ``obs``
     carries their statistic. ``batch``: ``{"tokens", "labels"}`` (B, S)
-    integer tensors on the params' device."""
+    integer tensors on the params' device; an audio model takes
+    ``{"frames", "labels"}`` (frames (B, S, D) in place of the token
+    embeddings), a vision model ``{"patches", "tokens", "labels"}``
+    (patches (B, P, D) before the tokens; the loss on the text positions
+    only)."""
     _no_mesh(plan)
     cfg = lm.cfg
 
     def loss_fn(params, batch, scales=None):
-        if scales is not None:
-            logits, aux, _, obs = lm_forward(params, lm, tokens=batch["tokens"],
-                                             scales=scales)
+        if cfg.frontend == "audio":
+            kwargs = {"embeds": batch["frames"]}
+        elif cfg.frontend == "vision":
+            kwargs = {"embeds": batch["patches"], "tokens": batch["tokens"]}
         else:
-            logits, aux, _ = lm_forward(params, lm, tokens=batch["tokens"])
+            kwargs = {"tokens": batch["tokens"]}
+        if scales is not None:
+            logits, aux, _, obs = lm_forward(params, lm, scales=scales,
+                                             **kwargs)
+        else:
+            logits, aux, _ = lm_forward(params, lm, **kwargs)
             obs = {}
         labels = batch["labels"]
+        if cfg.frontend == "vision":
+            # the loss on the text positions only (the last len(labels))
+            logits = logits[:, -labels.shape[1]:]
         ce = _ce_loss(logits, labels)
         loss = ce + cfg.moe.router_aux_coef * aux
         prior = torch.zeros((), dtype=torch.float32, device=ce.device)
@@ -318,7 +331,8 @@ def launches_per_step(lm: LMDef, tcfg: TrainConfig,
       recomputes the layer, the transposed dx chain, and one PE3.
     - ``p2_fake_quant``: per TT site and layer one group launch of its
       cores per forward (two with remat); with the ``activation`` site,
-      the embedding's edge forward and backward and each layer's edge
+      the embedding's edge forward and backward (forward only under the
+      audio frontend: its frames need no gradient) and each layer's edge
       forward, its recompute and its backward; the grad edge, one group
       launch per dtype of the floating gradients and ``FQ_CAP`` of them.
     - ``bw_dec`` / ``bw_enc`` (int8 moments): m and v of every Adam leaf in
@@ -347,7 +361,8 @@ def launches_per_step(lm: LMDef, tcfg: TrainConfig,
     floats = [(p, leaf.dtype) for p, leaf in flatten_with_path(params)
               if leaf.is_floating_point()]
     if cfg.quant.policy().enable:
-        out["p2_fake_quant"] += 2 + layers * (fwd + 1)
+        first = 1 if cfg.frontend == "audio" else 2
+        out["p2_fake_quant"] += first + layers * (fwd + 1)
         for dt in {dt for _, dt in floats}:
             n = sum(1 for _, d in floats if d == dt)
             out["p2_fake_quant"] += len(G.chunks(n, G.FQ_CAP))

@@ -63,14 +63,27 @@ def get_model_cfg(name: str, reduced: bool) -> tuple[ModelConfig, str]:
 
 def make_batch_fn(cfg: ModelConfig, batch: int, seq: int, seed: int):
     """``fn(step) -> {"tokens", "labels"}`` numpy batches of ``lm_batch``
-    (one host: shard 0 of 1). Frontend configs are a later slice."""
-    if cfg.frontend != "none":
-        raise NotImplementedError("frontends are a later slice (ROADMAP "
-                                  "queue 1: models/frontend.py)")
-
+    (one host: shard 0 of 1), the reference's arrays exactly. An audio
+    config takes ``{"frames", "labels"}``: frames of (B, seq, d_model)
+    standard normals from ``default_rng(step)``, labels mod the vocabulary;
+    a vision config ``{"patches", "tokens", "labels"}`` with ``max(4, seq
+    // 4)`` patches drawn alike."""
     def fn(step: int) -> dict:
-        return lm_batch(step, batch=batch, seq=seq, vocab=cfg.vocab_size,
-                        shard=0, num_shards=1, seed=seed)
+        b = lm_batch(step, batch=batch, seq=seq, vocab=cfg.vocab_size,
+                     shard=0, num_shards=1, seed=seed)
+        if cfg.frontend == "audio":
+            rng = np.random.default_rng(step)
+            frames = rng.normal(size=(b["tokens"].shape[0], seq,
+                                      cfg.d_model)).astype(np.float32)
+            return {"frames": frames, "labels": b["labels"] % cfg.vocab_size}
+        if cfg.frontend == "vision":
+            npatch = max(4, seq // 4)
+            rng = np.random.default_rng(step)
+            patches = rng.normal(size=(b["tokens"].shape[0], npatch,
+                                       cfg.d_model)).astype(np.float32)
+            return {"patches": patches, "tokens": b["tokens"],
+                    "labels": b["labels"]}
+        return b
     return fn
 
 

@@ -1,6 +1,7 @@
 """Unified LM — the port of ``repro/models/lm.py``: the dense GQA family,
-MoE stacks, pure-SSM RWKV6 and the Jamba hybrid (Mamba + attention, dense
-or MoE FFNs).
+MoE stacks, DeepSeek-V2's MLA attention, pure-SSM RWKV6, the Jamba hybrid
+(Mamba + attention, dense or MoE FFNs) and the audio and vision frontends
+(precomputed frame or patch embeddings, ``models/frontend.py``).
 
 Structure: embed -> periods of sublayers -> final norm -> head. A period
 is a fixed pattern of sublayers (one for homogeneous stacks; Jamba's
@@ -11,13 +12,15 @@ per-period dicts (``params["layers"][l]``) and loops;
 
 Parameters are plain nested dicts of tensors with the reference's names,
 so the two packages' trees correspond key for key; an MoE sublayer's
-expert stacks keep their ``(E, in, out)`` leaves (``models/moe.py``). MLA
-and the frontends are later slices and raise at ``build_lm``.
+expert stacks keep their ``(E, in, out)`` leaves (``models/moe.py``). An
+audio model has no embedding site (``LMDef.embed`` is None): its frames
+replace the token embeddings; a vision model's patches are prepended to
+them (``lm_forward(embeds=...)``).
 
 Static decode (``lm_init_cache``, ``lm_decode_step``) is the reference's:
 one token a step against a cache of per-token K/V for attention
-sublayers and the recurrent state for the others; the serving engine's
-token identity is held against it.
+sublayers (MLA's latent ``c_kv`` and ``k_rope``) and the recurrent state
+for the others; the serving engine's token identity is held against it.
 
 Every weight site may be TT-factorized (``with_tt``): TT sites add the
 rank-shrinkage prior (``lm_prior_loss``) and take the closed-form λ update
@@ -48,7 +51,7 @@ from .common import (SiteDef, apply_site, init_site, make_site, rms_norm,
 
 @dataclass(frozen=True)
 class SubDef:
-    mixer_kind: str          # "attn_gqa" | "mamba" | "rwkv6"
+    mixer_kind: str          # "attn_gqa" | "attn_mla" | "mamba" | "rwkv6"
     mixer: Any
     ffn_kind: str | None     # "ffn" | "moe" | None (rwkv6 has its own)
     ffn: Any
@@ -57,7 +60,7 @@ class SubDef:
 @dataclass(frozen=True)
 class LMDef:
     cfg: ModelConfig
-    embed: SiteDef
+    embed: SiteDef | None    # None when the audio frontend replaces it
     head: SiteDef
     period: tuple[SubDef, ...]
     n_periods: int
@@ -67,14 +70,13 @@ STATE_MIXERS = ("mamba", "rwkv6")
 
 
 def build_lm(cfg: ModelConfig) -> LMDef:
-    """Dense and MoE GQA stacks, RWKV6 and the Jamba hybrid; other families
-    name the slice they wait for."""
-    if cfg.attn_kind == "mla":
-        raise NotImplementedError("MLA attention is a later slice (ROADMAP "
-                                  "queue 1, item 5: attention.py MLA)")
-    if cfg.frontend != "none":
-        raise NotImplementedError("frontends are a later slice (ROADMAP "
-                                  "queue 1, item 5: models/frontend.py)")
+    """Every zoo family: dense and MoE stacks with GQA or MLA attention,
+    RWKV6, the Jamba hybrid; no embedding site under the audio
+    frontend."""
+    def attn() -> tuple[str, Any]:
+        if cfg.attn_kind == "mla":
+            return "attn_mla", A.make_mla(cfg)
+        return "attn_gqa", A.make_gqa(cfg)
 
     def ffn_for(use_moe: bool) -> tuple[str, Any]:
         if use_moe and cfg.moe.num_experts > 0:
@@ -87,8 +89,7 @@ def build_lm(cfg: ModelConfig) -> LMDef:
     elif cfg.family == "hybrid_jamba":
         subs = []
         for pos in range(cfg.period):
-            mixer = (("attn_gqa", A.make_gqa(cfg))
-                     if pos in cfg.attn_positions
+            mixer = (attn() if pos in cfg.attn_positions
                      else ("mamba", S.make_mamba(cfg)))
             subs.append(SubDef(*mixer, *ffn_for(pos in cfg.moe_positions)))
         if cfg.num_layers % cfg.period:
@@ -96,9 +97,10 @@ def build_lm(cfg: ModelConfig) -> LMDef:
                              f"periods of {cfg.period}")
         n_periods = cfg.num_layers // cfg.period
     else:
-        subs = [SubDef("attn_gqa", A.make_gqa(cfg), *ffn_for(True))]
+        subs = [SubDef(*attn(), *ffn_for(True))]
         n_periods = cfg.num_layers
-    embed = make_site(cfg, "embed", cfg.vocab_size, cfg.d_model)
+    embed = (None if cfg.frontend == "audio"
+             else make_site(cfg, "embed", cfg.vocab_size, cfg.d_model))
     head = make_site(cfg, "head", cfg.vocab_size, cfg.d_model)
     return LMDef(cfg, embed, head, tuple(subs), n_periods)
 
@@ -109,6 +111,8 @@ def _init_sub(gen: torch.Generator, sub: SubDef, cfg: ModelConfig,
     p = {"norm1": {"scale": ones.clone()}}
     if sub.mixer_kind == "attn_gqa":
         p["mixer"] = A.init_gqa(gen, sub.mixer, cfg, device)
+    elif sub.mixer_kind == "attn_mla":
+        p["mixer"] = A.init_mla(gen, sub.mixer, cfg, device)
     elif sub.mixer_kind == "mamba":
         p["mixer"] = S.init_mamba(gen, sub.mixer, cfg, device)
     else:
@@ -127,30 +131,31 @@ def _init_sub(gen: torch.Generator, sub: SubDef, cfg: ModelConfig,
 def init_lm(gen: torch.Generator, lm: LMDef, device=None) -> dict:
     """Random weights with the reference's distributions (``lm.py:119``):
     embedding ``N(0, 1/d_model)``, dense sites ``N(0, 2/(in+out))``, norm
-    scales 1. ``gen`` must live on ``device`` (default ``"cuda"``; raises
-    without a card unless ``device="cpu"``). The numbers differ from a JAX
-    init of the same seed — parity tests transfer weights instead."""
+    scales 1; no ``embed`` without an embedding site. ``gen`` must live on
+    ``device`` (default ``"cuda"``; raises without a card unless
+    ``device="cpu"``). The numbers differ from a JAX init of the same seed —
+    parity tests transfer weights instead."""
     device = resolve_device(device)
     cfg = lm.cfg
-    if lm.embed.use_tt:
-        embed = init_site(gen, lm.embed, cfg, device)
-    else:
+    params = {}
+    if lm.embed is not None and lm.embed.use_tt:
+        params["embed"] = init_site(gen, lm.embed, cfg, device)
+    elif lm.embed is not None:
         sigma = 1.0 / math.sqrt(cfg.d_model)
         w = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                         device=device, dtype=torch.float32) * sigma
-        embed = {"w": w.to(torch_dtype(cfg.dtype))}
-    return {
-        "embed": embed,
-        "layers": [{f"sub_{i}": _init_sub(gen, sub, cfg, device)
-                    for i, sub in enumerate(lm.period)}
-                   for _ in range(lm.n_periods)],
-        "final_norm": {"scale": torch.ones((cfg.d_model,), device=device)},
-        "head": init_site(gen, lm.head, cfg, device),
-    }
+        params["embed"] = {"w": w.to(torch_dtype(cfg.dtype))}
+    params["layers"] = [{f"sub_{i}": _init_sub(gen, sub, cfg, device)
+                         for i, sub in enumerate(lm.period)}
+                        for _ in range(lm.n_periods)]
+    params["final_norm"] = {"scale": torch.ones((cfg.d_model,),
+                                                device=device)}
+    params["head"] = init_site(gen, lm.head, cfg, device)
+    return params
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor, lm: LMDef) -> torch.Tensor:
-    if lm.embed.use_tt:
+    if lm.embed is not None and lm.embed.use_tt:
         return tt_embed_lookup(params["embed"], tokens, lm.embed, lm.cfg)
     return params["embed"]["w"][tokens.long()].to(torch_dtype(lm.cfg.dtype))
 
@@ -198,6 +203,14 @@ def _sub_forward(pp: dict, x: torch.Tensor, sub: SubDef, cfg: ModelConfig,
         out = apply_site(pp["mixer"]["o"], out.reshape(b, s, -1),
                          sub.mixer.o, cfg)
         cache = {"k": k, "v": v}
+    elif sub.mixer_kind == "attn_mla":
+        out = A.mla_forward(pp["mixer"], h, sub.mixer, cfg,
+                            causal=not cfg.is_encoder, positions=positions)
+        cache = {}
+        if return_cache:
+            c_kv, k_rope = A._mla_kv_latent(pp["mixer"], h, sub.mixer, cfg,
+                                            positions)
+            cache = {"c_kv": c_kv, "k_rope": k_rope}
     elif sub.mixer_kind == "mamba":
         out, cache = S.mamba_forward(pp["mixer"], h, sub.mixer, cfg, None)
     else:
@@ -244,17 +257,21 @@ def _remat_wrap(fn, cfg: ModelConfig):
     return wrapped
 
 
-def lm_forward(params: dict, lm: LMDef, *, tokens: torch.Tensor,
+def lm_forward(params: dict, lm: LMDef, *,
+               tokens: torch.Tensor | None = None,
+               embeds: torch.Tensor | None = None,
                return_cache: bool = False, scales: dict | None = None,
                token_mask: torch.Tensor | None = None,
                capacity_tokens: int | None = None):
-    """Train/prefill forward. tokens: (B, S) int. Returns (logits, aux,
-    cache): aux is the sum of the MoE layers' load-balance losses (0
-    without MoE); ``token_mask`` (B, S) bool of real tokens keeps padding
+    """Train/prefill forward. tokens: (B, S) int and/or embeds: (B, P, D)
+    frontend outputs (vision: prepended to the token embeddings; audio:
+    in their place). Returns (logits, aux, cache): aux is the sum of the
+    MoE layers' load-balance losses (0 without MoE); ``token_mask`` (B, S) bool of real tokens keeps padding
     out of the MoE routers' capacity, ``capacity_tokens`` replaces their
     capacity's token basis (``moe._capacity``). cache (when asked) holds each
     sublayer's entry with leaves stacked over periods, the reference's
-    layout: ``{"k", "v"}`` (L, B, S, Hkv, Dh) for attention, the state
+    layout: ``{"k", "v"}`` (L, B, S, Hkv, Dh) for GQA, ``{"c_kv",
+    "k_rope"}`` (L, B, S, kv_lora / rope) for MLA, the state
     after the last token for mamba (``conv``, ``h``) and rwkv6
     (``shift``, ``wkv``, ``shift_ffn``).
 
@@ -269,7 +286,13 @@ def lm_forward(params: dict, lm: LMDef, *, tokens: torch.Tensor,
     # the edge quantizes forward AND backward: both managed sites needed
     quant_acts = (scales is not None and cfg.quant.enable
                   and "activation" in scales and "grad_edge" in scales)
-    x = embed_tokens(params, tokens, lm)
+    if embeds is not None and tokens is not None:
+        xt = embed_tokens(params, tokens, lm)
+        x = torch.cat([embeds.to(xt.dtype), xt], dim=1)
+    elif embeds is not None:
+        x = embeds.to(torch_dtype(cfg.dtype))
+    else:
+        x = embed_tokens(params, tokens, lm)
     b, s, _ = x.shape
     if quant_acts:
         x = _act_quant_edge(x, scales, cfg)
@@ -348,6 +371,8 @@ def _sub_decode(pp: dict, x: torch.Tensor, cc: dict, sub: SubDef,
     h = rms_norm(x, pp["norm1"]["scale"], cfg.norm_eps)
     if sub.mixer_kind == "attn_gqa":
         out, cnew = A.gqa_decode(pp["mixer"], h, cc, sub.mixer, cfg, cur_len)
+    elif sub.mixer_kind == "attn_mla":
+        out, cnew = A.mla_decode(pp["mixer"], h, cc, sub.mixer, cfg, cur_len)
     elif sub.mixer_kind == "mamba":
         out, cnew = S.mamba_forward(pp["mixer"], h, sub.mixer, cfg, cc)
     else:
@@ -394,6 +419,8 @@ def lm_init_cache(lm: LMDef, batch: int, max_len: int, device=None) -> dict:
     def one_sub(sub: SubDef) -> dict:
         if sub.mixer_kind == "attn_gqa":
             return A.gqa_init_cache(sub.mixer, batch, max_len, dtype, device)
+        if sub.mixer_kind == "attn_mla":
+            return A.mla_init_cache(sub.mixer, batch, max_len, dtype, device)
         if sub.mixer_kind == "mamba":
             return S.mamba_init_state(sub.mixer, batch, dtype, device)
         return S.rwkv6_init_state(sub.mixer, batch, cfg.d_model, dtype,
@@ -410,6 +437,7 @@ def lm_init_cache(lm: LMDef, batch: int, max_len: int, device=None) -> dict:
 
 _MIXER_SITES = {
     "attn_gqa": ("q", "kv", "o"),
+    "attn_mla": ("q_down", "q_up", "kv_down", "k_up", "v_up", "o"),
     "mamba": ("in_proj", "x_proj", "dt_proj", "out_proj"),
     "rwkv6": ("r", "k", "v", "g", "o", "w_lora_a", "w_lora_b", "ffn_k",
               "ffn_v", "ffn_r"),
@@ -419,7 +447,8 @@ _MIXER_SITES = {
 def _walk_sites(lm: LMDef):
     """Yield (path in the reference's stacked tree, SiteDef) for every
     weight site; a ``layers`` path names the site in every layer."""
-    yield ("embed",), lm.embed
+    if lm.embed is not None:
+        yield ("embed",), lm.embed
     for i, sub in enumerate(lm.period):
         base = ("layers", f"sub_{i}")
         for n in _MIXER_SITES[sub.mixer_kind]:

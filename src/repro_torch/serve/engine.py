@@ -1,6 +1,7 @@
 """Continuous-batching inference engine — the port of
-``repro/serve/engine.py`` for dense and MoE GQA models, pure-SSM RWKV6 and
-the Jamba hybrid (Mamba and attention, dense or MoE FFNs).
+``repro/serve/engine.py`` for dense and MoE models with GQA or MLA
+attention, pure-SSM RWKV6 and the Jamba hybrid (Mamba and attention, dense
+or MoE FFNs).
 
 Requests occupy *slots* of a ``num_slots``-lane decode batch, each at its
 own length; a retired slot (max-new-tokens or EOS) frees its pages and is
@@ -34,7 +35,13 @@ copies a partly matched page (COW) and computes only the suffix through
 the chunk step — exactly what a cache-off engine with a chunk boundary at
 the resume position computes.
 
-Sublayer routing: attention sublayers read and write the paged KV pool;
+Sublayer routing: attention sublayers read and write the paged KV pool
+through the reference's ``_project`` / ``_attend`` pair: a GQA sublayer
+caches K and V, an MLA sublayer its latent ``c_kv`` and rope key
+``k_rope`` (two widths; the paged kernels take them in one launch a layer
+all the same) and attends in the latent space (``mla_attend``) over the
+views read off the pages, even with ``fused_attention=True``, as the
+reference's ``_fused_for`` rules (the paged-attention kernel is GQA's);
 mamba and rwkv6 sublayers the slot-indexed recurrent-state pool
 (``serve/state_cache.py``), through the forwards of ``models/ssm.py``
 that static decode runs (at S = 1 for the decode step). A decode
@@ -72,9 +79,10 @@ there is no compiled-step cache.
 
 Not carried over: the reference's ``CompileCache`` / ``max_prefill_shapes``
 (they bound live jitted prefill shapes; eager PyTorch compiles none).
-Still to port (they raise ``NotImplementedError`` naming what they wait
-for): MLA sublayers (at ``build_lm``), a mesh, quant-health policies and
-trace recorders.
+Refused as the reference refuses them: encoder-only archs and the
+frontend (audio, vision) configs. Still to port (they raise
+``NotImplementedError`` naming what they wait for): a mesh, quant-health
+policies and trace recorders.
 """
 from __future__ import annotations
 
@@ -133,6 +141,31 @@ class EngineConfig:
                                 # capacity-bound loads
 
 
+def _project(pm: dict, h: torch.Tensor, sub, cfg, positions: torch.Tensor):
+    """Queries and the new cache entries of one attention sublayer over
+    (B, S) rows at ``positions``: GQA's q and K/V, or MLA's absorbed
+    queries and latent pair."""
+    if sub.mixer_kind == "attn_gqa":
+        q, k_new, v_new = A.gqa_decode_qkv(pm, h, sub.mixer, cfg, positions)
+        return {"q": q}, {"k": k_new, "v": v_new}
+    q_abs, q_rope = A.mla_decode_q(pm, h, sub.mixer, cfg, positions)
+    c_new, kr_new = A._mla_kv_latent(pm, h, sub.mixer, cfg, positions)
+    return ({"q_abs": q_abs, "q_rope": q_rope},
+            {"c_kv": c_new, "k_rope": kr_new})
+
+
+def _attend(pm: dict, qd: dict, kv: dict, sub, cfg,
+            positions: torch.Tensor) -> torch.Tensor:
+    """Attention over the views read off the pages, then the output
+    projection."""
+    if sub.mixer_kind == "attn_gqa":
+        out = A.gqa_attend(qd["q"], kv["k"], kv["v"], sub.mixer, positions)
+    else:
+        out = A.mla_attend(pm, qd["q_abs"], qd["q_rope"], kv["c_kv"],
+                           kv["k_rope"], sub.mixer, cfg, positions)
+    return apply_site(pm["o"], out, sub.mixer.o, cfg)
+
+
 def _check_draft(lm: LMDef, draft) -> None:
     """What speculative decoding needs (the reference's checks): a draft
     given, an attention-only target and draft (a recurrent state advanced
@@ -147,10 +180,10 @@ def _check_draft(lm: LMDef, draft) -> None:
             "rolled back")
     dlm = draft[0]
     for sub in dlm.period:
-        if sub.mixer_kind != "attn_gqa":
+        if sub.mixer_kind not in ("attn_gqa", "attn_mla"):
             raise NotImplementedError(
                 "speculative decoding needs an attention-only DRAFT (got "
-                f"mixer {sub.mixer_kind!r}; the port serves attn_gqa)")
+                f"mixer {sub.mixer_kind!r})")
     if dlm.cfg.vocab_size != lm.cfg.vocab_size:
         raise ValueError(f"draft vocab {dlm.cfg.vocab_size} != target vocab "
                          f"{lm.cfg.vocab_size}")
@@ -183,6 +216,9 @@ class Engine:
         cfg = lm.cfg
         if cfg.is_encoder:
             raise NotImplementedError("encoder-only archs have no decode path")
+        if cfg.frontend != "none":
+            raise NotImplementedError(
+                "frontend (vision/audio) serving is an open roadmap item")
         if ecfg.spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {ecfg.spec_k}")
         self._spec = ecfg.spec_k > 0
@@ -280,30 +316,33 @@ class Engine:
                    key: str, sub, table, lens, active,
                    positions) -> torch.Tensor:
         """One sublayer over (B, S) new tokens at ``positions`` = lens ..
-        lens+S-1: write their K/V (one ``append_kv``), then attend each
-        row causally through itself, off the pages (fused) or over every
-        slot's view read off them (``read_kv`` + ``gqa_attend``). Inactive
-        slots' rows are masked out of an MoE router."""
+        lens+S-1: write their cache entries (one ``append_kv``), then attend
+        each row causally through itself, off the pages (fused, GQA only)
+        or over every slot's views read off them (``read_kv`` +
+        ``_attend``). Inactive slots' rows are masked out of an MoE
+        router."""
         cfg = lm.cfg
-        d = sub.mixer
         b, s = x.shape[:2]
         h = rms_norm(x, pp["norm1"]["scale"], cfg.norm_eps)
-        q, k_new, v_new = A.gqa_decode_qkv(pp["mixer"], h, d, cfg, positions)
+        qd, new = _project(pp["mixer"], h, sub, cfg, positions)
         data = {n: t[layer] for n, t in pool["data"][key].items()}
         scale = {n: t[layer] for n, t in pool["scale_log2"][key].items()}
-        KC.append_kv(data["k"], data["v"], scale["k"], scale["v"], k_new,
-                     v_new, table, lens, active, pcfg)
-        if fused:
+        kn, vn = new                # "k", "v" or "c_kv", "k_rope"
+        KC.append_kv(data[kn], data[vn], scale[kn], scale[vn], new[kn],
+                     new[vn], table, lens, active, pcfg)
+        if fused and sub.mixer_kind == "attn_gqa":
+            d = sub.mixer
             attn = KC.fused_attend(data["k"], data["v"], scale["k"],
-                                   scale["v"], q[:, 0] if s == 1 else q,
+                                   scale["v"],
+                                   qd["q"][:, 0] if s == 1 else qd["q"],
                                    table, lens, pcfg)
             attn = attn[..., :d.real_heads, :].reshape(
                 b, s, d.real_heads * d.head_dim)
+            x = x + apply_site(pp["mixer"]["o"], attn, d.o, cfg)
         else:
-            k, v = KC.read_kv(data["k"], data["v"], scale["k"], scale["v"],
-                              table, pcfg, h.dtype)
-            attn = A.gqa_attend(q, k, v, d, positions)
-        x = x + apply_site(pp["mixer"]["o"], attn, d.o, cfg)
+            kv = dict(zip(new, KC.read_kv(data[kn], data[vn], scale[kn],
+                                          scale[vn], table, pcfg, h.dtype)))
+            x = x + _attend(pp["mixer"], qd, kv, sub, cfg, positions)
         return sub_ffn_decode(pp, x, sub, cfg,
                               token_mask=active[:, None].expand(b, s))
 
@@ -479,18 +518,17 @@ class Engine:
                    sub, table, slot: int, start, n_valid, positions,
                    token_mask, capacity_tokens) -> torch.Tensor:
         cfg = self.lm.cfg
-        d = sub.mixer
         h = rms_norm(x, pp["norm1"]["scale"], cfg.norm_eps)
-        q, k_new, v_new = A.gqa_decode_qkv(pp["mixer"], h, d, cfg, positions)
+        qd, new = _project(pp["mixer"], h, sub, cfg, positions)
         data = {n: t[layer] for n, t in self.pool["data"][key].items()}
         scale = {n: t[layer, slot:slot + 1]
                  for n, t in self.pool["scale_log2"][key].items()}
-        KC.write_chunk_kv(data["k"], data["v"], scale["k"], scale["v"], k_new,
-                          v_new, table, start, n_valid, self.pcfg)
-        k, v = KC.read_kv(data["k"], data["v"], scale["k"], scale["v"], table,
-                          self.pcfg, h.dtype)
-        attn = A.gqa_attend(q, k, v, d, positions)
-        x = x + apply_site(pp["mixer"]["o"], attn, d.o, cfg)
+        kn, vn = new
+        KC.write_chunk_kv(data[kn], data[vn], scale[kn], scale[vn], new[kn],
+                          new[vn], table, start, n_valid, self.pcfg)
+        kv = dict(zip(new, KC.read_kv(data[kn], data[vn], scale[kn],
+                                      scale[vn], table, self.pcfg, h.dtype)))
+        x = x + _attend(pp["mixer"], qd, kv, sub, cfg, positions)
         return sub_ffn_decode(pp, x, sub, cfg, token_mask, capacity_tokens)
 
     @torch.no_grad()

@@ -4,7 +4,11 @@
 The pool is a set of fixed-size *pages* shared by all request slots; token
 position ``t`` of a slot lives at ``(page_table[slot, t // page_size],
 t % page_size)``. Inactive slots and padding write to a reserved *trash
-page* (row ``total_pages``). With ``quantized=True`` K/V are int8 codes on
+page* (row ``total_pages``). An attention sublayer caches two tensors a
+token: GQA's K and V, or MLA's latent ``c_kv`` and rope key ``k_rope``,
+of different widths (``kv_feature_shapes``); the paged kernels take the
+pair in one launch either way, each at its own width. With
+``quantized=True`` the tensors are int8 codes on
 a power-of-2 grid, ``x ≈ q * 2^scale_log2``, one ``scale_log2`` per
 (layer, slot, tensor) chosen from the prompt's range at prefill and reused
 by decode appends (the paper's §3.2 numerics applied to serving).
@@ -85,17 +89,19 @@ class PoolConfig:
 
 def kv_feature_shapes(sub) -> dict[str, tuple[int, ...]]:
     """Per-token trailing feature shape of each cached tensor of a
-    sublayer. Recurrent mixers (mamba, rwkv6) cache no per-token tensors
-    (their O(1) state lives in ``state_cache``'s pool), so they map to {};
-    MLA is a later slice."""
+    sublayer (the layouts ``models/attention.py`` caches). Recurrent mixers
+    (mamba, rwkv6) cache no per-token tensors (their O(1) state lives in
+    ``state_cache``'s pool), so they map to {}."""
     if sub.mixer_kind == "attn_gqa":
         d = sub.mixer
         return {"k": (d.num_kv_heads, d.head_dim),
                 "v": (d.num_kv_heads, d.head_dim)}
+    if sub.mixer_kind == "attn_mla":
+        m = sub.mixer.m
+        return {"c_kv": (m.kv_lora_rank,), "k_rope": (m.qk_rope_head_dim,)}
     if sub.mixer_kind in ("mamba", "rwkv6"):
         return {}
-    raise NotImplementedError(f"{sub.mixer_kind!r} sublayers are a later "
-                              "slice of the port")
+    raise ValueError(f"unknown mixer kind {sub.mixer_kind!r}")
 
 
 def init_pool(lm, pcfg: PoolConfig, device: torch.device) -> dict:
@@ -227,8 +233,10 @@ def append_kv(kdata_l: torch.Tensor, vdata_l: torch.Tensor,
               k_new: torch.Tensor, v_new: torch.Tensor, table: torch.Tensor,
               lens: torch.Tensor, active: torch.Tensor, pcfg: PoolConfig
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K and V tokens (B, S, *feat) of one layer into its pages at
-    positions lens .. lens+S-1, in place: S = 1 is the decode step's
+    """A sublayer's two cached tensors (B, S, *feat) of one layer into its
+    pages at positions lens .. lens+S-1, in place (K and V, or MLA's
+    ``c_kv`` and ``k_rope`` at their own widths, in the ``k``/``v``
+    arguments): S = 1 is the decode step's
     append, S = k+1 the speculative verify block. A quantized pool takes
     one ``p2_append_paged`` launch (its plain twin on CPU tensors), rows
     past the slot's last page to the trash page; a model-dtype pool
@@ -251,16 +259,18 @@ def write_prefill(pool: dict, cache: dict, table_row: torch.Tensor,
     (L, 1, S, *feat)) into the pool for one slot, all layers at once, in
     place. Rows past ``length`` (an int, or a (1,) int tensor read on the
     device; bucket padding) go to the trash page. A quantized pool takes
-    one ``p2_prefill_paged`` launch for K and V of every layer, which
-    chooses the slot's per-layer scales on the device (its plain twin on
-    CPU tensors); a model-dtype pool a scatter per tensor (the reference
-    runs no kernel there either)."""
+    one ``p2_prefill_paged`` launch a sublayer for its two cached tensors
+    (K and V, or ``c_kv`` and ``k_rope``, under the cache's own names) of
+    every layer, which chooses the slot's per-layer scales on the device
+    (its plain twin on CPU tensors); a model-dtype pool a scatter per
+    tensor (the reference runs no kernel there either)."""
     if pcfg.quantized:
         from ..kernels.ops import prefill_paged
         for key, kinds in cache.items():
             data, scale = pool["data"][key], pool["scale_log2"][key]
-            prefill_paged(data["k"], data["v"], scale["k"], scale["v"],
-                          kinds["k"][:, 0], kinds["v"][:, 0], table_row, slot,
+            kn, vn = data
+            prefill_paged(data[kn], data[vn], scale[kn], scale[vn],
+                          kinds[kn][:, 0], kinds[vn][:, 0], table_row, slot,
                           length, page_size=pcfg.page_size, bits=pcfg.bits)
         return pool
     sample = next(iter(next(iter(cache.values())).values()))
@@ -311,8 +321,8 @@ def write_chunk_kv(kdata_l: torch.Tensor, vdata_l: torch.Tensor,
                    k: torch.Tensor, v: torch.Tensor, table: torch.Tensor,
                    start: torch.Tensor, n_valid: torch.Tensor,
                    pcfg: PoolConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """A chunk's K and V tokens (B, S, *feat) of one layer into its pages,
-    in place: row j of slot b at position ``start[b] + j``, the first
+    """A chunk's two cached tensors (B, S, *feat) of one layer (K and V, or
+    ``c_kv`` and ``k_rope``) into its pages, in place: row j of slot b at position ``start[b] + j``, the first
     ``n_valid[b]`` rows real, the others to the trash page, under the
     slots' scales ``kscale_l``/``vscale_l`` (B,) (the engine's chunk step
     passes its slot's as (1,) views). ``start`` and ``n_valid`` are (B,)
@@ -338,8 +348,9 @@ def read_kv(kdata_l: torch.Tensor, vdata_l: torch.Tensor,
             kscale_l: torch.Tensor, vscale_l: torch.Tensor,
             table: torch.Tensor, pcfg: PoolConfig, dtype: torch.dtype
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Every slot's (B, max_len, *feat) K and V views of one layer in
-    ``dtype``: ``gather_slots`` of each tensor. A quantized pool takes one
+    """Every slot's (B, max_len, *feat) views of one layer's two cached
+    tensors (K and V, or ``c_kv`` and ``k_rope``) in ``dtype``:
+    ``gather_slots`` of each tensor. A quantized pool takes one
     ``p2_read_paged`` launch, decoding straight off the pages; a
     model-dtype pool ``gather_slots`` per tensor."""
     if pcfg.quantized:

@@ -101,7 +101,15 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
     at ``127 * 2^k`` and their neighbours, the re-read second pass, one
     launch each way and more past the caps; the wrappers refuse what the
     kernels do not take; an int8 rwkv6 engine's decode step launches one
-    of each and no row codec kernel.
+    of each and no row codec kernel;
+(s) MLA's latent pair, two tensors of different widths in one launch:
+    the paged append (decode, verify and chunk rules), the prefill write
+    and the paged read bit for bit with their twins and over two launches
+    at ``c_kv`` 512 + ``k_rope`` 64 and at a second width that is no
+    multiple of the vector (one tensor on the element loop in the same
+    launch), bf16 and f32 tokens, one launch each; an int8 reduced
+    deepseek engine's decode step one append and one read a layer and no
+    paged-attention launch with ``fused_attention=True``.
 """
 import math
 
@@ -2133,3 +2141,130 @@ def test_engine_chunk_step_launches_the_slot_groups(cuda):
     assert dict(B.LAUNCHES) == {"st_dec_group": steps,
                                 "st_enc_group": steps,
                                 "st_dec_slot": 2, "st_enc_slot": 2 + 2}
+
+
+# ---------------------------------------------------------------------------
+# (s) MLA's latent pair: the three paged kernels at a width per tensor
+# ---------------------------------------------------------------------------
+
+LATENT_WIDTHS = [(512, 64), (512, 36), (32, 8)]
+
+
+def _latent_pool(cuda, widths, g, layers=None, slots=8, page=16, pps=4):
+    """A pool of random int8 codes for each of two widths (one leading
+    layer axis when ``layers``), its page table and per-slot scales."""
+    total = slots * pps
+    lead = () if layers is None else (layers,)
+    pools = [torch.randint(-128, 128, lead + (total + 1, page, w),
+                           generator=g, device=cuda).to(torch.int8)
+             for w in widths]
+    scales = [torch.randint(-8, 0, lead + (slots,), generator=g,
+                            device=cuda).float() for _ in widths]
+    table = torch.randperm(total, generator=g, device=cuda).reshape(
+        slots, pps).to(torch.int32)
+    return pools, scales, table
+
+
+def _latent_tokens(cuda, widths, lead, g, dtype, scale=8.0):
+    return [(torch.randn(lead + (w,), generator=g, device=cuda) * scale
+             ).to(dtype) for w in widths]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("widths", LATENT_WIDTHS)
+@pytest.mark.parametrize("rule", ["decode", "verify", "chunk"])
+def test_paged_append_latent_pair(cuda, rule, widths, dtype):
+    g = torch.Generator(device=cuda).manual_seed(sum(widths))
+    (kd, vd), (ks, vs), table = _latent_pool(cuda, widths, g)
+    slots = table.shape[0]
+    kw = dict(page_size=16, bits=8)
+    if rule == "chunk":
+        s, table, ks, vs = 128, table[2:3], ks[2:3], vs[2:3]
+        lens = torch.tensor([3], dtype=torch.int32, device=cuda)
+        active = None
+        kw.update(n_valid=torch.tensor([100], dtype=torch.int32,
+                                       device=cuda), clamp_last=True)
+    else:
+        s = 1 if rule == "decode" else 4
+        lens = torch.tensor([0, 15, 63, 5, 20, 33, 61, 7], dtype=torch.int32,
+                            device=cuda)
+        active = torch.tensor([1, 1, 1, 0, 1, 1, 1, 0], dtype=torch.bool,
+                              device=cuda)
+    k, v = _latent_tokens(cuda, widths, (table.shape[0], s), g, dtype)
+    args = (kd, vd, ks, vs, k, v, table, lens, active)
+    want = [t.clone() for t in args[:2]]
+    KA.append_paged_torch(*want, *args[2:], **kw)
+    B.reset_launches()
+    KA.append_paged_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES == {"p2_append_paged": 1}
+    assert slots == 8
+    for a, w in zip(args[:2], want):
+        assert torch.equal(a[:-1], w[:-1])
+    again = [t.clone() for t in args[:2]]
+    KA.append_paged_cuda(*again, *args[2:], **kw)
+    for a, w in zip(again, args[:2]):
+        assert torch.equal(a[:-1], w[:-1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("widths", LATENT_WIDTHS)
+@pytest.mark.parametrize("s,length", [(512, 512), (128, 100), (7, 5)])
+def test_prefill_paged_latent_pair(cuda, s, length, widths, dtype):
+    from repro_torch.kernels import kv_prefill as KP
+    g = torch.Generator(device=cuda).manual_seed(s + sum(widths))
+    pps = max(4, -(-s // 16))
+    (kd, vd), (ks, vs), table = _latent_pool(cuda, widths, g, layers=6,
+                                             pps=pps)
+    k, v = _latent_tokens(cuda, widths, (6, s), g, dtype)
+    v = v * torch.exp2(torch.arange(6, device=cuda).float())[:, None, None
+                                                             ].to(dtype)
+    got = _prefill_check(KP, [kd, vd, ks, vs, k, v, table[1], 1],
+                         dict(page_size=16, bits=8), length)
+    if length:
+        assert not torch.equal(got[0][:, :-1], kd[:, :-1])
+        assert not torch.equal(got[1][:, :-1], vd[:, :-1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("widths", LATENT_WIDTHS)
+@pytest.mark.parametrize("slots", [1, 8])
+def test_paged_read_latent_pair(cuda, slots, widths, dtype):
+    g = torch.Generator(device=cuda).manual_seed(slots + sum(widths))
+    (kd, vd), (ks, vs), table = _latent_pool(cuda, widths, g, slots=slots,
+                                             pps=64)
+    B.reset_launches()
+    got = KR.read_paged_cuda(kd, vd, ks, vs, table, dtype=dtype)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES == {"p2_read_paged": 1}
+    want = KR.read_paged_torch(kd, vd, ks, vs, table, dtype=dtype)
+    again = KR.read_paged_cuda(kd, vd, ks, vs, table, dtype=dtype)
+    for a, w, r, wd in zip(got, want, again, widths):
+        assert a.shape == (slots, 64 * 16, wd) and a.dtype == dtype
+        assert _bits_eq(a, w) and _bits_eq(a, r)
+
+
+def test_mla_engine_decode_step_launches(cuda):
+    """An int8 reduced deepseek engine (f32) on the card with
+    ``fused_attention=True``: a decode step one ``p2_append_paged`` and
+    one ``p2_read_paged`` a layer, a whole-prompt prefill one
+    ``p2_prefill_paged``, no paged-attention launch; fp32 gather ≡ the
+    fused request (both gather for MLA)."""
+    lm = build_lm(C.get_reduced("deepseek-v2-236b").replace(dtype="float32"))
+    params = init_lm(torch.Generator(device=cuda).manual_seed(0), lm,
+                     device=cuda)
+    toks = {}
+    for fused in (True, False):
+        eng = Engine(lm, params, EngineConfig(pool=PoolConfig(
+            num_slots=2, quantized=True), fused_attention=fused),
+            device=cuda)
+        eng.submit([5, 3, 9, 1, 4, 4, 8, 2, 6, 1], max_new_tokens=4)
+        eng.submit([2, 7, 1], max_new_tokens=4)
+        B.reset_launches()
+        res = eng.run()
+        steps = eng.summary()["decode_steps"]
+        assert dict(B.LAUNCHES) == {"p2_prefill_paged": 2,
+                                    "p2_append_paged": steps * 2,
+                                    "p2_read_paged": steps * 2}
+        toks[fused] = [res[r].tokens for r in sorted(res)]
+    assert toks[True] == toks[False]

@@ -149,9 +149,14 @@ def test_gqa_attend_matches_jax():
 
 
 def test_out_of_slice_families_raise():
-    # MLA waits for its slice (deepseek-v2-236b is MLA and MoE)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t_build(TC.get_reduced("deepseek-v2-236b"))
+    # MLA builds (deepseek-v2-236b is MLA and MoE, with shared experts;
+    # tests/test_torch_mla.py holds it to the reference); its TT "expert"
+    # sites wait for MoE training
+    lm = t_build(TC.get_reduced("deepseek-v2-236b"))
+    assert [s.mixer_kind for s in lm.period] == ["attn_mla"]
+    assert lm.period[0].ffn.shared is not None
+    with pytest.raises(NotImplementedError, match="item 10"):
+        t_build(TC.with_tt(TC.get_config("deepseek-v2-236b")))
     # the MoE families build, experts and all (tests/test_torch_moe.py
     # holds them to the reference); TT "expert" sites wait for MoE training
     from repro_torch.configs.base import MoEConfig

@@ -271,10 +271,12 @@ def test_spec_validation_errors(models):
                                vocab=jlm.cfg.vocab_size + 1)
     with pytest.raises(ValueError, match="vocab"):
         build(spec_k=2, draft=(wide, wide_p))
-    mla = dataclasses.replace(tdlm, period=tuple(
-        dataclasses.replace(s, mixer_kind="attn_mla") for s in tdlm.period))
+    # a recurrent draft is refused (an MLA draft is served:
+    # tests/test_torch_serve_mla.py)
+    mamba = dataclasses.replace(tdlm, period=tuple(
+        dataclasses.replace(s, mixer_kind="mamba") for s in tdlm.period))
     with pytest.raises(NotImplementedError, match="DRAFT"):
-        build(spec_k=2, draft=(mla, tdp))
+        build(spec_k=2, draft=(mamba, tdp))
     # draft params on another device than the engine: refused, not copied
     meta = {"embed": {"w": torch.empty((1,), device="meta")}}
     with pytest.raises(ValueError, match="draft params live on meta"):
