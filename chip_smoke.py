@@ -81,6 +81,17 @@ Phases (any failure raises and the script exits non-zero):
              twin and its byte bound, the encode also re-reading its
              values and with a CTA a row, the prefill beside its previous
              route.
+   health kernels — the three quant-health counters inside the encoding
+             kernels at their paths' shapes: p2_append_paged (the decode
+             step's append at 8 slots x 8 x 128 bf16, inactive slots, one
+             past its pages, one clipping; and MLA's latent pair 512 +
+             64), st_enc_group (rwkv6-1.6b's 24-layer pool, an inactive
+             slot, scale edges, an all-zero row) and p2_fq_group (the LM
+             grad edge's first bf16 group, 380,597,248 elements at 16
+             bits, half the steps one below the tensor's max so codes
+             saturate): counts equal to the plain twins' integer for
+             integer, the codes bit for bit those of the counter-off
+             launch, each timed with the counter on and off.
    train kernels — the training kernels at the step's shapes: the scalar
              fake-quant bit-exact at 4/8/16 bits in f32 and bf16, each
              layer's cores in one grouped fake-quant launch (layer 1's 4,
@@ -146,6 +157,20 @@ Phases (any failure raises and the script exits non-zero):
              profiled (p2_append_paged_kernel 32, p2_read_paged_kernel 8,
              pa_split_kernel and pa_combine_kernel 24 a round; no other KV
              kernel; asserted by name).
+   serve obs — the port's observability on the card: the engine phase's
+             16 requests on the same model with NumericsPolicy(health=True),
+             a TraceRecorder and the memory ledger, the tokens and every
+             launch count equal to the health-off fused run's, every
+             request span closed and nested, one timeline row per decode
+             step, the kv_cache total the steps' active slots x 24 x 2 x 8
+             x 128, the ledger reconciled against torch.cuda.
+             memory_allocated; rwkv6-1.6b (8 prompts of 32 tokens, 16 new)
+             with and without health, tokens and launches equal, the
+             ssm_state drift reported; one with_tt(internlm2-1.8b) step
+             through launch/train.py's train with health, a trace and a
+             ledger (launches as counted, the train_step event's health
+             fields, the ledger's sites beside the step's peak, reconcile
+             ok). Under 150 s.
 4. identity — the same requests in float32 at full width with 4 layers:
              fused and gather engines must emit identical greedy tokens;
              speculative decoding (k = 3) with a 2-layer fp32 draft, fused
@@ -1781,6 +1806,172 @@ def _profile_spec(torch, lm, params, prompts, draft, draft_layers: int,
     return {"step_ms": wall * 1e3, "device_ms": total,
             "busy_share": total / (wall * 1e3), "top": rows,
             "kernels": kern, "spec": eng.summary()["spec"]}
+
+
+OBS_SECONDS = 150.0                    # serve obs's wall, at most
+
+
+def _obs_engine(torch, lm, params, prompts, gen_len: int, health: bool,
+                trace=None):
+    """Serve ``prompts`` on a fresh int8 engine (8 slots x 64 pages of 16,
+    fused attention), with ``NumericsPolicy(health=True)`` when ``health``
+    (the pool's numerics the same as without a policy) and ``trace`` as its
+    recorder. Returns (engine, tokens in submission order, launches)."""
+    from repro_torch.kernels import build as B
+    from repro_torch.numerics import NumericsPolicy
+    from repro_torch.serve import Engine, EngineConfig, PoolConfig
+    policy = NumericsPolicy(enable=True, health=True) if health else None
+    eng = Engine(lm, params, EngineConfig(
+        pool=PoolConfig(num_slots=8, page_size=16, pages_per_slot=64,
+                        quantized=True), fused_attention=True,
+        policy=policy), device="cuda", trace=trace)
+    torch.cuda.synchronize()
+    B.reset_launches()
+    rids = [eng.submit(p, max_new_tokens=gen_len) for p in prompts]
+    res = eng.run()
+    torch.cuda.synchronize()
+    return eng, [res[r].tokens for r in rids], dict(B.LAUNCHES)
+
+
+def _obs_trace_checks(what, eng, rec, feat_per_step) -> dict:
+    """Every request span closed and nested, one timeline row per decode
+    step, the KV site's total the decode steps' active slots times
+    ``feat_per_step`` (0: no KV site), the ledger reconciled against the
+    CUDA allocator. Returns the summary."""
+    from repro_torch.obs import check_nesting, request_spans
+    s = eng.summary()
+    spans = request_spans(rec.events())
+    check(len(spans) == s["requests_completed"] and all(
+        sp.end is not None and check_nesting(sp) for sp in spans.values()),
+        f"{what}: a request span is open or does not nest")
+    steps = rec.events("decode_step")
+    check(len(eng.metrics.timeline) == len(steps) == s["decode_steps"],
+          f"{what}: {len(eng.metrics.timeline)} timeline rows for "
+          f"{len(steps)} decode_step events")
+    if feat_per_step:
+        want = feat_per_step * sum(e.fields["n_active"] for e in steps)
+        got = s["quant_health"]["kv_cache"]["total"]
+        check(got == want, f"{what}: kv_cache total {got}, want {want}")
+    rc = s["memory"]["reconcile"]
+    check(rc["ok"], f"{what}: the ledger does not reconcile against the CUDA "
+          f"allocator: {rc}")
+    kinds = {}
+    for e in rec:
+        kinds[e.kind] = kinds.get(e.kind, 0) + 1
+    log(f"{what}: events {kinds}; quant health {s['quant_health']}; ledger "
+        f"{rc['ledger_bytes']:,} B of {rc['live_bytes']:,} B allocated "
+        f"(coverage {rc['coverage_frac']:.4f}), sites " + ", ".join(
+            f"{k} {v['bytes']:,}" for k, v in s["memory"]["sites"].items()
+            if v["counted"]))
+    return {"summary": s, "events": kinds}
+
+
+def phase_serve_obs(torch, lm, params, engine: dict) -> dict:
+    """The port's observability on the card, three paths:
+
+    - internlm2-1.8b at full size (24 layers, bf16) from the int8 pool,
+      the engine phase's 16 requests x 64 new tokens with
+      ``NumericsPolicy(health=True)``, a ``TraceRecorder`` and the ledger:
+      the tokens identical to the engine phase's health-off fused run and
+      every kernel launched exactly as often (health adds no launch: the
+      KV clip counts come out of the 24 ``p2_append_paged`` launches a
+      step), every request span closed and nested, one timeline row per
+      decode step, the ``kv_cache`` total the decode steps' active slots
+      x 24 layers x 2 x 8 x 128, ``summary()["memory"]["reconcile"]`` ok
+      against ``torch.cuda.memory_allocated``;
+    - rwkv6-1.6b at full size from the int8 state pool, 8 requests of 32
+      tokens x 16 new, with and without health: tokens and launches equal
+      (the counts come out of the one ``st_enc_group`` a step), the
+      ``ssm_state`` drift reported;
+    - one step of ``with_tt(internlm2-1.8b, quantize=True)`` through
+      ``launch/train.py::train`` with health, a trace and a ledger on the
+      card: launches as ``launches_per_step`` counts them (the grad edge's
+      saturation counted inside its group launches), one ``train_step``
+      event with the health fields, the ledger's sites beside
+      ``torch.cuda.max_memory_allocated`` and its reconcile ok.
+
+    The phase's wall must stay under ``OBS_SECONDS``."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import build as B
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import train
+    from repro_torch.models.lm import build_lm
+    from repro_torch.obs import MemoryLedger, TraceRecorder
+    from repro_torch.serve import kv_cache as KC
+    t0 = time.perf_counter()
+    out = {}
+    cfg = lm.cfg
+    prompts = _requests(cfg.vocab_size)
+    rec = TraceRecorder()
+    eng, toks, launches = _obs_engine(torch, lm, params, prompts, 64, True,
+                                      rec)
+    check(toks == engine["fused_tokens"], "serve obs: the tokens with health "
+          "and a trace differ from the engine phase's health-off run")
+    check(launches == engine["launches_main"], f"serve obs: launches "
+          f"{launches}, the health-off run's {engine['launches_main']}")
+    feat = lm.n_periods * sum(math.prod(f) for sub in lm.period
+                              for f in KC.kv_feature_shapes(sub).values())
+    check(feat == 24 * 2 * 8 * 128, f"serve obs: {feat} KV values a slot")
+    out[ARCH] = _obs_trace_checks(f"serve obs {ARCH}", eng, rec, feat)
+    out[ARCH]["launches"] = launches
+    del eng, rec
+
+    lm6, p6 = _state_model(torch, SSM_ARCH)
+    short = [p[:32] for p in _requests(lm6.cfg.vocab_size, n=8, seed=3)]
+    _, off_toks, off_launches = _obs_engine(torch, lm6, p6, short, 16, False)
+    rec = TraceRecorder()
+    eng, toks, launches = _obs_engine(torch, lm6, p6, short, 16, True, rec)
+    check(toks == off_toks and launches == off_launches,
+          f"serve obs {SSM_ARCH}: health changed the tokens or the launches "
+          f"({launches} against {off_launches})")
+    out[SSM_ARCH] = _obs_trace_checks(f"serve obs {SSM_ARCH}", eng, rec, 0)
+    st = out[SSM_ARCH]["summary"]["quant_health"]["ssm_state"]
+    check(st["total"] > 0 and st["scale_drift_log2"] > 0,
+          f"serve obs {SSM_ARCH}: ssm_state health {st}")
+    del eng, rec, lm6, p6
+    torch.cuda.empty_cache()
+
+    lcfg = _lm_config()
+    lcfg = lcfg.replace(quant=dataclasses.replace(lcfg.quant, health=True))
+    tcfg = TrainConfig(opt_state_dtype="int8", grad_compress=True,
+                       total_steps=1, warmup_steps=5, log_every=1)
+    per = S.launches_per_step(build_lm(lcfg), tcfg)
+    rec, led = TraceRecorder(), MemoryLedger("cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    B.reset_launches()
+    state, losses = train(lcfg, "tp", tcfg, batch=LM_BATCH, seq=LM_SEQ,
+                          device="cuda", trace=rec, ledger=led)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    check(dict(B.LAUNCHES) == per, f"serve obs train lm: launches "
+          f"{dict(B.LAUNCHES)}, want {per}")
+    evs = rec.events("train_step")
+    check(len(evs) == 1 and {"grad_sat_fraction", "act_scale_log2",
+                             "act_in_band"} <= set(evs[0].fields),
+          f"serve obs train lm: train_step events {evs}")
+    rc = led.reconcile()
+    check(rc["ok"], f"serve obs train lm: reconcile {rc}")
+    wm = led.watermark("train_step")
+    sites = {k: v["bytes"] for k, v in led.summary()["sites"].items()}
+    log(f"serve obs train lm: event {evs[0].fields}; ledger sites {sites}, "
+        f"{led.total():,} B counted ({led.total() / 2**30:.3f} GiB), "
+        f"train_step watermark {wm['total_bytes']:,} B; allocated after the "
+        f"step {rc['live_bytes']:,} B (coverage {rc['coverage_frac']:.4f}); "
+        f"the step's peak {peak:,} B ({peak / 2**30:.2f} GiB) above the "
+        f"{base:,} B held before it")
+    out["train_lm"] = {"event": evs[0].fields, "sites": sites,
+                       "ledger_bytes": led.total(), "reconcile": rc,
+                       "watermark": wm["total_bytes"], "peak_bytes": peak,
+                       "base_bytes": base, "launches": per, "loss": losses}
+    del state
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"serve obs: {out['seconds']:.1f} s")
+    check(out["seconds"] < OBS_SECONDS, f"serve obs took {out['seconds']:.1f}"
+          f" s, over {OBS_SECONDS:.0f}")
+    return out
 
 
 def phase_identity(torch) -> dict:
@@ -4472,7 +4663,7 @@ def _replay_state_steps(torch, lm, params, prompts, steps: int = 3) -> dict:
         return logits, [t.clone() for t in _leaves(eng.spool)], \
             dict(B.LAUNCHES)
 
-    ga, pa, la = run(eng._decode)
+    ga, pa, la = run(lambda *a: eng._decode(*a)[0])
     gb, pb, lb = run(lambda *a: _per_layer_decode(torch, eng, *a))
     check(all(_bits_equal(torch, a, b) for a, b in zip(ga, gb)),
           "replay: the engine's logits differ from the per-layer route's")
@@ -4603,6 +4794,148 @@ def _replay_chunked_prefill(torch, lm, params, prompts,
         f"{sum(t.numel() * t.element_size() for t in pa)} pool bytes equal")
     del eng
     return {"chunks": len(chunks), "launches": la, "per_layer_launches": lb}
+
+
+# ---------------------------------------------------------------------------
+# quant-health counters inside the encoding kernels
+# ---------------------------------------------------------------------------
+
+def _counter_row(torch, timer, name, what, launch, fresh, check_codes,
+                 twin_counts, nbytes, counts_of) -> dict:
+    """One counter at one shape: ``launch(outputs, counter)`` runs the
+    kernel into ``outputs`` (``fresh()`` makes a new copy; the counter
+    None: the counter-off launch); ``check_codes(a, b)`` holds two
+    launches' outputs bit for bit; ``twin_counts`` is the plain twin's
+    count vector. Returns the counts and the launch's time with the
+    counter and without it (each timed into one kept copy) beside the
+    bound."""
+    from repro_torch.kernels import build as B
+    counter = torch.zeros(len(twin_counts), dtype=torch.int64, device="cuda")
+    got, ref = fresh(), fresh()
+    B.reset_launches()
+    got = launch(got, counter)
+    ref = launch(ref, None)
+    _sync(torch, "cuda")
+    check(sum(B.LAUNCHES.values()) == 2 and len(B.LAUNCHES) == 1,
+          f"{name} ({what}): launches {B.LAUNCHES}, want one each way")
+    counts = counter.tolist()
+    check(counts == list(twin_counts), f"{name} ({what}): counts {counts}, "
+          f"the twin's {list(twin_counts)}")
+    check(check_codes(got, ref), f"{name} ({what}): codes with the counter "
+          "differ from the counter-off launch")
+    on_ms = timer(lambda: launch(got, counter))
+    off_ms = timer(lambda: launch(ref, None))
+    bms, by = bound_ms(nbytes)
+    log(f"health {name} ({what}): counts {counts_of(counts)} equal the "
+        f"twin's; codes bit for bit with the counter off; {on_ms*1e3:.2f} us "
+        f"with the counter, {off_ms*1e3:.2f} us without (bound "
+        f"{bms*1e3:.4f} us)")
+    return {"what": what, "counts": counts, "ms": on_ms, "off_ms": off_ms,
+            "bound_ms": bms, "bound_by": by}
+
+
+def phase_health_kernels(torch, timer: Timer) -> dict:
+    """The three quant-health counters at their paths' shapes, each held
+    to its kernel's plain twin integer for integer, the kernel's outputs
+    with the counter bit for bit those of the counter-off launch, and
+    timed with the counter on and off:
+
+    - row 1b, ``p2_append_paged`` (the decode step's ``append_health``): K
+      and V of 8 slots x 8 heads x 128 bf16 (``_append_inputs``: two
+      inactive slots, one past its pages, one slot's scale one below its
+      max so it clips at both ends), and MLA's latent pair (c_kv 512 +
+      k_rope 64, 8 slots, tokens of 64 standard deviations of a code so
+      a share clips);
+    - row 1e, ``st_enc_group`` (the decode step's ``write_health``):
+      rwkv6-1.6b's 24-layer pool, slot 5 inactive, rows with maxima at
+      ``127 * 2^k`` and their neighbours, an all-zero row
+      (``_state_step_case``), stored scales random so the drift is not 0;
+    - row 4b, ``p2_fq_group`` (the grad edge's ``tree_sat_stats``): the LM
+      grad edge's first bf16 group (64 tensors, 380,597,248 elements, 16
+      bits), each at its per-tensor-max step, every other step one lower
+      so codes saturate."""
+    from repro_torch.kernels import kv_append as KA
+    from repro_torch.numerics import cuda_backend as CB
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    out = {"p2_append_paged": [], "st_enc_group": [], "p2_fake_quant": []}
+
+    def pages_equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def kv_counts(c):
+        return f"{c[0]:,} clipped of {c[1]:,}"
+
+    gqa, kw = _append_inputs(torch, gen)
+    g = torch.Generator(device="cuda").manual_seed(33)
+    (cd, rd), (cs, rs), table = _latent_pool(torch, g, MLA_WIDTHS)
+    lat = [(torch.randn((8, 1, w), generator=g, device="cuda") * 64
+            * torch.exp2(s)[:, None, None]).to(torch.bfloat16)
+           for w, s in zip(MLA_WIDTHS, (cs, rs))]
+    mla = (cd, rd, cs, rs, lat[0], lat[1], table, gqa[7], gqa[8])
+    for what, args in (("8 slots x 8 x 128 bf16", gqa),
+                       (f"latent pair {MLA_WIDTHS[0]} + {MLA_WIDTHS[1]}, "
+                        "8 slots", mla)):
+        twin = torch.zeros(2, dtype=torch.int64, device="cuda")
+        KA.append_paged_torch(*[t.clone() for t in args[:2]], *args[2:], **kw,
+                              health=twin)
+        n = args[4].numel() + args[5].numel()
+        out["p2_append_paged"].append(_counter_row(
+            torch, timer, "p2_append_paged", what,
+            lambda p, c, a=args: KA.append_paged_cuda(*p, *a[2:], **kw,
+                                                      health=c),
+            lambda a=args: [t.clone() for t in a[:2]],
+            pages_equal, twin.tolist(), n * 3 + 8 * 17, kv_counts))
+    check(all(0 < r["counts"][0] < r["counts"][1]
+              for r in out["p2_append_paged"]),
+          "p2_append_paged: the inputs clipped nothing")
+
+    active = torch.ones(STATE_SLOTS, dtype=torch.bool, device="cuda")
+    active[INACTIVE_SLOT] = False
+    codes, scales, news, _ = _state_step_case(torch, gen, RWKV6_STEP, active)
+    twin = torch.zeros(4, dtype=torch.int64, device="cuda")
+    CB.state_encode_many_plain([q.clone() for q in codes],
+                               [s.clone() for s in scales], news, active, 8,
+                               twin)
+
+    def st_launch(pool, c):
+        CB.state_encode_many(*pool, news, active, 8, health=c)
+        return pool
+
+    row = _counter_row(
+        torch, timer, "st_enc_group", "rwkv6-1.6b's 24-layer pool, 8 slots",
+        st_launch, lambda: ([q.clone() for q in codes],
+                            [t.clone() for t in scales]),
+        lambda a, b: all(_bits_equal(torch, x, y)
+                         for x, y in zip(a[0] + a[1], b[0] + b[1])),
+        twin.tolist(), _state_bytes(codes, news, STATE_SLOTS - 1),
+        lambda c: f"{c[0]:,} clipped of {c[1]:,}, drift {c[2]:,} over "
+                  f"{c[3]:,} rows")
+    check(row["counts"][1] > 0 and row["counts"][2] > 0
+          and row["counts"][3] == sum(q.shape[0] for q in codes)
+          * (STATE_SLOTS - 1), f"st_enc_group: counts {row['counts']}")
+    out["st_enc_group"].append(row)
+
+    from repro_torch.numerics import QuantSpec, per_tensor_max_scale_log2
+    lm, _, xs = _lm_grad_group(torch, gen)
+    what, bits = "grad-edge group", lm.cfg.quant.grad_bits
+    spec = QuantSpec("pow2", bits)
+    steps = torch.stack([per_tensor_max_scale_log2(x, spec) for x in xs])
+    steps[1::2] -= 1
+    twin = CB.sat_counts_plain(xs, steps, bits)
+    row = _counter_row(
+        torch, timer, "p2_fake_quant", f"the LM {what}, {len(xs)} bf16 "
+        f"tensors, {sum(x.numel() for x in xs):,} elements, {bits}-bit",
+        lambda _, c: CB.fake_quant_scalar_many(xs, steps, bits, sat=c),
+        lambda: None,
+        lambda a, b: all(_bits_equal(torch, x, y) for x, y in zip(a, b)),
+        twin.tolist(), _fq_bytes(xs),
+        lambda c: f"{c[0]:,} saturated of {c[1]:,}")
+    check(0 < row["counts"][0] < row["counts"][1], "p2_fake_quant: the "
+          f"inputs saturated nothing ({row['counts']})")
+    out["p2_fake_quant"].append(row)
+    del xs
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_serve_rwkv6(torch, lm, params) -> dict:
@@ -5966,6 +6299,20 @@ def _lm_bw_rows(torch, sets) -> list:
     return rows
 
 
+def _lm_grad_group(torch, gen):
+    """(lm, its flattened meta params, the grad edge's first bf16 group):
+    the first ``FQ_CAP`` bf16 leaves of ``with_tt(internlm2-1.8b)`` as
+    seeded stand-ins for their gradients."""
+    from repro_torch.kernels.grouped import FQ_CAP
+    from repro_torch.models.lm import build_lm, init_lm
+    from repro_torch.tree import flatten_with_path
+    lm = build_lm(_lm_config())
+    flat = flatten_with_path(init_lm(None, lm, device="meta"))
+    grads = [(torch.randn(t.shape, generator=gen, device="cuda") * 0.02).to(
+        torch.bfloat16) for _, t in flat if t.dtype == torch.bfloat16][:FQ_CAP]
+    return lm, flat, grads
+
+
 def _lm_codec_sets(torch, gen) -> dict:
     """The LM step's large codec launches on seeded data of their shapes
     (``init_lm`` on the meta device gives them): the grad-edge group (the
@@ -5978,17 +6325,13 @@ def _lm_codec_sets(torch, gen) -> dict:
     second moment group (TT cores and norm scales: the step's 19 small
     moment groups). The first block of the embedding's m and of the wire's
     first large leaf is all zero."""
-    from repro_torch.kernels.grouped import BW_CAP, FQ_CAP
-    from repro_torch.models.lm import build_lm, init_lm
+    from repro_torch.kernels.grouped import BW_CAP
     from repro_torch.numerics import QuantSpec
     from repro_torch.numerics.codecs import per_tensor_max_scale_log2
     from repro_torch.optim.adam import _is_adam_leaf
-    from repro_torch.tree import flatten_with_path, stacked_groups
-    lm = build_lm(_lm_config())
+    from repro_torch.tree import stacked_groups
+    lm, flat, grads = _lm_grad_group(torch, gen)
     q = lm.cfg.quant
-    flat = flatten_with_path(init_lm(None, lm, device="meta"))
-    grads = [(torch.randn(t.shape, generator=gen, device="cuda") * 0.02).to(
-        torch.bfloat16) for _, t in flat if t.dtype == torch.bfloat16][:FQ_CAP]
     gspec = QuantSpec("pow2", q.grad_bits)
     edge = (torch.randn((LM_BATCH, LM_SEQ, lm.cfg.d_model), generator=gen,
                         device="cuda") * 0.2).to(torch.bfloat16)
@@ -6044,10 +6387,11 @@ def _bw_bytes(xs, block: int, storage_bytes: int = 1) -> int:
 FQ_PHASES = {"arith": {"pow2_fq.cu": [
     ("out.v[j] = one(in.v[j], step);", "out.v[j] = in.v[j];"),
     ("if (i < n) y[i] = one(x[i], step);", "if (i < n) y[i] = x[i];"),
-    ("out.v[j] = wide_one<T, RT, MUL>(in[k].v[j], step, inv, lo, hi, lo_t, "
-     "hi_t, int_codes);", "out.v[j] = in[k].v[j];"),
-    ("if (i < n) y[i] = wide_one<T, RT, MUL>(x[i], step, inv, lo, hi, lo_t, "
-     "hi_t, int_codes);", "if (i < n) y[i] = x[i];")]}}
+    ("out.v[j] = wide_one<T, RT, MUL, SAT>(in[k].v[j], step, inv, lo, hi, "
+     "lo_t, hi_t,\n                                               int_codes, "
+     "sat);", "out.v[j] = in[k].v[j];"),
+    ("y[i] = wide_one<T, RT, MUL, SAT>(x[i], step, inv, lo, hi, lo_t, hi_t, "
+     "int_codes, sat);", "y[i] = x[i];")]}}
 BW_PHASES = {
     "code": {"blockwise.cu": [
         ("      if (k < b) {\n        Vec4<Q> out;",
@@ -6087,7 +6431,8 @@ def phase_codec_anatomy(torch, timer: Timer) -> dict:
     bw_cuts = {"full": [], "no coding": ["code"],
                "loads only": ["code", "reduce"]}
     fq_libs = {k[0]: CB.fq_typed(lib) for k, lib in _anatomy_libs(
-        FQ_PHASES, fq_cuts, ("pow2_fq.cu",), ("pow2_fq",), "fq").items()}
+        FQ_PHASES, fq_cuts, ("pow2_fq.cu", "health.cuh"), ("pow2_fq",),
+        "fq").items()}
     bw_libs = {k[0]: CB.bw_typed(lib) for k, lib in _anatomy_libs(
         BW_PHASES, bw_cuts, ("blockwise.cu", "pow2_codes.cuh"),
         ("blockwise",), "bw").items()}
@@ -7017,12 +7362,14 @@ def main(argv=None) -> int:
     report["scalar_kernels"] = phase_scalar_kernels(torch, timer)
     report["state_kernels"] = phase_state_kernels(torch, timer)
     report["state_group"] = phase_state_group(torch, timer)
+    report["health_kernels"] = phase_health_kernels(torch, timer)
     del timer
     lm, params = full_model(torch)
     report["engine"] = phase_engine(torch, lm, params)
     report["serve_chunked"] = phase_serve_chunked(torch, lm, params)
     report["serve_spec"] = phase_serve_spec(
         torch, lm, params, report["engine"]["fused_tokens"])
+    report["serve_obs"] = phase_serve_obs(torch, lm, params, report["engine"])
     del params
     torch.cuda.empty_cache()
     report["identity"] = phase_identity(torch)

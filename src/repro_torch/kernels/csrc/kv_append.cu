@@ -51,7 +51,22 @@
 // the fused kv projection, is read in place with no copy. Each tensor takes
 // the vector path or the element loop on its own width and alignment, so
 // one launch may run both. No shared memory, no synchronisation.
+//
+// Quant health (health.cuh): with `health` non-null the launch also adds
+// (clipped, total) to health[0..1], the reference's append_health
+// (repro/serve/kv_cache.py:294, obs.pow2_clip_stats of the new K/V against
+// the slots' frozen scales) summed over both tensors: a row counts where
+// its slot is active and j < n_valid (at S = 1, the decode step, exactly
+// active[b]; a row sent to the trash page because it is past the slot's
+// last page still counts, an inactive slot's never does), and an element
+// is clipped where the f32 quotient x / 2^s the encode rounds lies outside
+// [lo, hi] before the clamp. The engine passes one buffer to every layer's
+// launch and reads it once a step, only when health is on. Cost: two
+// compares an element in registers and, a CTA, one warp reduction, one
+// __syncthreads and up to two 64-bit atomics (a separate instantiation, so
+// a null buffer runs the kernel without them).
 
+#include "health.cuh"
 #include "kv_pages.cuh"
 #include "pow2_codes.cuh"
 
@@ -85,9 +100,10 @@ struct AppendArgs {
   int clamp_last;            // 0: drop rule, 1: clamp rule
   int vec[2];                // K / V take the vector path
   float lo, hi;
+  unsigned long long* health;  // (clipped, total), or null: no counting
 };
 
-template <typename T, typename Q>
+template <typename T, typename Q, bool HEALTH>
 __global__ void __launch_bounds__(kThreads)
     p2_append_paged_kernel(const __grid_constant__ AppendArgs a) {
   constexpr int V = 16 / sizeof(T);
@@ -111,8 +127,11 @@ __global__ void __launch_bounds__(kThreads)
       static_cast<Q*>(a.data[t]) + ((long long)page * a.page_size + off) * F;
   const float step = pow2_step(s);
   const float lo = a.lo, hi = a.hi;
-  auto enc = [lo, hi, step](float v) {
-    return to_code<Q>(fminf(fmaxf(rintf(v / step), lo), hi));
+  unsigned clipped = 0;
+  auto enc = [lo, hi, step, &clipped](float v) {
+    const float r = v / step;
+    if (HEALTH) clipped += (r < lo) | (r > hi);
+    return to_code<Q>(fminf(fmaxf(rintf(r), lo), hi));
   };
   if (a.vec[t]) {
     for (long long i = threadIdx.x; i < F / V; i += blockDim.x) {
@@ -125,6 +144,12 @@ __global__ void __launch_bounds__(kThreads)
   } else {
     for (long long i = threadIdx.x; i < F; i += blockDim.x) q[i] = enc(to_f32(x[i]));
   }
+  if constexpr (HEALTH) {
+    __shared__ unsigned part[64];
+    const bool counted = act && j < nv;
+    health::cta_add2(a.health, counted ? clipped : 0u,
+                     counted && threadIdx.x == 0 ? (unsigned)F : 0u, part);
+  }
 }
 
 template <typename T, typename Q>
@@ -135,7 +160,10 @@ void launch(AppendArgs a, int slots, cudaStream_t st) {
                (slots == 1 || (a.stride[t] * (long long)sizeof(T)) % 16 == 0) &&
                (a.tokens == 1 || (a.tstride[t] * (long long)sizeof(T)) % 16 == 0) &&
                aligned(a.data[t], alignof(VecN<Q, V>));
-  p2_append_paged_kernel<T, Q><<<dim3(slots * a.tokens, 2), kThreads, 0, st>>>(a);
+  if (a.health)
+    p2_append_paged_kernel<T, Q, true><<<dim3(slots * a.tokens, 2), kThreads, 0, st>>>(a);
+  else
+    p2_append_paged_kernel<T, Q, false><<<dim3(slots * a.tokens, 2), kThreads, 0, st>>>(a);
 }
 
 }  // namespace
@@ -151,8 +179,9 @@ extern "C" {
 // stride table_stride; lens: (slots,) int32 position of row 0; active:
 // (slots,) bool or null (every slot active); n_valid: (slots,) int32 or
 // null (every row valid); clamp_last selects the rule for a valid row past
-// the slot's last page (0 trash, 1 the last page). bits in
-// [2, code_bits(q_code)]. Returns cudaGetLastError() after the
+// the slot's last page (0 trash, 1 the last page); health: two uint64
+// counters on the device that the launch adds (clipped, total) to, or null.
+// bits in [2, code_bits(q_code)]. Returns cudaGetLastError() after the
 // launch.
 int p2_append_paged(const void* k, const void* v, int x_dtype, long long k_stride,
                     long long v_stride, long long k_tstride, long long v_tstride, int tokens,
@@ -160,7 +189,8 @@ int p2_append_paged(const void* k, const void* v, int x_dtype, long long k_strid
                     const void* vscale, const void* table, long long table_stride,
                     int pages_per_slot, const void* lens, const void* active,
                     const void* n_valid, int clamp_last, int slots, long long kfeat,
-                    long long vfeat, int page_size, int trash, int bits, void* stream) {
+                    long long vfeat, int page_size, int trash, int bits, void* health,
+                    void* stream) {
   if (bits < 2 || bits > code_bits(q_code) || x_dtype < F32 || x_dtype > F16 || slots < 0 ||
       tokens < 0 || kfeat < 0 || vfeat < 0 || page_size < 1 || pages_per_slot < 1 ||
       trash < 0 || (long long)slots * tokens > 0x7fffffffLL)
@@ -189,6 +219,7 @@ int p2_append_paged(const void* k, const void* v, int x_dtype, long long k_strid
   a.page_size = page_size;
   a.trash = trash;
   a.clamp_last = clamp_last != 0;
+  a.health = (unsigned long long*)health;
   qrange_f32(bits, &a.lo, &a.hi);
   cudaStream_t st = (cudaStream_t)stream;
   return with_code(q_code, [&](auto qt) {

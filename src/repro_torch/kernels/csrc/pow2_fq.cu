@@ -81,12 +81,28 @@
 // grid-stride loop over 4-element vectors (cols % 4 == 0, so a vector never
 // straddles two rows; its row's step is one cached load per vector), else a
 // scalar loop. No shared memory, no synchronisation.
+//
+// Quant health (health.cuh), the group's fake-quant only: with `sat`
+// non-null the launch also adds (saturated, total) to sat[0..1], the
+// reference's tree_sat_stats over the group (repro/obs/counters.py: the
+// codes encode(x, spec, step) gives, counted where they sit at lo or hi;
+// repro/launch/steps.py:107-129 runs it on the gradients the grad edge
+// quantizes). An element saturates where rint of its quotient x / 2^s (the
+// one the fake-quant rounds) is <= lo or >= hi, the f32 grid bounds: that
+// is the reference's test on its clipped f32 codes, whatever T's rounding
+// of the bounds (a bf16 16-bit grid clips at 32768, the codes at 32767).
+// The grad edge runs each tensor at its per-tensor-max step. Cost: two
+// compares an element, and a CTA one warp reduction, one __syncthreads and
+// up to two 64-bit atomics, once after its last unit (a separate
+// instantiation: a null pointer launches the kernel without them).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "health.cuh"
 
 namespace {
 
@@ -115,6 +131,16 @@ template <typename T> __device__ __forceinline__ float in_t(float v) {
 template <typename T>
 __device__ __forceinline__ T fq_one(T x, float scale, float lo, float hi) {
   float q = rintf(in_t<T>(to_f32(x) / scale));
+  q = q < lo ? lo : (q > hi ? hi : q);
+  return from_f32<T>(q * scale);
+}
+
+// fq_one, counting into *sat a code that saturates the f32 grid [glo, ghi]
+template <typename T>
+__device__ __forceinline__ T fq_one_sat(T x, float scale, float lo, float hi, float glo,
+                                        float ghi, unsigned* sat) {
+  float q = rintf(in_t<T>(to_f32(x) / scale));
+  *sat += (q <= glo) | (q >= ghi);
   q = q < lo ? lo : (q > hi ? hi : q);
   return from_f32<T>(q * scale);
 }
@@ -172,9 +198,10 @@ __device__ __forceinline__ float div_step(float x, float step, float inv) {
   return MUL ? x * inv : x / step;
 }
 
-template <typename T, bool RT, bool MUL>
+template <typename T, bool RT, bool MUL, bool SAT = false>
 __device__ __forceinline__ T wide_one(T x, float step, float inv, float lo, float hi,
-                                      float lo_t, float hi_t, bool int_codes) {
+                                      float lo_t, float hi_t, bool int_codes,
+                                      unsigned* sat = nullptr) {
   if (RT) {   // rt_one
     float q = fminf(fmaxf(rintf(div_step<MUL>(to_f32(x), step, inv)), lo), hi);
     if (int_codes) q += 0.f;
@@ -183,6 +210,7 @@ __device__ __forceinline__ T wide_one(T x, float step, float inv, float lo, floa
   // fq_one with the scale in T (exact for |s| <= 126: 2^s is a normal bf16)
   const float scale = in_t<T>(step);
   float q = rintf(in_t<T>(div_step<MUL>(to_f32(x), scale, inv)));
+  if (SAT) *sat += (q <= lo) | (q >= hi);
   q = q < lo_t ? lo_t : (q > hi_t ? hi_t : q);
   return from_f32<T>(q * scale);
 }
@@ -192,11 +220,12 @@ __device__ __forceinline__ T wide_one(T x, float step, float inv, float lo, floa
 // thread issues its kWideVecs 16-byte loads (neighbouring threads on
 // neighbouring vectors) before any arithmetic, then stores as many; else
 // it takes single elements, coalesced.
-template <typename T, bool RT, bool MUL>
+template <typename T, bool RT, bool MUL, bool SAT = false>
 __device__ __forceinline__ void fq_wide_unit(const T* __restrict__ x, T* __restrict__ y,
                                              long long base, long long n, float step,
                                              float inv, float lo, float hi, float lo_t,
-                                             float hi_t, bool int_codes) {
+                                             float hi_t, bool int_codes,
+                                             unsigned* sat = nullptr) {
   constexpr int kPer = 16 / sizeof(T);
   if (n % kPer == 0 && aligned(x, 16) && aligned(y, 16)) {
     const long long v0 = base / kPer + threadIdx.x, nv = n / kPer;
@@ -213,7 +242,8 @@ __device__ __forceinline__ void fq_wide_unit(const T* __restrict__ x, T* __restr
         Vec16<T> out;
 #pragma unroll
         for (int j = 0; j < kPer; ++j)
-          out.v[j] = wide_one<T, RT, MUL>(in[k].v[j], step, inv, lo, hi, lo_t, hi_t, int_codes);
+          out.v[j] = wide_one<T, RT, MUL, SAT>(in[k].v[j], step, inv, lo, hi, lo_t, hi_t,
+                                               int_codes, sat);
         reinterpret_cast<Vec16<T>*>(y)[i] = out;
       }
     }
@@ -221,17 +251,23 @@ __device__ __forceinline__ void fq_wide_unit(const T* __restrict__ x, T* __restr
   }
   for (int j = 0; j < kWideVecs * kPer; ++j) {
     const long long i = base + (long long)j * kThreads + threadIdx.x;
-    if (i < n) y[i] = wide_one<T, RT, MUL>(x[i], step, inv, lo, hi, lo_t, hi_t, int_codes);
+    if (i < n)
+      y[i] = wide_one<T, RT, MUL, SAT>(x[i], step, inv, lo, hi, lo_t, hi_t, int_codes, sat);
   }
 }
 
 // WIDE: the group has wide units (an instantiation of its own, so a group
-// of narrow units runs the narrow path's code and registers alone)
-template <typename T, int N, bool RT, bool WIDE>
+// of narrow units runs the narrow path's code and registers alone). SAT:
+// count saturated codes into sat (the fake-quant only, RT false).
+template <typename T, int N, bool RT, bool WIDE, bool SAT = false>
 __global__ void __launch_bounds__(kThreads)
-    p2_fq_group_kernel(const __grid_constant__ FqGroup<N> g, float lo, float hi, int int_codes) {
+    p2_fq_group_kernel(const __grid_constant__ FqGroup<N> g, float lo, float hi, int int_codes,
+                       unsigned long long* sat) {
+  static_assert(!(SAT && RT), "saturation counts the fake-quant only");
   const float lo_t = in_t<T>(lo), hi_t = in_t<T>(hi);
+  unsigned nsat = 0, ntot = 0;
   auto one = [&](T v, float step) {
+    if (SAT) return fq_one_sat(v, in_t<T>(step), lo_t, hi_t, lo, hi, &nsat);
     return RT ? rt_one(v, step, lo, hi, int_codes)
               : fq_one(v, in_t<T>(step), lo_t, hi_t);
   };
@@ -253,14 +289,17 @@ __global__ void __launch_bounds__(kThreads)
       const float s = __ldg(g.s[e]);
       const float step = pow2_step(s);
       const long long base = unit * wide_tile<T>();
+      if (SAT) ntot += (unsigned)min(wide_tile<T>(), n - base);
       if (s == truncf(s) && fabsf(s) <= 126.f)
-        fq_wide_unit<T, RT, true>(x, y, base, n, step, ldexpf(1.f, -(int)s), lo, hi, lo_t,
-                                  hi_t, int_codes);
+        fq_wide_unit<T, RT, true, SAT>(x, y, base, n, step, ldexpf(1.f, -(int)s), lo, hi, lo_t,
+                                       hi_t, int_codes, &nsat);
       else
-        fq_wide_unit<T, RT, false>(x, y, base, n, step, 0.f, lo, hi, lo_t, hi_t, int_codes);
+        fq_wide_unit<T, RT, false, SAT>(x, y, base, n, step, 0.f, lo, hi, lo_t, hi_t,
+                                        int_codes, &nsat);
       continue;
     }
     const long long base = unit * kTile;
+    if (SAT) ntot += (unsigned)min((long long)kTile, n - base);
     const float step = pow2_step(__ldg(g.s[e]));
     if (n % 4 == 0 && aligned(x, 4 * sizeof(T)) && aligned(y, 4 * sizeof(T))) {
       const long long i = base / 4 + threadIdx.x;
@@ -278,6 +317,11 @@ __global__ void __launch_bounds__(kThreads)
         if (i < n) y[i] = one(x[i], step);
       }
     }
+  }
+  if constexpr (SAT) {
+    // the units' element counts were added by every thread: keep thread 0's
+    __shared__ unsigned part[64];
+    health::cta_add2(sat, nsat, threadIdx.x == 0 ? ntot : 0u, part);
   }
 }
 
@@ -325,7 +369,7 @@ void launch_rows(const void* x, const float* s, void* y, long long rows, long lo
 
 template <int N, bool RT>
 int fq_launch(const long long* table, int count, int x_dtype, int bits, int int_codes,
-              cudaStream_t st) {
+              unsigned long long* sat, cudaStream_t st) {
   FqGroup<N> g{};
   long long prev = 0;
   const long long wide = x_dtype == BF16 ? wide_tile<__nv_bfloat16>() : wide_tile<float>();
@@ -350,8 +394,15 @@ int fq_launch(const long long* table, int count, int x_dtype, int bits, int int_
   for (int e = 0; e < count; ++e) wide_any = wide_any || g.wide[e];
   auto launch = [&](auto t, auto w) {
     using T = decltype(t);
-    p2_fq_group_kernel<T, N, RT, decltype(w)::value><<<grid, kThreads, 0, st>>>(g, lo, hi,
-                                                                             int_codes);
+    constexpr bool W = decltype(w)::value;
+    if constexpr (!RT) {
+      if (sat) {
+        p2_fq_group_kernel<T, N, false, W, true><<<grid, kThreads, 0, st>>>(g, lo, hi,
+                                                                           int_codes, sat);
+        return;
+      }
+    }
+    p2_fq_group_kernel<T, N, RT, W><<<grid, kThreads, 0, st>>>(g, lo, hi, int_codes, nullptr);
   };
   switch (x_dtype) {
     case F32:
@@ -368,10 +419,10 @@ int fq_launch(const long long* table, int count, int x_dtype, int bits, int int_
 
 template <bool RT>
 int fq_dispatch(const long long* table, int count, int x_dtype, int bits, int int_codes,
-                cudaStream_t st) {
-  if (count == 1) return fq_launch<1, RT>(table, count, x_dtype, bits, int_codes, st);
-  if (count <= 8) return fq_launch<8, RT>(table, count, x_dtype, bits, int_codes, st);
-  return fq_launch<kFqCap, RT>(table, count, x_dtype, bits, int_codes, st);
+                unsigned long long* sat, cudaStream_t st) {
+  if (count == 1) return fq_launch<1, RT>(table, count, x_dtype, bits, int_codes, sat, st);
+  if (count <= 8) return fq_launch<8, RT>(table, count, x_dtype, bits, int_codes, sat, st);
+  return fq_launch<kFqCap, RT>(table, count, x_dtype, bits, int_codes, sat, st);
 }
 
 }  // namespace
@@ -386,16 +437,19 @@ extern "C" {
 // [2, 16].
 // q_code -1: the fake-quant; 0 int8, 1 int16, 2 int32, 3 f32: the round
 // trip through codes of that type (bits at most the type's, so the grid
-// lies inside it and to_code's saturation never acts). Returns
-// cudaGetLastError() after the launch (none for a group with no elements).
+// lies inside it and to_code's saturation never acts). sat: two uint64
+// counters on the device that the fake-quant adds (saturated, total) to,
+// or null (the round trip takes null). Returns cudaGetLastError() after
+// the launch (none for a group with no elements).
 int p2_fq_group(const long long* table, int count, int x_dtype, int bits, int q_code,
-                void* stream) {
+                void* sat, void* stream) {
   if (bits < 2 || bits > 16 || count < 1 || count > kFqCap || q_code < -1 || q_code > 3 ||
-      (q_code == 0 && bits > 8))
+      (q_code == 0 && bits > 8) || (q_code >= 0 && sat != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (q_code < 0) return fq_dispatch<false>(table, count, x_dtype, bits, 0, st);
-  return fq_dispatch<true>(table, count, x_dtype, bits, q_code != 3, st);
+  auto* counts = static_cast<unsigned long long*>(sat);
+  if (q_code < 0) return fq_dispatch<false>(table, count, x_dtype, bits, 0, counts, st);
+  return fq_dispatch<true>(table, count, x_dtype, bits, q_code != 3, nullptr, st);
 }
 
 // x, y: (rows, cols) contiguous of x_dtype; s: (rows,) f32 scale_log2 on

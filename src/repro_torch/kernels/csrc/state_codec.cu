@@ -125,8 +125,24 @@
 // way for rwkv6-1.6b, 4.78 us at 3.35 TB/s; 7 x (262,144 x 5 + 49,152 x 3)
 // B = 10.21 MB for jamba's period, 3.05 us.
 
+// Quant health (health.cuh), the step form only: with `health` non-null
+// st_enc_group also adds (clipped, total, drift_sum, drift_n) to health[0..3],
+// the reference's write_health (repro/serve/state_cache.py:180) summed over
+// every (layer, tensor) of the step: over the active rows, clipped counts
+// the values whose f32 quotient x / 2^s (the one the encode rounds: x * 2^-s
+// or x / 2^s as above, the same value) lies outside [lo, hi] under the row's
+// fresh scale s, total the row's values; drift_sum adds |s - s_old|, s_old
+// the row's stored scale read by the thread that overwrites it (rank 0 of a
+// large row's cluster) just before it does, and drift_n one a row. The
+// scales are integers (a ceil, or the 0 of a reset slot), so the drift is an
+// integer and is summed as one in the 64-bit counters: exact and free of
+// order, where an f32 atomicAdd of them would be exact only to 2^24. Cost:
+// two compares an element, one warp reduction, one __syncthreads and up to
+// four atomics a CTA; a null buffer launches the instantiation without them.
+
 #include <cooperative_groups.h>
 
+#include "health.cuh"
 #include "pow2_codes.cuh"
 
 namespace {
@@ -177,6 +193,8 @@ struct EncGroup {
   const void* src[kPtrCap];
   long long sstride[kPtrCap];    // elements between two slots' rows
   const unsigned char* active;   // (slots,) bool, on the device (step form)
+  unsigned long long* health;    // step form: (clipped, total, drift_sum,
+                                 // drift_n), or null: no counting
   const int* slot;               // one-slot form: the slot, on the device
   int slots;
   int pool_slots;                // one-slot form: the pool's slots
@@ -323,6 +341,13 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---- encode ---------------------------------------------------------------
 
+// the health counters' drift of one row: |s - s_old| (integers) and one row
+__device__ __forceinline__ void add_drift(unsigned long long* h, float old, float s) {
+  const unsigned long long d = (unsigned long long)fabsf(s - old);
+  if (d) atomicAdd(h + 2, d);
+  atomicAdd(h + 3, 1ull);
+}
+
 struct Shared {
   float warp_part[kThreads / 32];
   float cta_max;
@@ -353,7 +378,7 @@ template <> struct CodeWord<__half> : CodeWord16<__half> {};
 // or the CTA of a small row). Lane after lane takes one 16-byte word of
 // values, so both passes load and store whole lines. STAGE: `stage` holds
 // the CTA's words between the passes.
-template <typename T, bool STAGE>
+template <typename T, bool STAGE, bool HEALTH = false>
 __device__ __forceinline__ void enc_row(const EncGroup& g, const T* __restrict__ x,
                                         int8_t* __restrict__ q, float* sc, int F, int u0,
                                         int u1, bool big, Shared& sh, uint4* stage) {
@@ -392,12 +417,16 @@ __device__ __forceinline__ void enc_row(const EncGroup& g, const T* __restrict__
       float v = 0.f;
       for (int r = 0; r < kCluster; ++r) v = fmaxf(v, *cluster.map_shared_rank(&sh.cta_max, r));
       sh.scale = ceilf(log2f(fmaxf(v, 1e-8f) * g.inv_qmax));
-      if (cluster.block_rank() == 0) *sc = sh.scale;
+      if (cluster.block_rank() == 0) {
+        if (HEALTH) add_drift(g.health, *sc, sh.scale);
+        *sc = sh.scale;
+      }
     }
     // done reading the others' maxima: they may leave once all have arrived
     asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
   } else if (threadIdx.x == 0) {
     sh.scale = ceilf(log2f(fmaxf(sh.cta_max, 1e-8f) * g.inv_qmax));
+    if (HEALTH) add_drift(g.health, *sc, sh.scale);
     *sc = sh.scale;
   }
   __syncthreads();
@@ -407,8 +436,11 @@ __device__ __forceinline__ void enc_row(const EncGroup& g, const T* __restrict__
   const bool mul = fabsf(s) <= 126.f;
   const float f = mul ? pow2_step(-s) : pow2_step(s);
   const float lo = g.lo, hi = g.hi;
-  auto enc = [mul, f, lo, hi](float v) {
-    return (uint32_t)(uint8_t)to_code<int8_t>(fminf(fmaxf(rintf(mul ? v * f : v / f), lo), hi));
+  unsigned clipped = 0;
+  auto enc = [mul, f, lo, hi, &clipped](float v) {
+    const float r = mul ? v * f : v / f;
+    if (HEALTH) clipped += (r < lo) | (r > hi);
+    return (uint32_t)(uint8_t)to_code<int8_t>(fminf(fmaxf(rintf(r), lo), hi));
   };
   if (vec) {
     using CW = CodeWord<T>;
@@ -423,6 +455,11 @@ __device__ __forceinline__ void enc_row(const EncGroup& g, const T* __restrict__
     }
   } else {
     for (int i = i0 + (int)threadIdx.x; i < i1; i += kThreads) q[i] = (int8_t)enc(to_f32(x[i]));
+  }
+  if constexpr (HEALTH) {
+    __shared__ unsigned part[64];
+    health::cta_add2(g.health, clipped, threadIdx.x == 0 ? (unsigned)max(i1 - i0, 0) : 0u,
+                     part);
   }
   if (big) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
@@ -444,7 +481,7 @@ __device__ __forceinline__ void enc_part(const EncGroup& g, int e, int rank, boo
   enc_row<T, STAGE>(g, x, q, sc, F, u0, u1, big, sh, stage);
 }
 
-template <typename Q, bool STAGE>
+template <typename Q, bool STAGE, bool HEALTH>
 __global__ void __launch_bounds__(kThreads)
     st_enc_group_kernel(const __grid_constant__ EncGroup g) {
   __shared__ Shared sh;
@@ -472,15 +509,15 @@ __global__ void __launch_bounds__(kThreads)
   const long long off = (long long)b * g.sstride[p];
   switch (g.dtype[e]) {
     case F32:
-      enc_row<float, STAGE>(g, static_cast<const float*>(g.src[p]) + off, q, sc, F, u0, u1, big,
+      enc_row<float, STAGE, HEALTH>(g, static_cast<const float*>(g.src[p]) + off, q, sc, F, u0, u1, big,
                             sh, stage);
       break;
     case BF16:
-      enc_row<__nv_bfloat16, STAGE>(g, static_cast<const __nv_bfloat16*>(g.src[p]) + off, q, sc,
+      enc_row<__nv_bfloat16, STAGE, HEALTH>(g, static_cast<const __nv_bfloat16*>(g.src[p]) + off, q, sc,
                                     F, u0, u1, big, sh, stage);
       break;
     default:
-      enc_row<__half, STAGE>(g, static_cast<const __half*>(g.src[p]) + off, q, sc, F, u0, u1,
+      enc_row<__half, STAGE, HEALTH>(g, static_cast<const __half*>(g.src[p]) + off, q, sc, F, u0, u1,
                              big, sh, stage);
       break;
   }
@@ -642,18 +679,25 @@ int st_dec_slot(const long long* table, int count, const void* slot, int pool_sl
 
 // The decode step's write: pieces and ptrs as fill_enc reads them; active:
 // (slots,) bool on the device. stage 1 keeps each CTA's values in `smem`
-// bytes of shared memory between its two passes, 0 re-reads them. Returns
-// the launch's error code, then cudaGetLastError().
+// bytes of shared memory between its two passes, 0 re-reads them. health:
+// four uint64 counters on the device that the launch adds (clipped, total,
+// drift_sum, drift_n) to, or null. Returns the launch's error code, then
+// cudaGetLastError().
 int st_enc_group(const long long* pieces, int count, const long long* ptrs, int nptr,
-                 const void* active, int slots, int bits, int stage, int smem, void* stream) {
+                 const void* active, int slots, int bits, int stage, int smem, void* health,
+                 void* stream) {
   EncGroup g{};
   int err = fill_enc(g, pieces, count, ptrs, nptr, slots, bits, smem);
   if (err) return err;
   g.active = static_cast<const unsigned char*>(active);
+  g.health = static_cast<unsigned long long*>(health);
   const int tasks = g.task_end[count - 1];
   if (tasks == 0) return (int)cudaSuccess;
-  err = launch_enc(stage ? st_enc_group_kernel<int8_t, true> : st_enc_group_kernel<int8_t, false>,
-                   stage, g, tasks, smem, (cudaStream_t)stream);
+  EncKernel kernel = health ? (stage ? &st_enc_group_kernel<int8_t, true, true>
+                                     : &st_enc_group_kernel<int8_t, false, true>)
+                            : (stage ? &st_enc_group_kernel<int8_t, true, false>
+                                     : &st_enc_group_kernel<int8_t, false, false>);
+  err = launch_enc(kernel, stage, g, tasks, smem, (cudaStream_t)stream);
   return err ? err : (int)cudaGetLastError();
 }
 

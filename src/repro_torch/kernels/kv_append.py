@@ -36,6 +36,14 @@ scales ``(B,)`` f32 ``scale_log2``; table ``(B, pages_per_slot)``; lens,
 ``n_valid`` and active ``(B,)`` (``n_valid`` None: every row valid; active
 None: every slot active). Both versions update the pages in place and
 return them.
+
+Quant health: ``health``, a (2,) int64 tensor on the pages' device or
+None, gets (clipped, total) of the rows written added to it — the
+reference's ``append_health`` (``obs.pow2_clip_stats`` of the new K/V
+against the slots' scales, summed over both tensors; a row counts where its
+slot is active and it is below ``n_valid``). The kernel counts inside the
+encode (``csrc/kv_append.cu``); the twin with ``pow2_clip_stats``. None
+(the default) counts nothing and runs the counter-free kernel.
 """
 from __future__ import annotations
 
@@ -113,17 +121,38 @@ def _check(kdata, vdata, kscale, vscale, k, v, table, lens, active, n_valid,
     return code
 
 
+def _counted_rows(active, n_valid, b: int, s: int, device) -> torch.Tensor:
+    """(B, S) bool: the rows the health counter counts (active slot, row
+    below ``n_valid``)."""
+    ok = torch.ones((b, s), dtype=torch.bool, device=device)
+    if active is not None:
+        ok = ok & active.bool()[:, None]
+    if n_valid is not None:
+        ok = ok & (torch.arange(s, device=device) < n_valid.long()[:, None])
+    return ok
+
+
 def append_paged_torch(kdata: torch.Tensor, vdata: torch.Tensor,
                        kscale: torch.Tensor, vscale: torch.Tensor,
                        k: torch.Tensor, v: torch.Tensor, table: torch.Tensor,
                        lens: torch.Tensor, active, *, page_size: int,
-                       bits: int, n_valid=None, clamp_last: bool = False
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
+                       bits: int, n_valid=None, clamp_last: bool = False,
+                       health=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's plain version: per tensor, the row-scale encode of the
     (B * S, F) tokens under their slots' scales, scattered to their pages
-    and offsets."""
+    and offsets; with ``health``, ``pow2_clip_stats`` of each tensor over
+    the counted rows added to it."""
     _check(kdata, vdata, kscale, vscale, k, v, table, lens, active, n_valid,
            page_size, bits)
+    if health is not None:
+        from ..obs.counters import pow2_clip_stats
+        b, s = k.shape[:2]
+        ok = _counted_rows(active, n_valid, b, s, k.device)
+        for new, scale in ((k, kscale), (v, vscale)):
+            c, t = pow2_clip_stats(
+                new.reshape(b, s, -1), scale.reshape(b).float(), bits,
+                valid=ok[..., None])
+            health += torch.stack([c, t]).to(health.dtype)
     b, s = k.shape[:2]
     pages, offs = token_pages(table, lens, active, s, page_size,
                               kdata.shape[0] - 1, n_valid, clamp_last)
@@ -139,7 +168,7 @@ def append_paged_torch(kdata: torch.Tensor, vdata: torch.Tensor,
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # the C signature of p2_append_paged, the stream last
 ARGTYPES = (_P, _P, _I, _LL, _LL, _LL, _LL, _I, _P, _P, _I, _P, _P, _P, _LL,
-            _I, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _P)
+            _I, _P, _P, _P, _I, _I, _LL, _LL, _I, _I, _I, _P, _P)
 
 
 def _lib() -> ctypes.CDLL:
@@ -163,13 +192,19 @@ def c_args(kdata: torch.Tensor, vdata: torch.Tensor, kscale: torch.Tensor,
            vscale: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            table: torch.Tensor, lens: torch.Tensor, active, *,
            page_size: int, bits: int, n_valid=None,
-           clamp_last: bool = False) -> tuple[list, list]:
+           clamp_last: bool = False, health=None) -> tuple[list, list]:
     """The kernel's C arguments but the stream (pointers as ints), after
     ``_check``, and the tensors they point into, which the caller keeps
     alive until the launch. K and V pass their own widths (``kfeat``,
     ``vfeat``: one value twice for GQA)."""
     code = _check(kdata, vdata, kscale, vscale, k, v, table, lens, active,
                   n_valid, page_size, bits)
+    if health is not None and (health.dtype != torch.int64
+                               or tuple(health.shape) != (2,)
+                               or not health.is_contiguous()):
+        raise ValueError(f"{NAME}: the health counter is a contiguous (2,) "
+                         f"int64 tensor, got {tuple(health.shape)} "
+                         f"{health.dtype}")
     b, s = k.shape[:2]
     kfeat, vfeat = math.prod(kdata.shape[2:]), math.prod(vdata.shape[2:])
     xk, xv = _token_rows(k, b, s, kfeat), _token_rows(v, b, s, vfeat)
@@ -190,7 +225,8 @@ def c_args(kdata: torch.Tensor, vdata: torch.Tensor, kscale: torch.Tensor,
             table.shape[1], lens.data_ptr(),
             None if active is None else active.data_ptr(),
             None if n_valid is None else n_valid.data_ptr(), int(clamp_last),
-            b, kfeat, vfeat, page_size, kdata.shape[0] - 1, bits]
+            b, kfeat, vfeat, page_size, kdata.shape[0] - 1, bits,
+            None if health is None else health.data_ptr()]
     return args, [xk, xv, kscale, vscale, table, lens, active, n_valid]
 
 
@@ -198,18 +234,20 @@ def append_paged_cuda(kdata: torch.Tensor, vdata: torch.Tensor,
                       kscale: torch.Tensor, vscale: torch.Tensor,
                       k: torch.Tensor, v: torch.Tensor, table: torch.Tensor,
                       lens: torch.Tensor, active, *, page_size: int,
-                      bits: int, n_valid=None, clamp_last: bool = False
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
+                      bits: int, n_valid=None, clamp_last: bool = False,
+                      health=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``p2_append_paged`` once for K and V of every row of every
-    slot; raises on anything the kernel does not take."""
+    slot (adding the health counts to ``health`` when given); raises on
+    anything the kernel does not take."""
     dev = kdata.device
     tensors = [kdata, vdata, kscale, vscale, k, v, table, lens] + [
-        t for t in (active, n_valid) if t is not None]
+        t for t in (active, n_valid, health) if t is not None]
     if any(t.device != dev for t in tensors) or not kdata.is_cuda:
         raise ValueError(f"{NAME}: every tensor on one CUDA device")
     args, keep = c_args(kdata, vdata, kscale, vscale, k, v, table, lens,
                         active, page_size=page_size, bits=bits,
-                        n_valid=n_valid, clamp_last=clamp_last)
+                        n_valid=n_valid, clamp_last=clamp_last,
+                        health=health)
     lib = _lib()
     B.check(lib, lib.p2_append_paged(
         *args, torch.cuda.current_stream(dev).cuda_stream), NAME)

@@ -64,18 +64,19 @@ def append_paged(kdata: torch.Tensor, vdata: torch.Tensor,
                  kscale: torch.Tensor, vscale: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor, table: torch.Tensor, lens: torch.Tensor,
                  active, *, page_size: int, bits: int, n_valid=None,
-                 clamp_last: bool = False, impl: str = "cuda"
+                 clamp_last: bool = False, health=None, impl: str = "cuda"
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """S tokens per slot (S = 1: the decode append; S > 1: a chunk), K and
     V of one layer, encoded under each slot's pow-2 scale into the
     quantized pool's pages in place (inactive slots and rows at or past
     ``n_valid`` to the trash page; ``clamp_last`` picks the rule for a row
-    past the slot's last page). Layouts in ``kernels/kv_append.py``."""
+    past the slot's last page); ``health`` (a (2,) int64 tensor) gets the
+    rows' (clipped, total) added. Layouts in ``kernels/kv_append.py``."""
     fn = _route("append_paged", impl, (kdata, vdata, k, v),
                 kv_append.append_paged_cuda, kv_append.append_paged_torch)
     return fn(kdata, vdata, kscale, vscale, k, v, table, lens, active,
               page_size=page_size, bits=bits, n_valid=n_valid,
-              clamp_last=clamp_last)
+              clamp_last=clamp_last, health=health)
 
 
 def prefill_paged(kdata: torch.Tensor, vdata: torch.Tensor,

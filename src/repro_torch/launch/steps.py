@@ -17,9 +17,15 @@ together: the grad edge's per-tensor-max step and the wire's flattened
 blockwise round trip (``optim/grad_compress.py``). So the two packages
 quantize every gradient on the same grid.
 
+Quant health (``policy.health`` with quantization on): the step's metrics
+gain ``health``, the reference's ``_train_health`` — the grad edge's
+saturated codes, counted inside its group fake-quant launches (one (2,)
+int64 counter a step, on the device), and each managed site's scale,
+statistic and whether it sits in the target band. Device tensors, like
+every other metric: nothing is read back.
+
 Not ported here: the data-parallel step and a ``plan`` with a mesh
-(ROADMAP queue 1 item 8), and the quant-health aggregates of
-``policy.health`` (item 6); both raise.
+(ROADMAP queue 1 item 8); it raises.
 """
 from __future__ import annotations
 
@@ -52,13 +58,6 @@ def _no_mesh(plan) -> None:
         raise NotImplementedError(
             "a plan with a mesh (the data-parallel and sharded steps) is "
             "not ported: ROADMAP queue 1 item 8")
-
-
-def _no_health(policy: NumericsPolicy) -> None:
-    if policy.health and policy.enable:
-        raise NotImplementedError(
-            "quant-health aggregates (policy.health, _train_health) are not "
-            "ported: ROADMAP queue 1 item 6")
 
 
 def init_train_state(params, tcfg: TrainConfig,
@@ -106,15 +105,19 @@ def train_state_sites(state: TrainState) -> dict[str, dict]:
     return out
 
 
-def _quantize_grad_edge(grads, scales, policy: NumericsPolicy):
+def _quantize_grad_edge(grads, scales, policy: NumericsPolicy, sat=None):
     """The ``grad_edge`` site at the step level: round every floating
     gradient onto the grad_bits pow-2 grid under a per-tensor-max step
     (clip-free), one step per reference leaf: the max runs over the
     leaf's per-layer tensors together. On the card one group fake-quant
     launch per dtype and ``grouped.FQ_CAP`` tensors, the steps read on the
     device. The managed ``grad_edge`` ScaleState advances on the mean
-    |g| over every floating leaf."""
-    if scales is None or "grad_edge" not in scales:
+    |g| over every floating leaf. ``sat`` (a (2,) int64 tensor): the
+    launches add (saturated, total) of the codes to it — the reference's
+    ``tree_sat_stats(grads, grad_edge)``; without a managed ``grad_edge``
+    scale the launches run for that count alone and the gradients pass
+    through."""
+    if scales is None or ("grad_edge" not in scales and sat is None):
         return grads, scales
     spec = policy.spec_for("grad_edge")
     flat = flatten_with_path(grads)
@@ -134,15 +137,38 @@ def _quantize_grad_edge(grads, scales, policy: NumericsPolicy):
     for idx in by_dtype.values():
         qs = CB.fake_quant_scalar_many([flat[i][1].detach() for i in idx],
                                        torch.stack([steps[i] for i in idx]),
-                                       spec.bits)
+                                       spec.bits, sat=sat)
         for i, q in zip(idx, qs):
             out[i] = q
+    if "grad_edge" not in scales:
+        return grads, scales
     tot = torch.stack([torch.sum(flat[i][1].abs(), dtype=torch.float32)
                        for i in live]).sum()
     cnt = sum(flat[i][1].numel() for i in live)
     gm = (tot / max(cnt, 1))[None]
     return unflatten(grads, out), policy.update_scales(scales,
                                                        {"grad_edge": gm})
+
+
+def _train_health(sat: torch.Tensor, scales: dict,
+                  policy: NumericsPolicy) -> dict:
+    """Per-site quant-health aggregates of one train step — the
+    reference's ``_train_health``. ``sat`` is the (saturated, total) of the
+    grad edge's codes (counted by its launches, under the per-tensor-max
+    steps the quantizer uses: clip-free, so saturation means values AT
+    max|g|). Each managed ScaleState reports its §3.3 statistic and whether
+    it sits inside the policy's target band."""
+    from ..obs.counters import fraction
+    health = {"grad_edge": {"sat_fraction": fraction(sat[0], sat[1]),
+                            "saturated": sat[0], "total": sat[1]}}
+    for site, st in scales.items():
+        health.setdefault(site, {})
+        health[site]["scale_log2"] = st.log2.float()
+        health[site]["mean_abs"] = st.mean_abs
+        health[site]["in_band"] = ((st.mean_abs >= policy.target_lo)
+                                   & (st.mean_abs <= policy.target_hi)
+                                   ).float()
+    return health
 
 
 def _ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -224,16 +250,22 @@ def _value_and_grad(loss_fn, params, batch, scales):
 
 
 def _finish_step(state: TrainState, lm: LMDef, tcfg: TrainConfig,
-                 policy: NumericsPolicy, grads, scales):
+                 policy: NumericsPolicy, grads, scales, metrics: dict):
     """Everything after the gradients: the wire, the grad edge, clipping,
-    AdamW and the λ update. Returns (params, opt, residual, scales, gnorm,
-    lr)."""
+    AdamW and the λ update; with ``policy.health`` (and quantization on)
+    ``metrics["health"]`` from the grad edge's counts and the scales after
+    it. Returns (params, opt, residual, scales, gnorm, lr)."""
     residual = state.residual
     if tcfg.grad_compress:
         from ..optim.grad_compress import compress_decompress
         grads, residual = compress_decompress(grads, residual,
                                               policy.spec_for("dp_wire"))
-    grads, scales = _quantize_grad_edge(grads, scales, policy)
+    want_health = policy.health and policy.enable and scales is not None
+    sat = (torch.zeros(2, dtype=torch.int64, device=state.step.device)
+           if want_health else None)
+    grads, scales = _quantize_grad_edge(grads, scales, policy, sat)
+    if want_health:
+        metrics["health"] = _train_health(sat, scales, policy)
     if tcfg.grad_clip > 0:
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
     else:
@@ -252,7 +284,6 @@ def make_train_step(lm: LMDef, plan, tcfg: TrainConfig):
     _no_mesh(plan)
     loss_fn = make_loss_fn(lm, plan, tcfg)
     policy = lm.cfg.quant.policy()
-    _no_health(policy)
 
     def train_step(state: TrainState, batch):
         loss, (metrics, obs), grads = _value_and_grad(
@@ -263,7 +294,7 @@ def make_train_step(lm: LMDef, plan, tcfg: TrainConfig):
             # observed mean |activation| (lm_forward's edges)
             scales = policy.update_scales(scales, obs)
         params, opt, residual, scales, gnorm, lr = _finish_step(
-            state, lm, tcfg, policy, grads, scales)
+            state, lm, tcfg, policy, grads, scales, metrics)
         metrics = dict(metrics, loss=loss, gnorm=gnorm, lr=lr)
         return TrainState(params, opt, state.step + 1, residual,
                           scales), metrics
@@ -283,7 +314,6 @@ def make_grad_accum_train_step(lm: LMDef, plan, tcfg: TrainConfig,
     _no_mesh(plan)
     loss_fn = make_loss_fn(lm, plan, tcfg)
     policy = lm.cfg.quant.policy()
-    _no_health(policy)
 
     def train_step(state: TrainState, batch):
         gsum = lsum = osum = None
@@ -310,9 +340,10 @@ def make_grad_accum_train_step(lm: LMDef, plan, tcfg: TrainConfig,
                 and lm.cfg.quant.enable:
             scales = policy.update_scales(
                 scales, {"activation": osum / n_micro})
+        metrics = {}
         params, opt, residual, scales, gnorm, lr = _finish_step(
-            state, lm, tcfg, policy, grads, scales)
-        metrics = {"loss": lsum / n_micro, "gnorm": gnorm, "lr": lr}
+            state, lm, tcfg, policy, grads, scales, metrics)
+        metrics.update(loss=lsum / n_micro, gnorm=gnorm, lr=lr)
         return TrainState(params, opt, state.step + 1, residual,
                           scales), metrics
 

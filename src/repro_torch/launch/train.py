@@ -7,14 +7,17 @@ logging with the straggler monitor, and the final parameter counts.
     PYTHONPATH=src python -m repro_torch.launch.train --arch lm100m --tt \\
         --quantize --steps 3 --batch 2 --seq 32 --device cpu
 
-It runs on the card unless ``--device cpu`` is given. Left out, and
-refused where asked for: checkpointing and resume, the preemption handler
-and the prefetching pipeline (ROADMAP queue 1 item 7), the trace and the
-memory ledger (items 6-7), and meshes (item 8).
+It runs on the card unless ``--device cpu`` is given. ``--trace-out
+PATH`` writes one ``train_step`` event a step as JSONL and turns the
+policy's quant health on (with ``--quantize``), as the reference's
+driver does. Left out: checkpointing and resume, the preemption handler
+and the prefetching pipeline (ROADMAP queue 1 item 7), and meshes (item 8,
+refused where asked for).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -25,7 +28,8 @@ from ..configs.base import ModelConfig, TrainConfig
 from ..data import lm_batch
 from ..device import resolve_device
 from ..models.lm import build_lm, init_lm, lm_param_counts
-from .steps import init_train_state, make_train_step
+from ..obs import MemoryLedger, TraceRecorder, write_jsonl
+from .steps import init_train_state, make_train_step, train_state_sites
 
 # a ~100M-param dense config for the end-to-end example driver
 LM100M = ModelConfig(name="lm100m", num_layers=12, d_model=768, num_heads=12,
@@ -92,6 +96,20 @@ def _to_device(np_batch: dict, device: torch.device) -> dict:
             for k, v in np_batch.items()}
 
 
+def _record_train_state(ledger, state) -> None:
+    """Fold one TrainState into the memory ledger (host-side, between
+    steps: sizes only, no device work)."""
+    for site, row in train_state_sites(state).items():
+        ledger.set(site, row["bytes"], fp32=row["fp32_bytes"])
+
+
+def _state_tensors(state) -> list:
+    """The tensors a TrainState holds (params, moments, residual, scales,
+    step): what a CPU reconcile counts as live."""
+    return [state.params, list(state.opt), state.residual, state.scales,
+            state.step]
+
+
 def train(cfg: ModelConfig, strategy: str, tcfg: TrainConfig, *,
           batch: int, seq: int, mesh=None, verbose: bool = True,
           trace=None, ledger=None, device=None, on_step=None):
@@ -101,20 +119,25 @@ def train(cfg: ModelConfig, strategy: str, tcfg: TrainConfig, *,
     the rank prior). ``on_step(step, metrics)``, when given, sees each
     step's metrics (device scalars).
 
+    ``trace``: an optional ``obs.TraceRecorder`` — the loop emits one
+    ``train_step`` event a step (step, loss, dur, and with the policy's
+    health on ``grad_sat_fraction``, ``act_scale_log2`` and
+    ``act_in_band``). ``ledger``: an optional ``obs.MemoryLedger`` (one is
+    made when None) — the TrainState's sites (params, moments, wire
+    residual, scale state) at init and after every step, so the ``init``
+    and ``train_step`` watermarks cover the run; the closing ``[train]
+    memory`` line reconciles it against the CUDA allocator on the card, or
+    against the state's own tensors on the CPU. Neither adds device work
+    to a step.
+
     Not ported, and refused where asked for: ``mesh`` (ROADMAP queue 1 item
-    8), ``trace`` (item 6) and ``ledger`` (item 7). Never ported into this
-    loop yet (item 7): checkpoints (``tcfg.ckpt_dir`` / ``ckpt_every``
-    are not written, no resume), the preemption handler and the
-    prefetching pipeline (batches are made in the loop)."""
+    8). Never ported into this loop yet (item 7): checkpoints
+    (``tcfg.ckpt_dir`` / ``ckpt_every`` are not written, no resume), the
+    preemption handler and the prefetching pipeline (batches are made in
+    the loop)."""
     if mesh is not None:
         raise NotImplementedError("meshes are not ported: ROADMAP queue 1 "
                                   "item 8")
-    if trace is not None:
-        raise NotImplementedError("the step trace is not ported: ROADMAP "
-                                  "queue 1 item 6")
-    if ledger is not None:
-        raise NotImplementedError("the memory ledger is not ported: ROADMAP "
-                                  "queue 1 item 7")
     del strategy                 # the sharding strategy needs a mesh
     device = resolve_device(device)
     lm = build_lm(cfg)
@@ -123,6 +146,9 @@ def train(cfg: ModelConfig, strategy: str, tcfg: TrainConfig, *,
     state = init_train_state(params, tcfg, policy=cfg.quant.policy())
     del params
     step_fn = make_train_step(lm, None, tcfg)
+    if ledger is None:
+        ledger = MemoryLedger(device)
+    _record_train_state(ledger, state)     # the "init" watermark
     batch_fn = make_batch_fn(cfg, batch, seq, tcfg.seed)
     monitor = StragglerMonitor()
     losses = []
@@ -135,7 +161,20 @@ def train(cfg: ModelConfig, strategy: str, tcfg: TrainConfig, *,
         if on_step is not None:
             on_step(step, metrics)
         dt = time.time() - t0
+        ledger.set_phase("train_step")
+        _record_train_state(ledger, state)
         slow = monitor.observe(dt)
+        if trace is not None:
+            ev = {"step": step, "loss": loss, "dur": dt}
+            if "health" in metrics:
+                h = metrics["health"]
+                ev["grad_sat_fraction"] = float(
+                    h["grad_edge"]["sat_fraction"])
+                if "activation" in h:
+                    ev["act_scale_log2"] = float(
+                        h["activation"]["scale_log2"])
+                    ev["act_in_band"] = float(h["activation"]["in_band"])
+            trace.emit("train_step", **ev)
         if verbose and (step % tcfg.log_every == 0 or slow):
             extra = "  [STRAGGLER]" if slow else ""
             print(f"[train] step {step} loss {loss:.4f} "
@@ -149,6 +188,14 @@ def train(cfg: ModelConfig, strategy: str, tcfg: TrainConfig, *,
         print(f"[train] params dense-equiv {counts['dense']:.3e} "
               f"live {counts['live']:.3e} "
               f"compression {counts['compression']:.1f}x", flush=True)
+        rec = ledger.reconcile(tensors=_state_tensors(state))
+        wm = ledger.watermark("train_step") or ledger.watermark("init")
+        print(f"[train] memory {ledger.total()/1e6:.2f} MB live "
+              f"({ledger.reduction_vs_fp32():.1f}x vs same-shape f32), "
+              f"train-step watermark {wm['total_bytes']/1e6:.2f} MB, "
+              f"reconcile {'ok' if rec['ok'] else 'FAILED'} "
+              f"(ledger covers {rec['coverage_frac']:.0%} of "
+              f"{rec['live_bytes']/1e6:.2f} MB live tensors)", flush=True)
     return state, losses
 
 
@@ -169,17 +216,26 @@ def main(argv=None):
                     choices=("float32", "int8"))
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the kernels' plain versions)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write per-step train_step trace events (JSONL)")
     args = ap.parse_args(argv)
 
     cfg, strategy = get_model_cfg(args.arch, args.reduced)
     if args.tt:
         cfg = C.with_tt(cfg, max_rank=32, quantize=args.quantize)
+    if args.trace_out and cfg.quant.enable:
+        # a trace run also switches on the step's quant-health aggregates
+        cfg = cfg.replace(quant=dataclasses.replace(cfg.quant, health=True))
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                        warmup_steps=max(5, args.steps // 20),
                        grad_compress=args.grad_compress,
                        opt_state_dtype=args.opt_state_dtype)
+    trace = TraceRecorder() if args.trace_out else None
     train(cfg, strategy, tcfg, batch=args.batch, seq=args.seq,
-          device=args.device)
+          device=args.device, trace=trace)
+    if trace is not None:
+        n = write_jsonl(trace, args.trace_out)
+        print(f"[train] wrote {n} trace events to {args.trace_out}")
 
 
 if __name__ == "__main__":

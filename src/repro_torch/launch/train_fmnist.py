@@ -7,6 +7,10 @@ synthetic FashionMNIST drop-in — the port of
 
     PYTHONPATH=src python -m repro_torch.launch.train_fmnist [--steps 600]
         [--device cpu] [--no-prior] [--no-quant] [--deploy-out PATH]
+        [--trace-out PATH]
+
+``--trace-out`` writes one ``train_step`` event a step (step, loss, dur:
+the step's host wall to its loss on the host) as JSONL.
 
 It runs on the card unless ``--device cpu`` is given. On the card every
 TT contraction and every fake-quant of the step is a hand-written CUDA
@@ -29,6 +33,7 @@ from ..data import fashion_like
 from ..device import resolve_device
 from ..kernels import grouped as G
 from ..models import mlp_tt as MLP
+from ..obs import TraceRecorder, write_jsonl
 from ..optim import adam as A
 from ..optim.binaryconnect import quantize_for_deploy
 from ..optim.grad_compress import WIRE_SPEC, compress_decompress
@@ -179,6 +184,8 @@ def main(argv=None) -> None:
     ap.add_argument("--no-quant", action="store_true")
     ap.add_argument("--deploy-out", default=None,
                     help="write the packed int4 deploy export here")
+    ap.add_argument("--trace-out", default=None,
+                    help="write per-step train_step trace events (JSONL)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -193,9 +200,14 @@ def main(argv=None) -> None:
                                                                    seed=2))
     step = make_step(d, tcfg)
 
+    trace = TraceRecorder() if args.trace_out else None
     t0 = time.time()
     for i in range(args.steps):
+        ts = time.time()
         params, opt, loss = step(params, opt, batch_at(xs, ys, i))
+        if trace is not None:
+            lv = float(loss)
+            trace.emit("train_step", step=i, loss=lv, dur=time.time() - ts)
         if i % 100 == 0:
             acc = accuracy(params, xt, yt, d)
             print(f"step {i:4d}  loss {float(loss):.4f}  test acc {acc:.3f}")
@@ -212,6 +224,9 @@ def main(argv=None) -> None:
         print(f"deploy export: {stats['packed_bytes']:,} B packed int4 "
               f"cores ({stats['reduction_x']:.1f}x vs fp32) "
               f"-> {args.deploy_out}")
+    if trace is not None:
+        n = write_jsonl(trace, args.trace_out)
+        print(f"wrote {n} trace events to {args.trace_out}")
 
 
 def print_table1(params, d: MLP.MLPDef, acc: float, dt: float,

@@ -113,6 +113,36 @@ def site_table(result: dict, deploy_path: str) -> tuple[dict, dict, dict]:
     return sites, baseline, deploy
 
 
+def live_memory_ledger(result: dict, deploy: dict, baseline: dict):
+    """A ``MemoryLedger`` of the step just run, from its live tensors —
+    the port's twin of the reference's ``live_memory_ledger``
+    (``benchmarks/train_wire.py``): the four Table-1 sites (the deploy
+    export's packed bytes, the activation edges at the policy's bits, the
+    int8 moments' resident bytes, one gradient wire's encoded bytes) plus
+    the wire's error-feedback residual, each beside the analytic dense
+    baseline (``site_table``'s). Its ``reduction_vs_fp32(TABLE1_SITES)`` is
+    the paper's memory figure, measured live."""
+    from ..obs import MemoryLedger
+    from ..optim.adam import moment_nbytes
+    from ..optim.grad_compress import residual_nbytes, wire_nbytes
+    policy = result["policy"]
+    led = MemoryLedger()
+    led.set_phase("train_step")
+    led.set("tt_factor", deploy["packed_bytes"], fp32=baseline["tt_factor"])
+    led.set("activation",
+            sum(policy.nbytes("activation", s)
+                for s in act_shapes(result["batch"])),
+            fp32=baseline["activation"])
+    led.set("optimizer_moment", moment_nbytes(result["opt"])[0],
+            fp32=baseline["optimizer_moment"])
+    enc, _ = wire_nbytes(result["grads"], policy.spec_for("dp_wire"))
+    led.set("dp_wire", enc, fp32=baseline["dp_wire"])
+    res = residual_nbytes(result["residual"])
+    if res:
+        led.set("grad_residual", res)
+    return led
+
+
 def print_site_table(sites: dict, baseline: dict, deploy: dict) -> None:
     print(f"{'site':18s} {'bytes':>10s} {'fp32 bytes':>12s} {'ratio':>8s}")
     for k in TABLE1_SITES:
@@ -161,11 +191,16 @@ def main(argv=None) -> None:
     if grads is None:
         return
     result = {"new_params": params, "opt": opt, "grads": grads,
-              "policy": d.qc.policy(), "batch": BATCH}
+              "residual": residual, "policy": d.qc.policy(), "batch": BATCH}
     with tempfile.TemporaryDirectory() as tmp:
         path = args.deploy_out or os.path.join(tmp, "deploy.ckpt")
         print()
-        print_site_table(*site_table(result, path))
+        sites, baseline, deploy = site_table(result, path)
+        print_site_table(sites, baseline, deploy)
+    led = live_memory_ledger(result, deploy, baseline)
+    print(f"live ledger: {led.total(TABLE1_SITES):,} B over the Table-1 "
+          f"sites ({led.reduction_vs_fp32(TABLE1_SITES):.2f}x vs fp32), "
+          f"{led.total():,} B with the wire residual")
 
 
 if __name__ == "__main__":

@@ -6,6 +6,7 @@ kernels, bit-identical), the
 ``NumericsPolicy`` site map and the §3.3 scale manager (``policy``)."""
 from .codecs import (BACKENDS, blockwise_geometry, decode,  # noqa: F401
                      decode_many, encode, encode_many, fake_quant, fake_quant_many,
+                     fake_quant_stats,
                      get_codec, pack_int4,
                      per_tensor_max_scale_log2, register_codec, roundtrip,
                      to_storage, unpack_int4)

@@ -347,6 +347,23 @@ def fake_quant_many(xs: list[torch.Tensor], spec: QuantSpec, scales,
     return get_codec(spec, backend).fake_quant_many(xs, spec, scales)
 
 
+def fake_quant_stats(x: torch.Tensor, spec: QuantSpec, scale=None,
+                     backend: str = "reference"
+                     ) -> tuple[torch.Tensor, tuple[torch.Tensor,
+                                                    torch.Tensor]]:
+    """``fake_quant`` with a quant-health aux output: ``(y, (clipped,
+    total))`` int32 counts of values outside the representable range
+    (``obs.pow2_clip_stats``). For blockwise specs the scale is data-derived
+    (absmax covers the range), so the aux reports saturated codes instead —
+    the same "pinned at the grid edge" health signal."""
+    from ..obs.counters import pow2_clip_stats, saturation_counts
+    y = fake_quant(x, spec, scale, backend)
+    if spec.kind == "pow2":
+        return y, pow2_clip_stats(x.detach(), scale, spec.bits)
+    return y, saturation_counts(get_codec(spec, backend).encode(
+        x.detach(), spec, scale))
+
+
 def roundtrip(x: torch.Tensor, spec: QuantSpec, scale=None,
               backend: str = "reference") -> torch.Tensor:
     """decode(encode(x)) without STE — pure value quantization (the

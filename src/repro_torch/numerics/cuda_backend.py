@@ -332,7 +332,7 @@ def fq_typed(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` (a build of ``csrc/pow2_fq.cu``) with its C signatures."""
     if not getattr(lib, "_repro_typed", False):
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.p2_fq_group.argtypes = [ctypes.POINTER(ll), i, i, i, i, p]
+        lib.p2_fq_group.argtypes = [ctypes.POINTER(ll), i, i, i, i, p, p]
         lib.p2_fq_group.restype = i
         lib.p2_fq_rows.argtypes = [p, i, p, p, ll, ll, i, p]
         lib.p2_fq_rows.restype = i
@@ -350,23 +350,44 @@ def fake_quant_plain(x: torch.Tensor, step_log2, bits: int) -> torch.Tensor:
                                        device=x.device).reshape(()), bits)
 
 
+def sat_counts_plain(xs: list[torch.Tensor], steps_log2: torch.Tensor,
+                     bits: int) -> torch.Tensor:
+    """(saturated, total) int64 of the codes ``encode`` gives each x under
+    its own step (``obs.saturation_counts`` of each): the fake-quant
+    group's saturation counter's plain version."""
+    from ..obs.counters import saturation_counts
+    spec = QuantSpec("pow2", bits, 0, "int32", "per_tensor_max")
+    out = torch.zeros(2, dtype=torch.int64, device=xs[0].device)
+    for n, x in enumerate(xs):
+        codes = encode_scalar_plain(x, steps_log2[n].reshape(1), bits,
+                                    torch.int32)
+        out += torch.stack(saturation_counts(QTensor(codes, 0.0, spec)))
+    return out
+
+
 def fake_quant_many_plain(xs: list[torch.Tensor], steps_log2: torch.Tensor,
-                          bits: int) -> list[torch.Tensor]:
+                          bits: int, sat: torch.Tensor | None = None
+                          ) -> list[torch.Tensor]:
     """The group kernel's plain version: ``fake_quant_plain`` of each x
-    with its own step."""
+    with its own step; ``sat`` gets ``sat_counts_plain`` added."""
+    if sat is not None and xs:
+        sat += sat_counts_plain(xs, steps_log2, bits)
     return [fake_quant_plain(x, steps_log2[n], bits) for n, x in enumerate(xs)]
 
 
 def _fq_group(xs: list[torch.Tensor], steps: list[int], bits: int,
               storage: torch.dtype | None = None, *,
               lib: ctypes.CDLL | None = None,
-              stream: bool = True) -> list[torch.Tensor]:
+              stream: bool = True, sat: torch.Tensor | None = None
+              ) -> list[torch.Tensor]:
     """Launch ``p2_fq_group`` over CUDA tensors ``xs`` of one dtype, the f32
     step of ``xs[n]`` at device address ``steps[n]`` (read on the device):
     one launch per ``grouped.FQ_CAP`` tensors, units as ``grouped.fq_plan``
     gives them. ``storage`` None: the fake-quant; a code type: the codec's
     round trip through it. ``lib``: another build of the source;
-    ``stream=False``: narrow units throughout (both yardsticks only)."""
+    ``stream=False``: narrow units throughout (both yardsticks only).
+    ``sat`` (the fake-quant only): a (2,) int64 tensor on the device that
+    each launch adds (saturated, total) to."""
     what = FQ if storage is None else RT
     dtype = xs[0].dtype
     if dtype not in _FQ_DTYPE_CODE or any(x.dtype != dtype for x in xs):
@@ -391,6 +412,7 @@ def _fq_group(xs: list[torch.Tensor], steps: list[int], bits: int,
         table = (ctypes.c_longlong * len(rows))(*rows)
         B.check(lib, lib.p2_fq_group(table, len(launch.index),
                                      _FQ_DTYPE_CODE[dtype], bits, code,
+                                     None if sat is None else sat.data_ptr(),
                                      cuda_stream), what)
         B.note_launch(what)
     return ys
@@ -415,12 +437,16 @@ def fake_quant_scalar(x: torch.Tensor, step_log2, bits: int) -> torch.Tensor:
 
 
 def fake_quant_scalar_many(xs: list[torch.Tensor], steps_log2,
-                           bits: int) -> list[torch.Tensor]:
+                           bits: int, sat: torch.Tensor | None = None
+                           ) -> list[torch.Tensor]:
     """``fake_quant_scalar`` of each tensor of ``xs`` (one dtype, one
     device) under its own step, ``steps_log2[n]`` for ``xs[n]`` (a tensor of
     ``len(xs)`` steps, read on the device, never on the host): on the card
     one launch for the lot. No gradient rule: ``Pow2Cuda.fake_quant_many``
-    wraps it in the clipped STE."""
+    wraps it in the clipped STE. ``sat``, a (2,) int64 tensor on the
+    device or None, gets (saturated, total) of the codes ``encode`` gives
+    each tensor under its step added (counted inside the launch on the
+    card; ``sat_counts_plain`` on the CPU)."""
     if not xs:
         return []
     steps = torch.as_tensor(steps_log2, dtype=torch.float32,
@@ -428,14 +454,19 @@ def fake_quant_scalar_many(xs: list[torch.Tensor], steps_log2,
     if steps.numel() != len(xs):
         raise ValueError(f"{FQ}: one step per tensor, got {steps.numel()} "
                          f"steps for {len(xs)} tensors")
+    if sat is not None and (sat.dtype != torch.int64
+                            or tuple(sat.shape) != (2,)
+                            or not sat.is_contiguous()):
+        raise ValueError(f"{FQ}: the saturation counter is a contiguous (2,) "
+                         f"int64 tensor, got {tuple(sat.shape)} {sat.dtype}")
     if not xs[0].is_cuda:
         if any(x.is_cuda for x in xs):
             raise ValueError(f"{FQ}: tensors must be on one device")
-        return fake_quant_many_plain(xs, steps, bits)
-    _one_device(xs, [steps], FQ)
+        return fake_quant_many_plain(xs, steps, bits, sat)
+    _one_device(xs, [steps] + ([] if sat is None else [sat]), FQ)
     steps = steps.contiguous()
     return _fq_group(xs, [steps.data_ptr() + 4 * n for n in range(len(xs))],
-                     bits)
+                     bits, sat=sat)
 
 
 def roundtrip_many_plain(xs: list[torch.Tensor], steps: list[torch.Tensor],
@@ -721,20 +752,42 @@ def state_decode_many_plain(codes: list[torch.Tensor],
     return out
 
 
+def state_write_health(scale_l: torch.Tensor, new: torch.Tensor,
+                       step: torch.Tensor, active: torch.Tensor, bits: int
+                       ) -> tuple[torch.Tensor, ...]:
+    """(clipped, total, drift_sum, drift_n) of one (layer, tensor) write
+    of the state pool: ``obs.pow2_clip_stats`` of the (B, *feat) new state
+    under its fresh per-slot scales ``step`` over the active slots, and
+    ``obs.scale_drift_stats`` of the stored scales ``scale_l`` against
+    them — the reference's ``state_cache.write_health``."""
+    from ..obs.counters import pow2_clip_stats, scale_drift_stats
+    amask = active.reshape((-1,) + (1,) * (new.dim() - 1))
+    clipped, total = pow2_clip_stats(new, step, bits, valid=amask)
+    dsum, dn = scale_drift_stats(scale_l, step, valid=active)
+    return clipped, total, dsum, dn
+
+
 def state_encode_many_plain(codes: list[torch.Tensor],
                             scales: list[torch.Tensor],
                             news: list[list[torch.Tensor]],
-                            active: torch.Tensor, bits: int) -> None:
+                            active: torch.Tensor, bits: int,
+                            health: torch.Tensor | None = None) -> None:
     """The state encode group's plain version: each (layer, tensor)'s new
     state written into the pool as ``state_cache.write_layer`` writes it,
     in place: a ``per_tensor_max`` scale per slot, ``encode_rows_plain``,
-    the active slots' codes and scales kept, the inactive slots' left."""
+    the active slots' codes and scales kept, the inactive slots' left.
+    ``health`` ((4,) int64): each write's ``state_write_health`` added,
+    the stored scales read before they are overwritten."""
     spec = _state_spec(bits)
     for q, s, layers in zip(codes, scales, news):
         for lay, new in enumerate(layers):
             amask = active.reshape((-1,) + (1,) * (new.dim() - 1))
             step = per_tensor_max_scale_log2(
                 new, spec, reduce_axes=tuple(range(1, new.dim())))
+            if health is not None:
+                health += torch.stack([
+                    v.to(torch.int64) for v in state_write_health(
+                        s[lay], new, step, active, bits)])
             c = encode_rows_plain(new.reshape(new.shape[0], -1), step, bits,
                                   q.dtype).reshape(new.shape)
             q[lay].copy_(torch.where(amask, c, q[lay]))
@@ -792,7 +845,7 @@ def _state_lib() -> ctypes.CDLL:
         table = ctypes.POINTER(ctypes.c_longlong)
         lib.st_dec_group.argtypes = [table, i, p]
         lib.st_dec_group.restype = i
-        lib.st_enc_group.argtypes = [table, i, table, i, p, i, i, i, i, p]
+        lib.st_enc_group.argtypes = [table, i, table, i, p, i, i, i, i, p, p]
         lib.st_enc_group.restype = i
         lib.st_dec_slot.argtypes = [table, i, p, i, p]
         lib.st_dec_slot.restype = i
@@ -944,19 +997,23 @@ def _slot_stride(x: torch.Tensor) -> int | None:
 
 def state_encode_many(codes: list[torch.Tensor], scales: list[torch.Tensor],
                       news: list[list[torch.Tensor]], active: torch.Tensor,
-                      bits: int) -> None:
+                      bits: int, health: torch.Tensor | None = None) -> None:
     """Write every layer's new state into the pool, in place: ``news[n][l]``
     (B, *feat) into layer l of the (L, B, *feat) int8 pool tensor
     ``codes[n]`` and its (L, B) ``scales[n]``, a ``per_tensor_max`` scale
     per slot, only where the (B,) bool ``active`` is set (one device). On
     the card one ``st_enc_group`` launch for up to ``grouped.ST_CAP``
     pieces and ``grouped.ST_PTR_CAP`` new states (``grouped.st_enc_plan``),
-    ``active`` read on the device; on the CPU the plain version."""
-    _st_encode(codes, scales, news, active, bits)
+    ``active`` read on the device; on the CPU the plain version.
+    ``health``, a (4,) int64 tensor on the pool's device or None, gets
+    (clipped, total, drift_sum, drift_n) of the step's writes added (the
+    reference's ``write_health`` summed over layers and tensors; counted
+    inside the kernel on the card)."""
+    _st_encode(codes, scales, news, active, bits, health=health)
 
 
 def _st_encode(codes, scales, news, active, bits,
-               reread: bool = False) -> None:
+               reread: bool = False, health=None) -> None:
     """``state_encode_many``. ``reread`` has every launch re-read its
     values from global memory in the second pass where the plan would
     stage them in shared memory: a yardstick ``chip_smoke.py`` times, on
@@ -969,17 +1026,25 @@ def _st_encode(codes, scales, news, active, bits,
                                               for q in codes):
         raise ValueError(f"{STENC}: want {slots} slots in every pool tensor "
                          f"and (B,) active, got {tuple(active.shape)}")
-    _one_device(codes, [n for layers in news for n in layers] + [active],
-                STENC)
+    _one_device(codes, [n for layers in news for n in layers] + [active]
+                + ([] if health is None else [health]), STENC)
+    if health is not None and (health.dtype != torch.int64
+                               or tuple(health.shape) != (4,)
+                               or not health.is_contiguous()):
+        raise ValueError(f"{STENC}: the health counter is a contiguous (4,) "
+                         f"int64 tensor, got {tuple(health.shape)} "
+                         f"{health.dtype}")
     if not codes[0].is_cuda:
-        return state_encode_many_plain(codes, scales, news, active, bits)
+        return state_encode_many_plain(codes, scales, news, active, bits,
+                                       health)
     if active.dtype != torch.bool or not active.is_contiguous():
         raise TypeError(f"{STENC}: active must be a contiguous bool tensor")
     lib = _state_lib()
+    hptr = None if health is None else health.data_ptr()
     for args in _st_enc_tables(STENC, codes, scales, news, bits, slots,
                                slots, reread, True):
         B.check(lib, lib.st_enc_group(*args[:4], active.data_ptr(), slots,
-                                      *args[4:]), STENC)
+                                      *args[4:-1], hptr, args[-1]), STENC)
         B.note_launch(STENC)
 
 

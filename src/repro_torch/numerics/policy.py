@@ -105,8 +105,8 @@ class NumericsPolicy:
     target_lo: float = 0.1
     target_hi: float = 0.3
     ema: float = 0.9
-    # quant-health telemetry (repro.obs, not ported): carried so the JSON
-    # round-trips
+    # quant-health telemetry (repro_torch.obs): the engine's decode step
+    # and the train step count clipped / saturated codes when set
     health: bool = False
 
     def spec_for(self, site: str) -> QuantSpec:

@@ -77,12 +77,34 @@ is built, so the fp32 fused-vs-gather identity holds as in the reference.
 The pool is updated in place (see ``kv_cache``); PyTorch runs eagerly, so
 there is no compiled-step cache.
 
+Observability (``obs/``): ``trace=`` takes an ``obs.TraceRecorder``; the
+engine, the scheduler and the prefix cache emit the reference's events
+(``submit``, ``admit``, ``prefill_chunk``, ``prefill``, ``first_token``,
+``decode_step``, ``spec_step``, ``preempt``, ``retire``, ``page_alloc``,
+``page_free``, ``cache_hit``, ``cow_fork``, ``prefix_evict``) from the
+host-side step loop, and each decode step's ``dur`` fills the metrics'
+timeline. ``policy.health`` counts, in the batched decode step only as in
+the reference, the KV appends' clipped values against the slots' frozen
+scales (``kv_cache``; GQA's K and V, MLA's ``c_kv`` and ``k_rope``) and the
+state writes' clip counts and scale drift (``ssm_state``), summed over
+layers and tensors into one (6,) int64 counter on the device: counted
+inside the ``p2_append_paged`` and ``st_enc_group`` launches that encode
+the values (their plain versions on the CPU), so health adds no launch of
+its own, and read back once a step. ``self.ledger`` (an
+``obs.MemoryLedger``) holds the resident sites — ``params``, ``kv_pool``,
+``state_pool``, ``draft_params``, ``draft_kv_pool`` and the uncounted
+prefix overlays — with phase watermarks; ``summary()["memory"]`` carries
+it, reconciled against ``torch.cuda.memory_allocated`` on the card (on the
+CPU against the bytes of the tensors the engine holds). With no recorder
+and health off a decode step dispatches exactly the ATen calls it did
+without them (``tests/test_torch_obs.py``).
+
 Not carried over: the reference's ``CompileCache`` / ``max_prefill_shapes``
-(they bound live jitted prefill shapes; eager PyTorch compiles none).
-Refused as the reference refuses them: encoder-only archs and the
-frontend (audio, vision) configs. Still to port (they raise
-``NotImplementedError`` naming what they wait for): a mesh, quant-health
-policies and trace recorders.
+(they bound live jitted prefill shapes; eager PyTorch compiles none), and
+with it the ledger's ``compile_cache`` site. Refused as the reference
+refuses them: encoder-only archs and the frontend (audio, vision)
+configs. Still to port (it raises ``NotImplementedError``): a mesh
+(``plan=``).
 """
 from __future__ import annotations
 
@@ -100,6 +122,8 @@ from ..models import ssm as S
 from ..models.common import apply_site, rms_norm
 from ..models.lm import (STATE_MIXERS, LMDef, embed_tokens, lm_forward,
                          sub_ffn_decode)
+from ..obs import MemoryLedger, registry
+from ..tree import leaves
 from . import kv_cache as KC
 from . import state_cache as SC
 from .kv_cache import PoolConfig
@@ -189,6 +213,13 @@ def _check_draft(lm: LMDef, draft) -> None:
                          f"{lm.cfg.vocab_size}")
 
 
+def _tree_bytes(tree) -> tuple[int, int]:
+    """(resident, fp32) bytes of a parameter tree's tensors."""
+    ts = leaves(tree)
+    return (sum(t.numel() * t.element_size() for t in ts),
+            4 * sum(t.numel() for t in ts))
+
+
 def _bucket_len(n: int, bucket: int) -> int:
     """Smallest multiple of ``bucket`` >= n (n itself when bucket <= 0)."""
     return n if bucket <= 0 else n + (-n) % bucket
@@ -203,16 +234,10 @@ class Engine:
     def __init__(self, lm: LMDef, params: dict, ecfg: EngineConfig,
                  device=None, clock=time.monotonic, plan=None, trace=None,
                  draft=None):
-        later = [(ecfg.policy is not None and ecfg.policy.health,
-                  "quant health (ROADMAP queue 1, item 6: obs/)"),
-                 (plan is not None, "multi-device serving (ROADMAP queue 1: "
-                  "sharding)"),
-                 (trace is not None, "trace recorders (ROADMAP queue 1: "
-                  "obs/)")]
-        for asked, what in later:
-            if asked:
-                raise NotImplementedError(f"{what} is a later slice of the "
-                                          "port")
+        if plan is not None:
+            raise NotImplementedError("multi-device serving (ROADMAP queue "
+                                      "1: sharding) is a later slice of the "
+                                      "port")
         cfg = lm.cfg
         if cfg.is_encoder:
             raise NotImplementedError("encoder-only archs have no decode path")
@@ -271,23 +296,40 @@ class Engine:
                          in SC.state_feature_shapes(sub, lm.cfg).items()}
             for i, sub in enumerate(lm.period)
             if sub.mixer_kind in STATE_MIXERS}
+        # optional obs.TraceRecorder: events come from the host-side step
+        # loop only, so an attached recorder issues no device work
+        self.trace = trace
+        # quant health: counted in the decode step's KV appends and state
+        # writes when the policy asks (and the pool is quantized)
+        health = ecfg.policy is not None and ecfg.policy.health
+        self._health_kv = health and self.pcfg.quantized \
+            and bool(self._attn_keys)
+        self._health_state = health and squant and bool(self._state_keys)
+        self._health = self._health_kv or self._health_state
         # prefix sharing needs per-token paged memory: attention-only archs
         # opt in; a recurrent sublayer sends every request down the full
         # prefill (the cache is simply absent)
         self._prefix = (RadixPrefixCache(self.pcfg.page_size,
-                                         self.pcfg.total_pages)
+                                         self.pcfg.total_pages, trace=trace)
                         if (ecfg.prefix_cache and not self._state_keys)
                         else None)
         # pure-SSM archs have no token-paged memory: admission is slot-only
         self.sched = Scheduler(self.pcfg, ecfg.prefill_chunk,
                                prefix=self._prefix,
-                               paged=bool(self._attn_keys))
+                               paged=bool(self._attn_keys), trace=trace)
         self.metrics = ServeMetrics(clock=clock)
         self.metrics.num_slots = self.pcfg.num_slots
         self.metrics.cache_bytes = KC.pool_bytes(self.pool)
         self.metrics.cache_bytes_fp32 = KC.pool_bytes_fp32(self.pool)
         self.metrics.state_bytes = SC.pool_bytes(self.spool)
         self.metrics.state_bytes_fp32 = SC.pool_bytes_fp32(self.spool)
+        # the live memory ledger: the pools are preallocated, so their bytes
+        # are fixed here; what moves is the prefix overlay (logical vs
+        # physical mapped pages)
+        self.ledger = MemoryLedger(self.device)
+        self._page_nbytes = (KC.page_nbytes(self.pool, self.pcfg)
+                             if self._attn_keys else 0)
+        self._params_nbytes, self._params_nbytes_fp32 = _tree_bytes(params)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(ecfg.seed)
         self._completions: dict[int, Completion] = {}
@@ -306,6 +348,9 @@ class Engine:
             self._draft_table = torch.arange(
                 self.pcfg.num_slots * pp, dtype=torch.int32,
                 device=self.device).reshape(self.pcfg.num_slots, pp)
+            self._draft_params_nbytes, self._draft_params_nbytes_fp32 = \
+                _tree_bytes(self._draft_params)
+        self._ledger_update("init")
 
     # ---- device steps --------------------------------------------------
     def _tensor(self, a, dtype=None) -> torch.Tensor:
@@ -314,13 +359,13 @@ class Engine:
     def _sub_block(self, lm: LMDef, pool: dict, pcfg: PoolConfig,
                    fused: bool, pp: dict, x: torch.Tensor, layer: int,
                    key: str, sub, table, lens, active,
-                   positions) -> torch.Tensor:
+                   positions, health=None) -> torch.Tensor:
         """One sublayer over (B, S) new tokens at ``positions`` = lens ..
-        lens+S-1: write their cache entries (one ``append_kv``), then attend
-        each row causally through itself, off the pages (fused, GQA only)
-        or over every slot's views read off them (``read_kv`` +
-        ``_attend``). Inactive slots' rows are masked out of an MoE
-        router."""
+        lens+S-1: write their cache entries (one ``append_kv``, adding its
+        clip counts to ``health`` when given), then attend each row
+        causally through itself, off the pages (fused, GQA only) or over
+        every slot's views read off them (``read_kv`` + ``_attend``).
+        Inactive slots' rows are masked out of an MoE router."""
         cfg = lm.cfg
         b, s = x.shape[:2]
         h = rms_norm(x, pp["norm1"]["scale"], cfg.norm_eps)
@@ -329,7 +374,7 @@ class Engine:
         scale = {n: t[layer] for n, t in pool["scale_log2"][key].items()}
         kn, vn = new                # "k", "v" or "c_kv", "k_rope"
         KC.append_kv(data[kn], data[vn], scale[kn], scale[vn], new[kn],
-                     new[vn], table, lens, active, pcfg)
+                     new[vn], table, lens, active, pcfg, health)
         if fused and sub.mixer_kind == "attn_gqa":
             d = sub.mixer
             attn = KC.fused_attend(data["k"], data["v"], scale["k"],
@@ -347,11 +392,15 @@ class Engine:
                               token_mask=active[:, None].expand(b, s))
 
     def _block(self, lm: LMDef, params: dict, pool: dict, pcfg: PoolConfig,
-               fused: bool, tokens, table, lens, active) -> torch.Tensor:
+               fused: bool, tokens, table, lens, active,
+               health=None) -> torch.Tensor:
         """Forward of (B, S) tokens, row j of slot b at position lens[b] + j,
         over a paged pool updated in place: the decode step at S = 1, the
         speculative verify at S = k+1, and the draft's steps over its own
-        pool. Returns logits (B, S, V)."""
+        pool. ``health`` (the decode step with health on): a (6,) int64
+        counter — the KV appends add (clipped, total) to its first two
+        entries, the state write (clipped, total, drift_sum, drift_n) to
+        the last four. Returns logits (B, S, V)."""
         x = embed_tokens(params, tokens, lm)
         positions = lens[:, None] + torch.arange(
             tokens.shape[1], dtype=lens.dtype, device=lens.device)
@@ -379,9 +428,13 @@ class Engine:
                     continue
                 x = self._sub_block(lm, pool, pcfg, fused, pp[key], x,
                                     layer, key, sub, table, lens,
-                                    active, positions)
+                                    active, positions,
+                                    None if health is None or not
+                                    self._health_kv else health[0:2])
         if stateful:
-            SC.write_step(self.spool, new, active, self.scfg)
+            SC.write_step(self.spool, new, active, self.scfg,
+                          None if health is None or not self._health_state
+                          else health[2:6])
         x = rms_norm(x, params["final_norm"]["scale"], lm.cfg.norm_eps)
         return apply_site(params["head"], x, lm.head, lm.cfg)
 
@@ -408,12 +461,15 @@ class Engine:
         return x + out2, {**st1, **st2}
 
     @torch.no_grad()
-    def _decode(self, table, lens, active, tokens) -> torch.Tensor:
+    def _decode(self, table, lens, active, tokens):
         """One batched decode step. tokens: (B,1); lens/active: (B,).
-        Returns logits (B, V); the pool is updated in place."""
+        Returns (logits (B, V), the step's (6,) int64 health counter or
+        None when health is off); the pool is updated in place."""
+        health = (torch.zeros(6, dtype=torch.int64, device=self.device)
+                  if self._health else None)
         return self._block(self.lm, self.params, self.pool, self.pcfg,
                            self.ecfg.fused_attention, tokens, table, lens,
-                           active)[:, 0]
+                           active, health)[:, 0], health
 
     @torch.no_grad()
     def _verify(self, table, lens, active, block) -> torch.Tensor:
@@ -600,6 +656,9 @@ class Engine:
         Then sample the first token and donate the prompt's full pages to
         the prefix tree."""
         plen, resume = st.prompt_len, st.prefix_len
+        trace = self.trace
+        t0 = trace.clock() if trace is not None else 0.0
+        self._ledger_update("prefill")
         table_row = self._tensor(self.sched.page_table[slot])
         if self._state_keys:
             # reset-on-admit: the slot may hold a retired or preempted
@@ -612,7 +671,14 @@ class Engine:
             if st.fork is not None:
                 KC.fork_page(self.pool, *st.fork)
                 self.metrics.cow_forked()
+                if trace is not None:
+                    trace.emit("cow_fork", rid=st.req.rid, slot=slot,
+                               src_page=st.fork[0], dst_page=st.fork[1],
+                               tokens=resume % self.pcfg.page_size)
             self.metrics.prefix_hit(resume, resume // self.pcfg.page_size)
+            if trace is not None:
+                trace.emit("cache_hit", rid=st.req.rid, slot=slot,
+                           hit_tokens=resume, prompt_len=plen)
             c = self.ecfg.prefill_chunk
             chunks = ([(s, min(s + c, plen)) for s in range(resume, plen, c)]
                       if c > 0 else [(resume, plen)])
@@ -623,6 +689,9 @@ class Engine:
         cap = plen if self.ecfg.moe_capacity_by_prompt else None
         for c0, c1 in chunks:
             toks = st.req.prompt[c0:c1]
+            if trace is not None and len(chunks) > 1:
+                trace.emit("prefill_chunk", rid=st.req.rid, slot=slot,
+                           start=c0, len=c1 - c0)
             last = (self._prefill(toks, table_row, slot, cap) if c0 == 0
                     else self._chunk(toks, table_row, slot, c0, cap))
         self.metrics.prefill(plen, computed=plen - resume)
@@ -639,6 +708,10 @@ class Engine:
             scales = (KC.snapshot_scales(self.pool, slot)
                       if self.pcfg.quantized else None)
             self.sched.commit_prefix(slot, scales)
+        if trace is not None:
+            trace.emit("prefill", rid=st.req.rid, slot=slot, len=plen,
+                       dur=trace.clock() - t0)
+            trace.emit("first_token", rid=st.req.rid, slot=slot)
 
     def _knobs(self, slots: list[int]) -> tuple[torch.Tensor, ...]:
         """The slots' (temperature, top_k, top_p) vectors on the device."""
@@ -666,12 +739,14 @@ class Engine:
         active = self._tensor(sched.active_mask())
         tokens = self._tensor(sched.tokens_vector())
         knobs = self._knobs(list(range(self.pcfg.num_slots)))
+        t0 = self.trace.clock() if self.trace is not None else 0.0
         dtoks, dprobs = self._draft_propose(lens, active, tokens, *knobs)
         vlogits = self._verify(table, lens, active,
                                torch.cat([tokens, dtoks], dim=1))
         acc, nxt = spec_accept(vlogits, dprobs, dtoks, self._gen, *knobs)
         host = torch.cat([acc[:, None], nxt[:, None], dtoks], dim=1
                          ).cpu().numpy()
+        dur = (self.trace.clock() - t0) if self.trace is not None else None
         accepted = emitted = 0
         for slot in active_slots:
             st = sched.slots[slot]
@@ -689,9 +764,17 @@ class Engine:
             sched.trim_unused(slot)
             if st.done():
                 self._finish(slot)
-        self.metrics.decode_step(emitted, sched.alloc.free_pages)
+        free_pages = sched.alloc.free_pages
+        self.metrics.decode_step(emitted, free_pages, dur=dur)
         self.metrics.spec_step(len(active_slots), k * len(active_slots),
                                accepted, emitted)
+        self._ledger_update("decode")
+        if self.trace is not None:
+            self.trace.emit("spec_step", step=self.metrics.decode_steps,
+                            n_active=len(active_slots),
+                            proposed=k * len(active_slots),
+                            accepted=accepted, emitted=emitted,
+                            free_pages=free_pages, dur=dur)
 
     # ---- request lifecycle --------------------------------------------
     def submit(self, prompt: list[int], max_new_tokens: int = 32,
@@ -702,6 +785,9 @@ class Engine:
         rid = self.sched.submit(req)
         self._orig_prompt[rid] = list(prompt)
         self.metrics.request_submitted(rid)
+        if self.trace is not None:
+            self.trace.emit("submit", rid=rid, prompt_len=len(prompt),
+                            max_new=max_new_tokens)
         return rid
 
     def _finish(self, slot: int) -> None:
@@ -711,6 +797,11 @@ class Engine:
         tokens = (st.req.prompt + st.generated)[len(orig):]
         self._completions[rid] = Completion(rid, orig, tokens)
         self.metrics.request_finished(rid, len(tokens))
+        if self.trace is not None:
+            reason = ("max_new" if len(st.generated) >= st.req.max_new_tokens
+                      else "eos")
+            self.trace.emit("retire", rid=rid, slot=slot,
+                            new_tokens=len(tokens), reason=reason)
 
     def step(self) -> None:
         """One engine iteration: admit + prefill, then one batched decode
@@ -719,6 +810,9 @@ class Engine:
         while (adm := sched.try_admit()) is not None:
             slot, st = adm
             self.metrics.request_admitted(st.req.rid, st.prompt_len)
+            if self.trace is not None:
+                self.trace.emit("admit", rid=st.req.rid, slot=slot,
+                                pages=len(sched.slot_pages[slot]))
             self._do_prefill(slot, st)
             if st.done():
                 self._finish(slot)
@@ -732,12 +826,18 @@ class Engine:
             if sched.slots[slot] is None:
                 continue
             while not sched.ensure_span(slot, span):
+                # the victim, before the retire clears its slot
+                yst = (sched.slots[sched.admission_order[-1]]
+                       if len(sched.admission_order) > 1 else None)
                 evicted = sched.preempt_youngest()
                 if evicted is None:
                     raise RuntimeError(
                         "KV pool exhausted and nothing to preempt — "
                         "increase num_pages/pages_per_slot")
                 self.metrics.preempted()
+                if self.trace is not None:
+                    self.trace.emit("preempt", rid=yst.req.rid, slot=evicted,
+                                    gen_len=len(yst.generated))
                 if evicted == slot:
                     break
         active_slots = [i for i, s in enumerate(sched.slots) if s is not None]
@@ -746,11 +846,13 @@ class Engine:
         if self._spec:
             self._spec_step(active_slots)
             return
-        logits = self._decode(self._tensor(sched.page_table),
-                              self._tensor(sched.lens_vector()),
-                              self._tensor(sched.active_mask()),
-                              self._tensor(sched.tokens_vector()))
+        t0 = self.trace.clock() if self.trace is not None else 0.0
+        logits, health = self._decode(self._tensor(sched.page_table),
+                                      self._tensor(sched.lens_vector()),
+                                      self._tensor(sched.active_mask()),
+                                      self._tensor(sched.tokens_vector()))
         toks = self._sample(logits, list(range(self.pcfg.num_slots)))
+        dur = (self.trace.clock() - t0) if self.trace is not None else None
         free_pages = sched.alloc.free_pages if sched.paged else None
         for slot in active_slots:
             st = sched.slots[slot]
@@ -758,7 +860,19 @@ class Engine:
             st.last_token = int(toks[slot])
             if st.done():
                 self._finish(slot)
-        self.metrics.decode_step(len(active_slots), free_pages)
+        self.metrics.decode_step(len(active_slots), free_pages, dur=dur)
+        self._ledger_update("decode")
+        if self.trace is not None:
+            self.trace.emit("decode_step", step=self.metrics.decode_steps,
+                            n_active=len(active_slots),
+                            free_pages=free_pages, dur=dur)
+        if health is not None:
+            h = health.tolist()         # the step's one read-back of it
+            if self._health_kv:
+                self.metrics.record_health("kv_cache", h[0], h[1])
+            if self._health_state:
+                self.metrics.record_health("ssm_state", h[2], h[3],
+                                           float(h[4]), float(h[5]))
 
     def run(self) -> dict[int, Completion]:
         """Drive until every submitted request has completed."""
@@ -766,9 +880,59 @@ class Engine:
             self.step()
         return dict(self._completions)
 
+    # ---- memory ledger -------------------------------------------------
+    def _ledger_update(self, phase: str | None = None) -> None:
+        """Refresh every serve-side ledger site (host ints only). Counted
+        sites are the resident allocations; the prefix pages are an
+        uncounted overlay of ``kv_pool`` whose logical-vs-physical split
+        turns page sharing into verified bytes."""
+        led = self.ledger
+        if phase is not None:
+            led.set_phase(phase)
+        led.set("params", self._params_nbytes, fp32=self._params_nbytes_fp32)
+        led.set("kv_pool", self.metrics.cache_bytes,
+                fp32=self.metrics.cache_bytes_fp32)
+        led.set("state_pool", self.metrics.state_bytes,
+                fp32=self.metrics.state_bytes_fp32)
+        if self._spec:
+            led.set("draft_params", self._draft_params_nbytes,
+                    fp32=self._draft_params_nbytes_fp32)
+            led.set("draft_kv_pool", KC.pool_bytes(self._draft_pool),
+                    fp32=KC.pool_bytes_fp32(self._draft_pool))
+        if self.sched.paged:
+            logical, physical = self.sched.mapped_page_stats()
+            pb = self._page_nbytes
+            led.set("prefix_pages_logical", logical * pb, counted=False,
+                    pages=logical)
+            led.set("prefix_pages_physical", physical * pb, counted=False,
+                    pages=physical)
+            led.set("prefix_bytes_saved", (logical - physical) * pb,
+                    counted=False)
+        if self._prefix is not None:
+            stats = self._prefix.bytes_stats(self._page_nbytes)
+            led.set("prefix_tree", stats["bytes"], counted=False,
+                    pages=stats["pages"], pages_pinned=stats["pages_pinned"],
+                    nodes=stats["nodes"])
+
+    def _live_tensors(self) -> list:
+        """What the engine holds: params, both pools, the draft's params
+        and pool (a CPU reconcile counts their storages)."""
+        out = [self.params, self.pool, self.spool]
+        if self._spec:
+            out += [self._draft_params, self._draft_pool]
+        return out
+
     def summary(self) -> dict:
         if self._prefix is not None:
             self.metrics.prefix_evictions = self._prefix.evictions
+        if self.trace is not None:
+            self.metrics.trace_dropped = self.trace.dropped
+        self.metrics.counter_totals = registry.snapshot()
+        self._ledger_update()
         out = self.metrics.summary()
         out["device"] = str(self.device)
+        mem = self.ledger.summary()
+        mem["reconcile"] = self.ledger.reconcile(
+            tensors=self._live_tensors())
+        out["memory"] = mem
         return out

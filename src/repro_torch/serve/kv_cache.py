@@ -228,10 +228,26 @@ def append_tokens(data_l: torch.Tensor, scale_l: torch.Tensor,
     return data_l.index_put_((pages, offs), vals)
 
 
+def append_health(new: torch.Tensor, scale_l: torch.Tensor,
+                  active: torch.Tensor, pcfg: PoolConfig
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(clipped, total) of one decode append against the slots' prefill-
+    frozen scales — the ``kv_cache`` quant-health signal, the reference's
+    ``append_health``: new (B, 1, *feat), scale_l (B,), active (B,) bool.
+    Integer-exact. The engine's decode step takes the same counts from the
+    append itself (``append_kv(..., health=)``: on the card inside the
+    ``p2_append_paged`` launch, on the CPU through this function)."""
+    from ..obs.counters import pow2_clip_stats
+    vals = new[:, 0]
+    valid = active.reshape((-1,) + (1,) * (vals.dim() - 1))
+    return pow2_clip_stats(vals, scale_l, pcfg.bits, valid=valid)
+
+
 def append_kv(kdata_l: torch.Tensor, vdata_l: torch.Tensor,
               kscale_l: torch.Tensor, vscale_l: torch.Tensor,
               k_new: torch.Tensor, v_new: torch.Tensor, table: torch.Tensor,
-              lens: torch.Tensor, active: torch.Tensor, pcfg: PoolConfig
+              lens: torch.Tensor, active: torch.Tensor, pcfg: PoolConfig,
+              health: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """A sublayer's two cached tensors (B, S, *feat) of one layer into its
     pages at positions lens .. lens+S-1, in place (K and V, or MLA's
@@ -241,12 +257,16 @@ def append_kv(kdata_l: torch.Tensor, vdata_l: torch.Tensor,
     one ``p2_append_paged`` launch (its plain twin on CPU tensors), rows
     past the slot's last page to the trash page; a model-dtype pool
     ``append_tokens`` per tensor (the reference runs no kernel there
-    either)."""
+    either). ``health`` (a (2,) int64 tensor, quantized pools only) gets
+    ``append_health`` of both tensors added, counted by the launch."""
     if pcfg.quantized:
         from ..kernels.ops import append_paged
         return append_paged(kdata_l, vdata_l, kscale_l, vscale_l, k_new,
                             v_new, table, lens, active,
-                            page_size=pcfg.page_size, bits=pcfg.bits)
+                            page_size=pcfg.page_size, bits=pcfg.bits,
+                            health=health)
+    if health is not None:
+        raise ValueError("append_kv: quant health counts a quantized pool")
     return (append_tokens(kdata_l, kscale_l, k_new, table, lens, active,
                           pcfg),
             append_tokens(vdata_l, vscale_l, v_new, table, lens, active,

@@ -1,6 +1,7 @@
 """Radix-tree copy-on-write prefix cache over the slot-paged KV pool — the
 port of ``repro/serve/prefix.py`` (host-side Python, unchanged in
-behaviour; no trace recorder).
+behaviour; an optional trace recorder gets a ``prefix_evict`` event per
+evicted leaf).
 
 Two requests whose prompts agree on their first ``k`` pages map the *same*
 physical pages and skip prefill for those tokens. The tree is pure
@@ -68,11 +69,12 @@ class RadixPrefixCache:
     page *ownership* (tree holds the page ⇔ page not on the free list and
     not private to a slot) lives in ``self._owner``."""
 
-    def __init__(self, page_size: int, num_pages: int):
+    def __init__(self, page_size: int, num_pages: int, trace=None):
         if page_size < 2:
             raise ValueError("prefix cache needs page_size >= 2 "
                              "(a 1-token page can never be fully shared)")
         self.page_size = page_size
+        self.trace = trace
         self.refs = PageRefs(num_pages)
         self.root = RadixNode(key=(), pages=[])
         self._owner: dict[int, RadixNode] = {}   # page id -> owning node
@@ -272,6 +274,9 @@ class RadixPrefixCache:
             freed.extend(victim.pages)
             self.evictions += 1
             self.pages_evicted += len(victim.pages)
+            if self.trace is not None:
+                self.trace.emit("prefix_evict", pages=len(victim.pages),
+                                tokens=len(victim.key))
         return freed
 
     def _coldest_free_leaf(self) -> RadixNode | None:

@@ -22,6 +22,9 @@
   plus new tokens; spans are always mapped. Preemption still works: the
   request re-queues with its generated prefix and its state is rebuilt by
   re-prefill.
+- **Trace** (an optional ``obs.TraceRecorder``): ``page_alloc`` for each
+  page a span maps, ``page_free`` for the pages a retire, a preemption or
+  ``trim_unused`` releases, as the reference emits them.
 """
 from __future__ import annotations
 
@@ -97,8 +100,9 @@ class Scheduler:
     """Slot/page bookkeeping for one engine. All state is host-side."""
 
     def __init__(self, pcfg: PoolConfig, prefill_chunk: int = 0,
-                 prefix=None, paged: bool = True):
+                 prefix=None, paged: bool = True, trace=None):
         self.pcfg = pcfg
+        self.trace = trace      # optional obs.TraceRecorder (page events)
         self.prefill_chunk = prefill_chunk
         self.paged = paged
         self.prefix = prefix    # optional serve.prefix.RadixPrefixCache
@@ -259,6 +263,9 @@ class Scheduler:
                 return False
             self.slot_pages[slot].append(pages[0])
             self.page_table[slot, have] = pages[0]
+            if self.trace is not None:
+                self.trace.emit("page_alloc", slot=slot, page=pages[0],
+                                pos=int(have * ps))
 
     def trim_unused(self, slot: int) -> int:
         """Free the private pages above the page holding ``next_pos``: the
@@ -279,10 +286,15 @@ class Scheduler:
         have = n_shared + keep_private
         self.page_table[slot, have:have + len(extra)] = self.pcfg.trash_page
         self.alloc.free(extra)
+        if self.trace is not None:
+            self.trace.emit("page_free", slot=slot, n=len(extra))
         return len(extra)
 
     def retire(self, slot: int) -> SlotState:
         st = self.slots[slot]
+        if self.trace is not None and self.slot_pages[slot]:
+            self.trace.emit("page_free", slot=slot,
+                            n=len(self.slot_pages[slot]))
         self.alloc.free(self.slot_pages[slot])
         if self.slot_refs[slot]:
             # shared/acquired pages stay in the prefix tree; dropping the

@@ -47,8 +47,14 @@ slot, every layer), ``read_layer`` / ``write_layer`` / ``write_slot`` (the
 per-layer primitives the step functions' plain versions follow),
 ``snapshot_slot`` / ``restore_slot`` (park and unpark one slot) and
 ``pool_bytes`` / ``pool_bytes_fp32`` (``ServeMetrics.state_bytes``).
-The reference's ``write_health`` and the snapshot trace events wait for
-``obs/`` (ROADMAP queue 1, item 6).
+
+Quant health (the ``ssm_state`` site): ``write_health`` is the
+reference's (clip counts of one (layer, tensor) write under its fresh
+scales and the drift of those scales from the stored ones);
+``write_step(..., health=)`` adds its sum over the step's layers and
+tensors to a (4,) int64 counter, on the card inside the ``st_enc_group``
+launch. ``snapshot_slot`` / ``restore_slot`` emit ``state_snapshot`` /
+``state_restore`` events to an optional trace recorder.
 """
 from __future__ import annotations
 
@@ -194,6 +200,21 @@ def write_layer(data_l: torch.Tensor, scale_l: torch.Tensor,
     return data_l, scale_l
 
 
+def write_health(scale_l: torch.Tensor, new: torch.Tensor,
+                 active: torch.Tensor, scfg: StateCacheConfig
+                 ) -> tuple[torch.Tensor, ...]:
+    """(clipped, total, drift_sum, drift_n) of one state overwrite — the
+    ``ssm_state`` quant-health signal, the reference's ``write_health``.
+
+    The scale is re-chosen per write (``per_tensor_max``), so the signal is
+    scale *drift*: |Δlog2| between the stored and fresh per-slot scales over
+    active lanes. Clip counts against the fresh scale are ~0 by
+    construction and reported for schema uniformity."""
+    step = per_tensor_max_scale_log2(
+        new, scfg.spec, reduce_axes=tuple(range(1, new.dim())))
+    return CB.state_write_health(scale_l, new, step, active, scfg.bits)
+
+
 def write_slot(data_l: torch.Tensor, scale_l: torch.Tensor,
                new: torch.Tensor, slot: int, scfg: StateCacheConfig
                ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -239,20 +260,26 @@ def read_step(pool: dict, dtypes: dict, scfg: StateCacheConfig) -> dict:
 
 
 def write_step(pool: dict, new_states: dict, active: torch.Tensor,
-               scfg: StateCacheConfig) -> dict:
+               scfg: StateCacheConfig,
+               health: torch.Tensor | None = None) -> dict:
     """Write a decode step's new states ({sub: {name: [(num_slots, *feat)
     a layer]}}) into the pool after its last layer, in place; inactive
     lanes keep their codes and scale. On an int8 pool one ``st_enc_group``
     launch (``cuda_backend.state_encode_many``: a ``per_tensor_max`` scale
     per (layer, slot), chosen on the device, ``write_layer``'s codes); on a
-    model-dtype pool ``write_layer``'s masked copy a layer, no kernel."""
+    model-dtype pool ``write_layer``'s masked copy a layer, no kernel.
+    ``health`` (a (4,) int64 tensor, int8 pools only) gets the sum of
+    ``write_health`` over every layer and tensor added, counted by the
+    launch."""
     keys = _step_keys(new_states)
     if scfg.quantized:
         CB.state_encode_many([pool["data"][k][n] for k, n in keys],
                              [pool["scale_log2"][k][n] for k, n in keys],
                              [new_states[k][n] for k, n in keys], active,
-                             scfg.bits)
+                             scfg.bits, health)
         return pool
+    if health is not None:
+        raise ValueError("write_step: quant health counts an int8 pool")
     for k, n in keys:
         for layer, new in enumerate(new_states[k][n]):
             write_layer(pool["data"][k][n][layer],
@@ -353,13 +380,6 @@ def write_prefill(pool: dict, state: dict, slot: int,
     return pool
 
 
-def _no_trace(trace) -> None:
-    if trace is not None:
-        raise NotImplementedError("state snapshot trace events are a later "
-                                  "slice of the port (ROADMAP queue 1, item "
-                                  "6: obs/)")
-
-
 def _map(tree: dict, fn) -> dict:
     return {k: _map(v, fn) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
@@ -368,14 +388,19 @@ def _map(tree: dict, fn) -> dict:
 def snapshot_slot(pool: dict, slot: int, trace=None) -> dict:
     """A copy of one slot's (codes, scales) across all layers, the park
     half of suspend-without-recompute: the pool's tree with the slot axis
-    indexed out."""
-    _no_trace(trace)
-    return _map(pool, lambda a: a[:, slot].clone())
+    indexed out. ``trace``: an optional ``obs.TraceRecorder``, which gets
+    a ``state_snapshot`` event with the parked byte count."""
+    snap = _map(pool, lambda a: a[:, slot].clone())
+    if trace is not None:
+        trace.emit("state_snapshot", slot=int(slot), nbytes=pool_bytes(snap))
+    return snap
 
 
 def restore_slot(pool: dict, snap: dict, slot: int, trace=None) -> dict:
-    """Write a ``snapshot_slot`` capture back into ``slot``, in place."""
-    _no_trace(trace)
+    """Write a ``snapshot_slot`` capture back into ``slot``, in place
+    (a ``state_restore`` event to ``trace`` when given)."""
+    if trace is not None:
+        trace.emit("state_restore", slot=int(slot), nbytes=pool_bytes(snap))
     for key in ("data", "scale_log2"):
         for sub, kinds in snap[key].items():
             for name, s in kinds.items():

@@ -109,7 +109,11 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
     multiple of the vector (one tensor on the element loop in the same
     launch), bf16 and f32 tokens, one launch each; an int8 reduced
     deepseek engine's decode step one append and one read a layer and no
-    paged-attention launch with ``fused_attention=True``.
+    paged-attention launch with ``fused_attention=True``;
+(t) the quant-health counters inside ``p2_append_paged`` (GQA, the latent
+    pair, a verify block), ``st_enc_group`` and ``p2_fq_group``: counts
+    equal to the twins' integer for integer, codes equal to the
+    counter-off launch bit for bit.
 """
 import math
 
@@ -2268,3 +2272,104 @@ def test_mla_engine_decode_step_launches(cuda):
                                     "p2_read_paged": steps * 2}
         toks[fused] = [res[r].tokens for r in sorted(res)]
     assert toks[True] == toks[False]
+
+
+# ---------------------------------------------------------------------------
+# (t) quant-health counters inside the encoding kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["gqa", "latent", "verify"])
+def test_paged_append_health_counter_equals_twin(cuda, dtype, case):
+    """``p2_append_paged`` with the counter: (clipped, total) equal to the
+    twin's integer for integer (inactive slots uncounted, the slot past
+    its last page counted), the codes those of the counter-off launch bit
+    for bit, one launch each; GQA's decode step (K/V scaled so about a
+    third clip), MLA's latent pair, and a verify block with ``n_valid``."""
+    if case == "gqa":
+        _, args, kw = _append_case(cuda, dtype, 8, seed=21)
+    else:
+        g = torch.Generator(device=cuda).manual_seed(22)
+        (kd, vd), (ks, vs), table = _latent_pool(cuda, (512, 64), g)
+        s = 1 if case == "latent" else 4
+        k, v = _latent_tokens(cuda, (512, 64), (8, s), g, dtype, scale=40.0)
+        lens = torch.tensor([0, 15, 63, 5, 20, 33, 64, 7], dtype=torch.int32,
+                            device=cuda)
+        active = torch.tensor([1, 1, 1, 0, 1, 1, 1, 0], dtype=torch.bool,
+                              device=cuda)
+        args = (kd, vd, ks, vs, k, v, table, lens, active)
+        kw = dict(page_size=16, bits=8)
+        if case == "verify":
+            kw["n_valid"] = torch.tensor([4, 2, 4, 4, 1, 3, 4, 0],
+                                         dtype=torch.int32, device=cuda)
+    pools = [[t.clone() for t in args[:2]] for _ in range(3)]
+    counts = [torch.zeros(2, dtype=torch.int64, device=cuda)
+              for _ in range(2)]
+    KA.append_paged_torch(*pools[0], *args[2:], **kw, health=counts[0])
+    B.reset_launches()
+    KA.append_paged_cuda(*pools[1], *args[2:], **kw, health=counts[1])
+    KA.append_paged_cuda(*pools[2], *args[2:], **kw)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES == {"p2_append_paged": 2}
+    assert counts[1].tolist() == counts[0].tolist()
+    assert 0 < counts[1][0] < counts[1][1]
+    # a verify block's dropped rows race for the write-only trash page
+    real = slice(None, -1) if case == "verify" else slice(None)
+    for a, b, c in zip(pools[1], pools[2], pools[0]):
+        assert torch.equal(a[real], b[real]) and torch.equal(a[real], c[real])
+
+
+@pytest.mark.parametrize("active", [[True, False, True, True], [True] * 4])
+def test_state_encode_health_counter_equals_twin(cuda, active):
+    """``st_enc_group`` with the counter: (clipped, total, drift_sum,
+    drift_n) equal to the twin's (the reference's ``write_health`` summed
+    over every layer and tensor) integer for integer; the codes and scales
+    those of the counter-off launch bit for bit, staged and re-read."""
+    codes, scales, news, _ = _st_case(cuda, 3, ST_ENTRIES)
+    act = torch.tensor(active, device=cuda)
+    pools = [([q.clone() for q in codes], [s.clone() for s in scales])
+             for _ in range(4)]
+    counts = [torch.zeros(4, dtype=torch.int64, device=cuda)
+              for _ in range(3)]
+    CB.state_encode_many_plain(*pools[0], news, act, 8, counts[0])
+    B.reset_launches()
+    CB.state_encode_many(*pools[1], news, act, 8, health=counts[1])
+    CB._st_encode(*pools[2], news, act, 8, reread=True, health=counts[2])
+    CB.state_encode_many(*pools[3], news, act, 8)
+    torch.cuda.synchronize()
+    assert dict(B.LAUNCHES) == {"st_enc_group": 3}
+    assert counts[1].tolist() == counts[0].tolist() == counts[2].tolist()
+    assert counts[1][1] > 0 and counts[1][2] > 0 and counts[1][3] > 0
+    for qs, ss in pools[:3]:
+        for a, b in zip(pools[3][0] + pools[3][1], qs + ss):
+            assert _bits_eq(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fq_group_saturation_counter_equals_twin(cuda, dtype):
+    """``p2_fq_group`` with the counter (16-bit, as the grad edge runs it):
+    (saturated, total) equal to the twin's, on narrow and wide units in one
+    launch, each tensor at its per-tensor-max step (f32 maxima at the
+    grid's hi: codes at 32767) or one below it (half the range clips);
+    the values those of the counter-off launch bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    spec = TN.QuantSpec("pow2", 16, 0, "int16", "per_tensor_max")
+    sizes = [448, 4099, 1 << 20, 3 * (1 << 20) + 5, 7]
+    xs = [(torch.randn(n, generator=g, device=cuda) * 1e-3).to(dtype)
+          for n in sizes]
+    for x in xs[:4]:
+        x[:3] = torch.tensor([1.0, 1.0, -1.0]) * 32767 * 2.0 ** -20
+    steps = torch.stack([TN.per_tensor_max_scale_log2(x, spec) for x in xs])
+    steps[1::2] -= 1
+    counts = [torch.zeros(2, dtype=torch.int64, device=cuda)
+              for _ in range(2)]
+    want = CB.sat_counts_plain([x.cpu() for x in xs], steps.cpu(), 16)
+    B.reset_launches()
+    ys = CB.fake_quant_scalar_many(xs, steps, 16, sat=counts[0])
+    off = CB.fake_quant_scalar_many(xs, steps, 16)
+    torch.cuda.synchronize()
+    assert B.LAUNCHES == {"p2_fake_quant": 2}
+    assert counts[0].tolist() == want.tolist()
+    assert counts[0][0] > 0 and counts[0][1] == sum(sizes)
+    for a, b in zip(ys, off):
+        assert torch.equal(_bits_of(a), _bits_of(b))

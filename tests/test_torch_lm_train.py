@@ -315,6 +315,7 @@ def test_three_train_steps_match_jax(tiny, opt):
         rel = 1e-4 if wire and i else 1e-5
         for k in ("loss", "ce", "prior", "gnorm", "lr"):
             assert float(tm[k]) == pytest.approx(float(jm[k]), rel=rel), k
+        assert "health" not in tm and "health" not in jm
         got = _params_close(js, ts, atol=1e-3 if wire else 2e-5,
                             share=0.999 if wire else None)
         for k in ("activation", "grad_edge"):
@@ -733,13 +734,22 @@ def test_train_entry_point_runs_on_the_cpu(capsys):
     assert [i for i, _ in seen] == [0, 1]
     assert "[train] step 1 loss" in out and "compression" in out
     assert int(state.step) == 2
-    for kw in (dict(mesh=object()), dict(trace=object()),
-               dict(ledger=object())):
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            TT.train(tcfg, "tp", tt, batch=2, seq=8, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        TT.train(tcfg, "tp", tt, batch=2, seq=8, device="cpu",
+                 mesh=object())
     with pytest.raises(NotImplementedError, match="item 8"):
         TS.make_train_step(TL.build_lm(tcfg), SimpleNamespace(mesh=object()),
                            tt)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        health = tcfg.replace(quant=QuantConfig(enable=True, health=True))
-        TS.make_train_step(TL.build_lm(health), None, tt)
+    # the trace, the ledger and quant health are ported
+    # (tests/test_torch_ledger.py holds them to the reference)
+    from repro_torch.obs import MemoryLedger, TraceRecorder
+    rec, led = TraceRecorder(), MemoryLedger()
+    one = TrainConfig(total_steps=1, warmup_steps=1, log_every=1)
+    TT.train(tcfg, "tp", one, batch=2, seq=8, device="cpu", trace=rec,
+             ledger=led, verbose=False)
+    assert len(rec.events("train_step")) == 1
+    assert led.watermark("train_step")["total_bytes"] > 0
+    health = tcfg.replace(quant=QuantConfig(enable=True, health=True))
+    hs = TS.make_train_step(TL.build_lm(health), None, tt)
+    _, m = hs(state, {k: v[:, :8] for k, v in _batch()[1].items()})
+    assert {"grad_edge", "activation"} <= set(m["health"])

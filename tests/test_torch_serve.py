@@ -188,24 +188,16 @@ def test_entry_points_raise_without_a_card(models, monkeypatch):
     Engine(tlm, tp, EngineConfig(pool=pool), device="cpu")
 
 
-# chunked prefill, the prefix cache, speculative decoding and the policy's
-# kv_cache site are ported: what is still to port raises all the same
+# chunked prefill, the prefix cache, speculative decoding, the policy's
+# kv_cache site, quant health and the trace are ported (their parity with
+# the reference: tests/test_torch_obs*.py); a mesh still raises
 @pytest.mark.parametrize("ekw,kw", [
-    (dict(policy="health"), {}),
-    (dict(policy="health", prefill_chunk=8), {}),
-    (dict(policy="health", spec_k=2), dict(draft="self")),
     ({}, dict(plan=object())),
     (dict(prefix_cache=True), dict(plan=object())),
-    ({}, dict(trace=object())),
 ])
 def test_out_of_slice_engine_configs_raise(models, ekw, kw):
     _, _, tlm, tp = models
-    from repro_torch.numerics import NumericsPolicy
     pool = PoolConfig(num_slots=2, page_size=4, pages_per_slot=8)
-    if ekw.get("policy") == "health":
-        ekw = dict(ekw, policy=NumericsPolicy(enable=True, health=True))
-    if kw.get("draft") == "self":
-        kw = dict(kw, draft=(tlm, tp))
     with pytest.raises(NotImplementedError, match="later slice"):
         Engine(tlm, tp, EngineConfig(pool=pool, **ekw), device="cpu", **kw)
 

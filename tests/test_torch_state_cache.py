@@ -253,8 +253,17 @@ def test_reset_snapshot_and_restore_match_reference(quantized):
     jp = JSC.restore_slot(jp, jsnap, jnp.int32(0))
     TSC.restore_slot(tp, tsnap, 0)
     same_pools()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TSC.snapshot_slot(tp, 0, trace=object())
+    # with a recorder: the reference's state_snapshot / state_restore
+    from repro_torch.obs import TraceRecorder
+    rec = TraceRecorder()
+    snap = TSC.snapshot_slot(tp, 0, trace=rec)
+    TSC.restore_slot(tp, snap, 0, trace=rec)
+    nbytes = sum(a.nbytes for a in jax.tree_util.tree_leaves(
+        JSC.snapshot_slot(jp, 0)))
+    assert [(e.kind, e.fields) for e in rec] == [
+        ("state_snapshot", {"slot": 0, "nbytes": nbytes}),
+        ("state_restore", {"slot": 0, "nbytes": nbytes})]
+    same_pools()
 
 
 # ---------------------------------------------------------------------------
