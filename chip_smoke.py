@@ -402,6 +402,31 @@ Phases (any failure raises and the script exits non-zero):
              by counter and by profile name (PE1-3 on either route), the
              cross-entropy finite; then one step of each at reduced width
              on the card against the CPU, as train lm identity. Under 110 s.
+12. train ckpt — the eleventh main path: the launch and checkpoint
+             tooling through launch/train.py::train at LM100M's full size
+             (12 layers, d_model 768, vocab 32,768, f32; 8 x 256 tokens,
+             f32 moments and the int8 wire, a save every 2 steps). (a)
+             with_tt(LM100M, d=3, max_rank=48) uninterrupted 6 steps
+             twice, each in a fresh checkpoint directory, launches exact,
+             the final states compared bit for bit (the differing leaves
+             named otherwise); the final state's asynchronous save timed
+             (snapshot on the caller's thread, background write, size)
+             and loaded back bit for bit. (b) a child process of this
+             script sends itself SIGTERM from on_step after step 3: exit
+             143, the periodic step_2.ckpt and the emergency step_4.ckpt;
+             a second child resumes it ("resumed from step 4") to step 6:
+             its losses for steps 4-5 and its final state are (a)'s. (c)
+             the same with TT embedding and head sites and quantization
+             (18,962,334 parameters): 2 steps with launches exact, one
+             step profiled (every counted kernel by name on the CUDA-core
+             route), PE1-3 at every f32 shape of its step, the embedding's
+             and head's core groups and the wire's encode and decode
+             groups held to their twins and timed, a reduced step with TT
+             embedding and head on the card against the CPU. (d) the
+             parameters, 6ND model FLOPs and TT-chain FLOPs of (a)'s and
+             (c)'s steps beside the FP32 peak over the profiled steps.
+             Every train call of the script writes its final save into a
+             directory of its own, removed after.
 
 Output: human-readable lines, then one JSON line describing every kernel,
 then the card's name and power limit (nvidia-smi), then the last line
@@ -451,19 +476,21 @@ its twin, and writes them to PATH; no result line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
-BF16_OPS_PER_S = 989e12            # dense bf16 tensor-core peak
-FP32_OPS_PER_S = 67e12             # fp32 peak outside the tensor cores
+SRC = [ROOT / "src"]               # the directory holding repro_torch
 ARCH = "internlm2-1.8b"
 TRAIN_STEPS = 300
 
@@ -471,6 +498,17 @@ TRAIN_STEPS = 300
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+@contextlib.contextmanager
+def _ckpt_dir(what: str):
+    """A fresh checkpoint directory for one ``train`` call (its final save
+    lands there; a shared one would resume another run), removed after."""
+    d = tempfile.mkdtemp(prefix=f"chip_smoke_{what}_")
+    try:
+        yield d
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
 
 
 def log(msg: str) -> None:
@@ -516,12 +554,14 @@ class Timer:
 
 
 def bound_ms(nbytes: float, ops: float = 0.0,
-             ops_per_s: float = BF16_OPS_PER_S) -> tuple[float, str]:
+             fp32: bool = False) -> tuple[float, str]:
     """The least time for the work: bytes at the HBM rate or operations at
-    ``ops_per_s`` (the bf16 tensor-core peak, or ``FP32_OPS_PER_S`` for
-    kernels that run on the CUDA cores), whichever is larger."""
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / ops_per_s * 1e3
+    the bf16 tensor-core peak (with ``fp32``, the FP32 CUDA-core peak, for
+    kernels that run on the CUDA cores), whichever is larger; the card's
+    figures are ``repro_torch.launch.roofline``'s."""
+    from repro_torch.launch import roofline as R
+    tb = nbytes / R.HBM_BW * 1e3
+    to = ops / (R.PEAK_FLOPS_FP32 if fp32 else R.PEAK_FLOPS_BF16) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -663,7 +703,7 @@ def _append_row(torch, timer, gen, hkv: int = 8) -> dict:
     # bf16 in, int8 codes out, and per slot two scales, a length, an
     # active flag and one table entry
     row["bound_ms"], row["bound_by"] = bound_ms(n * 3 + b * 17, 2 * n,
-                                                FP32_OPS_PER_S)
+                                                fp32=True)
     log(f"p2_append_paged (K and V, {b} slots x {args[4].shape[2]} x "
         f"{args[4].shape[3]} bf16): {row['ms']*1e3:.2f} us one launch "
         f"(previous design {row['previous_ms']*1e3:.2f} us, plain "
@@ -787,7 +827,7 @@ def _paged_write_row(torch, timer, gen, pool) -> dict:
                library_ms=None, library_note=PAGED_NONE)
     # bf16 in, int8 codes out; two scales, the start, the count, the pages
     row["bound_ms"], row["bound_by"] = bound_ms(n * 3 + 4 * 4 + 4 * 8,
-                                                2 * n, FP32_OPS_PER_S)
+                                                2 * n, fp32=True)
     log(f"p2_append_paged chunk write (K and V, 128 rows x {hkv} x 128 "
         f"bf16): {row['ms']*1e3:.2f} us one launch (previous route "
         f"{row['previous_ms']*1e3:.2f} us, plain {row['plain_ms']*1e3:.1f} "
@@ -859,7 +899,7 @@ def _spec_write_row(torch, timer, gen, pool) -> dict:
     # bf16 in, int8 codes out; per slot two scales, a length, an active
     # flag and the table entries the block may reach (two pages)
     row["bound_ms"], row["bound_by"] = bound_ms(n * 3 + b * (13 + 8), 2 * n,
-                                                FP32_OPS_PER_S)
+                                                fp32=True)
     log(f"p2_append_paged spec verify write (K and V, {b} slots x S={s} x 8 "
         f"x 128 bf16): {row['ms']*1e3:.2f} us one launch (the reference's "
         f"route {row['previous_ms']*1e3:.2f} us, plain "
@@ -912,7 +952,7 @@ def _paged_read_rows(torch, timer, pool) -> list:
         # int8 codes in, values out; two scales and the page list a slot
         row["bound_ms"], row["bound_by"] = bound_ms(
             n * (1 + got[0].element_size()) + b * (8 + 4 * table.shape[1]),
-            n, FP32_OPS_PER_S)
+            n, fp32=True)
         rows.append(row)
         log(f"p2_read_paged {what} {tuple(got[0].shape)} {row['dtype']}: "
             f"{row['ms']*1e3:.2f} us one launch (previous route "
@@ -1021,7 +1061,7 @@ def _prefill_rows(torch, timer, gen, layers: int = 24, hkv: int = 8,
         # bf16 in (every row is read: pad rows go to the trash page), int8
         # codes out, a scale a (tensor, layer), the table row, the length
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4 * k.numel(),
-                                                    FP32_OPS_PER_S)
+                                                    fp32=True)
         rows.append(row)
         log(f"p2_prefill_paged (K and V, {layers} x {s} x {hkv} x 128 bf16, "
             f"{length} "
@@ -1291,7 +1331,7 @@ def _pa_kernels_vs_mirrors(torch, timer, q, kd, vd, ks, vs, table, lens,
     n_read = int(need.sum()) * p.Hkv * p.R * (p.Dh + 2) * 4
     bms, by = bound_ms(n_read + q.numel() * q.element_size() + p.B * 4,
                        3.0 * int(need.sum()) * p.Hkv * p.R * p.Dh,
-                       FP32_OPS_PER_S)
+                       fp32=True)
     row = dict(S=s_rows, max_abs_err=cerr, split_max_rel_err=err,
                spans=int(need.sum()), n_split=p.n_split,
                ms=timer(lambda: PA.pa_combine_cuda(m, l, acc, l4, p, q.dtype)),
@@ -1941,8 +1981,10 @@ def phase_serve_obs(torch, lm, params, engine: dict) -> dict:
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     B.reset_launches()
-    state, losses = train(lcfg, "tp", tcfg, batch=LM_BATCH, seq=LM_SEQ,
-                          device="cuda", trace=rec, ledger=led)
+    with _ckpt_dir("obs") as d:
+        state, losses = train(lcfg, "tp", dataclasses.replace(
+            tcfg, ckpt_dir=d), batch=LM_BATCH, seq=LM_SEQ, device="cuda",
+            trace=rec, ledger=led)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     check(dict(B.LAUNCHES) == per, f"serve obs train lm: launches "
@@ -2362,7 +2404,7 @@ def phase_train_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
                         x, 2.0 ** step, 0, -hi, hi - 1),
                     lambda r: torch.equal(r, y))   # -0.0 == 0.0
                 row["bound_ms"], row["bound_by"] = bound_ms(
-                    2 * n * 4 + 4, 4 * n, FP32_OPS_PER_S)
+                    2 * n * 4 + 4, 4 * n, fp32=True)
                 log(f"p2_fake_quant {what} {tuple(shape)} {bits}-bit: "
                     f"{row['ms']*1e3:.1f} us (plain "
                     f"{row['plain_ms']*1e3:.1f} us, library "
@@ -2406,7 +2448,7 @@ def phase_train_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
                 row["previous_ms"] = timer(lambda: _pe_previous(kind, z, g))
                 nbytes, flops = _pe_work(kind, zs, gs, 4)
                 row["bound_ms"], row["bound_by"] = bound_ms(
-                    nbytes, flops, FP32_OPS_PER_S)
+                    nbytes, flops, fp32=True)
         row["max_abs_err"] = row["max_abs_err_float32"]
         rows[kind].append(row)
         was = f", previous {row['previous_ms']*1e3:.1f} us"
@@ -2496,7 +2538,7 @@ def _fq_group_rows(torch, timer: Timer, device: str) -> list:
                 c, scales[i], 0, -8, 7) for i, c in enumerate(cores)],
             lambda r: all(torch.equal(a, b) for a, b in zip(r, ys)))
         row["bound_ms"], row["bound_by"] = bound_ms(
-            2 * n * 4 + 4 * len(cores), 4 * n, FP32_OPS_PER_S)
+            2 * n * 4 + 4 * len(cores), 4 * n, fp32=True)
         log(f"p2_fake_quant group {layer} ({len(cores)} cores, {n} "
             f"elements): {row['ms']*1e3:.1f} us one launch (one-entry loop "
             f"{row['previous_ms']*1e3:.1f} us, plain "
@@ -2566,7 +2608,7 @@ def _rt_group_rows(torch, timer: Timer, device: str) -> list:
                 x, scales[i], 0, -qmax, qmax - 1) for i, x in enumerate(xs)],
             lambda r: all(torch.equal(a, b) for a, b in zip(r, ys)))
         row["bound_ms"], row["bound_by"] = bound_ms(
-            2 * n * 4 + 4 * len(xs), 4 * n, FP32_OPS_PER_S)
+            2 * n * 4 + 4 * len(xs), 4 * n, fp32=True)
         log(f"p2_rt_group export {bits}-bit ({len(xs)} leaves, {n} "
             f"elements): {row['ms']*1e3:.2f} us one launch (per-leaf "
             f"p2_enc + p2_dec {row['previous_ms']*1e3:.2f} us, plain "
@@ -2967,7 +3009,7 @@ def _bw_row(torch, timer, shape, block, gen, what) -> dict:
                               iters=10),
                library_ms=None, library_note=BW_ENC_NONE)
     enc["bound_ms"], enc["bound_by"] = bound_ms(
-        n * 4 + rows * nb * (b + 4), 4 * n, FP32_OPS_PER_S)
+        n * 4 + rows * nb * (b + 4), 4 * n, fp32=True)
     dec = dict(shape=list(shape), block=block, b=b, what=what,
                max_abs_err=0.0,
                ms=timer(lambda: CB.bw_decode(codes, sc, last)),
@@ -2977,7 +3019,7 @@ def _bw_row(torch, timer, shape, block, gen, what) -> dict:
         timer, lambda: _library_bw_decode(torch, codes, sc, b, last),
         lambda r: _bits_equal(torch, r, y))
     dec["bound_ms"], dec["bound_by"] = bound_ms(
-        rows * nb * (b + 4) + n * 4, n, FP32_OPS_PER_S)
+        rows * nb * (b + 4) + n * 4, n, fp32=True)
     log(f"bw {what} {tuple(shape)} b={b}: enc {enc['ms']*1e3:.1f} us "
         f"(plain {enc['plain_ms']*1e3:.1f}, bound "
         f"{enc['bound_ms']*1e3:.3f}), dec {dec['ms']*1e3:.1f} us (plain "
@@ -3058,7 +3100,7 @@ def _bw_group_rows(torch, timer, gen, device) -> tuple[list, list]:
                                   iters=10),
                    library_ms=None, library_note=BW_ENC_NONE)
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4 * n,
-                                                    FP32_OPS_PER_S)
+                                                    fp32=True)
         log(f"bw_enc {what} ({len(xs)} leaves, {n} elements): "
             f"{row['ms']*1e3:.1f} us one launch (one-entry loop "
             f"{row['previous_ms']*1e3:.1f} us, plain "
@@ -3109,7 +3151,7 @@ def _bw_dec_group_row(torch, timer, pairs, xs, block, what, device) -> dict:
                plain_ms=timer(lambda: CB.bw_decode_many_plain(
                    codes, scales, lasts), iters=10),
                library_ms=None, library_note=BW_DEC_GROUP_NONE)
-    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, n, FP32_OPS_PER_S)
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, n, fp32=True)
     log(f"bw_dec {what} ({len(xs)} leaves, {n} elements): "
         f"{row['ms']*1e3:.1f} us one launch (one-entry loop "
         f"{row['previous_ms']*1e3:.1f} us, plain {row['plain_ms']*1e3:.1f} "
@@ -3151,14 +3193,14 @@ def _packed_row(torch, timer, x, s, what) -> tuple[dict, dict]:
                               iters=10),
                library_ms=None, library_note=PACKED_NONE)
     enc["bound_ms"], enc["bound_by"] = bound_ms(
-        n * 4 + rows * pk + srow.numel() * 4, 4 * n, FP32_OPS_PER_S)
+        n * 4 + rows * pk + srow.numel() * 4, 4 * n, fp32=True)
     dec = dict(shape=list(x.shape), what=what, max_abs_err=0.0,
                ms=timer(lambda: CB.decode_packed(p, srow, last)),
                plain_ms=timer(lambda: CB.decode_packed_plain(p, srow, last),
                               iters=10),
                library_ms=None, library_note=PACKED_NONE)
     dec["bound_ms"], dec["bound_by"] = bound_ms(
-        rows * pk + n * 4 + srow.numel() * 4, 2 * n, FP32_OPS_PER_S)
+        rows * pk + n * 4 + srow.numel() * 4, 2 * n, fp32=True)
     log(f"packed {what} {tuple(x.shape)}: enc {enc['ms']*1e3:.1f} us "
         f"(plain {enc['plain_ms']*1e3:.1f}, bound "
         f"{enc['bound_ms']*1e3:.4f}), dec {dec['ms']*1e3:.1f} us (plain "
@@ -3227,7 +3269,7 @@ def _packed_group_rows(torch, timer, device) -> tuple[dict, dict]:
                               iters=10),
                library_ms=None, library_note=PACKED_NONE)
     enc["bound_ms"], enc["bound_by"] = bound_ms(nbytes, 4 * n,
-                                                FP32_OPS_PER_S)
+                                                fp32=True)
     dec = dict(shape=shape, what="group export cores", entries=len(xs),
                max_abs_err=0.0,
                ms=timer(lambda: CB.decode_packed_many(ps, ss, lasts)),
@@ -3238,7 +3280,7 @@ def _packed_group_rows(torch, timer, device) -> tuple[dict, dict]:
                    ps, ss, lasts), iters=10),
                library_ms=None, library_note=PACKED_NONE)
     dec["bound_ms"], dec["bound_by"] = bound_ms(nbytes, 2 * n,
-                                                FP32_OPS_PER_S)
+                                                fp32=True)
     for what, row in (("p2_enc_packed", enc), ("p2_dec_packed", dec)):
         log(f"{what} group ({len(xs)} cores, {n} elements): "
             f"{row['ms']*1e3:.2f} us one launch (one-entry loop "
@@ -3701,7 +3743,7 @@ def phase_scalar_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
                     lambda r: torch.equal(r, y))   # -0.0 == 0.0
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     2 * n * x.element_size() + srow.numel() * 4, 4 * n,
-                    FP32_OPS_PER_S)
+                    fp32=True)
                 out["p2_fq_rows"].append(row)
                 log(f"p2_fq_rows {what} {tuple(shape)} {bits}-bit "
                     f"{row['dtype']}: {row['ms']*1e3:.1f} us (plain "
@@ -5652,7 +5694,7 @@ def _latent_rows(torch, timer, widths=MLA_WIDTHS, timed=True) -> dict:
             r["ms"] = timer(kernel)
             r["plain_ms"] = timer(twin, iters=10)
             r["bound_ms"], r["bound_by"] = bound_ms(bytes_, n,
-                                                    FP32_OPS_PER_S)
+                                                    fp32=True)
             log(f"{name} {tag}, {what}: {r['ms']*1e3:.2f} us one launch "
                 f"(plain {r['plain_ms']*1e3:.1f} us, bound "
                 f"{r['bound_ms']*1e3:.4f} us); bit-exact with the twin, two "
@@ -5905,17 +5947,19 @@ def _lm_config():
     return C.with_tt(C.get_config(ARCH), quantize=True)
 
 
-def _lm_pe_calls():
-    """(kind, Z shape, G shape) of every distinct PE call of the LM step:
-    each TT site's forward and transposed chains at 8 x 256 rows, and each
-    site's Ŵ (PE3: Ybar (rows, out), X (rows, in))."""
+def _lm_pe_calls(cfg=None):
+    """(kind, Z shape, G shape) of every distinct PE call of the LM step
+    (``cfg``, default ``_lm_config()``): each TT site's forward and
+    transposed chains at 8 x 256 rows, and each site's Ŵ (PE3: Ybar (rows,
+    out), X (rows, in)); a TT embedding has none (its lookup contracts
+    core slices eagerly)."""
     from repro_torch.core.ttm import pe_shapes
     from repro_torch.models.lm import _walk_sites, build_lm
-    lm = build_lm(_lm_config())
+    lm = build_lm(cfg or _lm_config())
     rows = LM_BATCH * LM_SEQ
     seen = []
-    for _, site in _walk_sites(lm):
-        if not site.use_tt:
+    for path, site in _walk_sites(lm):
+        if not site.use_tt or path[0] == "embed":
             continue
         s = site.spec
         calls = [c for sp in (s, s.transposed()) for c in pe_shapes(sp, rows)]
@@ -6048,7 +6092,7 @@ def phase_lm_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
         nbytes, flops = _pe_work(kind, zs, gs, 2)
         row["flops"] = flops
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops,
-                                                    BF16_OPS_PER_S)
+                                                    fp32=False)
         row["tflops"] = flops / row["ms"] / 1e9
         rows[kind].append(row)
         was = (f"; {row['orientation']} {row['tile'][0]} x {row['tile'][1]}"
@@ -6517,9 +6561,11 @@ def phase_train_lm(torch, device: str = "cuda",
     ces = []
     B.reset_launches()
     t0 = time.perf_counter()
-    state, losses = train(cfg, "tp", tcfg, batch=LM_BATCH, seq=LM_SEQ,
-                          device=device,
-                          on_step=lambda i, m: ces.append(float(m["ce"])))
+    with _ckpt_dir("lm") as d:
+        state, losses = train(
+            cfg, "tp", dataclasses.replace(tcfg, ckpt_dir=d), batch=LM_BATCH,
+            seq=LM_SEQ, device=device,
+            on_step=lambda i, m: ces.append(float(m["ce"])))
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps
     launches = dict(B.LAUNCHES)
@@ -6577,11 +6623,13 @@ def phase_train_lm(torch, device: str = "cuda",
     # update is m / eps (the reference's numerics; its tiny TT LM does
     # the same at its third step). The same step with f32 moments must
     # lower the cross-entropy.
-    f32 = dataclasses.replace(tcfg, opt_state_dtype="float32")
     ces_f32 = []
-    done, _ = train(cfg, "tp", f32, batch=LM_BATCH, seq=LM_SEQ,
-                    device=device, verbose=False,
-                    on_step=lambda i, m: ces_f32.append(float(m["ce"])))
+    with _ckpt_dir("lm_f32") as d:
+        f32 = dataclasses.replace(tcfg, opt_state_dtype="float32",
+                                  ckpt_dir=d)
+        done, _ = train(cfg, "tp", f32, batch=LM_BATCH, seq=LM_SEQ,
+                        device=device, verbose=False,
+                        on_step=lambda i, m: ces_f32.append(float(m["ce"])))
     del done
     torch.cuda.empty_cache()
     check(all(math.isfinite(x) for x in ces_f32) and ces_f32[-1] < ces_f32[0],
@@ -6719,9 +6767,10 @@ def _frontend_cell(torch, arch: str, layers, batch: int, seq: int) -> dict:
     ces = []
     B.reset_launches()
     t0 = time.perf_counter()
-    state, losses = train(cfg, "tp", tcfg, batch=batch, seq=seq,
-                          device="cuda", verbose=False,
-                          on_step=lambda i, m: ces.append(float(m["ce"])))
+    with _ckpt_dir("frontend") as d:
+        state, losses = train(cfg, "tp", dataclasses.replace(
+            tcfg, ckpt_dir=d), batch=batch, seq=seq, device="cuda",
+            verbose=False, on_step=lambda i, m: ces.append(float(m["ce"])))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(B.LAUNCHES)
@@ -6812,6 +6861,520 @@ def phase_train_frontend(torch) -> dict:
         f"{out['seconds'] - sum(out['parts_s'].values()):.1f})")
     check(out["seconds"] < FRONTEND_SECONDS, f"train frontend took "
           f"{out['seconds']:.1f} s, over {FRONTEND_SECONDS:.0f}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# train ckpt: the launch and checkpoint tooling on LM100M
+# ---------------------------------------------------------------------------
+
+CKPT_STEPS = 6             # (a)'s and (b)'s total_steps
+CKPT_KILL = 3              # (b)'s child sends itself SIGTERM after this step
+CKPT_EVERY = 2             # periodic saves after steps 2 and 4
+CKPT_SITES = ("ffn", "attn_qkv", "attn_o", "expert", "embed", "head")
+CKPT_PARAMS_EH = 18_962_334        # (c)'s parameters, the TT embedding's
+CKPT_SECONDS = 240.0               # the phase's wall, at most
+CKPT_CUDA_CORE_FN = ("pe1_mma_kernel", "pe2_mma_kernel", "pe3_mma_kernel")
+
+
+def _ckpt_configs():
+    """(a)'s model (``examples/train_lm_100m.py --tt``'s:
+    ``with_tt(LM100M, d=3, max_rank=48)``, f32), (c)'s (the same with TT
+    embedding and head sites and quantization on) and the train config of
+    both: the example's learning rate and warm-up, ``CKPT_STEPS`` steps,
+    f32 moments and the int8 gradient wire, periodic saves every
+    ``CKPT_EVERY`` steps."""
+    from repro_torch import configs as C
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.train import LM100M
+    a = C.with_tt(LM100M, d=3, max_rank=48)
+    c = C.with_tt(LM100M, d=3, max_rank=48, apply_to=CKPT_SITES,
+                  quantize=True)
+    tcfg = TrainConfig(learning_rate=3e-4, total_steps=CKPT_STEPS,
+                       warmup_steps=10, grad_compress=True,
+                       ckpt_every=CKPT_EVERY, log_every=1)
+    return a, c, tcfg
+
+
+def _tensors(tree, prefix: str = "") -> list:
+    """(path, tensor) of every tensor of a tree in the checkpoint's order
+    (a ``QTensor`` as its codes and steps)."""
+    from repro_torch.ckpt.checkpoint import _children
+    kids = _children(tree)
+    if kids is None:
+        return [] if tree is None else [(prefix, tree)]
+    return [pl for k, v in kids for pl in _tensors(v, f"{prefix}/{k}")]
+
+
+def _state_diff(torch, a, b) -> dict:
+    """Leaves of two states that differ in a bit, and the largest absolute
+    difference over them (0.0 when every bit agrees)."""
+    ta, tb = _tensors(a), _tensors(b)
+    check([p for p, _ in ta] == [p for p, _ in tb], "states differ in shape")
+    differ, worst = [], 0.0
+    for (p, x), (_, y) in zip(ta, tb):
+        same = (_bits_equal(torch, x, y) if x.is_floating_point()
+                else torch.equal(x, y))
+        if not same:
+            differ.append(p)
+            worst = max(worst, (x.double() - y.double()).abs().max().item())
+    return {"leaves": len(ta), "differ": differ, "max_abs_diff": worst}
+
+
+def phase_ckpt_child(torch, ckpt_dir: str, kill_at: int, out: str) -> None:
+    """(b)'s child process: ``train`` of (a)'s configs on the card from
+    ``ckpt_dir`` (resuming its newest file), writing each step's loss to
+    ``out`` as JSON as it goes and, after step ``kill_at`` (-1: never),
+    sending itself SIGTERM: the emergency save, then exit code 143."""
+    import signal
+    from repro_torch.launch.train import train
+    a, _, tcfg = _ckpt_configs()
+    losses = {}
+
+    def on_step(i, m):
+        losses[i] = float(m["loss"])
+        Path(out).write_text(json.dumps(losses))
+        if i == kill_at:
+            os.kill(os.getpid(), signal.SIGTERM)
+    train(a, "tp", dataclasses.replace(tcfg, ckpt_dir=ckpt_dir),
+          batch=LM_BATCH, seq=LM_SEQ, device="cuda", on_step=on_step)
+
+
+def _ckpt_child(ckpt_dir: str, kill_at: int, out: str):
+    """Run ``phase_ckpt_child`` in a child process of this script; its
+    result, output captured."""
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--src",
+           str(SRC[0]), "--ckpt-child", ckpt_dir, str(kill_at), out]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    return res, time.perf_counter() - t0
+
+
+def _ckpt_pe_rows(torch, timer: Timer, cfg) -> dict:
+    """PE1/PE2/PE3 at every distinct f32 shape of (c)'s step (LM100M's
+    layer sites and TT head at 8 x 256 rows): on the CUDA-core route (no
+    tensor-core plan for f32; asserted), within 1e-4 of the plain version,
+    bit for bit over two launches, timed beside it, beside one
+    ``torch.matmul`` of the same product (TF32 off) and beside the bound
+    (bytes at 3.35 TB/s or the FP32 operations at 67 TFLOP/s)."""
+    from repro_torch.kernels import tt_mma, ttm_pe1
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = {"pe1": [], "pe2": [], "pe3": []}
+    tol = PE_TOL["float32"]
+    for kind, zs, gs in _lm_pe_calls(cfg):
+        kern, plain = _pe_fns(kind)
+        z = torch.randn(zs, generator=gen, device="cuda")
+        g = torch.randn(gs, generator=gen, device="cuda") * 0.2
+        p = (ttm_pe1.plan_pe1_for(z, g) if kind == "pe1" else
+             tt_mma.plan_for(*_pe_contraction(kind, z, g)))
+        check(p is None, f"ckpt {kind} {zs}x{gs}: f32 on the tensor cores")
+        o, r = kern(z, g), plain(z, g)
+        err = (o - r).abs()
+        check(bool((err <= tol + tol * r.abs()).all()),
+              f"ckpt {kind} {zs}x{gs}: max err {err.max().item()}")
+        check(_bits_equal(torch, kern(z, g), o),
+              f"ckpt {kind} {zs}x{gs}: two launches differ")
+        row = dict(z=list(zs), g=list(gs), dtype="float32",
+                   route="CUDA cores", max_abs_err=err.max().item())
+        del o, r, err
+        row["ms"] = timer(lambda: kern(z, g), iters=10)
+        row["plain_ms"] = timer(lambda: plain(z, g), iters=5)
+        row["library_ms"] = timer(lambda: _pe_library(torch, kind, z, g),
+                                  iters=10)
+        nbytes, flops = _pe_work(kind, zs, gs, 4)
+        row["flops"] = flops
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops,
+                                                    fp32=True)
+        row["tflops"] = flops / row["ms"] / 1e9
+        rows[kind].append(row)
+        log(f"ckpt {kind} {zs} x {gs} f32: {row['ms']*1e3:.1f} us "
+            f"({row['tflops']:.2f} TFLOP/s; plain {row['plain_ms']*1e3:.1f}"
+            f" us, torch.matmul {row['library_ms']*1e3:.1f} us, bound "
+            f"{row['bound_ms']*1e3:.2f} us {row['bound_by']}); err "
+            f"{row['max_abs_err']:.1e}")
+        del z, g
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _ckpt_fq_rows(torch, timer: Timer, lm, params) -> list:
+    """The TT embedding's and the TT head's core groups (4-bit, at their
+    ``wscale_log2``), each one ``p2_fq_group`` launch (asserted), bit for
+    bit with the plain version and over two launches, timed beside it,
+    beside a loop of ``torch.fake_quantize_per_tensor_affine`` and beside
+    the group's byte bound (row 4b's embedding and head cores)."""
+    from repro_torch.kernels import build as B
+    from repro_torch.numerics import cuda_backend as CB
+    bits = lm.cfg.quant.weight_bits
+    rows = []
+    for name in ("embed", "head"):
+        sp = params[name]
+        xs = [sp[k].detach() for k in sorted(sp) if k.startswith("core_")]
+        steps = sp["wscale_log2"].float()
+        torch.cuda.synchronize()
+        B.reset_launches()
+        ys = CB.fake_quant_scalar_many(xs, steps, bits)
+        torch.cuda.synchronize()
+        check(B.LAUNCHES == {"p2_fake_quant": 1},
+              f"ckpt fake-quant {name} cores: launches {B.LAUNCHES}")
+        check(all(_bits_equal(torch, y, r) for y, r in zip(
+            ys, CB.fake_quant_many_plain(xs, steps, bits))),
+              f"ckpt fake-quant {name} cores: not bit-exact")
+        check(all(_bits_equal(torch, y, a) for y, a in zip(
+            ys, CB.fake_quant_scalar_many(xs, steps, bits))),
+              f"ckpt fake-quant {name} cores: two launches differ")
+        hi = 2 ** (bits - 1)
+        scales = [2.0 ** v for v in steps.tolist()]
+        row = dict(what=f"{name} cores", shape=[list(x.shape) for x in xs],
+                   bits=bits, dtype=["float32"], entries=len(xs),
+                   elements=sum(x.numel() for x in xs), max_abs_err=0.0)
+        row["ms"] = timer(lambda: CB.fake_quant_scalar_many(xs, steps, bits))
+        row["plain_ms"] = timer(
+            lambda: CB.fake_quant_many_plain(xs, steps, bits), iters=5)
+        row["library_ms"], row["library_note"] = _library_yardstick(
+            timer, lambda: [torch.fake_quantize_per_tensor_affine(
+                x, scales[i], 0, -hi, hi - 1) for i, x in enumerate(xs)],
+            lambda r: all(torch.equal(a, b) for a, b in zip(r, ys)))
+        row["bound_ms"], row["bound_by"] = bound_ms(_fq_bytes(xs))
+        log(f"ckpt p2_fake_quant {name} cores {row['shape']} ({bits}-bit): "
+            f"{row['ms']*1e3:.1f} us one launch (plain "
+            f"{row['plain_ms']*1e3:.1f} us, library loop "
+            f"{row['library_note']}, bound {row['bound_ms']*1e3:.3f} us); "
+            "bit-exact, two launches equal")
+        rows.append(row)
+    return rows
+
+
+def _ckpt_wire_rows(torch, timer: Timer, cfg) -> tuple[list, list]:
+    """The wire's one encode and one decode group at (a)'s leaves (every
+    reference leaf's gradient flattened, seeded f32 stand-ins, block
+    1,024; the first block of the first large leaf all zero), each held to
+    its twin bit for bit as ``train lm`` holds row 10b and row 11."""
+    from repro_torch.models.lm import build_lm, init_lm
+    from repro_torch.numerics import cuda_backend as CB
+    from repro_torch.tree import flatten_with_path, stacked_groups
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    floats = [(p, t) for p, t in flatten_with_path(
+        init_lm(None, build_lm(cfg), device="meta")) if t.is_floating_point()]
+    wire = []
+    for grp in stacked_groups([p for p, _ in floats]):
+        n = sum(floats[i][1].numel() for i in grp)
+        w = torch.randn((1, n), generator=gen, device="cuda") * 1e-2
+        if n >= 1 << 20 and not any(x.numel() >= 1 << 20 for x in wire):
+            w[0, :1024] = 0.0
+        wire.append(w)
+    enc = _lm_bw_rows(torch, {"bw": [("wire group (lm100m)", wire, 1024)]})
+    got = CB.bw_encode_many(wire, 1024)
+    dec = _bw_dec_group_row(torch, timer, got, wire, 1024,
+                            "wire group (lm100m)", "cuda")
+    del got, wire
+    torch.cuda.empty_cache()
+    return enc, [dec]
+
+
+def _ckpt_cost(cfg, prof: dict) -> dict:
+    """Parameters, model FLOPs (the reference's 6·N·D at 8 x 256 tokens)
+    and the TT chains' FLOPs (``steps.step_flops``) of one step of
+    ``cfg``, with their shares of the FP32 peak over the profiled step's
+    host wall and device time."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.dryrun import (active_params, count_params,
+                                           meta_params)
+    from repro_torch.launch.roofline import (PEAK_FLOPS_FP32,
+                                             model_flops_estimate)
+    from repro_torch.models.lm import build_lm
+    n = count_params(meta_params(cfg))
+    shape = ShapeConfig("lm100m", LM_SEQ, LM_BATCH, "train")
+    model = model_flops_estimate(cfg, shape, active_params(cfg, n), "train")
+    chains = S.step_flops(build_lm(cfg), LM_BATCH, LM_SEQ)
+    wall, dev = prof["step_ms"] / 1e3, prof["device_ms"] / 1e3
+    return {"params": n, "model_flops": model, "chain_flops": chains,
+            "step_ms": prof["step_ms"], "device_ms": prof["device_ms"],
+            "model_share_wall": model / (PEAK_FLOPS_FP32 * wall),
+            "model_share_device": model / (PEAK_FLOPS_FP32 * dev),
+            "chain_share_wall": chains / (PEAK_FLOPS_FP32 * wall),
+            "chain_share_device": chains / (PEAK_FLOPS_FP32 * dev)}
+
+
+def _ckpt_profile(torch, lm, tcfg, state, cfg, what: str) -> dict:
+    """One step of ``state`` timed (host wall) and one profiled (device
+    time, busy share, every counted kernel by name on the CUDA-core route,
+    no tensor-core PE kernel)."""
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import make_batch_fn
+    step = S.make_train_step(lm, None, tcfg)
+    batch_fn = make_batch_fn(cfg, LM_BATCH, LM_SEQ, tcfg.seed)
+    box = {"state": state}
+
+    def one(i):
+        box["state"], _ = step(box["state"], {
+            k: torch.from_numpy(v).to("cuda")
+            for k, v in batch_fn(CKPT_STEPS + i).items()})
+    log(f"train ckpt ({what}): profile")
+    prof = _profile_train(torch, one, S.launches_per_step(lm, tcfg),
+                          steps=1, fn=KERNEL_FN, absent=CKPT_CUDA_CORE_FN)
+    del box
+    torch.cuda.empty_cache()
+    return prof
+
+
+def phase_train_ckpt(torch) -> dict:
+    """The launch and checkpoint tooling through ``launch/train.py::train``
+    at LM100M's full size (12 layers, d_model 768, vocab 32,768, f32;
+    seeded weights, 8 x 256 tokens of ``lm_batch``, f32 moments and the
+    int8 gradient wire, so the wire residual is checkpointed too):
+
+    (a) ``with_tt(LM100M, d=3, max_rank=48)`` uninterrupted for
+        ``CKPT_STEPS`` steps twice, each in a fresh checkpoint directory
+        (saves after steps 2 and 4 and the final one; launches counted
+        exactly, per ``launches_per_step``): the two final states compared
+        bit for bit (the differing leaves named otherwise, and (b) then
+        held to the largest difference those two runs show). The final
+        state's save timed: the snapshot on the caller's thread, the
+        background write, the file's size, and its load back, bit for bit.
+    (b) a child process of the same config that sends itself SIGTERM
+        after step ``CKPT_KILL``: exit code 143, the emergency file
+        ``step_4.ckpt`` (meta ``emergency``) beside the periodic
+        ``step_2.ckpt``, its losses (a)'s; a second child resumes it to
+        ``CKPT_STEPS`` (``resumed from step 4``), leaves steps 2, 4 and 6,
+        and its final state and its losses for steps 4-5 are (a)'s.
+    (c) the same with TT embedding and head sites and quantization on
+        (``CKPT_PARAMS_EH`` parameters, asserted; the embedding and head
+        TT shapes asserted): 2 steps with the launches counted exactly,
+        one step profiled (host wall, device time, busy share, every
+        counted kernel by name on the CUDA-core route); PE1-3 at every
+        f32 shape of its step, the embedding's and head's core groups and
+        the wire's encode and decode groups held to their twins and
+        timed; one step at a reduced width with TT embedding and head on
+        the card against the CPU (``_step_card_vs_cpu``).
+    (d) parameters, model FLOPs and the TT chains' FLOPs of (a)'s and
+        (c)'s steps beside the FP32 peak over the profiled steps."""
+    from repro_torch.ckpt import AsyncCheckpointer, load, step_path
+    from repro_torch.configs.base import (ModelConfig, QuantConfig,
+                                          TrainConfig, TTConfig)
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import build as B
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.dryrun import count_params, meta_params
+    from repro_torch.launch.train import train
+    from repro_torch.models.lm import build_lm
+    t0 = time.perf_counter()
+    a_cfg, c_cfg, tcfg = _ckpt_configs()
+    lm_a = build_lm(a_cfg)
+    per_a = S.launches_per_step(lm_a, tcfg)
+    out = {"launches_per_step": per_a}
+    saves = [f"step_{s}.ckpt" for s in (2, 4, 6)]
+
+    # (a) two uninterrupted runs
+    finals, losses = [], []
+    for run in range(2):
+        torch.cuda.synchronize()
+        B.reset_launches()
+        t = time.perf_counter()
+        with _ckpt_dir("a") as d:
+            state, ls = train(a_cfg, "tp", dataclasses.replace(
+                tcfg, ckpt_dir=d), batch=LM_BATCH, seq=LM_SEQ,
+                device="cuda", verbose=False)
+            torch.cuda.synchronize()
+            files = sorted(os.listdir(d))
+        wall = time.perf_counter() - t
+        launches = dict(B.LAUNCHES)
+        want = {k: v * CKPT_STEPS for k, v in per_a.items()}
+        check(launches == want, f"train ckpt (a) run {run}: launches "
+              f"{launches}, want {want}")
+        check(files == saves, f"train ckpt (a) run {run}: files {files}")
+        check(all(math.isfinite(x) for x in ls), f"train ckpt (a): {ls}")
+        finals.append(state)
+        losses.append(ls)
+        log(f"train ckpt (a) run {run}: {CKPT_STEPS} steps in {wall:.1f} s "
+            f"with init and saves, losses {ls}, launches {launches}")
+        if run == 0:
+            out["launches"], out["run_s"] = launches, wall
+    diff = _state_diff(torch, finals[0], finals[1])
+    same_losses = losses[0] == losses[1]
+    tol = diff["max_abs_diff"]
+    out["determinism"] = dict(diff, losses_equal=same_losses)
+    if diff["differ"] or not same_losses:
+        log(f"train ckpt (a): the two runs DIFFER in {len(diff['differ'])} "
+            f"of {diff['leaves']} leaves (first {diff['differ'][:8]}), by "
+            f"up to {tol:.3e}; losses {losses}; (b) is held to {tol:.3e}")
+    else:
+        log(f"train ckpt (a): the two runs agree bit for bit in all "
+            f"{diff['leaves']} leaves and every loss")
+    ref = finals.pop(0)
+    del finals
+    torch.cuda.empty_cache()
+
+    # the final state's save, timed, and its load back
+    with _ckpt_dir("save") as d:
+        ck = AsyncCheckpointer(d)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ck.save(CKPT_STEPS, S.stack_state(ref), {"final": True})
+        snap = time.perf_counter() - t
+        t = time.perf_counter()
+        ck.wait()
+        write = time.perf_counter() - t
+        ck.close()
+        path = step_path(d, CKPT_STEPS)
+        size = os.path.getsize(path)
+        t = time.perf_counter()
+        back, meta = S.load_state(path, ref)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    back_diff = _state_diff(torch, back, ref)
+    check(not back_diff["differ"] and meta == {"final": True,
+                                               "step": CKPT_STEPS},
+          f"train ckpt: the saved state did not load back bit for bit "
+          f"({back_diff['differ'][:8]}, meta {meta})")
+    del back
+    out["save"] = {"snapshot_s": snap, "write_s": write, "bytes": size,
+                   "load_s": load_s}
+    log(f"train ckpt: the final state's save: snapshot {snap*1e3:.1f} ms on "
+        f"the caller's thread, background write {write*1e3:.1f} ms, "
+        f"{size:,} B ({size / 2**20:.1f} MiB); load back {load_s*1e3:.1f} "
+        "ms, bit for bit")
+
+    # (b) preempt and resume in child processes
+    with _ckpt_dir("b") as d:
+        first = f"{d}/losses_kill.json"
+        res, s1 = _ckpt_child(d, CKPT_KILL, first)
+        files = sorted(f for f in os.listdir(d) if f.endswith(".ckpt"))
+        check(res.returncode == 143, f"train ckpt (b): the preempted child "
+              f"exited {res.returncode}: {res.stderr[-3000:]}")
+        check(files == saves[:2], f"train ckpt (b): files after SIGTERM "
+              f"{files}, want {saves[:2]}")
+        _, emergency = load(step_path(d, CKPT_KILL + 1))
+        check(emergency == {"emergency": True, "step": CKPT_KILL + 1},
+              f"train ckpt (b): the emergency file's meta {emergency}")
+        killed = json.loads(Path(first).read_text())
+        check([killed[str(i)] for i in range(CKPT_KILL + 1)]
+              == losses[0][:CKPT_KILL + 1] or tol > 0,
+              f"train ckpt (b): the child's losses {killed}, (a)'s "
+              f"{losses[0]}")
+        second = f"{d}/losses_resume.json"
+        res2, s2 = _ckpt_child(d, -1, second)
+        check(res2.returncode == 0, f"train ckpt (b): the resumed child "
+              f"exited {res2.returncode}: {res2.stderr[-3000:]}")
+        check(f"[train] resumed from step {CKPT_KILL + 1}" in res2.stdout,
+              f"train ckpt (b): no resume line in {res2.stdout[-2000:]}")
+        files2 = sorted(f for f in os.listdir(d) if f.endswith(".ckpt"))
+        check(files2 == saves, f"train ckpt (b): files after the resume "
+              f"{files2}, want {saves}")
+        resumed = json.loads(Path(second).read_text())
+        got = [resumed[str(i)] for i in range(CKPT_KILL + 1, CKPT_STEPS)]
+        want = losses[0][CKPT_KILL + 1:]
+        state_b, meta = S.load_state(step_path(d, CKPT_STEPS), ref)
+    check(meta == {"final": True, "step": CKPT_STEPS},
+          f"train ckpt (b): the resumed run's final meta {meta}")
+    check(sorted(resumed) == [str(i) for i in range(CKPT_KILL + 1,
+                                                    CKPT_STEPS)],
+          f"train ckpt (b): the resumed child ran steps {sorted(resumed)}")
+    bdiff = _state_diff(torch, state_b, ref)
+    ok = (not bdiff["differ"] and got == want) if tol == 0 else (
+        bdiff["max_abs_diff"] <= tol
+        and all(abs(x - y) <= tol * max(1.0, abs(y))
+                for x, y in zip(got, want)))
+    check(ok, f"train ckpt (b): the resumed run's final state differs from "
+          f"(a)'s in {bdiff['differ'][:8]} by {bdiff['max_abs_diff']:.3e} "
+          f"(held to {tol:.3e}), losses {got} against {want}")
+    del state_b, ref
+    torch.cuda.empty_cache()
+    out["resume"] = {"exit_code": res.returncode, "files_after_kill": files,
+                     "files_after_resume": files2, "losses": got,
+                     "state_diff": bdiff, "child_s": [s1, s2]}
+    log(f"train ckpt (b): the child exited 143 after SIGTERM at step "
+        f"{CKPT_KILL} leaving {files} (the emergency file's meta "
+        f"{emergency}); the "
+        f"resumed child printed 'resumed from step {CKPT_KILL + 1}', left "
+        f"{files2}, its losses {got} are (a)'s and its final state is "
+        f"(a)'s {'bit for bit' if tol == 0 else f'within {tol:.3e}'} "
+        f"({s1:.1f} s and {s2:.1f} s a child)")
+
+    # the profiled step of (a)'s config, from a fresh state
+    from repro_torch.models.lm import init_lm
+    params = init_lm(torch.Generator(device="cuda").manual_seed(0), lm_a,
+                     device="cuda")
+    out["profile_a"] = _ckpt_profile(
+        torch, lm_a, tcfg, S.init_train_state(params, tcfg,
+                                              a_cfg.quant.policy()),
+        a_cfg, "a")
+    del params
+
+    # (c) TT embedding and head at full size
+    lm_c = build_lm(c_cfg)
+    n_c = count_params(meta_params(c_cfg))
+    n_c = int(n_c)
+    check(n_c == CKPT_PARAMS_EH, f"train ckpt (c): {n_c:,} params, want "
+          f"{CKPT_PARAMS_EH:,}")
+    for site in (lm_c.embed, lm_c.head):
+        check(site.use_tt and site.spec.j_dims == (32, 32, 32)
+              and site.spec.i_dims == (8, 8, 12)
+              and tuple(site.spec.ranks) == (1, 48, 48, 1),
+              f"train ckpt (c): site {site.spec}")
+    tc = dataclasses.replace(tcfg, total_steps=2)
+    per_c = S.launches_per_step(lm_c, tc)
+    torch.cuda.synchronize()
+    B.reset_launches()
+    with _ckpt_dir("c") as d:
+        state_c, ls_c = train(c_cfg, "tp", dataclasses.replace(
+            tc, ckpt_dir=d), batch=LM_BATCH, seq=LM_SEQ, device="cuda",
+            verbose=False)
+    torch.cuda.synchronize()
+    launches_c = dict(B.LAUNCHES)
+    want_c = {k: v * 2 for k, v in per_c.items()}
+    check(launches_c == want_c, f"train ckpt (c): launches {launches_c}, "
+          f"want {want_c}")
+    check(all(math.isfinite(x) for x in ls_c), f"train ckpt (c): {ls_c}")
+    log(f"train ckpt (c): {n_c:,} params (embedding and head TT), 2 steps, "
+        f"losses {ls_c}, launches {launches_c} ({per_c} a step)")
+    out["eh"] = {"params": n_c, "launches": launches_c,
+                 "launches_per_step": per_c, "losses": ls_c}
+    timer = Timer(torch)
+    out["fq_rows"] = _ckpt_fq_rows(torch, timer, lm_c, state_c.params)
+    out["profile_c"] = _ckpt_profile(torch, lm_c, tc, state_c, c_cfg, "c")
+    del state_c
+    torch.cuda.empty_cache()
+    out["pe_rows"] = _ckpt_pe_rows(torch, timer, c_cfg)
+    out["bw_enc_rows"], out["bw_dec_rows"] = _ckpt_wire_rows(torch, timer,
+                                                             a_cfg)
+    del timer
+    red = ModelConfig(name="t", num_layers=2, d_model=32, num_heads=2,
+                      num_kv_heads=2, d_ff=64, vocab_size=128, remat="full",
+                      dtype="float32",
+                      tt=TTConfig(enable=True, d=3, max_rank=4,
+                                  min_elements=1024, apply_to=CKPT_SITES),
+                      quant=QuantConfig(enable=True))
+    lm_red = build_lm(red)
+    check(lm_red.embed.use_tt and lm_red.head.use_tt,
+          "train ckpt: the reduced config's embedding and head are not TT")
+    out["identity"] = _step_card_vs_cpu(
+        torch, lm_red, TrainConfig(opt_state_dtype="int8",
+                                   grad_compress=True, total_steps=8,
+                                   warmup_steps=5),
+        lm_batch(0, batch=2, seq=16, vocab=128, seed=0),
+        "ckpt embed/head identity")
+
+    # (d) the cost arithmetic
+    out["cost"] = {}
+    for what, cfg, prof in (("a", a_cfg, out["profile_a"]),
+                            ("c", c_cfg, out["profile_c"])):
+        c = _ckpt_cost(cfg, prof)
+        out["cost"][what] = c
+        log(f"train ckpt cost ({what}): {int(c['params']):,} params; model "
+            f"FLOPs "
+            f"6ND {c['model_flops']:.4e}, TT-chain FLOPs "
+            f"{c['chain_flops']:.4e} a step of 8 x 256; the step "
+            f"{c['step_ms']:.1f} ms host wall, {c['device_ms']:.1f} ms "
+            f"device: 6ND {c['model_share_wall']:.4f} / "
+            f"{c['model_share_device']:.4f} of the FP32 peak (67 TFLOP/s) "
+            f"over wall / device, the chains {c['chain_share_wall']:.4f} / "
+            f"{c['chain_share_device']:.4f}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"train ckpt: {out['seconds']:.1f} s")
+    check(out["seconds"] < CKPT_SECONDS, f"train ckpt took "
+          f"{out['seconds']:.1f} s, over {CKPT_SECONDS:.0f}")
     return out
 
 
@@ -6919,7 +7482,7 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
                  wkern: dict, wire: dict, skern: dict, chunked: dict,
                  lmkern: dict, lm: dict, spec: dict, state: dict,
                  rwkv: dict, hybrid: dict, sgroup: dict, moe: dict,
-                 mla: dict, frontend: dict) -> dict:
+                 mla: dict, frontend: dict, ckpt: dict) -> dict:
     rows = []
     for name, (src, replaces) in KERNELS.items():
         rows.append(_kernel_row(name, src, replaces, kern[name],
@@ -7009,6 +7572,20 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
             row["shapes"] = row["shapes"] + lm["fq_rows"]
         if name == "bw_enc":
             row["shapes"] = row["shapes"] + lm["bw_rows"]
+        # LM100M's f32 step (train ckpt): PE1-3 on the CUDA cores, the
+        # embedding's and head's core groups, the wire
+        got = [ckpt["launches"].get(name, 0), ckpt["eh"]["launches"].get(
+            name, 0)]
+        if any(got):
+            row["ckpt_launches"] = sum(got)
+            row["path"] += (f"; train ckpt (lm100m {got[0]} in "
+                            f"{CKPT_STEPS} steps, with TT embedding and head "
+                            f"{got[1]} in 2)")
+            row["shapes"] = row["shapes"] + {
+                "p2_fake_quant": ckpt["fq_rows"],
+                "bw_enc": ckpt["bw_enc_rows"],
+                "bw_dec": ckpt["bw_dec_rows"]}.get(
+                    name, ckpt["pe_rows"].get(name, []))
     for name, (src, replaces, kind) in LM_KERNELS.items():
         rows.append(_kernel_row(
             name, src, replaces, lmkern[kind], lm["launches"].get(kind, 0),
@@ -7310,6 +7887,8 @@ def main(argv=None) -> int:
                     "log every launch whose bits differ (no result line)")
     ap.add_argument("--src", help="the directory holding repro_torch "
                     "(default: src beside this script)")
+    ap.add_argument("--ckpt-child", nargs=3, metavar=("DIR", "KILL", "OUT"),
+                    help=argparse.SUPPRESS)  # train ckpt's child process
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -7320,8 +7899,13 @@ def main(argv=None) -> int:
         print(f"chip_smoke: {src}/repro_torch not found", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    SRC[0] = src
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.ckpt_child:
+        d, kill, out = args.ckpt_child
+        phase_ckpt_child(torch, d, int(kill), out)
+        return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -7394,6 +7978,7 @@ def main(argv=None) -> int:
     report["train_lm"] = phase_train_lm(torch)
     report["train_lm_identity"] = phase_train_lm_identity(torch)
     report["train_frontend"] = phase_train_frontend(torch)
+    report["train_ckpt"] = phase_train_ckpt(torch)
     report["seconds"] = time.perf_counter() - t0
     line = kernels_line(report["kernels"], report["engine"],
                         report["train_kernels"], report["train"],
@@ -7403,7 +7988,8 @@ def main(argv=None) -> int:
                         report["serve_spec"], report["state_kernels"],
                         report["serve_rwkv6"], report["serve_hybrid"],
                         report["state_group"], report["serve_moe"],
-                        report["serve_mla"], report["train_frontend"])
+                        report["serve_mla"], report["train_frontend"],
+                        report["train_ckpt"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

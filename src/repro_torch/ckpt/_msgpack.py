@@ -5,9 +5,12 @@ bool and nil.
 
 ``packb`` emits the bytes ``msgpack.packb(obj, use_bin_type=True)`` does:
 the smallest format for every int, str, bin, array and map length, and
-float64 for every float. ``unpackb`` reads that subset (plus float32) the
-way ``msgpack.unpackb(raw=False, strict_map_key=False)`` does, and raises
-``ValueError`` on anything else.
+float64 for every float; ``map_head`` and ``bin_head`` emit a map's or a
+bin's header alone, so a writer can stream a bin's bytes after it.
+``unpackb`` reads that subset (plus float32) the way
+``msgpack.unpackb(raw=False, strict_map_key=False)`` does, and raises
+``ValueError`` on anything else; each bin comes back as a ``memoryview``
+into the buffer, not a copy.
 """
 from __future__ import annotations
 
@@ -95,17 +98,34 @@ def packb(obj) -> bytes:
     return bytes(out)
 
 
+def map_head(n: int) -> bytes:
+    """The header of a map of ``n`` pairs (its pairs follow it)."""
+    out = bytearray()
+    _head(out, n, 0x80, 16, (-1, 0xDE, 0xDF))
+    return bytes(out)
+
+
+def bin_head(n: int) -> bytes:
+    """The header of a bin of ``n`` bytes (its bytes follow it)."""
+    out = bytearray()
+    _head(out, n, None, 0, (0xC4, 0xC5, 0xC6))
+    return bytes(out)
+
+
 class _Reader:
-    def __init__(self, buf: bytes):
-        self.buf = memoryview(buf)
+    def __init__(self, buf):
+        self.buf = memoryview(buf).cast("B")
         self.pos = 0
 
-    def take(self, n: int) -> bytes:
+    def view(self, n: int) -> memoryview:
         if self.pos + n > len(self.buf):
             raise ValueError("msgpack data ends early")
-        b = bytes(self.buf[self.pos:self.pos + n])
+        b = self.buf[self.pos:self.pos + n]
         self.pos += n
         return b
+
+    def take(self, n: int) -> bytes:
+        return bytes(self.view(n))
 
     def unpack(self, fmt: str):
         return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
@@ -139,7 +159,7 @@ class _Reader:
         fmt, kind = sized[c]
         n = self.unpack(fmt)
         if kind == "bin":
-            return self.take(n)
+            return self.view(n)
         if kind == "str":
             return self.take(n).decode("utf-8")
         if kind == "array":
@@ -154,7 +174,7 @@ class _Reader:
         return out
 
 
-def unpackb(buf: bytes):
+def unpackb(buf):
     r = _Reader(buf)
     obj = r.obj()
     if r.pos != len(r.buf):

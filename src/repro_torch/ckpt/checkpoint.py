@@ -1,15 +1,28 @@
 """Checkpoints and the packed-int4 TT deploy export — the port of
-``repro/ckpt/checkpoint.py`` (synchronous ``save``/``load`` and
-``export_tt_deploy``/``load_tt_deploy``), in ``repro``'s container format
-so either package reads what the other writes:
+``repro/ckpt/checkpoint.py``: synchronous ``save``/``load``, the
+asynchronous ``AsyncCheckpointer`` with its step files (``step_path``,
+``latest_step``) and garbage collection, the SIGTERM hook
+``install_preemption_handler``, and ``export_tt_deploy``/``load_tt_deploy``,
+in ``repro``'s container format so either package reads what the other
+writes:
 
 - a flattened ``§``-joined path -> array map (dict keys sorted, NamedTuple
   fields as ``.name``, sequence items by index, a ``QTensor`` as ``q`` and
-  ``scale``, ``None`` skipped), each array as ``{"dtype", "shape",
+  ``scale``, ``None`` skipped; a ``Stacked`` leaf as one array, its
+  members stacked on a new axis 0), each array as ``{"dtype", "shape",
   "data"}``, beside a ``meta`` map, in one msgpack document;
 - written raw (``repro`` adds zstd when its ``zstandard`` module is
   present): reading a zstd frame raises, as ``repro`` does without it;
-- atomic: written to ``<path>.tmp``, then renamed.
+- atomic: written to ``<path>.tmp``, then renamed;
+- streamed: the writer emits the document's headers and then each
+  array's bytes straight from its host tensor (``_write_stream``), and the
+  reader takes each array as a view into the one buffer it read the file
+  into, so neither holds a second copy of the arrays.
+
+``AsyncCheckpointer.save`` copies every leaf to the host on the caller's
+thread (a device leaf's copy is complete when it returns; a host leaf is
+copied too), so later steps cannot leak into a pending write; a writer
+thread writes and collects.
 
 The msgpack subset is the port's own (``_msgpack.py``): the port needs no
 msgpack package.
@@ -17,7 +30,12 @@ msgpack package.
 from __future__ import annotations
 
 import dataclasses
+import io
 import os
+import queue
+import signal
+import threading
+from typing import Callable
 
 import numpy as np
 import torch
@@ -31,6 +49,18 @@ from . import _msgpack
 
 _SEP = "§"
 _ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"     # zstd frame header (RFC 8878)
+
+
+class Stacked:
+    """Tensors of one shape and dtype saved as one array, their stack on a
+    new axis 0: the reference's stacked layout of a per-layer leaf
+    (``launch/steps.py::stack_state``). A leaf of the trees ``save`` and
+    ``AsyncCheckpointer.save`` take; in ``load``'s ``like`` it comes back
+    as that one tensor, on its first member's device and in its dtype."""
+    __slots__ = ("items",)
+
+    def __init__(self, items):
+        self.items = list(items)
 
 
 def _is_namedtuple(node) -> bool:
@@ -51,46 +81,95 @@ def _children(node) -> list[tuple[str, object]] | None:
     return None
 
 
-def _flatten(tree, prefix: str = "") -> dict[str, torch.Tensor]:
+def _host(leaf, copy: bool) -> torch.Tensor:
+    """A leaf on the host; with ``copy`` a copy of its own, complete when
+    this returns (a ``Stacked`` leaf is always assembled in a new tensor,
+    each member copied into its row)."""
+    if isinstance(leaf, Stacked):
+        first = torch.as_tensor(leaf.items[0])
+        out = torch.empty((len(leaf.items),) + tuple(first.shape),
+                          dtype=first.dtype)
+        for row, t in zip(out, leaf.items):
+            row.copy_(torch.as_tensor(t).detach())
+        return out
+    t = torch.as_tensor(leaf).detach()
+    return t.to("cpu", copy=True) if copy else t.cpu()
+
+
+def _flatten(tree, prefix: str = "",
+             copy: bool = False) -> dict[str, torch.Tensor]:
     kids = _children(tree)
     if kids is None:
         if tree is None:
             return {}
-        return {prefix: torch.as_tensor(tree).detach().cpu()}
+        return {prefix: _host(tree, copy)}
     out = {}
     for k, v in kids:
-        out.update(_flatten(v, f"{prefix}{_SEP}{k}" if prefix else k))
+        out.update(_flatten(v, f"{prefix}{_SEP}{k}" if prefix else k, copy))
     return out
 
 
-def _to_bytes(t: torch.Tensor) -> bytes:
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).removeprefix("torch.")
+
+
+def _raw(t: torch.Tensor) -> np.ndarray:
+    """A host tensor's bytes as a flat uint8 array (bf16 through int16,
+    which numpy lacks), a view where the tensor is contiguous."""
     t = t.contiguous()
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
-    return t.numpy().tobytes()
+    return t.numpy().reshape(-1).view(np.uint8)
 
 
-def _from_bytes(dtype: str, shape, data: bytes) -> torch.Tensor:
+def _from_bytes(dtype: str, shape, data) -> torch.Tensor:
+    """A tensor over ``data`` (a writable buffer: a view, not a copy)."""
     raw = np.frombuffer(data, dtype=np.int16 if dtype == "bfloat16"
                         else np.dtype(dtype)).reshape(shape)
-    t = torch.from_numpy(raw.copy())
+    t = torch.from_numpy(raw)
     return t.view(torch.bfloat16) if dtype == "bfloat16" else t
 
 
+def _write_stream(f, arrays: dict[str, torch.Tensor], meta: dict) -> int:
+    """Write the container of ``arrays`` and ``meta`` to the file ``f``:
+    the headers through ``_msgpack``, each array's bytes straight from its
+    host tensor. Returns the bytes written."""
+    pk = _msgpack.packb
+    n = f.write(_msgpack.map_head(2) + pk("meta") + pk(meta) + pk("arrays")
+                + _msgpack.map_head(len(arrays)))
+    for k, v in arrays.items():
+        raw = _raw(v)
+        n += f.write(pk(k) + _msgpack.map_head(3) + pk("dtype")
+                     + pk(_dtype_name(v)) + pk("shape") + pk(list(v.shape))
+                     + pk("data") + _msgpack.bin_head(raw.nbytes))
+        n += f.write(raw.data)
+    return n
+
+
 def _encode(arrays: dict[str, torch.Tensor], meta: dict) -> bytes:
-    payload = {
-        "meta": meta,
-        "arrays": {
-            k: {"dtype": str(v.dtype).removeprefix("torch."),
-                "shape": list(v.shape), "data": _to_bytes(v)}
-            for k, v in arrays.items()
-        },
-    }
-    return _msgpack.packb(payload)
+    """The container's bytes in memory (``_write_stream`` into a buffer)."""
+    buf = io.BytesIO()
+    _write_stream(buf, arrays, meta)
+    return buf.getvalue()
 
 
-def _decode(blob: bytes) -> tuple[dict[str, torch.Tensor], dict]:
-    if blob[:4] == _ZSTD_MAGIC:
+def _read(path: str) -> bytearray:
+    """The file's bytes in one writable buffer."""
+    with open(path, "rb") as f:
+        buf = bytearray(os.fstat(f.fileno()).st_size)
+        view, got = memoryview(buf), 0
+        while got < len(buf):
+            n = f.readinto(view[got:])
+            if not n:
+                raise ValueError(f"{path} ended early")
+            got += n
+    return buf
+
+
+def _decode(blob) -> tuple[dict[str, torch.Tensor], dict]:
+    """The arrays (tensors over ``blob``, no copies: pass a writable
+    buffer) and the meta map of a raw container."""
+    if bytes(blob[:4]) == _ZSTD_MAGIC:
         raise RuntimeError("checkpoint is zstd-compressed; the port reads "
                            "raw msgpack checkpoints only")
     payload = _msgpack.unpackb(blob)
@@ -99,29 +178,33 @@ def _decode(blob: bytes) -> tuple[dict[str, torch.Tensor], dict]:
     return arrays, payload["meta"]
 
 
-def _write(path: str, blob: bytes, sync: bool) -> None:
+def _write_arrays(path: str, arrays: dict, meta: dict, sync: bool) -> int:
+    """Stream ``arrays`` and ``meta`` to ``path`` atomically; the bytes."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        f.write(blob)
+        n = _write_stream(f, arrays, meta)
         if sync:
             f.flush()
             os.fsync(f.fileno())
     os.replace(tmp, path)
+    return n
 
 
 def save(path: str, tree, meta: dict | None = None) -> None:
     """Synchronous atomic save of a tree of tensors."""
-    _write(path, _encode(_flatten(tree), meta or {}), sync=True)
+    _write_arrays(path, _flatten(tree), meta or {}, sync=True)
 
 
 def load(path: str, like=None):
     """Load a checkpoint: ``(arrays, meta)`` with ``arrays`` the flat key ->
-    CPU tensor map; with ``like`` (a tree of the target structure) the
-    arrays come back in that structure, each cast to its ``like`` leaf's
-    dtype and placed on its device."""
-    with open(path, "rb") as f:
-        arrays, meta = _decode(f.read())
+    CPU tensor map (views into the one buffer the file was read into);
+    with ``like`` (a tree of the target structure) the arrays come back in
+    that structure, each cast to its ``like`` leaf's dtype and placed on
+    its device (a ``Stacked`` leaf: its first member's). An array whose
+    shape is not its ``like`` leaf's (a ``Stacked`` leaf: its member count,
+    then its first member's shape) raises ``ValueError``."""
+    arrays, meta = _decode(_read(path))
     if like is None:
         return arrays, meta
 
@@ -132,8 +215,14 @@ def load(path: str, like=None):
                 return None
             if prefix not in arrays:
                 raise KeyError(f"checkpoint missing {prefix}")
-            ref = torch.as_tensor(node)
-            return arrays[prefix].to(device=ref.device, dtype=ref.dtype)
+            stacked = isinstance(node, Stacked)
+            ref = torch.as_tensor(node.items[0] if stacked else node)
+            want = ((len(node.items),) if stacked else ()) + tuple(ref.shape)
+            got = arrays[prefix]
+            if tuple(got.shape) != want:
+                raise ValueError(f"checkpoint {prefix} has shape "
+                                 f"{tuple(got.shape)}, expected {want}")
+            return got.to(device=ref.device, dtype=ref.dtype)
         new = [rebuild(v, f"{prefix}{_SEP}{k}" if prefix else k)
                for k, v in kids]
         if isinstance(node, dict):
@@ -144,6 +233,92 @@ def load(path: str, like=None):
             return type(node)(*new)
         return type(node)(new)
     return rebuild(like, ""), meta
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    """The largest N of the ``step_N.ckpt`` files in ``ckpt_dir`` (None
+    when there is none, or no directory)."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(f.split("_")[1].split(".")[0])
+             for f in os.listdir(ckpt_dir)
+             if f.startswith("step_") and f.endswith(".ckpt")]
+    return max(steps) if steps else None
+
+
+def step_path(ckpt_dir: str, step: int) -> str:
+    return os.path.join(ckpt_dir, f"step_{step}.ckpt")
+
+
+class AsyncCheckpointer:
+    """Snapshot on the caller's thread, write in the background: ``save``
+    returns once every leaf has a host copy of its own and queues the
+    write (at most 2 waiting; a third ``save`` blocks), a writer thread
+    streams it to ``step_<step>.ckpt`` through ``.tmp`` and a rename, then
+    removes all but the newest ``keep`` step files. ``wait`` blocks until
+    the queue is written and re-raises the writer's exception; ``close``
+    stops the thread."""
+
+    def __init__(self, ckpt_dir: str, keep: int = 3):
+        self.ckpt_dir = ckpt_dir
+        self.keep = keep
+        self._q: queue.Queue = queue.Queue(maxsize=2)
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        self._last_exc: Exception | None = None
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                self._q.task_done()
+                return
+            step, arrays, meta = item
+            try:
+                _write_arrays(step_path(self.ckpt_dir, step), arrays, meta,
+                              sync=False)
+                del arrays
+                self._gc()
+            except Exception as e:            # re-raised by wait()
+                self._last_exc = e
+            finally:
+                self._q.task_done()
+
+    def _gc(self):
+        steps = sorted(int(f.split("_")[1].split(".")[0])
+                       for f in os.listdir(self.ckpt_dir)
+                       if f.startswith("step_") and f.endswith(".ckpt"))
+        for s in steps[:-self.keep]:
+            try:
+                os.remove(step_path(self.ckpt_dir, s))
+            except OSError:
+                pass
+
+    def save(self, step: int, tree, meta: dict | None = None):
+        arrays = _flatten(tree, copy=True)       # synchronous snapshot
+        meta = dict(meta or {})
+        meta["step"] = step
+        self._q.put((step, arrays, meta))        # asynchronous write
+
+    def wait(self):
+        self._q.join()
+        if self._last_exc:
+            raise self._last_exc
+
+    def close(self):
+        self._q.put(None)
+        self._thread.join(timeout=10)
+
+
+def install_preemption_handler(fn: Callable[[], None]):
+    """Run ``fn`` (an emergency checkpoint flush) on SIGTERM, then exit
+    with code 143. Returns the handler it replaced, so a caller can put it
+    back (the reference leaves its handler installed)."""
+    def handler(signum, frame):
+        fn()
+        raise SystemExit(143)
+
+    return signal.signal(signal.SIGTERM, handler)
 
 
 # ---------------------------------------------------------------------------
@@ -232,9 +407,9 @@ def export_tt_deploy(path: str, params, policy=None) -> dict:
             fp32_bytes += v.numel() * 4
     stats = {"packed_bytes": int(packed_bytes), "fp32_bytes": int(fp32_bytes),
              "reduction_x": fp32_bytes / max(packed_bytes, 1)}
-    _write(path, _encode(arrays, {"format": "tt_deploy",
-                                  "tt_deploy": deploy_meta, "stats": stats}),
-           sync=False)
+    _write_arrays(path, arrays, {"format": "tt_deploy",
+                                 "tt_deploy": deploy_meta, "stats": stats},
+                  sync=False)
     return stats
 
 
@@ -271,8 +446,7 @@ def load_tt_deploy(path: str, dequantize: bool = True, device=None):
     leaves come back as they were stored, container sites as nested dicts
     keyed by field (``".act"``)."""
     device = resolve_device(device)
-    with open(path, "rb") as f:
-        arrays, meta = _decode(f.read())
+    arrays, meta = _decode(_read(path))
     deploy = meta.get("tt_deploy", {})
     out: dict = {}
     cores: list[tuple[str, torch.Tensor, torch.Tensor, tuple]] = []

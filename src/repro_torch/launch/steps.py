@@ -33,11 +33,12 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..ckpt import Stacked, load
 from ..configs.base import TrainConfig
 from ..kernels import grouped as G
 from ..models.lm import (LMDef, _walk_sites, init_lm, lm_forward,
                          lm_lambda_update, lm_prior_loss)
-from ..numerics import NumericsPolicy, per_tensor_max_scale_log2
+from ..numerics import NumericsPolicy, QTensor, per_tensor_max_scale_log2
 from ..numerics import cuda_backend as CB
 from ..optim.adam import (AdamState, _is_adam_leaf, _is_float, adam_update,
                           clip_by_global_norm, init_adam)
@@ -359,9 +360,12 @@ def launches_per_step(lm: LMDef, tcfg: TrainConfig,
 
     - ``pe1`` / ``pe2`` / ``pe3``: per TT site and layer, one forward chain
       (one PE1, d-1 PE2), again in the backward when ``remat="full"``
-      recomputes the layer, the transposed dx chain, and one PE3.
+      recomputes the layer, the transposed dx chain, and one PE3; a TT
+      head the same once (it is outside the per-layer remat); a TT
+      embedding none (its lookup contracts core slices eagerly).
     - ``p2_fake_quant``: per TT site and layer one group launch of its
-      cores per forward (two with remat); with the ``activation`` site,
+      cores per forward (two with remat), one for a TT embedding's and one
+      for a TT head's cores; with the ``activation`` site,
       the embedding's edge forward and backward (forward only under the
       audio frontend: its frames need no gradient) and each layer's edge
       forward, its recompute and its backward; the grad edge, one group
@@ -379,14 +383,20 @@ def launches_per_step(lm: LMDef, tcfg: TrainConfig,
     for path, site in _walk_sites(lm):
         if not site.use_tt:
             continue
-        if path[0] != "layers":
-            raise ValueError("counted for TT sites inside the layers only")
+        if path[0] == "embed":
+            # the lookup contracts the selected core slices eagerly (no PE
+            # launch) outside the per-layer remat: one core group a step
+            out["p2_fake_quant"] += int(cfg.quant.enable)
+            continue
+        # a layer site in every layer, recomputed under remat; the head
+        # once, outside the per-layer remat
+        n, f = (layers, fwd) if path[0] == "layers" else (1, 1)
         d = site.spec.d
-        out["pe1"] += layers * (fwd + 1)
-        out["pe2"] += layers * (fwd + 1) * (d - 1)
-        out["pe3"] += layers
+        out["pe1"] += n * (f + 1)
+        out["pe2"] += n * (f + 1) * (d - 1)
+        out["pe3"] += n
         if cfg.quant.enable:
-            out["p2_fake_quant"] += layers * fwd
+            out["p2_fake_quant"] += n * f
     if params is None:
         params = init_lm(None, lm, device="meta")
     floats = [(p, leaf.dtype) for p, leaf in flatten_with_path(params)
@@ -411,18 +421,127 @@ def launches_per_step(lm: LMDef, tcfg: TrainConfig,
 
 def step_flops(lm: LMDef, batch: int, seq: int) -> float:
     """FLOPs of the TT chains of one step (forward, remat recompute, dx
-    chain; ``ttm_flops_matvec``) plus PE3's Ŵ, as the launches count them."""
+    chain; ``ttm_flops_matvec``) plus PE3's Ŵ, as the launches count them:
+    a layer site in every layer, recomputed under remat; the head once;
+    the embedding none (its lookup launches no chain)."""
     from ..core.ttm import ttm_flops_matvec
     cfg = lm.cfg
     fwd = 2 if cfg.remat == "full" else 1
     rows = batch * seq
     total = 0.0
     for path, site in _walk_sites(lm):
-        if not site.use_tt:
+        if not site.use_tt or path[0] == "embed":
             continue
         s = site.spec
-        mult = lm.n_periods if path[0] == "layers" else 1
-        total += mult * (fwd * ttm_flops_matvec(s, rows)
-                         + ttm_flops_matvec(s.transposed(), rows)
-                         + 2.0 * rows * s.out_dim * s.in_dim)
+        n, f = (lm.n_periods, fwd) if path[0] == "layers" else (1, 1)
+        total += n * (f * ttm_flops_matvec(s, rows)
+                      + ttm_flops_matvec(s.transposed(), rows)
+                      + 2.0 * rows * s.out_dim * s.in_dim)
     return total
+
+
+# ---------------------------------------------------------------------------
+# the reference's checkpoint layout of a TrainState
+# ---------------------------------------------------------------------------
+
+def _stack_params(node):
+    """The reference's tree of a params node: a list of per-layer trees
+    becomes one tree of ``Stacked`` leaves (layer order)."""
+    if isinstance(node, dict):
+        return {k: _stack_params(v) for k, v in node.items()}
+    if isinstance(node, list):
+        flats = [flatten_with_path(item) for item in node]
+        paths = [p for p, _ in flats[0]]
+        if any([p for p, _ in f] != paths for f in flats):
+            raise ValueError("layers of different structure cannot stack")
+        return unflatten(node[0], [Stacked([f[i][1] for f in flats])
+                                   for i in range(len(paths))])
+    return node
+
+
+def _unstack_params(like, loaded):
+    """``_stack_params``'s inverse on a loaded tree: row l of each stacked
+    tensor is layer l's leaf (a view)."""
+    if isinstance(like, dict):
+        return {k: _unstack_params(v, loaded[k]) for k, v in like.items()}
+    if isinstance(like, list):
+        rows = [leaf for _, leaf in flatten_with_path(loaded)]
+        return [unflatten(item, [r[i] for r in rows])
+                for i, item in enumerate(like)]
+    return loaded
+
+
+def _stack_seq(seq, paths: list[str]):
+    """A moment or residual tuple over the port's leaves (``paths``) -> the
+    reference's, over its stacked leaves: a group of per-layer entries
+    becomes one ``Stacked`` entry (a ``QTensor``'s codes and steps each
+    stacked, its shape led by the layer count)."""
+    if seq is None:
+        return None
+    out = []
+    for group in stacked_groups(paths):
+        items = [seq[i] for i in group]
+        if not paths[group[0]].startswith("layers/") or items[0] is None:
+            out.append(items[0])
+        elif isinstance(items[0], QTensor):
+            q = items[0]
+            out.append(QTensor(Stacked([t.codes for t in items]),
+                               Stacked([t.scale for t in items]), q.spec,
+                               (len(items),) + tuple(q.shape)))
+        else:
+            out.append(Stacked(items))
+    return tuple(out)
+
+
+def _unstack_seq(like, loaded, paths: list[str]):
+    """``_stack_seq``'s inverse: each loaded stacked entry back to its
+    per-layer entries (views of its rows), in the port's order."""
+    if like is None:
+        return None
+    out = list(like)
+    for group, node in zip(stacked_groups(paths), loaded):
+        if not paths[group[0]].startswith("layers/"):
+            out[group[0]] = node
+            continue
+        for row, i in enumerate(group):
+            if node is None:
+                out[i] = None
+            elif isinstance(node, QTensor):
+                out[i] = QTensor(node.codes[row], node.scale[row],
+                                 like[i].spec, like[i].shape)
+            else:
+                out[i] = node[row]
+    return tuple(out)
+
+
+def stack_state(state: TrainState) -> TrainState:
+    """``state`` in the reference's checkpoint layout: every per-layer leaf
+    of ``params["layers"]`` a ``ckpt.Stacked`` of its layers (the
+    reference's stacked leaf), the moments and the wire residual over the
+    reference's leaves. ``ckpt.save`` / ``AsyncCheckpointer.save`` of it
+    write the reference's keys, shapes and order (stacking on the host as
+    they copy); no tensor is copied here."""
+    paths = [p for p, _ in flatten_with_path(state.params)]
+    opt = state.opt
+    return TrainState(_stack_params(state.params),
+                      type(opt)(opt.step, _stack_seq(opt.m, paths),
+                                _stack_seq(opt.v, paths)),
+                      state.step, _stack_seq(state.residual, paths),
+                      state.scales)
+
+
+def load_state(path: str, like: TrainState) -> tuple[TrainState, dict]:
+    """A TrainState checkpoint in the reference's layout (``stack_state``:
+    either package's train loop writes it) restored into ``like``'s
+    structure, dtypes and device, each layer's leaf a view of its row of
+    the loaded stack; returns (state, meta)."""
+    loaded, meta = load(path, like=stack_state(like))
+    paths = [p for p, _ in flatten_with_path(like.params)]
+    opt = loaded.opt
+    return TrainState(_unstack_params(like.params, loaded.params),
+                      type(opt)(opt.step,
+                                _unstack_seq(like.opt.m, opt.m, paths),
+                                _unstack_seq(like.opt.v, opt.v, paths)),
+                      loaded.step,
+                      _unstack_seq(like.residual, loaded.residual, paths),
+                      loaded.scales), meta

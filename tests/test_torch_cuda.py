@@ -113,7 +113,11 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
 (t) the quant-health counters inside ``p2_append_paged`` (GQA, the latent
     pair, a verify block), ``st_enc_group`` and ``p2_fq_group``: counts
     equal to the twins' integer for integer, codes equal to the
-    counter-off launch bit for bit.
+    counter-off launch bit for bit;
+(u) checkpoints of CUDA tensors: an asynchronous save and a
+    ``load(like=)`` back onto the card round-trip bit for bit (f32, bf16,
+    int8 codes, a stacked group, a strided view), and the snapshot that
+    ``save`` takes is not reached by a later in-place write to its source.
 """
 import math
 
@@ -2373,3 +2377,47 @@ def test_fq_group_saturation_counter_equals_twin(cuda, dtype):
     assert counts[0][0] > 0 and counts[0][1] == sum(sizes)
     for a, b in zip(ys, off):
         assert torch.equal(_bits_of(a), _bits_of(b))
+
+
+def _ckpt_tree(device):
+    from repro_torch.ckpt import Stacked
+    g = torch.Generator(device=device).manual_seed(29)
+    wide = torch.randn((64, 96), generator=g, device=device)
+    return {"w": torch.randn((1000, 33), generator=g, device=device),
+            "bf": torch.randn((17, 8), generator=g,
+                              device=device).to(torch.bfloat16),
+            "codes": torch.randint(-127, 128, (4097,), generator=g,
+                                   device=device, dtype=torch.int8),
+            "step": torch.tensor(7, dtype=torch.int32, device=device),
+            "strided": wide[:, 1::3],
+            "stack": Stacked([wide[i] for i in range(4)])}
+
+
+def test_async_checkpoint_of_cuda_tensors_round_trips(cuda, tmp_path):
+    from repro_torch.ckpt import AsyncCheckpointer, Stacked, load, step_path
+    tree = _ckpt_tree(cuda)
+    ck = AsyncCheckpointer(str(tmp_path))
+    ck.save(3, tree, {"final": True})
+    ck.wait()
+    ck.close()
+    back, meta = load(step_path(str(tmp_path), 3), like=tree)
+    assert meta == {"final": True, "step": 3}
+    for k, v in tree.items():
+        want = torch.stack(v.items) if isinstance(v, Stacked) else v
+        assert back[k].device == want.device and back[k].dtype == want.dtype
+        assert torch.equal(_bits_of(back[k]), _bits_of(want)), k
+
+
+def test_checkpoint_snapshot_is_not_reached_by_later_writes(cuda, tmp_path):
+    from repro_torch.ckpt import AsyncCheckpointer, load, step_path
+    src = torch.arange(1 << 20, dtype=torch.float32, device=cuda)
+    want = src.clone()
+    ck = AsyncCheckpointer(str(tmp_path))
+    ck.save(1, {"w": src})
+    src.mul_(-1.0)                  # on the card, right after save returned
+    ck.save(2, {"w": src})
+    ck.wait()
+    ck.close()
+    one, _ = load(step_path(str(tmp_path), 1), like={"w": src})
+    two, _ = load(step_path(str(tmp_path), 2), like={"w": src})
+    assert torch.equal(one["w"], want) and torch.equal(two["w"], -want)

@@ -216,11 +216,12 @@ def test_grad_accum_step_health_equals_reference():
 # (d) the train loop's trace and ledger
 # ---------------------------------------------------------------------------
 
-def test_train_loop_trace_and_ledger(capsys):
+def test_train_loop_trace_and_ledger(capsys, tmp_path):
     _, tcfg = _configs(remat="full")
     tcfg = tcfg.replace(quant=QuantConfig(enable=True, health=True))
     tt = TrainConfig(total_steps=3, warmup_steps=1, log_every=1,
-                     opt_state_dtype="int8", grad_compress=True)
+                     opt_state_dtype="int8", grad_compress=True,
+                     ckpt_dir=str(tmp_path))
     rec, led = TO.TraceRecorder(), TO.MemoryLedger()
     state, losses = TT.train(tcfg, "tp", tt, batch=2, seq=8, device="cpu",
                              trace=rec, ledger=led)

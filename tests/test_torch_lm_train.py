@@ -41,6 +41,7 @@ versions. Tolerances, each with its reason:
 - the wire's round trip from one state, the byte table, the parameter
   counts, ``lm_batch``, ``lr_at``: exact.
 """
+import shutil
 from types import SimpleNamespace
 
 import jax
@@ -706,7 +707,7 @@ def test_launches_per_step_at_the_chip_smoke_config():
                     "bw_dec": 21 + 1, "bw_enc": 21 + 1}
 
 
-def test_train_main_reaches_tt_sites_on_the_cpu(capsys):
+def test_train_main_reaches_tt_sites_on_the_cpu(capsys, tmp_path):
     """The CPU example the README gives: lm100m with --tt reaches TT sites
     (the reduced internlm2's projections are all under min_elements)."""
     from repro_torch import configs as C
@@ -716,16 +717,21 @@ def test_train_main_reaches_tt_sites_on_the_cpu(capsys):
     red, _ = TT.get_model_cfg("internlm2-1.8b", True)
     assert not any(s.use_tt for _, s in TL._walk_sites(TL.build_lm(
         C.with_tt(red, max_rank=32))))
-    TT.main(["--arch", "lm100m", "--tt", "--quantize", "--steps", "1",
-             "--batch", "1", "--seq", "8", "--device", "cpu"])
+    try:              # the final save holds lm100m's dense embedding
+        TT.main(["--arch", "lm100m", "--tt", "--quantize", "--steps", "1",
+                 "--batch", "1", "--seq", "8", "--device", "cpu",
+                 "--ckpt-dir", str(tmp_path / "ckpt")])
+    finally:
+        shutil.rmtree(tmp_path / "ckpt", ignore_errors=True)
     out = capsys.readouterr().out
     assert "[train] step 0 loss" in out and "compression" in out
 
 
-def test_train_entry_point_runs_on_the_cpu(capsys):
+def test_train_entry_point_runs_on_the_cpu(capsys, tmp_path):
     jcfg, tcfg = _configs(remat="full")
     tt = TrainConfig(total_steps=2, warmup_steps=1, log_every=1,
-                     opt_state_dtype="int8", grad_compress=True)
+                     opt_state_dtype="int8", grad_compress=True,
+                     ckpt_dir=str(tmp_path / "a"))
     seen = []
     state, losses = TT.train(tcfg, "tp", tt, batch=2, seq=8, device="cpu",
                              on_step=lambda i, m: seen.append((i, m["ce"])))
@@ -744,7 +750,8 @@ def test_train_entry_point_runs_on_the_cpu(capsys):
     # (tests/test_torch_ledger.py holds them to the reference)
     from repro_torch.obs import MemoryLedger, TraceRecorder
     rec, led = TraceRecorder(), MemoryLedger()
-    one = TrainConfig(total_steps=1, warmup_steps=1, log_every=1)
+    one = TrainConfig(total_steps=1, warmup_steps=1, log_every=1,
+                      ckpt_dir=str(tmp_path / "b"))
     TT.train(tcfg, "tp", one, batch=2, seq=8, device="cpu", trace=rec,
              ledger=led, verbose=False)
     assert len(rec.events("train_step")) == 1

@@ -269,9 +269,10 @@ def _per_leaf_export(path, params, policy=None):
     visit(params, "")
     stats = {"packed_bytes": sizes[0], "fp32_bytes": sizes[1],
              "reduction_x": sizes[1] / max(sizes[0], 1)}
-    TCKM._write(path, TCKM._encode(arrays, {
-        "format": "tt_deploy", "tt_deploy": deploy_meta, "stats": stats}),
-        sync=False)
+    with open(path, "wb") as f:
+        f.write(TCKM._encode(arrays, {
+            "format": "tt_deploy", "tt_deploy": deploy_meta,
+            "stats": stats}))
     return stats
 
 
