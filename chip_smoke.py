@@ -184,8 +184,8 @@ Phases (any failure raises and the script exits non-zero):
              COW fork; prefix on vs off on the slice's requests is reported.
    serve rwkv6 — the seventh main path: rwkv6-1.6b at full size (24
              layers, d_model 2048, 32 heads x 64, d_ff 7168, vocab 65,536,
-             bf16, ~1.58 B seeded parameters) serving 16 requests of the
-             engine phase's lengths (128..512 tokens, 64 new, 8 slots)
+             bf16, ~1.58 B seeded parameters) serving the first 8 of the
+             engine phase's requests (128..512 tokens, 64 new, 8 slots)
              from an int8 state pool, an fp pool and, chunked (128), the
              int8 pool; counts zeroed just before and read just after
              each run, exact: 1 st_dec_group + 1 st_enc_group a decode
@@ -227,7 +227,8 @@ Phases (any failure raises and the script exits non-zero):
              d_ff 1408, top-6, vocab 163,840, untied head; bf16,
              28,057,995,264 seeded parameters, asserted), every earlier
              model freed first (under 2 GiB allocated, asserted), serving
-             the engine phase's 16 requests x 64 new tokens from the int8
+             the first 8 of the engine phase's requests x 64 new tokens
+             from the int8
              paged pool with fused attention, whole prompt and chunked
              (128); counts zeroed just before and read just after each
              run, exact: a decode step 48 p2_append_paged, 48 split and 48
@@ -418,8 +419,13 @@ Phases (any failure raises and the script exits non-zero):
              its losses for steps 4-5 and its final state are (a)'s. (c)
              the same with TT embedding and head sites and quantization
              (18,962,334 parameters): 2 steps with launches exact, one
-             step profiled (every counted kernel by name on the CUDA-core
-             route), PE1-3 at every f32 shape of its step, the embedding's
+             step profiled (every counted kernel by name: PE1 on
+             pe1_kernel, PE2 and PE3 on the tile route, pe2_tile_kernel and
+             pe3_tile_kernel, and no pe2_kernel / pe3_kernel), PE1-3 at
+             every f32 shape of its step (PE2 and PE3 on the tile route,
+             bit for bit over two launches, timed beside the previous
+             design, pe2_kernel / pe3_kernel, and beside the faster of
+             torch.matmul and torch.einsum), the embedding's
              and head's core groups and the wire's encode and decode
              groups held to their twins and timed, a reduced step with TT
              embedding and head on the card against the CPU. (d) the
@@ -438,10 +444,11 @@ result when no CUDA device is available or when the repository's
 build and a diagnostic of the PE1/PE2/PE3 kernels: each rebuilt with its FMA
 loop, its copies or its stores cut out and timed at the step's shapes, so
 the time of each phase reads as a difference (no profiler of kernel
-internals works on the card's machine). It covers the CUDA-core bodies
-only, at the MLP's f32 shapes; the tensor-core routes (tt_mma.cuh,
-pe1_mma_kernel) have no anatomy. ``--pa-anatomy`` does the same for
-the attention split pass (K/V staging, query load, scores, softmax, P @ V)
+internals works on the card's machine). It covers the CUDA-core bodies:
+the streamed ones at the MLP's f32 shapes, the f32 tile route
+(tt_tile.cuh) at LM100M's PE2 and PE3 calls, then PE3's calls at every
+cluster size; the tensor-core routes (tt_mma.cuh, pe1_mma_kernel) have no
+anatomy. ``--pa-anatomy`` does the same for the attention split pass (K/V staging, query load, scores, softmax, P @ V)
 beside its combine pass. ``--codec-anatomy`` times the LM step's large
 fake-quant and blockwise-encode launches on their stream units and on
 the previous units: the fake-quant group in full, with its arithmetic cut
@@ -2157,16 +2164,24 @@ def _pe_previous(kind, z, g):
 
 # --pe-anatomy: the PE kernels' bodies with one phase cut out at a time, text
 # replacements of the lines that run it, by file (csrc/tt_contract.cuh for
-# PE2 and PE3, csrc/ttm_pe1.cu for PE1; a store is kept behind a test that
-# never holds, so the sums are still computed)
+# PE2 and PE3's streamed body, csrc/tt_tile.cuh for their f32 tile route,
+# csrc/ttm_pe1.cu for PE1; a store is kept behind a test that never holds,
+# so the sums are still computed; the tile route's "store" cut keeps the
+# write-back's shared-memory tile and its reads, and drops the stores to O)
 PE_PHASES = {
     "fma": {"tt_contract.cuh": [
         ("fma_row<T, RD>(zr + r * p.zp, gr + r * p.gp, acc);", ";")],
+        "tt_tile.cuh": [
+            ("for (int j = 0; j < TN; ++j) acc[ii][j] = fmaf(av[ii], bv[j], "
+             "acc[ii][j]);", "for (int j = 0; j < TN; ++j) {}")],
         "ttm_pe1.cu": [("      if (active) {\n        const T* zr = Zs",
                         "      if (false) {\n        const T* zr = Zs")]},
     "copy": {"tt_contract.cuh": [
         ("++i) issue(i, i);", "++i) {}"),
         ("if (ch + p.stages < nch) issue(ch + p.stages, st);", "")],
+        "tt_tile.cuh": [
+            ("    if (i < nch) issue(ch0 + i, i);", ""),
+            ("    if (nx < nch) issue(ch0 + nx, nx % p.stages);", "")],
         "ttm_pe1.cu": [
             ("      tt_contract::copy_any<T>(p.gz, Zs,",
              "      if (false) tt_contract::copy_any<T>(p.gz, Zs,"),
@@ -2175,6 +2190,9 @@ PE_PHASES = {
     "store": {"tt_contract.cuh": [
         ("if (dgi * RD + i < nrows_d) store4(",
          "if (acc[i][0] == 1.5e38f) store4(")],
+        "tt_tile.cuh": [
+            ("    put<N>(O + ((a0 + s)", "    if (v[0] == 1.5e38f) put<N>(O + "
+             "((a0 + s)")],
         "ttm_pe1.cu": [
             ("    tt_contract::store4(Y + (a0 + m) * p.d",
              "    if (acc[i][0] == 1.5e38f) tt_contract::store4(Y + (a0 + m) "
@@ -2225,16 +2243,19 @@ def phase_pe_anatomy(torch, timer: Timer) -> dict:
     stores, or all three cut out (``PE_PHASES``), each timed at the step's
     f32 shapes beside the full kernel and ``torch.matmul``. A phase's cost
     is the full time less the time without it. Builds under
-    ``kernels/_build/anatomy``. The CUDA-core bodies only (the f32 route);
-    the bf16 tensor-core route is not cut here."""
-    from repro_torch.kernels import tt_contract as TC, ttm_pe1
+    ``kernels/_build/anatomy``. The CUDA-core bodies only (the f32 routes:
+    the streamed bodies at the MLP's shapes, the tile route at LM100M's
+    PE2 and PE3 calls); the bf16 tensor-core route is not cut here. Then
+    PE3's calls on the tile route at every cluster size, beside the
+    clusters the card runs at once (``tt_tile.clusters``)."""
+    from repro_torch.kernels import tt_contract as TC, tt_tile as TT, ttm_pe1
     cuts = {"full": [], **{f"no {k}": [k] for k in PE_PHASES},
             "none": list(PE_PHASES)}
     libs = {key: (ttm_pe1.typed(lib) if key[1] == "ttm_pe1"
                   else TC.typed(lib, key[1][4:]))
             for key, lib in _anatomy_libs(
                 PE_PHASES, cuts, ("tt_contract.cuh", "tt_mma.cuh",
-                                  "ttm_pe1.cu"),
+                                  "tt_tile.cuh", "ttm_pe1.cu"),
                 ("ttm_pe1", "ttm_pe2", "ttm_pe3"), "pe").items()}
     gen = torch.Generator(device="cuda").manual_seed(3)
     rows = []
@@ -2268,7 +2289,64 @@ def phase_pe_anatomy(torch, timer: Timer) -> dict:
             f"stores {row['store_ms']*1e3:.1f}; with all three cut out "
             f"{row['none']*1e3:.1f} us (the timer's floor, the launch, the "
             f"prologue, syncs and any b-split reduction)")
-    return {"rows": rows}
+    # the f32 tile route at LM100M's PE2 and PE3 calls (train ckpt's)
+    tile = []
+    for kind, zs, gs in _lm_pe_calls(_ckpt_configs()[1]):
+        if kind == "pe1":
+            continue
+        z = torch.randn(zs, generator=gen, device="cuda")
+        g = torch.randn(gs, generator=gen, device="cuda") * 0.2
+        zz, gg = _pe_contraction(kind, z, g)
+        out = zz.new_empty((zz.shape[0], gg.shape[1], zz.shape[2]))
+        p = TT.plan_for(zz, gg)
+        check(p is not None, f"anatomy {kind} {zs}: not on the tile route")
+        src = ANATOMY_SOURCES[kind]
+        row = {"kind": kind, "z": list(zs), "g": list(gs), "route": "tile",
+               "tile": [p.bm, p.bn], "cs": p.cs, "ks": p.ks}
+        for cut in cuts:
+            lib = libs[(cut, src)]
+            row[cut] = timer(lambda: TT.launch(kind, src, p, zz, gg, out,
+                                               lib=lib), iters=5)
+        for ph in PE_PHASES:
+            row[f"{ph}_ms"] = row["full"] - row[f"no {ph}"]
+        tile.append(row)
+        log(f"anatomy tile {kind} {zs} x {gs}: full {row['full']*1e3:.1f} "
+            f"us; FMA loop {row['fma_ms']*1e3:.1f}, copies "
+            f"{row['copy_ms']*1e3:.1f}, stores {row['store_ms']*1e3:.1f}; "
+            f"with all three cut out {row['none']*1e3:.1f} us")
+        del z, g, zz, gg, out
+    # split-K at PE3's calls: the planner's cluster size beside every other,
+    # and the clusters the card runs at once (tt_tile.CLUSTERS' source)
+    split = []
+    for kind, zs, gs in _lm_pe_calls(_ckpt_configs()[1]):
+        if kind != "pe3":
+            continue
+        z = torch.randn(zs, generator=gen, device="cuda")
+        g = torch.randn(gs, generator=gen, device="cuda") * 0.2
+        zz, gg = _pe_contraction(kind, z, g)
+        out = zz.new_empty((1, gg.shape[1], zz.shape[2]))
+        p = TT.plan_for(zz, gg)
+        row = {"z": list(zs), "g": list(gs), "planned": p.cs,
+               "resident": TT._resident(p.tm, p.tn, p.threads, p.smem),
+               "ms": {}, "clusters": {}}
+        for cs in range(1, TT.MAX_CLUSTER + 1):
+            kc = -(-p.nk // cs)
+            if (cs - 1) * kc >= p.nk:
+                continue
+            q = dataclasses.replace(p, cs=cs, kc=kc, grid=p.tiles * cs)
+            row["clusters"][cs] = TT.clusters(q)
+            row["ms"][cs] = timer(lambda: TT.launch(kind, "ttm_pe3", q, zz,
+                                                    gg, out), iters=5)
+        best = min(row["ms"], key=row["ms"].get)
+        split.append(row)
+        log(f"anatomy split-K pe3 {zs} x {gs}: planned cs {p.cs} "
+            f"{row['ms'][p.cs]*1e3:.1f} us, best cs {best} "
+            f"{row['ms'][best]*1e3:.1f} us; by cs " + ", ".join(
+                f"{k}: {v*1e3:.1f} us ({row['clusters'][k]} clusters at "
+                "once)" for k, v in row["ms"].items()))
+        del z, g, zz, gg, out
+    torch.cuda.empty_cache()
+    return {"rows": rows, "tile_rows": tile, "split_k": split}
 
 
 # --pa-anatomy: the attention split pass with one phase cut out at a time,
@@ -2367,7 +2445,9 @@ def phase_train_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
     2^-15), every PE call of the step within 1e-4 (f32) / 2e-2 (bf16)
     relative and absolute, PE2 and PE3 bit-identical over two launches
     (no atomics) and timed beside the strided design they replaced
-    (``previous_ms``), and PE1's fused epilogue bit-identical to its
+    (``previous_ms``) and, PE2 and PE3, beside the f32 tile route at the
+    same call (``tile_ms``: why these shapes stay under
+    ``tt_tile.MIN_FLOPS``), and PE1's fused epilogue bit-identical to its
     unfused output through the codec's encode -> decode."""
     from repro_torch import numerics as TN
     from repro_torch.kernels import build as B
@@ -2446,12 +2526,19 @@ def phase_train_kernels(torch, timer: Timer, device: str = "cuda") -> dict:
                 check((prev - r).abs().max().item() <= 1e-4 * (
                     1 + r.abs().max().item()), f"{kind} previous differs")
                 row["previous_ms"] = timer(lambda: _pe_previous(kind, z, g))
+                if kind != "pe1":   # the tile route here: MIN_FLOPS' reason
+                    tile = _pe_tile(kind, z, g)
+                    check((tile - r).abs().max().item() <= 1e-4 * (
+                        1 + r.abs().max().item()), f"{kind} tile differs")
+                    row["tile_ms"] = timer(lambda: _pe_tile(kind, z, g))
                 nbytes, flops = _pe_work(kind, zs, gs, 4)
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     nbytes, flops, fp32=True)
         row["max_abs_err"] = row["max_abs_err_float32"]
         rows[kind].append(row)
-        was = f", previous {row['previous_ms']*1e3:.1f} us"
+        was = f", previous {row['previous_ms']*1e3:.1f} us" + (
+            f", tile route {row['tile_ms']*1e3:.1f} us" if "tile_ms" in row
+            else "")
         log(f"{kind} {zs} x {gs}: {row['ms']*1e3:.1f} us (plain "
             f"{row['plain_ms']*1e3:.1f} us{was}, library "
             f"{row['library_ms']*1e3:.1f} us, bound "
@@ -4016,6 +4103,10 @@ def phase_chunked_identity(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 SSM_ARCH = "rwkv6-1.6b"
+# requests of each serve rwkv6 and serve moe run: one of the 8 slots each
+# (the engine phase serves all 16); the script's time limit is shared by
+# every phase, and these runs are host-bound
+STATE_REQUESTS = 8
 HYBRID_ARCH = "jamba-1.5-large"
 PA_KV_FNS = KV_KERNEL_FNS + PA_KERNEL_FNS
 ST_KERNEL_FNS = ["st_dec_group_kernel", "st_enc_group_kernel",
@@ -4981,9 +5072,11 @@ def phase_health_kernels(torch, timer: Timer) -> dict:
 
 
 def phase_serve_rwkv6(torch, lm, params) -> dict:
-    """The slice's main path: rwkv6-1.6b at full size serving the engine
-    phase's 16 requests (64 new tokens, 8 slots) from an int8 state pool,
-    an fp pool and, chunked (128), the int8 pool again; counts zeroed just
+    """The slice's main path: rwkv6-1.6b at full size serving the first
+    ``STATE_REQUESTS`` of the engine phase's requests (64 new tokens, 8
+    slots; a run's time is mostly the prompts' per-token scans) from an
+    int8 state pool, an fp pool and, chunked (128), the int8 pool again;
+    counts zeroed just
     before and read just after each run, exact (``_state_want``); no KV
     kernel, ``cache_bytes`` 0, every slot free at the end,
     ``state_reduction`` >= 3.5. Then the replay of 3 decode steps and of
@@ -4995,13 +5088,14 @@ def phase_serve_rwkv6(torch, lm, params) -> dict:
     t0 = time.perf_counter()
     cfg = lm.cfg
     prompts = _requests(cfg.vocab_size)
+    runs = prompts[:STATE_REQUESTS]
     _serve_engine(torch, lm, params, prompts[:2], 4)              # warm-up
     out, toks = {}, {}
     for name, kw in (("int8", {}), ("fp", dict(quantized=False)),
                      ("chunked", dict(prefill_chunk=CHUNK))):
         B.reset_launches()
         t1 = time.perf_counter()
-        eng, toks[name] = _serve_engine(torch, lm, params, prompts, 64, **kw)
+        eng, toks[name] = _serve_engine(torch, lm, params, runs, 64, **kw)
         wall = time.perf_counter() - t1
         launches = dict(B.LAUNCHES)
         summ = eng.summary()
@@ -5010,7 +5104,7 @@ def phase_serve_rwkv6(torch, lm, params) -> dict:
         want = ({} if name == "fp" else _state_want(
             lm, summ["decode_steps"], len(eng.metrics.prefills), chunks))
         s = _check_state_run(f"serve rwkv6 ({name})", eng, launches, want,
-                             len(prompts))
+                             len(runs))
         check(s["cache_bytes"] == 0 and not eng.sched.paged,
               f"serve rwkv6 ({name}): a KV pool of {s['cache_bytes']} B")
         if name != "fp":
@@ -5034,7 +5128,7 @@ def phase_serve_rwkv6(torch, lm, params) -> dict:
                                                     prompts[0])
     out["bf16_agreement_int8_fp"] = sum(
         a == b for x, y in zip(toks["int8"], toks["fp"])
-        for a, b in zip(x, y)) / (len(prompts) * 64)
+        for a, b in zip(x, y)) / (len(runs) * 64)
     log(f"serve rwkv6: bf16 greedy agreement int8 vs fp pool "
         f"{out['bf16_agreement_int8_fp']:.3f}")
     out["runs_s"] = time.perf_counter() - t0
@@ -5514,12 +5608,13 @@ def _moe_identity(torch) -> dict:
 def phase_serve_moe(torch) -> dict:
     """moonshot-v1-16b at full size (48 layers, 64 experts, top-6, bf16,
     seeded weights on the card) from the int8 paged pool (8 x 64 x 16),
-    fused attention: the engine phase's 16 requests x 64 new tokens whole
-    prompt and chunked (128); counts exact: a decode step 48
-    ``p2_append_paged``, 48 split and 48 combine, a whole-prompt prefill 1
-    ``p2_prefill_paged``, a chunk step 48 ``p2_append_paged`` and 48
-    ``p2_read_paged``, no codec or state launch; by counter, and by
-    profile name for a decode step, a prefill and a chunk step. Then the
+    fused attention: the first ``STATE_REQUESTS`` of the engine phase's
+    requests x 64 new tokens whole prompt and chunked (128); counts exact:
+    a decode step 48 ``p2_append_paged``, 48 split and 48 combine, a
+    whole-prompt prefill 1 ``p2_prefill_paged``, a chunk step 48
+    ``p2_append_paged`` and 48 ``p2_read_paged``, no codec or state
+    launch; by counter, and by profile name for a decode step, a prefill
+    and a chunk step. Then the
     decode step's breakdown, one MoE layer by part, rows 1b, 1c, 3, 5b and
     6b at 16 KV heads, and the fp32 identities (``_moe_identity``)."""
     from repro_torch.kernels import build as B
@@ -5543,13 +5638,14 @@ def phase_serve_moe(torch) -> dict:
     log(f"serve moe: {n:,} parameters, {out['resident_bytes'] / 2**30:.2f} "
         "GiB resident")
     prompts = _requests(cfg.vocab_size)
+    runs = prompts[:STATE_REQUESTS]
     _serve_engine(torch, lm, params, prompts[:2], 4, fused_attention=True)
     part("init")
     for name, chunk in (("whole", 0), ("chunked", CHUNK)):
         B.reset_launches()
         t1 = time.perf_counter()
         (eng, _), routed, dropped = _with_drop_count(
-            torch, lambda: _serve_engine(torch, lm, params, prompts, 64,
+            torch, lambda: _serve_engine(torch, lm, params, runs, 64,
                                          fused_attention=True,
                                          prefill_chunk=chunk))
         wall = time.perf_counter() - t1
@@ -5566,7 +5662,7 @@ def phase_serve_moe(torch) -> dict:
         if chunks:
             want["p2_read_paged"] = layers * chunks
         s = _check_state_run(f"serve moe ({name})", eng, launches, want,
-                             len(prompts))
+                             len(runs))
         check(eng.sched.alloc.free_pages == eng.pcfg.total_pages,
               f"serve moe ({name}): pages still mapped at the end")
         log(f"serve moe ({name}): {s['requests_completed']} requests in "
@@ -5974,6 +6070,18 @@ def _pe_contraction(kind, z, g):
     """PE2's (Z, G) of a PE2 or PE3 call: PE3 (Ybar (b, j), X (b, i)) is
     PE2 at a = 1 with Z = X and G = Ybar."""
     return (z, g) if kind == "pe2" else (g.view(1, *g.shape), z)
+
+
+def _pe_tile(kind, z, g):
+    """A PE2 or PE3 call on the f32 tile route under ``tt_tile.layout``,
+    whatever its size (below ``tt_tile.MIN_FLOPS`` the route the wrappers
+    take is the streamed body): a yardstick at the MLP's shapes."""
+    from repro_torch.kernels import tt_tile
+    zz, gg = _pe_contraction(kind, z, g)
+    out = zz.new_empty((zz.shape[0], gg.shape[1], zz.shape[2]))
+    tt_tile.launch(kind, f"ttm_{kind}", tt_tile.layout_for(zz, gg), zz, gg,
+                   out)
+    return out if kind == "pe2" else out[0]
 
 
 def _pe_fma(kind, z, g):
@@ -6874,7 +6982,12 @@ CKPT_EVERY = 2             # periodic saves after steps 2 and 4
 CKPT_SITES = ("ffn", "attn_qkv", "attn_o", "expert", "embed", "head")
 CKPT_PARAMS_EH = 18_962_334        # (c)'s parameters, the TT embedding's
 CKPT_SECONDS = 240.0               # the phase's wall, at most
-CKPT_CUDA_CORE_FN = ("pe1_mma_kernel", "pe2_mma_kernel", "pe3_mma_kernel")
+# LM100M's f32 step: PE1 on pe1_kernel, PE2 and PE3 on the tile route, and
+# none of their launches on the tensor cores or the streamed bodies
+CKPT_KERNEL_FN = {**KERNEL_FN, "pe2": "pe2_tile_kernel",
+                  "pe3": "pe3_tile_kernel"}
+CKPT_ABSENT_FN = ("pe1_mma_kernel", "pe2_mma_kernel", "pe3_mma_kernel",
+                  "pe2_kernel", "pe3_kernel")
 
 
 def _ckpt_configs():
@@ -6950,14 +7063,68 @@ def _ckpt_child(ckpt_dir: str, kill_at: int, out: str):
     return res, time.perf_counter() - t0
 
 
-def _ckpt_pe_rows(torch, timer: Timer, cfg) -> dict:
+def _pe_launches_by_shape(lm, rows: int) -> dict:
+    """Launches a step of each distinct PE call ``(kind, Z shape, G shape)``
+    of ``lm``'s training step at ``rows`` rows: a layer site's forward
+    chain in every layer (twice under ``remat="full"``), its transposed
+    chain and its Ŵ; a TT head's once; a TT embedding none (as
+    ``steps.launches_per_step`` counts them, by shape)."""
+    from repro_torch.core.ttm import pe_shapes
+    from repro_torch.models.lm import _walk_sites
+    fwd = 2 if lm.cfg.remat == "full" else 1
+    out: dict = {}
+    for path, site in _walk_sites(lm):
+        if not site.use_tt or path[0] == "embed":
+            continue
+        n, f = (lm.n_periods, fwd) if path[0] == "layers" else (1, 1)
+        s = site.spec
+        calls = [(c, n * f) for c in pe_shapes(s, rows)] + [
+            (c, n) for c in pe_shapes(s.transposed(), rows)] + [
+            (("pe3", (rows, s.out_dim), (rows, s.in_dim)), n)]
+        for c, k in calls:
+            out[c] = out.get(c, 0) + k
+    return out
+
+
+PE_EINSUM = {"pe1": "abc,bdc->ad", "pe2": "abc,bd->adc", "pe3": "bj,bi->ji"}
+
+
+def _pe_yardsticks(torch, timer: Timer, kind, z, g, ref) -> dict:
+    """Yardsticks only: one ``torch.matmul`` (``_pe_library``) and one
+    ``torch.einsum`` computing the same call on the same tensors (TF32 off),
+    each held to the plain version's result and timed; ``library_ms`` is
+    the faster, named in ``library_call``."""
+    tol = PE_TOL[str(z.dtype)[6:]]
+    calls = {"torch.matmul": lambda: _pe_library(torch, kind, z, g),
+             f'torch.einsum("{PE_EINSUM[kind]}")':
+                 lambda: torch.einsum(PE_EINSUM[kind], z, g)}
+    times = {}
+    for name, fn in calls.items():
+        check((fn() - ref).abs().max().item() <= tol * (
+            1 + ref.abs().max().item()), f"{kind} yardstick {name} differs")
+        times[name] = timer(fn, iters=5)
+    best = min(times, key=times.get)
+    return {"library_ms": times[best], "library_call": best,
+            "matmul_ms": times["torch.matmul"],
+            "einsum_ms": times[f'torch.einsum("{PE_EINSUM[kind]}")']}
+
+
+def _ckpt_pe_rows(torch, timer: Timer, cfg, per_a: dict,
+                  per_c: dict) -> dict:
     """PE1/PE2/PE3 at every distinct f32 shape of (c)'s step (LM100M's
-    layer sites and TT head at 8 x 256 rows): on the CUDA-core route (no
-    tensor-core plan for f32; asserted), within 1e-4 of the plain version,
-    bit for bit over two launches, timed beside it, beside one
-    ``torch.matmul`` of the same product (TF32 off) and beside the bound
-    (bytes at 3.35 TB/s or the FP32 operations at 67 TFLOP/s)."""
-    from repro_torch.kernels import tt_mma, ttm_pe1
+    layer sites and TT head at 8 x 256 rows), each with its launches a step
+    in (a) and (c) (``per_a``, ``per_c``: ``_pe_launches_by_shape``): no
+    tensor-core plan for f32 (asserted); PE2 and PE3 on the tile route
+    (``tt_tile.plan``; one launch a call, asserted) and PE1 on
+    ``pe1_kernel``; within 1e-4 of the plain version, bit for bit over two
+    launches, timed beside it, beside the previous design at the same call
+    (PE2 and PE3: ``pe2_kernel`` / ``pe3_kernel`` through
+    ``tt_contract.launch``, ``previous_ms``), beside the faster of one
+    ``torch.matmul`` and one ``torch.einsum`` of the same product (TF32 off)
+    and beside the bound (bytes at 3.35 TB/s or the FP32 operations at 67
+    TFLOP/s)."""
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import tt_mma, tt_tile, ttm_pe1
     gen = torch.Generator(device="cuda").manual_seed(8)
     rows = {"pe1": [], "pe2": [], "pe3": []}
     tol = PE_TOL["float32"]
@@ -6968,30 +7135,58 @@ def _ckpt_pe_rows(torch, timer: Timer, cfg) -> dict:
         p = (ttm_pe1.plan_pe1_for(z, g) if kind == "pe1" else
              tt_mma.plan_for(*_pe_contraction(kind, z, g)))
         check(p is None, f"ckpt {kind} {zs}x{gs}: f32 on the tensor cores")
-        o, r = kern(z, g), plain(z, g)
+        row = dict(z=list(zs), g=list(gs), dtype="float32",
+                   route="CUDA cores", launches_per_step_a=per_a.get(
+                       (kind, zs, gs), 0),
+                   launches_per_step_c=per_c[(kind, zs, gs)])
+        if kind != "pe1":
+            t = tt_tile.plan_for(*_pe_contraction(kind, z, g))
+            check(t is not None, f"ckpt {kind} {zs}x{gs}: not on the tile "
+                  "route")
+            row.update(route="tile", tile=[t.bm, t.bn], spc=t.spc, ct=t.ct,
+                       tn=t.tn, ks=t.ks, cs=t.cs, stages=t.stages,
+                       grid=t.grid, smem=t.smem)
+        torch.cuda.synchronize()
+        B.reset_launches()
+        o = kern(z, g)
+        torch.cuda.synchronize()
+        check(B.LAUNCHES == {kind: 1}, f"ckpt {kind} {zs}x{gs}: launches "
+              f"{B.LAUNCHES}")
+        r = plain(z, g)
         err = (o - r).abs()
         check(bool((err <= tol + tol * r.abs()).all()),
               f"ckpt {kind} {zs}x{gs}: max err {err.max().item()}")
         check(_bits_equal(torch, kern(z, g), o),
               f"ckpt {kind} {zs}x{gs}: two launches differ")
-        row = dict(z=list(zs), g=list(gs), dtype="float32",
-                   route="CUDA cores", max_abs_err=err.max().item())
-        del o, r, err
+        row["max_abs_err"] = err.max().item()
+        if kind != "pe1":
+            prev = _pe_fma(kind, z, g)
+            check(bool(((prev - r).abs() <= tol + tol * r.abs()).all()),
+                  f"ckpt {kind} {zs}x{gs}: the previous design differs")
+            del prev
+        del o, err
+        row.update(_pe_yardsticks(torch, timer, kind, z, g, r))
+        del r
         row["ms"] = timer(lambda: kern(z, g), iters=10)
+        if kind != "pe1":
+            row["previous_ms"] = timer(lambda: _pe_fma(kind, z, g), iters=5)
         row["plain_ms"] = timer(lambda: plain(z, g), iters=5)
-        row["library_ms"] = timer(lambda: _pe_library(torch, kind, z, g),
-                                  iters=10)
         nbytes, flops = _pe_work(kind, zs, gs, 4)
         row["flops"] = flops
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops,
                                                     fp32=True)
         row["tflops"] = flops / row["ms"] / 1e9
         rows[kind].append(row)
-        log(f"ckpt {kind} {zs} x {gs} f32: {row['ms']*1e3:.1f} us "
+        was = (f", previous {row['previous_ms']*1e3:.1f} us"
+               if "previous_ms" in row else "")
+        log(f"ckpt {kind} {zs} x {gs} f32 ({row['route']}, "
+            f"{row['launches_per_step_a']} / {row['launches_per_step_c']} a "
+            f"step in (a) / (c)): {row['ms']*1e3:.1f} us "
             f"({row['tflops']:.2f} TFLOP/s; plain {row['plain_ms']*1e3:.1f}"
-            f" us, torch.matmul {row['library_ms']*1e3:.1f} us, bound "
-            f"{row['bound_ms']*1e3:.2f} us {row['bound_by']}); err "
-            f"{row['max_abs_err']:.1e}")
+            f" us{was}, {row['library_call']} {row['library_ms']*1e3:.1f} "
+            f"us (matmul {row['matmul_ms']*1e3:.1f}, einsum "
+            f"{row['einsum_ms']*1e3:.1f}), bound {row['bound_ms']*1e3:.2f} "
+            f"us {row['bound_by']}); err {row['max_abs_err']:.1e}")
         del z, g
     torch.cuda.empty_cache()
     return rows
@@ -7099,8 +7294,8 @@ def _ckpt_cost(cfg, prof: dict) -> dict:
 
 def _ckpt_profile(torch, lm, tcfg, state, cfg, what: str) -> dict:
     """One step of ``state`` timed (host wall) and one profiled (device
-    time, busy share, every counted kernel by name on the CUDA-core route,
-    no tensor-core PE kernel)."""
+    time, busy share, every counted kernel by name: PE2 and PE3 on the tile
+    route, no tensor-core PE kernel and no streamed PE2 / PE3 body)."""
     from repro_torch.launch import steps as S
     from repro_torch.launch.train import make_batch_fn
     step = S.make_train_step(lm, None, tcfg)
@@ -7113,7 +7308,8 @@ def _ckpt_profile(torch, lm, tcfg, state, cfg, what: str) -> dict:
             for k, v in batch_fn(CKPT_STEPS + i).items()})
     log(f"train ckpt ({what}): profile")
     prof = _profile_train(torch, one, S.launches_per_step(lm, tcfg),
-                          steps=1, fn=KERNEL_FN, absent=CKPT_CUDA_CORE_FN)
+                          steps=1, fn=CKPT_KERNEL_FN,
+                          absent=CKPT_ABSENT_FN)
     del box
     torch.cuda.empty_cache()
     return prof
@@ -7143,8 +7339,9 @@ def phase_train_ckpt(torch) -> dict:
         (``CKPT_PARAMS_EH`` parameters, asserted; the embedding and head
         TT shapes asserted): 2 steps with the launches counted exactly,
         one step profiled (host wall, device time, busy share, every
-        counted kernel by name on the CUDA-core route); PE1-3 at every
-        f32 shape of its step, the embedding's and head's core groups and
+        counted kernel by name, PE2 and PE3 on the tile route); PE1-3 at
+        every f32 shape of its step with its launches a step in (a) and
+        (c) (``_ckpt_pe_rows``), the embedding's and head's core groups and
         the wire's encode and decode groups held to their twins and
         timed; one step at a reduced width with TT embedding and head on
         the card against the CPU (``_step_card_vs_cpu``).
@@ -7336,7 +7533,18 @@ def phase_train_ckpt(torch) -> dict:
     out["profile_c"] = _ckpt_profile(torch, lm_c, tc, state_c, c_cfg, "c")
     del state_c
     torch.cuda.empty_cache()
-    out["pe_rows"] = _ckpt_pe_rows(torch, timer, c_cfg)
+    rows = LM_BATCH * LM_SEQ
+    by_shape = {w: _pe_launches_by_shape(lm, rows)
+                for w, lm in (("a", lm_a), ("c", lm_c))}
+    for w, per in (("a", per_a), ("c", per_c)):
+        for kind in ("pe1", "pe2", "pe3"):
+            got = sum(v for (k, *_), v in by_shape[w].items() if k == kind)
+            check(got == per[kind], f"train ckpt ({w}): {kind} launches by "
+                  f"shape {got}, launches_per_step {per[kind]}")
+    out["pe_launches_by_shape"] = {w: [[*k, v] for k, v in d.items()]
+                                   for w, d in by_shape.items()}
+    out["pe_rows"] = _ckpt_pe_rows(torch, timer, c_cfg, by_shape["a"],
+                                   by_shape["c"])
     out["bw_enc_rows"], out["bw_dec_rows"] = _ckpt_wire_rows(torch, timer,
                                                              a_cfg)
     del timer
@@ -7429,6 +7637,14 @@ LM_KERNELS = {
     "pe3_mma": ("src/repro_torch/kernels/csrc/ttm_pe3.cu",
                 "src/repro/kernels/ttm_pe3.py:23", "pe3"),
 }
+# the f32 tile route of PE2 / PE3 (LM100M's step: every launch of each)
+TILE_KERNELS = {
+    "pe2_tile": ("src/repro_torch/kernels/csrc/ttm_pe2.cu",
+                 "src/repro/kernels/ttm_pe2.py:25", "pe2"),
+    "pe3_tile": ("src/repro_torch/kernels/csrc/ttm_pe3.cu",
+                 "src/repro/kernels/ttm_pe3.py:23", "pe3"),
+}
+CKPT_TILE = ("pe2", "pe3")
 READ = ("src/repro_torch/kernels/csrc/kv_read.cu",
         "src/repro/numerics/pallas_backend.py:127")
 ENC_ROWS = ("src/repro_torch/kernels/csrc/pow2_rows.cu",
@@ -7576,7 +7792,7 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
         # embedding's and head's core groups, the wire
         got = [ckpt["launches"].get(name, 0), ckpt["eh"]["launches"].get(
             name, 0)]
-        if any(got):
+        if any(got) and name not in CKPT_TILE:   # those: the tile rows
             row["ckpt_launches"] = sum(got)
             row["path"] += (f"; train ckpt (lm100m {got[0]} in "
                             f"{CKPT_STEPS} steps, with TT embedding and head "
@@ -7592,6 +7808,15 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
             f"train lm ({lm['steps']} steps, "
             f"{lm['launches_per_step'][kind]} a step: every {kind} launch of "
             "the LM step, by route and by profile name)"))
+    for name, (src, replaces, kind) in TILE_KERNELS.items():
+        got = [ckpt["launches"].get(kind, 0),
+               ckpt["eh"]["launches"].get(kind, 0)]
+        rows.append(_kernel_row(
+            name, src, replaces, ckpt["pe_rows"][kind], sum(got),
+            f"train ckpt (lm100m {got[0]} in {CKPT_STEPS} steps, "
+            f"{ckpt['launches_per_step'][kind]} a step; with TT embedding "
+            f"and head {got[1]} in 2: every {kind} launch of LM100M's f32 "
+            "step, by route and by profile name)"))
     for name, (src, replaces) in SCALAR_KERNELS.items():
         if name == "p2_fq_rows":
             rows.append(_kernel_row(
@@ -7940,45 +8165,74 @@ def main(argv=None) -> int:
             Path(args.out).parent.mkdir(parents=True, exist_ok=True)
             Path(args.out).write_text(json.dumps(report, indent=1))
         return 0
+    def done(name):     # where the script's time limit goes
+        log(f"phase {name} done at {time.perf_counter() - t0:.1f} s")
     report["kernels"] = phase_kernels(torch, timer)
+    done("kernels")
     report["train_kernels"] = phase_train_kernels(torch, timer)
+    done("train_kernels")
     report["wire_kernels"] = phase_wire_kernels(torch, timer)
+    done("wire_kernels")
     report["scalar_kernels"] = phase_scalar_kernels(torch, timer)
+    done("scalar_kernels")
     report["state_kernels"] = phase_state_kernels(torch, timer)
+    done("state_kernels")
     report["state_group"] = phase_state_group(torch, timer)
+    done("state_group")
     report["health_kernels"] = phase_health_kernels(torch, timer)
+    done("health_kernels")
     del timer
     lm, params = full_model(torch)
     report["engine"] = phase_engine(torch, lm, params)
+    done("engine")
     report["serve_chunked"] = phase_serve_chunked(torch, lm, params)
+    done("serve_chunked")
     report["serve_spec"] = phase_serve_spec(
         torch, lm, params, report["engine"]["fused_tokens"])
+    done("serve_spec")
     report["serve_obs"] = phase_serve_obs(torch, lm, params, report["engine"])
+    done("serve_obs")
     del params
     torch.cuda.empty_cache()
     report["identity"] = phase_identity(torch)
+    done("identity")
     report["chunked_identity"] = phase_chunked_identity(torch)
+    done("chunked_identity")
     t_state = time.perf_counter()
     lm, params = _state_model(torch, SSM_ARCH)
     report["serve_rwkv6"] = phase_serve_rwkv6(torch, lm, params)
+    done("serve_rwkv6")
     del params
     torch.cuda.empty_cache()
     report["serve_hybrid"] = phase_serve_hybrid(torch)
+    done("serve_hybrid")
     report["ssm_identity"] = phase_ssm_identity(torch)
+    done("ssm_identity")
     report["state_phases_s"] = time.perf_counter() - t_state
     log(f"recurrent phases (serve rwkv6, serve hybrid, ssm identity) in "
         f"{report['state_phases_s']:.1f} s")
     report["serve_moe"] = phase_serve_moe(torch)
+    done("serve_moe")
     report["serve_mla"] = phase_serve_mla(torch)
+    done("serve_mla")
     report["train"] = phase_train(torch)
+    done("train")
     report["train_identity"] = phase_train_identity(torch)
+    done("train_identity")
     report["train_wire"] = phase_train_wire(torch)
+    done("train_wire")
     report["train_wire_identity"] = phase_train_wire_identity(torch)
+    done("train_wire_identity")
     report["lm_kernels"] = phase_lm_kernels(torch, Timer(torch))
+    done("lm_kernels")
     report["train_lm"] = phase_train_lm(torch)
+    done("train_lm")
     report["train_lm_identity"] = phase_train_lm_identity(torch)
+    done("train_lm_identity")
     report["train_frontend"] = phase_train_frontend(torch)
+    done("train_frontend")
     report["train_ckpt"] = phase_train_ckpt(torch)
+    done("train_ckpt")
     report["seconds"] = time.perf_counter() - t0
     line = kernels_line(report["kernels"], report["engine"],
                         report["train_kernels"], report["train"],

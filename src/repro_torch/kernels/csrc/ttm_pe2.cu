@@ -5,10 +5,12 @@
 // matvec chain (forward, the remat recompute or the scale manager's
 // forward probe, and the transposed dx chain): 12 launches an FMNIST MLP
 // step (f32, (1792, 32, 16) x (32, 32) down to (64, 512, 16) x (512, 1)),
-// 864 a step of with_tt(internlm2-1.8b) (bf16, six shapes).
+// 864 a step of with_tt(internlm2-1.8b) (bf16, six shapes), 288 a step of
+// with_tt(LM100M, d=3, max_rank=48) (f32, nine shapes; 292 and thirteen
+// with TT embedding and head).
 //
-// Two bodies, chosen by kernels/tt_mma.py::plan from dtype, shape and
-// alignment alone:
+// Three bodies, chosen from dtype, shape and alignment alone, in this
+// order: kernels/tt_mma.py::plan, kernels/tt_tile.py::plan, the rest:
 //
 // bf16 with 16-byte rows (every LM call): `pe2_mma_kernel`, wgmma on the
 // tensor cores (tt_mma.cuh). Bound on the H100 at the LM's shapes: bytes.
@@ -27,7 +29,31 @@
 // are mostly the TMA's zero fill: 4-8x the products, still a fifth of the
 // byte time per slab.
 //
-// f32 (the MLP) and the bf16 calls the plan cannot tile: `pe2_kernel`,
+// f32 with at least 2^28 flops (LM100M's calls): `pe2_tile_kernel`, the
+// contraction as one GEMM of M = (slab, column) pairs, N = d, K = b on the
+// CUDA cores in full FP32 (tt_tile.cuh). Bound on the H100: FP32
+// operations at 67 TFLOP/s for the large calls, (16384, 384, 12) x (384,
+// 384) 0.87 ms, (16384, 384, 16) x (384, 576 / 768) 1.73 / 2.31 ms, (16384,
+// 576, 12) x (576, 384) 1.30 ms, (24576, 768, 12) x (768, 384) 2.60 ms,
+// (16384, 384, 32) x (384, 1536) 9.23 ms, (65536, 1536, 12) x (1536, 384)
+// 13.85 ms; bytes at 3.35 TB/s for the thin calls (d = 8-32), where Z has
+// to stream once at the HBM rate: (2048, 384 / 576 / 1536, 96) x (., 8)
+// 0.09 / 0.14 / 0.36 ms, (2048, 384, 192) x (384, 8) 0.18 ms, (2048, 384,
+// 256) x (384, 12) 0.25 ms, (2048, 384, 1024) x (384, 32) 1.04 ms. What
+// the design does about it: the large calls run 256 x 128 tiles (21, 16 or
+// 8 whole slabs by 128 of d) with 16 x 8 register tiles, one CTA of 256
+// threads an SM, 32-row K-chunks through a 4-slot cp.async ring, so each
+// value a thread reads from shared memory feeds 8 or 16 FMAs and the
+// inner loop is nothing but FFMA and LDS.128; the thin calls take the
+// whole of d in a CTA, one slab's 96 or 128 columns, and split each chunk
+// of K between 4 or 8 groups of threads, so Z streams through many small
+// CTAs (four or five an SM) and each value of it is read from shared
+// memory once. The previous design, `pe2_kernel`, staged G once per slab
+// (6 FLOP per staged byte at c = 12); the tiles stage Z and G once per
+// 256 x 128 tile.
+//
+// f32 under that size (the MLP) and the bf16 calls the tensor-core plan
+// cannot tile: `pe2_kernel`,
 // the streamed FMA body (tt_contract.cuh). Bound: bytes; the MLP's shapes
 // read and write 0.2-7.4 MB for at most 117 MFLOP, at or under the FP32
 // ridge (67 TFLOP/s over 3.35 TB/s, ~20 FLOP/B), so each call is 0.06-2.2
@@ -44,6 +70,7 @@
 
 #include "tt_contract.cuh"
 #include "tt_mma.cuh"
+#include "tt_tile.cuh"
 
 namespace {
 
@@ -64,6 +91,18 @@ pe2_mma_kernel(const __grid_constant__ CUtensorMap g, const __grid_constant__ CU
 template <int WGN, int SW>
 struct Mma {
   static const void* fn() { return (const void*)pe2_mma_kernel<WGN, SW>; }
+};
+
+template <int TM, int TN, int KR>
+__global__ void __launch_bounds__(tt_tile::max_threads(TM, TN), tt_tile::min_blocks(TM, TN))
+pe2_tile_kernel(const float* __restrict__ z, const float* __restrict__ g, float* __restrict__ o,
+                const tt_tile::Plan p) {
+  tt_tile::gemm<TM, TN, KR>(z, g, o, p);
+}
+
+template <int TM, int TN, int KR>
+struct Tile {
+  static const void* fn() { return (const void*)pe2_tile_kernel<TM, TN, KR>; }
 };
 
 template <typename T>
@@ -96,6 +135,19 @@ int pe2(const void* z, const void* g, void* o, int dtype, const int* plan, void*
 // PLAN_FIELDS). Returns cudaGetLastError() after the launch.
 int pe2_mma(const void* z, const void* g, void* o, const int* plan, void* stream) {
   return tt_mma::launch(tt_mma::pick<Mma>(plan[4], plan[5]), z, g, o, plan, stream);
+}
+
+// The f32 tile route: z (a, b, c), g (b, d), o (a, d, c), contiguous f32;
+// `plan` is 34 int32 (kernels/tt_tile.py PLAN_FIELDS). Returns the
+// launch's error, then cudaGetLastError().
+int pe2_tile(const void* z, const void* g, void* o, const int* plan, void* stream) {
+  return tt_tile::launch(tt_tile::pick<Tile>(plan[4], plan[5], plan[6]), z, g, o, plan, stream);
+}
+
+// Diagnostic: the clusters of `plan`'s kernel, CTA size, shared memory and
+// cluster size that the card runs at once (kernels/tt_tile.py clusters).
+int pe2_tile_clusters(const int* plan) {
+  return tt_tile::clusters(tt_tile::pick<Tile>(plan[4], plan[5], plan[6]), plan);
 }
 
 const char* error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -5,11 +5,14 @@
 // (pallas_call at :51). On the training path: one launch per TT site a
 // step, in each layer's backward: 2 an FMNIST MLP step (f32, b = 64, (j,
 // i) = (512, 896) and (16, 512)), 144 a step of with_tt(internlm2-1.8b)
-// (bf16, b = 2048, Ŵ 8192 x 2048, 2048 x 8192 and 2048 x 2048).
+// (bf16, b = 2048, Ŵ 8192 x 2048, 2048 x 8192 and 2048 x 2048), 72 a step
+// of with_tt(LM100M, d=3, max_rank=48) (f32, b = 2048, Ŵ 768 x 768, 1536 x
+// 768, 3072 x 768 and 768 x 3072; 73 with the TT head's 32768 x 768).
 //
 // PE3 is the PE2 contraction at a = 1 with Z = X (1, b, i) and G = Ybar
-// (b, j), so it runs PE2's two bodies under names of its own, chosen by
-// kernels/tt_mma.py::plan:
+// (b, j), so it runs PE2's three bodies under names of its own, chosen in
+// the same order (kernels/tt_mma.py::plan, kernels/tt_tile.py::plan, the
+// rest):
 //
 // bf16 with 16-byte rows (every LM call): `pe3_mma_kernel`, wgmma on the
 // tensor cores (tt_mma.cuh). Bound on the H100 at the LM's shapes: bf16
@@ -23,7 +26,23 @@
 // three 48 KB stages that a producer warp keeps full across tiles of a
 // persistent CTA. The whole of b (2,048) runs in each CTA: no split-K.
 //
-// f32 (the MLP) and the bf16 calls the plan cannot tile: `pe3_kernel`,
+// f32 with at least 2^28 flops (LM100M's Ŵ): `pe3_tile_kernel`, a GEMM of
+// M = i, N = j, K = b on the CUDA cores in full FP32 (tt_tile.cuh). Bound
+// on the H100: FP32 operations at 67 TFLOP/s, 36.1 us at 768 x 768, 72.1
+// at 1536 x 768, 144.2 at 3072 x 768 and 768 x 3072, 1,538.5 at the
+// head's 32768 x 768 (the bytes, b x (i + j) floats read and i x j
+// written, take a fraction of that at 3.35 TB/s). What the design does
+// about it: the head's Ŵ is 768 tiles of 256 x 128 on the wide body (16 x
+// 8 sums a thread, one CTA an SM); the small Ŵ are 36-144 tiles of 128 x
+// 128 (8 x 8 sums, two CTAs an SM), too few for 132 SMs over b = 2048, so
+// a thread block cluster of 3 or 6 CTAs shares each tile, each CTA summing
+// a contiguous third or sixth of b, and the partial tiles are added in
+// rank order through distributed shared memory in the same launch. The
+// previous design, `pe3_kernel`, ran 128 x 32 tiles of 4 x 4 sums, each
+// CTA walking all of b.
+//
+// f32 under that size (the MLP) and the bf16 calls the tensor-core plan
+// cannot tile: `pe3_kernel`,
 // PE2's streamed FMA body (tt_contract.cuh). Bound: FP32 operations for
 // 512 x 896 (58.7 MFLOP, 0.88 us at 67 TFLOP/s), bytes for 16 x 512 (0.05
 // us); at both sizes what costs is filling the card. The plan
@@ -35,6 +54,7 @@
 
 #include "tt_contract.cuh"
 #include "tt_mma.cuh"
+#include "tt_tile.cuh"
 
 namespace {
 
@@ -55,6 +75,18 @@ pe3_mma_kernel(const __grid_constant__ CUtensorMap ybar, const __grid_constant__
 template <int WGN, int SW>
 struct Mma {
   static const void* fn() { return (const void*)pe3_mma_kernel<WGN, SW>; }
+};
+
+template <int TM, int TN, int KR>
+__global__ void __launch_bounds__(tt_tile::max_threads(TM, TN), tt_tile::min_blocks(TM, TN))
+pe3_tile_kernel(const float* __restrict__ x, const float* __restrict__ ybar,
+                float* __restrict__ w, const tt_tile::Plan p) {
+  tt_tile::gemm<TM, TN, KR>(x, ybar, w, p);
+}
+
+template <int TM, int TN, int KR>
+struct Tile {
+  static const void* fn() { return (const void*)pe3_tile_kernel<TM, TN, KR>; }
 };
 
 template <typename T>
@@ -89,6 +121,14 @@ int pe3(const void* x, const void* ybar, void* w, int dtype, const int* plan, vo
 // the launch.
 int pe3_mma(const void* x, const void* ybar, void* w, const int* plan, void* stream) {
   return tt_mma::launch(tt_mma::pick<Mma>(plan[4], plan[5]), x, ybar, w, plan, stream);
+}
+
+// The f32 tile route: x (b, i), ybar (b, j), w (j, i), contiguous f32;
+// `plan` is the PE2 plan at a = 1, c = i, d = j (34 int32,
+// kernels/tt_tile.py PLAN_FIELDS). Returns the launch's error, then
+// cudaGetLastError().
+int pe3_tile(const void* x, const void* ybar, void* w, const int* plan, void* stream) {
+  return tt_tile::launch(tt_tile::pick<Tile>(plan[4], plan[5], plan[6]), x, ybar, w, plan, stream);
 }
 
 const char* error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

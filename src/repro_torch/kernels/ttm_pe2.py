@@ -3,19 +3,21 @@
     Z'(a, d, c) = sum_b  Z(a, b, c) * G(b, d)
 
 The port of ``repro/kernels/ttm_pe2.py``. ``pe2_cuda`` launches one of
-the hand-written kernels of ``csrc/ttm_pe2.cu``, by the route
-``tt_mma.plan`` gives for the dtype, shapes and alignment: bf16 with
-16-byte rows on the tensor cores (``pe2_mma_kernel``), everything else on
-the CUDA cores (``pe2_kernel``: slabs Z[a] streamed through shared memory
-with G, plan from ``tt_contract.plan``); both count as ``pe2`` launches.
-``pe2_torch`` is the plain version. All accumulate in f32 and return Z's
-dtype.
+the hand-written kernels of ``csrc/ttm_pe2.cu``, by the first route whose
+plan takes the dtype, shapes and alignment: bf16 with 16-byte rows on the
+tensor cores (``pe2_mma_kernel``, ``tt_mma.plan``); f32 with at least
+``tt_tile.MIN_FLOPS`` products as register-tiled GEMM tiles over (slab,
+column) rows on the CUDA cores (``pe2_tile_kernel``, ``tt_tile.plan``);
+everything else on the CUDA cores as slabs Z[a] streamed through shared
+memory with G (``pe2_kernel``, ``tt_contract.plan``). All count as ``pe2``
+launches. ``pe2_torch`` is the plain version. All accumulate in f32 and
+return Z's dtype.
 """
 from __future__ import annotations
 
 import torch
 
-from . import tt_contract, tt_mma
+from . import tt_contract, tt_mma, tt_tile
 
 NAME = "pe2"
 
@@ -41,8 +43,10 @@ def pe2_cuda(z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     out = torch.empty((a, d, c), dtype=z.dtype, device=z.device)
     tt_contract.check_sizes(NAME, z, g, out)
     p = tt_mma.plan_for(z, g)
-    if p is None:
-        tt_contract.launch(NAME, "ttm_pe2", z, g, out)
-    else:
+    if p is not None:
         tt_mma.launch(NAME, "ttm_pe2", p, z, g, out)
+    elif (t := tt_tile.plan_for(z, g)) is not None:
+        tt_tile.launch(NAME, "ttm_pe2", t, z, g, out)
+    else:
+        tt_contract.launch(NAME, "ttm_pe2", z, g, out)
     return out

@@ -5,17 +5,20 @@ gradient (paper Appendix A.2):
 
 The port of ``repro/kernels/ttm_pe3.py``. ``pe3_cuda`` launches one of
 the hand-written kernels of ``csrc/ttm_pe3.cu``: PE2's contraction at
-a = 1, Z = X and G = Ybar, by the same routes (``tt_mma.plan``): bf16 with
-16-byte rows on the tensor cores (``pe3_mma_kernel``), the rest on the
-CUDA cores (``pe3_kernel``, plan from ``tt_contract.plan``); both count as
-``pe3`` launches. ``pe3_torch`` is the plain version. All accumulate in
-f32 and return Ybar's dtype.
+a = 1, Z = X and G = Ybar, by the same routes in the same order: bf16 with
+16-byte rows on the tensor cores (``pe3_mma_kernel``, ``tt_mma.plan``), f32
+with at least ``tt_tile.MIN_FLOPS`` products on the CUDA cores as GEMM
+tiles, split over a cluster's CTAs where the tiles are few
+(``pe3_tile_kernel``, ``tt_tile.plan``), the rest on the CUDA cores
+(``pe3_kernel``, ``tt_contract.plan``); all count as ``pe3`` launches.
+``pe3_torch`` is the plain version. All accumulate in f32 and return
+Ybar's dtype.
 """
 from __future__ import annotations
 
 import torch
 
-from . import tt_contract, tt_mma
+from . import tt_contract, tt_mma, tt_tile
 
 NAME = "pe3"
 
@@ -42,8 +45,10 @@ def pe3_cuda(ybar: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     tt_contract.check_sizes(NAME, ybar, x, out)
     z, o = x.view(1, b, i), out.view(1, j, i)
     p = tt_mma.plan_for(z, ybar)
-    if p is None:
-        tt_contract.launch(NAME, "ttm_pe3", z, ybar, o)
-    else:
+    if p is not None:
         tt_mma.launch(NAME, "ttm_pe3", p, z, ybar, o)
+    elif (t := tt_tile.plan_for(z, ybar)) is not None:
+        tt_tile.launch(NAME, "ttm_pe3", t, z, ybar, o)
+    else:
+        tt_contract.launch(NAME, "ttm_pe3", z, ybar, o)
     return out

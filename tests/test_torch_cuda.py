@@ -26,6 +26,10 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
     cores (ragged a, c = 8 / 16 / 32 and K fills, d in one, two and four
     warpgroups) matches and repeats bit for bit, one ``pe1`` launch a call,
     and its epilogue on exact sums is the plain version's bit for bit;
+    PE2 and PE3 in f32 on the tile route (c not a multiple of 4, c = 1,
+    d and K no multiple of their tiles, more K-chunks than ring slots, K
+    groups, split-K over a cluster, unaligned and sliced operands) match,
+    repeat bit for bit and take one launch a call;
 (f) one training step of the FMNIST TT MLP on the card matches the same
     step on the CPU and launches each kernel the counted number of times;
 (g) the blockwise encode/decode kernels are BIT-identical to their plain
@@ -507,6 +511,86 @@ def test_pe1_tensor_core_route_matches_plain_and_repeats(cuda):
         _close(out, ttm_pe1.pe1_torch(z, w), torch.bfloat16)
         assert torch.equal(out.view(torch.int16),
                            ttm_pe1.pe1_cuda(z, w).view(torch.int16))
+
+
+# PE2 / PE3 on the f32 tile route (csrc/tt_tile.cuh, launched under
+# tt_tile.layout whatever the size): c not a multiple of 4 (8- and 4-byte
+# granules), c = 1, d and K no multiple of their tiles, K groups (thin d),
+# more K-chunks than ring slots, a column tile cut from c >= 96, split-K
+# over a cluster (a = 1: PE3's shape), slab runs past a
+PE_TILE = [(5, 300, 7, 20), (40, 200, 1, 64), (1, 1000, 100, 72),
+           (2, 700, 256, 12), (1, 2100, 200, 96), (9, 600, 12, 384),
+           (2, 500, 1024, 32), (6, 384, 33, 130), (3, 96, 16, 576),
+           (1, 2048, 384, 256), (3, 200, 96, 8),
+           # the wide body (16 x 8 sums, 256 x 128 tiles): ragged a, K and
+           # d; 250-column tiles of c = 1000 (8-byte granules)
+           (2801, 70, 12, 480), (1, 300, 1000, 5000)]
+
+
+def _tile_launch(kind, p, z, w):
+    from repro_torch.kernels import tt_tile
+    out = torch.empty((z.shape[0], w.shape[1], z.shape[2]), device=z.device)
+    tt_tile.launch(kind, f"ttm_{kind}", p, z, w, out)
+    return out
+
+
+def test_pe_tile_route_matches_plain_and_repeats(cuda):
+    from repro_torch.kernels import tt_tile
+    g = torch.Generator(device=cuda).manual_seed(7)
+    plans = []
+    for a, b, c, d in PE_TILE:
+        z = torch.randn((a, b, c), generator=g, device=cuda)
+        w = torch.randn((b, d), generator=g, device=cuda) * 0.2
+        p = tt_tile.layout_for(z, w)
+        plans.append(p)
+        B.reset_launches()
+        out = _tile_launch("pe2", p, z, w)
+        assert B.LAUNCHES == {"pe2": 1}
+        _close(out, ttm_pe2.pe2_torch(z, w), torch.float32)
+        assert torch.equal(out.view(torch.int32),
+                           _tile_launch("pe2", p, z, w).view(torch.int32))
+        if a == 1:          # the same product as PE3: Ybar = w, X = z[0]
+            what = _tile_launch("pe3", p, z, w)[0]
+            _close(what, ttm_pe3.pe3_torch(w, z[0]), torch.float32)
+            assert torch.equal(what.view(torch.int32),
+                               out[0].view(torch.int32))
+    assert any(p.cs > 1 for p in plans) and any(p.ks > 1 for p in plans)
+    assert any(p.gz < 16 for p in plans) and any(p.tiles_c > 1 for p in plans)
+    assert any(p.nk > p.stages for p in plans)
+    assert {(p.tm, p.tn) for p in plans} == {(16, 8)} | {
+        (8, tn) for tn in tt_tile.TNS}
+
+
+def test_pe_tile_route_through_the_wrappers(cuda):
+    """Calls over ``tt_tile.MIN_FLOPS`` take the tile route through
+    ``pe2_cuda`` / ``pe3_cuda``, one launch each, on unaligned and sliced
+    operands too; PE3's Ŵ 768 x 768 (split-K) repeats bit for bit."""
+    from repro_torch.kernels import tt_tile
+    g = torch.Generator(device=cuda).manual_seed(8)
+    flat = torch.randn(1 + 160 * 384 * 12, generator=g, device=cuda)
+    z = flat[1:].view(160, 384, 12)       # contiguous, one element off 16 B
+    w = torch.randn((384, 384), generator=g, device=cuda) * 0.2
+    zs = torch.randn((130, 384, 16), generator=g, device=cuda)[:, :, 1:14]
+    assert not zs.is_contiguous()         # the wrapper makes it contiguous
+    for zz, gz, vec in ((z, 4, 1), (zs, 4, 0)):   # misaligned; c = 13
+        p = tt_tile.plan_for(zz.contiguous(), w)
+        assert p is not None and (p.gz, p.vec_out) == (gz, vec)
+        B.reset_launches()
+        out = ttm_pe2.pe2_cuda(zz, w)
+        assert B.LAUNCHES == {"pe2": 1}
+        _close(out, ttm_pe2.pe2_torch(zz, w), torch.float32)
+        assert torch.equal(out.view(torch.int32),
+                           ttm_pe2.pe2_cuda(zz, w).view(torch.int32))
+    y = torch.randn((2048, 768), generator=g, device=cuda) * 0.1
+    x = torch.randn((2048, 768), generator=g, device=cuda)
+    p = tt_tile.plan_for(x.view(1, 2048, 768), y)
+    assert p is not None and p.cs > 1
+    B.reset_launches()
+    what = ttm_pe3.pe3_cuda(y, x)
+    assert B.LAUNCHES == {"pe3": 1}
+    _close(what, ttm_pe3.pe3_torch(y, x), torch.float32)
+    assert torch.equal(what.view(torch.int32),
+                       ttm_pe3.pe3_cuda(y, x).view(torch.int32))
 
 
 @pytest.mark.parametrize("bits,step", [(4, 3.0), (8, 1.0)])
