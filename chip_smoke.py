@@ -387,6 +387,14 @@ Phases (any failure raises and the script exits non-zero):
              bw_dec_group_kernel 22 launches; asserted by name; each
              codec launch's device time listed); then the same 8 steps
              with f32 moments, whose cross-entropy must fall.
+9b. frontend kernels — the frontends' ten bf16 PE1 / PE2 calls whose
+             rows of c or d are not 16-byte multiples (hubert-xlarge's c
+             = 20 and d = 10, llava-next-34b's c = 28 and d = 20), on the
+             tensor cores by cp.async granules (asserted), each within
+             2e-2 of the plain version, bit for bit over two launches,
+             timed beside pe1_kernel / pe2_kernel (``previous_ms``), the
+             plain version, the faster of bf16 torch.matmul and
+             torch.einsum and the bound, with its launches a step.
 10. train lm identity — one step of a small TT LM (2 layers, d_model 32,
              every projection TT, f32, int8 moments and the wire) from the
              same state on the card and on the CPU: loss, ce and prior
@@ -400,8 +408,10 @@ Phases (any failure raises and the script exits non-zero):
              patches + 256 tokens, batch 2, the loss on the text
              positions), launch/train.py's loop on make_batch_fn's
              reference batches: launches exact against launches_per_step,
-             by counter and by profile name (PE1-3 on either route), the
-             cross-entropy finite; then one step of each at reduced width
+             by counter and by profile name (PE1-3 on the tensor cores:
+             no pe1_kernel, pe2_kernel or pe3_kernel in either profile,
+             asserted), the cross-entropy finite; then one step of each
+             at reduced width
              on the card against the CPU, as train lm identity. Under 110 s.
 12. train ckpt — the eleventh main path: the launch and checkpoint
              tooling through launch/train.py::train at LM100M's full size
@@ -469,8 +479,9 @@ time, the pool kernels' launches, peak memory) and writes them to PATH,
 asserting nothing.
 ``--pe-repeat N`` replays ``lm kernels``' check sequence (kernel, plain
 twin, cuBLAS yardstick, plan, kernel again into a fresh allocation) N
-times for each of the LM's PE1, PE2 and PE3 calls, plus one PE2 launch a
-round into a NaN-filled output, and logs every launch whose bits differ;
+times for each of the LM's PE1, PE2 and PE3 calls and the frontends' ten
+granule calls, plus one PE2 launch a round into a NaN-filled output, and
+logs every launch whose bits differ;
 no result line. ``--deploy PATH [--src DIR]``
 likewise times the deploy export's packed
 encode and decode of the six FMNIST cores, core by core and (where the
@@ -6847,6 +6858,109 @@ FRONTEND_FNS = {"pe1": ("pe1_kernel", "pe1_mma_kernel"),
                 "bw_enc": ("bw_enc_group_kernel",),
                 "bw_dec": ("bw_dec_group_kernel",)}
 FRONTEND_SECONDS = 110.0        # the phase's wall, at most
+# the CUDA-core PE bodies, which no frontend call reaches
+FRONTEND_FMA = ("pe1_kernel", "pe2_kernel", "pe3_kernel")
+
+
+def _frontend_lm(arch: str, layers):
+    """``with_tt(arch, quantize=True)``'s model (no weights), ``layers``
+    deep where given."""
+    import repro_torch.configs as C
+    from repro_torch.models.lm import build_lm
+    cfg = C.get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    return build_lm(C.with_tt(cfg, quantize=True))
+
+
+def _frontend_granule_calls() -> list:
+    """(arch, kind, Z shape, G shape, launches a step) of the frontends'
+    PE1 and PE2 calls whose rows of c or d are not 16-byte multiples (c or
+    d off a multiple of 8): the calls the tensor cores take on cp.async
+    granules (``ttm_pe1.plan_pe1``'s ``gran``, ``tt_mma.plan``'s ``gz`` /
+    ``gg``), at the cells' rows."""
+    out = []
+    for arch, layers, batch, seq in FRONTEND_CELLS:
+        per = _pe_launches_by_shape(_frontend_lm(arch, layers), batch * seq)
+        for (kind, zs, gs), n in sorted(per.items()):
+            c, d = zs[-1], gs[1]
+            if kind != "pe3" and (c % 8 or d % 8):
+                out.append((arch, kind, zs, gs, n))
+    return out
+
+
+def phase_frontend_kernels(torch, timer: Timer) -> dict:
+    """The frontends' bf16 PE1 / PE2 calls on granules
+    (``_frontend_granule_calls``: the ten calls of hubert-xlarge's and
+    llava-next-34b's steps whose rows of c or d the TMA cannot take), at
+    their shapes: each on the tensor-core route with its granules
+    (asserted), within ``PE_TOL`` of the plain version, bit for bit over
+    two launches, timed beside the CUDA-core body it replaced
+    (``previous_ms``: ``pe1_kernel`` / ``pe2_kernel``), the plain version,
+    the faster of one bf16 ``torch.matmul`` / ``torch.einsum`` (a yardstick
+    only) and the bound (bytes at 3.35 TB/s or bf16 operations at 989
+    TFLOP/s), with its launches a step."""
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import tt_mma, ttm_pe1
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tol = PE_TOL["bfloat16"]
+    calls = _frontend_granule_calls()
+    check(len(calls) == 10, f"frontend kernels: {len(calls)} granule calls, "
+          "want the ten")
+    rows = {"pe1": [], "pe2": []}
+
+    def close(out, ref):
+        return bool(((out.float() - ref.float()).abs()
+                     <= tol + tol * ref.float().abs()).all())
+    for arch, kind, zs, gs, per_step in calls:
+        name = f"frontend {kind} {zs}x{gs} ({arch})"
+        kern, plain = _pe_fns(kind)
+        z = torch.randn(zs, generator=gen, device="cuda").to(torch.bfloat16)
+        g = (torch.randn(gs, generator=gen, device="cuda") * 0.2).to(
+            torch.bfloat16)
+        p = (ttm_pe1.plan_pe1_for(z, g) if kind == "pe1" else
+             tt_mma.plan_for(z, g))
+        gran = (None if p is None else
+                {"gran": p.gran} if kind == "pe1" else {"gz": p.gz,
+                                                        "gg": p.gg})
+        check(p is not None and any(gran.values()),
+              f"{name}: not on the tensor cores' granules ({gran})")
+        B.reset_launches()
+        o = kern(z, g)
+        check(B.LAUNCHES == {kind: 1}, f"{name}: launches {B.LAUNCHES}")
+        r = plain(z, g)
+        err = (o.float() - r.float()).abs()
+        check(close(o, r), f"{name}: max err {err.max().item()}")
+        check(_bits_equal(torch, kern(z, g), o), f"{name}: two launches "
+              "differ")
+        check(close(_pe_fma(kind, z, g), r),
+              f"{name}: the CUDA-core body differs")
+        row = dict(arch=arch, z=list(zs), g=list(gs), dtype="bfloat16",
+                   max_abs_err=err.max().item(), route="tensor cores",
+                   launches_per_step=per_step, tile=[p.bm, p.bn],
+                   stages=p.stages, grid=p.grid, smem=p.smem, **gran)
+        if kind == "pe2":
+            row.update(orientation=p.orientation, slabs=p.slabs,
+                       resident=bool(p.resident))
+        row.update(_pe_yardsticks(torch, timer, kind, z, g, r))
+        del o, r, err
+        row["ms"] = timer(lambda: kern(z, g), iters=10)
+        row["previous_ms"] = timer(lambda: _pe_fma(kind, z, g), iters=3)
+        row["plain_ms"] = timer(lambda: plain(z, g), iters=3)
+        nbytes, flops = _pe_work(kind, zs, gs, 2)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+        row["of_bound"] = row["ms"] / row["bound_ms"]
+        rows[kind].append(row)
+        log(f"{name}: {row['ms']*1e3:.1f} us on granules {gran}, "
+            f"{row['of_bound']:.2f}x the bound {row['bound_ms']*1e3:.1f} us "
+            f"{row['bound_by']}; previous {row['previous_ms']*1e3:.1f} us "
+            f"({row['previous_ms'] / row['ms']:.1f}x), "
+            f"{row['library_call']} {row['library_ms']*1e3:.1f} us, plain "
+            f"{row['plain_ms']*1e3:.1f} us; {per_step} a step; err "
+            f"{row['max_abs_err']:.1e}; two launches equal")
+        del z, g
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _frontend_cell(torch, arch: str, layers, batch: int, seq: int) -> dict:
@@ -6855,18 +6969,13 @@ def _frontend_cell(torch, arch: str, layers, batch: int, seq: int) -> dict:
     frontend batch, seeded weights on the card: counts zeroed just before
     and read just after equal ``launches_per_step``, the cross-entropy
     finite; then one more step profiled, each counted kernel by name."""
-    import repro_torch.configs as C
     from repro_torch.configs.base import TrainConfig
     from repro_torch.kernels import build as B
     from repro_torch.launch import steps as S
     from repro_torch.launch.train import make_batch_fn, train
-    from repro_torch.models.lm import build_lm
 
-    cfg = C.get_config(arch)
-    if layers:
-        cfg = cfg.replace(num_layers=layers)
-    cfg = C.with_tt(cfg, quantize=True)
-    lm = build_lm(cfg)
+    lm = _frontend_lm(arch, layers)
+    cfg = lm.cfg
     tcfg = TrainConfig(opt_state_dtype="int8", grad_compress=True,
                        total_steps=1, warmup_steps=1)
     per = S.launches_per_step(lm, tcfg)
@@ -6915,6 +7024,10 @@ def _frontend_cell(torch, arch: str, layers, batch: int, seq: int) -> dict:
     else:
         check(False, f"train frontend ({arch}): profile launches {by_name}, "
               f"want {per}")
+    # every bf16 PE call on the tensor cores (the ten on granules since
+    # c or d off a multiple of 8 no longer sends a call to the CUDA cores)
+    fma = {f: kern[f]["calls_per_step"] for f in FRONTEND_FMA if f in kern}
+    check(not fma, f"train frontend ({arch}): CUDA-core PE launches {fma}")
     total, _ = _device_summary(torch, prof, 1)
     del box
     torch.cuda.empty_cache()
@@ -7698,7 +7811,8 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
                  wkern: dict, wire: dict, skern: dict, chunked: dict,
                  lmkern: dict, lm: dict, spec: dict, state: dict,
                  rwkv: dict, hybrid: dict, sgroup: dict, moe: dict,
-                 mla: dict, frontend: dict, ckpt: dict) -> dict:
+                 mla: dict, frontend: dict, ckpt: dict,
+                 fkern: dict) -> dict:
     rows = []
     for name, (src, replaces) in KERNELS.items():
         rows.append(_kernel_row(name, src, replaces, kern[name],
@@ -7808,6 +7922,16 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
             f"train lm ({lm['steps']} steps, "
             f"{lm['launches_per_step'][kind]} a step: every {kind} launch of "
             "the LM step, by route and by profile name)"))
+        # the frontends' calls on granules (frontend kernels), their
+        # launches a step among the train frontend cells'
+        if fkern.get(kind):
+            rows[-1]["shapes"] = rows[-1]["shapes"] + fkern[kind]
+            rows[-1]["path"] += (
+                f"; train frontend ({len(fkern[kind])} {kind} calls on "
+                "granules, " + ", ".join(
+                    f"{r['arch'].split('-')[0]} {tuple(r['z'])} "
+                    f"{r['launches_per_step']}" for r in fkern[kind])
+                + " a step)")
     for name, (src, replaces, kind) in TILE_KERNELS.items():
         got = [ckpt["launches"].get(kind, 0),
                ckpt["eh"]["launches"].get(kind, 0)]
@@ -7936,7 +8060,8 @@ def _pe_diff(torch, o, first, ref) -> dict:
 def phase_pe_repeat(torch, reps: int) -> dict:
     """ROADMAP queue 3's open fault, "lm pe2 (16384, 256, 16)x(256, 256):
     two launches differ" (``phase_lm_kernels``), replayed: every PE1, PE2
-    and PE3 call of the LM step, on the same seeded inputs in the same
+    and PE3 call of the LM step and the frontends' ten granule calls
+    (``_frontend_granule_calls``), on the same seeded inputs in the same
     order, runs ``reps`` times the check's own sequence: the kernel into a
     fresh allocation, the plain twin, the cuBLAS yardstick, the plan, and
     the kernel again into another fresh allocation while the first output
@@ -7949,7 +8074,9 @@ def phase_pe_repeat(torch, reps: int) -> dict:
     from repro_torch.kernels import tt_mma, ttm_pe1
     gen = torch.Generator(device="cuda").manual_seed(4)
     out = {}
-    for kind, zs, gs in _lm_pe_calls():
+    calls = list(_lm_pe_calls()) + [
+        (kind, zs, gs) for _, kind, zs, gs, _ in _frontend_granule_calls()]
+    for kind, zs, gs in calls:
         kern, plain = _pe_fns(kind)
         z = torch.randn(zs, generator=gen, device="cuda").to(torch.bfloat16)
         g = (torch.randn(gs, generator=gen, device="cuda") * 0.2).to(
@@ -8109,7 +8236,8 @@ def main(argv=None) -> int:
     ap.add_argument("--pe-repeat", type=int, metavar="N",
                     help="only replay the lm kernels check's sequence N "
                     "times for each of the LM's PE1, PE2 and PE3 calls and "
-                    "log every launch whose bits differ (no result line)")
+                    "the frontends' granule calls, and log every launch "
+                    "whose bits differ (no result line)")
     ap.add_argument("--src", help="the directory holding repro_torch "
                     "(default: src beside this script)")
     ap.add_argument("--ckpt-child", nargs=3, metavar=("DIR", "KILL", "OUT"),
@@ -8225,6 +8353,8 @@ def main(argv=None) -> int:
     done("train_wire_identity")
     report["lm_kernels"] = phase_lm_kernels(torch, Timer(torch))
     done("lm_kernels")
+    report["frontend_kernels"] = phase_frontend_kernels(torch, Timer(torch))
+    done("frontend_kernels")
     report["train_lm"] = phase_train_lm(torch)
     done("train_lm")
     report["train_lm_identity"] = phase_train_lm_identity(torch)
@@ -8243,7 +8373,7 @@ def main(argv=None) -> int:
                         report["serve_rwkv6"], report["serve_hybrid"],
                         report["state_group"], report["serve_moe"],
                         report["serve_mla"], report["train_frontend"],
-                        report["train_ckpt"])
+                        report["train_ckpt"], report["frontend_kernels"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -23,15 +23,17 @@
 //   stacked  c = 16 or 32 (PE2 with d = 256): N runs over 64 / c whole
 //            slabs side by side (one 3-D TMA box (c, 64 rows of b, slabs),
 //            32- or 64-byte swizzle), M over all of d in up to four
-//            warpgroups of 64 x 64.
+//            warpgroups of 64 x 64. On granules (below), any even c <= 32:
+//            64 / c slabs in a row of 128 bytes (c = 20: 3 slabs, 60 of
+//            the 64 columns; c = 28: 2, 56), 128-byte swizzle.
 // Where a CTA's tiles share one row of tiles of G (d <= its tile), the
 // whole of G is loaded once for the CTA's life ("resident"), so only Z
 // streams; 256 x 256 bf16 is 128 KB of shared memory.
 //
 // Schedule: a persistent grid (at most one CTA per SM) walks the tiles in
 // order, N fastest. A producer (one warp; a warpgroup for 64 x 256, which
-// hands its registers to the consumers) keeps TMA loads of 64-row
-// b-chunks in flight through a ring of stages under mbarriers (full:
+// hands its registers to the consumers, and for Z's granules) keeps loads
+// of 64-row b-chunks in flight through a ring of stages under mbarriers (full:
 // bytes landed; empty: every consumer warpgroup is done with the slot),
 // across tile boundaries, so HBM never waits for an epilogue. Each consumer
 // warpgroup issues its 4 wgmma k-steps a chunk and keeps one chunk's group
@@ -46,9 +48,42 @@
 // launches give the same bits.
 //
 // Requirements (checked by the plan, which routes the rest to the FMA
-// body): bf16; c and d multiples of 8 (16-byte rows of Z, G and O, the
-// TMA's stride unit); Z and G 16-byte aligned. Ragged edges in a, b, c
-// and d are the TMA's zero fill on the way in and masks on the way out.
+// body): bf16; rows of Z (c) and G (d) that are 16-byte multiples on
+// 16-byte aligned operands go through the TMA (its stride unit); ragged
+// edges in a, b, c and d are its zero fill on the way in and masks on the
+// way out.
+//
+// Granules: rows of even c or d that the TMA cannot take (c = 20 / 28 and
+// d = 10 / 20 in the audio and vision frontends' steps: 40-, 56-, 20- or
+// 40-byte rows; or operands 4 or 8 bytes off 16) are staged by cp.async
+// in 8-byte granules (4 where the row or the offset allows no more) into
+// the same swizzled tiles the TMA would write, so the consumers and the
+// wgmma descriptors are unchanged. Those calls are bound by bytes, as all
+// here; what kept them off the tensor cores was only the copy.
+//   Z (p.gz): the stacked tiling only (c <= 32, d c a multiple of 8, so a
+//            slab's rows of O leave as one 16-byte-multiple run). Each
+//            slab's row of Z (2 c bytes) lands at byte 2 c s of its b
+//            row; the producer, a warpgroup, copies the rows granule by
+//            granule (stage_slabs), zero-filling rows past b and slabs past
+//            a (cp.async with src-size 0), and each thread arrives on the
+//            slot's full barrier when its copies land
+//            (cp.async.mbarrier.arrive.noinc; the consumers fence for the
+//            async proxy after the wait: the copies write through the
+//            generic one). What keeps these calls from their byte bound
+//            on the card is the producer's instructions: in probes, one
+//            producer warp doubled the time, a walk of the slabs' runs by
+//            counters (one granule after another across rows) cost a third
+//            more than a loop over (slab, row) pairs, and a walk that read
+//            the plan's fields after every copy cost more again. G stays
+//            on the TMA, resident or streamed.
+//   G (p.gg): where G is resident (not under the 64 x 256 warpgroups,
+//            whose producer gives its registers away): the CTA zeroes the
+//            resident tiles, every producer thread copies its share of G's
+//            rows once (stage_g; K and M padding stays zero) and arrives
+//            when they land; the consumers fence before their first
+//            product. Z stays on the TMA.
+// Odd c or d, 2-byte offsets, Z on granules past c = 32 and G on granules
+// where it is not resident stay on the FMA body.
 //
 // The helpers below `gemm`'s (mbarriers, TMA loads and tensor stores, bulk
 // stores, descriptors, wgmma in both operand majors, the tensor-map
@@ -75,10 +110,12 @@ constexpr int kABox = 64;         // G's box: 64 columns of d (128 bytes)
 // its registers to the consumers (setmaxnreg redistributes a CTA's own).
 template <int WGN>
 constexpr int kMaxWG = WGN <= 64 ? 4 : 2;
-template <int WGN>
-constexpr int kProducer = WGN == 256 ? 128 : 32;
-template <int WGN>
-constexpr int kMaxThreads = kMaxWG<WGN> * 128 + kProducer<WGN>;
+// The stacked tiling on granules (WGN 64 under the 128-byte swizzle) takes a
+// producer warpgroup too: its 128 threads issue Z's cp.async granules.
+template <int WGN, int SW>
+constexpr int kProducer = WGN == 256 || (WGN == 64 && SW == 128) ? 128 : 32;
+template <int WGN, int SW>
+constexpr int kMaxThreads = kMaxWG<WGN> * 128 + kProducer<WGN, SW>;
 
 // Field order is kernels/tt_mma.py PLAN_FIELDS.
 struct Plan {
@@ -90,9 +127,10 @@ struct Plan {
   int tiles_m, tiles_c, tiles_n, tiles;
   int grid, threads;
   int a_chunk, b_chunk, stage, a_res, out_pitch, smem;  // bytes
+  int gz, gg;                  // Z's / G's cp.async granule bytes (4, 8), 0: TMA
 };
-constexpr int kPlanFields = 25;
-static_assert(sizeof(Plan) == kPlanFields * sizeof(int), "Plan is 25 int32");
+constexpr int kPlanFields = 27;
+static_assert(sizeof(Plan) == kPlanFields * sizeof(int), "Plan is 27 int32");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -141,6 +179,43 @@ __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, uint64
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(z)
       : "memory");
+}
+
+// ---- cp.async granules, for rows the TMA cannot take (not a multiple of
+// 16 bytes, or off a 16-byte boundary). `bytes` below GR reads that many
+// and zero-fills the rest (0: all zeros, `src` unread).
+template <int GR>
+__device__ __forceinline__ void cp_granule(void* dst, const void* src, int bytes) {
+  static_assert(GR == 4 || GR == 8, "granules of 4 or 8 bytes");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "n"(GR), "r"(bytes)
+               : "memory");
+}
+// `bar` sees one arrival once every cp.async this thread issued has landed
+// (noinc: the arrival is one of those the barrier was initialised with)
+__device__ __forceinline__ void cp_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+// cp.async writes through the generic proxy, wgmma reads through the async
+// one: a consumer fences after the barrier says its granules landed
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// 16-byte zero stores over [p, p + bytes) by the CTA's threads, fenced for
+// the async proxy (granule-staged tiles' padding, which no copy writes)
+__device__ __forceinline__ void zero_smem(uint8_t* p, int bytes) {
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+    reinterpret_cast<uint4*>(p)[i] = make_uint4(0, 0, 0, 0);
+  fence_async();
+}
+// The byte of a tile of SW-byte rows at which the SW-byte swizzle puts
+// logical byte o (the TMA's and wgmma's pattern: 16-byte chunk bits 4.. of
+// the offset XOR the row bits 7.., from a 1024-byte aligned tile).
+template <int SW>
+__device__ __forceinline__ int swz(int o) {
+  return o ^ ((o >> 3) & (SW - 16));
 }
 
 // ---- wgmma
@@ -289,17 +364,70 @@ __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// Z's slabs a0 .. a0 + slabs - 1 at b rows k0 .. k0 + 63 into a stacked B
+// tile on granules: 64 rows of 128 bytes (one per b row), slab s's c
+// columns at byte 2 c s of each, under the 128-byte swizzle. Thread t of N
+// takes the (slab, row) pairs t, t + N, ... and copies each pair's 2 c
+// bytes of Z granule by granule: a handful of instructions a granule,
+// which is what bounds these calls (the plan's fields are read once a call:
+// an asm "memory" clobber after every copy would make the compiler reload
+// them). Rows past b and slabs past a are zero fill; the tile's columns
+// past slabs * c are never written (their sums are never stored).
+template <int GR, int N>
+__device__ __forceinline__ void stage_slabs(uint8_t* tile, const uint8_t* z, int a0, int k0,
+                                            const Plan& p, int t) {
+  const int row = p.c * 2, pairs = p.slabs * kBK, in_s = p.a - a0, in_k = p.b - k0;
+  const size_t slab = (size_t)p.b * row;
+  const uint8_t* base = z + ((size_t)a0 * p.b + k0) * row;
+#pragma unroll 1
+  for (int i = t; i < pairs; i += N) {
+    const int s = i / kBK, k = i % kBK, swk = (k & 7) << 4;
+    const bool in = s < in_s && k < in_k;
+    const uint8_t* src = base + s * slab + k * row;
+    uint8_t* dst = tile + k * 128;
+#pragma unroll 1
+    for (int q = 0, x = s * row; q < row; q += GR, x += GR)
+      cp_granule<GR>(dst + (x ^ swk), in ? src + q : z, in ? GR : 0);
+  }
+}
+
+// G (b, d) whole into the resident A tiles on granules: row k of G is row
+// k % 64 of chunk k / 64, its d columns in boxes of 64 (128 bytes, the
+// 128-byte swizzle) kABox * kBK * 2 bytes apart, as the TMA would lay them;
+// thread t of n takes granules t, t + n, ... The rows past b and columns
+// past d were zeroed before.
+template <int GR>
+__device__ __forceinline__ void stage_g(uint8_t* a_res, const uint8_t* g, const Plan& p, int t,
+                                        int n) {
+  const int row = p.d * 2, gpr = row / GR, total = p.b * gpr;
+#pragma unroll 1
+  for (int e = t; e < total; e += n) {
+    const int k = e / gpr, x = (e - k * gpr) * GR, r = k & (kBK - 1);
+    cp_granule<GR>(a_res + (k / kBK) * p.a_chunk + (x >> 7) * (kABox * kBK * 2) + r * 128 +
+                       ((x & 127) ^ ((r & 7) << 4)),
+                   g + (size_t)k * row + x, GR);
+  }
+}
+
 // The body. WGN: N per consumer warpgroup (64, 128 or 256); SW: B's swizzle
-// bytes (32, 64 or 128; below 128 the tiling is stacked, c = SW / 2).
+// bytes (32, 64 or 128). WGN 64 is the stacked tiling: c = SW / 2 slabs off
+// the TMA below 128, any even c <= 32 on granules (p.gz) at 128.
 // Warps 0 .. 4 * wm * wn - 1 are the consumer warpgroups (warpgroup g takes
 // rows 64 * (g / wn) and columns WGN * (g % wn) of a tile), the rest the
-// producer.
+// producer. z and g are the operands' own pointers, read where p.gz / p.gg
+// stage them by granules (the maps are then unused).
 template <int WGN, int SW>
 __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* tb,
+                                     const uint8_t* __restrict__ z, const uint8_t* __restrict__ g,
                                      __nv_bfloat16* __restrict__ O, const Plan& p) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                            ~uintptr_t(1023));
+  constexpr int kProd = kProducer<WGN, SW>;
+  // Z on granules: the stacked tiling's 128-byte-swizzle instance, and only
+  // it (launch checks p.gz against it); G on granules: any instance but 64
+  // x 256 (launch refuses p.gg there)
+  constexpr bool kZGran = WGN == 64 && SW == 128, kGGran = WGN != 256;
   const int nwg = p.wm * p.wn;
   uint8_t* a_res = sm;
   uint8_t* ring = sm + p.a_res;
@@ -308,34 +436,57 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
   uint64_t* empty = full + p.stages;
   uint64_t* abar = empty + p.stages;
   const int wg = threadIdx.x >> 7;
+  // a ring slot's TMA bytes (G streamed, Z off the TMA); it is full once
+  // they have landed and, on granules, every producer warp's copies have
+  const int stage_tx = (p.resident ? 0 : p.a_chunk) + (kZGran ? 0 : p.b_chunk);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < p.stages; ++s) {
-      mbar_init(full + s, 1);
+      mbar_init(full + s, (stage_tx ? 1 : 0) + (kZGran ? kProd : 0));
       mbar_init(empty + s, nwg);
     }
-    mbar_init(abar, 1);
+    mbar_init(abar, kGGran && p.gg ? kProd : 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if (kGGran && p.gg) zero_smem(a_res, p.a_res);  // G's K and M padding
   __syncthreads();
 
   const int bm = 64 * p.wm, bn = WGN * p.wn;
   const int a_box = kABox * kBK * 2;             // bytes of one box of G
   const int b_box = p.bw * kBK * p.slabs * 2;    // and of Z
-  const int nbox = bn / (p.bw * p.slabs);
+  const int nbox = kZGran ? 0 : bn / (p.bw * p.slabs);
 
   // 64 x 256 warpgroups hold 128 sums a thread: at 384 threads the
   // compiler's budget is 168 registers, so the producer warpgroup gives
   // its registers back and the consumers take 232 (setmaxnreg; the two
   // roles never meet again below)
-  if (wg == nwg) {  // ---- producer: one lane issues every copy
+  if (wg == nwg) {  // ---- producer: one lane issues every TMA copy, every
+                    // thread its share of the granules
     if constexpr (WGN == 256) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if ((threadIdx.x & (kProducer<WGN> - 1)) != 0) return;
+    const int pt = threadIdx.x - nwg * 128;
+    // G's granules where the producer keeps its registers (not under 64 x
+    // 256, whose producer holds 40 a thread); Z's in kZGran's instance only
+    const bool gg = kGGran && p.gg;
+    if (!kZGran && !gg && pt != 0) return;
     if (p.resident) {
-      mbar_expect_tx(abar, p.a_res);
-      for (int kc = 0; kc < p.nk; ++kc)
-        for (int mb = 0; mb < p.wm; ++mb)
-          tma_2d(a_res + kc * p.a_chunk + mb * a_box, ta, abar, kABox * mb, kc * kBK);
+      if (gg) {
+        if constexpr (kGGran) {
+          if (p.gg == 8)
+            stage_g<8>(a_res, g, p, pt, kProd);
+          else
+            stage_g<4>(a_res, g, p, pt, kProd);
+          cp_arrive(abar);
+        }
+      } else if (pt == 0) {
+        mbar_expect_tx(abar, p.a_res);
+        for (int kc = 0; kc < p.nk; ++kc)
+          for (int mb = 0; mb < p.wm; ++mb)
+            tma_2d(a_res + kc * p.a_chunk + mb * a_box, ta, abar, kABox * mb, kc * kBK);
+      }
+    }
+    if (!kZGran && pt != 0) {  // G's granules only: the rest is lane 0's TMA
+      cp_wait_all();
+      return;
     }
     int st = 0, ph = 0;
     for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
@@ -344,21 +495,31 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
       const int d0 = tm * bm, a0 = (tn / p.tiles_c) * p.slabs, c0 = ct * bn;
       for (int kc = 0; kc < p.nk; ++kc) {
         mbar_wait(empty + st, ph ^ 1);
-        mbar_expect_tx(full + st, p.stage);
         uint8_t* slot = ring + st * p.stage;
-        if (!p.resident) {
-          for (int mb = 0; mb < p.wm; ++mb)
-            tma_2d(slot + mb * a_box, ta, full + st, d0 + kABox * mb, kc * kBK);
-          slot += p.a_chunk;
+        if (pt == 0 && stage_tx) {
+          mbar_expect_tx(full + st, stage_tx);
+          if (!p.resident)
+            for (int mb = 0; mb < p.wm; ++mb)
+              tma_2d(slot + mb * a_box, ta, full + st, d0 + kABox * mb, kc * kBK);
         }
-        for (int i = 0; i < nbox; ++i)
-          tma_3d(slot + i * b_box, tb, full + st, c0 + i * p.bw, kc * kBK, a0);
+        if (!p.resident) slot += p.a_chunk;
+        if constexpr (kZGran) {
+          if (p.gz == 8)
+            stage_slabs<8, kProd>(slot, z, a0, kc * kBK, p, pt);
+          else
+            stage_slabs<4, kProd>(slot, z, a0, kc * kBK, p, pt);
+          cp_arrive(full + st);
+        } else {
+          for (int i = 0; i < nbox; ++i)
+            tma_3d(slot + i * b_box, tb, full + st, c0 + i * p.bw, kc * kBK, a0);
+        }
         if (++st == p.stages) {
           st = 0;
           ph ^= 1;
         }
       }
     }
+    if constexpr (kZGran) cp_wait_all();
     return;
   }
 
@@ -368,15 +529,19 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
   const int lane = threadIdx.x & 127;
   const uint32_t a_lbo = kBK * 128, b_lbo = kBK * SW;
   // this warpgroup's column block of B, and its row block of A
-  const int b_off = (wni * WGN / p.bw) * (p.bw * kBK * 2);
+  const int b_off = kZGran ? 0 : (wni * WGN / p.bw) * (p.bw * kBK * 2);
   const int a_off = wmi * a_box;
   uint8_t* stg = outs + wg * 64 * p.out_pitch;
-  constexpr bool kStacked = SW < 128;
-  constexpr int kC = SW / 2;  // c of a stacked tiling
+  constexpr bool kStacked = WGN == 64;
+  // c of a stacked tiling: SW / 2 off the TMA, any even c on granules
+  const int slab_c = kZGran ? p.c : SW / 2;
   float acc[WGN / 2];
 #pragma unroll
   for (int i = 0; i < WGN / 2; ++i) acc[i] = 0.f;
-  if (p.resident) mbar_wait(abar, 0);
+  if (p.resident) {
+    mbar_wait(abar, 0);
+    if (kGGran && p.gg) fence_async();
+  }
   int st = 0, ph = 0;
   for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
     const int tm = t / p.tiles_n, tn = t - tm * p.tiles_n;
@@ -385,6 +550,7 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
     int prev = 0;
     for (int kc = 0; kc < p.nk; ++kc) {
       mbar_wait(full + st, ph);
+      if constexpr (kZGran) fence_async();
       uint8_t* slot = ring + st * p.stage;
       const uint8_t* as = (p.resident ? a_res + kc * p.a_chunk : slot) + a_off;
       const uint8_t* bs = slot + (p.resident ? 0 : p.a_chunk) + b_off;
@@ -419,15 +585,35 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
     bar_sync(1 + wg);
     {
       const int r0 = (lane >> 5) * 16 + ((lane & 31) >> 2), cb = 2 * (lane & 3);
+      // on granules: columns 8 j + cb, + 1 are column col of slab s (c even:
+      // never split), walked by counters as j steps 8 columns on
+      int s = 0, col = cb;
+      if constexpr (kZGran) {
+        while (col >= slab_c) {
+          col -= slab_c;
+          ++s;
+        }
+      }
 #pragma unroll
       for (int j = 0; j < WGN / 8; ++j) {
         const __nv_bfloat162 lo = __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
         const __nv_bfloat162 hi = __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
         uint8_t* at;
         int pitch;
-        if constexpr (kStacked) {
-          at = stg + (8 * j / kC) * (64 * kC * 2) + ((8 * j) % kC + cb) * 2;
-          pitch = kC * 2;
+        if constexpr (kStacked && !kZGran) {
+          at = stg + (8 * j / slab_c) * (64 * slab_c * 2) + ((8 * j) % slab_c + cb) * 2;
+          pitch = slab_c * 2;
+        } else if constexpr (kZGran) {
+          if (j > 0) {
+            col += 8;
+            while (col >= slab_c) {
+              col -= slab_c;
+              ++s;
+            }
+          }
+          if (s >= p.slabs) continue;
+          at = stg + s * (64 * slab_c * 2) + col * 2;
+          pitch = slab_c * 2;
         } else {
           at = stg + (8 * j + cb) * 2;
           pitch = p.out_pitch;
@@ -440,10 +626,10 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
     bar_sync(1 + wg);
     if (lane < 32) {
       const int rows = min(64, p.d - d0);
-      if constexpr (kStacked) {  // lane s: the WGN / kC slabs' runs (wn is 1: launch checks)
-        if (lane < WGN / kC && a0 + lane < p.a && rows > 0)
-          bulk_store(O + ((size_t)(a0 + lane) * p.d + d0) * p.c, stg + lane * (64 * kC * 2),
-                     rows * kC * 2);
+      if constexpr (kStacked) {  // lane s: the slabs' runs (wn is 1: launch checks)
+        if (lane < p.slabs && a0 + lane < p.a && rows > 0)
+          bulk_store(O + ((size_t)(a0 + lane) * p.d + d0) * p.c,
+                     stg + lane * (64 * slab_c * 2), rows * slab_c * 2);
       } else {  // lanes over rows: each row's WGN columns (fewer at c's edge)
         const int col = c0 + wni * WGN;
         const int n = min(WGN, p.c - col);
@@ -509,11 +695,14 @@ inline bool map_2d(CUtensorMap* m, const void* ptr, uint64_t inner, uint64_t out
 }
 
 // G (b, d) as A: boxes of 64 columns of d by kBK rows, 128-byte swizzle;
-// Z (a, b, c) as B: boxes of bw columns by kBK rows by `slabs` slabs.
+// Z (a, b, c) as B: boxes of bw columns by kBK rows by `slabs` slabs. An
+// operand staged by granules has no map (left zero).
 inline bool encode(const Plan& p, const void* z, const void* g, CUtensorMap* ta,
                    CUtensorMap* tb) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
+  memset(ta, 0, sizeof(CUtensorMap));
+  memset(tb, 0, sizeof(CUtensorMap));
   const cuuint64_t gdim[2] = {(cuuint64_t)p.d, (cuuint64_t)p.b};
   const cuuint64_t gstr[1] = {(cuuint64_t)p.d * 2};
   const cuuint32_t gbox[2] = {(cuuint32_t)kABox, (cuuint32_t)kBK};
@@ -521,14 +710,16 @@ inline bool encode(const Plan& p, const void* z, const void* g, CUtensorMap* ta,
   const cuuint64_t zstr[2] = {(cuuint64_t)p.c * 2, (cuuint64_t)p.b * p.c * 2};
   const cuuint32_t zbox[3] = {(cuuint32_t)p.bw, (cuuint32_t)kBK, (cuuint32_t)p.slabs};
   const cuuint32_t ones[3] = {1, 1, 1};
-  return enc(ta, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(g), gdim, gstr, gbox,
-             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-             CUDA_SUCCESS &&
-         enc(tb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(z), zdim, zstr, zbox,
-             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle(p.sw),
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-             CUDA_SUCCESS;
+  return (p.gg ||
+          enc(ta, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(g), gdim, gstr, gbox,
+              ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+              CUDA_SUCCESS) &&
+         (p.gz ||
+          enc(tb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(z), zdim, zstr, zbox,
+              ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle(p.sw),
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+              CUDA_SUCCESS);
 }
 
 // The instance of `Kernel` for the plan's (wgn, sw), or null.
@@ -536,14 +727,15 @@ template <template <int, int> class Kernel>
 const void* pick(int wgn, int sw) {
   if (wgn == 64 && sw == 32) return Kernel<64, 32>::fn();
   if (wgn == 64 && sw == 64) return Kernel<64, 64>::fn();
+  if (wgn == 64 && sw == 128) return Kernel<64, 128>::fn();
   if (wgn == 128 && sw == 128) return Kernel<128, 128>::fn();
   if (wgn == 256 && sw == 128) return Kernel<256, 128>::fn();
   return nullptr;
 }
 
-// Check the plan, encode the two tensor maps and launch `fn` (a kernel
-// taking (CUtensorMap, CUtensorMap, bf16*, Plan)) on `stream`; returns
-// cudaGetLastError() after the launch.
+// Check the plan, encode the tensor maps and launch `fn` (a kernel taking
+// (CUtensorMap, CUtensorMap, const bf16* z, const bf16* g, bf16*, Plan)) on
+// `stream`; returns cudaGetLastError() after the launch.
 inline int launch(const void* fn, const void* z, const void* g, void* o, const int* fields,
                   void* stream) {
   Plan p;
@@ -551,23 +743,37 @@ inline int launch(const void* fn, const void* z, const void* g, void* o, const i
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   if (p.tiles == 0) return (int)cudaSuccess;
   const int nwg = p.wm * p.wn;
+  const bool stacked_gz = p.wgn == 64 && p.sw == 128;  // the stacked tiling on granules
+  const int producer = p.wgn == 256 || stacked_gz ? 128 : 32;
+  // Z by granules: the stacked tiling only, whole even-c slabs in N = 64,
+  // slab runs of O 16-byte multiples; off granules, 16-byte rows (TMA).
+  // G by granules: resident, not under the 64 x 256 warpgroups (whose
+  // producer gives its registers away).
+  const bool zrows = p.gz ? (p.gz == 4 || p.gz == 8) && stacked_gz && p.c % 2 == 0 &&
+                                (p.c * 2) % p.gz == 0 && p.slabs == 64 / p.c && p.bw == p.c &&
+                                (p.c * p.d) % 8 == 0
+                          : p.c % 8 == 0 && !stacked_gz && (p.wgn * p.wn) % (p.bw * p.slabs) == 0;
+  const bool grows = p.gg ? (p.gg == 4 || p.gg == 8) && (p.d * 2) % p.gg == 0 && p.resident &&
+                                p.wgn != 256
+                          : p.d % 8 == 0;
+  const uintptr_t za = reinterpret_cast<uintptr_t>(z), ga = reinterpret_cast<uintptr_t>(g);
   const bool ok =
-      p.threads == nwg * 128 + (p.wgn == 256 ? 128 : 32) && nwg >= 1 &&
-      nwg <= (p.wgn <= 64 ? 4 : 2) && (p.sw == 128 || p.c * 2 == p.sw) && p.stages >= 2 && p.nk >= 1 &&
-      p.smem <= kMaxSmem && p.c % 8 == 0 && p.d % 8 == 0 && p.grid >= 1 &&
-      p.tiles == p.tiles_m * p.tiles_n && p.a_chunk == 64 * p.wm * kBK * 2 &&
-      p.b_chunk == p.wgn * p.wn * kBK * 2 && p.stage == p.b_chunk + (p.resident ? 0 : p.a_chunk) &&
-      p.a_res == (p.resident ? p.nk * p.a_chunk : 0) && (p.wgn * p.wn) % (p.bw * p.slabs) == 0 &&
+      p.threads == nwg * 128 + producer && nwg >= 1 && nwg <= (p.wgn <= 64 ? 4 : 2) &&
+      (p.sw == 128 || p.c * 2 == p.sw) && p.stages >= 2 && p.nk >= 1 && p.smem <= kMaxSmem &&
+      zrows && grows && p.grid >= 1 && p.tiles == p.tiles_m * p.tiles_n &&
+      p.a_chunk == 64 * p.wm * kBK * 2 && p.b_chunk == p.wgn * p.wn * kBK * 2 &&
+      p.stage == p.b_chunk + (p.resident ? 0 : p.a_chunk) &&
+      p.a_res == (p.resident ? p.nk * p.a_chunk : 0) &&
       (p.slabs == 1 || p.wn == 1) &&  // the stacked store's slab index carries no wn offset
       p.smem >= 1024 + p.a_res + p.stages * p.stage + nwg * 64 * p.out_pitch + 16 * p.stages + 8 &&
-      (reinterpret_cast<uintptr_t>(z) | reinterpret_cast<uintptr_t>(g) |
-       reinterpret_cast<uintptr_t>(o)) % 16 == 0;
+      za % (p.gz ? p.gz : 16) == 0 && ga % (p.gg ? p.gg : 16) == 0 &&
+      reinterpret_cast<uintptr_t>(o) % 16 == 0;
   if (!ok) return (int)cudaErrorInvalidValue;
   CUtensorMap ta, tb;
   if (!encode(p, z, g, &ta, &tb)) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (e != cudaSuccess) return (int)e;
-  void* args[] = {&ta, &tb, &o, &p};
+  void* args[] = {&ta, &tb, &z, &g, &o, &p};
   e = cudaLaunchKernel(fn, dim3((unsigned)p.grid), dim3((unsigned)p.threads), args,
                        (size_t)p.smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;

@@ -13,8 +13,10 @@
 // Two bodies, chosen by kernels/ttm_pe1.py from dtype, shape and alignment
 // alone (`plan_pe1`; the calls it cannot tile take `plan`):
 //
-// bf16 with b = 1, c and d multiples of 8, c <= 64 and 16-byte aligned
-// operands (every LM call): `pe1_mma_kernel`, wgmma on the tensor cores.
+// bf16 with b = 1, even c <= 64, d a multiple of 8 and operands on at least
+// 4-byte boundaries (every LM call, and the frontends': hubert-xlarge's
+// (524288, 1, 20) x (1, 256, 20), 192 launches a step, and llava-next-34b's
+// c = 28 at d = 256 / 448 / 512): `pe1_mma_kernel`, wgmma on the tensor cores.
 // With b = 1 the call is a plain GEMM, M = a, N = d, K = c, both operands
 // K-major (Z (a, c) and G (d, c) are contiguous along c). Bound on the H100:
 // bytes, the output's above all: Y is d / c = 8-32x Z. (262144, 1, 16) x (1,
@@ -34,13 +36,30 @@
 // bf16 (requantized first when asked) into a staging tile laid out as the
 // output map's 128-byte swizzle (boxes of 64 columns, so the fragment writes
 // do not conflict), and TMA tensor stores take it out, rows past a dropped.
+// Rows of Z and G the TMA cannot take (c not a multiple of 8: 40 and 56
+// bytes at c = 20 / 28; or an operand 4 or 8 bytes off 16; the plan's
+// `gran`) are staged by cp.async in 8-byte granules (4 where the rows or
+// offsets allow no more) into the same swizzled rows (stage_rows): the CTA
+// zeroes G and the ring first, so the K padding past c (to the next 16)
+// stays zero, the producer warp's 32 lanes copy G once and each tile's Z
+// rows (rows past a zero-filled), each lane arrives on the slot's barrier
+// when its granules land (cp.async.mbarrier.arrive.noinc: 32 arrivals a
+// tile, against a tile's 32-64 KB of stores), and the consumers fence
+// (the copies write through the generic proxy, wgmma reads through the
+// async one) before their products. The epilogue is unchanged: d stays a
+// multiple of 8. At c = 20 the call reads 21.0 MB of Z and writes 268 MB
+// of Y: 86.4 us at 3.35 TB/s, against 5.4 GFLOP (5.4 us at 989 TFLOP/s);
+// at the 16-20 TFLOP/s the CUDA-core body (`pe1_kernel`, which these calls
+// took before) reached at the LM's shapes, the products alone outlast the
+// bytes (times: PERF.md row 12d).
 // Each warpgroup double-buffers its staging: a tile's stores run under the
 // next tile's loads, products and conversions, and a warpgroup waits only
 // until the stores of the tile two back have read their staging. No split-K
 // and no atomics: each output is one warpgroup's sum in a fixed order, so
 // two launches give the same bits.
 //
-// f32, and the bf16 calls the tensor-core plan cannot tile: `pe1_kernel`,
+// f32, and the bf16 calls the tensor-core plan cannot tile (odd c, 2-byte
+// offsets, b > 1, c > 64): `pe1_kernel`,
 // FMA on the CUDA cores. Bound on the H100: bytes. With b = 1 and c = 16
 // each output is a 16-long dot product: a = 3584 stores 3.67 MB (1.1 us at
 // 3.35 TB/s) for 29 MFLOP (0.44 us at the 67 TFLOP/s FP32 rate); at a = 64
@@ -280,9 +299,36 @@ struct MmaPlan {
   int stages, nbuf;          // ring slots; staging tiles per warpgroup
   int stage, g_bytes, out_bytes, smem;  // bytes: a ring slot, resident G, a
                                         // staging tile, the whole
+  int gran;                  // Z's and G's cp.async granule bytes (4, 8), 0: TMA
 };
-constexpr int kMmaFields = 19;
-static_assert(sizeof(MmaPlan) == kMmaFields * sizeof(int), "MmaPlan is 19 int32");
+constexpr int kMmaFields = 20;
+static_assert(sizeof(MmaPlan) == kMmaFields * sizeof(int), "MmaPlan is 20 int32");
+
+// Rows r0 .. r0 + n - 1 of a row-major (rows, c) bf16 array into a tile of
+// SW-byte rows under the SW-byte swizzle (row r at r * SW, as the TMA lays
+// a box of c <= SW / 2 columns), by cp.async granules of GR bytes: lane l
+// of 32 takes granules l, l + 32, ... of the rows' one run, counters only.
+// Rows past `rows` are zero fill; a row's bytes past 2 c keep the zeros the
+// kernel wrote at its start.
+template <int SW, int GR>
+__device__ __forceinline__ void stage_rows(uint8_t* tile, const uint8_t* src, int r0, int n,
+                                           int rows, int c, int lane) {
+  const int row = c * 2, gpr = row / GR, total = n * gpr;
+  const int dr = 32 / gpr, dq = 32 % gpr;
+  int r = lane / gpr, q = lane - r * gpr;
+#pragma unroll 1
+  for (int e = lane; e < total; e += 32) {
+    const bool in = r0 + r < rows;
+    tt_mma::cp_granule<GR>(tile + tt_mma::swz<SW>(r * SW + q * GR),
+                           in ? src + (size_t)(r0 + r) * row + q * GR : src, in ? GR : 0);
+    q += dq;
+    r += dr;
+    if (q >= gpr) {
+      q -= gpr;
+      ++r;
+    }
+  }
+}
 
 // until all but this thread's nbuf - 1 most recent bulk groups (one a
 // tile) have read their staging tiles
@@ -302,7 +348,8 @@ __device__ __forceinline__ void wait_staging(int nbuf) {
 template <int WGN, int SW>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 pe1_mma_kernel(const __grid_constant__ CUtensorMap tz, const __grid_constant__ CUtensorMap tg,
-               const __grid_constant__ CUtensorMap ty, const MmaPlan p, int epilogue,
+               const __grid_constant__ CUtensorMap ty, const uint8_t* __restrict__ z,
+               const uint8_t* __restrict__ g, const MmaPlan p, int epilogue,
                const float* __restrict__ step, float lo, float hi) {
   using namespace tt_mma;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -317,17 +364,44 @@ pe1_mma_kernel(const __grid_constant__ CUtensorMap tz, const __grid_constant__ C
   uint64_t* gbar = empty + p.stages;
   const int wg = threadIdx.x >> 7;
 
+  // off the TMA (p.gran), each of the producer's 32 lanes arrives once a
+  // phase, when its granules have landed
   if (threadIdx.x == 0) {
     for (int s = 0; s < p.stages; ++s) {
-      mbar_init(full + s, 1);
+      mbar_init(full + s, p.gran ? 32 : 1);
       mbar_init(empty + s, nwg);
     }
-    mbar_init(gbar, 1);
+    mbar_init(gbar, p.gran ? 32 : 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if (p.gran) zero_smem(g_res, p.g_bytes + p.stages * p.stage);  // K and row padding
   __syncthreads();
   const int bm = 64 * p.wm, bn = WGN * p.wn;
 
+  if (wg == nwg && p.gran) {  // ---- producer on granules: every lane
+    const int lane = threadIdx.x & 31;
+    if (p.gran == 8)
+      stage_rows<SW, 8>(g_res, g, 0, p.d, p.d, p.c, lane);
+    else
+      stage_rows<SW, 4>(g_res, g, 0, p.d, p.d, p.c, lane);
+    cp_arrive(gbar);
+    int st = 0, ph = 0;
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      mbar_wait(empty + st, ph ^ 1);
+      uint8_t* slot = ring + st * p.stage;
+      if (p.gran == 8)
+        stage_rows<SW, 8>(slot, z, (t / p.tiles_n) * bm, bm, p.a, p.c, lane);
+      else
+        stage_rows<SW, 4>(slot, z, (t / p.tiles_n) * bm, bm, p.a, p.c, lane);
+      cp_arrive(full + st);
+      if (++st == p.stages) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
+    cp_wait_all();
+    return;
+  }
   if (wg == nwg) {  // ---- producer: one lane issues every copy
     if ((threadIdx.x & 31) != 0) return;
     mbar_expect_tx(gbar, p.g_bytes);
@@ -361,11 +435,13 @@ pe1_mma_kernel(const __grid_constant__ CUtensorMap tz, const __grid_constant__ C
 #pragma unroll
   for (int i = 0; i < HN / 2; ++i) acc[i] = 0.f;
   mbar_wait(gbar, 0);
+  if (p.gran) fence_async();
   int st = 0, ph = 0, buf = 0;
   for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
     const int tm = t / p.tiles_n, tn = t - tm * p.tiles_n;
     const int m0 = tm * bm + 64 * wmi, n0 = tn * bn + WGN * wni;
     mbar_wait(full + st, ph);
+    if (p.gran) fence_async();
     const uint8_t* as = ring + st * p.stage + wmi * 64 * SW;
     // staging tile `buf`, free once the stores of the tile nbuf back have
     // read it (lane 0 issued them), laid out as the output map's 128-byte
@@ -490,17 +566,22 @@ int pe1(const void* z, const void* g, void* y, int dtype, const int* fields, int
 }
 
 // The tensor-core route: z (a, 1, c), g (1, d, c), y (a, d), contiguous bf16,
-// 16-byte aligned; `plan` is 19 int32 (kernels/ttm_pe1.py MMA_FIELDS); the
-// epilogue as `pe1`'s. Returns cudaGetLastError() after the launch.
+// y 16-byte aligned, z and g 16-byte aligned or on their granules; `plan`
+// is 20 int32 (kernels/ttm_pe1.py MMA_FIELDS); the epilogue as `pe1`'s.
+// Returns cudaGetLastError() after the launch.
 int pe1_mma(const void* z, const void* g, void* y, const int* fields, int epilogue,
             const void* step, int bits, void* stream) {
   MmaPlan p;
   memcpy(&p, fields, sizeof(MmaPlan));
   if (p.tiles == 0) return (int)cudaSuccess;
   const int nwg = p.wm * p.wn;
+  // rows of c off the TMA: even c on 4- or 8-byte granules of both operands
+  const bool rows = p.gran ? (p.gran == 4 || p.gran == 8) && p.c >= 2 && (p.c * 2) % p.gran == 0
+                           : p.c >= 8 && p.c % 8 == 0;
+  const uintptr_t zg = reinterpret_cast<uintptr_t>(z) | reinterpret_cast<uintptr_t>(g);
   const bool ok =
       (p.wgn == 64 || p.wgn == 128 || p.wgn == 256) && (p.sw == 32 || p.sw == 64 || p.sw == 128) &&
-      p.a >= 1 && p.c >= 8 && p.c % 8 == 0 && p.d >= 8 && p.d % 8 == 0 && p.ksteps >= 1 &&
+      p.a >= 1 && rows && p.d >= 8 && p.d % 8 == 0 && p.ksteps >= 1 &&
       p.ksteps * 32 <= p.sw && p.ksteps * 16 >= p.c && nwg >= 1 && nwg <= 2 &&
       p.threads == nwg * 128 + 32 && p.tiles_m == cdiv(p.a, 64 * p.wm) &&
       p.tiles_n * p.wgn * p.wn >= p.d && p.tiles == p.tiles_m * p.tiles_n && p.grid >= 1 &&
@@ -509,23 +590,26 @@ int pe1_mma(const void* z, const void* g, void* y, const int* fields, int epilog
       p.out_bytes == 64 * p.wgn * 2 &&
       p.smem >= 1024 + p.g_bytes + p.stages * p.stage + nwg * p.nbuf * p.out_bytes +
                     16 * p.stages + 8 &&
-      p.smem <= tt_mma::kMaxSmem &&
-      (reinterpret_cast<uintptr_t>(z) | reinterpret_cast<uintptr_t>(g) |
-       reinterpret_cast<uintptr_t>(y)) % 16 == 0;
+      p.smem <= tt_mma::kMaxSmem && zg % (p.gran ? p.gran : 16) == 0 &&
+      reinterpret_cast<uintptr_t>(y) % 16 == 0;
   if (!ok || (epilogue && (bits < 2 || bits > 16 || step == nullptr)))
     return (int)cudaErrorInvalidValue;
   const void* fn = pick_mma(p.wgn, p.sw);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  CUtensorMap tz, tg, ty;
-  if (!tt_mma::map_2d(&tz, z, p.c, p.a, (uint64_t)p.c * 2, p.sw / 2, 64 * p.wm, p.sw) ||
-      !tt_mma::map_2d(&tg, g, p.c, p.d, (uint64_t)p.c * 2, p.sw / 2, p.wgn, p.sw) ||
+  CUtensorMap tz, tg, ty;  // Z's and G's maps unused (zero) on granules
+  memset(&tz, 0, sizeof(tz));
+  memset(&tg, 0, sizeof(tg));
+  if ((!p.gran &&
+       (!tt_mma::map_2d(&tz, z, p.c, p.a, (uint64_t)p.c * 2, p.sw / 2, 64 * p.wm, p.sw) ||
+        !tt_mma::map_2d(&tg, g, p.c, p.d, (uint64_t)p.c * 2, p.sw / 2, p.wgn, p.sw))) ||
       !tt_mma::map_2d(&ty, y, p.d, p.a, (uint64_t)p.d * 2, kOutBox, 64, 128))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (e != cudaSuccess) return (int)e;
   const float lo = epilogue ? -ldexpf(1.f, bits - 1) : 0.f;
   const float hi = epilogue ? ldexpf(1.f, bits - 1) - 1.f : 0.f;
-  void* args[] = {&tz, &tg, &ty, &p, &epilogue, &step, (void*)&lo, (void*)&hi};
+  void* args[] = {&tz, &tg, &ty, (void*)&z, (void*)&g,
+                  &p, &epilogue, &step, (void*)&lo, (void*)&hi};
   e = cudaLaunchKernel(fn, dim3((unsigned)p.grid), dim3((unsigned)p.threads), args, (size_t)p.smem,
                        (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;

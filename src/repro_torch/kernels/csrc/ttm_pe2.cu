@@ -12,8 +12,12 @@
 // Three bodies, chosen from dtype, shape and alignment alone, in this
 // order: kernels/tt_mma.py::plan, kernels/tt_tile.py::plan, the rest:
 //
-// bf16 with 16-byte rows (every LM call): `pe2_mma_kernel`, wgmma on the
-// tensor cores (tt_mma.cuh). Bound on the H100 at the LM's shapes: bytes.
+// bf16 with even rows (every LM call, and every frontend call since the
+// granules: hubert-xlarge's (16384, 160, 20) x (160, 256) and (2048, 128,
+// 256) x (128, 10), llava-next-34b's c = 28 at d = 256 and (512, 256,
+// 1024) x (256, 20)): `pe2_mma_kernel`, wgmma on the tensor cores
+// (tt_mma.cuh; rows the TMA cannot take staged by cp.async granules, its
+// "Granules"). Bound on the H100 at the LM's and the frontends' shapes: bytes.
 // (32768, 256, 16) x (256, 256) reads 268 MB of Z and writes 268 MB of O
 // for 68.7 GFLOP: 160.3 us at 3.35 TB/s against 69.5 us of bf16 products
 // at 989 TFLOP/s; (2048, 128, 512) x (128, 16) is 90.1 us of bytes for
@@ -53,7 +57,7 @@
 // 256 x 128 tile.
 //
 // f32 under that size (the MLP) and the bf16 calls the tensor-core plan
-// cannot tile: `pe2_kernel`,
+// cannot tile (odd rows, 2-byte offsets): `pe2_kernel`,
 // the streamed FMA body (tt_contract.cuh). Bound: bytes; the MLP's shapes
 // read and write 0.2-7.4 MB for at most 117 MFLOP, at or under the FP32
 // ridge (67 TFLOP/s over 3.35 TB/s, ~20 FLOP/B), so each call is 0.06-2.2
@@ -82,10 +86,12 @@ pe2_kernel(const T* __restrict__ z, const T* __restrict__ g, T* __restrict__ o,
 }
 
 template <int WGN, int SW>
-__global__ void __launch_bounds__(tt_mma::kMaxThreads<WGN>, 1)
-pe2_mma_kernel(const __grid_constant__ CUtensorMap g, const __grid_constant__ CUtensorMap z,
+__global__ void __launch_bounds__(tt_mma::kMaxThreads<WGN, SW>, 1)
+pe2_mma_kernel(const __grid_constant__ CUtensorMap tg, const __grid_constant__ CUtensorMap tz,
+               const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __restrict__ g,
                __nv_bfloat16* __restrict__ o, const tt_mma::Plan p) {
-  tt_mma::gemm<WGN, SW>(&g, &z, o, p);
+  tt_mma::gemm<WGN, SW>(&tg, &tz, reinterpret_cast<const uint8_t*>(z),
+                        reinterpret_cast<const uint8_t*>(g), o, p);
 }
 
 template <int WGN, int SW>
@@ -131,8 +137,9 @@ int pe2(const void* z, const void* g, void* o, int dtype, const int* plan, void*
 }
 
 // The tensor-core route: z (a, b, c), g (b, d), o (a, d, c), contiguous
-// bf16, 16-byte aligned; `plan` is 25 int32 (kernels/tt_mma.py
-// PLAN_FIELDS). Returns cudaGetLastError() after the launch.
+// bf16, o 16-byte aligned, z and g 16-byte aligned or on their granules;
+// `plan` is 27 int32 (kernels/tt_mma.py PLAN_FIELDS). Returns
+// cudaGetLastError() after the launch.
 int pe2_mma(const void* z, const void* g, void* o, const int* plan, void* stream) {
   return tt_mma::launch(tt_mma::pick<Mma>(plan[4], plan[5]), z, g, o, plan, stream);
 }

@@ -14,7 +14,8 @@
 // the same order (kernels/tt_mma.py::plan, kernels/tt_tile.py::plan, the
 // rest):
 //
-// bf16 with 16-byte rows (every LM call): `pe3_mma_kernel`, wgmma on the
+// bf16 with even rows (every LM call; rows the TMA cannot take staged by
+// cp.async granules, tt_mma.cuh): `pe3_mma_kernel`, wgmma on the
 // tensor cores (tt_mma.cuh). Bound on the H100 at the LM's shapes: bf16
 // operations. 8192 x 2048 x 2048 is 68.7 GFLOP, 69.5 us at 989 TFLOP/s,
 // against 50 MB of operands and output (15 us at 3.35 TB/s). What the
@@ -66,10 +67,12 @@ pe3_kernel(const T* __restrict__ x, const T* __restrict__ ybar, T* __restrict__ 
 }
 
 template <int WGN, int SW>
-__global__ void __launch_bounds__(tt_mma::kMaxThreads<WGN>, 1)
-pe3_mma_kernel(const __grid_constant__ CUtensorMap ybar, const __grid_constant__ CUtensorMap x,
+__global__ void __launch_bounds__(tt_mma::kMaxThreads<WGN, SW>, 1)
+pe3_mma_kernel(const __grid_constant__ CUtensorMap tybar, const __grid_constant__ CUtensorMap tx,
+               const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ ybar,
                __nv_bfloat16* __restrict__ w, const tt_mma::Plan p) {
-  tt_mma::gemm<WGN, SW>(&ybar, &x, w, p);
+  tt_mma::gemm<WGN, SW>(&tybar, &tx, reinterpret_cast<const uint8_t*>(x),
+                        reinterpret_cast<const uint8_t*>(ybar), w, p);
 }
 
 template <int WGN, int SW>
@@ -116,9 +119,10 @@ int pe3(const void* x, const void* ybar, void* w, int dtype, const int* plan, vo
 }
 
 // The tensor-core route: x (b, i), ybar (b, j), w (j, i), contiguous bf16,
-// 16-byte aligned; `plan` is the PE2 plan at a = 1, c = i, d = j (25
-// int32, kernels/tt_mma.py PLAN_FIELDS). Returns cudaGetLastError() after
-// the launch.
+// w 16-byte aligned, x and ybar 16-byte aligned or on their granules;
+// `plan` is the PE2 plan at a = 1, c = i, d = j (27 int32,
+// kernels/tt_mma.py PLAN_FIELDS). Returns cudaGetLastError() after the
+// launch.
 int pe3_mma(const void* x, const void* ybar, void* w, const int* plan, void* stream) {
   return tt_mma::launch(tt_mma::pick<Mma>(plan[4], plan[5]), x, ybar, w, plan, stream);
 }

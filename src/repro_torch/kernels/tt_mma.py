@@ -7,13 +7,22 @@ M = d, N = c and K = b, A a tile of G and B a tile of Z, both MN-major.
 ``plan`` is a pure function of the element size, the shapes and the two
 operands' addresses mod 16: the same inputs always give the same route.
 It returns ``None`` (the FMA route, ``tt_contract``) for every f32 call and
-for bf16 calls it cannot tile: a row of Z, G or O that is not a multiple
-of 16 bytes (the TMA's stride unit), or an operand off a 16-byte boundary.
+for bf16 calls it cannot tile. Rows of Z and G that are 16-byte multiples
+on 16-byte aligned operands arrive by the TMA (its stride unit); rows of
+even c or d that are not (the frontends' c = 20 / 28, d = 10 / 20), or
+operands 4 or 8 bytes off 16, are staged by cp.async granules of 8 or 4
+bytes (``gz``, ``gg``; ``granule``) into the same swizzled tiles: Z in the
+stacked tiling only (c <= 32, d c a multiple of 8), G only where it is
+resident and not under the 64 x 256 warpgroups. Odd rows, 2-byte offsets
+and the rest stay on the FMA route. The calls the TMA takes keep the
+plans they had before granules, field for field (``gz`` = ``gg`` = 0).
 Every other bf16 call takes the tensor cores, in one of three tilings:
 
 - ``stacked`` (c = 16 or 32): a tile is 64 / c whole slabs side by side
   (N = 64) by up to four warpgroups of 64 rows of d; B arrives as one 3-D
-  TMA box (c, 64, slabs) under the 32- or 64-byte swizzle.
+  TMA box (c, 64, slabs) under the 32- or 64-byte swizzle. On Z's
+  granules, any even c <= 32: 64 // c slabs in 128-byte rows (the
+  128-byte swizzle; c = 20: 60 of the 64 columns), a producer warpgroup.
 - ``thin`` (d <= 64): one slab's 256 columns of c by 64 rows of d (d
   padded by the TMA's zero fill), two warpgroups of 64 x 128.
 - ``wide`` (otherwise: PE3's Ŵ): 128 rows of d by 256 columns of c, two
@@ -47,9 +56,12 @@ ALIGN = 1024                # slack to align the dynamic shared memory
 PLAN_FIELDS = ("a", "b", "c", "d", "wgn", "sw", "wm", "wn", "nk", "stages",
                "resident", "slabs", "bw", "tiles_m", "tiles_c", "tiles_n",
                "tiles", "grid", "threads", "a_chunk", "b_chunk", "stage",
-               "a_res", "out_pitch", "smem")
-# (wgn, sw) of the kernel instances, and each instance's most warpgroups
-INSTANCES = {(64, 32): 4, (64, 64): 4, (128, 128): 2, (256, 128): 2}
+               "a_res", "out_pitch", "smem", "gz", "gg")
+# (wgn, sw) of the kernel instances, and each instance's most warpgroups;
+# (64, 128) is the stacked tiling on granules
+INSTANCES = {(64, 32): 4, (64, 64): 4, (64, 128): 4, (128, 128): 2,
+             (256, 128): 2}
+GRANULES = (8, 4)           # cp.async granule bytes, widest first
 
 
 @dataclass(frozen=True)
@@ -80,6 +92,8 @@ class Plan:
     out_pitch: int       # staging row bytes (stacked: dense, a slab's
     #                      rows as in O; else 16 past a row, 4 banks apart)
     smem: int            # dynamic shared memory bytes
+    gz: int = 0          # Z's cp.async granule bytes (8 or 4), 0: TMA
+    gg: int = 0          # G's (resident) granule bytes, 0: TMA
 
     @property
     def orientation(self) -> str:
@@ -108,16 +122,38 @@ def _cdiv(n: int, m: int) -> int:
     return -(-n // m)
 
 
+def granule(row_bytes: int, misalign: int) -> int:
+    """The widest cp.async granule (8, 4 bytes) that divides a row and the
+    operand's address mod 16; 0 where none does (2-byte rows or offsets)."""
+    return next((g for g in GRANULES
+                 if row_bytes % g == 0 and misalign % g == 0), 0)
+
+
 @functools.lru_cache(maxsize=512)
 def plan(a: int, b: int, c: int, d: int, elsize: int, z_misalign: int = 0,
          g_misalign: int = 0) -> Plan | None:
     """The tensor-core plan of ``O(a,d,c) = sum_b Z(a,b,c) G(b,d)``, or
     ``None`` for the FMA route. ``elsize`` is 2 (bf16) or 4 (f32),
-    ``*_misalign`` the operands' addresses mod 16."""
-    if elsize != 2 or min(a, b, c, d) < 1 or c % 8 or d % 8 \
-            or z_misalign % 16 or g_misalign % 16:
+    ``*_misalign`` the operands' addresses mod 16. An operand whose rows
+    the TMA cannot take (not 16-byte multiples, or off 16 bytes) is staged
+    by cp.async granules: Z in the stacked tiling only (even c <= 32, whole
+    slabs in N = 64, runs of O of 16-byte multiples), G where it is
+    resident and the producer keeps its registers."""
+    if elsize != 2 or min(a, b, c, d) < 1:
         return None
-    if c in (16, 32):
+    z_tma = c % 8 == 0 and z_misalign % 16 == 0
+    g_tma = d % 8 == 0 and g_misalign % 16 == 0
+    gz = 0 if z_tma else granule(2 * c, z_misalign)
+    gg = 0 if g_tma else granule(2 * d, g_misalign)
+    if not (z_tma or gz) or not (g_tma or gg):
+        return None                  # odd rows, or 2-byte offsets
+    if gz and (c > 32 or (c * d) % 8):
+        return None
+    if gz:                           # the stacked tiling on granules
+        wgn, sw, wn = 64, 128, 1
+        wm = min(4, _cdiv(d, 64))
+        slabs, bw = 64 // c, c
+    elif c in (16, 32):
         wgn, sw, wn = 64, 2 * c, 1
         wm = min(4, _cdiv(d, 64))
         slabs, bw = 64 // c, c
@@ -142,18 +178,19 @@ def plan(a: int, b: int, c: int, d: int, elsize: int, z_misalign: int = 0,
             + 16 * stages + 8
 
     resident = tiles_m == 1 and smem_for(2, True) <= SMEM_MAX
-    if smem_for(2, resident) > SMEM_MAX:
+    if smem_for(2, resident) > SMEM_MAX or \
+            (gg and (not resident or wgn == 256)):
         return None
     stage = b_chunk + (0 if resident else a_chunk)
     stages = 2
     while stages < MAX_STAGES and smem_for(stages + 1, resident) <= SMEM_MAX:
         stages += 1
-    producer = 128 if wgn == 256 else 32
+    producer = 128 if wgn == 256 or gz else 32
     return Plan(a, b, c, d, wgn, sw, wm, wn, nk, stages, int(resident),
                 slabs, bw, tiles_m, tiles_c, tiles_n, tiles, min(tiles, SMS),
                 nwg * 128 + producer, a_chunk, b_chunk, stage,
                 nk * a_chunk if resident else 0, out_pitch,
-                smem_for(stages, resident))
+                smem_for(stages, resident), gz, gg)
 
 
 def plan_for(z: torch.Tensor, g: torch.Tensor) -> Plan | None:

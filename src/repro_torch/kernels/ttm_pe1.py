@@ -8,11 +8,14 @@ two hand-written kernels of ``csrc/ttm_pe1.cu``, by the route the pure
 function ``plan_pe1`` gives for the dtype, shapes and alignment:
 
 - ``pe1_mma_kernel``, wgmma on the tensor cores, for bf16 with b = 1 (the
-  chain's Eq. 8 form: a plain GEMM, M = a, N = d, K = c), c and d multiples
-  of 8, c at most 64 and both operands 16-byte aligned: every call of the
-  LM step. Persistent CTAs walk tiles that span all of d, G stays in shared
-  memory, Z streams through a TMA ring, and each tile leaves through TMA
-  tensor stores from a double-buffered staging tile (``MmaPlan``).
+  chain's Eq. 8 form: a plain GEMM, M = a, N = d, K = c), even c at most
+  64, d a multiple of 8 and operands on 4-byte boundaries: every call of
+  the LM step and of the frontends' steps. Persistent CTAs walk tiles that
+  span all of d, G stays in shared memory, Z streams through a TMA ring
+  (or, for rows of c that are not 16-byte multiples, or operands off 16
+  bytes, a ring of cp.async granules of 8 or 4 bytes: ``MmaPlan.gran``),
+  and each tile leaves through TMA tensor stores from a double-buffered
+  staging tile (``MmaPlan``).
 - ``pe1_kernel``, FMA on the CUDA cores, for everything else (the MLP's f32
   calls): (b, c) walked in chunks, Z's rows staged by cp.async, G's slice
   transposed into shared memory, an rm x 4 register tile per thread stored
@@ -144,7 +147,7 @@ MAX_C = 64                    # K within one 128-byte swizzle row
 
 MMA_FIELDS = ("a", "c", "d", "wgn", "sw", "ksteps", "wm", "wn", "tiles_m",
               "tiles_n", "tiles", "grid", "threads", "stages", "nbuf",
-              "stage", "g_bytes", "out_bytes", "smem")
+              "stage", "g_bytes", "out_bytes", "smem", "gran")
 
 
 @dataclass(frozen=True)
@@ -169,6 +172,7 @@ class MmaPlan:
     g_bytes: int         # bytes of resident G: tiles_n * bn rows of sw
     out_bytes: int       # bytes of a staging tile: 64 rows of wgn bf16
     smem: int            # dynamic shared memory bytes
+    gran: int = 0        # Z's and G's cp.async granule bytes (8, 4), 0: TMA
 
     @property
     def bm(self) -> int:
@@ -180,7 +184,7 @@ class MmaPlan:
 
     @functools.cached_property
     def fields(self) -> ctypes.Array:
-        """The plan as the C side's ``int32[19]``."""
+        """The plan as the C side's ``int32[20]``."""
         return (ctypes.c_int * len(MMA_FIELDS))(*astuple(self))
 
 
@@ -195,10 +199,19 @@ def plan_pe1(a: int, b: int, c: int, d: int, elsize: int,
     (f32), ``*_misalign`` the operands' addresses mod 16. A tile spans all
     of d up to 512 columns (two warpgroups of up to 256 along a, or two of
     256 along d past 256), G is resident, the ring as deep as shared memory
-    allows up to ``MMA_STAGES``."""
-    if elsize != 2 or b != 1 or min(a, c, d) < 1 or c % 8 or d % 8 \
-            or c > MAX_C or z_misalign % 16 or g_misalign % 16:
+    allows up to ``MMA_STAGES``. Rows of c the TMA cannot take (c not a
+    multiple of 8, or an operand off 16 bytes) are staged by cp.async
+    granules (``gran``: 8 or 4 bytes, whatever divides the rows and both
+    offsets) into the same swizzled rows; 2-byte offsets and odd c stay on
+    the CUDA cores, and so does d off a multiple of 8 (Y's TMA stores)."""
+    if elsize != 2 or b != 1 or min(a, c, d) < 1 or c % 2 or d % 8 \
+            or c > MAX_C:
         return None
+    gran = 0
+    if c % 8 or z_misalign % 16 or g_misalign % 16:
+        gran = tt_mma.granule(2 * c, z_misalign | g_misalign)
+        if not gran:
+            return None
     ksteps = _cdiv(c, 16)
     sw = next(w for w in (32, 64, 128) if w >= 32 * ksteps)
     wgn = next(n for n in (64, 128, 256) if n >= min(d, 256))
@@ -224,7 +237,7 @@ def plan_pe1(a: int, b: int, c: int, d: int, elsize: int,
     tiles = tiles_m * tiles_n
     return MmaPlan(a, c, d, wgn, sw, ksteps, wm, wn, tiles_m, tiles_n, tiles,
                    min(tiles, SMS), wm * wn * 128 + 32, stages, nbuf, stage,
-                   g_bytes, out_bytes, smem_for(stages, nbuf))
+                   g_bytes, out_bytes, smem_for(stages, nbuf), gran)
 
 
 def plan_pe1_for(z: torch.Tensor, g: torch.Tensor) -> MmaPlan | None:

@@ -4,7 +4,7 @@
 
 The port of ``repro/kernels/ttm_pe2.py``. ``pe2_cuda`` launches one of
 the hand-written kernels of ``csrc/ttm_pe2.cu``, by the first route whose
-plan takes the dtype, shapes and alignment: bf16 with 16-byte rows on the
+plan takes the dtype, shapes and alignment: bf16 with even rows on the
 tensor cores (``pe2_mma_kernel``, ``tt_mma.plan``); f32 with at least
 ``tt_tile.MIN_FLOPS`` products as register-tiled GEMM tiles over (slab,
 column) rows on the CUDA cores (``pe2_tile_kernel``, ``tt_tile.plan``);

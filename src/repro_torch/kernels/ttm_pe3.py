@@ -6,7 +6,7 @@ gradient (paper Appendix A.2):
 The port of ``repro/kernels/ttm_pe3.py``. ``pe3_cuda`` launches one of
 the hand-written kernels of ``csrc/ttm_pe3.cu``: PE2's contraction at
 a = 1, Z = X and G = Ybar, by the same routes in the same order: bf16 with
-16-byte rows on the tensor cores (``pe3_mma_kernel``, ``tt_mma.plan``), f32
+even rows on the tensor cores (``pe3_mma_kernel``, ``tt_mma.plan``), f32
 with at least ``tt_tile.MIN_FLOPS`` products on the CUDA cores as GEMM
 tiles, split over a cluster's CTAs where the tiles are few
 (``pe3_tile_kernel``, ``tt_tile.plan``), the rest on the CUDA cores

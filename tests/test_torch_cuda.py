@@ -643,6 +643,102 @@ def test_pe1_epilogue_bit_identical_to_encode_decode_on_card(cuda, bits,
     assert q.max() == hi and q.min() == -hi - 1
 
 
+# PE1 / PE2 / PE3 on the tensor cores' granules: rows of even c or d that
+# the TMA cannot take (c = 20 / 28 and d = 10 / 20 as in the frontends'
+# steps, c = 2 / 6 / 22 / 30 on 4-byte granules, ragged a, b and d, G
+# streamed past a resident G at b = 520), and operands 4 or 8 bytes off 16
+# (views into a flat buffer), through the wrappers: (Z shape, G shape, Z
+# and G offsets in elements)
+PE2_GRANULE = [((7, 100, 20), (100, 256), 0, 0), ((5, 160, 28), (160, 64), 0, 0),
+               ((3, 7, 2), (7, 200), 0, 0), ((9, 130, 6), (130, 8), 0, 0),
+               ((5, 64, 22), (64, 256), 0, 0), ((4, 100, 30), (100, 8), 0, 0),
+               ((11, 520, 28), (520, 256), 0, 0), ((6, 33, 20), (33, 2), 0, 0),
+               ((3, 128, 256), (128, 10), 0, 0), ((5, 256, 1024), (256, 20), 0, 0),
+               ((2, 64, 264), (64, 62), 0, 0), ((1, 4, 16), (4, 130), 0, 0),
+               ((9, 160, 20), (160, 256), 4, 0), ((9, 160, 16), (160, 256), 4, 0),
+               ((9, 160, 32), (160, 256), 2, 0), ((7, 300, 64), (300, 16), 0, 2),
+               ((7, 300, 64), (300, 16), 0, 4)]
+PE1_GRANULE = [(37, 20, 256, 0, 0), (1000, 28, 448, 0, 0), (129, 28, 512, 0, 0),
+               (5, 2, 8, 0, 0), (300, 12, 1024, 0, 0), (77, 6, 64, 0, 0),
+               (4097, 60, 256, 0, 0), (300, 16, 256, 4, 0), (300, 16, 256, 0, 2),
+               (300, 20, 256, 4, 4)]
+
+
+def _offset_view(shape, off, g, cuda, scale=1.0):
+    n = math.prod(shape)
+    flat = (torch.randn(n + 8, generator=g, device=cuda) * scale).to(
+        torch.bfloat16)
+    return flat[off:off + n].view(*shape)
+
+
+def test_pe_granule_route_matches_plain_and_repeats(cuda):
+    from repro_torch.kernels import tt_mma
+    g = torch.Generator(device=cuda).manual_seed(11)
+    for zs, gs, zo, go in PE2_GRANULE:
+        z, w = _offset_view(zs, zo, g, cuda), _offset_view(gs, go, g, cuda, 0.2)
+        p = tt_mma.plan_for(z, w)
+        assert p is not None and (p.gz or p.gg), (zs, gs, zo, go)
+        B.reset_launches()
+        out = ttm_pe2.pe2_cuda(z, w)
+        assert B.LAUNCHES == {"pe2": 1}
+        _close(out, ttm_pe2.pe2_torch(z, w), torch.bfloat16)
+        assert _bits_eq(out, ttm_pe2.pe2_cuda(z, w))
+        if zs[0] == 1:      # PE3: Ybar = w, X = z[0]
+            what = ttm_pe3.pe3_cuda(w, z[0])
+            _close(what, ttm_pe3.pe3_torch(w, z[0]), torch.bfloat16)
+            assert _bits_eq(what, out[0])
+
+
+def test_pe1_granule_route_matches_plain_and_repeats(cuda):
+    g = torch.Generator(device=cuda).manual_seed(12)
+    for a, c, d, zo, go in PE1_GRANULE:
+        z = _offset_view((a, 1, c), zo, g, cuda)
+        w = _offset_view((1, d, c), go, g, cuda, 0.2)
+        p = ttm_pe1.plan_pe1_for(z, w)
+        assert p is not None and p.gran, (a, c, d, zo, go)
+        B.reset_launches()
+        out = ttm_pe1.pe1_cuda(z, w)
+        assert B.LAUNCHES == {"pe1": 1}
+        _close(out, ttm_pe1.pe1_torch(z, w), torch.bfloat16)
+        assert _bits_eq(out, ttm_pe1.pe1_cuda(z, w))
+
+
+@pytest.mark.parametrize("bits,step", [(4, 3.0), (8, 1.0)])
+@pytest.mark.parametrize("shape", [(5000, 20, 256), (77, 28, 512)])
+def test_pe1_granule_epilogue_bit_for_bit(cuda, bits, step, shape):
+    """The requant epilogue on granules (K zero-padded past c = 20 / 28)
+    on integer operands: bit for bit the plain version."""
+    a, c, d = shape
+    g = torch.Generator(device=cuda).manual_seed(bits)
+    z = torch.randint(-8, 9, (a, 1, c), generator=g, device=cuda).to(
+        torch.bfloat16)
+    w = torch.randint(-8, 9, (1, d, c), generator=g, device=cuda).to(
+        torch.bfloat16)
+    assert ttm_pe1.plan_pe1_for(z, w).gran == 8
+    s = torch.tensor(step, device=cuda)
+    fused = ttm_pe1.pe1_cuda(z, w, s, bits)
+    assert torch.equal(fused.view(torch.int16),
+                       ttm_pe1.pe1_torch(z, w, s, bits).view(torch.int16))
+
+
+def test_odd_rows_and_2_byte_offsets_take_the_cuda_cores(cuda):
+    """What the granules do not take stays on pe1_kernel / pe2_kernel,
+    within tolerance: c odd, d odd, 2-byte offsets."""
+    from repro_torch.kernels import tt_mma
+    g = torch.Generator(device=cuda).manual_seed(13)
+    for zs, gs, zo, go in [((9, 160, 21), (160, 256), 0, 0),
+                           ((9, 160, 20), (160, 255), 0, 0),
+                           ((9, 160, 20), (160, 256), 1, 0),
+                           ((9, 160, 16), (160, 256), 0, 3)]:
+        z, w = _offset_view(zs, zo, g, cuda), _offset_view(gs, go, g, cuda, 0.2)
+        assert tt_mma.plan_for(z, w) is None
+        _close(ttm_pe2.pe2_cuda(z, w), ttm_pe2.pe2_torch(z, w), torch.bfloat16)
+    z = _offset_view((300, 1, 20), 1, g, cuda)
+    w = _offset_view((1, 256, 20), 0, g, cuda, 0.2)
+    assert ttm_pe1.plan_pe1_for(z, w) is None
+    _close(ttm_pe1.pe1_cuda(z, w), ttm_pe1.pe1_torch(z, w), torch.bfloat16)
+
+
 def test_train_step_on_card_matches_cpu_and_counts_launches(cuda):
     d = MLP.make_mlp()
     tcfg = TrainConfig(learning_rate=3e-3, weight_decay=0.0)

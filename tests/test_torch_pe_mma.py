@@ -107,7 +107,8 @@ def test_lm_call_layouts_fit_tma_and_wgmma(shape):
     assert (p.c * 2) % 16 == 0 and (p.d * 2) % 16 == 0
     assert p.wgn in (64, 128, 256) and p.bn % (p.bw * p.slabs) == 0
     assert p.out_pitch % 16 == 0 and p.out_pitch >= p.wgn * 2
-    assert len(p.fields) == len(tt_mma.PLAN_FIELDS) == 25
+    assert len(p.fields) == len(tt_mma.PLAN_FIELDS) == 27
+    assert p.gz == p.gg == 0        # both operands on the TMA
     # 32-bit indices inside the kernel: every tensor under 2^31 elements
     a, b, c, d = shape
     assert max(a * b * c, a * d * c, b * d) < 2 ** 31
@@ -122,13 +123,16 @@ def test_f32_takes_the_cuda_cores(shape):
     assert tt_mma.plan(*shape, 4) is None
 
 
+# (64, 112, 128, 4) and (64, 256, 16, 256) with G 8 bytes off take G's
+# rows by granules since then: tests/test_torch_pe_granule.py holds their
+# plans (test_cases_the_granules_now_admit)
 @pytest.mark.parametrize("case", [
-    dict(shape=(64, 112, 128, 4)),         # d = 4: 8-byte rows of G
+    dict(shape=(64, 256, 16, 255)),        # d = 255: odd rows of G
     dict(shape=(64, 512, 16, 1)),          # d = 1
     dict(shape=(19, 7, 33, 24)),           # c = 33
-    dict(shape=(4, 2048, 40, 44)),         # d = 44
+    dict(shape=(4, 2048, 40, 44)),         # d = 44: G not resident
     dict(shape=(64, 256, 16, 256), z=2),   # Z one element off 16 bytes
-    dict(shape=(64, 256, 16, 256), g=8),   # G off 16 bytes
+    dict(shape=(64, 256, 16, 256), g=2),   # G one element off 16 bytes
 ])
 def test_misaligned_or_odd_bf16_takes_the_cuda_cores(case):
     assert tt_mma.plan(*case["shape"], 2, case.get("z", 0),
