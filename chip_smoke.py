@@ -443,6 +443,33 @@ Phases (any failure raises and the script exits non-zero):
              (c)'s steps beside the FP32 peak over the profiled steps.
              Every train call of the script writes its final save into a
              directory of its own, removed after.
+13. train recurrent — the twelfth main path: the recurrent LMs' train
+             step through the per-token scans, each 512-token sequence in
+             two chunks of SCAN_CHUNK = 256 under the chunk remat, nested
+             in the layer's (remat full); TT sites, quantization, int8
+             moments and wire. (a) with_tt(rwkv6-1.6b) at full size (24
+             layers, 783,921,624 parameters, TT on the channel mix) on 4 x
+             512 tokens through launch/train.py::train; (b)
+             with_tt(jamba-1.5-large) at full width, one period of 3
+             layers (Mamba, attention, Mamba; dense FFNs; 1,916,092,836
+             parameters: the 8-layer period's 4.02 B need ~135 GiB in a
+             step) on 1 x 512 through make_train_step: launches exact
+             against
+             launches_per_step, by counter and by profile name (no
+             pe1_kernel, pe2_kernel or pe3_kernel; the trace's device
+             events counted from its event list), the cross-entropy
+             finite, the host wall and peak memory, the host wall and peak
+             of one more step with SCAN_CHUNK = 512 (one chunk), and a
+             step of the same rows profiled (rwkv6's at 64 x 32: a
+             profile of its 4 x 512 step holds ~970,000 device events):
+             the launches by name and the device time. (c) each of their 24 PE calls that no earlier
+             phase holds, on the tensor cores (asserted), within 2e-2 of
+             the plain version, bit for bit over two launches, timed
+             beside the plain version, the faster of bf16 torch.matmul
+             and torch.einsum and the bound, with its launches a step. (d)
+             one step of each at reduced width (TT on the default sites,
+             f32, SCAN_CHUNK 4: 4 chunks of the 16 tokens) on the card
+             against the CPU, as train lm identity. Under 90 s.
 
 Output: human-readable lines, then one JSON line describing every kernel,
 then the card's name and power limit (nvidia-smi), then the last line
@@ -7700,6 +7727,383 @@ def phase_train_ckpt(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# train recurrent: the recurrent LMs' train step through the per-token scans
+# ---------------------------------------------------------------------------
+
+# (arch, layers (None: the config's), batch, seq): rwkv6-1.6b at full size
+# on 4 x 512 tokens; jamba-1.5-large at full width with dense FFNs, cut to
+# one period of 3 layers (Mamba, attention, Mamba) on 1 x 512: its 8-layer
+# period has 4,020,136,881 parameters, and the step holds ~36 bytes a
+# parameter at its peak (the new params, moments and wire residual beside
+# the old, and every moment decoded to f32 at once: rwkv6's 26.42 GiB at
+# 783,921,624), ~135 GiB, over the card's 80 GB. Each 512-token sequence
+# is two scan chunks of ``ssm.SCAN_CHUNK`` = 256.
+RECURRENT_CELLS = (("rwkv6-1.6b", None, 4, 512),
+                   ("jamba-1.5-large", 3, 1, 512))
+RECURRENT_PARAMS = {"rwkv6-1.6b": 783_921_624,
+                    "jamba-1.5-large": 1_916_092_836}
+# the profiled step's (batch, seq): the cell's rows, so the same PE calls
+# and launches; rwkv6's at 32 tokens, since a profile of its 4 x 512 step
+# (~970,000 device events: the scans launch per token) costs ~50 s of the
+# phase on an H100 (stop 16 s, the event list 6 s, freeing it ~10 s)
+RECURRENT_PROFILE = {"rwkv6-1.6b": (64, 32), "jamba-1.5-large": (1, 512)}
+RECURRENT_SECONDS = 90.0        # the phase's wall, at most
+RECURRENT_CHUNK = 4             # (d)'s SCAN_CHUNK: 16 tokens in 4 chunks
+
+
+def _recurrent_lm(arch: str, layers):
+    """``with_tt(arch, quantize=True)``'s model (no weights); where
+    ``layers`` is given, one period of that many layers with attention at
+    position 1 and dense FFNs (jamba's cell)."""
+    import repro_torch.configs as C
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models.lm import build_lm
+    cfg = C.get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers, period=layers,
+                          attn_positions=(1,), moe=MoEConfig(num_experts=0))
+    return build_lm(C.with_tt(cfg, quantize=True))
+
+
+def _event_profile(torch, window, names, what: str) -> tuple[dict, float]:
+    """``_profile_window`` for a window of ~10^6 device events (a recurrent
+    train step: the scans launch a few kernels a token): device activity
+    only, counted straight from the profiler's event list
+    (``kineto_results.events()``), not through ``key_averages``, whose
+    parse of such a window took minutes on the card's host. Returns (the
+    named kernels' launches and device ms, the window's device ms without
+    the pad spins); a window whose trace kept none of its leading spins is
+    profiled again."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    for attempt in range(PROFILE_TRIES):
+        n = _lead_spins()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _pad_window(torch, n, LEAD_CYCLES)
+            window()
+            _pad_window(torch, TRAIL_SPINS, TRAIL_CYCLES)
+            t1 = time.perf_counter()
+        t2 = time.perf_counter()
+        events = prof.profiler.kineto_results.events()
+        t3 = time.perf_counter()
+        calls, ns, spins, total, of = {}, {}, 0, 0, {}
+        for e in events:
+            if e.device_type() != cuda:
+                continue
+            key = e.name()
+            if key not in of:           # the named kernel a key is, once
+                of[key] = ("spin" if "spin_kernel" in key else next(
+                    (m for m in names if f"{m}<" in key), None))
+            name = of[key]
+            if name == "spin":
+                spins += 1
+                continue
+            total += e.duration_ns()
+            if name is not None:
+                calls[name] = calls.get(name, 0) + 1
+                ns[name] = ns.get(name, 0) + e.duration_ns()
+        lead = spins - TRAIL_SPINS
+        LEAD_LOST[0] = max(LEAD_LOST[0], n - lead)
+        log(f"  {what} profile window {attempt + 1}: the trace kept {lead} "
+            f"of {n} leading pad spins; {len(events):,} events; window "
+            f"{t1 - t0:.1f} s, stop {t2 - t1:.1f} s, event list "
+            f"{t3 - t2:.1f} s, count {time.perf_counter() - t3:.1f} s")
+        if lead > 0:
+            return ({k: {"calls_per_step": float(c),
+                         "ms_per_step": ns[k] / 1e6}
+                     for k, c in calls.items()}, total / 1e6)
+        log(f"  {what} profile window {attempt + 1}: the trace may have "
+            "lost the window's first launches; profiling another window")
+    check(False, f"{what}: no profile window kept its leading spins")
+
+
+def _recurrent_pe_calls() -> list:
+    """(arch, kind, Z shape, G shape, launches a step) of the recurrent
+    cells' PE calls that no earlier phase holds (``lm kernels``' LM calls,
+    ``frontend kernels``' granule calls), each once, at the cells' rows."""
+    seen = set(_lm_pe_calls()) | {(k, z, g) for _, k, z, g, _ in
+                                  _frontend_granule_calls()}
+    out = []
+    for arch, layers, batch, seq in RECURRENT_CELLS:
+        per = _pe_launches_by_shape(_recurrent_lm(arch, layers), batch * seq)
+        for call, n in sorted(per.items()):
+            if call not in seen:
+                seen.add(call)
+                out.append((arch, *call, n))
+    return out
+
+
+def _recurrent_pe_rows(torch, timer: Timer) -> dict:
+    """The recurrent steps' new bf16 PE1 / PE2 / PE3 calls
+    (``_recurrent_pe_calls``) at their shapes: each on the tensor cores
+    (``ttm_pe1.plan_pe1`` / ``tt_mma.plan``; asserted) in one launch,
+    within ``PE_TOL`` of the plain version, bit for bit over two launches,
+    timed beside the plain version, the faster of one bf16
+    ``torch.matmul`` / ``torch.einsum`` (a yardstick only) and the bound
+    (bytes at 3.35 TB/s or bf16 operations at 989 TFLOP/s), with its
+    launches a step."""
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import tt_mma, ttm_pe1
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    tol = PE_TOL["bfloat16"]
+    rows = {"pe1": [], "pe2": [], "pe3": []}
+    for arch, kind, zs, gs, per_step in _recurrent_pe_calls():
+        name = f"recurrent {kind} {zs}x{gs} ({arch})"
+        kern, plain = _pe_fns(kind)
+        z = torch.randn(zs, generator=gen, device="cuda").to(torch.bfloat16)
+        g = (torch.randn(gs, generator=gen, device="cuda") * 0.2).to(
+            torch.bfloat16)
+        p = (ttm_pe1.plan_pe1_for(z, g) if kind == "pe1" else
+             tt_mma.plan_for(*_pe_contraction(kind, z, g)))
+        check(p is not None, f"{name}: not on the tensor cores")
+        B.reset_launches()
+        o = kern(z, g)
+        check(B.LAUNCHES == {kind: 1}, f"{name}: launches {B.LAUNCHES}")
+        r = plain(z, g)
+        err = (o.float() - r.float()).abs()
+        check(bool((err <= tol + tol * r.float().abs()).all()),
+              f"{name}: max err {err.max().item()}")
+        check(_bits_equal(torch, kern(z, g), o), f"{name}: two launches "
+              "differ")
+        row = dict(arch=arch, z=list(zs), g=list(gs), dtype="bfloat16",
+                   max_abs_err=err.max().item(), route="tensor cores",
+                   launches_per_step=per_step, tile=[p.bm, p.bn],
+                   stages=p.stages, grid=p.grid, smem=p.smem)
+        del o, err
+        row.update(_pe_yardsticks(torch, timer, kind, z, g, r))
+        del r
+        row["ms"] = timer(lambda: kern(z, g), iters=10)
+        row["plain_ms"] = timer(lambda: plain(z, g), iters=3)
+        nbytes, flops = _pe_work(kind, zs, gs, 2)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+        row["of_bound"] = row["ms"] / row["bound_ms"]
+        rows[kind].append(row)
+        log(f"{name}: {row['ms']*1e3:.1f} us on the tensor cores, "
+            f"{row['of_bound']:.2f}x the bound {row['bound_ms']*1e3:.1f} us "
+            f"{row['bound_by']}; {row['library_call']} "
+            f"{row['library_ms']*1e3:.1f} us, plain "
+            f"{row['plain_ms']*1e3:.1f} us; {per_step} a step; err "
+            f"{row['max_abs_err']:.1e}; two launches equal")
+        del z, g
+        torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def _grad_peaks(torch, into: list):
+    """Append to ``into`` the peak allocated bytes at the end of each train
+    step's forward and backward (``steps._value_and_grad``), before the
+    wire and the optimizer: the part of a step where the scans' states
+    live."""
+    from repro_torch.launch import steps as S
+    inner = S._value_and_grad
+
+    def wrapped(*a, **k):
+        out = inner(*a, **k)
+        into.append(torch.cuda.max_memory_allocated())
+        return out
+    S._value_and_grad = wrapped
+    try:
+        yield
+    finally:
+        S._value_and_grad = inner
+
+
+def _recurrent_cell(torch, arch: str, layers, batch: int, seq: int) -> dict:
+    """One train step of ``with_tt(arch, quantize=True)`` (int8 moments,
+    the int8 wire, ``remat="full"``) on ``lm_batch`` tokens, seeded weights
+    on the card: counts zeroed just before and read just after equal
+    ``launches_per_step``, the cross-entropy finite, the peak memory read
+    after the step and after its forward and backward (``_grad_peaks``).
+    rwkv6-1.6b's step runs through ``launch/train.py::train``; jamba's
+    through ``make_train_step`` on the state ``train`` would build (its
+    final save would write ~15 GB: params, moments and the f32 wire
+    residual of 1.9 B parameters). Then one step with ``SCAN_CHUNK`` =
+    ``seq`` (one chunk): its host wall and peaks beside the chunked
+    step's; and one chunked step at ``RECURRENT_PROFILE``'s batch x seq
+    (the same rows), profiled (``_event_profile``): each counted kernel by
+    name, no CUDA-core PE body, the device time."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import build as B
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import make_batch_fn, train
+    from repro_torch.models import ssm
+    from repro_torch.models.lm import init_lm
+    from repro_torch.obs import TraceRecorder
+
+    lm = _recurrent_lm(arch, layers)
+    cfg = lm.cfg
+    tcfg = TrainConfig(opt_state_dtype="int8", grad_compress=True,
+                       total_steps=1, warmup_steps=1)
+    per = S.launches_per_step(lm, tcfg)
+    check(cfg.remat == "full" and seq % ssm.SCAN_CHUNK == 0
+          and seq > ssm.SCAN_CHUNK, f"train recurrent ({arch}): remat "
+          f"{cfg.remat}, {seq} tokens at SCAN_CHUNK {ssm.SCAN_CHUNK}")
+    batches = make_batch_fn(cfg, batch, seq, tcfg.seed)
+
+    def to_card(b):
+        return {k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ces, grad_peaks = [], []
+    t0 = time.perf_counter()
+    if layers is None:
+        trace = TraceRecorder()
+        B.reset_launches()
+        with _ckpt_dir("recurrent") as d, _grad_peaks(torch, grad_peaks):
+            state, _ = train(cfg, "tp", dataclasses.replace(
+                tcfg, ckpt_dir=d), batch=batch, seq=seq, device="cuda",
+                verbose=False, trace=trace,
+                on_step=lambda i, m: ces.append(float(m["ce"])))
+        torch.cuda.synchronize()
+        launches = dict(B.LAUNCHES)
+        step_s = trace.events("train_step")[0].fields["dur"]
+    else:
+        params = init_lm(torch.Generator(device="cuda").manual_seed(
+            tcfg.seed), lm, device="cuda")
+        state = S.init_train_state(params, tcfg, policy=cfg.quant.policy())
+        del params
+        b0 = to_card(batches(0))
+        torch.cuda.synchronize()
+        B.reset_launches()
+        t1 = time.perf_counter()
+        with _grad_peaks(torch, grad_peaks):
+            state, m = S.make_train_step(lm, None, tcfg)(state, b0)
+        ces.append(float(m["ce"]))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t1
+        launches = dict(B.LAUNCHES)
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    what = f"train recurrent ({arch})"
+    check(launches == per, f"{what}: launches {launches}, want {per}")
+    check(all(math.isfinite(x) for x in ces), f"{what}: ce {ces}")
+    n = sum(t.numel() for t in _leaves(state.params))
+    check(n == RECURRENT_PARAMS[arch], f"{what}: {n:,} params")
+    step = S.make_train_step(lm, None, tcfg)
+    box = {"state": state}
+    del state
+
+    def run(b):
+        torch.cuda.reset_peak_memory_stats()
+        del grad_peaks[1:]
+        with _grad_peaks(torch, grad_peaks):
+            box["state"], _ = step(box["state"], b)
+    b1 = to_card(batches(1))
+    chunk = ssm.SCAN_CHUNK
+    torch.cuda.synchronize()
+    try:
+        ssm.SCAN_CHUNK = seq
+        t1 = time.perf_counter()
+        run(b1)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t1
+    finally:
+        ssm.SCAN_CHUNK = chunk
+    one_peak = torch.cuda.max_memory_allocated()
+    check(len(grad_peaks) == 2, f"{what}: {len(grad_peaks)} gradient passes")
+    one_grad_peak = grad_peaks[1]
+    pb, ps = RECURRENT_PROFILE[arch]
+    check(pb * ps == batch * seq, f"{what}: profiled rows {pb} x {ps}")
+    b2 = to_card(make_batch_fn(cfg, pb, ps, tcfg.seed)(2))
+    names = [f for fns in FRONTEND_FNS.values() for f in fns]
+    want = {k: float(v) for k, v in per.items()}
+    for attempt in range(PROFILE_TRIES):
+        kern, device_ms = _event_profile(torch, lambda: run(b2), names, what)
+        by_name = {k: sum(kern.get(f, {}).get("calls_per_step", 0.0)
+                          for f in fns) for k, fns in FRONTEND_FNS.items()}
+        if {k: v for k, v in by_name.items() if v} == want:
+            break
+        log(f"  {what} profile: launches by name {by_name}, want {per}; "
+            "profiling another window")
+    else:
+        check(False, f"{what}: profile launches {by_name}, want {per}")
+    fma = {f: kern[f]["calls_per_step"] for f in FRONTEND_FMA if f in kern}
+    check(not fma, f"{what}: CUDA-core PE launches {fma}")
+    del box
+    torch.cuda.empty_cache()
+    log(f"{what}: {cfg.num_layers} layers, {n:,} params, batch {batch} x "
+        f"{seq}, {seq // chunk} scan chunks: ce {ces[0]:.4f}; first step "
+        f"{step_s * 1e3:.1f} ms host ({first_s:.1f} s with init"
+        f"{' and the final save' if layers is None else ''}), peak "
+        f"{peak / 2**30:.2f} GiB (forward and backward "
+        f"{grad_peaks[0] / 2**30:.2f}); one chunk (SCAN_CHUNK {seq}): "
+        f"{one_s * 1e3:.1f} ms host, peak {one_peak / 2**30:.2f} GiB "
+        f"({(one_peak - peak) / 2**30:+.2f}; forward and backward "
+        f"{one_grad_peak / 2**30:.2f}, "
+        f"{(one_grad_peak - grad_peaks[0]) / 2**30:+.2f}); profiled at "
+        f"{pb} x {ps}: {device_ms:.1f} ms device, launches {per} by counter "
+        "and by name "
+        f"({ {f: round(r['calls_per_step']) for f, r in kern.items()} })")
+    return {"params": n, "layers": cfg.num_layers, "batch": batch,
+            "seq": seq, "chunks": seq // chunk, "ce": ces,
+            "launches": launches, "launches_per_step": per,
+            "step_ms": step_s * 1e3, "peak_bytes": peak,
+            "grad_peak_bytes": grad_peaks[0],
+            "one_chunk_step_ms": one_s * 1e3,
+            "one_chunk_peak_bytes": one_peak,
+            "one_chunk_grad_peak_bytes": one_grad_peak,
+            "profiled": [pb, ps], "device_ms": device_ms, "profile": kern,
+            "entry": "train" if layers is None else "make_train_step"}
+
+
+def phase_train_recurrent(torch) -> dict:
+    """The recurrent LMs' low-precision train step through the per-token
+    scans and their ``SCAN_CHUNK`` remat (``_recurrent_cell``): (a)
+    with_tt(rwkv6-1.6b, quantize=True) at full size (24 layers, TT on the
+    channel mix) on 4 x 512 tokens; (b) with_tt(jamba-1.5-large,
+    quantize=True) at full width, one period of 3 layers (Mamba, attention,
+    Mamba; dense FFNs), on 1 x 512; (c) every PE call of their steps that
+    no earlier phase holds (``_recurrent_pe_rows``); (d) at a reduced
+    width (TT on the default
+    sites, d = 3, rank 4, f32, int8 moments and the wire, ``SCAN_CHUNK``
+    4 so the 16 tokens run 4 chunks) one step of each on the card against
+    the same step on the CPU (``_step_card_vs_cpu``)."""
+    import repro_torch.configs as C
+    from repro_torch.configs.base import (MoEConfig, QuantConfig,
+                                          TrainConfig, TTConfig)
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import ssm
+    from repro_torch.models.lm import build_lm
+    t0 = time.perf_counter()
+    out = {"parts_s": {}}
+
+    def part(name):
+        out["parts_s"][name] = time.perf_counter() - t0 - sum(
+            out["parts_s"].values())
+    for arch, layers, batch, seq in RECURRENT_CELLS:
+        out[arch] = _recurrent_cell(torch, arch, layers, batch, seq)
+        part(arch)
+    out["kernels"] = _recurrent_pe_rows(torch, Timer(torch))
+    part("kernels")
+    tcfg = TrainConfig(opt_state_dtype="int8", grad_compress=True,
+                       total_steps=8, warmup_steps=5)
+    chunk = ssm.SCAN_CHUNK
+    try:
+        ssm.SCAN_CHUNK = RECURRENT_CHUNK
+        for arch, layers, _, _ in RECURRENT_CELLS:
+            over = {"moe": MoEConfig(num_experts=0)} if layers else {}
+            cfg = C.get_reduced(arch).replace(
+                dtype="float32", tt=TTConfig(enable=True, d=3, max_rank=4,
+                                             min_elements=1024),
+                quant=QuantConfig(enable=True), **over)
+            out[f"{arch} identity"] = _step_card_vs_cpu(
+                torch, build_lm(cfg), tcfg, make_batch_fn(cfg, 2, 16, 0)(0),
+                f"recurrent identity ({arch})")
+    finally:
+        ssm.SCAN_CHUNK = chunk
+    part("identity")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"train recurrent: {out['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["parts_s"].items()) + ")")
+    check(out["seconds"] < RECURRENT_SECONDS, f"train recurrent took "
+          f"{out['seconds']:.1f} s, over {RECURRENT_SECONDS:.0f}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 KERNELS = {
     "p2_prefill_paged": ("src/repro_torch/kernels/csrc/kv_prefill.cu",
@@ -7812,7 +8216,7 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
                  lmkern: dict, lm: dict, spec: dict, state: dict,
                  rwkv: dict, hybrid: dict, sgroup: dict, moe: dict,
                  mla: dict, frontend: dict, ckpt: dict,
-                 fkern: dict) -> dict:
+                 fkern: dict, recurrent: dict) -> dict:
     rows = []
     for name, (src, replaces) in KERNELS.items():
         rows.append(_kernel_row(name, src, replaces, kern[name],
@@ -7898,6 +8302,15 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
             row["lm_launches"] = lm["launches"][name]
             row["path"] += (f"; train lm ({lm['steps']} steps, "
                             f"{lm['launches_per_step'][name]} a step)")
+        # the recurrent LMs' step launches (their PE launches are the
+        # tensor-core rows below)
+        got = [recurrent[a]["launches"].get(name, 0)
+               for a, *_ in RECURRENT_CELLS]
+        if any(got) and name not in ("pe1", "pe2", "pe3"):
+            row["recurrent_launches"] = sum(got)
+            row["path"] += "; train recurrent (" + ", ".join(
+                f"{a.split('-')[0]} {g}" for (a, *_), g in
+                zip(RECURRENT_CELLS, got)) + " a step)"
         if name == "p2_fake_quant":
             row["shapes"] = row["shapes"] + lm["fq_rows"]
         if name == "bw_enc":
@@ -7932,6 +8345,16 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
                     f"{r['arch'].split('-')[0]} {tuple(r['z'])} "
                     f"{r['launches_per_step']}" for r in fkern[kind])
                 + " a step)")
+        # the recurrent steps' launches (every PE launch of theirs on the
+        # tensor cores, by profile name) and their new calls
+        got = [recurrent[a]["launches"].get(kind, 0)
+               for a, *_ in RECURRENT_CELLS]
+        rows[-1]["recurrent_launches"] = sum(got)
+        rows[-1]["shapes"] = rows[-1]["shapes"] + recurrent["kernels"][kind]
+        rows[-1]["path"] += "; train recurrent (" + ", ".join(
+            f"{a.split('-')[0]} {g}" for (a, *_), g in
+            zip(RECURRENT_CELLS, got)) + (
+            f" a step; {len(recurrent['kernels'][kind])} new {kind} calls)")
     for name, (src, replaces, kind) in TILE_KERNELS.items():
         got = [ckpt["launches"].get(kind, 0),
                ckpt["eh"]["launches"].get(kind, 0)]
@@ -8363,6 +8786,8 @@ def main(argv=None) -> int:
     done("train_frontend")
     report["train_ckpt"] = phase_train_ckpt(torch)
     done("train_ckpt")
+    report["train_recurrent"] = phase_train_recurrent(torch)
+    done("train_recurrent")
     report["seconds"] = time.perf_counter() - t0
     line = kernels_line(report["kernels"], report["engine"],
                         report["train_kernels"], report["train"],
@@ -8373,7 +8798,8 @@ def main(argv=None) -> int:
                         report["serve_rwkv6"], report["serve_hybrid"],
                         report["state_group"], report["serve_moe"],
                         report["serve_mla"], report["train_frontend"],
-                        report["train_ckpt"], report["frontend_kernels"])
+                        report["train_ckpt"], report["frontend_kernels"],
+                        report["train_recurrent"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

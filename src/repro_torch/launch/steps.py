@@ -367,8 +367,9 @@ def launches_per_step(lm: LMDef, tcfg: TrainConfig,
       cores per forward (two with remat), one for a TT embedding's and one
       for a TT head's cores; with the ``activation`` site,
       the embedding's edge forward and backward (forward only under the
-      audio frontend: its frames need no gradient) and each layer's edge
-      forward, its recompute and its backward; the grad edge, one group
+      audio frontend: its frames need no gradient) and each sublayer's
+      edge (every sublayer of a period, in every period) forward, its
+      recompute and its backward; the grad edge, one group
       launch per dtype of the floating gradients and ``FQ_CAP`` of them.
     - ``bw_dec`` / ``bw_enc`` (int8 moments): m and v of every Adam leaf in
       groups of ``BW_CAP``; (the wire) one entry per reference leaf, the
@@ -403,7 +404,7 @@ def launches_per_step(lm: LMDef, tcfg: TrainConfig,
               if leaf.is_floating_point()]
     if cfg.quant.policy().enable:
         first = 1 if cfg.frontend == "audio" else 2
-        out["p2_fake_quant"] += first + layers * (fwd + 1)
+        out["p2_fake_quant"] += first + layers * len(lm.period) * (fwd + 1)
         for dt in {dt for _, dt in floats}:
             n = sum(1 for _, d in floats if d == dt)
             out["p2_fake_quant"] += len(G.chunks(n, G.FQ_CAP))

@@ -238,9 +238,12 @@ def _remat_wrap(fn, cfg: ModelConfig):
     """``"full"``: the layer's forward runs again in the backward and only
     its inputs are kept (``torch.utils.checkpoint``, non-reentrant), as
     ``jax.checkpoint`` with ``nothing_saveable``; only while autograd
-    records. ``"dots"`` (keep the products, recompute the rest) raises:
-    the TT sites' products are kernel launches outside the dispatcher, so
-    a selective checkpoint cannot keep them (ROADMAP queue 1)."""
+    records. A recurrent layer's scan chunks keep their own inputs inside
+    it (``ssm._ScanChunk``): the recompute runs each chunk once more
+    without recording, and a chunk's backward runs it a third time.
+    ``"dots"`` (keep the products, recompute the rest) raises: the TT
+    sites' products are kernel launches outside the dispatcher, so a
+    selective checkpoint cannot keep them (ROADMAP queue 1)."""
     if cfg.remat == "none":
         return fn
     if cfg.remat == "dots":

@@ -8,9 +8,20 @@ runs each recurrence as a ``lax.scan`` outside any Pallas kernel, so here
 each is a per-token Python loop over one step function (``_ssm_step``,
 ``_wkv6_step``). Decode is the forward at S = 1 against the carried state,
 so prefill, static decode and the engine's decode step run one op
-sequence, which the engine's token identity with static decode rests on. The reference's ``SCAN_CHUNK`` remat only
-matters for a backward and is not carried over (training a recurrent LM
-is ROADMAP queue 1).
+sequence, which the engine's token identity with static decode rests on.
+
+The reference's remat of the scans is kept: while autograd records, the
+loop runs in chunks of ``SCAN_CHUNK`` tokens (one chunk where S is not a
+multiple of ``min(SCAN_CHUNK, S)``), each one ``_ScanChunk``: its forward
+runs without recording and keeps only the chunk's inputs and its entry
+state, and its backward runs the chunk again with autograd and
+differentiates it (``jax.checkpoint`` with ``nothing_saveable``, as the
+reference wraps a chunk). A backward so holds one state a chunk and one
+chunk's per-token states at a time, not one state a token; nested in the
+layer's checkpoint (``remat="full"``) a chunk runs three times, its
+backward once. ``SCAN_CHUNK`` is read at each call. The chunks run the
+same per-token ops as one loop, so the forward's bits do not change;
+without grad the loop runs whole.
 
 Names, parameter trees and op order follow the reference (the steps fold
 a multiply and an add into ``addcmul``), so weights carried by
@@ -100,6 +111,58 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y + b[None, None, :], new_state
 
 
+SCAN_CHUNK = 256
+
+
+class _ScanChunk(torch.autograd.Function):
+    """One chunk of a scan under the reference's remat: ``steps(h, *xs) ->
+    (ys, h_last)`` run without recording, only ``h`` and ``xs`` kept; the
+    backward runs it again with autograd on detached copies and returns
+    their gradients (``torch.autograd.grad``, so no parameter's ``.grad``
+    is touched)."""
+
+    @staticmethod
+    def forward(ctx, steps, h, *xs):
+        ctx.steps = steps
+        ctx.save_for_backward(h, *xs)
+        return steps(h, *xs)
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        ins = [t.detach().requires_grad_(t.requires_grad)
+               for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            outs = ctx.steps(*ins)
+        pairs = [(o, g) for o, g in zip(outs, gouts)
+                 if g is not None and o.requires_grad]
+        need = [t for t in ins if t.requires_grad]
+        got = iter(torch.autograd.grad([o for o, _ in pairs], need,
+                                       [g for _, g in pairs],
+                                       allow_unused=True)
+                   if pairs and need else ())
+        return (None, *(next(got) if t.requires_grad else None
+                        for t in ins))
+
+
+def _scan_chunked(steps, h, seqs, consts):
+    """``steps(h, *seqs, *consts) -> (ys, h_last)`` over (B, S, ...)
+    sequences: in one call without grad; while autograd records, one
+    ``_ScanChunk`` a chunk of the reference's length (the module
+    docstring). The chunks' outputs concatenate along S."""
+    if not torch.is_grad_enabled():
+        return steps(h, *seqs, *consts)
+    s = seqs[0].shape[1]
+    n = min(SCAN_CHUNK, s)
+    if s % n:
+        n = s                   # odd lengths: a single chunk
+    ys = []
+    for c0 in range(0, s, n):
+        y, h = _ScanChunk.apply(steps, h, *(x[:, c0:c0 + n] for x in seqs),
+                                *consts)
+        ys.append(y)
+    return (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)), h
+
+
 def _ssm_step(h, u_t, dt_t, bt, ct, a):
     """One selective-scan step: h (B,Di,N) f32, u_t/dt_t (B,Di), bt/ct
     (B,N). Returns (h_new, y (B,Di)). ``addcmul`` and ``matmul`` rather than
@@ -121,13 +184,22 @@ def _selective_scan(u, dt, a, b_t, c_t, d_skip, h0=None):
     h = (torch.zeros((bsz, di, n), dtype=torch.float32, device=u.device)
          if h0 is None else h0)
     uf, dtf = u.float(), dt.float()
-    bf, cf = b_t.float(), c_t.float()
-    ys = []
-    for t in range(s):
-        h, y = _ssm_step(h, uf[:, t], dtf[:, t], bf[:, t], cf[:, t], a)
-        ys.append(y)
-    y = torch.stack(ys, dim=1)
+    y, h = _scan_chunked(_ssm_steps, h, (uf, dtf, b_t.float(), c_t.float()),
+                         (a,))
     return (y + uf * d_skip[None, None]).to(u.dtype), h
+
+
+def _ssm_steps(h, u, dt, b_t, c_t, a):
+    """The selective scan's token loop over f32 (B, T, ...) inputs:
+    ((B, T, Di) outputs, last state). The tokens are ``unbind``'s views:
+    under autograd one node a chunk and input gives their gradients back,
+    where a slice a token would scatter each into a zero tensor of the
+    whole input."""
+    ys = []
+    for u_t, dt_t, bt, ct in zip(*(x.unbind(1) for x in (u, dt, b_t, c_t))):
+        h, y = _ssm_step(h, u_t, dt_t, bt, ct, a)
+        ys.append(y)
+    return torch.stack(ys, dim=1), h
 
 
 def mamba_forward(params: dict, x: torch.Tensor, d: MambaDef,
@@ -246,11 +318,16 @@ def _wkv6_scan(r, k, v, w, u, h0):
       out_t = (S_{t-1} + diag(u) k_t^T v_t) applied to r_t
       S_t   = diag(w_t) S_{t-1} + k_t^T v_t
     Returns ((B,S,H,Dh) f32, last state)."""
-    rf, kf, vf, wf = r.float(), k.float(), v.float(), w.float()
-    s = h0
+    return _scan_chunked(_wkv6_steps, h0,
+                         (r.float(), k.float(), v.float(), w.float()), (u,))
+
+
+def _wkv6_steps(s, r, k, v, w, u):
+    """The WKV6 token loop over f32 (B, T, H, Dh) inputs: ((B, T, H, Dh)
+    outputs, last state), the tokens ``unbind``'s views (``_ssm_steps``)."""
     outs = []
-    for t in range(r.shape[1]):
-        s, out = _wkv6_step(s, rf[:, t], kf[:, t], vf[:, t], wf[:, t], u)
+    for rt, kt, vt, wt in zip(*(x.unbind(1) for x in (r, k, v, w))):
+        s, out = _wkv6_step(s, rt, kt, vt, wt, u)
         outs.append(out)
     return torch.stack(outs, dim=1), s
 

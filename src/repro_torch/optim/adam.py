@@ -42,6 +42,13 @@ def _is_adam_leaf(path: str, leaf) -> bool:
     return not name.startswith(("lambda_", "wscale"))
 
 
+def _stacked_dim(path: str, leaf: torch.Tensor) -> int:
+    """The rank of the reference's leaf, which decides its weight decay: a
+    leaf of a list (the LM's layers) is stacked on a new axis 0 there
+    (``tree.stack_key``), so rwkv6's ``w0`` and Mamba's ``D`` decay."""
+    return leaf.dim() + any(k.isdigit() for k in path.split("/"))
+
+
 def _int8(cfg: TrainConfig) -> bool:
     if cfg.opt_state_dtype not in OPT_STATE_DTYPES:
         raise ValueError(f"opt_state_dtype={cfg.opt_state_dtype!r}; one of "
@@ -126,7 +133,8 @@ def adam_update(params, grads, state: AdamState, lr, cfg: TrainConfig):
         v32 = b2 * v32 + (1 - b2) * torch.square(g32)
         update = (m32 / c1) / (torch.sqrt(v32 / c2) + eps)
         name = path.split("/")[-1]
-        decay = 0.0 if name in ("scale", "b", "bias") or p.dim() < 2 else wd
+        decay = (0.0 if name in ("scale", "b", "bias")
+                 or _stacked_dim(path, p) < 2 else wd)
         p32 = p.float()
         p32 = p32 - lr * (update + decay * p32)
         new_p.append(p32.to(p.dtype))

@@ -121,7 +121,11 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
 (u) checkpoints of CUDA tensors: an asynchronous save and a
     ``load(like=)`` back onto the card round-trip bit for bit (f32, bf16,
     int8 codes, a stacked group, a strided view), and the snapshot that
-    ``save`` takes is not reached by a later in-place write to its source.
+    ``save`` takes is not reached by a later in-place write to its source;
+(v) the recurrent scans' chunk remat on the card: with grad on and
+    ``SCAN_CHUNK`` 4, the selective scan's and WKV6's outputs and last
+    state are the grad-off scan's bit for bit, and their gradients those
+    of the same chunked scan on the CPU within 1e-5 of the largest.
 """
 import math
 
@@ -2601,3 +2605,36 @@ def test_checkpoint_snapshot_is_not_reached_by_later_writes(cuda, tmp_path):
     one, _ = load(step_path(str(tmp_path), 1), like={"w": src})
     two, _ = load(step_path(str(tmp_path), 2), like={"w": src})
     assert torch.equal(one["w"], want) and torch.equal(two["w"], -want)
+
+
+@pytest.mark.parametrize("kind", ["ssm", "wkv6"])
+def test_chunked_scan_on_the_card(cuda, monkeypatch, kind):
+    from repro_torch.models import ssm
+    monkeypatch.setattr(ssm, "SCAN_CHUNK", 4)
+    gen = torch.Generator().manual_seed(3)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen) * scale
+    if kind == "ssm":
+        scan = ssm._selective_scan
+        xs = [rand(2, 16, 6), rand(2, 16, 6, scale=0.3).abs(),
+              -rand(6, 4, scale=0.5).exp(), rand(2, 16, 4), rand(2, 16, 4),
+              rand(6), rand(2, 6, 4)]
+    else:
+        scan = ssm._wkv6_scan
+        xs = [rand(2, 16, 2, 4), rand(2, 16, 2, 4), rand(2, 16, 2, 4),
+              torch.rand((2, 16, 2, 4), generator=gen) * 0.5 + 0.5,
+              rand(2, 4, scale=0.1), rand(2, 2, 4, 4)]
+    grads = {}
+    for dev in ("cpu", cuda):
+        ins = [x.to(dev, copy=True).requires_grad_() for x in xs]
+        y, h = scan(*ins)
+        if dev != "cpu":
+            with torch.no_grad():
+                y0, h0 = scan(*ins)
+            assert torch.equal(y, y0) and torch.equal(h, h0)
+        (y.square().sum() + h.sum()).backward()
+        grads[str(dev)] = [x.grad.cpu() for x in ins]
+    for a, b in zip(grads["cpu"], grads[str(cuda)]):
+        assert (a - b).abs().max() <= 1e-5 * a.abs().max()
+
