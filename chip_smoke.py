@@ -184,7 +184,7 @@ Phases (any failure raises and the script exits non-zero):
              COW fork; prefix on vs off on the slice's requests is reported.
    serve rwkv6 — the seventh main path: rwkv6-1.6b at full size (24
              layers, d_model 2048, 32 heads x 64, d_ff 7168, vocab 65,536,
-             bf16, ~1.58 B seeded parameters) serving the first 8 of the
+             bf16, ~1.58 B seeded parameters) serving the first 4 of the
              engine phase's requests (128..512 tokens, 64 new, 8 slots)
              from an int8 state pool, an fp pool and, chunked (128), the
              int8 pool; counts zeroed just before and read just after
@@ -227,7 +227,7 @@ Phases (any failure raises and the script exits non-zero):
              d_ff 1408, top-6, vocab 163,840, untied head; bf16,
              28,057,995,264 seeded parameters, asserted), every earlier
              model freed first (under 2 GiB allocated, asserted), serving
-             the first 8 of the engine phase's requests x 64 new tokens
+             the first 4 of the engine phase's requests x 64 new tokens
              from the int8
              paged pool with fused attention, whole prompt and chunked
              (128); counts zeroed just before and read just after each
@@ -356,10 +356,10 @@ Phases (any failure raises and the script exits non-zero):
 9. train lm — the fifth main path: with_tt(internlm2-1.8b, quantize=True)
              at full width and depth (24 layers, 144 TT sites at rank 16,
              bf16, remat full), int8 Adam moments and the int8 gradient
-             wire, 8 steps of ``launch/train.py::train`` on
+             wire, 6 steps of ``launch/train.py::train`` on
              ``lm_batch(step, batch=8, seq=256, seed=0)``, seeded weights
              on the card; counts zeroed just before and read just after
-             (each 8 x ``steps.launches_per_step``, computed from the
+             (each 6 x ``steps.launches_per_step``, computed from the
              config); every loss finite and the last below the first
              (the cross-entropy is printed: with int8 moments it diverges
              at the third step, as the reference's numerics do); the
@@ -385,7 +385,7 @@ Phases (any failure raises and the script exits non-zero):
              pe3_mma_kernel 144 and no pe1_kernel, pe2_kernel or
              pe3_kernel, p2_fq_group_kernel 375, bw_enc_group_kernel 22,
              bw_dec_group_kernel 22 launches; asserted by name; each
-             codec launch's device time listed); then the same 8 steps
+             codec launch's device time listed); then the same 6 steps
              with f32 moments, whose cross-entropy must fall.
 9b. frontend kernels — the frontends' ten bf16 PE1 / PE2 calls whose
              rows of c or d are not 16-byte multiples (hubert-xlarge's c
@@ -451,25 +451,51 @@ Phases (any failure raises and the script exits non-zero):
              layers, 783,921,624 parameters, TT on the channel mix) on 4 x
              512 tokens through launch/train.py::train; (b)
              with_tt(jamba-1.5-large) at full width, one period of 3
-             layers (Mamba, attention, Mamba; dense FFNs; 1,916,092,836
-             parameters: the 8-layer period's 4.02 B need ~135 GiB in a
+             layers (Mamba, attention with the MoE FFN of 16 TT experts
+             top-2, Mamba; 1,923,017,198 parameters: the 8-layer
+             period's 4.02 B need ~135 GiB in a
              step) on 1 x 512 through make_train_step: launches exact
              against
              launches_per_step, by counter and by profile name (no
-             pe1_kernel, pe2_kernel or pe3_kernel; the trace's device
+             pe1_kernel, pe2_kernel or pe3_kernel but the f32 router's
+             chains; the trace's device
              events counted from its event list), the cross-entropy
              finite, the host wall and peak memory, the host wall and peak
              of one more step with SCAN_CHUNK = 512 (one chunk), and a
              step of the same rows profiled (rwkv6's at 64 x 32: a
              profile of its 4 x 512 step holds ~970,000 device events):
-             the launches by name and the device time. (c) each of their 24 PE calls that no earlier
+             the launches by name and the device time. (c) each of their
+             ungrouped PE calls that no earlier
              phase holds, on the tensor cores (asserted), within 2e-2 of
              the plain version, bit for bit over two launches, timed
              beside the plain version, the faster of bf16 torch.matmul
              and torch.einsum and the bound, with its launches a step. (d)
-             one step of each at reduced width (TT on the default sites,
-             f32, SCAN_CHUNK 4: 4 chunks of the 16 tokens) on the card
-             against the CPU, as train lm identity. Under 90 s.
+             one step of each at reduced width (TT on the default sites
+             and jamba's experts, f32, SCAN_CHUNK 4: 4 chunks of the 16
+             tokens) on the card against the CPU, as train lm identity.
+             Under 90 s.
+14. train moe — the thirteenth main path: the MoE LMs' train step with
+             TT experts (int8 moments and wire, remat full), each expert
+             site's PE1 / PE2 / PE3 one grouped launch for all experts
+             (pe*_grouped by counter) and its cores' fake-quant one
+             p2_fq_rows launch a core. (a) with_tt(moonshot-v1-16b) uncut
+             (48 layers, 64 experts top-6, 1,145,122,368 parameters) on
+             8 x 256 tokens, 2 steps through launch/train.py::train, then
+             a third profiled: launches exact by counter and by profile
+             name, the CUDA-core PE launches exactly the f32 router's, the
+             device time and busy share, peak memory; (b)
+             with_tt(deepseek-v2-236b) at full width with 2 of its 60
+             layers (MLA, 160 experts top-6 and 2 shared) on 2 x 256, one
+             step through make_train_step: MLA's backward on the card;
+             (e) every grouped call of (a), (b) and train recurrent's
+             jamba period on the tensor cores (asserted), within 2e-2 of
+             the plain version, bit for bit over two launches and with
+             the loop of ungrouped launches over the experts, timed beside
+             that loop (previous_ms), the faster of one bf16 batched
+             matmul and torch.einsum, the plain version and the bound;
+             p2_fq_rows at moonshot's stacked cores; (d) reduced moonshot
+             and deepseek with TT experts, one step on the card against
+             the CPU. Under 260 s.
 
 Output: human-readable lines, then one JSON line describing every kernel,
 then the card's name and power limit (nvidia-smi), then the last line
@@ -4143,8 +4169,9 @@ def phase_chunked_identity(torch) -> dict:
 SSM_ARCH = "rwkv6-1.6b"
 # requests of each serve rwkv6 and serve moe run: one of the 8 slots each
 # (the engine phase serves all 16); the script's time limit is shared by
-# every phase, and these runs are host-bound
-STATE_REQUESTS = 8
+# every phase, and these runs are host-bound (the recurrent prompts' scans
+# a token at a time): 4 since train moe was added, 8 before
+STATE_REQUESTS = 4
 HYBRID_ARCH = "jamba-1.5-large"
 PA_KV_FNS = KV_KERNEL_FNS + PA_KERNEL_FNS
 ST_KERNEL_FNS = ["st_dec_group_kernel", "st_enc_group_kernel",
@@ -5502,7 +5529,7 @@ def _moe_layer_parts(torch, timer, lm, params) -> dict:
     cw, cidx = M._select(w_tok(), cap)
     flat = cidx.reshape(-1)
     xe = x[flat].reshape(d.num_experts, cap, -1)
-    ye = M._expert_glu(p, xe)
+    ye = M._expert_glu(p, xe, d, cfg)
     yw = (ye * (cw * (cw > 0))[..., None].to(ye.dtype)).reshape(
         -1, ye.shape[-1])
     nbytes = sum(p[n]["w"].numel() * p[n]["w"].element_size()
@@ -5515,7 +5542,7 @@ def _moe_layer_parts(torch, timer, lm, params) -> dict:
            "select_ms": timer(lambda: M._select(w_tok(), cap)),
            "gather_ms": timer(lambda: x[flat].reshape(d.num_experts, cap,
                                                       -1)),
-           "experts_ms": timer(lambda: M._expert_glu(p, xe)),
+           "experts_ms": timer(lambda: M._expert_glu(p, xe, d, cfg)),
            "combine_ms": timer(lambda: torch.zeros_like(x).index_add_(
                0, flat, yw)),
            "layer_ms": timer(lambda: M.moe_forward(p, x[:, None], d, cfg))}
@@ -6073,7 +6100,8 @@ def phase_serve_mla(torch) -> dict:
 # int8 gradient wire)
 # ---------------------------------------------------------------------------
 
-LM_BATCH, LM_SEQ, LM_STEPS = 8, 256, 8
+# train lm's steps: 6 since train moe was added, 8 before
+LM_BATCH, LM_SEQ, LM_STEPS = 8, 256, 6
 
 
 def _lm_config():
@@ -7208,14 +7236,18 @@ def _pe_launches_by_shape(lm, rows: int) -> dict:
     of ``lm``'s training step at ``rows`` rows: a layer site's forward
     chain in every layer (twice under ``remat="full"``), its transposed
     chain and its Ŵ; a TT head's once; a TT embedding none (as
-    ``steps.launches_per_step`` counts them, by shape)."""
+    ``steps.launches_per_step`` counts them, by shape); TT expert sites
+    none (their grouped calls: ``_grouped_launches_by_shape``), nor a TT
+    router (f32 in a bf16 step: ``_f32_site_launches``)."""
     from repro_torch.core.ttm import pe_shapes
     from repro_torch.models.lm import _walk_sites
     fwd = 2 if lm.cfg.remat == "full" else 1
     out: dict = {}
     for path, site in _walk_sites(lm):
-        if not site.use_tt or path[0] == "embed":
-            continue
+        if not site.use_tt or path[0] == "embed" or site.family == "expert" \
+                or path[-1] == "router":
+            continue        # experts: _grouped_launches_by_shape; the
+            #                 router's chains run in f32 (moe._route)
         n, f = (lm.n_periods, fwd) if path[0] == "layers" else (1, 1)
         s = site.spec
         calls = [(c, n * f) for c in pe_shapes(s, rows)] + [
@@ -7731,8 +7763,8 @@ def phase_train_ckpt(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 # (arch, layers (None: the config's), batch, seq): rwkv6-1.6b at full size
-# on 4 x 512 tokens; jamba-1.5-large at full width with dense FFNs, cut to
-# one period of 3 layers (Mamba, attention, Mamba) on 1 x 512: its 8-layer
+# on 4 x 512 tokens; jamba-1.5-large at full width, cut to one period of
+# 3 layers (Mamba, attention with its MoE FFN, Mamba) on 1 x 512: its 8-layer
 # period has 4,020,136,881 parameters, and the step holds ~36 bytes a
 # parameter at its peak (the new params, moments and wire residual beside
 # the old, and every moment decoded to f32 at once: rwkv6's 26.42 GiB at
@@ -7741,7 +7773,7 @@ def phase_train_ckpt(torch) -> dict:
 RECURRENT_CELLS = (("rwkv6-1.6b", None, 4, 512),
                    ("jamba-1.5-large", 3, 1, 512))
 RECURRENT_PARAMS = {"rwkv6-1.6b": 783_921_624,
-                    "jamba-1.5-large": 1_916_092_836}
+                    "jamba-1.5-large": 1_923_017_198}
 # the profiled step's (batch, seq): the cell's rows, so the same PE calls
 # and launches; rwkv6's at 32 tokens, since a profile of its 4 x 512 step
 # (~970,000 device events: the scans launch per token) costs ~50 s of the
@@ -7754,14 +7786,14 @@ RECURRENT_CHUNK = 4             # (d)'s SCAN_CHUNK: 16 tokens in 4 chunks
 def _recurrent_lm(arch: str, layers):
     """``with_tt(arch, quantize=True)``'s model (no weights); where
     ``layers`` is given, one period of that many layers with attention at
-    position 1 and dense FFNs (jamba's cell)."""
+    position 1 and the MoE FFN (16 TT experts top-2) at position 1 (jamba's
+    cell)."""
     import repro_torch.configs as C
-    from repro_torch.configs.base import MoEConfig
     from repro_torch.models.lm import build_lm
     cfg = C.get_config(arch)
     if layers:
         cfg = cfg.replace(num_layers=layers, period=layers,
-                          attn_positions=(1,), moe=MoEConfig(num_experts=0))
+                          attn_positions=(1,), moe_positions=(1,))
     return build_lm(C.with_tt(cfg, quantize=True))
 
 
@@ -7923,7 +7955,7 @@ def _recurrent_cell(torch, arch: str, layers, batch: int, seq: int) -> dict:
     ``seq`` (one chunk): its host wall and peaks beside the chunked
     step's; and one chunked step at ``RECURRENT_PROFILE``'s batch x seq
     (the same rows), profiled (``_event_profile``): each counted kernel by
-    name, no CUDA-core PE body, the device time."""
+    name, no CUDA-core PE body but the f32 router's, the device time."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.kernels import build as B
     from repro_torch.launch import steps as S
@@ -8008,20 +8040,23 @@ def _recurrent_cell(torch, arch: str, layers, batch: int, seq: int) -> dict:
     pb, ps = RECURRENT_PROFILE[arch]
     check(pb * ps == batch * seq, f"{what}: profiled rows {pb} x {ps}")
     b2 = to_card(make_batch_fn(cfg, pb, ps, tcfg.seed)(2))
-    names = [f for fns in FRONTEND_FNS.values() for f in fns]
-    want = {k: float(v) for k, v in per.items()}
+    names = [f for fns in MOE_FNS.values() for f in fns]
+    want = _by_name(per)
     for attempt in range(PROFILE_TRIES):
         kern, device_ms = _event_profile(torch, lambda: run(b2), names, what)
         by_name = {k: sum(kern.get(f, {}).get("calls_per_step", 0.0)
-                          for f in fns) for k, fns in FRONTEND_FNS.items()}
+                          for f in fns) for k, fns in MOE_FNS.items()}
         if {k: v for k, v in by_name.items() if v} == want:
             break
-        log(f"  {what} profile: launches by name {by_name}, want {per}; "
+        log(f"  {what} profile: launches by name {by_name}, want {want}; "
             "profiling another window")
     else:
-        check(False, f"{what}: profile launches {by_name}, want {per}")
-    fma = {f: kern[f]["calls_per_step"] for f in FRONTEND_FMA if f in kern}
-    check(not fma, f"{what}: CUDA-core PE launches {fma}")
+        check(False, f"{what}: profile launches {by_name}, want {want}")
+    # only the f32 router's chains (jamba's experts) reach the CUDA cores
+    fma = {k: int(sum(kern.get(f, {}).get("calls_per_step", 0.0)
+                      for f in fns)) for k, fns in MOE_CUDA_CORE.items()}
+    check(fma == _f32_site_launches(lm), f"{what}: CUDA-core PE launches "
+          f"{fma}, the f32 router's {_f32_site_launches(lm)}")
     del box
     torch.cuda.empty_cache()
     log(f"{what}: {cfg.num_layers} layers, {n:,} params, batch {batch} x "
@@ -8054,16 +8089,16 @@ def phase_train_recurrent(torch) -> dict:
     scans and their ``SCAN_CHUNK`` remat (``_recurrent_cell``): (a)
     with_tt(rwkv6-1.6b, quantize=True) at full size (24 layers, TT on the
     channel mix) on 4 x 512 tokens; (b) with_tt(jamba-1.5-large,
-    quantize=True) at full width, one period of 3 layers (Mamba, attention,
-    Mamba; dense FFNs), on 1 x 512; (c) every PE call of their steps that
-    no earlier phase holds (``_recurrent_pe_rows``); (d) at a reduced
-    width (TT on the default
-    sites, d = 3, rank 4, f32, int8 moments and the wire, ``SCAN_CHUNK``
+    quantize=True) at full width, one period of 3 layers (Mamba, attention
+    with the MoE FFN of 16 TT experts top-2, Mamba), on 1 x 512; (c) every
+    ungrouped PE call of their steps that no earlier phase holds
+    (``_recurrent_pe_rows``; the experts' grouped calls are train moe's
+    rows); (d) at a reduced width (TT on the default sites and the
+    experts, d = 3, rank 4, f32, int8 moments and the wire, ``SCAN_CHUNK``
     4 so the 16 tokens run 4 chunks) one step of each on the card against
     the same step on the CPU (``_step_card_vs_cpu``)."""
     import repro_torch.configs as C
-    from repro_torch.configs.base import (MoEConfig, QuantConfig,
-                                          TrainConfig, TTConfig)
+    from repro_torch.configs.base import QuantConfig, TrainConfig, TTConfig
     from repro_torch.launch.train import make_batch_fn
     from repro_torch.models import ssm
     from repro_torch.models.lm import build_lm
@@ -8084,11 +8119,11 @@ def phase_train_recurrent(torch) -> dict:
     try:
         ssm.SCAN_CHUNK = RECURRENT_CHUNK
         for arch, layers, _, _ in RECURRENT_CELLS:
-            over = {"moe": MoEConfig(num_experts=0)} if layers else {}
             cfg = C.get_reduced(arch).replace(
-                dtype="float32", tt=TTConfig(enable=True, d=3, max_rank=4,
-                                             min_elements=1024),
-                quant=QuantConfig(enable=True), **over)
+                dtype="float32", quant=QuantConfig(enable=True),
+                tt=TTConfig(enable=True, d=3, max_rank=4, min_elements=1024,
+                            apply_to=("ffn", "attn_qkv", "attn_o",
+                                      "expert")))
             out[f"{arch} identity"] = _step_card_vs_cpu(
                 torch, build_lm(cfg), tcfg, make_batch_fn(cfg, 2, 16, 0)(0),
                 f"recurrent identity ({arch})")
@@ -8100,6 +8135,412 @@ def phase_train_recurrent(torch) -> dict:
         f"{k} {v:.1f}" for k, v in out["parts_s"].items()) + ")")
     check(out["seconds"] < RECURRENT_SECONDS, f"train recurrent took "
           f"{out['seconds']:.1f} s, over {RECURRENT_SECONDS:.0f}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# train moe: the MoE LMs' low-precision train step, TT experts grouped
+# ---------------------------------------------------------------------------
+
+# (arch, layers (None: the config's), batch, seq): with_tt(moonshot-v1-16b)
+# uncut on 8 x 256 tokens; with_tt(deepseek-v2-236b) at full width, 2 of
+# its 60 layers (60 need ~3 B parameters, ~105 GB in a step), on 2 x 256
+MOE_TRAIN_CELLS = (("moonshot-v1-16b", None, 8, 256),
+                   ("deepseek-v2-236b", 2, 2, 256))
+MOE_TRAIN_PARAMS = {"moonshot-v1-16b": 1_145_122_368,
+                    "deepseek-v2-236b": 1_104_183_292}
+MOE_TRAIN_SECONDS = 260.0       # the phase's wall, at most
+# launch-count name -> the kernel functions that count as it in a profile
+# (a grouped launch is the same function: "pe1" counts pe1 + pe1_grouped)
+MOE_FNS = {"pe1": ("pe1_kernel", "pe1_mma_kernel"),
+           "pe2": ("pe2_kernel", "pe2_mma_kernel", "pe2_tile_kernel"),
+           "pe3": ("pe3_kernel", "pe3_mma_kernel", "pe3_tile_kernel"),
+           "p2_fake_quant": ("p2_fq_group_kernel",),
+           "p2_fq_rows": ("p2_fq_rows_kernel",),
+           "bw_enc": ("bw_enc_group_kernel",),
+           "bw_dec": ("bw_dec_group_kernel",)}
+# the CUDA-core PE bodies: in a bf16 MoE step only the f32 router's chains
+# reach them
+MOE_CUDA_CORE = {"pe1": ("pe1_kernel",),
+                 "pe2": ("pe2_kernel", "pe2_tile_kernel"),
+                 "pe3": ("pe3_kernel", "pe3_tile_kernel")}
+PE_GROUPED_EINSUM = {"pe1": "eabc,ebdc->ead", "pe2": "eabc,ebd->eadc",
+                     "pe3": "ebj,ebi->eji"}
+
+
+def _moe_lm(arch: str, layers):
+    """``with_tt(arch, quantize=True)``'s model (no weights), cut to
+    ``layers`` layers where given."""
+    import repro_torch.configs as C
+    from repro_torch.models.lm import build_lm
+    cfg = C.get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    return build_lm(C.with_tt(cfg, quantize=True))
+
+
+def _by_name(per: dict) -> dict:
+    """A step's launches by profile name group (``MOE_FNS``): a grouped
+    launch runs the same kernel function as an ungrouped one."""
+    out = {k: per.get(k, 0) + per.get(f"{k}_grouped", 0) for k in MOE_FNS}
+    return {k: float(v) for k, v in out.items() if v}
+
+
+def _f32_site_launches(lm) -> dict:
+    """PE launches a step of the TT sites a bf16 model runs in f32: the
+    MoE router (``moe._route`` applies it to ``x2d.float()``), whose
+    chains take the CUDA-core routes (f32 has no tensor-core plan)."""
+    from repro_torch.models.lm import _walk_sites
+    fwd = 2 if lm.cfg.remat == "full" else 1
+    out = {"pe1": 0, "pe2": 0, "pe3": 0}
+    for path, site in _walk_sites(lm):
+        if site.use_tt and path[-1] == "router":
+            n, d = lm.n_periods, site.spec.d
+            out["pe1"] += n * (fwd + 1)
+            out["pe2"] += n * (fwd + 1) * (d - 1)
+            out["pe3"] += n
+    return out
+
+
+def _moe_cell(torch, arch: str, layers, batch: int, seq: int) -> dict:
+    """One MoE train step of ``with_tt(arch, quantize=True)`` (int8
+    moments, the int8 wire, ``remat="full"``) on seeded weights on the
+    card: the counts zeroed just before and read just after equal
+    ``launches_per_step`` (grouped and not), the cross-entropy finite, the
+    parameters counted, the peak memory read. moonshot trains 2 steps
+    through ``launch/train.py::train`` (its final save into a temporary
+    directory), then one step profiled: each counted kernel by name, the
+    CUDA-core PE launches exactly the f32 router's, the device time and
+    the busy share against the second step's host wall; deepseek one step
+    through ``make_train_step``."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import build as B
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import make_batch_fn, train
+    from repro_torch.models.lm import init_lm
+    from repro_torch.obs import TraceRecorder
+
+    lm = _moe_lm(arch, layers)
+    cfg = lm.cfg
+    tcfg = TrainConfig(opt_state_dtype="int8", grad_compress=True,
+                       total_steps=2, warmup_steps=1)
+    per = S.launches_per_step(lm, tcfg)
+    what = f"train moe ({arch})"
+    check(cfg.remat == "full" and per.get("pe1_grouped", 0) > 0,
+          f"{what}: remat {cfg.remat}, launches {per}")
+    batches = make_batch_fn(cfg, batch, seq, tcfg.seed)
+
+    def to_card(b):
+        return {k: torch.from_numpy(v).to("cuda") for k, v in b.items()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ces = []
+    t0 = time.perf_counter()
+    if layers is None:
+        steps, trace = 2, TraceRecorder()
+        B.reset_launches()
+        with _ckpt_dir("moe") as d:
+            state, _ = train(cfg, "tp", dataclasses.replace(
+                tcfg, ckpt_dir=d), batch=batch, seq=seq, device="cuda",
+                verbose=False, trace=trace,
+                on_step=lambda i, m: ces.append(float(m["ce"])))
+        torch.cuda.synchronize()
+        launches = dict(B.LAUNCHES)
+        step_s = [e.fields["dur"] for e in trace.events("train_step")]
+    else:
+        steps = 1
+        params = init_lm(torch.Generator(device="cuda").manual_seed(
+            tcfg.seed), lm, device="cuda")
+        state = S.init_train_state(params, tcfg, policy=cfg.quant.policy())
+        del params
+        b0 = to_card(batches(0))
+        torch.cuda.synchronize()
+        B.reset_launches()
+        t1 = time.perf_counter()
+        state, m = S.make_train_step(lm, None, tcfg)(state, b0)
+        ces.append(float(m["ce"]))
+        torch.cuda.synchronize()
+        step_s = [time.perf_counter() - t1]
+        launches = dict(B.LAUNCHES)
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * steps for k, v in per.items()}
+    check(launches == want, f"{what}: launches {launches}, want {want}")
+    check(len(ces) == steps and all(math.isfinite(x) for x in ces),
+          f"{what}: ce {ces}")
+    n = sum(t.numel() for t in _leaves(state.params))
+    check(n == MOE_TRAIN_PARAMS[arch], f"{what}: {n:,} params")
+    out = {"params": n, "layers": cfg.num_layers, "batch": batch,
+           "seq": seq, "ce": ces, "launches": launches,
+           "launches_per_step": per, "step_ms": [s * 1e3 for s in step_s],
+           "peak_bytes": peak, "first_s": first_s,
+           "entry": "train" if layers is None else "make_train_step"}
+    if layers is None:
+        step = S.make_train_step(lm, None, tcfg)
+        box = {"state": state}
+        del state
+        b2 = to_card(batches(2))
+
+        def run():
+            box["state"], _ = step(box["state"], b2)
+        names = [f for fns in MOE_FNS.values() for f in fns]
+        want_names = _by_name(per)
+        for attempt in range(PROFILE_TRIES):
+            kern, device_ms = _event_profile(torch, run, names, what)
+            by_name = {k: sum(kern.get(f, {}).get("calls_per_step", 0.0)
+                              for f in fns) for k, fns in MOE_FNS.items()}
+            if {k: v for k, v in by_name.items() if v} == want_names:
+                break
+            log(f"  {what} profile: launches by name {by_name}, want "
+                f"{want_names}; profiling another window")
+        else:
+            check(False, f"{what}: profile launches {by_name}, want "
+                  f"{want_names}")
+        fma = {k: int(sum(kern.get(f, {}).get("calls_per_step", 0.0)
+                          for f in fns)) for k, fns in MOE_CUDA_CORE.items()}
+        check(fma == _f32_site_launches(lm), f"{what}: CUDA-core PE "
+              f"launches {fma}, the f32 router's {_f32_site_launches(lm)}")
+        del box
+        out.update(device_ms=device_ms, profile=kern, cuda_core=fma,
+                   busy=device_ms / (step_s[-1] * 1e3))
+        log(f"{what}: {cfg.num_layers} layers, {n:,} params, batch "
+            f"{batch} x {seq}: ce {ces}; steps "
+            f"{', '.join(f'{s * 1e3:.1f}' for s in step_s)} ms host "
+            f"({first_s:.1f} s with init and the final save), peak "
+            f"{peak / 2**30:.2f} GiB; profiled step {device_ms:.1f} ms "
+            f"device, busy {out['busy']:.3f} of the second step; launches "
+            f"{per} a step by counter and by name "
+            f"({ {f: round(r['calls_per_step']) for f, r in kern.items()} })"
+            f"; CUDA-core PE launches {fma} (the f32 router's)")
+    else:
+        del state
+        log(f"{what}: {cfg.num_layers} layers, {n:,} params, batch {batch} "
+            f"x {seq}: ce {ces[0]:.4f}; step {step_s[0] * 1e3:.1f} ms host "
+            f"({first_s:.1f} s with init), peak {peak / 2**30:.2f} GiB; "
+            f"launches {per} by counter")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _grouped_launches_by_shape(lm, rows: int) -> dict:
+    """Launches a step of each distinct grouped PE call ``(kind, Z shape,
+    G shape)`` of ``lm``'s TT expert sites at ``rows`` tokens: each site's
+    forward chain over the E experts at the capacity's C rows (twice under
+    remat), its transposed chain, and one PE3 a Ŵ window (``("pe3", Ybar
+    (E', C, J), X (E', C, I))``)."""
+    from repro_torch.core.ttm import pe_shapes, what_windows
+    from repro_torch.models import moe as M
+    from repro_torch.models.lm import _walk_sites
+    fwd = 2 if lm.cfg.remat == "full" else 1
+    d = next(s.ffn for s in lm.period if s.ffn_kind == "moe")
+    e, cap = d.num_experts, M._capacity(rows, d)
+    out: dict = {}
+    for path, site in _walk_sites(lm):
+        if not site.use_tt or site.family != "expert":
+            continue
+        n, s = lm.n_periods, site.spec
+        calls = [(c, n * fwd) for c in pe_shapes(s, cap, groups=e)] + [
+            (c, n) for c in pe_shapes(s.transposed(), cap, groups=e)] + [
+            (("pe3", (e1 - e0, cap, s.out_dim), (e1 - e0, cap, s.in_dim)), n)
+            for e0, e1 in what_windows(s, e)]
+        for c, k in calls:
+            out[c] = out.get(c, 0) + k
+    return out
+
+
+def _grouped_pe_calls() -> list:
+    """(arch, kind, Z shape, G shape, launches a step) of every grouped PE
+    call of train moe's cells and train recurrent's jamba period, each
+    once."""
+    seen, out = set(), []
+    cells = [(a, lay, b * s, _moe_lm(a, lay)) for a, lay, b, s in
+             MOE_TRAIN_CELLS] + [(a, lay, b * s, _recurrent_lm(a, lay))
+                                 for a, lay, b, s in RECURRENT_CELLS
+                                 if a.startswith("jamba")]
+    for arch, _, rows, lm in cells:
+        for call, n in sorted(_grouped_launches_by_shape(lm, rows).items()):
+            if call not in seen:
+                seen.add(call)
+                out.append((arch, *call, n))
+    return out
+
+
+def _grouped_library(torch, kind, z, g):
+    """Yardstick only: one bf16 batched matmul computing a grouped call
+    (``torch.bmm``; PE2 a broadcast ``torch.matmul``)."""
+    if kind == "pe1":                     # (E, a, 1, c) x (E, 1, d, c)
+        return torch.bmm(z[:, :, 0], g[:, 0].transpose(1, 2))
+    if kind == "pe2":                     # (E, b, d)^T @ (E, a, b, c)
+        return torch.matmul(g.transpose(1, 2)[:, None], z)
+    return torch.bmm(z.transpose(1, 2), g)    # PE3: Ybar^T X a group
+
+
+def _moe_grouped_rows(torch, timer: Timer) -> dict:
+    """Every grouped PE1 / PE2 / PE3 call of the MoE steps
+    (``_grouped_pe_calls``) at its shapes: on the tensor cores (asserted),
+    one launch, within ``PE_TOL`` of the plain version, bit for bit over
+    two launches and with the loop of ungrouped launches over the experts
+    (each tile one warpgroup's sum in a fixed order); timed beside that
+    loop (``previous_ms``, the design a grouped launch replaces), the
+    faster of one bf16 batched matmul and ``torch.einsum``
+    (``library_ms``), the plain version and the bound (bytes at 3.35 TB/s
+    or bf16 operations at 989 TFLOP/s)."""
+    from repro_torch.kernels import build as B
+    from repro_torch.kernels import tt_mma, ttm_pe1
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tol = PE_TOL["bfloat16"]
+    rows = {"pe1": [], "pe2": [], "pe3": []}
+    for arch, kind, zs, gs, per_step in _grouped_pe_calls():
+        name = f"grouped {kind} {zs}x{gs} ({arch})"
+        kern, plain = _pe_fns(kind)
+        z = torch.randn(zs, generator=gen, device="cuda").to(torch.bfloat16)
+        g = (torch.randn(gs, generator=gen, device="cuda") * 0.2).to(
+            torch.bfloat16)
+        e = zs[0]
+        p = (ttm_pe1.plan_pe1_for(z, g) if kind == "pe1" else
+             tt_mma.plan_for(z, g) if kind == "pe2" else
+             tt_mma.plan_for(g[:, None], z))
+        check(p is not None, f"{name}: not on the tensor cores")
+        B.reset_launches()
+        o = kern(z, g)
+        check(B.LAUNCHES == {f"{kind}_grouped": 1},
+              f"{name}: launches {B.LAUNCHES}")
+        r = plain(z, g)
+        err = (o.float() - r.float()).abs()
+        check(bool((err <= tol + tol * r.float().abs()).all()),
+              f"{name}: max err {err.max().item()}")
+        del err
+        check(_bits_equal(torch, kern(z, g), o), f"{name}: two launches "
+              "differ")
+
+        def loop():
+            return [kern(z[k], g[k]) for k in range(e)]
+        check(_bits_equal(torch, torch.stack(loop()), o),
+              f"{name}: the loop of ungrouped launches differs")
+        row = dict(arch=arch, z=list(zs), g=list(gs), dtype="bfloat16",
+                   groups=e, max_abs_err=(o.float() - r.float()).abs().max(
+                   ).item(), route="tensor cores", launches_per_step=per_step,
+                   tile=[p.bm, p.bn], stages=p.stages, grid=[p.grid, e],
+                   smem=p.smem)
+        del o
+        times = {}
+        for lib, fn in (("torch.bmm" if kind != "pe2" else "torch.matmul",
+                         lambda: _grouped_library(torch, kind, z, g)),
+                        (f'torch.einsum("{PE_GROUPED_EINSUM[kind]}")',
+                         lambda: torch.einsum(PE_GROUPED_EINSUM[kind], z,
+                                              g))):
+            check((fn().float() - r.float()).abs().max().item() <= tol * (
+                1 + r.float().abs().max().item()), f"{name}: {lib} differs")
+            times[lib] = timer(fn, iters=5)
+        del r
+        row["library_call"] = min(times, key=times.get)
+        row["library_ms"] = times[row["library_call"]]
+        row["ms"] = timer(lambda: kern(z, g), iters=10)
+        row["previous_ms"] = timer(loop, iters=5)
+        row["plain_ms"] = timer(lambda: plain(z, g), iters=3)
+        nbytes, flops = _pe_work(kind, zs[1:], gs[1:], 2)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes * e, flops * e)
+        row["of_bound"] = row["ms"] / row["bound_ms"]
+        rows[kind].append(row)
+        log(f"{name}: {row['ms']*1e3:.1f} us in one launch on the tensor "
+            f"cores, {row['of_bound']:.2f}x the bound "
+            f"{row['bound_ms']*1e3:.1f} us {row['bound_by']}; the loop of "
+            f"{e} launches {row['previous_ms']*1e3:.1f} us, "
+            f"{row['library_call']} {row['library_ms']*1e3:.1f} us, plain "
+            f"{row['plain_ms']*1e3:.1f} us; {per_step} a step; err "
+            f"{row['max_abs_err']:.1e}; two launches and the loop equal")
+        del z, g
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _moe_fq_rows(torch, timer: Timer) -> list:
+    """``p2_fq_rows`` at the stacked cores of moonshot's gate site (64
+    experts, a step each, bf16): the kernel against its plain version (bit
+    for bit), ``fake_quantize_per_channel_affine`` and the bound."""
+    from repro_torch.numerics import cuda_backend as CB
+    lm = _moe_lm(MOE_TRAIN_CELLS[0][0], 1)
+    spec = lm.period[0].ffn.gate.spec
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    out = []
+    for shape in spec.core_shapes:
+        x = (torch.randn((64,) + shape, generator=gen, device="cuda")
+             * 0.05).to(torch.bfloat16)
+        s = torch.full((64,), -6.0, device="cuda")
+        x2d, srow = CB._rowwise(x, s)
+        y = CB.fake_quant_rows(x, s, 4)
+        check(_bits_equal(torch, y.reshape(x2d.shape),
+                          CB.fake_quant_rows_plain(x2d, srow, 4)),
+              f"p2_fq_rows {tuple(x.shape)}: differs from its twin")
+        n = x.numel()
+        row = dict(shape=list(x.shape), scales=[64], bits=4,
+                   dtype="bfloat16", what="moonshot's stacked gate cores",
+                   max_abs_err=0,
+                   ms=timer(lambda: CB.fake_quant_rows(x, s, 4)),
+                   plain_ms=timer(lambda: CB.fake_quant_rows_plain(
+                       x2d, srow, 4), iters=10))
+        row["library_ms"], row["library_note"] = _library_yardstick(
+            timer, lambda: _library_fq_rows(torch, x2d.float(), srow, 4),
+            lambda r: torch.equal(r.to(torch.bfloat16), y.reshape(r.shape)))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            2 * n * x.element_size() + srow.numel() * 4, 4 * n, fp32=True)
+        out.append(row)
+        log(f"p2_fq_rows {tuple(x.shape)} 4-bit bf16 (moonshot's gate "
+            f"core): {row['ms']*1e3:.1f} us (plain "
+            f"{row['plain_ms']*1e3:.1f} us, library "
+            f"{row['library_note']}, bound {row['bound_ms']*1e3:.3f} us)")
+    return out
+
+
+def phase_train_moe(torch) -> dict:
+    """The MoE LMs' low-precision train step with TT experts, each expert
+    site's PE1 / PE2 / PE3 one grouped launch for all experts and its
+    cores' fake-quant one ``p2_fq_rows`` launch a core (``_moe_cell``):
+    (a) with_tt(moonshot-v1-16b, quantize=True) uncut (48 layers, 64
+    experts top-6) on 8 x 256 tokens through ``train``; (b)
+    with_tt(deepseek-v2-236b, quantize=True) at full width, 2 of 60
+    layers (MLA, 160 experts top-6 and 2 shared), on 2 x 256 through
+    ``make_train_step``: MLA's first backward on the card; (e) every
+    grouped call of (a), (b) and train recurrent's jamba period
+    (``_moe_grouped_rows``) and ``p2_fq_rows`` at moonshot's stacked
+    cores; (d) at a reduced width (TT experts, d = 3, rank 4, f32, int8
+    moments and the wire) one step of moonshot and of deepseek on the card
+    against the same step on the CPU (``_step_card_vs_cpu``)."""
+    import repro_torch.configs as C
+    from repro_torch.configs.base import QuantConfig, TrainConfig, TTConfig
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.lm import build_lm
+    t0 = time.perf_counter()
+    out = {"parts_s": {}}
+
+    def part(name):
+        out["parts_s"][name] = time.perf_counter() - t0 - sum(
+            out["parts_s"].values())
+    for arch, layers, batch, seq in MOE_TRAIN_CELLS:
+        out[arch] = _moe_cell(torch, arch, layers, batch, seq)
+        part(arch)
+    timer = Timer(torch)
+    out["kernels"] = _moe_grouped_rows(torch, timer)
+    out["fq_rows"] = _moe_fq_rows(torch, timer)
+    del timer
+    part("kernels")
+    tcfg = TrainConfig(opt_state_dtype="int8", grad_compress=True,
+                       total_steps=8, warmup_steps=5)
+    for arch, _, _, _ in MOE_TRAIN_CELLS:
+        cfg = C.get_reduced(arch).replace(
+            dtype="float32", quant=QuantConfig(enable=True),
+            tt=TTConfig(enable=True, d=3, max_rank=4, min_elements=1024,
+                        apply_to=("ffn", "attn_qkv", "attn_o", "expert")))
+        out[f"{arch} identity"] = _step_card_vs_cpu(
+            torch, build_lm(cfg), tcfg, make_batch_fn(cfg, 2, 16, 0)(0),
+            f"moe identity ({arch})")
+    part("identity")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"train moe: {out['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["parts_s"].items()) + ")")
+    check(out["seconds"] < MOE_TRAIN_SECONDS, f"train moe took "
+          f"{out['seconds']:.1f} s, over {MOE_TRAIN_SECONDS:.0f}")
     return out
 
 
@@ -8216,8 +8657,19 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
                  lmkern: dict, lm: dict, spec: dict, state: dict,
                  rwkv: dict, hybrid: dict, sgroup: dict, moe: dict,
                  mla: dict, frontend: dict, ckpt: dict,
-                 fkern: dict, recurrent: dict) -> dict:
+                 fkern: dict, recurrent: dict, tmoe: dict) -> dict:
     rows = []
+    # the MoE train steps (train moe's cells and train recurrent's jamba
+    # period with its experts): their launches by counter
+    moe_cells = [(a.split("-")[0], tmoe[a]["launches"])
+                 for a, *_ in MOE_TRAIN_CELLS] + [
+        (a.split("-")[0], recurrent[a]["launches"])
+        for a, *_ in RECURRENT_CELLS if a.startswith("jamba")]
+
+    def moe_path(name):
+        got = [lc.get(name, 0) for _, lc in moe_cells]
+        return sum(got), "train moe (" + ", ".join(
+            f"{n} {g}" for (n, _), g in zip(moe_cells, got)) + ")"
     for name, (src, replaces) in KERNELS.items():
         rows.append(_kernel_row(name, src, replaces, kern[name],
                                 eng["launches_main"].get(name, 0),
@@ -8311,6 +8763,14 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
             row["path"] += "; train recurrent (" + ", ".join(
                 f"{a.split('-')[0]} {g}" for (a, *_), g in
                 zip(RECURRENT_CELLS, got)) + " a step)"
+        # the MoE steps' ungrouped launches (the router, attention and
+        # shared sites' chains, the core and grad-edge groups, the wire)
+        if name in ("pe1", "pe2", "pe3", "p2_fake_quant", "bw_enc",
+                    "bw_dec"):
+            n, path = moe_path(name)
+            if n:
+                row["moe_launches"] = n
+                row["path"] += "; " + path
         if name == "p2_fake_quant":
             row["shapes"] = row["shapes"] + lm["fq_rows"]
         if name == "bw_enc":
@@ -8355,6 +8815,15 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
             f"{a.split('-')[0]} {g}" for (a, *_), g in
             zip(RECURRENT_CELLS, got)) + (
             f" a step; {len(recurrent['kernels'][kind])} new {kind} calls)")
+    # the grouped launches: every expert site's PE1 / PE2 / PE3, one launch
+    # for all experts, on the tensor-core bodies (by profile name the same
+    # functions as the rows above)
+    for name, (src, replaces, kind) in LM_KERNELS.items():
+        n, path = moe_path(f"{kind}_grouped")
+        rows.append(_kernel_row(
+            f"{kind}_grouped", src, replaces, tmoe["kernels"][kind], n,
+            f"{path}: every {kind}_grouped launch of the steps, by counter; "
+            f"{len(tmoe['kernels'][kind])} grouped {kind} calls"))
     for name, (src, replaces, kind) in TILE_KERNELS.items():
         got = [ckpt["launches"].get(kind, 0),
                ckpt["eh"]["launches"].get(kind, 0)]
@@ -8366,10 +8835,11 @@ def kernels_line(kern: dict, eng: dict, tkern: dict, train: dict,
             "step, by route and by profile name)"))
     for name, (src, replaces) in SCALAR_KERNELS.items():
         if name == "p2_fq_rows":
+            n, path = moe_path(name)
             rows.append(_kernel_row(
-                name, src, replaces, skern[name], api.get(name, 0),
-                "codec API (numerics.fake_quant with a scale per leading "
-                "index; no serving or training path)"))
+                name, src, replaces, tmoe["fq_rows"] + skern[name], n,
+                f"{path}: the stacked expert cores, one launch a core and a "
+                f"step an expert; codec API {api.get(name, 0)}"))
             continue
         launches = chunk_replay.get(name, 0)
         rows.append(_kernel_row(
@@ -8788,6 +9258,8 @@ def main(argv=None) -> int:
     done("train_ckpt")
     report["train_recurrent"] = phase_train_recurrent(torch)
     done("train_recurrent")
+    report["train_moe"] = phase_train_moe(torch)
+    done("train_moe")
     report["seconds"] = time.perf_counter() - t0
     line = kernels_line(report["kernels"], report["engine"],
                         report["train_kernels"], report["train"],
@@ -8799,7 +9271,7 @@ def main(argv=None) -> int:
                         report["state_group"], report["serve_moe"],
                         report["serve_mla"], report["train_frontend"],
                         report["train_ckpt"], report["frontend_kernels"],
-                        report["train_recurrent"])
+                        report["train_recurrent"], report["train_moe"])
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(report, indent=1))

@@ -13,6 +13,10 @@ which is exactly the stationary point of g in λ. Slices whose λ collapses
 toward 0 are pruned (masked during training; physically sliced at export).
 Everything here is device tensor ops except ``effective_ranks``, which
 returns Python ints.
+
+Stacked cores (a leading group axis: an MoE layer's E experts, cores ``(E,
+R, J, I, R)``, λ ``(E, R)``) are E sites side by side, as the reference's
+vmap computes them: every max, mask, floor and norm is per group row.
 """
 from __future__ import annotations
 
@@ -24,8 +28,9 @@ from .ttm import TTMSpec
 
 
 def slice_sqnorms(core: torch.Tensor) -> torch.Tensor:
-    """‖G_n(:,:,:,r)‖_F² for every r along the last (rank) axis -> (R_n,)."""
-    return torch.sum(torch.square(core.float()), dim=(0, 1, 2))
+    """‖G_n(:,:,:,r)‖_F² for every r along the last (rank) axis -> (R_n,);
+    stacked (E, ...) -> (E, R_n)."""
+    return torch.sum(torch.square(core.float()), dim=(-4, -3, -2))
 
 
 def group_size(spec: TTMSpec, n: int) -> int:
@@ -51,8 +56,10 @@ PRIOR_REL_FLOOR = 1e-2
 
 def _prior_floor(lam: torch.Tensor) -> torch.Tensor:
     """λ as seen by the prior: floored at max(PRIOR_REL_FLOOR·max λ,
-    LAMBDA_FLOOR) so the dead-slice pull is bounded and scale-free."""
-    return torch.maximum(lam, torch.clamp(PRIOR_REL_FLOOR * torch.max(lam),
+    LAMBDA_FLOOR) so the dead-slice pull is bounded and scale-free; the max
+    of each group row where λ is stacked."""
+    top = torch.amax(lam, dim=-1, keepdim=True)
+    return torch.maximum(lam, torch.clamp(PRIOR_REL_FLOOR * top,
                                           min=LAMBDA_FLOOR))
 
 
@@ -85,17 +92,20 @@ def prior_loss(cores: Sequence[torch.Tensor], lambdas: Sequence[torch.Tensor],
 
 def rank_masks(lambdas: Sequence[torch.Tensor],
                threshold: float) -> list[torch.Tensor]:
-    """Binary keep-masks per adapted rank: keep r if λ(r) > threshold·max λ."""
-    return [(lam > threshold * torch.max(lam)).float() for lam in lambdas]
+    """Binary keep-masks per adapted rank: keep r if λ(r) > threshold·max λ
+    (the max of each group row where λ is stacked)."""
+    return [(lam > threshold * torch.amax(lam, dim=-1, keepdim=True)).float()
+            for lam in lambdas]
 
 
 def apply_masks(cores: Sequence[torch.Tensor],
                 masks: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     """Zero out pruned rank slices: mask n applies to core n's last axis
-    (one multiply suffices for the matvec product)."""
+    (one multiply suffices for the matvec product); a stacked mask (E, R)
+    to each group's core."""
     out = list(cores)
     for n, m in enumerate(masks):
-        out[n] = out[n] * m[None, None, None, :].to(out[n].dtype)
+        out[n] = out[n] * m[..., None, None, None, :].to(out[n].dtype)
     return out
 
 

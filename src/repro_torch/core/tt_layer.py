@@ -6,6 +6,13 @@ Params are plain dicts of tensors, specs are static. The matvec is
 and the cores' 4-bit fake-quant is one launch of the group fake-quant
 kernel for the layer's cores, so a layer on the card runs only
 hand-written kernels for its TT work.
+
+Stacked params (an MoE layer's E experts, the reference's vmapped
+``init_site``: cores ``(E, R, J, I, R)``, λ ``(E, R)``, ``wscale_log2``
+``(E, d)``, a bias ``(E, out)``) are E sites in one: rank masks per
+expert, each core fake-quantized under its E steps in one launch of the
+row kernel (``p2_fq_rows``), the matvec the grouped chain on x (E, C,
+in).
 """
 from __future__ import annotations
 
@@ -16,7 +23,7 @@ import torch
 
 from ..configs.base import QuantConfig, TTConfig
 from ..device import resolve_device
-from ..numerics import QuantSpec, fake_quant_many
+from ..numerics import QuantSpec, fake_quant, fake_quant_many
 from . import rank_adapt as RA
 from .ttm import TTMSpec, core_sigma, init_cores, make_spec, tt_matvec
 
@@ -66,7 +73,9 @@ def effective_cores(params: Params, spec: TTMSpec, tt: TTConfig,
                     qc: QuantConfig) -> list[torch.Tensor]:
     """Cores as seen by the forward pass: rank-masked then fake-quantized
     (the ``tt_factor`` site: pow-2 codec, fixed per-core scales, §3.2), all
-    d cores in one call, their steps read on the device."""
+    d cores in one call, their steps read on the device; stacked cores one
+    row-kernel call a core, a step a group (the reference's vmap of a
+    scalar-step fake-quant), with the same clipped STE."""
     cores = get_cores(params, spec)
     if tt.rank_adapt and spec.d > 1:
         masks = RA.rank_masks([lam.detach()
@@ -75,17 +84,25 @@ def effective_cores(params: Params, spec: TTMSpec, tt: TTConfig,
         cores = RA.apply_masks(cores, masks)
     if qc.enable:
         qspec = QuantSpec("pow2", qc.weight_bits, 0, "int8", "fixed")
-        cores = fake_quant_many(cores, qspec, params["wscale_log2"].float(),
-                                backend="cuda")
+        steps = params["wscale_log2"].float()
+        if steps.dim() > 1:
+            cores = [fake_quant(c, qspec, steps[:, n], backend="cuda")
+                     for n, c in enumerate(cores)]
+        else:
+            cores = fake_quant_many(cores, qspec, steps, backend="cuda")
     return cores
 
 
 def tt_linear_apply(params: Params, x: torch.Tensor, spec: TTMSpec,
                     tt: TTConfig, qc: QuantConfig) -> torch.Tensor:
+    """y = W x + bias; stacked params take x (E, C, in) -> (E, C, out)."""
     cores = effective_cores(params, spec, tt, qc)
     y = tt_matvec([c.to(x.dtype) for c in cores], x, spec)
     if "bias" in params:
-        y = y + params["bias"].to(y.dtype)
+        bias = params["bias"]
+        if bias.dim() > 1:                  # (E, out): each group's rows
+            bias = bias[:, None, :]
+        y = y + bias.to(y.dtype)
     return y
 
 

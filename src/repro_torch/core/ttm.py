@@ -14,6 +14,13 @@ is ``ttm_matvec_pe`` on the PE1/PE2 kernels, its backward the paper's
 Appendix A.2 — the full-weight gradient Ŵ from the PE3 kernel, core
 gradients contracted from Ŵ (``core_grads_from_what``), and the input
 gradient from the transposed chain on the same PE1/PE2 kernels.
+
+Stacked cores (a leading group axis: the E experts of an MoE layer, each
+core ``(E, R_{n-1}, J_n, I_n, R_n)``) take ``x (E, C, I)``: the chain runs
+every group's product in the same PE launches (the kernels' grouped
+form), Ŵ comes from grouped PE3 launches over windows of at most
+``WHAT_CAP`` elements (``what_windows``), and the core gradients are
+contracted from each window's Ŵ.
 """
 from __future__ import annotations
 
@@ -215,12 +222,12 @@ def ttm_flops_matvec(spec: TTMSpec, batch: int) -> int:
 
 def pe1_contract(z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """PE1 (Eq. 5): Z'(a,d) = sum_{b,c} Z(a,b,c) * G(b,d,c)."""
-    return torch.einsum("abc,bdc->ad", z, g)
+    return torch.einsum("...abc,...bdc->...ad", z, g)
 
 
 def pe2_contract(z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """PE2 (Eq. 6): Z'(a,d,c) = sum_b Z(a,b,c) * G(b,d)."""
-    return torch.einsum("abc,bd->adc", z, g)
+    return torch.einsum("...abc,...bd->...adc", z, g)
 
 
 def pe3_outer(x: torch.Tensor, ybar: torch.Tensor) -> torch.Tensor:
@@ -232,25 +239,29 @@ def core_grads_from_what(what: torch.Tensor, cores: list[torch.Tensor],
                          spec: TTMSpec) -> list[torch.Tensor]:
     """Per-core gradients from the full-weight gradient Ŵ (paper Appendix
     A.2, Eqs. 14-19): ĝ_n = Ŵ contracted with every core except n, in f32
-    (f64 stays f64), returned in each core's dtype."""
+    (f64 stays f64), returned in each core's dtype. Stacked: Ŵ (E, J, I)
+    and cores (E, R, J_n, I_n, R), each group's on its own."""
     d = spec.d
+    lead = tuple(what.shape[:-2])
+    g_l = "g" if lead else ""      # the group letter
     acc_t = torch.promote_types(what.dtype, torch.float32)
-    wt = what.reshape(spec.j_dims + spec.i_dims)
-    perm = [x for n in range(d) for x in (n, d + n)]
+    wt = what.reshape(lead + spec.j_dims + spec.i_dims)
+    o = len(lead)
+    perm = list(range(o)) + [o + x for n in range(d) for x in (n, d + n)]
     wt = wt.permute(perm).reshape(
-        tuple(spec.j_dims[n] * spec.i_dims[n] for n in range(d)))
-    cores3 = [c.reshape(spec.ranks[n], -1, spec.ranks[n + 1])
+        lead + tuple(spec.j_dims[n] * spec.i_dims[n] for n in range(d)))
+    cores3 = [c.reshape(lead + (spec.ranks[n], -1, spec.ranks[n + 1]))
               for n, c in enumerate(cores)]
     m_l = "abcdef"           # mode letters (d <= 6)
     r_l = "uvwxyzs"          # rank letters (d+1 <= 7)
     grads = []
     for n in range(d):
-        subs = [m_l[:d]]
+        subs = [g_l + m_l[:d]]
         ops = [wt.to(acc_t)]
         for k in range(d):
             if k == n:
                 continue
-            subs.append(r_l[k] + m_l[k] + r_l[k + 1])
+            subs.append(g_l + r_l[k] + m_l[k] + r_l[k + 1])
             ops.append(cores3[k].to(acc_t))
         # boundary ranks R_0 == R_d == 1 never appear in the inputs when the
         # boundary core is the one being differentiated — drop the letter
@@ -260,7 +271,7 @@ def core_grads_from_what(what: torch.Tensor, cores: list[torch.Tensor],
             out = r_l[n] + out
         if n < d - 1:
             out = out + r_l[n + 1]
-        g = torch.einsum(",".join(subs) + "->" + out, *ops)
+        g = torch.einsum(",".join(subs) + "->" + g_l + out, *ops)
         grads.append(g.reshape(cores[n].shape).to(cores[n].dtype))
     return grads
 
@@ -269,34 +280,42 @@ def ttm_matvec_pe(cores: list[torch.Tensor], x: torch.Tensor, spec: TTMSpec,
                   pe1=pe1_contract, pe2=pe2_contract) -> torch.Tensor:
     """Same result as ``ttm_matvec`` but routed through the two canonical
     PE forms with the exact reshapes of paper Table 3 (rows for Eqs.
-    8-10). Pass kernel entry points (``kernels.ops.pe1/pe2``) as pe1/pe2."""
+    8-10). Pass kernel entry points (``kernels.ops.pe1/pe2``) as pe1/pe2.
+    Stacked cores ``(E, R, J_n, I_n, R)`` take ``x (E, ..., I)``: every PE
+    call carries the leading E (the kernels' grouped form)."""
     d = spec.d
-    batch_shape = tuple(x.shape[:-1])
+    lead = tuple(cores[0].shape[:-4])
+    o = len(lead)
+    batch_shape = tuple(x.shape[o:-1])
     b = math.prod(batch_shape) if batch_shape else 1
     # Eq. (8): PE1 with a=b*I_1..I_{d-1}, b_dim=1, c=I_d, d_out=R_{d-1}*J_d
     rdm1, jd, idd = spec.ranks[d - 1], spec.j_dims[d - 1], spec.i_dims[d - 1]
     a = b * (math.prod(spec.i_dims[:d - 1]) if d > 1 else 1)
-    z = x.reshape(a, 1, idd)
-    gmat = cores[d - 1].reshape(1, rdm1 * jd, idd)
+    z = x.reshape(lead + (a, 1, idd))
+    gmat = cores[d - 1].reshape(lead + (1, rdm1 * jd, idd))
     z = pe1(z, gmat)                                    # (a, R_{d-1}*J_d)
     acc_j = jd
     # Eq. (9) steps: PE2 with c = accumulated J, b_dim = I_n*R_n,
     # d_out = R_{n-1}*J_n
+    perm = tuple(range(o)) + (o + 2, o + 3, o, o + 1)
     for n in range(d - 2, -1, -1):
         r_in, r_out = spec.ranks[n + 1], spec.ranks[n]
         i_n, j_n = spec.i_dims[n], spec.j_dims[n]
         left = math.prod(spec.i_dims[:n]) if n > 0 else 1
-        z = z.reshape(b * left, i_n * r_in, acc_j)
-        gmat = cores[n].permute(2, 3, 0, 1).reshape(i_n * r_in, r_out * j_n)
+        z = z.reshape(lead + (b * left, i_n * r_in, acc_j))
+        gmat = cores[n].permute(perm).reshape(lead + (i_n * r_in,
+                                                      r_out * j_n))
         z = pe2(z, gmat)                    # (b*left, r_out*j_n, acc_j)
         acc_j *= j_n
-        z = z.reshape(-1, r_out * acc_j)
-    return z.reshape(batch_shape + (spec.out_dim,))
+        z = z.reshape(lead + (-1, r_out * acc_j))
+    return z.reshape(lead + batch_shape + (spec.out_dim,))
 
 
-def pe_shapes(spec: TTMSpec, batch: int) -> list[tuple[str, tuple, tuple]]:
-    """``(kind, Z shape, G shape)`` of every PE call ``ttm_matvec_pe``
-    makes for ``batch`` rows, in order (traced on meta tensors)."""
+def pe_shapes(spec: TTMSpec, batch: int,
+              groups: int = 0) -> list[tuple[str, tuple, tuple]]:
+    """``(kind, Z shape, G shape)`` of every PE call ``ttm_matvec_pe`` makes
+    for ``batch`` rows, in order (traced on meta tensors); ``groups`` > 0:
+    the grouped chain of that many stacked cores, ``batch`` rows each."""
     seen = []
 
     def rec(kind, fn):
@@ -304,11 +323,27 @@ def pe_shapes(spec: TTMSpec, batch: int) -> list[tuple[str, tuple, tuple]]:
             seen.append((kind, tuple(z.shape), tuple(g.shape)))
             return fn(z, g)
         return f
-    cores = [torch.empty(s, device="meta") for s in spec.core_shapes]
-    ttm_matvec_pe(cores, torch.empty((batch, spec.in_dim), device="meta"),
+    lead = (groups,) if groups else ()
+    cores = [torch.empty(lead + s, device="meta") for s in spec.core_shapes]
+    ttm_matvec_pe(cores, torch.empty(lead + (batch, spec.in_dim),
+                                     device="meta"),
                   spec, pe1=rec("pe1", pe1_contract),
                   pe2=rec("pe2", pe2_contract))
     return seen
+
+
+# Ŵ of a grouped matvec is (E, J, I): every group's full weight. The
+# backward takes it a window of groups at a time, each window at most this
+# many elements (2^29: 1 GiB in bf16, 2 GiB once the core gradients read
+# it in f32), so the peak stays a few GiB however many experts there are.
+WHAT_CAP = 1 << 29
+
+
+def what_windows(spec: TTMSpec, groups: int) -> list[tuple[int, int]]:
+    """(start, stop) of the groups of each grouped PE3 launch: windows of
+    ``max(1, WHAT_CAP // (J I))`` groups (``WHAT_CAP`` read at each call)."""
+    w = max(1, WHAT_CAP // (spec.out_dim * spec.in_dim))
+    return [(e, min(e + w, groups)) for e in range(0, groups, w)]
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +365,9 @@ class TTMatvec(torch.autograd.Function):
               transposed chain — cores ``G.permute(0, 2, 1, 3)`` on
               ``spec.transposed()`` — on the same PE1/PE2 kernels, only
               when the input needs a gradient.
+
+    Stacked cores (E, ...) with x (E, C, I): the grouped chains, and Ŵ
+    (E, J, I) from one grouped PE3 launch a window of ``what_windows``.
     """
 
     @staticmethod
@@ -343,17 +381,29 @@ class TTMatvec(torch.autograd.Function):
         from ..kernels import ops
         x, *cores = ctx.saved_tensors
         spec = ctx.spec
+        lead = tuple(cores[0].shape[:-4])
         ybar = ybar.contiguous()
-        y2 = ybar.reshape(-1, spec.out_dim)
+        y2 = ybar.reshape(lead + (-1, spec.out_dim))
         dx = None
         if ctx.needs_input_grad[0]:
-            cores_t = [c.permute(0, 2, 1, 3) for c in cores]
+            cores_t = [c.transpose(-3, -2) for c in cores]
             dx = _kernel_chain(cores_t, ybar, spec.transposed()
                                ).reshape(x.shape)
         grads = [None] * len(cores)
         if any(ctx.needs_input_grad[2:]):
-            what = ops.pe3(y2, x.reshape(-1, spec.in_dim))
-            grads = core_grads_from_what(what, cores, spec)
+            x2 = x.reshape(lead + (-1, spec.in_dim))
+            if not lead:
+                what = ops.pe3(y2, x2)
+                grads = core_grads_from_what(what, cores, spec)
+            else:
+                parts = []
+                for e0, e1 in what_windows(spec, lead[0]):
+                    what = ops.pe3(y2[e0:e1], x2[e0:e1])
+                    parts.append(core_grads_from_what(
+                        what, [c[e0:e1] for c in cores], spec))
+                    del what
+                grads = [torch.cat(g) if len(g) > 1 else g[0]
+                         for g in zip(*parts)]
         return (dx, None, *grads)
 
 

@@ -244,6 +244,12 @@ __device__ __forceinline__ void contract(const T* __restrict__ Z, const T* __res
   const int tid = threadIdx.x, nt = blockDim.x;
   const int CT = p.cg * 4, DT = p.dg * RD;
 
+  // a grouped call (the experts of an MoE layer): group blockIdx.y's
+  // operands follow the previous group's, each the plan's shapes
+  Z += (size_t)blockIdx.y * p.a * p.b * p.c;
+  G += (size_t)blockIdx.y * p.b * p.d;
+  O += (size_t)blockIdx.y * p.a * p.d * p.c;
+
   // this CTA's slab run and output tile
   int t = blockIdx.x;
   const int ti_c = t % p.tiles_c;
@@ -350,12 +356,14 @@ __device__ __forceinline__ void contract(const T* __restrict__ Z, const T* __res
 }
 
 // Launch `fn` (a kernel<T, RD> taking (Z, G, O, Plan)) on `stream` after
-// checking the plan; returns cudaGetLastError() after the launch.
+// checking the plan, `groups` groups of the plan's shapes one after another
+// in each operand (blockIdx.y the group); returns cudaGetLastError() after
+// the launch.
 inline int launch(const void* fn, const void* z, const void* g, void* o, const int* fields,
-                  void* stream) {
+                  int groups, void* stream) {
   Plan p;
   memcpy(&p, fields, sizeof(Plan));
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  if (fn == nullptr || groups < 1 || groups > 65535) return (int)cudaErrorInvalidValue;
   if (p.grid == 0) return (int)cudaSuccess;
   const bool ok = p.threads >= 32 && p.threads <= kMaxThreads && p.threads % 32 == 0 &&
                   p.smem >= 0 && p.smem <= kMaxSmem && p.bc >= 1 && p.stages >= 1 &&
@@ -370,8 +378,9 @@ inline int launch(const void* fn, const void* z, const void* g, void* o, const i
     if (e != cudaSuccess) return (int)e;
   }
   void* args[] = {&z, &g, &o, &p};
-  const cudaError_t e = cudaLaunchKernel(fn, dim3((unsigned)p.grid), dim3((unsigned)p.threads),
-                                         args, (size_t)p.smem, (cudaStream_t)stream);
+  const cudaError_t e =
+      cudaLaunchKernel(fn, dim3((unsigned)p.grid, (unsigned)groups), dim3((unsigned)p.threads),
+                       args, (size_t)p.smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -164,20 +164,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
 }
 
 // ---- TMA loads, completing on `bar`
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int x,
-                                       int y) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y)
-      : "memory");
-}
 __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int x,
                                        int y, int z) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+__device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int x,
+                                       int y, int z, int w) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(z), "r"(w)
       : "memory");
 }
 
@@ -339,14 +339,15 @@ __device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t 
                "r"(smem_u32(src)), "r"(bytes)
                : "memory");
 }
-// a TMA tensor store of the box at (x, y) from a shared-memory tile laid out
-// as the map's swizzle says; rows and columns past the tensor are dropped
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int x,
-                                             int y) {
-  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
-                   reinterpret_cast<uint64_t>(map)),
-               "r"(smem_u32(src)), "r"(x), "r"(y)
-               : "memory");
+// a TMA tensor store of the box at (x, y, z) from a shared-memory tile laid
+// out as the map's swizzle says; rows and columns past the tensor are dropped
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int x,
+                                             int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(x), "r"(y), "r"(z)
+      : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
@@ -415,12 +416,20 @@ __device__ __forceinline__ void stage_g(uint8_t* a_res, const uint8_t* g, const 
 // Warps 0 .. 4 * wm * wn - 1 are the consumer warpgroups (warpgroup g takes
 // rows 64 * (g / wn) and columns WGN * (g % wn) of a tile), the rest the
 // producer. z and g are the operands' own pointers, read where p.gz / p.gg
-// stage them by granules (the maps are then unused).
+// stage them by granules (the maps are then unused). A grouped call (the
+// experts of an MoE layer) runs group blockIdx.y's tiles in this CTA: its
+// operands follow the previous group's, the maps carry the group as their
+// outermost coordinate (a box never reads the next group's rows: the
+// zero fill pads each group's tail), and a resident G is its group's.
 template <int WGN, int SW>
 __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* tb,
                                      const uint8_t* __restrict__ z, const uint8_t* __restrict__ g,
                                      __nv_bfloat16* __restrict__ O, const Plan& p) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const int grp = blockIdx.y;
+  z += (size_t)grp * p.a * p.b * p.c * 2;
+  g += (size_t)grp * p.b * p.d * 2;
+  O += (size_t)grp * p.a * p.d * p.c;
   uint8_t* sm = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                            ~uintptr_t(1023));
   constexpr int kProd = kProducer<WGN, SW>;
@@ -481,7 +490,7 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
         mbar_expect_tx(abar, p.a_res);
         for (int kc = 0; kc < p.nk; ++kc)
           for (int mb = 0; mb < p.wm; ++mb)
-            tma_2d(a_res + kc * p.a_chunk + mb * a_box, ta, abar, kABox * mb, kc * kBK);
+            tma_3d(a_res + kc * p.a_chunk + mb * a_box, ta, abar, kABox * mb, kc * kBK, grp);
       }
     }
     if (!kZGran && pt != 0) {  // G's granules only: the rest is lane 0's TMA
@@ -500,7 +509,7 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
           mbar_expect_tx(full + st, stage_tx);
           if (!p.resident)
             for (int mb = 0; mb < p.wm; ++mb)
-              tma_2d(slot + mb * a_box, ta, full + st, d0 + kABox * mb, kc * kBK);
+              tma_3d(slot + mb * a_box, ta, full + st, d0 + kABox * mb, kc * kBK, grp);
         }
         if (!p.resident) slot += p.a_chunk;
         if constexpr (kZGran) {
@@ -511,7 +520,7 @@ __device__ __forceinline__ void gemm(const CUtensorMap* ta, const CUtensorMap* t
           cp_arrive(full + st);
         } else {
           for (int i = 0; i < nbox; ++i)
-            tma_3d(slot + i * b_box, tb, full + st, c0 + i * p.bw, kc * kBK, a0);
+            tma_4d(slot + i * b_box, tb, full + st, c0 + i * p.bw, kc * kBK, a0, grp);
         }
         if (++st == p.stages) {
           st = 0;
@@ -678,45 +687,43 @@ inline CUtensorMapSwizzle swizzle(int bytes) {
                        : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
-// A 2-D bf16 map: `inner` x `outer` elements, rows `stride` bytes apart,
-// boxes of box_inner x box_outer under the `sw`-byte swizzle; reads past
-// the edges give zeros.
-inline bool map_2d(CUtensorMap* m, const void* ptr, uint64_t inner, uint64_t outer,
-                   uint64_t stride, uint32_t box_inner, uint32_t box_outer, int sw) {
+// A 3-D bf16 map of `groups` matrices one after another: `inner` x `outer`
+// elements each, rows `stride` bytes apart, boxes of box_inner x box_outer
+// x 1 under the `sw`-byte swizzle (the box of a 2-D map); reads past a
+// matrix's edges give zeros, never the next matrix's rows.
+inline bool map_3d(CUtensorMap* m, const void* ptr, uint64_t inner, uint64_t outer,
+                   uint64_t groups, uint64_t stride, uint32_t box_inner, uint32_t box_outer,
+                   int sw) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
-  const cuuint64_t dim[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t str[1] = {(cuuint64_t)stride};
-  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
-  const cuuint32_t ones[2] = {1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dim, str, box, ones,
+  const cuuint64_t dim[3] = {(cuuint64_t)inner, (cuuint64_t)outer, (cuuint64_t)groups};
+  const cuuint64_t str[2] = {(cuuint64_t)stride, (cuuint64_t)(stride * outer)};
+  const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer, 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dim, str, box, ones,
              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle(sw), CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// G (b, d) as A: boxes of 64 columns of d by kBK rows, 128-byte swizzle;
-// Z (a, b, c) as B: boxes of bw columns by kBK rows by `slabs` slabs. An
-// operand staged by granules has no map (left zero).
-inline bool encode(const Plan& p, const void* z, const void* g, CUtensorMap* ta,
+// G (groups, b, d) as A: boxes of 64 columns of d by kBK rows of one
+// group, 128-byte swizzle; Z (groups, a, b, c) as B: boxes of bw columns by
+// kBK rows by `slabs` slabs of one group. An operand staged by granules has
+// no map (left zero).
+inline bool encode(const Plan& p, const void* z, const void* g, int groups, CUtensorMap* ta,
                    CUtensorMap* tb) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
   memset(ta, 0, sizeof(CUtensorMap));
   memset(tb, 0, sizeof(CUtensorMap));
-  const cuuint64_t gdim[2] = {(cuuint64_t)p.d, (cuuint64_t)p.b};
-  const cuuint64_t gstr[1] = {(cuuint64_t)p.d * 2};
-  const cuuint32_t gbox[2] = {(cuuint32_t)kABox, (cuuint32_t)kBK};
-  const cuuint64_t zdim[3] = {(cuuint64_t)p.c, (cuuint64_t)p.b, (cuuint64_t)p.a};
-  const cuuint64_t zstr[2] = {(cuuint64_t)p.c * 2, (cuuint64_t)p.b * p.c * 2};
-  const cuuint32_t zbox[3] = {(cuuint32_t)p.bw, (cuuint32_t)kBK, (cuuint32_t)p.slabs};
-  const cuuint32_t ones[3] = {1, 1, 1};
-  return (p.gg ||
-          enc(ta, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(g), gdim, gstr, gbox,
-              ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-              CUDA_SUCCESS) &&
+  const cuuint64_t zdim[4] = {(cuuint64_t)p.c, (cuuint64_t)p.b, (cuuint64_t)p.a,
+                              (cuuint64_t)groups};
+  const cuuint64_t zstr[3] = {(cuuint64_t)p.c * 2, (cuuint64_t)p.b * p.c * 2,
+                              (cuuint64_t)p.a * p.b * p.c * 2};
+  const cuuint32_t zbox[4] = {(cuuint32_t)p.bw, (cuuint32_t)kBK, (cuuint32_t)p.slabs, 1};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return (p.gg || map_3d(ta, g, p.d, p.b, groups, (uint64_t)p.d * 2, kABox, kBK, 128)) &&
          (p.gz ||
-          enc(tb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(z), zdim, zstr, zbox,
+          enc(tb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(z), zdim, zstr, zbox,
               ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle(p.sw),
               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
               CUDA_SUCCESS);
@@ -735,12 +742,14 @@ const void* pick(int wgn, int sw) {
 
 // Check the plan, encode the tensor maps and launch `fn` (a kernel taking
 // (CUtensorMap, CUtensorMap, const bf16* z, const bf16* g, bf16*, Plan)) on
-// `stream`; returns cudaGetLastError() after the launch.
+// `stream`, `groups` groups of the plan's shapes one after another in each
+// operand (blockIdx.y the group); returns cudaGetLastError() after the
+// launch.
 inline int launch(const void* fn, const void* z, const void* g, void* o, const int* fields,
-                  void* stream) {
+                  int groups, void* stream) {
   Plan p;
   memcpy(&p, fields, sizeof(Plan));
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  if (fn == nullptr || groups < 1 || groups > 65535) return (int)cudaErrorInvalidValue;
   if (p.tiles == 0) return (int)cudaSuccess;
   const int nwg = p.wm * p.wn;
   const bool stacked_gz = p.wgn == 64 && p.sw == 128;  // the stacked tiling on granules
@@ -767,15 +776,17 @@ inline int launch(const void* fn, const void* z, const void* g, void* o, const i
       (p.slabs == 1 || p.wn == 1) &&  // the stacked store's slab index carries no wn offset
       p.smem >= 1024 + p.a_res + p.stages * p.stage + nwg * 64 * p.out_pitch + 16 * p.stages + 8 &&
       za % (p.gz ? p.gz : 16) == 0 && ga % (p.gg ? p.gg : 16) == 0 &&
+      (groups == 1 || ((size_t)p.a * p.b * p.c * 2 % (p.gz ? p.gz : 16) == 0 &&
+                       (size_t)p.b * p.d * 2 % (p.gg ? p.gg : 16) == 0)) &&
       reinterpret_cast<uintptr_t>(o) % 16 == 0;
   if (!ok) return (int)cudaErrorInvalidValue;
   CUtensorMap ta, tb;
-  if (!encode(p, z, g, &ta, &tb)) return (int)cudaErrorInvalidValue;
+  if (!encode(p, z, g, groups, &ta, &tb)) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (e != cudaSuccess) return (int)e;
   void* args[] = {&ta, &tb, &z, &g, &o, &p};
-  e = cudaLaunchKernel(fn, dim3((unsigned)p.grid), dim3((unsigned)p.threads), args,
-                       (size_t)p.smem, (cudaStream_t)stream);
+  e = cudaLaunchKernel(fn, dim3((unsigned)p.grid, (unsigned)groups), dim3((unsigned)p.threads),
+                       args, (size_t)p.smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -190,6 +190,11 @@ __global__ void __launch_bounds__(kMaxThreads)
 pe1_kernel(const T* __restrict__ Z, const T* __restrict__ G, T* __restrict__ Y, Plan p,
            int epilogue, const float* __restrict__ step, float lo, float hi) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // a grouped call (the experts of an MoE layer): group blockIdx.y's
+  // operands follow the previous group's, each the plan's shapes
+  Z += (size_t)blockIdx.y * p.a * p.b * p.c;
+  G += (size_t)blockIdx.y * p.b * p.d * p.c;
+  Y += (size_t)blockIdx.y * p.a * p.d;
   T* Zs = reinterpret_cast<T*>(smem);                       // (AT, BK) in T
   float* Gs = reinterpret_cast<float*>(smem + p.zs_bytes);  // (BK, DT) f32
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -344,7 +349,10 @@ __device__ __forceinline__ void wait_staging(int nbuf) {
 // memory, from a 1024-byte boundary: resident G (rows of SW bytes, boxes of
 // WGN rows), the ring of Z slots (64 * wm rows of SW bytes), each
 // warpgroup's nbuf staging tiles (WGN / 64 boxes of 64 x 128 bytes), the
-// barriers.
+// barriers. A grouped call runs group blockIdx.y's tiles in this CTA: the
+// maps carry the group as their outermost coordinate (rows past a group's
+// a are zero fill on the way in and dropped on the way out), the granules
+// read the group's rows, and the resident G is the group's.
 template <int WGN, int SW>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 pe1_mma_kernel(const __grid_constant__ CUtensorMap tz, const __grid_constant__ CUtensorMap tg,
@@ -355,6 +363,9 @@ pe1_mma_kernel(const __grid_constant__ CUtensorMap tz, const __grid_constant__ C
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                            ~uintptr_t(1023));
+  const int grp = blockIdx.y;
+  z += (size_t)grp * p.a * p.c * 2;
+  g += (size_t)grp * p.d * p.c * 2;
   const int nwg = p.wm * p.wn;
   uint8_t* g_res = sm;
   uint8_t* ring = g_res + p.g_bytes;
@@ -406,12 +417,12 @@ pe1_mma_kernel(const __grid_constant__ CUtensorMap tz, const __grid_constant__ C
     if ((threadIdx.x & 31) != 0) return;
     mbar_expect_tx(gbar, p.g_bytes);
     for (int i = 0; i < p.tiles_n * p.wn; ++i)
-      tma_2d(g_res + i * WGN * SW, &tg, gbar, 0, i * WGN);
+      tma_3d(g_res + i * WGN * SW, &tg, gbar, 0, i * WGN, grp);
     int st = 0, ph = 0;
     for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
       mbar_wait(empty + st, ph ^ 1);
       mbar_expect_tx(full + st, p.stage);
-      tma_2d(ring + st * p.stage, &tz, full + st, 0, (t / p.tiles_n) * bm);
+      tma_3d(ring + st * p.stage, &tz, full + st, 0, (t / p.tiles_n) * bm, grp);
       if (++st == p.stages) {
         st = 0;
         ph ^= 1;
@@ -489,7 +500,7 @@ pe1_mma_kernel(const __grid_constant__ CUtensorMap tz, const __grid_constant__ C
       if (lane == 0 && m0 < p.a)
         for (int i = h * HN / kOutBox; i < (h + 1) * HN / kOutBox; ++i)
           if (n0 + kOutBox * i < p.d)
-            tma_store_2d(&ty, stg + i * kOutBoxBytes, n0 + kOutBox * i, m0);
+            tma_store_3d(&ty, stg + i * kOutBoxBytes, n0 + kOutBox * i, m0, grp);
     }
     if (lane == 0) bulk_commit();
     if (++st == p.stages) {
@@ -527,15 +538,16 @@ int cdiv(int n, int m) { return (n + m - 1) / m; }
 
 extern "C" {
 
-// z (a, b, c), g (b, d, c), y (a, d): contiguous device arrays of dtype
-// (0 f32, 1 bf16); `plan` is 16 int32 (kernels/ttm_pe1.py PLAN_FIELDS).
-// epilogue != 0 requantizes to the `bits`-bit pow-2 grid at the f32
-// scale_log2 `step` (a device pointer). Returns cudaGetLastError() after
-// the launch.
+// z (groups, a, b, c), g (groups, b, d, c), y (groups, a, d): contiguous
+// device arrays of dtype (0 f32, 1 bf16); `plan` is 16 int32
+// (kernels/ttm_pe1.py PLAN_FIELDS), one group's. epilogue != 0 requantizes
+// to the `bits`-bit pow-2 grid at the f32 scale_log2 `step` (a device
+// pointer). Returns cudaGetLastError() after the launch.
 int pe1(const void* z, const void* g, void* y, int dtype, const int* fields, int epilogue,
-        const void* step, int bits, void* stream) {
+        const void* step, int bits, int groups, void* stream) {
   Plan p;
   memcpy(&p, fields, sizeof(Plan));
+  if (groups < 1 || groups > 65535) return (int)cudaErrorInvalidValue;
   if (p.grid == 0) return (int)cudaSuccess;
   const int es = dtype == tt_contract::F32 ? 4 : 2;
   const bool ok = (dtype == tt_contract::F32 || dtype == tt_contract::BF16) &&
@@ -559,26 +571,30 @@ int pe1(const void* z, const void* g, void* y, int dtype, const int* fields, int
   const float lo = epilogue ? -ldexpf(1.f, bits - 1) : 0.f;
   const float hi = epilogue ? ldexpf(1.f, bits - 1) - 1.f : 0.f;
   void* args[] = {&z, &g, &y, &p, &epilogue, &step, (void*)&lo, (void*)&hi};
-  const cudaError_t e = cudaLaunchKernel(fn, dim3((unsigned)p.grid), dim3((unsigned)p.threads),
-                                         args, (size_t)p.smem, (cudaStream_t)stream);
+  const cudaError_t e =
+      cudaLaunchKernel(fn, dim3((unsigned)p.grid, (unsigned)groups), dim3((unsigned)p.threads),
+                       args, (size_t)p.smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// The tensor-core route: z (a, 1, c), g (1, d, c), y (a, d), contiguous bf16,
-// y 16-byte aligned, z and g 16-byte aligned or on their granules; `plan`
-// is 20 int32 (kernels/ttm_pe1.py MMA_FIELDS); the epilogue as `pe1`'s.
-// Returns cudaGetLastError() after the launch.
+// The tensor-core route: z (groups, a, 1, c), g (groups, 1, d, c), y
+// (groups, a, d), contiguous bf16, y 16-byte aligned, z and g 16-byte
+// aligned or on their granules (every group's start too); `plan` is 20
+// int32 (kernels/ttm_pe1.py MMA_FIELDS), one group's; the epilogue as
+// `pe1`'s. Returns cudaGetLastError() after the launch.
 int pe1_mma(const void* z, const void* g, void* y, const int* fields, int epilogue,
-            const void* step, int bits, void* stream) {
+            const void* step, int bits, int groups, void* stream) {
   MmaPlan p;
   memcpy(&p, fields, sizeof(MmaPlan));
+  if (groups < 1 || groups > 65535) return (int)cudaErrorInvalidValue;
   if (p.tiles == 0) return (int)cudaSuccess;
   const int nwg = p.wm * p.wn;
   // rows of c off the TMA: even c on 4- or 8-byte granules of both operands
   const bool rows = p.gran ? (p.gran == 4 || p.gran == 8) && p.c >= 2 && (p.c * 2) % p.gran == 0
                            : p.c >= 8 && p.c % 8 == 0;
-  const uintptr_t zg = reinterpret_cast<uintptr_t>(z) | reinterpret_cast<uintptr_t>(g);
+  const uintptr_t zg = reinterpret_cast<uintptr_t>(z) | reinterpret_cast<uintptr_t>(g) |
+                       (groups > 1 ? (uintptr_t)p.a * p.c * 2 | (uintptr_t)p.d * p.c * 2 : 0);
   const bool ok =
       (p.wgn == 64 || p.wgn == 128 || p.wgn == 256) && (p.sw == 32 || p.sw == 64 || p.sw == 128) &&
       p.a >= 1 && rows && p.d >= 8 && p.d % 8 == 0 && p.ksteps >= 1 &&
@@ -599,10 +615,11 @@ int pe1_mma(const void* z, const void* g, void* y, const int* fields, int epilog
   CUtensorMap tz, tg, ty;  // Z's and G's maps unused (zero) on granules
   memset(&tz, 0, sizeof(tz));
   memset(&tg, 0, sizeof(tg));
-  if ((!p.gran &&
-       (!tt_mma::map_2d(&tz, z, p.c, p.a, (uint64_t)p.c * 2, p.sw / 2, 64 * p.wm, p.sw) ||
-        !tt_mma::map_2d(&tg, g, p.c, p.d, (uint64_t)p.c * 2, p.sw / 2, p.wgn, p.sw))) ||
-      !tt_mma::map_2d(&ty, y, p.d, p.a, (uint64_t)p.d * 2, kOutBox, 64, 128))
+  if ((!p.gran && (!tt_mma::map_3d(&tz, z, p.c, p.a, groups, (uint64_t)p.c * 2, p.sw / 2,
+                                   64 * p.wm, p.sw) ||
+                   !tt_mma::map_3d(&tg, g, p.c, p.d, groups, (uint64_t)p.c * 2, p.sw / 2, p.wgn,
+                                   p.sw))) ||
+      !tt_mma::map_3d(&ty, y, p.d, p.a, groups, (uint64_t)p.d * 2, kOutBox, 64, 128))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (e != cudaSuccess) return (int)e;
@@ -610,8 +627,8 @@ int pe1_mma(const void* z, const void* g, void* y, const int* fields, int epilog
   const float hi = epilogue ? ldexpf(1.f, bits - 1) - 1.f : 0.f;
   void* args[] = {&tz, &tg, &ty, (void*)&z, (void*)&g,
                   &p, &epilogue, &step, (void*)&lo, (void*)&hi};
-  e = cudaLaunchKernel(fn, dim3((unsigned)p.grid), dim3((unsigned)p.threads), args, (size_t)p.smem,
-                       (cudaStream_t)stream);
+  e = cudaLaunchKernel(fn, dim3((unsigned)p.grid, (unsigned)groups), dim3((unsigned)p.threads),
+                       args, (size_t)p.smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -125,23 +125,25 @@ const void* pick(int rd) {
 
 extern "C" {
 
-// z (a, b, c), g (b, d), o (a, d, c): contiguous device arrays of dtype
-// (0 f32, 1 bf16); `plan` is 23 int32 (kernels/tt_contract.py PLAN_FIELDS).
-// Returns cudaGetLastError() after the launch.
-int pe2(const void* z, const void* g, void* o, int dtype, const int* plan, void* stream) {
+// z (groups, a, b, c), g (groups, b, d), o (groups, a, d, c): contiguous
+// device arrays of dtype (0 f32, 1 bf16); `plan` is 23 int32
+// (kernels/tt_contract.py PLAN_FIELDS), one group's. Returns
+// cudaGetLastError() after the launch.
+int pe2(const void* z, const void* g, void* o, int dtype, const int* plan, int groups,
+        void* stream) {
   const int rd = plan[4];
   const void* fn = dtype == tt_contract::F32    ? pick<float>(rd)
                    : dtype == tt_contract::BF16 ? pick<__nv_bfloat16>(rd)
                                                 : nullptr;
-  return tt_contract::launch(fn, z, g, o, plan, stream);
+  return tt_contract::launch(fn, z, g, o, plan, groups, stream);
 }
 
-// The tensor-core route: z (a, b, c), g (b, d), o (a, d, c), contiguous
-// bf16, o 16-byte aligned, z and g 16-byte aligned or on their granules;
-// `plan` is 27 int32 (kernels/tt_mma.py PLAN_FIELDS). Returns
-// cudaGetLastError() after the launch.
-int pe2_mma(const void* z, const void* g, void* o, const int* plan, void* stream) {
-  return tt_mma::launch(tt_mma::pick<Mma>(plan[4], plan[5]), z, g, o, plan, stream);
+// The tensor-core route: z (groups, a, b, c), g (groups, b, d), o (groups,
+// a, d, c), contiguous bf16, o 16-byte aligned, z and g 16-byte aligned or
+// on their granules; `plan` is 27 int32 (kernels/tt_mma.py PLAN_FIELDS),
+// one group's. Returns cudaGetLastError() after the launch.
+int pe2_mma(const void* z, const void* g, void* o, const int* plan, int groups, void* stream) {
+  return tt_mma::launch(tt_mma::pick<Mma>(plan[4], plan[5]), z, g, o, plan, groups, stream);
 }
 
 // The f32 tile route: z (a, b, c), g (b, d), o (a, d, c), contiguous f32;

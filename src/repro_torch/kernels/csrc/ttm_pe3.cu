@@ -106,25 +106,27 @@ const void* pick(int rd) {
 
 extern "C" {
 
-// x (b, i), ybar (b, j), w (j, i): contiguous device arrays of dtype (0 f32,
-// 1 bf16); `plan` is the PE2 plan at a = 1, c = i, d = j (23 int32,
-// kernels/tt_contract.py PLAN_FIELDS). Returns cudaGetLastError() after the
-// launch.
-int pe3(const void* x, const void* ybar, void* w, int dtype, const int* plan, void* stream) {
+// x (groups, b, i), ybar (groups, b, j), w (groups, j, i): contiguous
+// device arrays of dtype (0 f32, 1 bf16); `plan` is one group's PE2 plan at
+// a = 1, c = i, d = j (23 int32, kernels/tt_contract.py PLAN_FIELDS).
+// Returns cudaGetLastError() after the launch.
+int pe3(const void* x, const void* ybar, void* w, int dtype, const int* plan, int groups,
+        void* stream) {
   const int rd = plan[4];
   const void* fn = dtype == tt_contract::F32    ? pick<float>(rd)
                    : dtype == tt_contract::BF16 ? pick<__nv_bfloat16>(rd)
                                                 : nullptr;
-  return tt_contract::launch(fn, x, ybar, w, plan, stream);
+  return tt_contract::launch(fn, x, ybar, w, plan, groups, stream);
 }
 
-// The tensor-core route: x (b, i), ybar (b, j), w (j, i), contiguous bf16,
-// w 16-byte aligned, x and ybar 16-byte aligned or on their granules;
-// `plan` is the PE2 plan at a = 1, c = i, d = j (27 int32,
-// kernels/tt_mma.py PLAN_FIELDS). Returns cudaGetLastError() after the
-// launch.
-int pe3_mma(const void* x, const void* ybar, void* w, const int* plan, void* stream) {
-  return tt_mma::launch(tt_mma::pick<Mma>(plan[4], plan[5]), x, ybar, w, plan, stream);
+// The tensor-core route: x (groups, b, i), ybar (groups, b, j), w (groups,
+// j, i), contiguous bf16, w 16-byte aligned, x and ybar 16-byte aligned or
+// on their granules; `plan` is one group's PE2 plan at a = 1, c = i, d = j
+// (27 int32, kernels/tt_mma.py PLAN_FIELDS). Returns cudaGetLastError()
+// after the launch.
+int pe3_mma(const void* x, const void* ybar, void* w, const int* plan, int groups,
+            void* stream) {
+  return tt_mma::launch(tt_mma::pick<Mma>(plan[4], plan[5]), x, ybar, w, plan, groups, stream);
 }
 
 // The f32 tile route: x (b, i), ybar (b, j), w (j, i), contiguous f32;

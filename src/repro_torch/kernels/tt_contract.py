@@ -1,7 +1,9 @@
 """Launch plans and the ctypes launch shared by the PE2 and PE3 kernels
 (``csrc/ttm_pe2.cu``, ``csrc/ttm_pe3.cu``, both on ``csrc/tt_contract.cuh``):
 the streamed contraction ``O(a, d, c) = sum_b Z(a, b, c) G(b, d)``, PE3
-being it at ``a = 1``.
+being it at ``a = 1``; a grouped call (the experts of an MoE layer: Z (E,
+a, b, c), G (E, b, d), O (E, a, d, c)) is the same plan for each group,
+the group the grid's second coordinate.
 
 ``plan`` is a pure function of the shapes, the element size and the
 operands' alignment, so the CPU tests can check it (every output covered
@@ -20,6 +22,7 @@ from dataclasses import astuple, dataclass
 import torch
 
 from . import build as B
+from . import tt_mma
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 SMS = 132                   # H100 SXM streaming multiprocessors
@@ -109,11 +112,16 @@ def _granule(row: int, tile: int, elsize: int, misalign: int) -> int:
 
 @functools.lru_cache(maxsize=512)
 def plan(a: int, b: int, c: int, d: int, elsize: int, z_misalign: int = 0,
-         g_misalign: int = 0) -> Plan:
-    """The launch plan of ``O(a,d,c) = sum_b Z(a,b,c) G(b,d)``; ``elsize``
-    is 4 (f32) or 2 (bf16), ``*_misalign`` the operands' addresses mod 16."""
-    if min(a, b, c, d) < 0 or elsize not in (2, 4):
-        raise ValueError(f"bad contraction {(a, b, c, d)} elsize {elsize}")
+         g_misalign: int = 0, groups: int = 1) -> Plan:
+    """The launch plan of ``O(a,d,c) = sum_b Z(a,b,c) G(b,d)`` for each of
+    ``groups`` groups; ``elsize`` is 4 (f32) or 2 (bf16), ``*_misalign``
+    the operands' addresses mod 16. The tiles fill the SMs over all the
+    groups; ``grid`` is the CTAs of one group."""
+    if min(a, b, c, d) < 0 or elsize not in (2, 4) or groups < 1:
+        raise ValueError(f"bad contraction {(a, b, c, d)} elsize {elsize} "
+                         f"groups {groups}")
+    z_misalign = tt_mma.group_misalign(z_misalign, a * b * c * elsize, groups)
+    g_misalign = tt_mma.group_misalign(g_misalign, b * d * elsize, groups)
     rd = 1 if d == 1 else 2 if d == 2 else 4
     cgs, dgs = _cdiv(c, 4), _cdiv(d, rd)
     if a == 0 or cgs == 0 or dgs == 0:
@@ -125,7 +133,7 @@ def plan(a: int, b: int, c: int, d: int, elsize: int, z_misalign: int = 0,
     dg = _even(dgs, MAX_THREADS // cg)
 
     def units() -> int:
-        return a * _cdiv(cgs, cg) * _cdiv(dgs, dg)
+        return groups * a * _cdiv(cgs, cg) * _cdiv(dgs, dg)
     while units() < SMS:
         if cg > 2:
             cg = _even(cgs, _cdiv(cg, 2))
@@ -210,7 +218,7 @@ def typed(lib: ctypes.CDLL, entry: str) -> ctypes.CDLL:
         p = ctypes.c_void_p
         fn = getattr(lib, entry)
         fn.argtypes = [p, p, p, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                       p]
+                       ctypes.c_int, p]
         fn.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
@@ -219,15 +227,17 @@ def typed(lib: ctypes.CDLL, entry: str) -> ctypes.CDLL:
 def launch(name: str, source: str, z: torch.Tensor, g: torch.Tensor,
            out: torch.Tensor, lib: ctypes.CDLL | None = None) -> Plan:
     """Launch ``csrc/<source>.cu``'s entry ``name`` (or ``lib``'s, a build
-    of it elsewhere) on ``out``'s stream: ``z`` (a, b, c), ``g`` (b, d),
-    ``out`` (a, d, c), all contiguous, one dtype. Counts one launch of
-    ``name``; returns the plan."""
-    a, b, c = z.shape
+    of it elsewhere) on ``out``'s stream: ``z`` ([E,] a, b, c), ``g``
+    ([E,] b, d), ``out`` ([E,] a, d, c), all contiguous, one dtype. Counts
+    one launch of ``name`` (``tt_mma.counted``); returns the plan."""
+    e = z.shape[0] if z.dim() == 4 else 1
+    a, b, c = z.shape[-3:]
     es = z.element_size()
-    p = plan(a, b, c, g.shape[1], es, z.data_ptr() % 16, g.data_ptr() % 16)
+    p = plan(a, b, c, g.shape[-1], es, z.data_ptr() % 16, g.data_ptr() % 16,
+             e)
     lib = typed(lib or B.load(source), name)
     B.check(lib, getattr(lib, name)(
         z.data_ptr(), g.data_ptr(), out.data_ptr(), DTYPE_CODE[z.dtype],
-        p.fields, torch.cuda.current_stream(z.device).cuda_stream), name)
-    B.note_launch(name)
+        p.fields, e, torch.cuda.current_stream(z.device).cuda_stream), name)
+    B.note_launch(tt_mma.counted(name, z))
     return p

@@ -35,6 +35,12 @@ grid is persistent: one CTA per SM, at most one per tile. CPU tests check
 all of it; the libraries are built at the first launch, never at import.
 PE1's tensor-core route runs on the same helpers of ``csrc/tt_mma.cuh``
 and is planned by ``ttm_pe1.plan_pe1``.
+
+Grouped calls (the experts of an MoE layer: Z (E, a, b, c), G (E, b, d),
+O (E, a, d, c)) take each group's plan, the group as the grid's second
+coordinate and as the TMA maps' outermost dimension (a box never reads
+the next group's rows: the maps' zero fill pads each group's tail), and
+``group_grid`` CTAs a group; a resident G is its CTA's group's.
 """
 from __future__ import annotations
 
@@ -83,7 +89,7 @@ class Plan:
     tiles_c: int
     tiles_n: int         # slab groups x tiles_c
     tiles: int
-    grid: int            # CTAs (persistent)
+    grid: int            # CTAs (persistent) of one group
     threads: int         # consumers and the producer (warp or warpgroup)
     a_chunk: int         # bytes of G's chunk (wm boxes of 64 x BK)
     b_chunk: int         # bytes of Z's chunk
@@ -122,6 +128,30 @@ def _cdiv(n: int, m: int) -> int:
     return -(-n // m)
 
 
+def group_grid(tiles: int, groups: int) -> int:
+    """Persistent CTAs of one group: one an SM for a single group; for
+    ``groups`` at once an equal share of the SMs each (at least one), so
+    the grid's groups x CTAs stays one wave where the groups are no more
+    than the SMs. A CTA's tiles are then all of one group, whose operands
+    it keeps (a resident G is one group's)."""
+    return min(tiles, max(1, SMS // groups))
+
+
+def group_misalign(misalign: int, group_bytes: int, groups: int) -> int:
+    """The misalignment every group's operand shares: a group's start is
+    ``group_bytes`` past the previous one, so a granule must divide both
+    (bits of a power of two: the OR of the two residues mod 16)."""
+    return misalign | (group_bytes % 16 if groups > 1 else 0)
+
+
+def counted(name: str, z: torch.Tensor) -> str:
+    """The launch counter's name of a PE call: ``name``, or
+    ``<name>_grouped`` where Z carries the leading group axis (PE1 and PE2
+    (E, a, b, c); PE3's X as (E, 1, b, i)), so a step's grouped launches
+    (the MoE experts') count apart from its others."""
+    return f"{name}_grouped" if z.dim() == 4 else name
+
+
 def granule(row_bytes: int, misalign: int) -> int:
     """The widest cp.async granule (8, 4 bytes) that divides a row and the
     operand's address mod 16; 0 where none does (2-byte rows or offsets)."""
@@ -131,16 +161,20 @@ def granule(row_bytes: int, misalign: int) -> int:
 
 @functools.lru_cache(maxsize=512)
 def plan(a: int, b: int, c: int, d: int, elsize: int, z_misalign: int = 0,
-         g_misalign: int = 0) -> Plan | None:
+         g_misalign: int = 0, groups: int = 1) -> Plan | None:
     """The tensor-core plan of ``O(a,d,c) = sum_b Z(a,b,c) G(b,d)``, or
     ``None`` for the FMA route. ``elsize`` is 2 (bf16) or 4 (f32),
     ``*_misalign`` the operands' addresses mod 16. An operand whose rows
     the TMA cannot take (not 16-byte multiples, or off 16 bytes) is staged
     by cp.async granules: Z in the stacked tiling only (even c <= 32, whole
     slabs in N = 64, runs of O of 16-byte multiples), G where it is
-    resident and the producer keeps its registers."""
+    resident and the producer keeps its registers. ``groups`` > 1: each
+    group's start shares the granule, ``grid`` is
+    ``group_grid``'s."""
     if elsize != 2 or min(a, b, c, d) < 1:
         return None
+    z_misalign = group_misalign(z_misalign, a * b * c * 2, groups)
+    g_misalign = group_misalign(g_misalign, b * d * 2, groups)
     z_tma = c % 8 == 0 and z_misalign % 16 == 0
     g_tma = d % 8 == 0 and g_misalign % 16 == 0
     gz = 0 if z_tma else granule(2 * c, z_misalign)
@@ -187,17 +221,19 @@ def plan(a: int, b: int, c: int, d: int, elsize: int, z_misalign: int = 0,
         stages += 1
     producer = 128 if wgn == 256 or gz else 32
     return Plan(a, b, c, d, wgn, sw, wm, wn, nk, stages, int(resident),
-                slabs, bw, tiles_m, tiles_c, tiles_n, tiles, min(tiles, SMS),
+                slabs, bw, tiles_m, tiles_c, tiles_n, tiles,
+                group_grid(tiles, groups),
                 nwg * 128 + producer, a_chunk, b_chunk, stage,
                 nk * a_chunk if resident else 0, out_pitch,
                 smem_for(stages, resident), gz, gg)
 
 
 def plan_for(z: torch.Tensor, g: torch.Tensor) -> Plan | None:
-    """The plan of contiguous operands ``z`` (a, b, c), ``g`` (b, d)."""
-    a, b, c = z.shape
-    return plan(a, b, c, g.shape[1], z.element_size(), z.data_ptr() % 16,
-                g.data_ptr() % 16)
+    """The plan of contiguous operands ``z`` ([E,] a, b, c), ``g`` ([E,]
+    b, d)."""
+    a, b, c = z.shape[-3:]
+    return plan(a, b, c, g.shape[-1], z.element_size(), z.data_ptr() % 16,
+                g.data_ptr() % 16, z.shape[0] if z.dim() == 4 else 1)
 
 
 def _typed(lib: ctypes.CDLL, entry: str) -> ctypes.CDLL:
@@ -205,7 +241,8 @@ def _typed(lib: ctypes.CDLL, entry: str) -> ctypes.CDLL:
     if not getattr(lib, "_repro_mma_typed", False):
         p = ctypes.c_void_p
         fn = getattr(lib, entry)
-        fn.argtypes = [p, p, p, ctypes.POINTER(ctypes.c_int), p]
+        fn.argtypes = [p, p, p, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                       p]
         fn.restype = ctypes.c_int
         lib._repro_mma_typed = True
     return lib
@@ -214,14 +251,16 @@ def _typed(lib: ctypes.CDLL, entry: str) -> ctypes.CDLL:
 def launch(name: str, source: str, p: Plan, z: torch.Tensor,
            g: torch.Tensor, out: torch.Tensor) -> Plan:
     """Launch ``csrc/<source>.cu``'s entry ``<name>_mma`` on ``out``'s
-    stream under ``p`` (``plan_for(z, g)``): ``z`` (a, b, c), ``g`` (b, d),
-    ``out`` (a, d, c), contiguous bf16. Counts one launch of ``name``."""
+    stream under ``p`` (``plan_for(z, g)``): ``z`` ([E,] a, b, c), ``g``
+    ([E,] b, d), ``out`` ([E,] a, d, c), contiguous bf16. Counts one
+    launch of ``counted(name, z)``."""
     if out.data_ptr() % 16:
         raise ValueError(f"{name}: output not 16-byte aligned")
     entry = f"{name}_mma"
     lib = _typed(B.load(source), entry)
     B.check(lib, getattr(lib, entry)(
         z.data_ptr(), g.data_ptr(), out.data_ptr(), p.fields,
+        z.shape[0] if z.dim() == 4 else 1,
         torch.cuda.current_stream(z.device).cuda_stream), entry)
-    B.note_launch(name)
+    B.note_launch(counted(name, z))
     return p

@@ -310,7 +310,11 @@ def plan(a: int, b: int, c: int, d: int, elsize: int, z_misalign: int = 0,
 
 
 def plan_for(z: torch.Tensor, g: torch.Tensor) -> Plan | None:
-    """The plan of contiguous operands ``z`` (a, b, c), ``g`` (b, d)."""
+    """The plan of contiguous operands ``z`` (a, b, c), ``g`` (b, d); a
+    grouped call (Z (E, a, b, c)) takes no tile plan: ``tt_contract``'s
+    route takes it."""
+    if z.dim() != 3:
+        return None
     a, b, c = z.shape
     return plan(a, b, c, g.shape[1], z.element_size(), z.data_ptr() % 16,
                 g.data_ptr() % 16)

@@ -21,8 +21,13 @@ function ``plan_pe1`` gives for the dtype, shapes and alignment:
   transposed into shared memory, an rm x 4 register tile per thread stored
   as float4; its launch plan is the pure function ``plan``.
 
-Both count as ``pe1`` launches and both carry the epilogue. The CPU tests
-check both plans where no kernel runs. ``pe1_torch`` is the plain version
+Both count as ``pe1`` launches and both carry the epilogue, and both take
+a leading group axis (the experts of an MoE layer): Z (E, a, b, c) and G
+(E, b, d, c) give Y (E, a, d) in one launch, the group the grid's second
+coordinate (``groups``; each group's operands are its own tensors, the
+TMA's maps carry the group as their outermost dimension, so a box never
+reads the next group's rows). The CPU tests check both plans where no
+kernel runs. ``pe1_torch`` is the plain version
 (einsum + the codec's ``epilogue``), the CPU path and the kernels' oracle on
 the card. All accumulate in f32 (f64 inputs stay f64 in the plain version)
 and return Z's dtype.
@@ -105,21 +110,25 @@ def _granule(c: int, elsize: int, misalign: int) -> int:
 
 @functools.lru_cache(maxsize=512)
 def plan(a: int, b: int, c: int, d: int, elsize: int, z_misalign: int = 0,
-         g_misalign: int = 0) -> Plan:
-    """The launch plan of ``Y(a,d) = sum_{b,c} Z(a,b,c) G(b,d,c)``;
-    ``elsize`` is 4 (f32) or 2 (bf16), ``*_misalign`` the operands'
-    addresses mod 16. Tiles of up to 64 columns of d (wider tiles ran
-    slower on the H100 at the step's shapes) by up to 16 x rm rows of a,
-    rm the largest that still gives CTAs for 7/8 of the SMs."""
-    if min(a, b, c, d) < 0 or elsize not in (2, 4):
-        raise ValueError(f"bad contraction {(a, b, c, d)} elsize {elsize}")
+         g_misalign: int = 0, groups: int = 1) -> Plan:
+    """The launch plan of ``Y(a,d) = sum_{b,c} Z(a,b,c) G(b,d,c)`` for
+    each of ``groups`` groups; ``elsize`` is 4 (f32) or 2 (bf16),
+    ``*_misalign`` the operands' addresses mod 16. Tiles of up to 64
+    columns of d (wider tiles ran slower on the H100 at the step's shapes)
+    by up to 16 x rm rows of a, rm the largest that still gives CTAs for
+    7/8 of the SMs over all groups; ``grid`` is the CTAs of one group."""
+    if min(a, b, c, d) < 0 or elsize not in (2, 4) or groups < 1:
+        raise ValueError(f"bad contraction {(a, b, c, d)} elsize {elsize} "
+                         f"groups {groups}")
+    z_misalign = tt_mma.group_misalign(z_misalign, a * b * c * elsize, groups)
+    g_misalign = tt_mma.group_misalign(g_misalign, b * d * c * elsize, groups)
     td = max(1, min(_cdiv(d, 4), MAX_TD))
     ta = max(1, MAX_THREADS // td)
     tiles_d = _cdiv(d, 4 * td)
     rm = 1
     for r in (8, 4, 2):
         if r * ta * BK * elsize <= ZS_MAX and \
-                8 * _cdiv(a, r * ta) * tiles_d >= 7 * SMS:
+                8 * _cdiv(a, r * ta) * tiles_d * groups >= 7 * SMS:
             rm = r
             break
     # a tile no taller than a needs: fewer idle rows where a is small
@@ -164,7 +173,7 @@ class MmaPlan:
     tiles_m: int
     tiles_n: int
     tiles: int
-    grid: int            # CTAs (persistent)
+    grid: int            # CTAs (persistent) of one group
     threads: int
     stages: int          # Z ring slots
     nbuf: int            # staging tiles per warpgroup
@@ -193,7 +202,8 @@ assert tuple(MmaPlan.__dataclass_fields__) == MMA_FIELDS
 
 @functools.lru_cache(maxsize=512)
 def plan_pe1(a: int, b: int, c: int, d: int, elsize: int,
-             z_misalign: int = 0, g_misalign: int = 0) -> MmaPlan | None:
+             z_misalign: int = 0, g_misalign: int = 0,
+             groups: int = 1) -> MmaPlan | None:
     """The tensor-core plan of ``Y(a,d) = sum_{b,c} Z(a,b,c) G(b,d,c)``, or
     ``None`` for the FMA route (``plan``). ``elsize`` is 2 (bf16) or 4
     (f32), ``*_misalign`` the operands' addresses mod 16. A tile spans all
@@ -203,10 +213,15 @@ def plan_pe1(a: int, b: int, c: int, d: int, elsize: int,
     multiple of 8, or an operand off 16 bytes) are staged by cp.async
     granules (``gran``: 8 or 4 bytes, whatever divides the rows and both
     offsets) into the same swizzled rows; 2-byte offsets and odd c stay on
-    the CUDA cores, and so does d off a multiple of 8 (Y's TMA stores)."""
+    the CUDA cores, and so does d off a multiple of 8 (Y's TMA stores).
+    ``groups`` > 1: the groups' operands follow one another, each group's
+    start shares the granule (``tt_mma.group_misalign``), ``grid`` is
+    ``tt_mma.group_grid``'s."""
     if elsize != 2 or b != 1 or min(a, c, d) < 1 or c % 2 or d % 8 \
             or c > MAX_C:
         return None
+    z_misalign = tt_mma.group_misalign(z_misalign, a * c * 2, groups)
+    g_misalign = tt_mma.group_misalign(g_misalign, d * c * 2, groups)
     gran = 0
     if c % 8 or z_misalign % 16 or g_misalign % 16:
         gran = tt_mma.granule(2 * c, z_misalign | g_misalign)
@@ -236,32 +251,38 @@ def plan_pe1(a: int, b: int, c: int, d: int, elsize: int,
         stages += 1
     tiles = tiles_m * tiles_n
     return MmaPlan(a, c, d, wgn, sw, ksteps, wm, wn, tiles_m, tiles_n, tiles,
-                   min(tiles, SMS), wm * wn * 128 + 32, stages, nbuf, stage,
-                   g_bytes, out_bytes, smem_for(stages, nbuf), gran)
+                   tt_mma.group_grid(tiles, groups), wm * wn * 128 + 32,
+                   stages, nbuf, stage, g_bytes, out_bytes,
+                   smem_for(stages, nbuf), gran)
 
 
 def plan_pe1_for(z: torch.Tensor, g: torch.Tensor) -> MmaPlan | None:
-    """The tensor-core plan of contiguous operands ``z`` (a, b, c), ``g``
-    (b, d, c), or ``None``."""
-    a, b, c, d = _shapes(z, g)
+    """The tensor-core plan of contiguous operands ``z`` ([E,] a, b, c),
+    ``g`` ([E,] b, d, c), or ``None``."""
+    e, a, b, c, d = _shapes(z, g)
     return plan_pe1(a, b, c, d, z.element_size(), z.data_ptr() % 16,
-                    g.data_ptr() % 16)
+                    g.data_ptr() % 16, e)
 
 
-def _shapes(z: torch.Tensor, g: torch.Tensor) -> tuple[int, int, int, int]:
-    if z.dim() != 3 or g.dim() != 3 or z.shape[1] != g.shape[0] \
-            or z.shape[2] != g.shape[2]:
-        raise ValueError(f"{NAME}: want Z (a,b,c) and G (b,d,c), got "
-                         f"{tuple(z.shape)} and {tuple(g.shape)}")
-    a, b, c = z.shape
-    return a, b, c, g.shape[1]
+def _shapes(z: torch.Tensor, g: torch.Tensor
+            ) -> tuple[int, int, int, int, int]:
+    """(groups, a, b, c, d) of Z (a, b, c) and G (b, d, c), or of the
+    grouped Z (E, a, b, c) and G (E, b, d, c) (groups 1 ungrouped)."""
+    lead = z.dim() - 3
+    if lead not in (0, 1) or g.dim() != z.dim() \
+            or z.shape[:lead] != g.shape[:lead] \
+            or z.shape[-2] != g.shape[-3] or z.shape[-1] != g.shape[-1]:
+        raise ValueError(f"{NAME}: want Z ([E,] a,b,c) and G ([E,] b,d,c), "
+                         f"got {tuple(z.shape)} and {tuple(g.shape)}")
+    a, b, c = z.shape[-3:]
+    return (z.shape[0] if lead else 1), a, b, c, g.shape[-2]
 
 
 def pe1_torch(z: torch.Tensor, g: torch.Tensor, step_log2=None,
               bits: int | None = None) -> torch.Tensor:
     _shapes(z, g)
     acc_t = torch.promote_types(z.dtype, torch.float32)
-    acc = torch.einsum("abc,bdc->ad", z.to(acc_t), g.to(acc_t))
+    acc = torch.einsum("...abc,...bdc->...ad", z.to(acc_t), g.to(acc_t))
     if bits is not None:
         acc = Pow2Reference().epilogue(acc, QuantSpec("pow2", bits),
                                        step_log2)
@@ -274,8 +295,8 @@ def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
     if not getattr(lib, "_repro_typed", False):
         p, i, fields = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(
             ctypes.c_int)
-        lib.pe1.argtypes = [p, p, p, i, fields, i, p, i, p]
-        lib.pe1_mma.argtypes = [p, p, p, fields, i, p, i, p]
+        lib.pe1.argtypes = [p, p, p, i, fields, i, p, i, i, p]
+        lib.pe1_mma.argtypes = [p, p, p, fields, i, p, i, i, p]
         lib.pe1.restype = lib.pe1_mma.restype = i
         lib._repro_typed = True
     return lib
@@ -285,20 +306,21 @@ def launch(z: torch.Tensor, g: torch.Tensor, out: torch.Tensor, step=None,
            bits: int | None = None, lib: ctypes.CDLL | None = None) -> Plan:
     """Launch ``csrc/ttm_pe1.cu``'s CUDA-core kernel (or ``lib``'s, a
     build of it elsewhere) on ``out``'s stream, whatever route
-    ``plan_pe1`` gives: ``z`` (a, b, c), ``g`` (b, d, c), ``out`` (a, d),
-    all contiguous, one dtype; ``bits`` turns on the requant epilogue at
-    ``step``, a one-element f32 tensor on the card. Counts one launch of
-    ``pe1``; returns the plan."""
-    a, b, c, d = _shapes(z, g)
+    ``plan_pe1`` gives: ``z`` ([E,] a, b, c), ``g`` ([E,] b, d, c),
+    ``out`` ([E,] a, d), all contiguous, one dtype; ``bits`` turns on the
+    requant epilogue at ``step``, a one-element f32 tensor on the card.
+    Counts one launch of ``pe1`` (``pe1_grouped`` grouped); returns the
+    plan."""
+    e, a, b, c, d = _shapes(z, g)
     p = plan(a, b, c, d, z.element_size(), z.data_ptr() % 16,
-             g.data_ptr() % 16)
+             g.data_ptr() % 16, e)
     lib = typed(lib or B.load(SOURCE))
     B.check(lib, lib.pe1(
         z.data_ptr(), g.data_ptr(), out.data_ptr(),
         tt_contract.DTYPE_CODE[z.dtype], p.fields, int(bits is not None),
-        None if step is None else step.data_ptr(), bits or 0,
+        None if step is None else step.data_ptr(), bits or 0, e,
         torch.cuda.current_stream(z.device).cuda_stream), NAME)
-    B.note_launch(NAME)
+    B.note_launch(tt_mma.counted(NAME, z))
     return p
 
 
@@ -306,31 +328,33 @@ def launch_mma(p: MmaPlan, z: torch.Tensor, g: torch.Tensor,
                out: torch.Tensor, step=None,
                bits: int | None = None) -> MmaPlan:
     """Launch ``csrc/ttm_pe1.cu``'s tensor-core kernel on ``out``'s stream
-    under ``p`` (``plan_pe1_for(z, g)``): ``z`` (a, 1, c), ``g`` (1, d, c),
-    ``out`` (a, d), contiguous bf16; the epilogue as ``launch``'s. Counts
-    one launch of ``pe1``."""
+    under ``p`` (``plan_pe1_for(z, g)``): ``z`` ([E,] a, 1, c), ``g``
+    ([E,] 1, d, c), ``out`` ([E,] a, d), contiguous bf16; the epilogue as
+    ``launch``'s. Counts one launch of ``pe1`` (``pe1_grouped``
+    grouped)."""
     if out.data_ptr() % 16:
         raise ValueError(f"{NAME}: output not 16-byte aligned")
     lib = typed(B.load(SOURCE))
     B.check(lib, lib.pe1_mma(
         z.data_ptr(), g.data_ptr(), out.data_ptr(), p.fields,
         int(bits is not None), None if step is None else step.data_ptr(),
-        bits or 0, torch.cuda.current_stream(z.device).cuda_stream),
-        "pe1_mma")
-    B.note_launch(NAME)
+        bits or 0, _shapes(z, g)[0],
+        torch.cuda.current_stream(z.device).cuda_stream), "pe1_mma")
+    B.note_launch(tt_mma.counted(NAME, z))
     return p
 
 
 def pe1_cuda(z: torch.Tensor, g: torch.Tensor, step_log2=None,
              bits: int | None = None) -> torch.Tensor:
     """Launch one of the kernels of ``csrc/ttm_pe1.cu`` on Z's stream, by
-    the route ``plan_pe1`` gives; counts one launch of ``pe1``."""
-    a, b, c, d = _shapes(z, g)
+    the route ``plan_pe1`` gives (a grouped call in one launch); counts one
+    launch of ``pe1``."""
+    _, a, b, c, d = _shapes(z, g)
     tt_contract.check_operands(NAME, z, g)
     if bits is not None and not 2 <= bits <= 16:
         raise ValueError(f"{NAME}: epilogue bits must be 2..16, got {bits}")
     z, g = z.contiguous(), g.contiguous()
-    out = torch.empty((a, d), dtype=z.dtype, device=z.device)
+    out = torch.empty(z.shape[:-3] + (a, d), dtype=z.dtype, device=z.device)
     tt_contract.check_sizes(NAME, z, g, out)
     step = None if bits is None else torch.as_tensor(
         step_log2, dtype=torch.float32, device=z.device).reshape(1)

@@ -35,6 +35,7 @@ import torch
 
 from ..ckpt import Stacked, load
 from ..configs.base import TrainConfig
+from ..core.ttm import what_windows
 from ..kernels import grouped as G
 from ..models.lm import (LMDef, _walk_sites, init_lm, lm_forward,
                          lm_lambda_update, lm_prior_loss)
@@ -223,7 +224,8 @@ def make_loss_fn(lm: LMDef, plan, tcfg: TrainConfig):
             denom = float(labels.shape[0] * labels.shape[1]) \
                 * tcfg.total_steps
             prior = lm_prior_loss(params, lm) / denom
-        metrics = {"ce": ce.detach(), "aux": aux, "prior": prior.detach()}
+        metrics = {"ce": ce.detach(), "aux": aux.detach(),
+                   "prior": prior.detach()}
         return loss + prior, (metrics, obs)
 
     return loss_fn
@@ -363,6 +365,11 @@ def launches_per_step(lm: LMDef, tcfg: TrainConfig,
       recomputes the layer, the transposed dx chain, and one PE3; a TT
       head the same once (it is outside the per-layer remat); a TT
       embedding none (its lookup contracts core slices eagerly).
+    - ``pe1_grouped`` / ``pe2_grouped`` / ``pe3_grouped``: a TT expert
+      site's (E experts stacked) the same chains, each launch grouped over
+      the experts, and one PE3 a window of ``ttm.what_windows``.
+    - ``p2_fq_rows``: per TT expert site, layer and forward, one launch a
+      core (its E steps).
     - ``p2_fake_quant``: per TT site and layer one group launch of its
       cores per forward (two with remat), one for a TT embedding's and one
       for a TT head's cores; with the ``activation`` site,
@@ -379,7 +386,8 @@ def launches_per_step(lm: LMDef, tcfg: TrainConfig,
         raise ValueError(f"remat {cfg.remat!r} is not ported")
     fwd = 2 if cfg.remat == "full" else 1
     layers = lm.n_periods
-    out = {"pe1": 0, "pe2": 0, "pe3": 0, "p2_fake_quant": 0, "bw_dec": 0,
+    out = {"pe1": 0, "pe2": 0, "pe3": 0, "pe1_grouped": 0, "pe2_grouped": 0,
+           "pe3_grouped": 0, "p2_fake_quant": 0, "p2_fq_rows": 0, "bw_dec": 0,
            "bw_enc": 0}
     for path, site in _walk_sites(lm):
         if not site.use_tt:
@@ -393,6 +401,17 @@ def launches_per_step(lm: LMDef, tcfg: TrainConfig,
         # once, outside the per-layer remat
         n, f = (layers, fwd) if path[0] == "layers" else (1, 1)
         d = site.spec.d
+        if site.family == "expert":
+            # E experts stacked: each chain launch serves them all, Ŵ a
+            # window of experts a PE3 launch, the cores one row fake-quant
+            # launch each (a step an expert; one expert: a scalar step)
+            e = cfg.moe.num_experts
+            out["pe1_grouped"] += n * (f + 1)
+            out["pe2_grouped"] += n * (f + 1) * (d - 1)
+            out["pe3_grouped"] += n * len(what_windows(site.spec, e))
+            if cfg.quant.enable:
+                out["p2_fq_rows" if e > 1 else "p2_fake_quant"] += n * f * d
+            continue
         out["pe1"] += n * (f + 1)
         out["pe2"] += n * (f + 1) * (d - 1)
         out["pe3"] += n
@@ -424,20 +443,25 @@ def step_flops(lm: LMDef, batch: int, seq: int) -> float:
     """FLOPs of the TT chains of one step (forward, remat recompute, dx
     chain; ``ttm_flops_matvec``) plus PE3's Ŵ, as the launches count them:
     a layer site in every layer, recomputed under remat; the head once;
-    the embedding none (its lookup launches no chain)."""
+    the embedding none (its lookup launches no chain); an expert site at
+    the capacity's rows for each of its E experts."""
     from ..core.ttm import ttm_flops_matvec
+    from ..models.moe import _capacity
     cfg = lm.cfg
     fwd = 2 if cfg.remat == "full" else 1
-    rows = batch * seq
     total = 0.0
     for path, site in _walk_sites(lm):
         if not site.use_tt or path[0] == "embed":
             continue
         s = site.spec
+        rows, groups = batch * seq, 1
+        if site.family == "expert":
+            moe = next(p.ffn for p in lm.period if p.ffn_kind == "moe")
+            rows, groups = _capacity(rows, moe), moe.num_experts
         n, f = (lm.n_periods, fwd) if path[0] == "layers" else (1, 1)
-        total += n * (f * ttm_flops_matvec(s, rows)
-                      + ttm_flops_matvec(s.transposed(), rows)
-                      + 2.0 * rows * s.out_dim * s.in_dim)
+        total += n * groups * (f * ttm_flops_matvec(s, rows)
+                               + ttm_flops_matvec(s.transposed(), rows)
+                               + 2.0 * rows * s.out_dim * s.in_dim)
     return total
 
 

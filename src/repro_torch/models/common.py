@@ -11,6 +11,9 @@ on the card) and add the rank-shrinkage prior and the Eq. 4 λ update.
 The reference's helpers take stacked (vmapped-over-layer) params; the
 port keeps one dict per layer, so ``site_prior_loss`` and
 ``site_lambda_update`` take one layer's site, and the LM sums over layers.
+An MoE layer's TT expert site is stacked over its E experts (cores ``(E,
+R, J, I, R)``, λ ``(E, R)``): both take it whole, floor, mask and update
+per expert, as the reference folds its stacked axes.
 """
 from __future__ import annotations
 

@@ -12,7 +12,8 @@ per-period dicts (``params["layers"][l]``) and loops;
 
 Parameters are plain nested dicts of tensors with the reference's names,
 so the two packages' trees correspond key for key; an MoE sublayer's
-expert stacks keep their ``(E, in, out)`` leaves (``models/moe.py``). An
+expert stacks keep their ``(E, in, out)`` leaves, or, TT, their ``(E,
+...)`` core, λ and step leaves (``models/moe.py``). An
 audio model has no embedding site (``LMDef.embed`` is None): its frames
 replace the token embeddings; a vision model's patches are prepended to
 them (``lm_forward(embeds=...)``).

@@ -3,11 +3,16 @@ single-device path.
 
 Routing: top-k softmax renormalised over the selected experts, GShard
 capacity dropping, the switch load-balance aux loss. Dispatch gathers the
-top-C tokens of every expert (``x2d[cidx]``), runs the experts' SwiGLU as
-batched products over the ``(E, D, F)`` stacks (``torch.bmm``) and
-combines with ``index_add_`` into a zero tensor, as the reference's
-``.at[].add`` does. The reference's MoE is plain JAX outside any Pallas
-kernel, so no kernel of the port's runs here.
+top-C tokens of every expert (``x2d[cidx]``), runs the experts' SwiGLU
+and combines with ``index_add_`` into a zero tensor, as the reference's
+``.at[].add`` does. Dense experts are batched products over the ``(E, D,
+F)`` stacks (a batched matmul). TT experts (``"expert"`` in
+``TTConfig.apply_to``) are E TT sites stacked on a leading axis, the tree
+of the reference's vmapped ``init_site`` (cores ``(E, R, J, I, R)``, λ
+``(E, R)``, ``wscale_log2`` ``(E, d)``): each of gate, up and down is one
+grouped TT matvec over ``xe (E, C, D)`` (``tt_layer.tt_linear_apply`` on
+stacked params), so every PE1 / PE2 / PE3 launch of a site serves all E
+experts and each core's fake-quant is one ``p2_fq_rows`` launch.
 
 Both top-k selections (the router's k of E experts, the capacity's C of T
 tokens) break ties toward the lower index, as ``lax.top_k`` does
@@ -20,8 +25,7 @@ renormalised top-k weights cast to ``x.dtype``, the per-expert token
 weights and ``cw * valid`` in f32, then cast to the experts' output dtype.
 
 Not ported: the expert-parallel ``shard_map`` path (``mesh``; ROADMAP
-queue 1, item 8) and TT-factorized ``"expert"`` sites (ROADMAP queue 1,
-item 10: MoE training). The router and the shared experts are ordinary
+queue 1, item 8). The router and the shared experts are ordinary
 ``"ffn"`` sites and take the TT path of ``common.apply_site`` when the
 config makes them TT.
 """
@@ -32,6 +36,9 @@ from dataclasses import dataclass
 import torch
 
 from ..configs.base import ModelConfig
+from ..core import rank_adapt as RA
+from ..core import tt_layer as TL
+from ..core.ttm import core_sigma
 from .common import (SiteDef, apply_site, init_site, make_site, silu,
                      torch_dtype)
 
@@ -66,35 +73,50 @@ def make_moe(cfg: ModelConfig, d_ff: int | None = None) -> MoEDef:
             gate=make_site(cfg, "ffn", fs, cfg.d_model),
             up=make_site(cfg, "ffn", fs, cfg.d_model),
             down=make_site(cfg, "ffn", cfg.d_model, fs))
-    experts = (make_site(cfg, "expert", f, cfg.d_model),
-               make_site(cfg, "expert", f, cfg.d_model),
-               make_site(cfg, "expert", cfg.d_model, f))
-    if any(s.use_tt for s in experts):
-        raise NotImplementedError(
-            'TT "expert" sites are a later slice (ROADMAP queue 1, item 10: '
-            "MoE training)")
     return MoEDef(
         router=make_site(cfg, "ffn", m.num_experts, cfg.d_model),
-        gate=experts[0], up=experts[1], down=experts[2],
+        gate=make_site(cfg, "expert", f, cfg.d_model),
+        up=make_site(cfg, "expert", f, cfg.d_model),
+        down=make_site(cfg, "expert", cfg.d_model, f),
         shared=shared, num_experts=m.num_experts, top_k=m.top_k,
         capacity_factor=m.capacity_factor, d_ff=f)
 
 
 def _init_stack(gen: torch.Generator, site: SiteDef, e: int, cfg: ModelConfig,
                 device: torch.device) -> dict:
-    """``e`` dense sites stacked on axis 0, with ``init_site``'s
-    distribution (``w ~ N(0, 2/(in+out))`` drawn in f32), drawn at once."""
+    """``e`` sites stacked on axis 0, with ``init_site``'s distributions,
+    drawn at once: dense ``w ~ N(0, 2/(in+out))`` drawn in f32; TT cores of
+    std ``core_sigma``, λ ones, the fixed steps, a zero bias where the
+    site has one (the reference's vmapped ``init_site`` tree)."""
+    dtype = torch_dtype(cfg.dtype)
+    if site.use_tt:
+        spec = site.spec
+        sigma = core_sigma(spec)
+        p = {f"core_{n}": (torch.randn((e,) + shape, generator=gen,
+                                       device=device, dtype=torch.float32)
+                           * sigma).to(dtype)
+             for n, shape in enumerate(spec.core_shapes)}
+        if site.use_bias:
+            p["bias"] = torch.zeros((e, site.out_dim), dtype=dtype,
+                                    device=device)
+        if cfg.tt.rank_adapt:
+            for n, lam in enumerate(RA.init_lambdas(spec, device)):
+                p[f"lambda_{n}"] = lam.expand(e, -1).clone()
+        p["wscale_log2"] = torch.full(
+            (e, spec.d), TL.weight_scale_log2(sigma, 4), dtype=torch.int32,
+            device=device)
+        return p
     sigma = (2.0 / (site.in_dim + site.out_dim)) ** 0.5
     w = torch.randn((e, site.in_dim, site.out_dim), generator=gen,
                     device=device, dtype=torch.float32) * sigma
-    return {"w": w.to(torch_dtype(cfg.dtype))}
+    return {"w": w.to(dtype)}
 
 
 def init_moe(gen: torch.Generator, d: MoEDef, cfg: ModelConfig,
              device: torch.device) -> dict:
     """Random weights with the reference's distributions and tree: the
     router and shared experts as ``init_site``, each expert stack
-    ``(E, in, out)``."""
+    ``(E, in, out)`` or, TT, ``(E, ...)`` leaves of a TT site."""
     e = d.num_experts
     p = {"router": init_site(gen, d.router, cfg, device),
          "gate": _init_stack(gen, d.gate, e, cfg, device),
@@ -145,12 +167,13 @@ def _route(params: dict, x2d: torch.Tensor, d: MoEDef, cfg: ModelConfig,
     return topk_idx, topk_w.to(x2d.dtype), aux
 
 
-def _expert_glu(params: dict, xe: torch.Tensor) -> torch.Tensor:
+def _expert_glu(params: dict, xe: torch.Tensor, d: MoEDef,
+                cfg: ModelConfig) -> torch.Tensor:
     """xe: (E, C, D) through each expert's SwiGLU, batched over the
-    stacks (``params``' gate, up and down ``(E, in, out)``; expert sites
-    have no bias)."""
+    stacks by ``apply_site``: dense ``(E, in, out)`` a batched matmul
+    (expert sites have no bias), TT one grouped TT matvec a site."""
     def site(name, x):
-        return torch.bmm(x, params[name]["w"].to(x.dtype))
+        return apply_site(params[name], x, getattr(d, name), cfg)
     return site("down", silu(site("gate", xe)) * site("up", xe))
 
 
@@ -163,7 +186,7 @@ def _select(w_tok: torch.Tensor, capacity: int):
 
 def _dispatch_local(x2d: torch.Tensor, topk_idx: torch.Tensor,
                     topk_w: torch.Tensor, params: dict, d: MoEDef,
-                    capacity: int) -> torch.Tensor:
+                    cfg: ModelConfig, capacity: int) -> torch.Tensor:
     """Gather the top-C tokens of every expert, run the experts' GLU,
     scatter-add back (the reference's single-shard dispatch)."""
     e = d.num_experts
@@ -174,7 +197,7 @@ def _dispatch_local(x2d: torch.Tensor, topk_idx: torch.Tensor,
     valid = cw > 0.0
     flat = cidx.reshape(-1)
     xe = x2d[flat].reshape(e, capacity, -1)
-    ye = _expert_glu(params, xe)
+    ye = _expert_glu(params, xe, d, cfg)
     ye = ye * (cw * valid)[..., None].to(ye.dtype)
     return torch.zeros_like(x2d).index_add_(0, flat,
                                             ye.reshape(-1, ye.shape[-1]))
@@ -197,7 +220,7 @@ def moe_forward(params: dict, x: torch.Tensor, d: MoEDef, cfg: ModelConfig,
     mask = None if token_mask is None else token_mask.reshape(b * s)
     topk_idx, topk_w, aux = _route(params, x2d, d, cfg, mask)
     cap = _capacity(b * s, d, capacity_tokens)
-    out = _dispatch_local(x2d, topk_idx, topk_w, params, d,
+    out = _dispatch_local(x2d, topk_idx, topk_w, params, d, cfg,
                           cap).reshape(b, s, dm)
     if d.shared is not None:
         sh = params["shared"]

@@ -125,7 +125,14 @@ this file imports no JAX, so it runs on a machine with only PyTorch:
 (v) the recurrent scans' chunk remat on the card: with grad on and
     ``SCAN_CHUNK`` 4, the selective scan's and WKV6's outputs and last
     state are the grad-off scan's bit for bit, and their gradients those
-    of the same chunked scan on the CPU within 1e-5 of the largest.
+    of the same chunked scan on the CPU within 1e-5 of the largest;
+(w) PE1, PE2 and PE3 grouped (a leading expert axis, one launch for all
+    experts) on every route: the tensor cores (TMA and granules, rows per
+    expert ending mid-tile, K no multiple of 64) and the CUDA cores (f32,
+    odd rows), each against its grouped twin, bit for bit over two
+    launches, one launch a call, the tensor-core routes bit for bit with
+    the loop of ungrouped launches; and a reduced MoE train step with TT
+    experts on the card against the same step on the CPU.
 """
 import math
 
@@ -2638,3 +2645,95 @@ def test_chunked_scan_on_the_card(cuda, monkeypatch, kind):
     for a, b in zip(grads["cpu"], grads[str(cuda)]):
         assert (a - b).abs().max() <= 1e-5 * a.abs().max()
 
+
+
+# ---------------------------------------------------------------------------
+# (w) grouped PE launches: the experts of an MoE layer in one launch
+# ---------------------------------------------------------------------------
+
+# (kind, E, Z shape of a group, G shape of a group, dtype): PE1 on the
+# tensor cores with a ending mid-tile and on granules (c = 20: 8-byte
+# granules, a group 2,440 bytes), PE2 stacked with slabs ending mid-tile,
+# thin, wide and on Z's granules, PE3 with K = 80 and 24 (a 64-row chunk
+# and zero fill), the f32 calls and odd rows on the CUDA cores
+PE_GROUPED = [
+    ("pe1", 3, (200, 1, 16), (1, 256, 16), torch.bfloat16),
+    ("pe1", 4, (61, 1, 20), (1, 64, 20), torch.bfloat16),
+    ("pe1", 3, (37, 5, 48), (5, 18, 48), torch.float32),
+    ("pe2", 3, (10, 64, 16), (64, 176), torch.bfloat16),
+    ("pe2", 2, (7, 96, 176), (96, 8), torch.bfloat16),
+    ("pe2", 2, (3, 130, 264), (130, 72), torch.bfloat16),
+    ("pe2", 3, (5, 40, 20), (40, 256), torch.bfloat16),
+    ("pe2", 3, (9, 33, 13), (33, 6), torch.bfloat16),
+    ("pe2", 3, (19, 7, 33), (7, 21), torch.float32),
+    ("pe3", 3, (80, 256), (80, 200), torch.bfloat16),
+    ("pe3", 5, (24, 320), (24, 192), torch.bfloat16),
+    ("pe3", 3, (130, 65), (130, 47), torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", range(len(PE_GROUPED)))
+def test_grouped_pe_kernels_match_twins_and_repeat(cuda, case):
+    from repro_torch.kernels import tt_mma
+    kind, e, zs, gs, dtype = PE_GROUPED[case]
+    g = torch.Generator(device=cuda).manual_seed(40 + case)
+    z = torch.randn((e,) + zs, generator=g, device=cuda).to(dtype)
+    w = (torch.randn((e,) + gs, generator=g, device=cuda) * 0.2).to(dtype)
+    mod = {"pe1": ttm_pe1, "pe2": ttm_pe2, "pe3": ttm_pe3}[kind]
+    # PE3 takes (Ybar, X): the G shape is Ybar's (b, j), Z's X (b, i)
+    args = (w, z) if kind == "pe3" else (z, w)
+    kern, twin = getattr(mod, f"{kind}_cuda"), getattr(mod, f"{kind}_torch")
+    B.reset_launches()
+    out = kern(*args)
+    assert B.LAUNCHES == {f"{kind}_grouped": 1}
+    ref = twin(*(t.cpu() for t in args))
+    assert out.shape == ref.shape
+    _close(out, ref, dtype)
+    iv = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.view(iv), kern(*args).view(iv))
+    if kind == "pe1":
+        mma = ttm_pe1.plan_pe1_for(z, w) is not None
+    else:
+        zz = z[:, None] if kind == "pe3" else z
+        mma = tt_mma.plan_for(zz, w) is not None
+    assert mma == (dtype == torch.bfloat16 and case not in (7,))
+    if mma:     # each tile one warpgroup's sum in a fixed order
+        loop = torch.stack([kern(*(t[k] for t in args)) for k in range(e)])
+        assert torch.equal(out.view(iv), loop.view(iv))
+
+
+def test_moe_tt_step_on_card_matches_cpu(cuda):
+    """One step of reduced moonshot with TT experts (f32: the CUDA-core
+    routes) on the card against the same step on the CPU, and its grouped
+    launches as ``launches_per_step`` counts them."""
+    from repro_torch.configs.base import QuantConfig, TTConfig
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import make_batch_fn
+    cfg = C.get_reduced("moonshot-v1-16b").replace(
+        dtype="float32", quant=QuantConfig(enable=True),
+        tt=TTConfig(enable=True, d=3, max_rank=4, min_elements=1024,
+                    apply_to=("ffn", "attn_qkv", "attn_o", "expert")))
+    lm = build_lm(cfg)
+    tcfg = TrainConfig(total_steps=4, warmup_steps=1)
+    params = init_lm(torch.Generator().manual_seed(0), lm, device="cpu")
+    batch = {k: torch.from_numpy(v)
+             for k, v in make_batch_fn(cfg, 2, 16, 0)(0).items()}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        st = S.init_train_state(p, tcfg, policy=cfg.quant.policy())
+        B.reset_launches()
+        st, m = S.make_train_step(lm, None, tcfg)(
+            st, {k: v.to(dev) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        out[dev] = (st, m, dict(B.LAUNCHES))
+    want = S.launches_per_step(lm, tcfg, params)
+    fwd = 2 if cfg.remat == "full" else 1
+    assert out["cuda"][2] == want and want["p2_fq_rows"] == 2 * 3 * 3 * fwd
+    for k in ("loss", "ce", "aux", "gnorm"):
+        assert float(out["cuda"][1][k]) == pytest.approx(
+            float(out["cpu"][1][k]), rel=4e-5), k
+    for (path, a), (_, b) in zip(flatten_with_path(out["cpu"][0].params),
+                                 flatten_with_path(out["cuda"][0].params)):
+        if a.is_floating_point():
+            assert (a - b.cpu()).abs().max().item() <= 1e-3, path

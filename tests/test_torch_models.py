@@ -150,15 +150,15 @@ def test_gqa_attend_matches_jax():
 
 def test_out_of_slice_families_raise():
     # MLA builds (deepseek-v2-236b is MLA and MoE, with shared experts;
-    # tests/test_torch_mla.py holds it to the reference); its TT "expert"
-    # sites wait for MoE training
+    # tests/test_torch_mla.py holds it to the reference), its TT "expert"
+    # sites too (tests/test_torch_zoo_train_deepseek.py trains them)
     lm = t_build(TC.get_reduced("deepseek-v2-236b"))
     assert [s.mixer_kind for s in lm.period] == ["attn_mla"]
     assert lm.period[0].ffn.shared is not None
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_build(TC.with_tt(TC.get_config("deepseek-v2-236b")))
+    assert t_build(TC.with_tt(TC.get_config("deepseek-v2-236b"))
+                   ).period[0].ffn.gate.use_tt
     # the MoE families build, experts and all (tests/test_torch_moe.py
-    # holds them to the reference); TT "expert" sites wait for MoE training
+    # holds them to the reference), TT "expert" sites too
     from repro_torch.configs.base import MoEConfig
     for arch, over in (("rwkv6-1.6b", {}), ("moonshot-v1-16b", {}),
                        ("jamba-1.5-large", {}),
@@ -168,8 +168,8 @@ def test_out_of_slice_families_raise():
             assert lm.n_periods * len(lm.period) == cfg.num_layers
             assert ("moe" in [s.ffn_kind for s in lm.period]) == (
                 arch != "rwkv6-1.6b" and not over)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_build(TC.with_tt(TC.get_config("moonshot-v1-16b")))
+    assert t_build(TC.with_tt(TC.get_config("moonshot-v1-16b"))
+                   ).period[0].ffn.down.use_tt
     # TT sites are ported (every projection TT here); remat="dots" is not
     cfg = TC.with_tt(TC.get_reduced(ARCH).replace(dtype="float32"))
     lm = t_build(cfg.replace(tt=cfg.tt.__class__(enable=True,

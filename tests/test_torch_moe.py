@@ -459,8 +459,8 @@ def test_full_configs_build_and_later_slices_raise():
     cfg = TC.get_reduced("moonshot-v1-16b")
     tt = TTConfig(enable=True, min_elements=1,
                   apply_to=("ffn", "expert"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TL.build_lm(cfg.replace(tt=tt))
+    # TT "expert" sites build (tests/test_torch_moe_tt.py holds them)
+    assert TL.build_lm(cfg.replace(tt=tt)).period[0].ffn.gate.use_tt
     # the router is an ordinary ffn site: TT when the config says so
     lm = TL.build_lm(cfg.replace(tt=dataclasses.replace(tt,
                                                         apply_to=("ffn",))))

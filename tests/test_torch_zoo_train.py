@@ -57,8 +57,9 @@ def patch_scan_chunk(monkeypatch, chunk=4):
 
 def _cfgs(arch, remat="none", tt=False):
     """The reduced ``arch`` in f32 for both packages; jamba with dense FFNs
-    (its experts are ROADMAP queue 1 item 10); with ``tt`` the TT sites of
-    ``with_tt`` (d = 3, rank 4, ``min_elements`` 1,024) and quantization."""
+    (its experts: ``test_torch_zoo_train_jamba_moe.py``); with ``tt`` the
+    TT sites of ``with_tt`` (d = 3, rank 4, ``min_elements`` 1,024) and
+    quantization."""
     jo, to = {}, {}
     if arch.startswith("jamba"):
         jo = {"moe": JMoE(num_experts=0)}

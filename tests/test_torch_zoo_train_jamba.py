@@ -1,8 +1,8 @@
 """repro_torch's train step on jamba-1.5-large with dense FFNs against
 repro (the JAX reference): ``test_torch_zoo_train.py``'s twin of
 ``tests/test_models.py::test_reduced_train_step`` on the Mamba selective
-scan beside attention, on its helpers and tolerances. Its experts are
-ROADMAP queue 1 item 10.
+scan beside attention, on its helpers and tolerances. Its experts:
+``test_torch_zoo_train_jamba_moe.py``.
 
 Reduced (two periods of Mamba, attention, Mamba, Mamba), float32, under
 ``remat`` "none" and "full", with ``SCAN_CHUNK`` patched to 4 in both
